@@ -1,0 +1,23 @@
+"""The port's hand-written Hopper kernels and their plain PyTorch versions.
+
+Each kernel wrapper carries ``launches``, a plain integer it increments
+each time it launches its CUDA kernel (never for the plain version on a CPU
+tensor), so a run can show that its main path went through the kernels.
+"""
+
+from . import decode_attention, fused_block_decode, paged_attention
+
+
+def wrappers():
+    """The kernel wrappers of the ported slice."""
+    return (decode_attention.flash_prefill, paged_attention.paged_attention,
+            fused_block_decode.fused_block_decode)
+
+
+def reset_launches() -> None:
+    for fn in wrappers():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in wrappers()}

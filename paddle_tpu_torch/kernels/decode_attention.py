@@ -1,0 +1,118 @@
+"""Attention of a block of queries against a contiguous KV cache.
+
+Counterpart of ``paddle_tpu/kernels/decode_attention.py``: the serving
+prefill attends a whole prompt causally to itself through
+:func:`cached_attention`, which for S > 1 runs :func:`flash_prefill`, the
+hand-written CUDA kernel in ``csrc/flash_prefill.cu``. Layouts follow the
+JAX package: q ``(B, S, H, D)``, caches ``(B, T, Hkv, D)``, query head h
+reads kv head ``h // (H // Hkv)``.
+
+Unlike the TPU kernel, which refused a cache length that is not a multiple
+of its kv block (and ``cached_attention`` then dropped to the dense path),
+the CUDA kernel masks the ragged tail itself and takes every S > 1 call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+_NEG_INF = -1e30
+_MAX_HEAD_DIM = 128
+
+
+def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_len: int,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of ``q`` (B, S, H, D) against caches (B, T, Hkv, D) whose
+    first ``cur_len`` positions are valid; the S query rows sit at absolute
+    positions ``cur_len - S .. cur_len - 1``, masked causally. S > 1 runs
+    the prefill kernel; S == 1 the dense composition."""
+    if q.shape[1] > 1:
+        return flash_prefill(q, k_cache, v_cache, cur_len, sm_scale)
+    return cached_attention_dense(q, k_cache, v_cache, cur_len, sm_scale)
+
+
+def cached_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cur_len: int,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Dense composition that materialises the (S, T) scores, in f32."""
+    b, s, h, d = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    if h % hkv:
+        raise ValueError(f"query heads {h} not divisible by kv heads {hkv}")
+    rep = h // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qf = q.reshape(b, s, hkv, rep, d).float() * sm_scale
+    scores = torch.einsum("bsgrd,btgd->bgrst", qf, k_cache.float())
+    q_pos = cur_len - s + torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    scores = scores.masked_fill(~(k_pos <= q_pos), _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", probs, v_cache.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_prefill_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, cur_len: int,
+                      sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_prefill`: the dense composition."""
+    return cached_attention_dense(q, k_cache, v_cache, cur_len, sm_scale)
+
+
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cur_len: int,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal prefill attention without materialising the scores.
+
+    CPU tensors take :func:`flash_prefill_ref`. CUDA tensors launch the
+    kernel: float32 or bfloat16, contiguous, S > 1, D <= 128, any T; a
+    tensor it does not take raises."""
+    if q.device.type == "cpu":
+        return flash_prefill_ref(q, k_cache, v_cache, cur_len, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill runs on cuda or cpu, got {q.device}")
+    b, s, h, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"k/v caches must share a (B, T, Hkv, D) shape, got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    _, t, hkv, dk = k_cache.shape
+    if k_cache.shape[0] != b or dk != d:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if h % hkv:
+        raise ValueError(f"query heads {h} not divisible by kv heads {hkv}")
+    if s < 2:
+        raise ValueError("flash_prefill is for S > 1; decode takes the "
+                         "paged kernel")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    code = _build.dtype_code(q.dtype)
+    out = torch.empty_like(q)
+    fn = _build.bind("flash_prefill", "ptt_flash_prefill", _ARGTYPES)
+    rc = fn(code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), b, s, t, h, hkv, d, int(cur_len) - s,
+            float(sm_scale), _build.stream_handle(q.device))
+    _build.check(rc, "flash_prefill")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0

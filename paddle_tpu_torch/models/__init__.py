@@ -1,0 +1,3 @@
+from .llama import LlamaConfig, LlamaForCausalLM
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM"]

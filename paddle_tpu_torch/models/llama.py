@@ -1,0 +1,255 @@
+"""Llama (counterpart of ``paddle_tpu/models/llama.py``, without the
+pipeline classes): RMSNorm + rotary + GQA + SwiGLU.
+
+Parameter names and shapes are the JAX model's (``Linear`` keeps the
+``(in, out)`` layout), so ``raw_state()`` carries across through
+:meth:`LlamaForCausalLM.load_numpy_state`. The cached forward runs over the
+paged KV pool; the no-cache forward uses a plain dense causal attention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..convert import state_from_numpy
+from ..device import DeviceLike, resolve_device, seed
+from ..incubate.nn import functional as FF
+from ..kernels.paged_attention import PagedDecodeState, paged_position_ids
+from ..nn import functional as F
+from ..nn.layers.common import Embedding, Linear, RMSNorm
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    intermediate_size: int = 11008
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    initializer_range: float = 0.02
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+
+    @staticmethod
+    def llama2_7b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           intermediate_size=128, max_position_embeddings=128)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, **kw):
+        super().__init__()
+        h = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = h // self.num_heads
+        self.rope_theta = config.rope_theta
+        std = config.initializer_range
+        self.q_proj = Linear(h, self.num_heads * self.head_dim, False,
+                             std=std, **kw)
+        self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, False,
+                             std=std, **kw)
+        self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, False,
+                             std=std, **kw)
+        self.o_proj = Linear(self.num_heads * self.head_dim, h, False,
+                             std=std, **kw)
+
+    def forward(self, x, position_ids=None, cache=None):
+        b, s, _ = x.shape
+        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        if cache is not None:
+            state, offset = cache
+            if not isinstance(state, PagedDecodeState):
+                raise NotImplementedError(
+                    "only the paged KV cache is ported; the ring-buffer "
+                    "cache comes with the generation slice")
+            if position_ids is None:
+                position_ids = paged_position_ids(s, offset, state)
+        elif position_ids is None:
+            position_ids = torch.arange(s, device=x.device).expand(b, s)
+        q, k, _ = FF.fused_rotary_position_embedding(
+            q, k, None, position_ids=position_ids,
+            rotary_emb_base=self.rope_theta)
+        if cache is not None:
+            out, state = F.paged_scaled_dot_product_attention(q, k, v, state)
+            return self.o_proj(out.reshape(b, s, -1)), state
+        out = F.causal_attention(q, k, v)
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, **kw):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        std = config.initializer_range
+        self.gate_proj = Linear(h, i, False, std=std, **kw)
+        self.up_proj = Linear(h, i, False, std=std, **kw)
+        self.down_proj = Linear(i, h, False, std=std, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, **kw):
+        super().__init__()
+        norm_kw = {k: kw[k] for k in ("device", "dtype")}
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps, **norm_kw)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps,
+                                                **norm_kw)
+        self.mlp = LlamaMLP(config, **kw)
+
+    def forward(self, x, position_ids=None, cache=None):
+        if cache is not None:
+            attn, new_state = self.self_attn(self.input_layernorm(x),
+                                             position_ids, cache)
+            x = x + attn
+            x = x + self.mlp(self.post_attention_layernorm(x))
+            return x, new_state
+        x = x + self.self_attn(self.input_layernorm(x), position_ids)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, **kw):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      std=config.initializer_range, **kw)
+        self.layers = nn.ModuleList(
+            LlamaDecoderLayer(config, **kw)
+            for _ in range(config.num_hidden_layers))
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            device=kw["device"], dtype=kw["dtype"])
+
+    def forward(self, input_ids, position_ids=None, caches=None,
+                offset=None):
+        x = self.embed_tokens(input_ids)
+        if caches is None:
+            for layer in self.layers:
+                x = layer(x, position_ids)
+            return self.norm(x)
+        new_caches = []
+        for layer, state in zip(self.layers, caches):
+            x, state = layer(x, position_ids, cache=(state, offset))
+            new_caches.append(state)
+        return self.norm(x), new_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama with its LM head. Built on the card unless ``device`` says
+    otherwise; weights are drawn from ``generator`` (default: seed 0 on the
+    model's device)."""
+
+    def __init__(self, config: LlamaConfig, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        dtype = dtype or torch.float32
+        if generator is None:
+            generator = seed(0, dev)
+        kw = dict(device=dev, dtype=dtype, generator=generator)
+        self.config = config
+        self.llama = LlamaModel(config, **kw)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Linear(config.hidden_size, config.vocab_size, False,
+                               std=config.initializer_range, **kw))
+
+    @property
+    def device(self) -> torch.device:
+        return self.llama.embed_tokens.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.llama.embed_tokens.weight.dtype
+
+    def logits(self, hidden):
+        if self.lm_head is None:
+            return hidden @ self.llama.embed_tokens.weight.T
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids):
+        return self.logits(self.llama(input_ids))
+
+    def cache_spec(self):
+        c = self.config
+        return [(c.num_key_value_heads,
+                 c.hidden_size // c.num_attention_heads)
+                for _ in range(c.num_hidden_layers)]
+
+    def forward_with_cache(self, input_ids, caches, offset):
+        hidden, new_caches = self.llama(input_ids, caches=caches,
+                                        offset=offset)
+        return self.logits(hidden), new_caches
+
+    def block_decode_spec(self, fused_layers: int = 1):
+        """Which named parameters form each layer's ``BlockDecodeWeights``
+        for the fused decode step, plus the embedding / final-norm / lm-head
+        names and the attention geometry."""
+        if fused_layers != 1:
+            raise NotImplementedError(
+                "fused_layers > 1 (the N-layer decode kernel) is not ported")
+        c = self.config
+        layers = []
+        for i in range(c.num_hidden_layers):
+            p = f"llama.layers.{i}."
+            layers.append(dict(
+                ln1=p + "input_layernorm.weight",
+                wq=p + "self_attn.q_proj.weight",
+                wk=p + "self_attn.k_proj.weight",
+                wv=p + "self_attn.v_proj.weight",
+                wo=p + "self_attn.o_proj.weight",
+                ln2=p + "post_attention_layernorm.weight",
+                wg=p + "mlp.gate_proj.weight",
+                wu=p + "mlp.up_proj.weight",
+                wd=p + "mlp.down_proj.weight"))
+        return dict(
+            arch="llama", layers=layers,
+            embed="llama.embed_tokens.weight",
+            final_norm="llama.norm.weight",
+            lm_head=None if self.lm_head is None else "lm_head.weight",
+            num_heads=c.num_attention_heads,
+            num_kv_heads=c.num_key_value_heads,
+            rope_theta=c.rope_theta,
+            epsilon=c.rms_norm_eps)
+
+    @torch.no_grad()
+    def load_numpy_state(self, named: Mapping[str, np.ndarray]) -> None:
+        """Copy every parameter from ``named`` (name -> array, e.g. the JAX
+        model's ``raw_state()``), cast to this model's dtype. Names must
+        match exactly."""
+        params = dict(self.named_parameters())
+        missing = sorted(set(params) - set(named))
+        extra = sorted(set(named) - set(params))
+        if missing or extra:
+            raise KeyError(f"state mismatch: missing {missing}, "
+                           f"unexpected {extra}")
+        for name, t in state_from_numpy(named, self.device,
+                                        self.dtype).items():
+            if t.shape != params[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                                 f"{tuple(params[name].shape)}")
+            params[name].copy_(t)

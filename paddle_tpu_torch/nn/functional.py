@@ -1,0 +1,75 @@
+"""Functional surface of the ported slice (counterpart of
+``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU and the paged attention
+that routes a whole-prompt prefill (S > 1) or a decode step (S == 1)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as TF
+
+from ..kernels.decode_attention import (cached_attention,
+                                        cached_attention_dense)
+from ..kernels.paged_attention import (PagedDecodeState, paged_attention,
+                                       write_paged_kv, write_paged_prompt)
+
+
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+             epsilon: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: f32 moments, cast back to x's dtype, then the weight."""
+    h = x.float()
+    var = (h * h).mean(dim=-1, keepdim=True)
+    out = (h * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight.to(x.dtype)
+    return out
+
+
+def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """silu(x) * y; with ``y=None`` x splits in two on its last axis."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return TF.silu(x) * y
+
+
+def causal_attention(query: torch.Tensor, key: torch.Tensor,
+                     value: torch.Tensor) -> torch.Tensor:
+    """Plain dense causal attention, ``(B, S, H, D)`` layout, GQA kv
+    unexpanded: the no-cache forward's attention."""
+    return cached_attention_dense(query, key, value, query.shape[1])
+
+
+def paged_scaled_dot_product_attention(query, key, value, state
+                                       ) -> Tuple[torch.Tensor,
+                                                  PagedDecodeState]:
+    """Paged (block-table) attention of ``query``/``key``/``value``
+    ``(B, S, H|Hkv, D)`` against one layer's :class:`PagedDecodeState`.
+
+    Prefill (S > 1, empty sequences): the prompt's k/v are written to the
+    pool and the prompt attends causally to itself (:func:`cached_attention`,
+    the prefill kernel). Decode (S == 1): the token is written at position
+    ``seq_lens`` and attends through the block tables
+    (:func:`paged_attention`). Returns ``(out, new_state)``; the pools are
+    updated in place. The chunked-prefill route is a later slice."""
+    if not isinstance(state, PagedDecodeState):
+        raise NotImplementedError(
+            f"{type(state).__name__}: only PagedDecodeState is ported; "
+            "chunked prefill (PagedChunkState) comes with a later slice")
+    kp, vp, bt, sl = state
+    s = query.shape[1]
+    if s > 1:
+        # the whole-prompt contract: the sequences are empty. Checked where
+        # the lengths are on the host already; on the card it is the
+        # caller's (reading them back would stall every layer)
+        if sl.device.type == "cpu" and int(sl.max()) != 0:
+            raise ValueError(
+                "paged prefill (S > 1) requires empty sequences (seq_lens "
+                f"all 0); got max {int(sl.max())}")
+        write_paged_prompt(kp, vp, key, value, bt)
+        out = cached_attention(query, key, value, s)
+    else:
+        write_paged_kv(kp, vp, key[:, 0], value[:, 0], bt, sl)
+        out = paged_attention(query[:, 0], kp, vp, bt, sl + 1)[:, None]
+    return out, PagedDecodeState(kp, vp, bt, sl + s)

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where a serving step's time goes on the CUDA card (the PyTorch port).
+
+    python3 tools/torch_serving_profile.py [--layers 32] [--steps 8]
+
+Builds Llama-2-7B (bf16, random weights from ``--seed``) and a
+``ServingEngine(max_batch=4, page_size=64, max_seq_len=1024)``, fills its
+four slots with prompts of 17, 100, 200 and 256 tokens, and traces with
+``torch.profiler``, for the fused and the generic decode in turn:
+
+  prefill  one engine step that admits a 256-token prompt into an empty
+           engine (its whole-prompt prefill, then one decode step);
+  decode   ``--steps`` decode-only engine steps with all four slots busy.
+
+Per window it prints one JSON line: the host-clock wall time (ending in a
+synchronise), the summed device time of every kernel, copy and memset the
+trace saw (one stream, so they do not overlap), the device's idle share
+(1 - device / wall), and the kernels that
+took the most device time, with their launch counts. Then the card's name
+and power limit. Exits non-zero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+
+PROMPT_LENS = (17, 100, 200, 256)
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", 0.0)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def window(name: str, fn, top: int) -> dict:
+    """Trace ``fn`` once and summarise the device time by kernel."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's own events (kernels, copies, memsets); a CPU-side op
+    # such as aten::mm also carries its kernels' time, so counting it too
+    # would count that time twice
+    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not rows:   # the trace saw no device activity: not measured
+        return dict(window=name, wall_ms=1e3 * wall, device_ms=None,
+                    idle_share=None, kernels=[])
+    device = sum(us for _, us, _ in rows) / 1e6
+    rows.sort(key=lambda r: -r[1])
+    return dict(window=name, wall_ms=1e3 * wall, device_ms=1e3 * device,
+                idle_share=1.0 - device / wall,
+                kernels=[dict(name=k[:80], device_ms=us / 1e3, count=n)
+                         for k, us, n in rows[:top]])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_serving_profile: no CUDA card", file=sys.stderr)
+        return 1
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = args.layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=seed(args.seed, "cuda"))
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    new_tokens = len(PROMPT_LENS) + 4 + args.steps
+    for fused in (True, False):
+        flags.set_flags({"fused_block_decode": fused})
+        eng = ServingEngine(model, max_batch=4, page_size=64,
+                            max_seq_len=1024)
+        eng.submit(prompts[0][:9], 2)         # warm-up: library loads
+        eng.run()
+        eng.submit(prompts[-1], new_tokens)
+        pre = window("prefill", eng.step, args.top)
+        for p in prompts[:-1]:
+            eng.submit(p, new_tokens)
+        for _ in range(len(PROMPT_LENS) + 1):   # admit the rest, settle
+            eng.step()
+        dec = window("decode", lambda: [eng.step()
+                                        for _ in range(args.steps)],
+                     args.top)
+        dec["steps"] = args.steps
+        for w in (pre, dec):
+            w.update(decode="fused" if fused else "generic",
+                     layers=args.layers, batch=4, dtype="bf16")
+            print(json.dumps(w), flush=True)
+        flags.reset_flags()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
