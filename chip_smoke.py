@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Llama serving path on one CUDA card.
+"""Drive the PyTorch port's Llama serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,27 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               which kernels the run went through;
   4. parity   the same engine in fp32 at full width with 2 layers, its
               per-token logits held against a teacher-forced no-cache
-              forward of the model (plain PyTorch) on the card.
+              forward of the model on the card. That forward runs the
+              flash-attention forward kernel, which train_kernels holds to
+              its plain version;
+  5. train_kernels
+              the training attention kernels (forward, dq, dk/dv) against
+              autograd of the dense flash_attention_ref on the card, causal,
+              at Llama-2-7B heads (S=4096), Llama-2-70B heads (GQA, S=2048)
+              and a ragged length (S=1000), bf16 (out within 1e-3 + one
+              bf16 ulp of the reference, lse 1e-3, grads 2e-2 of their
+              largest element) and fp32 (1e-4 each), with kernel, plain,
+              library (SDPA forward, forward + backward, and its backward
+              alone) and bound times;
+  6. train    Llama-2-7B width cut to 8 layers, bf16 with f32 masters,
+              TrainStep(grad_accum_steps=2) + AdamW + global-norm clip +
+              warmup/cosine LR, 5 steps on one fixed batch of 2 x 4096
+              tokens: finite, falling losses, each flash kernel launched
+              8 layers x 2 micro-batches x 5 steps = 80 times;
+  7. train_parity
+              one fp32 TrainStep at full width, 2 layers, S=512 on the card
+              (kernels) and on a CPU copy (plain versions): losses and every
+              gradient before the update agree.
 Then the card's name and power limit (nvidia-smi), the per-kernel summary
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -27,6 +47,7 @@ Without a CUDA card the script exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -52,6 +73,23 @@ SEED = 1234
 PARITY_LENS, PARITY_NEW_TOKENS = (17, 77, 130, 256), 8
 PARITY_TOL = 1e-3      # fp32 logits: kernel sums vs torch.matmul order
 
+# training attention: (case, batch, S, heads, kv heads), head_dim 128
+TRAIN_SHAPES = (("llama2_7b heads", 1, 4096, 32, 32),
+                ("llama2_70b heads, GQA", 1, 2048, 64, 8),
+                ("ragged, GQA", 2, 1000, 32, 8))
+# flash forward: out within atol + rtol |ref| elementwise (rtol: one bf16
+# ulp, as both sides round the same f32 value), the f32 lse within abs
+OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
+LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # max|a-b|/max|b|
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 8, 4096, 2, 2
+TRAIN_STEPS = 5
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 512
+TRAIN_PARITY_LOSS_TOL = 1e-4    # relative, fp32 (TF32 off)
+TRAIN_PARITY_GRAD_TOL = 1e-3    # relative L2 per parameter
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
 SOURCES = {
     "flash_prefill": ("paddle_tpu_torch/kernels/csrc/flash_prefill.cu",
                       "paddle_tpu/kernels/decode_attention.py:140"),
@@ -60,6 +98,15 @@ SOURCES = {
     "fused_block_decode": (
         "paddle_tpu_torch/kernels/csrc/fused_block_decode.cu",
         "paddle_tpu/kernels/fused_block_decode.py:265"),
+    "flash_attention_fwd": (
+        "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "paddle_tpu/kernels/flash_attention.py:253"),
+    "flash_attention_bwd_dq": (
+        "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "paddle_tpu/kernels/flash_attention.py:453"),
+    "flash_attention_bwd_dkv": (
+        "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+        "paddle_tpu/kernels/flash_attention.py:486"),
 }
 
 
@@ -96,7 +143,7 @@ def sdpa(q, k, v, **kw):
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def require(ok: bool, what: str) -> None:
@@ -400,6 +447,261 @@ def run_parity(device):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------- train_kernels
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def check_flash_attention(dtype, device, rows):
+    """Forward, dq and dk/dv against autograd of the dense reference on
+    the card; then each kernel's time beside its plain version's, SDPA's
+    (forward; forward + backward; backward alone), and the card's bound.
+    Appends one row per kernel and shape."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    for case, b, s, h, hkv in TRAIN_SHAPES:
+        q = _rand(gen, (b * h, s, HEAD_DIM), dtype, device)
+        k = _rand(gen, (b * hkv, s, HEAD_DIM), dtype, device)
+        v = _rand(gen, (b * hkv, s, HEAD_DIM), dtype, device)
+        do = _rand(gen, (b * h, s, HEAD_DIM), dtype, device)
+        kw = dict(causal=True, n_heads=h, n_kv_heads=hkv)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = fa.flash_attention_ref(*leaves, **kw)
+        ref_grads = torch.autograd.grad(ref, leaves, do)
+        _, lse_ref = fa.flash_attention_fwd_ref(q, k, v, **kw)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (out.float() * do.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = OUT_TOL[dtype]
+        out_err, lse_err = max_err(out, ref), max_err(lse, lse_ref)
+        out_excess = float(((out.float() - ref.detach().float()).abs()
+                            - rtol * ref.detach().float().abs()).max())
+        dq_rel = rel_err(dq, ref_grads[0])
+        dkv_rel = max(rel_err(dk, ref_grads[1]), rel_err(dv, ref_grads[2]))
+        dq_abs = max_err(dq, ref_grads[0])
+        dkv_abs = max(max_err(dk, ref_grads[1]), max_err(dv, ref_grads[2]))
+        tag = f"{case} B={b} S={s} H={h} Hkv={hkv} {DTYPE_NAME[dtype]}"
+        require(out_excess <= atol, f"flash fwd out {tag}: {out_excess} "
+                f"over {rtol} |ref|")
+        require(lse_err <= LSE_TOL[dtype], f"flash fwd lse {tag}: {lse_err}")
+        require(dq_rel <= GRAD_TOL[dtype], f"flash dq {tag}: {dq_rel}")
+        require(dkv_rel <= GRAD_TOL[dtype], f"flash dk/dv {tag}: {dkv_rel}")
+        del leaves, ref, ref_grads, dq, dk, dv
+        torch.cuda.empty_cache()
+
+        bwd = (q, k, v, do, lse, delta)
+        t = dict(
+            fwd=time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                        iters=10, warmup=2),
+            dq=time_ms(lambda: fa.flash_attention_bwd_dq(*bwd, **kw),
+                       iters=10, warmup=2),
+            dkv=time_ms(lambda: fa.flash_attention_bwd_dkv(*bwd, **kw),
+                        iters=10, warmup=2),
+            fwd_plain=time_ms(lambda: fa.flash_attention_fwd_ref(
+                q, k, v, **kw), iters=5, warmup=1),
+            dq_plain=time_ms(lambda: fa.flash_attention_bwd_dq_ref(
+                *bwd, **kw), iters=5, warmup=1),
+            dkv_plain=time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
+                *bwd, **kw), iters=5, warmup=1))
+        qs, ks, vs, dos = (x.reshape(b, -1, s, HEAD_DIM)
+                           for x in (q, k, v, do))
+        t["sdpa_fwd"] = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True),
+                                iters=10, warmup=2)
+        lq, lk, lv = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
+
+        def sdpa_fwd_bwd():
+            o = sdpa(lq, lk, lv, is_causal=True)
+            torch.autograd.grad(o, (lq, lk, lv), dos)
+
+        t["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters=10, warmup=2)
+        # SDPA's backward alone: one saved forward, then its backward op
+        # (of the backend SDPA picked on this card) again and again
+        o = sdpa(lq, lk, lv, is_causal=True)
+        t["sdpa_bwd"] = time_ms(lambda: torch.autograd.grad(
+            o, (lq, lk, lv), dos, retain_graph=True), iters=10, warmup=2)
+        del o
+
+        elem = q.element_size()
+        pairs = b * h * s * (s + 1) // 2          # causal (query, key) pairs
+        fwd_ops = 4.0 * pairs * HEAD_DIM          # QK^T and PV
+        stats = 4 * 2 * q.shape[0] * s            # lse and delta, f32
+        bounds = dict(
+            fwd=bound_ms(elem * (2 * q.numel() + k.numel() + v.numel())
+                         + 4 * q.shape[0] * s, fwd_ops, dtype),
+            # dq recomputes S and dP and forms dS K: 3 products
+            dq=bound_ms(elem * (3 * q.numel() + k.numel() + v.numel())
+                        + stats, 1.5 * fwd_ops, dtype),
+            # dk/dv recompute S and dP and form P^T dO and dS^T Q: 4
+            dkv=bound_ms(elem * (2 * q.numel() + 2 * k.numel()
+                                 + 2 * v.numel()) + stats,
+                         2.0 * fwd_ops, dtype),
+            # the fused backward (dq and dk/dv from one recompute): 2.5x
+            bwd=bound_ms(elem * (3 * q.numel() + 2 * k.numel()
+                                 + 2 * v.numel()) + stats,
+                         2.5 * fwd_ops, dtype))
+        emit("train_kernels", case=case, dtype=DTYPE_NAME[dtype], B=b, S=s,
+             H=h, Hkv=hkv, D=HEAD_DIM, out_max_err=out_err,
+             out_excess=out_excess, out_atol=atol, out_rtol=rtol,
+             lse_max_err=lse_err, lse_tol=LSE_TOL[dtype],
+             dq_rel_err=dq_rel, dkv_rel_err=dkv_rel,
+             grad_tol=GRAD_TOL[dtype],
+             kernel_ms=dict(fwd=t["fwd"], bwd=t["dq"] + t["dkv"],
+                            dq=t["dq"], dkv=t["dkv"]),
+             plain_ms=dict(fwd=t["fwd_plain"],
+                           bwd=t["dq_plain"] + t["dkv_plain"],
+                           dq=t["dq_plain"], dkv=t["dkv_plain"]),
+             library_ms=dict(sdpa_fwd=t["sdpa_fwd"],
+                             sdpa_fwd_bwd=t["sdpa_fwd_bwd"],
+                             sdpa_bwd=t["sdpa_bwd"]),
+             bound_ms={key: val[0] for key, val in bounds.items()},
+             bound_by={key: val[1] for key, val in bounds.items()})
+        # library: SDPA's forward; for dq and dk/dv, SDPA's one backward
+        # op, which computes both
+        for name, key, err, lib in (
+                ("flash_attention_fwd", "fwd", max(out_err, lse_err),
+                 t["sdpa_fwd"]),
+                ("flash_attention_bwd_dq", "dq", dq_abs, t["sdpa_bwd"]),
+                ("flash_attention_bwd_dkv", "dkv", dkv_abs, t["sdpa_bwd"])):
+            rows.append(dict(
+                kernel=name, dtype=DTYPE_NAME[dtype], S=s, case=case,
+                max_err=err, kernel_ms=t[key], plain_ms=t[key + "_plain"],
+                library_ms=lib, bound_ms=bounds[key][0],
+                bound_by=bounds[key][1]))
+        del q, k, v, do, lse, delta, out, lq, lk, lv
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- train
+def make_trainer(model, lr, steps=None, grad_accum_steps=1):
+    """AdamW(multi_precision) + global-norm clip, through TrainStep; with
+    ``steps`` a 2-step linear warmup into a cosine decay."""
+    from paddle_tpu_torch.hapi import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    sched = lr if steps is None else LinearWarmup(
+        CosineAnnealingDecay(lr, T_max=steps), warmup_steps=2,
+        start_lr=lr / 10, end_lr=lr)
+    opt = AdamW(sched, parameters=model.named_parameters(),
+                weight_decay=0.01, multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, opt, grad_accum_steps=grad_accum_steps)
+
+
+def token_batch(vocab, batch, seq, seed_offset):
+    """Seeded (inputs, shifted labels), int64, on the host."""
+    rng = np.random.default_rng(SEED + seed_offset)
+    ids = torch.from_numpy(rng.integers(0, vocab, (batch, seq + 1)))
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def run_train(device):
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = TRAIN_LAYERS
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                             generator=seed(SEED, device))
+    trainer = make_trainer(model, 3e-4, steps=TRAIN_STEPS,
+                           grad_accum_steps=TRAIN_ACCUM)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, TRAIN_BATCH,
+                                              TRAIN_SEQ, 5))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer(x, y))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    require(all(math.isfinite(v) for v in losses), f"train losses {losses}")
+    require(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    want = TRAIN_LAYERS * TRAIN_ACCUM * TRAIN_STEPS
+    for name in TRAIN_KERNELS:
+        require(counts[name] == want,
+                f"{name} ran {counts[name]} times, want {want}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.hidden_size
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = (3.5 * 4.0 * pairs * cfg.hidden_size * TRAIN_LAYERS
+            * TRAIN_BATCH)                       # forward 1x + backward 2.5x
+    flops = 6.0 * n_matmul * tokens + attn
+    step_ms = 1e3 * float(np.median(step_s))
+    emit("train", model="llama2_7b width", layers=TRAIN_LAYERS,
+         params=cfg.num_params(), dtype="bf16, f32 masters",
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, grad_accum_steps=TRAIN_ACCUM,
+         steps=TRAIN_STEPS, losses=losses,
+         step_ms=[1e3 * v for v in step_s], step_ms_median=step_ms,
+         tokens_per_s=tokens / (step_ms / 1e3),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         model_flops_per_step=flops, attention_flops_per_step=attn,
+         mfu_vs_989_tflops=flops / (step_ms / 1e3) / PEAK_FLOPS[
+             torch.bfloat16],
+         launches=counts, model_build_s=build_s)
+    del model, trainer, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_train_parity(device):
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = TRAIN_PARITY_LAYERS
+    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                           generator=seed(SEED + 11))
+    card = copy.deepcopy(cpu).to(device)
+    x, y = token_batch(cfg.vocab_size, 1, TRAIN_PARITY_SEQ, 6)
+    results = {}
+    for name, model, dev in (("card", card, device), ("cpu", cpu, "cpu")):
+        trainer = make_trainer(model, 3e-4)
+        kernels.reset_launches()
+        loss, grads = trainer.compute_loss_grads(x.to(dev), y.to(dev))
+        counts = kernels.launch_counts()
+        grads = {k: g.detach().float().cpu() for k, g in grads.items()}
+        trainer.apply_update()
+        require(all(bool(torch.isfinite(p).all())
+                    for p in model.parameters()),
+                f"train_parity: non-finite parameters on the {name}")
+        results[name] = (float(loss), grads, counts)
+        del trainer
+    (l_card, g_card, counts), (l_cpu, g_cpu, cpu_counts) = (
+        results["card"], results["cpu"])
+    for k in TRAIN_KERNELS:
+        require(counts[k] == TRAIN_PARITY_LAYERS,
+                f"train_parity: {k} ran {counts[k]} times on the card")
+        require(cpu_counts[k] == 0, f"train_parity: {k} launched on the CPU")
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    require(loss_rel <= TRAIN_PARITY_LOSS_TOL,
+            f"train_parity: loss {l_card} vs {l_cpu}")
+    require(sorted(g_card) == sorted(g_cpu), "train_parity: grad names")
+    worst, worst_name = 0.0, None
+    for k, g in g_cpu.items():
+        err = float((g_card[k] - g).norm() / g.norm().clamp_min(1e-30))
+        if err > worst:
+            worst, worst_name = err, k
+    require(worst <= TRAIN_PARITY_GRAD_TOL,
+            f"train_parity: grad of {worst_name} off by {worst} (rel L2)")
+    emit("train_parity", model="llama2_7b width", layers=TRAIN_PARITY_LAYERS,
+         dtype="fp32", batch=1, seq=TRAIN_PARITY_SEQ, loss_card=l_card,
+         loss_cpu=l_cpu, loss_rel_err=loss_rel, loss_tol=TRAIN_PARITY_LOSS_TOL,
+         grads=len(g_cpu), grad_rel_l2_max=worst, grad_worst=worst_name,
+         grad_tol=TRAIN_PARITY_GRAD_TOL, launches=counts)
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -425,6 +727,12 @@ def main() -> int:
     counts = run_serve(device)
     run_parity(device)
 
+    train_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_attention(dtype, device, train_rows)
+    train_counts = run_train(device)
+    run_train_parity(device)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -433,12 +741,19 @@ def main() -> int:
 
     summary = []
     for name, (source, replaces) in SOURCES.items():
-        rows = [r for r in results if r["kernel"] == name
-                and r["dtype"] == "bf16" and "kernel_ms" in r]
-        main_row = rows[-1]          # the largest serving shape in bf16
+        if name in TRAIN_KERNELS:
+            rows = [r for r in train_rows if r["kernel"] == name
+                    and r["dtype"] == "bf16"]
+            main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
+            launches = train_counts[name]
+        else:
+            rows = [r for r in results if r["kernel"] == name
+                    and r["dtype"] == "bf16" and "kernel_ms" in r]
+            main_row = rows[-1]      # the largest serving shape in bf16
+            launches = counts[True][name] + counts[False][name]
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[True][name] + counts[False][name],
+            launches=launches,
             max_abs_err=max(r["max_err"] for r in rows),
             ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -8,7 +8,10 @@ for ``sm_90a`` (``kernels/csrc``). Entry points run on the card unless the
 caller passes ``device="cpu"``; nothing here imports JAX.
 
 Ported so far: Llama serving (``generation.serving.ServingEngine``) with
-whole-prompt prefill, fused block decode and generic paged decode.
+whole-prompt prefill, fused block decode and generic paged decode; Llama
+training through ``hapi.TrainStep`` with ``optimizer.AdamW``,
+``nn.ClipGradByGlobalNorm``, the warmup/cosine LR schedules and flash
+attention forward and backward.
 """
 
 from .device import resolve_device, seed

@@ -1,7 +1,8 @@
 """Fused-op surface (counterpart of ``paddle_tpu/incubate/nn/functional.py``).
 
-Only the ``position_ids`` branch of the rotary embedding is ported: it is
-the one the Llama serving path runs.
+Ported: the ``position_ids`` branch of the rotary embedding (the one the
+Llama paths run) and ``fused_linear_cross_entropy`` (the Llama training
+loss).
 """
 
 from __future__ import annotations
@@ -40,3 +41,82 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         return t * cos_b.to(t.dtype) + rot * sin_b.to(t.dtype)
 
     return rope(q), rope(k), rope(v)
+
+
+def _logits_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` with f32 output, as the reference's
+    ``preferred_element_type=float32``: bf16/fp16 products accumulate in
+    f32 and are not rounded back to the inputs' dtype. On the card that is
+    one cuBLAS GEMM with an f32 output; on the host the inputs are widened
+    first, which gives the same exact products."""
+    if h.dtype == torch.float32:
+        return h @ w
+    if h.is_cuda:
+        return torch.mm(h, w, out_dtype=torch.float32)
+    return h.float() @ w.float()
+
+
+class _FusedLinearCrossEntropy(torch.autograd.Function):
+    """Sum over token chunks of ``logsumexp(h W) - (h W)[label]``: the
+    forward keeps only each token's f32 lse, the backward recomputes one
+    chunk's logits at a time, so at most one (chunk, vocab) f32 block is
+    live. The logits are f32 products (``_logits_f32``); the backward's
+    dlogits are cast to the inputs' dtype for the two gradient products.
+    Rows with a negative label add nothing."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, transpose_y, chunk):
+        w = weight.t() if transpose_y else weight              # (H, V)
+        vocab = w.shape[1]
+        total = torch.zeros((), device=hidden.device, dtype=torch.float32)
+        lses = []
+        for c0 in range(0, hidden.shape[0], chunk):
+            logits = _logits_f32(hidden[c0:c0 + chunk], w)
+            lse = torch.logsumexp(logits, dim=-1)
+            lab = labels[c0:c0 + chunk]
+            gold = logits.gather(1, lab.clamp(0, vocab - 1)[:, None])[:, 0]
+            total = total + torch.where(lab >= 0, lse - gold,
+                                        torch.zeros_like(lse)).sum()
+            lses.append(lse)
+        count = (labels >= 0).sum().clamp_min(1).to(torch.float32)
+        ctx.save_for_backward(hidden, weight, labels, torch.cat(lses), count)
+        ctx.transpose_y, ctx.chunk = transpose_y, chunk
+        return total / count
+
+    @staticmethod
+    def backward(ctx, grad):
+        hidden, weight, labels, lse, count = ctx.saved_tensors
+        w = weight.t() if ctx.transpose_y else weight
+        vocab = w.shape[1]
+        scale = grad.float() / count
+        dh = torch.empty_like(hidden)
+        dw = torch.zeros(w.shape, device=w.device, dtype=torch.float32)
+        for c0 in range(0, hidden.shape[0], ctx.chunk):
+            h_c = hidden[c0:c0 + ctx.chunk]
+            lab = labels[c0:c0 + ctx.chunk]
+            p = torch.exp(_logits_f32(h_c, w) - lse[c0:c0 + ctx.chunk, None])
+            p.scatter_add_(1, lab.clamp(0, vocab - 1)[:, None],
+                           -torch.ones_like(p[:, :1]))
+            p = p * ((lab >= 0).float() * scale)[:, None]
+            dlogits = p.to(hidden.dtype)
+            dh[c0:c0 + ctx.chunk] = dlogits @ w.t()
+            dw += (h_c.t() @ dlogits).float()
+        dw = dw.to(weight.dtype)
+        return dh, (dw.t() if ctx.transpose_y else dw), None, None, None
+
+
+def fused_linear_cross_entropy(hidden, weight, labels, transpose_y=False,
+                               ignore_index=-100, chunk_tokens=1024):
+    """LM-head product + softmax cross-entropy without materialising the
+    (tokens, vocab) f32 logits: the product runs over chunks of
+    ``chunk_tokens`` tokens (a GEMM with f32 logits out, then the softmax
+    in f32), and the backward recomputes each chunk.
+
+    ``weight``: (H, V), or (V, H) with ``transpose_y=True`` (tied
+    embeddings). Labels < 0 or == ``ignore_index`` are masked out; returns
+    the mean loss over unmasked tokens (the count clamped to >= 1)."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    l2 = labels.reshape(-1).long()
+    l2 = torch.where(l2 == ignore_index, torch.full_like(l2, -1), l2)
+    return _FusedLinearCrossEntropy.apply(h2, weight, l2, bool(transpose_y),
+                                          max(1, int(chunk_tokens)))

@@ -5,13 +5,17 @@ each time it launches its CUDA kernel (never for the plain version on a CPU
 tensor), so a run can show that its main path went through the kernels.
 """
 
-from . import decode_attention, fused_block_decode, paged_attention
+from . import (decode_attention, flash_attention, fused_block_decode,
+               paged_attention)
 
 
 def wrappers():
-    """The kernel wrappers of the ported slice."""
+    """The kernel wrappers of the ported slices: serving, then training."""
     return (decode_attention.flash_prefill, paged_attention.paged_attention,
-            fused_block_decode.fused_block_decode)
+            fused_block_decode.fused_block_decode,
+            flash_attention.flash_attention_fwd,
+            flash_attention.flash_attention_bwd_dq,
+            flash_attention.flash_attention_bwd_dkv)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,353 @@
+"""Flash attention for training: forward and backward.
+
+Counterpart of ``paddle_tpu/kernels/flash_attention.py``. Layout at this
+level is ``(BH, S, D)``; :func:`flash_attention_bshd` takes Paddle's
+``(B, S, H, D)``. GQA: q is ``(B*H, S, D)`` and k/v ``(B*Hkv, S, D)``, the
+query heads of one kv head consecutive (query head h reads kv head
+``h // (H // Hkv)``), and the kv is never expanded.
+
+Three hand-written CUDA kernels in ``csrc/flash_attention.cu``, each behind
+a wrapper with a launch counter and a plain PyTorch version:
+
+  - :func:`flash_attention_fwd` -> ``(out, lse)``, the compact f32 lse
+    (replaces ``_fwd_kernel`` and ``_fwd_kernel_compact``);
+  - :func:`flash_attention_bwd_dq` (replaces ``_bwd_dq_kernel``);
+  - :func:`flash_attention_bwd_dkv` (replaces ``_bwd_dkv_kernel``).
+
+``_FlashAttention`` ties them into one ``torch.autograd.Function``: the
+forward saves ``(q, k, v, out, lse)``; the backward computes
+``delta = rowsum(dO * O)`` in f32 (outside the kernels, as the JAX
+package does) and runs dq and dk/dv. A CUDA tensor always launches the
+kernels (no block-size flags, no minimum length, no dense fallback: the
+kernels take any S); a CPU tensor runs the plain versions.
+
+Not ported (``NotImplementedError``): segment ids / ``kv_segment_ids``
+(varlen packing) and :func:`flash_attention_with_lse` (ring attention).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+_NEG_INF = -1e30
+_MAX_HEAD_DIM = 128
+_MAX_ROWS = 65535          # grid.y of the kernels: B*H (B*Hkv for dk/dv)
+
+
+def _scale(sm_scale: Optional[float], d: int) -> float:
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
+def _heads(n_heads: int, n_kv_heads: Optional[int], q, k) -> Tuple[int, int]:
+    hkv = n_heads if n_kv_heads is None else n_kv_heads
+    if n_heads % hkv:
+        raise ValueError(f"n_heads {n_heads} not divisible by n_kv_heads "
+                         f"{hkv}")
+    if q.shape[0] * hkv != k.shape[0] * n_heads:
+        raise ValueError(
+            f"q rows {q.shape[0]} / k rows {k.shape[0]} inconsistent with "
+            f"n_heads={n_heads}, n_kv_heads={hkv}: pass the head counts for "
+            f"GQA inputs")
+    return n_heads, hkv
+
+
+# ------------------------------------------------------------ plain versions
+def _dense(q, k, v, causal, sm_scale, h, hkv):
+    """f32 views ``(b, hkv, rep, sq, d)`` / ``(b, hkv, skv, d)`` and the
+    masked scaled scores ``(b, hkv, rep, sq, skv)``."""
+    bh, sq, d = q.shape
+    b, rep, skv = bh // h, h // hkv, k.shape[1]
+    qf = q.reshape(b, hkv, rep, sq, d).float() * sm_scale
+    kf = k.reshape(b, hkv, skv, d).float()
+    vf = v.reshape(b, hkv, skv, d).float()
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf)
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)[:, None]
+        kv_pos = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(kv_pos > q_pos, _NEG_INF)
+    return qf, kf, vf, s
+
+
+def flash_attention_fwd_ref(q, k, v, causal: bool = True,
+                            sm_scale: Optional[float] = None,
+                            n_heads: int = 1,
+                            n_kv_heads: Optional[int] = None):
+    """Plain version of :func:`flash_attention_fwd`: dense f32 softmax with
+    the kernels' guards (a fully masked row takes max 0, ``l == 0`` reads
+    as 1). Returns ``(out, lse)``, out in q's dtype, lse f32 ``(BH, S)``."""
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    _, _, vf, s = _dense(q, k, v, causal, sm_scale, h, hkv)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m <= _NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p / l_safe, vf)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return (out.reshape(q.shape).to(q.dtype),
+            lse.reshape(q.shape[0], q.shape[1]))
+
+
+def _bwd_dense(q, k, v, do, lse, delta, causal, sm_scale, h, hkv):
+    """p and ds of the FA-2 backward, recomputed from lse: masked scores
+    give p = exp(-1e30 - lse) = 0."""
+    bh, sq, d = q.shape
+    b, rep = bh // h, h // hkv
+    qf, kf, vf, s = _dense(q, k, v, causal, sm_scale, h, hkv)
+    lse5 = lse.reshape(b, hkv, rep, sq, 1)
+    delta5 = delta.float().reshape(b, hkv, rep, sq, 1)
+    p = torch.exp(s - lse5)
+    dof = do.reshape(b, hkv, rep, sq, d).float()
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, vf)
+    ds = p * (dp - delta5)
+    return qf, kf, dof, p, ds
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool = True,
+                               sm_scale: Optional[float] = None,
+                               n_heads: int = 1,
+                               n_kv_heads: Optional[int] = None):
+    """Plain version of :func:`flash_attention_bwd_dq`:
+    ``dq = sm_scale * (p * (dO V^T - delta)) K`` in f32, cast to q's
+    dtype."""
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    _, kf, _, _, ds = _bwd_dense(q, k, v, do, lse, delta, causal, sm_scale,
+                                 h, hkv)
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, kf) * sm_scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool = True,
+                                sm_scale: Optional[float] = None,
+                                n_heads: int = 1,
+                                n_kv_heads: Optional[int] = None):
+    """Plain version of :func:`flash_attention_bwd_dkv`: ``dv = p^T dO`` and
+    ``dk = ds^T (q * sm_scale)``, summed over each GQA group's query heads,
+    in f32, cast to k's and v's dtype."""
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    qf, _, dof, p, ds = _bwd_dense(q, k, v, do, lse, delta, causal,
+                                   sm_scale, h, hkv)
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, qf)
+    return dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
+
+
+def flash_attention_ref(q, k, v, segment_ids=None, kv_segment_ids=None,
+                        causal: bool = True, sm_scale: Optional[float] = None,
+                        n_heads: int = 1, n_kv_heads: Optional[int] = None):
+    """Dense composition of :func:`flash_attention`, differentiable by
+    autograd: the parity oracle. Same layout, GQA convention and
+    fully-masked-row semantics (such rows emit zeros, not NaN)."""
+    if segment_ids is not None or kv_segment_ids is not None:
+        raise NotImplementedError(
+            "segment ids (varlen packing) are not ported: a later slice, "
+            "with flash_attn_unpadded")
+    return flash_attention_fwd_ref(q, k, v, causal, sm_scale, n_heads,
+                                   n_kv_heads)[0]
+
+
+# ----------------------------------------------------------------- wrappers
+def _check_cuda(name, q, k, v, extra=()):
+    """The kernels' contract: one CUDA device, float32 or bfloat16,
+    contiguous, D <= 128, at most 65535 (batch * head) rows."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"{name}: q (BH, S, D) and k/v (BHkv, S, D) "
+                         f"expected, got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"{name}: head dims differ ({q.shape[2]} vs "
+                         f"{k.shape[2]})")
+    if q.shape[2] > _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {q.shape[2]} > {_MAX_HEAD_DIM} "
+                         f"is not supported")
+    if max(q.shape[0], k.shape[0]) > _MAX_ROWS:
+        raise ValueError(f"{name}: more than {_MAX_ROWS} (batch * head) "
+                         f"rows")
+    _build.dtype_code(q.dtype)
+    for nm, x, dtype in (("q", q, q.dtype), ("k", k, q.dtype),
+                         ("v", v, q.dtype)) + tuple(extra):
+        if x.device != q.device or x.dtype != dtype:
+            raise ValueError(f"{name}: {nm} must be {dtype} on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous")
+
+
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+_DQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+_DKV_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True,
+                        sm_scale: Optional[float] = None, n_heads: int = 1,
+                        n_kv_heads: Optional[int] = None):
+    """Forward attention without materialising the scores. Returns
+    ``(out, lse)``: out ``(BH, S, D)`` in q's dtype, lse ``(BH, S)`` f32.
+
+    CPU tensors take :func:`flash_attention_fwd_ref`. CUDA tensors launch
+    the kernel (float32 or bfloat16, contiguous, D <= 128, any S); a tensor
+    it does not take raises."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, causal, sm_scale, n_heads,
+                                       n_kv_heads)
+    _check_cuda("flash_attention_fwd", q, k, v)
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    bh, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), device=q.device, dtype=torch.float32)
+    fn = _build.bind("flash_attention", "ptt_flash_attention_fwd",
+                     _FWD_ARGTYPES)
+    rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1],
+            h, hkv, d, int(bool(causal)), _scale(sm_scale, d),
+            _build.stream_handle(q.device))
+    _build.check(rc, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def _stats_extra(q, lse, delta, do):
+    f32 = torch.float32
+    if lse.shape != q.shape[:2] or delta.shape != q.shape[:2]:
+        raise ValueError(f"lse/delta must be (BH, S) = {tuple(q.shape[:2])}")
+    return (("do", do, q.dtype), ("lse", lse, f32), ("delta", delta, f32))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                           sm_scale: Optional[float] = None,
+                           n_heads: int = 1,
+                           n_kv_heads: Optional[int] = None):
+    """dq of the FA-2 backward from the saved lse and ``delta =
+    rowsum(dO * O)`` (both f32 ``(BH, S)``). CPU tensors take
+    :func:`flash_attention_bwd_dq_ref`; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
+                                          sm_scale, n_heads, n_kv_heads)
+    _check_cuda("flash_attention_bwd_dq", q, k, v,
+                _stats_extra(q, lse, delta, do))
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    bh, sq, d = q.shape
+    dq = torch.empty_like(q)
+    fn = _build.bind("flash_attention", "ptt_flash_attention_bwd_dq",
+                     _DQ_ARGTYPES)
+    rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), bh, sq, k.shape[1], h, hkv, d, int(bool(causal)),
+            _scale(sm_scale, d), _build.stream_handle(q.device))
+    _build.check(rc, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                            sm_scale: Optional[float] = None,
+                            n_heads: int = 1,
+                            n_kv_heads: Optional[int] = None):
+    """(dk, dv) of the FA-2 backward; every query head of a GQA group adds
+    into its kv head. CPU tensors take :func:`flash_attention_bwd_dkv_ref`;
+    CUDA tensors launch the kernel, which uses no atomics (gradients repeat
+    bit for bit)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
+                                           sm_scale, n_heads, n_kv_heads)
+    _check_cuda("flash_attention_bwd_dkv", q, k, v,
+                _stats_extra(q, lse, delta, do))
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    bh, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.bind("flash_attention", "ptt_flash_attention_bwd_dkv",
+                     _DKV_ARGTYPES)
+    rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), k.shape[0], sq, k.shape[1], h, hkv,
+            d, int(bool(causal)), _scale(sm_scale, d),
+            _build.stream_handle(q.device))
+    _build.check(rc, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, and the dq and dk/dv kernels as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, h, hkv):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, h, hkv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, h, hkv)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (out.float() * do.float()).sum(dim=-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, segment_ids=None, kv_segment_ids=None,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    n_heads: int = 1, n_kv_heads: Optional[int] = None):
+    """``(BH, S, D)``-layout flash attention, differentiable. GQA: q as
+    ``(B*n_heads, S, D)``, k/v as ``(B*n_kv_heads, Skv, D)``; the kernels
+    read the unexpanded kv and add dk/dv over each group's query heads."""
+    if segment_ids is not None or kv_segment_ids is not None:
+        raise NotImplementedError(
+            "segment ids (varlen packing) are not ported: a later slice, "
+            "with flash_attn_unpadded")
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal), sm_scale, h,
+                                 hkv)
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = True,
+                             sm_scale: Optional[float] = None,
+                             n_heads: int = 1,
+                             n_kv_heads: Optional[int] = None):
+    """The ``(out, lse)`` form ring attention merges: not ported."""
+    raise NotImplementedError(
+        "flash_attention_with_lse (ring attention's mergeable form) is not "
+        "ported: a later slice, with the distributed runtime")
+
+
+def flash_attention_bshd(q, k, v, segment_ids=None, kv_segment_ids=None,
+                         causal: bool = True,
+                         sm_scale: Optional[float] = None):
+    """Paddle-convention ``(B, S, H, D)`` wrapper. GQA: k/v may carry fewer
+    heads (Hkv | H), never expanded."""
+    if segment_ids is not None or kv_segment_ids is not None:
+        raise NotImplementedError(
+            "segment ids (varlen packing) are not ported: a later slice, "
+            "with flash_attn_unpadded")
+    b, s, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+
+    def to_bhsd(t, sl, nh):
+        return t.transpose(1, 2).reshape(b * nh, sl, d)
+
+    out = flash_attention(to_bhsd(q, s, h), to_bhsd(k, skv, hkv),
+                          to_bhsd(v, skv, hkv), causal=causal,
+                          sm_scale=sm_scale, n_heads=h, n_kv_heads=hkv)
+    return out.reshape(b, h, s, d).transpose(1, 2)

@@ -4,7 +4,9 @@ pipeline classes): RMSNorm + rotary + GQA + SwiGLU.
 Parameter names and shapes are the JAX model's (``Linear`` keeps the
 ``(in, out)`` layout), so ``raw_state()`` carries across through
 :meth:`LlamaForCausalLM.load_numpy_state`. The cached forward runs over the
-paged KV pool; the no-cache forward uses a plain dense causal attention.
+paged KV pool; the no-cache forward (training, and the serving parity
+reference) runs causal ``scaled_dot_product_attention`` on the flash
+kernels, and with ``labels`` returns the chunked fused LM loss.
 """
 
 from __future__ import annotations
@@ -52,6 +54,16 @@ class LlamaConfig:
                            num_attention_heads=4, num_key_value_heads=2,
                            intermediate_size=128, max_position_embeddings=128)
 
+    def num_params(self) -> int:
+        h, l = self.hidden_size, self.num_hidden_layers
+        kv = self.num_key_value_heads * (h // self.num_attention_heads)
+        per_layer = h * h + 2 * h * kv + h * h          # q, k, v, o
+        per_layer += 3 * h * self.intermediate_size      # gate, up, down
+        per_layer += 2 * h                               # norms
+        emb = self.vocab_size * h
+        head = 0 if self.tie_word_embeddings else self.vocab_size * h
+        return l * per_layer + emb + head + h
+
 
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, **kw):
@@ -92,7 +104,9 @@ class LlamaAttention(nn.Module):
         if cache is not None:
             out, state = F.paged_scaled_dot_product_attention(q, k, v, state)
             return self.o_proj(out.reshape(b, s, -1)), state
-        out = F.causal_attention(q, k, v)
+        # GQA: kv stays unexpanded; the flash kernels read kv head h // rep
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             training=self.training)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -191,8 +205,19 @@ class LlamaForCausalLM(nn.Module):
             return hidden @ self.llama.embed_tokens.weight.T
         return self.lm_head(hidden)
 
-    def forward(self, input_ids):
-        return self.logits(self.llama(input_ids))
+    def forward(self, input_ids, labels=None, position_ids=None):
+        """Logits, or with ``labels`` the mean causal-LM loss through
+        :func:`fused_linear_cross_entropy` (the (tokens, vocab) logits are
+        never all live)."""
+        hidden = self.llama(input_ids, position_ids)
+        if labels is None:
+            return self.logits(hidden)
+        if self.lm_head is None:
+            return FF.fused_linear_cross_entropy(
+                hidden, self.llama.embed_tokens.weight, labels,
+                transpose_y=True)
+        return FF.fused_linear_cross_entropy(hidden, self.lm_head.weight,
+                                             labels)
 
     def cache_spec(self):
         c = self.config

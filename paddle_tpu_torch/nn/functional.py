@@ -1,6 +1,8 @@
-"""Functional surface of the ported slice (counterpart of
-``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU and the paged attention
-that routes a whole-prompt prefill (S > 1) or a decode step (S == 1)."""
+"""Functional surface of the ported slices (counterpart of
+``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU, the training attention
+(``scaled_dot_product_attention`` on the flash kernels) and the paged
+attention that routes a whole-prompt prefill (S > 1) or a decode step
+(S == 1)."""
 
 from __future__ import annotations
 
@@ -9,8 +11,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as TF
 
-from ..kernels.decode_attention import (cached_attention,
-                                        cached_attention_dense)
+from ..kernels.decode_attention import cached_attention
+from ..kernels.flash_attention import flash_attention_bshd
 from ..kernels.paged_attention import (PagedDecodeState, paged_attention,
                                        write_paged_kv, write_paged_prompt)
 
@@ -34,11 +36,23 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None
     return TF.silu(x) * y
 
 
-def causal_attention(query: torch.Tensor, key: torch.Tensor,
-                     value: torch.Tensor) -> torch.Tensor:
-    """Plain dense causal attention, ``(B, S, H, D)`` layout, GQA kv
-    unexpanded: the no-cache forward's attention."""
-    return cached_attention_dense(query, key, value, query.shape[1])
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
+                                 is_causal: bool = False,
+                                 training: bool = True) -> torch.Tensor:
+    """SDPA in Paddle's ``(B, S, H, D)`` layout, GQA kv unexpanded (query
+    head h reads kv head ``h // (H // Hkv)``). Runs the flash-attention
+    kernels (:func:`flash_attention_bshd`) for every length. A mask or
+    dropout took the JAX package's dense XLA path, which is not ported."""
+    if attn_mask is not None:
+        raise NotImplementedError(
+            "scaled_dot_product_attention with attn_mask (the dense path) is "
+            "not ported: a later slice")
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            "scaled_dot_product_attention with dropout_p > 0 (the dense "
+            "path) is not ported: a later slice")
+    return flash_attention_bshd(query, key, value, causal=is_causal)
 
 
 def paged_scaled_dot_product_attention(query, key, value, state

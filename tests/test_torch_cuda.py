@@ -1,12 +1,15 @@
-"""The port's CUDA kernels on the card, at shapes the serving smoke run
+"""The port's CUDA kernels on the card, at shapes the smoke run
 (``chip_smoke.py``, Llama-2-7B: MHA, head_dim 128, batch 4) leaves out:
 GQA, head_dim 64, small pages, batches that span several GEMV batch
-tiles, ragged and page-aligned lengths, idle null-page rows. Each kernel is
+tiles, ragged and page-aligned lengths, idle null-page rows; for the flash
+attention kernels of the training path S = 1, S = 129 (one row past a
+tile), non-causal, head_dim 64 and 96, and Sq != Skv. Each kernel is
 held to its plain PyTorch version on the same card tensors (fp32 1e-4,
 bf16 2e-2 abs: the kernels sum in f32 in another order, and bf16 rounds
 once more at the output); the wrappers' input checks and launch counters
-are checked too, and a tiny GQA engine on the card is held to the same
-engine on the CPU.
+are checked too, a tiny GQA engine on the card is held to the same
+engine on the CPU, and so is the bf16 ``fused_linear_cross_entropy``
+(whose card path makes its f32 logits with one GEMM).
 
 Every test needs the card and skips without one. On the GPU machine, which
 has no JAX (so the repository's conftest, which imports it, is skipped):
@@ -22,6 +25,7 @@ from paddle_tpu_torch import kernels
 from paddle_tpu_torch.device import seed
 from paddle_tpu_torch.generation.serving import ServingEngine
 from paddle_tpu_torch.kernels import decode_attention as da
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_block_decode as fb
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -166,7 +170,10 @@ def test_each_launch_counts_once(dev):
     pa.paged_attention(q[:, 0], kp, kp, bt, sl)
     assert kernels.launch_counts() == {"flash_prefill": 1,
                                        "paged_attention": 2,
-                                       "fused_block_decode": 0}
+                                       "fused_block_decode": 0,
+                                       "flash_attention_fwd": 0,
+                                       "flash_attention_bwd_dq": 0,
+                                       "flash_attention_bwd_dkv": 0}
 
 
 @pytest.mark.parametrize("case", ["fp16", "noncontiguous", "int64-tables",
@@ -222,3 +229,121 @@ def test_engine_on_the_card_matches_the_cpu(dev, fused):
                 top2 = np.sort(rows_c[j])[-2:]
                 assert top2[1] - top2[0] <= 1e-4
                 break
+
+
+def _rel(a, b):
+    """max |a - b| over max(max |b|, 1): relative for gradients of order 1
+    and more, absolute for the near-zero ones (S = 1: p = 1 and
+    dp - delta = 0, so dq and dk are rounding noise)."""
+    torch.cuda.synchronize()
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1.0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", [
+    (1, 1, 1, 2, 2, 128, True),        # S = 1
+    (2, 129, 129, 4, 2, 128, True),    # one row past a 64-row tile, GQA
+    (1, 200, 200, 4, 4, 128, False),   # non-causal, ragged
+    (2, 130, 130, 8, 2, 64, True),     # head_dim 64, rep 4
+    (1, 96, 96, 2, 1, 96, True),       # head_dim padded to 128
+    (1, 70, 150, 2, 2, 64, True),      # Sq < Skv, top-left causal
+    (1, 150, 70, 2, 2, 64, False),     # Sq > Skv
+])
+def test_flash_attention_kernels_match_plain(dev, dtype, b, sq, skv, h,
+                                             hkv, d, causal):
+    """Forward (out, lse), dq and dk/dv against their plain versions on the
+    same card tensors, and the autograd Function against autograd of the
+    dense reference."""
+    rng = np.random.default_rng(sq * 3 + skv + d)
+    q = _rand(rng, (b * h, sq, d), dtype, dev)
+    k = _rand(rng, (b * hkv, skv, d), dtype, dev)
+    v = _rand(rng, (b * hkv, skv, d), dtype, dev)
+    do = _rand(rng, (b * h, sq, d), dtype, dev)
+    kw = dict(causal=causal, n_heads=h, n_kv_heads=hkv)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert _err(out, out_r) <= TOL[dtype]
+    assert _err(lse, lse_r) <= TOL[dtype]
+    delta = (out_r.float() * do.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw)
+    dq_r = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse_r, delta, **kw)
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse_r, delta,
+                                                **kw)
+    for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert got.dtype == dtype
+        assert _rel(got, want) <= TOL[dtype]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                                do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(
+        fa.flash_attention_ref(*ref_leaves, **kw), ref_leaves, do)
+    for got, want in zip(grads, ref_grads):
+        assert _rel(got, want) <= TOL[dtype]
+
+
+def test_flash_attention_backward_repeats_bit_for_bit(dev):
+    """dk/dv own their tiles (no atomics): two runs agree exactly."""
+    rng = np.random.default_rng(5)
+    q = _rand(rng, (8, 300, 128), torch.bfloat16, dev)
+    k = _rand(rng, (2, 300, 128), torch.bfloat16, dev)
+    do = _rand(rng, (8, 300, 128), torch.bfloat16, dev)
+    kw = dict(causal=True, n_heads=4, n_kv_heads=1)
+    out, lse = fa.flash_attention_fwd(q, k, k, **kw)
+    delta = (out.float() * do.float()).sum(-1)
+    first = fa.flash_attention_bwd_dkv(q, k, k, do, lse, delta, **kw)
+    second = fa.flash_attention_bwd_dkv(q, k, k, do, lse, delta, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["fp16", "noncontiguous", "cpu-k",
+                                  "head-dim-256"])
+def test_flash_wrappers_refuse_what_the_kernel_does_not_take(dev, case):
+    rng = np.random.default_rng(2)
+    d = 256 if case == "head-dim-256" else 64
+    q = _rand(rng, (4, 32, d), torch.float32, dev)
+    k = _rand(rng, (4, 32, d), torch.float32, dev)
+    if case == "fp16":
+        q, k = q.half(), k.half()
+    elif case == "noncontiguous":
+        q = q.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "cpu-k":
+        k = k.cpu()
+    kernels.reset_launches()
+    with pytest.raises((ValueError, TypeError)):
+        fa.flash_attention_fwd(q, k, k, n_heads=1)
+    assert kernels.launch_counts()["flash_attention_fwd"] == 0
+
+
+@pytest.mark.parametrize("transpose_y", [False, True], ids=["untied", "tied"])
+def test_fused_linear_cross_entropy_bf16_card_matches_cpu(dev, transpose_y):
+    """bf16 loss on the card (one GEMM with f32 logits out) against the
+    same loss on the CPU (inputs widened to f32): both keep f32 logits,
+    so the losses agree within 1e-4; the bf16 grads within 1e-2 of their
+    largest element."""
+    from paddle_tpu_torch.incubate.nn import functional as FF
+    rng = np.random.default_rng(8)
+    hidden = _rand(rng, (2, 300, 128), torch.bfloat16, "cpu")
+    weight = _rand(rng, (1000, 128) if transpose_y else (128, 1000),
+                   torch.bfloat16, "cpu", scale=0.3)
+    labels = torch.from_numpy(rng.integers(0, 1000, (2, 300)))
+    labels[0, :7] = -100
+    results = []
+    for d in ("cpu", dev):
+        h, w = (t.to(d, copy=True).requires_grad_(True)
+                for t in (hidden, weight))
+        loss = FF.fused_linear_cross_entropy(h, w, labels.to(d),
+                                             transpose_y=transpose_y,
+                                             chunk_tokens=256)
+        loss.backward()
+        results.append((loss.detach().cpu(), h.grad.cpu(), w.grad.cpu()))
+    (l_cpu, *g_cpu), (l_card, *g_card) = results
+    assert l_card.dtype == torch.float32
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-4
+    for got, want in zip(g_card, g_cpu):
+        err = (got.float() - want.float()).abs().max()
+        assert float(err) <= 1e-2 * float(want.float().abs().max())

@@ -22,6 +22,7 @@ from paddle_tpu.kernels import fused_block_decode as jfb
 from paddle_tpu.kernels import paged_attention as jpa
 from paddle_tpu_torch import kernels as tk
 from paddle_tpu_torch.kernels import decode_attention as tda
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_block_decode as tfb
 from paddle_tpu_torch.kernels import paged_attention as tpa
 
@@ -221,5 +222,11 @@ def test_cpu_tensors_never_count_as_launches():
     x, w, kp, vp, bt, sl, kw = _block_case(10)
     tw = tfb.BlockDecodeWeights(**{n: _t(a) for n, a in w.items()})
     tfb.fused_block_decode(_t(x), tw, _t(kp), _t(vp), _t(bt), _t(sl), **kw)
+    qf = torch.zeros(4, 6, 8, requires_grad=True)
+    tfa.flash_attention(qf, qf[:2], qf[:2], n_heads=2,
+                        n_kv_heads=1).sum().backward()
     assert tk.launch_counts() == {"flash_prefill": 0, "paged_attention": 0,
-                                  "fused_block_decode": 0}
+                                  "fused_block_decode": 0,
+                                  "flash_attention_fwd": 0,
+                                  "flash_attention_bwd_dq": 0,
+                                  "flash_attention_bwd_dkv": 0}

@@ -1,11 +1,11 @@
 """Rules the PyTorch port keeps.
 
-  - No file of ``paddle_tpu_torch/``, and not ``chip_smoke.py``, imports
-    ``jax`` or ``paddle_tpu`` (AST scan).
+  - No file of ``paddle_tpu_torch/``, not ``chip_smoke.py`` and no
+    ``tools/torch_*.py`` imports ``jax`` or ``paddle_tpu`` (AST scan).
   - Entry points default to the CUDA card and raise, never fall back to
     the CPU, when there is none.
   - A kernel wrapper given CPU tensors runs its plain version and leaves
-    its launch counter alone.
+    its launch counter alone (the serving and the training kernels).
   - ``chip_smoke.py`` fails, printing no result, without a card and when
     it stands alone in a directory.
 """
@@ -27,6 +27,7 @@ from paddle_tpu_torch.device import resolve_device, seed
 from paddle_tpu_torch.generation.serving import ServingEngine
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import decode_attention as da
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_block_decode as fb
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels.paged_attention import PagedKVCache
@@ -39,7 +40,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("torch_*.py")))
     assert len(files) > 10
     return files
 
@@ -142,12 +144,29 @@ def _block_args(rng):
             _case(rng, 2, 3, 8, 8), bt, sl)
 
 
+def _flash_args(rng):
+    return (_case(rng, 4, 6, 8), _case(rng, 2, 6, 8), _case(rng, 2, 6, 8))
+
+
+def _flash_bwd_args(rng):
+    return _flash_args(rng) + (_case(rng, 4, 6, 8), _case(rng, 4, 6),
+                               _case(rng, 4, 6))
+
+
 @pytest.mark.parametrize("mod,name,plain,make,kw", [
     (da, "flash_prefill", "flash_prefill_ref", _prefill_args, {}),
     (pa, "paged_attention", "paged_attention_ref", _paged_args, {}),
     (fb, "fused_block_decode", "fused_block_decode_ref", _block_args,
      dict(num_heads=2, num_kv_heads=2)),
-], ids=["flash_prefill", "paged_attention", "fused_block_decode"])
+    (fa, "flash_attention_fwd", "flash_attention_fwd_ref", _flash_args,
+     dict(n_heads=2, n_kv_heads=1)),
+    (fa, "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
+     _flash_bwd_args, dict(n_heads=2, n_kv_heads=1)),
+    (fa, "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
+     _flash_bwd_args, dict(n_heads=2, n_kv_heads=1)),
+], ids=["flash_prefill", "paged_attention", "fused_block_decode",
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"])
 def test_cpu_tensors_take_the_plain_version(monkeypatch, mod, name, plain,
                                             make, kw):
     calls = []
@@ -172,8 +191,13 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch, mod, name, plain,
 def test_every_kernel_wrapper_counts_launches():
     names = {fn.__name__ for fn in kernels.wrappers()}
     assert names == {"flash_prefill", "paged_attention",
-                     "fused_block_decode"}
-    assert set(_build.sources()) == names
+                     "fused_block_decode", "flash_attention_fwd",
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
+    # one library per source; the three training kernels share one
+    assert set(_build.sources()) == {"flash_prefill", "paged_attention",
+                                     "fused_block_decode", "flash_attention"}
+    kernels.reset_launches()
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def _run_smoke(cwd, env_extra):

@@ -12,11 +12,11 @@ four slots with prompts of 17, 100, 200 and 256 tokens, and traces with
            engine (its whole-prompt prefill, then one decode step);
   decode   ``--steps`` decode-only engine steps with all four slots busy.
 
-Per window it prints one JSON line: the host-clock wall time (ending in a
-synchronise), the summed device time of every kernel, copy and memset the
-trace saw (one stream, so they do not overlap), the device's idle share
-(1 - device / wall), and the kernels that
-took the most device time, with their launch counts. Then the card's name
+Per window it prints one JSON line (``torch_trace.window``): the
+host-clock wall time (ending in a synchronise), the summed device time of
+every kernel, copy and memset the trace saw (one stream, so they do not
+overlap), the device's idle share (1 - device / wall), and the kernels
+that took the most device time, with their launch counts. Then the card's name
 and power limit. Exits non-zero without a CUDA card.
 """
 
@@ -25,49 +25,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
+from torch_trace import card, window  # noqa: E402  (this script's folder)
 
 PROMPT_LENS = (17, 100, 200, 256)
-
-
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total", 0.0)
-                 or getattr(evt, "self_cuda_time_total", 0.0))
-
-
-def window(name: str, fn, top: int) -> dict:
-    """Trace ``fn`` once and summarise the device time by kernel."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the device's own events (kernels, copies, memsets); a CPU-side op
-    # such as aten::mm also carries its kernels' time, so counting it too
-    # would count that time twice
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    if not rows:   # the trace saw no device activity: not measured
-        return dict(window=name, wall_ms=1e3 * wall, device_ms=None,
-                    idle_share=None, kernels=[])
-    device = sum(us for _, us, _ in rows) / 1e6
-    rows.sort(key=lambda r: -r[1])
-    return dict(window=name, wall_ms=1e3 * wall, device_ms=1e3 * device,
-                idle_share=1.0 - device / wall,
-                kernels=[dict(name=k[:80], device_ms=us / 1e3, count=n)
-                         for k, us, n in rows[:top]])
 
 
 def main() -> int:
@@ -115,11 +82,7 @@ def main() -> int:
                      layers=args.layers, batch=4, dtype="bf16")
             print(json.dumps(w), flush=True)
         flags.reset_flags()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card(), flush=True)
     return 0
 
 
