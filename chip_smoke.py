@@ -8,19 +8,34 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               nvcc (sm_90a) into build/kernels/, and time it;
   2. kernels  hold each hand-written kernel against its plain PyTorch
               version on the card at the serving path's Llama-2-7B shapes,
-              in bf16 (2e-2 abs) and fp32 (1e-4 abs), and time the kernel,
+              in bf16 (2e-2 abs; the chunk attention 1e-3 + one bf16 ulp
+              of the plain output) and fp32 (1e-4 abs), and time the kernel,
               the plain version, one library call where PyTorch has one,
-              and the card's least time for the same work (bound);
-  3. serve    Llama-2-7B width (32 layers, bf16, random weights from a
-              seed) through ServingEngine: 8 requests, 32 new tokens each,
-              some submitted mid-run, once with fused block decode and once
-              with the generic decode; the kernel launch counters show
-              which kernels the run went through;
-  4. parity   the same engine in fp32 at full width with 2 layers, its
-              per-token logits held against a teacher-forced no-cache
-              forward of the model on the card. That forward runs the
-              flash-attention forward kernel, which train_kernels holds to
-              its plain version;
+              and the card's least time for the same work (bound). The
+              chunk attention runs a 256-token chunk from start 3328 and a
+              ragged 100-token final chunk, each with a spread and a peaked
+              softmax; the N-layer decode a group of 4 layers, also held
+              bit for bit to 4 launches of the one-layer kernel and timed
+              beside them;
+  3. serve    Llama-2-7B (32 layers, bf16, random weights from a seed)
+              through ServingEngine: 8 requests of at most 256 tokens, 32
+              new tokens each, some submitted mid-run, once with fused
+              block decode and once with the generic decode; the kernel
+              launch counters show which kernels the run went through;
+     serve_long
+              the same model with a 4096-token context: 8 prompts of 40 to
+              3500 tokens (the long ones prefilled in 256-token chunks
+              between decode steps), half submitted mid-run, 32 new tokens
+              each, once with one fused kernel per layer and once with one
+              per group of 4 layers (FLAGS_fused_block_layers=4): the
+              streams must be identical and the launch counts exact;
+  4. parity   the same engine in fp32 at full width with 2 layers, prompts
+              of 17 to 700 tokens (two of them chunked), its per-token
+              logits held against a teacher-forced no-cache forward of the
+              model on the card, with fused decode one layer and two
+              layers a launch, and with the generic decode. That forward
+              runs the flash-attention forward kernel, which train_kernels
+              holds to its plain version;
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -70,7 +85,17 @@ PREFILL_LENS = (77, 256)
 PROMPT_LENS = (17, 256, 64, 100, 200, 33, 128, 250)
 NEW_TOKENS = 32
 SEED = 1234
-PARITY_LENS, PARITY_NEW_TOKENS = (17, 77, 130, 256), 8
+# serve_long: the model's whole context, the default 256-token chunk
+LONG_MAX_SEQ, CHUNK = 4096, 256
+LONG_PROMPT_LENS = (3500, 40, 1800, 257, 700, 120, 2900, 512)
+GROUP_LAYERS = 4                  # FLAGS_fused_block_layers of the N run
+# chunk attention: (start, S) of the main chunk and of a ragged final one
+CHUNK_SHAPES = ((3840, 100), (3328, 256))
+# and a second query, 8x the first: logits spread ~8, so a few keys carry
+# each row's softmax and the outputs are O(1) (at spread 1 over ~3.4 k keys
+# they are ~0.03), where one key masked or paged wrongly shows
+PEAKED_Q = 8.0
+PARITY_LENS, PARITY_NEW_TOKENS = (17, 77, 130, 256, 300, 700), 8
 PARITY_TOL = 1e-3      # fp32 logits: kernel sums vs torch.matmul order
 
 # training attention: (case, batch, S, heads, kv heads), head_dim 128
@@ -95,9 +120,15 @@ SOURCES = {
                       "paddle_tpu/kernels/decode_attention.py:140"),
     "paged_attention": ("paddle_tpu_torch/kernels/csrc/paged_attention.cu",
                         "paddle_tpu/kernels/paged_attention.py:154"),
+    "paged_chunk_attention": (
+        "paddle_tpu_torch/kernels/csrc/paged_chunk_attention.cu",
+        "paddle_tpu/kernels/paged_attention.py:311"),
     "fused_block_decode": (
         "paddle_tpu_torch/kernels/csrc/fused_block_decode.cu",
         "paddle_tpu/kernels/fused_block_decode.py:265"),
+    "fused_multi_block_decode": (
+        "paddle_tpu_torch/kernels/csrc/fused_multi_block_decode.cu",
+        "paddle_tpu/kernels/fused_block_decode.py:903"),
     "flash_attention_fwd": (
         "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
         "paddle_tpu/kernels/flash_attention.py:253"),
@@ -146,6 +177,13 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+def excess(a: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
+    """The largest amount by which |a - ref| exceeds rtol |ref|, held to
+    an atol (OUT_TOL's elementwise check)."""
+    ref = ref.detach().float()
+    return float(((a.detach().float() - ref).abs() - rtol * ref.abs()).max())
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -157,10 +195,10 @@ def _rand(gen, shape, dtype, device, scale=1.0):
     return (t * scale).to(dtype)
 
 
-def _block_tables(seq_lens, extra_tokens, device):
+def _block_tables(seq_lens, extra_tokens, device, max_seq=MAX_SEQ):
     """Shuffled block tables over a pool whose page 0 is the null page;
     an idle row (seq_len 0) keeps an all-zero table."""
-    maxp = -(-MAX_SEQ // PAGE)
+    maxp = -(-max_seq // PAGE)
     num_pages = 1 + BATCH * maxp
     perm = np.random.default_rng(SEED).permutation(num_pages - 1) + 1
     bt = np.zeros((len(seq_lens), maxp), np.int32)
@@ -248,6 +286,61 @@ def check_paged_attention(dtype, device, results):
         library_ms=lib, bound_ms=bms, bound_by=by))
 
 
+def check_paged_chunk_attention(dtype, device, results):
+    """A prefill chunk at Llama-2-7B heads against the 4096-token table of
+    serve_long: its k/v written first (write-then-attend), then the kernel
+    against the plain version for a spread and a peaked softmax, each
+    within OUT_TOL elementwise (in bf16 1e-3 + one bf16 ulp of the plain
+    output), SDPA on the gathered prefix with an explicit bottom-right
+    causal mask, and the bound."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    bt, num_pages = _block_tables([LONG_MAX_SEQ], 0, device, LONG_MAX_SEQ)
+    shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+    for start, s in CHUNK_SHAPES:
+        kp, vp = (_rand(gen, shape, dtype, device) for _ in range(2))
+        st = torch.tensor([start], dtype=torch.int32, device=device)
+        k_new, v_new = (_rand(gen, (1, s, KV_HEADS, HEAD_DIM), dtype, device)
+                        for _ in range(2))
+        pa.write_paged_prompt_at(kp, vp, k_new, v_new, bt, st)
+        q = _rand(gen, (1, s, HEADS, HEAD_DIM), dtype, device)
+        atol, rtol = OUT_TOL[dtype]
+        errs, over = {}, {}
+        for case, qc in (("spread", q), ("peaked", q * PEAKED_Q)):
+            got = pa.paged_chunk_attention(qc, kp, vp, bt, st)
+            want = pa.paged_chunk_attention_ref(qc, kp, vp, bt, st)
+            torch.cuda.synchronize()
+            errs[case], over[case] = max_err(got, want), excess(got, want,
+                                                                rtol)
+            require(over[case] <= atol, f"paged_chunk_attention start="
+                    f"{start} S={s} {dtype} {case}: {over[case]} over "
+                    f"{rtol} |ref|, max err {errs[case]}")
+        t = start + s
+        kg, vg = (p[:, bt[0].long()].reshape(KV_HEADS, -1, HEAD_DIM)
+                  [None, :, :t] for p in (kp, vp))
+        mask = (torch.arange(t, device=device)[None, :]
+                <= start + torch.arange(s, device=device)[:, None])
+        qt = q.transpose(1, 2)
+        lib = time_ms(lambda: sdpa(qt, kg, vg, attn_mask=mask))
+        elem = q.element_size()
+        nbytes = (elem * (2 * q.numel() + 2 * t * KV_HEADS * HEAD_DIM)
+                  + 4 * (bt.numel() + 1))
+        pairs = s * start + s * (s + 1) // 2     # (query, key) pairs seen
+        bms, by = bound_ms(nbytes, 4.0 * pairs * HEADS * HEAD_DIM, dtype)
+        results.append(dict(
+            kernel="paged_chunk_attention", dtype=DTYPE_NAME[dtype],
+            start=start, S=s, max_err=max(errs.values()),
+            max_err_spread=errs["spread"], max_err_peaked=errs["peaked"],
+            excess=max(over.values()), atol=atol, rtol=rtol,
+            kernel_ms=time_ms(lambda: pa.paged_chunk_attention(
+                q, kp, vp, bt, st)),
+            plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
+                q, kp, vp, bt, st), iters=5, warmup=1),
+            library_ms=lib, bound_ms=bms, bound_by=by))
+        del kp, vp, kg, vg
+        torch.cuda.empty_cache()
+
+
 def block_weights(gen, dtype, device):
     """One 7B decoder layer's weights, (in, out) layout, scaled so the
     activations stay below 2 in magnitude, where one bf16 rounding step
@@ -308,29 +401,118 @@ def check_fused_block_decode(dtype, device, results):
         library_ms=None, bound_ms=bms, bound_by=by))
 
 
+def check_fused_multi_block_decode(dtype, device, results):
+    """A group of 4 Llama-2-7B layers at #3's rows: the N-layer kernel
+    against the plain version, and bit for bit against 4 launches of the
+    one-layer kernel, whose time it is timed beside."""
+    from paddle_tpu_torch.kernels import fused_block_decode as fb
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    seq_lens = [MAX_SEQ - 1, MAX_SEQ // 2 + 5, MAX_SEQ // 13, 0]
+    bt, num_pages = _block_tables(seq_lens, 1, device)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+    shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+    pools = [(_rand(gen, shape, dtype, device), _rand(gen, shape, dtype,
+                                                      device))
+             for _ in range(GROUP_LAYERS)]
+    layers = [block_weights(gen, dtype, device) for _ in range(GROUP_LAYERS)]
+    mw = fb.stack_block_weights(layers)
+    x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
+    kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
+              epsilon=1e-5)
+
+    def fresh():
+        return [k.clone() for k, _ in pools], [v.clone() for _, v in pools]
+
+    got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl, **kw)
+    want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt, sl,
+                                                   **kw)
+    out, ck, cv = x, *fresh()
+    for i, w in enumerate(layers):
+        out, ck[i], cv[i] = fb.fused_block_decode(out, w, ck[i], cv[i], bt,
+                                                  sl, **kw)
+    torch.cuda.synchronize()
+    err = max([max_err(got, want)] + [max_err(a, b) for a, b in
+                                      zip(gk + gv, wk + wv)])
+    require(err <= TOL[dtype], f"fused_multi_block_decode {dtype}: max err "
+            f"{err}")
+    same = torch.equal(got, out) and all(
+        torch.equal(a, b) for a, b in zip(gk + gv, ck + cv))
+    require(same, f"fused_multi_block_decode {dtype}: not bit for bit the "
+            "chain of one-layer launches")
+
+    def chain():
+        o = x
+        for i, w in enumerate(layers):
+            o, _, _ = fb.fused_block_decode(o, w, ck[i], cv[i], bt, sl, **kw)
+
+    elem = x.element_size()
+    live = sum(seq_lens)
+    nbytes = (sum(t.numel() for t in mw) * elem
+              + elem * (2 * x.numel() + GROUP_LAYERS * 2 * (live + BATCH)
+                        * KV_HEADS * HEAD_DIM)
+              + 4 * (bt.numel() + sl.numel()))
+    mats = sum(t.numel() for t in (mw.wqkv, mw.wo, mw.wgu, mw.wd))
+    flops = (2.0 * BATCH * mats
+             + GROUP_LAYERS * 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
+    bms, by = bound_ms(nbytes, flops, dtype)
+    results.append(dict(
+        kernel="fused_multi_block_decode", dtype=DTYPE_NAME[dtype],
+        layers=GROUP_LAYERS, seq_lens=seq_lens, max_err=err, tol=TOL[dtype],
+        bitwise_vs_one_layer_chain=same,
+        kernel_ms=time_ms(lambda: fb.fused_multi_block_decode(
+            x, mw, gk, gv, bt, sl, **kw)),
+        one_layer_kernel_x4_ms=time_ms(chain),
+        plain_ms=time_ms(lambda: fb.fused_multi_block_decode_ref(
+            x, mw, wk, wv, bt, sl, **kw), iters=5, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by))
+    del layers, mw, pools, gk, gv, wk, wv, ck, cv
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- serve
 def prompts(vocab: int, lens) -> list:
     rng = np.random.default_rng(SEED)
     return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
 
 
-def serve(model, fused: bool, new_tokens: int, lens, record_logits=False):
+def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
+          max_seq=MAX_SEQ, group=1):
     """One engine run over ``lens`` prompts, half submitted up front and
-    the rest mid-run. Returns (engine, [(rid, prompt, tokens)], seconds,
-    launch counts)."""
+    the rest mid-run, with ``FLAGS_fused_block_layers=group``. Returns
+    (engine, [(rid, prompt, tokens)], seconds, launch counts, peak device
+    bytes of the run, engine included)."""
     from paddle_tpu_torch import flags, kernels
     from paddle_tpu_torch.generation.serving import ServingEngine
-    flags.set_flags({"fused_block_decode": fused})
-    eng = ServingEngine(model, max_batch=BATCH, page_size=PAGE,
-                        max_seq_len=MAX_SEQ, record_logits=record_logits)
+
+    class Engine(ServingEngine):
+        """Times each prefill chunk, a synchronise on both sides (the
+        engine's next host->device copy synchronises the stream anyway)."""
+
+        def _prefill_chunk(self, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._prefill_chunk(req)
+            torch.cuda.synchronize()
+            self.chunk_seconds.append(time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    flags.set_flags({"fused_block_decode": fused,
+                     "fused_block_layers": group})
+    eng = Engine(model, max_batch=BATCH, page_size=PAGE, max_seq_len=max_seq,
+                 record_logits=record_logits)
+    eng.chunk_seconds = []
     require((eng._spec is not None) == fused, "decode route not as asked")
-    # warm-up request (first-call costs: library loads, cuBLAS handles)
-    eng.submit(prompts(model.config.vocab_size, (9,))[0], 2)
+    require((eng._stacked is not None) == (fused and group > 1),
+            "N-layer route not as asked")
+    # warm-up requests, one whole and one chunked (first-call costs:
+    # library loads, cuBLAS handles)
+    for p in prompts(model.config.vocab_size, (9, CHUNK + 9)):
+        eng.submit(p, 2)
     eng.run()
-    eng.decode_step_seconds.clear()
-    eng.prefill_seconds.clear()
-    eng.ttft_seconds.clear()
-    eng.logits.clear()
+    for probe in (eng.decode_step_seconds, eng.prefill_seconds,
+                  eng.ttft_seconds, eng.logits, eng.chunk_seconds):
+        probe.clear()
+    eng.chunk_dispatches = 0
     ps = prompts(model.config.vocab_size, lens)
     half = len(ps) // 2
     torch.cuda.synchronize()
@@ -346,10 +528,20 @@ def serve(model, fused: bool, new_tokens: int, lens, record_logits=False):
     counts = kernels.launch_counts()
     flags.reset_flags()
     return (eng, [(r, ps[i], out[r]) for i, r in enumerate(rids)],
-            seconds, counts)
+            seconds, counts, torch.cuda.max_memory_allocated())
+
+
+def check_tokens(res, vocab, new_tokens):
+    for _, prompt, toks in res:
+        require(len(toks) == new_tokens,
+                f"request of {len(prompt)} tokens returned {len(toks)}")
+        require(all(0 <= t < vocab for t in toks),
+                "token out of the vocabulary")
 
 
 def run_serve(device):
+    """The serve and serve_long phases on one Llama-2-7B. Returns the
+    kernel launch counts of every run, summed."""
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b()
@@ -359,15 +551,11 @@ def run_serve(device):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     layers = cfg.num_hidden_layers
-    counts_by_mode = {}
+    total: dict = {}
     for fused in (True, False):
-        eng, res, seconds, counts = serve(model, fused, NEW_TOKENS,
-                                          PROMPT_LENS)
-        for _, prompt, toks in res:
-            require(len(toks) == NEW_TOKENS,
-                    f"request of {len(prompt)} tokens returned {len(toks)}")
-            require(all(0 <= t < cfg.vocab_size for t in toks),
-                    "token out of the vocabulary")
+        eng, res, seconds, counts, peak = serve(model, fused, NEW_TOKENS,
+                                                PROMPT_LENS)
+        check_tokens(res, cfg.vocab_size, NEW_TOKENS)
         steps = len(eng.decode_step_seconds)
         want_prefill = layers * len(PROMPT_LENS)
         require(counts["flash_prefill"] == want_prefill,
@@ -385,24 +573,82 @@ def run_serve(device):
                     f"times over {steps} steps")
             require(counts["fused_block_decode"] == 0,
                     "fused_block_decode ran in the generic run")
-        counts_by_mode[fused] = counts
         gen = sum(len(t) for _, _, t in res)
         emit("serve", model="llama2_7b", layers=layers, dtype="bf16",
              decode="fused" if fused else "generic",
              requests=len(res), prompt_lens=list(PROMPT_LENS),
              new_tokens=NEW_TOKENS, generated=gen, seconds=seconds,
              tokens_per_s=gen / seconds,
-             ttft_ms_median=1e3 * float(np.median(eng.ttft_seconds)),
-             ttft_ms_max=1e3 * float(np.max(eng.ttft_seconds)),
+             ttft_ms_median=1e3 * float(np.median(
+                 list(eng.ttft_seconds.values()))),
+             ttft_ms_max=1e3 * max(eng.ttft_seconds.values()),
              prefill_ms_median=1e3 * float(np.median(eng.prefill_seconds)),
              decode_steps=steps,
              decode_step_ms_median=1e3 * float(
                  np.median(eng.decode_step_seconds)),
              launches=counts, model_build_s=build_s,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+             peak_mem_gb=peak / 1e9)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del eng
+    counts = run_serve_long(model)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
     del model
     torch.cuda.empty_cache()
-    return counts_by_mode
+    return total
+
+
+def run_serve_long(model) -> dict:
+    """Prompts up to 3500 tokens of a 4096-token context, chunked, with one
+    fused kernel a layer and one a group of GROUP_LAYERS layers: exact
+    launch counts, identical streams. Returns the summed launch counts."""
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    chunks = sum(-(-n // CHUNK) for n in LONG_PROMPT_LENS if n > CHUNK)
+    whole = sum(1 for n in LONG_PROMPT_LENS if n <= CHUNK)
+    streams, total = {}, {}
+    for group in (1, GROUP_LAYERS):
+        eng, res, seconds, counts, peak = serve(
+            model, True, NEW_TOKENS, LONG_PROMPT_LENS, max_seq=LONG_MAX_SEQ,
+            group=group)
+        check_tokens(res, cfg.vocab_size, NEW_TOKENS)
+        steps = len(eng.decode_step_seconds)
+        want = dict(paged_chunk_attention=layers * chunks,
+                    flash_prefill=layers * whole, paged_attention=0,
+                    fused_block_decode=layers * steps if group == 1 else 0,
+                    fused_multi_block_decode=(0 if group == 1 else
+                                              -(-layers // group) * steps))
+        for name, n in want.items():
+            require(counts[name] == n, f"serve_long N={group}: {name} ran "
+                    f"{counts[name]} times, want {n}")
+        require(eng.chunk_dispatches == chunks,
+                f"serve_long: {eng.chunk_dispatches} chunks, want {chunks}")
+        streams[group] = [toks for _, _, toks in res]
+        ttft = {True: [], False: []}
+        for rid, prompt, _ in res:
+            ttft[len(prompt) > CHUNK].append(1e3 * eng.ttft_seconds[rid])
+        gen = sum(len(t) for t in streams[group])
+        emit("serve_long", model="llama2_7b", layers=layers, dtype="bf16",
+             fused_block_layers=group, max_seq_len=LONG_MAX_SEQ,
+             prefill_chunk=CHUNK, requests=len(res),
+             prompt_lens=list(LONG_PROMPT_LENS), new_tokens=NEW_TOKENS,
+             generated=gen, seconds=seconds, tokens_per_s=gen / seconds,
+             ttft_ms_long_median=float(np.median(ttft[True])),
+             ttft_ms_long_max=max(ttft[True]),
+             ttft_ms_short_median=float(np.median(ttft[False])),
+             ttft_ms_short_max=max(ttft[False]),
+             chunks=eng.chunk_dispatches,
+             chunk_ms_median=1e3 * float(np.median(eng.chunk_seconds)),
+             prefill_ms_median=1e3 * float(np.median(eng.prefill_seconds)),
+             decode_steps=steps,
+             decode_step_ms_median=1e3 * float(
+                 np.median(eng.decode_step_seconds)),
+             launches=counts, peak_mem_gb=peak / 1e9)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del eng
+        torch.cuda.empty_cache()
+    require(streams[1] == streams[GROUP_LAYERS],
+            f"serve_long: the N={GROUP_LAYERS} streams differ from N=1")
+    return total
 
 
 # ---------------------------------------------------------------- parity
@@ -413,9 +659,16 @@ def run_parity(device):
     cfg.num_hidden_layers = 2
     model = LlamaForCausalLM(cfg, device=device, dtype=torch.float32,
                              generator=seed(SEED + 7, device))
-    for fused in (True, False):
-        eng, res, _, _ = serve(model, fused, PARITY_NEW_TOKENS, PARITY_LENS,
-                               record_logits=True)
+    chunks = sum(-(-n // CHUNK) for n in PARITY_LENS if n > CHUNK)
+    for fused, group in ((True, 1), (False, 1), (True, 2)):
+        eng, res, _, counts, _ = serve(model, fused, PARITY_NEW_TOKENS,
+                                       PARITY_LENS, record_logits=True,
+                                       group=group)
+        require(counts["paged_chunk_attention"] == 2 * chunks,
+                f"parity: paged_chunk_attention ran "
+                f"{counts['paged_chunk_attention']} times")
+        require((counts["fused_multi_block_decode"] > 0) == (group > 1),
+                "parity: N-layer route not as asked")
         worst, checked, skipped = 0.0, 0, 0
         for rid, prompt, toks in res:
             rows = torch.from_numpy(np.stack(eng.logits[rid])).to(device)
@@ -440,9 +693,13 @@ def run_parity(device):
         require(worst <= PARITY_TOL, f"parity: logits err {worst} > "
                 f"{PARITY_TOL}")
         emit("parity", model="llama2_7b width, 2 layers", dtype="fp32",
-             decode="fused" if fused else "generic", requests=len(res),
-             max_logit_err=worst, tol=PARITY_TOL, tokens_checked=checked,
-             tokens_within_tol_gap=skipped)
+             decode="fused" if fused else "generic",
+             fused_block_layers=group, prompt_lens=list(PARITY_LENS),
+             prefill_chunk=CHUNK, chunks=eng.chunk_dispatches,
+             requests=len(res), max_logit_err=worst, tol=PARITY_TOL,
+             tokens_checked=checked, tokens_within_tol_gap=skipped,
+             launches=counts)
+        del eng
     del model
     torch.cuda.empty_cache()
 
@@ -477,8 +734,7 @@ def check_flash_attention(dtype, device, rows):
         torch.cuda.synchronize()
         atol, rtol = OUT_TOL[dtype]
         out_err, lse_err = max_err(out, ref), max_err(lse, lse_ref)
-        out_excess = float(((out.float() - ref.detach().float()).abs()
-                            - rtol * ref.detach().float().abs()).max())
+        out_excess = excess(out, ref, rtol)
         dq_rel = rel_err(dq, ref_grads[0])
         dkv_rel = max(rel_err(dk, ref_grads[1]), rel_err(dv, ref_grads[2]))
         dq_abs = max_err(dq, ref_grads[0])
@@ -720,7 +976,9 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_flash_prefill(dtype, device, results)
         check_paged_attention(dtype, device, results)
+        check_paged_chunk_attention(dtype, device, results)
         check_fused_block_decode(dtype, device, results)
+        check_fused_multi_block_decode(dtype, device, results)
     for r in results:
         emit("kernels", **r)
 
@@ -750,7 +1008,7 @@ def main() -> int:
             rows = [r for r in results if r["kernel"] == name
                     and r["dtype"] == "bf16" and "kernel_ms" in r]
             main_row = rows[-1]      # the largest serving shape in bf16
-            launches = counts[True][name] + counts[False][name]
+            launches = counts[name]  # serve and serve_long, every run
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,

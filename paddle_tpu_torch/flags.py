@@ -31,11 +31,19 @@ def _any(_value) -> None:
     return None
 
 
+def _at_least_one(flag: str) -> Callable[[Any], None]:
+    def check(value):
+        if value < 1:
+            raise ValueError(f"FLAGS_{flag} must be >= 1, got {value!r}")
+    return check
+
+
 # name -> (default, validator)
 _FLAGS: Dict[str, tuple] = {
     "fused_block_decode": (True, _any),
-    "fused_block_layers": (1, _only("fused_block_layers", 1,
-                                    "N-layer decode kernel")),
+    "fused_block_layers": (1, _at_least_one("fused_block_layers")),
+    "fused_weight_dtype": ("native", _only("fused_weight_dtype", "native",
+                                           "int4 weight tiles")),
     "serving_prefill_chunk": (256, _any),
     "serving_kv_dtype": ("native", _only("serving_kv_dtype", "native",
                                          "int8 KV pools")),

@@ -12,7 +12,9 @@ from . import (decode_attention, flash_attention, fused_block_decode,
 def wrappers():
     """The kernel wrappers of the ported slices: serving, then training."""
     return (decode_attention.flash_prefill, paged_attention.paged_attention,
+            paged_attention.paged_chunk_attention,
             fused_block_decode.fused_block_decode,
+            fused_block_decode.fused_multi_block_decode,
             flash_attention.flash_attention_fwd,
             flash_attention.flash_attention_bwd_dq,
             flash_attention.flash_attention_bwd_dkv)

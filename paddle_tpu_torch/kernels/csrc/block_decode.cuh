@@ -1,0 +1,489 @@
+// One Llama decoder layer's decode step for a batch of single tokens, the
+// device code shared by fused_block_decode.cu (one layer a call) and
+// fused_multi_block_decode.cu (a group of N stacked layers a call).
+//
+// run<T>() launches the layer's phases in order on the caller's stream,
+// with the activations in an f32 scratch buffer the wrapper allocates (a
+// few hundred KB, L2-resident between launches):
+//   1. rms(x) * ln1, then the q/k/v GEMVs, then a RoPE epilogue at seq_lens;
+//   2. paged attention with the new token's k/v folded in before the pool
+//      write, then the append of that k/v to the pool (in this kernel);
+//   3. o-proj GEMV + residual;
+//   4. rms * ln2, then the gate/up GEMVs and silu(g) * u;
+//   5. down GEMV + residual, cast to the activation dtype.
+// Every GEMV block streams its weight tile once, with 16-byte loads, for all
+// (up to 8) batch rows at once; the contraction is split over blocks so that
+// enough loads are in flight to fill the card, and each split writes f32
+// partial sums that the phase's epilogue reduces in a fixed order (the
+// result does not depend on scheduling). A weight matrix is read with its
+// own row stride, so q, k and v (and gate and up) may be column ranges of
+// one merged matrix: the GEMV launch, its split and every column's
+// reduction are the same as over separate matrices, bit for bit.
+#pragma once
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace ptt {
+
+constexpr int GV_THREADS = 256;
+constexpr int GV_WARPS = GV_THREADS / 32;
+constexpr int GV_UNROLL = 4;
+constexpr int GV_MAXB = 8;
+constexpr int GV_TARGET_BLOCKS = 1024;
+constexpr int EPI_THREADS = 256;
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+};
+
+inline int cols_per_tile(int dtype) {
+  return 32 * (dtype == DT_BF16 ? Vec<__nv_bfloat16>::N : Vec<float>::N);
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+struct Split {
+  int ks, rows;
+};
+
+// Split the contraction K so that col_tiles * ks blocks fill the card.
+inline Split gemv_split(int K, int col_tiles) {
+  const int want = cdiv(GV_TARGET_BLOCKS, col_tiles);
+  const int step = GV_WARPS * GV_UNROLL;
+  const int rows = cdiv(cdiv(K, want), step) * step;
+  return {cdiv(K, rows), rows};
+}
+
+template <typename T>
+struct GemvSeg {
+  const T* W;    // (K, N) columns of a row-major matrix, the (in, out) layout
+  int N;         // columns
+  int ld;        // row stride of W (elements; >= N)
+  float* part;   // (ks, B, N) partial sums
+  int tile0;     // first column tile of this segment in the launch
+};
+
+template <typename T>
+struct GemvArgs {
+  GemvSeg<T> seg[3];
+  int nseg;
+  const float* a;  // (B, K) activations, f32
+  int K, B, b0, nb, rows;
+};
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(GV_THREADS)
+    gemv_partial_kernel(GemvArgs<T> args) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int COLS = 32 * VEC;
+  __shared__ float red[GV_WARPS][COLS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int tile = blockIdx.x;
+  int si = 0;
+  while (si + 1 < args.nseg && tile >= args.seg[si + 1].tile0) ++si;
+  const GemvSeg<T> sg = args.seg[si];
+  const int c_base = (tile - sg.tile0) * COLS;
+  const int col = c_base + lane * VEC;
+  const bool col_ok = col < sg.N;
+  const int k0 = blockIdx.y * args.rows;
+  const int k1 = min(args.K, k0 + args.rows);
+  const float* a = args.a + (size_t)args.b0 * args.K;
+
+  float acc[NB][VEC];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) acc[b][c] = 0.f;
+
+  for (int k = k0 + warp; k < k1; k += GV_WARPS * GV_UNROLL) {
+    uint4 raw[GV_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GV_UNROLL; ++u) {
+      const int kk = k + u * GV_WARPS;
+      raw[u] = (col_ok && kk < k1)
+                   ? *reinterpret_cast<const uint4*>(sg.W + (size_t)kk * sg.ld +
+                                                     col)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < GV_UNROLL; ++u) {
+      const int kk = k + u * GV_WARPS;
+      if (kk >= k1) break;
+      const T* wv = reinterpret_cast<const T*>(&raw[u]);
+      float w[VEC];
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) w[c] = to_f(wv[c]);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b < args.nb) {
+          const float av = a[(size_t)b * args.K + kk];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) acc[b][c] += av * w[c];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b < args.nb) {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) red[warp][lane * VEC + c] = acc[b][c];
+      __syncthreads();
+      for (int cc = threadIdx.x; cc < COLS; cc += GV_THREADS) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < GV_WARPS; ++w) s += red[w][cc];
+        const int n = c_base + cc;
+        if (n < sg.N)
+          sg.part[((size_t)blockIdx.y * args.B + args.b0 + b) * sg.N + n] = s;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Launch one GEMV phase over 1-3 weight matrices that share the activation.
+template <typename T>
+int gemv(const float* a, int K, int B, const T* const* W, const int* N,
+         const int* ld, float* const* part, int nseg, cudaStream_t stream) {
+  constexpr int COLS = 32 * Vec<T>::N;
+  GemvArgs<T> args;
+  int tiles = 0;
+  for (int i = 0; i < nseg; ++i) {
+    args.seg[i] = GemvSeg<T>{W[i], N[i], ld[i], part[i], tiles};
+    tiles += cdiv(N[i], COLS);
+  }
+  const Split sp = gemv_split(K, tiles);
+  args.nseg = nseg;
+  args.a = a;
+  args.K = K;
+  args.B = B;
+  args.rows = sp.rows;
+  const dim3 grid(tiles, sp.ks);
+  for (int b0 = 0; b0 < B; b0 += GV_MAXB) {
+    args.b0 = b0;
+    args.nb = std::min(GV_MAXB, B - b0);
+    if (args.nb == 1)
+      gemv_partial_kernel<T, 1><<<grid, GV_THREADS, 0, stream>>>(args);
+    else if (args.nb == 2)
+      gemv_partial_kernel<T, 2><<<grid, GV_THREADS, 0, stream>>>(args);
+    else if (args.nb <= 4)
+      gemv_partial_kernel<T, 4><<<grid, GV_THREADS, 0, stream>>>(args);
+    else
+      gemv_partial_kernel<T, 8><<<grid, GV_THREADS, 0, stream>>>(args);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+__device__ inline float psum(const float* part, int ks, int B, int N, int b,
+                             int n) {
+  float s = 0.f;
+  for (int i = 0; i < ks; ++i) s += part[((size_t)i * B + b) * N + n];
+  return s;
+}
+
+// rms(x) * w over each row of x (B rows of n), written as f32.
+template <typename TI, typename TW>
+__global__ void __launch_bounds__(EPI_THREADS)
+    rms_kernel(const TI* __restrict__ x, const TW* __restrict__ w,
+               float* __restrict__ out, int n, float eps) {
+  __shared__ float red[EPI_THREADS / 32];
+  const TI* xr = x + (size_t)blockIdx.x * n;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float v = to_f(xr[i]);
+    s += v * v;
+  }
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  float tot = 0.f;
+  for (int i = 0; i < EPI_THREADS / 32; ++i) tot += red[i];
+  const float inv = rsqrtf(tot / n + eps);
+  float* o = out + (size_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    o[i] = to_f(xr[i]) * inv * to_f(w[i]);
+}
+
+// Reduce the q/k/v partials; rotate q and k (neox halves) at seq_lens.
+__global__ void __launch_bounds__(EPI_THREADS)
+    qkv_epilogue_kernel(const float* __restrict__ pq,
+                        const float* __restrict__ pk,
+                        const float* __restrict__ pv, int ks, int B, int nh,
+                        int nkv, int d, const int* __restrict__ sl,
+                        const float* __restrict__ inv_freq,
+                        float* __restrict__ q, float* __restrict__ kn,
+                        float* __restrict__ vn) {
+  const int half = d / 2;
+  const int nq = B * nh * half, nk = B * nkv * half, nv = B * nkv * d;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nq + nk) {
+    const bool isq = i < nq;
+    const int j = isq ? i : i - nq;
+    const int heads = isq ? nh : nkv;
+    const int b = j / (heads * half);
+    const int r = j - b * heads * half;
+    const int head = r / half, e = r - head * half;
+    const int N = heads * d;
+    const int n0 = head * d + e, n1 = n0 + half;
+    const float* p = isq ? pq : pk;
+    const float u0 = psum(p, ks, B, N, b, n0);
+    const float u1 = psum(p, ks, B, N, b, n1);
+    const float ang = (float)sl[b] * inv_freq[e];
+    const float c = cosf(ang), s = sinf(ang);
+    float* o = (isq ? q : kn) + (size_t)b * N;
+    o[n0] = u0 * c - u1 * s;
+    o[n1] = u1 * c + u0 * s;
+  } else if (i < nq + nk + nv) {
+    const int j = i - nq - nk;
+    const int N = nkv * d;
+    const int b = j / N;
+    vn[j] = psum(pv, ks, B, N, b, j - b * N);
+  }
+}
+
+// A layer's KV pools, passed to the attention kernel as pointer parameters:
+// a pointer the kernel read from memory would be a generic pointer, and the
+// pool loads would then be generic loads (LD), not global ones (LDG), which
+// in bf16 made the kernel ~60 % slower on the H100.
+template <typename T>
+struct PoolRef {
+  T* kp;
+  T* vp;
+};
+
+// Paged attention for one (row, kv head) with the new token folded in, then
+// the append of that token's k/v to the pool.
+template <typename T>
+__global__ void __launch_bounds__(128)
+    fused_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ kn,
+                           const float* __restrict__ vn, T* kp, T* vp,
+                           const int* __restrict__ bt,
+                           const int* __restrict__ sl, float* __restrict__ ao,
+                           int H, int Hkv, int D, int num_pages, int page,
+                           int maxp, float scale) {
+  extern __shared__ float smem[];
+  const int rep = H / Hkv;
+  const int b = blockIdx.x / Hkv, g = blockIdx.x - b * Hkv;
+  DecodeSmem sm = decode_smem_carve(smem, rep, D, page);
+  const size_t qoff = ((size_t)b * H + (size_t)g * rep) * D;
+  const int* bt_row = bt + (size_t)b * maxp;
+  const int len = sl[b];
+  decode_init(sm, q + qoff, rep, D, scale);
+  decode_pages(sm, (const T*)kp, (const T*)vp, bt_row, len, g, num_pages,
+               page, maxp, rep, D);
+  // the new token attends too, at the value a pool re-read would give
+  const size_t noff = ((size_t)b * Hkv + g) * D;
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    sm.k[d] = to_f(from_f<T>(kn[noff + d]));
+    sm.v[d] = to_f(from_f<T>(vn[noff + d]));
+  }
+  __syncthreads();
+  decode_tile(sm, rep, D, page, 1);
+  decode_emit(sm, ao + qoff, rep, D);
+  const int j = len / page;
+  if (j < maxp) {
+    const size_t off =
+        (((size_t)g * num_pages + bt_row[j]) * page + (len - j * page)) * D;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      kp[off + d] = from_f<T>(kn[noff + d]);
+      vp[off + d] = from_f<T>(vn[noff + d]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(EPI_THREADS)
+    residual_epilogue_kernel(const T* __restrict__ x,
+                             const float* __restrict__ part, int ks, int B,
+                             int N, float* __restrict__ x2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * N) return;
+  const int b = i / N;
+  x2[i] = to_f(x[i]) + psum(part, ks, B, N, b, i - b * N);
+}
+
+__global__ void __launch_bounds__(EPI_THREADS)
+    swiglu_epilogue_kernel(const float* __restrict__ pg,
+                           const float* __restrict__ pu, int ks, int B, int N,
+                           float* __restrict__ f) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * N) return;
+  const int b = i / N, n = i - b * N;
+  const float g = psum(pg, ks, B, N, b, n);
+  const float u = psum(pu, ks, B, N, b, n);
+  f[i] = g / (1.f + expf(-g)) * u;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(EPI_THREADS)
+    down_epilogue_kernel(const float* __restrict__ x2,
+                         const float* __restrict__ part, int ks, int B, int N,
+                         T* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * N) return;
+  const int b = i / N;
+  out[i] = from_f<T>(x2[i] + psum(part, ks, B, N, b, i - b * N));
+}
+
+// Scratch layout (f32 elements), shared by the size query and the launch.
+struct Layout {
+  size_t h, q, kn, vn, ao, x2, f, part, total;
+};
+
+inline size_t phase_part(int K, int B, const int* N, int nseg, int cols) {
+  int tiles = 0;
+  size_t width = 0;
+  for (int i = 0; i < nseg; ++i) {
+    tiles += cdiv(N[i], cols);
+    width += (size_t)N[i];
+  }
+  return (size_t)gemv_split(K, tiles).ks * B * width;
+}
+
+inline Layout layout(int dtype, int B, int hidden, int nh, int nkv, int d,
+                     int inter) {
+  const int cols = cols_per_tile(dtype);
+  Layout L;
+  size_t o = 0;
+  L.h = o;  o += (size_t)B * hidden;
+  L.q = o;  o += (size_t)B * nh * d;
+  L.kn = o; o += (size_t)B * nkv * d;
+  L.vn = o; o += (size_t)B * nkv * d;
+  L.ao = o; o += (size_t)B * nh * d;
+  L.x2 = o; o += (size_t)B * hidden;
+  L.f = o;  o += (size_t)B * inter;
+  L.part = o;
+  const int nqkv[3] = {nh * d, nkv * d, nkv * d};
+  const int no[1] = {hidden};
+  const int ngu[2] = {inter, inter};
+  size_t p = phase_part(hidden, B, nqkv, 3, cols);
+  p = std::max(p, phase_part(nh * d, B, no, 1, cols));
+  p = std::max(p, phase_part(hidden, B, ngu, 2, cols));
+  p = std::max(p, phase_part(inter, B, no, 1, cols));
+  L.total = o + p;
+  return L;
+}
+
+// One layer's weights, (in, out) layout. q, k and v are read with row
+// strides ldq (= ldk = ldv when they are column ranges of one merged
+// matrix), gate and up with ldg.
+template <typename T>
+struct LayerWeights {
+  const T *ln1, *wq, *wk, *wv, *wo, *ln2, *wg, *wu, *wd;
+  int ldq, ldk, ldv, ldg, ldu;
+};
+
+#define PTT_CHECK()                                   \
+  do {                                                \
+    const cudaError_t e_ = cudaGetLastError();        \
+    if (e_ != cudaSuccess) return (int)e_;            \
+  } while (0)
+
+// One layer: x (B, hidden) -> out (B, hidden), both of type T. out may be x
+// itself: x is last read by phase 3, out first written by phase 5.
+template <typename T>
+int run(const T* x, const LayerWeights<T>& w, PoolRef<T> pools,
+        const int* bt, const int* sl, const float* inv_freq, T* out,
+        float* scratch, int dtype, int B, int hidden, int nh, int nkv, int d,
+        int inter, int num_pages, int page, int maxp, float eps, float scale,
+        cudaStream_t st) {
+  const Layout L = layout(dtype, B, hidden, nh, nkv, d, inter);
+  float* h = scratch + L.h;
+  float* q = scratch + L.q;
+  float* kn = scratch + L.kn;
+  float* vn = scratch + L.vn;
+  float* ao = scratch + L.ao;
+  float* x2 = scratch + L.x2;
+  float* f = scratch + L.f;
+  float* part = scratch + L.part;
+  constexpr int COLS = 32 * Vec<T>::N;
+  int rc;
+
+  // 1. rms + q/k/v GEMVs + RoPE epilogue
+  rms_kernel<T, T><<<B, EPI_THREADS, 0, st>>>(x, w.ln1, h, hidden, eps);
+  PTT_CHECK();
+  {
+    const int N[3] = {nh * d, nkv * d, nkv * d};
+    const int ld[3] = {w.ldq, w.ldk, w.ldv};
+    const int ks = gemv_split(hidden, cdiv(N[0], COLS) + 2 * cdiv(N[1], COLS)).ks;
+    float* P[3] = {part, part + (size_t)ks * B * N[0],
+                   part + (size_t)ks * B * (N[0] + N[1])};
+    const T* W[3] = {w.wq, w.wk, w.wv};
+    if ((rc = gemv<T>(h, hidden, B, W, N, ld, P, 3, st))) return rc;
+    const int items = B * nh * (d / 2) + B * nkv * (d / 2) + B * nkv * d;
+    qkv_epilogue_kernel<<<cdiv(items, EPI_THREADS), EPI_THREADS, 0, st>>>(
+        P[0], P[1], P[2], ks, B, nh, nkv, d, sl, inv_freq, q, kn, vn);
+    PTT_CHECK();
+  }
+  // 2. paged attention with the new token folded in, then the pool append
+  {
+    const size_t smem =
+        decode_smem_floats(nh / nkv, d, page) * sizeof(float);
+    cudaFuncSetAttribute(fused_attention_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    fused_attention_kernel<T><<<B * nkv, 128, smem, st>>>(
+        q, kn, vn, pools.kp, pools.vp, bt, sl, ao, nh, nkv, d, num_pages,
+        page, maxp, scale);
+    PTT_CHECK();
+  }
+  // 3. o-proj GEMV + residual
+  {
+    const int N[1] = {hidden};
+    const int ld[1] = {hidden};
+    const int ks = gemv_split(nh * d, cdiv(hidden, COLS)).ks;
+    float* P[1] = {part};
+    const T* W[1] = {w.wo};
+    if ((rc = gemv<T>(ao, nh * d, B, W, N, ld, P, 1, st))) return rc;
+    residual_epilogue_kernel<T>
+        <<<cdiv(B * hidden, EPI_THREADS), EPI_THREADS, 0, st>>>(
+            x, part, ks, B, hidden, x2);
+    PTT_CHECK();
+  }
+  // 4. rms + gate/up GEMVs + silu(g) * u
+  rms_kernel<float, T><<<B, EPI_THREADS, 0, st>>>(x2, w.ln2, h, hidden, eps);
+  PTT_CHECK();
+  {
+    const int N[2] = {inter, inter};
+    const int ld[2] = {w.ldg, w.ldu};
+    const int ks = gemv_split(hidden, 2 * cdiv(inter, COLS)).ks;
+    float* P[2] = {part, part + (size_t)ks * B * inter};
+    const T* W[2] = {w.wg, w.wu};
+    if ((rc = gemv<T>(h, hidden, B, W, N, ld, P, 2, st))) return rc;
+    swiglu_epilogue_kernel<<<cdiv(B * inter, EPI_THREADS), EPI_THREADS, 0,
+                             st>>>(P[0], P[1], ks, B, inter, f);
+    PTT_CHECK();
+  }
+  // 5. down GEMV + residual
+  {
+    const int N[1] = {hidden};
+    const int ld[1] = {hidden};
+    const int ks = gemv_split(inter, cdiv(hidden, COLS)).ks;
+    float* P[1] = {part};
+    const T* W[1] = {w.wd};
+    if ((rc = gemv<T>(f, inter, B, W, N, ld, P, 1, st))) return rc;
+    down_epilogue_kernel<T>
+        <<<cdiv(B * hidden, EPI_THREADS), EPI_THREADS, 0, st>>>(
+            x2, part, ks, B, hidden, out);
+    PTT_CHECK();
+  }
+  return 0;
+}
+
+}  // namespace ptt

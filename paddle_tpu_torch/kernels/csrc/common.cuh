@@ -1,6 +1,8 @@
 // Shared helpers for the port's Hopper kernels: element conversion, warp
-// reductions, and the one-token decode-attention tile routine that both
-// paged_attention.cu and fused_block_decode.cu run.
+// reductions, the one-token decode-attention tile routine that
+// paged_attention.cu and the fused block decode kernels run, and the causal
+// prefill block routine that flash_prefill.cu and paged_chunk_attention.cu
+// run.
 //
 // Every entry point is a plain C function (loaded with ctypes): it takes
 // raw device pointers and the caller's CUDA stream, launches, and returns
@@ -187,6 +189,137 @@ __device__ inline void decode_emit(const DecodeSmem& sm, TO* out, int rep,
   for (int idx = threadIdx.x; idx < rep * D; idx += blockDim.x) {
     const float l = sm.l[idx / D];
     out[idx] = from_f<TO>(sm.acc[idx] / (l == 0.f ? 1.f : l));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Causal prefill attention for one (batch row, query head, tile of FP_BQ
+// query rows), the work of one thread block of FP_WARPS warps. Query row i
+// (0 <= i < S) of the head lies at q[row0 + i * row_stride .. + D) and sits
+// at absolute position qpos0 + i; it sees every kv row at a position <= its
+// own and below kv_len. `kv_off(pos)` is the element offset of kv row `pos`
+// of the block's kv head, the same in K and V: a contiguous cache, or a
+// page found through the block table. A loop inside the block walks the kv
+// rows in tiles of FP_BK through shared memory and stops at the last tile
+// its rows can see; each warp owns FP_RPW query rows and keeps their online
+// softmax (m, l) and f32 accumulators in registers. Shared memory (dynamic,
+// fp_smem_bytes(D)):
+//   Q [BQ][D]   K [BK][D + 1] (padded: conflict-free dots)   V [BK][D]
+//   P [BQ][BK]
+constexpr int FP_BQ = 32;       // query rows per block
+constexpr int FP_BK = 64;       // kv rows per tile (2 per lane)
+constexpr int FP_WARPS = 4;
+constexpr int FP_RPW = FP_BQ / FP_WARPS;  // rows per warp
+constexpr int FP_DPL = 4;       // head-dim elements per lane (D <= 128)
+
+inline size_t fp_smem_bytes(int D) {
+  return sizeof(float) * ((size_t)FP_BQ * D + (size_t)FP_BK * (D + 1) +
+                          (size_t)FP_BK * D + (size_t)FP_BQ * FP_BK);
+}
+
+template <typename T, typename KvOff>
+__device__ inline void prefill_block(const T* __restrict__ q,
+                                     T* __restrict__ out, size_t row0,
+                                     size_t row_stride, int S, int q0,
+                                     int qpos0, int kv_len,
+                                     const T* __restrict__ k,
+                                     const T* __restrict__ v,
+                                     const KvOff& kv_off, int D,
+                                     float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // [BQ][D]
+  float* Ks = Qs + FP_BQ * D;           // [BK][D + 1]
+  float* Vs = Ks + FP_BK * (D + 1);     // [BK][D]
+  float* Ps = Vs + FP_BK * D;           // [BQ][BK]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int idx = threadIdx.x; idx < FP_BQ * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    const int qi = q0 + r;
+    Qs[idx] = qi < S ? to_f(q[row0 + (size_t)qi * row_stride + d]) * scale
+                     : 0.f;
+  }
+
+  float m[FP_RPW], l[FP_RPW], acc[FP_RPW][FP_DPL];
+#pragma unroll
+  for (int rr = 0; rr < FP_RPW; ++rr) {
+    m[rr] = NEG_INF;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < FP_DPL; ++dd) acc[rr][dd] = 0.f;
+  }
+
+  // kv rows this block can see: up to the last valid row's position
+  const int q_last = min(q0 + FP_BQ, S) - 1;
+  const int kv_end = min(kv_len, qpos0 + q_last + 1);
+
+  for (int j0 = 0; j0 < kv_end; j0 += FP_BK) {
+    const int n = min(FP_BK, kv_len - j0);
+    __syncthreads();  // previous tile consumed (and the q tile stored)
+    for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx - t * D;
+      const size_t src = kv_off(j0 + t) + d;
+      Ks[t * (D + 1) + d] = to_f(k[src]);
+      Vs[t * D + d] = to_f(v[src]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < FP_RPW; ++rr) {
+      const int r = warp * FP_RPW + rr;
+      const int qi = q0 + r;
+      const int qpos = qpos0 + qi;
+      const float* qr = Qs + r * D;
+      float s0 = NEG_INF, s1 = NEG_INF;
+      const int c0 = lane, c1 = lane + 32;
+      if (qi < S) {
+        if (c0 < n && j0 + c0 <= qpos) {
+          const float* kr = Ks + c0 * (D + 1);
+          float a = 0.f;
+          for (int d = 0; d < D; ++d) a += qr[d] * kr[d];
+          s0 = a;
+        }
+        if (c1 < n && j0 + c1 <= qpos) {
+          const float* kr = Ks + c1 * (D + 1);
+          float a = 0.f;
+          for (int d = 0; d < D; ++d) a += qr[d] * kr[d];
+          s1 = a;
+        }
+      }
+      const float mx = warp_max(fmaxf(s0, s1));
+      float m_new = fmaxf(m[rr], mx);
+      if (m_new <= NEG_INF / 2) m_new = 0.f;
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      const float alpha = expf(m[rr] - m_new);
+      l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
+      m[rr] = m_new;
+      Ps[r * FP_BK + c0] = p0;
+      Ps[r * FP_BK + c1] = p1;
+      __syncwarp();
+      const float* pr = Ps + r * FP_BK;
+#pragma unroll
+      for (int dd = 0; dd < FP_DPL; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < D) {
+          float a = acc[rr][dd] * alpha;
+          for (int t = 0; t < n; ++t) a += pr[t] * Vs[t * D + d];
+          acc[rr][dd] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < FP_RPW; ++rr) {
+    const int qi = q0 + warp * FP_RPW + rr;
+    if (qi >= S) continue;
+    const float inv = 1.f / (l[rr] == 0.f ? 1.f : l[rr]);
+    T* o = out + row0 + (size_t)qi * row_stride;
+#pragma unroll
+    for (int dd = 0; dd < FP_DPL; ++dd) {
+      const int d = lane + 32 * dd;
+      if (d < D) o[d] = from_f<T>(acc[rr][dd] * inv);
+    }
   }
 }
 

@@ -1,0 +1,104 @@
+// N Llama decoder layers' decode step per call, over stacked weights.
+//
+// Replaces the TPU kernel `_fused_multi_block_kernel` (paddle_tpu/kernels/
+// fused_block_decode.py, launched by `fused_multi_block_decode_pallas`).
+// There one pallas_call ran a grid of n_layers x per-layer phases: the
+// stacked weights streamed through VMEM under a layer-aware index map, the
+// activation carried across layers in VMEM scratch, q|k|v and gate|up were
+// one merged matmul each, and the new k/v of every layer left the kernel
+// for the caller to write into the N per-layer pools.
+//
+// Bound on the H100: bytes, N times fused_block_decode.cu's: the group's
+// stacked weights (N x ~405 MB for Llama-2-7B layers in bf16) plus each
+// layer's live KV pages, over 3.35 TB/s.
+//
+// Design: one C entry per layer group runs the N layers' chain in order on
+// the caller's stream with block_decode.cuh's run(), the same device code
+// as the one-layer kernel: f32 rms; one merged GEMV launch over the layer's
+// slice of wqkv (q, k and v as three column ranges of one matrix, read with
+// its row stride); RoPE at each slot's position; paged attention with the
+// step's own token folded in from registers, which then appends the new k/v
+// to the layer's pool at seq_lens inside the attention kernel (an idle
+// slot's all-zero block table sends its row to the null page); o-GEMV +
+// residual; rms; one merged GEMV over wgu; silu * up; down-GEMV + residual;
+// the cast to x's dtype, which the next layer reads back as its f32 carry.
+// Each output column of a merged GEMV is reduced with the split and order
+// of the one-layer kernel's separate GEMV, so a group's step equals N
+// one-layer launches bit for bit. The N per-layer pools arrive as a host
+// array of 2N pointers (k0, v0, k1, v1, ...): the entry launches every
+// layer's kernels itself, so each layer's attention kernel gets its pools
+// as pointer parameters, as the one-layer kernel's does (the TPU kernel
+// needed a table because one pallas_call covered all N layers). A
+// persistent single kernel across the group (clusters, distributed shared
+// memory) is later work.
+#include "block_decode.cuh"
+
+PTT_EXPORT long long ptt_fused_multi_block_decode_scratch(int dtype, int B,
+                                                          int hidden, int nh,
+                                                          int nkv, int d,
+                                                          int inter) {
+  return (long long)ptt::layout(dtype, B, hidden, nh, nkv, d, inter).total;
+}
+
+namespace ptt {
+
+template <typename T>
+int run_group(const void* x, const void* ln1, const void* wqkv,
+              const void* wo, const void* ln2, const void* wgu,
+              const void* wd, void* const* pools, const int* bt,
+              const int* sl, const float* inv, void* out, float* scratch,
+              int dtype, int n_layers, int B, int hidden, int nh, int nkv,
+              int d, int inter, int num_pages, int page, int maxp, float eps,
+              float scale, cudaStream_t st) {
+  const int qw = nh * d, kvw = nkv * d, qkvw = qw + 2 * kvw;
+  for (int i = 0; i < n_layers; ++i) {
+    LayerWeights<T> w;
+    w.ln1 = (const T*)ln1 + (size_t)i * hidden;
+    w.wq = (const T*)wqkv + (size_t)i * hidden * qkvw;
+    w.wk = w.wq + qw;
+    w.wv = w.wk + kvw;
+    w.ldq = w.ldk = w.ldv = qkvw;
+    w.wo = (const T*)wo + (size_t)i * qw * hidden;
+    w.ln2 = (const T*)ln2 + (size_t)i * hidden;
+    w.wg = (const T*)wgu + (size_t)i * hidden * 2 * inter;
+    w.wu = w.wg + inter;
+    w.ldg = w.ldu = 2 * inter;
+    w.wd = (const T*)wd + (size_t)i * inter * hidden;
+    const PoolRef<T> pool{(T*)pools[2 * i], (T*)pools[2 * i + 1]};
+    // layer 0 reads x; every layer writes out, which the next one reads
+    const T* xi = i == 0 ? (const T*)x : (const T*)out;
+    const int rc = run<T>(xi, w, pool, bt, sl, inv, (T*)out, scratch, dtype,
+                          B, hidden, nh, nkv, d, inter, num_pages, page, maxp,
+                          eps, scale, st);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+}  // namespace ptt
+
+PTT_EXPORT int ptt_fused_multi_block_decode(
+    int dtype, const void* x, const void* ln1, const void* wqkv,
+    const void* wo, const void* ln2, const void* wgu, const void* wd,
+    void* const* pools, const void* bt, const void* sl,
+    const void* inv_freq, void* out, void* scratch, int n_layers, int B,
+    int hidden, int nh, int nkv, int d, int inter, int num_pages, int page,
+    int maxp, float eps, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* bti = (const int*)bt;
+  const int* sli = (const int*)sl;
+  const float* inv = (const float*)inv_freq;
+  float* scr = (float*)scratch;
+  if (n_layers < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == ptt::DT_BF16)
+    return ptt::run_group<__nv_bfloat16>(
+        x, ln1, wqkv, wo, ln2, wgu, wd, pools, bti, sli, inv, out, scr, dtype,
+        n_layers, B, hidden, nh, nkv, d, inter, num_pages, page, maxp, eps,
+        scale, st);
+  if (dtype == ptt::DT_F32)
+    return ptt::run_group<float>(
+        x, ln1, wqkv, wo, ln2, wgu, wd, pools, bti, sli, inv, out, scr, dtype,
+        n_layers, B, hidden, nh, nkv, d, inter, num_pages, page, maxp, eps,
+        scale, st);
+  return (int)cudaErrorInvalidValue;
+}

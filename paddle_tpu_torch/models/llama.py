@@ -21,7 +21,7 @@ from torch import nn
 from ..convert import state_from_numpy
 from ..device import DeviceLike, resolve_device, seed
 from ..incubate.nn import functional as FF
-from ..kernels.paged_attention import PagedDecodeState, paged_position_ids
+from ..kernels.paged_attention import is_paged_state, paged_position_ids
 from ..nn import functional as F
 from ..nn.layers.common import Embedding, Linear, RMSNorm
 
@@ -90,7 +90,7 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         if cache is not None:
             state, offset = cache
-            if not isinstance(state, PagedDecodeState):
+            if not is_paged_state(state):
                 raise NotImplementedError(
                     "only the paged KV cache is ported; the ring-buffer "
                     "cache comes with the generation slice")
@@ -233,10 +233,12 @@ class LlamaForCausalLM(nn.Module):
     def block_decode_spec(self, fused_layers: int = 1):
         """Which named parameters form each layer's ``BlockDecodeWeights``
         for the fused decode step, plus the embedding / final-norm / lm-head
-        names and the attention geometry."""
-        if fused_layers != 1:
-            raise NotImplementedError(
-                "fused_layers > 1 (the N-layer decode kernel) is not ported")
+        names and the attention geometry. ``fused_layers=N > 1``
+        (``FLAGS_fused_block_layers``) also publishes ``layer_groups``:
+        consecutive layer indices, N a group (the last group ragged), which
+        the engine stacks into one ``MultiBlockDecodeWeights`` each."""
+        if int(fused_layers) < 1:
+            raise ValueError(f"fused_layers must be >= 1, got {fused_layers}")
         c = self.config
         layers = []
         for i in range(c.num_hidden_layers):
@@ -251,7 +253,7 @@ class LlamaForCausalLM(nn.Module):
                 wg=p + "mlp.gate_proj.weight",
                 wu=p + "mlp.up_proj.weight",
                 wd=p + "mlp.down_proj.weight"))
-        return dict(
+        spec = dict(
             arch="llama", layers=layers,
             embed="llama.embed_tokens.weight",
             final_norm="llama.norm.weight",
@@ -260,6 +262,11 @@ class LlamaForCausalLM(nn.Module):
             num_kv_heads=c.num_key_value_heads,
             rope_theta=c.rope_theta,
             epsilon=c.rms_norm_eps)
+        if fused_layers > 1:
+            n, g = c.num_hidden_layers, int(fused_layers)
+            spec["layer_groups"] = [list(range(i, min(i + g, n)))
+                                    for i in range(0, n, g)]
+        return spec
 
     @torch.no_grad()
     def load_numpy_state(self, named: Mapping[str, np.ndarray]) -> None:

@@ -1,8 +1,8 @@
 """Functional surface of the ported slices (counterpart of
 ``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU, the training attention
 (``scaled_dot_product_attention`` on the flash kernels) and the paged
-attention that routes a whole-prompt prefill (S > 1) or a decode step
-(S == 1)."""
+attention that routes a whole-prompt prefill (S > 1), a prefill chunk
+(S > 1 under a ``PagedChunkState``) or a decode step (S == 1)."""
 
 from __future__ import annotations
 
@@ -13,8 +13,11 @@ import torch.nn.functional as TF
 
 from ..kernels.decode_attention import cached_attention
 from ..kernels.flash_attention import flash_attention_bshd
-from ..kernels.paged_attention import (PagedDecodeState, paged_attention,
-                                       write_paged_kv, write_paged_prompt)
+from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
+                                       is_paged_state, paged_attention,
+                                       paged_chunk_attention, write_paged_kv,
+                                       write_paged_prompt,
+                                       write_paged_prompt_at)
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
@@ -59,31 +62,46 @@ def paged_scaled_dot_product_attention(query, key, value, state
                                        ) -> Tuple[torch.Tensor,
                                                   PagedDecodeState]:
     """Paged (block-table) attention of ``query``/``key``/``value``
-    ``(B, S, H|Hkv, D)`` against one layer's :class:`PagedDecodeState`.
+    ``(B, S, H|Hkv, D)`` against one layer's :class:`PagedDecodeState` or,
+    for chunked prefill, :class:`PagedChunkState`; the state's type picks
+    the S > 1 route.
 
-    Prefill (S > 1, empty sequences): the prompt's k/v are written to the
-    pool and the prompt attends causally to itself (:func:`cached_attention`,
-    the prefill kernel). Decode (S == 1): the token is written at position
-    ``seq_lens`` and attends through the block tables
-    (:func:`paged_attention`). Returns ``(out, new_state)``; the pools are
-    updated in place. The chunked-prefill route is a later slice."""
-    if not isinstance(state, PagedDecodeState):
+    Prefill (S > 1, ``PagedDecodeState``, empty sequences): the prompt's k/v
+    are written to the pool and the prompt attends causally to itself
+    (:func:`cached_attention`, the prefill kernel). Chunked prefill (S > 1,
+    ``PagedChunkState``, B = 1): the chunk is written at positions
+    ``seq_lens .. seq_lens+S-1`` (positions past the block table dropped)
+    and attends to the written prefix plus itself through the block table
+    (:func:`paged_chunk_attention`); the returned ``seq_lens`` advance by
+    the full S, so the driver keeps the true lengths. Decode (S == 1): the
+    token is written at position ``seq_lens`` and attends through the
+    block tables (:func:`paged_attention`). Returns ``(out, new_state)``,
+    the state of the type given; the pools are updated in place."""
+    if not is_paged_state(state):
         raise NotImplementedError(
-            f"{type(state).__name__}: only PagedDecodeState is ported; "
-            "chunked prefill (PagedChunkState) comes with a later slice")
+            f"{type(state).__name__}: only the paged states "
+            "(PagedDecodeState, PagedChunkState) are ported")
     kp, vp, bt, sl = state
     s = query.shape[1]
-    if s > 1:
+    if s > 1 and isinstance(state, PagedChunkState):
+        if query.shape[0] != 1:
+            raise NotImplementedError(
+                "chunked paged prefill is per-request (B = 1); got batch "
+                f"{query.shape[0]}")
+        write_paged_prompt_at(kp, vp, key, value, bt, sl)
+        out = paged_chunk_attention(query, kp, vp, bt, sl)
+    elif s > 1:
         # the whole-prompt contract: the sequences are empty. Checked where
         # the lengths are on the host already; on the card it is the
         # caller's (reading them back would stall every layer)
         if sl.device.type == "cpu" and int(sl.max()) != 0:
             raise ValueError(
                 "paged prefill (S > 1) requires empty sequences (seq_lens "
-                f"all 0); got max {int(sl.max())}")
+                f"all 0); got max {int(sl.max())}. Use a PagedChunkState "
+                "(chunked prefill) to extend non-empty sequences")
         write_paged_prompt(kp, vp, key, value, bt)
         out = cached_attention(query, key, value, s)
     else:
         write_paged_kv(kp, vp, key[:, 0], value[:, 0], bt, sl)
         out = paged_attention(query[:, 0], kp, vp, bt, sl + 1)[:, None]
-    return out, PagedDecodeState(kp, vp, bt, sl + s)
+    return out, type(state)(kp, vp, bt, sl + s)

@@ -3,7 +3,10 @@
 GQA, head_dim 64, small pages, batches that span several GEMV batch
 tiles, ragged and page-aligned lengths, idle null-page rows; for the flash
 attention kernels of the training path S = 1, S = 129 (one row past a
-tile), non-causal, head_dim 64 and 96, and Sq != Skv. Each kernel is
+tile), non-causal, head_dim 64 and 96, and Sq != Skv; for the chunk
+attention mid-page and page-aligned starts, two sequences, rows past the
+block table and rep 32; for the N-layer decode groups of 1 to 4 layers,
+also held bit for bit to the one-layer kernel's chain. Each kernel is
 held to its plain PyTorch version on the same card tensors (fp32 1e-4,
 bf16 2e-2 abs: the kernels sum in f32 in another order, and bf16 rounds
 once more at the output); the wrappers' input checks and launch counters
@@ -157,6 +160,96 @@ def test_fused_block_decode_matches_plain(dev, dtype, b, nh, nkv):
     assert _err(gv, wv) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,h,hkv,d,page,maxp,starts", [
+    (256, 8, 8, 128, 64, 8, (0,)),       # first chunk, MHA
+    (100, 8, 2, 128, 64, 8, (300,)),     # ragged chunk, mid-page, GQA
+    (64, 16, 2, 64, 16, 6, (64, 37)),    # two sequences, small pages
+    (40, 4, 4, 128, 16, 4, (40,)),       # 16 rows past the table's end
+    (33, 32, 1, 96, 8, 12, (65,)),       # rep 32, head_dim 96
+])
+def test_paged_chunk_attention_matches_plain(dev, dtype, s, h, hkv, d, page,
+                                             maxp, starts):
+    """The chunk written first (write-then-attend), then the kernel against
+    the plain version; the diagonal mid-page, page-aligned and past the
+    block table (the pad rows attend to the whole table)."""
+    rng = np.random.default_rng(s + h + page)
+    b = len(starts)
+    bt, num_pages = _tables(rng, [maxp * page - 1] * b, 0, page, maxp, dev)
+    kp = _rand(rng, (hkv, num_pages, page, d), dtype, dev)
+    vp = _rand(rng, (hkv, num_pages, page, d), dtype, dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    k_new = _rand(rng, (b, s, hkv, d), dtype, dev)
+    v_new = _rand(rng, (b, s, hkv, d), dtype, dev)
+    pa.write_paged_prompt_at(kp, vp, k_new, v_new, bt, st)
+    q = _rand(rng, (b, s, h, d), dtype, dev)
+    got = pa.paged_chunk_attention(q, kp, vp, bt, st)
+    want = pa.paged_chunk_attention_ref(q, kp, vp, bt, st)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _err(got, want) <= TOL[dtype]
+
+
+def test_write_paged_prompt_at_drops_past_the_table_on_the_card(dev):
+    """A padded chunk past the table changes no slot but its own: the last
+    page keeps what was there before the chunk's overflow."""
+    rng = np.random.default_rng(4)
+    bt, num_pages = _tables(rng, (31,), 0, 8, 4, dev)
+    kp = _rand(rng, (2, num_pages, 8, 16), torch.float32, dev)
+    before = kp.clone()
+    k_new = _rand(rng, (1, 24, 2, 16), torch.float32, dev)
+    st = torch.tensor([20], dtype=torch.int32, device=dev)
+    pa.write_paged_prompt_at(kp, kp.clone(), k_new, k_new, bt, st)
+    pages = bt[0].long()
+    got = kp[:, pages].reshape(2, 32, 16)
+    assert torch.equal(got[:, :20], before[:, pages].reshape(2, 32, 16)
+                       [:, :20])
+    assert torch.equal(got[:, 20:], k_new[0, :12].transpose(0, 1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,b,nh,nkv", [(1, 3, 4, 2), (2, 9, 8, 2),
+                                        (4, 4, 4, 4), (3, 1, 4, 1)])
+def test_fused_multi_block_decode_matches_plain_and_the_chain(dev, dtype, n,
+                                                              b, nh, nkv):
+    """N stacked layers in one launch against the plain version, and bit
+    for bit against N launches of the one-layer kernel (the merged GEMVs
+    reduce every column as the separate ones do)."""
+    rng = np.random.default_rng(n * 13 + b)
+    base = (15, 16, 31, 1, 40, 7, 2)
+    seq_lens = [0] + [base[i % len(base)] for i in range(b - 1)]
+    layers, pools = [], []
+    for _ in range(n):
+        x, w, kp, vp, bt, sl = _block(rng, b, 256, nh, nkv, 512, 16, 4,
+                                      seq_lens, dtype, dev)
+        layers.append(w)
+        pools.append((kp, vp))
+    kw = dict(num_heads=nh, num_kv_heads=nkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    mw = fb.stack_block_weights(layers)
+
+    def fresh():
+        return [k.clone() for k, _ in pools], [v.clone() for _, v in pools]
+
+    kernels.reset_launches()
+    got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl, **kw)
+    assert kernels.launch_counts()["fused_multi_block_decode"] == 1
+    want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt, sl,
+                                                   **kw)
+    assert got.dtype == dtype
+    assert _err(got, want) <= TOL[dtype]
+    for i in range(n):
+        assert _err(gk[i], wk[i]) <= TOL[dtype]
+        assert _err(gv[i], wv[i]) <= TOL[dtype]
+    out, ck, cv = x, *fresh()
+    for i, w in enumerate(layers):
+        out, ck[i], cv[i] = fb.fused_block_decode(out, w, ck[i], cv[i], bt,
+                                                  sl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    for i in range(n):
+        assert torch.equal(gk[i], ck[i]) and torch.equal(gv[i], cv[i])
+
+
 def test_each_launch_counts_once(dev):
     rng = np.random.default_rng(0)
     kernels.reset_launches()
@@ -170,7 +263,9 @@ def test_each_launch_counts_once(dev):
     pa.paged_attention(q[:, 0], kp, kp, bt, sl)
     assert kernels.launch_counts() == {"flash_prefill": 1,
                                        "paged_attention": 2,
+                                       "paged_chunk_attention": 0,
                                        "fused_block_decode": 0,
+                                       "fused_multi_block_decode": 0,
                                        "flash_attention_fwd": 0,
                                        "flash_attention_bwd_dq": 0,
                                        "flash_attention_bwd_dkv": 0}
@@ -198,11 +293,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(dev, case):
     assert kernels.launch_counts()["paged_attention"] == 0
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["fused", "generic"])
-def test_engine_on_the_card_matches_the_cpu(dev, fused):
-    """A tiny GQA Llama in fp32 served on the card and on the CPU: the
-    logits each token was taken from agree to 1e-4, and the greedy tokens
-    agree wherever the CPU's top-2 gap is wider than that."""
+def _card_vs_cpu_streams(dev, flag_values, prefill_chunk=None):
+    """A tiny GQA Llama in fp32 served on the card and on the CPU under
+    ``flag_values``: each request's tokens and the logits rows they were
+    taken from, CPU first."""
     from paddle_tpu_torch import flags
     cfg = LlamaConfig.tiny()
     cpu = LlamaForCausalLM(cfg, device="cpu", generator=seed(3))
@@ -212,16 +306,30 @@ def test_engine_on_the_card_matches_the_cpu(dev, fused):
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in (5, 9, 13, 7, 16)]
     streams = []
-    flags.set_flags({"fused_block_decode": fused})
+    flags.set_flags(flag_values)
     try:
         for model in (cpu, card):
             eng = ServingEngine(model, max_batch=2, page_size=8,
-                                max_seq_len=32, record_logits=True)
+                                max_seq_len=32, prefill_chunk=prefill_chunk,
+                                record_logits=True)
             rids = [eng.submit(p, 6) for p in prompts]
             out = eng.run()
             streams.append([(out[r], eng.logits[r]) for r in rids])
     finally:
         flags.reset_flags()
+    return streams
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "generic"])
+def test_engine_on_the_card_matches_the_cpu(dev, fused):
+    """A tiny GQA Llama in fp32 served on the card and on the CPU: the
+    logits each token was taken from agree to 1e-4, and the greedy tokens
+    agree wherever the CPU's top-2 gap is wider than that."""
+    streams = _card_vs_cpu_streams(dev, {"fused_block_decode": fused})
+    _assert_streams_agree(streams)
+
+
+def _assert_streams_agree(streams):
     for (toks_c, rows_c), (toks_g, rows_g) in zip(*streams):
         for j, (tc, tg) in enumerate(zip(toks_c, toks_g)):
             assert np.max(np.abs(rows_c[j] - rows_g[j])) <= 1e-4
@@ -229,6 +337,20 @@ def test_engine_on_the_card_matches_the_cpu(dev, fused):
                 top2 = np.sort(rows_c[j])[-2:]
                 assert top2[1] - top2[0] <= 1e-4
                 break
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_chunked_engine_on_the_card_matches_the_cpu(dev, layers):
+    """The same with 8-token prefill chunks (the 9, 13 and 16-token prompts
+    go through the chunk kernel) and the fused decode 1 or 2 layers a
+    launch (the N-layer kernel)."""
+    kernels.reset_launches()
+    streams = _card_vs_cpu_streams(dev, {"fused_block_layers": layers},
+                                   prefill_chunk=8)
+    counts = kernels.launch_counts()
+    assert counts["paged_chunk_attention"] == 2 * (2 + 2 + 2)
+    assert (counts["fused_multi_block_decode"] > 0) == (layers > 1)
+    _assert_streams_agree(streams)
 
 
 def _rel(a, b):

@@ -226,7 +226,9 @@ def test_cpu_tensors_never_count_as_launches():
     tfa.flash_attention(qf, qf[:2], qf[:2], n_heads=2,
                         n_kv_heads=1).sum().backward()
     assert tk.launch_counts() == {"flash_prefill": 0, "paged_attention": 0,
+                                  "paged_chunk_attention": 0,
                                   "fused_block_decode": 0,
+                                  "fused_multi_block_decode": 0,
                                   "flash_attention_fwd": 0,
                                   "flash_attention_bwd_dq": 0,
                                   "flash_attention_bwd_dkv": 0}

@@ -140,5 +140,7 @@ def test_block_decode_spec_names_live_parameters():
     for lw in spec["layers"]:
         names.extend(lw.values())
     assert all(n in params for n in names)
-    with pytest.raises(NotImplementedError):
-        model.block_decode_spec(fused_layers=2)
+    assert "layer_groups" not in spec
+    assert model.block_decode_spec(fused_layers=2)["layer_groups"] == [[0, 1]]
+    with pytest.raises(ValueError):
+        model.block_decode_spec(fused_layers=0)

@@ -144,6 +144,19 @@ def _block_args(rng):
             _case(rng, 2, 3, 8, 8), bt, sl)
 
 
+def _chunk_args(rng):
+    bt = torch.tensor([[2, 1]], dtype=torch.int32)
+    st = torch.tensor([5], dtype=torch.int32)
+    return (_case(rng, 1, 4, 2, 8), _case(rng, 1, 3, 8, 8),
+            _case(rng, 1, 3, 8, 8), bt, st)
+
+
+def _multi_block_args(rng):
+    x, w, kp, vp, bt, sl = _block_args(rng)
+    mw = fb.stack_block_weights([w, w])
+    return (x, mw, [kp, kp.clone()], [vp, vp.clone()], bt, sl)
+
+
 def _flash_args(rng):
     return (_case(rng, 4, 6, 8), _case(rng, 2, 6, 8), _case(rng, 2, 6, 8))
 
@@ -156,15 +169,20 @@ def _flash_bwd_args(rng):
 @pytest.mark.parametrize("mod,name,plain,make,kw", [
     (da, "flash_prefill", "flash_prefill_ref", _prefill_args, {}),
     (pa, "paged_attention", "paged_attention_ref", _paged_args, {}),
+    (pa, "paged_chunk_attention", "paged_chunk_attention_ref", _chunk_args,
+     {}),
     (fb, "fused_block_decode", "fused_block_decode_ref", _block_args,
      dict(num_heads=2, num_kv_heads=2)),
+    (fb, "fused_multi_block_decode", "fused_multi_block_decode_ref",
+     _multi_block_args, dict(num_heads=2, num_kv_heads=2)),
     (fa, "flash_attention_fwd", "flash_attention_fwd_ref", _flash_args,
      dict(n_heads=2, n_kv_heads=1)),
     (fa, "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
      _flash_bwd_args, dict(n_heads=2, n_kv_heads=1)),
     (fa, "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
      _flash_bwd_args, dict(n_heads=2, n_kv_heads=1)),
-], ids=["flash_prefill", "paged_attention", "fused_block_decode",
+], ids=["flash_prefill", "paged_attention", "paged_chunk_attention",
+        "fused_block_decode", "fused_multi_block_decode",
         "flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv"])
 def test_cpu_tensors_take_the_plain_version(monkeypatch, mod, name, plain,
@@ -191,11 +209,15 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch, mod, name, plain,
 def test_every_kernel_wrapper_counts_launches():
     names = {fn.__name__ for fn in kernels.wrappers()}
     assert names == {"flash_prefill", "paged_attention",
-                     "fused_block_decode", "flash_attention_fwd",
+                     "paged_chunk_attention", "fused_block_decode",
+                     "fused_multi_block_decode", "flash_attention_fwd",
                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
     # one library per source; the three training kernels share one
     assert set(_build.sources()) == {"flash_prefill", "paged_attention",
-                                     "fused_block_decode", "flash_attention"}
+                                     "paged_chunk_attention",
+                                     "fused_block_decode",
+                                     "fused_multi_block_decode",
+                                     "flash_attention"}
     kernels.reset_launches()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -6,7 +6,9 @@ submitted while the first decode, and a batch of two slots so later
 requests wait for freed slots and recycle freed pages. The greedy token
 streams must be identical, with fused block decode and with the generic
 decode. Every option the port does not serve yet raises
-``NotImplementedError``.
+``NotImplementedError``. (Chunked prefill and N-layer decode have their
+own files, ``test_torch_chunk_prefill.py`` and
+``test_torch_nlayer_decode.py``.)
 """
 
 import numpy as np
@@ -131,17 +133,23 @@ def test_unported_request_options_raise(models, kwargs, what):
 
 
 def test_prompt_longer_than_prefill_chunk_raises(models):
+    """A prompt longer than the chunk is served chunk by chunk; what still
+    raises is a prompt past the engine's length or a negative chunk."""
     _, model = models
     eng = ServingEngine(model, prefill_chunk=8, **ENGINE)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        eng.submit(_prompts()[1], 2)
+    rid = eng.submit(_prompts()[1], 2)
+    assert len(eng.run()[rid]) == 2 and eng.chunk_dispatches == 2
+    with pytest.raises(ValueError, match="max_seq_len"):
+        eng.submit(np.zeros(30, np.int32), 3)
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        ServingEngine(model, prefill_chunk=-1, **ENGINE)
     # prefill_chunk=0 turns chunking off: every prompt prefills whole
     eng = ServingEngine(model, prefill_chunk=0, **ENGINE)
     rid = eng.submit(_prompts()[4], 2)
-    assert len(eng.run()[rid]) == 2
+    assert len(eng.run()[rid]) == 2 and eng.chunk_dispatches == 0
 
 
-@pytest.mark.parametrize("flag,value", [("fused_block_layers", 2),
+@pytest.mark.parametrize("flag,value", [("fused_weight_dtype", "int4"),
                                         ("serving_kv_dtype", "int8"),
                                         ("serving_tp_degree", 2)])
 def test_unported_flag_values_raise(flag, value):
@@ -156,8 +164,10 @@ def test_flags_read_environment(monkeypatch):
     monkeypatch.setenv("FLAGS_serving_prefill_chunk", "64")
     assert tflags.get_flag("FLAGS_serving_prefill_chunk") == 64
     monkeypatch.setenv("FLAGS_fused_block_layers", "4")
+    assert tflags.get_flag("fused_block_layers") == 4
+    monkeypatch.setenv("FLAGS_fused_weight_dtype", "int4")
     with pytest.raises(NotImplementedError):
-        tflags.get_flag("fused_block_layers")
+        tflags.get_flag("fused_weight_dtype")
     with pytest.raises(KeyError):
         tflags.get_flag("use_pallas")
 

@@ -6,11 +6,19 @@
 Builds Llama-2-7B (bf16, random weights from ``--seed``) and a
 ``ServingEngine(max_batch=4, page_size=64, max_seq_len=1024)``, fills its
 four slots with prompts of 17, 100, 200 and 256 tokens, and traces with
-``torch.profiler``, for the fused and the generic decode in turn:
+``torch.profiler``, for the fused decode one layer a launch, the generic
+decode and the fused decode four layers a launch
+(``FLAGS_fused_block_layers=4``) in turn:
 
   prefill  one engine step that admits a 256-token prompt into an empty
            engine (its whole-prompt prefill, then one decode step);
   decode   ``--steps`` decode-only engine steps with all four slots busy.
+
+Then, on an engine with a 4096-token context:
+
+  chunk    one engine step that runs one 256-token prefill chunk of a
+           3500-token prompt from start 3072 (its thirteenth chunk, after
+           twelve untraced ones), with no slot decoding.
 
 Per window it prints one JSON line (``torch_trace.window``): the
 host-clock wall time (ending in a synchronise), the summed device time of
@@ -35,6 +43,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from torch_trace import card, window  # noqa: E402  (this script's folder)
 
 PROMPT_LENS = (17, 100, 200, 256)
+LONG_PROMPT, CHUNK, CHUNK_START = 3500, 256, 3072
 
 
 def main() -> int:
@@ -59,17 +68,19 @@ def main() -> int:
                              generator=seed(args.seed, "cuda"))
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in PROMPT_LENS]
+               for n in PROMPT_LENS + (LONG_PROMPT,)]
     new_tokens = len(PROMPT_LENS) + 4 + args.steps
-    for fused in (True, False):
-        flags.set_flags({"fused_block_decode": fused})
+    info = dict(layers=args.layers, batch=4, dtype="bf16")
+    for fused, group in ((True, 1), (False, 1), (True, 4)):
+        flags.set_flags({"fused_block_decode": fused,
+                         "fused_block_layers": group})
         eng = ServingEngine(model, max_batch=4, page_size=64,
                             max_seq_len=1024)
         eng.submit(prompts[0][:9], 2)         # warm-up: library loads
         eng.run()
-        eng.submit(prompts[-1], new_tokens)
+        eng.submit(prompts[len(PROMPT_LENS) - 1], new_tokens)
         pre = window("prefill", eng.step, args.top)
-        for p in prompts[:-1]:
+        for p in prompts[:len(PROMPT_LENS) - 1]:
             eng.submit(p, new_tokens)
         for _ in range(len(PROMPT_LENS) + 1):   # admit the rest, settle
             eng.step()
@@ -79,9 +90,22 @@ def main() -> int:
         dec["steps"] = args.steps
         for w in (pre, dec):
             w.update(decode="fused" if fused else "generic",
-                     layers=args.layers, batch=4, dtype="bf16")
+                     fused_block_layers=group, **info)
             print(json.dumps(w), flush=True)
         flags.reset_flags()
+        del eng
+    eng = ServingEngine(model, max_batch=4, page_size=64, max_seq_len=4096,
+                        prefill_chunk=CHUNK)
+    eng.submit(prompts[0][:9], 2)             # warm-up: library loads
+    eng.submit(prompts[-1][:CHUNK + 9], 2)    # and the chunk path
+    eng.run()
+    eng.submit(prompts[-1], 2)
+    for _ in range(CHUNK_START // CHUNK):
+        eng.step()
+    chunk = window("chunk", eng.step, args.top)
+    chunk.update(prompt=LONG_PROMPT, start=CHUNK_START, chunk=CHUNK,
+                 decode="fused", **info)
+    print(json.dumps(chunk), flush=True)
     print(card(), flush=True)
     return 0
 
