@@ -16,19 +16,31 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               ragged 100-token final chunk, each with a spread and a peaked
               softmax; the N-layer decode a group of 4 layers, also held
               bit for bit to 4 launches of the one-layer kernel and timed
-              beside them;
+              beside them. Every kernel with an int8-pool variant (decode,
+              chunk, one-layer and N-layer decode attention) runs it on the
+              same pools quantized (decode and chunk held to 1e-5 in fp32
+              and 1e-3 + one bf16 ulp in bf16; the fused kernels to their
+              native tolerance, the one-layer kernel's appended int8 rows
+              within one payload step and SCALE_RTOL of the plain rows, the
+              N-layer one bit for bit to 4 int8 one-layer launches), and the
+              N-layer decode also runs int4 weights on native and int8
+              pools;
   3. serve    Llama-2-7B (32 layers, bf16, random weights from a seed)
               through ServingEngine: 8 requests of at most 256 tokens, 32
-              new tokens each, some submitted mid-run, once with fused
-              block decode and once with the generic decode; the kernel
-              launch counters show which kernels the run went through;
+              new tokens each, some submitted mid-run, with fused block
+              decode, with the generic decode, with the generic decode on
+              an int8 pool, and 4 layers a launch on an int8 pool and with
+              int4 weights; the kernel launch counters show which kernels
+              (and variants) each run went through, exactly;
      serve_long
               the same model with a 4096-token context: 8 prompts of 40 to
               3500 tokens (the long ones prefilled in 256-token chunks
               between decode steps), half submitted mid-run, 32 new tokens
-              each, once with one fused kernel per layer and once with one
-              per group of 4 layers (FLAGS_fused_block_layers=4): the
-              streams must be identical and the launch counts exact;
+              each, with one fused kernel per layer and one per group of 4
+              layers (FLAGS_fused_block_layers=4) on the native pool (the
+              streams must be identical), then one per layer on an int8
+              pool and one per group on an int8 pool with int4 weights
+              (the first tokens must be identical); launch counts exact;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -105,6 +117,16 @@ TRAIN_SHAPES = (("llama2_7b heads", 1, 4096, 32, 32),
 # flash forward: out within atol + rtol |ref| elementwise (rtol: one bf16
 # ulp, as both sides round the same f32 value), the f32 lse within abs
 OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
+# the int8-pool attention kernels against their plain versions on the same
+# pool bits (the dequantized values are identical; only sums differ)
+QUANT_OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7),
+                 torch.float32: (1e-5, 0.0)}
+# a new token's appended int8 row, kernel vs plain: the two f32 k/v may
+# differ in the last bits (another summation order), so a payload may
+# differ by 1 and a scale by relative 1e-6; in bf16 the row is quantized
+# from bf16 k/v, where such a difference can become one bf16 step of the
+# row's amax (2^-8 relative)
+SCALE_RTOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-6}
 LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # max|a-b|/max|b|
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 8, 4096, 2, 2
@@ -115,6 +137,10 @@ TRAIN_PARITY_GRAD_TOL = 1e-3    # relative L2 per parameter
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 
+# the quantized variants of a kernel: an int8 KV pool, int4 weight tiles
+VARIANTS = {"paged_attention": ("int8",), "paged_chunk_attention": ("int8",),
+            "fused_block_decode": ("int8",),
+            "fused_multi_block_decode": ("int8", "int4", "int8_int4")}
 SOURCES = {
     "flash_prefill": ("paddle_tpu_torch/kernels/csrc/flash_prefill.cu",
                       "paddle_tpu/kernels/decode_attention.py:140"),
@@ -139,6 +165,10 @@ SOURCES = {
         "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
         "paddle_tpu/kernels/flash_attention.py:486"),
 }
+# each variant is a branch of its kernel's source and of its TPU kernel
+SOURCES = {name: entry for base, src in SOURCES.items()
+           for name, entry in [(base, src)] + [
+               (f"{base}_{v}", src) for v in VARIANTS.get(base, ())]}
 
 
 def emit(phase: str, **fields) -> None:
@@ -187,6 +217,35 @@ def excess(a: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def quantized(pool):
+    """A native pool, quantized per row into an int8 QuantizedPages."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    return pa.QuantizedPages(*pa.quantize_kv_rows(pool))
+
+
+def clone_pool(pool):
+    if isinstance(pool, torch.Tensor):
+        return pool.clone()
+    return type(pool)(pool.q.clone(), pool.scale.clone())
+
+
+def row_bytes(quant: bool, elem: int) -> int:
+    """Bytes of one stored k or v row: D + 4 (int8 + f32 scale) or D elem."""
+    return HEAD_DIM + 4 if quant else HEAD_DIM * elem
+
+
+def rows_differ(got, want, dtype, what):
+    """Appended int8 rows, kernel vs plain: payload within 1, scales within
+    SCALE_RTOL; returns how many payload and scale elements differ."""
+    dq = (got.q.int() - want.q.int()).abs()
+    rel = ((got.scale - want.scale).abs()
+           / want.scale.abs().clamp_min(1e-30))
+    require(int(dq.max()) <= 1, f"{what}: payload off by {int(dq.max())}")
+    require(float(rel.max()) <= SCALE_RTOL[dtype],
+            f"{what}: scale off by {float(rel.max())} relative")
+    return int((dq > 0).sum()), int((rel > 0).sum())
 
 
 # --------------------------------------------------------------- kernels
@@ -284,6 +343,25 @@ def check_paged_attention(dtype, device, results):
         kernel_ms=time_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
         plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt, sl)),
         library_ms=lib, bound_ms=bms, bound_by=by))
+    # the int8 pool: the same rows quantized, kernel vs plain on its bits
+    kq, vq = quantized(kp), quantized(vp)
+    got = pa.paged_attention(q, kq, vq, bt, sl)
+    want = pa.paged_attention_ref(q, kq, vq, bt, sl)
+    torch.cuda.synchronize()
+    atol, rtol = QUANT_OUT_TOL[dtype]
+    err, over = max_err(got, want), excess(got, want, rtol)
+    require(over <= atol, f"paged_attention int8 {dtype}: {over} over "
+            f"{rtol} |ref|, max err {err}")
+    require(not got[3].any(), "paged_attention int8: idle row must read 0")
+    nbytes = (elem * 2 * q.numel() + 2 * live * KV_HEADS * row_bytes(True, 0)
+              + 4 * (bt.numel() + sl.numel()))
+    bms, by = bound_ms(nbytes, flops, dtype)
+    results.append(dict(
+        kernel="paged_attention_int8", dtype=DTYPE_NAME[dtype],
+        seq_lens=seq_lens, max_err=err, excess=over, atol=atol, rtol=rtol,
+        kernel_ms=time_ms(lambda: pa.paged_attention(q, kq, vq, bt, sl)),
+        plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kq, vq, bt, sl)),
+        library_ms=None, bound_ms=bms, bound_by=by))
 
 
 def check_paged_chunk_attention(dtype, device, results):
@@ -337,7 +415,34 @@ def check_paged_chunk_attention(dtype, device, results):
             plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
                 q, kp, vp, bt, st), iters=5, warmup=1),
             library_ms=lib, bound_ms=bms, bound_by=by))
+        # the int8 pool: the written pool quantized, kernel vs plain on its
+        # bits, spread and peaked
+        kq, vq = quantized(kp), quantized(vp)
         del kp, vp, kg, vg
+        atol, rtol = QUANT_OUT_TOL[dtype]
+        for case, qc in (("spread", q), ("peaked", q * PEAKED_Q)):
+            got = pa.paged_chunk_attention(qc, kq, vq, bt, st)
+            want = pa.paged_chunk_attention_ref(qc, kq, vq, bt, st)
+            torch.cuda.synchronize()
+            errs[case], over[case] = max_err(got, want), excess(got, want,
+                                                                rtol)
+            require(over[case] <= atol, f"paged_chunk_attention int8 start="
+                    f"{start} S={s} {dtype} {case}: {over[case]} over "
+                    f"{rtol} |ref|, max err {errs[case]}")
+        nbytes = (elem * 2 * q.numel() + 2 * t * KV_HEADS
+                  * row_bytes(True, 0) + 4 * (bt.numel() + 1))
+        bms, by = bound_ms(nbytes, 4.0 * pairs * HEADS * HEAD_DIM, dtype)
+        results.append(dict(
+            kernel="paged_chunk_attention_int8", dtype=DTYPE_NAME[dtype],
+            start=start, S=s, max_err=max(errs.values()),
+            max_err_spread=errs["spread"], max_err_peaked=errs["peaked"],
+            excess=max(over.values()), atol=atol, rtol=rtol,
+            kernel_ms=time_ms(lambda: pa.paged_chunk_attention(
+                q, kq, vq, bt, st)),
+            plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
+                q, kq, vq, bt, st), iters=5, warmup=1),
+            library_ms=None, bound_ms=bms, bound_by=by))
+        del kq, vq
         torch.cuda.empty_cache()
 
 
@@ -361,7 +466,42 @@ def block_weights(gen, dtype, device):
         wg=mat(HIDDEN, INTER), wu=mat(HIDDEN, INTER), wd=mat(INTER, HIDDEN))
 
 
+def weight_bytes(weights) -> int:
+    """Stored bytes of a layer's or a group's weights (tensors or int4
+    tiles: packed payload and f32 tile scales)."""
+    from paddle_tpu_torch.kernels.fused_block_decode import Int4Tiles
+    return sum(t.q.numel() + 4 * t.scale.numel() if isinstance(t, Int4Tiles)
+               else t.numel() * t.element_size() for t in weights)
+
+
+def block_bytes(weights, layers, x, live, quant) -> float:
+    """Least bytes of a decode step of ``layers`` layers: the weights and x
+    read once, out written once, each layer's live k and v rows read and
+    the new ones written once."""
+    elem = x.element_size()
+    return (weight_bytes(weights) + elem * 2 * x.numel()
+            + layers * 2 * (live + BATCH) * KV_HEADS * row_bytes(quant, elem))
+
+
+def pool_err(a, b) -> float:
+    """Max abs difference of two pools' values; for int8 pools beyond one
+    quantization step of the row (the larger of the two scales)."""
+    if isinstance(a, torch.Tensor):
+        return max_err(a, b)
+    diff = (a.q.float() * a.scale - b.q.float() * b.scale).abs()
+    return float((diff - torch.maximum(a.scale, b.scale)).clamp_min(0).max())
+
+
+def pool_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+
+
 def check_fused_block_decode(dtype, device, results):
+    """The one-layer kernel on a native and on an int8 pool: output within
+    TOL of the plain version, the appended rows as the plain version's
+    (an int8 row within one payload step and SCALE_RTOL)."""
     from paddle_tpu_torch.kernels import fused_block_decode as fb
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     # tokens already in the pool (1023, 517, 78 at 7B), one idle row
@@ -374,37 +514,47 @@ def check_fused_block_decode(dtype, device, results):
     x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
     kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
               epsilon=1e-5)
-    kk, vk = kp.clone(), vp.clone()
-    got, kk, vk = fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
-    kr, vr = kp.clone(), vp.clone()
-    want, kr, vr = fb.fused_block_decode_ref(x, w, kr, vr, bt, sl, **kw)
-    torch.cuda.synchronize()
-    err = max(max_err(got, want), max_err(kk, kr), max_err(vk, vr))
-    require(err <= TOL[dtype], f"fused_block_decode {dtype}: max err {err}")
-    elem = x.element_size()
-    wbytes = sum(t.numel() for t in w) * elem
     live = sum(seq_lens)
-    nbytes = (wbytes + elem * (2 * x.numel()
-                               + 2 * (live + BATCH) * KV_HEADS * HEAD_DIM)
-              + 4 * (bt.numel() + sl.numel()))
     mats = sum(t.numel() for t in w if t.dim() == 2)
     flops = (2.0 * BATCH * mats
              + 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
-    bms, by = bound_ms(nbytes, flops, dtype)
-    results.append(dict(
-        kernel="fused_block_decode", dtype=DTYPE_NAME[dtype],
-        seq_lens=seq_lens, max_err=err, tol=TOL[dtype],
-        kernel_ms=time_ms(lambda: fb.fused_block_decode(
-            x, w, kk, vk, bt, sl, **kw)),
-        plain_ms=time_ms(lambda: fb.fused_block_decode_ref(
-            x, w, kr, vr, bt, sl, **kw), iters=5),
-        library_ms=None, bound_ms=bms, bound_by=by))
+    for quant in (False, True):
+        pools = (quantized(kp), quantized(vp)) if quant else (kp, vp)
+        kk, vk = (clone_pool(t) for t in pools)
+        got, kk, vk = fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
+        kr, vr = (clone_pool(t) for t in pools)
+        want, kr, vr = fb.fused_block_decode_ref(x, w, kr, vr, bt, sl, **kw)
+        torch.cuda.synchronize()
+        name = "fused_block_decode" + ("_int8" if quant else "")
+        err = max_err(got, want)
+        extra = {}
+        if quant:
+            for half, a, b in (("k", kk, kr), ("v", vk, vr)):
+                nq, ns = rows_differ(a, b, dtype, f"{name} {dtype} {half}")
+                extra[f"{half}_payload_diffs"] = nq
+                extra[f"{half}_scale_diffs"] = ns
+            extra["scale_rtol"] = SCALE_RTOL[dtype]
+        else:
+            err = max(err, max_err(kk, kr), max_err(vk, vr))
+        require(err <= TOL[dtype], f"{name} {dtype}: max err {err}")
+        nbytes = (block_bytes(w, 1, x, live, quant)
+                  + 4 * (bt.numel() + sl.numel()))
+        bms, by = bound_ms(nbytes, flops, dtype)
+        results.append(dict(
+            kernel=name, dtype=DTYPE_NAME[dtype], seq_lens=seq_lens,
+            max_err=err, tol=TOL[dtype], **extra,
+            kernel_ms=time_ms(lambda: fb.fused_block_decode(
+                x, w, kk, vk, bt, sl, **kw)),
+            plain_ms=time_ms(lambda: fb.fused_block_decode_ref(
+                x, w, kr, vr, bt, sl, **kw), iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by))
 
 
 def check_fused_multi_block_decode(dtype, device, results):
     """A group of 4 Llama-2-7B layers at #3's rows: the N-layer kernel
-    against the plain version, and bit for bit against 4 launches of the
-    one-layer kernel, whose time it is timed beside."""
+    against the plain version for native and int8 pools and native and
+    int4 weights; with native weights also bit for bit against 4 launches
+    of the one-layer kernel on the same kind of pool, timed beside them."""
     from paddle_tpu_torch.kernels import fused_block_decode as fb
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     seq_lens = [MAX_SEQ - 1, MAX_SEQ // 2 + 5, MAX_SEQ // 13, 0]
@@ -414,58 +564,79 @@ def check_fused_multi_block_decode(dtype, device, results):
     pools = [(_rand(gen, shape, dtype, device), _rand(gen, shape, dtype,
                                                       device))
              for _ in range(GROUP_LAYERS)]
+    qpools = [(quantized(k), quantized(v)) for k, v in pools]
     layers = [block_weights(gen, dtype, device) for _ in range(GROUP_LAYERS)]
-    mw = fb.stack_block_weights(layers)
+    stacks = {"native": fb.stack_block_weights(layers),
+              "int4": fb.stack_block_weights(layers, weight_dtype="int4")}
     x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
     kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
               epsilon=1e-5)
-
-    def fresh():
-        return [k.clone() for k, _ in pools], [v.clone() for _, v in pools]
-
-    got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl, **kw)
-    want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt, sl,
-                                                   **kw)
-    out, ck, cv = x, *fresh()
-    for i, w in enumerate(layers):
-        out, ck[i], cv[i] = fb.fused_block_decode(out, w, ck[i], cv[i], bt,
-                                                  sl, **kw)
-    torch.cuda.synchronize()
-    err = max([max_err(got, want)] + [max_err(a, b) for a, b in
-                                      zip(gk + gv, wk + wv)])
-    require(err <= TOL[dtype], f"fused_multi_block_decode {dtype}: max err "
-            f"{err}")
-    same = torch.equal(got, out) and all(
-        torch.equal(a, b) for a, b in zip(gk + gv, ck + cv))
-    require(same, f"fused_multi_block_decode {dtype}: not bit for bit the "
-            "chain of one-layer launches")
-
-    def chain():
-        o = x
-        for i, w in enumerate(layers):
-            o, _, _ = fb.fused_block_decode(o, w, ck[i], cv[i], bt, sl, **kw)
-
-    elem = x.element_size()
     live = sum(seq_lens)
-    nbytes = (sum(t.numel() for t in mw) * elem
-              + elem * (2 * x.numel() + GROUP_LAYERS * 2 * (live + BATCH)
-                        * KV_HEADS * HEAD_DIM)
-              + 4 * (bt.numel() + sl.numel()))
-    mats = sum(t.numel() for t in (mw.wqkv, mw.wo, mw.wgu, mw.wd))
+    mats = sum(t.numel() for t in layers[0] if t.dim() == 2) * GROUP_LAYERS
     flops = (2.0 * BATCH * mats
              + GROUP_LAYERS * 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
-    bms, by = bound_ms(nbytes, flops, dtype)
-    results.append(dict(
-        kernel="fused_multi_block_decode", dtype=DTYPE_NAME[dtype],
-        layers=GROUP_LAYERS, seq_lens=seq_lens, max_err=err, tol=TOL[dtype],
-        bitwise_vs_one_layer_chain=same,
-        kernel_ms=time_ms(lambda: fb.fused_multi_block_decode(
-            x, mw, gk, gv, bt, sl, **kw)),
-        one_layer_kernel_x4_ms=time_ms(chain),
-        plain_ms=time_ms(lambda: fb.fused_multi_block_decode_ref(
-            x, mw, wk, wv, bt, sl, **kw), iters=5, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by))
-    del layers, mw, pools, gk, gv, wk, wv, ck, cv
+
+    for quant, wdt in ((False, "native"), (True, "native"), (False, "int4"),
+                       (True, "int4")):
+        group = qpools if quant else pools
+        mw = stacks[wdt]
+
+        def fresh():
+            return ([clone_pool(k) for k, _ in group],
+                    [clone_pool(v) for _, v in group])
+
+        tags = [t for t, on in (("int8", quant), ("int4", wdt == "int4"))
+                if on]
+        name = "_".join(["fused_multi_block_decode"] + tags)
+        got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl,
+                                                  **kw)
+        want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt,
+                                                       sl, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        row = dict(kernel=name, dtype=DTYPE_NAME[dtype],
+                   layers=GROUP_LAYERS, seq_lens=seq_lens, tol=TOL[dtype])
+        # past the first layer the kernel's and the plain version's inputs
+        # differ by the earlier layers' rounding: the pools are held to the
+        # output's tolerance, an int8 row's values beyond one quantization
+        # step of the row (a payload one step apart)
+        for i in range(GROUP_LAYERS):
+            err = max(err, pool_err(gk[i], wk[i]), pool_err(gv[i], wv[i]))
+        require(err <= TOL[dtype], f"{name} {dtype}: max err {err}")
+        if wdt == "native":
+            # the same pools through 4 launches of the one-layer kernel
+            out, ck, cv = x, *fresh()
+            for i, w in enumerate(layers):
+                out, ck[i], cv[i] = fb.fused_block_decode(
+                    out, w, ck[i], cv[i], bt, sl, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(got, out) and all(
+                pool_equal(a, b) for a, b in zip(gk + gv, ck + cv))
+            require(same, f"{name} {dtype}: not bit for bit the chain of "
+                    "one-layer launches")
+
+            def chain():
+                o = x
+                for i, w in enumerate(layers):
+                    o, _, _ = fb.fused_block_decode(o, w, ck[i], cv[i], bt,
+                                                    sl, **kw)
+
+            row.update(bitwise_vs_one_layer_chain=same,
+                       one_layer_kernel_x4_ms=time_ms(chain))
+        nbytes = (block_bytes(mw, GROUP_LAYERS, x, live, quant)
+                  + 4 * (bt.numel() + sl.numel()))
+        bms, by = bound_ms(nbytes, flops, dtype)
+        row.update(
+            max_err=err,
+            kernel_ms=time_ms(lambda: fb.fused_multi_block_decode(
+                x, mw, gk, gv, bt, sl, **kw)),
+            plain_ms=time_ms(lambda: fb.fused_multi_block_decode_ref(
+                x, mw, wk, wv, bt, sl, **kw), iters=5, warmup=1),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            weight_bytes=weight_bytes(mw))
+        results.append(row)
+        del gk, gv, wk, wv
+    del layers, stacks, pools, qpools
     torch.cuda.empty_cache()
 
 
@@ -476,11 +647,12 @@ def prompts(vocab: int, lens) -> list:
 
 
 def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
-          max_seq=MAX_SEQ, group=1):
+          max_seq=MAX_SEQ, group=1, kv_dtype="native", weight_dtype="native"):
     """One engine run over ``lens`` prompts, half submitted up front and
-    the rest mid-run, with ``FLAGS_fused_block_layers=group``. Returns
-    (engine, [(rid, prompt, tokens)], seconds, launch counts, peak device
-    bytes of the run, engine included)."""
+    the rest mid-run, with ``FLAGS_fused_block_layers=group`` and the
+    engine's ``kv_dtype`` and ``weight_dtype``. Returns (engine, [(rid,
+    prompt, tokens)], seconds, launch counts, peak device bytes of the run,
+    engine included)."""
     from paddle_tpu_torch import flags, kernels
     from paddle_tpu_torch.generation.serving import ServingEngine
 
@@ -499,7 +671,8 @@ def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
     flags.set_flags({"fused_block_decode": fused,
                      "fused_block_layers": group})
     eng = Engine(model, max_batch=BATCH, page_size=PAGE, max_seq_len=max_seq,
-                 record_logits=record_logits)
+                 record_logits=record_logits, kv_dtype=kv_dtype,
+                 weight_dtype=weight_dtype)
     eng.chunk_seconds = []
     require((eng._spec is not None) == fused, "decode route not as asked")
     require((eng._stacked is not None) == (fused and group > 1),
@@ -539,6 +712,45 @@ def check_tokens(res, vocab, new_tokens):
                 "token out of the vocabulary")
 
 
+def expected_launches(counts, layers, steps, whole, chunks, fused, group,
+                      kv_dtype, weight_dtype) -> dict:
+    """Every kernel variant's launches in one serving run: ``whole``
+    whole-prompt prefills and ``chunks`` chunks over ``layers`` layers,
+    ``steps`` decode steps through the route asked for; 0 for the rest."""
+    int8 = kv_dtype == "int8"
+    if not fused:
+        decode = "paged_attention", layers * steps, [int8]
+    elif group == 1:
+        decode = "fused_block_decode", layers * steps, [int8]
+    else:
+        decode = ("fused_multi_block_decode", -(-layers // group) * steps,
+                  [int8, weight_dtype == "int4"])
+    base, n, flags = decode
+    name = "_".join([base] + [t for t, on in zip(("int8", "int4"), flags)
+                              if on])
+    want = dict.fromkeys(counts, 0)
+    want["flash_prefill"] = layers * whole
+    want["paged_chunk_attention" + ("_int8" if int8 else "")] = (
+        layers * chunks)
+    want[name] = n
+    return want
+
+
+def require_launches(counts, want, what):
+    for name, n in want.items():
+        require(counts[name] == n,
+                f"{what}: {name} ran {counts[name]} times, want {n}")
+
+
+# (fused decode, FLAGS_fused_block_layers, kv_dtype, weight_dtype)
+SERVE_RUNS = ((True, 1, "native", "native"), (False, 1, "native", "native"),
+              (False, 1, "int8", "native"),
+              (True, GROUP_LAYERS, "int8", "native"),
+              (True, GROUP_LAYERS, "native", "int4"))
+LONG_RUNS = ((1, "native", "native"), (GROUP_LAYERS, "native", "native"),
+             (1, "int8", "native"), (GROUP_LAYERS, "int8", "int4"))
+
+
 def run_serve(device):
     """The serve and serve_long phases on one Llama-2-7B. Returns the
     kernel launch counts of every run, summed."""
@@ -552,30 +764,22 @@ def run_serve(device):
     build_s = time.perf_counter() - t0
     layers = cfg.num_hidden_layers
     total: dict = {}
-    for fused in (True, False):
-        eng, res, seconds, counts, peak = serve(model, fused, NEW_TOKENS,
-                                                PROMPT_LENS)
+    for fused, group, kv_dtype, weight_dtype in SERVE_RUNS:
+        eng, res, seconds, counts, peak = serve(
+            model, fused, NEW_TOKENS, PROMPT_LENS, group=group,
+            kv_dtype=kv_dtype, weight_dtype=weight_dtype)
         check_tokens(res, cfg.vocab_size, NEW_TOKENS)
         steps = len(eng.decode_step_seconds)
-        want_prefill = layers * len(PROMPT_LENS)
-        require(counts["flash_prefill"] == want_prefill,
-                f"flash_prefill ran {counts['flash_prefill']} times, "
-                f"want {want_prefill}")
-        if fused:
-            require(counts["fused_block_decode"] == layers * steps,
-                    f"fused_block_decode ran {counts['fused_block_decode']}"
-                    f" times over {steps} steps")
-            require(counts["paged_attention"] == 0, "paged_attention ran "
-                    "in the fused run")
-        else:
-            require(counts["paged_attention"] == layers * steps,
-                    f"paged_attention ran {counts['paged_attention']} "
-                    f"times over {steps} steps")
-            require(counts["fused_block_decode"] == 0,
-                    "fused_block_decode ran in the generic run")
+        require_launches(counts, expected_launches(
+            counts, layers, steps, len(PROMPT_LENS), 0, fused, group,
+            kv_dtype, weight_dtype),
+            f"serve {'fused' if fused else 'generic'} N={group} "
+            f"{kv_dtype}/{weight_dtype}")
         gen = sum(len(t) for _, _, t in res)
         emit("serve", model="llama2_7b", layers=layers, dtype="bf16",
              decode="fused" if fused else "generic",
+             fused_block_layers=group, kv_dtype=kv_dtype,
+             weight_dtype=weight_dtype,
              requests=len(res), prompt_lens=list(PROMPT_LENS),
              new_tokens=NEW_TOKENS, generated=gen, seconds=seconds,
              tokens_per_s=gen / seconds,
@@ -590,6 +794,7 @@ def run_serve(device):
              peak_mem_gb=peak / 1e9)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         del eng
+        torch.cuda.empty_cache()
     counts = run_serve_long(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     del model
@@ -599,36 +804,36 @@ def run_serve(device):
 
 def run_serve_long(model) -> dict:
     """Prompts up to 3500 tokens of a 4096-token context, chunked, with one
-    fused kernel a layer and one a group of GROUP_LAYERS layers: exact
-    launch counts, identical streams. Returns the summed launch counts."""
+    fused kernel a layer and one a group of GROUP_LAYERS layers, on the
+    native pool and weights, then on the int8 pool (one layer a launch)
+    and the int8 pool with int4 weights (a group a launch): exact launch
+    counts; the native runs' streams identical, the int8 runs' first
+    tokens identical (their prefill and chunks are the same). Returns the
+    summed launch counts."""
     cfg = model.config
     layers = cfg.num_hidden_layers
     chunks = sum(-(-n // CHUNK) for n in LONG_PROMPT_LENS if n > CHUNK)
     whole = sum(1 for n in LONG_PROMPT_LENS if n <= CHUNK)
     streams, total = {}, {}
-    for group in (1, GROUP_LAYERS):
+    for group, kv_dtype, weight_dtype in LONG_RUNS:
         eng, res, seconds, counts, peak = serve(
             model, True, NEW_TOKENS, LONG_PROMPT_LENS, max_seq=LONG_MAX_SEQ,
-            group=group)
+            group=group, kv_dtype=kv_dtype, weight_dtype=weight_dtype)
         check_tokens(res, cfg.vocab_size, NEW_TOKENS)
         steps = len(eng.decode_step_seconds)
-        want = dict(paged_chunk_attention=layers * chunks,
-                    flash_prefill=layers * whole, paged_attention=0,
-                    fused_block_decode=layers * steps if group == 1 else 0,
-                    fused_multi_block_decode=(0 if group == 1 else
-                                              -(-layers // group) * steps))
-        for name, n in want.items():
-            require(counts[name] == n, f"serve_long N={group}: {name} ran "
-                    f"{counts[name]} times, want {n}")
+        require_launches(counts, expected_launches(
+            counts, layers, steps, whole, chunks, True, group, kv_dtype,
+            weight_dtype), f"serve_long N={group} {kv_dtype}/{weight_dtype}")
         require(eng.chunk_dispatches == chunks,
                 f"serve_long: {eng.chunk_dispatches} chunks, want {chunks}")
-        streams[group] = [toks for _, _, toks in res]
+        streams[group, kv_dtype] = [toks for _, _, toks in res]
         ttft = {True: [], False: []}
         for rid, prompt, _ in res:
             ttft[len(prompt) > CHUNK].append(1e3 * eng.ttft_seconds[rid])
-        gen = sum(len(t) for t in streams[group])
+        gen = sum(len(t) for t in streams[group, kv_dtype])
         emit("serve_long", model="llama2_7b", layers=layers, dtype="bf16",
-             fused_block_layers=group, max_seq_len=LONG_MAX_SEQ,
+             fused_block_layers=group, kv_dtype=kv_dtype,
+             weight_dtype=weight_dtype, max_seq_len=LONG_MAX_SEQ,
              prefill_chunk=CHUNK, requests=len(res),
              prompt_lens=list(LONG_PROMPT_LENS), new_tokens=NEW_TOKENS,
              generated=gen, seconds=seconds, tokens_per_s=gen / seconds,
@@ -646,8 +851,11 @@ def run_serve_long(model) -> dict:
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         del eng
         torch.cuda.empty_cache()
-    require(streams[1] == streams[GROUP_LAYERS],
+    require(streams[1, "native"] == streams[GROUP_LAYERS, "native"],
             f"serve_long: the N={GROUP_LAYERS} streams differ from N=1")
+    first = {key: [t[0] for t in toks] for key, toks in streams.items()}
+    require(first[1, "int8"] == first[GROUP_LAYERS, "int8"],
+            "serve_long: the int8 runs' first tokens differ")
     return total
 
 
@@ -974,13 +1182,13 @@ def main() -> int:
 
     results = []
     for dtype in (torch.bfloat16, torch.float32):
-        check_flash_prefill(dtype, device, results)
-        check_paged_attention(dtype, device, results)
-        check_paged_chunk_attention(dtype, device, results)
-        check_fused_block_decode(dtype, device, results)
-        check_fused_multi_block_decode(dtype, device, results)
-    for r in results:
-        emit("kernels", **r)
+        for check in (check_flash_prefill, check_paged_attention,
+                      check_paged_chunk_attention, check_fused_block_decode,
+                      check_fused_multi_block_decode):
+            done = len(results)
+            check(dtype, device, results)
+            for r in results[done:]:
+                emit("kernels", **r)
 
     counts = run_serve(device)
     run_parity(device)
@@ -1009,6 +1217,7 @@ def main() -> int:
                     and r["dtype"] == "bf16" and "kernel_ms" in r]
             main_row = rows[-1]      # the largest serving shape in bf16
             launches = counts[name]  # serve and serve_long, every run
+        require(launches > 0, f"{name}: no launch on the main paths")
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,

@@ -4,8 +4,8 @@ slice reads.
 
 There is no ``use_pallas`` counterpart: a kernel wrapper launches its CUDA
 kernel for a CUDA tensor and uses its plain PyTorch version only for a CPU
-tensor. Values the slice cannot serve yet raise ``NotImplementedError``
-when read or set.
+tensor. Values the port cannot serve yet raise ``NotImplementedError``
+when read or set; values no version serves raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,14 @@ def _only(flag: str, allowed, later: str) -> Callable[[Any], None]:
     return check
 
 
+def _one_of(flag: str, *choices) -> Callable[[Any], None]:
+    def check(value):
+        if value not in choices:
+            raise ValueError(f"FLAGS_{flag} must be one of {choices}, "
+                             f"got {value!r}")
+    return check
+
+
 def _any(_value) -> None:
     return None
 
@@ -42,11 +50,11 @@ def _at_least_one(flag: str) -> Callable[[Any], None]:
 _FLAGS: Dict[str, tuple] = {
     "fused_block_decode": (True, _any),
     "fused_block_layers": (1, _at_least_one("fused_block_layers")),
-    "fused_weight_dtype": ("native", _only("fused_weight_dtype", "native",
-                                           "int4 weight tiles")),
+    "fused_weight_dtype": ("native", _one_of("fused_weight_dtype", "native",
+                                             "int4")),
     "serving_prefill_chunk": (256, _any),
-    "serving_kv_dtype": ("native", _only("serving_kv_dtype", "native",
-                                         "int8 KV pools")),
+    "serving_kv_dtype": ("native", _one_of("serving_kv_dtype", "native",
+                                           "int8")),
     "serving_tp_degree": (1, _only("serving_tp_degree", 1,
                                    "tensor-parallel decode")),
 }

@@ -22,12 +22,18 @@ the default), the N-layer kernel once per group of N layers
 or the model's own cached forward, whose attention is the paged decode
 kernel. The programs are plain eager PyTorch functions.
 
+``kv_dtype="int8"`` (``FLAGS_serving_kv_dtype``) stores the pool as int8
+rows with per-row f32 scales, written by every route and read by every
+attention kernel; ``weight_dtype="int4"`` (``FLAGS_fused_weight_dtype``)
+packs the N-layer route's stacked matrices as int4 tiles. Prefill and
+chunks keep the native per-layer weights, and with N = 1 int4 changes
+nothing, as in the JAX package.
+
 Left for later slices, and refused with ``NotImplementedError``:
-speculative decoding (``draft_model``), the prefix cache, int8 KV pools,
-int4 weights, tensor-parallel decode, sampling (``temperature > 0``),
-deadlines and a bucket ladder of more than one rung. Replay recovery,
-telemetry and fault injection are not part of this slice: a failed step
-raises.
+speculative decoding (``draft_model``), the prefix cache, tensor-parallel
+decode, sampling (``temperature > 0``), deadlines and a bucket ladder of
+more than one rung. Replay recovery, telemetry and fault injection are
+not part of this slice: a failed step raises.
 """
 
 from __future__ import annotations
@@ -96,20 +102,17 @@ class ServingEngine:
             raise _later("speculative decoding (draft_model=)")
         if prefix_cache:
             raise _later("the prefix cache (prefix_cache=True)")
-        if kv_dtype is None:
-            kv_dtype = _flags.get_flag("serving_kv_dtype")
-        if kv_dtype == "int8":
-            raise _later("the int8 KV pool (kv_dtype='int8')")
-        if kv_dtype != "native":
+        # the pool's storage and the N-layer route's stacked weights
+        self.kv_dtype = str(_flags.get_flag("serving_kv_dtype")
+                            if kv_dtype is None else kv_dtype)
+        if self.kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype must be 'native' or 'int8', "
-                             f"got {kv_dtype!r}")
-        if weight_dtype is None:
-            weight_dtype = _flags.get_flag("fused_weight_dtype")
-        if weight_dtype == "int4":
-            raise _later("int4 weight tiles (weight_dtype='int4')")
-        if weight_dtype != "native":
+                             f"got {self.kv_dtype!r}")
+        self.weight_dtype = str(_flags.get_flag("fused_weight_dtype")
+                                if weight_dtype is None else weight_dtype)
+        if self.weight_dtype not in ("native", "int4"):
             raise ValueError(f"weight_dtype must be 'native' or 'int4', "
-                             f"got {weight_dtype!r}")
+                             f"got {self.weight_dtype!r}")
         tp = (_flags.get_flag("serving_tp_degree") if tp_degree is None
               else int(tp_degree))
         if tp > 1:
@@ -149,7 +152,8 @@ class ServingEngine:
             num_layers=len(spec), num_pages=num_pages, page_size=page_size,
             num_kv_heads=spec[0][0], head_dim=spec[0][1],
             max_batch=max_batch, max_seq_len=max_seq_len, dtype=model.dtype,
-            reserve_null_page=True, device=self.device)
+            reserve_null_page=True, kv_dtype=self.kv_dtype,
+            device=self.device)
         self._params = dict(model.named_parameters())
         self._spec = self._fused_spec()
         # the N-layer route's stacked weights, one group each, built once
@@ -242,15 +246,16 @@ class ServingEngine:
     @torch.no_grad()
     def _stacked_weights(self, spec) -> Tuple[MultiBlockDecodeWeights, ...]:
         """Each layer group's weights stacked into one
-        ``MultiBlockDecodeWeights`` (q|k|v and gate|up merged): a device
-        copy of the decoder layers' weights, made once per engine; the
-        per-layer originals keep serving prefill."""
+        ``MultiBlockDecodeWeights`` (q|k|v and gate|up merged; int4 tiles
+        under ``weight_dtype="int4"``): a device copy of the decoder
+        layers' weights, made once per engine; the per-layer originals
+        keep serving prefill."""
         p = self._params
         return tuple(
             stack_block_weights([
                 BlockDecodeWeights(**{f: p[n] for f, n in
                                       spec["layers"][i].items()})
-                for i in group])
+                for i in group], weight_dtype=self.weight_dtype)
             for group in spec["layer_groups"])
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:

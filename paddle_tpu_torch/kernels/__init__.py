@@ -1,8 +1,11 @@
 """The port's hand-written Hopper kernels and their plain PyTorch versions.
 
-Each kernel wrapper carries ``launches``, a plain integer it increments
-each time it launches its CUDA kernel (never for the plain version on a CPU
-tensor), so a run can show that its main path went through the kernels.
+Each kernel wrapper carries ``launches``, one count per variant of its
+kernel (the native one under the wrapper's name, the quantized ones as
+``<name>_int8``, ``<name>_int4``, ``<name>_int8_int4``), which it
+increments each time it launches that variant (never for the plain
+version on a CPU tensor), so a run can show that its main path went
+through the kernels.
 """
 
 from . import (decode_attention, flash_attention, fused_block_decode,
@@ -22,8 +25,9 @@ def wrappers():
 
 def reset_launches() -> None:
     for fn in wrappers():
-        fn.launches = 0
+        fn.launches = dict.fromkeys(fn.launches, 0)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in wrappers()}
+    """Every kernel variant's launches, by name."""
+    return {name: n for fn in wrappers() for name, n in fn.launches.items()}

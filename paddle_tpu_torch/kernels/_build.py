@@ -137,6 +137,29 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def kv_code(quant: bool) -> int:
+    """The kernels' KV pool code (0 = native pool, 1 = int8 payload with
+    per-row f32 scales)."""
+    return 1 if quant else 0
+
+
+def counters(fn, *variants: str) -> None:
+    """Give kernel wrapper ``fn`` one launch counter per variant of its
+    kernel (``""`` is the native one): ``fn.launches`` maps each
+    variant's name (:func:`variant_name`) to its count."""
+    fn.launches = {variant_name(fn, v): 0 for v in variants}
+
+
+def variant_name(fn, variant: str = "") -> str:
+    """``fn``'s name, with ``_<variant>`` for a quantized variant."""
+    return fn.__name__ + (f"_{variant}" if variant else "")
+
+
+def count(fn, variant: str = "") -> None:
+    """One launch of ``fn``'s kernel in ``variant``."""
+    fn.launches[variant_name(fn, variant)] += 1
+
+
 def dtype_code(dtype) -> int:
     """The kernels' dtype code (0 = float32, 1 = bfloat16)."""
     if dtype == torch.float32:

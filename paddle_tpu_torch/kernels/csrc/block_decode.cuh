@@ -19,6 +19,20 @@
 // own row stride, so q, k and v (and gate and up) may be column ranges of
 // one merged matrix: the GEMV launch, its split and every column's
 // reduction are the same as over separate matrices, bit for bit.
+//
+// Two quantized variants, chosen at compile time (run<T, S, W4>):
+//   - an int8 KV pool (S = int8_t; the TPU kernels' `kv_quant`): the
+//     attention kernel reads payload and per-row f32 scales (pointer
+//     parameters), quantizes the new token's k/v row itself with the plain
+//     version's arithmetic (amax over D, IEEE division, rint, clamp),
+//     folds the dequantized value into the softmax (what a re-read of the
+//     pool gives, as the TPU kernel's _fake_quant_rows) and writes payload
+//     and scale into the pool;
+//   - int4 weight tiles (W4; the N-layer TPU kernel's `wt_quant`): each
+//     GEMV streams the packed bytes of an Int4Tiles matrix; a lane unpacks
+//     both nibbles of a byte into contraction rows k_lo and k_lo + tr/2,
+//     sign-extends them and multiplies by the tile's f32 scale, indexed by
+//     the column's absolute position in the merged matrix.
 #pragma once
 
 #include <algorithm>
@@ -188,6 +202,214 @@ int gemv(const float* a, int K, int B, const T* const* W, const int* N,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// int4 tiles. A matrix (K, C) is stored as uint8 (K/2, C): in each band of
+// tr rows, packed row band * tr/2 + i holds row band * tr + i in its low
+// nibble and row band * tr + i + tr/2 in its high one (two's complement,
+// [-7, 7]); scale (K/tr, C/tc) f32 holds one value per (tr, tc) tile. A
+// lane loads 8 packed bytes (8 columns, 16 weights) with one 8-byte load.
+constexpr int I4_VEC = 8;
+constexpr int I4_COLS = 32 * I4_VEC;
+
+// One merged int4 matrix (host side): payload, scales, row stride (C, in
+// bytes) and tile.
+struct Int4Mat {
+  const uint8_t* q;
+  const float* scale;
+  int ld, tr, tc;
+};
+
+// Byte c of x (a nibble xor 8, 0..15) minus 8 as f32, exactly: the byte is
+// placed in the mantissa of 2^23 (one byte permute, one add) instead of an
+// int-to-float conversion, which runs at a quarter of the FMA rate.
+__device__ __forceinline__ float nibble_f32(uint32_t x, int c) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | c)) -
+         8388616.f;
+}
+
+struct Gemv4Seg {
+  const uint8_t* W;  // the packed rows at this segment's first column
+  int N;             // columns
+  int col0;          // absolute column of the segment in the merged matrix
+  float* part;       // (ks, B, N) partial sums
+  int tile0;
+};
+
+struct Gemv4Args {
+  Gemv4Seg seg[3];
+  int nseg;
+  const float* scale;  // the merged matrix's (K/tr, C/tc) scales
+  int ld, tr2, tc, snc;  // row stride (bytes), tr/2, tc, C/tc
+  const float* a;        // (B, K) activations, f32
+  int K, B, b0, nb, rows;  // rows: packed rows per split
+};
+
+template <int NB>
+__global__ void __launch_bounds__(GV_THREADS)
+    gemv_int4_partial_kernel(Gemv4Args args) {
+  __shared__ float red[GV_WARPS][I4_COLS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int tile = blockIdx.x;
+  int si = 0;
+  while (si + 1 < args.nseg && tile >= args.seg[si + 1].tile0) ++si;
+  const Gemv4Seg sg = args.seg[si];
+  const int c_base = (tile - sg.tile0) * I4_COLS;
+  const int col = c_base + lane * I4_VEC;
+  const bool col_ok = col < sg.N;  // N % 8 == 0: a lane's 8 columns or none
+  const int half = args.K / 2;
+  const int p0 = blockIdx.y * args.rows;
+  const int p1 = min(half, p0 + args.rows);
+  const float* a = args.a + (size_t)args.b0 * args.K;
+
+  float acc[NB][I4_VEC];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < I4_VEC; ++c) acc[b][c] = 0.f;
+
+  int band = -1;  // the band whose tile scales sc[] holds
+  float sc[I4_VEC];
+  // packed row p = r * tr/2 + i, stepped along without a division a row
+  int r = (p0 + warp) / args.tr2, i = p0 + warp - r * args.tr2;
+  for (int p = p0 + warp; p < p1; p += GV_WARPS * GV_UNROLL) {
+    uint2 raw[GV_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GV_UNROLL; ++u) {
+      const int pp = p + u * GV_WARPS;
+      raw[u] = (col_ok && pp < p1)
+                   ? *reinterpret_cast<const uint2*>(sg.W + (size_t)pp * args.ld +
+                                                     col)
+                   : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < GV_UNROLL; ++u) {
+      const int pp = p + u * GV_WARPS;
+      if (pp >= p1) break;
+      if (r != band) {
+        band = r;
+#pragma unroll
+        for (int c = 0; c < I4_VEC; ++c)
+          sc[c] = col_ok ? args.scale[(size_t)r * args.snc +
+                                      (sg.col0 + col + c) / args.tc]
+                         : 0.f;
+      }
+      const int k_lo = 2 * r * args.tr2 + i, k_hi = k_lo + args.tr2;
+      const uint32_t words[2] = {raw[u].x, raw[u].y};
+      float wl[I4_VEC], wh[I4_VEC];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the low and the high nibble of each of the word's 4 bytes, each
+        // xor 8 (so that v - 8 is its two's-complement value)
+        const uint32_t lo = (words[h] & 0x0F0F0F0Fu) ^ 0x08080808u;
+        const uint32_t hi = ((words[h] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          wl[4 * h + c] = nibble_f32(lo, c) * sc[4 * h + c];
+          wh[4 * h + c] = nibble_f32(hi, c) * sc[4 * h + c];
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b < args.nb) {
+          const float al = a[(size_t)b * args.K + k_lo];
+          const float ah = a[(size_t)b * args.K + k_hi];
+#pragma unroll
+          for (int c = 0; c < I4_VEC; ++c) {
+            acc[b][c] += al * wl[c];
+            acc[b][c] += ah * wh[c];
+          }
+        }
+      }
+      i += GV_WARPS;
+      while (i >= args.tr2) {
+        i -= args.tr2;
+        ++r;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b < args.nb) {
+#pragma unroll
+      for (int c = 0; c < I4_VEC; ++c) red[warp][lane * I4_VEC + c] = acc[b][c];
+      __syncthreads();
+      for (int cc = threadIdx.x; cc < I4_COLS; cc += GV_THREADS) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < GV_WARPS; ++w) s += red[w][cc];
+        const int n = c_base + cc;
+        if (n < sg.N)
+          sg.part[((size_t)blockIdx.y * args.B + args.b0 + b) * sg.N + n] = s;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Blocks an int4 GEMV aims for: its blocks carry twice the weights of a
+// native one's per byte, so half as many fill the card.
+constexpr int GV4_TARGET_BLOCKS = GV_TARGET_BLOCKS / 2;
+
+// The split of an int4 GEMV: its K/2 packed rows over col_tiles tiles.
+inline Split gemv4_split(int K, int col_tiles) {
+  const int want = cdiv(GV4_TARGET_BLOCKS, col_tiles);
+  const int step = GV_WARPS * GV_UNROLL;
+  const int rows = cdiv(cdiv(K / 2, want), step) * step;
+  return {cdiv(K / 2, rows), rows};
+}
+
+// Launch one GEMV phase over 1-3 column ranges [col0, col0 + N) of one
+// int4 matrix that share the activation (its contraction split over the
+// K/2 packed rows).
+inline int gemv4(const float* a, int K, int B, const Int4Mat& m,
+                 const int* col0, const int* N, float* const* part, int nseg,
+                 cudaStream_t stream) {
+  Gemv4Args args;
+  int tiles = 0;
+  for (int i = 0; i < nseg; ++i) {
+    args.seg[i] = Gemv4Seg{m.q + col0[i], N[i], col0[i], part[i], tiles};
+    tiles += cdiv(N[i], I4_COLS);
+  }
+  const Split sp = gemv4_split(K, tiles);
+  args.nseg = nseg;
+  args.scale = m.scale;
+  args.ld = m.ld;
+  args.tr2 = m.tr / 2;
+  args.tc = m.tc;
+  args.snc = m.ld / m.tc;
+  args.a = a;
+  args.K = K;
+  args.B = B;
+  args.rows = sp.rows;
+  const dim3 grid(tiles, sp.ks);
+  for (int b0 = 0; b0 < B; b0 += GV_MAXB) {
+    args.b0 = b0;
+    args.nb = std::min(GV_MAXB, B - b0);
+    if (args.nb == 1)
+      gemv_int4_partial_kernel<1><<<grid, GV_THREADS, 0, stream>>>(args);
+    else if (args.nb == 2)
+      gemv_int4_partial_kernel<2><<<grid, GV_THREADS, 0, stream>>>(args);
+    else if (args.nb <= 4)
+      gemv_int4_partial_kernel<4><<<grid, GV_THREADS, 0, stream>>>(args);
+    else
+      gemv_int4_partial_kernel<8><<<grid, GV_THREADS, 0, stream>>>(args);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// The contraction split of one GEMV phase: K rows over tiles of `cols`
+// columns (native), or K/2 packed rows over int4 tiles of I4_COLS (w4).
+inline int phase_ks(bool w4, int K, const int* N, int nseg, int cols) {
+  const int c = w4 ? I4_COLS : cols;
+  int tiles = 0;
+  for (int i = 0; i < nseg; ++i) tiles += cdiv(N[i], c);
+  return w4 ? gemv4_split(K, tiles).ks : gemv_split(K, tiles).ks;
+}
+
 __device__ inline float psum(const float* part, int ks, int B, int N, int b,
                              int n) {
   float s = 0.f;
@@ -255,24 +477,79 @@ __global__ void __launch_bounds__(EPI_THREADS)
   }
 }
 
-// A layer's KV pools, passed to the attention kernel as pointer parameters:
-// a pointer the kernel read from memory would be a generic pointer, and the
-// pool loads would then be generic loads (LD), not global ones (LDG), which
-// in bf16 made the kernel ~60 % slower on the H100.
-template <typename T>
+// A layer's KV pools (an int8 pool's payloads and row scales), passed to
+// the attention kernel as pointer parameters: a pointer the kernel read
+// from memory would be a generic pointer, and the pool loads would then be
+// generic loads (LD), not global ones (LDG), which in bf16 made the kernel
+// ~60 % slower on the H100.
+template <typename S>
 struct PoolRef {
-  T* kp;
-  T* vp;
+  S* kp;
+  S* vp;
+  float* ks;  // int8 pools only
+  float* vs;
 };
 
+// quantize_kv_rows' element: clamp(rint(u / safe scale), -127, 127)
+__device__ __forceinline__ float quant_int8(float u, float scale) {
+  return fminf(fmaxf(rintf(u / (scale > 0.f ? scale : 1.f)), -127.f), 127.f);
+}
+
+// The new token's k/v row (kn/vn, f32) as the pool will hold it, into the
+// tile's row 0: rounded to the activation type T; for an int8 pool then
+// quantized per row (amax over D, scale = amax / 127, q = clamp(rint(u /
+// safe scale), -127, 127)) and dequantized (q * scale), the value a
+// re-read of the pool gives. Returns the two raw scales (0 for a native
+// pool). Block-wide: every thread calls it.
+template <typename T, typename S>
+__device__ inline float2 fold_new_row(const DecodeSmem& sm, const float* kn,
+                                      const float* vn, int D) {
+  if constexpr (!is_int8_pool<S>()) {
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      sm.k[d] = to_f(from_f<T>(kn[d]));
+      sm.v[d] = to_f(from_f<T>(vn[d]));
+    }
+    __syncthreads();
+    return make_float2(0.f, 0.f);
+  } else {
+    __shared__ float red[2][32];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float mk = 0.f, mv = 0.f;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      mk = fmaxf(mk, fabsf(to_f(from_f<T>(kn[d]))));
+      mv = fmaxf(mv, fabsf(to_f(from_f<T>(vn[d]))));
+    }
+    mk = warp_max(mk);
+    mv = warp_max(mv);
+    if (lane == 0) {
+      red[0][warp] = mk;
+      red[1][warp] = mv;
+    }
+    __syncthreads();
+    mk = mv = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      mk = fmaxf(mk, red[0][w]);
+      mv = fmaxf(mv, red[1][w]);
+    }
+    const float sk = mk / 127.f, sv = mv / 127.f;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      sm.k[d] = quant_int8(to_f(from_f<T>(kn[d])), sk) * sk;
+      sm.v[d] = quant_int8(to_f(from_f<T>(vn[d])), sv) * sv;
+    }
+    __syncthreads();
+    return make_float2(sk, sv);
+  }
+}
+
 // Paged attention for one (row, kv head) with the new token folded in, then
-// the append of that token's k/v to the pool.
-template <typename T>
+// the append of that token's k/v (an int8 pool: payload and scale) to the
+// pool. T: the activation type; S: the pool storage (T or int8_t).
+template <typename T, typename S>
 __global__ void __launch_bounds__(128)
     fused_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ kn,
-                           const float* __restrict__ vn, T* kp, T* vp,
-                           const int* __restrict__ bt,
+                           const float* __restrict__ vn, S* kp, S* vp,
+                           float* ks, float* vs, const int* __restrict__ bt,
                            const int* __restrict__ sl, float* __restrict__ ao,
                            int H, int Hkv, int D, int num_pages, int page,
                            int maxp, float scale) {
@@ -284,25 +561,35 @@ __global__ void __launch_bounds__(128)
   const int* bt_row = bt + (size_t)b * maxp;
   const int len = sl[b];
   decode_init(sm, q + qoff, rep, D, scale);
-  decode_pages(sm, (const T*)kp, (const T*)vp, bt_row, len, g, num_pages,
-               page, maxp, rep, D);
+  decode_pages(sm, (const S*)kp, (const S*)vp, (const float*)ks,
+               (const float*)vs, bt_row, len, g, num_pages, page, maxp, rep,
+               D);
   // the new token attends too, at the value a pool re-read would give
   const size_t noff = ((size_t)b * Hkv + g) * D;
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    sm.k[d] = to_f(from_f<T>(kn[noff + d]));
-    sm.v[d] = to_f(from_f<T>(vn[noff + d]));
-  }
-  __syncthreads();
+  const float2 sc = fold_new_row<T, S>(sm, kn + noff, vn + noff, D);
   decode_tile(sm, rep, D, page, 1);
   decode_emit(sm, ao + qoff, rep, D);
   const int j = len / page;
   if (j < maxp) {
-    const size_t off =
-        (((size_t)g * num_pages + bt_row[j]) * page + (len - j * page)) * D;
+    const size_t row =
+        ((size_t)g * num_pages + bt_row[j]) * page + (len - j * page);
     for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      kp[off + d] = from_f<T>(kn[noff + d]);
-      vp[off + d] = from_f<T>(vn[noff + d]);
+      if constexpr (is_int8_pool<S>()) {
+        kp[row * D + d] =
+            (int8_t)quant_int8(to_f(from_f<T>(kn[noff + d])), sc.x);
+        vp[row * D + d] =
+            (int8_t)quant_int8(to_f(from_f<T>(vn[noff + d])), sc.y);
+      } else {
+        kp[row * D + d] = from_f<T>(kn[noff + d]);
+        vp[row * D + d] = from_f<T>(vn[noff + d]);
+      }
+    }
+    if constexpr (is_int8_pool<S>()) {
+      if (threadIdx.x == 0) {
+        ks[row] = sc.x;
+        vs[row] = sc.y;
+      }
     }
   }
 }
@@ -346,18 +633,16 @@ struct Layout {
   size_t h, q, kn, vn, ao, x2, f, part, total;
 };
 
-inline size_t phase_part(int K, int B, const int* N, int nseg, int cols) {
-  int tiles = 0;
+inline size_t phase_part(bool w4, int K, int B, const int* N, int nseg,
+                         int cols) {
   size_t width = 0;
-  for (int i = 0; i < nseg; ++i) {
-    tiles += cdiv(N[i], cols);
-    width += (size_t)N[i];
-  }
-  return (size_t)gemv_split(K, tiles).ks * B * width;
+  for (int i = 0; i < nseg; ++i) width += (size_t)N[i];
+  return (size_t)phase_ks(w4, K, N, nseg, cols) * B * width;
 }
 
-inline Layout layout(int dtype, int B, int hidden, int nh, int nkv, int d,
-                     int inter) {
+// w4: the layer's four matrices are int4 tiles (their GEMVs split as gemv4)
+inline Layout layout(int dtype, bool w4, int B, int hidden, int nh, int nkv,
+                     int d, int inter) {
   const int cols = cols_per_tile(dtype);
   Layout L;
   size_t o = 0;
@@ -372,21 +657,24 @@ inline Layout layout(int dtype, int B, int hidden, int nh, int nkv, int d,
   const int nqkv[3] = {nh * d, nkv * d, nkv * d};
   const int no[1] = {hidden};
   const int ngu[2] = {inter, inter};
-  size_t p = phase_part(hidden, B, nqkv, 3, cols);
-  p = std::max(p, phase_part(nh * d, B, no, 1, cols));
-  p = std::max(p, phase_part(hidden, B, ngu, 2, cols));
-  p = std::max(p, phase_part(inter, B, no, 1, cols));
+  size_t p = phase_part(w4, hidden, B, nqkv, 3, cols);
+  p = std::max(p, phase_part(w4, nh * d, B, no, 1, cols));
+  p = std::max(p, phase_part(w4, hidden, B, ngu, 2, cols));
+  p = std::max(p, phase_part(w4, inter, B, no, 1, cols));
   L.total = o + p;
   return L;
 }
 
 // One layer's weights, (in, out) layout. q, k and v are read with row
 // strides ldq (= ldk = ldv when they are column ranges of one merged
-// matrix), gate and up with ldg.
+// matrix), gate and up with ldg. With int4 tiles the four matrices are
+// qkv (q|k|v merged), o, gu (gate|up merged) and d instead, and only the
+// norms are read from the native pointers.
 template <typename T>
 struct LayerWeights {
   const T *ln1, *wq, *wk, *wv, *wo, *ln2, *wg, *wu, *wd;
   int ldq, ldk, ldv, ldg, ldu;
+  Int4Mat qkv, o, gu, dn;
 };
 
 #define PTT_CHECK()                                   \
@@ -395,15 +683,27 @@ struct LayerWeights {
     if (e_ != cudaSuccess) return (int)e_;            \
   } while (0)
 
+// One GEMV phase of run(): columns [col0[i], col0[i] + N[i]) of a merged
+// int4 matrix m (W4), or the native matrices W with row strides ld.
+template <typename T, bool W4>
+int phase_gemv(const float* a, int K, int B, const T* const* W,
+               const int* ld, const Int4Mat& m, const int* col0,
+               const int* N, float* const* P, int nseg, cudaStream_t st) {
+  if constexpr (W4) return gemv4(a, K, B, m, col0, N, P, nseg, st);
+  else return gemv<T>(a, K, B, W, N, ld, P, nseg, st);
+}
+
 // One layer: x (B, hidden) -> out (B, hidden), both of type T. out may be x
-// itself: x is last read by phase 3, out first written by phase 5.
-template <typename T>
-int run(const T* x, const LayerWeights<T>& w, PoolRef<T> pools,
+// itself: x is last read by phase 3, out first written by phase 5. S is
+// the KV pool's storage (T, or int8_t for an int8 pool); W4 reads the
+// matrices as int4 tiles.
+template <typename T, typename S, bool W4>
+int run(const T* x, const LayerWeights<T>& w, PoolRef<S> pools,
         const int* bt, const int* sl, const float* inv_freq, T* out,
         float* scratch, int dtype, int B, int hidden, int nh, int nkv, int d,
         int inter, int num_pages, int page, int maxp, float eps, float scale,
         cudaStream_t st) {
-  const Layout L = layout(dtype, B, hidden, nh, nkv, d, inter);
+  const Layout L = layout(dtype, W4, B, hidden, nh, nkv, d, inter);
   float* h = scratch + L.h;
   float* q = scratch + L.q;
   float* kn = scratch + L.kn;
@@ -421,11 +721,14 @@ int run(const T* x, const LayerWeights<T>& w, PoolRef<T> pools,
   {
     const int N[3] = {nh * d, nkv * d, nkv * d};
     const int ld[3] = {w.ldq, w.ldk, w.ldv};
-    const int ks = gemv_split(hidden, cdiv(N[0], COLS) + 2 * cdiv(N[1], COLS)).ks;
+    const int c0[3] = {0, N[0], N[0] + N[1]};
+    const int ks = phase_ks(W4, hidden, N, 3, COLS);
     float* P[3] = {part, part + (size_t)ks * B * N[0],
                    part + (size_t)ks * B * (N[0] + N[1])};
     const T* W[3] = {w.wq, w.wk, w.wv};
-    if ((rc = gemv<T>(h, hidden, B, W, N, ld, P, 3, st))) return rc;
+    if ((rc = phase_gemv<T, W4>(h, hidden, B, W, ld, w.qkv, c0, N, P, 3,
+                                st)))
+      return rc;
     const int items = B * nh * (d / 2) + B * nkv * (d / 2) + B * nkv * d;
     qkv_epilogue_kernel<<<cdiv(items, EPI_THREADS), EPI_THREADS, 0, st>>>(
         P[0], P[1], P[2], ks, B, nh, nkv, d, sl, inv_freq, q, kn, vn);
@@ -435,22 +738,24 @@ int run(const T* x, const LayerWeights<T>& w, PoolRef<T> pools,
   {
     const size_t smem =
         decode_smem_floats(nh / nkv, d, page) * sizeof(float);
-    cudaFuncSetAttribute(fused_attention_kernel<T>,
+    cudaFuncSetAttribute(fused_attention_kernel<T, S>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    fused_attention_kernel<T><<<B * nkv, 128, smem, st>>>(
-        q, kn, vn, pools.kp, pools.vp, bt, sl, ao, nh, nkv, d, num_pages,
-        page, maxp, scale);
+    fused_attention_kernel<T, S><<<B * nkv, 128, smem, st>>>(
+        q, kn, vn, pools.kp, pools.vp, pools.ks, pools.vs, bt, sl, ao, nh,
+        nkv, d, num_pages, page, maxp, scale);
     PTT_CHECK();
   }
   // 3. o-proj GEMV + residual
   {
     const int N[1] = {hidden};
     const int ld[1] = {hidden};
-    const int ks = gemv_split(nh * d, cdiv(hidden, COLS)).ks;
+    const int c0[1] = {0};
+    const int ks = phase_ks(W4, nh * d, N, 1, COLS);
     float* P[1] = {part};
     const T* W[1] = {w.wo};
-    if ((rc = gemv<T>(ao, nh * d, B, W, N, ld, P, 1, st))) return rc;
+    if ((rc = phase_gemv<T, W4>(ao, nh * d, B, W, ld, w.o, c0, N, P, 1, st)))
+      return rc;
     residual_epilogue_kernel<T>
         <<<cdiv(B * hidden, EPI_THREADS), EPI_THREADS, 0, st>>>(
             x, part, ks, B, hidden, x2);
@@ -462,10 +767,12 @@ int run(const T* x, const LayerWeights<T>& w, PoolRef<T> pools,
   {
     const int N[2] = {inter, inter};
     const int ld[2] = {w.ldg, w.ldu};
-    const int ks = gemv_split(hidden, 2 * cdiv(inter, COLS)).ks;
+    const int c0[2] = {0, inter};
+    const int ks = phase_ks(W4, hidden, N, 2, COLS);
     float* P[2] = {part, part + (size_t)ks * B * inter};
     const T* W[2] = {w.wg, w.wu};
-    if ((rc = gemv<T>(h, hidden, B, W, N, ld, P, 2, st))) return rc;
+    if ((rc = phase_gemv<T, W4>(h, hidden, B, W, ld, w.gu, c0, N, P, 2, st)))
+      return rc;
     swiglu_epilogue_kernel<<<cdiv(B * inter, EPI_THREADS), EPI_THREADS, 0,
                              st>>>(P[0], P[1], ks, B, inter, f);
     PTT_CHECK();
@@ -474,10 +781,12 @@ int run(const T* x, const LayerWeights<T>& w, PoolRef<T> pools,
   {
     const int N[1] = {hidden};
     const int ld[1] = {hidden};
-    const int ks = gemv_split(inter, cdiv(hidden, COLS)).ks;
+    const int c0[1] = {0};
+    const int ks = phase_ks(W4, inter, N, 1, COLS);
     float* P[1] = {part};
     const T* W[1] = {w.wd};
-    if ((rc = gemv<T>(f, inter, B, W, N, ld, P, 1, st))) return rc;
+    if ((rc = phase_gemv<T, W4>(f, inter, B, W, ld, w.dn, c0, N, P, 1, st)))
+      return rc;
     down_epilogue_kernel<T>
         <<<cdiv(B * hidden, EPI_THREADS), EPI_THREADS, 0, st>>>(
             x2, part, ks, B, hidden, out);

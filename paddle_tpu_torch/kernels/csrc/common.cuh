@@ -2,7 +2,9 @@
 // reductions, the one-token decode-attention tile routine that
 // paged_attention.cu and the fused block decode kernels run, and the causal
 // prefill block routine that flash_prefill.cu and paged_chunk_attention.cu
-// run.
+// run. Every KV-reading routine is templated on the pool's storage type S:
+// the activation type (a native pool) or int8_t (an int8 pool, whose rows
+// carry one f32 scale each, dequantized as they enter shared memory).
 //
 // Every entry point is a plain C function (loaded with ctypes): it takes
 // raw device pointers and the caller's CUDA stream, launches, and returns
@@ -13,18 +15,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define PTT_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace ptt {
 
-// dtype codes shared with the Python wrappers
+// dtype codes and KV pool codes shared with the Python wrappers
 enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { KV_NATIVE = 0, KV_INT8 = 1 };
 
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+template <typename S>
+__host__ __device__ constexpr bool is_int8_pool() {
+  return std::is_same<S, int8_t>::value;
+}
+
+// Pool element `idx` of row `row` as f32: a native element converted; an
+// int8 payload element times its row's f32 scale (the plain version's
+// q.float() * scale, the TPU kernel's k * ks_ref). `scale` is unused for a
+// native pool.
+template <typename S>
+__device__ __forceinline__ float kv_load(const S* p, const float* scale,
+                                         size_t idx, size_t row) {
+  if constexpr (is_int8_pool<S>()) return to_f(p[idx]) * scale[row];
+  else return to_f(p[idx]);
 }
 
 template <typename T>
@@ -85,15 +107,17 @@ __device__ inline DecodeSmem decode_smem_carve(float* base, int rep, int D,
   return sm;
 }
 
-// Load `n` consecutive (key, value) rows of width D into the tile.
-template <typename T>
-__device__ inline void decode_load_rows(const DecodeSmem& sm, const T* k,
-                                        const T* v, int n, int D) {
+// Load `n` consecutive (key, value) rows of width D into the tile; an int8
+// pool's rows with their scales ks/vs (one per row).
+template <typename S>
+__device__ inline void decode_load_rows(const DecodeSmem& sm, const S* k,
+                                        const S* v, const float* ks,
+                                        const float* vs, int n, int D) {
   __syncthreads();  // the previous tile's readers are done
   for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
     int t = idx / D, d = idx - t * D;
-    sm.k[t * (D + 1) + d] = to_f(k[idx]);
-    sm.v[t * D + d] = to_f(v[idx]);
+    sm.k[t * (D + 1) + d] = kv_load(k, ks, idx, t);
+    sm.v[t * D + d] = kv_load(v, vs, idx, t);
   }
   __syncthreads();
 }
@@ -166,18 +190,24 @@ __device__ inline void decode_init(const DecodeSmem& sm, const TQ* q, int rep,
   __syncthreads();
 }
 
-// Stream the first `len` tokens of one sequence's pages (kv head g).
-template <typename T>
-__device__ inline void decode_pages(const DecodeSmem& sm, const T* kp,
-                                    const T* vp, const int* bt_row, int len,
-                                    int g, int num_pages, int page, int maxp,
-                                    int rep, int D) {
+// Stream the first `len` tokens of one sequence's pages (kv head g); for an
+// int8 pool ks/vs are its (Hkv, P, page) row scales, else unused.
+template <typename S>
+__device__ inline void decode_pages(const DecodeSmem& sm, const S* kp,
+                                    const S* vp, const float* ks,
+                                    const float* vs, const int* bt_row,
+                                    int len, int g, int num_pages, int page,
+                                    int maxp, int rep, int D) {
   int n_pages = (len + page - 1) / page;
   if (n_pages > maxp) n_pages = maxp;
   for (int j = 0; j < n_pages; ++j) {
-    const size_t off = ((size_t)g * num_pages + bt_row[j]) * page * D;
+    const size_t row = ((size_t)g * num_pages + bt_row[j]) * page;
     const int n_valid = min(page, len - j * page);
-    decode_load_rows(sm, kp + off, vp + off, n_valid, D);
+    if constexpr (is_int8_pool<S>())
+      decode_load_rows(sm, kp + row * D, vp + row * D, ks + row, vs + row,
+                       n_valid, D);
+    else
+      decode_load_rows(sm, kp + row * D, vp + row * D, ks, vs, n_valid, D);
     decode_tile(sm, rep, D, page, n_valid);
   }
 }
@@ -197,9 +227,10 @@ __device__ inline void decode_emit(const DecodeSmem& sm, TO* out, int rep,
 // query rows), the work of one thread block of FP_WARPS warps. Query row i
 // (0 <= i < S) of the head lies at q[row0 + i * row_stride .. + D) and sits
 // at absolute position qpos0 + i; it sees every kv row at a position <= its
-// own and below kv_len. `kv_off(pos)` is the element offset of kv row `pos`
-// of the block's kv head, the same in K and V: a contiguous cache, or a
-// page found through the block table. A loop inside the block walks the kv
+// own and below kv_len. `kv_row(pos)` is the row index of kv row `pos` of
+// the block's kv head, the same in K and V (its elements start at row * D,
+// an int8 pool's scale is ks/vs[row]): a contiguous cache, or a page found
+// through the block table. A loop inside the block walks the kv
 // rows in tiles of FP_BK through shared memory and stops at the last tile
 // its rows can see; each warp owns FP_RPW query rows and keeps their online
 // softmax (m, l) and f32 accumulators in registers. Shared memory (dynamic,
@@ -217,14 +248,16 @@ inline size_t fp_smem_bytes(int D) {
                           (size_t)FP_BK * D + (size_t)FP_BQ * FP_BK);
 }
 
-template <typename T, typename KvOff>
+template <typename T, typename KS, typename KvRow>
 __device__ inline void prefill_block(const T* __restrict__ q,
                                      T* __restrict__ out, size_t row0,
                                      size_t row_stride, int S, int q0,
                                      int qpos0, int kv_len,
-                                     const T* __restrict__ k,
-                                     const T* __restrict__ v,
-                                     const KvOff& kv_off, int D,
+                                     const KS* __restrict__ k,
+                                     const KS* __restrict__ v,
+                                     const float* __restrict__ ks,
+                                     const float* __restrict__ vs,
+                                     const KvRow& kv_row, int D,
                                      float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                     // [BQ][D]
@@ -258,9 +291,9 @@ __device__ inline void prefill_block(const T* __restrict__ q,
     __syncthreads();  // previous tile consumed (and the q tile stored)
     for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
       const int t = idx / D, d = idx - t * D;
-      const size_t src = kv_off(j0 + t) + d;
-      Ks[t * (D + 1) + d] = to_f(k[src]);
-      Vs[t * D + d] = to_f(v[src]);
+      const size_t r = kv_row(j0 + t);
+      Ks[t * (D + 1) + d] = kv_load(k, ks, r * D + d, r);
+      Vs[t * D + d] = kv_load(v, vs, r * D + d, r);
     }
     __syncthreads();
 #pragma unroll

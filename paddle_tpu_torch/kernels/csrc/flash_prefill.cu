@@ -24,12 +24,13 @@
 
 namespace ptt {
 
-// kv row `pos` of a (B, T, Hkv, D) cache, for batch row b and kv head g
+// row index of kv row `pos` of a (B, T, Hkv, D) cache, for batch row b and
+// kv head g
 struct CacheRows {
   size_t row0;  // b * T
-  int Hkv, g, D;
+  int Hkv, g;
   __device__ size_t operator()(int pos) const {
-    return ((row0 + pos) * Hkv + g) * D;
+    return (row0 + pos) * Hkv + g;
   }
 };
 
@@ -41,9 +42,10 @@ __global__ void __launch_bounds__(FP_WARPS * 32)
                          float scale) {
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const CacheRows rows{(size_t)b * Tk, Hkv, h / (H / Hkv), D};
+  const CacheRows rows{(size_t)b * Tk, Hkv, h / (H / Hkv)};
   prefill_block(q, out, ((size_t)b * S * H + h) * D, (size_t)H * D, S,
-                (int)blockIdx.x * FP_BQ, offset, Tk, k, v, rows, D, scale);
+                (int)blockIdx.x * FP_BQ, offset, Tk, k, v,
+                (const float*)nullptr, (const float*)nullptr, rows, D, scale);
 }
 
 template <typename T>

@@ -20,19 +20,29 @@
 // f32 scratch buffer the wrapper allocates. The GEMVs split the contraction
 // over blocks and reduce the partial sums in a fixed order. A persistent or
 // cluster-fused single kernel is later work.
+//
+// int8 pools (the TPU kernel's `kv_quant` branch): the entry takes the
+// payloads and their f32 row scales (kv = KV_INT8); the attention kernel
+// reads them dequantizing as they enter shared memory, quantizes the new
+// token's k/v row with the plain version's arithmetic, attends to its
+// dequantized value (what the TPU kernel's _fake_quant_rows gives) and
+// writes payload and scale into the pool.
 #include "block_decode.cuh"
 
-PTT_EXPORT long long ptt_fused_block_decode_scratch(int dtype, int B,
+// w4 is the N-layer kernel's int4 flag; the one-layer kernel takes native
+// weights only (as the TPU kernel), so its callers pass 0.
+PTT_EXPORT long long ptt_fused_block_decode_scratch(int dtype, int w4, int B,
                                                     int hidden, int nh,
                                                     int nkv, int d,
                                                     int inter) {
-  return (long long)ptt::layout(dtype, B, hidden, nh, nkv, d, inter).total;
+  return (long long)ptt::layout(dtype, w4 != 0, B, hidden, nh, nkv, d, inter)
+      .total;
 }
 
 namespace ptt {
 
-template <typename T>
-int run_one(const void* x, const void* const* wp, void* kp, void* vp,
+template <typename T, typename S>
+int run_one(const void* x, const void* const* wp, void* const* pp,
             const int* bt, const int* sl, const float* inv, void* out,
             float* scratch, int dtype, int B, int hidden, int nh, int nkv,
             int d, int inter, int num_pages, int page, int maxp, float eps,
@@ -50,35 +60,55 @@ int run_one(const void* x, const void* const* wp, void* kp, void* vp,
   w.ldq = nh * d;
   w.ldk = w.ldv = nkv * d;
   w.ldg = w.ldu = inter;
-  const PoolRef<T> pools{(T*)kp, (T*)vp};
-  return run<T>((const T*)x, w, pools, bt, sl, inv, (T*)out, scratch, dtype,
-                B, hidden, nh, nkv, d, inter, num_pages, page, maxp, eps,
-                scale, st);
+  const PoolRef<S> pools{(S*)pp[0], (S*)pp[1], (float*)pp[2], (float*)pp[3]};
+  return run<T, S, false>((const T*)x, w, pools, bt, sl, inv, (T*)out,
+                          scratch, dtype, B, hidden, nh, nkv, d, inter,
+                          num_pages, page, maxp, eps, scale, st);
+}
+
+template <typename T>
+int run_kv(int kv, const void* x, const void* const* wp, void* const* pp,
+           const int* bt, const int* sl, const float* inv, void* out,
+           float* scratch, int dtype, int B, int hidden, int nh, int nkv,
+           int d, int inter, int num_pages, int page, int maxp, float eps,
+           float scale, cudaStream_t st) {
+  if (kv == KV_INT8)
+    return run_one<T, int8_t>(x, wp, pp, bt, sl, inv, out, scratch, dtype, B,
+                              hidden, nh, nkv, d, inter, num_pages, page,
+                              maxp, eps, scale, st);
+  if (kv == KV_NATIVE)
+    return run_one<T, T>(x, wp, pp, bt, sl, inv, out, scratch, dtype, B,
+                         hidden, nh, nkv, d, inter, num_pages, page, maxp,
+                         eps, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ptt
 
+// kv: KV_NATIVE (ks, vs unused) or KV_INT8 (int8 payloads kp, vp with f32
+// row scales ks, vs)
 PTT_EXPORT int ptt_fused_block_decode(
-    int dtype, const void* x, const void* ln1, const void* wq, const void* wk,
-    const void* wv, const void* wo, const void* ln2, const void* wg,
-    const void* wu, const void* wd, void* kp, void* vp, const void* bt,
-    const void* sl, const void* inv_freq, void* out, void* scratch, int B,
-    int hidden, int nh, int nkv, int d, int inter, int num_pages, int page,
-    int maxp, float eps, float scale, void* stream) {
+    int dtype, int kv, const void* x, const void* ln1, const void* wq,
+    const void* wk, const void* wv, const void* wo, const void* ln2,
+    const void* wg, const void* wu, const void* wd, void* kp, void* vp,
+    void* ks, void* vs, const void* bt, const void* sl, const void* inv_freq,
+    void* out, void* scratch, int B, int hidden, int nh, int nkv, int d,
+    int inter, int num_pages, int page, int maxp, float eps, float scale,
+    void* stream) {
   const void* const wp[9] = {ln1, wq, wk, wv, wo, ln2, wg, wu, wd};
+  void* const pp[4] = {kp, vp, ks, vs};
   cudaStream_t st = (cudaStream_t)stream;
   const int* bti = (const int*)bt;
   const int* sli = (const int*)sl;
   const float* inv = (const float*)inv_freq;
   float* scr = (float*)scratch;
   if (dtype == ptt::DT_BF16)
-    return ptt::run_one<__nv_bfloat16>(x, wp, kp, vp, bti, sli, inv, out,
-                                       scr, dtype, B, hidden, nh, nkv, d,
-                                       inter, num_pages, page, maxp, eps,
-                                       scale, st);
+    return ptt::run_kv<__nv_bfloat16>(kv, x, wp, pp, bti, sli, inv, out, scr,
+                                      dtype, B, hidden, nh, nkv, d, inter,
+                                      num_pages, page, maxp, eps, scale, st);
   if (dtype == ptt::DT_F32)
-    return ptt::run_one<float>(x, wp, kp, vp, bti, sli, inv, out, scr, dtype,
-                               B, hidden, nh, nkv, d, inter, num_pages, page,
-                               maxp, eps, scale, st);
+    return ptt::run_kv<float>(kv, x, wp, pp, bti, sli, inv, out, scr, dtype,
+                              B, hidden, nh, nkv, d, inter, num_pages, page,
+                              maxp, eps, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -30,58 +30,86 @@
 // drops them. Tiling over query rows (not rep * S rows a kv head) keeps
 // shared memory fixed (≈ 90 KB at D = 128) for any S and any GQA ratio;
 // GQA reads kv head h // rep of the unexpanded pool.
+//
+// int8 pools (the TPU kernel's `quant` branch): the payload and its per-row
+// f32 scales arrive as four pointer parameters, and each element is
+// dequantized (int8 -> f32, times its row's scale) as it enters the f32
+// shared-memory tile, so the loop and everything after it are the native
+// kernel's. The rows then cost D + 4 bytes instead of 2D (bf16).
 #include "common.cuh"
 
 namespace ptt {
 
-// kv row `pos` of one sequence in a (Hkv, P, page, D) pool, for kv head g
+// row index of kv row `pos` of one sequence in a (Hkv, P, page, D) pool,
+// for kv head g
 struct PagedRows {
   const int* bt_row;   // the sequence's block table row
   size_t g_base;       // g * num_pages
-  int page, D;
+  int page;
   __device__ size_t operator()(int pos) const {
     const int j = pos / page;
-    return ((g_base + bt_row[j]) * page + (pos - j * page)) * D;
+    return (g_base + bt_row[j]) * page + (pos - j * page);
   }
 };
 
-template <typename T>
+// T: q/out type; S: pool storage (T, or int8_t with row scales ks/vs)
+template <typename T, typename S>
 __global__ void __launch_bounds__(FP_WARPS * 32)
-    paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp, const int* __restrict__ bt,
+    paged_chunk_kernel(const T* __restrict__ q, const S* __restrict__ kp,
+                       const S* __restrict__ vp,
+                       const float* __restrict__ ks,
+                       const float* __restrict__ vs,
+                       const int* __restrict__ bt,
                        const int* __restrict__ start, T* __restrict__ out,
-                       int S, int H, int Hkv, int D, int num_pages, int page,
+                       int Sq, int H, int Hkv, int D, int num_pages, int page,
                        int maxp, float scale) {
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / Hkv);
-  const PagedRows rows{bt + (size_t)b * maxp, (size_t)g * num_pages, page,
-                       D};
-  prefill_block(q, out, ((size_t)b * S * H + h) * D, (size_t)H * D, S,
-                (int)blockIdx.x * FP_BQ, start[b], maxp * page, kp, vp, rows,
-                D, scale);
+  const PagedRows rows{bt + (size_t)b * maxp, (size_t)g * num_pages, page};
+  prefill_block(q, out, ((size_t)b * Sq * H + h) * D, (size_t)H * D, Sq,
+                (int)blockIdx.x * FP_BQ, start[b], maxp * page, kp, vp, ks,
+                vs, rows, D, scale);
+}
+
+template <typename T, typename S>
+int launch(const void* q, const void* kp, const void* vp, const void* ks,
+           const void* vs, const int* bt, const int* start, void* out, int B,
+           int Sq, int H, int Hkv, int D, int num_pages, int page, int maxp,
+           float scale, cudaStream_t stream) {
+  const size_t smem = fp_smem_bytes(D);
+  cudaFuncSetAttribute(paged_chunk_kernel<T, S>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid((Sq + FP_BQ - 1) / FP_BQ, B * H);
+  paged_chunk_kernel<T, S><<<grid, FP_WARPS * 32, smem, stream>>>(
+      (const T*)q, (const S*)kp, (const S*)vp, (const float*)ks,
+      (const float*)vs, bt, start, (T*)out, Sq, H, Hkv, D, num_pages, page,
+      maxp, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const int* bt,
-           const int* start, void* out, int B, int S, int H, int Hkv, int D,
-           int num_pages, int page, int maxp, float scale,
-           cudaStream_t stream) {
-  const size_t smem = fp_smem_bytes(D);
-  cudaFuncSetAttribute(paged_chunk_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((S + FP_BQ - 1) / FP_BQ, B * H);
-  paged_chunk_kernel<T><<<grid, FP_WARPS * 32, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, bt, start, (T*)out, S, H, Hkv,
-      D, num_pages, page, maxp, scale);
-  return (int)cudaGetLastError();
+int launch_kv(int kv, const void* q, const void* kp, const void* vp,
+              const void* ks, const void* vs, const int* bt, const int* start,
+              void* out, int B, int Sq, int H, int Hkv, int D, int num_pages,
+              int page, int maxp, float scale, cudaStream_t stream) {
+  if (kv == KV_INT8)
+    return launch<T, int8_t>(q, kp, vp, ks, vs, bt, start, out, B, Sq, H,
+                             Hkv, D, num_pages, page, maxp, scale, stream);
+  if (kv == KV_NATIVE)
+    return launch<T, T>(q, kp, vp, ks, vs, bt, start, out, B, Sq, H, Hkv, D,
+                        num_pages, page, maxp, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ptt
 
-PTT_EXPORT int ptt_paged_chunk_attention(int dtype, const void* q,
+// kv: KV_NATIVE (ks, vs unused) or KV_INT8 (int8 payloads kp, vp with f32
+// row scales ks, vs)
+PTT_EXPORT int ptt_paged_chunk_attention(int dtype, int kv, const void* q,
                                          const void* kp, const void* vp,
+                                         const void* ks, const void* vs,
                                          const void* bt, const void* start,
                                          void* out, int B, int S, int H,
                                          int Hkv, int D, int num_pages,
@@ -92,10 +120,11 @@ PTT_EXPORT int ptt_paged_chunk_attention(int dtype, const void* q,
   const int* sti = (const int*)start;
   if (D > ptt::FP_DPL * 32) return (int)cudaErrorInvalidValue;
   if (dtype == ptt::DT_BF16)
-    return ptt::launch<__nv_bfloat16>(q, kp, vp, bti, sti, out, B, S, H, Hkv,
-                                      D, num_pages, page, maxp, scale, st);
+    return ptt::launch_kv<__nv_bfloat16>(kv, q, kp, vp, ks, vs, bti, sti,
+                                         out, B, S, H, Hkv, D, num_pages,
+                                         page, maxp, scale, st);
   if (dtype == ptt::DT_F32)
-    return ptt::launch<float>(q, kp, vp, bti, sti, out, B, S, H, Hkv, D,
-                              num_pages, page, maxp, scale, st);
+    return ptt::launch_kv<float>(kv, q, kp, vp, ks, vs, bti, sti, out, B, S,
+                                 H, Hkv, D, num_pages, page, maxp, scale, st);
   return (int)cudaErrorInvalidValue;
 }

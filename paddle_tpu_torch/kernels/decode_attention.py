@@ -111,8 +111,8 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
             out.data_ptr(), b, s, t, h, hkv, d, int(cur_len) - s,
             float(sm_scale), _build.stream_handle(q.device))
     _build.check(rc, "flash_prefill")
-    flash_prefill.launches += 1
+    _build.count(flash_prefill)
     return out
 
 
-flash_prefill.launches = 0
+_build.counters(flash_prefill, "")

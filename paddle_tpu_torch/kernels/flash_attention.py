@@ -215,7 +215,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
             h, hkv, d, int(bool(causal)), _scale(sm_scale, d),
             _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _build.count(flash_attention_fwd)
     return out, lse
 
 
@@ -248,7 +248,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
             dq.data_ptr(), bh, sq, k.shape[1], h, hkv, d, int(bool(causal)),
             _scale(sm_scale, d), _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _build.count(flash_attention_bwd_dq)
     return dq
 
 
@@ -276,13 +276,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
             d, int(bool(causal)), _scale(sm_scale, d),
             _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _build.count(flash_attention_bwd_dkv)
     return dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+_build.counters(flash_attention_fwd, "")
+_build.counters(flash_attention_bwd_dq, "")
+_build.counters(flash_attention_bwd_dkv, "")
 
 
 class _FlashAttention(torch.autograd.Function):

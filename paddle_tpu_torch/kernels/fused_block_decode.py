@@ -1,8 +1,9 @@
 """Fused transformer-block decode: one Llama layer, or a group of N
 stacked layers, decoded per call.
 
-Counterpart of ``paddle_tpu/kernels/fused_block_decode.py`` (native
-weights and pools; the tensor-parallel entries are a later slice).
+Counterpart of ``paddle_tpu/kernels/fused_block_decode.py`` (native or
+int8 pools, native or int4 stacked weights; the tensor-parallel entries
+are a later slice).
 :func:`fused_block_decode` runs rms -> q/k/v -> RoPE at each slot's
 position -> paged attention with the new token folded in -> o-proj +
 residual -> rms -> SwiGLU -> down + residual, and appends the new token's
@@ -11,7 +12,12 @@ k/v to the pool. On a CUDA tensor it is one call of the C entry in
 hand-written GEMVs; on a CPU tensor it is :func:`fused_block_decode_ref`.
 :func:`fused_multi_block_decode` runs that chain for a group of layers
 whose weights :func:`stack_block_weights` stacked (q|k|v and gate|up
-merged), one call of ``csrc/fused_multi_block_decode.cu`` per group.
+merged), one call of ``csrc/fused_multi_block_decode.cu`` per group; with
+``weight_dtype="int4"`` the four stacked matrices are :class:`Int4Tiles`
+(two int4 values a byte, one f32 scale per tile), unpacked inside the
+kernel's GEMVs. On an int8 pool (:class:`QuantizedPages`) both kernels
+quantize the new token's k/v row in the kernel, attend to its dequantized
+value and append payload and scale to the pool.
 
 Weights keep the JAX package's ``(in, out)`` Linear layout, so a layer's
 :class:`BlockDecodeWeights` carry across unchanged.
@@ -27,13 +33,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .paged_attention import (_check_index, _check_pools,
+from .paged_attention import (_check_index, _check_pools, _pool_ptrs,
                               paged_attention_ref, write_paged_kv)
 
-__all__ = ["BlockDecodeWeights", "MultiBlockDecodeWeights",
+__all__ = ["BlockDecodeWeights", "Int4Tiles", "MultiBlockDecodeWeights",
            "fused_block_decode", "fused_block_decode_ref",
            "fused_multi_block_decode", "fused_multi_block_decode_ref",
-           "stack_block_weights"]
+           "pack_int4_tiles", "stack_block_weights", "unpack_int4_tiles"]
 
 
 class BlockDecodeWeights(NamedTuple):
@@ -90,8 +96,10 @@ def fused_block_decode_ref(x, weights: BlockDecodeWeights, k_pages, v_pages,
                            sm_scale: Optional[float] = None):
     """Plain version of :func:`fused_block_decode`: the unfused chain
     (write the new token, then attend over ``seq_lens + 1``), computed in
-    f32 from the given inputs and cast to x's dtype at the end. The pools
-    are updated in place. Returns ``(out, k_pages, v_pages)``."""
+    f32 from the given inputs and cast to x's dtype at the end. The new
+    k/v reach the pool in x's dtype, as the kernel emits them (an int8
+    pool quantizes that value). The pools are updated in place. Returns
+    ``(out, k_pages, v_pages)``."""
     b, hidden = x.shape
     d = weights.wq.shape[1] // num_heads
     w = BlockDecodeWeights(*(t.float() for t in weights))
@@ -103,7 +111,8 @@ def fused_block_decode_ref(x, weights: BlockDecodeWeights, k_pages, v_pages,
     sin, cos = _rope_tables(seq_lens, d, rope_theta)
     q = _rope_heads(q, sin, cos)
     k = _rope_heads(k, sin, cos)
-    write_paged_kv(k_pages, v_pages, k, v, block_tables, seq_lens)
+    write_paged_kv(k_pages, v_pages, k.to(x.dtype), v.to(x.dtype),
+                   block_tables, seq_lens)
     attn = paged_attention_ref(q, k_pages, v_pages, block_tables,
                                seq_lens + 1, sm_scale)
     x2 = xf + attn.reshape(b, num_heads * d) @ w.wo
@@ -113,9 +122,9 @@ def fused_block_decode_ref(x, weights: BlockDecodeWeights, k_pages, v_pages,
     return out.to(x.dtype), k_pages, v_pages
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-_SCRATCH_ARGTYPES = [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 19
+             + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 8
 _inv_freq_cache: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
 
 
@@ -161,7 +170,8 @@ def fused_block_decode(x, weights: BlockDecodeWeights, k_pages, v_pages,
     """One fused block decode step.
 
     x: (B, hidden), one token's hidden state per slot; k/v_pages:
-    (Hkv, num_pages, page, D); block_tables: (B, max_pages) int32;
+    (Hkv, num_pages, page, D), native in x's dtype or
+    :class:`QuantizedPages`; block_tables: (B, max_pages) int32;
     seq_lens: (B,) int32 tokens already in the pool. Returns
     ``(out, k_pages, v_pages)`` with the new token appended to the pools in
     place. CPU tensors take :func:`fused_block_decode_ref`; CUDA tensors
@@ -185,7 +195,7 @@ def fused_block_decode(x, weights: BlockDecodeWeights, k_pages, v_pages,
         wv=(hidden, nkv * d), wo=(nh * d, hidden), ln2=(hidden,),
         wg=(hidden, inter), wu=(hidden, inter), wd=(inter, hidden)),
         x.device, x.dtype)
-    _check_pools(k_pages, v_pages, x.device, x.dtype)
+    quant = _check_pools(k_pages, v_pages, x.device, x.dtype)
     hkv, num_pages, page, dk = k_pages.shape
     if hkv != nkv or dk != d:
         raise ValueError(f"pools {tuple(k_pages.shape)} do not match "
@@ -199,23 +209,113 @@ def fused_block_decode(x, weights: BlockDecodeWeights, k_pages, v_pages,
     code = _build.dtype_code(x.dtype)
     size = _build.bind("fused_block_decode", "ptt_fused_block_decode_scratch",
                        _SCRATCH_ARGTYPES, ctypes.c_longlong)(
-        code, b, hidden, nh, nkv, d, inter)
+        code, 0, b, hidden, nh, nkv, d, inter)
     scratch = torch.empty(size, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     fn = _build.bind("fused_block_decode", "ptt_fused_block_decode",
                      _ARGTYPES)
-    rc = fn(code, x.data_ptr(), *(t.data_ptr() for t in weights),
-            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+    rc = fn(code, _build.kv_code(quant), x.data_ptr(),
+            *(t.data_ptr() for t in weights),
+            *_pool_ptrs(k_pages, v_pages, quant), block_tables.data_ptr(),
             seq_lens.data_ptr(), inv.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), b, hidden, nh, nkv, d, inter, num_pages,
             page, maxp, float(epsilon), float(sm_scale),
             _build.stream_handle(x.device))
     _build.check(rc, "fused_block_decode")
-    fused_block_decode.launches += 1
+    _build.count(fused_block_decode, "int8" if quant else "")
     return out, k_pages, v_pages
 
 
-fused_block_decode.launches = 0
+_build.counters(fused_block_decode, "", "int8")
+
+
+# ------------------------------------------------------ int4 weight tiles
+def _tile(n: int, target: int) -> int:
+    """Largest divisor of ``n`` that is <= target, preferring multiples
+    of 128; falls back to any divisor. (A copy of the JAX package's
+    ``analysis.tile_geometry.tile``: the int4 tiling must be its.)"""
+    if n <= target:
+        return n
+    for cand in range(target - target % 128, 0, -128):
+        if n % cand == 0:
+            return cand
+    for cand in range(min(target, n), 0, -1):
+        if n % cand == 0:
+            return cand
+    return n
+
+
+class Int4Tiles(NamedTuple):
+    """A stacked weight matrix packed two int4 values a byte with one f32
+    amax scale per (tr, tc) tile. Within each row band of tr rows, payload
+    row ``r*tr/2 + i`` holds tile rows ``i`` (low nibble) and ``i + tr/2``
+    (high nibble). The tiling is derived from the two shapes (never
+    stored); ``shape`` is the logical unpacked (n, R, C)."""
+    q: torch.Tensor      # uint8 (n, R/2, C)
+    scale: torch.Tensor  # f32   (n, R/tr, C/tc)
+
+    @property
+    def shape(self):
+        return (self.q.shape[0], 2 * self.q.shape[1], self.q.shape[2])
+
+    @property
+    def tiles(self) -> Tuple[int, int]:
+        """(tr, tc), the tile this matrix was packed with."""
+        return (2 * self.q.shape[1] // self.scale.shape[1],
+                self.q.shape[2] // self.scale.shape[2])
+
+
+def pack_int4_tiles(w: torch.Tensor, tr: int, tc: int) -> Int4Tiles:
+    """Quantize ``w`` (n, R, C) to symmetric int4 ([-7, 7]) with one amax
+    scale per (tr, tc) tile, nibble-packing each tile's row halves (the
+    layout of :class:`Int4Tiles`, the JAX package's bits)."""
+    n, rows, cols = w.shape
+    if tr % 2 or rows % tr or cols % tc:
+        raise ValueError(f"int4 tile ({tr}, {tc}) must be even-rowed and "
+                         f"divide ({rows}, {cols})")
+    nr, nc = rows // tr, cols // tc
+    t = w.float().reshape(n, nr, tr, nc, tc)
+    amax = t.abs().amax(dim=(2, 4), keepdim=True)
+    scale = amax / 7.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(t / safe), -7, 7).to(torch.int8)
+    lo, hi = q[:, :, :tr // 2], q[:, :, tr // 2:]
+    # & 0xF keeps a negative value's two's-complement nibble
+    packed = ((lo & 0xF).to(torch.uint8)
+              | ((hi & 0xF).to(torch.uint8) << 4))
+    return Int4Tiles(packed.reshape(n, rows // 2, cols).contiguous(),
+                     scale.reshape(n, nr, nc).contiguous())
+
+
+def unpack_int4_tiles(t: Int4Tiles) -> torch.Tensor:
+    """Dequantize back to f32 (n, R, C): each nibble sign-extended, times
+    its tile's scale (the value the kernel's GEMV multiplies by)."""
+    q, scale = t
+    n, half_rows, cols = q.shape
+    nr, nc = scale.shape[1], scale.shape[2]
+    tr2, tc = half_rows // nr, cols // nc
+    p = q.reshape(n, nr, tr2, nc, tc).to(torch.int32)
+    lo, hi = p & 0xF, (p >> 4) & 0xF
+    lo = torch.where(lo < 8, lo, lo - 16)
+    hi = torch.where(hi < 8, hi, hi - 16)
+    full = torch.cat([lo, hi], dim=2).float() * scale[:, :, None, :, None]
+    return full.reshape(n, 2 * half_rows, cols)
+
+
+def _int4_plan(hidden: int, qw: int, kvw: int, inter: int) -> dict:
+    """The (tr, tc) tile of each stacked matrix: the JAX package's plan.
+    wgu packs as one (n, H, 2I) matrix whose tc divides I."""
+    plan = {
+        "wqkv": (_tile(hidden, 512), _tile(qw + 2 * kvw, 256)),
+        "wo": (_tile(qw, 512), _tile(hidden, 256)),
+        "wgu": (_tile(hidden, 512), _tile(inter, 256)),
+        "wd": (_tile(inter, 512), _tile(hidden, 256)),
+    }
+    for name, (tr, _tc) in plan.items():
+        if tr % 2:
+            raise ValueError(f"int4 weights need an even contraction "
+                             f"tile; {name} got tr={tr}")
+    return plan
 
 
 # ------------------------------------------------------ N layers per call
@@ -230,8 +330,10 @@ class MultiBlockDecodeWeights(NamedTuple):
       wgu   (n, H, 2*I)                 gate|up concatenated on columns
       wd    (n, I, H)
 
-    Built once per engine by :func:`stack_block_weights` (a device copy of
-    the layer weights; the per-layer originals keep serving prefill)."""
+    The four matrices are tensors in the activation dtype or, all four,
+    :class:`Int4Tiles`. Built once per engine by
+    :func:`stack_block_weights` (a device copy of the layer weights; the
+    per-layer originals keep serving prefill)."""
     ln1: torch.Tensor
     wqkv: torch.Tensor
     wo: torch.Tensor
@@ -249,23 +351,34 @@ def stack_block_weights(layers: Sequence[BlockDecodeWeights],
                         ) -> MultiBlockDecodeWeights:
     """Stack per-layer :class:`BlockDecodeWeights` into one
     :class:`MultiBlockDecodeWeights` group, merging q|k|v and gate|up on
-    the output axis. ``weight_dtype="int4"`` (packed int4 tiles) is a
-    later slice."""
-    if weight_dtype == "int4":
-        raise NotImplementedError(
-            "int4 weight tiles (weight_dtype='int4') are not ported yet (a "
-            "later slice of paddle_tpu_torch)")
-    if weight_dtype != "native":
+    the output axis. ``weight_dtype="int4"`` packs the four matrices as
+    :class:`Int4Tiles` on :func:`_int4_plan`'s tiling (the norms stay
+    native); each layer is packed on its own, so no native stacked copy
+    is made (a tile never spans two layers: the same bits)."""
+    if weight_dtype not in ("native", "int4"):
         raise ValueError(f"weight_dtype must be 'native' or 'int4', "
                          f"got {weight_dtype!r}")
     ws = list(layers)
+    merged = dict(
+        wqkv=lambda w: torch.cat([w.wq, w.wk, w.wv], dim=1),
+        wo=lambda w: w.wo,
+        wgu=lambda w: torch.cat([w.wg, w.wu], dim=1),
+        wd=lambda w: w.wd)
+    if weight_dtype == "native":
+        mats = {k: torch.stack([f(w) for w in ws]) for k, f in merged.items()}
+    else:
+        w0 = ws[0]
+        plan = _int4_plan(w0.wq.shape[0], w0.wq.shape[1], w0.wk.shape[1],
+                          w0.wg.shape[1])
+        mats = {}
+        for k, f in merged.items():
+            packed = [pack_int4_tiles(f(w)[None], *plan[k]) for w in ws]
+            mats[k] = Int4Tiles(torch.cat([t.q for t in packed]),
+                                torch.cat([t.scale for t in packed]))
     return MultiBlockDecodeWeights(
-        ln1=torch.stack([w.ln1 for w in ws]),
-        wqkv=torch.stack([torch.cat([w.wq, w.wk, w.wv], dim=1) for w in ws]),
-        wo=torch.stack([w.wo for w in ws]),
-        ln2=torch.stack([w.ln2 for w in ws]),
-        wgu=torch.stack([torch.cat([w.wg, w.wu], dim=1) for w in ws]),
-        wd=torch.stack([w.wd for w in ws]))
+        ln1=torch.stack([w.ln1 for w in ws]), wqkv=mats["wqkv"],
+        wo=mats["wo"], ln2=torch.stack([w.ln2 for w in ws]),
+        wgu=mats["wgu"], wd=mats["wd"])
 
 
 def fused_multi_block_decode_ref(x, weights: MultiBlockDecodeWeights,
@@ -278,9 +391,11 @@ def fused_multi_block_decode_ref(x, weights: MultiBlockDecodeWeights,
     chain of :func:`fused_block_decode_ref` (in f32, cast to x's dtype at
     the layer's end) with the q/k/v and gate/up projections as the merged
     matmuls; each output column contracts the same inputs, so in float32
-    the result is the per-layer chain's bit for bit. ``k_pages`` and
-    ``v_pages`` are sequences of the group's per-layer pools, updated in
-    place. Returns ``(out, k_pages, v_pages)`` (lists)."""
+    the result is the per-layer chain's bit for bit. :class:`Int4Tiles`
+    matrices are unpacked up front (:func:`unpack_int4_tiles`: the values
+    the kernel multiplies by). ``k_pages`` and ``v_pages`` are sequences of
+    the group's per-layer pools, native or quantized, updated in place.
+    Returns ``(out, k_pages, v_pages)`` (lists)."""
     n = weights.n_layers
     if len(k_pages) != n or len(v_pages) != n:
         raise ValueError(f"expected {n} per-layer pools, got "
@@ -291,30 +406,63 @@ def fused_multi_block_decode_ref(x, weights: MultiBlockDecodeWeights,
     qw, kvw = nh * d, nkv * d
     inter = weights.wd.shape[1]
     sin, cos = _rope_tables(seq_lens, d, rope_theta)
+    w_qkv, w_o, w_gu, w_d = (
+        unpack_int4_tiles(m) if isinstance(m, Int4Tiles) else m
+        for m in (weights.wqkv, weights.wo, weights.wgu, weights.wd))
     kps, vps = list(k_pages), list(v_pages)
     for i in range(n):
         xf = x.float()
         h = _rms(xf, weights.ln1[i].float(), epsilon)
-        qkv = h @ weights.wqkv[i].float()
+        qkv = h @ w_qkv[i].float()
         q = _rope_heads(qkv[:, :qw].reshape(b, nh, d), sin, cos)
         k = _rope_heads(qkv[:, qw:qw + kvw].reshape(b, nkv, d), sin, cos)
         v = qkv[:, qw + kvw:].reshape(b, nkv, d)
-        write_paged_kv(kps[i], vps[i], k, v, block_tables, seq_lens)
+        write_paged_kv(kps[i], vps[i], k.to(x.dtype), v.to(x.dtype),
+                       block_tables, seq_lens)
         attn = paged_attention_ref(q, kps[i], vps[i], block_tables,
                                    seq_lens + 1, sm_scale)
-        x2 = xf + attn.reshape(b, qw) @ weights.wo[i].float()
+        x2 = xf + attn.reshape(b, qw) @ w_o[i].float()
         h2 = _rms(x2, weights.ln2[i].float(), epsilon)
-        gu = h2 @ weights.wgu[i].float()
+        gu = h2 @ w_gu[i].float()
         f = F.silu(gu[:, :inter]) * gu[:, inter:]
         # the inter-layer cast: the next layer's f32 carry starts from x's
         # dtype, as one layer a call would leave it
-        x = (x2 + f @ weights.wd[i].float()).to(x.dtype)
+        x = (x2 + f @ w_d[i].float()).to(x.dtype)
     return x, kps, vps
 
 
-_MULTI_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+_MULTI_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
+_INT4_MATS = ("wqkv", "wo", "wgu", "wd")
+
+
+def _check_int4(name, t, shape, device):
+    """An :class:`Int4Tiles` matrix of logical ``shape`` (n, R, C) that the
+    kernel takes: uint8 payload (n, R/2, C), f32 scales (n, R/tr, C/tc)
+    with an even tr, both contiguous on ``device``. Returns (tr, tc)."""
+    if not isinstance(t, Int4Tiles):
+        raise ValueError(f"weights.{name} must be Int4Tiles like the "
+                         "group's other matrices")
+    n, rows, cols = shape
+    q, sc = t
+    if q.dtype != torch.uint8 or tuple(q.shape) != (n, rows // 2, cols):
+        raise ValueError(f"weights.{name}.q must be uint8 "
+                         f"{(n, rows // 2, cols)}, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if (sc.dtype != torch.float32 or sc.dim() != 3 or sc.shape[0] != n
+            or rows % sc.shape[1] or cols % sc.shape[2]):
+        raise ValueError(f"weights.{name}.scale must be f32 (n, R/tr, C/tc),"
+                         f" got {sc.dtype} {tuple(sc.shape)}")
+    tr, tc = t.tiles
+    if tr % 2:
+        raise ValueError(f"weights.{name}: odd contraction tile {tr}")
+    for part in (q, sc):
+        if part.device != device or not part.is_contiguous() \
+                or part.data_ptr() % 16:
+            raise ValueError(f"weights.{name} must be contiguous and "
+                             f"16-byte aligned on {device}")
+    return tr, tc
 
 
 def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
@@ -325,12 +473,14 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
                              sm_scale: Optional[float] = None):
     """One decode step through a group of N stacked layers.
 
-    x: (B, hidden); ``weights`` a :class:`MultiBlockDecodeWeights` group;
-    k/v_pages: sequences of the N layers' pools, each (Hkv, num_pages,
-    page, D); block_tables: (B, max_pages) int32; seq_lens: (B,) int32
-    tokens already in the pools. Returns ``(out, k_pages, v_pages)`` with
-    each layer's new token appended to its pools in place. CPU tensors
-    take :func:`fused_multi_block_decode_ref`; CUDA tensors run the kernel
+    x: (B, hidden); ``weights`` a :class:`MultiBlockDecodeWeights` group,
+    native in x's dtype or with :class:`Int4Tiles` matrices; k/v_pages:
+    sequences of the N layers' pools, each (Hkv, num_pages, page, D),
+    native in x's dtype or :class:`QuantizedPages`; block_tables:
+    (B, max_pages) int32; seq_lens: (B,) int32 tokens already in the
+    pools. Returns ``(out, k_pages, v_pages)`` with each layer's new token
+    appended to its pools in place. CPU tensors take
+    :func:`fused_multi_block_decode_ref`; CUDA tensors run the kernel
     (float32 or bfloat16, every width a multiple of 8, head_dim even), one
     launch a group."""
     if x.device.type == "cpu":
@@ -347,17 +497,29 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
     d = weights.wqkv.shape[2] // (nh + 2 * nkv)
     inter = weights.wd.shape[1]
     _check_geometry("fused_multi_block_decode", x, nh, nkv, d, hidden, inter)
-    _check_weights(weights, dict(
+    shapes = dict(
         ln1=(n, hidden), wqkv=(n, hidden, (nh + 2 * nkv) * d),
         wo=(n, nh * d, hidden), ln2=(n, hidden), wgu=(n, hidden, 2 * inter),
-        wd=(n, inter, hidden)), x.device, x.dtype)
+        wd=(n, inter, hidden))
+    int4 = isinstance(weights.wqkv, Int4Tiles)
+    tiles = [0] * 8
+    scales = [0] * 4
+    if int4:
+        for i, name in enumerate(_INT4_MATS):
+            t = getattr(weights, name)
+            tiles[2 * i:2 * i + 2] = _check_int4(name, t, shapes.pop(name),
+                                                 x.device)
+            scales[i] = t.scale.data_ptr()
+    _check_weights(weights, shapes, x.device, x.dtype)
     if len(k_pages) != n or len(v_pages) != n:
         raise ValueError(f"expected {n} per-layer pools, got "
                          f"{len(k_pages)}/{len(v_pages)}")
-    for kp, vp in zip(k_pages, v_pages):
-        _check_pools(kp, vp, x.device, x.dtype)
-        if kp.shape != k_pages[0].shape:
-            raise ValueError("the group's pools must share one shape")
+    quant = [_check_pools(kp, vp, x.device, x.dtype)
+             for kp, vp in zip(k_pages, v_pages)]
+    if len(set(quant)) != 1 or any(kp.shape != k_pages[0].shape
+                                   for kp in k_pages):
+        raise ValueError("the group's pools must share one shape and kind")
+    quant = quant[0]
     hkv, num_pages, page, dk = k_pages[0].shape
     if hkv != nkv or dk != d:
         raise ValueError(f"pools {tuple(k_pages[0].shape)} do not match "
@@ -368,27 +530,34 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     inv = _cached_inv_freq(d, rope_theta, x.device)
-    # the 2N pool pointers (k0, v0, k1, ...) as a host array: the entry
-    # hands each layer's pair to that layer's attention launch
-    pools = (ctypes.c_void_p * (2 * n))(
-        *(p.data_ptr() for pair in zip(k_pages, v_pages) for p in pair))
+    # the 4N pool pointers (k0, v0, k-scale0, v-scale0, k1, ...; a native
+    # pool's scales are 0) as a host array: the entry hands each layer's
+    # four to that layer's attention launch
+    pools = (ctypes.c_void_p * (4 * n))(
+        *(a for kp, vp in zip(k_pages, v_pages)
+          for a in _pool_ptrs(kp, vp, quant)))
     code = _build.dtype_code(x.dtype)
     size = _build.bind("fused_multi_block_decode",
                        "ptt_fused_multi_block_decode_scratch",
                        _SCRATCH_ARGTYPES, ctypes.c_longlong)(
-        code, b, hidden, nh, nkv, d, inter)
+        code, int(int4), b, hidden, nh, nkv, d, inter)
     scratch = torch.empty(size, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
+    mats = [getattr(weights, k) for k in MultiBlockDecodeWeights._fields]
     fn = _build.bind("fused_multi_block_decode",
                      "ptt_fused_multi_block_decode", _MULTI_ARGTYPES)
-    rc = fn(code, x.data_ptr(), *(t.data_ptr() for t in weights),
+    rc = fn(code, _build.kv_code(quant), int(int4), x.data_ptr(),
+            *((t.q if int4 and isinstance(t, Int4Tiles) else t).data_ptr()
+              for t in mats), *scales, (ctypes.c_int * 8)(*tiles),
             pools, block_tables.data_ptr(), seq_lens.data_ptr(),
             inv.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, b, hidden,
             nh, nkv, d, inter, num_pages, page, maxp, float(epsilon),
             float(sm_scale), _build.stream_handle(x.device))
     _build.check(rc, "fused_multi_block_decode")
-    fused_multi_block_decode.launches += 1
+    _build.count(fused_multi_block_decode,
+                 "_".join(t for t, on in (("int8", quant), ("int4", int4))
+                          if on))
     return out, list(k_pages), list(v_pages)
 
 
-fused_multi_block_decode.launches = 0
+_build.counters(fused_multi_block_decode, "", "int8", "int4", "int8_int4")

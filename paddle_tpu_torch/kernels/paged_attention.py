@@ -9,11 +9,13 @@ tables, the hand-written CUDA kernel in ``csrc/paged_attention.cu``;
 S-token chunk against the pool prefix plus itself, read through the block
 table by the CUDA kernel in ``csrc/paged_chunk_attention.cu``.
 
-Only the native pool is ported. int8 pools (``QuantizedPages``) and
-host-RAM spill (``HostPage``) belong to later slices. Unlike the JAX
-package, whose arrays are immutable, the page writes here update the pool
-tensors in place (no pool-sized copy per token) and return the same
-tensors.
+A pool half is either a native tensor in the activation dtype or, for
+``kv_dtype="int8"``, a :class:`QuantizedPages` (int8 payload plus one f32
+scale per token row); every reader takes both, and the kernels dequantize
+each element as it enters shared memory. Host-RAM spill (``HostPage``)
+belongs to a later slice. Unlike the JAX package, whose arrays are
+immutable, the page writes here update the pool tensors in place (no
+pool-sized copy per token) and return the same pool objects.
 """
 
 from __future__ import annotations
@@ -31,9 +33,71 @@ from . import _build
 _NEG_INF = -1e30
 
 
+# ------------------------------------------------------- quantized pools
+class QuantizedPages(NamedTuple):
+    """One pool half stored int8 with a per-token-row f32 scale: ``q`` is
+    the payload, ``scale[h, p, t, 0]`` dequantizes row ``t`` of page ``p``
+    for kv head ``h`` (``q.float() * scale``). The scale is per row, so a
+    row's stored bits are a function of that row's own k/v vector and do
+    not depend on the order the rows were written in (a chunk at once or
+    token by token). ``shape``, ``dtype`` and ``device`` are the
+    payload's, so geometry probes (``k_pages.shape[2]``) keep working."""
+    q: torch.Tensor       # int8 (Hkv, num_pages, page_size, D)
+    scale: torch.Tensor   # f32  (Hkv, num_pages, page_size, 1)
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+    @property
+    def device(self):
+        return self.q.device
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization over the trailing (head_dim)
+    axis: returns ``(q, scale)`` with ``q.float() * scale`` the dequantized
+    value. ``scale`` is the raw ``amax / 127`` (0 for an all-zero row);
+    the division uses 1 there. Rounds half to even, as ``jnp.round``."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = amax / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(x32 / safe), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _gathered_pool(pages, idx: torch.Tensor) -> torch.Tensor:
+    """Pool pages gathered by an index tensor (B, ...), batch leading, in
+    f32: ``(B, Hkv, *idx.shape[1:], page, D)``. A quantized pool is
+    dequantized on the gathered view, so no reader branches on storage."""
+    if isinstance(pages, QuantizedPages):
+        return (pages.q[:, idx].movedim(1, 0).float()
+                * pages.scale[:, idx].movedim(1, 0))
+    return pages[:, idx].movedim(1, 0).float()
+
+
+def _parts(pages) -> Tuple[torch.Tensor, ...]:
+    """The tensors a pool half stores: (payload, scale) or (pool,)."""
+    return tuple(pages) if isinstance(pages, QuantizedPages) else (pages,)
+
+
+def _stored(pages, new: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``new`` (..., D) as the pool half stores it, one tensor per part:
+    quantized rows (payload, scale), or a cast to the pool's dtype."""
+    if isinstance(pages, QuantizedPages):
+        return quantize_kv_rows(new)
+    return (new.to(pages.dtype),)
+
+
 class PagedDecodeState(NamedTuple):
     """One layer's paged cache as it rides a decode or prefill step: the
-    pool pair, the block tables and the per-sequence written counts."""
+    pool pair (native tensors or :class:`QuantizedPages`), the block tables
+    and the per-sequence written counts."""
     k_pages: torch.Tensor       # (Hkv, num_pages, page_size, D)
     v_pages: torch.Tensor
     block_tables: torch.Tensor  # (B, max_pages) int32
@@ -83,8 +147,9 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         seq_lens: torch.Tensor,
                         sm_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of :func:`paged_attention`: gathers each sequence's
-    contiguous view, then masked attention in f32. A sequence with no
-    tokens reads zeros, as the kernel (and the Pallas kernel) emits."""
+    contiguous view (dequantized for an int8 pool), then masked attention
+    in f32. A sequence with no tokens reads zeros, as the kernel (and the
+    Pallas kernel) emits."""
     b, h, d = q.shape
     hkv, _, page_size, _ = k_pages.shape
     rep = h // hkv
@@ -92,9 +157,9 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(d)
     bt = block_tables.long()
     t = bt.shape[1] * page_size
-    # (Hkv, B, max_pages, page, D) -> (B, Hkv, T, D)
-    k = k_pages[:, bt].movedim(1, 0).reshape(b, hkv, t, d).float()
-    v = v_pages[:, bt].movedim(1, 0).reshape(b, hkv, t, d).float()
+    # (B, Hkv, max_pages, page, D) -> (B, Hkv, T, D)
+    k = _gathered_pool(k_pages, bt).reshape(b, hkv, t, d)
+    v = _gathered_pool(v_pages, bt).reshape(b, hkv, t, d)
     qg = q.reshape(b, hkv, rep, d).float()
     s = torch.einsum("bhrd,bhtd->bhrt", qg, k) * sm_scale
     mask = torch.arange(t, device=q.device)[None, :] < seq_lens[:, None]
@@ -104,21 +169,52 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def _check_pools(k_pages, v_pages, device, dtype):
-    if not (isinstance(k_pages, torch.Tensor)
-            and isinstance(v_pages, torch.Tensor)):
-        raise NotImplementedError(
-            "only native KV pools are ported; quantized pools come with the "
-            "int8 slice")
-    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+def _check_pools(k_pages, v_pages, device, dtype=None) -> bool:
+    """Check a layer's pool pair and return whether it is quantized. A
+    native pair: two contiguous (Hkv, P, page, D) tensors on ``device``,
+    of ``dtype`` (the activation dtype) when given. A quantized pair: two
+    :class:`QuantizedPages`, each a contiguous int8 payload and a
+    contiguous f32 scale of shape (Hkv, P, page, 1) on ``device``; the
+    activation dtype is the caller's, not the pool's."""
+    quant = isinstance(k_pages, QuantizedPages)
+    if quant != isinstance(v_pages, QuantizedPages):
+        raise ValueError("k/v pools must both be native or both quantized")
+    if not quant and not (isinstance(k_pages, torch.Tensor)
+                          and isinstance(v_pages, torch.Tensor)):
+        raise TypeError("k/v pools must be tensors or QuantizedPages")
+    if (k_pages.q if quant else k_pages).dim() != 4:
+        raise ValueError(f"k/v pools must be (Hkv, P, page, D), got "
+                         f"{tuple(k_pages.shape)}")
+    if k_pages.shape != v_pages.shape:
         raise ValueError(f"k/v pools must share a (Hkv, P, page, D) shape, "
                          f"got {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)}")
-    for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} on {device}")
+    if quant:
+        want = [(torch.int8, tuple(k_pages.shape)),
+                (torch.float32, tuple(k_pages.shape[:3]) + (1,))] * 2
+        parts = (("k_pages.q", k_pages.q), ("k_pages.scale", k_pages.scale),
+                 ("v_pages.q", v_pages.q), ("v_pages.scale", v_pages.scale))
+    else:
+        want = [(dtype or k_pages.dtype, tuple(k_pages.shape))] * 2
+        parts = (("k_pages", k_pages), ("v_pages", v_pages))
+    for (name, x), (dt, shape) in zip(parts, want):
+        if x.device != device or x.dtype != dt:
+            raise ValueError(f"{name} must be {dt} on {device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return quant
+
+
+def _pool_ptrs(k_pages, v_pages, quant: bool) -> list:
+    """Device addresses (k, v, k-scale, v-scale) of a checked pool pair;
+    a native pair has no scales (0)."""
+    if quant:
+        return [k_pages.q.data_ptr(), v_pages.q.data_ptr(),
+                k_pages.scale.data_ptr(), v_pages.scale.data_ptr()]
+    return [k_pages.data_ptr(), v_pages.data_ptr(), 0, 0]
 
 
 def _check_index(name, x, shape, device):
@@ -129,8 +225,8 @@ def _check_index(name, x, shape, device):
                          f"tensor, got {tuple(x.shape)}")
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -139,11 +235,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Single-token decode attention against a paged pool.
 
-    q: (B, H, D); k/v_pages: (Hkv, num_pages, page_size, D);
-    block_tables: (B, max_pages) int32 (entries past the used count are
-    ignored, keep them 0); seq_lens: (B,) int32 valid tokens per sequence.
-    Returns (B, H, D) in q's dtype. CPU tensors take
-    :func:`paged_attention_ref`; CUDA tensors launch the kernel."""
+    q: (B, H, D); k/v_pages: (Hkv, num_pages, page_size, D) native pools
+    in q's dtype or :class:`QuantizedPages`; block_tables: (B, max_pages)
+    int32 (entries past the used count are ignored, keep them 0);
+    seq_lens: (B,) int32 valid tokens per sequence. Returns (B, H, D) in
+    q's dtype. CPU tensors take :func:`paged_attention_ref`; CUDA tensors
+    launch the kernel (its int8 entry for a quantized pool)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    seq_lens, sm_scale)
@@ -151,7 +248,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention runs on cuda or cpu, "
                          f"got {q.device}")
     b, h, d = q.shape
-    _check_pools(k_pages, v_pages, q.device, q.dtype)
+    quant = _check_pools(k_pages, v_pages, q.device, q.dtype)
     hkv, num_pages, page, dk = k_pages.shape
     if dk != d or h % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match pools "
@@ -165,16 +262,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     fn = _build.bind("paged_attention", "ptt_paged_attention", _ARGTYPES)
-    rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), b, h, hkv, d, num_pages, page, maxp,
-            float(sm_scale), _build.stream_handle(q.device))
+    rc = fn(_build.dtype_code(q.dtype), _build.kv_code(quant), q.data_ptr(),
+            *_pool_ptrs(k_pages, v_pages, quant), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), b, h, hkv, d, num_pages,
+            page, maxp, float(sm_scale), _build.stream_handle(q.device))
     _build.check(rc, "paged_attention")
-    paged_attention.launches += 1
+    _build.count(paged_attention, "int8" if quant else "")
     return out
 
 
-paged_attention.launches = 0
+_build.counters(paged_attention, "", "int8")
 
 
 # ------------------------------------------------ chunked-prefill attention
@@ -220,9 +317,9 @@ def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l = torch.zeros((b, hkv, rep, s), dtype=torch.float32, device=q.device)
     for j in range(n_groups):
         pages = bt[:, j * grp:(j + 1) * grp]                     # (B, G)
-        # (Hkv, B, G, page, D) -> (B, Hkv, G * page, D)
-        kb = k_pages[:, pages].movedim(1, 0).reshape(b, hkv, keys, d).float()
-        vb = v_pages[:, pages].movedim(1, 0).reshape(b, hkv, keys, d).float()
+        # (B, Hkv, G, page, D) -> (B, Hkv, G * page, D)
+        kb = _gathered_pool(k_pages, pages).reshape(b, hkv, keys, d)
+        vb = _gathered_pool(v_pages, pages).reshape(b, hkv, keys, d)
         sc = torch.einsum("bhrsd,bhpd->bhrsp", qg, kb)
         kv_pos = j * keys + torch.arange(keys, device=q.device)
         vis = kv_pos[None, None, :] <= q_pos[:, :, None]         # (B, S, P)
@@ -242,7 +339,7 @@ def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 _MAX_HEAD_DIM = 128
-_CHUNK_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+_CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -256,7 +353,8 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     start+S-1`` and attends causally to the pool's already-written prefix
     plus its own tokens, which the caller has written first
     (:func:`write_paged_prompt_at`). q: (B, S, H, D); k/v_pages: (Hkv,
-    num_pages, page_size, D); block_tables: (B, max_pages) int32; start:
+    num_pages, page_size, D), native or :class:`QuantizedPages`;
+    block_tables: (B, max_pages) int32; start:
     (B,) int32, the written length before this chunk, read on the device.
     Returns (B, S, H, D) in q's dtype; rows past the real prompt tail (a
     padded final chunk) emit values the caller discards. CPU tensors take
@@ -269,7 +367,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_chunk_attention runs on cuda or cpu, "
                          f"got {q.device}")
     b, s, h, d = q.shape
-    _check_pools(k_pages, v_pages, q.device, q.dtype)
+    quant = _check_pools(k_pages, v_pages, q.device, q.dtype)
     hkv, num_pages, page, dk = k_pages.shape
     if dk != d or h % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match pools "
@@ -286,30 +384,32 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     fn = _build.bind("paged_chunk_attention", "ptt_paged_chunk_attention",
                      _CHUNK_ARGTYPES)
-    rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), block_tables.data_ptr(), start.data_ptr(),
-            out.data_ptr(), b, s, h, hkv, d, num_pages, page, maxp,
-            float(sm_scale), _build.stream_handle(q.device))
+    rc = fn(_build.dtype_code(q.dtype), _build.kv_code(quant), q.data_ptr(),
+            *_pool_ptrs(k_pages, v_pages, quant), block_tables.data_ptr(),
+            start.data_ptr(), out.data_ptr(), b, s, h, hkv, d, num_pages,
+            page, maxp, float(sm_scale), _build.stream_handle(q.device))
     _build.check(rc, "paged_chunk_attention")
-    paged_chunk_attention.launches += 1
+    _build.count(paged_chunk_attention, "int8" if quant else "")
     return out
 
 
-paged_chunk_attention.launches = 0
+_build.counters(paged_chunk_attention, "", "int8")
 
 
 # ------------------------------------------------------- pool writes
 def write_paged_kv(k_pages, v_pages, k_new, v_new, block_tables, positions):
     """Write one token per sequence into the pools at absolute sequence
-    ``positions`` ((B,) int). k_new/v_new: (B, Hkv, D). Updates the pools
+    ``positions`` ((B,) int). k_new/v_new: (B, Hkv, D), cast to a native
+    pool's dtype or quantized per row for an int8 pool. Updates the pools
     in place and returns them."""
-    _check_pools(k_pages, v_pages, k_pages.device, k_pages.dtype)
+    _check_pools(k_pages, v_pages, k_pages.device)
     page_size = k_pages.shape[2]
     pos = positions.long()
     page_of = block_tables.long().gather(1, (pos // page_size)[:, None])[:, 0]
     off = pos % page_size
-    k_pages[:, page_of, off] = k_new.movedim(0, 1).to(k_pages.dtype)
-    v_pages[:, page_of, off] = v_new.movedim(0, 1).to(v_pages.dtype)
+    for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+        for dst, val in zip(_parts(pool), _stored(pool, new)):
+            dst[:, page_of, off] = val.movedim(0, 1)
     return k_pages, v_pages
 
 
@@ -319,7 +419,7 @@ def write_paged_prompt(k_pages, v_pages, k_new, v_new, block_tables):
     The ``start=0`` case of :func:`write_paged_prompt_at`, where the kept
     length is known from the shapes: a plain scatter, with no read of the
     slots it overwrites. Updates the pools in place and returns them."""
-    _check_pools(k_pages, v_pages, k_pages.device, k_pages.dtype)
+    _check_pools(k_pages, v_pages, k_pages.device)
     page_size = k_pages.shape[2]
     bt = block_tables.long()
     # the kept length is known from shapes: no mask, no device->host sync
@@ -327,11 +427,11 @@ def write_paged_prompt(k_pages, v_pages, k_new, v_new, block_tables):
     pos = torch.arange(s, device=bt.device)
     pages = bt[:, pos // page_size]                       # (B, s)
     off = (pos % page_size).expand_as(pages)
-    # (B, s, Hkv, D) -> (Hkv, B, s, D), the indexed pool view's layout
-    k_pages[:, pages, off] = k_new[:, :s].permute(2, 0, 1, 3).to(
-        k_pages.dtype)
-    v_pages[:, pages, off] = v_new[:, :s].permute(2, 0, 1, 3).to(
-        v_pages.dtype)
+    for pool, new in ((k_pages, k_new[:, :s]), (v_pages, v_new[:, :s])):
+        for dst, val in zip(_parts(pool), _stored(pool, new)):
+            # (B, s, Hkv, *) -> (Hkv, B, s, *), the indexed pool view's
+            # layout
+            dst[:, pages, off] = val.permute(2, 0, 1, 3)
     return k_pages, v_pages
 
 
@@ -347,8 +447,9 @@ def write_paged_prompt_at(k_pages, v_pages, k_new, v_new, block_tables,
     The drop costs no device->host sync: a position past the table is sent
     to the slot of the table's last page that it would clamp onto, carrying
     the value that slot gets anyway (the chunk's own write there, or the
-    pool's current content), so duplicate writes agree."""
-    _check_pools(k_pages, v_pages, k_pages.device, k_pages.dtype)
+    pool's current content), so duplicate writes agree. An int8 pool's
+    payload and scale both take this path."""
+    _check_pools(k_pages, v_pages, k_pages.device)
     page_size = k_pages.shape[2]
     bt = block_tables.long()
     s = k_new.shape[1]
@@ -363,12 +464,14 @@ def write_paged_prompt_at(k_pages, v_pages, k_new, v_new, block_tables,
     from_chunk = (src >= 0)[..., None, None]
     rows = src.clamp(min=0)[..., None, None]
     for pool, new in ((k_pages, k_new), (v_pages, v_new)):
-        # (B, S, Hkv, D) -> (Hkv, B, S, D), the indexed pool view's layout
-        val = torch.where(
-            from_chunk,
-            new.gather(1, rows.expand(-1, -1, *new.shape[2:])).to(pool.dtype),
-            pool[:, pages, off].permute(1, 2, 0, 3))
-        pool[:, pages, off] = val.permute(2, 0, 1, 3)
+        for dst, val in zip(_parts(pool), _stored(pool, new)):
+            # (B, S, Hkv, *) -> (Hkv, B, S, *), the indexed pool view's
+            # layout
+            cur = torch.where(
+                from_chunk, val.gather(1, rows.expand(-1, -1,
+                                                      *val.shape[2:])),
+                dst[:, pages, off].permute(1, 2, 0, 3))
+            dst[:, pages, off] = cur.permute(2, 0, 1, 3)
     return k_pages, v_pages
 
 
@@ -376,7 +479,13 @@ def write_paged_prompt_at(k_pages, v_pages, k_new, v_new, block_tables,
 class PagedKVCache:
     """Host-side page-pool manager: one pool pair per layer on the device,
     a block table per batch slot (host numpy), and a free list that
-    recycles pages across requests."""
+    recycles pages across requests.
+
+    ``kv_dtype``: the pool's storage. ``"native"`` keeps ``dtype`` tensors;
+    ``"int8"`` keeps :class:`QuantizedPages` (int8 payload and one f32
+    scale per token row, quantized at write time and dequantized by every
+    reader). ``bytes_per_page`` bills the stored bytes of one page across
+    all layers, K and V."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, max_batch: int,
@@ -386,23 +495,37 @@ class PagedKVCache:
         """``reserve_null_page`` keeps page 0 out of the free list: idle
         batch slots (all-zero block tables) write there, and no live
         sequence ever owns it."""
-        if kv_dtype != "native":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: only native pools are ported; int8 "
-                "pools come with a later slice")
+        if kv_dtype not in ("native", "int8"):
+            raise ValueError(f"kv_dtype must be 'native' or 'int8', "
+                             f"got {kv_dtype!r}")
         if page_size % 8:
             raise ValueError("page_size must be a multiple of 8")
         device = resolve_device(device)
+        self.kv_dtype = kv_dtype
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages_per_seq = -(-max_seq_len // page_size)
         shape = (num_kv_heads, num_pages, page_size, head_dim)
+        rows = num_layers * 2 * num_kv_heads * page_size
+        if kv_dtype == "int8":
+            self.bytes_per_page = rows * (head_dim + 4)
+
+            def pool():
+                return QuantizedPages(
+                    torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                device=device))
+        else:
+            self.bytes_per_page = (rows * head_dim
+                                   * torch.tensor([], dtype=dtype)
+                                   .element_size())
+
+            def pool():
+                return torch.zeros(shape, dtype=dtype, device=device)
         self.k_pages: List[Optional[torch.Tensor]] = [
-            torch.zeros(shape, dtype=dtype, device=device)
-            for _ in range(num_layers)]
+            pool() for _ in range(num_layers)]
         self.v_pages: List[Optional[torch.Tensor]] = [
-            torch.zeros(shape, dtype=dtype, device=device)
-            for _ in range(num_layers)]
+            pool() for _ in range(num_layers)]
         self.block_tables = np.zeros((max_batch, self.max_pages_per_seq),
                                      np.int32)
         self.seq_lens = np.zeros((max_batch,), np.int32)

@@ -75,8 +75,12 @@ def paged_scaled_dot_product_attention(query, key, value, state
     (:func:`paged_chunk_attention`); the returned ``seq_lens`` advance by
     the full S, so the driver keeps the true lengths. Decode (S == 1): the
     token is written at position ``seq_lens`` and attends through the
-    block tables (:func:`paged_attention`). Returns ``(out, new_state)``,
-    the state of the type given; the pools are updated in place."""
+    block tables (:func:`paged_attention`). The state's pools are native
+    tensors or ``QuantizedPages``: every write quantizes for an int8 pool
+    and every reader dequantizes (whole-prompt prefill attends to the
+    prompt's own unquantized k/v, as the JAX package does). Returns
+    ``(out, new_state)``, the state of the type given; the pools are
+    updated in place."""
     if not is_paged_state(state):
         raise NotImplementedError(
             f"{type(state).__name__}: only the paged states "

@@ -6,10 +6,13 @@ attention kernels of the training path S = 1, S = 129 (one row past a
 tile), non-causal, head_dim 64 and 96, and Sq != Skv; for the chunk
 attention mid-page and page-aligned starts, two sequences, rows past the
 block table and rep 32; for the N-layer decode groups of 1 to 4 layers,
-also held bit for bit to the one-layer kernel's chain. Each kernel is
-held to its plain PyTorch version on the same card tensors (fp32 1e-4,
-bf16 2e-2 abs: the kernels sum in f32 in another order, and bf16 rounds
-once more at the output); the wrappers' input checks and launch counters
+also held bit for bit to the one-layer kernel's chain; for the quantized
+variants (int8 pools in the decode, chunk and fused kernels, int4 tiles in
+the N-layer kernel) GQA, idle rows, int4 tiles that straddle q|k|v or 8
+columns, and the int8 N-layer kernel bit for bit against the one-layer
+kernel's chain. Each kernel is held to its plain PyTorch version on the
+same card tensors (fp32 1e-4, bf16 2e-2 abs: the kernels sum in f32 in
+another order, and bf16 rounds once more at the output); the wrappers' input checks and launch counters
 are checked too, a tiny GQA engine on the card is held to the same
 engine on the CPU, and so is the bf16 ``fused_linear_cross_entropy``
 (whose card path makes its f32 logits with one GEMM).
@@ -261,14 +264,10 @@ def test_each_launch_counts_once(dev):
     sl = torch.tensor([9], dtype=torch.int32, device=dev)
     pa.paged_attention(q[:, 0], kp, kp, bt, sl)
     pa.paged_attention(q[:, 0], kp, kp, bt, sl)
-    assert kernels.launch_counts() == {"flash_prefill": 1,
-                                       "paged_attention": 2,
-                                       "paged_chunk_attention": 0,
-                                       "fused_block_decode": 0,
-                                       "fused_multi_block_decode": 0,
-                                       "flash_attention_fwd": 0,
-                                       "flash_attention_bwd_dq": 0,
-                                       "flash_attention_bwd_dkv": 0}
+    counts = kernels.launch_counts()
+    assert counts.pop("flash_prefill") == 1
+    assert counts.pop("paged_attention") == 2
+    assert set(counts.values()) == {0}
 
 
 @pytest.mark.parametrize("case", ["fp16", "noncontiguous", "int64-tables",
@@ -469,3 +468,206 @@ def test_fused_linear_cross_entropy_bf16_card_matches_cpu(dev, transpose_y):
     for got, want in zip(g_card, g_cpu):
         err = (got.float() - want.float()).abs().max()
         assert float(err) <= 1e-2 * float(want.float().abs().max())
+
+
+# ------------------------------------------------ int8 pools, int4 tiles
+# the appended int8 rows: the kernel's and the plain version's f32 k/v may
+# differ in the last bits (another summation order), so a payload may
+# differ by 1 and a scale by relative 1e-6 (fp32) or one bf16 step of the
+# row's amax (bf16, where the k/v round to bf16 first)
+SCALE_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+
+
+def _q(pool):
+    return pa.QuantizedPages(*pa.quantize_kv_rows(pool))
+
+
+def _assert_rows_agree(got, want, dtype):
+    torch.cuda.synchronize()
+    assert int((got.q.int() - want.q.int()).abs().max()) <= 1
+    rel = ((got.scale - want.scale).abs()
+           / want.scale.abs().clamp_min(1e-30))
+    assert float(rel.max()) <= SCALE_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("h,hkv,d,page,seq_lens", [
+    (8, 2, 64, 16, (32, 0, 1, 47, 16)),   # page-aligned, idle, ragged
+    (16, 1, 64, 8, (5, 63)),              # rep 16, many small pages
+])
+def test_paged_attention_int8_matches_plain(dev, dtype, h, hkv, d, page,
+                                            seq_lens):
+    rng = np.random.default_rng(len(seq_lens) + h + 1)
+    maxp = -(-max(seq_lens) // page) + 1
+    bt, num_pages = _tables(rng, seq_lens, 0, page, maxp, dev)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    kp = _q(_rand(rng, (hkv, num_pages, page, d), dtype, dev))
+    vp = _q(_rand(rng, (hkv, num_pages, page, d), dtype, dev))
+    q = _rand(rng, (len(seq_lens), h, d), dtype, dev)
+    kernels.reset_launches()
+    got = pa.paged_attention(q, kp, vp, bt, sl)
+    counts = kernels.launch_counts()
+    assert counts["paged_attention_int8"] == 1
+    assert counts["paged_attention"] == 0
+    want = pa.paged_attention_ref(q, kp, vp, bt, sl)
+    assert got.dtype == dtype
+    assert _err(got, want) <= TOL[dtype]
+    assert not got[sl == 0].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,h,hkv,d,page,maxp,starts", [
+    (100, 8, 2, 128, 64, 8, (300,)),     # ragged chunk, mid-page, GQA
+    (40, 4, 4, 128, 16, 4, (40,)),       # 16 rows past the table's end
+])
+def test_paged_chunk_attention_int8_matches_plain(dev, dtype, s, h, hkv, d,
+                                                  page, maxp, starts):
+    rng = np.random.default_rng(s + h + page + 1)
+    b = len(starts)
+    bt, num_pages = _tables(rng, [maxp * page - 1] * b, 0, page, maxp, dev)
+    kp = _q(_rand(rng, (hkv, num_pages, page, d), dtype, dev))
+    vp = _q(_rand(rng, (hkv, num_pages, page, d), dtype, dev))
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    k_new = _rand(rng, (b, s, hkv, d), dtype, dev)
+    v_new = _rand(rng, (b, s, hkv, d), dtype, dev)
+    pa.write_paged_prompt_at(kp, vp, k_new, v_new, bt, st)
+    q = _rand(rng, (b, s, h, d), dtype, dev)
+    kernels.reset_launches()
+    got = pa.paged_chunk_attention(q, kp, vp, bt, st)
+    assert kernels.launch_counts()["paged_chunk_attention_int8"] == 1
+    want = pa.paged_chunk_attention_ref(q, kp, vp, bt, st)
+    assert _err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,nh,nkv", [(3, 4, 2), (9, 8, 2)])
+def test_fused_block_decode_int8_matches_plain(dev, dtype, b, nh, nkv):
+    rng = np.random.default_rng(b * 31 + nh + 1)
+    base = (15, 16, 31, 1, 40, 7, 2)
+    seq_lens = [0] + [base[i % len(base)] for i in range(b - 1)]
+    x, w, kp, vp, bt, sl = _block(rng, b, 256, nh, nkv, 512, 16, 4,
+                                  seq_lens, dtype, dev)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    kernels.reset_launches()
+    got, gk, gv = fb.fused_block_decode(x, w, _q(kp), _q(vp), bt, sl, **kw)
+    assert kernels.launch_counts()["fused_block_decode_int8"] == 1
+    want, wk, wv = fb.fused_block_decode_ref(x, w, _q(kp), _q(vp), bt, sl,
+                                             **kw)
+    assert _err(got, want) <= TOL[dtype]
+    _assert_rows_agree(gk, wk, dtype)
+    _assert_rows_agree(gv, wv, dtype)
+
+
+def _int4_group(layers, tiles=None):
+    """Stacked int4 weights, on the JAX plan or on ``tiles`` (name ->
+    (tr, tc)) for tiles the plan would not pick."""
+    if tiles is None:
+        return fb.stack_block_weights(layers, weight_dtype="int4")
+    mw = fb.stack_block_weights(layers)
+    return mw._replace(**{name: fb.pack_int4_tiles(getattr(mw, name), *t)
+                          for name, t in tiles.items()})
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kv8,tiles", [
+    (False, None), (True, None),
+    # tiles of 4, 12 and 20 columns: a lane's 8 columns span two or three
+    # tiles, q|k|v and gate|up boundaries fall inside tiles
+    (True, dict(wqkv=(8, 20), wo=(2, 4), wgu=(16, 12), wd=(32, 4))),
+], ids=["int4", "int8-int4", "int8-int4-odd-tiles"])
+def test_fused_multi_block_decode_int4_matches_plain(dev, dtype, kv8,
+                                                     tiles):
+    rng = np.random.default_rng(7 + kv8)
+    b, n, nh, nkv = 5, 2, 6, 2
+    seq_lens = [0, 15, 16, 31, 2]
+    layers, pools = [], []
+    for _ in range(n):
+        x, w, kp, vp, bt, sl = _block(rng, b, 192, nh, nkv, 384, 16, 4,
+                                      seq_lens, dtype, dev)
+        layers.append(w)
+        pools.append((_q(kp), _q(vp)) if kv8 else (kp, vp))
+    kw = dict(num_heads=nh, num_kv_heads=nkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    mw = _int4_group(layers, tiles)
+
+    def fresh():
+        if kv8:
+            return ([pa.QuantizedPages(k.q.clone(), k.scale.clone())
+                     for k, _ in pools],
+                    [pa.QuantizedPages(v.q.clone(), v.scale.clone())
+                     for _, v in pools])
+        return [k.clone() for k, _ in pools], [v.clone() for _, v in pools]
+
+    kernels.reset_launches()
+    got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl, **kw)
+    name = "fused_multi_block_decode_" + ("int8_int4" if kv8 else "int4")
+    assert kernels.launch_counts()[name] == 1
+    want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt, sl,
+                                                   **kw)
+    assert _err(got, want) <= TOL[dtype]
+    # past the first layer the two sides' inputs differ by the earlier
+    # layers' rounding: the pools are held to the output's tolerance, an
+    # int8 row's values beyond one quantization step of the row
+    for i in range(n):
+        for a, c in ((gk[i], wk[i]), (gv[i], wv[i])):
+            if not kv8:
+                assert _err(a, c) <= TOL[dtype]
+                continue
+            torch.cuda.synchronize()
+            diff = (a.q.float() * a.scale - c.q.float() * c.scale).abs()
+            step = torch.maximum(a.scale, c.scale)
+            assert float((diff - step).max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_fused_multi_block_decode_int8_is_the_chain(dev, dtype):
+    """The int8 N-layer kernel equals N launches of the int8 one-layer
+    kernel bit for bit: output, payloads and scales."""
+    rng = np.random.default_rng(12)
+    b, n, nh, nkv = 4, 3, 4, 2
+    seq_lens = [0, 15, 16, 31]
+    layers, pools = [], []
+    for _ in range(n):
+        x, w, kp, vp, bt, sl = _block(rng, b, 256, nh, nkv, 512, 16, 4,
+                                      seq_lens, dtype, dev)
+        layers.append(w)
+        pools.append((_q(kp), _q(vp)))
+
+    def fresh():
+        return ([pa.QuantizedPages(k.q.clone(), k.scale.clone())
+                 for k, _ in pools],
+                [pa.QuantizedPages(v.q.clone(), v.scale.clone())
+                 for _, v in pools])
+
+    kw = dict(num_heads=nh, num_kv_heads=nkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    got, gk, gv = fb.fused_multi_block_decode(
+        x, fb.stack_block_weights(layers), *fresh(), bt, sl, **kw)
+    out, ck, cv = x, *fresh()
+    for i, w in enumerate(layers):
+        out, ck[i], cv[i] = fb.fused_block_decode(out, w, ck[i], cv[i], bt,
+                                                  sl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    for i in range(n):
+        for a, c in ((gk[i], ck[i]), (gv[i], cv[i])):
+            assert torch.equal(a.q, c.q) and torch.equal(a.scale, c.scale)
+
+
+@pytest.mark.parametrize("flag_values", [
+    {"serving_kv_dtype": "int8"},
+    {"serving_kv_dtype": "int8", "fused_block_decode": False},
+    {"serving_kv_dtype": "int8", "fused_weight_dtype": "int4",
+     "fused_block_layers": 2},
+], ids=["int8-fused", "int8-generic", "int8-int4-nlayer2"])
+def test_quantized_engine_on_the_card_matches_the_cpu(dev, flag_values):
+    """The tiny engine on an int8 pool (and int4 weights at N = 2), chunked,
+    on the card and on the CPU: logits within 1e-4, tokens as the CPU's
+    wherever its top-2 gap is wider."""
+    kernels.reset_launches()
+    streams = _card_vs_cpu_streams(dev, flag_values, prefill_chunk=8)
+    counts = kernels.launch_counts()
+    assert counts["paged_chunk_attention_int8"] == 2 * (2 + 2 + 2)
+    assert counts["paged_chunk_attention"] == 0
+    _assert_streams_agree(streams)

@@ -225,10 +225,11 @@ def test_cpu_tensors_never_count_as_launches():
     qf = torch.zeros(4, 6, 8, requires_grad=True)
     tfa.flash_attention(qf, qf[:2], qf[:2], n_heads=2,
                         n_kv_heads=1).sum().backward()
-    assert tk.launch_counts() == {"flash_prefill": 0, "paged_attention": 0,
-                                  "paged_chunk_attention": 0,
-                                  "fused_block_decode": 0,
-                                  "fused_multi_block_decode": 0,
-                                  "flash_attention_fwd": 0,
-                                  "flash_attention_bwd_dq": 0,
-                                  "flash_attention_bwd_dkv": 0}
+    assert tk.launch_counts() == {
+        "flash_prefill": 0, "paged_attention": 0, "paged_attention_int8": 0,
+        "paged_chunk_attention": 0, "paged_chunk_attention_int8": 0,
+        "fused_block_decode": 0, "fused_block_decode_int8": 0,
+        "fused_multi_block_decode": 0, "fused_multi_block_decode_int8": 0,
+        "fused_multi_block_decode_int4": 0,
+        "fused_multi_block_decode_int8_int4": 0, "flash_attention_fwd": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}

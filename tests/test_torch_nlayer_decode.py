@@ -100,10 +100,11 @@ def test_stack_block_weights_equals_jax():
                                       err_msg=name)
 
 
-def test_stack_block_weights_refuses_int4():
+def test_stack_block_weights_takes_int4_refuses_fp8():
     layers, *_ = _group(1, 1)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tfb.stack_block_weights(_port_layers(layers), weight_dtype="int4")
+    got = tfb.stack_block_weights(_port_layers(layers), weight_dtype="int4")
+    for name in ("wqkv", "wo", "wgu", "wd"):
+        assert isinstance(getattr(got, name), tfb.Int4Tiles)
     with pytest.raises(ValueError):
         tfb.stack_block_weights(_port_layers(layers), weight_dtype="fp8")
 

@@ -6,7 +6,8 @@ submitted while the first decode, and a batch of two slots so later
 requests wait for freed slots and recycle freed pages. The greedy token
 streams must be identical, with fused block decode and with the generic
 decode. Every option the port does not serve yet raises
-``NotImplementedError``. (Chunked prefill and N-layer decode have their
+``NotImplementedError``; the quantized options (int8 KV pool, int4
+weights) are taken, and a value no version serves raises ``ValueError``. (Chunked prefill and N-layer decode have their
 own files, ``test_torch_chunk_prefill.py`` and
 ``test_torch_nlayer_decode.py``.)
 """
@@ -108,8 +109,6 @@ def test_eos_stops_a_request(models):
 @pytest.mark.parametrize("kwargs,what", [
     (dict(draft_model=object()), "draft_model"),
     (dict(prefix_cache=True), "prefix cache"),
-    (dict(kv_dtype="int8"), "int8"),
-    (dict(weight_dtype="int4"), "int4"),
     (dict(tp_degree=2), "tensor-parallel"),
     (dict(max_batch=8), "bucket ladder"),
     (dict(bucket_ladder=(1, 2)), "bucket ladder"),
@@ -119,6 +118,24 @@ def test_unported_engine_options_raise(models, kwargs, what):
     args = dict(ENGINE, **kwargs)
     with pytest.raises(NotImplementedError, match=what):
         ServingEngine(model, **args)
+
+
+@pytest.mark.parametrize("kwargs", [dict(kv_dtype="int8"),
+                                    dict(weight_dtype="int4")],
+                         ids=["kv_dtype-int8", "weight_dtype-int4"])
+def test_quantized_engine_options_are_taken(models, kwargs):
+    _, model = models
+    eng = ServingEngine(model, **ENGINE, **kwargs)
+    for name, value in kwargs.items():
+        assert getattr(eng, name) == value
+    assert eng.pool.kv_dtype == eng.kv_dtype
+
+
+@pytest.mark.parametrize("name", ["kv_dtype", "weight_dtype"])
+def test_unknown_quantized_engine_options_raise(models, name):
+    _, model = models
+    with pytest.raises(ValueError, match=name):
+        ServingEngine(model, **ENGINE, **{name: "fp8"})
 
 
 @pytest.mark.parametrize("kwargs,what", [
@@ -149,13 +166,28 @@ def test_prompt_longer_than_prefill_chunk_raises(models):
     assert len(eng.run()[rid]) == 2 and eng.chunk_dispatches == 0
 
 
-@pytest.mark.parametrize("flag,value", [("fused_weight_dtype", "int4"),
-                                        ("serving_kv_dtype", "int8"),
-                                        ("serving_tp_degree", 2)])
+@pytest.mark.parametrize("flag,value", [("serving_tp_degree", 2)])
 def test_unported_flag_values_raise(flag, value):
     with pytest.raises(NotImplementedError):
         tflags.set_flags({flag: value})
     assert tflags.get_flag(flag) != value
+
+
+@pytest.mark.parametrize("flag,value", [("fused_weight_dtype", "int4"),
+                                        ("serving_kv_dtype", "int8")])
+def test_quantized_flag_values_are_taken(flag, value):
+    tflags.set_flags({flag: value})
+    try:
+        assert tflags.get_flag(flag) == value
+    finally:
+        tflags.reset_flags()
+
+
+@pytest.mark.parametrize("flag", ["fused_weight_dtype", "serving_kv_dtype"])
+def test_unknown_quantized_flag_values_raise(flag):
+    with pytest.raises(ValueError, match=flag):
+        tflags.set_flags({flag: "fp8"})
+    assert tflags.get_flag(flag) == "native"
 
 
 def test_flags_read_environment(monkeypatch):
@@ -166,8 +198,10 @@ def test_flags_read_environment(monkeypatch):
     monkeypatch.setenv("FLAGS_fused_block_layers", "4")
     assert tflags.get_flag("fused_block_layers") == 4
     monkeypatch.setenv("FLAGS_fused_weight_dtype", "int4")
-    with pytest.raises(NotImplementedError):
-        tflags.get_flag("fused_weight_dtype")
+    assert tflags.get_flag("fused_weight_dtype") == "int4"
+    monkeypatch.setenv("FLAGS_serving_kv_dtype", "fp8")
+    with pytest.raises(ValueError):
+        tflags.get_flag("serving_kv_dtype")
     with pytest.raises(KeyError):
         tflags.get_flag("use_pallas")
 

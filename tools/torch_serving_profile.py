@@ -18,7 +18,14 @@ Then, on an engine with a 4096-token context:
 
   chunk    one engine step that runs one 256-token prefill chunk of a
            3500-token prompt from start 3072 (its thirteenth chunk, after
-           twelve untraced ones), with no slot decoding.
+           twelve untraced ones), with no slot decoding;
+  long_decode
+           ``--steps`` decode-only steps with the four slots holding
+           serve_long's long prompts (3500, 2900, 1800 and 700 tokens,
+           prefilled in untraced chunks first), on the native pool one
+           layer a launch, on an int8 pool one layer a launch, and on an
+           int8 pool with int4 weights four layers a launch; its kernels
+           are also summed by group (GEMVs, attention, the rest).
 
 Per window it prints one JSON line (``torch_trace.window``): the
 host-clock wall time (ending in a synchronise), the summed device time of
@@ -44,6 +51,19 @@ from torch_trace import card, window  # noqa: E402  (this script's folder)
 
 PROMPT_LENS = (17, 100, 200, 256)
 LONG_PROMPT, CHUNK, CHUNK_START = 3500, 256, 3072
+# serve_long's long prompts, one a slot; (layers a launch, kv, weights)
+LONG_DECODE_LENS = (3500, 2900, 1800, 700)
+LONG_DECODE_RUNS = ((1, "native", "native"), (1, "int8", "native"),
+                    (4, "int8", "int4"))
+
+
+def kernel_group(name: str) -> str:
+    """The decode step's kernels by kind: weight GEMVs, attention, other."""
+    if "gemv" in name:
+        return "gemv"
+    if "attention" in name:
+        return "attention"
+    return "other"
 
 
 def main() -> int:
@@ -106,6 +126,29 @@ def main() -> int:
     chunk.update(prompt=LONG_PROMPT, start=CHUNK_START, chunk=CHUNK,
                  decode="fused", **info)
     print(json.dumps(chunk), flush=True)
+    del eng
+    chunks = sum(-(-n // CHUNK) for n in LONG_DECODE_LENS)
+    for group, kv_dtype, weight_dtype in LONG_DECODE_RUNS:
+        flags.set_flags({"fused_block_layers": group})
+        eng = ServingEngine(model, max_batch=4, page_size=64,
+                            max_seq_len=4096, prefill_chunk=CHUNK,
+                            kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+        eng.submit(prompts[0][:9], 2)         # warm-up: library loads
+        eng.submit(prompts[-1][:CHUNK + 9], 2)
+        eng.run()
+        for n in LONG_DECODE_LENS:
+            eng.submit(prompts[-1][:n], chunks + args.steps + 4)
+        for _ in range(chunks):               # one chunk a step, untraced
+            eng.step()
+        dec = window("long_decode", lambda: [eng.step()
+                                             for _ in range(args.steps)],
+                     args.top, group=kernel_group)
+        dec.update(steps=args.steps, prompt_lens=list(LONG_DECODE_LENS),
+                   decode="fused", fused_block_layers=group,
+                   kv_dtype=kv_dtype, weight_dtype=weight_dtype, **info)
+        print(json.dumps(dec), flush=True)
+        flags.reset_flags()
+        del eng
     print(card(), flush=True)
     return 0
 
