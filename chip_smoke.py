@@ -65,7 +65,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
   7. train_parity
               one fp32 TrainStep at full width, 2 layers, S=512 on the card
               (kernels) and on a CPU copy (plain versions): losses and every
-              gradient before the update agree.
+              gradient before the update agree;
+  8. train_varlen
+              packed-sequence training and the fused RMSNorm, bf16, through
+              the public entry points with the launch counts read around
+              them (exact): fused_rms_norm with a residual, forward and
+              backward, at 8192 x 4096 (7B) and 4096 x 8192 (70B);
+              flash_attn_unpadded, forward and backward, on an 8192-token
+              pack of 6 documents at Llama-2-7B heads and a 4096-token pack
+              of 4 at Llama-2-70B heads (GQA); variable_length_memory_
+              efficient_attention forward at B=4, S=2048, ragged lengths.
+              The packs are held document by document to the plain causal
+              attention of each document alone, the RMSNorm to autograd of
+              its plain twin. Then each kernel (RMSNorm forward and dx, the
+              segment-id variants of the flash kernels) against its plain
+              twin on the same card tensors, bf16 and fp32 (the flash twins
+              in groups of kv heads, so the dense f32 scores stay small),
+              with kernel, plain, library (torch.nn.functional.rms_norm;
+              SDPA per document, summed) and bound times.
 Then the card's name and power limit (nvidia-smi), the per-kernel summary
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -136,11 +153,30 @@ TRAIN_PARITY_LOSS_TOL = 1e-4    # relative, fp32 (TF32 off)
 TRAIN_PARITY_GRAD_TOL = 1e-3    # relative L2 per parameter
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+# train_varlen: fused RMSNorm (case, rows, width), eps of Llama-2
+RMS_SHAPES = (("llama2_7b width", 8192, 4096),
+              ("llama2_70b width", 4096, 8192))
+RMS_EPS = 1e-5
+# packed documents through flash_attn_unpadded: (case, lengths, H, Hkv)
+VARLEN_PACKS = (("llama2_7b heads, 8192-token pack",
+                 (3500, 2900, 1000, 700, 75, 17), 32, 32),
+                ("llama2_70b heads, 4096-token pack, GQA",
+                 (2000, 1500, 300, 296), 64, 8))
+# variable_length_memory_efficient_attention: B x S at 7B heads
+VLMEA_LENS, VLMEA_SEQ = (2048, 1500, 700, 33), 2048
+PLAIN_KV_GROUPS = 8     # the dense twins run over 8 slices of the kv heads
+VARLEN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd_dx",
+                  "flash_attention_fwd_seg", "flash_attention_bwd_dq_seg",
+                  "flash_attention_bwd_dkv_seg")
 
 # the quantized variants of a kernel: an int8 KV pool, int4 weight tiles
+# and the flash kernels' segment-id variant
 VARIANTS = {"paged_attention": ("int8",), "paged_chunk_attention": ("int8",),
             "fused_block_decode": ("int8",),
-            "fused_multi_block_decode": ("int8", "int4", "int8_int4")}
+            "fused_multi_block_decode": ("int8", "int4", "int8_int4"),
+            "flash_attention_fwd": ("seg",),
+            "flash_attention_bwd_dq": ("seg",),
+            "flash_attention_bwd_dkv": ("seg",)}
 SOURCES = {
     "flash_prefill": ("paddle_tpu_torch/kernels/csrc/flash_prefill.cu",
                       "paddle_tpu/kernels/decode_attention.py:140"),
@@ -164,6 +200,10 @@ SOURCES = {
     "flash_attention_bwd_dkv": (
         "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
         "paddle_tpu/kernels/flash_attention.py:486"),
+    "rms_norm_fwd": ("paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+                     "paddle_tpu/kernels/rms_norm.py:46"),
+    "rms_norm_bwd_dx": ("paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+                        "paddle_tpu/kernels/rms_norm.py:53"),
 }
 # each variant is a branch of its kernel's source and of its TPU kernel
 SOURCES = {name: entry for base, src in SOURCES.items()
@@ -1166,6 +1206,366 @@ def run_train_parity(device):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------- train_varlen
+def pack_ids(lens, device) -> torch.Tensor:
+    """A pack's token segment ids: document j's tokens carry j + 1."""
+    return torch.repeat_interleave(
+        torch.arange(1, len(lens) + 1, dtype=torch.int32, device=device),
+        torch.tensor(lens, device=device))
+
+
+def in_kv_groups(call, h, hkv):
+    """``call(q_rows, kv_rows, n_kv)`` over up to PLAIN_KV_GROUPS equal
+    slices of the kv heads (B = 1: rows are heads) and their query heads,
+    concatenated along the rows: the plain flash twins are independent per
+    head, and a slice's dense f32 scores stay a fraction of the card's
+    memory."""
+    groups = math.gcd(hkv, PLAIN_KV_GROUPS)
+    per, rep = hkv // groups, h // hkv
+    outs = [call(slice(g * per * rep, (g + 1) * per * rep),
+                 slice(g * per, (g + 1) * per), per) for g in range(groups)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def per_document(q, k, v, do, lens, h, hkv):
+    """The pack's reference: plain causal attention (dense f32, autograd)
+    of each document alone, ``(T, H, D)`` tensors in and out, with the
+    gradients of q, k and v."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    outs, grads, s0 = [], ([], [], []), 0
+    for n in lens:
+        rows = slice(s0, s0 + n)
+        s0 += n
+        leaves = [t[rows].transpose(0, 1).contiguous().requires_grad_(True)
+                  for t in (q, k, v)]
+        o = fa.flash_attention_ref(*leaves, causal=True, n_heads=h,
+                                   n_kv_heads=hkv)
+        gs = torch.autograd.grad(o, leaves,
+                                 do[rows].transpose(0, 1).contiguous())
+        outs.append(o.detach().transpose(0, 1))
+        for acc, g in zip(grads, gs):
+            acc.append(g.transpose(0, 1))
+        del leaves, o, gs
+    return torch.cat(outs), [torch.cat(acc) for acc in grads]
+
+
+def hold(tag, out, ref_out, grads, ref_grads, dtype):
+    """Outputs within OUT_TOL elementwise, gradients within GRAD_TOL of
+    their largest element; returns (max abs err, worst grad rel err)."""
+    atol, rtol = OUT_TOL[dtype]
+    over = excess(out, ref_out, rtol)
+    require(over <= atol, f"{tag}: out {over} over {rtol} |ref|")
+    worst = max(rel_err(g, r) for g, r in zip(grads, ref_grads))
+    require(worst <= GRAD_TOL[dtype], f"{tag}: grads off by {worst}")
+    return max_err(out, ref_out), worst
+
+
+def run_train_varlen(device):
+    """The varlen path through its public entry points, bf16, launch counts
+    exact; then each public result against its plain reference. Returns
+    the counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.nn import functional as F
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    norms = [(case, [_rand(gen, (n, hid), dtype, device) for _ in range(3)],
+              (1.0 + 0.1 * torch.randn(hid, generator=gen, device=device)
+               ).to(dtype)) for case, n, hid in RMS_SHAPES]
+    packs = []
+    for case, lens, h, hkv in VARLEN_PACKS:
+        t = sum(lens)
+        cu = torch.tensor((0,) + tuple(np.cumsum(lens)), dtype=torch.int32,
+                          device=device)
+        packs.append((case, lens, h, hkv, cu, [
+            _rand(gen, (t, n_h, HEAD_DIM), dtype, device)
+            for n_h in (h, hkv, hkv, h)]))
+    vl = [_rand(gen, (len(VLMEA_LENS), HEADS, VLMEA_SEQ, HEAD_DIM), dtype,
+                device) for _ in range(3)]
+    vl_lens = torch.tensor(VLMEA_LENS, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    norm_res = []
+    for case, (x, res, g), w in norms:
+        leaves = [t.clone().requires_grad_(True) for t in (x, res, w)]
+        out, hsum = IF.fused_rms_norm(leaves[0], leaves[2], epsilon=RMS_EPS,
+                                      residual=leaves[1])
+        norm_res.append((out.detach(), hsum.detach(),
+                         torch.autograd.grad(out, leaves, g)))
+    pack_res = []
+    for case, lens, h, hkv, cu, (q, k, v, do) in packs:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, _ = F.flash_attn_unpadded(*leaves, cu, cu, max(lens), max(lens),
+                                       causal=True)
+        pack_res.append((out.detach(), torch.autograd.grad(out, leaves, do)))
+    vl_out = IF.variable_length_memory_efficient_attention(*vl, vl_lens,
+                                                           causal=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = dict(rms_norm_fwd=len(norms), rms_norm_bwd_dx=len(norms),
+                flash_attention_fwd_seg=len(packs) + 1,
+                flash_attention_bwd_dq_seg=len(packs),
+                flash_attention_bwd_dkv_seg=len(packs))
+    require_launches(counts, {**dict.fromkeys(counts, 0), **want},
+                     "train_varlen")
+
+    for (case, (x, res, g), w), (out, hsum, grads) in zip(norms, norm_res):
+        leaves = [t.clone().requires_grad_(True) for t in (x, res, w)]
+        ref_h = leaves[0] + leaves[1]
+        ref = rn.rms_norm_ref(ref_h, leaves[2], RMS_EPS)
+        ref_grads = torch.autograd.grad(ref, leaves, g)
+        require(torch.equal(hsum, (x + res)), f"fused_rms_norm {case}: h")
+        err, grad_rel = hold(f"fused_rms_norm {case}", out, ref, grads,
+                             ref_grads, dtype)
+        emit("train_varlen", entry="fused_rms_norm", case=case,
+             rows=x.shape[0], hidden=x.shape[1], dtype="bf16",
+             out_max_err=err, grad_rel_err=grad_rel)
+        del leaves, ref, ref_grads
+    for (case, lens, h, hkv, cu, (q, k, v, do)), (out, grads) in zip(
+            packs, pack_res):
+        ref_out, ref_grads = per_document(q, k, v, do, lens, h, hkv)
+        err, grad_rel = hold(f"flash_attn_unpadded {case}", out, ref_out,
+                             grads, ref_grads, dtype)
+        emit("train_varlen", entry="flash_attn_unpadded", case=case,
+             doc_lens=list(lens), H=h, Hkv=hkv, dtype="bf16",
+             reference="each document alone", out_max_err=err,
+             grad_rel_err=grad_rel)
+        del ref_out, ref_grads
+        torch.cuda.empty_cache()
+    b = len(VLMEA_LENS)
+    seg = (torch.arange(VLMEA_SEQ, device=device)[None, :]
+           >= vl_lens[:, None]).to(torch.int32).repeat_interleave(HEADS, 0)
+    ref = in_kv_groups(lambda qr, kr, n: fa.flash_attention_fwd_ref(
+        *(t.reshape(b * HEADS, VLMEA_SEQ, HEAD_DIM)[qr] for t in vl[:1]),
+        *(t.reshape(b * HEADS, VLMEA_SEQ, HEAD_DIM)[kr] for t in vl[1:]),
+        True, None, n, n, seg[qr], seg[kr])[0], b * HEADS, b * HEADS)
+    atol, rtol = OUT_TOL[dtype]
+    over = excess(vl_out.reshape(b * HEADS, VLMEA_SEQ, HEAD_DIM), ref, rtol)
+    require(over <= atol, f"variable_length_memory_efficient_attention: "
+            f"{over} over {rtol} |ref|")
+    emit("train_varlen", entry="variable_length_memory_efficient_attention",
+         B=b, S=VLMEA_SEQ, seq_lens=list(VLMEA_LENS), H=HEADS, dtype="bf16",
+         out_max_err=max_err(vl_out.reshape(ref.shape), ref),
+         out_excess=over, seconds_whole_path=seconds, launches=counts)
+    del norms, norm_res, packs, pack_res, vl, vl_out, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_rms_norm(dtype, device, rows):
+    """The RMSNorm forward and dx kernels against their plain twins on the
+    fused input (x + residual) at the 7B and 70B widths; kernel, plain,
+    library (torch.nn.functional.rms_norm forward, forward + backward and
+    its backward alone) and bound times."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    for case, n, hid in RMS_SHAPES:
+        x = _rand(gen, (n, hid), dtype, device) + _rand(gen, (n, hid), dtype,
+                                                        device)
+        w = (1.0 + 0.1 * torch.randn(hid, generator=gen, device=device)
+             ).to(dtype)
+        g = _rand(gen, (n, hid), dtype, device)
+        y, r = rn.rms_norm_fwd(x, w, RMS_EPS)
+        y_r, r_r = rn.rms_norm_fwd_ref(x, w, RMS_EPS)
+        dx = rn.rms_norm_bwd_dx(x, w, g, r)
+        dx_r = rn.rms_norm_bwd_dx_ref(x, w, g, r)
+        torch.cuda.synchronize()
+        atol, rtol = OUT_TOL[dtype]
+        over = excess(y, y_r, rtol)
+        r_rel = float(((r - r_r).abs() / r_r).max())
+        dx_rel = rel_err(dx, dx_r)
+        tag = f"rms_norm {case} {DTYPE_NAME[dtype]}"
+        require(over <= atol, f"{tag}: y {over} over {rtol} |ref|")
+        require(r_rel <= 1e-5, f"{tag}: r off by {r_rel} relative")
+        require(dx_rel <= GRAD_TOL[dtype], f"{tag}: dx off by {dx_rel}")
+        t = dict(
+            fwd=time_ms(lambda: rn.rms_norm_fwd(x, w, RMS_EPS)),
+            dx=time_ms(lambda: rn.rms_norm_bwd_dx(x, w, g, r)),
+            fwd_plain=time_ms(lambda: rn.rms_norm_fwd_ref(x, w, RMS_EPS)),
+            dx_plain=time_ms(lambda: rn.rms_norm_bwd_dx_ref(x, w, g, r)),
+            lib_fwd=time_ms(lambda: torch.nn.functional.rms_norm(
+                x, (hid,), w, RMS_EPS)))
+        lx, lw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+
+        def lib_fwd_bwd():
+            o = torch.nn.functional.rms_norm(lx, (hid,), lw, RMS_EPS)
+            torch.autograd.grad(o, (lx, lw), g)
+
+        t["lib_fwd_bwd"] = time_ms(lib_fwd_bwd)
+        o = torch.nn.functional.rms_norm(lx, (hid,), lw, RMS_EPS)
+        t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+            o, (lx, lw), g, retain_graph=True))
+        elem = x.element_size()
+        bounds = dict(
+            fwd=bound_ms(elem * (2 * x.numel() + hid) + 4 * n,
+                         4.0 * x.numel(), dtype),
+            dx=bound_ms(elem * (3 * x.numel() + hid) + 4 * n,
+                        6.0 * x.numel(), dtype))
+        emit("train_varlen", kernel="rms_norm", case=case, rows=n,
+             hidden=hid, dtype=DTYPE_NAME[dtype], y_max_err=max_err(y, y_r),
+             y_excess=over, atol=atol, rtol=rtol, r_rel_err=r_rel,
+             dx_rel_err=dx_rel, grad_tol=GRAD_TOL[dtype],
+             kernel_ms=dict(fwd=t["fwd"], dx=t["dx"]),
+             plain_ms=dict(fwd=t["fwd_plain"], dx=t["dx_plain"]),
+             library_ms=dict(rms_norm_fwd=t["lib_fwd"],
+                             rms_norm_fwd_bwd=t["lib_fwd_bwd"],
+                             rms_norm_bwd=t["lib_bwd"]),
+             bound_ms={key: val[0] for key, val in bounds.items()},
+             bound_by={key: val[1] for key, val in bounds.items()})
+        for name, key, err, lib in (
+                ("rms_norm_fwd", "fwd", max_err(y, y_r), t["lib_fwd"]),
+                ("rms_norm_bwd_dx", "dx", max_err(dx, dx_r), t["lib_bwd"])):
+            rows.append(dict(
+                kernel=name, dtype=DTYPE_NAME[dtype], case=case,
+                max_err=err, kernel_ms=t[key], plain_ms=t[key + "_plain"],
+                library_ms=lib, bound_ms=bounds[key][0],
+                bound_by=bounds[key][1]))
+        del x, g, y, y_r, dx, dx_r, lx, lw, o
+        torch.cuda.empty_cache()
+
+
+def check_varlen_attention(dtype, device, rows):
+    """The segment-id variant of the forward, dq and dk/dv kernels on each
+    pack (B = 1, the (H, T, D) layout flash_attn_unpadded hands them)
+    against their plain twins, run in groups of kv heads; kernel, plain,
+    library (SDPA, causal, per document, summed: forward, forward +
+    backward, backward alone) and bound times, the bound counting the
+    pairs that share a document."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    for case, lens, h, hkv in VARLEN_PACKS:
+        t = sum(lens)
+        q, do = (_rand(gen, (h, t, HEAD_DIM), dtype, device)
+                 for _ in range(2))
+        k, v = (_rand(gen, (hkv, t, HEAD_DIM), dtype, device)
+                for _ in range(2))
+        ids = pack_ids(lens, device)
+        seg_q = ids.repeat(h, 1)
+        seg_kv = ids.repeat(hkv, 1)
+        kw = dict(causal=True, n_heads=h, n_kv_heads=hkv, seg_q=seg_q,
+                  seg_kv=seg_kv)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (out.float() * do.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+        def plain_fwd():
+            return in_kv_groups(lambda qr, kr, n: fa.flash_attention_fwd_ref(
+                q[qr], k[kr], v[kr], True, None, n * h // hkv, n, seg_q[qr],
+                seg_kv[kr]), h, hkv)
+
+        def plain_dq():
+            return in_kv_groups(
+                lambda qr, kr, n: fa.flash_attention_bwd_dq_ref(
+                    q[qr], k[kr], v[kr], do[qr], lse[qr], delta[qr], True,
+                    None, n * h // hkv, n, seg_q[qr], seg_kv[kr]), h, hkv)
+
+        def plain_dkv():
+            return in_kv_groups(
+                lambda qr, kr, n: fa.flash_attention_bwd_dkv_ref(
+                    q[qr], k[kr], v[kr], do[qr], lse[qr], delta[qr], True,
+                    None, n * h // hkv, n, seg_q[qr], seg_kv[kr]), h, hkv)
+
+        out_r, lse_r = plain_fwd()
+        dq_r, (dk_r, dv_r) = plain_dq(), plain_dkv()
+        torch.cuda.synchronize()
+        atol, rtol = OUT_TOL[dtype]
+        tag = f"{case} {DTYPE_NAME[dtype]}"
+        out_excess, lse_err = excess(out, out_r, rtol), max_err(lse, lse_r)
+        dq_rel = rel_err(dq, dq_r)
+        dkv_rel = max(rel_err(dk, dk_r), rel_err(dv, dv_r))
+        require(out_excess <= atol, f"flash fwd seg {tag}: {out_excess} "
+                f"over {rtol} |ref|")
+        require(lse_err <= LSE_TOL[dtype], f"flash fwd seg {tag}: lse "
+                f"{lse_err}")
+        require(dq_rel <= GRAD_TOL[dtype], f"flash dq seg {tag}: {dq_rel}")
+        require(dkv_rel <= GRAD_TOL[dtype], f"flash dk/dv seg {tag}: "
+                f"{dkv_rel}")
+        errs = dict(fwd=max(max_err(out, out_r), lse_err),
+                    dq=max_err(dq, dq_r),
+                    dkv=max(max_err(dk, dk_r), max_err(dv, dv_r)))
+        del out_r, lse_r, dq_r, dk_r, dv_r
+        torch.cuda.empty_cache()
+
+        bwd = (q, k, v, do, lse, delta)
+        tm = dict(
+            fwd=time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                        iters=10, warmup=2),
+            dq=time_ms(lambda: fa.flash_attention_bwd_dq(*bwd, **kw),
+                       iters=10, warmup=2),
+            dkv=time_ms(lambda: fa.flash_attention_bwd_dkv(*bwd, **kw),
+                        iters=10, warmup=2),
+            fwd_plain=time_ms(plain_fwd, iters=3, warmup=1),
+            dq_plain=time_ms(plain_dq, iters=3, warmup=1),
+            dkv_plain=time_ms(plain_dkv, iters=3, warmup=1))
+        starts = np.cumsum((0,) + lens)
+        docs = [tuple(x[:, s0:s0 + n][None] for x in (q, k, v, do))
+                for s0, n in zip(starts, lens)]
+        tm["sdpa_fwd"] = time_ms(lambda: [sdpa(a, b_, c, is_causal=True)
+                                          for a, b_, c, _ in docs],
+                                 iters=10, warmup=2)
+        leaves = [[x.clone().requires_grad_(True) for x in d[:3]]
+                  for d in docs]
+
+        def sdpa_fwd_bwd():
+            for ls, d in zip(leaves, docs):
+                torch.autograd.grad(sdpa(*ls, is_causal=True), ls, d[3])
+
+        tm["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters=10, warmup=2)
+        outs = [sdpa(*ls, is_causal=True) for ls in leaves]
+        tm["sdpa_bwd"] = time_ms(lambda: [torch.autograd.grad(
+            o, ls, d[3], retain_graph=True) for o, ls, d in zip(
+                outs, leaves, docs)], iters=10, warmup=2)
+        del docs, leaves, outs
+
+        elem = q.element_size()
+        pairs = h * sum(n * (n + 1) // 2 for n in lens)   # same document
+        fwd_ops = 4.0 * pairs * HEAD_DIM
+        stats = 4 * 2 * h * t                             # lse, delta f32
+        ids_bytes = 4 * (h + hkv) * t
+        bounds = dict(
+            fwd=bound_ms(elem * (2 * q.numel() + k.numel() + v.numel())
+                         + 4 * h * t + ids_bytes, fwd_ops, dtype),
+            dq=bound_ms(elem * (3 * q.numel() + k.numel() + v.numel())
+                        + stats + ids_bytes, 1.5 * fwd_ops, dtype),
+            dkv=bound_ms(elem * (2 * q.numel() + 2 * k.numel()
+                                 + 2 * v.numel()) + stats + ids_bytes,
+                         2.0 * fwd_ops, dtype))
+        emit("train_varlen", kernel="flash_attention_seg", case=case,
+             doc_lens=list(lens), H=h, Hkv=hkv, D=HEAD_DIM,
+             dtype=DTYPE_NAME[dtype], out_excess=out_excess, out_atol=atol,
+             out_rtol=rtol, lse_max_err=lse_err, dq_rel_err=dq_rel,
+             dkv_rel_err=dkv_rel, grad_tol=GRAD_TOL[dtype],
+             causal_pairs_of_the_pack=h * t * (t + 1) // 2,
+             pairs_in_documents=pairs,
+             kernel_ms=dict(fwd=tm["fwd"], dq=tm["dq"], dkv=tm["dkv"]),
+             plain_ms=dict(fwd=tm["fwd_plain"], dq=tm["dq_plain"],
+                           dkv=tm["dkv_plain"]),
+             library_ms=dict(sdpa_fwd=tm["sdpa_fwd"],
+                             sdpa_fwd_bwd=tm["sdpa_fwd_bwd"],
+                             sdpa_bwd=tm["sdpa_bwd"]),
+             bound_ms={key: val[0] for key, val in bounds.items()},
+             bound_by={key: val[1] for key, val in bounds.items()})
+        for name, key, lib in (
+                ("flash_attention_fwd_seg", "fwd", tm["sdpa_fwd"]),
+                ("flash_attention_bwd_dq_seg", "dq", tm["sdpa_bwd"]),
+                ("flash_attention_bwd_dkv_seg", "dkv", tm["sdpa_bwd"])):
+            rows.append(dict(
+                kernel=name, dtype=DTYPE_NAME[dtype], case=case,
+                max_err=errs[key], kernel_ms=tm[key],
+                plain_ms=tm[key + "_plain"], library_ms=lib,
+                bound_ms=bounds[key][0], bound_by=bounds[key][1]))
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1199,6 +1599,12 @@ def main() -> int:
     train_counts = run_train(device)
     run_train_parity(device)
 
+    varlen_counts = run_train_varlen(device)
+    varlen_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        check_rms_norm(dtype, device, varlen_rows)
+        check_varlen_attention(dtype, device, varlen_rows)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1212,6 +1618,11 @@ def main() -> int:
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
             launches = train_counts[name]
+        elif name in VARLEN_KERNELS:
+            rows = [r for r in varlen_rows if r["kernel"] == name
+                    and r["dtype"] == "bf16"]
+            main_row = rows[0]       # 7B width / the 8192-token pack, bf16
+            launches = varlen_counts[name]
         else:
             rows = [r for r in results if r["kernel"] == name
                     and r["dtype"] == "bf16" and "kernel_ms" in r]

@@ -11,7 +11,9 @@ Ported so far: Llama serving (``generation.serving.ServingEngine``) with
 whole-prompt prefill, fused block decode and generic paged decode; Llama
 training through ``hapi.TrainStep`` with ``optimizer.AdamW``,
 ``nn.ClipGradByGlobalNorm``, the warmup/cosine LR schedules and flash
-attention forward and backward.
+attention forward and backward, packed sequences through the flash
+kernels' segment ids (``nn.functional.flash_attn_unpadded``), and the
+fused RMSNorm (``incubate.nn.functional.fused_rms_norm``).
 """
 
 from .device import resolve_device, seed

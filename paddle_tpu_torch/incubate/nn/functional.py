@@ -1,13 +1,81 @@
 """Fused-op surface (counterpart of ``paddle_tpu/incubate/nn/functional.py``).
 
 Ported: the ``position_ids`` branch of the rotary embedding (the one the
-Llama paths run) and ``fused_linear_cross_entropy`` (the Llama training
-loss).
+Llama paths run), ``fused_linear_cross_entropy`` (the Llama training
+loss), ``fused_rms_norm`` (the RMSNorm kernels) and
+``variable_length_memory_efficient_attention`` (the flash kernels'
+segment-id variant).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ...kernels.flash_attention import flash_attention_bshd
+from ...kernels.rms_norm import rms_norm
+
+
+def fused_rms_norm(x, norm_weight=None, norm_bias=None, epsilon=1e-6,
+                   begin_norm_axis=-1, bias=None, residual=None,
+                   quant_scale=-1, **kwargs):
+    """Paddle's fused residual-add + RMSNorm: ``h = x (+ bias)
+    (+ residual)`` in PyTorch, then the RMSNorm kernels over the last axis
+    (:func:`~paddle_tpu_torch.kernels.rms_norm.rms_norm`, differentiable),
+    then ``+ norm_bias``. Returns ``(out, h)`` when a residual is given,
+    else ``out``.
+
+    The value is the JAX package's TPU route (its Pallas kernel): f32
+    throughout and one rounding to x's dtype. Off the TPU the JAX package
+    takes ``nn.functional.rms_norm``, which rounds ``x * r`` to x's dtype
+    before the weight; in float32 the two agree. ``norm_weight=None``
+    normalizes with a weight of ones (the same value as no weight). A
+    ``begin_norm_axis`` other than the last axis and ``quant_scale > 0``
+    raise ``NotImplementedError`` (the JAX package ignores them)."""
+    if begin_norm_axis not in (-1, x.dim() - 1):
+        raise NotImplementedError(
+            f"fused_rms_norm normalizes over the last axis only; got "
+            f"begin_norm_axis={begin_norm_axis} for {x.dim()} dims")
+    if quant_scale is not None and quant_scale > 0:
+        raise NotImplementedError(
+            "fused_rms_norm with quant_scale > 0 (quantized output) is not "
+            "ported")
+    h = x
+    if bias is not None:
+        h = h + bias
+    if residual is not None:
+        h = h + residual
+    weight = norm_weight
+    if weight is None:
+        weight = torch.ones(h.shape[-1], dtype=h.dtype, device=h.device)
+    out = rms_norm(h, weight, epsilon)
+    if norm_bias is not None:
+        out = out + norm_bias
+    return (out, h) if residual is not None else out
+
+
+def variable_length_memory_efficient_attention(
+        query, key, value, seq_lens=None, kv_seq_lens=None, mask=None,
+        scale=None, causal=False, pre_cache_length=0):
+    """Ragged-batch attention in the ``(B, H, S, D)`` layout: row b's first
+    ``seq_lens[b]`` positions carry segment 0 and the rest (padding)
+    segment 1, and the flash kernels' segment-id variant keeps the two
+    apart (padding rows attend to padding only, as in the JAX package).
+    Without ``seq_lens`` it is plain flash attention. ``kv_seq_lens``,
+    ``mask`` and ``pre_cache_length`` raise ``NotImplementedError`` (the
+    JAX package ignores them)."""
+    if kv_seq_lens is not None or mask is not None or pre_cache_length:
+        raise NotImplementedError(
+            "variable_length_memory_efficient_attention: kv_seq_lens, mask "
+            "and pre_cache_length are not ported")
+    qb, kb, vb = (t.transpose(1, 2) for t in (query, key, value))
+    seg = None
+    if seq_lens is not None:
+        lens = torch.as_tensor(seq_lens, device=query.device).reshape(-1)
+        pos = torch.arange(qb.shape[1], device=query.device)[None, :]
+        seg = (pos >= lens[:, None]).to(torch.int32)
+    out = flash_attention_bshd(qb, kb, vb, segment_ids=seg, causal=causal,
+                               sm_scale=scale)
+    return out.transpose(1, 2)
 
 
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,

@@ -41,6 +41,24 @@
 // its output tile alone. No atomics: every gradient element is summed by
 // one thread in a fixed order, so gradients repeat bit for bit from run to
 // run.
+//
+// Segment ids (varlen / packed sequences; the TPU kernels' `seg_q_ref` /
+// `seg_kv_ref` branch of `_masked_scores`): a compile-time variant of each
+// kernel (SEG), chosen by the C entry when the two nullable id pointers are
+// given. seg_q is (BH, Sq) and seg_kv (BHkv, Skv), int32; query row bh
+// reads the ids of its kv row, as it reads its k/v. A pair is visible when
+// it is causally visible and both ids are equal. The ids a thread needs are
+// those of the 4 rows and 4 columns of the score tile it owns, so they ride
+// in registers, loaded from device memory (the 16 threads that share one
+// read it once through L1); no shared memory is added, and the forward
+// keeps its two blocks an SM. A tile in which no pair is visible is skipped
+// whole, before its k/v (or q/dO) are loaded: every thread tests its 16
+// pairs and `__syncthreads_or` decides for the block. On a pack of
+// documents that drops the tiles between documents, which the TPU kernels
+// swept up to the causal diagonal. Skipping changes no output: a masked
+// tile adds p = 0 to every sum. A row that sees no key anywhere (a padding
+// id no kv position carries) emits zeros with lse = 0, as the TPU kernels'
+// guards make it, and gets zero dq and adds nothing to dk/dv.
 #include "common.cuh"
 
 namespace ptt {
@@ -125,6 +143,44 @@ __device__ __forceinline__ bool fa_visible(int qi, int kj, int Sq, int Skv,
   return qi < Sq && kj < Skv && (!causal || kj <= qi);
 }
 
+// The segment ids of positions p0 + 16j (j < 4) of one id row of length n
+// (0 past its end, where fa_visible is false anyway).
+__device__ __forceinline__ void fa_seg4(int ids[4],
+                                        const int* __restrict__ seg, int p0,
+                                        int n) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = p0 + 16 * j;
+    ids[j] = p < n ? seg[p] : 0;
+  }
+}
+
+// Query row qi sees key kj: causally visible and, with segment ids, in the
+// same segment.
+template <bool SEG>
+__device__ __forceinline__ bool fa_pair(int qi, int kj, int Sq, int Skv,
+                                        int causal, int seg_q, int seg_kv) {
+  return fa_visible(qi, kj, Sq, Skv, causal) && (!SEG || seg_q == seg_kv);
+}
+
+// Whether any of a thread's 4 x 4 pairs (rows r0 + 16i, columns c0 + 16j) is
+// visible; `rows_q` says whether the rows are queries (forward, dq) or keys
+// (dk/dv).
+__device__ __forceinline__ bool fa_any_pair(int r0, int c0, bool rows_q,
+                                            const int rs[4], const int cs[4],
+                                            int Sq, int Skv, int causal) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = r0 + 16 * i, b = c0 + 16 * j;
+      any |= rows_q ? fa_pair<true>(a, b, Sq, Skv, causal, rs[i], cs[j])
+                    : fa_pair<true>(b, a, Sq, Skv, causal, cs[j], rs[i]);
+    }
+  return any;
+}
+
 // ------------------------------------------------------------------ forward
 template <int DP>
 constexpr size_t fa_fwd_smem() {
@@ -132,10 +188,11 @@ constexpr size_t fa_fwd_smem() {
   return sizeof(float) * (2 * FA_B * (DP + 1) + FA_B * DP + FA_B * FA_PS);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SEG>
 __global__ void __launch_bounds__(FA_THREADS, 2)
     fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out,
+                  const T* __restrict__ v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_kv, T* __restrict__ out,
                   float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
                   int D, int causal, float scale) {
   constexpr int DS = DP + 1, NC = DP / 16;
@@ -155,6 +212,9 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
   const T* vb = v + (size_t)kvh * Skv * D;
 
   fa_load<T, DP>(Qs, DS, qb, q0, Sq, D, scale);
+  // this thread's rows' and columns' segment ids (SEG)
+  int sid_q[4] = {}, sid_kv[4] = {};
+  if constexpr (SEG) fa_seg4(sid_q, seg_q + (size_t)bh * Sq, q0 + ty, Sq);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -168,7 +228,15 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
   const int q_last = min(q0 + FA_B, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
   for (int j0 = 0; j0 < kv_end; j0 += FA_B) {
-    __syncthreads();  // the previous tile's readers are done
+    if constexpr (SEG) {
+      fa_seg4(sid_kv, seg_kv + (size_t)kvh * Skv, j0 + tx, Skv);
+      // also: the previous tile's readers are done
+      if (!__syncthreads_or(fa_any_pair(q0 + ty, j0 + tx, true, sid_q,
+                                        sid_kv, Sq, Skv, causal)))
+        continue;
+    } else {
+      __syncthreads();  // the previous tile's readers are done
+    }
     fa_load<T, DP>(Ks, DS, kb, j0, Skv, D, 1.f);
     fa_load<T, DP>(Vs, DP, vb, j0, Skv, D, 1.f);
     __syncthreads();
@@ -180,7 +248,8 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (!fa_visible(qi, j0 + tx + 16 * j, Sq, Skv, causal))
+        if (!fa_pair<SEG>(qi, j0 + tx + 16 * j, Sq, Skv, causal, sid_q[i],
+                          sid_kv[j]))
           s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -216,7 +285,10 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
       const int d = tx + 16 * c;
       if (d < D) o[d] = from_f<T>(acc[i][c] / ls);
     }
-    if (tx == 0) lse[(size_t)bh * Sq + qi] = m[i] + logf(ls);
+    // a row no tile reached (every tile skipped) takes max 0, as the
+    // guard gives a fully masked row
+    const float mf = m[i] <= NEG_INF / 2 ? 0.f : m[i];
+    if (tx == 0) lse[(size_t)bh * Sq + qi] = mf + logf(ls);
   }
 }
 
@@ -227,10 +299,11 @@ constexpr size_t fa_dq_smem() {
   return sizeof(float) * (4 * FA_B * (DP + 1) + FA_B * FA_PS);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SEG>
 __global__ void __launch_bounds__(FA_THREADS)
     fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const T* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dq, int Sq,
                  int Skv, int H, int Hkv, int D, int causal, float scale) {
@@ -251,6 +324,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 
   fa_load<T, DP>(Qs, DS, q + (size_t)bh * Sq * D, q0, Sq, D, scale);
   fa_load<T, DP>(dOs, DS, dout + (size_t)bh * Sq * D, q0, Sq, D, 1.f);
+  int sid_q[4] = {}, sid_kv[4] = {};
+  if constexpr (SEG) fa_seg4(sid_q, seg_q + (size_t)bh * Sq, q0 + ty, Sq);
   float row_lse[4], row_delta[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -264,7 +339,14 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int q_last = min(q0 + FA_B, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
   for (int j0 = 0; j0 < kv_end; j0 += FA_B) {
-    __syncthreads();
+    if constexpr (SEG) {
+      fa_seg4(sid_kv, seg_kv + (size_t)kvh * Skv, j0 + tx, Skv);
+      if (!__syncthreads_or(fa_any_pair(q0 + ty, j0 + tx, true, sid_q,
+                                        sid_kv, Sq, Skv, causal)))
+        continue;
+    } else {
+      __syncthreads();
+    }
     fa_load<T, DP>(Ks, DS, kb, j0, Skv, D, 1.f);
     fa_load<T, DP>(Vs, DS, vb, j0, Skv, D, 1.f);
     __syncthreads();
@@ -276,7 +358,8 @@ __global__ void __launch_bounds__(FA_THREADS)
       const int qi = q0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool vis = fa_visible(qi, j0 + tx + 16 * j, Sq, Skv, causal);
+        const bool vis = fa_pair<SEG>(qi, j0 + tx + 16 * j, Sq, Skv, causal,
+                                      sid_q[i], sid_kv[j]);
         const float p = vis ? expf(s[i][j] - row_lse[i]) : 0.f;
         Ps[(ty + 16 * i) * FA_PS + tx + 16 * j] = p * (dp[i][j] - row_delta[i]);
       }
@@ -305,10 +388,11 @@ constexpr size_t fa_dkv_smem() {
   return sizeof(float) * (4 * FA_B * (DP + 1) + FA_B * FA_PS + 2 * FA_B);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SEG>
 __global__ void __launch_bounds__(FA_THREADS)
     fa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const T* __restrict__ v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_kv, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, int Sq, int Skv, int H, int Hkv, int D,
@@ -331,6 +415,10 @@ __global__ void __launch_bounds__(FA_THREADS)
 
   fa_load<T, DP>(Ks, DS, k + (size_t)kvh * Skv * D, k0, Skv, D, 1.f);
   fa_load<T, DP>(Vs, DS, v + (size_t)kvh * Skv * D, k0, Skv, D, 1.f);
+  // rows of the transposed tiles are keys, columns queries
+  int sid_kv[4] = {}, sid_q[4] = {};
+  if constexpr (SEG)
+    fa_seg4(sid_kv, seg_kv + (size_t)kvh * Skv, k0 + ty, Skv);
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -344,7 +432,15 @@ __global__ void __launch_bounds__(FA_THREADS)
     const T* qb = q + (size_t)bh * Sq * D;
     const T* ob = dout + (size_t)bh * Sq * D;
     for (int q0 = q_begin; q0 < Sq; q0 += FA_B) {
-      __syncthreads();  // the previous tile's readers are done
+      if constexpr (SEG) {
+        fa_seg4(sid_q, seg_q + (size_t)bh * Sq, q0 + tx, Sq);
+        // also: the previous tile's readers are done
+        if (!__syncthreads_or(fa_any_pair(k0 + ty, q0 + tx, false, sid_kv,
+                                          sid_q, Sq, Skv, causal)))
+          continue;
+      } else {
+        __syncthreads();  // the previous tile's readers are done
+      }
       fa_load<T, DP>(Qs, DS, qb, q0, Sq, D, scale);
       fa_load<T, DP>(dOs, DS, ob, q0, Sq, D, 1.f);
       for (int t = threadIdx.x; t < FA_B; t += FA_THREADS) {
@@ -363,7 +459,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qc = tx + 16 * j;
-          const bool vis = fa_visible(q0 + qc, kj, Sq, Skv, causal);
+          const bool vis = fa_pair<SEG>(q0 + qc, kj, Sq, Skv, causal,
+                                        sid_q[j], sid_kv[i]);
           const float p = vis ? expf(st[i][j] - lse_s[qc]) : 0.f;
           Ps[(ty + 16 * i) * FA_PS + qc] = p;
           st[i][j] = p * (dpt[i][j] - delta_s[qc]);  // dS^T, kept for dk
@@ -405,49 +502,51 @@ int fa_prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int DP>
-int fa_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-           int BH, int Sq, int Skv, int H, int Hkv, int D, int causal,
-           float scale, cudaStream_t st) {
+template <typename T, int DP, bool SEG>
+int fa_fwd(const void* q, const void* k, const void* v, const void* seg_q,
+           const void* seg_kv, void* out, void* lse, int BH, int Sq, int Skv,
+           int H, int Hkv, int D, int causal, float scale, cudaStream_t st) {
   const size_t smem = fa_fwd_smem<DP>();
-  int rc = fa_prepare(fa_fwd_kernel<T, DP>, smem);
+  int rc = fa_prepare(fa_fwd_kernel<T, DP, SEG>, smem);
   if (rc) return rc;
   dim3 grid((Sq + FA_B - 1) / FA_B, BH);
-  fa_fwd_kernel<T, DP><<<grid, FA_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, Sq, Skv,
-      H, Hkv, D, causal, scale);
+  fa_fwd_kernel<T, DP, SEG><<<grid, FA_THREADS, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q,
+      (const int*)seg_kv, (T*)out, (float*)lse, Sq, Skv, H, Hkv, D, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int fa_dq(const void* q, const void* k, const void* v, const void* dout,
-          const void* lse, const void* delta, void* dq, int BH, int Sq,
-          int Skv, int H, int Hkv, int D, int causal, float scale,
-          cudaStream_t st) {
+template <typename T, int DP, bool SEG>
+int fa_dq(const void* q, const void* k, const void* v, const void* seg_q,
+          const void* seg_kv, const void* dout, const void* lse,
+          const void* delta, void* dq, int BH, int Sq, int Skv, int H,
+          int Hkv, int D, int causal, float scale, cudaStream_t st) {
   const size_t smem = fa_dq_smem<DP>();
-  int rc = fa_prepare(fa_dq_kernel<T, DP>, smem);
+  int rc = fa_prepare(fa_dq_kernel<T, DP, SEG>, smem);
   if (rc) return rc;
   dim3 grid((Sq + FA_B - 1) / FA_B, BH);
-  fa_dq_kernel<T, DP><<<grid, FA_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, Sq, Skv, H, Hkv, D,
-      causal, scale);
+  fa_dq_kernel<T, DP, SEG><<<grid, FA_THREADS, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q,
+      (const int*)seg_kv, (const T*)dout, (const float*)lse,
+      (const float*)delta, (T*)dq, Sq, Skv, H, Hkv, D, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int fa_dkv(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dk, void* dv, int BHkv,
-           int Sq, int Skv, int H, int Hkv, int D, int causal, float scale,
-           cudaStream_t st) {
+template <typename T, int DP, bool SEG>
+int fa_dkv(const void* q, const void* k, const void* v, const void* seg_q,
+           const void* seg_kv, const void* dout, const void* lse,
+           const void* delta, void* dk, void* dv, int BHkv, int Sq, int Skv,
+           int H, int Hkv, int D, int causal, float scale, cudaStream_t st) {
   const size_t smem = fa_dkv_smem<DP>();
-  int rc = fa_prepare(fa_dkv_kernel<T, DP>, smem);
+  int rc = fa_prepare(fa_dkv_kernel<T, DP, SEG>, smem);
   if (rc) return rc;
   dim3 grid((Skv + FA_B - 1) / FA_B, BHkv);
-  fa_dkv_kernel<T, DP><<<grid, FA_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, Sq, Skv, H,
-      Hkv, D, causal, scale);
+  fa_dkv_kernel<T, DP, SEG><<<grid, FA_THREADS, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q,
+      (const int*)seg_kv, (const T*)dout, (const float*)lse,
+      (const float*)delta, (T*)dk, (T*)dv, Sq, Skv, H, Hkv, D, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -458,22 +557,33 @@ inline bool fa_shape_ok(int rows, int Sq, int Skv, int H, int Hkv, int D) {
 
 }  // namespace ptt
 
-// Dispatch on dtype (0 = f32, 1 = bf16) and padded head dim (64 or 128).
-#define PTT_FA_DISPATCH(FN, ...)                                         \
+// Dispatch on dtype (0 = f32, 1 = bf16), padded head dim (64 or 128) and
+// segment ids (both id pointers given, or neither).
+#define PTT_FA_DISPATCH_SEG(FN, SEG, ...)                                \
   do {                                                                   \
     if (dtype == ptt::DT_F32 && D <= 64)                                 \
-      return ptt::FN<float, 64>(__VA_ARGS__);                            \
+      return ptt::FN<float, 64, SEG>(__VA_ARGS__);                       \
     if (dtype == ptt::DT_F32)                                            \
-      return ptt::FN<float, 128>(__VA_ARGS__);                           \
+      return ptt::FN<float, 128, SEG>(__VA_ARGS__);                      \
     if (dtype == ptt::DT_BF16 && D <= 64)                                \
-      return ptt::FN<__nv_bfloat16, 64>(__VA_ARGS__);                    \
+      return ptt::FN<__nv_bfloat16, 64, SEG>(__VA_ARGS__);               \
     if (dtype == ptt::DT_BF16)                                           \
-      return ptt::FN<__nv_bfloat16, 128>(__VA_ARGS__);                   \
+      return ptt::FN<__nv_bfloat16, 128, SEG>(__VA_ARGS__);              \
     return (int)cudaErrorInvalidValue;                                   \
   } while (0)
 
+#define PTT_FA_DISPATCH(FN, ...)                                         \
+  do {                                                                   \
+    if ((seg_q == nullptr) != (seg_kv == nullptr))                       \
+      return (int)cudaErrorInvalidValue;                                 \
+    if (seg_q != nullptr) PTT_FA_DISPATCH_SEG(FN, true, __VA_ARGS__);    \
+    PTT_FA_DISPATCH_SEG(FN, false, __VA_ARGS__);                         \
+  } while (0)
+
+// seg_q / seg_kv: nullable int32 segment ids, (BH, Sq) and (BHkv, Skv)
 PTT_EXPORT int ptt_flash_attention_fwd(int dtype, const void* q,
                                        const void* k, const void* v,
+                                       const void* seg_q, const void* seg_kv,
                                        void* out, void* lse, int BH, int Sq,
                                        int Skv, int H, int Hkv, int D,
                                        int causal, float scale,
@@ -481,12 +591,14 @@ PTT_EXPORT int ptt_flash_attention_fwd(int dtype, const void* q,
   if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_DISPATCH(fa_fwd, q, k, v, out, lse, BH, Sq, Skv, H, Hkv, D, causal,
-                  scale, st);
+  PTT_FA_DISPATCH(fa_fwd, q, k, v, seg_q, seg_kv, out, lse, BH, Sq, Skv, H,
+                  Hkv, D, causal, scale, st);
 }
 
 PTT_EXPORT int ptt_flash_attention_bwd_dq(int dtype, const void* q,
                                           const void* k, const void* v,
+                                          const void* seg_q,
+                                          const void* seg_kv,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dq, int BH,
                                           int Sq, int Skv, int H, int Hkv,
@@ -495,12 +607,14 @@ PTT_EXPORT int ptt_flash_attention_bwd_dq(int dtype, const void* q,
   if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_DISPATCH(fa_dq, q, k, v, dout, lse, delta, dq, BH, Sq, Skv, H, Hkv,
-                  D, causal, scale, st);
+  PTT_FA_DISPATCH(fa_dq, q, k, v, seg_q, seg_kv, dout, lse, delta, dq, BH, Sq,
+                  Skv, H, Hkv, D, causal, scale, st);
 }
 
 PTT_EXPORT int ptt_flash_attention_bwd_dkv(int dtype, const void* q,
                                            const void* k, const void* v,
+                                           const void* seg_q,
+                                           const void* seg_kv,
                                            const void* dout, const void* lse,
                                            const void* delta, void* dk,
                                            void* dv, int BHkv, int Sq,
@@ -510,6 +624,6 @@ PTT_EXPORT int ptt_flash_attention_bwd_dkv(int dtype, const void* q,
   if (!ptt::fa_shape_ok(BHkv, Sq, Skv, H, Hkv, D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_DISPATCH(fa_dkv, q, k, v, dout, lse, delta, dk, dv, BHkv, Sq, Skv, H,
-                  Hkv, D, causal, scale, st);
+  PTT_FA_DISPATCH(fa_dkv, q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv,
+                  BHkv, Sq, Skv, H, Hkv, D, causal, scale, st);
 }

@@ -21,8 +21,14 @@ package does) and runs dq and dk/dv. A CUDA tensor always launches the
 kernels (no block-size flags, no minimum length, no dense fallback: the
 kernels take any S); a CPU tensor runs the plain versions.
 
-Not ported (``NotImplementedError``): segment ids / ``kv_segment_ids``
-(varlen packing) and :func:`flash_attention_with_lse` (ring attention).
+Segment ids (varlen / packed sequences): ``seg_q`` ``(BH, Sq)`` and
+``seg_kv`` ``(BHkv, Skv)``, int32; a query sees a key only within its
+segment (and causally). Each kernel has a segment variant, counted apart
+as ``<wrapper>_seg``. A row whose id no key carries emits zeros with
+lse 0 and gets zero gradients.
+
+Not ported (``NotImplementedError``): :func:`flash_attention_with_lse`
+(ring attention).
 """
 
 from __future__ import annotations
@@ -58,9 +64,10 @@ def _heads(n_heads: int, n_kv_heads: Optional[int], q, k) -> Tuple[int, int]:
 
 
 # ------------------------------------------------------------ plain versions
-def _dense(q, k, v, causal, sm_scale, h, hkv):
+def _dense(q, k, v, causal, sm_scale, h, hkv, seg_q=None, seg_kv=None):
     """f32 views ``(b, hkv, rep, sq, d)`` / ``(b, hkv, skv, d)`` and the
-    masked scaled scores ``(b, hkv, rep, sq, skv)``."""
+    masked scaled scores ``(b, hkv, rep, sq, skv)``: causal, and with
+    segment ids only within a segment (JAX's ``flash_attention_ref``)."""
     bh, sq, d = q.shape
     b, rep, skv = bh // h, h // hkv, k.shape[1]
     qf = q.reshape(b, hkv, rep, sq, d).float() * sm_scale
@@ -71,19 +78,24 @@ def _dense(q, k, v, causal, sm_scale, h, hkv):
         q_pos = torch.arange(sq, device=q.device)[:, None]
         kv_pos = torch.arange(skv, device=q.device)[None, :]
         s = s.masked_fill(kv_pos > q_pos, _NEG_INF)
+    if seg_q is not None:
+        same = (seg_q.reshape(b, hkv, rep, sq)[..., :, None]
+                == seg_kv.reshape(b, hkv, skv)[:, :, None, None, :])
+        s = s.masked_fill(~same, _NEG_INF)
     return qf, kf, vf, s
 
 
 def flash_attention_fwd_ref(q, k, v, causal: bool = True,
                             sm_scale: Optional[float] = None,
                             n_heads: int = 1,
-                            n_kv_heads: Optional[int] = None):
+                            n_kv_heads: Optional[int] = None,
+                            seg_q=None, seg_kv=None):
     """Plain version of :func:`flash_attention_fwd`: dense f32 softmax with
     the kernels' guards (a fully masked row takes max 0, ``l == 0`` reads
     as 1). Returns ``(out, lse)``, out in q's dtype, lse f32 ``(BH, S)``."""
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     sm_scale = _scale(sm_scale, q.shape[-1])
-    _, _, vf, s = _dense(q, k, v, causal, sm_scale, h, hkv)
+    _, _, vf, s = _dense(q, k, v, causal, sm_scale, h, hkv, seg_q, seg_kv)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m <= _NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.exp(s - m)
@@ -95,12 +107,13 @@ def flash_attention_fwd_ref(q, k, v, causal: bool = True,
             lse.reshape(q.shape[0], q.shape[1]))
 
 
-def _bwd_dense(q, k, v, do, lse, delta, causal, sm_scale, h, hkv):
+def _bwd_dense(q, k, v, do, lse, delta, causal, sm_scale, h, hkv, seg_q,
+               seg_kv):
     """p and ds of the FA-2 backward, recomputed from lse: masked scores
     give p = exp(-1e30 - lse) = 0."""
     bh, sq, d = q.shape
     b, rep = bh // h, h // hkv
-    qf, kf, vf, s = _dense(q, k, v, causal, sm_scale, h, hkv)
+    qf, kf, vf, s = _dense(q, k, v, causal, sm_scale, h, hkv, seg_q, seg_kv)
     lse5 = lse.reshape(b, hkv, rep, sq, 1)
     delta5 = delta.float().reshape(b, hkv, rep, sq, 1)
     p = torch.exp(s - lse5)
@@ -113,14 +126,15 @@ def _bwd_dense(q, k, v, do, lse, delta, causal, sm_scale, h, hkv):
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool = True,
                                sm_scale: Optional[float] = None,
                                n_heads: int = 1,
-                               n_kv_heads: Optional[int] = None):
+                               n_kv_heads: Optional[int] = None,
+                               seg_q=None, seg_kv=None):
     """Plain version of :func:`flash_attention_bwd_dq`:
     ``dq = sm_scale * (p * (dO V^T - delta)) K`` in f32, cast to q's
     dtype."""
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     sm_scale = _scale(sm_scale, q.shape[-1])
     _, kf, _, _, ds = _bwd_dense(q, k, v, do, lse, delta, causal, sm_scale,
-                                 h, hkv)
+                                 h, hkv, seg_q, seg_kv)
     dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, kf) * sm_scale
     return dq.reshape(q.shape).to(q.dtype)
 
@@ -128,14 +142,15 @@ def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool = True,
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool = True,
                                 sm_scale: Optional[float] = None,
                                 n_heads: int = 1,
-                                n_kv_heads: Optional[int] = None):
+                                n_kv_heads: Optional[int] = None,
+                                seg_q=None, seg_kv=None):
     """Plain version of :func:`flash_attention_bwd_dkv`: ``dv = p^T dO`` and
     ``dk = ds^T (q * sm_scale)``, summed over each GQA group's query heads,
     in f32, cast to k's and v's dtype."""
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     sm_scale = _scale(sm_scale, q.shape[-1])
     qf, _, dof, p, ds = _bwd_dense(q, k, v, do, lse, delta, causal,
-                                   sm_scale, h, hkv)
+                                   sm_scale, h, hkv, seg_q, seg_kv)
     dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)
     dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, qf)
     return dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
@@ -145,17 +160,53 @@ def flash_attention_ref(q, k, v, segment_ids=None, kv_segment_ids=None,
                         causal: bool = True, sm_scale: Optional[float] = None,
                         n_heads: int = 1, n_kv_heads: Optional[int] = None):
     """Dense composition of :func:`flash_attention`, differentiable by
-    autograd: the parity oracle. Same layout, GQA convention and
-    fully-masked-row semantics (such rows emit zeros, not NaN)."""
-    if segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "segment ids (varlen packing) are not ported: a later slice, "
-            "with flash_attn_unpadded")
-    return flash_attention_fwd_ref(q, k, v, causal, sm_scale, n_heads,
-                                   n_kv_heads)[0]
+    autograd: the parity oracle. Same layout, GQA convention, segment-id
+    rules and fully-masked-row semantics (such rows emit zeros, not
+    NaN)."""
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    seg_q, seg_kv = _segments(segment_ids, kv_segment_ids, h, hkv)
+    return flash_attention_fwd_ref(q, k, v, causal, sm_scale, h, hkv, seg_q,
+                                   seg_kv)[0]
+
+
+def _segments(segment_ids, kv_segment_ids, h, hkv):
+    """JAX's argument rules: ``kv_segment_ids`` defaults to
+    ``segment_ids`` only when the head counts match (the q-side ids are
+    ``(B*H, S)`` rows, the kv side's ``(B*Hkv, Skv)``); kv ids without q
+    ids are an error (JAX ignores them)."""
+    if segment_ids is None:
+        if kv_segment_ids is not None:
+            raise ValueError("kv_segment_ids given without segment_ids")
+        return None, None
+    if kv_segment_ids is None:
+        if hkv != h:
+            raise ValueError(
+                "GQA flash_attention needs an explicit (B*n_kv_heads, Skv) "
+                "kv_segment_ids (the q-side ids have a different leading "
+                "dim)")
+        kv_segment_ids = segment_ids
+    return segment_ids, kv_segment_ids
 
 
 # ----------------------------------------------------------------- wrappers
+def _check_seg(name, q, k, seg_q, seg_kv):
+    """Segment ids: both or neither, int32, contiguous, ``(BH, Sq)`` and
+    ``(BHkv, Skv)`` on q's device. Returns the kernels' two pointers (0 for
+    none) and the counter variant."""
+    if seg_q is None and seg_kv is None:
+        return 0, 0, ""
+    if seg_q is None or seg_kv is None:
+        raise ValueError(f"{name}: seg_q and seg_kv go together")
+    for nm, t, shape in (("seg_q", seg_q, q.shape[:2]),
+                         ("seg_kv", seg_kv, k.shape[:2])):
+        if t.device != q.device or t.dtype != torch.int32:
+            raise ValueError(f"{name}: {nm} must be int32 on {q.device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous "
+                             f"{tuple(shape)}, got {tuple(t.shape)}")
+    return seg_q.data_ptr(), seg_kv.data_ptr(), "seg"
+
+
 def _check_cuda(name, q, k, v, extra=()):
     """The kernels' contract: one CUDA device, float32 or bfloat16,
     contiguous, D <= 128, at most 65535 (batch * head) rows."""
@@ -183,27 +234,34 @@ def _check_cuda(name, q, k, v, extra=()):
             raise ValueError(f"{name}: {nm} must be contiguous")
 
 
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+# each entry: dtype, q, k, v, seg_q, seg_kv, its tensors, 7 ints, scale,
+# stream
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-_DQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+_DQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-_DKV_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+_DKV_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         sm_scale: Optional[float] = None, n_heads: int = 1,
-                        n_kv_heads: Optional[int] = None):
+                        n_kv_heads: Optional[int] = None, seg_q=None,
+                        seg_kv=None):
     """Forward attention without materialising the scores. Returns
     ``(out, lse)``: out ``(BH, S, D)`` in q's dtype, lse ``(BH, S)`` f32.
+    ``seg_q``/``seg_kv``: int32 segment ids ``(BH, Sq)``/``(BHkv, Skv)``,
+    both or neither.
 
     CPU tensors take :func:`flash_attention_fwd_ref`. CUDA tensors launch
     the kernel (float32 or bfloat16, contiguous, D <= 128, any S); a tensor
     it does not take raises."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal, sm_scale, n_heads,
-                                       n_kv_heads)
+                                       n_kv_heads, seg_q, seg_kv)
     _check_cuda("flash_attention_fwd", q, k, v)
+    sq_ptr, skv_ptr, variant = _check_seg("flash_attention_fwd", q, k,
+                                          seg_q, seg_kv)
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     bh, sq, d = q.shape
     out = torch.empty_like(q)
@@ -211,11 +269,11 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     fn = _build.bind("flash_attention", "ptt_flash_attention_fwd",
                      _FWD_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1],
-            h, hkv, d, int(bool(causal)), _scale(sm_scale, d),
-            _build.stream_handle(q.device))
+            v.data_ptr(), sq_ptr, skv_ptr, out.data_ptr(), lse.data_ptr(),
+            bh, sq, k.shape[1], h, hkv, d, int(bool(causal)),
+            _scale(sm_scale, d), _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_fwd")
-    _build.count(flash_attention_fwd)
+    _build.count(flash_attention_fwd, variant)
     return out, lse
 
 
@@ -229,70 +287,81 @@ def _stats_extra(q, lse, delta, do):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                            sm_scale: Optional[float] = None,
                            n_heads: int = 1,
-                           n_kv_heads: Optional[int] = None):
+                           n_kv_heads: Optional[int] = None, seg_q=None,
+                           seg_kv=None):
     """dq of the FA-2 backward from the saved lse and ``delta =
     rowsum(dO * O)`` (both f32 ``(BH, S)``). CPU tensors take
     :func:`flash_attention_bwd_dq_ref`; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
-                                          sm_scale, n_heads, n_kv_heads)
+                                          sm_scale, n_heads, n_kv_heads,
+                                          seg_q, seg_kv)
     _check_cuda("flash_attention_bwd_dq", q, k, v,
                 _stats_extra(q, lse, delta, do))
+    sq_ptr, skv_ptr, variant = _check_seg("flash_attention_bwd_dq", q, k,
+                                          seg_q, seg_kv)
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
     fn = _build.bind("flash_attention", "ptt_flash_attention_bwd_dq",
                      _DQ_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), bh, sq, k.shape[1], h, hkv, d, int(bool(causal)),
-            _scale(sm_scale, d), _build.stream_handle(q.device))
+            v.data_ptr(), sq_ptr, skv_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1], h, hkv, d,
+            int(bool(causal)), _scale(sm_scale, d),
+            _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_bwd_dq")
-    _build.count(flash_attention_bwd_dq)
+    _build.count(flash_attention_bwd_dq, variant)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                             sm_scale: Optional[float] = None,
                             n_heads: int = 1,
-                            n_kv_heads: Optional[int] = None):
+                            n_kv_heads: Optional[int] = None, seg_q=None,
+                            seg_kv=None):
     """(dk, dv) of the FA-2 backward; every query head of a GQA group adds
     into its kv head. CPU tensors take :func:`flash_attention_bwd_dkv_ref`;
     CUDA tensors launch the kernel, which uses no atomics (gradients repeat
     bit for bit)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
-                                           sm_scale, n_heads, n_kv_heads)
+                                           sm_scale, n_heads, n_kv_heads,
+                                           seg_q, seg_kv)
     _check_cuda("flash_attention_bwd_dkv", q, k, v,
                 _stats_extra(q, lse, delta, do))
+    sq_ptr, skv_ptr, variant = _check_seg("flash_attention_bwd_dkv", q, k,
+                                          seg_q, seg_kv)
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     bh, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _build.bind("flash_attention", "ptt_flash_attention_bwd_dkv",
                      _DKV_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), k.shape[0], sq, k.shape[1], h, hkv,
-            d, int(bool(causal)), _scale(sm_scale, d),
+            v.data_ptr(), sq_ptr, skv_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), k.shape[0], sq,
+            k.shape[1], h, hkv, d, int(bool(causal)), _scale(sm_scale, d),
             _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_bwd_dkv")
-    _build.count(flash_attention_bwd_dkv)
+    _build.count(flash_attention_bwd_dkv, variant)
     return dk, dv
 
 
-_build.counters(flash_attention_fwd, "")
-_build.counters(flash_attention_bwd_dq, "")
-_build.counters(flash_attention_bwd_dkv, "")
+_build.counters(flash_attention_fwd, "", "seg")
+_build.counters(flash_attention_bwd_dq, "", "seg")
+_build.counters(flash_attention_bwd_dkv, "", "seg")
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, and the dq and dk/dv kernels as its backward."""
+    """The forward kernel, and the dq and dk/dv kernels as its backward;
+    segment ids ride along to the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, h, hkv):
-        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, h, hkv)
+    def forward(ctx, q, k, v, causal, sm_scale, h, hkv, seg_q, seg_kv):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, h, hkv,
+                                       seg_q, seg_kv)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, sm_scale, h, hkv)
+        ctx.args = (causal, sm_scale, h, hkv, seg_q, seg_kv)
         return out
 
     @staticmethod
@@ -302,7 +371,7 @@ class _FlashAttention(torch.autograd.Function):
         delta = (out.float() * do.float()).sum(dim=-1)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, segment_ids=None, kv_segment_ids=None,
@@ -310,16 +379,19 @@ def flash_attention(q, k, v, segment_ids=None, kv_segment_ids=None,
                     n_heads: int = 1, n_kv_heads: Optional[int] = None):
     """``(BH, S, D)``-layout flash attention, differentiable. GQA: q as
     ``(B*n_heads, S, D)``, k/v as ``(B*n_kv_heads, Skv, D)``; the kernels
-    read the unexpanded kv and add dk/dv over each group's query heads."""
-    if segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "segment ids (varlen packing) are not ported: a later slice, "
-            "with flash_attn_unpadded")
+    read the unexpanded kv and add dk/dv over each group's query heads.
+    ``segment_ids`` ``(BH, S)`` int: rows attend only within their segment
+    (packed sequences); ``kv_segment_ids`` ``(BHkv, Skv)`` defaults to it
+    when the head counts match."""
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    seg_q, seg_kv = _segments(segment_ids, kv_segment_ids, h, hkv)
+    if seg_q is not None:
+        seg_q = seg_q.to(device=q.device, dtype=torch.int32).contiguous()
+        seg_kv = seg_kv.to(device=q.device, dtype=torch.int32).contiguous()
     sm_scale = _scale(sm_scale, q.shape[-1])
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), bool(causal), sm_scale, h,
-                                 hkv)
+                                 hkv, seg_q, seg_kv)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = True,
@@ -336,18 +408,23 @@ def flash_attention_bshd(q, k, v, segment_ids=None, kv_segment_ids=None,
                          causal: bool = True,
                          sm_scale: Optional[float] = None):
     """Paddle-convention ``(B, S, H, D)`` wrapper. GQA: k/v may carry fewer
-    heads (Hkv | H), never expanded."""
-    if segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "segment ids (varlen packing) are not ported: a later slice, "
-            "with flash_attn_unpadded")
+    heads (Hkv | H), never expanded. ``segment_ids`` ``(B, S)``;
+    ``kv_segment_ids`` ``(B, Skv)`` defaults to it when the lengths match.
+    Each row's ids serve all its heads."""
     b, s, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    if segment_ids is not None and kv_segment_ids is None:
+        if s != skv:
+            raise ValueError(
+                "kv_segment_ids required when q and kv lengths differ")
+        kv_segment_ids = segment_ids
+    seg_q, seg_kv = (None if ids is None else ids.repeat_interleave(n, dim=0)
+                     for ids, n in ((segment_ids, h), (kv_segment_ids, hkv)))
 
     def to_bhsd(t, sl, nh):
         return t.transpose(1, 2).reshape(b * nh, sl, d)
 
     out = flash_attention(to_bhsd(q, s, h), to_bhsd(k, skv, hkv),
-                          to_bhsd(v, skv, hkv), causal=causal,
+                          to_bhsd(v, skv, hkv), seg_q, seg_kv, causal=causal,
                           sm_scale=sm_scale, n_heads=h, n_kv_heads=hkv)
     return out.reshape(b, h, s, d).transpose(1, 2)

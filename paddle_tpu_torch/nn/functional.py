@@ -1,11 +1,14 @@
 """Functional surface of the ported slices (counterpart of
 ``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU, the training attention
-(``scaled_dot_product_attention`` on the flash kernels) and the paged
-attention that routes a whole-prompt prefill (S > 1), a prefill chunk
-(S > 1 under a ``PagedChunkState``) or a decode step (S == 1)."""
+(``scaled_dot_product_attention`` and ``flash_attention`` on the flash
+kernels, ``flash_attn_unpadded`` on their segment-id variant for packed
+sequences) and the paged attention that routes a whole-prompt prefill
+(S > 1), a prefill chunk (S > 1 under a ``PagedChunkState``) or a decode
+step (S == 1)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -56,6 +59,100 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "scaled_dot_product_attention with dropout_p > 0 (the dense "
             "path) is not ported: a later slice")
     return flash_attention_bshd(query, key, value, causal=is_causal)
+
+
+def _refuse_softmax_and_dropout(return_softmax, dropout, training):
+    if return_softmax:
+        raise NotImplementedError(
+            "return_softmax requires materializing the (S, S) matrix the "
+            "flash kernels exist to avoid: use the plain "
+            "flash_attention_ref for debugging")
+    if dropout and training:   # inference dropout is a no-op, like the ref
+        raise NotImplementedError("attention dropout is not folded into "
+                                  "the flash kernels")
+
+
+def flash_attention(query, key, value, dropout: float = 0.0,
+                    causal: bool = False, return_softmax: bool = False,
+                    fixed_seed_offset=None, rng_name: str = "",
+                    training: bool = True, name=None):
+    """Paddle's ``flash_attention``: ``(B, S, H, D)`` layout, returns
+    ``(out, None)`` (the softmax is never materialised). Runs the flash
+    kernels; ``return_softmax`` and training-time dropout raise, as in the
+    JAX package."""
+    _refuse_softmax_and_dropout(return_softmax, dropout, training)
+    return scaled_dot_product_attention(query, key, value, is_causal=causal,
+                                        training=training), None
+
+
+def _segment_ids(cu: torch.Tensor, total: int, device) -> torch.Tensor:
+    """Token i's segment: the index of the boundary interval that holds it
+    (``searchsorted(cu, i, right=True)``: 1 for the first sequence)."""
+    pos = torch.arange(total, device=device)
+    return torch.searchsorted(cu.to(device=device, dtype=torch.int64), pos,
+                              right=True).to(torch.int32)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None,
+                        dropout: float = 0.0, causal: bool = False,
+                        return_softmax: bool = False,
+                        fixed_seed_offset=None, rng_name: str = "",
+                        training: bool = True, name=None):
+    """Varlen (packed) attention: ``query`` ``(total_q, H, D)``,
+    ``key``/``value`` ``(total_k, Hkv, D)`` with cumulative boundaries
+    ``cu_seqlens_q``/``cu_seqlens_k`` (leading 0). Returns ``(out, None)``,
+    out ``(total_q, H, D)``; differentiable.
+
+    The pack becomes one flash call whose segment ids (token i of sequence
+    j carries j + 1) keep the sequences apart: the kernels' segment-id
+    variant, for a self-attention pack (identical boundaries; the global
+    causal order is then each sequence's own) and for any pack without a
+    causal mask. A *causal* cross-pack (``cu_q != cu_k``) takes the JAX
+    package's dense, segment-masked route with each sequence's local
+    positions, in plain PyTorch: it launches no kernel. The route is chosen
+    by layout, never on failure, as in the JAX package; the kernels take
+    any total length, so the JAX package's dense fallback for a total that
+    is not block-divisible has no counterpart. Deciding ``cu_q == cu_k``
+    reads both boundary tensors on the host once a call (the JAX package
+    reads them with ``np.asarray``). ``max_seqlen_*`` are taken for
+    Paddle's signature and not needed."""
+    _refuse_softmax_and_dropout(return_softmax, dropout, training)
+    same_pack = torch.equal(cu_seqlens_q.detach().cpu().long(),
+                            cu_seqlens_k.detach().cpu().long())
+    tq, tk = query.shape[0], key.shape[0]
+    seg_q = _segment_ids(cu_seqlens_q, tq, query.device)
+    seg_k = _segment_ids(cu_seqlens_k, tk, query.device)
+    sc = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    if same_pack or not causal:
+        out = flash_attention_bshd(query[None], key[None], value[None],
+                                   segment_ids=seg_q[None],
+                                   kv_segment_ids=seg_k[None], causal=causal,
+                                   sm_scale=sc)
+        return out[0], None
+    return _unpadded_dense(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                           seg_q, seg_k, sc), None
+
+
+def _unpadded_dense(q, k, v, cu_q, cu_k, seg_q, seg_k, sc):
+    """The causal cross-pack: dense f32 scores masked to one sequence and
+    to its local causal order (JAX's ``flash_attn_unpadded`` dense route);
+    a row that sees no key emits zeros."""
+    h, hkv = q.shape[1], k.shape[1]
+    kx = k.repeat_interleave(h // hkv, dim=1) if hkv != h else k
+    vx = v.repeat_interleave(h // hkv, dim=1) if hkv != h else v
+    s = torch.einsum("qhd,khd->hqk", q.float(), kx.float()) * sc
+    mask = seg_q[:, None] == seg_k[None, :]
+    zero = torch.zeros(1, dtype=torch.int64, device=q.device)
+    start_q = torch.cat([zero, cu_q.to(q.device).long()])[seg_q.long()]
+    start_k = torch.cat([zero, cu_k.to(q.device).long()])[seg_k.long()]
+    loc_q = torch.arange(q.shape[0], device=q.device) - start_q
+    loc_k = torch.arange(k.shape[0], device=q.device) - start_k
+    mask &= loc_q[:, None] >= loc_k[None, :]
+    s = s.masked_fill(~mask[None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1)[None, :, None], p, torch.zeros_like(p))
+    return torch.einsum("hqk,khd->qhd", p, vx.float()).to(q.dtype)
 
 
 def paged_scaled_dot_product_attention(query, key, value, state

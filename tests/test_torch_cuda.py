@@ -10,10 +10,16 @@ also held bit for bit to the one-layer kernel's chain; for the quantized
 variants (int8 pools in the decode, chunk and fused kernels, int4 tiles in
 the N-layer kernel) GQA, idle rows, int4 tiles that straddle q|k|v or 8
 columns, and the int8 N-layer kernel bit for bit against the one-layer
-kernel's chain. Each kernel is held to its plain PyTorch version on the
-same card tensors (fp32 1e-4, bf16 2e-2 abs: the kernels sum in f32 in
-another order, and bf16 rounds once more at the output); the wrappers' input checks and launch counters
-are checked too, a tiny GQA engine on the card is held to the same
+kernel's chain; for the fused RMSNorm widths 64 to 40000 (above the TPU
+kernel's VMEM cap) and 1001 (one element a load), 1, 7 and 8192 rows; for
+the flash kernels' segment-id variant document boundaries inside a
+64-row tile, a padding id no key carries, GQA, head_dim 64 and 128,
+lengths that are not a multiple of 64, and the public varlen entry points
+against their CPU run. Each kernel is held to its plain PyTorch version
+on the same card tensors (fp32 1e-4, bf16 2e-2 abs: the kernels sum in
+f32 in another order, and bf16 rounds once more at the output; the
+RMSNorm outputs within 1e-3 + one bf16 ulp); the wrappers' input checks
+and launch counters are checked too, a tiny GQA engine on the card is held to the same
 engine on the CPU, and so is the bf16 ``fused_linear_cross_entropy``
 (whose card path makes its f32 logits with one GEMM).
 
@@ -34,6 +40,7 @@ from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_block_decode as fb
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
 pytestmark = pytest.mark.cuda
@@ -671,3 +678,266 @@ def test_quantized_engine_on_the_card_matches_the_cpu(dev, flag_values):
     assert counts["paged_chunk_attention_int8"] == 2 * (2 + 2 + 2)
     assert counts["paged_chunk_attention"] == 0
     _assert_streams_agree(streams)
+
+
+# ------------------------------------------------------------ fused RMSNorm
+# y within atol + rtol |plain| (rtol one bf16 ulp: both round the same f32
+# value once), r within 1e-5 relative, dx and dw against max |plain|
+RN_OUT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", [1, 7, 8192])
+@pytest.mark.parametrize("h", [64, 1000, 1001, 4096, 8192, 40000])
+def test_rms_norm_kernels_match_plain(dev, dtype, n, h):
+    """Forward (y, r) and dx against the plain twins on the same card
+    tensors, and the autograd Function (dx, dw) against autograd of the
+    dense reference."""
+    rng = np.random.default_rng(n + h)
+    x = _rand(rng, (n, h), dtype, dev)
+    w = (1.0 + 0.1 * _rand(rng, (h,), torch.float32, dev)).to(dtype)
+    g = _rand(rng, (n, h), dtype, dev)
+    kernels.reset_launches()
+    y, r = rn.rms_norm_fwd(x, w, 1e-6)
+    y_r, r_r = rn.rms_norm_fwd_ref(x, w, 1e-6)
+    assert y.dtype == dtype and r.dtype == torch.float32 and r.shape == (n, 1)
+    atol, rtol = RN_OUT_TOL[dtype]
+    torch.cuda.synchronize()
+    over = ((y.float() - y_r.float()).abs() - rtol * y_r.float().abs()).max()
+    assert float(over) <= atol
+    assert float(((r - r_r).abs() / r_r).max()) <= 1e-5
+    dx = rn.rms_norm_bwd_dx(x, w, g, r_r)
+    assert dx.dtype == dtype
+    assert _rel(dx, rn.rms_norm_bwd_dx_ref(x, w, g, r_r)) <= TOL[dtype]
+    leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+    grads = torch.autograd.grad(rn.rms_norm(*leaves, 1e-6), leaves, g)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+    ref_grads = torch.autograd.grad(rn.rms_norm_ref(*ref_leaves, 1e-6),
+                                    ref_leaves, g)
+    for got, want in zip(grads, ref_grads):
+        assert _rel(got, want) <= TOL[dtype]
+    counts = kernels.launch_counts()
+    assert counts["rms_norm_fwd"] == 2 and counts["rms_norm_bwd_dx"] == 2
+
+
+def test_rms_norm_repeats_bit_for_bit(dev):
+    """The row sums run in a fixed order: two runs agree exactly."""
+    rng = np.random.default_rng(3)
+    x = _rand(rng, (300, 4096), torch.bfloat16, dev)
+    w = _rand(rng, (4096,), torch.bfloat16, dev)
+    g = _rand(rng, (300, 4096), torch.bfloat16, dev)
+    (y1, r1), (y2, r2) = (rn.rms_norm_fwd(x, w, 1e-6) for _ in range(2))
+    assert torch.equal(y1, y2) and torch.equal(r1, r2)
+    assert torch.equal(rn.rms_norm_bwd_dx(x, w, g, r1),
+                       rn.rms_norm_bwd_dx(x, w, g, r1))
+
+
+@pytest.mark.parametrize("case", ["fp16", "noncontiguous", "weight-dtype",
+                                  "weight-size", "cpu-weight"])
+def test_rms_norm_wrappers_refuse_what_the_kernel_does_not_take(dev, case):
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (16, 64), torch.float32, dev)
+    w = _rand(rng, (64,), torch.float32, dev)
+    if case == "fp16":
+        x, w = x.half(), w.half()
+    elif case == "noncontiguous":
+        x = _rand(rng, (64, 16), torch.float32, dev).t()
+    elif case == "weight-dtype":
+        w = w.bfloat16()
+    elif case == "weight-size":
+        w = w[:63]
+    else:
+        w = w.cpu()
+    kernels.reset_launches()
+    with pytest.raises((ValueError, TypeError)):
+        rn.rms_norm_fwd(x, w, 1e-6)
+    assert kernels.launch_counts()["rms_norm_fwd"] == 0
+
+
+def test_fused_rms_norm_on_the_card_matches_the_cpu(dev):
+    """fused_rms_norm with bias, residual and norm_bias in fp32: (out, h)
+    and the gradients on the card against the same call on the CPU."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    rng = np.random.default_rng(6)
+    arrays = [(rng.standard_normal(s)).astype(np.float32)
+              for s in ((3, 40, 512), (3, 40, 512), (512,), (512,), (512,),
+                        (3, 40, 512))]
+    results = []
+    for device in ("cpu", dev):
+        x, res, w, bias, nbias, g = (torch.from_numpy(a).to(device)
+                                     for a in arrays)
+        leaves = [t.requires_grad_(True) for t in (x, res, w)]
+        out, h = IF.fused_rms_norm(leaves[0], leaves[2], nbias, 1e-5,
+                                   bias=bias, residual=leaves[1])
+        grads = torch.autograd.grad(out, leaves, g)
+        results.append([t.detach().cpu() for t in (out, h, *grads)])
+    for a, b in zip(*results):
+        assert float((a - b).abs().max() / b.abs().max().clamp_min(1.0)
+                     ) <= 1e-4
+
+
+# ------------------------------------------- flash attention, segment ids
+def _segments(rng, b, s, docs, pad):
+    """(B, S) q and kv ids: documents of the given lengths (the last
+    filling the row), then ``pad`` padding positions whose q id no key
+    carries (their kv id differs)."""
+    seg_q = np.zeros((b, s), np.int32)
+    for row in range(b):
+        pos, doc = 0, 1
+        for n in docs + (s,):
+            seg_q[row, pos:pos + n] = doc + 10 * row
+            pos, doc = pos + n, doc + 1
+            if pos >= s:
+                break
+    seg_kv = seg_q.copy()
+    if pad:
+        seg_q[:, s - pad:] = 1000
+        seg_kv[:, s - pad:] = 1001
+    return seg_q, seg_kv
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,docs,pad", [
+    (1, 200, 4, 4, 128, True, (30, 70), 0),     # boundaries inside tiles
+    (2, 130, 4, 2, 64, True, (64, 1, 20), 9),   # GQA, a padding id
+    (1, 129, 8, 2, 128, False, (100,), 5),      # non-causal, GQA
+    (2, 256, 2, 1, 64, True, (3, 5, 200), 0),   # tiny documents, rep 2
+    (1, 70, 2, 2, 128, True, (17,), 70),        # every row padding
+])
+def test_flash_attention_segment_kernels_match_plain(dev, dtype, b, s, h,
+                                                     hkv, d, causal, docs,
+                                                     pad):
+    """The segment-id variant of the forward (out, lse), dq and dk/dv
+    against the plain versions with the same ids, the autograd Function
+    against autograd of the dense reference; rows whose id no key carries
+    emit zeros with lse 0 and get zero dq."""
+    rng = np.random.default_rng(s + d + pad)
+    q = _rand(rng, (b * h, s, d), dtype, dev)
+    k = _rand(rng, (b * hkv, s, d), dtype, dev)
+    v = _rand(rng, (b * hkv, s, d), dtype, dev)
+    do = _rand(rng, (b * h, s, d), dtype, dev)
+    ids_q, ids_kv = _segments(rng, b, s, docs, pad)
+    seg_q = torch.from_numpy(np.repeat(ids_q, h, axis=0)).to(dev)
+    seg_kv = torch.from_numpy(np.repeat(ids_kv, hkv, axis=0)).to(dev)
+    kw = dict(causal=causal, n_heads=h, n_kv_heads=hkv, seg_q=seg_q,
+              seg_kv=seg_kv)
+    kernels.reset_launches()
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    assert _err(out, out_r) <= TOL[dtype]
+    assert _err(lse, lse_r) <= TOL[dtype]
+    delta = (out_r.float() * do.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, **kw)
+    dq_r = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse_r, delta, **kw)
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse_r, delta,
+                                                **kw)
+    for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert _rel(got, want) <= TOL[dtype]
+    if pad:
+        rows = slice(s - pad, s)
+        assert not out[:, rows].any() and not dq[:, rows].any()
+        assert not lse[:, rows].any()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    args = dict(causal=causal, n_heads=h, n_kv_heads=hkv)
+    grads = torch.autograd.grad(
+        fa.flash_attention(*leaves, seg_q, seg_kv, **args), leaves, do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(
+        fa.flash_attention_ref(*ref_leaves, seg_q, seg_kv, **args),
+        ref_leaves, do)
+    for got, want in zip(grads, ref_grads):
+        assert _rel(got, want) <= TOL[dtype]
+    counts = kernels.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[name + "_seg"] == 2 and counts[name] == 0
+
+
+def test_flash_attention_one_segment_equals_no_segments(dev):
+    """One segment over the whole row: the segment variant gives the
+    native kernels' values bit for bit (the same tiles, the same sums)."""
+    rng = np.random.default_rng(8)
+    q = _rand(rng, (4, 300, 128), torch.bfloat16, dev)
+    k = _rand(rng, (2, 300, 128), torch.bfloat16, dev)
+    do = _rand(rng, (4, 300, 128), torch.bfloat16, dev)
+    ones = torch.ones((4, 300), dtype=torch.int32, device=dev)
+    kw = dict(causal=True, n_heads=2, n_kv_heads=1)
+    seg = dict(seg_q=ones, seg_kv=ones[:2].contiguous())
+    out, lse = fa.flash_attention_fwd(q, k, k, **kw)
+    out_s, lse_s = fa.flash_attention_fwd(q, k, k, **kw, **seg)
+    assert torch.equal(out, out_s) and torch.equal(lse, lse_s)
+    delta = (out.float() * do.float()).sum(-1)
+    bwd = (q, k, k, do, lse, delta)
+    assert torch.equal(fa.flash_attention_bwd_dq(*bwd, **kw),
+                       fa.flash_attention_bwd_dq(*bwd, **kw, **seg))
+    for a, c in zip(fa.flash_attention_bwd_dkv(*bwd, **kw),
+                    fa.flash_attention_bwd_dkv(*bwd, **kw, **seg)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", ["int64", "one-side", "shape", "cpu"])
+def test_flash_segment_ids_refused_when_the_kernel_does_not_take_them(
+        dev, case):
+    rng = np.random.default_rng(9)
+    q = _rand(rng, (4, 32, 64), torch.float32, dev)
+    seg = torch.ones((4, 32), dtype=torch.int32, device=dev)
+    seg_kv = seg
+    if case == "int64":
+        seg = seg_kv = seg.long()
+    elif case == "one-side":
+        seg_kv = None
+    elif case == "shape":
+        seg = seg_kv = seg[:, :31].contiguous()
+    else:
+        seg = seg_kv = seg.cpu()
+    kernels.reset_launches()
+    with pytest.raises((ValueError, TypeError)):
+        fa.flash_attention_fwd(q, q, q, n_heads=1, seg_q=seg, seg_kv=seg_kv)
+    assert kernels.launch_counts()["flash_attention_fwd_seg"] == 0
+
+
+@pytest.mark.parametrize("route", ["self-causal", "cross-full",
+                                   "cross-causal"])
+def test_flash_attn_unpadded_on_the_card_matches_the_cpu(dev, route):
+    """The varlen entry on the card (kernels; the causal cross-pack's dense
+    route) against the same call on the CPU, fp32, with gradients."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(10)
+    lens_q = (70, 1, 130, 55)
+    lens_k = lens_q if route == "self-causal" else (40, 9, 200, 64)
+    cu_q = np.concatenate([[0], np.cumsum(lens_q)]).astype(np.int32)
+    cu_k = np.concatenate([[0], np.cumsum(lens_k)]).astype(np.int32)
+    arrays = [rng.standard_normal(sh).astype(np.float32)
+              for sh in ((cu_q[-1], 8, 64), (cu_k[-1], 2, 64),
+                         (cu_k[-1], 2, 64), (cu_q[-1], 8, 64))]
+    causal = route != "cross-full"
+    results = []
+    kernels.reset_launches()
+    for device in ("cpu", dev):
+        q, k, v, do = (torch.from_numpy(a).to(device) for a in arrays)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out, _ = F.flash_attn_unpadded(
+            *leaves, torch.from_numpy(cu_q).to(device),
+            torch.from_numpy(cu_k).to(device), max(lens_q), max(lens_k),
+            causal=causal)
+        grads = torch.autograd.grad(out, leaves, do)
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    for a, c in zip(*results):
+        assert float((a - c).abs().max()) <= 1e-4
+    launched = kernels.launch_counts()["flash_attention_fwd_seg"]
+    assert launched == (0 if route == "cross-causal" else 1)
+
+
+def test_variable_length_attention_on_the_card_matches_the_cpu(dev):
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    rng = np.random.default_rng(11)
+    arrays = [rng.standard_normal((4, 4, 200, 64)).astype(np.float32)
+              for _ in range(3)]
+    lens = np.array([200, 150, 70, 3], np.int32)
+    outs = []
+    for device in ("cpu", dev):
+        q, k, v = (torch.from_numpy(a).to(device) for a in arrays)
+        outs.append(IF.variable_length_memory_efficient_attention(
+            q, k, v, torch.from_numpy(lens).to(device), causal=True).cpu())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4

@@ -129,14 +129,8 @@ def test_cpu_path_launches_no_kernel():
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: fa.flash_attention(t, t, t, segment_ids=torch.zeros(4, 8)),
-    lambda t: fa.flash_attention(t, t, t, kv_segment_ids=torch.zeros(4, 8)),
-    lambda t: fa.flash_attention_bshd(t[None], t[None], t[None],
-                                      segment_ids=torch.zeros(1, 4)),
-    lambda t: fa.flash_attention_ref(t, t, t, segment_ids=torch.zeros(4, 8)),
     lambda t: fa.flash_attention_with_lse(t, t, t),
-], ids=["segment_ids", "kv_segment_ids", "bshd-segment_ids", "ref-segment_ids",
-        "with_lse"])
+], ids=["with_lse"])
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError):
         call(torch.zeros(4, 8, 16))

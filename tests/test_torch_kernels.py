@@ -232,4 +232,7 @@ def test_cpu_tensors_never_count_as_launches():
         "fused_multi_block_decode": 0, "fused_multi_block_decode_int8": 0,
         "fused_multi_block_decode_int4": 0,
         "fused_multi_block_decode_int8_int4": 0, "flash_attention_fwd": 0,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+        "flash_attention_fwd_seg": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dq_seg": 0, "flash_attention_bwd_dkv": 0,
+        "flash_attention_bwd_dkv_seg": 0, "rms_norm_fwd": 0,
+        "rms_norm_bwd_dx": 0}

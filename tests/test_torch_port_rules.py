@@ -5,7 +5,8 @@
   - Entry points default to the CUDA card and raise, never fall back to
     the CPU, when there is none.
   - A kernel wrapper given CPU tensors runs its plain version and leaves
-    its launch counter alone (the serving and the training kernels).
+    its launch counter alone (the serving and the training kernels, the
+    fused RMSNorm).
   - ``chip_smoke.py`` fails, printing no result, without a card and when
     it stands alone in a directory.
 """
@@ -30,6 +31,7 @@ from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_block_decode as fb
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels.paged_attention import PagedKVCache
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
@@ -166,6 +168,15 @@ def _flash_bwd_args(rng):
                                _case(rng, 4, 6))
 
 
+def _rms_args(rng):
+    return (_case(rng, 5, 16), _case(rng, 16), 1e-6)
+
+
+def _rms_bwd_args(rng):
+    return (_case(rng, 5, 16), _case(rng, 16), _case(rng, 5, 16),
+            _case(rng, 5, 1).abs())
+
+
 @pytest.mark.parametrize("mod,name,plain,make,kw", [
     (da, "flash_prefill", "flash_prefill_ref", _prefill_args, {}),
     (pa, "paged_attention", "paged_attention_ref", _paged_args, {}),
@@ -181,10 +192,12 @@ def _flash_bwd_args(rng):
      _flash_bwd_args, dict(n_heads=2, n_kv_heads=1)),
     (fa, "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
      _flash_bwd_args, dict(n_heads=2, n_kv_heads=1)),
+    (rn, "rms_norm_fwd", "rms_norm_fwd_ref", _rms_args, {}),
+    (rn, "rms_norm_bwd_dx", "rms_norm_bwd_dx_ref", _rms_bwd_args, {}),
 ], ids=["flash_prefill", "paged_attention", "paged_chunk_attention",
         "fused_block_decode", "fused_multi_block_decode",
         "flash_attention_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv"])
+        "flash_attention_bwd_dkv", "rms_norm_fwd", "rms_norm_bwd_dx"])
 def test_cpu_tensors_take_the_plain_version(monkeypatch, mod, name, plain,
                                             make, kw):
     calls = []
@@ -211,13 +224,15 @@ def test_every_kernel_wrapper_counts_launches():
     assert names == {"flash_prefill", "paged_attention",
                      "paged_chunk_attention", "fused_block_decode",
                      "fused_multi_block_decode", "flash_attention_fwd",
-                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
-    # one library per source; the three training kernels share one
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                     "rms_norm_fwd", "rms_norm_bwd_dx"}
+    # one library per source; the three attention kernels share one, the
+    # two RMSNorm kernels another
     assert set(_build.sources()) == {"flash_prefill", "paged_attention",
                                      "paged_chunk_attention",
                                      "fused_block_decode",
                                      "fused_multi_block_decode",
-                                     "flash_attention"}
+                                     "flash_attention", "rms_norm"}
     kernels.reset_launches()
     assert set(kernels.launch_counts().values()) == {0}
 
