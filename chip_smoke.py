@@ -11,13 +11,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               in bf16 (2e-2 abs; the chunk attention 1e-3 + one bf16 ulp
               of the plain output) and fp32 (1e-4 abs), and time the kernel,
               the plain version, one library call where PyTorch has one,
-              and the card's least time for the same work (bound). The
-              chunk attention runs a 256-token chunk from start 3328 and a
-              ragged 100-token final chunk, each with a spread and a peaked
-              softmax; the N-layer decode a group of 4 layers, also held
-              bit for bit to 4 launches of the one-layer kernel and timed
-              beside them. Every kernel with an int8-pool variant (decode,
-              chunk, one-layer and N-layer decode attention) runs it on the
+              and the card's least time for the same work (bound; the
+              prefill and chunk rows also give bound_frac, bound / kernel
+              time). The chunk attention runs a 256-token chunk from
+              start 3328 and a ragged 100-token final chunk, each with a
+              spread and a peaked softmax; the N-layer decode a group of
+              4 layers, also held bit for bit to 4 launches of the
+              one-layer kernel and timed beside them. Every kernel with
+              an int8-pool variant (decode, chunk, one-layer and N-layer
+              decode attention) runs it on the
               same pools quantized (decode and chunk held to 1e-5 in fp32
               and 1e-3 + one bf16 ulp in bf16; the fused kernels to their
               native tolerance, the one-layer kernel's appended int8 rows
@@ -329,12 +331,12 @@ def check_flash_prefill(dtype, device, results):
         pairs = s * (s + 1) // 2                 # causal (query, key) pairs
         flops = 4.0 * pairs * HEADS * HEAD_DIM
         bms, by = bound_ms(nbytes, flops, dtype)
+        kms = time_ms(lambda: da.flash_prefill(q, k, v, s))
         results.append(dict(
             kernel="flash_prefill", dtype=DTYPE_NAME[dtype], S=s,
-            max_err=err, tol=TOL[dtype],
-            kernel_ms=time_ms(lambda: da.flash_prefill(q, k, v, s)),
+            max_err=err, tol=TOL[dtype], kernel_ms=kms,
             plain_ms=time_ms(lambda: da.flash_prefill_ref(q, k, v, s)),
-            library_ms=lib, bound_ms=bms, bound_by=by))
+            library_ms=lib, bound_ms=bms, bound_by=by, bound_frac=bms / kms))
     # GQA, a cache longer than the prompt (cur_len > S) and a ragged tail
     q = _rand(gen, (2, 50, HEADS, HEAD_DIM), dtype, device)
     k = _rand(gen, (2, 301, HEADS // 4, HEAD_DIM), dtype, device)
@@ -445,16 +447,15 @@ def check_paged_chunk_attention(dtype, device, results):
                   + 4 * (bt.numel() + 1))
         pairs = s * start + s * (s + 1) // 2     # (query, key) pairs seen
         bms, by = bound_ms(nbytes, 4.0 * pairs * HEADS * HEAD_DIM, dtype)
+        kms = time_ms(lambda: pa.paged_chunk_attention(q, kp, vp, bt, st))
         results.append(dict(
             kernel="paged_chunk_attention", dtype=DTYPE_NAME[dtype],
             start=start, S=s, max_err=max(errs.values()),
             max_err_spread=errs["spread"], max_err_peaked=errs["peaked"],
-            excess=max(over.values()), atol=atol, rtol=rtol,
-            kernel_ms=time_ms(lambda: pa.paged_chunk_attention(
-                q, kp, vp, bt, st)),
+            excess=max(over.values()), atol=atol, rtol=rtol, kernel_ms=kms,
             plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
                 q, kp, vp, bt, st), iters=5, warmup=1),
-            library_ms=lib, bound_ms=bms, bound_by=by))
+            library_ms=lib, bound_ms=bms, bound_by=by, bound_frac=bms / kms))
         # the int8 pool: the written pool quantized, kernel vs plain on its
         # bits, spread and peaked
         kq, vq = quantized(kp), quantized(vp)
@@ -472,16 +473,15 @@ def check_paged_chunk_attention(dtype, device, results):
         nbytes = (elem * 2 * q.numel() + 2 * t * KV_HEADS
                   * row_bytes(True, 0) + 4 * (bt.numel() + 1))
         bms, by = bound_ms(nbytes, 4.0 * pairs * HEADS * HEAD_DIM, dtype)
+        kms = time_ms(lambda: pa.paged_chunk_attention(q, kq, vq, bt, st))
         results.append(dict(
             kernel="paged_chunk_attention_int8", dtype=DTYPE_NAME[dtype],
             start=start, S=s, max_err=max(errs.values()),
             max_err_spread=errs["spread"], max_err_peaked=errs["peaked"],
-            excess=max(over.values()), atol=atol, rtol=rtol,
-            kernel_ms=time_ms(lambda: pa.paged_chunk_attention(
-                q, kq, vq, bt, st)),
+            excess=max(over.values()), atol=atol, rtol=rtol, kernel_ms=kms,
             plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
                 q, kq, vq, bt, st), iters=5, warmup=1),
-            library_ms=None, bound_ms=bms, bound_by=by))
+            library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms))
         del kq, vq
         torch.cuda.empty_cache()
 

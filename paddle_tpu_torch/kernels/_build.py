@@ -15,6 +15,7 @@ Nothing here runs at import time: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -135,6 +136,12 @@ def check(rc: int, what: str) -> None:
 def stream_handle(device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kv_code(quant: bool) -> int:

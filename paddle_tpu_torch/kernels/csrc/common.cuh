@@ -1,8 +1,9 @@
 // Shared helpers for the port's Hopper kernels: element conversion, warp
 // reductions, the one-token decode-attention tile routine that
-// paged_attention.cu and the fused block decode kernels run, and the causal
-// prefill block routine that flash_prefill.cu and paged_chunk_attention.cu
-// run. Every KV-reading routine is templated on the pool's storage type S:
+// paged_attention.cu and the fused block decode kernels run, and the f32
+// causal prefill block routine that flash_prefill.cu and
+// paged_chunk_attention.cu run for fp32 (bf16 runs prefill_mma.cuh's
+// tensor-core routine). Every KV-reading routine is templated on the pool's storage type S:
 // the activation type (a native pool) or int8_t (an int8 pool, whose rows
 // carry one f32 scale each, dequantized as they enter shared memory).
 //
@@ -223,7 +224,8 @@ __device__ inline void decode_emit(const DecodeSmem& sm, TO* out, int rep,
 }
 
 // ---------------------------------------------------------------------------
-// Causal prefill attention for one (batch row, query head, tile of FP_BQ
+// Causal prefill attention in f32 on the CUDA cores (the fp32 route; bf16
+// takes prefill_mma.cuh) for one (batch row, query head, tile of FP_BQ
 // query rows), the work of one thread block of FP_WARPS warps. Query row i
 // (0 <= i < S) of the head lies at q[row0 + i * row_stride .. + D) and sits
 // at absolute position qpos0 + i; it sees every kv row at a position <= its

@@ -66,7 +66,39 @@ def flash_prefill_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return cached_attention_dense(q, k_cache, v_cache, cur_len, sm_scale)
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+# bf16 runs csrc/prefill_mma.cuh: blocks of 128 query rows of one head,
+# one resident on an SM (by registers), walking kv tiles of 128
+_MMA_ROWS, _MMA_KEYS, _MMA_BLOCKS_PER_SM = 128, 128, 1
+_MIN_SPLIT_TILES = 2      # kv tiles a part of a split walk takes at least
+
+
+def prefill_splits(dtype, heads: int, s: int, kv_bound: int,
+                   device) -> int:
+    """Parts each block's kv walk is split into, for ``heads`` (batch x
+    query heads) of ``s`` query rows (bf16; fp32 never splits): as many as
+    keep every resident block slot of the card busy when the blocks alone
+    would not, each part at least ``_MIN_SPLIT_TILES`` of the at most
+    ``kv_bound`` keys a block walks. A split leaves f32 partial results
+    that a second kernel of the same call merges."""
+    if dtype != torch.bfloat16:
+        return 1
+    blocks = heads * -(-s // _MMA_ROWS)
+    slots = _MMA_BLOCKS_PER_SM * _build.sm_count(device.index or 0)
+    tiles = -(-kv_bound // _MMA_KEYS)
+    return max(1, min(slots // blocks, tiles // _MIN_SPLIT_TILES))
+
+
+def split_scratch(nsplit: int, rows: int, d: int, device):
+    """f32 scratch (partial outputs, their (m, l)) of an ``nsplit``-way
+    split over ``rows`` query rows, or null pointers for no split."""
+    if nsplit == 1:
+        return (), [0, 0]
+    po = torch.empty((nsplit, rows, d), dtype=torch.float32, device=device)
+    pml = torch.empty((nsplit, rows, 2), dtype=torch.float32, device=device)
+    return (po, pml), [po.data_ptr(), pml.data_ptr()]
+
+
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -106,10 +138,13 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(d)
     code = _build.dtype_code(q.dtype)
     out = torch.empty_like(q)
+    nsplit = prefill_splits(q.dtype, b * h, s, min(t, int(cur_len)),
+                            q.device)
+    scratch, ptrs = split_scratch(nsplit, b * s * h, d, q.device)
     fn = _build.bind("flash_prefill", "ptt_flash_prefill", _ARGTYPES)
     rc = fn(code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, s, t, h, hkv, d, int(cur_len) - s,
-            float(sm_scale), _build.stream_handle(q.device))
+            out.data_ptr(), *ptrs, b, s, t, h, hkv, d, int(cur_len) - s,
+            nsplit, float(sm_scale), _build.stream_handle(q.device))
     _build.check(rc, "flash_prefill")
     _build.count(flash_prefill)
     return out

@@ -29,6 +29,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from . import _build
+from .decode_attention import prefill_splits, split_scratch
 
 _NEG_INF = -1e30
 
@@ -339,8 +340,8 @@ def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 _MAX_HEAD_DIM = 128
-_CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+_CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -382,12 +383,16 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    # start lives on the device: split by the table's width
+    nsplit = prefill_splits(q.dtype, b * h, s, maxp * page, q.device)
+    scratch, ptrs = split_scratch(nsplit, b * s * h, d, q.device)
     fn = _build.bind("paged_chunk_attention", "ptt_paged_chunk_attention",
                      _CHUNK_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), _build.kv_code(quant), q.data_ptr(),
             *_pool_ptrs(k_pages, v_pages, quant), block_tables.data_ptr(),
-            start.data_ptr(), out.data_ptr(), b, s, h, hkv, d, num_pages,
-            page, maxp, float(sm_scale), _build.stream_handle(q.device))
+            start.data_ptr(), out.data_ptr(), *ptrs, b, s, h, hkv, d,
+            num_pages, page, maxp, nsplit, float(sm_scale),
+            _build.stream_handle(q.device))
     _build.check(rc, "paged_chunk_attention")
     _build.count(paged_chunk_attention, "int8" if quant else "")
     return out

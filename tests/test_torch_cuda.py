@@ -5,7 +5,9 @@ tiles, ragged and page-aligned lengths, idle null-page rows; for the flash
 attention kernels of the training path S = 1, S = 129 (one row past a
 tile), non-causal, head_dim 64 and 96, and Sq != Skv; for the chunk
 attention mid-page and page-aligned starts, two sequences, rows past the
-block table and rep 32; for the N-layer decode groups of 1 to 4 layers,
+block table and rep 32, and for its bf16 tensor-core route (shared with the
+prefill attention) head dims 33 to 128, pages of 8 to 64, an empty prefix
+and a peaked softmax on native and int8 pools, held to 1e-3 + one bf16 ulp; for the N-layer decode groups of 1 to 4 layers,
 also held bit for bit to the one-layer kernel's chain; for the quantized
 variants (int8 pools in the decode, chunk and fused kernels, int4 tiles in
 the N-layer kernel) GQA, idle rows, int4 tiles that straddle q|k|v or 8
@@ -197,6 +199,85 @@ def test_paged_chunk_attention_matches_plain(dev, dtype, s, h, hkv, d, page,
     want = pa.paged_chunk_attention_ref(q, kp, vp, bt, st)
     assert got.shape == want.shape and got.dtype == dtype
     assert _err(got, want) <= TOL[dtype]
+
+
+# bf16 chunk and prefill attention run on the tensor cores
+# (csrc/prefill_mma.cuh); these cases are held to chip_smoke.py's OUT_TOL in
+# bf16: |got - want| within 1e-3 + one bf16 ulp of |want| elementwise (both
+# round an f32 value that differs only in summation order)
+MMA_TOL = (1e-3, 2.0 ** -7)
+
+
+def _excess(got, want, rtol):
+    torch.cuda.synchronize()
+    want = want.float()
+    return float(((got.float() - want).abs() - rtol * want.abs()).max())
+
+
+@pytest.mark.parametrize("pool", ["native", "int8"])
+@pytest.mark.parametrize("s,h,hkv,d,page,maxp,starts,qscale", [
+    (256, 8, 8, 128, 64, 64, (3328,), 8.0),   # peaked q, start 3328
+    (256, 8, 8, 128, 64, 8, (0,), 1.0),       # empty prefix
+    (100, 8, 2, 64, 16, 40, (301,), 1.0),     # rep 4, mid-page, 3 key tiles
+    (77, 4, 4, 96, 8, 50, (123,), 8.0),       # rep 1, pages of 8, peaked
+    (33, 32, 1, 128, 16, 12, (150,), 1.0),    # rep 32
+    (64, 8, 2, 128, 16, 8, (64, 37), 1.0),    # B = 2, different starts
+    (40, 4, 4, 128, 16, 4, (40,), 1.0),       # 16 rows past the table
+    (50, 4, 2, 72, 16, 8, (29,), 8.0),        # head dim 72 (padded to 96)
+    (20, 4, 2, 36, 8, 8, (13,), 1.0),         # 8-byte (int8: 4) copies
+    (17, 4, 4, 33, 8, 6, (5,), 8.0),          # odd head dim: plain copies
+])
+def test_paged_chunk_attention_bf16_tensor_core_cases(dev, pool, s, h, hkv,
+                                                      d, page, maxp, starts,
+                                                      qscale):
+    """What the tensor-core route can get wrong: head dims 33 to 128,
+    pages of 8, 16 and 64, the diagonal mid-page and across key tiles, rows
+    past the table, rep 1 to 32, two sequences, an empty prefix, a peaked
+    softmax; native and int8 pools."""
+    rng = np.random.default_rng(s * 3 + d + page)
+    b = len(starts)
+    bt, num_pages = _tables(rng, [maxp * page - 1] * b, 0, page, maxp, dev)
+    kp, vp = (_rand(rng, (hkv, num_pages, page, d), torch.bfloat16, dev)
+              for _ in range(2))
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    k_new, v_new = (_rand(rng, (b, s, hkv, d), torch.bfloat16, dev)
+                    for _ in range(2))
+    pa.write_paged_prompt_at(kp, vp, k_new, v_new, bt, st)
+    if pool == "int8":
+        kp, vp = (pa.QuantizedPages(*pa.quantize_kv_rows(x)) for x in (kp, vp))
+    q = _rand(rng, (b, s, h, d), torch.bfloat16, dev, qscale)
+    kernels.reset_launches()
+    got = pa.paged_chunk_attention(q, kp, vp, bt, st)
+    name = "paged_chunk_attention" + ("_int8" if pool == "int8" else "")
+    assert kernels.launch_counts()[name] == 1
+    want = pa.paged_chunk_attention_ref(q, kp, vp, bt, st)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    atol, rtol = MMA_TOL
+    assert _excess(got, want, rtol) <= atol
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,d,cur_len,qscale", [
+    (1, 2, 400, 8, 2, 128, 350, 1.0),
+    (1, 63, 400, 8, 8, 128, 300, 1.0),
+    (2, 64, 200, 4, 1, 64, 130, 1.0),
+    (1, 65, 130, 8, 2, 96, 129, 1.0),
+    (1, 300, 512, 8, 8, 128, 450, 1.0),
+    (1, 256, 256, 32, 32, 128, 256, 8.0),     # chip_smoke's shape, peaked
+    (1, 40, 100, 4, 2, 33, 90, 8.0),          # odd head dim, peaked
+])
+def test_flash_prefill_bf16_tensor_core_cases(dev, b, s, t, h, hkv, d,
+                                              cur_len, qscale):
+    """S = 2, 63, 64, 65 and 300 against a longer cache (cur_len > S), a
+    peaked softmax, an odd head dim; held to MMA_TOL."""
+    rng = np.random.default_rng(s * 5 + t + d)
+    q = _rand(rng, (b, s, h, d), torch.bfloat16, dev, qscale)
+    k = _rand(rng, (b, t, hkv, d), torch.bfloat16, dev)
+    v = _rand(rng, (b, t, hkv, d), torch.bfloat16, dev)
+    got = da.flash_prefill(q, k, v, cur_len)
+    want = da.flash_prefill_ref(q, k, v, cur_len)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    atol, rtol = MMA_TOL
+    assert _excess(got, want, rtol) <= atol
 
 
 def test_write_paged_prompt_at_drops_past_the_table_on_the_card(dev):

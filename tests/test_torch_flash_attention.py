@@ -17,10 +17,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import paddle_tpu
 from paddle_tpu.kernels import flash_attention as jfa
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.kernels import flash_attention as fa
+from torch_numerics import assert_close, attention_f64, pinned
 
 B, H, D = 2, 4, 32
 OUT_TOL, GRAD_TOL = 2e-5, 5e-5
@@ -55,9 +55,10 @@ def _err(a, b):
 
 @pytest.fixture(params=[True, False], ids=["compact", "replicated"])
 def stats_layout(request):
-    paddle_tpu.set_flags({"flash_compact_stats": request.param})
-    yield request.param
-    paddle_tpu.set_flags({"flash_compact_stats": True})
+    """The stats layout, with every other setting the comparison depends
+    on pinned (torch_numerics.pinned) and restored afterwards."""
+    with pinned(flash_compact_stats=request.param):
+        yield request.param
 
 
 @pytest.mark.parametrize("s", [128, 256])
@@ -69,10 +70,11 @@ def test_matches_jax_pallas_flash(stats_layout, s, hkv, causal):
         a, b, c, causal=causal, n_heads=H, n_kv_heads=hkv), q, k, v, do)
     got, got_g = _port(q, k, v, do, causal, hkv)
     assert got.shape == want.shape
-    assert _err(got, want) <= OUT_TOL
+    assert_close(got, want, OUT_TOL,
+                 ref=attention_f64(q, k, v, causal, H, hkv))
     for name, g, w in zip("qkv", got_g, want_g):
         assert g.shape == w.shape
-        assert _err(g, w) <= GRAD_TOL, f"d{name}"
+        assert_close(g, w, GRAD_TOL, f"d{name}")
 
 
 @pytest.mark.parametrize("hkv", [4, 2], ids=["mha", "gqa"])

@@ -22,7 +22,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import paddle_tpu
 import paddle_tpu as paddle
 from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.kernels import flash_attention as jfa
@@ -31,6 +30,7 @@ from paddle_tpu_torch import kernels
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.nn import functional as F
+from torch_numerics import assert_close, attention_f64, pinned
 
 B, H, D = 2, 4, 32
 OUT_TOL, GRAD_TOL = 2e-5, 5e-5
@@ -82,18 +82,19 @@ def _jax(fn, q, k, v, do):
     return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
 
-def _check(got, got_g, want, want_g):
+def _check(got, got_g, want, want_g, ref=None):
     assert got.shape == want.shape
-    assert _err(got, want) <= OUT_TOL
+    assert_close(got, want, OUT_TOL, ref=ref)
     for name, g, w in zip("qkv", got_g, want_g):
-        assert _err(g, w) <= GRAD_TOL, f"d{name}"
+        assert_close(g, w, GRAD_TOL, f"d{name}")
 
 
 @pytest.fixture(params=[True, False], ids=["compact", "replicated"])
 def stats_layout(request):
-    paddle_tpu.set_flags({"flash_compact_stats": request.param})
-    yield request.param
-    paddle_tpu.set_flags({"flash_compact_stats": True})
+    """The stats layout, with every other setting the comparison depends
+    on pinned (torch_numerics.pinned) and restored afterwards."""
+    with pinned(flash_compact_stats=request.param):
+        yield request.param
 
 
 @pytest.mark.parametrize("s", [128, 256])
@@ -105,7 +106,8 @@ def test_segment_ids_match_jax_pallas_flash(stats_layout, s, hkv, causal):
     want, want_g = _jax(lambda a, b, c: jfa.flash_attention(
         a, b, c, jq, jkv, causal=causal, n_heads=H, n_kv_heads=hkv),
         q, k, v, do)
-    _check(*_port(q, k, v, do, seg_q, seg_kv, causal, hkv), want, want_g)
+    _check(*_port(q, k, v, do, seg_q, seg_kv, causal, hkv), want, want_g,
+           attention_f64(q, k, v, causal, H, hkv, seg_q, seg_kv))
 
 
 @pytest.mark.parametrize("hkv", [4, 2], ids=["mha", "gqa"])

@@ -1,0 +1,106 @@
+"""The numerics state that the port-vs-JAX parity tests depend on, pinned
+for the length of a test, and the report such a test gives when it misses.
+
+Under ``pytest -n N --dist loadfile`` test files share worker processes,
+so a process-global setting that another file leaves behind reaches these
+tests: JAX's default matmul precision, the JAX package's flash flags
+(block sizes, stats layout, dispatch table, Pallas on/off) and torch's
+float32 matmul precision on the CPU (at ``medium`` oneDNN runs f32
+products in bf16 on a CPU with AMX, ~1e-4 off at these sizes).
+:func:`pinned` sets exactly these for one test and puts back what was
+there; :func:`assert_close` says, when a comparison misses, where the
+largest error lies, how far each side is from a float64 reference, and
+what that state was.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import jax
+import numpy as np
+import torch
+
+from paddle_tpu import flags as pflags
+from paddle_tpu.kernels import flash_attention as jfa
+
+PINNED_FLAGS = tuple(jfa._FLASH_FLAGS) + ("tpu_matmul_precision",)
+
+
+def state() -> dict:
+    """The process-global settings the comparison depends on."""
+    mkldnn = getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)
+    return dict(
+        jax_default_matmul_precision=jax.config.jax_default_matmul_precision,
+        torch_float32_matmul_precision=torch.get_float32_matmul_precision(),
+        torch_mkldnn_matmul_fp32_precision=getattr(mkldnn, "fp32_precision",
+                                                   None),
+        torch_threads=torch.get_num_threads(),
+        flags=dict(pflags.snapshot(PINNED_FLAGS).as_tuple()))
+
+
+@contextlib.contextmanager
+def pinned(**flag_values):
+    """JAX at ``highest``, torch's f32 matmuls at ``highest``, the flash
+    flags at their registered defaults (``flag_values`` overriding), for
+    the body; the previous values (a flag's set/unset state included)
+    afterwards."""
+    reg = pflags._registry._flags
+    saved_flags = {n: (reg[n].value, reg[n].is_set) for n in PINNED_FLAGS}
+    saved_jax = jax.config.jax_default_matmul_precision
+    saved_torch = torch.get_float32_matmul_precision()
+    jax.config.update("jax_default_matmul_precision", "highest")
+    torch.set_float32_matmul_precision("highest")
+    pflags.set_flags({n: reg[n].default for n in PINNED_FLAGS})
+    pflags.set_flags(flag_values)
+    try:
+        yield
+    finally:
+        for n, (value, is_set) in saved_flags.items():
+            reg[n].value, reg[n].is_set = value, is_set
+        jax.config.update("jax_default_matmul_precision", saved_jax)
+        torch.set_float32_matmul_precision(saved_torch)
+
+
+def attention_f64(q, k, v, causal, h, hkv, seg_q=None, seg_kv=None):
+    """Dense float64 attention of (BH, S, D) q against (BHkv, S, D) k/v,
+    query head h reading kv head h // (H // Hkv); a row that sees no key
+    emits zeros."""
+    bh, sq, d = q.shape
+    rows = np.arange(bh)
+    kv_rows = (rows // h) * hkv + (rows % h) // (h // hkv)
+    qf = np.asarray(q, np.float64)
+    kf, vf = (np.asarray(x, np.float64)[kv_rows] for x in (k, v))
+    sc = qf @ kf.transpose(0, 2, 1) / np.sqrt(d)
+    vis = np.ones(sc.shape, bool)
+    if causal:
+        vis &= np.tril(np.ones((sq, kf.shape[1]), bool))
+    if seg_q is not None:
+        vis &= (np.asarray(seg_q)[:, :, None]
+                == np.asarray(seg_kv)[kv_rows][:, None, :])
+    sc = np.where(vis, sc, -np.inf)
+    m = sc.max(-1, keepdims=True)
+    p = np.exp(sc - np.where(np.isfinite(m), m, 0.0))
+    l = p.sum(-1, keepdims=True)
+    return (p / np.where(l == 0, 1.0, l)) @ vf
+
+
+def assert_close(got, want, tol, what="out", ref=None):
+    """max |got - want| <= tol; on a miss the message gives the index of
+    the largest error, both values there, each side's largest error
+    against ``ref`` (float64, when given) and :func:`state`."""
+    got64, want64 = (np.asarray(x, np.float64) for x in (got, want))
+    diff = np.abs(got64 - want64)
+    err = float(diff.max())
+    if err <= tol:
+        return
+    at = np.unravel_index(int(diff.argmax()), diff.shape)
+    lines = [f"{what}: max err {err} > {tol} at {tuple(int(i) for i in at)}"
+             f" (port {got64[at]!r}, jax {want64[at]!r})"]
+    if ref is not None:
+        ref = np.asarray(ref, np.float64)
+        lines.append(f"vs float64: port {float(np.abs(got64 - ref).max())},"
+                     f" jax {float(np.abs(want64 - ref).max())}; there "
+                     f"{ref[at]!r}")
+    lines.append(f"state: {state()}")
+    raise AssertionError("\n".join(lines))
