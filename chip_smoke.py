@@ -58,7 +58,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               bf16 ulp of the reference, lse 1e-3, grads 2e-2 of their
               largest element) and fp32 (1e-4 each), with kernel, plain,
               library (SDPA forward, forward + backward, and its backward
-              alone) and bound times;
+              alone) and bound times (dq and dk/dv also bound_frac);
   6. train    Llama-2-7B width cut to 8 layers, bf16 with f32 masters,
               TrainStep(grad_accum_steps=2) + AdamW + global-norm clip +
               warmup/cosine LR, 5 steps on one fixed batch of 2 x 4096
@@ -84,7 +84,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               twin on the same card tensors, bf16 and fp32 (the flash twins
               in groups of kv heads, so the dense f32 scores stay small),
               with kernel, plain, library (torch.nn.functional.rms_norm;
-              SDPA per document, summed) and bound times.
+              SDPA per document, summed) and bound times (dq and dk/dv
+              also bound_frac).
 Then the card's name and power limit (nvidia-smi), the per-kernel summary
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -958,6 +959,18 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+# the flash kernels whose rows give bound_frac (bound / kernel time): the
+# backward, redesigned for the tensor cores
+BOUND_FRAC_KEYS = ("dq", "dkv")
+
+
+def frac(bounds, times, key) -> dict:
+    """``{"bound_frac": bound / kernel ms}`` for a BOUND_FRAC_KEYS row."""
+    if key not in BOUND_FRAC_KEYS:
+        return {}
+    return dict(bound_frac=bounds[key][0] / times[key])
+
+
 def check_flash_attention(dtype, device, rows):
     """Forward, dq and dk/dv against autograd of the dense reference on
     the card; then each kernel's time beside its plain version's, SDPA's
@@ -1061,7 +1074,9 @@ def check_flash_attention(dtype, device, rows):
                              sdpa_fwd_bwd=t["sdpa_fwd_bwd"],
                              sdpa_bwd=t["sdpa_bwd"]),
              bound_ms={key: val[0] for key, val in bounds.items()},
-             bound_by={key: val[1] for key, val in bounds.items()})
+             bound_by={key: val[1] for key, val in bounds.items()},
+             bound_frac={key: bounds[key][0] / t[key]
+                         for key in BOUND_FRAC_KEYS})
         # library: SDPA's forward; for dq and dk/dv, SDPA's one backward
         # op, which computes both
         for name, key, err, lib in (
@@ -1073,7 +1088,7 @@ def check_flash_attention(dtype, device, rows):
                 kernel=name, dtype=DTYPE_NAME[dtype], S=s, case=case,
                 max_err=err, kernel_ms=t[key], plain_ms=t[key + "_plain"],
                 library_ms=lib, bound_ms=bounds[key][0],
-                bound_by=bounds[key][1]))
+                bound_by=bounds[key][1], **frac(bounds, t, key)))
         del q, k, v, do, lse, delta, out, lq, lk, lv
         torch.cuda.empty_cache()
 
@@ -1552,7 +1567,9 @@ def check_varlen_attention(dtype, device, rows):
                              sdpa_fwd_bwd=tm["sdpa_fwd_bwd"],
                              sdpa_bwd=tm["sdpa_bwd"]),
              bound_ms={key: val[0] for key, val in bounds.items()},
-             bound_by={key: val[1] for key, val in bounds.items()})
+             bound_by={key: val[1] for key, val in bounds.items()},
+             bound_frac={key: bounds[key][0] / tm[key]
+                         for key in BOUND_FRAC_KEYS})
         for name, key, lib in (
                 ("flash_attention_fwd_seg", "fwd", tm["sdpa_fwd"]),
                 ("flash_attention_bwd_dq_seg", "dq", tm["sdpa_bwd"]),
@@ -1561,7 +1578,8 @@ def check_varlen_attention(dtype, device, rows):
                 kernel=name, dtype=DTYPE_NAME[dtype], case=case,
                 max_err=errs[key], kernel_ms=tm[key],
                 plain_ms=tm[key + "_plain"], library_ms=lib,
-                bound_ms=bounds[key][0], bound_by=bounds[key][1]))
+                bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                **frac(bounds, tm, key)))
         del q, k, v, do, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
@@ -1635,7 +1653,9 @@ def main() -> int:
             max_abs_err=max(r["max_err"] for r in rows),
             ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
+            library_ms=main_row["library_ms"],
+            **({"bound_frac": main_row["bound_frac"]}
+               if "bound_frac" in main_row else {})))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

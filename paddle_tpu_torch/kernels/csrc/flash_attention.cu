@@ -14,14 +14,15 @@
 // shared memory, with the accumulators in registers.
 //
 // Bound on the H100: at training shapes (S = 4096, D = 128) attention is
-// bound by operations, ~4·S²·D/2 per causal head forward and 2.5x that
-// backward, ~0.14 ms forward for a Llama-2-7B layer in bf16 on the tensor
-// cores. This first version computes on the CUDA cores in f32 for both
-// input types (67 TFLOP/s peak), so it stays well above that bound: the
-// design goal is a kernel that is right at every shape; tensor-core tiles
-// (mma.sync / wgmma) and TMA are later work.
+// bound by operations, ~4·S²·D/2 per causal head forward, 1.5x that for dq
+// and 2x for dk/dv (~0.14, 0.21 and 0.28 ms for a Llama-2-7B layer in bf16
+// on the tensor cores). The bf16 backward runs on the tensor cores (the
+// fb_* kernels below, ~4x its bound: see there and PERF.md). The forward
+// and the fp32 backward compute on the CUDA cores in f32 (67 TFLOP/s
+// peak), well above that bound; the forward's tensor-core redesign is
+// later work.
 //
-// Design, shared by the three kernels: 64 x 64 tiles, 256 threads as a
+// Design of the CUDA-core kernels (fa_*): 64 x 64 tiles, 256 threads as a
 // 16 x 16 grid; thread (ty, tx) owns rows ty + 16i and columns tx + 16j
 // (i, j < 4) of every 64 x 64 score tile and columns tx + 16c of every
 // (64, D) accumulator, so a row's 16 owners sit in one half-warp and the
@@ -36,7 +37,7 @@
 // whose running max is still <= -1e30/2 takes max 0 (fully masked rows emit
 // zeros), and l == 0 reads as 1.
 //
-// dk/dv: one block per (b * Hkv, kv tile) loops over the `rep` query heads
+// fa_dkv: one block per (b * Hkv, kv tile) loops over the `rep` query heads
 // of its GQA group and over the q tiles from the diagonal down, and owns
 // its output tile alone. No atomics: every gradient element is summed by
 // one thread in a fixed order, so gradients repeat bit for bit from run to
@@ -47,7 +48,8 @@
 // kernel (SEG), chosen by the C entry when the two nullable id pointers are
 // given. seg_q is (BH, Sq) and seg_kv (BHkv, Skv), int32; query row bh
 // reads the ids of its kv row, as it reads its k/v. A pair is visible when
-// it is causally visible and both ids are equal. The ids a thread needs are
+// it is causally visible and both ids are equal. In the fa_* kernels the
+// ids a thread needs are
 // those of the 4 rows and 4 columns of the score tile it owns, so they ride
 // in registers, loaded from device memory (the 16 threads that share one
 // read it once through L1); no shared memory is added, and the forward
@@ -59,7 +61,10 @@
 // tile adds p = 0 to every sum. A row that sees no key anywhere (a padding
 // id no kv position carries) emits zeros with lse = 0, as the TPU kernels'
 // guards make it, and gets zero dq and adds nothing to dk/dv.
-#include "common.cuh"
+#include <algorithm>
+#include <initializer_list>
+
+#include "mma.cuh"
 
 namespace ptt {
 
@@ -495,6 +500,594 @@ __global__ void __launch_bounds__(FA_THREADS)
   }
 }
 
+// ------------------------------------------- dq and dk/dv on the tensor cores
+// bf16 only (fp32 keeps fa_dq_kernel / fa_dkv_kernel above: on the tensor
+// cores it would mean TF32). Every product is an m16n8k16 mma, bf16 in and
+// f32 accumulators, with fragments by ldmatrix from padded shared rows
+// (tile_stride) filled by cp.async, double-buffered along the walk.
+//
+//   dq kernel   a block of FB_WARPS warps owns FB_ROWS query rows of one
+//               head, 16 rows a warp, and walks the kv tiles (FB_TILE
+//               keys) its rows can see. Per tile and warp: S = Q K^T and
+//               dP = dO V^T (Q, dO, K, V fragments by ldmatrix), then
+//               p = 2^(s * scale * log2 e - lse * log2 e) in f32, masked
+//               pairs 0, dS = p (dP - delta), and dQ += dS K with dS's C
+//               fragments repacked in registers as the A fragments (bf16)
+//               and K through ldmatrix.trans. dq = scale * dQ at the end.
+//   dk/dv kernel
+//               a block owns FB_ROWS keys of one kv head, 16 a warp, and
+//               walks the rep query heads x the query tiles (FB_TILE
+//               rows) that can see them. Per tile and warp the transposed
+//               products, rows = keys: S^T = K Q^T, P^T in f32 (lse and
+//               delta staged beside the q tile), dV += P^T dO (P^T's C
+//               fragments as bf16 A fragments, dO through ldmatrix.trans),
+//               dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+//               dk = scale * dK at the end.
+//
+// Filling the card: grid.x is the (batch x) head, grid.y the block's rank
+// by causal work, heaviest first. Where the dk/dv blocks alone fill the
+// card less than twice (GQA: Hkv heads only), each block's walk splits
+// into grid.z parts that leave f32 sums, merged in part order by
+// fb_dkv_combine_kernel in the same call (the wrapper's dkv_splits).
+//
+// Bound and measure (chip_smoke.py, NVIDIA H100 80GB HBM3, PERF.md): at
+// Llama-2-7B heads, S = 4096 causal, dq 0.79-0.81 ms and dk/dv 1.06-1.08
+// ms against 0.21 and 0.28 ms of operations (SDPA's whole backward ~0.80);
+// a warp issues ~120-144 ldmatrix.x4 for 192-256 mma.sync a tile, so
+// shared-memory reads, not the tensor cores, are the likely limit.
+//
+// Precision (tools/torch_flash_bwd_rounding.py, PERF.md): the scale enters
+// in f32, in the exponent, never on a bf16 q; P and dS are rounded once to
+// bf16 as mma operands (their hi + lo split buys nothing against the 2e-2
+// gradient check); every sum is f32.
+//
+// No atomics: each output element is summed by one thread in a fixed
+// order, so gradients repeat bit for bit. Segment ids (SEG): each pair is
+// masked exactly by its two ids (the kv tile's ids, or the q tile's, ride
+// beside it in shared memory); a whole tile is skipped, before it is
+// loaded, when the id ranges of its 64-row pieces cannot meet the block's
+// (tables `rng_q` / `rng_kv` of (min, max) per FB_SEG_TILE rows, built by
+// the wrapper); in dk/dv a tile whose ranges are both the one same id skips
+// the per-pair id test. The walk's bits (visit, mixed ids) are made once
+// at the block's start, a ballot per 32 tiles, so every thread finds the
+// next tile the same way without a barrier. With one segment nothing is
+// skipped and the variant computes the native kernels' values bit for bit.
+constexpr int FB_WARPS = 8;
+constexpr int FB_THREADS = FB_WARPS * 32;
+constexpr int FB_ROWS = FB_WARPS * 16;  // rows a block owns: q (dq), k (dk/dv)
+constexpr int FB_TILE = 64;             // rows a tile of the walk holds
+constexpr int FB_SEG_TILE = 64;         // rows per (min, max) id range
+static_assert(FB_ROWS % FB_SEG_TILE == 0 && FB_TILE == FB_SEG_TILE,
+              "a walk tile is one range, a block's rows whole ranges");
+using bf16 = __nv_bfloat16;
+
+// A fragments (16 rows x 16 k) of a row-major shared tile: rows r0..,
+// columns (k) c0..
+__device__ __forceinline__ void frag_a(const bf16* t, int sr, int r0, int c0,
+                                       uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(smem_addr(t + (r0 + (lane & 15)) * sr + c0 + (lane >> 4) * 8), a[0],
+          a[1], a[2], a[3]);
+}
+
+// B fragments of two n-tiles (b0, b1: n0..n0+7; b2, b3: n0+8..n0+15) of a
+// shared tile stored n-major ([n][k], rows n0.., columns k0..k0+15)
+__device__ __forceinline__ void frag_b(const bf16* t, int sr, int n0, int k0,
+                                       uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(smem_addr(t + (n0 + (lane >> 4) * 8 + (lane & 7)) * sr + k0 +
+                    ((lane >> 3) & 1) * 8),
+          b[0], b[1], b[2], b[3]);
+}
+
+// the same from a tile stored k-major ([k][n], rows k0..k0+15, columns
+// n0..n0+15), through ldmatrix.trans
+__device__ __forceinline__ void frag_bt(const bf16* t, int sr, int k0, int n0,
+                                        uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(smem_addr(t + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * sr +
+                          n0 + (lane >> 4) * 8),
+                b[0], b[1], b[2], b[3]);
+}
+
+// c[n] += A B over the head dim for a warp's 16 rows (A rows r0.. of `at`)
+// against NT n-tiles (B rows 0.. of `bt`, stored n-major): S = Q K^T,
+// dP = dO V^T and their transposes
+template <int DP, int NT>
+__device__ __forceinline__ void fb_abt(const bf16* at, const bf16* bt, int r0,
+                                       float (&c)[NT][4]) {
+  constexpr int SR = tile_stride(DP);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DP / 16; ++kd) {
+    uint32_t a[4];
+    frag_a(at, SR, r0, kd * 16, a);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      frag_b(bt, SR, np * 16, kd * 16, b);
+      mma_bf16(c[2 * np], a, b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+}
+
+// acc += X M for a warp's 16 rows: X (16 x 16 KT) in C fragments x[2 KT]
+// (rounded once to bf16 as A fragments), M (16 KT rows of `mt`, stored
+// k-major, head-dim columns) through ldmatrix.trans: dQ += dS K,
+// dV += P^T dO, dK += dS^T Q
+template <int DP, int KT>
+__device__ __forceinline__ void fb_pm(const float (&x)[2 * KT][4],
+                                      const bf16* mt,
+                                      float (&acc)[DP / 8][4]) {
+  constexpr int SR = tile_stride(DP);
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < DP / 16; ++dp) {
+      uint32_t b[4];
+      frag_bt(mt, SR, kk * 16, dp * 16, b);
+      mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows [r0, r0 + nrows) of one (n, D) matrix of a head (row i at element
+// (base + i) * D) into shared rows of tile_stride(DP); rows past n zeros
+template <int DP>
+__device__ __forceinline__ void fb_copy_tile(bf16* dst, const bf16* src,
+                                             long long base, int r0, int n,
+                                             int nrows, int D, int unit) {
+  auto id = [=](int r) -> long long {
+    return r0 + r < n ? base + r0 + r : -1ll;
+  };
+  if (unit == 16 && D == DP)
+    copy_rows16<DP / 8>(dst, tile_stride(DP), src, nrows, id);
+  else
+    copy_rows(dst, tile_stride(DP), src, D, nrows, id, unit);
+}
+
+// the same for one 4-byte value a row (lse, delta, segment ids)
+template <typename E>
+__device__ __forceinline__ void fb_copy_vec(E* dst, const E* src,
+                                            long long base, int r0, int n,
+                                            int nrows) {
+  auto id = [=](int r) -> long long {
+    return r0 + r < n ? base + r0 + r : -1ll;
+  };
+  copy_rows(dst, 1, src, 1, nrows, id, 4);
+}
+
+// zero the head-dim padding (columns D..DP) of `rows` shared rows: copies
+// never write it
+template <int DP>
+__device__ __forceinline__ void fb_zero_pad(bf16* t, int rows, int D) {
+  constexpr int SR = tile_stride(DP);
+  if (D < DP)
+    for (int idx = threadIdx.x; idx < rows * DP; idx += blockDim.x) {
+      const int r = idx / DP, d = idx - r * DP;
+      if (d >= D) t[r * SR + d] = __float2bfloat16(0.f);
+    }
+}
+
+// stage `rows` f32 C-fragment rows of the warps (warp w's rows 16w + g and
+// + 8, x[n] at columns 8n + 2t) times `mul` as bf16 into the shared tile
+template <int DP>
+__device__ __forceinline__ void fb_stage(bf16* t, const float (&x)[DP / 8][4],
+                                         float mul) {
+  constexpr int SR = tile_stride(DP);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* row = t + (warp * 16 + (lane >> 2)) * SR + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+        __floats2bfloat162_rn(x[n][0] * mul, x[n][1] * mul);
+    *reinterpret_cast<__nv_bfloat162*>(row + 8 * SR + n * 8) =
+        __floats2bfloat162_rn(x[n][2] * mul, x[n][3] * mul);
+  }
+}
+
+// store shared rows [0, nrows) to rows r0.. of one (n, D) matrix (rows
+// past n dropped)
+template <int DP>
+__device__ __forceinline__ void fb_store_tile(bf16* dst, const bf16* t,
+                                              long long base, int r0, int n,
+                                              int nrows, int D, int unit) {
+  const int row_bytes = D * (int)sizeof(bf16);
+  const int upr = row_bytes / unit;
+  for (int c = threadIdx.x; c < nrows * upr; c += blockDim.x) {
+    const int r = c / upr, off = (c - r * upr) * unit;
+    if (r0 + r >= n) continue;
+    store_unit(reinterpret_cast<char*>(dst) + (base + r0 + r) * row_bytes + off,
+               reinterpret_cast<const char*>(t + r * tile_stride(DP)) + off,
+               unit);
+  }
+}
+
+__device__ __forceinline__ bool fb_meet(int2 a, int2 b) {
+  return max(a.x, b.x) <= min(a.y, b.y);
+}
+
+// the id range of rows [r0, r0 + FB_ROWS) of one range table row (n rows)
+__device__ __forceinline__ int2 fb_block_range(const int2* __restrict__ rng,
+                                               int r0, int n) {
+  int2 r = __ldg(rng + r0 / FB_SEG_TILE);
+#pragma unroll
+  for (int i = 1; i < FB_ROWS / FB_SEG_TILE; ++i)
+    if (r0 + i * FB_SEG_TILE < n) {
+      const int2 o = __ldg(rng + r0 / FB_SEG_TILE + i);
+      r = make_int2(min(r.x, o.x), max(r.y, o.y));
+    }
+  return r;
+}
+
+// the words of a walk's bits for n steps
+__host__ __device__ constexpr int fb_words(int n) { return (n + 31) / 32; }
+
+// The walk's bits for its n steps, from the block's id range `own` and the
+// range other(s) of step s's tile: visit bit s when the two meet; and
+// where `mixed` is given, mixed bit s when, besides, they are not both the
+// one same id (the step's pairs need their ids tested). One ballot per 32
+// steps; publish with a barrier.
+template <typename Other>
+__device__ __forceinline__ void fb_walk_bits(unsigned* visit,
+                                             unsigned* mixed, int n,
+                                             int2 own, const Other& other) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int w = warp; w * 32 < n; w += FB_WARPS) {
+    const int s = w * 32 + lane;
+    const int2 o = s < n ? other(s) : make_int2(1, 0);  // empty
+    const bool meet = s < n && fb_meet(own, o);
+    const bool one = own.x == own.y && o.x == o.y && own.x == o.x;
+    const unsigned m = __ballot_sync(0xffffffffu, meet);
+    const unsigned x = __ballot_sync(0xffffffffu, meet && !one);
+    if (lane == 0) {
+      visit[w] = m;
+      if (mixed) mixed[w] = x;
+    }
+  }
+}
+
+__device__ __forceinline__ bool fb_bit(const unsigned* bits, int s) {
+  return (bits[s >> 5] >> (s & 31)) & 1u;
+}
+
+// the first step >= from with its bit set, or n
+__device__ __forceinline__ int fb_next(const unsigned* bits, int from, int n) {
+  for (int w = from >> 5; w * 32 < n; ++w) {
+    unsigned m = bits[w];
+    if (w == (from >> 5)) m &= 0xffffffffu << (from & 31);
+    if (m) return w * 32 + __ffs(m) - 1;
+  }
+  return n;
+}
+
+// dynamic shared memory: the block's two tiles (Q, dO for dq; K, V for
+// dk/dv), two stages of the walk's two tiles, two stages of FB_TILE f32
+// or int32 values (dk/dv: lse, delta, segment ids; dq: segment ids), and
+// the walk's visit and mixed bits (SEG): 139-141 KB at DP = 128
+template <int DP>
+__host__ __device__ constexpr size_t fb_smem_bytes(int walk_steps) {
+  return sizeof(bf16) * tile_stride(DP) * (2 * FB_ROWS + 4 * FB_TILE) +
+         sizeof(float) * 3 * 2 * FB_TILE +
+         sizeof(unsigned) * 2 * fb_words(walk_steps);
+}
+
+template <int DP, bool SEG>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    fb_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv,
+                 const int2* __restrict__ rng_q,
+                 const int2* __restrict__ rng_kv,
+                 const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 int Sq, int Skv, int H, int Hkv, int D, int causal,
+                 float scale, int unit) {
+  constexpr int SR = tile_stride(DP), NK = FB_TILE / 8;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(fb_smem);     // [ROWS][SR]
+  bf16* dOs = Qs + FB_ROWS * SR;                   // [ROWS][SR]
+  bf16* Ks = dOs + FB_ROWS * SR;                   // [2][TILE][SR]
+  bf16* Vs = Ks + 2 * FB_TILE * SR;                // [2][TILE][SR]
+  int* kv_ids = reinterpret_cast<int*>(Vs + 2 * FB_TILE * SR);  // [2][TILE]
+  unsigned* bits = reinterpret_cast<unsigned*>(kv_ids + 6 * FB_TILE);
+
+  const int bh = blockIdx.x;
+  const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  // heaviest (longest causal walk) tiles first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * FB_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale2 = scale * LOG2E;
+  const long long qbase = (long long)bh * Sq, kbase = (long long)kvh * Skv;
+
+  const int q_last = min(q0 + FB_ROWS, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int n_tiles = (kv_end + FB_TILE - 1) / FB_TILE;
+
+  fb_zero_pad<DP>(Qs, 2 * FB_ROWS + 4 * FB_TILE, D);
+  fb_copy_tile<DP>(Qs, q, qbase, q0, Sq, FB_ROWS, D, unit);
+  fb_copy_tile<DP>(dOs, dout, qbase, q0, Sq, FB_ROWS, D, unit);
+  cp_async_commit();
+  if constexpr (SEG) {
+    const int2 qr = fb_block_range(rng_q + bh * ((Sq + FB_SEG_TILE - 1) /
+                                                 FB_SEG_TILE), q0, Sq);
+    const int2* kr = rng_kv + kvh * ((Skv + FB_SEG_TILE - 1) / FB_SEG_TILE);
+    fb_walk_bits(bits, nullptr, n_tiles, qr,
+                 [&](int s) { return __ldg(kr + s); });
+  }
+  // this thread's rows g and g + 8 of its warp: lse (log2 units), delta
+  // and segment ids
+  const int wr0 = q0 + warp * 16;
+  float lse2[2], dlt[2];
+  int sid[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = wr0 + g + 8 * i;
+    lse2[i] = qi < Sq ? lse[qbase + qi] * LOG2E : 0.f;
+    dlt[i] = qi < Sq ? delta[qbase + qi] : 0.f;
+    if constexpr (SEG) sid[i] = qi < Sq ? seg_q[qbase + qi] : 0;
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  __syncthreads();  // the skip bits
+
+  auto next = [&](int from) {
+    if constexpr (SEG) return fb_next(bits, from, n_tiles);
+    else return from;
+  };
+  auto load = [&](int tile, int stage) {
+    const int j0 = tile * FB_TILE;
+    fb_copy_tile<DP>(Ks + stage * FB_TILE * SR, k, kbase, j0, Skv, FB_TILE,
+                     D, unit);
+    fb_copy_tile<DP>(Vs + stage * FB_TILE * SR, v, kbase, j0, Skv, FB_TILE,
+                     D, unit);
+    if constexpr (SEG)
+      fb_copy_vec(kv_ids + stage * FB_TILE, seg_kv, kbase, j0, Skv,
+                  FB_TILE);
+  };
+  int tile = next(0), stage = 0;
+  if (tile < n_tiles) load(tile, 0);
+  cp_async_commit();
+  const int wr_last = min(wr0 + 15, Sq - 1);
+  while (tile < n_tiles) {
+    const int tn = next(tile + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // tile landed; the other stage's readers are done
+    if (tn < n_tiles) load(tn, stage ^ 1);
+    cp_async_commit();
+    const int j0 = tile * FB_TILE;
+    if (wr0 < Sq && (!causal || j0 <= wr_last)) {
+      const bf16* Kt = Ks + stage * FB_TILE * SR;
+      const bf16* Vt = Vs + stage * FB_TILE * SR;
+      float s[NK][4], dp[NK][4];
+      fb_abt<DP, NK>(Qs, Kt, warp * 16, s);
+      fb_abt<DP, NK>(dOs, Vt, warp * 16, dp);
+      // mask where the tile straddles this warp's diagonal or the kv end,
+      // and everywhere with segment ids (measured on the H100: testing the
+      // ids only on mixed tiles, or the masked and unmasked loops apart,
+      // made this kernel slower, unlike dk/dv)
+      const bool masked = SEG || j0 + FB_TILE > Skv ||
+                          (causal && j0 + FB_TILE - 1 > wr0);
+      const int* ids = kv_ids + stage * FB_TILE;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, col = n * 8 + 2 * t4 + (e & 1);
+          float p = exp2_approx(fmaf(s[n][e], scale2, -lse2[i]));
+          if (masked) {
+            const int kj = j0 + col, qi = wr0 + g + 8 * i;
+            const bool vis = kj < Skv && (!causal || kj <= qi) &&
+                             (!SEG || sid[i] == ids[col]);
+            if (!vis) p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - dlt[i]);  // dS
+        }
+      }
+      fb_pm<DP, FB_TILE / 16>(s, Kt, acc);  // dQ += dS K
+    }
+    tile = tn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the Q tile
+  fb_stage<DP>(Qs, acc, scale);
+  __syncthreads();
+  fb_store_tile<DP>(dq, Qs, qbase, q0, Sq, FB_ROWS, D, unit);
+}
+
+template <int DP, bool SEG>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    fb_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_kv,
+                  const int2* __restrict__ rng_q,
+                  const int2* __restrict__ rng_kv,
+                  const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, float* __restrict__ part, int Sq,
+                  int Skv, int H, int Hkv, int D, int causal, float scale,
+                  int unit) {
+  constexpr int SR = tile_stride(DP), NQ = FB_TILE / 8;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(fb_smem);     // [ROWS][SR]
+  bf16* Vs = Ks + FB_ROWS * SR;                    // [ROWS][SR]
+  bf16* Qs = Vs + FB_ROWS * SR;                    // [2][TILE][SR]
+  bf16* dOs = Qs + 2 * FB_TILE * SR;               // [2][TILE][SR]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * FB_TILE * SR);
+  float* dl_s = lse_s + 2 * FB_TILE;               // [2][TILE] each
+  int* q_ids = reinterpret_cast<int*>(dl_s + 2 * FB_TILE);
+  unsigned* bits = reinterpret_cast<unsigned*>(q_ids + 2 * FB_TILE);
+
+  const int kvh = blockIdx.x;
+  const int b = kvh / Hkv, grp = kvh - b * Hkv, rep = H / Hkv;
+  const int k0 = blockIdx.y * FB_ROWS;  // the first kv tiles walk longest
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale2 = scale * LOG2E;
+  const long long kbase = (long long)kvh * Skv;
+
+  // the walk: rep heads x the q tiles from the one holding row k0 on
+  const int qt0 = causal ? k0 / FB_TILE : 0;
+  const int nq = max((Sq + FB_TILE - 1) / FB_TILE - qt0, 0);
+  const int n_steps = rep * nq;
+  unsigned* mixed = bits + fb_words(n_steps);  // after the visit bits
+  // with a split (gridDim.z > 1) this block walks part blockIdx.z of them
+  const int s_end =
+      (int)((long long)n_steps * (blockIdx.z + 1) / gridDim.z);
+  auto head_of = [&](int step) { return b * H + grp * rep + step / nq; };
+  auto q0_of = [&](int step) { return (qt0 + step % nq) * FB_TILE; };
+
+  fb_zero_pad<DP>(Ks, 2 * FB_ROWS + 4 * FB_TILE, D);
+  fb_copy_tile<DP>(Ks, k, kbase, k0, Skv, FB_ROWS, D, unit);
+  fb_copy_tile<DP>(Vs, v, kbase, k0, Skv, FB_ROWS, D, unit);
+  cp_async_commit();
+  if constexpr (SEG) {
+    const int nqr = (Sq + FB_SEG_TILE - 1) / FB_SEG_TILE;
+    const int2 kr = fb_block_range(
+        rng_kv + kvh * ((Skv + FB_SEG_TILE - 1) / FB_SEG_TILE), k0, Skv);
+    fb_walk_bits(bits, mixed, n_steps, kr, [&](int s) {
+      return __ldg(rng_q + head_of(s) * nqr + q0_of(s) / FB_SEG_TILE);
+    });
+  }
+  const int wk0 = k0 + warp * 16;
+  int kid[2] = {0, 0};
+  if constexpr (SEG)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = wk0 + g + 8 * i;
+      kid[i] = kj < Skv ? seg_kv[kbase + kj] : 0;
+    }
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
+    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
+  }
+  __syncthreads();  // the skip bits
+
+  auto next = [&](int from) {
+    if constexpr (SEG) return fb_next(bits, from, s_end);
+    else return from;
+  };
+  auto load = [&](int step, int stage) {
+    const long long qbase = (long long)head_of(step) * Sq;
+    const int q0 = q0_of(step);
+    fb_copy_tile<DP>(Qs + stage * FB_TILE * SR, q, qbase, q0, Sq, FB_TILE,
+                     D, unit);
+    fb_copy_tile<DP>(dOs + stage * FB_TILE * SR, dout, qbase, q0, Sq,
+                     FB_TILE, D, unit);
+    fb_copy_vec(lse_s + stage * FB_TILE, lse, qbase, q0, Sq, FB_TILE);
+    fb_copy_vec(dl_s + stage * FB_TILE, delta, qbase, q0, Sq, FB_TILE);
+    if constexpr (SEG)
+      fb_copy_vec(q_ids + stage * FB_TILE, seg_q, qbase, q0, Sq, FB_TILE);
+  };
+  int step = next((int)((long long)n_steps * blockIdx.z / gridDim.z));
+  int stage = 0;
+  if (step < s_end) load(step, 0);
+  cp_async_commit();
+  while (step < s_end) {
+    const int sn = next(step + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // tile landed; the other stage's readers are done
+    if (sn < s_end) load(sn, stage ^ 1);
+    cp_async_commit();
+    const int q0 = q0_of(step);
+    if (wk0 < Skv && (!causal || wk0 <= q0 + FB_TILE - 1)) {
+      const bf16* Qt = Qs + stage * FB_TILE * SR;
+      const bf16* dOt = dOs + stage * FB_TILE * SR;
+      const float* ls = lse_s + stage * FB_TILE;
+      const float* dl = dl_s + stage * FB_TILE;
+      const int* ids = q_ids + stage * FB_TILE;
+      // transposed tiles: rows are this warp's keys, columns queries
+      float st[NQ][4], dpt[NQ][4];
+      fb_abt<DP, NQ>(Ks, Qt, warp * 16, st);
+      // mask where the tile straddles this warp's diagonal or an end, or
+      // holds more than one segment id
+      const bool masked = (SEG && fb_bit(mixed, step)) ||
+                          q0 + FB_TILE > Sq || wk0 + 16 > Skv ||
+                          (causal && wk0 + 15 > q0);
+      // P^T; the masked and unmasked loops apart, each straight-line code
+      auto pt = [&](auto mask) {
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, col = n * 8 + 2 * t4 + (e & 1);
+            float p = exp2_approx(fmaf(st[n][e], scale2, -ls[col] * LOG2E));
+            if constexpr (decltype(mask)::value) {
+              const int qi = q0 + col, kj = wk0 + g + 8 * i;
+              const bool vis = qi < Sq && kj < Skv &&
+                               (!causal || kj <= qi) &&
+                               (!SEG || kid[i] == ids[col]);
+              p = vis ? p : 0.f;
+            }
+            st[n][e] = p;
+          }
+        }
+      };
+      if (masked) pt(std::true_type{});
+      else pt(std::false_type{});
+      fb_pm<DP, FB_TILE / 16>(st, dOt, dv_acc);  // dV += P^T dO
+      fb_abt<DP, NQ>(Vs, dOt, warp * 16, dpt);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[n][e] *= dpt[n][e] - dl[n * 8 + 2 * t4 + (e & 1)];  // dS^T
+      fb_pm<DP, FB_TILE / 16>(st, Qt, dk_acc);  // dK += dS^T Q
+    }
+    step = sn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  if (gridDim.z > 1) {
+    // this part's f32 sums (dk unscaled) for fb_dkv_combine_kernel:
+    // part[z][0 = dk, 1 = dv][kv row][D]
+    const size_t n = (size_t)gridDim.x * Skv * D;
+    float* pk = part + (size_t)blockIdx.z * 2 * n;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = wk0 + g + 8 * i;
+      if (kj >= Skv) continue;
+      const size_t row = (size_t)(kbase + kj) * D;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = c * 8 + 2 * t4 + e;
+          if (d >= D) continue;
+          pk[row + d] = dk_acc[c][2 * i + e];
+          pk[n + row + d] = dv_acc[c][2 * i + e];
+        }
+    }
+    return;
+  }
+  __syncthreads();  // every warp is done with the K and V tiles
+  fb_stage<DP>(Ks, dk_acc, scale);
+  fb_stage<DP>(Vs, dv_acc, 1.f);
+  __syncthreads();
+  fb_store_tile<DP>(dk, Ks, kbase, k0, Skv, FB_ROWS, D, unit);
+  fb_store_tile<DP>(dv, Vs, kbase, k0, Skv, FB_ROWS, D, unit);
+}
+
 // ------------------------------------------------------------------ launches
 template <typename Kernel>
 int fa_prepare(Kernel kernel, size_t smem) {
@@ -519,9 +1112,10 @@ int fa_fwd(const void* q, const void* k, const void* v, const void* seg_q,
 
 template <typename T, int DP, bool SEG>
 int fa_dq(const void* q, const void* k, const void* v, const void* seg_q,
-          const void* seg_kv, const void* dout, const void* lse,
-          const void* delta, void* dq, int BH, int Sq, int Skv, int H,
-          int Hkv, int D, int causal, float scale, cudaStream_t st) {
+          const void* seg_kv, const void*, const void*, const void* dout,
+          const void* lse, const void* delta, void* dq, int BH, int Sq,
+          int Skv, int H, int Hkv, int D, int causal, float scale,
+          cudaStream_t st) {
   const size_t smem = fa_dq_smem<DP>();
   int rc = fa_prepare(fa_dq_kernel<T, DP, SEG>, smem);
   if (rc) return rc;
@@ -535,9 +1129,10 @@ int fa_dq(const void* q, const void* k, const void* v, const void* seg_q,
 
 template <typename T, int DP, bool SEG>
 int fa_dkv(const void* q, const void* k, const void* v, const void* seg_q,
-           const void* seg_kv, const void* dout, const void* lse,
-           const void* delta, void* dk, void* dv, int BHkv, int Sq, int Skv,
-           int H, int Hkv, int D, int causal, float scale, cudaStream_t st) {
+           const void* seg_kv, const void*, const void*, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv, int,
+           void*, int BHkv, int Sq, int Skv, int H, int Hkv, int D,
+           int causal, float scale, cudaStream_t st) {
   const size_t smem = fa_dkv_smem<DP>();
   int rc = fa_prepare(fa_dkv_kernel<T, DP, SEG>, smem);
   if (rc) return rc;
@@ -550,6 +1145,77 @@ int fa_dkv(const void* q, const void* k, const void* v, const void* seg_q,
   return (int)cudaGetLastError();
 }
 
+// dk = scale * sum_z dK_z, dv = sum_z dV_z over the nsplit parts of
+// fb_dkv_kernel (n elements each), in part order
+__global__ void __launch_bounds__(256)
+    fb_dkv_combine_kernel(const float* __restrict__ part,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          size_t n, int nsplit, float scale) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float a = 0.f, c = 0.f;
+    for (int z = 0; z < nsplit; ++z) {
+      a += part[2 * z * n + i];
+      c += part[(2 * z + 1) * n + i];
+    }
+    dk[i] = __float2bfloat16(a * scale);
+    dv[i] = __float2bfloat16(c);
+  }
+}
+
+// the narrowest copy piece of the tensors' rows (D bf16 each)
+inline int fb_unit(std::initializer_list<const void*> ptrs, int D) {
+  int u = 16;
+  for (const void* p : ptrs) u = std::min(u, copy_unit(p, (size_t)D * 2));
+  return u;
+}
+
+template <int DP, bool SEG>
+int fb_dq(const void* q, const void* k, const void* v, const void* seg_q,
+          const void* seg_kv, const void* rng_q, const void* rng_kv,
+          const void* dout, const void* lse, const void* delta, void* dq,
+          int BH, int Sq, int Skv, int H, int Hkv, int D, int causal,
+          float scale, cudaStream_t st) {
+  const size_t smem =
+      fb_smem_bytes<DP>(SEG ? (Skv + FB_TILE - 1) / FB_TILE : 0);
+  int rc = fa_prepare(fb_dq_kernel<DP, SEG>, smem);
+  if (rc) return rc;
+  dim3 grid(BH, (Sq + FB_ROWS - 1) / FB_ROWS);
+  fb_dq_kernel<DP, SEG><<<grid, FB_THREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg_q,
+      (const int*)seg_kv, (const int2*)rng_q, (const int2*)rng_kv,
+      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dq,
+      Sq, Skv, H, Hkv, D, causal, scale, fb_unit({q, k, v, dout, dq}, D));
+  return (int)cudaGetLastError();
+}
+
+template <int DP, bool SEG>
+int fb_dkv(const void* q, const void* k, const void* v, const void* seg_q,
+           const void* seg_kv, const void* rng_q, const void* rng_kv,
+           const void* dout, const void* lse, const void* delta, void* dk,
+           void* dv, int nsplit, void* part, int BHkv, int Sq, int Skv,
+           int H, int Hkv, int D, int causal, float scale, cudaStream_t st) {
+  const int steps = (H / Hkv) * ((Sq + FB_TILE - 1) / FB_TILE);
+  const size_t smem = fb_smem_bytes<DP>(SEG ? steps : 0);
+  int rc = fa_prepare(fb_dkv_kernel<DP, SEG>, smem);
+  if (rc) return rc;
+  dim3 grid(BHkv, (Skv + FB_ROWS - 1) / FB_ROWS, nsplit);
+  fb_dkv_kernel<DP, SEG><<<grid, FB_THREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg_q,
+      (const int*)seg_kv, (const int2*)rng_q, (const int2*)rng_kv,
+      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, (float*)part, Sq, Skv, H, Hkv, D, causal, scale,
+      fb_unit({q, k, v, dout, dk, dv}, D));
+  if (nsplit > 1) {
+    const size_t n = (size_t)BHkv * Skv * D;
+    const unsigned blocks = (unsigned)std::min<size_t>((n + 255) / 256,
+                                                       (size_t)1 << 20);
+    fb_dkv_combine_kernel<<<blocks, 256, 0, st>>>(
+        (const float*)part, (bf16*)dk, (bf16*)dv, n, nsplit, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 inline bool fa_shape_ok(int rows, int Sq, int Skv, int H, int Hkv, int D) {
   return rows > 0 && rows <= 65535 && Sq > 0 && Skv > 0 && H > 0 &&
          Hkv > 0 && H % Hkv == 0 && D > 0 && D <= 128;
@@ -557,28 +1223,53 @@ inline bool fa_shape_ok(int rows, int Sq, int Skv, int H, int Hkv, int D) {
 
 }  // namespace ptt
 
-// Dispatch on dtype (0 = f32, 1 = bf16), padded head dim (64 or 128) and
-// segment ids (both id pointers given, or neither).
-#define PTT_FA_DISPATCH_SEG(FN, SEG, ...)                                \
+// The forward's route: dtype (0 = f32, 1 = bf16) and padded head dim (64
+// or 128), on the CUDA cores.
+#define PTT_FA_FWD_SEG(SEG, ...)                                         \
   do {                                                                   \
     if (dtype == ptt::DT_F32 && D <= 64)                                 \
-      return ptt::FN<float, 64, SEG>(__VA_ARGS__);                       \
+      return ptt::fa_fwd<float, 64, SEG>(__VA_ARGS__);                   \
     if (dtype == ptt::DT_F32)                                            \
-      return ptt::FN<float, 128, SEG>(__VA_ARGS__);                      \
+      return ptt::fa_fwd<float, 128, SEG>(__VA_ARGS__);                  \
     if (dtype == ptt::DT_BF16 && D <= 64)                                \
-      return ptt::FN<__nv_bfloat16, 64, SEG>(__VA_ARGS__);               \
+      return ptt::fa_fwd<__nv_bfloat16, 64, SEG>(__VA_ARGS__);           \
     if (dtype == ptt::DT_BF16)                                           \
-      return ptt::FN<__nv_bfloat16, 128, SEG>(__VA_ARGS__);              \
+      return ptt::fa_fwd<__nv_bfloat16, 128, SEG>(__VA_ARGS__);          \
     return (int)cudaErrorInvalidValue;                                   \
   } while (0)
 
-#define PTT_FA_DISPATCH(FN, ...)                                         \
+// The backward's: fp32 on the CUDA cores (FA, padded head dim 64 or 128),
+// bf16 on the tensor cores (FB, padded head dim 32, 64, 96 or 128).
+#define PTT_FA_BWD_SEG(SEG, FA, FB, ...)                                 \
+  do {                                                                   \
+    if (dtype == ptt::DT_F32 && D <= 64)                                 \
+      return ptt::FA<float, 64, SEG>(__VA_ARGS__);                       \
+    if (dtype == ptt::DT_F32)                                            \
+      return ptt::FA<float, 128, SEG>(__VA_ARGS__);                      \
+    if (dtype != ptt::DT_BF16) return (int)cudaErrorInvalidValue;        \
+    switch (ptt::padded_head_dim(D)) {                                   \
+      case 32: return ptt::FB<32, SEG>(__VA_ARGS__);                     \
+      case 64: return ptt::FB<64, SEG>(__VA_ARGS__);                     \
+      case 96: return ptt::FB<96, SEG>(__VA_ARGS__);                     \
+      default: return ptt::FB<128, SEG>(__VA_ARGS__);                    \
+    }                                                                    \
+  } while (0)
+
+// segment ids: both id pointers given (the SEG variant), or neither
+#define PTT_FA_SEG(ROUTE, ...)                                           \
   do {                                                                   \
     if ((seg_q == nullptr) != (seg_kv == nullptr))                       \
       return (int)cudaErrorInvalidValue;                                 \
-    if (seg_q != nullptr) PTT_FA_DISPATCH_SEG(FN, true, __VA_ARGS__);    \
-    PTT_FA_DISPATCH_SEG(FN, false, __VA_ARGS__);                         \
+    if (seg_q != nullptr) ROUTE(true, __VA_ARGS__);                      \
+    ROUTE(false, __VA_ARGS__);                                           \
   } while (0)
+
+// the bf16 segment variants' range tables: given with the ids
+inline bool fa_ranges_ok(int dtype, const void* seg_q, const void* rng_q,
+                         const void* rng_kv) {
+  return dtype != ptt::DT_BF16 || seg_q == nullptr ||
+         (rng_q != nullptr && rng_kv != nullptr);
+}
 
 // seg_q / seg_kv: nullable int32 segment ids, (BH, Sq) and (BHkv, Skv)
 PTT_EXPORT int ptt_flash_attention_fwd(int dtype, const void* q,
@@ -591,39 +1282,55 @@ PTT_EXPORT int ptt_flash_attention_fwd(int dtype, const void* q,
   if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_DISPATCH(fa_fwd, q, k, v, seg_q, seg_kv, out, lse, BH, Sq, Skv, H,
-                  Hkv, D, causal, scale, st);
+  PTT_FA_SEG(PTT_FA_FWD_SEG, q, k, v, seg_q, seg_kv, out, lse, BH, Sq, Skv,
+             H, Hkv, D, causal, scale, st);
 }
 
+// rng_q / rng_kv: for bf16 with segment ids, int32 (min, max) id pairs of
+// every FB_SEG_TILE rows, (BH, ceil(Sq / 64), 2) and (BHkv, ceil(Skv / 64),
+// 2); otherwise unused
 PTT_EXPORT int ptt_flash_attention_bwd_dq(int dtype, const void* q,
                                           const void* k, const void* v,
                                           const void* seg_q,
                                           const void* seg_kv,
+                                          const void* rng_q,
+                                          const void* rng_kv,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dq, int BH,
                                           int Sq, int Skv, int H, int Hkv,
                                           int D, int causal, float scale,
                                           void* stream) {
-  if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D))
+  if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D) ||
+      !fa_ranges_ok(dtype, seg_q, rng_q, rng_kv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_DISPATCH(fa_dq, q, k, v, seg_q, seg_kv, dout, lse, delta, dq, BH, Sq,
-                  Skv, H, Hkv, D, causal, scale, st);
+  PTT_FA_SEG(PTT_FA_BWD_SEG, fa_dq, fb_dq, q, k, v, seg_q, seg_kv, rng_q,
+             rng_kv, dout, lse, delta, dq, BH, Sq, Skv, H, Hkv, D, causal,
+             scale, st);
 }
 
+// nsplit: parts each bf16 block's walk is split into (1: none); with more,
+// part is f32 scratch of nsplit x 2 x BHkv x Skv x D that a second kernel
+// of the same call merges
 PTT_EXPORT int ptt_flash_attention_bwd_dkv(int dtype, const void* q,
                                            const void* k, const void* v,
                                            const void* seg_q,
                                            const void* seg_kv,
+                                           const void* rng_q,
+                                           const void* rng_kv,
                                            const void* dout, const void* lse,
                                            const void* delta, void* dk,
-                                           void* dv, int BHkv, int Sq,
+                                           void* dv, int nsplit,
+                                           void* part, int BHkv, int Sq,
                                            int Skv, int H, int Hkv, int D,
                                            int causal, float scale,
                                            void* stream) {
-  if (!ptt::fa_shape_ok(BHkv, Sq, Skv, H, Hkv, D))
+  if (!ptt::fa_shape_ok(BHkv, Sq, Skv, H, Hkv, D) ||
+      !fa_ranges_ok(dtype, seg_q, rng_q, rng_kv) || nsplit < 1 ||
+      nsplit > 65535 || (nsplit > 1 && (dtype != ptt::DT_BF16 || !part)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_DISPATCH(fa_dkv, q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv,
-                  BHkv, Sq, Skv, H, Hkv, D, causal, scale, st);
+  PTT_FA_SEG(PTT_FA_BWD_SEG, fa_dkv, fb_dkv, q, k, v, seg_q, seg_kv, rng_q,
+             rng_kv, dout, lse, delta, dk, dv, nsplit, part, BHkv, Sq, Skv,
+             H, Hkv, D, causal, scale, st);
 }

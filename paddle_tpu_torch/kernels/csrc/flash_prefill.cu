@@ -69,8 +69,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const size_t smem = DP == 0 ? fp_smem_bytes(D) : pm_smem_bytes<DP, false>();
   const int bq = DP == 0 ? FP_BQ : PM_BQ;
   const size_t row = (size_t)D * sizeof(T);
-  const int qunit = std::min(pm_unit(q, row), pm_unit(out, row));
-  const int kvunit = std::min(pm_unit(k, row), pm_unit(v, row));
+  const int qunit = std::min(copy_unit(q, row), copy_unit(out, row));
+  const int kvunit = std::min(copy_unit(k, row), copy_unit(v, row));
   cudaFuncSetAttribute(flash_prefill_kernel<T, DP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -99,7 +99,7 @@ int launch_dt(const void* q, const void* k, const void* v, void* out, int B,
                 scale, stream)
   if constexpr (std::is_same<T, float>::value)
     return PTT_PREFILL_LAUNCH(0, 1);
-  else switch (pm_head_dim(D)) {
+  else switch (padded_head_dim(D)) {
     case 32: return PTT_PREFILL_LAUNCH(32, nsplit);
     case 64: return PTT_PREFILL_LAUNCH(64, nsplit);
     case 96: return PTT_PREFILL_LAUNCH(96, nsplit);

@@ -97,9 +97,9 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
                               : pm_smem_bytes<DP, is_int8_pool<S>()>();
   const int bq = DP == 0 ? FP_BQ : PM_BQ;
   const size_t row = (size_t)D * sizeof(T);
-  const int qunit = std::min(pm_unit(q, row), pm_unit(out, row));
-  const int kvunit = std::min(pm_unit(kp, (size_t)D * sizeof(S)),
-                              pm_unit(vp, (size_t)D * sizeof(S)));
+  const int qunit = std::min(copy_unit(q, row), copy_unit(out, row));
+  const int kvunit = std::min(copy_unit(kp, (size_t)D * sizeof(S)),
+                              copy_unit(vp, (size_t)D * sizeof(S)));
   cudaFuncSetAttribute(paged_chunk_kernel<T, S, DP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -130,7 +130,7 @@ int launch_dt(const void* q, const void* kp, const void* vp, const void* ks,
   launch<T, S, DP>(q, kp, vp, ks, vs, bt, start, out, B, Sq, H, Hkv, D,      \
                    num_pages, page, maxp, NS, po, pml, scale, stream)
   if constexpr (std::is_same<T, float>::value) return PTT_CHUNK_LAUNCH(0, 1);
-  else switch (pm_head_dim(D)) {
+  else switch (padded_head_dim(D)) {
     case 32: return PTT_CHUNK_LAUNCH(32, nsplit);
     case 64: return PTT_CHUNK_LAUNCH(64, nsplit);
     case 96: return PTT_CHUNK_LAUNCH(96, nsplit);

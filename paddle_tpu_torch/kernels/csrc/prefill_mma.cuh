@@ -51,7 +51,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace ptt {
 
@@ -61,10 +61,6 @@ constexpr int PM_WARPS = PM_BQ / 16;
 constexpr int PM_THREADS = PM_WARPS * 32;
 constexpr int PM_BLOCKS_PER_SM = 1;   // by registers
 static_assert(PM_BQ <= PM_BK, "the q tile lives in the K tiles");
-constexpr float LOG2E = 1.4426950408889634f;
-
-// shared-memory row stride (elements) of a bf16 tile of head dim DP
-__host__ __device__ constexpr int pm_stride(int dp) { return dp + 8; }
 
 // dynamic shared memory: K and V (two stages; one for an int8 pool, whose
 // two stages are the int8 staging tiles; the q tile before the walk and
@@ -73,89 +69,9 @@ __host__ __device__ constexpr int pm_stride(int dp) { return dp + 8; }
 // 136 KB int8 at DP = 128
 template <int DP, bool INT8>
 __host__ __device__ constexpr size_t pm_smem_bytes() {
-  return 2 * (size_t)pm_stride(DP) * (INT8 ? 2 : 4) * PM_BK +
+  return 2 * (size_t)tile_stride(DP) * (INT8 ? 2 : 4) * PM_BK +
          sizeof(long long) * 2 * PM_BK +
          (INT8 ? 2 * 2 * (size_t)PM_BK * DP + sizeof(float) * 4 * PM_BK : 0);
-}
-
-// the head dim a tile is padded to: one of the four instantiations
-inline int pm_head_dim(int D) {
-  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : 128;
-}
-
-// the widest copy piece (16, 8, 4, 2 or 1 bytes) that every row of a
-// tensor at `p` with `row_bytes` a row starts on
-inline int pm_unit(const void* p, size_t row_bytes) {
-  int u = 16;
-  while (u > 1 && (((uintptr_t)p | row_bytes) % (uintptr_t)u)) u >>= 1;
-  return u;
-}
-
-// 2^x (approximate, flushing subnormal results to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// `bytes` (4, 8 or 16) from global to shared; zeros when !valid
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int bytes, bool valid) {
-  const int n = valid ? bytes : 0;
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
-                                              uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// c += a b, one m16n8k16 bf16 product with f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Four int8 (one word) as four bf16 (two words), exactly, on the integer
@@ -174,73 +90,13 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
-// (x0, x1) as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// Copy `nrows` rows of `n` elements each into shared rows of stride `sr`
-// elements: row r is src[row_id(r) * n ..], or zeros where row_id(r) < 0.
-// Pieces of `unit` bytes: cp.async for 4, 8 and 16, plain copies below.
-template <typename E, typename RowId>
-__device__ __forceinline__ void pm_copy_rows(E* dst, int sr, const E* src,
-                                             int n, int nrows,
-                                             const RowId& row_id, int unit) {
-  const int row_bytes = n * (int)sizeof(E);
-  const int upr = row_bytes / unit;
-  for (int c = threadIdx.x; c < nrows * upr; c += blockDim.x) {
-    const int r = c / upr, off = (c - r * upr) * unit;
-    const long long id = row_id(r);
-    const char* s = reinterpret_cast<const char*>(src) +
-                    (id >= 0 ? id * row_bytes + off : 0);
-    char* d = reinterpret_cast<char*>(dst + (size_t)r * sr) + off;
-    if (unit >= 4) {
-      cp_async(smem_addr(d), s, unit, id >= 0);
-    } else {
-      for (int i = 0; i < unit; ++i) d[i] = id >= 0 ? s[i] : (char)0;
-    }
-  }
-}
-
-// The same for rows of exactly UPR 16-byte pieces (the common case: a
-// head dim that is its padded width, rows aligned to 16 bytes), with the
-// piece arithmetic known at compile time.
-template <int UPR, typename E, typename RowId>
-__device__ __forceinline__ void pm_copy_rows16(E* dst, int sr, const E* src,
-                                               int nrows,
-                                               const RowId& row_id) {
-  for (int c = threadIdx.x; c < nrows * UPR; c += blockDim.x) {
-    const int r = c / UPR, off = (c % UPR) * 16;
-    const long long id = row_id(r);
-    const char* s = reinterpret_cast<const char*>(src) +
-                    (id >= 0 ? id * (UPR * 16) + off : 0);
-    cp_async(smem_addr(reinterpret_cast<char*>(dst + (size_t)r * sr) + off),
-             s, 16, id >= 0);
-  }
-}
-
-// `unit` bytes from shared `s` to global `d`
-__device__ __forceinline__ void store_unit(char* d, const char* s, int unit) {
-  if (unit == 16) *reinterpret_cast<uint4*>(d) =
-      *reinterpret_cast<const uint4*>(s);
-  else if (unit == 8) *reinterpret_cast<uint2*>(d) =
-      *reinterpret_cast<const uint2*>(s);
-  else if (unit == 4) *reinterpret_cast<uint32_t*>(d) =
-      *reinterpret_cast<const uint32_t*>(s);
-  else for (int i = 0; i < unit; ++i) d[i] = s[i];
-}
-
 // The block's work. Query row i (0 <= i < S) of the head is row
 // qrow0 + i * qrow_step of q and out (its elements at that row * D) and
 // sits at absolute position qpos0 + i; it sees every kv row at a position
 // <= its own and below kv_len. The block takes query rows q0 .. q0 + PM_BQ.
 // `kv_row(pos)`: the row of kv position `pos` of the block's kv head in
 // k and v (elements at row * D; an int8 pool's scale at ks/vs[row]).
-// qunit / kvunit: copy piece widths (pm_unit) of q and out / of k and v.
+// qunit / kvunit: copy piece widths (copy_unit) of q and out / of k and v.
 // With nsplit > 1 the block walks only part `split` of its kv tiles and
 // leaves its rows' unnormalised f32 O in po (nsplit x nrows x D, row
 // qrow0 + i * qrow_step) and their (m, l) in pml (nsplit x nrows x 2), for
@@ -260,7 +116,7 @@ __device__ inline void prefill_mma(const __nv_bfloat16* __restrict__ q,
                                    float* __restrict__ pml, size_t nrows) {
   using bf16 = __nv_bfloat16;
   constexpr bool INT8 = is_int8_pool<KS>();
-  constexpr int SR = pm_stride(DP);
+  constexpr int SR = tile_stride(DP);
   constexpr int NT = PM_BK / 8;   // key columns of S, in n-tiles of 8
   constexpr int KD = DP / 16;     // k-steps over the head dim
   constexpr int ND = DP / 8;      // head-dim columns of O, in n-tiles of 8
@@ -315,9 +171,9 @@ __device__ inline void prefill_mma(const __nv_bfloat16* __restrict__ q,
                       : -1ll;
   };
   if (qunit == 16 && D == DP)
-    pm_copy_rows16<DP / 8>(Qs, SR, q, PM_BQ, q_id);
+    copy_rows16<DP / 8>(Qs, SR, q, PM_BQ, q_id);
   else
-    pm_copy_rows(Qs, SR, q, D, PM_BQ, q_id, qunit);
+    copy_rows(Qs, SR, q, D, PM_BQ, q_id, qunit);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();  // the q tile and the row ids are visible
@@ -343,23 +199,23 @@ __device__ inline void prefill_mma(const __nv_bfloat16* __restrict__ q,
       int8_t* kd = K8 + stage * PM_BK * DP;
       int8_t* vd = V8 + stage * PM_BK * DP;
       if (whole16) {
-        pm_copy_rows16<DP / 16>(kd, DP, k, PM_BK, id);
-        pm_copy_rows16<DP / 16>(vd, DP, v, PM_BK, id);
+        copy_rows16<DP / 16>(kd, DP, k, PM_BK, id);
+        copy_rows16<DP / 16>(vd, DP, v, PM_BK, id);
       } else {
-        pm_copy_rows(kd, DP, k, D, PM_BK, id, kvunit);
-        pm_copy_rows(vd, DP, v, D, PM_BK, id, kvunit);
+        copy_rows(kd, DP, k, D, PM_BK, id, kvunit);
+        copy_rows(vd, DP, v, D, PM_BK, id, kvunit);
       }
-      pm_copy_rows(Ksc + stage * PM_BK, 1, ks, 1, PM_BK, id, 4);
-      pm_copy_rows(Vsc + stage * PM_BK, 1, vs, 1, PM_BK, id, 4);
+      copy_rows(Ksc + stage * PM_BK, 1, ks, 1, PM_BK, id, 4);
+      copy_rows(Vsc + stage * PM_BK, 1, vs, 1, PM_BK, id, 4);
     } else {
       bf16* kd = Ks + stage * PM_BK * SR;
       bf16* vd = Vs + stage * PM_BK * SR;
       if (whole16) {
-        pm_copy_rows16<DP / 8>(kd, SR, k, PM_BK, id);
-        pm_copy_rows16<DP / 8>(vd, SR, v, PM_BK, id);
+        copy_rows16<DP / 8>(kd, SR, k, PM_BK, id);
+        copy_rows16<DP / 8>(vd, SR, v, PM_BK, id);
       } else {
-        pm_copy_rows(kd, SR, k, D, PM_BK, id, kvunit);
-        pm_copy_rows(vd, SR, v, D, PM_BK, id, kvunit);
+        copy_rows(kd, SR, k, D, PM_BK, id, kvunit);
+        copy_rows(vd, SR, v, D, PM_BK, id, kvunit);
       }
     }
   };

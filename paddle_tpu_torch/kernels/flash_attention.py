@@ -14,6 +14,10 @@ a wrapper with a launch counter and a plain PyTorch version:
   - :func:`flash_attention_bwd_dq` (replaces ``_bwd_dq_kernel``);
   - :func:`flash_attention_bwd_dkv` (replaces ``_bwd_dkv_kernel``).
 
+The forward and the fp32 backward compute on the CUDA cores in f32; the
+bf16 backward runs on the tensor cores (``mma.sync``, P and dS rounded once
+to bf16 as operands, every sum in f32, the softmax scale in the exponent).
+
 ``_FlashAttention`` ties them into one ``torch.autograd.Function``: the
 forward saves ``(q, k, v, out, lse)``; the backward computes
 ``delta = rowsum(dO * O)`` in f32 (outside the kernels, as the JAX
@@ -25,7 +29,10 @@ Segment ids (varlen / packed sequences): ``seg_q`` ``(BH, Sq)`` and
 ``seg_kv`` ``(BHkv, Skv)``, int32; a query sees a key only within its
 segment (and causally). Each kernel has a segment variant, counted apart
 as ``<wrapper>_seg``. A row whose id no key carries emits zeros with
-lse 0 and gets zero gradients.
+lse 0 and gets zero gradients. The bf16 backward skips a whole tile whose
+ids cannot meet the other side's, by the (min, max) id of every
+``SEG_TILE`` rows (:func:`seg_tile_ranges`, built by its wrappers and part
+of their cost).
 
 Not ported (``NotImplementedError``): :func:`flash_attention_with_lse`
 (ring attention).
@@ -44,6 +51,9 @@ from . import _build
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
 _MAX_ROWS = 65535          # grid.y of the kernels: B*H (B*Hkv for dk/dv)
+SEG_TILE = 64              # rows per id range (FB_SEG_TILE in the source)
+_DKV_KEYS = 128            # keys a bf16 dk/dv block owns (FB_ROWS)
+_DKV_MIN_PART = 8          # q tiles of 64 rows a part of its walk walks
 
 
 def _scale(sm_scale: Optional[float], d: int) -> float:
@@ -207,6 +217,54 @@ def _check_seg(name, q, k, seg_q, seg_kv):
     return seg_q.data_ptr(), seg_kv.data_ptr(), "seg"
 
 
+def seg_tile_ranges(ids):
+    """``(rows, ceil(n / SEG_TILE), 2)`` int32: the (min, max) segment id of
+    every ``SEG_TILE`` positions of each row of ``ids`` ``(rows, n)``. The
+    bf16 backward kernels skip a tile pair whose ranges do not meet
+    (:func:`seg_tiles_meet`): no id of one can equal an id of the other."""
+    rows, n = ids.shape
+    pad = -n % SEG_TILE
+    if pad:  # the last id again: the last piece's range stays its own
+        ids = torch.cat((ids, ids[:, -1:].expand(rows, pad)), dim=1)
+    lo, hi = torch.aminmax(ids.view(rows, -1, SEG_TILE), dim=-1)
+    return torch.stack((lo, hi), dim=-1)
+
+
+def seg_tiles_meet(a, b):
+    """Whether id ranges ``a`` and ``b`` (``(..., 2)``, broadcast) overlap:
+    the kernels' test for a tile pair that may hold a visible pair."""
+    return torch.maximum(a[..., 0], b[..., 0]) <= torch.minimum(a[..., 1],
+                                                                 b[..., 1])
+
+
+def _seg_ranges(q, seg_q, seg_kv):
+    """The range tables' pointers for a bf16 segment call (kept alive by
+    the returned tensors), else zeros."""
+    if seg_q is None or q.dtype != torch.bfloat16:
+        return (), 0, 0
+    tables = (seg_tile_ranges(seg_q), seg_tile_ranges(seg_kv))
+    return tables, tables[0].data_ptr(), tables[1].data_ptr()
+
+
+def dkv_splits(dtype, kv_rows: int, skv: int, walk_tiles: int,
+               device) -> int:
+    """Parts each bf16 dk/dv block's walk is split into, for ``kv_rows``
+    (batch x kv heads) of ``skv`` keys whose longest walk is
+    ``walk_tiles`` q tiles (rep x 64-row tiles): when the blocks alone
+    fill the card less than twice (one block an SM; a causal walk's first
+    blocks are its longest), the largest power of two of parts that does,
+    each part at least ``_DKV_MIN_PART`` tiles. fp32 never splits. A split
+    leaves f32 partial sums that a second kernel of the same call merges
+    in part order. (On the H100 at Llama-2-70B heads, S = 2048, 2 parts
+    beat 3, 4 and 1: ``PERF.md``.)"""
+    if dtype != torch.bfloat16:
+        return 1
+    blocks = kv_rows * -(-skv // _DKV_KEYS)
+    want = min(-(-2 * _build.sm_count(device.index or 0) // blocks),
+               walk_tiles // _DKV_MIN_PART)
+    return 1 << max(want, 1).bit_length() - 1
+
+
 def _check_cuda(name, q, k, v, extra=()):
     """The kernels' contract: one CUDA device, float32 or bfloat16,
     contiguous, D <= 128, at most 65535 (batch * head) rows."""
@@ -238,9 +296,12 @@ def _check_cuda(name, q, k, v, extra=()):
 # stream
 _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-_DQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+# the backward entries also take the two range tables after seg_kv, and
+# dk/dv the split count and its scratch after dv
+_DQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-_DKV_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+_DKV_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                 + [ctypes.c_int, ctypes.c_void_p]
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -303,12 +364,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
+    _tables, rq_ptr, rkv_ptr = _seg_ranges(q, seg_q, seg_kv)
     fn = _build.bind("flash_attention", "ptt_flash_attention_bwd_dq",
                      _DQ_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), sq_ptr, skv_ptr, do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1], h, hkv, d,
-            int(bool(causal)), _scale(sm_scale, d),
+            v.data_ptr(), sq_ptr, skv_ptr, rq_ptr, rkv_ptr, do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
+            k.shape[1], h, hkv, d, int(bool(causal)), _scale(sm_scale, d),
             _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_bwd_dq")
     _build.count(flash_attention_bwd_dq, variant)
@@ -323,7 +385,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     """(dk, dv) of the FA-2 backward; every query head of a GQA group adds
     into its kv head. CPU tensors take :func:`flash_attention_bwd_dkv_ref`;
     CUDA tensors launch the kernel, which uses no atomics (gradients repeat
-    bit for bit)."""
+    bit for bit); in bf16 it may split its walk (:func:`dkv_splits`) and
+    merge the parts in the same launch."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
                                            sm_scale, n_heads, n_kv_heads,
@@ -335,11 +398,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     h, hkv = _heads(n_heads, n_kv_heads, q, k)
     bh, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _tables, rq_ptr, rkv_ptr = _seg_ranges(q, seg_q, seg_kv)
+    nsplit = dkv_splits(q.dtype, k.shape[0], k.shape[1],
+                        h // hkv * -(-sq // SEG_TILE), q.device)
+    part = (torch.empty((nsplit, 2) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
     fn = _build.bind("flash_attention", "ptt_flash_attention_bwd_dkv",
                      _DKV_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), sq_ptr, skv_ptr, do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), k.shape[0], sq,
+            v.data_ptr(), sq_ptr, skv_ptr, rq_ptr, rkv_ptr, do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            nsplit, 0 if part is None else part.data_ptr(), k.shape[0], sq,
             k.shape[1], h, hkv, d, int(bool(causal)), _scale(sm_scale, d),
             _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_bwd_dkv")

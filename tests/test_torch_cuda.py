@@ -17,7 +17,9 @@ kernel's VMEM cap) and 1001 (one element a load), 1, 7 and 8192 rows; for
 the flash kernels' segment-id variant document boundaries inside a
 64-row tile, a padding id no key carries, GQA, head_dim 64 and 128,
 lengths that are not a multiple of 64, and the public varlen entry points
-against their CPU run. Each kernel is held to its plain PyTorch version
+against their CPU run; for the bf16 backward on the tensor cores head dims
+33 to 128, S = 1 to 1000, Sq != Skv, rep 1 to 8, a peaked softmax and
+segment ids in no order. Each kernel is held to its plain PyTorch version
 on the same card tensors (fp32 1e-4, bf16 2e-2 abs: the kernels sum in
 f32 in another order, and bf16 rounds once more at the output; the
 RMSNorm outputs within 1e-3 + one bf16 ulp); the wrappers' input checks
@@ -954,6 +956,75 @@ def test_flash_attention_one_segment_equals_no_segments(dev):
                        fa.flash_attention_bwd_dq(*bwd, **kw, **seg))
     for a, c in zip(fa.flash_attention_bwd_dkv(*bwd, **kw),
                     fa.flash_attention_bwd_dkv(*bwd, **kw, **seg)):
+        assert torch.equal(a, c)
+
+
+def _shuffled_ids(rng, b, s, alphabet):
+    """(B, S) ids in no order (the public entry accepts any): each
+    position a random id of ``alphabet``, the same for q and kv."""
+    ids = rng.integers(0, alphabet, (b, s)).astype(np.int32)
+    return ids, ids.copy()
+
+
+# the bf16 backward on the tensor cores (mma.sync; P and dS rounded once to
+# bf16 as operands, f32 sums): what it can get wrong
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,qscale,seg", [
+    (1, 1, 1, 2, 2, 128, True, 1.0, None),      # S = 1
+    (1, 15, 15, 4, 1, 64, True, 1.0, None),     # S = 15, rep 4
+    (1, 64, 64, 8, 1, 128, True, 8.0, None),    # one tile, rep 8, peaked
+    (2, 65, 65, 4, 4, 96, True, 1.0, None),     # one row past a tile, B = 2
+    (1, 129, 129, 8, 2, 33, True, 8.0, None),   # odd head dim, peaked
+    (1, 1000, 1000, 8, 1, 128, True, 8.0, None),  # ragged, rep 8, peaked
+    (2, 300, 300, 4, 4, 128, False, 1.0, None),   # non-causal, B = 2
+    (1, 200, 77, 4, 2, 64, True, 1.0, None),    # Sq > Skv
+    (1, 77, 300, 4, 2, 128, True, 1.0, None),   # Sq < Skv
+    (1, 150, 333, 2, 2, 96, False, 8.0, None),  # Sq < Skv, full, peaked
+    (1, 400, 400, 4, 1, 128, True, 1.0, "docs"),    # boundaries in tiles
+    (2, 300, 300, 8, 2, 64, True, 8.0, "pad"),      # a padding id
+    (1, 500, 500, 4, 4, 128, True, 1.0, "shuffled"),  # non-monotone ids
+    (1, 260, 260, 8, 8, 33, False, 1.0, "shuffled"),  # full, odd head dim
+    (2, 1000, 1000, 8, 1, 128, True, 8.0, "docs"),  # rep 8, peaked
+])
+def test_flash_backward_bf16_tensor_core_cases(dev, b, sq, skv, h, hkv, d,
+                                               causal, qscale, seg):
+    """dq and dk/dv in bf16 against their plain versions on the same card
+    tensors (_rel within TOL[bf16]): head dims 33 to 128, S = 1 to 1000,
+    Sq != Skv both ways, rep 1 to 8, B = 2, non-causal, a peaked softmax,
+    and segment packs with boundaries inside tiles, a padding id (zero dq
+    there) and ids in no order; each kernel twice, bit for bit."""
+    rng = np.random.default_rng(sq * 7 + skv + d + h)
+    q = _rand(rng, (b * h, sq, d), torch.bfloat16, dev, qscale)
+    k = _rand(rng, (b * hkv, skv, d), torch.bfloat16, dev)
+    v = _rand(rng, (b * hkv, skv, d), torch.bfloat16, dev)
+    do = _rand(rng, (b * h, sq, d), torch.bfloat16, dev)
+    kw = dict(causal=causal, n_heads=h, n_kv_heads=hkv)
+    if seg is not None:
+        if seg == "shuffled":
+            ids_q, ids_kv = _shuffled_ids(rng, b, sq, 3)
+        else:
+            ids_q, ids_kv = _segments(rng, b, sq, (30, 100, 171, 1),
+                                      13 if seg == "pad" else 0)
+        kw.update(seg_q=torch.from_numpy(np.repeat(ids_q, h, 0)).to(dev),
+                  seg_kv=torch.from_numpy(np.repeat(ids_kv, hkv, 0)).to(dev))
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    delta = (out.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta)
+    kernels.reset_launches()
+    dq = fa.flash_attention_bwd_dq(*bwd, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(*bwd, **kw)
+    variant = "" if seg is None else "_seg"
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd_dq" + variant] == 1
+    assert counts["flash_attention_bwd_dkv" + variant] == 1
+    dq_r = fa.flash_attention_bwd_dq_ref(*bwd, **kw)
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(*bwd, **kw)
+    for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _rel(got, want) <= TOL[torch.bfloat16]
+    if seg == "pad":
+        assert not dq[:, sq - 13:].any()
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(*bwd, **kw))
+    for a, c in zip((dk, dv), fa.flash_attention_bwd_dkv(*bwd, **kw)):
         assert torch.equal(a, c)
 
 

@@ -104,3 +104,72 @@ def assert_close(got, want, tol, what="out", ref=None):
                      f"{ref[at]!r}")
     lines.append(f"state: {state()}")
     raise AssertionError("\n".join(lines))
+
+
+# ------------------------------------------ the bf16 flash backward's roundings
+BWD_SCHEMES = ("f32", "bf16", "hilo", "prescaled_q")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def flash_bwd_emulated(q, k, v, do, lse, delta, causal, h, hkv, sm_scale,
+                       scheme="bf16"):
+    """dq, dk, dv as the bf16 tensor-core backward computes them, in f32 on
+    the CPU. Inputs are f32 tensors holding bf16 values, q ``(BH, Sq, D)``,
+    k/v ``(BHkv, Skv, D)``, lse/delta ``(BH, Sq)``. Every product of bf16
+    operands is exact in f32 and sums in f32, as the m16n8k16 mma does, so
+    only the roundings of its operands matter:
+
+    - ``f32``: no operand rounded (the plain versions' arithmetic);
+    - ``bf16``: P (for Pᵀ·dO) and dS (for dS·K and dSᵀ·Q) rounded once to
+      bf16; the scale enters in f32, in the exponent,
+      ``p = 2^(s·scale·log2 e − lse·log2 e)``, and dk's and dq's scale is
+      applied to the f32 sums;
+    - ``hilo``: P and dS as bf16 hi + bf16 lo (two mmas each);
+    - ``prescaled_q``: as ``bf16``, with q·scale rounded to bf16 first (S
+      from the rounded q; dk from it too).
+
+    Returns f32 ``(dq, dk, dv)`` in the input layouts."""
+    bh, sq, d = q.shape
+    b, rep, skv = bh // h, h // hkv, k.shape[1]
+    log2e = 1.4426950408889634
+    q5 = q.reshape(b, hkv, rep, sq, d)
+    k4, v4 = k.reshape(b, hkv, skv, d), v.reshape(b, hkv, skv, d)
+    do5 = do.reshape(b, hkv, rep, sq, d)
+    lse5 = lse.reshape(b, hkv, rep, sq, 1)
+    delta5 = delta.reshape(b, hkv, rep, sq, 1)
+    qs = _bf16(q5 * sm_scale) if scheme == "prescaled_q" else None
+    s = torch.einsum("bgrqd,bgkd->bgrqk", q5 if qs is None else qs, k4)
+    sc = 1.0 if qs is not None else sm_scale
+    p = torch.exp2(s * (sc * log2e) - lse5 * log2e)
+    vis = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        vis = torch.tril(vis)
+    p = torch.where(vis, p, torch.zeros(()))
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", do5, v4)
+    ds = p * (dp - delta5)
+
+    def rounded(x):
+        if scheme == "f32":
+            return x
+        if scheme == "hilo":
+            hi = _bf16(x)
+            return hi + _bf16(x - hi)
+        return _bf16(x)
+
+    pr, dsr = rounded(p), rounded(ds)
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", pr, do5)
+    if qs is None:
+        dk = torch.einsum("bgrqk,bgrqd->bgkd", dsr, q5) * sm_scale
+    else:
+        dk = torch.einsum("bgrqk,bgrqd->bgkd", dsr, qs)
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", dsr, k4) * sm_scale
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+def rel_to_max(a, b) -> float:
+    """max |a - b| / max |b| (chip_smoke.py's gradient check)."""
+    a, b = (torch.as_tensor(x).double() for x in (a, b))
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
