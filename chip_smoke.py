@@ -12,8 +12,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               of the plain output) and fp32 (1e-4 abs), and time the kernel,
               the plain version, one library call where PyTorch has one,
               and the card's least time for the same work (bound; the
-              prefill and chunk rows also give bound_frac, bound / kernel
-              time). The chunk attention runs a 256-token chunk from
+              prefill, decode and chunk rows also give bound_frac, bound /
+              kernel time). The decode attention runs at serve's ragged
+              lengths (one idle row) and at serve_long's decode contexts
+              (3500/2900/1800/700 of a 4096-token table); the chunk
+              attention a 256-token chunk from
               start 3328 and a ragged 100-token final chunk, each with a
               spread and a peaked softmax; the N-layer decode a group of
               4 layers, also held bit for bit to 4 launches of the
@@ -58,7 +61,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               bf16 ulp of the reference, lse 1e-3, grads 2e-2 of their
               largest element) and fp32 (1e-4 each), with kernel, plain,
               library (SDPA forward, forward + backward, and its backward
-              alone) and bound times (dq and dk/dv also bound_frac);
+              alone) and bound times (forward, dq and dk/dv also
+              bound_frac);
   6. train    Llama-2-7B width cut to 8 layers, bf16 with f32 masters,
               TrainStep(grad_accum_steps=2) + AdamW + global-norm clip +
               warmup/cosine LR, 5 steps on one fixed batch of 2 x 4096
@@ -84,8 +88,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               twin on the same card tensors, bf16 and fp32 (the flash twins
               in groups of kv heads, so the dense f32 scores stay small),
               with kernel, plain, library (torch.nn.functional.rms_norm;
-              SDPA per document, summed) and bound times (dq and dk/dv
-              also bound_frac).
+              SDPA per document, summed) and bound times (the flash
+              kernels also bound_frac).
 Then the card's name and power limit (nvidia-smi), the per-kernel summary
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -120,6 +124,8 @@ SEED = 1234
 # serve_long: the model's whole context, the default 256-token chunk
 LONG_MAX_SEQ, CHUNK = 4096, 256
 LONG_PROMPT_LENS = (3500, 40, 1800, 257, 700, 120, 2900, 512)
+# the decode contexts of serve_long's four long prompts (one batch slot each)
+LONG_DECODE_LENS = (3500, 2900, 1800, 700)
 GROUP_LAYERS = 4                  # FLAGS_fused_block_layers of the N run
 # chunk attention: (start, S) of the main chunk and of a ragged final one
 CHUNK_SHAPES = ((3840, 100), (3328, 256))
@@ -231,6 +237,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` back-to-back calls
+    captured in one CUDA graph and replayed, so the host's enqueue cost is
+    left out (a kernel of a few tens of microseconds is otherwise timed at
+    the pace of the host's Python)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, iters=reps, warmup=2) / calls
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -350,61 +370,91 @@ def check_flash_prefill(dtype, device, results):
                         max_err=err, tol=TOL[dtype]))
 
 
+# paged_attention's shapes: (case, seq_lens, the table's max_seq); at
+# serve_long's decode contexts the split-KV walk has the most parts to fill
+PAGED_SHAPES = (("serve", (MAX_SEQ, MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1, 0),
+                 MAX_SEQ),
+                ("serve_long decode", LONG_DECODE_LENS, LONG_MAX_SEQ))
+
+
 def check_paged_attention(dtype, device, results):
+    """The split-KV decode attention on native and int8 pools against its
+    plain version, at serve's ragged lengths (1024, 517, 79 at 7B, one
+    idle row) and at serve_long's decode contexts; SDPA over the gathered
+    pool (native) and the bytes bound beside each, and bound_frac. Besides
+    the back-to-back times (the host's pace at these sizes), device_ms
+    replays the kernel's and SDPA's calls from a CUDA graph."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    # ragged (1024, 517, 79 at 7B), one idle row
-    seq_lens = [MAX_SEQ, MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1, 0]
-    bt, num_pages = _block_tables(seq_lens, 0, device)
-    sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
-    shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
-    kp, vp = _rand(gen, shape, dtype, device), _rand(gen, shape, dtype, device)
-    q = _rand(gen, (BATCH, HEADS, HEAD_DIM), dtype, device)
-    got = pa.paged_attention(q, kp, vp, bt, sl)
-    want = pa.paged_attention_ref(q, kp, vp, bt, sl)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    require(err <= TOL[dtype], f"paged_attention {dtype}: max err {err}")
-    require(not got[3].any(), "paged_attention: idle row must read zeros")
-    # library yardstick: SDPA over the gathered contiguous view
-    t = bt.shape[1] * PAGE
-    kg = kp[:, bt.long()].movedim(1, 0).reshape(BATCH, KV_HEADS, t, HEAD_DIM)
-    vg = vp[:, bt.long()].movedim(1, 0).reshape(BATCH, KV_HEADS, t, HEAD_DIM)
-    mask = (torch.arange(t, device=device)[None, :] < sl[:, None])
-    mask = mask[:, None, None, :]
-    qs = q[:, :, None, :]
-    lib = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
-    elem = q.element_size()
-    live = sum(seq_lens)
-    nbytes = (elem * (2 * q.numel() + 2 * live * KV_HEADS * HEAD_DIM)
-              + 4 * (bt.numel() + sl.numel()))
-    flops = 4.0 * live * HEADS * HEAD_DIM
-    bms, by = bound_ms(nbytes, flops, dtype)
-    results.append(dict(
-        kernel="paged_attention", dtype=DTYPE_NAME[dtype],
-        seq_lens=seq_lens, max_err=err, tol=TOL[dtype],
-        kernel_ms=time_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
-        plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt, sl)),
-        library_ms=lib, bound_ms=bms, bound_by=by))
-    # the int8 pool: the same rows quantized, kernel vs plain on its bits
-    kq, vq = quantized(kp), quantized(vp)
-    got = pa.paged_attention(q, kq, vq, bt, sl)
-    want = pa.paged_attention_ref(q, kq, vq, bt, sl)
-    torch.cuda.synchronize()
-    atol, rtol = QUANT_OUT_TOL[dtype]
-    err, over = max_err(got, want), excess(got, want, rtol)
-    require(over <= atol, f"paged_attention int8 {dtype}: {over} over "
-            f"{rtol} |ref|, max err {err}")
-    require(not got[3].any(), "paged_attention int8: idle row must read 0")
-    nbytes = (elem * 2 * q.numel() + 2 * live * KV_HEADS * row_bytes(True, 0)
-              + 4 * (bt.numel() + sl.numel()))
-    bms, by = bound_ms(nbytes, flops, dtype)
-    results.append(dict(
-        kernel="paged_attention_int8", dtype=DTYPE_NAME[dtype],
-        seq_lens=seq_lens, max_err=err, excess=over, atol=atol, rtol=rtol,
-        kernel_ms=time_ms(lambda: pa.paged_attention(q, kq, vq, bt, sl)),
-        plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kq, vq, bt, sl)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+    for case, seq_lens, max_seq in PAGED_SHAPES:
+        seq_lens = list(seq_lens)
+        bt, num_pages = _block_tables(seq_lens, 0, device, max_seq)
+        sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+        idle = sl == 0
+        shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+        kp, vp = (_rand(gen, shape, dtype, device) for _ in range(2))
+        q = _rand(gen, (BATCH, HEADS, HEAD_DIM), dtype, device)
+        got = pa.paged_attention(q, kp, vp, bt, sl)
+        want = pa.paged_attention_ref(q, kp, vp, bt, sl)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        require(err <= TOL[dtype], f"paged_attention {case} {dtype}: max "
+                f"err {err}")
+        require(not got[idle].any(), "paged_attention: idle row must read "
+                "zeros")
+        # library yardstick: SDPA over the gathered contiguous view
+        t = bt.shape[1] * PAGE
+        kg, vg = (x[:, bt.long()].movedim(1, 0).reshape(
+            BATCH, KV_HEADS, t, HEAD_DIM) for x in (kp, vp))
+        mask = (torch.arange(t, device=device)[None, :] < sl[:, None])
+        mask = mask[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+        elem = q.element_size()
+        live = sum(seq_lens)
+        index_bytes = 4 * (bt.numel() + sl.numel())
+        nbytes = (elem * (2 * q.numel() + 2 * live * KV_HEADS * HEAD_DIM)
+                  + index_bytes)
+        flops = 4.0 * live * HEADS * HEAD_DIM
+        bms, by = bound_ms(nbytes, flops, dtype)
+        kms = time_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl))
+        dev_ms = dict(
+            kernel=graph_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
+            library=graph_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)))
+        del kg, vg
+        results.append(dict(
+            kernel="paged_attention", dtype=DTYPE_NAME[dtype], case=case,
+            seq_lens=seq_lens, max_err=err, tol=TOL[dtype], kernel_ms=kms,
+            plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt,
+                                                            sl)),
+            library_ms=lib, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+            device_ms=dev_ms))
+        # the int8 pool: the same rows quantized, kernel vs plain on its bits
+        kq, vq = quantized(kp), quantized(vp)
+        got = pa.paged_attention(q, kq, vq, bt, sl)
+        want = pa.paged_attention_ref(q, kq, vq, bt, sl)
+        torch.cuda.synchronize()
+        atol, rtol = QUANT_OUT_TOL[dtype]
+        err, over = max_err(got, want), excess(got, want, rtol)
+        require(over <= atol, f"paged_attention int8 {case} {dtype}: {over} "
+                f"over {rtol} |ref|, max err {err}")
+        require(not got[idle].any(), "paged_attention int8: idle row must "
+                "read 0")
+        nbytes = (elem * 2 * q.numel()
+                  + 2 * live * KV_HEADS * row_bytes(True, 0) + index_bytes)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        kms = time_ms(lambda: pa.paged_attention(q, kq, vq, bt, sl))
+        results.append(dict(
+            kernel="paged_attention_int8", dtype=DTYPE_NAME[dtype],
+            case=case, seq_lens=seq_lens, max_err=err, excess=over,
+            atol=atol, rtol=rtol, kernel_ms=kms,
+            plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kq, vq, bt,
+                                                            sl)),
+            library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+            device_ms=dict(kernel=graph_ms(
+                lambda: pa.paged_attention(q, kq, vq, bt, sl)))))
+        del kp, vp, kq, vq
+        torch.cuda.empty_cache()
 
 
 def check_paged_chunk_attention(dtype, device, results):
@@ -960,8 +1010,8 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # the flash kernels whose rows give bound_frac (bound / kernel time): the
-# backward, redesigned for the tensor cores
-BOUND_FRAC_KEYS = ("dq", "dkv")
+# forward and the backward, redesigned for the tensor cores
+BOUND_FRAC_KEYS = ("fwd", "dq", "dkv")
 
 
 def frac(bounds, times, key) -> dict:

@@ -16,11 +16,12 @@
 // Bound on the H100: at training shapes (S = 4096, D = 128) attention is
 // bound by operations, ~4·S²·D/2 per causal head forward, 1.5x that for dq
 // and 2x for dk/dv (~0.14, 0.21 and 0.28 ms for a Llama-2-7B layer in bf16
-// on the tensor cores). The bf16 backward runs on the tensor cores (the
-// fb_* kernels below, ~4x its bound: see there and PERF.md). The forward
-// and the fp32 backward compute on the CUDA cores in f32 (67 TFLOP/s
-// peak), well above that bound; the forward's tensor-core redesign is
-// later work.
+// on the tensor cores). In bf16 all three run on the tensor cores (the
+// fb_* kernels below: the forward fb_fwd_kernel, the backward fb_dq_kernel
+// and fb_dkv_kernel; their times against the bound are there and in
+// PERF.md). fp32 keeps the CUDA-core kernels (fa_*), which compute in f32
+// (67 TFLOP/s peak), well above that bound: on the tensor cores fp32 would
+// mean TF32. The C entries choose by dtype; there is no flag.
 //
 // Design of the CUDA-core kernels (fa_*): 64 x 64 tiles, 256 threads as a
 // 16 x 16 grid; thread (ty, tx) owns rows ty + 16i and columns tx + 16j
@@ -1088,6 +1089,287 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   fb_store_tile<DP>(dv, Vs, kbase, k0, Skv, FB_ROWS, D, unit);
 }
 
+// ----------------------------------------------- forward on the tensor cores
+// bf16 only (fp32 keeps fa_fwd_kernel above). A block of FB_WARPS warps
+// owns FB_ROWS query rows of one head, 16 a warp, and walks the kv tiles
+// (FF_TILE keys, double-buffered by cp.async) its rows can see; each
+// warp keeps its rows' online softmax (m, l), the f32 output accumulator
+// and Q's A fragments in registers (FlashAttention-2's shape, as
+// prefill_mma.cuh's routine for #1 and #4, here on the (BH, S, D) layout
+// with the lse out, the non-causal walk and segment ids). Per tile and
+// warp:
+//
+//   S = Q K^T     mma.m16n8k16 bf16 -> f32, K's B fragments by ldmatrix;
+//                 the softmax scale (times log2 e, for ex2) enters in f32,
+//                 in the exponent, never on a pre-rounded bf16 q;
+//   O += P V      P about 16 bits wide: P_hi V + P_lo V, P_hi = bf16(p),
+//                 P_lo = bf16(p - P_hi), two mmas a k-step, V's B
+//                 fragments by ldmatrix.trans; l sums the unrounded f32 p.
+//                 One bf16 P misses the forward's 1e-3 + one bf16 ulp
+//                 check even at a spread q (tools/torch_flash_fwd_rounding
+//                 .py, PERF.md).
+//
+// m is kept in raw score units; the lse is m * scale + ln l (natural log,
+// the backward reads it), 0 for a row that saw no key, which emits zeros
+// (JAX's guards). Only tiles that straddle the causal diagonal, the kv end
+// or (SEG) a mixed segment boundary are masked pair by pair. Segment ids
+// skip whole tiles by fb_walk_bits, as the dq kernel does (a tile's range
+// the union of its FB_SEG_TILE pieces'). The q tile is staged through the
+// first K stages and the output through them after the walk. Blocks go
+// heaviest first (grid.y reversed when causal). No split of the kv walk:
+// at the training shapes the grid holds 4-8 blocks an SM already.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): at
+// Llama-2-7B heads, S = 4096 causal, 0.71 ms against SDPA's 0.26 and a
+// 0.139 ms operations bound; 235-240 registers, no spills, one block an
+// SM. 128-key tiles ran ~7 % faster than 64; a third stage, and tile
+// i + 1's Q K^T issued before tile i's softmax, gained 0-3 % and were not
+// kept. With 8 warps an SM the K/V fragment reads and the mmas run
+// largely in series; FA3's warp-specialized wgmma shape is the next step.
+constexpr int FF_TILE = 128;   // keys a tile of the walk (two stages)
+static_assert(FF_TILE % FB_SEG_TILE == 0 && 2 * FF_TILE >= FB_ROWS,
+              "a tile is whole ranges; the q tile fits the K stages");
+
+template <int DP>
+__host__ __device__ constexpr size_t ff_smem_bytes(int walk_steps) {
+  return sizeof(bf16) * tile_stride(DP) * 4 * FF_TILE +
+         sizeof(int) * 2 * FF_TILE +
+         sizeof(unsigned) * 2 * fb_words(walk_steps);
+}
+
+template <int DP, bool SEG>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    fb_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_kv,
+                  const int2* __restrict__ rng_q,
+                  const int2* __restrict__ rng_kv, bf16* __restrict__ out,
+                  float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
+                  int D, int causal, float scale, int unit) {
+  constexpr int SR = tile_stride(DP), NK = FF_TILE / 8, KD = DP / 16;
+  constexpr int ND = DP / 8, PIECES = FF_TILE / FB_SEG_TILE;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(fb_smem);     // [2][TILE][SR]
+  bf16* Vs = Ks + 2 * FF_TILE * SR;                // [2][TILE][SR]
+  int* kv_ids = reinterpret_cast<int*>(Vs + 2 * FF_TILE * SR);  // [2][TILE]
+  unsigned* bits = reinterpret_cast<unsigned*>(kv_ids + 2 * FF_TILE);
+  bf16* Qs = Ks;  // [ROWS][SR]: the q tile before the walk, out after it
+
+  const int bh = blockIdx.x;
+  const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  // heaviest (longest causal walk) tiles first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * FB_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale2 = scale * LOG2E;
+  const long long qbase = (long long)bh * Sq, kbase = (long long)kvh * Skv;
+
+  const int q_last = min(q0 + FB_ROWS, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int n_tiles = (kv_end + FF_TILE - 1) / FF_TILE;
+  unsigned* mixed = bits + fb_words(n_tiles);
+
+  fb_zero_pad<DP>(Ks, 4 * FF_TILE, D);
+  fb_copy_tile<DP>(Qs, q, qbase, q0, Sq, FB_ROWS, D, unit);
+  cp_async_commit();
+  if constexpr (SEG) {
+    const int2 qr = fb_block_range(rng_q + bh * ((Sq + FB_SEG_TILE - 1) /
+                                                 FB_SEG_TILE), q0, Sq);
+    const int nkr = (Skv + FB_SEG_TILE - 1) / FB_SEG_TILE;
+    const int2* kr = rng_kv + kvh * nkr;
+    fb_walk_bits(bits, mixed, n_tiles, qr, [&](int s) {
+      int2 r = __ldg(kr + s * PIECES);
+#pragma unroll
+      for (int i = 1; i < PIECES; ++i)
+        if (s * PIECES + i < nkr) {
+          const int2 o = __ldg(kr + s * PIECES + i);
+          r = make_int2(min(r.x, o.x), max(r.y, o.y));
+        }
+      return r;
+    });
+  }
+  // this thread's rows g and g + 8 of its warp: segment ids
+  const int wr0 = q0 + warp * 16;
+  int sid[2] = {0, 0};
+  if constexpr (SEG)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = wr0 + g + 8 * i;
+      sid[i] = qi < Sq ? seg_q[qbase + qi] : 0;
+    }
+  cp_async_wait<0>();
+  __syncthreads();  // the q tile and the skip bits
+  uint32_t qf[KD][4];
+  if (wr0 < Sq) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) frag_a(Qs, SR, warp * 16, kd * 16, qf[kd]);
+  }
+  __syncthreads();  // the q tile is in registers: its memory takes kv
+
+  auto next = [&](int from) {
+    if constexpr (SEG) return fb_next(bits, from, n_tiles);
+    else return from;
+  };
+  auto load = [&](int tile, int stage) {
+    const int j0 = tile * FF_TILE;
+    fb_copy_tile<DP>(Ks + stage * FF_TILE * SR, k, kbase, j0, Skv, FF_TILE,
+                     D, unit);
+    fb_copy_tile<DP>(Vs + stage * FF_TILE * SR, v, kbase, j0, Skv, FF_TILE,
+                     D, unit);
+    if constexpr (SEG)
+      fb_copy_vec(kv_ids + stage * FF_TILE, seg_kv, kbase, j0, Skv,
+                  FF_TILE);
+  };
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+
+  // S = Q K^T of the tile in `st`: c[n] holds rows g, g + 8 x keys
+  // n * 8 + 2t4, + 1
+  auto qk = [&](int st, float (&c)[NK][4]) {
+    const bf16* Kt = Ks + st * FF_TILE * SR;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        frag_b(Kt, SR, np * 16, kd * 16, b);
+        mma_bf16(c[2 * np], qf[kd], b[0], b[1]);
+        mma_bf16(c[2 * np + 1], qf[kd], b[2], b[3]);
+      }
+    }
+  };
+  // mask the pairs of tile `tile` (in `st`) this warp's rows must not see
+  // where it straddles their diagonal or the kv end, or holds more than one
+  // segment id
+  auto mask = [&](int tile, int st, float (&c)[NK][4]) {
+    const int j0 = tile * FF_TILE;
+    const bool masked = (SEG && fb_bit(mixed, tile)) ||
+                        j0 + FF_TILE > Skv ||
+                        (causal && j0 + FF_TILE - 1 > wr0);
+    if (!masked) return;
+    const int* ids = kv_ids + st * FF_TILE;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = n * 8 + 2 * t4 + (e & 1);
+        const int kj = j0 + col, qi = wr0 + g + 8 * i;
+        const bool vis = kj < Skv && (!causal || kj <= qi) &&
+                         (!SEG || sid[i] == ids[col]);
+        if (!vis) c[n][e] = NEG_INF;
+      }
+    }
+  };
+  // the online softmax over a masked score tile, then O += P V (V in
+  // `st`): p = 2^((s - m) * scale * log2 e)
+  auto softmax_pv = [&](int st, float (&c)[NK][4]) {
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(c[n][0], c[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(c[n][2], c[n][3]));
+    }
+    float alpha[2], msc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      float m_new = fmaxf(m_r[r], mx[r]);
+      if (m_new <= NEG_INF / 2) m_new = 0.f;  // fully masked so far
+      alpha[r] = exp2_approx((m_r[r] - m_new) * scale2);
+      m_r[r] = m_new;
+      msc[r] = m_new * scale2;
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(fmaf(c[n][e], scale2, -msc[e >> 1]));
+        rs[e >> 1] += p;
+        c[n][e] = p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = alpha[r] * l_r[r] + rs[r];
+    // rescale O only when a row's max moved (rarely, after the first tiles)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+    }
+    // 16 keys a k-step; P's C fragments are its A fragments
+    const bf16* Vt = Vs + st * FF_TILE * SR;
+#pragma unroll
+    for (int kk = 0; kk < FF_TILE / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      split_bf16(c[2 * kk][0], c[2 * kk][1], ah[0], al[0]);
+      split_bf16(c[2 * kk][2], c[2 * kk][3], ah[1], al[1]);
+      split_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1], ah[2], al[2]);
+      split_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {
+        uint32_t b[4];
+        frag_bt(Vt, SR, kk * 16, dp * 16, b);
+        mma_bf16(o[2 * dp], ah, b[0], b[1]);
+        mma_bf16(o[2 * dp], al, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], ah, b[2], b[3]);
+        mma_bf16(o[2 * dp + 1], al, b[2], b[3]);
+      }
+    }
+  };
+  int tile = next(0), stage = 0;
+  if (tile < n_tiles) load(tile, 0);
+  cp_async_commit();
+  const int wr_last = min(wr0 + 15, Sq - 1);
+  while (tile < n_tiles) {
+    const int tn = next(tile + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // tile landed; the other stage's readers are done
+    if (tn < n_tiles) load(tn, stage ^ 1);
+    cp_async_commit();
+    if (wr0 < Sq && (!causal || tile * FF_TILE <= wr_last)) {
+      float sc[NK][4];
+      qk(stage, sc);
+      mask(tile, stage, sc);
+      softmax_pv(stage, sc);
+    }
+    tile = tn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the walk's tiles
+
+  // out = O / l and lse = m * scale + ln l (a row that saw no key: zeros,
+  // lse 0), out staged through the first K stages
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    const float ls = l_r[r] == 0.f ? 1.f : l_r[r];
+    const float inv = 1.f / ls;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][2 * r] *= inv;
+      o[n][2 * r + 1] *= inv;
+    }
+    const int qi = wr0 + g + 8 * r;
+    const float mf = m_r[r] <= NEG_INF / 2 ? 0.f : m_r[r];
+    if (t4 == 0 && qi < Sq) lse[qbase + qi] = mf * scale + logf(ls);
+  }
+  fb_stage<DP>(Qs, o, 1.f);
+  __syncthreads();
+  fb_store_tile<DP>(out, Qs, qbase, q0, Sq, FB_ROWS, D, unit);
+}
+
 // ------------------------------------------------------------------ launches
 template <typename Kernel>
 int fa_prepare(Kernel kernel, size_t smem) {
@@ -1097,8 +1379,9 @@ int fa_prepare(Kernel kernel, size_t smem) {
 
 template <typename T, int DP, bool SEG>
 int fa_fwd(const void* q, const void* k, const void* v, const void* seg_q,
-           const void* seg_kv, void* out, void* lse, int BH, int Sq, int Skv,
-           int H, int Hkv, int D, int causal, float scale, cudaStream_t st) {
+           const void* seg_kv, const void*, const void*, void* out,
+           void* lse, int BH, int Sq, int Skv, int H, int Hkv, int D,
+           int causal, float scale, cudaStream_t st) {
   const size_t smem = fa_fwd_smem<DP>();
   int rc = fa_prepare(fa_fwd_kernel<T, DP, SEG>, smem);
   if (rc) return rc;
@@ -1171,6 +1454,24 @@ inline int fb_unit(std::initializer_list<const void*> ptrs, int D) {
 }
 
 template <int DP, bool SEG>
+int fb_fwd(const void* q, const void* k, const void* v, const void* seg_q,
+           const void* seg_kv, const void* rng_q, const void* rng_kv,
+           void* out, void* lse, int BH, int Sq, int Skv, int H, int Hkv,
+           int D, int causal, float scale, cudaStream_t st) {
+  const size_t smem =
+      ff_smem_bytes<DP>(SEG ? (Skv + FF_TILE - 1) / FF_TILE : 0);
+  int rc = fa_prepare(fb_fwd_kernel<DP, SEG>, smem);
+  if (rc) return rc;
+  dim3 grid(BH, (Sq + FB_ROWS - 1) / FB_ROWS);
+  fb_fwd_kernel<DP, SEG><<<grid, FB_THREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg_q,
+      (const int*)seg_kv, (const int2*)rng_q, (const int2*)rng_kv,
+      (bf16*)out, (float*)lse, Sq, Skv, H, Hkv, D, causal, scale,
+      fb_unit({q, k, v, out}, D));
+  return (int)cudaGetLastError();
+}
+
+template <int DP, bool SEG>
 int fb_dq(const void* q, const void* k, const void* v, const void* seg_q,
           const void* seg_kv, const void* rng_q, const void* rng_kv,
           const void* dout, const void* lse, const void* delta, void* dq,
@@ -1223,19 +1524,22 @@ inline bool fa_shape_ok(int rows, int Sq, int Skv, int H, int Hkv, int D) {
 
 }  // namespace ptt
 
-// The forward's route: dtype (0 = f32, 1 = bf16) and padded head dim (64
-// or 128), on the CUDA cores.
+// The forward's route: fp32 on the CUDA cores (fa_fwd, padded head dim 64
+// or 128), bf16 on the tensor cores (fb_fwd, padded head dim 32, 64, 96 or
+// 128).
 #define PTT_FA_FWD_SEG(SEG, ...)                                         \
   do {                                                                   \
     if (dtype == ptt::DT_F32 && D <= 64)                                 \
       return ptt::fa_fwd<float, 64, SEG>(__VA_ARGS__);                   \
     if (dtype == ptt::DT_F32)                                            \
       return ptt::fa_fwd<float, 128, SEG>(__VA_ARGS__);                  \
-    if (dtype == ptt::DT_BF16 && D <= 64)                                \
-      return ptt::fa_fwd<__nv_bfloat16, 64, SEG>(__VA_ARGS__);           \
-    if (dtype == ptt::DT_BF16)                                           \
-      return ptt::fa_fwd<__nv_bfloat16, 128, SEG>(__VA_ARGS__);          \
-    return (int)cudaErrorInvalidValue;                                   \
+    if (dtype != ptt::DT_BF16) return (int)cudaErrorInvalidValue;        \
+    switch (ptt::padded_head_dim(D)) {                                   \
+      case 32: return ptt::fb_fwd<32, SEG>(__VA_ARGS__);                 \
+      case 64: return ptt::fb_fwd<64, SEG>(__VA_ARGS__);                 \
+      case 96: return ptt::fb_fwd<96, SEG>(__VA_ARGS__);                 \
+      default: return ptt::fb_fwd<128, SEG>(__VA_ARGS__);                \
+    }                                                                    \
   } while (0)
 
 // The backward's: fp32 on the CUDA cores (FA, padded head dim 64 or 128),
@@ -1271,24 +1575,27 @@ inline bool fa_ranges_ok(int dtype, const void* seg_q, const void* rng_q,
          (rng_q != nullptr && rng_kv != nullptr);
 }
 
-// seg_q / seg_kv: nullable int32 segment ids, (BH, Sq) and (BHkv, Skv)
+// seg_q / seg_kv: nullable int32 segment ids, (BH, Sq) and (BHkv, Skv);
+// rng_q / rng_kv: for bf16 with segment ids, int32 (min, max) id pairs of
+// every FB_SEG_TILE rows, (BH, ceil(Sq / 64), 2) and (BHkv, ceil(Skv / 64),
+// 2); otherwise unused
 PTT_EXPORT int ptt_flash_attention_fwd(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* seg_q, const void* seg_kv,
+                                       const void* rng_q, const void* rng_kv,
                                        void* out, void* lse, int BH, int Sq,
                                        int Skv, int H, int Hkv, int D,
                                        int causal, float scale,
                                        void* stream) {
-  if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D))
+  if (!ptt::fa_shape_ok(BH, Sq, Skv, H, Hkv, D) ||
+      !fa_ranges_ok(dtype, seg_q, rng_q, rng_kv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PTT_FA_SEG(PTT_FA_FWD_SEG, q, k, v, seg_q, seg_kv, out, lse, BH, Sq, Skv,
-             H, Hkv, D, causal, scale, st);
+  PTT_FA_SEG(PTT_FA_FWD_SEG, q, k, v, seg_q, seg_kv, rng_q, rng_kv, out,
+             lse, BH, Sq, Skv, H, Hkv, D, causal, scale, st);
 }
 
-// rng_q / rng_kv: for bf16 with segment ids, int32 (min, max) id pairs of
-// every FB_SEG_TILE rows, (BH, ceil(Sq / 64), 2) and (BHkv, ceil(Skv / 64),
-// 2); otherwise unused
+// rng_q / rng_kv: the forward's range tables
 PTT_EXPORT int ptt_flash_attention_bwd_dq(int dtype, const void* q,
                                           const void* k, const void* v,
                                           const void* seg_q,

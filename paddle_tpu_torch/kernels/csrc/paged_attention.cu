@@ -6,103 +6,144 @@
 // scalar prefetch into the kv index map, and the online-softmax state sat in
 // VMEM scratch across the page steps.
 //
-// Bound on the H100: bytes. Each visited pool page is read once (one query
+// Bound on the H100: bytes. Each live pool row is read once (one query
 // token per head does 2 flops per key element), so the least time is the
-// live pages' bytes over 3.35 TB/s.
+// live rows' bytes over 3.35 TB/s: 0.0079 ms at chip_smoke.py's shape
+// (B = 4, lengths 1024/517/79/0, Llama-2-7B heads, bf16), about 0.044 ms
+// at serve_long's decode contexts (3500/2900/1800/700).
 //
-// Design: one block per (batch row, kv head) covers that head's `rep` query
-// heads, so each key/value row is read once for all of them (GQA reads the
-// pool unexpanded). The block reads its page ids from the block table
-// itself and loops over ceil(seq_len / page) pages through shared memory,
-// carrying the online softmax in shared memory. A row with seq_len == 0
-// visits no page and emits zeros; idle slots (all-zero block tables) never
-// read past the null page. Splitting a long sequence over several blocks
-// (flash-decoding) is later work.
+// Design: decode_split.cuh's split-KV (flash-decoding) routine. The walk
+// over a sequence's pages is cut into parts of about 256 keys, one block
+// per (batch row, kv head, head group, part), each key row loaded from the
+// pool into registers by 16-byte loads and shared by the block's query
+// heads (GQA reads the pool unexpanded); a second kernel in the same call
+// merges the parts in part order. The part count comes from the shapes
+// only (paged_attention.decode_splits: the table's width, the page size
+// and the SM count), so the host reads no length. Blocks past a row's
+// length exit at once; an idle row (seq_len 0) emits zeros, and an idle
+// slot's all-zero block table is never read past its length. The first
+// version (one block per (row, kv head) walking its pages in series through
+// f32 shared memory, common.cuh's decode_pages, which the fused decode
+// kernels #3 and #5 still run) took 0.293 ms at chip_smoke's shape in bf16;
+// this one takes 0.0155 ms of device time there (SDPA over the gathered
+// pool 0.031) and 0.071 ms at serve_long's contexts against the 0.0435 ms
+// bound (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, PERF.md). A
+// per-thread cp.async ring in shared memory in place of the register
+// loads ran within 5 % either way and was not kept.
 //
 // int8 pools (the TPU kernel's `quant` branch): payload and per-row f32
 // scales arrive as four pointer parameters (a pointer read from memory would
-// turn the pool loads generic), and common.cuh's loader dequantizes each
-// element as it enters the f32 shared-memory tile: a row costs D + 4 bytes
-// instead of 2D (bf16), the rest of the kernel is unchanged.
-#include "common.cuh"
+// turn the pool loads generic); a row costs D + 4 bytes instead of 2D
+// (bf16), converted exactly to f32 in registers, with the scales applied
+// in f32.
+#include "decode_split.cuh"
 
 namespace ptt {
 
-constexpr int PA_THREADS = 128;
+template <typename T, typename S, int DP, int RG>
+int launch_rg(const void* q, const void* kp, const void* vp, const void* ks,
+              const void* vs, const int* bt, const int* sl, void* out,
+              float* po, float* pml, int B, int H, int Hkv, int D,
+              int num_pages, int page, int maxp, int part_pages, int nsplit,
+              float scale, cudaStream_t stream) {
+  constexpr int U = ds_unit<DP / DS_LANES, S>();
+  const bool vec = D == DP && (uintptr_t)kp % U == 0 &&
+                   (uintptr_t)vp % U == 0;
+  const int ng = (H / Hkv + RG - 1) / RG;
+  dim3 grid(B * Hkv * ng, nsplit);
+  decode_split_kernel<T, S, DP, RG><<<grid, DS_THREADS, 0, stream>>>(
+      (const T*)q, (const S*)kp, (const S*)vp, (const float*)ks,
+      (const float*)vs, bt, sl, (T*)out, po, pml, B, H, Hkv, D, num_pages,
+      page, maxp, part_pages, scale * 1.4426950408889634f, (int)vec);
+  if (nsplit > 1)
+    decode_split_merge_kernel<T><<<(B * H + 3) / 4, 128, 0, stream>>>(
+        po, pml, sl, (T*)out, B, H, D, maxp, page, part_pages, nsplit);
+  return (int)cudaGetLastError();
+}
 
-// T: q/out type; S: pool storage (T, or int8_t with row scales ks/vs)
-template <typename T, typename S>
-__global__ void __launch_bounds__(PA_THREADS)
-    paged_attention_kernel(const T* __restrict__ q, const S* __restrict__ kp,
-                           const S* __restrict__ vp,
-                           const float* __restrict__ ks,
-                           const float* __restrict__ vs,
-                           const int* __restrict__ bt,
-                           const int* __restrict__ sl, T* __restrict__ out,
-                           int H, int Hkv, int D, int num_pages, int page,
-                           int maxp, float scale) {
-  extern __shared__ float smem[];
-  const int rep = H / Hkv;
-  const int b = blockIdx.x / Hkv, g = blockIdx.x - b * Hkv;
-  DecodeSmem sm = decode_smem_carve(smem, rep, D, page);
-  const size_t qoff = ((size_t)b * H + (size_t)g * rep) * D;
-  decode_init(sm, q + qoff, rep, D, scale);
-  decode_pages(sm, kp, vp, ks, vs, bt + (size_t)b * maxp, sl[b], g,
-               num_pages, page, maxp, rep, D);
-  decode_emit(sm, out + qoff, rep, D);
+// the head group: the power of two >= rep, at most 8
+template <typename T, typename S, int DP>
+int launch_dp(int rep, const void* q, const void* kp, const void* vp,
+              const void* ks, const void* vs, const int* bt, const int* sl,
+              void* out, float* po, float* pml, int B, int H, int Hkv, int D,
+              int num_pages, int page, int maxp, int part_pages, int nsplit,
+              float scale, cudaStream_t st) {
+#define PTT_DS_RG(RG)                                                      \
+  return launch_rg<T, S, DP, RG>(q, kp, vp, ks, vs, bt, sl, out, po, pml,  \
+                                 B, H, Hkv, D, num_pages, page, maxp,      \
+                                 part_pages, nsplit, scale, st)
+  if (rep == 1) PTT_DS_RG(1);
+  if (rep == 2) PTT_DS_RG(2);
+  if (rep <= 4) PTT_DS_RG(4);
+  PTT_DS_RG(8);
+#undef PTT_DS_RG
 }
 
 template <typename T, typename S>
 int launch(const void* q, const void* kp, const void* vp, const void* ks,
-           const void* vs, const int* bt, const int* sl, void* out, int B,
-           int H, int Hkv, int D, int num_pages, int page, int maxp,
-           float scale, cudaStream_t stream) {
+           const void* vs, const int* bt, const int* sl, void* out,
+           float* po, float* pml, int B, int H, int Hkv, int D,
+           int num_pages, int page, int maxp, int part_pages, int nsplit,
+           float scale, cudaStream_t st) {
   const int rep = H / Hkv;
-  const size_t smem = decode_smem_floats(rep, D, page) * sizeof(float);
-  cudaFuncSetAttribute(paged_attention_kernel<T, S>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  paged_attention_kernel<T, S><<<B * Hkv, PA_THREADS, smem, stream>>>(
-      (const T*)q, (const S*)kp, (const S*)vp, (const float*)ks,
-      (const float*)vs, bt, sl, (T*)out, H, Hkv, D, num_pages, page, maxp,
-      scale);
-  return (int)cudaGetLastError();
+  if (D <= 64)
+    return launch_dp<T, S, 64>(rep, q, kp, vp, ks, vs, bt, sl, out, po, pml,
+                               B, H, Hkv, D, num_pages, page, maxp,
+                               part_pages, nsplit, scale, st);
+  return launch_dp<T, S, 128>(rep, q, kp, vp, ks, vs, bt, sl, out, po, pml,
+                              B, H, Hkv, D, num_pages, page, maxp,
+                              part_pages, nsplit, scale, st);
 }
 
 template <typename T>
 int launch_kv(int kv, const void* q, const void* kp, const void* vp,
               const void* ks, const void* vs, const int* bt, const int* sl,
-              void* out, int B, int H, int Hkv, int D, int num_pages,
-              int page, int maxp, float scale, cudaStream_t stream) {
+              void* out, float* po, float* pml, int B, int H, int Hkv, int D,
+              int num_pages, int page, int maxp, int part_pages, int nsplit,
+              float scale, cudaStream_t st) {
   if (kv == KV_INT8)
-    return launch<T, int8_t>(q, kp, vp, ks, vs, bt, sl, out, B, H, Hkv, D,
-                             num_pages, page, maxp, scale, stream);
+    return launch<T, int8_t>(q, kp, vp, ks, vs, bt, sl, out, po, pml, B, H,
+                             Hkv, D, num_pages, page, maxp, part_pages,
+                             nsplit, scale, st);
   if (kv == KV_NATIVE)
-    return launch<T, T>(q, kp, vp, ks, vs, bt, sl, out, B, H, Hkv, D,
-                        num_pages, page, maxp, scale, stream);
+    return launch<T, T>(q, kp, vp, ks, vs, bt, sl, out, po, pml, B, H, Hkv,
+                        D, num_pages, page, maxp, part_pages, nsplit, scale,
+                        st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ptt
 
 // kv: KV_NATIVE (ks, vs unused) or KV_INT8 (int8 payloads kp, vp with f32
-// row scales ks, vs)
+// row scales ks, vs). The walk: nsplit parts of part_pages pages each,
+// covering the table (nsplit * part_pages >= maxp); with nsplit > 1, po
+// (nsplit, B * H, D) and pml (nsplit, B * H, 2) are f32 scratch that a
+// second kernel of the same call merges.
 PTT_EXPORT int ptt_paged_attention(int dtype, int kv, const void* q,
                                    const void* kp, const void* vp,
                                    const void* ks, const void* vs,
                                    const void* bt, const void* sl, void* out,
-                                   int B, int H, int Hkv, int D,
-                                   int num_pages, int page, int maxp,
+                                   void* po, void* pml, int B, int H,
+                                   int Hkv, int D, int num_pages, int page,
+                                   int maxp, int part_pages, int nsplit,
                                    float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || H % Hkv || D < 1 || D > 128 || page < 1 ||
+      maxp < 1 || part_pages < 1 || nsplit < 1 || nsplit > 65535 ||
+      (long long)nsplit * part_pages < maxp ||
+      (nsplit > 1 && (po == nullptr || pml == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* bti = (const int*)bt;
   const int* sli = (const int*)sl;
   if (dtype == ptt::DT_BF16)
     return ptt::launch_kv<__nv_bfloat16>(kv, q, kp, vp, ks, vs, bti, sli,
-                                         out, B, H, Hkv, D, num_pages, page,
-                                         maxp, scale, st);
+                                         out, (float*)po, (float*)pml, B, H,
+                                         Hkv, D, num_pages, page, maxp,
+                                         part_pages, nsplit, scale, st);
   if (dtype == ptt::DT_F32)
-    return ptt::launch_kv<float>(kv, q, kp, vp, ks, vs, bti, sli, out, B, H,
-                                 Hkv, D, num_pages, page, maxp, scale, st);
+    return ptt::launch_kv<float>(kv, q, kp, vp, ks, vs, bti, sli, out,
+                                 (float*)po, (float*)pml, B, H, Hkv, D,
+                                 num_pages, page, maxp, part_pages, nsplit,
+                                 scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,10 @@ a wrapper with a launch counter and a plain PyTorch version:
   - :func:`flash_attention_bwd_dq` (replaces ``_bwd_dq_kernel``);
   - :func:`flash_attention_bwd_dkv` (replaces ``_bwd_dkv_kernel``).
 
-The forward and the fp32 backward compute on the CUDA cores in f32; the
-bf16 backward runs on the tensor cores (``mma.sync``, P and dS rounded once
-to bf16 as operands, every sum in f32, the softmax scale in the exponent).
+In bf16 all three run on the tensor cores (``mma.sync``, every sum in f32,
+the softmax scale in f32 in the exponent; the forward's P·V operand as
+bf16 hi + lo, the backward's P and dS rounded once to bf16); fp32 computes
+on the CUDA cores in f32.
 
 ``_FlashAttention`` ties them into one ``torch.autograd.Function``: the
 forward saves ``(q, k, v, out, lse)``; the backward computes
@@ -29,10 +30,10 @@ Segment ids (varlen / packed sequences): ``seg_q`` ``(BH, Sq)`` and
 ``seg_kv`` ``(BHkv, Skv)``, int32; a query sees a key only within its
 segment (and causally). Each kernel has a segment variant, counted apart
 as ``<wrapper>_seg``. A row whose id no key carries emits zeros with
-lse 0 and gets zero gradients. The bf16 backward skips a whole tile whose
+lse 0 and gets zero gradients. The bf16 kernels skip a whole tile whose
 ids cannot meet the other side's, by the (min, max) id of every
-``SEG_TILE`` rows (:func:`seg_tile_ranges`, built by its wrappers and part
-of their cost).
+``SEG_TILE`` rows (:func:`seg_tile_ranges`, built by their wrappers and
+part of their cost).
 
 Not ported (``NotImplementedError``): :func:`flash_attention_with_lse`
 (ring attention).
@@ -220,7 +221,7 @@ def _check_seg(name, q, k, seg_q, seg_kv):
 def seg_tile_ranges(ids):
     """``(rows, ceil(n / SEG_TILE), 2)`` int32: the (min, max) segment id of
     every ``SEG_TILE`` positions of each row of ``ids`` ``(rows, n)``. The
-    bf16 backward kernels skip a tile pair whose ranges do not meet
+    bf16 kernels skip a tile pair whose ranges do not meet
     (:func:`seg_tiles_meet`): no id of one can equal an id of the other."""
     rows, n = ids.shape
     pad = -n % SEG_TILE
@@ -292,12 +293,11 @@ def _check_cuda(name, q, k, v, extra=()):
             raise ValueError(f"{name}: {nm} must be contiguous")
 
 
-# each entry: dtype, q, k, v, seg_q, seg_kv, its tensors, 7 ints, scale,
-# stream
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+# each entry: dtype, q, k, v, seg_q, seg_kv, the two range tables, its
+# tensors, 7 ints, scale, stream; dk/dv also the split count and its
+# scratch after dv
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-# the backward entries also take the two range tables after seg_kv, and
-# dk/dv the split count and its scratch after dv
 _DQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 _DKV_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
@@ -315,8 +315,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     both or neither.
 
     CPU tensors take :func:`flash_attention_fwd_ref`. CUDA tensors launch
-    the kernel (float32 or bfloat16, contiguous, D <= 128, any S); a tensor
-    it does not take raises."""
+    the kernel (float32 or bfloat16, contiguous, D <= 128, any S; bf16 on
+    the tensor cores); a tensor it does not take raises."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal, sm_scale, n_heads,
                                        n_kv_heads, seg_q, seg_kv)
@@ -327,11 +327,12 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), device=q.device, dtype=torch.float32)
+    _tables, rq_ptr, rkv_ptr = _seg_ranges(q, seg_q, seg_kv)
     fn = _build.bind("flash_attention", "ptt_flash_attention_fwd",
                      _FWD_ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), sq_ptr, skv_ptr, out.data_ptr(), lse.data_ptr(),
-            bh, sq, k.shape[1], h, hkv, d, int(bool(causal)),
+            v.data_ptr(), sq_ptr, skv_ptr, rq_ptr, rkv_ptr, out.data_ptr(),
+            lse.data_ptr(), bh, sq, k.shape[1], h, hkv, d, int(bool(causal)),
             _scale(sm_scale, d), _build.stream_handle(q.device))
     _build.check(rc, "flash_attention_fwd")
     _build.count(flash_attention_fwd, variant)

@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/kernels/paged_attention.py``: the KV cache
 lives in fixed-size pages drawn from a shared pool per layer, each sequence
 owns a block table of page ids, and freed pages recycle across requests.
 :func:`paged_attention` is the one-token decode attention through the block
-tables, the hand-written CUDA kernel in ``csrc/paged_attention.cu``;
+tables, the hand-written split-KV CUDA kernel in
+``csrc/paged_attention.cu`` (on ``csrc/decode_split.cuh``);
 :func:`paged_chunk_attention` is the chunked-prefill attention of an
 S-token chunk against the pool prefix plus itself, read through the block
 table by the CUDA kernel in ``csrc/paged_chunk_attention.cu``.
@@ -12,7 +13,7 @@ table by the CUDA kernel in ``csrc/paged_chunk_attention.cu``.
 A pool half is either a native tensor in the activation dtype or, for
 ``kv_dtype="int8"``, a :class:`QuantizedPages` (int8 payload plus one f32
 scale per token row); every reader takes both, and the kernels dequantize
-each element as it enters shared memory. Host-RAM spill (``HostPage``)
+each element as they read it. Host-RAM spill (``HostPage``)
 belongs to a later slice. Unlike the JAX package, whose arrays are
 immutable, the page writes here update the pool tensors in place (no
 pool-sized copy per token) and return the same pool objects.
@@ -226,8 +227,33 @@ def _check_index(name, x, shape, device):
                          f"tensor, got {tuple(x.shape)}")
 
 
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+_MAX_HEAD_DIM = 128
+# the split-KV decode walk: keys a part covers (about), the fewest a part
+# covers when parts are cut smaller to fill the card, and the blocks an SM
+# the cut aims for
+_SPLIT_KEYS, _MIN_SPLIT_KEYS, _SPLIT_BLOCKS_PER_SM = 256, 64, 4
+
+
+def decode_splits(blocks: int, maxp: int, page: int, sms: int
+                  ) -> Tuple[int, int]:
+    """``(part_pages, nsplit)`` of the split-KV decode walk over a block
+    table ``maxp`` pages wide, for ``blocks`` (batch rows x kv heads x head
+    groups) blocks a part and a card of ``sms`` SMs: parts of about
+    ``_SPLIT_KEYS`` keys, halved (down to ``_MIN_SPLIT_KEYS``, at least
+    one page) while the whole table's parts would give the card fewer
+    than ``_SPLIT_BLOCKS_PER_SM`` blocks an SM (a table's rows are seldom
+    all full, and a part past a row's length exits at once). A function of
+    the shapes only: the lengths stay on the device, so the host never
+    waits for them. (On the H100 at chip_smoke's decode shapes: 128-key
+    parts at B = 4 x 1024 keys, 256 at 4 x 4096; ``PERF.md``.)"""
+    part = max(1, _SPLIT_KEYS // page)
+    least = max(1, _MIN_SPLIT_KEYS // page)
+    while (part > least
+           and blocks * -(-maxp // part) < _SPLIT_BLOCKS_PER_SM * sms):
+        part = max(least, part // 2)
+    return part, -(-maxp // part)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -241,7 +267,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     int32 (entries past the used count are ignored, keep them 0);
     seq_lens: (B,) int32 valid tokens per sequence. Returns (B, H, D) in
     q's dtype. CPU tensors take :func:`paged_attention_ref`; CUDA tensors
-    launch the kernel (its int8 entry for a quantized pool)."""
+    launch the split-KV kernel (its int8 entry for a quantized pool; D <=
+    128), its walk cut by :func:`decode_splits`."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    seq_lens, sm_scale)
@@ -254,6 +281,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if dk != d or h % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match pools "
                          f"{tuple(k_pages.shape)}")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: head_dim {d} > {_MAX_HEAD_DIM} "
+                         f"is not supported")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     maxp = block_tables.shape[1]
@@ -261,12 +291,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check_index("seq_lens", seq_lens, (b,), q.device)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    # a block serves up to 8 query heads of its kv head (decode_split.cuh)
+    part_pages, nsplit = decode_splits(
+        b * hkv * -(-(h // hkv) // 8), maxp, page,
+        _build.sm_count(q.device.index or 0))
     out = torch.empty_like(q)
+    _scratch, ptrs = split_scratch(nsplit, b * h, d, q.device)
     fn = _build.bind("paged_attention", "ptt_paged_attention", _ARGTYPES)
     rc = fn(_build.dtype_code(q.dtype), _build.kv_code(quant), q.data_ptr(),
             *_pool_ptrs(k_pages, v_pages, quant), block_tables.data_ptr(),
-            seq_lens.data_ptr(), out.data_ptr(), b, h, hkv, d, num_pages,
-            page, maxp, float(sm_scale), _build.stream_handle(q.device))
+            seq_lens.data_ptr(), out.data_ptr(), *ptrs, b, h, hkv, d,
+            num_pages, page, maxp, part_pages, nsplit, float(sm_scale),
+            _build.stream_handle(q.device))
     _build.check(rc, "paged_attention")
     _build.count(paged_attention, "int8" if quant else "")
     return out
@@ -339,7 +375,6 @@ def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
-_MAX_HEAD_DIM = 128
 _CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
 

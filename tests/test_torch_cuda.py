@@ -17,9 +17,12 @@ kernel's VMEM cap) and 1001 (one element a load), 1, 7 and 8192 rows; for
 the flash kernels' segment-id variant document boundaries inside a
 64-row tile, a padding id no key carries, GQA, head_dim 64 and 128,
 lengths that are not a multiple of 64, and the public varlen entry points
-against their CPU run; for the bf16 backward on the tensor cores head dims
-33 to 128, S = 1 to 1000, Sq != Skv, rep 1 to 8, a peaked softmax and
-segment ids in no order. Each kernel is held to its plain PyTorch version
+against their CPU run; for the bf16 forward and backward on the tensor
+cores head dims 33 to 128, S = 1 to 1000, Sq != Skv, rep 1 to 8, a peaked
+softmax and segment ids in no order; for the split-KV decode attention
+native and int8 pools, B = 1 to 8 with idle rows, lengths 0 to 4096 around
+page and part boundaries, pages of 8 to 64, rep 1 to 16 and head dims 33
+to 128. Each kernel is held to its plain PyTorch version
 on the same card tensors (fp32 1e-4, bf16 2e-2 abs: the kernels sum in
 f32 in another order, and bf16 rounds once more at the output; the
 RMSNorm outputs within 1e-3 + one bf16 ulp); the wrappers' input checks
@@ -1093,3 +1096,111 @@ def test_variable_length_attention_on_the_card_matches_the_cpu(dev):
         outs.append(IF.variable_length_memory_efficient_attention(
             q, k, v, torch.from_numpy(lens).to(device), causal=True).cpu())
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+
+
+# the bf16 forward on the tensor cores (fb_fwd_kernel: mma.sync, P·V with P
+# as bf16 hi + lo, the scale in f32 in the exponent), held to chip_smoke's
+# OUT_TOL (MMA_TOL here) and LSE_TOL in bf16
+LSE_TOL_BF16 = 1e-3
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,qscale,seg", [
+    (1, 1, 1, 2, 2, 128, True, 1.0, None),      # S = 1
+    (1, 15, 15, 4, 1, 64, True, 1.0, None),     # S = 15, rep 4
+    (1, 64, 64, 8, 1, 128, True, 8.0, None),    # one tile, rep 8, peaked
+    (2, 65, 65, 4, 4, 96, True, 1.0, None),     # one row past a tile, B = 2
+    (1, 129, 129, 8, 2, 33, True, 8.0, None),   # odd head dim, peaked
+    (1, 1000, 1000, 8, 1, 128, True, 8.0, None),  # ragged, rep 8, peaked
+    (2, 300, 300, 4, 4, 128, False, 1.0, None),   # non-causal, B = 2
+    (1, 200, 77, 4, 2, 64, True, 1.0, None),    # Sq > Skv
+    (1, 77, 300, 4, 2, 128, True, 1.0, None),   # Sq < Skv
+    (1, 150, 333, 2, 2, 96, False, 8.0, None),  # Sq < Skv, full, peaked
+    (1, 1000, 1000, 4, 1, 128, True, 1.0, "docs"),  # boundaries in tiles
+    (2, 300, 300, 8, 2, 64, True, 8.0, "pad"),      # a padding id, peaked
+    (1, 500, 500, 4, 4, 128, True, 1.0, "shuffled"),  # non-monotone ids
+    (1, 260, 260, 8, 8, 33, False, 1.0, "shuffled"),  # full, odd head dim
+    (1, 129, 129, 2, 2, 128, False, 1.0, "pad"),    # full, padding rows
+])
+def test_flash_forward_bf16_tensor_core_cases(dev, b, sq, skv, h, hkv, d,
+                                              causal, qscale, seg):
+    """The bf16 forward (out, lse) against its plain version on the same
+    card tensors within OUT_TOL / LSE_TOL: head dims 33 to 128, S = 1 to
+    1000, Sq != Skv both ways, rep 1 to 8, causal and full, a peaked
+    softmax, segment packs with boundaries inside tiles, a padding id (zeros
+    and lse 0 there) and ids in no order; one launch, repeated bit for
+    bit."""
+    rng = np.random.default_rng(sq * 5 + skv + d + h)
+    q = _rand(rng, (b * h, sq, d), torch.bfloat16, dev, qscale)
+    k = _rand(rng, (b * hkv, skv, d), torch.bfloat16, dev)
+    v = _rand(rng, (b * hkv, skv, d), torch.bfloat16, dev)
+    kw = dict(causal=causal, n_heads=h, n_kv_heads=hkv)
+    if seg is not None:
+        if seg == "shuffled":
+            ids_q, ids_kv = _shuffled_ids(rng, b, sq, 3)
+        else:
+            ids_q, ids_kv = _segments(rng, b, sq, (30, 100, 171, 1),
+                                      13 if seg == "pad" else 0)
+        kw.update(seg_q=torch.from_numpy(np.repeat(ids_q, h, 0)).to(dev),
+                  seg_kv=torch.from_numpy(np.repeat(ids_kv, hkv, 0)).to(dev))
+    kernels.reset_launches()
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    variant = "" if seg is None else "_seg"
+    assert kernels.launch_counts()["flash_attention_fwd" + variant] == 1
+    out_r, lse_r = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == out_r.shape
+    assert lse.dtype == torch.float32 and lse.shape == lse_r.shape
+    atol, rtol = MMA_TOL
+    assert _excess(out, out_r, rtol) <= atol
+    assert _err(lse, lse_r) <= LSE_TOL_BF16
+    if seg == "pad":
+        assert not out[:, sq - 13:].any() and not lse[:, sq - 13:].any()
+    again = fa.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# the split-KV decode attention (csrc/decode_split.cuh): parts of the walk
+# over blocks, their merge in the same call; native within TOL, int8 within
+# chip_smoke's QUANT_OUT_TOL (fp32 1e-5; bf16 1e-3 + one bf16 ulp)
+QUANT_OUT_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
+
+
+@pytest.mark.parametrize("pool", ["native", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("h,hkv,d,page,seq_lens", [
+    (32, 32, 128, 64, (4096, 0, 1, 64, 65)),   # 7B heads: 1, page, page + 1
+    (8, 2, 128, 16, (1, 16, 17, 0, 300, 4096, 5, 33)),  # B = 8, rep 4
+    (64, 8, 128, 8, (8, 9, 1000)),             # rep 8, pages of 8
+    (4, 4, 64, 64, (129,)),                    # B = 1, head dim 64
+    (16, 1, 64, 8, (5, 0, 63, 2000)),          # rep 16: two head groups
+    (6, 2, 96, 16, (47, 0, 700)),              # rep 3, head dim 96
+    (4, 2, 33, 8, (64, 65, 3)),                # odd head dim
+])
+def test_paged_attention_split_cases(dev, pool, dtype, h, hkv, d, page,
+                                     seq_lens):
+    """The split-KV decode attention against paged_attention_ref on the
+    same pool bits: native and int8 pools, B = 1 to 8 with idle rows,
+    lengths 0, 1, a page, a page + 1 and 4096, pages of 8, 16 and 64, rep
+    1 to 16, tables one page wider than the longest row (null entries);
+    one launch, repeated bit for bit."""
+    rng = np.random.default_rng(sum(seq_lens) + h + d + page)
+    maxp = -(-max(seq_lens) // page) + 1
+    bt, num_pages = _tables(rng, seq_lens, 0, page, maxp, dev)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    kp, vp = (_rand(rng, (hkv, num_pages, page, d), dtype, dev)
+              for _ in range(2))
+    if pool == "int8":
+        kp, vp = _q(kp), _q(vp)
+    q = _rand(rng, (len(seq_lens), h, d), dtype, dev)
+    kernels.reset_launches()
+    got = pa.paged_attention(q, kp, vp, bt, sl)
+    name = "paged_attention" + ("_int8" if pool == "int8" else "")
+    assert kernels.launch_counts()[name] == 1
+    want = pa.paged_attention_ref(q, kp, vp, bt, sl)
+    assert got.dtype == dtype and got.shape == want.shape
+    if pool == "int8":
+        atol, rtol = QUANT_OUT_TOL[dtype]
+        assert _excess(got, want, rtol) <= atol
+    else:
+        assert _err(got, want) <= TOL[dtype]
+    assert not got[sl == 0].any()
+    assert torch.equal(got, pa.paged_attention(q, kp, vp, bt, sl))

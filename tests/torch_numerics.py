@@ -173,3 +173,127 @@ def rel_to_max(a, b) -> float:
     """max |a - b| / max |b| (chip_smoke.py's gradient check)."""
     a, b = (torch.as_tensor(x).double() for x in (a, b))
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+# ------------------------------------------ the bf16 flash forward's roundings
+FWD_SCHEMES = ("f32", "bf16", "hilo")
+
+
+def flash_fwd_emulated(q, k, v, causal, h, hkv, sm_scale, scheme="hilo",
+                       seg_q=None, seg_kv=None):
+    """(out, lse) as the bf16 tensor-core forward computes them, in f32 on
+    the CPU; out before its rounding to bf16. Inputs are f32 tensors holding
+    bf16 values, q ``(BH, Sq, D)``, k/v ``(BHkv, Skv, D)``, segment ids
+    ``(BH, Sq)`` / ``(BHkv, Skv)`` or None. S = Q Kᵀ is exact products
+    summed in f32 (the mma); the scale enters in f32, in the exponent,
+    ``p = 2^(s·scale·log2 e − m·scale·log2 e)``; l sums the unrounded f32
+    p; the P·V operand P is
+
+    - ``f32``: unrounded (the plain version's arithmetic);
+    - ``bf16``: rounded once to bf16 (one mma a k-step);
+    - ``hilo``: bf16 hi + bf16 lo (two mmas a k-step).
+
+    The kernel rounds p against its running max, not the row's final one;
+    a rounding's relative error does not depend on that scale, so the
+    row's max stands in for it. A row that sees no key takes max 0 and
+    l = 1: zeros, lse 0 (JAX's guards)."""
+    bh, sq, d = q.shape
+    b, rep, skv = bh // h, h // hkv, k.shape[1]
+    log2e = 1.4426950408889634
+    q5 = q.reshape(b, hkv, rep, sq, d)
+    k4, v4 = k.reshape(b, hkv, skv, d), v.reshape(b, hkv, skv, d)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", q5, k4)
+    vis = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        vis = torch.tril(vis)
+    vis = vis.expand(s.shape)
+    if seg_q is not None:
+        vis = vis & (seg_q.reshape(b, hkv, rep, sq)[..., :, None]
+                     == seg_kv.reshape(b, hkv, skv)[:, :, None, None, :])
+    s = s.masked_fill(~vis, -1e30)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(m <= -1e30 / 2, torch.zeros_like(m), m)
+    p = torch.exp2(s * (sm_scale * log2e) - m * (sm_scale * log2e))
+    p = torch.where(vis, p, torch.zeros(()))
+    l = p.sum(-1, keepdim=True)
+    if scheme == "bf16":
+        p = _bf16(p)
+    elif scheme == "hilo":
+        hi = _bf16(p)
+        p = hi + _bf16(p - hi)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v4) / l_safe
+    lse = (m * sm_scale + torch.log(l_safe))[..., 0]
+    return out.reshape(q.shape), lse.reshape(bh, sq)
+
+
+def out_excess(got, want, rtol) -> float:
+    """The largest amount by which |got - want| exceeds rtol |want|
+    (chip_smoke.py's elementwise forward check against its atol)."""
+    got, want = (torch.as_tensor(x).double() for x in (got, want))
+    return float(((got - want).abs() - rtol * want.abs()).max())
+
+
+# ------------------------------------------- the split-KV decode's partition
+SPLIT_HALF_WARPS = 8     # DS_ROWS: half-warps a decode_split block holds
+
+
+def _merge_log2(states):
+    """(O, m, l) states (m in log2 units) merged: M over the states that
+    saw a key (l > 0), each rescaled by 2^(m - M); None when none did."""
+    live = [s for s in states if s is not None and bool((s[2] > 0).all())]
+    if not live:
+        return None
+    m = torch.stack([s[1] for s in live]).amax(0)
+    o = sum(torch.exp2(s[1] - m)[..., None] * s[0] for s in live)
+    l = sum(torch.exp2(s[1] - m) * s[2] for s in live)
+    return o, m, l
+
+
+def paged_attention_split_emulated(q, k_pages, v_pages, block_tables,
+                                   seq_lens, sm_scale, part_pages, nsplit):
+    """``paged_attention`` as the split-KV kernel (``csrc/decode_split.cuh``)
+    partitions and merges it, in f32 on the CPU. Row b's keys (its first
+    ``min(len, maxp * page)`` table positions) are cut into ``nsplit``
+    parts of ``part_pages`` pages; a part starting at or past the length
+    does not run. Inside a part, half-warp w takes the keys t with
+    t % 8 == w; each leaves (O, m, l) with q pre-scaled by
+    scale · log2 e, the block merges its half-warps, and the parts merge in
+    part order over those that ran; a row with none emits zeros. Pools as
+    ``paged_attention_ref`` takes them (native or ``QuantizedPages``)."""
+    from paddle_tpu_torch.kernels.paged_attention import _gathered_pool
+    b, h, d = q.shape
+    hkv, _, page, _ = k_pages.shape
+    rep, maxp = h // hkv, block_tables.shape[1]
+    assert nsplit * part_pages >= maxp
+    bt = block_tables.long()
+    k = _gathered_pool(k_pages, bt).reshape(b, hkv, maxp * page, d)
+    v = _gathered_pool(v_pages, bt).reshape(b, hkv, maxp * page, d)
+    qs = q.float().reshape(b, hkv, rep, d) * (sm_scale * 1.4426950408889634)
+    out = torch.zeros(b, hkv, rep, d)
+    part_keys = part_pages * page
+    for row in range(b):
+        n = min(int(seq_lens[row]), maxp * page)
+        parts = []
+        for s in range(nsplit):
+            k0 = s * part_keys
+            if k0 >= n:
+                continue
+            k1 = min(n, k0 + part_keys)
+            halves = []
+            for w in range(SPLIT_HALF_WARPS):
+                idx = torch.arange(k0 + w, max(k1, k0 + w),
+                                   SPLIT_HALF_WARPS)
+                if not len(idx):
+                    halves.append(None)
+                    continue
+                sc = torch.einsum("grd,gtd->grt", qs[row], k[row][:, idx])
+                m = sc.amax(-1)
+                p = torch.exp2(sc - m[..., None])
+                halves.append((torch.einsum("grt,gtd->grd", p,
+                                            v[row][:, idx]), m, p.sum(-1)))
+            parts.append(_merge_log2(halves))
+        merged = _merge_log2(parts)
+        if merged is not None:
+            out[row] = merged[0] / merged[2][..., None]
+    return out.reshape(b, h, d)

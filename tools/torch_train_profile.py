@@ -44,7 +44,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from torch_trace import card, window  # noqa: E402  (this script's folder)
 
 FLASH = ("fa_fwd_kernel", "fa_dq_kernel", "fa_dkv_kernel",   # CUDA cores
-         "fb_dq_kernel", "fb_dkv_kernel", "fb_dkv_combine_kernel")  # bf16
+         "fb_fwd_kernel", "fb_dq_kernel", "fb_dkv_kernel",        # bf16
+         "fb_dkv_combine_kernel")
 GEMM = ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_", "sm80_")
 
 
