@@ -13,9 +13,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the plain version, one library call where PyTorch has one,
               and the card's least time for the same work (bound; the
               prefill, decode and chunk rows also give bound_frac, bound /
-              kernel time). The decode attention runs at serve's ragged
-              lengths (one idle row) and at serve_long's decode contexts
-              (3500/2900/1800/700 of a 4096-token table); the chunk
+              kernel time). The decode attention and the one-layer and
+              N-layer fused decode run at serve's ragged lengths (one idle
+              row) and at serve_long's decode contexts (3500/2900/1800/700
+              of a 4096-token table), with device_ms from calls replayed
+              from a CUDA graph; the chunk
               attention a 256-token chunk from
               start 3328 and a ragged 100-token final chunk, each with a
               spread and a peaked softmax; the N-layer decode a group of
@@ -589,146 +591,186 @@ def pool_equal(a, b) -> bool:
     return torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
 
 
+# the fused decode rows: (case, tokens already in the pool, table width):
+# serve's (1023, 517, 78 at 7B, one idle row) and serve_long's decode
+# contexts in its 4096-token table
+FUSED_SHAPES = (("serve", (MAX_SEQ - 1, MAX_SEQ // 2 + 5, MAX_SEQ // 13, 0),
+                 MAX_SEQ),
+                ("serve_long decode", LONG_DECODE_LENS, LONG_MAX_SEQ))
+
+
 def check_fused_block_decode(dtype, device, results):
-    """The one-layer kernel on a native and on an int8 pool: output within
-    TOL of the plain version, the appended rows as the plain version's
-    (an int8 row within one payload step and SCALE_RTOL)."""
+    """The one-layer kernel on a native and on an int8 pool at FUSED_SHAPES:
+    output within TOL of the plain version, the appended rows as the plain
+    version's (an int8 row within one payload step and SCALE_RTOL); the
+    bound and bound_frac beside each, and device_ms from a CUDA graph."""
     from paddle_tpu_torch.kernels import fused_block_decode as fb
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    # tokens already in the pool (1023, 517, 78 at 7B), one idle row
-    seq_lens = [MAX_SEQ - 1, MAX_SEQ // 2 + 5, MAX_SEQ // 13, 0]
-    bt, num_pages = _block_tables(seq_lens, 1, device)
-    sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
-    shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
-    kp, vp = _rand(gen, shape, dtype, device), _rand(gen, shape, dtype, device)
-    w = block_weights(gen, dtype, device)
-    x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
     kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
               epsilon=1e-5)
-    live = sum(seq_lens)
-    mats = sum(t.numel() for t in w if t.dim() == 2)
-    flops = (2.0 * BATCH * mats
-             + 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
-    for quant in (False, True):
-        pools = (quantized(kp), quantized(vp)) if quant else (kp, vp)
-        kk, vk = (clone_pool(t) for t in pools)
-        got, kk, vk = fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
-        kr, vr = (clone_pool(t) for t in pools)
-        want, kr, vr = fb.fused_block_decode_ref(x, w, kr, vr, bt, sl, **kw)
-        torch.cuda.synchronize()
-        name = "fused_block_decode" + ("_int8" if quant else "")
-        err = max_err(got, want)
-        extra = {}
-        if quant:
-            for half, a, b in (("k", kk, kr), ("v", vk, vr)):
-                nq, ns = rows_differ(a, b, dtype, f"{name} {dtype} {half}")
-                extra[f"{half}_payload_diffs"] = nq
-                extra[f"{half}_scale_diffs"] = ns
-            extra["scale_rtol"] = SCALE_RTOL[dtype]
-        else:
-            err = max(err, max_err(kk, kr), max_err(vk, vr))
-        require(err <= TOL[dtype], f"{name} {dtype}: max err {err}")
-        nbytes = (block_bytes(w, 1, x, live, quant)
-                  + 4 * (bt.numel() + sl.numel()))
-        bms, by = bound_ms(nbytes, flops, dtype)
-        results.append(dict(
-            kernel=name, dtype=DTYPE_NAME[dtype], seq_lens=seq_lens,
-            max_err=err, tol=TOL[dtype], **extra,
-            kernel_ms=time_ms(lambda: fb.fused_block_decode(
-                x, w, kk, vk, bt, sl, **kw)),
-            plain_ms=time_ms(lambda: fb.fused_block_decode_ref(
-                x, w, kr, vr, bt, sl, **kw), iters=5),
-            library_ms=None, bound_ms=bms, bound_by=by))
+    w = None
+    for case, seq_lens, max_seq in FUSED_SHAPES:
+        seq_lens = list(seq_lens)
+        bt, num_pages = _block_tables(seq_lens, 1, device, max_seq)
+        sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+        shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+        kp, vp = (_rand(gen, shape, dtype, device),
+                  _rand(gen, shape, dtype, device))
+        if w is None:
+            w = block_weights(gen, dtype, device)
+            x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
+        live = sum(seq_lens)
+        mats = sum(t.numel() for t in w if t.dim() == 2)
+        flops = (2.0 * BATCH * mats
+                 + 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
+        for quant in (False, True):
+            pools = (quantized(kp), quantized(vp)) if quant else (kp, vp)
+            kk, vk = (clone_pool(t) for t in pools)
+            got, kk, vk = fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
+            kr, vr = (clone_pool(t) for t in pools)
+            want, kr, vr = fb.fused_block_decode_ref(x, w, kr, vr, bt, sl,
+                                                     **kw)
+            torch.cuda.synchronize()
+            name = "fused_block_decode" + ("_int8" if quant else "")
+            err = max_err(got, want)
+            extra = {}
+            if quant:
+                for half, a, b in (("k", kk, kr), ("v", vk, vr)):
+                    nq, ns = rows_differ(a, b, dtype,
+                                         f"{name} {case} {dtype} {half}")
+                    extra[f"{half}_payload_diffs"] = nq
+                    extra[f"{half}_scale_diffs"] = ns
+                extra["scale_rtol"] = SCALE_RTOL[dtype]
+            else:
+                err = max(err, max_err(kk, kr), max_err(vk, vr))
+            require(err <= TOL[dtype], f"{name} {case} {dtype}: max err "
+                    f"{err}")
+            nbytes = (block_bytes(w, 1, x, live, quant)
+                      + 4 * (bt.numel() + sl.numel()))
+            bms, by = bound_ms(nbytes, flops, dtype)
+
+            def call():
+                fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
+
+            kms = time_ms(call)
+            results.append(dict(
+                kernel=name, dtype=DTYPE_NAME[dtype], case=case,
+                seq_lens=seq_lens, max_err=err, tol=TOL[dtype], **extra,
+                kernel_ms=kms,
+                plain_ms=time_ms(lambda: fb.fused_block_decode_ref(
+                    x, w, kr, vr, bt, sl, **kw), iters=5),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                bound_frac=bms / kms,
+                device_ms=dict(kernel=graph_ms(call, calls=5, reps=4))))
+            del kk, vk, kr, vr, pools
+        del kp, vp
+        torch.cuda.empty_cache()
 
 
 def check_fused_multi_block_decode(dtype, device, results):
-    """A group of 4 Llama-2-7B layers at #3's rows: the N-layer kernel
-    against the plain version for native and int8 pools and native and
-    int4 weights; with native weights also bit for bit against 4 launches
-    of the one-layer kernel on the same kind of pool, timed beside them."""
+    """A group of 4 Llama-2-7B layers at #3's FUSED_SHAPES: the N-layer
+    kernel against the plain version for native and int8 pools and native
+    and int4 weights; with native weights also bit for bit against 4
+    launches of the one-layer kernel on the same kind of pool, timed beside
+    them; bound and bound_frac beside each row."""
     from paddle_tpu_torch.kernels import fused_block_decode as fb
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    seq_lens = [MAX_SEQ - 1, MAX_SEQ // 2 + 5, MAX_SEQ // 13, 0]
-    bt, num_pages = _block_tables(seq_lens, 1, device)
-    sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
-    shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
-    pools = [(_rand(gen, shape, dtype, device), _rand(gen, shape, dtype,
-                                                      device))
-             for _ in range(GROUP_LAYERS)]
-    qpools = [(quantized(k), quantized(v)) for k, v in pools]
-    layers = [block_weights(gen, dtype, device) for _ in range(GROUP_LAYERS)]
-    stacks = {"native": fb.stack_block_weights(layers),
-              "int4": fb.stack_block_weights(layers, weight_dtype="int4")}
-    x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
     kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
               epsilon=1e-5)
-    live = sum(seq_lens)
-    mats = sum(t.numel() for t in layers[0] if t.dim() == 2) * GROUP_LAYERS
-    flops = (2.0 * BATCH * mats
-             + GROUP_LAYERS * 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
-
-    for quant, wdt in ((False, "native"), (True, "native"), (False, "int4"),
-                       (True, "int4")):
-        group = qpools if quant else pools
-        mw = stacks[wdt]
-
-        def fresh():
-            return ([clone_pool(k) for k, _ in group],
-                    [clone_pool(v) for _, v in group])
-
-        tags = [t for t, on in (("int8", quant), ("int4", wdt == "int4"))
-                if on]
-        name = "_".join(["fused_multi_block_decode"] + tags)
-        got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl,
-                                                  **kw)
-        want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt,
-                                                       sl, **kw)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        row = dict(kernel=name, dtype=DTYPE_NAME[dtype],
-                   layers=GROUP_LAYERS, seq_lens=seq_lens, tol=TOL[dtype])
-        # past the first layer the kernel's and the plain version's inputs
-        # differ by the earlier layers' rounding: the pools are held to the
-        # output's tolerance, an int8 row's values beyond one quantization
-        # step of the row (a payload one step apart)
-        for i in range(GROUP_LAYERS):
-            err = max(err, pool_err(gk[i], wk[i]), pool_err(gv[i], wv[i]))
-        require(err <= TOL[dtype], f"{name} {dtype}: max err {err}")
-        if wdt == "native":
-            # the same pools through 4 launches of the one-layer kernel
-            out, ck, cv = x, *fresh()
-            for i, w in enumerate(layers):
-                out, ck[i], cv[i] = fb.fused_block_decode(
-                    out, w, ck[i], cv[i], bt, sl, **kw)
-            torch.cuda.synchronize()
-            same = torch.equal(got, out) and all(
-                pool_equal(a, b) for a, b in zip(gk + gv, ck + cv))
-            require(same, f"{name} {dtype}: not bit for bit the chain of "
-                    "one-layer launches")
-
-            def chain():
-                o = x
-                for i, w in enumerate(layers):
-                    o, _, _ = fb.fused_block_decode(o, w, ck[i], cv[i], bt,
-                                                    sl, **kw)
-
-            row.update(bitwise_vs_one_layer_chain=same,
-                       one_layer_kernel_x4_ms=time_ms(chain))
-        nbytes = (block_bytes(mw, GROUP_LAYERS, x, live, quant)
-                  + 4 * (bt.numel() + sl.numel()))
-        bms, by = bound_ms(nbytes, flops, dtype)
-        row.update(
-            max_err=err,
-            kernel_ms=time_ms(lambda: fb.fused_multi_block_decode(
-                x, mw, gk, gv, bt, sl, **kw)),
-            plain_ms=time_ms(lambda: fb.fused_multi_block_decode_ref(
-                x, mw, wk, wv, bt, sl, **kw), iters=5, warmup=1),
-            library_ms=None, bound_ms=bms, bound_by=by,
-            weight_bytes=weight_bytes(mw))
-        results.append(row)
-        del gk, gv, wk, wv
-    del layers, stacks, pools, qpools
+    layers = None
+    for case, seq_lens, max_seq in FUSED_SHAPES:
+        seq_lens = list(seq_lens)
+        bt, num_pages = _block_tables(seq_lens, 1, device, max_seq)
+        sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+        shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+        pools = [(_rand(gen, shape, dtype, device),
+                  _rand(gen, shape, dtype, device))
+                 for _ in range(GROUP_LAYERS)]
+        qpools = [(quantized(k), quantized(v)) for k, v in pools]
+        if layers is None:
+            layers = [block_weights(gen, dtype, device)
+                      for _ in range(GROUP_LAYERS)]
+            stacks = {"native": fb.stack_block_weights(layers),
+                      "int4": fb.stack_block_weights(layers,
+                                                     weight_dtype="int4")}
+            x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
+        live = sum(seq_lens)
+        mats = (sum(t.numel() for t in layers[0] if t.dim() == 2)
+                * GROUP_LAYERS)
+        flops = (2.0 * BATCH * mats
+                 + GROUP_LAYERS * 4.0 * (live + BATCH) * HEADS * HEAD_DIM)
+        for quant, wdt in ((False, "native"), (True, "native"),
+                           (False, "int4"), (True, "int4")):
+            results.append(_check_group(fb, case, dtype, x, layers,
+                                        stacks[wdt], wdt, quant,
+                                        qpools if quant else pools, bt, sl,
+                                        kw, seq_lens, live, flops))
+        del pools, qpools
+        torch.cuda.empty_cache()
+    del layers, stacks
     torch.cuda.empty_cache()
+
+
+def _check_group(fb, case, dtype, x, layers, mw, wdt, quant, group, bt, sl,
+                 kw, seq_lens, live, flops) -> dict:
+    """One N-layer variant at one FUSED_SHAPES case (see
+    check_fused_multi_block_decode): its result row."""
+    def fresh():
+        return ([clone_pool(k) for k, _ in group],
+                [clone_pool(v) for _, v in group])
+
+    tags = [t for t, on in (("int8", quant), ("int4", wdt == "int4")) if on]
+    name = "_".join(["fused_multi_block_decode"] + tags)
+    got, gk, gv = fb.fused_multi_block_decode(x, mw, *fresh(), bt, sl, **kw)
+    want, wk, wv = fb.fused_multi_block_decode_ref(x, mw, *fresh(), bt, sl,
+                                                   **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    row = dict(kernel=name, dtype=DTYPE_NAME[dtype], case=case,
+               layers=GROUP_LAYERS, seq_lens=seq_lens, tol=TOL[dtype])
+    # past the first layer the kernel's and the plain version's inputs
+    # differ by the earlier layers' rounding: the pools are held to the
+    # output's tolerance, an int8 row's values beyond one quantization
+    # step of the row (a payload one step apart)
+    for i in range(GROUP_LAYERS):
+        err = max(err, pool_err(gk[i], wk[i]), pool_err(gv[i], wv[i]))
+    require(err <= TOL[dtype], f"{name} {case} {dtype}: max err {err}")
+    if wdt == "native":
+        # the same pools through 4 launches of the one-layer kernel
+        out, ck, cv = x, *fresh()
+        for i, w in enumerate(layers):
+            out, ck[i], cv[i] = fb.fused_block_decode(
+                out, w, ck[i], cv[i], bt, sl, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, out) and all(
+            pool_equal(a, b) for a, b in zip(gk + gv, ck + cv))
+        require(same, f"{name} {case} {dtype}: not bit for bit the chain "
+                "of one-layer launches")
+
+        def chain():
+            o = x
+            for i, w in enumerate(layers):
+                o, _, _ = fb.fused_block_decode(o, w, ck[i], cv[i], bt, sl,
+                                                **kw)
+
+        row.update(bitwise_vs_one_layer_chain=same,
+                   one_layer_kernel_x4_ms=time_ms(chain))
+    nbytes = (block_bytes(mw, GROUP_LAYERS, x, live, quant)
+              + 4 * (bt.numel() + sl.numel()))
+    bms, by = bound_ms(nbytes, flops, dtype)
+
+    def call():
+        fb.fused_multi_block_decode(x, mw, gk, gv, bt, sl, **kw)
+
+    kms = time_ms(call)
+    row.update(
+        max_err=err, kernel_ms=kms,
+        plain_ms=time_ms(lambda: fb.fused_multi_block_decode_ref(
+            x, mw, wk, wv, bt, sl, **kw), iters=5, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+        device_ms=dict(kernel=graph_ms(call, calls=5, reps=4)),
+        weight_bytes=weight_bytes(mw))
+    return row
 
 
 # ----------------------------------------------------------------- serve

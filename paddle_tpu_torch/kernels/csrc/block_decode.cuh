@@ -6,8 +6,11 @@
 // with the activations in an f32 scratch buffer the wrapper allocates (a
 // few hundred KB, L2-resident between launches):
 //   1. rms(x) * ln1, then the q/k/v GEMVs, then a RoPE epilogue at seq_lens;
-//   2. paged attention with the new token's k/v folded in before the pool
-//      write, then the append of that k/v to the pool (in this kernel);
+//   2. the append of the new token's k/v to the pool at seq_lens (one small
+//      kernel, which also leaves the rows as stored in the scratch), then
+//      paged attention over seq_lens + 1 through decode_split.cuh's
+//      split-KV routine (split kernel + merge), the step's own key read
+//      from the scratch row;
 //   3. o-proj GEMV + residual;
 //   4. rms * ln2, then the gate/up GEMVs and silu(g) * u;
 //   5. down GEMV + residual, cast to the activation dtype.
@@ -22,12 +25,11 @@
 //
 // Two quantized variants, chosen at compile time (run<T, S, W4>):
 //   - an int8 KV pool (S = int8_t; the TPU kernels' `kv_quant`): the
-//     attention kernel reads payload and per-row f32 scales (pointer
-//     parameters), quantizes the new token's k/v row itself with the plain
-//     version's arithmetic (amax over D, IEEE division, rint, clamp),
-//     folds the dequantized value into the softmax (what a re-read of the
-//     pool gives, as the TPU kernel's _fake_quant_rows) and writes payload
-//     and scale into the pool;
+//     append kernel quantizes the new token's k/v row with the plain
+//     version's arithmetic (amax over D, IEEE division, rint, clamp) and
+//     writes payload and scale; the attention reads payload and per-row f32
+//     scales (pointer parameters), the new row at the value a re-read of
+//     the pool gives (the TPU kernel's _fake_quant_rows);
 //   - int4 weight tiles (W4; the N-layer TPU kernel's `wt_quant`): each
 //     GEMV streams the packed bytes of an Int4Tiles matrix; a lane unpacks
 //     both nibbles of a byte into contraction rows k_lo and k_lo + tr/2,
@@ -37,7 +39,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "decode_split.cuh"
 
 namespace ptt {
 
@@ -478,10 +480,10 @@ __global__ void __launch_bounds__(EPI_THREADS)
 }
 
 // A layer's KV pools (an int8 pool's payloads and row scales), passed to
-// the attention kernel as pointer parameters: a pointer the kernel read
-// from memory would be a generic pointer, and the pool loads would then be
-// generic loads (LD), not global ones (LDG), which in bf16 made the kernel
-// ~60 % slower on the H100.
+// the append and attention kernels as pointer parameters: a pointer the
+// kernel read from memory would be a generic pointer, and the pool loads
+// would then be generic loads (LD), not global ones (LDG), which in bf16
+// made the attention ~60 % slower on the H100.
 template <typename S>
 struct PoolRef {
   S* kp;
@@ -495,29 +497,36 @@ __device__ __forceinline__ float quant_int8(float u, float scale) {
   return fminf(fmaxf(rintf(u / (scale > 0.f ? scale : 1.f)), -127.f), 127.f);
 }
 
-// The new token's k/v row (kn/vn, f32) as the pool will hold it, into the
-// tile's row 0: rounded to the activation type T; for an int8 pool then
+constexpr int APPEND_THREADS = 128;
+
+// The new token's k/v row (kn/vn, f32) of one (batch row, kv head) as the
+// pool stores it: rounded to the activation type T; for an int8 pool then
 // quantized per row (amax over D, scale = amax / 127, q = clamp(rint(u /
-// safe scale), -127, 127)) and dequantized (q * scale), the value a
-// re-read of the pool gives. Returns the two raw scales (0 for a native
-// pool). Block-wide: every thread calls it.
+// safe scale), -127, 127)), payload and raw scale. Written to the pool at
+// position seq_lens[b] (page bt[b][len / page]; nothing past the table: a
+// full table's row is not appended) and to the scratch rows kst/vst (B *
+// Hkv, D) with scales kss/vss, from which the attention reads the step's
+// own key (decode_split.cuh, OWN).
 template <typename T, typename S>
-__device__ inline float2 fold_new_row(const DecodeSmem& sm, const float* kn,
-                                      const float* vn, int D) {
-  if constexpr (!is_int8_pool<S>()) {
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      sm.k[d] = to_f(from_f<T>(kn[d]));
-      sm.v[d] = to_f(from_f<T>(vn[d]));
-    }
-    __syncthreads();
-    return make_float2(0.f, 0.f);
-  } else {
-    __shared__ float red[2][32];
+__global__ void __launch_bounds__(APPEND_THREADS)
+    append_kv_kernel(const float* __restrict__ kn,
+                     const float* __restrict__ vn, S* kp, S* vp, float* ks,
+                     float* vs, S* __restrict__ kst, S* __restrict__ vst,
+                     float* __restrict__ kss, float* __restrict__ vss,
+                     const int* __restrict__ bt, const int* __restrict__ sl,
+                     int Hkv, int D, int num_pages, int page, int maxp) {
+  const int b = blockIdx.x / Hkv, g = blockIdx.x - b * Hkv;
+  const size_t nrow = blockIdx.x;  // b * Hkv + g
+  const float* k = kn + nrow * D;
+  const float* v = vn + nrow * D;
+  float sk = 0.f, sv = 0.f;
+  if constexpr (is_int8_pool<S>()) {
+    __shared__ float red[2][APPEND_THREADS / 32];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     float mk = 0.f, mv = 0.f;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      mk = fmaxf(mk, fabsf(to_f(from_f<T>(kn[d]))));
-      mv = fmaxf(mv, fabsf(to_f(from_f<T>(vn[d]))));
+    for (int d = threadIdx.x; d < D; d += APPEND_THREADS) {
+      mk = fmaxf(mk, fabsf(to_f(from_f<T>(k[d]))));
+      mv = fmaxf(mv, fabsf(to_f(from_f<T>(v[d]))));
     }
     mk = warp_max(mk);
     mv = warp_max(mv);
@@ -527,68 +536,42 @@ __device__ inline float2 fold_new_row(const DecodeSmem& sm, const float* kn,
     }
     __syncthreads();
     mk = mv = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    for (int w = 0; w < APPEND_THREADS / 32; ++w) {
       mk = fmaxf(mk, red[0][w]);
       mv = fmaxf(mv, red[1][w]);
     }
-    const float sk = mk / 127.f, sv = mv / 127.f;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      sm.k[d] = quant_int8(to_f(from_f<T>(kn[d])), sk) * sk;
-      sm.v[d] = quant_int8(to_f(from_f<T>(vn[d])), sv) * sv;
-    }
-    __syncthreads();
-    return make_float2(sk, sv);
+    sk = mk / 127.f;
+    sv = mv / 127.f;
   }
-}
-
-// Paged attention for one (row, kv head) with the new token folded in, then
-// the append of that token's k/v (an int8 pool: payload and scale) to the
-// pool. T: the activation type; S: the pool storage (T or int8_t).
-template <typename T, typename S>
-__global__ void __launch_bounds__(128)
-    fused_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ kn,
-                           const float* __restrict__ vn, S* kp, S* vp,
-                           float* ks, float* vs, const int* __restrict__ bt,
-                           const int* __restrict__ sl, float* __restrict__ ao,
-                           int H, int Hkv, int D, int num_pages, int page,
-                           int maxp, float scale) {
-  extern __shared__ float smem[];
-  const int rep = H / Hkv;
-  const int b = blockIdx.x / Hkv, g = blockIdx.x - b * Hkv;
-  DecodeSmem sm = decode_smem_carve(smem, rep, D, page);
-  const size_t qoff = ((size_t)b * H + (size_t)g * rep) * D;
-  const int* bt_row = bt + (size_t)b * maxp;
-  const int len = sl[b];
-  decode_init(sm, q + qoff, rep, D, scale);
-  decode_pages(sm, (const S*)kp, (const S*)vp, (const float*)ks,
-               (const float*)vs, bt_row, len, g, num_pages, page, maxp, rep,
-               D);
-  // the new token attends too, at the value a pool re-read would give
-  const size_t noff = ((size_t)b * Hkv + g) * D;
-  __syncthreads();
-  const float2 sc = fold_new_row<T, S>(sm, kn + noff, vn + noff, D);
-  decode_tile(sm, rep, D, page, 1);
-  decode_emit(sm, ao + qoff, rep, D);
-  const int j = len / page;
-  if (j < maxp) {
-    const size_t row =
-        ((size_t)g * num_pages + bt_row[j]) * page + (len - j * page);
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      if constexpr (is_int8_pool<S>()) {
-        kp[row * D + d] =
-            (int8_t)quant_int8(to_f(from_f<T>(kn[noff + d])), sc.x);
-        vp[row * D + d] =
-            (int8_t)quant_int8(to_f(from_f<T>(vn[noff + d])), sc.y);
-      } else {
-        kp[row * D + d] = from_f<T>(kn[noff + d]);
-        vp[row * D + d] = from_f<T>(vn[noff + d]);
-      }
-    }
+  const int len = sl[b], j = len / page;
+  const bool append = j < maxp;
+  const size_t row =
+      append ? ((size_t)g * num_pages + bt[(size_t)b * maxp + j]) * page +
+                   (len - j * page)
+             : 0;
+  for (int d = threadIdx.x; d < D; d += APPEND_THREADS) {
+    S kq, vq;
     if constexpr (is_int8_pool<S>()) {
-      if (threadIdx.x == 0) {
-        ks[row] = sc.x;
-        vs[row] = sc.y;
+      kq = (int8_t)quant_int8(to_f(from_f<T>(k[d])), sk);
+      vq = (int8_t)quant_int8(to_f(from_f<T>(v[d])), sv);
+    } else {
+      kq = from_f<T>(k[d]);
+      vq = from_f<T>(v[d]);
+    }
+    kst[nrow * D + d] = kq;
+    vst[nrow * D + d] = vq;
+    if (append) {
+      kp[row * D + d] = kq;
+      vp[row * D + d] = vq;
+    }
+  }
+  if constexpr (is_int8_pool<S>()) {
+    if (threadIdx.x == 0) {
+      kss[nrow] = sk;
+      vss[nrow] = sv;
+      if (append) {
+        ks[row] = sk;
+        vs[row] = sv;
       }
     }
   }
@@ -630,7 +613,7 @@ __global__ void __launch_bounds__(EPI_THREADS)
 
 // Scratch layout (f32 elements), shared by the size query and the launch.
 struct Layout {
-  size_t h, q, kn, vn, ao, x2, f, part, total;
+  size_t h, q, kn, vn, ao, x2, f, kst, vst, kss, vss, part, total;
 };
 
 inline size_t phase_part(bool w4, int K, int B, const int* N, int nseg,
@@ -640,9 +623,15 @@ inline size_t phase_part(bool w4, int K, int B, const int* N, int nseg,
   return (size_t)phase_ks(w4, K, N, nseg, cols) * B * width;
 }
 
-// w4: the layer's four matrices are int4 tiles (their GEMVs split as gemv4)
+// w4: the layer's four matrices are int4 tiles (their GEMVs split as
+// gemv4); nsplit: the attention's part count. The stored new rows (kst,
+// vst) take B * nkv * d floats each, room for T or int8 at every offset a
+// multiple of 8 floats (the widths are multiples of 8), so their rows
+// travel in 16-byte loads. The part region holds the GEMVs' partial sums
+// and, between the q/k/v epilogue and the o-proj GEMV, the attention's
+// parts: po (nsplit, B * nh, d), then pml (nsplit, B * nh, 2).
 inline Layout layout(int dtype, bool w4, int B, int hidden, int nh, int nkv,
-                     int d, int inter) {
+                     int d, int inter, int nsplit) {
   const int cols = cols_per_tile(dtype);
   Layout L;
   size_t o = 0;
@@ -653,6 +642,10 @@ inline Layout layout(int dtype, bool w4, int B, int hidden, int nh, int nkv,
   L.ao = o; o += (size_t)B * nh * d;
   L.x2 = o; o += (size_t)B * hidden;
   L.f = o;  o += (size_t)B * inter;
+  L.kst = o; o += (size_t)B * nkv * d;
+  L.vst = o; o += (size_t)B * nkv * d;
+  L.kss = o; o += (size_t)B * nkv;
+  L.vss = o; o += (size_t)B * nkv;
   L.part = o;
   const int nqkv[3] = {nh * d, nkv * d, nkv * d};
   const int no[1] = {hidden};
@@ -661,6 +654,7 @@ inline Layout layout(int dtype, bool w4, int B, int hidden, int nh, int nkv,
   p = std::max(p, phase_part(w4, nh * d, B, no, 1, cols));
   p = std::max(p, phase_part(w4, hidden, B, ngu, 2, cols));
   p = std::max(p, phase_part(w4, inter, B, no, 1, cols));
+  if (nsplit > 1) p = std::max(p, (size_t)nsplit * B * nh * (d + 2));
   L.total = o + p;
   return L;
 }
@@ -701,9 +695,9 @@ template <typename T, typename S, bool W4>
 int run(const T* x, const LayerWeights<T>& w, PoolRef<S> pools,
         const int* bt, const int* sl, const float* inv_freq, T* out,
         float* scratch, int dtype, int B, int hidden, int nh, int nkv, int d,
-        int inter, int num_pages, int page, int maxp, float eps, float scale,
-        cudaStream_t st) {
-  const Layout L = layout(dtype, W4, B, hidden, nh, nkv, d, inter);
+        int inter, int num_pages, int page, int maxp, int part_pages,
+        int nsplit, float eps, float scale, cudaStream_t st) {
+  const Layout L = layout(dtype, W4, B, hidden, nh, nkv, d, inter, nsplit);
   float* h = scratch + L.h;
   float* q = scratch + L.q;
   float* kn = scratch + L.kn;
@@ -734,17 +728,23 @@ int run(const T* x, const LayerWeights<T>& w, PoolRef<S> pools,
         P[0], P[1], P[2], ks, B, nh, nkv, d, sl, inv_freq, q, kn, vn);
     PTT_CHECK();
   }
-  // 2. paged attention with the new token folded in, then the pool append
+  // 2. append the new token's k/v, then attend over seq_lens + 1
   {
-    const size_t smem =
-        decode_smem_floats(nh / nkv, d, page) * sizeof(float);
-    cudaFuncSetAttribute(fused_attention_kernel<T, S>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    fused_attention_kernel<T, S><<<B * nkv, 128, smem, st>>>(
-        q, kn, vn, pools.kp, pools.vp, pools.ks, pools.vs, bt, sl, ao, nh,
-        nkv, d, num_pages, page, maxp, scale);
+    S* kst = reinterpret_cast<S*>(scratch + L.kst);
+    S* vst = reinterpret_cast<S*>(scratch + L.vst);
+    float* kss = scratch + L.kss;
+    float* vss = scratch + L.vss;
+    append_kv_kernel<T, S><<<B * nkv, APPEND_THREADS, 0, st>>>(
+        kn, vn, pools.kp, pools.vp, pools.ks, pools.vs, kst, vst, kss, vss,
+        bt, sl, nkv, d, num_pages, page, maxp);
     PTT_CHECK();
+    float* po = scratch + L.part;
+    float* pml = po + (size_t)nsplit * B * nh * d;
+    const DsCall<float, S> a{q, pools.kp, pools.vp, pools.ks, pools.vs,
+                             kst, vst, kss, vss, bt, sl, ao, po, pml, B, nh,
+                             nkv, d, num_pages, page, maxp, part_pages,
+                             nsplit, scale};
+    if ((rc = decode_split<float, S, true>(a, st))) return rc;
   }
   // 3. o-proj GEMV + residual
   {

@@ -1,11 +1,11 @@
 // Shared helpers for the port's Hopper kernels: element conversion, warp
-// reductions, the one-token decode-attention tile routine that
-// paged_attention.cu and the fused block decode kernels run, and the f32
-// causal prefill block routine that flash_prefill.cu and
-// paged_chunk_attention.cu run for fp32 (bf16 runs prefill_mma.cuh's
-// tensor-core routine). Every KV-reading routine is templated on the pool's storage type S:
-// the activation type (a native pool) or int8_t (an int8 pool, whose rows
-// carry one f32 scale each, dequantized as they enter shared memory).
+// reductions, and the f32 causal prefill block routine that
+// flash_prefill.cu and paged_chunk_attention.cu run for fp32 (bf16 runs
+// prefill_mma.cuh's tensor-core routine; one-token decode attention is
+// decode_split.cuh's). Every KV-reading routine is templated on the pool's
+// storage type S: the activation type (a native pool) or int8_t (an int8
+// pool, whose rows carry one f32 scale each, dequantized as they are
+// read).
 //
 // Every entry point is a plain C function (loaded with ctypes): it takes
 // raw device pointers and the caller's CUDA stream, launches, and returns
@@ -72,155 +72,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// ---------------------------------------------------------------------------
-// One-token decode attention for one (batch row, kv head) pair, the work of
-// one thread block. The block's `rep` query heads share every key/value row
-// it streams (GQA reads the pool unexpanded). State lives in shared memory:
-//   q   [rep][D]        query rows, pre-multiplied by the softmax scale
-//   k   [tile][D + 1]   current key tile (padded row: conflict-free dots)
-//   v   [tile][D]       current value tile
-//   s   [rep][tile]     scores, then probabilities
-//   acc [rep][D]        f32 output accumulator
-//   m, l, alpha [rep]   online-softmax running max, sum and rescale factor
-struct DecodeSmem {
-  float *q, *k, *v, *s, *acc, *m, *l, *alpha;
-};
-
-__host__ __device__ inline size_t decode_smem_floats(int rep, int D,
-                                                     int tile) {
-  return (size_t)rep * D + (size_t)tile * (D + 1) + (size_t)tile * D +
-         (size_t)rep * tile + (size_t)rep * D + 3 * (size_t)rep;
-}
-
-__device__ inline DecodeSmem decode_smem_carve(float* base, int rep, int D,
-                                               int tile) {
-  DecodeSmem sm;
-  sm.q = base;
-  sm.k = sm.q + rep * D;
-  sm.v = sm.k + tile * (D + 1);
-  sm.s = sm.v + tile * D;
-  sm.acc = sm.s + rep * tile;
-  sm.m = sm.acc + rep * D;
-  sm.l = sm.m + rep;
-  sm.alpha = sm.l + rep;
-  return sm;
-}
-
-// Load `n` consecutive (key, value) rows of width D into the tile; an int8
-// pool's rows with their scales ks/vs (one per row).
-template <typename S>
-__device__ inline void decode_load_rows(const DecodeSmem& sm, const S* k,
-                                        const S* v, const float* ks,
-                                        const float* vs, int n, int D) {
-  __syncthreads();  // the previous tile's readers are done
-  for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
-    int t = idx / D, d = idx - t * D;
-    sm.k[t * (D + 1) + d] = kv_load(k, ks, idx, t);
-    sm.v[t * D + d] = kv_load(v, vs, idx, t);
-  }
-  __syncthreads();
-}
-
-// Fold the first `n_valid` rows of the loaded tile into the online softmax.
-__device__ inline void decode_tile(const DecodeSmem& sm, int rep, int D,
-                                   int tile, int n_valid) {
-  for (int idx = threadIdx.x; idx < rep * tile; idx += blockDim.x) {
-    int h = idx / tile, t = idx - h * tile;
-    float s = NEG_INF;
-    if (t < n_valid) {
-      const float* qh = sm.q + h * D;
-      const float* kt = sm.k + t * (D + 1);
-      float a = 0.f;
-      for (int d = 0; d < D; ++d) a += qh[d] * kt[d];
-      s = a;
-    }
-    sm.s[idx] = s;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  for (int h = warp; h < rep; h += nw) {
-    float* sh = sm.s + h * tile;
-    float mx = NEG_INF;
-    for (int t = lane; t < tile; t += 32) mx = fmaxf(mx, sh[t]);
-    mx = warp_max(mx);
-    const float m_prev = sm.m[h];
-    float m_new = fmaxf(m_prev, mx);
-    if (m_new <= NEG_INF / 2) m_new = 0.f;  // fully masked so far
-    float sum = 0.f;
-    for (int t = lane; t < tile; t += 32) {
-      float p = expf(sh[t] - m_new);
-      sh[t] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    const float alpha = expf(m_prev - m_new);
-    __syncwarp();
-    if (lane == 0) {
-      sm.m[h] = m_new;
-      sm.l[h] = alpha * sm.l[h] + sum;
-      sm.alpha[h] = alpha;
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rep * D; idx += blockDim.x) {
-    int h = idx / D, d = idx - h * D;
-    const float* ph = sm.s + h * tile;
-    float a = sm.acc[idx] * sm.alpha[h];
-    for (int t = 0; t < n_valid; ++t) a += ph[t] * sm.v[t * D + d];
-    sm.acc[idx] = a;
-  }
-  __syncthreads();
-}
-
-// Initialise q (scaled), the accumulator and the softmax state.
-template <typename TQ>
-__device__ inline void decode_init(const DecodeSmem& sm, const TQ* q, int rep,
-                                   int D, float scale) {
-  for (int idx = threadIdx.x; idx < rep * D; idx += blockDim.x) {
-    sm.q[idx] = to_f(q[idx]) * scale;
-    sm.acc[idx] = 0.f;
-  }
-  for (int h = threadIdx.x; h < rep; h += blockDim.x) {
-    sm.m[h] = NEG_INF;
-    sm.l[h] = 0.f;
-    sm.alpha[h] = 1.f;
-  }
-  __syncthreads();
-}
-
-// Stream the first `len` tokens of one sequence's pages (kv head g); for an
-// int8 pool ks/vs are its (Hkv, P, page) row scales, else unused.
-template <typename S>
-__device__ inline void decode_pages(const DecodeSmem& sm, const S* kp,
-                                    const S* vp, const float* ks,
-                                    const float* vs, const int* bt_row,
-                                    int len, int g, int num_pages, int page,
-                                    int maxp, int rep, int D) {
-  int n_pages = (len + page - 1) / page;
-  if (n_pages > maxp) n_pages = maxp;
-  for (int j = 0; j < n_pages; ++j) {
-    const size_t row = ((size_t)g * num_pages + bt_row[j]) * page;
-    const int n_valid = min(page, len - j * page);
-    if constexpr (is_int8_pool<S>())
-      decode_load_rows(sm, kp + row * D, vp + row * D, ks + row, vs + row,
-                       n_valid, D);
-    else
-      decode_load_rows(sm, kp + row * D, vp + row * D, ks, vs, n_valid, D);
-    decode_tile(sm, rep, D, page, n_valid);
-  }
-}
-
-// out[h][d] = acc / l (a row with no visible token emits zeros).
-template <typename TO>
-__device__ inline void decode_emit(const DecodeSmem& sm, TO* out, int rep,
-                                   int D) {
-  for (int idx = threadIdx.x; idx < rep * D; idx += blockDim.x) {
-    const float l = sm.l[idx / D];
-    out[idx] = from_f<TO>(sm.acc[idx] / (l == 0.f ? 1.f : l));
-  }
 }
 
 // ---------------------------------------------------------------------------

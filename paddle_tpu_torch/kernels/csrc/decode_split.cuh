@@ -1,8 +1,8 @@
 // Split-KV (flash-decoding) one-token attention through block tables: the
-// routine paged_attention.cu (#2) runs. common.cuh's decode_pages, which
-// the fused decode kernels (#3, #5) still run, walks a sequence's pages in
-// one block through f32 shared memory; this routine spreads the walk over
-// many blocks and keeps every row in registers.
+// routine paged_attention.cu (#2) runs, and the attention phase of the fused
+// decode kernels (#3, #5; block_decode.cuh's run()). It spreads the walk
+// over a sequence's pages across many blocks and keeps every row in
+// registers.
 //
 // Grid: (batch row x kv head x head group, part). A part is `part_pages`
 // consecutive pages of the block table (about 256 keys); a block whose
@@ -10,6 +10,16 @@
 // (length 0) launches blocks that only exit. A block serves the RG query
 // heads of one group of its kv head (RG the power of two >= rep, at most
 // 8; rep > 8 takes several groups) from one read of each K/V row.
+//
+// A row's length is sl[b] + OWN, clamped to the table: a compile-time
+// length offset, 0 for #2 (whose code it leaves as it was) and 1 for the
+// fused decode, which also hands over the step's own token, just written
+// by its append kernel to the pool at position sl[b], as a row of its own
+// (kn/vn, with the int8 scales kns/vns; row b * Hkv + g): the key at
+// position sl[b] is read from there, not from the pool, so a row's output
+// depends on its own inputs only, even where idle rows' appends meet on
+// one slot of the null page. The values are the same bits the pool holds
+// (what a re-read gives, as the TPU kernel's _fake_quant_rows).
 //
 // Inside a block of DS_WARPS warps each half-warp (16 lanes) owns one key
 // row at a time: lane i holds elements [i EPL, (i + 1) EPL) of the row
@@ -21,10 +31,10 @@
 // xor shuffles within the half-warp, for each of the block's heads; q is
 // pre-multiplied in f32 by scale * log2 e, so the online softmax (m, l)
 // and the f32 accumulator (the lane's EPL elements of each head) use ex2
-// and stay in registers. The guards are decode_tile's: a max still <=
-// -1e30 / 2 reads as 0, a row with no key emits zeros. An int8 pool's
-// payload converts exactly to f32; the key scale multiplies the dot
-// product and the value scale the probability, both in f32.
+// and stay in registers. A max still <= -1e30 / 2 reads as 0, and a row
+// with no key emits zeros. An int8 pool's payload converts exactly to
+// f32; the key scale multiplies the dot product and the value scale the
+// probability, both in f32.
 //
 // The block then merges its 8 half-warps' states through shared memory
 // (max over the half-warps that saw a key, rescaled sums). With one part
@@ -32,6 +42,9 @@
 // and decode_split_merge_kernel, in the same call, merges the parts in
 // part order (deterministic; the merge reads the lengths on the device to
 // know which parts ran, so the host reads none).
+//
+// q and out are of type TQ: the activation type for #2, f32 for the fused
+// decode (its RoPE'd q and attention output live in its f32 scratch).
 //
 // Bound: bytes (one query token a head: 2 flops a key element). Tensor
 // cores are not used: one query row with rep <= 8 fills little of an m16
@@ -103,20 +116,24 @@ __device__ __forceinline__ float ds_half_sum(float v) {
 
 // One block: kv head g of batch row b, query heads h0 .. h0 + nh (nh <=
 // RG), keys of part `part` (of nsplit). q and out are (B, H, D); po and
-// pml (nsplit, B * H, D) and (nsplit, B * H, 2) for a split. scale2 =
-// scale * log2 e. DP: the padded head dim, 64 or 128.
-template <typename T, typename S, int DP, int RG>
+// pml (nsplit, B * H, D) and (nsplit, B * H, 2) for a split. kn, vn (B *
+// Hkv, D) and kns, vns (B * Hkv) hold the step's own rows when OWN (else
+// unused). scale2 = scale * log2 e. DP: the padded head dim, 64 or 128.
+template <typename TQ, typename S, int DP, int RG, bool OWN>
 __global__ void __launch_bounds__(DS_THREADS)
-    decode_split_kernel(const T* __restrict__ q, const S* __restrict__ kp,
+    decode_split_kernel(const TQ* __restrict__ q, const S* __restrict__ kp,
                         const S* __restrict__ vp,
                         const float* __restrict__ ks,
                         const float* __restrict__ vs,
+                        const S* __restrict__ kn, const S* __restrict__ vn,
+                        const float* __restrict__ kns,
+                        const float* __restrict__ vns,
                         const int* __restrict__ bt,
-                        const int* __restrict__ sl, T* __restrict__ out,
-                        float* __restrict__ po, float* __restrict__ pml,
-                        int B, int H, int Hkv, int D, int num_pages,
-                        int page, int maxp, int part_pages, float scale2,
-                        int vec) {
+                        const int* __restrict__ sl, TQ* __restrict__ out,
+                        float* __restrict__ po,
+                        float* __restrict__ pml, int B, int H, int Hkv,
+                        int D, int num_pages, int page, int maxp,
+                        int part_pages, float scale2, int vec) {
   constexpr int EPL = DP / DS_LANES;
   constexpr int C = ds_chunk<RG>();
   constexpr bool INT8 = is_int8_pool<S>();
@@ -129,7 +146,8 @@ __global__ void __launch_bounds__(DS_THREADS)
   const int g = bg % Hkv, b = bg / Hkv;
   const int h0 = g * rep + hg * RG, nh = min(RG, rep - hg * RG);
   const int part = blockIdx.y, nsplit = gridDim.y;
-  const int len = min(sl[b], maxp * page);
+  const int len = min(sl[b] + (OWN ? 1 : 0), maxp * page);
+  const size_t nrow = (size_t)b * Hkv + g;
   const int k0 = part * part_pages * page;
   const size_t qrow0 = (size_t)b * H + h0;
   if (k0 >= len) {
@@ -137,7 +155,7 @@ __global__ void __launch_bounds__(DS_THREADS)
     // block emits the row's zeros (an idle row)
     if (nsplit == 1)
       for (int i = threadIdx.x; i < nh * D; i += DS_THREADS)
-        out[qrow0 * D + i] = from_f<T>(0.f);
+        out[qrow0 * D + i] = from_f<TQ>(0.f);
     return;
   }
   const int nkeys = min(len, k0 + part_pages * page) - k0;
@@ -170,16 +188,28 @@ __global__ void __launch_bounds__(DS_THREADS)
     for (int c = 0; c < C; ++c) {
       const int t = base + c * DS_ROWS + hw;
       valid[c] = t < nkeys;
+      const S* krow = kp;
+      const S* vrow = vp;
+      const float* ksrc = ks;
+      const float* vsrc = vs;
       size_t row = 0;
       if (valid[c]) {
         const int pos = k0 + t, pg = pos / page;
-        row = (head_rows + btr[pg]) * page + (pos - pg * page);
+        if (OWN && pos == sl[b]) {
+          krow = kn;
+          vrow = vn;
+          ksrc = kns;
+          vsrc = vns;
+          row = nrow;
+        } else {
+          row = (head_rows + btr[pg]) * page + (pos - pg * page);
+        }
       }
-      ds_load(kr[c], kp + row * D, col0, D, vec, valid[c]);
-      ds_load(vr[c], vp + row * D, col0, D, vec, valid[c]);
+      ds_load(kr[c], krow + row * D, col0, D, vec, valid[c]);
+      ds_load(vr[c], vrow + row * D, col0, D, vec, valid[c]);
       if constexpr (INT8) {
-        ksc[c] = valid[c] ? ks[row] : 0.f;
-        vsc[c] = valid[c] ? vs[row] : 0.f;
+        ksc[c] = valid[c] ? ksrc[row] : 0.f;
+        vsc[c] = valid[c] ? vsrc[row] : 0.f;
       }
     }
 #pragma unroll
@@ -247,7 +277,7 @@ __global__ void __launch_bounds__(DS_THREADS)
       }
     const size_t row = qrow0 + r;
     if (nsplit == 1) {
-      out[row * D + d] = from_f<T>(L > 0.f ? O / L : 0.f);
+      out[row * D + d] = from_f<TQ>(L > 0.f ? O / L : 0.f);
     } else {
       const size_t pr = (size_t)part * B * H + row;
       po[pr * D + d] = O;
@@ -262,19 +292,20 @@ __global__ void __launch_bounds__(DS_THREADS)
 // Merge the parts decode_split_kernel left for each (batch row, head): out
 // = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s over the parts that ran
 // (those starting below the row's length), in part order; zeros for an
-// idle row. A warp a row.
-template <typename T>
+// idle row. A warp a row. The lengths are sl + OWN, as the split kernel
+// read them.
+template <typename TQ, bool OWN>
 __global__ void __launch_bounds__(128)
     decode_split_merge_kernel(const float* __restrict__ po,
                               const float* __restrict__ pml,
                               const int* __restrict__ sl,
-                              T* __restrict__ out, int B, int H, int D,
+                              TQ* __restrict__ out, int B, int H, int D,
                               int maxp, int page, int part_pages,
                               int nsplit) {
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= B * H) return;
-  const int len = min(sl[row / H], maxp * page);
+  const int len = min(sl[row / H] + (OWN ? 1 : 0), maxp * page);
   const int part_keys = part_pages * page;
   const int live = min(nsplit, (len + part_keys - 1) / part_keys);
   const size_t rows = (size_t)B * H;
@@ -292,8 +323,70 @@ __global__ void __launch_bounds__(128)
       const size_t pr = s * rows + row;
       a = fmaf(exp2f(pml[2 * pr] - M), po[pr * D + d], a);
     }
-    out[(size_t)row * D + d] = from_f<T>(a * inv);
+    out[(size_t)row * D + d] = from_f<TQ>(a * inv);
   }
+}
+
+// One call of the routine (host side): the split kernel, and with nsplit >
+// 1 the merge of the parts. kn .. vns: the step's own rows (OWN, the fused
+// decode), null for #2. po and pml: f32 scratch of (nsplit, B * H, D) and
+// (nsplit, B * H, 2) when nsplit > 1.
+template <typename TQ, typename S>
+struct DsCall {
+  const TQ* q;
+  const S *kp, *vp;
+  const float *ks, *vs;  // an int8 pool's row scales
+  const S *kn, *vn;
+  const float *kns, *vns;
+  const int *bt, *sl;
+  TQ* out;
+  float *po, *pml;
+  int B, H, Hkv, D, num_pages, page, maxp, part_pages, nsplit;
+  float scale;
+};
+
+template <typename TQ, typename S, bool OWN, int DP, int RG>
+int ds_launch(const DsCall<TQ, S>& a, cudaStream_t st) {
+  constexpr int U = ds_unit<DP / DS_LANES, S>();
+  const bool vec = a.D == DP && (uintptr_t)a.kp % U == 0 &&
+                   (uintptr_t)a.vp % U == 0 && (uintptr_t)a.kn % U == 0 &&
+                   (uintptr_t)a.vn % U == 0;
+  const int ng = (a.H / a.Hkv + RG - 1) / RG;
+  const dim3 grid(a.B * a.Hkv * ng, a.nsplit);
+  decode_split_kernel<TQ, S, DP, RG, OWN><<<grid, DS_THREADS, 0, st>>>(
+      a.q, a.kp, a.vp, a.ks, a.vs, a.kn, a.vn, a.kns, a.vns, a.bt, a.sl,
+      a.out, a.po, a.pml, a.B, a.H, a.Hkv, a.D, a.num_pages, a.page, a.maxp,
+      a.part_pages, a.scale * 1.4426950408889634f, (int)vec);
+  if (a.nsplit > 1)
+    decode_split_merge_kernel<TQ, OWN><<<(a.B * a.H + 3) / 4, 128, 0, st>>>(
+        a.po, a.pml, a.sl, a.out, a.B, a.H, a.D, a.maxp, a.page,
+        a.part_pages, a.nsplit);
+  return (int)cudaGetLastError();
+}
+
+// the head group: the power of two >= rep, at most 8
+template <typename TQ, typename S, bool OWN, int DP>
+int ds_launch_dp(const DsCall<TQ, S>& a, cudaStream_t st) {
+  const int rep = a.H / a.Hkv;
+  if (rep == 1) return ds_launch<TQ, S, OWN, DP, 1>(a, st);
+  if (rep == 2) return ds_launch<TQ, S, OWN, DP, 2>(a, st);
+  if (rep <= 4) return ds_launch<TQ, S, OWN, DP, 4>(a, st);
+  return ds_launch<TQ, S, OWN, DP, 8>(a, st);
+}
+
+// the padded head dim: 64 or 128 (D <= 128)
+template <typename TQ, typename S, bool OWN>
+int decode_split(const DsCall<TQ, S>& a, cudaStream_t st) {
+  return a.D <= 64 ? ds_launch_dp<TQ, S, OWN, 64>(a, st)
+                   : ds_launch_dp<TQ, S, OWN, 128>(a, st);
+}
+
+// What a DsCall's split must satisfy: D <= 128 and parts that cover the
+// table.
+inline bool ds_split_ok(int D, int maxp, int part_pages, int nsplit) {
+  return D >= 1 && D <= 128 && maxp >= 1 && part_pages >= 1 &&
+         nsplit >= 1 && nsplit <= 65535 &&
+         (long long)nsplit * part_pages >= maxp;
 }
 
 }  // namespace ptt

@@ -14,28 +14,38 @@
 //
 // Design: Hopper blocks run in no order, so the single grid of phases
 // becomes one C entry point that launches the phases in order on the
-// caller's stream (block_decode.cuh's run(): rms, q/k/v GEMVs + RoPE, paged
-// attention with the new token folded in and appended, o-proj + residual,
-// rms, gate/up GEMVs + SwiGLU, down + residual), with the activations in an
-// f32 scratch buffer the wrapper allocates. The GEMVs split the contraction
-// over blocks and reduce the partial sums in a fixed order. A persistent or
-// cluster-fused single kernel is later work.
+// caller's stream (block_decode.cuh's run(): rms, q/k/v GEMVs + RoPE, the
+// append of the new token's k/v to the pool, paged attention over
+// seq_lens + 1, o-proj + residual, rms, gate/up GEMVs + SwiGLU, down +
+// residual), with the activations in an f32 scratch buffer the wrapper
+// allocates. The GEMVs split the contraction over blocks and reduce the
+// partial sums in a fixed order. The attention is decode_split.cuh's
+// split-KV routine, the one #2 runs: blocks over (row, kv head, head
+// group, part of the table), parts merged in part order, the part count
+// (part_pages, nsplit) chosen by the wrapper from the shapes alone; the
+// step's own key is read from the append kernel's scratch row, so idle
+// rows that share the null page stay apart. The first version walked each
+// row's pages in series in one block of 128 threads through f32 shared
+// memory: at serve_long's contexts that phase took 88 % of a decode step
+// (PERF.md). A persistent or cluster-fused single kernel is later work.
 //
 // int8 pools (the TPU kernel's `kv_quant` branch): the entry takes the
-// payloads and their f32 row scales (kv = KV_INT8); the attention kernel
-// reads them dequantizing as they enter shared memory, quantizes the new
-// token's k/v row with the plain version's arithmetic, attends to its
-// dequantized value (what the TPU kernel's _fake_quant_rows gives) and
-// writes payload and scale into the pool.
+// payloads and their f32 row scales (kv = KV_INT8); the append kernel
+// quantizes the new token's k/v row with the plain version's arithmetic
+// and writes payload and scale; the attention reads the payloads and
+// scales in registers, the new row at the value a re-read of the pool
+// gives (the TPU kernel's _fake_quant_rows).
 #include "block_decode.cuh"
 
 // w4 is the N-layer kernel's int4 flag; the one-layer kernel takes native
-// weights only (as the TPU kernel), so its callers pass 0.
+// weights only (as the TPU kernel), so its callers pass 0. nsplit: the
+// attention's part count.
 PTT_EXPORT long long ptt_fused_block_decode_scratch(int dtype, int w4, int B,
                                                     int hidden, int nh,
-                                                    int nkv, int d,
-                                                    int inter) {
-  return (long long)ptt::layout(dtype, w4 != 0, B, hidden, nh, nkv, d, inter)
+                                                    int nkv, int d, int inter,
+                                                    int nsplit) {
+  return (long long)ptt::layout(dtype, w4 != 0, B, hidden, nh, nkv, d, inter,
+                                nsplit)
       .total;
 }
 
@@ -45,8 +55,9 @@ template <typename T, typename S>
 int run_one(const void* x, const void* const* wp, void* const* pp,
             const int* bt, const int* sl, const float* inv, void* out,
             float* scratch, int dtype, int B, int hidden, int nh, int nkv,
-            int d, int inter, int num_pages, int page, int maxp, float eps,
-            float scale, cudaStream_t st) {
+            int d, int inter, int num_pages, int page, int maxp,
+            int part_pages, int nsplit, float eps, float scale,
+            cudaStream_t st) {
   LayerWeights<T> w;
   w.ln1 = (const T*)wp[0];
   w.wq = (const T*)wp[1];
@@ -63,38 +74,45 @@ int run_one(const void* x, const void* const* wp, void* const* pp,
   const PoolRef<S> pools{(S*)pp[0], (S*)pp[1], (float*)pp[2], (float*)pp[3]};
   return run<T, S, false>((const T*)x, w, pools, bt, sl, inv, (T*)out,
                           scratch, dtype, B, hidden, nh, nkv, d, inter,
-                          num_pages, page, maxp, eps, scale, st);
+                          num_pages, page, maxp, part_pages, nsplit, eps,
+                          scale, st);
 }
 
 template <typename T>
 int run_kv(int kv, const void* x, const void* const* wp, void* const* pp,
            const int* bt, const int* sl, const float* inv, void* out,
            float* scratch, int dtype, int B, int hidden, int nh, int nkv,
-           int d, int inter, int num_pages, int page, int maxp, float eps,
-           float scale, cudaStream_t st) {
+           int d, int inter, int num_pages, int page, int maxp,
+           int part_pages, int nsplit, float eps, float scale,
+           cudaStream_t st) {
   if (kv == KV_INT8)
     return run_one<T, int8_t>(x, wp, pp, bt, sl, inv, out, scratch, dtype, B,
                               hidden, nh, nkv, d, inter, num_pages, page,
-                              maxp, eps, scale, st);
+                              maxp, part_pages, nsplit, eps, scale, st);
   if (kv == KV_NATIVE)
     return run_one<T, T>(x, wp, pp, bt, sl, inv, out, scratch, dtype, B,
                          hidden, nh, nkv, d, inter, num_pages, page, maxp,
-                         eps, scale, st);
+                         part_pages, nsplit, eps, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ptt
 
 // kv: KV_NATIVE (ks, vs unused) or KV_INT8 (int8 payloads kp, vp with f32
-// row scales ks, vs)
+// row scales ks, vs). The attention's walk: nsplit parts of part_pages
+// pages, covering the table; scratch as ptt_fused_block_decode_scratch
+// sizes it for nsplit.
 PTT_EXPORT int ptt_fused_block_decode(
     int dtype, int kv, const void* x, const void* ln1, const void* wq,
     const void* wk, const void* wv, const void* wo, const void* ln2,
     const void* wg, const void* wu, const void* wd, void* kp, void* vp,
     void* ks, void* vs, const void* bt, const void* sl, const void* inv_freq,
     void* out, void* scratch, int B, int hidden, int nh, int nkv, int d,
-    int inter, int num_pages, int page, int maxp, float eps, float scale,
-    void* stream) {
+    int inter, int num_pages, int page, int maxp, int part_pages, int nsplit,
+    float eps, float scale, void* stream) {
+  if (B < 1 || nkv < 1 || nh % nkv || page < 1 ||
+      !ptt::ds_split_ok(d, maxp, part_pages, nsplit))
+    return (int)cudaErrorInvalidValue;
   const void* const wp[9] = {ln1, wq, wk, wv, wo, ln2, wg, wu, wd};
   void* const pp[4] = {kp, vp, ks, vs};
   cudaStream_t st = (cudaStream_t)stream;
@@ -105,10 +123,11 @@ PTT_EXPORT int ptt_fused_block_decode(
   if (dtype == ptt::DT_BF16)
     return ptt::run_kv<__nv_bfloat16>(kv, x, wp, pp, bti, sli, inv, out, scr,
                                       dtype, B, hidden, nh, nkv, d, inter,
-                                      num_pages, page, maxp, eps, scale, st);
+                                      num_pages, page, maxp, part_pages,
+                                      nsplit, eps, scale, st);
   if (dtype == ptt::DT_F32)
     return ptt::run_kv<float>(kv, x, wp, pp, bti, sli, inv, out, scr, dtype,
                               B, hidden, nh, nkv, d, inter, num_pages, page,
-                              maxp, eps, scale, st);
+                              maxp, part_pages, nsplit, eps, scale, st);
   return (int)cudaErrorInvalidValue;
 }

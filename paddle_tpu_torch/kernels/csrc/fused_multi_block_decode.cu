@@ -16,37 +16,40 @@
 // the caller's stream with block_decode.cuh's run(), the same device code
 // as the one-layer kernel: f32 rms; one merged GEMV launch over the layer's
 // slice of wqkv (q, k and v as three column ranges of one matrix, read with
-// its row stride); RoPE at each slot's position; paged attention with the
-// step's own token folded in from registers, which then appends the new k/v
-// to the layer's pool at seq_lens inside the attention kernel (an idle
-// slot's all-zero block table sends its row to the null page); o-GEMV +
-// residual; rms; one merged GEMV over wgu; silu * up; down-GEMV + residual;
-// the cast to x's dtype, which the next layer reads back as its f32 carry.
-// Each output column of a merged GEMV is reduced with the split and order
-// of the one-layer kernel's separate GEMV, so a group's step equals N
-// one-layer launches bit for bit. The N per-layer pools arrive as a host
-// array of 2N pointers (k0, v0, k1, v1, ...): the entry launches every
-// layer's kernels itself, so each layer's attention kernel gets its pools
-// as pointer parameters, as the one-layer kernel's does (the TPU kernel
-// needed a table because one pallas_call covered all N layers). A
-// persistent single kernel across the group (clusters, distributed shared
-// memory) is later work.
+// its row stride); RoPE at each slot's position; the append of the new
+// k/v to the layer's pool at seq_lens (an idle slot's all-zero block table
+// sends its row to the null page), then decode_split.cuh's split-KV
+// attention over seq_lens + 1, which reads the step's own key from the
+// append's scratch row; o-GEMV + residual; rms; one merged GEMV over wgu;
+// silu * up; down-GEMV + residual; the cast to x's dtype, which the next
+// layer reads back as its f32 carry. Each output column of a merged GEMV
+// is reduced with the split and order of the one-layer kernel's separate
+// GEMV, and the attention's part count is the one-layer wrapper's (a
+// function of the same shapes), so a group's step equals N one-layer
+// launches bit for bit. The N per-layer pools arrive as a host array of
+// pointers (below): the entry launches every layer's kernels itself, so
+// each layer's append and attention kernels get its pools as pointer
+// parameters, as the one-layer kernel's do (the TPU kernel needed a table
+// because one pallas_call covered all N layers). A persistent single
+// kernel across the group (clusters, distributed shared memory) is later
+// work.
 //
 // The quantized branches of the TPU kernel (`kv_quant`, `wt_quant`), chosen
 // per call: int8 pools arrive as 4N pointers (k, v, k-scale, v-scale per
 // layer; a native pool's scales are 0), each layer's four handed to its
-// attention launch as pointer parameters; int4 weights arrive as the four
-// merged matrices' packed payloads (the native weight pointers) with their
-// tile scales and tiles (tr, tc), and every GEMV of the group streams the
-// packed bytes (block_decode.cuh's gemv4). The bound then drops to the
-// packed bytes: Llama-2-7B layers at 4 bits a weight, ~101 MB a layer.
+// append and attention launches as pointer parameters; int4 weights arrive
+// as the four merged matrices' packed payloads (the native weight
+// pointers) with their tile scales and tiles (tr, tc), and every GEMV of
+// the group streams the packed bytes (block_decode.cuh's gemv4). The bound
+// then drops to the packed bytes: Llama-2-7B layers at 4 bits a weight,
+// ~101 MB a layer.
 #include "block_decode.cuh"
 
-PTT_EXPORT long long ptt_fused_multi_block_decode_scratch(int dtype, int w4,
-                                                          int B, int hidden,
-                                                          int nh, int nkv,
-                                                          int d, int inter) {
-  return (long long)ptt::layout(dtype, w4 != 0, B, hidden, nh, nkv, d, inter)
+PTT_EXPORT long long ptt_fused_multi_block_decode_scratch(
+    int dtype, int w4, int B, int hidden, int nh, int nkv, int d, int inter,
+    int nsplit) {
+  return (long long)ptt::layout(dtype, w4 != 0, B, hidden, nh, nkv, d, inter,
+                                nsplit)
       .total;
 }
 
@@ -69,8 +72,8 @@ int run_group(const void* x, const void* ln1, const void* wqkv,
               void* const* pools, const int* bt, const int* sl,
               const float* inv, void* out, float* scratch, int dtype,
               int n_layers, int B, int hidden, int nh, int nkv, int d,
-              int inter, int num_pages, int page, int maxp, float eps,
-              float scale, cudaStream_t st) {
+              int inter, int num_pages, int page, int maxp, int part_pages,
+              int nsplit, float eps, float scale, cudaStream_t st) {
   const int qw = nh * d, kvw = nkv * d, qkvw = qw + 2 * kvw;
   for (int i = 0; i < n_layers; ++i) {
     LayerWeights<T> w = {};
@@ -99,7 +102,8 @@ int run_group(const void* x, const void* ln1, const void* wqkv,
     const T* xi = i == 0 ? (const T*)x : (const T*)out;
     const int rc = run<T, S, W4>(xi, w, pool, bt, sl, inv, (T*)out, scratch,
                                  dtype, B, hidden, nh, nkv, d, inter,
-                                 num_pages, page, maxp, eps, scale, st);
+                                 num_pages, page, maxp, part_pages, nsplit,
+                                 eps, scale, st);
     if (rc) return rc;
   }
   return 0;
@@ -114,12 +118,14 @@ int run_variant(int kv, int w4, const void* x, const void* ln1,
                 const int* sl, const float* inv, void* out, float* scratch,
                 int dtype, int n_layers, int B, int hidden, int nh, int nkv,
                 int d, int inter, int num_pages, int page, int maxp,
-                float eps, float scale, cudaStream_t st) {
+                int part_pages, int nsplit, float eps, float scale,
+                cudaStream_t st) {
 #define PTT_GROUP(S, W4)                                                    \
   return run_group<T, S, W4>(x, ln1, wqkv, wo, ln2, wgu, wd, wsc, tiles,   \
                              pools, bt, sl, inv, out, scratch, dtype,      \
                              n_layers, B, hidden, nh, nkv, d, inter,       \
-                             num_pages, page, maxp, eps, scale, st)
+                             num_pages, page, maxp, part_pages, nsplit,    \
+                             eps, scale, st)
   if (kv == KV_NATIVE && !w4) PTT_GROUP(T, false);
   if (kv == KV_NATIVE && w4) PTT_GROUP(T, true);
   if (kv == KV_INT8 && !w4) PTT_GROUP(int8_t, false);
@@ -133,7 +139,9 @@ int run_variant(int kv, int w4, const void* x, const void* ln1,
 // kv: KV_NATIVE or KV_INT8 (pools: 4N pointers k, v, k-scale, v-scale per
 // layer). w4: wqkv, wo, wgu and wd are int4 payloads (uint8) with f32 tile
 // scales sqkv, so, sgu, sd and tiles (tr, tc) x 4, host ints; otherwise
-// native and the scales and tiles are unused.
+// native and the scales and tiles are unused. The attention's walk:
+// nsplit parts of part_pages pages, covering the table; scratch as
+// ptt_fused_multi_block_decode_scratch sizes it for nsplit.
 PTT_EXPORT int ptt_fused_multi_block_decode(
     int dtype, int kv, int w4, const void* x, const void* ln1,
     const void* wqkv, const void* wo, const void* ln2, const void* wgu,
@@ -141,15 +149,17 @@ PTT_EXPORT int ptt_fused_multi_block_decode(
     const void* sd, const int* tiles, void* const* pools, const void* bt,
     const void* sl, const void* inv_freq, void* out, void* scratch,
     int n_layers, int B, int hidden, int nh, int nkv, int d, int inter,
-    int num_pages, int page, int maxp, float eps, float scale,
-    void* stream) {
+    int num_pages, int page, int maxp, int part_pages, int nsplit, float eps,
+    float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* bti = (const int*)bt;
   const int* sli = (const int*)sl;
   const float* inv = (const float*)inv_freq;
   float* scr = (float*)scratch;
   const void* const wsc[4] = {sqkv, so, sgu, sd};
-  if (n_layers < 1) return (int)cudaErrorInvalidValue;
+  if (n_layers < 1 || B < 1 || nkv < 1 || nh % nkv || page < 1 ||
+      !ptt::ds_split_ok(d, maxp, part_pages, nsplit))
+    return (int)cudaErrorInvalidValue;
   if (w4) {
     for (int m = 0; m < 4; ++m)
       if (tiles[2 * m] < 2 || tiles[2 * m] % 2 || tiles[2 * m + 1] < 1)
@@ -159,11 +169,11 @@ PTT_EXPORT int ptt_fused_multi_block_decode(
     return ptt::run_variant<__nv_bfloat16>(
         kv, w4, x, ln1, wqkv, wo, ln2, wgu, wd, wsc, tiles, pools, bti, sli,
         inv, out, scr, dtype, n_layers, B, hidden, nh, nkv, d, inter,
-        num_pages, page, maxp, eps, scale, st);
+        num_pages, page, maxp, part_pages, nsplit, eps, scale, st);
   if (dtype == ptt::DT_F32)
     return ptt::run_variant<float>(
         kv, w4, x, ln1, wqkv, wo, ln2, wgu, wd, wsc, tiles, pools, bti, sli,
         inv, out, scr, dtype, n_layers, B, hidden, nh, nkv, d, inter,
-        num_pages, page, maxp, eps, scale, st);
+        num_pages, page, maxp, part_pages, nsplit, eps, scale, st);
   return (int)cudaErrorInvalidValue;
 }

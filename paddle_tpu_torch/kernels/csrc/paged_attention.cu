@@ -21,10 +21,12 @@
 // only (paged_attention.decode_splits: the table's width, the page size
 // and the SM count), so the host reads no length. Blocks past a row's
 // length exit at once; an idle row (seq_len 0) emits zeros, and an idle
-// slot's all-zero block table is never read past its length. The first
-// version (one block per (row, kv head) walking its pages in series through
-// f32 shared memory, common.cuh's decode_pages, which the fused decode
-// kernels #3 and #5 still run) took 0.293 ms at chip_smoke's shape in bf16;
+// slot's all-zero block table is never read past its length. The fused
+// decode kernels (#3, #5) run the same routine with their own q and
+// output types and a length offset of 1 (decode_split.cuh's OWN); here
+// the offset is 0. The first version (one block per (row, kv head) walking its
+// pages in series through f32 shared memory) took 0.293 ms at chip_smoke's
+// shape in bf16;
 // this one takes 0.0155 ms of device time there (SDPA over the gathered
 // pool 0.031) and 0.071 ms at serve_long's contexts against the 0.0435 ms
 // bound (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, PERF.md). A
@@ -40,59 +42,18 @@
 
 namespace ptt {
 
-template <typename T, typename S, int DP, int RG>
-int launch_rg(const void* q, const void* kp, const void* vp, const void* ks,
-              const void* vs, const int* bt, const int* sl, void* out,
-              float* po, float* pml, int B, int H, int Hkv, int D,
-              int num_pages, int page, int maxp, int part_pages, int nsplit,
-              float scale, cudaStream_t stream) {
-  constexpr int U = ds_unit<DP / DS_LANES, S>();
-  const bool vec = D == DP && (uintptr_t)kp % U == 0 &&
-                   (uintptr_t)vp % U == 0;
-  const int ng = (H / Hkv + RG - 1) / RG;
-  dim3 grid(B * Hkv * ng, nsplit);
-  decode_split_kernel<T, S, DP, RG><<<grid, DS_THREADS, 0, stream>>>(
-      (const T*)q, (const S*)kp, (const S*)vp, (const float*)ks,
-      (const float*)vs, bt, sl, (T*)out, po, pml, B, H, Hkv, D, num_pages,
-      page, maxp, part_pages, scale * 1.4426950408889634f, (int)vec);
-  if (nsplit > 1)
-    decode_split_merge_kernel<T><<<(B * H + 3) / 4, 128, 0, stream>>>(
-        po, pml, sl, (T*)out, B, H, D, maxp, page, part_pages, nsplit);
-  return (int)cudaGetLastError();
-}
-
-// the head group: the power of two >= rep, at most 8
-template <typename T, typename S, int DP>
-int launch_dp(int rep, const void* q, const void* kp, const void* vp,
-              const void* ks, const void* vs, const int* bt, const int* sl,
-              void* out, float* po, float* pml, int B, int H, int Hkv, int D,
-              int num_pages, int page, int maxp, int part_pages, int nsplit,
-              float scale, cudaStream_t st) {
-#define PTT_DS_RG(RG)                                                      \
-  return launch_rg<T, S, DP, RG>(q, kp, vp, ks, vs, bt, sl, out, po, pml,  \
-                                 B, H, Hkv, D, num_pages, page, maxp,      \
-                                 part_pages, nsplit, scale, st)
-  if (rep == 1) PTT_DS_RG(1);
-  if (rep == 2) PTT_DS_RG(2);
-  if (rep <= 4) PTT_DS_RG(4);
-  PTT_DS_RG(8);
-#undef PTT_DS_RG
-}
-
 template <typename T, typename S>
 int launch(const void* q, const void* kp, const void* vp, const void* ks,
            const void* vs, const int* bt, const int* sl, void* out,
            float* po, float* pml, int B, int H, int Hkv, int D,
            int num_pages, int page, int maxp, int part_pages, int nsplit,
            float scale, cudaStream_t st) {
-  const int rep = H / Hkv;
-  if (D <= 64)
-    return launch_dp<T, S, 64>(rep, q, kp, vp, ks, vs, bt, sl, out, po, pml,
-                               B, H, Hkv, D, num_pages, page, maxp,
-                               part_pages, nsplit, scale, st);
-  return launch_dp<T, S, 128>(rep, q, kp, vp, ks, vs, bt, sl, out, po, pml,
-                              B, H, Hkv, D, num_pages, page, maxp,
-                              part_pages, nsplit, scale, st);
+  const DsCall<T, S> a{(const T*)q, (const S*)kp, (const S*)vp,
+                       (const float*)ks, (const float*)vs, nullptr,
+                       nullptr, nullptr, nullptr, bt, sl, (T*)out, po, pml,
+                       B, H, Hkv, D, num_pages, page, maxp, part_pages,
+                       nsplit, scale};
+  return decode_split<T, S, false>(a, st);
 }
 
 template <typename T>
@@ -127,9 +88,8 @@ PTT_EXPORT int ptt_paged_attention(int dtype, int kv, const void* q,
                                    int Hkv, int D, int num_pages, int page,
                                    int maxp, int part_pages, int nsplit,
                                    float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || H % Hkv || D < 1 || D > 128 || page < 1 ||
-      maxp < 1 || part_pages < 1 || nsplit < 1 || nsplit > 65535 ||
-      (long long)nsplit * part_pages < maxp ||
+  if (B < 1 || Hkv < 1 || H % Hkv || page < 1 ||
+      !ptt::ds_split_ok(D, maxp, part_pages, nsplit) ||
       (nsplit > 1 && (po == nullptr || pml == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

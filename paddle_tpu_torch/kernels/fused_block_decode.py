@@ -5,19 +5,22 @@ Counterpart of ``paddle_tpu/kernels/fused_block_decode.py`` (native or
 int8 pools, native or int4 stacked weights; the tensor-parallel entries
 are a later slice).
 :func:`fused_block_decode` runs rms -> q/k/v -> RoPE at each slot's
-position -> paged attention with the new token folded in -> o-proj +
-residual -> rms -> SwiGLU -> down + residual, and appends the new token's
-k/v to the pool. On a CUDA tensor it is one call of the C entry in
+position -> the append of the new token's k/v to the pool -> paged
+attention over ``seq_lens + 1`` -> o-proj + residual -> rms -> SwiGLU ->
+down + residual. On a CUDA tensor it is one call of the C entry in
 ``csrc/fused_block_decode.cu``, which launches those phases in order with
-hand-written GEMVs; on a CPU tensor it is :func:`fused_block_decode_ref`.
+hand-written GEMVs and the split-KV attention routine that
+:func:`~.paged_attention.paged_attention` runs (its parts from
+:func:`~.paged_attention.decode_split_plan`, a function of the shapes
+only); on a CPU tensor it is :func:`fused_block_decode_ref`.
 :func:`fused_multi_block_decode` runs that chain for a group of layers
 whose weights :func:`stack_block_weights` stacked (q|k|v and gate|up
 merged), one call of ``csrc/fused_multi_block_decode.cu`` per group; with
 ``weight_dtype="int4"`` the four stacked matrices are :class:`Int4Tiles`
 (two int4 values a byte, one f32 scale per tile), unpacked inside the
 kernel's GEMVs. On an int8 pool (:class:`QuantizedPages`) both kernels
-quantize the new token's k/v row in the kernel, attend to its dequantized
-value and append payload and scale to the pool.
+quantize the new token's k/v row in the kernel, append payload and scale
+to the pool and attend to its dequantized value.
 
 Weights keep the JAX package's ``(in, out)`` Linear layout, so a layer's
 :class:`BlockDecodeWeights` carry across unchanged.
@@ -33,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .paged_attention import (_check_index, _check_pools, _pool_ptrs,
+from .paged_attention import (_MAX_HEAD_DIM, _check_index, _check_pools,
+                              _pool_ptrs, decode_split_plan,
                               paged_attention_ref, write_paged_kv)
 
 __all__ = ["BlockDecodeWeights", "Int4Tiles", "MultiBlockDecodeWeights",
@@ -123,8 +127,8 @@ def fused_block_decode_ref(x, weights: BlockDecodeWeights, k_pages, v_pages,
 
 
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 19
-             + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-_SCRATCH_ARGTYPES = [ctypes.c_int] * 8
+             + [ctypes.c_int] * 11 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 9
 _inv_freq_cache: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
 
 
@@ -150,13 +154,17 @@ def _check_weights(weights, shapes, device, dtype):
 
 
 def _check_geometry(what, x, nh, nkv, d, hidden, inter):
-    """What both kernels take: even head_dim, widths that are multiples of
-    8 (16-byte weight rows), a contiguous float32 or bfloat16 x."""
+    """What both kernels take: even head_dim <= 128, widths that are
+    multiples of 8 (16-byte weight rows), a contiguous float32 or bfloat16
+    x."""
     if nh % nkv:
         raise ValueError(f"query heads {nh} not divisible by kv heads {nkv}")
     if d % 2 or any(n % 8 for n in (hidden, nh * d, nkv * d, inter)):
         raise ValueError(f"{what} needs even head_dim and widths that are "
                          "multiples of 8")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head_dim {d} > {_MAX_HEAD_DIM} is not "
+                         "supported")
     if not x.is_contiguous() or x.dtype not in (torch.float32,
                                                 torch.bfloat16):
         raise ValueError("x must be contiguous float32 or bfloat16")
@@ -176,7 +184,10 @@ def fused_block_decode(x, weights: BlockDecodeWeights, k_pages, v_pages,
     ``(out, k_pages, v_pages)`` with the new token appended to the pools in
     place. CPU tensors take :func:`fused_block_decode_ref`; CUDA tensors
     run the kernel (float32 or bfloat16, every width a multiple of 8,
-    head_dim even)."""
+    head_dim even and <= 128). The kernel writes nothing past a block
+    table: a row whose table is full (``seq_lens == max_pages * page``,
+    which the plain version does not take and the engine never sends) is
+    not appended and attends to its table's tokens only."""
     if x.device.type == "cpu":
         return fused_block_decode_ref(
             x, weights, k_pages, v_pages, block_tables, seq_lens,
@@ -206,10 +217,12 @@ def fused_block_decode(x, weights: BlockDecodeWeights, k_pages, v_pages,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     inv = _cached_inv_freq(d, rope_theta, x.device)
+    part_pages, nsplit = decode_split_plan(
+        b, nh, nkv, maxp, page, _build.sm_count(x.device.index or 0))
     code = _build.dtype_code(x.dtype)
     size = _build.bind("fused_block_decode", "ptt_fused_block_decode_scratch",
                        _SCRATCH_ARGTYPES, ctypes.c_longlong)(
-        code, 0, b, hidden, nh, nkv, d, inter)
+        code, 0, b, hidden, nh, nkv, d, inter, nsplit)
     scratch = torch.empty(size, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     fn = _build.bind("fused_block_decode", "ptt_fused_block_decode",
@@ -219,7 +232,7 @@ def fused_block_decode(x, weights: BlockDecodeWeights, k_pages, v_pages,
             *_pool_ptrs(k_pages, v_pages, quant), block_tables.data_ptr(),
             seq_lens.data_ptr(), inv.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), b, hidden, nh, nkv, d, inter, num_pages,
-            page, maxp, float(epsilon), float(sm_scale),
+            page, maxp, part_pages, nsplit, float(epsilon), float(sm_scale),
             _build.stream_handle(x.device))
     _build.check(rc, "fused_block_decode")
     _build.count(fused_block_decode, "int8" if quant else "")
@@ -432,7 +445,7 @@ def fused_multi_block_decode_ref(x, weights: MultiBlockDecodeWeights,
 
 
 _MULTI_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 18
-                   + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 12 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
 _INT4_MATS = ("wqkv", "wo", "wgu", "wd")
 
@@ -481,8 +494,11 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
     pools. Returns ``(out, k_pages, v_pages)`` with each layer's new token
     appended to its pools in place. CPU tensors take
     :func:`fused_multi_block_decode_ref`; CUDA tensors run the kernel
-    (float32 or bfloat16, every width a multiple of 8, head_dim even), one
-    launch a group."""
+    (float32 or bfloat16, every width a multiple of 8, head_dim even and
+    <= 128), one launch a group, with the one-layer kernel's attention
+    parts, so a group's step equals N :func:`fused_block_decode` calls bit
+    for bit. As there, a row whose table is full is not appended and
+    attends to its table's tokens only."""
     if x.device.type == "cpu":
         return fused_multi_block_decode_ref(
             x, weights, k_pages, v_pages, block_tables, seq_lens,
@@ -530,6 +546,8 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     inv = _cached_inv_freq(d, rope_theta, x.device)
+    part_pages, nsplit = decode_split_plan(
+        b, nh, nkv, maxp, page, _build.sm_count(x.device.index or 0))
     # the 4N pool pointers (k0, v0, k-scale0, v-scale0, k1, ...; a native
     # pool's scales are 0) as a host array: the entry hands each layer's
     # four to that layer's attention launch
@@ -540,7 +558,7 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
     size = _build.bind("fused_multi_block_decode",
                        "ptt_fused_multi_block_decode_scratch",
                        _SCRATCH_ARGTYPES, ctypes.c_longlong)(
-        code, int(int4), b, hidden, nh, nkv, d, inter)
+        code, int(int4), b, hidden, nh, nkv, d, inter, nsplit)
     scratch = torch.empty(size, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     mats = [getattr(weights, k) for k in MultiBlockDecodeWeights._fields]
@@ -551,8 +569,8 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
               for t in mats), *scales, (ctypes.c_int * 8)(*tiles),
             pools, block_tables.data_ptr(), seq_lens.data_ptr(),
             inv.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, b, hidden,
-            nh, nkv, d, inter, num_pages, page, maxp, float(epsilon),
-            float(sm_scale), _build.stream_handle(x.device))
+            nh, nkv, d, inter, num_pages, page, maxp, part_pages, nsplit,
+            float(epsilon), float(sm_scale), _build.stream_handle(x.device))
     _build.check(rc, "fused_multi_block_decode")
     _build.count(fused_multi_block_decode,
                  "_".join(t for t, on in (("int8", quant), ("int4", int4))

@@ -256,6 +256,16 @@ def decode_splits(blocks: int, maxp: int, page: int, sms: int
     return part, -(-maxp // part)
 
 
+def decode_split_plan(b: int, h: int, hkv: int, maxp: int, page: int,
+                      sms: int) -> Tuple[int, int]:
+    """``(part_pages, nsplit)`` for one-token attention of ``b`` rows of
+    ``h`` query heads over ``hkv`` kv heads: :func:`decode_splits` over
+    the routine's blocks (a block serves up to 8 query heads of its kv
+    head, ``csrc/decode_split.cuh``). :func:`paged_attention` and the
+    fused decode kernels' attention phase both take their parts from it."""
+    return decode_splits(b * hkv * -(-(h // hkv) // 8), maxp, page, sms)
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     seq_lens: torch.Tensor,
@@ -291,10 +301,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check_index("seq_lens", seq_lens, (b,), q.device)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    # a block serves up to 8 query heads of its kv head (decode_split.cuh)
-    part_pages, nsplit = decode_splits(
-        b * hkv * -(-(h // hkv) // 8), maxp, page,
-        _build.sm_count(q.device.index or 0))
+    part_pages, nsplit = decode_split_plan(
+        b, h, hkv, maxp, page, _build.sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     _scratch, ptrs = split_scratch(nsplit, b * h, d, q.device)
     fn = _build.bind("paged_attention", "ptt_paged_attention", _ARGTYPES)

@@ -22,7 +22,14 @@ cores head dims 33 to 128, S = 1 to 1000, Sq != Skv, rep 1 to 8, a peaked
 softmax and segment ids in no order; for the split-KV decode attention
 native and int8 pools, B = 1 to 8 with idle rows, lengths 0 to 4096 around
 page and part boundaries, pages of 8 to 64, rep 1 to 16 and head dims 33
-to 128. Each kernel is held to its plain PyTorch version
+to 128, and its output bits as they were before the routine took the
+fused decode's length offset; for the fused decode kernels' attention
+phase (the append, then the split-KV routine over seq_lens + 1) a
+4096-token table in 16 parts, lengths whose + 1 ends or starts a part or a
+page or fills the table, Llama-2-70B heads, head dim 64 with two head
+groups, native and int8 pools, native and int4 weights, fp32 and bf16,
+each call repeated bit for bit, and two idle rows on the null page that
+each keep their own token. Each kernel is held to its plain PyTorch version
 on the same card tensors (fp32 1e-4, bf16 2e-2 abs: the kernels sum in
 f32 in another order, and bf16 rounds once more at the output; the
 RMSNorm outputs within 1e-3 + one bf16 ulp); the wrappers' input checks
@@ -35,6 +42,8 @@ has no JAX (so the repository's conftest, which imports it, is skipped):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -1164,9 +1173,7 @@ def test_flash_forward_bf16_tensor_core_cases(dev, b, sq, skv, h, hkv, d,
 QUANT_OUT_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
 
 
-@pytest.mark.parametrize("pool", ["native", "int8"])
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("h,hkv,d,page,seq_lens", [
+SPLIT_CASES = [
     (32, 32, 128, 64, (4096, 0, 1, 64, 65)),   # 7B heads: 1, page, page + 1
     (8, 2, 128, 16, (1, 16, 17, 0, 300, 4096, 5, 33)),  # B = 8, rep 4
     (64, 8, 128, 8, (8, 9, 1000)),             # rep 8, pages of 8
@@ -1174,14 +1181,12 @@ QUANT_OUT_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
     (16, 1, 64, 8, (5, 0, 63, 2000)),          # rep 16: two head groups
     (6, 2, 96, 16, (47, 0, 700)),              # rep 3, head dim 96
     (4, 2, 33, 8, (64, 65, 3)),                # odd head dim
-])
-def test_paged_attention_split_cases(dev, pool, dtype, h, hkv, d, page,
-                                     seq_lens):
-    """The split-KV decode attention against paged_attention_ref on the
-    same pool bits: native and int8 pools, B = 1 to 8 with idle rows,
-    lengths 0, 1, a page, a page + 1 and 4096, pages of 8, 16 and 64, rep
-    1 to 16, tables one page wider than the longest row (null entries);
-    one launch, repeated bit for bit."""
+]
+
+
+def _split_inputs(dev, pool, dtype, h, hkv, d, page, seq_lens):
+    """One SPLIT_CASES call's inputs: (q, k pool, v pool, tables, lengths),
+    tables one page wider than the longest row (null entries)."""
     rng = np.random.default_rng(sum(seq_lens) + h + d + page)
     maxp = -(-max(seq_lens) // page) + 1
     bt, num_pages = _tables(rng, seq_lens, 0, page, maxp, dev)
@@ -1191,6 +1196,21 @@ def test_paged_attention_split_cases(dev, pool, dtype, h, hkv, d, page,
     if pool == "int8":
         kp, vp = _q(kp), _q(vp)
     q = _rand(rng, (len(seq_lens), h, d), dtype, dev)
+    return q, kp, vp, bt, sl
+
+
+@pytest.mark.parametrize("pool", ["native", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("h,hkv,d,page,seq_lens", SPLIT_CASES)
+def test_paged_attention_split_cases(dev, pool, dtype, h, hkv, d, page,
+                                     seq_lens):
+    """The split-KV decode attention against paged_attention_ref on the
+    same pool bits: native and int8 pools, B = 1 to 8 with idle rows,
+    lengths 0, 1, a page, a page + 1 and 4096, pages of 8, 16 and 64, rep
+    1 to 16, tables one page wider than the longest row (null entries);
+    one launch, repeated bit for bit."""
+    q, kp, vp, bt, sl = _split_inputs(dev, pool, dtype, h, hkv, d, page,
+                                      seq_lens)
     kernels.reset_launches()
     got = pa.paged_attention(q, kp, vp, bt, sl)
     name = "paged_attention" + ("_int8" if pool == "int8" else "")
@@ -1204,3 +1224,231 @@ def test_paged_attention_split_cases(dev, pool, dtype, h, hkv, d, page,
         assert _err(got, want) <= TOL[dtype]
     assert not got[sl == 0].any()
     assert torch.equal(got, pa.paged_attention(q, kp, vp, bt, sl))
+
+
+def _digest(t):
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _split_digests(dev):
+    """paged_attention's output bits at every SPLIT_CASES input, by
+    "pool-dtype-case"."""
+    return {f"{pool}-{name}-{i}": _digest(pa.paged_attention(
+        *_split_inputs(dev, pool, dtype, *case)))
+        for pool in ("native", "int8")
+        for dtype, name in zip(DTYPES, ("fp32", "bf16"))
+        for i, case in enumerate(SPLIT_CASES)}
+
+
+# paged_attention's output bits at SPLIT_CASES' inputs as the kernel gave
+# them before the routine took the fused decode's length offset and own
+# rows (NVIDIA H100 80GB HBM3, the same nvcc): with the offset at 0 the
+# routine must do the same arithmetic in the same order
+SPLIT_BITS = {
+    "int8-bf16-0": "3051765a92b4ba67",
+    "int8-bf16-1": "b965e1bf5387e2e3",
+    "int8-bf16-2": "44fb8298276c058b",
+    "int8-bf16-3": "58a7dcda39698b6d",
+    "int8-bf16-4": "0a7032798e7765ee",
+    "int8-bf16-5": "79a2c294b19f16e8",
+    "int8-bf16-6": "197b8dcdcca0fcdf",
+    "int8-fp32-0": "06383ee59cb5dcde",
+    "int8-fp32-1": "dcdb9f71799869c2",
+    "int8-fp32-2": "bfd178bce7144048",
+    "int8-fp32-3": "cc1902db759aa3f5",
+    "int8-fp32-4": "2887ad1373d6ea11",
+    "int8-fp32-5": "0f5ace26ec7b25b4",
+    "int8-fp32-6": "6679618764814977",
+    "native-bf16-0": "3894d859a7211733",
+    "native-bf16-1": "303edf9a6b4bc55e",
+    "native-bf16-2": "4c050c32a666afd1",
+    "native-bf16-3": "d6ae4440f0c0b25b",
+    "native-bf16-4": "3c4d63abf8162282",
+    "native-bf16-5": "f4658265bd4846ea",
+    "native-bf16-6": "2ae8042ee790d45c",
+    "native-fp32-0": "8dc6f2ef7206dfce",
+    "native-fp32-1": "92d020c6bd28aeaa",
+    "native-fp32-2": "8ef26cb8217acb79",
+    "native-fp32-3": "6451c4024fa30680",
+    "native-fp32-4": "e9914860ad394eba",
+    "native-fp32-5": "93beb62e5de9e29f",
+    "native-fp32-6": "e73e901727541adc",
+}
+
+
+def test_paged_attention_bits_unchanged_by_the_offset(dev):
+    assert _split_digests(dev) == SPLIT_BITS
+
+
+# the fused decode kernels' attention phase (#3, #5): the append kernel,
+# then decode_split.cuh's split-KV routine over seq_lens + 1 with the
+# step's own key read from the append's scratch row. (nh, nkv, d, page,
+# maxp, seq_lens): the first two at Llama-2-7B heads in a 4096-token table
+# (16 parts of 256 keys at B = 4): serve_long's decode contexts, and
+# lengths whose + 1 ends a part, starts one, ends a page, starts one and
+# fills the table; then pages of 16 with an idle row (8 parts of 64 keys),
+# Llama-2-70B heads (64 / 8: one group of 8 heads a block) with 64-key
+# parts of one page, and head dim 64 with rep 16 (two head groups).
+FUSED_SPLIT_CASES = [
+    (32, 32, 128, 64, 64, (3500, 2900, 1800, 700)),
+    (32, 32, 128, 64, 64, (255, 256, 63, 4095)),
+    (8, 2, 64, 16, 32, (63, 64, 0, 300)),
+    (64, 8, 128, 64, 16, (63, 0, 1000)),
+    (16, 1, 64, 8, 32, (15, 64, 0, 255, 200)),
+]
+FUSED_HIDDEN, FUSED_INTER = 256, 512
+
+
+def _fused_layer(rng, nh, nkv, d, dtype, dev):
+    """One layer's weights at a narrow hidden width and the given heads
+    (hidden != nh * d: the kernels take them apart)."""
+    h, inter = FUSED_HIDDEN, FUSED_INTER
+
+    def mat(k, n):
+        return _rand(rng, (k, n), dtype, dev, 0.5 / np.sqrt(k))
+
+    def norm():
+        return (1.0 + 0.1 * torch.from_numpy(
+            rng.standard_normal(h).astype(np.float32))).to(dev, dtype)
+
+    return fb.BlockDecodeWeights(
+        ln1=norm(), wq=mat(h, nh * d), wk=mat(h, nkv * d),
+        wv=mat(h, nkv * d), wo=mat(nh * d, h), ln2=norm(), wg=mat(h, inter),
+        wu=mat(h, inter), wd=mat(inter, h))
+
+
+def _fused_case(seed_, kind, pool, dtype, nh, nkv, d, page, maxp, seq_lens,
+                dev):
+    """Inputs of one fused decode call: x, the layers' weights (one layer
+    for kind "one", else a stacked group of 2, int4 for "group-int4"),
+    each layer's pools (quantized for pool "int8"), tables and lengths."""
+    rng = np.random.default_rng(seed_)
+    n = 1 if kind == "one" else 2
+    layers = [_fused_layer(rng, nh, nkv, d, dtype, dev) for _ in range(n)]
+    bt, num_pages = _tables(rng, seq_lens, 1, page, maxp, dev)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    pools = []
+    for _ in range(n):
+        kp, vp = (_rand(rng, (nkv, num_pages, page, d), dtype, dev)
+                  for _ in range(2))
+        pools.append((_q(kp), _q(vp)) if pool == "int8" else (kp, vp))
+    x = _rand(rng, (len(seq_lens), FUSED_HIDDEN), dtype, dev, 0.3)
+    if kind == "one":
+        w = layers[0]
+    else:
+        w = fb.stack_block_weights(
+            layers, weight_dtype="int4" if kind == "group-int4" else "native")
+    return x, layers, w, pools, bt, sl
+
+
+def _clone(p):
+    return (pa.QuantizedPages(p.q.clone(), p.scale.clone())
+            if isinstance(p, pa.QuantizedPages) else p.clone())
+
+
+def _fused_call(kind, x, w, pools, bt, sl, kw, plain=False):
+    """One call of the kernel (or its plain version) on fresh pool copies:
+    (out, k pools, v pools), the pools as lists."""
+    ks, vs = [_clone(k) for k, _ in pools], [_clone(v) for _, v in pools]
+    if kind == "one":
+        fn = fb.fused_block_decode_ref if plain else fb.fused_block_decode
+        out, k, v = fn(x, w, ks[0], vs[0], bt, sl, **kw)
+        return out, [k], [v]
+    fn = (fb.fused_multi_block_decode_ref if plain
+          else fb.fused_multi_block_decode)
+    return fn(x, w, ks, vs, bt, sl, **kw)
+
+
+def _pools_equal(a, b):
+    if isinstance(a, pa.QuantizedPages):
+        return torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pool", ["native", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["one", "group", "group-int4"])
+@pytest.mark.parametrize("nh,nkv,d,page,maxp,seq_lens", FUSED_SPLIT_CASES)
+def test_fused_decode_split_attention_cases(dev, pool, dtype, kind, nh, nkv,
+                                            d, page, maxp, seq_lens):
+    """#3 (one layer) and #5 (2 layers, native or int4 weights) against the
+    plain version: the output within TOL, the first layer's appended rows
+    as the plain version's (native within TOL; int8 within one payload step
+    and SCALE_RTOL), a later layer's pools within TOL of their values (its
+    input already differs by the first layer's rounding); one launch; a
+    second call repeats the first bit for bit; a group with native weights
+    equals the chain of one-layer launches bit for bit."""
+    x, layers, w, pools, bt, sl = _fused_case(
+        sum(seq_lens) + nh + d + page, kind, pool, dtype, nh, nkv, d, page,
+        maxp, seq_lens, dev)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    kernels.reset_launches()
+    got, gk, gv = _fused_call(kind, x, w, pools, bt, sl, kw)
+    name = ("fused_block_decode" if kind == "one"
+            else "fused_multi_block_decode")
+    tags = [t for t, on in (("int8", pool == "int8"),
+                            ("int4", kind == "group-int4")) if on]
+    name = "_".join([name] + tags)
+    assert kernels.launch_counts()[name] == 1
+    want, wk, wv = _fused_call(kind, x, w, pools, bt, sl, kw, plain=True)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _err(got, want) <= TOL[dtype]
+    for i, (a, c) in enumerate(zip(gk + gv, wk + wv)):
+        if pool == "native":
+            assert _err(a, c) <= TOL[dtype]
+        elif i % len(gk) == 0:
+            _assert_rows_agree(a, c, dtype)
+        else:
+            torch.cuda.synchronize()
+            diff = (a.q.float() * a.scale - c.q.float() * c.scale).abs()
+            step = torch.maximum(a.scale, c.scale)
+            assert float((diff - step).max()) <= TOL[dtype]
+    again, ak, av = _fused_call(kind, x, w, pools, bt, sl, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert all(_pools_equal(a, c) for a, c in zip(gk + gv, ak + av))
+    if kind == "group":
+        out, ck, cv = x, [_clone(k) for k, _ in pools], \
+            [_clone(v) for _, v in pools]
+        for i, lw in enumerate(layers):
+            out, ck[i], cv[i] = fb.fused_block_decode(out, lw, ck[i], cv[i],
+                                                      bt, sl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, out)
+        assert all(_pools_equal(a, c) for a, c in zip(gk + gv, ck + cv))
+
+
+@pytest.mark.parametrize("pool", ["native", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["one", "group"])
+def test_fused_decode_idle_rows_keep_their_own_token(dev, pool, dtype, kind):
+    """Two idle rows (length 0, all-zero tables) both append to slot 0 of
+    the null page; each still attends to its own token only: the kernel
+    repeats bit for bit, every row matches the plain version of that row
+    alone within TOL, and the group equals the one-layer chain bit for
+    bit."""
+    nh, nkv, d, page, maxp = 8, 2, 128, 16, 8
+    seq_lens = (0, 37, 0, 16)
+    x, layers, w, pools, bt, sl = _fused_case(
+        91, kind, pool, dtype, nh, nkv, d, page, maxp, seq_lens, dev)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    got, _, _ = _fused_call(kind, x, w, pools, bt, sl, kw)
+    again, _, _ = _fused_call(kind, x, w, pools, bt, sl, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for r in range(len(seq_lens)):
+        one = slice(r, r + 1)
+        want, _, _ = _fused_call(kind, x[one], w, pools, bt[one], sl[one],
+                                 kw, plain=True)
+        assert _err(got[one], want) <= TOL[dtype]
+    if kind == "group":
+        out, ck, cv = x, [_clone(k) for k, _ in pools], \
+            [_clone(v) for _, v in pools]
+        for i, lw in enumerate(layers):
+            out, ck[i], cv[i] = fb.fused_block_decode(out, lw, ck[i], cv[i],
+                                                      bt, sl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, out)

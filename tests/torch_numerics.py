@@ -250,30 +250,15 @@ def _merge_log2(states):
     return o, m, l
 
 
-def paged_attention_split_emulated(q, k_pages, v_pages, block_tables,
-                                   seq_lens, sm_scale, part_pages, nsplit):
-    """``paged_attention`` as the split-KV kernel (``csrc/decode_split.cuh``)
-    partitions and merges it, in f32 on the CPU. Row b's keys (its first
-    ``min(len, maxp * page)`` table positions) are cut into ``nsplit``
-    parts of ``part_pages`` pages; a part starting at or past the length
-    does not run. Inside a part, half-warp w takes the keys t with
-    t % 8 == w; each leaves (O, m, l) with q pre-scaled by
-    scale · log2 e, the block merges its half-warps, and the parts merge in
-    part order over those that ran; a row with none emits zeros. Pools as
-    ``paged_attention_ref`` takes them (native or ``QuantizedPages``)."""
-    from paddle_tpu_torch.kernels.paged_attention import _gathered_pool
-    b, h, d = q.shape
-    hkv, _, page, _ = k_pages.shape
-    rep, maxp = h // hkv, block_tables.shape[1]
-    assert nsplit * part_pages >= maxp
-    bt = block_tables.long()
-    k = _gathered_pool(k_pages, bt).reshape(b, hkv, maxp * page, d)
-    v = _gathered_pool(v_pages, bt).reshape(b, hkv, maxp * page, d)
-    qs = q.float().reshape(b, hkv, rep, d) * (sm_scale * 1.4426950408889634)
+def _split_walk(qs, k, v, lens, part_pages, page, nsplit):
+    """The split kernel's partition and merge over gathered pools: qs (B,
+    Hkv, rep, D) pre-scaled by scale · log2 e; k, v (B, Hkv, T, D) f32;
+    row b's first lens[b] keys. See paged_attention_split_emulated."""
+    b, hkv, rep, d = qs.shape
     out = torch.zeros(b, hkv, rep, d)
     part_keys = part_pages * page
     for row in range(b):
-        n = min(int(seq_lens[row]), maxp * page)
+        n = int(lens[row])
         parts = []
         for s in range(nsplit):
             k0 = s * part_keys
@@ -296,4 +281,62 @@ def paged_attention_split_emulated(q, k_pages, v_pages, block_tables,
         merged = _merge_log2(parts)
         if merged is not None:
             out[row] = merged[0] / merged[2][..., None]
-    return out.reshape(b, h, d)
+    return out.reshape(b, hkv * rep, d)
+
+
+def _gathered(q, k_pages, v_pages, block_tables, sm_scale):
+    from paddle_tpu_torch.kernels.paged_attention import _gathered_pool
+    b, h, d = q.shape
+    hkv, _, page, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    bt = block_tables.long()
+    k = _gathered_pool(k_pages, bt).reshape(b, hkv, maxp * page, d)
+    v = _gathered_pool(v_pages, bt).reshape(b, hkv, maxp * page, d)
+    qs = q.float().reshape(b, hkv, h // hkv, d) * (sm_scale
+                                                    * 1.4426950408889634)
+    return qs, k, v
+
+
+def paged_attention_split_emulated(q, k_pages, v_pages, block_tables,
+                                   seq_lens, sm_scale, part_pages, nsplit):
+    """``paged_attention`` as the split-KV kernel (``csrc/decode_split.cuh``)
+    partitions and merges it, in f32 on the CPU. Row b's keys (its first
+    ``min(len, maxp * page)`` table positions) are cut into ``nsplit``
+    parts of ``part_pages`` pages; a part starting at or past the length
+    does not run. Inside a part, half-warp w takes the keys t with
+    t % 8 == w; each leaves (O, m, l) with q pre-scaled by
+    scale · log2 e, the block merges its half-warps, and the parts merge in
+    part order over those that ran; a row with none emits zeros. Pools as
+    ``paged_attention_ref`` takes them (native or ``QuantizedPages``)."""
+    page, maxp = k_pages.shape[2], block_tables.shape[1]
+    assert nsplit * part_pages >= maxp
+    qs, k, v = _gathered(q, k_pages, v_pages, block_tables, sm_scale)
+    lens = [min(int(n), maxp * page) for n in seq_lens]
+    return _split_walk(qs, k, v, lens, part_pages, page, nsplit)
+
+
+def fused_attention_split_emulated(q, k_pages, v_pages, block_tables,
+                                   seq_lens, k_own, v_own, sm_scale,
+                                   part_pages, nsplit):
+    """The fused decode kernels' attention phase (``csrc/block_decode.cuh``
+    phase 2) in f32 on the CPU, after the append of the step's k/v rows to
+    the pools at ``seq_lens``: the split walk of
+    :func:`paged_attention_split_emulated` over ``seq_lens + 1`` (clamped
+    to the table), with the key and value at position ``seq_lens[b]`` the
+    row's own ``k_own``/``v_own`` (B, Hkv, D) as the pool stores them (cast
+    to a native pool's dtype, or quantized per row), read from the append
+    kernel's scratch row and not from the pool."""
+    from paddle_tpu_torch.kernels.paged_attention import (QuantizedPages,
+                                                          _stored)
+    page, maxp = k_pages.shape[2], block_tables.shape[1]
+    assert nsplit * part_pages >= maxp
+    qs, k, v = _gathered(q, k_pages, v_pages, block_tables, sm_scale)
+    for full, pool, own in ((k, k_pages, k_own), (v, v_pages, v_own)):
+        parts = _stored(pool, own)
+        val = (parts[0].float() * parts[1] if isinstance(pool, QuantizedPages)
+               else parts[0].float())
+        for row, n in enumerate(seq_lens):
+            if int(n) < maxp * page:
+                full[row, :, int(n)] = val[row]
+    lens = [min(int(n) + 1, maxp * page) for n in seq_lens]
+    return _split_walk(qs, k, v, lens, part_pages, page, nsplit)

@@ -12,7 +12,8 @@ decode and the fused decode four layers a launch
 
   prefill  one engine step that admits a 256-token prompt into an empty
            engine (its whole-prompt prefill, then one decode step);
-  decode   ``--steps`` decode-only engine steps with all four slots busy.
+  decode   ``--steps`` decode-only engine steps with all four slots busy;
+           its kernels also summed by group (GEMVs, attention, the rest).
 
 Then, on an engine with a 4096-token context:
 
@@ -57,11 +58,18 @@ LONG_DECODE_RUNS = ((1, "native", "native"), (1, "int8", "native"),
                     (4, "int8", "int4"))
 
 
+# the attention kernels: the split-KV decode routine (#2, and the fused
+# decode's phase 2 with its append), the chunk and prompt attention, and
+# any kernel named for it
+ATTENTION_KERNELS = ("attention", "decode_split", "append_kv", "paged_chunk",
+                     "prefill")
+
+
 def kernel_group(name: str) -> str:
     """The decode step's kernels by kind: weight GEMVs, attention, other."""
     if "gemv" in name:
         return "gemv"
-    if "attention" in name:
+    if any(k in name for k in ATTENTION_KERNELS):
         return "attention"
     return "other"
 
@@ -106,7 +114,7 @@ def main() -> int:
             eng.step()
         dec = window("decode", lambda: [eng.step()
                                         for _ in range(args.steps)],
-                     args.top)
+                     args.top, group=kernel_group)
         dec["steps"] = args.steps
         for w in (pre, dec):
             w.update(decode="fused" if fused else "generic",
