@@ -64,12 +64,42 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               largest element) and fp32 (1e-4 each), with kernel, plain,
               library (SDPA forward, forward + backward, and its backward
               alone) and bound times (forward, dq and dk/dv also
-              bound_frac);
+              bound_frac); then flash_attention_with_lse at the 7B and
+              70B head shapes, bf16 and fp32: out, lse and dq/dk/dv under
+              a seeded (dO, dlse) against autograd of the plain forward
+              (the same tolerances), each kernel launched once; two
+              non-causal calls over the halves of the keys merged in log
+              space against the whole call (out 2e-3 bf16 / 1e-4 fp32
+              abs, lse as above); with_lse forward and forward + backward
+              timed beside flash_attention's on the same shape;
   6. train    Llama-2-7B width cut to 8 layers, bf16 with f32 masters,
               TrainStep(grad_accum_steps=2) + AdamW + global-norm clip +
               warmup/cosine LR, 5 steps on one fixed batch of 2 x 4096
               tokens: finite, falling losses, each flash kernel launched
               8 layers x 2 micro-batches x 5 steps = 80 times;
+     train_remat
+              the same model, batch and trainer with remat=True: the first
+              step's gradients equal (bit for bit) to the same step
+              without remat, then 5 steps timed as train, with a lower
+              peak memory than train's and the forward kernel launched
+              twice a layer and micro-batch (160), dq and dk/dv 80;
+     fit      the slice's main path: Model.fit on the same width and
+              depth, amp.decorate(O2, bf16) without f32 masters (its two
+              checkpoints must stay within what a call may write), AdamW over
+              two parameter groups with no decay on the norms,
+              warmup/cosine LR, global-norm clip and
+              LlamaPretrainingCriterion, over a DataLoader of 16 seeded
+              4096-token rows (batch 2, shuffled under a seed, split in 2
+              micro-batches, prefetched to the card), 6 steps, the loss
+              pulled every 2 steps, with the LRScheduler, EarlyStopping
+              and ModelCheckpoint callbacks (under build/fit_ckpt, removed
+              after): finite losses, the first equal to a bare
+              TrainStep's on the same first batch, each flash kernel
+              launched 96 times, the final checkpoint loading back into a
+              fresh model with equal parameters; step time on the card's
+              clock beside a bare TrainStep loop's on the same batches,
+              tokens/s, MFU, peak memory and the host's share of time
+              blocked on loss reads;
   7. train_parity
               one fp32 TrainStep at full width, 2 layers, S=512 on the card
               (kernels) and on a CPU copy (plain versions): losses and every
@@ -103,6 +133,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -164,6 +195,14 @@ TRAIN_PARITY_LOSS_TOL = 1e-4    # relative, fp32 (TF32 off)
 TRAIN_PARITY_GRAD_TOL = 1e-3    # relative L2 per parameter
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+# flash_attention_with_lse: the Llama-2-7B and Llama-2-70B head shapes; the
+# log-space merge of two half-key calls against the whole call, abs
+WITH_LSE_SHAPES = TRAIN_SHAPES[:2]
+MERGE_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# fit: Model.fit at the train phase's width and depth over a DataLoader of
+# seeded 4096-token rows, batch 2 split in 2 micro-batches, 6 steps
+FIT_ROWS, FIT_BATCH, FIT_ACCUM, FIT_STEPS, FIT_METRICS_EVERY = 16, 2, 2, 6, 2
+FIT_CKPT_DIR = "build/fit_ckpt"
 # train_varlen: fused RMSNorm (case, rows, width), eps of Llama-2
 RMS_SHAPES = (("llama2_7b width", 8192, 4096),
               ("llama2_70b width", 4096, 8192))
@@ -1185,8 +1224,130 @@ def check_flash_attention(dtype, device, rows):
         torch.cuda.empty_cache()
 
 
+def check_flash_with_lse(dtype, device):
+    """flash_attention_with_lse on the kernels: out, lse and the gradients
+    under a seeded (dO, dlse) against autograd of the plain forward
+    (flash_attention_fwd_ref, which returns the differentiable lse) on the
+    card, each kernel launched once; the log-space merge of two non-causal
+    calls over the halves of the keys against the whole call; and the
+    with_lse forward and forward + backward timed beside flash_attention's
+    on the same shape (the fold of dlse into delta should not show), the
+    plain version's and SDPA's. Returns the phase's launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    total: dict = {}
+    for case, b, s, h, hkv in WITH_LSE_SHAPES:
+        q = _rand(gen, (b * h, s, HEAD_DIM), dtype, device)
+        k = _rand(gen, (b * hkv, s, HEAD_DIM), dtype, device)
+        v = _rand(gen, (b * hkv, s, HEAD_DIM), dtype, device)
+        do = _rand(gen, (b * h, s, HEAD_DIM), dtype, device)
+        dlse = _rand(gen, (b * h, s), torch.float32, device)
+        kw = dict(causal=True, n_heads=h, n_kv_heads=hkv)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref, ref_lse = fa.flash_attention_fwd_ref(*leaves, **kw)
+        ref_grads = torch.autograd.grad((ref, ref_lse), leaves, (do, dlse))
+        ref, ref_lse = ref.detach(), ref_lse.detach()
+        lq = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kernels.reset_launches()
+        out, lse = fa.flash_attention_with_lse(*lq, **kw)
+        grads = torch.autograd.grad((out, lse), lq, (do, dlse))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for name in TRAIN_KERNELS:
+            require(counts[name] == 1, f"with_lse: {name} ran "
+                    f"{counts[name]} times, want 1")
+        total = {n: total.get(n, 0) + c for n, c in counts.items()}
+        atol, rtol = OUT_TOL[dtype]
+        tag = f"{case} B={b} S={s} H={h} Hkv={hkv} {DTYPE_NAME[dtype]}"
+        out_excess = excess(out, ref, rtol)
+        lse_err = max_err(lse, ref_lse)
+        grad_rel = [rel_err(g, r) for g, r in zip(grads, ref_grads)]
+        require(out_excess <= atol, f"with_lse out {tag}: {out_excess}")
+        require(lse_err <= LSE_TOL[dtype], f"with_lse lse {tag}: {lse_err}")
+        require(max(grad_rel) <= GRAD_TOL[dtype],
+                f"with_lse grads {tag}: {grad_rel}")
+        del leaves, ref_grads, grads
+        torch.cuda.empty_cache()
+
+        # the merge ring attention relies on: halves of the keys
+        half = s // 2
+        nk = dict(causal=False, n_heads=h, n_kv_heads=hkv)
+        with torch.no_grad():
+            whole, whole_lse = fa.flash_attention_with_lse(q, k, v, **nk)
+            parts = [fa.flash_attention_with_lse(
+                q, k[:, sl].contiguous(), v[:, sl].contiguous(), **nk)
+                for sl in (slice(0, half), slice(half, s))]
+        lse_m = torch.logaddexp(parts[0][1], parts[1][1])
+        out_m = sum(torch.exp(part_lse - lse_m)[..., None] * part.float()
+                    for part, part_lse in parts)
+        merge_out_err = max_err(out_m, whole)
+        merge_lse_err = max_err(lse_m, whole_lse)
+        require(merge_out_err <= MERGE_TOL[dtype]
+                and merge_lse_err <= LSE_TOL[dtype],
+                f"with_lse merge {tag}: out {merge_out_err}, lse "
+                f"{merge_lse_err}")
+        del whole, parts, out_m
+        torch.cuda.empty_cache()
+
+        def lse_fwd_bwd():
+            o, l = fa.flash_attention_with_lse(*lq, **kw)
+            torch.autograd.grad((o, l), lq, (do, dlse))
+
+        def flash_fwd_bwd():
+            torch.autograd.grad(fa.flash_attention(*lq, **kw), lq, do)
+
+        def plain_fwd_bwd():
+            o, l = fa.flash_attention_fwd_ref(*lq, **kw)
+            torch.autograd.grad((o, l), lq, (do, dlse))
+
+        with torch.no_grad():
+            t = dict(
+                fwd=time_ms(lambda: fa.flash_attention_with_lse(
+                    q, k, v, **kw), iters=10, warmup=2),
+                flash_fwd=time_ms(lambda: fa.flash_attention(
+                    q, k, v, **kw), iters=10, warmup=2),
+                plain_fwd=time_ms(lambda: fa.flash_attention_fwd_ref(
+                    q, k, v, **kw), iters=5, warmup=1))
+        t.update(fwd_bwd=time_ms(lse_fwd_bwd, iters=10, warmup=2),
+                 flash_fwd_bwd=time_ms(flash_fwd_bwd, iters=10, warmup=2),
+                 plain_fwd_bwd=time_ms(plain_fwd_bwd, iters=3, warmup=1))
+        qs, ks, vs = (x.reshape(b, -1, s, HEAD_DIM) for x in (q, k, v))
+        t["sdpa_fwd"] = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True),
+                                iters=10, warmup=2)
+        elem = q.element_size()
+        pairs = b * h * s * (s + 1) // 2
+        fwd_ops = 4.0 * pairs * HEAD_DIM
+        stats = 4 * q.shape[0] * s
+        fwd_bound = bound_ms(elem * (2 * q.numel() + k.numel() + v.numel())
+                             + stats, fwd_ops, dtype)
+        # forward, then dq and dk/dv (with dlse read once more)
+        bwd_bound = bound_ms(elem * (3 * q.numel() + 2 * k.numel()
+                                     + 2 * v.numel()) + 3 * stats,
+                             2.5 * fwd_ops, dtype)
+        emit("train_kernels", case=f"flash_attention_with_lse, {case}",
+             dtype=DTYPE_NAME[dtype], B=b, S=s, H=h, Hkv=hkv, D=HEAD_DIM,
+             out_excess=out_excess, out_atol=atol, out_rtol=rtol,
+             lse_max_err=lse_err, lse_tol=LSE_TOL[dtype],
+             grad_rel_err=dict(zip(("dq", "dk", "dv"), grad_rel)),
+             grad_tol=GRAD_TOL[dtype], merge_out_max_err=merge_out_err,
+             merge_lse_max_err=merge_lse_err, merge_out_tol=MERGE_TOL[dtype],
+             launches=counts,
+             kernel_ms=dict(fwd=t["fwd"], fwd_bwd=t["fwd_bwd"]),
+             flash_attention_ms=dict(fwd=t["flash_fwd"],
+                                     fwd_bwd=t["flash_fwd_bwd"]),
+             plain_ms=dict(fwd=t["plain_fwd"], fwd_bwd=t["plain_fwd_bwd"]),
+             library_ms=dict(sdpa_fwd=t["sdpa_fwd"]),
+             bound_ms=dict(fwd=fwd_bound[0], fwd_bwd=fwd_bound[0]
+                           + bwd_bound[0]),
+             bound_by=dict(fwd=fwd_bound[1], bwd=bwd_bound[1]))
+        del q, k, v, do, dlse, lq, out, lse
+        torch.cuda.empty_cache()
+    return total
+
+
 # ----------------------------------------------------------------- train
-def make_trainer(model, lr, steps=None, grad_accum_steps=1):
+def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False):
     """AdamW(multi_precision) + global-norm clip, through TrainStep; with
     ``steps`` a 2-step linear warmup into a cosine decay."""
     from paddle_tpu_torch.hapi import TrainStep
@@ -1200,7 +1361,8 @@ def make_trainer(model, lr, steps=None, grad_accum_steps=1):
     opt = AdamW(sched, parameters=model.named_parameters(),
                 weight_decay=0.01, multi_precision=True,
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    return TrainStep(model, opt, grad_accum_steps=grad_accum_steps)
+    return TrainStep(model, opt, grad_accum_steps=grad_accum_steps,
+                     remat=remat)
 
 
 def token_batch(vocab, batch, seq, seed_offset):
@@ -1248,18 +1410,300 @@ def run_train(device):
             * TRAIN_BATCH)                       # forward 1x + backward 2.5x
     flops = 6.0 * n_matmul * tokens + attn
     step_ms = 1e3 * float(np.median(step_s))
+    peak = torch.cuda.max_memory_allocated()
     emit("train", model="llama2_7b width", layers=TRAIN_LAYERS,
          params=cfg.num_params(), dtype="bf16, f32 masters",
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, grad_accum_steps=TRAIN_ACCUM,
          steps=TRAIN_STEPS, losses=losses,
          step_ms=[1e3 * v for v in step_s], step_ms_median=step_ms,
          tokens_per_s=tokens / (step_ms / 1e3),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_mem_gb=peak / 1e9,
          model_flops_per_step=flops, attention_flops_per_step=attn,
          mfu_vs_989_tflops=flops / (step_ms / 1e3) / PEAK_FLOPS[
              torch.bfloat16],
          launches=counts, model_build_s=build_s)
     del model, trainer, x, y
+    torch.cuda.empty_cache()
+    return counts, dict(peak=peak, step_ms=step_ms, losses=losses,
+                        flops=flops)
+
+
+def train_flops(cfg, batch) -> float:
+    """The train phase's model FLOPs of one step of ``batch`` rows of
+    TRAIN_SEQ tokens: 6 x the matmul parameters x tokens, plus causal
+    attention (forward 1x, backward 2.5x)."""
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.hidden_size
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3.5 * 4.0 * pairs * cfg.hidden_size * TRAIN_LAYERS * batch
+    return 6.0 * n_matmul * batch * TRAIN_SEQ + attn
+
+
+def train_model(device, generator_seed, dtype=torch.bfloat16):
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = TRAIN_LAYERS
+    return cfg, LlamaForCausalLM(cfg, device=device, dtype=dtype,
+                                 generator=seed(generator_seed, device))
+
+
+def run_train_remat(device, train):
+    """TrainStep(remat=True) on the train phase's model (same seed) and
+    batch: the first step's gradients against the same step without remat
+    (bit for bit: the same deterministic kernels recompute the same
+    activations), then TRAIN_STEPS steps timed as in train, with a peak
+    below train's and the flash forward launched twice a layer and
+    micro-batch (the recompute runs it again)."""
+    from paddle_tpu_torch import kernels
+    cfg, model = train_model(device, SEED)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, TRAIN_BATCH,
+                                              TRAIN_SEQ, 5))
+    plain = make_trainer(model, 3e-4, steps=TRAIN_STEPS,
+                         grad_accum_steps=TRAIN_ACCUM)
+    trainer = make_trainer(model, 3e-4, steps=TRAIN_STEPS,
+                           grad_accum_steps=TRAIN_ACCUM, remat=True)
+
+    def grads_of(step):
+        """The step's loss and gradients, the launches, and the memory its
+        forward and backward add at their peak (activations and
+        gradients; the optimizer state is not made yet)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        loss, grads = step.compute_loss_grads(x, y)
+        torch.cuda.synchronize()
+        return (loss, grads, kernels.launch_counts(),
+                torch.cuda.max_memory_allocated() - base)
+
+    loss_plain, ref, _, plain_added = grads_of(plain)
+    loss_remat, grads, first_counts, remat_added = grads_of(trainer)
+    unequal = [k for k, g in grads.items() if not torch.equal(g, ref[k])]
+    worst = max(rel_err(g, ref[k]) for k, g in grads.items())
+    require(sorted(grads) == sorted(ref), "train_remat: gradient names")
+    require(not unequal and float(loss_remat) == float(loss_plain),
+            f"train_remat: first-step gradients differ from train's "
+            f"without remat ({len(unequal)} tensors, worst rel {worst})")
+    micro = TRAIN_LAYERS * TRAIN_ACCUM
+    require(first_counts["flash_attention_fwd"] == 2 * micro
+            and first_counts["flash_attention_bwd_dq"] == micro,
+            f"train_remat: first-step launches {first_counts}")
+    require(remat_added < plain_added, f"train_remat: forward + backward "
+            f"add {remat_added / 1e9} GB, without remat {plain_added / 1e9}")
+    del plain, ref, grads
+    trainer.optimizer.clear_grad()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer(x, y))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    require(all(math.isfinite(v) for v in losses), f"remat losses {losses}")
+    want = dict(flash_attention_fwd=2 * micro * TRAIN_STEPS,
+                flash_attention_bwd_dq=micro * TRAIN_STEPS,
+                flash_attention_bwd_dkv=micro * TRAIN_STEPS)
+    for name, n in want.items():
+        require(counts[name] == n, f"train_remat: {name} ran {counts[name]}"
+                f" times, want {n}")
+    require(peak < train["peak"], f"train_remat: peak {peak / 1e9} GB not "
+            f"below train's {train['peak'] / 1e9} GB")
+    step_ms = 1e3 * float(np.median(step_s))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("train_remat", model="llama2_7b width", layers=TRAIN_LAYERS,
+         dtype="bf16, f32 masters", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         grad_accum_steps=TRAIN_ACCUM, steps=TRAIN_STEPS, losses=losses,
+         losses_equal_train=losses == train["losses"],
+         first_step_grads_bitwise_equal=True,
+         first_step_grad_rel_err_max=worst, first_step_launches=first_counts,
+         step_ms=[1e3 * v for v in step_s], step_ms_median=step_ms,
+         train_step_ms_median=train["step_ms"],
+         tokens_per_s=tokens / (step_ms / 1e3),
+         mfu_vs_989_tflops=train["flops"] / (step_ms / 1e3) / PEAK_FLOPS[
+             torch.bfloat16],
+         peak_mem_gb=peak / 1e9, train_peak_mem_gb=train["peak"] / 1e9,
+         fwd_bwd_added_gb=remat_added / 1e9,
+         fwd_bwd_added_gb_without_remat=plain_added / 1e9,
+         launches=counts)
+    del model, trainer, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_fit(device, train):
+    """The slice's main path: Model.fit over a DataLoader, with the model
+    decorated by amp (O2, bf16, f32 masters), AdamW over two parameter
+    groups (embedding and head at half the rate), no decay on the norms,
+    LinearWarmup(CosineAnnealingDecay), global-norm clip and
+    LlamaPretrainingCriterion; batches prefetched to the card; the
+    LRScheduler, EarlyStopping and ModelCheckpoint callbacks."""
+    import shutil
+    from paddle_tpu_torch import amp, kernels
+    from paddle_tpu_torch.hapi import Model, TrainStep
+    from paddle_tpu_torch.hapi.callbacks import (Callback, EarlyStopping,
+                                                 LRScheduler,
+                                                 ModelCheckpoint)
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    cfg, model = train_model(device, SEED + 21, dtype=torch.float32)
+    outer = ("llama.embed_tokens.weight", "lm_head.weight")
+    named = list(model.named_parameters())
+    opt = AdamW(LinearWarmup(CosineAnnealingDecay(3e-4, T_max=FIT_STEPS),
+                             warmup_steps=2, start_lr=3e-5, end_lr=3e-4),
+                parameters=[
+                    {"params": [e for e in named if e[0] in outer],
+                     "learning_rate": 0.5},
+                    {"params": [e for e in named if e[0] not in outer]}],
+                weight_decay=0.01,
+                apply_decay_param_fun=lambda n: "norm" not in n,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    # bf16 parameters without f32 masters: the reference's ModelCheckpoint
+    # saves twice (epoch 0 and the end), and with masters the two saves
+    # would write 52.7 GB, past the 45 GiB a chip call may write
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    require(all(p.dtype == torch.bfloat16 for p in model.parameters())
+            and not opt._multi_precision, "fit: amp.decorate O2")
+    crit = LlamaPretrainingCriterion(cfg)
+    x, y = token_batch(cfg.vocab_size, FIT_ROWS, TRAIN_SEQ, 7)
+    data = TensorDataset([x, y])
+
+    def loader():
+        return DataLoader(data, batch_size=FIT_BATCH, shuffle=True,
+                          seed=SEED + 31)
+
+    # the reference: a bare TrainStep's loss on the loader's first batch,
+    # on a copy of the same weights
+    first = next(iter(loader()))
+    twin = copy.deepcopy(model)
+    bare = TrainStep(twin, AdamW(3e-4, parameters=twin.named_parameters()),
+                     loss_fn=crit, grad_accum_steps=FIT_ACCUM)
+    ref_loss = float(bare.compute_loss_grads(*(t.to(device)
+                                               for t in first))[0])
+    del twin, bare
+    torch.cuda.empty_cache()
+
+    class Record(Callback):
+        """Each step's logs; the host's clock and a CUDA event on the
+        card's stream at each step's start and at the epoch's end (after
+        its sync)."""
+
+        def __init__(self):
+            super().__init__()
+            self.logs, self.begin, self.events = [], [], []
+
+        def _mark(self):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            return time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.begin.append(self._mark())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.logs.append(dict(logs))
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.end = self._mark()
+            self.epoch_loss = logs.get("loss")
+
+    shutil.rmtree(FIT_CKPT_DIR, ignore_errors=True)
+    os.makedirs(FIT_CKPT_DIR, exist_ok=True)
+    disk_free_gb = shutil.disk_usage(FIT_CKPT_DIR).free / 1e9
+    rec = Record()
+    ckpt = ModelCheckpoint(save_freq=1, save_dir=FIT_CKPT_DIR)
+    fitted = Model(model)
+    fitted.prepare(opt, loss=crit)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fitted.fit(loader(), epochs=1, accumulate_grad_batches=FIT_ACCUM,
+               metrics_every=FIT_METRICS_EVERY, num_iters=FIT_STEPS,
+               prefetch_to_device=True, verbose=0,
+               callbacks=[rec, LRScheduler(), EarlyStopping(patience=2),
+                          ckpt])
+    fit_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_obj = fitted._train_step
+    losses = {r["loss_step"]: r["loss"] for r in rec.logs
+              if r.get("loss") is not None}
+    require(len(rec.logs) == FIT_STEPS, f"fit ran {len(rec.logs)} steps")
+    require(all(math.isfinite(v) for v in losses.values())
+            and math.isfinite(rec.epoch_loss), f"fit losses {losses}")
+    require(losses.get(0) == ref_loss, f"fit: first loss {losses.get(0)} "
+            f"!= a bare TrainStep's {ref_loss}")
+    micro = TRAIN_LAYERS * FIT_ACCUM * FIT_STEPS
+    for name in TRAIN_KERNELS:
+        require(counts[name] == micro, f"fit: {name} ran {counts[name]} "
+                f"times, want {micro}")
+    # the checkpoint loads back into a fresh model with equal parameters
+    _, fresh = train_model(device, SEED + 22)
+    Model(fresh).load(os.path.join(FIT_CKPT_DIR, "final"),
+                      reset_optimizer=True)
+    torch.cuda.synchronize()
+    differ = [n for (n, a), b in zip(model.named_parameters(),
+                                     fresh.parameters())
+              if not torch.equal(a, b)]
+    require(not differ, f"fit: checkpoint parameters differ: {differ[:3]}")
+    ckpt_gb = sum(os.path.getsize(os.path.join(FIT_CKPT_DIR, f))
+                  for f in os.listdir(FIT_CKPT_DIR)) / 1e9
+    del fresh
+    shutil.rmtree(FIT_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # steps 1.. of fit (the first also makes the optimizer state) on the
+    # card's clock: from the event queued at step 1's start (it fires when
+    # step 0's work is done) to the epoch's end; then a bare TrainStep
+    # loop over the same batches staged on the card, timed the same way
+    fit_ms = rec.events[1].elapsed_time(rec.events[-1]) / (FIT_STEPS - 1)
+    gaps = np.diff(rec.begin) * 1e3
+    batches = [tuple(t.to(device) for t in b) for _, b in zip(
+        range(FIT_STEPS), loader())]
+    loop = TrainStep(model, opt, loss_fn=crit, grad_accum_steps=FIT_ACCUM,
+                     metrics_every=FIT_METRICS_EVERY)
+    loop(*batches[0])
+    loop.sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for b in batches[1:]:
+        loop(*b)
+    loop.sync()
+    end.record()
+    end.synchronize()
+    bare_ms = start.elapsed_time(end) / (FIT_STEPS - 1)
+    tokens = FIT_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, FIT_BATCH)
+    emit("fit", model="llama2_7b width", layers=TRAIN_LAYERS,
+         dtype="bf16 (amp O2), no masters", rows=FIT_ROWS,
+         batch=FIT_BATCH, seq=TRAIN_SEQ, accumulate_grad_batches=FIT_ACCUM,
+         metrics_every=FIT_METRICS_EVERY, steps=FIT_STEPS,
+         losses={str(k): v for k, v in sorted(losses.items())},
+         epoch_loss=rec.epoch_loss, first_loss=losses[0],
+         bare_trainstep_first_loss=ref_loss,
+         step_ms=fit_ms, host_gap_ms=[float(g) for g in gaps],
+         bare_trainstep_step_ms=bare_ms, fit_overhead_ms=fit_ms - bare_ms,
+         train_step_ms_median=train["step_ms"],
+         tokens_per_s=tokens / (fit_ms / 1e3),
+         mfu_vs_989_tflops=flops / (fit_ms / 1e3) / PEAK_FLOPS[
+             torch.bfloat16],
+         host_wait_share=step_obj.wait_s / (rec.end - rec.begin[0]),
+         host_wait_s=step_obj.wait_s, pulls=step_obj.sync_count,
+         peak_mem_gb=peak / 1e9, fit_s=fit_s, checkpoint_gb=ckpt_gb,
+         disk_free_gb=disk_free_gb, launches=counts)
+    del model, opt, fitted, loop, batches
     torch.cuda.empty_cache()
     return counts
 
@@ -1704,9 +2148,14 @@ def main() -> int:
     run_parity(device)
 
     train_rows = []
+    lse_counts: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         check_flash_attention(dtype, device, train_rows)
-    train_counts = run_train(device)
+        for n, c in check_flash_with_lse(dtype, device).items():
+            lse_counts[n] = lse_counts.get(n, 0) + c
+    train_counts, train = run_train(device)
+    remat_counts = run_train_remat(device, train)
+    fit_counts = run_fit(device, train)
     run_train_parity(device)
 
     varlen_counts = run_train_varlen(device)
@@ -1727,7 +2176,10 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = train_counts[name]
+            launches = fit_counts[name]          # this slice's main path
+            by_path = dict(train=train_counts[name],
+                           train_remat=remat_counts[name],
+                           fit=launches, with_lse=lse_counts[name])
         elif name in VARLEN_KERNELS:
             rows = [r for r in varlen_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
@@ -1739,6 +2191,8 @@ def main() -> int:
             main_row = rows[-1]      # the largest serving shape in bf16
             launches = counts[name]  # serve and serve_long, every run
         require(launches > 0, f"{name}: no launch on the main paths")
+        if name not in TRAIN_KERNELS:
+            by_path = None
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,
@@ -1747,7 +2201,8 @@ def main() -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
             **({"bound_frac": main_row["bound_frac"]}
-               if "bound_frac" in main_row else {})))
+               if "bound_frac" in main_row else {}),
+            **({"launches_by_path": by_path} if by_path else {})))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

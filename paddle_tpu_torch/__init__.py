@@ -9,11 +9,15 @@ caller passes ``device="cpu"``; nothing here imports JAX.
 
 Ported so far: Llama serving (``generation.serving.ServingEngine``) with
 whole-prompt prefill, fused block decode and generic paged decode; Llama
-training through ``hapi.TrainStep`` with ``optimizer.AdamW``,
-``nn.ClipGradByGlobalNorm``, the warmup/cosine LR schedules and flash
-attention forward and backward, packed sequences through the flash
-kernels' segment ids (``nn.functional.flash_attn_unpadded``), and the
-fused RMSNorm (``incubate.nn.functional.fused_rms_norm``).
+training on one card through ``hapi.Model.fit`` over ``io.DataLoader``
+(callbacks, ``metric``, checkpoints through ``framework.save``/``load``)
+or ``hapi.TrainStep`` (remat, gradient merge, the metrics cadence), every
+optimizer of ``optimizer`` and schedule of ``optimizer.lr``, ``amp`` and
+``regularizer``; flash attention forward and backward (also with its lse,
+``flash_attention_with_lse``), SDPA's dense path with a mask or dropout,
+packed sequences through the flash kernels' segment ids
+(``nn.functional.flash_attn_unpadded``), and the fused RMSNorm
+(``incubate.nn.functional.fused_rms_norm``).
 """
 
 from .device import resolve_device, seed

@@ -1,6 +1,6 @@
 """The port's flag registry: ``FLAGS_<name>`` environment variables plus
 :func:`set_flags` / :func:`get_flag`, holding only what the ported serving
-slice reads.
+and training slices read.
 
 There is no ``use_pallas`` counterpart: a kernel wrapper launches its CUDA
 kernel for a CUDA tensor and uses its plain PyTorch version only for a CPU
@@ -57,6 +57,8 @@ _FLAGS: Dict[str, tuple] = {
                                            "int8")),
     "serving_tp_degree": (1, _only("serving_tp_degree", 1,
                                    "tensor-parallel decode")),
+    # dispatched-but-unread train steps TrainStep keeps before it waits
+    "train_max_in_flight": (32, _at_least_one("train_max_in_flight")),
 }
 
 _values: Dict[str, Any] = {}

@@ -1,3 +1,5 @@
-from .train_step import TrainStep
+from . import callbacks
+from .model import Model
+from .train_step import StagedBatch, TrainStep
 
-__all__ = ["TrainStep"]
+__all__ = ["Model", "StagedBatch", "TrainStep", "callbacks"]

@@ -5,50 +5,104 @@ program. Here the step runs eagerly on the card: the model's forward and
 autograd backward (attention on the flash kernels), gradient accumulation
 over micro-batches, then the optimizer's clip and update and one scheduler
 step. ``__call__`` never waits for the card: it returns the loss as a
-detached device tensor, and :meth:`sync` is the one host read.
+detached device tensor and keeps it in an in-flight window; every
+``metrics_every`` calls :meth:`pull_metrics` reads the loss dispatched that
+many steps earlier (already computed, so the read barely waits), and
+:meth:`sync` is the hard barrier. At most ``FLAGS_train_max_in_flight``
+losses stay unread: an older one is read (a throttle) when it is not done.
+``wait_s`` sums the host's time blocked in those reads.
+
+Options of the reference that run here:
+  - ``remat``: each decoder layer of the model (every module with a
+    ``remat`` attribute, such as ``LlamaModel``) runs under non-reentrant
+    ``torch.utils.checkpoint``, its activations recomputed in the
+    backward. The reference checkpoints the whole loss inside its jitted
+    program, where XLA schedules the recompute; in eager PyTorch that
+    would save nothing, since the whole forward would run again at once;
+  - ``gradient_merge_k`` / ``gradient_merge_avg``: each call adds its
+    gradients to a buffer (in the parameters' dtype); every k-th call
+    updates with the buffer (divided by k with ``avg``) and zeroes it. The
+    scheduler steps every call, the optimizer's step count only on
+    updates;
+  - ``stage()``: a batch placed on the model's device ahead of its step.
 
 The parameters live in the model, so ``sync_to_model()`` has nothing to
 do. Not ported (``NotImplementedError``): meshes and parameter specs, ZeRO
-sharding levels, gradient merge, LocalSGD, ``remat`` and the
-``metrics_every`` pull cadence; telemetry and fault sites wait for the
-serving extensions' observability slice.
+sharding levels and LocalSGD (the distributed runtime); telemetry and
+fault sites wait for the observability slice.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
+from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from .. import flags
 from ..optimizer.lr import LRScheduler
 from ..optimizer.optimizer import Optimizer
 
 
 def _refuse(what: str) -> None:
-    raise NotImplementedError(f"TrainStep({what}) is not ported: a later "
-                              f"slice (distributed runtime or Model.fit)")
+    raise NotImplementedError(f"TrainStep({what}) is not ported: the "
+                              f"distributed runtime, a later slice")
+
+
+class StagedBatch:
+    """A batch already on the model's device, what :meth:`TrainStep.stage`
+    returns and ``TrainStep.__call__`` takes."""
+
+    __slots__ = ("vals",)
+
+    def __init__(self, vals: Tuple[Any, ...]):
+        self.vals = vals
+
+
+def _remat_units(model):
+    """The model's modules with a ``remat`` switch; a model without one
+    cannot remat."""
+    units = [m for m in model.modules() if hasattr(m, "remat")]
+    if not units:
+        raise NotImplementedError(
+            f"TrainStep(remat=True): {type(model).__name__} has no module "
+            f"with a 'remat' switch (LlamaModel has one)")
+    return units
+
+
+@contextlib.contextmanager
+def _switched_on(units):
+    """Each unit's ``remat`` on for the duration (the forward and backward
+    of one step)."""
+    for m in units:
+        m.remat = True
+    try:
+        yield
+    finally:
+        for m in units:
+            m.remat = False
 
 
 class TrainStep:
     def __init__(self, model, optimizer: Optimizer,
                  loss_fn: Optional[Callable] = None, mesh=None,
-                 param_spec_fn=None, grad_accum_steps: int = 1,
-                 remat: bool = False, sharding_level: Optional[int] = None,
+                 param_spec_fn=None, data_axes: Tuple[str, ...] = ("dp",),
+                 donate: bool = True, grad_accum_steps: int = 1,
+                 fused_grad_accum: bool = True, remat: bool = False,
+                 sharding_level: Optional[int] = None,
                  sharding_axis: Optional[str] = None,
                  gradient_merge_k: Optional[int] = None,
-                 localsgd_k: Optional[int] = None, metrics_every: int = 0):
+                 gradient_merge_avg: bool = True,
+                 localsgd_k: Optional[int] = None, metrics_every: int = 0,
+                 max_in_flight: Optional[int] = None):
         if mesh is not None or param_spec_fn is not None:
             _refuse("mesh / param_spec_fn")
         if sharding_level or sharding_axis is not None:
             _refuse("sharding_level / sharding_axis")
-        if gradient_merge_k is not None and gradient_merge_k > 1:
-            _refuse("gradient_merge_k > 1")
         if localsgd_k is not None and localsgd_k > 1:
             _refuse("localsgd_k > 1")
-        if remat:
-            _refuse("remat=True")
-        if metrics_every:
-            _refuse("metrics_every")
         if int(grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{grad_accum_steps}")
@@ -56,8 +110,27 @@ class TrainStep:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.grad_accum_steps = int(grad_accum_steps)
-        self._last_loss: Optional[torch.Tensor] = None
-        self._last_value: Optional[float] = None
+        self.remat = bool(remat)
+        self._remat_units = _remat_units(model) if self.remat else []
+        self.gradient_merge_k = max(1, int(gradient_merge_k or 1))
+        self.gradient_merge_avg = gradient_merge_avg
+        self._merge_buf: Optional[Dict[torch.Tensor, torch.Tensor]] = None
+        self._merge_count = 0
+        if max_in_flight is None:
+            max_in_flight = flags.get_flag("train_max_in_flight")
+        self.metrics_every = max(0, int(metrics_every))
+        self.max_in_flight = max(1, int(max_in_flight))
+        self._inflight: deque = deque()
+        self.sync_count = 0
+        self.throttle_count = 0
+        self.wait_s = 0.0      # host seconds blocked on loss reads
+        self.last_metrics: Optional[Dict[str, Any]] = None
+        self._last_loss: Optional[float] = None
+        self._step_count = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     # ------------------------------------------------------------------ step
     def _loss_of(self, batch: Tuple[Any, ...]) -> torch.Tensor:
@@ -79,16 +152,20 @@ class TrainStep:
     def compute_loss_grads(self, *batch
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward and backward over ``grad_accum_steps`` micro-batches,
-        whose gradients average. Leaves the gradients in ``p.grad`` (any
-        earlier ones are dropped first) and returns ``(loss, grads)``:
-        the detached mean loss and ``{name: grad}``, before the clip."""
+        whose gradients average (under ``remat`` each decoder layer is
+        recomputed in the backward). Leaves the gradients in ``p.grad``
+        (any earlier ones are dropped first) and returns ``(loss,
+        grads)``: the detached mean loss and ``{name: grad}``, before the
+        clip."""
         self.optimizer.clear_grad()
         n = self.grad_accum_steps
         total = None
-        for mb in self._micro_batches(batch):
-            loss = self._loss_of(mb)
-            (loss / n if n > 1 else loss).backward()
-            total = loss.detach() if total is None else total + loss.detach()
+        with _switched_on(self._remat_units):
+            for mb in self._micro_batches(batch):
+                loss = self._loss_of(mb)
+                (loss / n if n > 1 else loss).backward()
+                total = (loss.detach() if total is None
+                         else total + loss.detach())
         loss = total / n if n > 1 else total
         grads = {k: p.grad for k, p in self.model.named_parameters()
                  if p.grad is not None}
@@ -96,33 +173,128 @@ class TrainStep:
 
     def apply_update(self) -> None:
         """The optimizer's clip and update at ``optimizer.get_lr()``, one
-        scheduler step, and the gradients cleared."""
-        self.optimizer.step()
+        scheduler step, and the gradients cleared. Under gradient merge the
+        gradients go to the buffer instead, and every k-th call updates
+        with the buffer."""
+        if self.gradient_merge_k > 1:
+            self._merge()
+        else:
+            self.optimizer.step()
         if isinstance(self.optimizer._lr, LRScheduler):
             self.optimizer._lr.step()
         self.optimizer.clear_grad()
 
+    @torch.no_grad()
+    def _merge(self) -> None:
+        params = [p for p in self.optimizer._params()]
+        if self._merge_buf is None:
+            self._merge_buf = {p: torch.zeros_like(p) for p in params}
+        for p in params:
+            if p.grad is not None:
+                self._merge_buf[p] += p.grad.to(p.dtype)
+        self._merge_count += 1
+        if self._merge_count % self.gradient_merge_k:
+            return
+        k = self.gradient_merge_k
+        for p in params:
+            buf = self._merge_buf[p]
+            p.grad = buf / k if self.gradient_merge_avg else buf.clone()
+        self.optimizer.step()
+        for buf in self._merge_buf.values():
+            buf.zero_()
+
+    def stage(self, *batch) -> StagedBatch:
+        """The batch's tensors on the model's device (copies from the host
+        are ``non_blocking``): ``__call__`` takes the result, so a
+        prefetcher can stage batch N+1 while the card runs step N."""
+        dev = self.device
+        return StagedBatch(tuple(
+            b.to(dev, non_blocking=True) if isinstance(b, torch.Tensor)
+            else b for b in batch))
+
     def __call__(self, *batch) -> torch.Tensor:
         """One training step; returns the detached loss without a host
-        sync."""
-        loss, _ = self.compute_loss_grads(*batch)
+        sync. Takes a batch's tensors or one :class:`StagedBatch`."""
+        if len(batch) == 1 and isinstance(batch[0], StagedBatch):
+            vals = batch[0].vals
+        else:
+            vals = self.stage(*batch).vals
+        loss, _ = self.compute_loss_grads(*vals)
         self.apply_update()
-        self._last_loss = loss
+        self._step_count += 1
+        done = None
+        if loss.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self._inflight.append((self._step_count - 1, loss, done))
+        if self.metrics_every and self._step_count % self.metrics_every == 0:
+            self.pull_metrics()
+        while len(self._inflight) > self.max_in_flight:
+            _, old, ev = self._inflight.popleft()
+            if ev is not None and not ev.query():
+                self._read(ev.synchronize)
+                self.throttle_count += 1
         return loss
 
+    def _read(self, fn):
+        """``fn()``, its wall time added to ``wait_s``."""
+        t0 = time.perf_counter()
+        out = fn()
+        self.wait_s += time.perf_counter() - t0
+        return out
+
     # --------------------------------------------------------------- metrics
+    def pull_metrics(self, lag: Optional[int] = None
+                     ) -> Optional[Dict[str, Any]]:
+        """Read the loss dispatched ``lag`` steps ago (default
+        ``metrics_every``) on the host, dropping older unread ones: one
+        host read of a loss normally computed already, so the shown loss
+        is ``lag`` steps stale. Returns ``{"loss", "loss_step",
+        "staleness"}``, or the previous metrics when no loss is that old
+        yet."""
+        lag = (self.metrics_every or 1) if lag is None else max(0, int(lag))
+        target = self._step_count - lag
+        picked = None
+        while self._inflight and self._inflight[0][0] <= target:
+            picked = self._inflight.popleft()
+        if picked is None:
+            return self.last_metrics
+        idx, dev, _ = picked
+        val = self._read(lambda: float(dev))
+        self.sync_count += 1
+        self._last_loss = val
+        self.last_metrics = {"loss": val, "loss_step": idx,
+                             "staleness": self._step_count - 1 - idx}
+        return self.last_metrics
+
     def sync(self) -> Optional[float]:
-        """Block until the last step's loss is on the host and return it."""
-        if self._last_loss is not None:
-            self._last_value = float(self._last_loss)
-            self._last_loss = None
-        return self._last_value
+        """Hard barrier: wait for every dispatched step and return the
+        latest loss."""
+        if self._inflight:
+            idx, dev, _ = self._inflight[-1]
+            self._inflight.clear()
+            self._last_loss = self._read(lambda: float(dev))
+            self.sync_count += 1
+            self.last_metrics = {"loss": self._last_loss, "loss_step": idx,
+                                 "staleness": 0}
+        return self._last_loss
 
     # ------------------------------------------------------------- utilities
     def sync_to_model(self) -> None:
         """Nothing to write back: the parameters live in the model."""
 
     def state_dict(self) -> Dict[str, Any]:
+        """The model's state and, under ``"@opt_state"``, the optimizer's
+        (its reference-named slots, masters, step count and scheduler)."""
         sd: Dict[str, Any] = dict(self.model.state_dict())
         sd["@opt_state"] = self.optimizer.state_dict()
         return sd
+
+    def set_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Restore what :meth:`state_dict` wrote (``"@opt_state"`` also as
+        ``convert.optimizer_state_from_jax`` gives it)."""
+        sd = dict(sd)
+        opt = sd.pop("@opt_state", None)
+        self.model.load_state_dict(sd)
+        if opt is not None:
+            self.optimizer.set_state_dict(opt)

@@ -35,8 +35,12 @@ ids cannot meet the other side's, by the (min, max) id of every
 ``SEG_TILE`` rows (:func:`seg_tile_ranges`, built by their wrappers and
 part of their cost).
 
-Not ported (``NotImplementedError``): :func:`flash_attention_with_lse`
-(ring attention).
+:func:`flash_attention_with_lse` returns ``(out, lse)``, differentiable in
+both (``_FlashAttentionLSE``): ring attention merges two partial results
+in log space. The lse cotangent folds into the same dq and dk/dv launches
+as ``delta := rowsum(dO * O) - dlse``: the lse is taken over the scaled
+scores ``s``, ``d lse / d s = p``, and the kernels form ``ds = p * (dp -
+delta)`` in that space too (the JAX package's ``_bwd_impl`` fold).
 """
 
 from __future__ import annotations
@@ -464,14 +468,45 @@ def flash_attention(q, k, v, segment_ids=None, kv_segment_ids=None,
                                  hkv, seg_q, seg_kv)
 
 
+class _FlashAttentionLSE(torch.autograd.Function):
+    """``(out, lse)`` from the forward kernel; the backward runs the dq and
+    dk/dv kernels once, with the lse cotangent folded into ``delta``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, h, hkv):
+        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, h, hkv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, h, hkv)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        do = do.contiguous()
+        delta = (out.float() * do.float()).sum(dim=-1)
+        if dlse is not None:
+            # d lse / d s = p: ds = p * (dp - delta + dlse). A fully
+            # masked row has p = 0 and keeps zero gradients
+            delta = delta - dlse.float()
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, causal: bool = True,
                              sm_scale: Optional[float] = None,
                              n_heads: int = 1,
                              n_kv_heads: Optional[int] = None):
-    """The ``(out, lse)`` form ring attention merges: not ported."""
-    raise NotImplementedError(
-        "flash_attention_with_lse (ring attention's mergeable form) is not "
-        "ported: a later slice, with the distributed runtime")
+    """``(BH, S, D)`` flash attention returning ``(out, lse)``, lse f32
+    ``(BH, S)`` over the scaled scores (a fully masked row: 0): the form
+    ring attention merges. Differentiable in both outputs; GQA as in
+    :func:`flash_attention`. CPU tensors run the plain versions."""
+    h, hkv = _heads(n_heads, n_kv_heads, q, k)
+    return _FlashAttentionLSE.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), bool(causal),
+                                    _scale(sm_scale, q.shape[-1]), h, hkv)
 
 
 def flash_attention_bshd(q, k, v, segment_ids=None, kv_segment_ids=None,

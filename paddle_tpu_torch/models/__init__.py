@@ -1,3 +1,3 @@
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion"]

@@ -1,5 +1,6 @@
 """Llama (counterpart of ``paddle_tpu/models/llama.py``, without the
-pipeline classes): RMSNorm + rotary + GQA + SwiGLU.
+pipeline classes and the tensor-parallel annotations): RMSNorm + rotary +
+GQA + SwiGLU, and ``LlamaPretrainingCriterion``.
 
 Parameter names and shapes are the JAX model's (``Linear`` keeps the
 ``(in, out)`` layout), so ``raw_state()`` carries across through
@@ -17,6 +18,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..convert import state_from_numpy
 from ..device import DeviceLike, resolve_device, seed
@@ -83,7 +85,7 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(self.num_heads * self.head_dim, h, False,
                              std=std, **kw)
 
-    def forward(self, x, position_ids=None, cache=None):
+    def forward(self, x, attn_mask=None, position_ids=None, cache=None):
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -104,8 +106,11 @@ class LlamaAttention(nn.Module):
         if cache is not None:
             out, state = F.paged_scaled_dot_product_attention(q, k, v, state)
             return self.o_proj(out.reshape(b, s, -1)), state
-        # GQA: kv stays unexpanded; the flash kernels read kv head h // rep
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        # GQA: kv stays unexpanded; the flash kernels read kv head h // rep.
+        # A mask (which carries the causal order itself, as in the JAX
+        # model) takes SDPA's dense path
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                             is_causal=attn_mask is None,
                                              training=self.training)
         return self.o_proj(out.reshape(b, s, -1))
 
@@ -135,14 +140,15 @@ class LlamaDecoderLayer(nn.Module):
                                                 **norm_kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, position_ids=None, cache=None):
+    def forward(self, x, attn_mask=None, position_ids=None, cache=None):
         if cache is not None:
             attn, new_state = self.self_attn(self.input_layernorm(x),
-                                             position_ids, cache)
+                                             attn_mask, position_ids, cache)
             x = x + attn
             x = x + self.mlp(self.post_attention_layernorm(x))
             return x, new_state
-        x = x + self.self_attn(self.input_layernorm(x), position_ids)
+        x = x + self.self_attn(self.input_layernorm(x), attn_mask,
+                               position_ids)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -157,17 +163,25 @@ class LlamaModel(nn.Module):
             for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=kw["device"], dtype=kw["dtype"])
+        # set by TrainStep(remat=True) around its forward and backward:
+        # each decoder layer then runs under torch.utils.checkpoint
+        self.remat = False
 
-    def forward(self, input_ids, position_ids=None, caches=None,
-                offset=None):
+    def forward(self, input_ids, attn_mask=None, position_ids=None,
+                caches=None, offset=None):
         x = self.embed_tokens(input_ids)
         if caches is None:
             for layer in self.layers:
-                x = layer(x, position_ids)
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, attn_mask, position_ids,
+                                   use_reentrant=False)
+                else:
+                    x = layer(x, attn_mask, position_ids)
             return self.norm(x)
         new_caches = []
         for layer, state in zip(self.layers, caches):
-            x, state = layer(x, position_ids, cache=(state, offset))
+            x, state = layer(x, attn_mask, position_ids,
+                             cache=(state, offset))
             new_caches.append(state)
         return self.norm(x), new_caches
 
@@ -205,11 +219,14 @@ class LlamaForCausalLM(nn.Module):
             return hidden @ self.llama.embed_tokens.weight.T
         return self.lm_head(hidden)
 
-    def forward(self, input_ids, labels=None, position_ids=None):
+    def forward(self, input_ids, labels=None, attn_mask=None,
+                position_ids=None):
         """Logits, or with ``labels`` the mean causal-LM loss through
         :func:`fused_linear_cross_entropy` (the (tokens, vocab) logits are
-        never all live)."""
-        hidden = self.llama(input_ids, position_ids)
+        never all live). ``attn_mask`` (bool, True keeps, or additive;
+        broadcast to ``(B, H, S, S)``) replaces the causal mask, as in the
+        JAX model, and routes attention through SDPA's dense path."""
+        hidden = self.llama(input_ids, attn_mask, position_ids)
         if labels is None:
             return self.logits(hidden)
         if self.lm_head is None:
@@ -285,3 +302,18 @@ class LlamaForCausalLM(nn.Module):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                                  f"{tuple(params[name].shape)}")
             params[name].copy_(t)
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Mean cross entropy over all tokens of ``(logits, labels)``, the
+    logits taken in f32 (labels of -100 are ignored): the ``loss`` that
+    ``Model.prepare`` and ``TrainStep(loss_fn=...)`` take."""
+
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.vocab_size = config.vocab_size
+
+    def forward(self, logits, labels):
+        return nn.functional.cross_entropy(
+            logits.reshape(-1, self.vocab_size).float(),
+            labels.reshape(-1).long(), ignore_index=-100)

@@ -1,7 +1,8 @@
 """Functional surface of the ported slices (counterpart of
-``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU, the training attention
-(``scaled_dot_product_attention`` and ``flash_attention`` on the flash
-kernels, ``flash_attn_unpadded`` on their segment-id variant for packed
+``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU, dropout, the training
+attention (``scaled_dot_product_attention`` on the flash kernels, or its
+dense path with a mask or dropout; ``flash_attention``;
+``flash_attn_unpadded`` on the kernels' segment-id variant for packed
 sequences) and the paged attention that routes a whole-prompt prefill
 (S > 1), a prefill chunk (S > 1 under a ``PagedChunkState``) or a decode
 step (S == 1)."""
@@ -14,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as TF
 
+from ..amp.auto_cast import amp_cast
 from ..kernels.decode_attention import cached_attention
 from ..kernels.flash_attention import flash_attention_bshd
 from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
@@ -42,23 +44,88 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None
     return TF.silu(x) * y
 
 
+def dropout(x: torch.Tensor, p: float = 0.5, axis=None,
+            training: bool = True, mode: str = "upscale_in_train",
+            name=None, *, generator: Optional[torch.Generator] = None
+            ) -> torch.Tensor:
+    """Paddle's ``dropout``. In training the keep-mask is ``rand < 1 - p``
+    drawn from ``generator`` (required: the port has no global random
+    key), over ``x``'s shape or, with ``axis``, over those axes only
+    (broadcast along the others); ``upscale_in_train`` divides the kept
+    values by ``1 - p``. Outside training it is the identity, or a scale
+    by ``1 - p`` under ``downscale_in_infer``."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training and p > 0.0:
+            return (x * (1.0 - p)).to(x.dtype)
+        return x
+    shape = list(x.shape)
+    if axis is not None:
+        axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        shape = [n if i in axes else 1 for i, n in enumerate(shape)]
+    keep = _keep_mask(shape, p, x.device, generator)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def _keep_mask(shape, p: float, device, generator) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("dropout in training draws its mask from an "
+                         "explicit torch.Generator: pass generator=")
+    draw = torch.rand(shape, generator=generator, device=generator.device)
+    return draw.to(device) < (1.0 - p)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True) -> torch.Tensor:
+                                 training: bool = True, name=None, *,
+                                 generator: Optional[torch.Generator] = None
+                                 ) -> torch.Tensor:
     """SDPA in Paddle's ``(B, S, H, D)`` layout, GQA kv unexpanded (query
-    head h reads kv head ``h // (H // Hkv)``). Runs the flash-attention
-    kernels (:func:`flash_attention_bshd`) for every length. A mask or
-    dropout took the JAX package's dense XLA path, which is not ported."""
+    head h reads kv head ``h // (H // Hkv)``).
+
+    Without a mask or training dropout it runs the flash-attention kernels
+    (:func:`flash_attention_bshd`) at every length. With ``attn_mask``
+    (bool: True keeps; else additive, broadcast to ``(B, H, S, T)``) or
+    ``dropout_p > 0`` in training it takes the JAX package's dense path, in
+    plain PyTorch: scores in q's dtype, the causal and a bool mask filled
+    with -1e30, softmax in f32 cast to q's dtype, then dropout of the
+    probabilities with a keep-mask drawn from ``generator`` (required
+    then). Only this path expands GQA kv. Under ``amp.auto_cast`` the
+    inputs are cast as the op ``sdpa``."""
+    query, key, value = amp_cast("sdpa", query, key, value)
+    if attn_mask is None and not (dropout_p > 0.0 and training):
+        return flash_attention_bshd(query, key, value, causal=is_causal)
+    return _sdpa_dense(query, key, value, attn_mask, dropout_p, is_causal,
+                       training, generator)
+
+
+def _sdpa_dense(q, k, v, attn_mask, dropout_p, is_causal, training,
+                generator):
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    scores = torch.matmul(qt, kt.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if is_causal:
+        s, t = scores.shape[-2:]
+        rows = torch.arange(s, device=q.device)[:, None]
+        cols = torch.arange(t, device=q.device)[None, :]
+        scores = scores.masked_fill(rows < cols, -1e30)
     if attn_mask is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention with attn_mask (the dense path) is "
-            "not ported: a later slice")
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "scaled_dot_product_attention with dropout_p > 0 (the dense "
-            "path) is not ported: a later slice")
-    return flash_attention_bshd(query, key, value, causal=is_causal)
+        mask = attn_mask.to(q.device)
+        if mask.dtype == torch.bool:
+            scores = torch.where(mask, scores, -1e30)
+        else:
+            scores = scores + mask
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        keep = _keep_mask(probs.shape, dropout_p, q.device, generator)
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            0.0).to(q.dtype)
+    return torch.matmul(probs, vt).transpose(1, 2)
 
 
 def _refuse_softmax_and_dropout(return_softmax, dropout, training):

@@ -2,7 +2,8 @@
 
 ``Linear`` keeps Paddle's ``(in, out)`` weight layout and computes
 ``x @ W``, unlike ``torch.nn.Linear``: parameter names and shapes stay
-identical to the JAX model's, so weights carry across unchanged.
+identical to the JAX model's, so weights carry across unchanged. Under
+``amp.auto_cast`` ``Linear`` casts its inputs as the op ``linear``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...amp.auto_cast import amp_cast
 from ...device import DeviceLike, resolve_device
 from .. import functional as F
 
@@ -40,8 +42,9 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        x, w, b = amp_cast("linear", x, self.weight, self.bias)
+        y = x @ w
+        return y if b is None else y + b
 
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, "

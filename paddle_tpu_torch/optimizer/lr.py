@@ -1,19 +1,18 @@
 """LR schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``).
 
-A copy of the reference's float arithmetic for the schedulers the training
-path uses: ``LRScheduler``, ``LinearWarmup`` and ``CosineAnnealingDecay``.
-The others are still to port.
+A copy of the reference's float arithmetic, all of it host-side Python:
+``LRScheduler`` and its 16 schedules. ``ReduceOnPlateau.step`` takes the
+monitored metric.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 
 class LRScheduler:
-    def __init__(self, learning_rate: float = 0.1, last_epoch: int = -1,
-                 verbose: bool = False):
+    def __init__(self, learning_rate: float = 0.1, last_epoch: int = -1, verbose: bool = False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
         self.verbose = verbose
@@ -30,24 +29,92 @@ class LRScheduler:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
         if self.verbose:
-            print(f"Epoch {self.last_epoch}: set learning rate to "
-                  f"{self.last_lr}.")
+            print(f"Epoch {self.last_epoch}: set learning rate to {self.last_lr}.")
 
     def get_lr(self) -> float:
         raise NotImplementedError
 
     def state_dict(self):
-        return {k: v for k, v in self.__dict__.items()
-                if not k.startswith("_")}
+        return {k: v for k, v in self.__dict__.items() if not k.startswith("_")}
+
+    def set_state_dict(self, state_dict):
+        """Restore :meth:`state_dict`'s values; a nested scheduler (a
+        warmup's ``lr_sched``) given as a dict restores its own."""
+        for k, v in state_dict.items():
+            cur = self.__dict__.get(k)
+            if isinstance(cur, LRScheduler) and isinstance(v, dict):
+                cur.set_state_dict(v)
+            else:
+                self.__dict__[k] = v
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1, verbose=False):
+        self.d_model, self.warmup_steps = d_model, warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            step ** -0.5, step * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries: List[int], values: List[float], last_epoch=-1, verbose=False):
+        self.boundaries, self.values = boundaries, values
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps, self.end_lr, self.power, self.cycle = decay_steps, end_lr, power, cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) or 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, self.decay_steps)
+        return (self.base_lr - self.end_lr) * (
+            (1 - float(step) / float(decay_steps)) ** self.power) + self.end_lr
 
 
 class LinearWarmup(LRScheduler):
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
                  last_epoch=-1, verbose=False):
-        self.lr_sched = (learning_rate
-                         if isinstance(learning_rate, LRScheduler) else None)
-        self.warmup_steps, self.start_lr, self.end_lr = (warmup_steps,
-                                                         start_lr, end_lr)
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        self.warmup_steps, self.start_lr, self.end_lr = warmup_steps, start_lr, end_lr
         base = learning_rate if not self.lr_sched else self.lr_sched.base_lr
         super().__init__(base, last_epoch, verbose)
 
@@ -61,12 +128,175 @@ class LinearWarmup(LRScheduler):
         return self.base_lr
 
 
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1, verbose=False):
+        self.milestones, self.gamma = milestones, gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if m <= self.last_epoch)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1, verbose=False):
+        self.step_size, self.gamma = step_size, gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = learning_rate
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
 class CosineAnnealingDecay(LRScheduler):
-    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
-                 verbose=False):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1, verbose=False):
         self.T_max, self.eta_min = T_max, eta_min
         super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * (
             1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_0, self.T_mult, self.eta_min = T_0, T_mult, eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        epoch = self.last_epoch
+        t_i = self.T_0
+        while epoch >= t_i:
+            epoch -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * epoch / t_i)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode, self.factor, self.patience = mode, factor, patience
+        self.threshold, self.threshold_mode = threshold, threshold_mode
+        self.cooldown, self.min_lr, self.epsilon = cooldown, min_lr, epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        current = float(metrics) if not hasattr(metrics, "item") else float(metrics.item())
+        self.last_epoch += 1
+        if self.best is None or self._is_better(current):
+            self.best = current
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+    def _is_better(self, cur):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return cur < self.best * (1 - self.threshold)
+            return cur < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return cur > self.best * (1 + self.threshold)
+        return cur > self.best + self.threshold
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3, anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = int(self.phase_pct * self.total_steps)
+        if step <= up_steps:
+            return self._interp(self.initial_lr, self.max_lr, step / max(up_steps, 1))
+        pct = (step - up_steps) / max(self.total_steps - up_steps, 1)
+        return self._interp(self.max_lr, self.end_lr, pct)
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode, self.exp_gamma = mode, exp_gamma
+        self.scale_fn, self.scale_mode = scale_fn, scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        pct = x / self.step_up if x <= self.step_up else 1 - (x - self.step_up) / self.step_down
+        scale = 1.0
+        if self.scale_fn is not None:
+            scale = self.scale_fn(cycle if self.scale_mode == "cycle" else self.last_epoch)
+        elif self.mode == "triangular2":
+            scale = 1 / (2 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            scale = self.exp_gamma ** self.last_epoch
+        return self.base_lr + (self.max_lr - self.base_lr) * max(0.0, pct) * scale

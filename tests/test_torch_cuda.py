@@ -1452,3 +1452,117 @@ def test_fused_decode_idle_rows_keep_their_own_token(dev, pool, dtype, kind):
                                                       bt, sl, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, out)
+
+
+# ------------------------------------------- with_lse, prefetch, remat
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,h,hkv,causal", [
+    (1, 4, 4, True), (129, 8, 2, True), (1000, 4, 1, False),
+    (333, 8, 8, False)])
+def test_flash_with_lse_matches_plain(dev, dtype, s, h, hkv, causal):
+    """Out, lse and the gradients under a random (dO, dlse) against the
+    same autograd Function's CPU run (the plain versions), at ragged
+    lengths; the three kernels launch once each."""
+    rng = np.random.default_rng(s + h)
+    q = _rand(rng, (2 * h, s, 64), dtype, dev)
+    k = _rand(rng, (2 * hkv, s, 64), dtype, dev)
+    v = _rand(rng, (2 * hkv, s, 64), dtype, dev)
+    do = _rand(rng, (2 * h, s, 64), dtype, dev)
+    dlse = _rand(rng, (2 * h, s), torch.float32, dev)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.to(d).float().to(dtype).requires_grad_(True)
+                  for t in (q, k, v)]
+        kernels.reset_launches()
+        out, lse = fa.flash_attention_with_lse(*leaves, causal=causal,
+                                               n_heads=h, n_kv_heads=hkv)
+        grads = torch.autograd.grad((out, lse), leaves,
+                                    (do.to(d), dlse.to(d)))
+        counts = kernels.launch_counts()
+        outs.append([t.detach().float().cpu() for t in (out, lse, *grads)])
+        if d == dev:
+            assert all(counts[n] == 1 for n in (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *outs):
+        assert torch.isfinite(a).all(), name
+        tol = TOL[dtype] * (1.0 if name in ("out", "lse")
+                            else max(1.0, float(b.abs().max())))
+        assert float((a - b).abs().max()) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_dlse_on_fully_masked_rows_gives_zero_grads(dev, dtype):
+    """Rows whose segment id no key carries: lse 0, and with the dlse
+    folded into delta their gradients are zero, never NaN."""
+    rng = np.random.default_rng(5)
+    h, s = 4, 200
+    q, k, v, do = (_rand(rng, (h, s, 64), dtype, dev) for _ in range(4))
+    seg_q = torch.ones(h, s, dtype=torch.int32, device=dev)
+    seg_q[:, 130:] = 9
+    seg_kv = torch.ones(h, s, dtype=torch.int32, device=dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, None, h, h, seg_q,
+                                      seg_kv)
+    dlse = _rand(rng, (h, s), torch.float32, dev)
+    delta = (out.float() * do.float()).sum(-1) - dlse
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, None, h,
+                                   h, seg_q, seg_kv)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True,
+                                        None, h, h, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    assert torch.all(lse[:, 130:] == 0)
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g.float()).all()
+    assert torch.all(dq[:, 130:] == 0)
+
+
+def test_device_prefetcher_orders_its_streams(dev):
+    """Batches staged on the side stream reach the consumer intact: the
+    host tensors are overwritten right after staging, the consumer's
+    stream is kept busy, and every staged value is read on it."""
+    from paddle_tpu_torch.io import DevicePrefetcher
+    host = [torch.full((1 << 20,), float(i)) for i in range(6)]
+
+    def batches():
+        for i, t in enumerate(host):
+            yield (t,)
+            t.fill_(-1.0)          # overwritten once staged
+
+    sums = []
+    spin = torch.randn(2048, 2048, device=dev)
+    for (b,) in DevicePrefetcher(batches(), device=dev, depth=3):
+        for _ in range(20):
+            spin = spin @ spin / 2048.0    # the consumer stream stays busy
+        sums.append(b.sum())
+        del b                              # freed while the stream runs
+    got = [float(x) for x in sums]
+    assert got == [float(i) * (1 << 20) for i in range(6)]
+
+
+def test_remat_matches_no_remat_on_the_card(dev):
+    """Bit for bit: remat recomputes each layer's forward with the same
+    deterministic kernels; the forward kernel runs twice a layer and
+    micro-batch."""
+    from paddle_tpu_torch.hapi import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      intermediate_size=512, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=seed(7, dev))
+    ids = torch.randint(0, 512, (2, 200), generator=torch.Generator(
+        ).manual_seed(3)).to(dev)
+    grads = []
+    for remat in (False, True):
+        step = TrainStep(model, AdamW(1e-3, parameters=model.
+                                      named_parameters()),
+                         grad_accum_steps=2, remat=remat)
+        kernels.reset_launches()
+        loss, g = step.compute_loss_grads(ids, ids)
+        counts = kernels.launch_counts()
+        assert counts["flash_attention_fwd"] == 2 * 2 * (2 if remat else 1)
+        assert counts["flash_attention_bwd_dq"] == 4
+        grads.append((float(loss), {n: t.clone() for n, t in g.items()}))
+    assert grads[0][0] == grads[1][0]
+    for n, t in grads[0][1].items():
+        assert torch.equal(t, grads[1][1][n]), n

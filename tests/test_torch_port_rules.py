@@ -26,6 +26,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.device import resolve_device, seed
 from paddle_tpu_torch.generation.serving import ServingEngine
+from paddle_tpu_torch.io import DevicePrefetcher
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels import flash_attention as fa
@@ -91,8 +92,9 @@ def no_cuda(monkeypatch):
     lambda: PagedKVCache(1, 3, 8, 1, 8, 1, 16),
     lambda: seed(0, None),
     lambda: resolve_device(),
+    lambda: DevicePrefetcher([]),
 ], ids=["llama", "llama-cuda", "linear", "embedding", "rmsnorm",
-        "paged-kv-cache", "seed", "resolve_device"])
+        "paged-kv-cache", "seed", "resolve_device", "device-prefetcher"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):
     with pytest.raises(RuntimeError, match="cuda"):
         build()

@@ -311,18 +311,27 @@ def test_optimizer_updates_match_jax(cls, kw):
                         jparams[n].numpy()) <= 1e-6, n
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(param_spec_fn=lambda n, v: None),
-    dict(sharding_level=2), dict(sharding_axis="dp"),
-    dict(gradient_merge_k=2), dict(localsgd_k=2), dict(remat=True),
-    dict(metrics_every=5),
+@pytest.mark.parametrize("kw,refused", [
+    (dict(mesh=object()), True), (dict(param_spec_fn=lambda n, v: None), True),
+    (dict(sharding_level=2), True), (dict(sharding_axis="dp"), True),
+    (dict(gradient_merge_k=2), False), (dict(localsgd_k=2), True),
+    (dict(remat=True), False), (dict(metrics_every=5), False),
 ], ids=["mesh", "param_spec_fn", "sharding_level", "sharding_axis",
         "gradient_merge", "localsgd", "remat", "metrics_every"])
-def test_refused_train_step_options(kw):
+def test_refused_train_step_options(kw, refused):
+    """The distributed options stay refused; gradient merge, remat and
+    the metrics cadence are ported (tests/test_torch_train_fit.py holds
+    them to JAX's) and take effect."""
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     opt = AdamW(1e-3, parameters=model.parameters())
-    with pytest.raises(NotImplementedError):
-        TrainStep(model, opt, **kw)
+    if refused:
+        with pytest.raises(NotImplementedError):
+            TrainStep(model, opt, **kw)
+        return
+    step = TrainStep(model, opt, **kw)
+    assert (step.gradient_merge_k, step.remat, step.metrics_every) == (
+        kw.get("gradient_merge_k", 1), kw.get("remat", False),
+        kw.get("metrics_every", 0))
 
 
 def test_loss_fn_and_state_dict():
