@@ -48,6 +48,23 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               streams must be identical), then one per layer on an int8
               pool and one per group on an int8 pool with int4 weights
               (the first tokens must be identical); launch counts exact;
+     sched    the scheduler on the same model: max_batch 8 under the
+              default bucket ladder (rungs 4 and 8, shrink patience 2), 12
+              prompts of 17 to 256 tokens, half submitted after 6 steps:
+              every request OK with its tokens, at least two migrations,
+              one CUDA-graph capture per rung, exact launch counts; its
+              agreement with a fixed (8,) run is reported (first differing
+              token, top-2 logit margins). Then each decode route's graph
+              (fused N = 1, N = 4 on an int8 pool with int4 weights,
+              generic) against the eager step it captured on the same
+              inputs and pools: logits and pool writes bit for bit, the
+              same launches counted, and both step times (CUDA events),
+              the replay's device time and each call's host seconds. Then
+              deadline=0 and run(max_wall=0) end TIMEOUT, a tight-deadline
+              arrival into a full batch preempts (every request OK,
+              on_token once a token and once at the end, run_step / poll /
+              take_results equal to run); the victims' streams against an
+              uninterrupted run are reported;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -55,6 +72,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               layers a launch, and with the generic decode. That forward
               runs the flash-attention forward kernel, which train_kernels
               holds to its plain version;
+              then the sched phase's ladder and preemption on this fp32
+              model: a migrating run equal to a fixed (8,) run, and every
+              stream of the preemption run equal to the same request's
+              without the arrival, token for token;
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -333,6 +354,14 @@ def clone_pool(pool):
     if isinstance(pool, torch.Tensor):
         return pool.clone()
     return type(pool)(pool.q.clone(), pool.scale.clone())
+
+
+def copy_pool(dst, src) -> None:
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    else:
+        dst.q.copy_(src.q)
+        dst.scale.copy_(src.scale)
 
 
 def row_bytes(quant: bool, elem: int) -> int:
@@ -969,6 +998,8 @@ def run_serve(device):
         torch.cuda.empty_cache()
     counts = run_serve_long(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    counts = run_sched(model)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
     del model
     torch.cuda.empty_cache()
     return total
@@ -1031,6 +1062,346 @@ def run_serve_long(model) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- sched
+# the scheduler on serve's model: max_batch 8 under the default ladder
+# (rungs 4 and 8), shrink patience 2, 12 prompts of 17 to 256 tokens, half
+# submitted after 6 steps
+SCHED_BATCH, SCHED_PATIENCE, SCHED_STAGGER = 8, 2, 6
+SCHED_LENS = (17, 256, 64, 100, 200, 33, 128, 250, 40, 180, 90, 230)
+# graphs vs eager at one rung (BATCH): (route, fused decode,
+# FLAGS_fused_block_layers, kv_dtype, weight_dtype), on a state of serve's
+# ragged lengths with one idle row
+GRAPH_RUNS = (("fused N=1", True, 1, "native", "native"),
+              (f"fused N={GROUP_LAYERS} int8 + int4", True, GROUP_LAYERS,
+               "int8", "int4"),
+              ("generic", False, 1, "native", "native"))
+GRAPH_LENS = (MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1, MAX_SEQ - 2, 0)
+GRAPH_ITERS = 20
+# the tight arrival's deadline, seconds: FLAGS_serving_preempt_horizon's
+# default, so its slack is inside the horizon from its first step
+PREEMPT_DEADLINE, PREEMPT_NEW = 1.0, 8
+
+
+def sched_engine(model, fused=True, group=1, **kw):
+    """A plain ServingEngine on serve's pages and context, built under
+    FLAGS_fused_block_decode / _layers and the shrink patience."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    flags.set_flags({"fused_block_decode": fused,
+                     "fused_block_layers": group,
+                     "serving_bucket_patience": SCHED_PATIENCE})
+    try:
+        return ServingEngine(model, page_size=PAGE, max_seq_len=MAX_SEQ,
+                             **kw)
+    finally:
+        flags.reset_flags()
+
+
+def sched_ladder(model, ladder, new_tokens):
+    """SCHED_LENS through an engine of SCHED_BATCH slots under ``ladder``
+    (None: the flag's default), the second half submitted after
+    SCHED_STAGGER steps. Returns (engine, streams in submit order, the rung
+    after each step, launch counts, seconds)."""
+    from paddle_tpu_torch import kernels
+    eng = sched_engine(model, max_batch=SCHED_BATCH, bucket_ladder=ladder,
+                       record_logits=True)
+    ps = prompts(model.config.vocab_size, SCHED_LENS)
+    half = len(ps) // 2
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, new_tokens) for p in ps[:half]]
+    buckets = []
+    for _ in range(SCHED_STAGGER):
+        eng.step()
+        buckets.append(eng.bucket)
+    rids += [eng.submit(p, new_tokens) for p in ps[half:]]
+    while eng.has_work():
+        eng.step()
+        buckets.append(eng.bucket)
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(all(eng.status(r) == "OK" for r in rids),
+            f"sched: statuses {eng.statuses()}")
+    return (eng, rids, [out[r] for r in rids], buckets,
+            kernels.launch_counts(), seconds)
+
+
+def first_difference(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def top2_margin(row: np.ndarray) -> float:
+    top = np.sort(row)[-2:]
+    return float(top[1] - top[0])
+
+
+def sched_preempt(model, tight: bool, pump: bool):
+    """BATCH requests of NEW_TOKENS seated, then (``tight``) one of
+    PREEMPT_NEW tokens with a PREEMPT_DEADLINE deadline into the full batch;
+    drained by ``run`` or (``pump``) by run_step / poll / take_results.
+    Every request streams through on_token. Returns (engine, rids, streams,
+    statuses, events by rid, the tight request's polls)."""
+    eng = sched_engine(model, max_batch=BATCH, bucket_ladder=(BATCH,))
+    ps = prompts(model.config.vocab_size, PROMPT_LENS)
+    events: dict = {}
+
+    def on_token(rid, tok, done):
+        events.setdefault(rid, []).append((tok, done))
+
+    rids = [eng.submit(p, NEW_TOKENS, on_token=on_token)
+            for p in ps[:BATCH]]
+    for _ in range(BATCH):
+        eng.step()
+    require(all(r is not None for r in eng._slots),
+            "sched: the batch is not full")
+    if tight:
+        rids.append(eng.submit(ps[BATCH], PREEMPT_NEW,
+                               deadline=PREEMPT_DEADLINE, on_token=on_token))
+    polls = []
+    if pump:
+        while eng.run_step():
+            polls.append(eng.poll(rids[-1]))
+        statuses = [eng.status(r) for r in rids]
+        out = eng.take_results()
+        require(eng.results() == {} and eng.statuses() == {},
+                "sched: take_results left results behind")
+    else:
+        out = eng.run()
+        statuses = [eng.status(r) for r in rids]
+    return eng, rids, [out[r] for r in rids], statuses, events, polls
+
+
+def graph_vs_eager(model, route, fused, group, kv_dtype, weight_dtype):
+    """One rung's decode graph against the eager step it captured, on the
+    same inputs and pools: logits and pool writes bit for bit, the same
+    launches counted; then the step's time, graphed and eager (CUDA events
+    around GRAPH_ITERS calls that each return the tokens to the host), the
+    replays alone back to back (the step's device time) and each call's
+    host seconds."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.generation.serving import _EagerDecode
+    eng = sched_engine(model, fused, group, max_batch=BATCH,
+                       bucket_ladder=(BATCH,), kv_dtype=kv_dtype,
+                       weight_dtype=weight_dtype)
+    vocab = model.config.vocab_size
+    for p in prompts(vocab, PROMPT_LENS[:BATCH]):
+        eng.submit(p, 4)
+    eng.run()
+    graph = eng._decode_fns[BATCH]
+    require(graph.graph is not None, f"graphs {route}: nothing captured")
+    for s, n in enumerate(GRAPH_LENS):
+        if n:
+            eng.pool.allocate(s, n + 1)
+            eng.pool.seq_lens[s] = n
+    toks = np.random.default_rng(SEED).integers(0, vocab, (BATCH, 1))
+    bt = eng.pool.block_tables[:BATCH].copy()
+    sl = eng.pool.seq_lens[:BATCH].copy()
+    pools = eng.pool.take_pools()
+    saved = [(clone_pool(k), clone_pool(v)) for k, v in pools]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    next_g, logits_g, _ = graph(toks, bt, sl, pools)
+    replay_counts = kernels.launch_counts()
+    logits_g = logits_g.clone()
+    after_g = [(clone_pool(k), clone_pool(v)) for k, v in pools]
+    for pair, pair_saved in zip(pools, saved):
+        for dst, src in zip(pair, pair_saved):
+            copy_pool(dst, src)
+    kernels.reset_launches()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+
+    logits_e, _ = graph.program(graph.weights, dev(toks), pools, dev(bt),
+                                dev(sl))
+    torch.cuda.synchronize()
+    eager_counts = kernels.launch_counts()
+    require(replay_counts == eager_counts,
+            f"graphs {route}: a replay counted {replay_counts}, the eager "
+            f"step {eager_counts}")
+    require(torch.equal(logits_g, logits_e),
+            f"graphs {route}: logits differ by {max_err(logits_g, logits_e)}")
+    require(np.array_equal(next_g, logits_e.argmax(-1).cpu().numpy()),
+            f"graphs {route}: argmax differs")
+    require(all(pool_equal(a, b) for pg, pe in zip(after_g, pools)
+                for a, b in zip(pg, pe)),
+            f"graphs {route}: pool writes differ")
+
+    def graphed():
+        graph(toks, bt, sl, pools)
+
+    def eager():
+        _EagerDecode.__call__(graph, toks, bt, sl, pools)
+
+    def host_s(fn):
+        out = []
+        for _ in range(GRAPH_ITERS):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out))
+
+    graphed_ms = time_ms(graphed, iters=GRAPH_ITERS)
+    eager_ms = time_ms(eager, iters=GRAPH_ITERS)
+    replay_ms = time_ms(graph.graph.replay, iters=GRAPH_ITERS)
+    graphed_host, eager_host = host_s(graphed), host_s(eager)
+    eng.pool.install_pools(pools)
+    emit("sched", part="graphs", route=route, kv_dtype=kv_dtype,
+         weight_dtype=weight_dtype, batch=BATCH,
+         seq_lens=list(GRAPH_LENS), logits_bit_equal=True,
+         pools_bit_equal=True, launches_per_step=replay_counts,
+         graphed_step_ms=graphed_ms, eager_step_ms=eager_ms,
+         replay_ms=replay_ms, graphed_step_host_s=graphed_host,
+         eager_step_host_s=eager_host,
+         engine_decode_step_ms_median=1e3 * float(
+             np.median(eng.decode_step_seconds)))
+    del eng, saved, after_g
+    torch.cuda.empty_cache()
+
+
+def run_sched(model) -> dict:
+    """The sched phase on serve's model: the ladder (exact launches, one
+    capture per rung, every request OK; agreement with a fixed top-rung
+    run reported), graphs vs eager for three routes, then deadlines,
+    max_wall, preemption, streaming and the pump surface. Returns the
+    ladder runs' summed launch counts."""
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    clear_decode_program_cache()
+    cache = decode_program_cache()
+    runs, total = {}, {}
+    for ladder in (None, (SCHED_BATCH,)):
+        eng, rids, streams, buckets, counts, seconds = sched_ladder(
+            model, ladder, NEW_TOKENS)
+        check_tokens(list(zip(rids, prompts(cfg.vocab_size, SCHED_LENS),
+                              streams)), cfg.vocab_size, NEW_TOKENS)
+        steps = len(eng.decode_step_seconds)
+        what = f"sched ladder {eng.ladder}"
+        require_launches(counts, expected_launches(
+            counts, layers, steps, len(SCHED_LENS), 0, True, 1, "native",
+            "native"), what)
+        captures = {b: cache.trace_count(k)
+                    for b, k in eng._decode_keys.items()}
+        if ladder is None:
+            require(eng.ladder == (4, SCHED_BATCH), f"{what}: rungs")
+            require(eng.bucket_migrations >= 2 and set(buckets) == set(
+                eng.ladder), f"{what}: {eng.bucket_migrations} migrations,"
+                f" rungs {sorted(set(buckets))}")
+            require(sorted(captures) == list(eng.ladder)
+                    and set(captures.values()) == {1},
+                    f"{what}: captures by rung {captures}")
+        runs[ladder] = (eng, rids, streams)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        gen = sum(len(t) for t in streams)
+        emit("sched", part="ladder", model="llama2_7b", layers=layers,
+             dtype="bf16", ladder=list(eng.ladder),
+             patience=SCHED_PATIENCE, requests=len(rids),
+             prompt_lens=list(SCHED_LENS), new_tokens=NEW_TOKENS,
+             migrations=eng.bucket_migrations,
+             steps_at_rung={b: buckets.count(b) for b in eng.ladder},
+             captures_by_rung=captures, decode_steps=steps,
+             decode_step_ms_median=1e3 * float(
+                 np.median(eng.decode_step_seconds)),
+             seconds=seconds, tokens_per_s=gen / seconds, launches=counts)
+    (leng, lrids, lstreams), (feng, frids, fstreams) = (
+        runs[None], runs[(SCHED_BATCH,)])
+    diffs = []
+    for lr, fr, a, b in zip(lrids, frids, lstreams, fstreams):
+        j = first_difference(a, b)
+        if j is not None:
+            diffs.append(dict(request=lr, token=j, ladder=a[j], fixed=b[j],
+                              fixed_top2_margin=top2_margin(
+                                  feng.logits[fr][j]),
+                              ladder_top2_margin=top2_margin(
+                                  leng.logits[lr][j])))
+    emit("sched", part="ladder vs fixed", dtype="bf16",
+         streams_equal=len(lrids) - len(diffs), requests=len(lrids),
+         first_differences=diffs)
+    del runs, leng, feng
+    torch.cuda.empty_cache()
+
+    for run in GRAPH_RUNS:
+        graph_vs_eager(model, *run)
+
+    # deadlines and the max_wall watchdog
+    eng = sched_engine(model, max_batch=BATCH, bucket_ladder=(BATCH,))
+    ps = prompts(cfg.vocab_size, PROMPT_LENS)
+    rid = eng.submit(ps[0], PREEMPT_NEW, deadline=0)
+    out = eng.run()
+    require(out == {rid: []} and eng.status(rid) == "TIMEOUT",
+            f"sched: deadline=0 gave {out}, {eng.statuses()}")
+    rids = [eng.submit(p, PREEMPT_NEW) for p in ps[:3]]
+    out = eng.run(max_wall=0)
+    require(sorted(out) == rids and not eng.has_work()
+            and all(eng.status(r) == "TIMEOUT" for r in rids),
+            f"sched: run(max_wall=0) gave {eng.statuses()}")
+    del eng
+    # preemption: drained by run, by the pump, and without the arrival
+    results = {}
+    for tight, pump in ((True, False), (True, True), (False, False)):
+        eng, rids, streams, statuses, events, polls = sched_preempt(
+            model, tight, pump)
+        require(all(s == "OK" for s in statuses),
+                f"sched preempt: statuses {statuses}")
+        require(eng.preemptions >= 1 if tight else eng.preemptions == 0,
+                f"sched preempt: {eng.preemptions} preemptions")
+        for r, toks in zip(rids, streams):
+            evs = events[r]
+            require([t for t, d in evs if not d] == toks
+                    and [d for _, d in evs].count(True) == 1 and evs[-1][1],
+                    f"sched preempt: request {r}'s on_token events")
+        if pump:
+            toks = [p["tokens"] for p in polls]
+            require(all(len(a) <= len(b) for a, b in zip(toks, toks[1:]))
+                    and polls[-1] == {"status": "OK", "tokens": streams[-1],
+                                      "done": True},
+                    "sched preempt: polls")
+        results[tight, pump] = (streams, eng.preemptions)
+        del eng
+    require(results[True, True] == results[True, False],
+            "sched preempt: the pump's results differ from run's")
+    tight, _ = results[True, False]
+    solo, _ = results[False, False]
+    victims = [first_difference(a, b) for a, b in zip(tight, solo)]
+    emit("sched", part="deadlines and preemption", dtype="bf16",
+         deadline_0="TIMEOUT", max_wall_0="TIMEOUT",
+         preemptions=results[True, False][1],
+         pump_equals_run=True, on_token_once_per_token_and_end=True,
+         streams_equal_to_uninterrupted=victims.count(None),
+         seated=BATCH, first_differences=[
+             dict(request=i, token=j) for i, j in enumerate(victims)
+             if j is not None], phase_seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_sched_parity(model):
+    """The fp32 parity model: a migrating run equals a fixed top-rung run
+    token for token, and every stream of the preemption scenario equals
+    the same request's stream without the arrival."""
+    t_phase = time.perf_counter()
+    _, _, ladder, _, _, _ = sched_ladder(model, None, PARITY_NEW_TOKENS)
+    eng, _, fixed, _, _, _ = sched_ladder(model, (SCHED_BATCH,),
+                                          PARITY_NEW_TOKENS)
+    require(ladder == fixed, "sched parity: the migrating run's streams "
+            f"differ from the fixed run's: {ladder} / {fixed}")
+    tight = sched_preempt(model, True, False)
+    solo = sched_preempt(model, False, False)
+    require(tight[0].preemptions >= 1, "sched parity: no preemption")
+    require(tight[2][:BATCH] == solo[2],
+            "sched parity: a preempted request's stream changed")
+    emit("sched", part="parity", model="llama2_7b width, 2 layers",
+         dtype="fp32", ladder_equals_fixed=True,
+         preemptions=tight[0].preemptions, victims_equal=True,
+         requests=len(SCHED_LENS), new_tokens=PARITY_NEW_TOKENS,
+         phase_seconds=time.perf_counter() - t_phase)
+
+
 # ---------------------------------------------------------------- parity
 def run_parity(device):
     from paddle_tpu_torch.device import seed
@@ -1080,6 +1451,7 @@ def run_parity(device):
              tokens_checked=checked, tokens_within_tol_gap=skipped,
              launches=counts)
         del eng
+    run_sched_parity(model)
     del model
     torch.cuda.empty_cache()
 
@@ -1658,8 +2030,9 @@ def run_fit(device, train):
                                      fresh.parameters())
               if not torch.equal(a, b)]
     require(not differ, f"fit: checkpoint parameters differ: {differ[:3]}")
-    ckpt_gb = sum(os.path.getsize(os.path.join(FIT_CKPT_DIR, f))
-                  for f in os.listdir(FIT_CKPT_DIR)) / 1e9
+    ckpt_bytes = sum(os.path.getsize(os.path.join(FIT_CKPT_DIR, f))
+                     for f in os.listdir(FIT_CKPT_DIR))
+    ckpt_gb = ckpt_bytes / 1e9
     del fresh
     shutil.rmtree(FIT_CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1702,6 +2075,7 @@ def run_fit(device, train):
          host_wait_share=step_obj.wait_s / (rec.end - rec.begin[0]),
          host_wait_s=step_obj.wait_s, pulls=step_obj.sync_count,
          peak_mem_gb=peak / 1e9, fit_s=fit_s, checkpoint_gb=ckpt_gb,
+         checkpoint_bytes=ckpt_bytes,
          disk_free_gb=disk_free_gb, launches=counts)
     del model, opt, fitted, loop, batches
     torch.cuda.empty_cache()

@@ -8,7 +8,10 @@ for ``sm_90a`` (``kernels/csrc``). Entry points run on the card unless the
 caller passes ``device="cpu"``; nothing here imports JAX.
 
 Ported so far: Llama serving (``generation.serving.ServingEngine``) with
-whole-prompt prefill, fused block decode and generic paged decode; Llama
+whole-prompt and chunked prefill, fused block decode and generic paged
+decode, the scheduler (deadlines, the bucket ladder, SLO preemption) and
+request surface, and decode programs cached per configuration
+(``generation.program_cache``; CUDA graphs on the card); Llama
 training on one card through ``hapi.Model.fit`` over ``io.DataLoader``
 (callbacks, ``metric``, checkpoints through ``framework.save``/``load``)
 or ``hapi.TrainStep`` (remat, gradient merge, the metrics cadence), every

@@ -57,6 +57,23 @@ _FLAGS: Dict[str, tuple] = {
                                            "int8")),
     "serving_tp_degree": (1, _only("serving_tp_degree", 1,
                                    "tensor-parallel decode")),
+    # the decode batch-bucket ladder: ','-separated rungs (rungs above an
+    # engine's max_batch drop, max_batch is always the top rung); shrink
+    # waits ``serving_bucket_patience`` steps of lower demand, growth is
+    # immediate
+    "serving_bucket_ladder": ("4,8,16,32", _any),
+    "serving_bucket_patience": (8, _any),
+    # usable KV pages when an engine is not given num_pages (0: the
+    # worst case, 1 + max_batch * ceil(max_seq_len / page_size))
+    "serving_page_budget": (0, _any),
+    # SLO preemption: a waiting request whose deadline slack is inside the
+    # horizon (seconds) and which cannot admit unseats the slackest running
+    # request (slack larger by more than the margin), at most budget times
+    # per victim
+    "serving_preempt": (True, _any),
+    "serving_preempt_budget": (2, _any),
+    "serving_preempt_horizon": (1.0, _any),
+    "serving_preempt_margin": (0.0, _any),
     # dispatched-but-unread train steps TrainStep keeps before it waits
     "train_max_in_flight": (32, _at_least_one("train_max_in_flight")),
 }
@@ -90,6 +107,53 @@ def get_flag(name: str) -> Any:
         value = _FLAGS[key][0] if env is None else _parse(key, env)
     _FLAGS[key][1](value)
     return value
+
+
+class FlagSnapshot:
+    """An immutable view of some flags, resolved once: attribute and
+    mapping access, and :meth:`as_tuple` for a program-cache key."""
+
+    __slots__ = ("_values",)
+
+    def __init__(self, values: Dict[str, Any]):
+        object.__setattr__(self, "_values", dict(values))
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._values[name]
+        except KeyError:
+            raise AttributeError(f"flag {name!r} not in snapshot "
+                                 f"(have {sorted(self._values)})") from None
+
+    def __getitem__(self, name: str) -> Any:
+        return self._values[name[6:] if name.startswith("FLAGS_") else name]
+
+    def __contains__(self, name: str) -> bool:
+        return (name[6:] if name.startswith("FLAGS_") else name) \
+            in self._values
+
+    def __setattr__(self, name, value):
+        raise TypeError("FlagSnapshot is immutable")
+
+    def as_tuple(self) -> tuple:
+        """Hashable ``(name, value)`` pairs, sorted by name."""
+        return tuple(sorted(self._values.items()))
+
+    def __repr__(self) -> str:
+        return f"FlagSnapshot({self._values!r})"
+
+
+def snapshot(names=None) -> FlagSnapshot:
+    """Resolve ``names`` (every flag when None) once into a
+    :class:`FlagSnapshot`."""
+    keys = sorted(_FLAGS) if names is None else [_norm(n) for n in names]
+    return FlagSnapshot({k: get_flag(k) for k in keys})
+
+
+# The flags a decode program reads: the flag part of a decode program's
+# cache key (``generation/program_cache.py``), so engines built under other
+# values of these never share a program.
+PROGRAM_FLAGS = ("fused_block_decode", "fused_block_layers")
 
 
 def set_flags(flags: Dict[str, Any]) -> None:

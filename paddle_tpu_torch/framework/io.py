@@ -2,11 +2,15 @@
 
 ``paddle.save`` / ``paddle.load``: nested dicts, lists and tuples of
 tensors pickled with each tensor as a numpy payload, the ``.pdparams`` /
-``.pdopt`` files ``Model.save`` and ``ModelCheckpoint`` write. numpy has
-no bfloat16: a bf16 tensor is stored as its raw 16-bit words (``uint16``)
-with a ``"bfloat16"`` marker, half the bytes of the reference's f32 copy.
-``load`` also reads the JAX package's files: their payload class maps onto
-this one, and their bf16 arrives as f32 with the marker.
+``.pdopt`` files ``Model.save`` and ``ModelCheckpoint`` write. The files
+are the JAX package's: each tensor is pickled as its
+``paddle_tpu.framework.io._TensorPayload`` (fields ``dtype``, ``array``,
+``stop_gradient``, ``name``, ``is_parameter``), and numpy having no
+bfloat16, a bf16 tensor is stored as its f32 values with a ``"bfloat16"``
+marker. So either package loads the other's files. This package does not
+import the JAX one: :func:`save` writes the class under that path itself.
+``load`` also reads the files of earlier versions of this module, which
+stored bf16 as its raw 16-bit words (``uint16``).
 """
 
 from __future__ import annotations
@@ -22,24 +26,29 @@ _JAX_PAYLOAD = ("paddle_tpu.framework.io", "_TensorPayload")
 
 
 class _TensorPayload:
-    """Pickle-stable tensor: a numpy array and its dtype (the reference's
-    payload also carries a name and flags, which nothing reads)."""
+    """Pickle-stable tensor: a numpy array, its dtype, and the JAX
+    package's ``stop_gradient``, ``name`` and ``is_parameter`` (which
+    :meth:`to_tensor` does not read)."""
 
     def __init__(self, t: torch.Tensor):
+        self.stop_gradient = not t.requires_grad
+        self.name = None
+        self.is_parameter = isinstance(t, torch.nn.Parameter)
         t = t.detach()
         if t.dtype == torch.bfloat16:
             self.dtype = "bfloat16"
-            self.array = t.cpu().view(torch.int16).numpy().view(np.uint16)
+            self.array = t.cpu().float().numpy()
         else:
             self.array = t.cpu().numpy()
             self.dtype = str(self.array.dtype)
 
     def to_tensor(self) -> torch.Tensor:
         if self.dtype == "bfloat16" and self.array.dtype == np.uint16:
+            # raw words, as earlier versions of this module wrote
             return torch.from_numpy(self.array.view(np.int16).copy()).view(
                 torch.bfloat16)
         t = torch.from_numpy(np.array(self.array, copy=True))
-        if self.dtype == "bfloat16":        # the reference's f32 copy
+        if self.dtype == "bfloat16":        # the f32 copy
             t = t.to(torch.bfloat16)
         return t
 
@@ -48,6 +57,25 @@ class _TensorPayload:
         if self.dtype == "bfloat16":
             return self.to_tensor().float().numpy()
         return self.array
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler, naming :class:`_TensorPayload` by the JAX
+    package's path. (The C pickler imports a class's module to check its
+    path, and this package never imports the JAX one.)"""
+
+    def save_global(self, obj, name=None):
+        if obj is not _TensorPayload:
+            return super().save_global(obj, name)
+        module, qualname = _JAX_PAYLOAD
+        if self.proto >= 4:
+            self.save(module)
+            self.save(qualname)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL
+                       + f"{module}\n{qualname}\n".encode("utf-8"))
+        self.memoize(obj)
 
 
 class _Unpickler(pickle.Unpickler):
@@ -84,7 +112,7 @@ def save(obj: Any, path: str, protocol: int = 4, **configs) -> None:
     if d:
         os.makedirs(d, exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump(_pack(obj), f, protocol=protocol)
+        _Pickler(f, protocol=protocol).dump(_pack(obj))
 
 
 def load(path: str, return_numpy: bool = False, **configs) -> Any:

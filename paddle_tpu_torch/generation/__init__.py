@@ -1,1 +1,2 @@
-"""Serving on the paged KV cache (``serving.ServingEngine``)."""
+"""Serving on the paged KV cache (``serving.ServingEngine``) and its decode
+program cache (``program_cache``)."""

@@ -1,26 +1,52 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of ``paddle_tpu/generation/serving.py`` (the core of
-``ServingEngine``). Requests admit into free batch slots as they open. A
-prompt of at most ``prefill_chunk`` tokens (or any prompt with chunking
-off, ``prefill_chunk=0``) is prefilled whole into the paged pool at
-admission; a longer one parks on a cursor and is prefilled one fixed-size
-chunk per step (``PagedChunkState``: the chunk attends to the written
-prefix plus itself), so a long prompt stalls the decoding requests by one
-chunk at a time, never a whole prompt. Each step spends at most one
-prefill-compute unit (one whole prefill or one chunk), alternating between
-new admissions and in-flight chunks when both wait. Every step then
-decodes one greedy token for the whole fixed-shape batch with per-slot
+Counterpart of ``paddle_tpu/generation/serving.py`` (``ServingEngine``'s
+scheduler and request surface). Requests admit into free batch slots as
+they open, in deadline-slack order (tightest first; requests without a
+deadline keep submission order among themselves). A prompt of at most
+``prefill_chunk`` tokens (or any prompt with chunking off,
+``prefill_chunk=0``) is prefilled whole into the paged pool at admission; a
+longer one parks on a cursor and is prefilled one fixed-size chunk per step
+(``PagedChunkState``: the chunk attends to the written prefix plus itself).
+Each step spends at most one prefill-compute unit (one whole prefill or one
+chunk), alternating between new admissions and in-flight chunks when both
+wait. Every step then decodes one greedy token for every slot past its
+prefill, at the current rung of the batch-bucket ladder, with per-slot
 ragged lengths; idle slots write into the reserved null page and
-mid-prefill slots write at their cursor (the next chunk overwrites it),
-and both outputs are ignored. Finished sequences return their pages to
-the pool.
+mid-prefill slots write at their cursor (the next chunk overwrites it), and
+both outputs are ignored. Finished sequences return their pages to the
+pool.
+
+Around that core, as in the JAX package:
+
+- the request surface: ``submit(deadline=, on_token=)``, ``run_step``,
+  ``poll``, ``run(max_wall=)``, ``results``/``take_results``,
+  ``status``/``statuses``, ``load``, and the router's
+  ``export_requests``/``take_callbacks``/``inject_request``;
+- terminal statuses ``OK``/``TIMEOUT`` (deadlines are enforced at step
+  boundaries, with the tokens produced so far); ``FAILED`` is the JAX
+  engine's replay-recovery status, which this port does not reach: a failed
+  step raises;
+- replay-form admission: a request that carries tokens (a preemption
+  victim, an injected request) re-prefills prompt + tokens, and greedy
+  decoding continues where it stopped;
+- the bucket ladder (``FLAGS_serving_bucket_ladder``): decode runs at the
+  smallest rung covering demand, grows at once and shrinks after
+  ``FLAGS_serving_bucket_patience`` steps of lower demand, compacting the
+  live block-table rows into the low slots (``bucket_migrations`` counts);
+- SLO preemption (``FLAGS_serving_preempt``): a waiting request whose
+  deadline is in danger unseats the slackest running one, which replays
+  later (``preemptions`` counts).
 
 Decode runs the fused block kernel once per layer (``FLAGS_fused_block_decode``,
 the default), the N-layer kernel once per group of N layers
 (``FLAGS_fused_block_layers=N > 1``, over weights stacked once per engine),
 or the model's own cached forward, whose attention is the paged decode
-kernel. The programs are plain eager PyTorch functions.
+kernel. Each bucket rung's decode program comes from the process-wide
+:mod:`.program_cache`. On the CPU the program is the eager step; on a CUDA
+device the engine captures it as a CUDA graph (one per engine and rung:
+the graph binds this engine's pools and weights) after one eager step, and
+replays it from static input buffers. Prefill and chunks run eagerly.
 
 ``kv_dtype="int8"`` (``FLAGS_serving_kv_dtype``) stores the pool as int8
 rows with per-row f32 scales, written by every route and read by every
@@ -30,31 +56,40 @@ chunks keep the native per-layer weights, and with N = 1 int4 changes
 nothing, as in the JAX package.
 
 Left for later slices, and refused with ``NotImplementedError``:
-speculative decoding (``draft_model``), the prefix cache, tensor-parallel
-decode, sampling (``temperature > 0``), deadlines and a bucket ladder of
-more than one rung. Replay recovery, telemetry and fault injection are
-not part of this slice: a failed step raises.
+speculative decoding (``draft_model``; it is also where sampling,
+``temperature > 0``, comes in: without it ``submit`` raises the JAX
+engine's ``ValueError``), the prefix cache and tensor-parallel decode.
+Replay recovery, telemetry and fault injection are not part of this port
+yet: a failed step raises.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import flags as _flags
+from .. import kernels as _kernels
 from ..kernels.fused_block_decode import (BlockDecodeWeights,
                                           MultiBlockDecodeWeights, _rms,
                                           fused_block_decode,
                                           fused_multi_block_decode,
                                           stack_block_weights)
 from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
-                                       PagedKVCache)
+                                       PagedKVCache, QuantizedPages)
+from .program_cache import (TAG_KV, TAG_NLAYER, TAG_WT, DecodeKey,
+                            decode_program_cache, model_signature)
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["Request", "ServingEngine", "OK", "FAILED", "TIMEOUT"]
+
+# terminal request statuses (Request.status / ServingEngine.status)
+OK, FAILED, TIMEOUT = "OK", "FAILED", "TIMEOUT"
+
 
 @dataclass
 class Request:
@@ -64,11 +99,29 @@ class Request:
     eos_token_id: Optional[int] = None
     tokens: List[int] = field(default_factory=list)
     slot: Optional[int] = None
-    t_submit: float = 0.0               # host clock at submission
-    # chunked prefill: what the chunks teacher-force, and the cursor (None
-    # once the request decodes)
+    # host clock at submission and at the last generated token
+    t_submit: float = 0.0
+    t_last: float = 0.0
+    # absolute host-clock cutoff (submit(deadline=...)), enforced at step
+    # boundaries; None = no deadline
+    deadline: Optional[float] = None
+    # terminal status ("PENDING" while queued or in flight)
+    status: str = "PENDING"
+    error: Optional[str] = None
+    # chunked prefill: what the chunks teacher-force (the prompt, plus the
+    # emitted tokens on a replay), and the cursor (None once the request
+    # decodes)
     feed: Optional[np.ndarray] = None
     prefill_pos: Optional[int] = None
+    # times this request was unseated for a tighter deadline (bounded by
+    # FLAGS_serving_preempt_budget)
+    preempts: int = 0
+    # the sampling law, carried for a speculative engine (temperature 0 =
+    # greedy, the only law a plain engine serves)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: Optional[int] = None
 
 
 def _later(what: str) -> NotImplementedError:
@@ -76,13 +129,213 @@ def _later(what: str) -> NotImplementedError:
                                "paddle_tpu_torch)")
 
 
+# ------------------------------------------------------ decode programs
+# The eager decode steps. Each takes its weights (the parameter dict, the
+# parameter dict and the stacked groups, or the model), the tokens
+# (b, 1) int64, the per-layer pool pairs, the block tables and the lengths,
+# and returns the f32 logits (b, vocab) and the pool pairs (updated in
+# place: the same tensors).
+def _head(x, spec, p):
+    """Final norm and LM head of the fused routes, f32 logits."""
+    x = _rms(x, p[spec["final_norm"]], spec["epsilon"])
+    if spec["lm_head"]:
+        logits = x @ p[spec["lm_head"]]
+    else:
+        logits = x @ p[spec["embed"]].T
+    return logits.float()
+
+
+@torch.inference_mode()
+def _fused_step(spec, p, toks, pools, bt, sl):
+    """Embedding lookup, one fused block kernel per layer, final norm and
+    LM head."""
+    x = p[spec["embed"]][toks[:, 0]]
+    pairs = []
+    for i, lw in enumerate(spec["layers"]):
+        w = BlockDecodeWeights(**{f: p[n] for f, n in lw.items()})
+        kp, vp = pools[i]
+        x, kp, vp = fused_block_decode(
+            x, w, kp, vp, bt, sl, num_heads=spec["num_heads"],
+            num_kv_heads=spec["num_kv_heads"],
+            rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
+        pairs.append((kp, vp))
+    return _head(x, spec, p), pairs
+
+
+@torch.inference_mode()
+def _fused_nlayer_step(spec, weights, toks, pools, bt, sl):
+    """Embedding lookup, one N-layer fused kernel per layer group over the
+    stacked weights, final norm and LM head."""
+    p, stacked = weights
+    x = p[spec["embed"]][toks[:, 0]]
+    pairs = []
+    for group, gw in zip(spec["layer_groups"], stacked):
+        x, kps, vps = fused_multi_block_decode(
+            x, gw, [pools[i][0] for i in group],
+            [pools[i][1] for i in group], bt, sl,
+            num_heads=spec["num_heads"], num_kv_heads=spec["num_kv_heads"],
+            rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
+        pairs.extend(zip(kps, vps))
+    return _head(x, spec, p), pairs
+
+
+@torch.inference_mode()
+def _generic_step(model, toks, pools, bt, sl):
+    """The model's cached forward; per-slot positions from seq_lens."""
+    logits, states = model.forward_with_cache(
+        toks, [PagedDecodeState(k, v, bt, sl) for k, v in pools], None)
+    return logits[:, -1].float(), [(st.k_pages, st.v_pages)
+                                   for st in states]
+
+
+class _DecodeProgram:
+    """What the program cache holds for one key: the eager step and the
+    key's trace probe (the card's graphs note their captures on it)."""
+
+    def __init__(self, step, note_trace):
+        self.step = step
+        self.note_trace = note_trace
+
+    def __call__(self, *args):
+        return self.step(*args)
+
+
+def _build_decode(note_trace, step, on_card):
+    # the CPU's program is the eager step: its build is the trace
+    if not on_card:
+        note_trace()
+    return _DecodeProgram(step, note_trace)
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _pool_ptrs(pools) -> Tuple[int, ...]:
+    """Device addresses of every tensor of the per-layer pool pairs."""
+    out = []
+    for pair in pools:
+        for t in pair:
+            if isinstance(t, QuantizedPages):
+                out.extend((t.q.data_ptr(), t.scale.data_ptr()))
+            else:
+                out.append(t.data_ptr())
+    return tuple(out)
+
+
+class _EagerDecode:
+    """One rung's decode program run eagerly over an engine's weights: the
+    host arrays go to the device each step."""
+
+    def __init__(self, program: _DecodeProgram, weights, device):
+        self.program = program
+        self.weights = weights
+        self.device = device
+
+    def __call__(self, toks, bt, sl, pools):
+        """``toks`` (b, 1), ``bt`` (b, pages), ``sl`` (b,) host arrays.
+        Returns (next tokens (b,) on the host, logits (b, vocab) f32, the
+        pool pairs)."""
+        logits, pairs = self.program(
+            self.weights, _to_device(toks.astype(np.int64), self.device),
+            pools, _to_device(bt, self.device), _to_device(sl, self.device))
+        return torch.argmax(logits, dim=-1).cpu().numpy(), logits, pairs
+
+
+class _DecodeGraph(_EagerDecode):
+    """One rung's decode program as a CUDA graph over one engine's pools and
+    weights. The first call runs the eager step (the warm-up: library
+    loads, lazy caches) and then captures it; later calls copy the host
+    arrays into the static buffers, replay, and read the argmax back.
+
+    The kernel wrappers count launches in Python, which a replay never
+    runs: the counters' increase during the capture is taken back (the
+    capture launches nothing) and added again on every replay. The graph
+    writes the pools at the addresses it was captured with, so a call with
+    other pools raises."""
+
+    def __init__(self, program: _DecodeProgram, weights, device, b: int,
+                 pages: int):
+        super().__init__(program, weights, device)
+        self.graph = None
+        with torch.inference_mode():
+            self.s_toks = torch.zeros((b, 1), dtype=torch.int64,
+                                      device=device)
+            self.s_bt = torch.zeros((b, pages), dtype=torch.int32,
+                                    device=device)
+            self.s_sl = torch.zeros((b,), dtype=torch.int32, device=device)
+            self.h_toks = torch.zeros((b, 1), dtype=torch.int64,
+                                      pin_memory=True)
+            self.h_bt = torch.zeros((b, pages), dtype=torch.int32,
+                                    pin_memory=True)
+            self.h_sl = torch.zeros((b,), dtype=torch.int32, pin_memory=True)
+            self.h_out = torch.zeros((b,), dtype=torch.int64,
+                                     pin_memory=True)
+        self.s_logits = self.s_argmax = None
+        self.ptrs: Tuple[int, ...] = ()
+        self.launches: List[tuple] = []     # (wrapper, variant, count)
+
+    @torch.inference_mode()
+    def _stage(self, toks, bt, sl) -> None:
+        for host, dev, arr in ((self.h_toks, self.s_toks, toks),
+                               (self.h_bt, self.s_bt, bt),
+                               (self.h_sl, self.s_sl, sl)):
+            host.numpy()[...] = arr
+            dev.copy_(host, non_blocking=True)
+
+    @torch.inference_mode()
+    def _capture(self, pools) -> None:
+        torch.cuda.synchronize(self.device)
+        before = _kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, pairs = self.program(self.weights, self.s_toks, pools,
+                                         self.s_bt, self.s_sl)
+            argmax = torch.argmax(logits, dim=-1)
+        after = _kernels.launch_counts()
+        self.launches = []
+        for fn in _kernels.wrappers():
+            for name in fn.launches:
+                n = after[name] - before[name]
+                if n:
+                    fn.launches[name] -= n
+                    self.launches.append((fn, name, n))
+        ptrs = _pool_ptrs(pools)
+        if _pool_ptrs(pairs) != ptrs:
+            raise RuntimeError("decode graph: the captured step returned "
+                               "other pools than it was given")
+        self.graph, self.ptrs = graph, ptrs
+        self.s_logits, self.s_argmax = logits, argmax
+        self.program.note_trace()
+
+    @torch.inference_mode()
+    def __call__(self, toks, bt, sl, pools):
+        if self.graph is None:
+            out = super().__call__(toks, bt, sl, pools)
+            self._capture(pools)
+            return out
+        if _pool_ptrs(pools) != self.ptrs:
+            raise RuntimeError(
+                "decode graph: the pools are not at the addresses the graph "
+                "was captured with (they were replaced after the capture)")
+        self._stage(toks, bt, sl)
+        self.graph.replay()
+        for fn, name, n in self.launches:
+            fn.launches[name] += n
+        self.h_out.copy_(self.s_argmax, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self.h_out.numpy().copy(), self.s_logits, pools
+
+
 class ServingEngine:
     """Drive ``model`` (a port ``LlamaForCausalLM``) as a continuous-batching
-    server: ``submit`` enqueues, each ``step`` admits waiting requests into
-    free slots, runs at most one prefill-compute unit (a whole-prompt
-    prefill or one chunk of a long prompt) and decodes one token for every
-    slot past its prefill, ``run`` steps until drained and returns
-    ``{rid: tokens}``.
+    server: ``submit`` enqueues, each ``step`` sweeps deadlines, migrates
+    the decode batch between bucket rungs, preempts for an endangered
+    deadline, admits waiting requests into free slots, runs at most one
+    prefill-compute unit (a whole-prompt prefill or one chunk of a long
+    prompt) and decodes one token for every slot past its prefill. ``run``
+    steps until drained and returns ``{rid: tokens}``; ``run_step`` and
+    ``poll`` are the non-blocking surface.
 
     ``record_logits=True`` keeps, in ``logits[rid]``, the f32 logits row
     each generated token was taken from (host memory: vocabulary floats
@@ -123,17 +376,27 @@ class ServingEngine:
                          if prefill_chunk is None else prefill_chunk)
         if self.chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {self.chunk}")
-        # the JAX engine's ladder: rungs above max_batch drop, max_batch is
-        # the top rung; its default (4, 8, 16, 32) leaves one rung for
-        # max_batch <= 4
-        rungs = (4, 8, 16, 32) if bucket_ladder is None else bucket_ladder
-        if any(int(r) < 1 for r in rungs):
+        # the batch-bucket ladder: rungs above max_batch drop, max_batch is
+        # always the top rung; decode starts at the lowest
+        if bucket_ladder is None:
+            raw = str(_flags.get_flag("serving_bucket_ladder"))
+            rungs = [int(r) for r in raw.replace(";", ",").split(",")
+                     if r.strip()]
+        else:
+            rungs = [int(r) for r in bucket_ladder]
+        if any(r < 1 for r in rungs):
             raise ValueError(f"bucket ladder rungs must be >= 1: {rungs}")
-        ladder = sorted({int(r) for r in rungs if int(r) <= max_batch}
-                        | {max_batch})
-        if len(ladder) > 1:
-            raise _later(f"a multi-rung bucket ladder {tuple(ladder)}")
-        self.bucket = max_batch
+        self.ladder: Tuple[int, ...] = tuple(sorted(
+            {r for r in rungs if r <= max_batch} | {max_batch}))
+        self.bucket = self.ladder[0]
+        self.bucket_patience = int(_flags.get_flag("serving_bucket_patience"))
+        self._shrink_wait = 0
+        # SLO preemption policy
+        self.preempt_enabled = bool(_flags.get_flag("serving_preempt"))
+        self.preempt_budget = int(_flags.get_flag("serving_preempt_budget"))
+        self.preempt_margin = float(_flags.get_flag("serving_preempt_margin"))
+        self.preempt_horizon = float(
+            _flags.get_flag("serving_preempt_horizon"))
 
         self.model = model
         self.max_batch = max_batch
@@ -142,7 +405,11 @@ class ServingEngine:
         self.device = model.device
         spec = model.cache_spec()
         if num_pages is None:
-            num_pages = 1 + max_batch * (-(-max_seq_len // page_size))
+            # FLAGS_serving_page_budget usable pages (+1: the null page),
+            # or the worst case
+            budget = int(_flags.get_flag("serving_page_budget"))
+            num_pages = (budget + 1 if budget > 0 else
+                         1 + max_batch * (-(-max_seq_len // page_size)))
         maxpos = model.config.max_position_embeddings
         if max_seq_len > maxpos:
             raise ValueError(
@@ -154,6 +421,9 @@ class ServingEngine:
             max_batch=max_batch, max_seq_len=max_seq_len, dtype=model.dtype,
             reserve_null_page=True, kv_dtype=self.kv_dtype,
             device=self.device)
+        # the flags a decode program reads, resolved once: part of its key
+        self._flags = _flags.snapshot(_flags.PROGRAM_FLAGS)
+        self._model_sig = model_signature(model)
         self._params = dict(model.named_parameters())
         self._spec = self._fused_spec()
         # the N-layer route's stacked weights, one group each, built once
@@ -163,17 +433,30 @@ class ServingEngine:
         self._slots: List[Optional[Request]] = [None] * max_batch
         self._queue: List[Request] = []
         self._results: Dict[int, List[int]] = {}
+        self._status: Dict[int, str] = {}
         self._last_tok = np.zeros((max_batch,), np.int64)
         self._next_rid = 0
+        # bucket rung -> its decode program (bound to this engine), and key
+        self._decode_fns: Dict[int, _EagerDecode] = {}
+        self._decode_keys: Dict[int, DecodeKey] = {}
+        self.decode_key: Optional[DecodeKey] = None    # the current rung's
+        # streaming: (callback, rid, token | None, done) events buffered in
+        # a step and drained after it, so a raising callback surfaces to the
+        # caller; callbacks stay engine-local (rid -> on_token)
+        self._events: List[tuple] = []
+        self._callbacks: Dict[int, Callable] = {}
         # the fairness flip: the next contended step's prefill unit goes to
         # the in-flight chunks
         self._chunk_turn = False
+        # host probes
+        self.bucket_migrations = 0
+        self.preemptions = 0
         self.chunk_dispatches = 0
         self.logits: Dict[int, List[np.ndarray]] = {}
-        # host probes: seconds of each decode step (dispatch to tokens on
-        # the host), of each whole-prompt prefill (dispatch to first
-        # token), and from each request's submission to its first token
-        # (by rid; a chunked prompt's closes on its final chunk)
+        # seconds of each decode step (dispatch to tokens on the host), of
+        # each whole-prompt prefill (dispatch to first token), and from
+        # each request's submission to its first token (by rid; a chunked
+        # prompt's closes on its final chunk, a replay's is not a first)
         self.decode_step_seconds: List[float] = []
         self.prefill_seconds: List[float] = []
         self.ttft_seconds: Dict[int, float] = {}
@@ -182,12 +465,25 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None,
                deadline: Optional[float] = None,
-               temperature: float = 0.0) -> int:
-        """Enqueue one greedy request; returns its id."""
-        if deadline is not None:
-            raise _later("request deadlines (deadline=)")
-        if float(temperature or 0.0) != 0.0:
-            raise _later("sampling (temperature > 0)")
+               on_token: Optional[Callable] = None,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0, seed: Optional[int] = None) -> int:
+        """Enqueue one request; returns its id. ``deadline`` (seconds from
+        now) bounds its total latency: past it, queued or in flight, the
+        request ends ``TIMEOUT`` at the next step boundary with the tokens
+        it has. ``on_token(rid, token, done)`` streams: one call per token
+        with ``done=False``, then ``(rid, None, True)`` when the request
+        ends; callbacks run on the caller's thread after each step.
+        ``temperature > 0`` needs a speculative engine (``draft_model=``),
+        whose verify program is the engine's sampler."""
+        if temperature is not None and float(temperature) < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if float(temperature or 0.0) > 0.0:
+            # no engine here has a draft model
+            raise ValueError(
+                "temperature > 0 requires a speculative engine "
+                "(ServingEngine(..., draft_model=...)): the spec verify "
+                "program is the engine's sampler")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("empty prompt")
@@ -195,45 +491,152 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
                 f" exceeds engine max_seq_len ({self.max_seq_len})")
-        need = self._pages_needed(len(prompt), max_new_tokens)
+        # a request that can never fit would block admission for good
+        need = -(-(len(prompt) + max_new_tokens) // self.pool.page_size)
         usable = self.pool.num_pages - 1        # null page reserved
         if need > min(usable, self.pool.max_pages_per_seq):
             raise ValueError(
                 f"request needs {need} pages but the pool can ever offer "
                 f"{min(usable, self.pool.max_pages_per_seq)}")
-        req = Request(self._next_rid, prompt, int(max_new_tokens),
-                      eos_token_id, t_submit=time.perf_counter())
+        rid = self._next_rid
         self._next_rid += 1
+        req = Request(rid, prompt, int(max_new_tokens), eos_token_id)
+        if on_token is not None:
+            self._callbacks[rid] = on_token
+        req.temperature = float(temperature or 0.0)
+        req.top_k = int(top_k)
+        req.top_p = float(top_p)
+        req.seed = int(seed) if seed is not None else rid
+        req.t_submit = time.perf_counter()
+        if deadline is not None:
+            req.deadline = req.t_submit + float(deadline)
         self._queue.append(req)
-        return req.rid
+        return rid
 
     def has_work(self) -> bool:
         return bool(self._queue) or any(s is not None for s in self._slots)
 
-    def run(self) -> Dict[int, List[int]]:
-        """Step until drained; returns and clears ``{rid: tokens}``."""
+    def load(self) -> Tuple[int, int]:
+        """``(deadline_bearing, total)`` live requests, queued and in
+        flight."""
+        live = [r for r in self._slots if r is not None] + self._queue
+        return (sum(1 for r in live if r.deadline is not None), len(live))
+
+    def run_step(self) -> bool:
+        """One scheduler round; returns whether work remains."""
+        self.step()
+        return self.has_work()
+
+    def poll(self, rid: int) -> Dict[str, object]:
+        """``{"status", "tokens", "done"}`` of one request, the tokens so
+        far as a copy. A finished request reports its terminal status until
+        a drain (``run``, ``take_results``) prunes it."""
+        if rid in self._results:
+            return {"status": self._status.get(rid, OK),
+                    "tokens": list(self._results[rid]), "done": True}
+        for req in list(self._slots) + self._queue:
+            if req is not None and req.rid == rid:
+                return {"status": "PENDING", "tokens": list(req.tokens),
+                        "done": False}
+        raise KeyError(f"unknown or already-drained request id {rid}")
+
+    def run(self, max_wall: Optional[float] = None) -> Dict[int, List[int]]:
+        """Step until drained and return ``{rid: tokens}`` (partial tokens
+        for a ``TIMEOUT`` request: see :meth:`status`). Past ``max_wall``
+        seconds everything still queued or in flight ends ``TIMEOUT``."""
+        t0 = time.perf_counter()
         while self.has_work():
+            if max_wall is not None and time.perf_counter() - t0 > max_wall:
+                self._expire_all("run(max_wall=%.3f) watchdog" % max_wall)
+                self._drain_events()
+                break
             self.step()
         out, self._results = self._results, {}
+        # keep the statuses of exactly the requests this drain returned
+        self._status = {rid: self._status[rid] for rid in out
+                        if rid in self._status}
         return out
 
     def results(self) -> Dict[int, List[int]]:
         """Completed results so far, without draining them."""
         return {rid: list(toks) for rid, toks in self._results.items()}
 
-    # ------------------------------------------------------------ internals
-    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
-        return -(-(prompt_len + max_new) // self.pool.page_size)
+    def take_results(self) -> Dict[int, List[int]]:
+        """Drain completed results and their statuses (the ``run_step``
+        loop's collection surface)."""
+        out, self._results = self._results, {}
+        for rid in out:
+            self._status.pop(rid, None)
+        return out
+
+    def status(self, rid: int) -> str:
+        """``OK`` / ``FAILED`` / ``TIMEOUT`` for a finished request,
+        ``PENDING`` while it is queued or in flight."""
+        return self._status.get(rid, "PENDING")
+
+    def statuses(self) -> Dict[int, str]:
+        return dict(self._status)
+
+    # ---------------------------------------------------- router surface
+    def export_requests(self) -> List[Request]:
+        """Detach every live request, in flight and queued, as host state
+        in submission order, each in replay form (prompt + emitted tokens;
+        slots and cursors dropped). Their pages go back to the pool; the
+        engine is left without work. Callbacks stay behind: take them with
+        :meth:`take_callbacks`."""
+        live = [r for r in self._slots if r is not None]
+        pool_alive = self.pool.k_pages and self.pool.k_pages[0] is not None
+        out = sorted(live + self._queue, key=lambda r: r.rid)
+        for req in live:
+            if pool_alive and req.slot is not None:
+                self.pool.free_sequence(req.slot)
+        for req in out:
+            self._to_replay_form(req)
+        self._slots = [None] * self.max_batch
+        self._queue = []
+        self._last_tok[:] = 0
+        return out
+
+    def take_callbacks(self) -> Dict[int, Callable]:
+        """Detach the rid -> streaming-callback registry."""
+        out, self._callbacks = self._callbacks, {}
+        return out
+
+    def inject_request(self, req: Request,
+                       on_token: Optional[Callable] = None) -> int:
+        """Enqueue an existing request under a fresh rid. Its prompt,
+        tokens, deadline and budgets ride along: a request with tokens
+        admits as a replay (prefill of prompt + tokens)."""
+        req.rid = self._next_rid
+        self._next_rid += 1
+        req.status = "PENDING"
+        req.error = None
+        if on_token is not None:
+            self._callbacks[req.rid] = on_token
+        self._queue.append(req)
+        return req.rid
+
+    # ---------------------------------------------------- decode programs
+    def _key(self, kind: str, bucket: Optional[int] = None,
+             extra: Tuple = ()) -> DecodeKey:
+        extra = tuple(extra) + ((TAG_KV, self.kv_dtype),
+                                (TAG_WT, self.weight_dtype))
+        return DecodeKey(
+            kind=kind, model_sig=self._model_sig,
+            batch_bucket=self.max_batch if bucket is None else bucket,
+            page_budget=(self.pool.num_pages, self.pool.page_size,
+                         self.pool.max_pages_per_seq),
+            dtype=str(self.pool.k_pages[0].dtype),
+            flags=self._flags.as_tuple(), extra=extra)
 
     def _fused_spec(self):
         """The model's fused-block layout when the fused path applies:
         ``FLAGS_fused_block_decode`` on and every named weight present.
         Under ``FLAGS_fused_block_layers=N > 1`` it carries the model's
         ``layer_groups``."""
-        if not _flags.get_flag("fused_block_decode"):
+        if not self._flags.fused_block_decode:
             return None
-        spec = self.model.block_decode_spec(
-            _flags.get_flag("fused_block_layers"))
+        spec = self.model.block_decode_spec(self._flags.fused_block_layers)
         names = [spec["embed"], spec["final_norm"]]
         if spec["lm_head"]:
             names.append(spec["lm_head"])
@@ -258,59 +661,96 @@ class ServingEngine:
                 for i in group], weight_dtype=self.weight_dtype)
             for group in spec["layer_groups"])
 
-    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _decode_program(self, bucket: int) -> _EagerDecode:
+        """The decode step of one bucket rung: the cached program of its
+        key, bound to this engine (a CUDA graph on the card), made once per
+        rung."""
+        fn = self._decode_fns.get(bucket)
+        if fn is None:
+            spec = self._spec
+            if self._stacked is not None:
+                key = self._key("decode_fused_nlayer", bucket, extra=(
+                    TAG_NLAYER,
+                    tuple(len(g) for g in spec["layer_groups"])))
+                step = functools.partial(_fused_nlayer_step, spec)
+                weights = (self._params, self._stacked)
+            elif spec:
+                key = self._key("decode_fused", bucket)
+                step = functools.partial(_fused_step, spec)
+                weights = self._params
+            else:
+                key = self._key("decode_generic", bucket)
+                step, weights = _generic_step, self.model
+            on_card = self.device.type == "cuda"
+            program = decode_program_cache().get(key, functools.partial(
+                _build_decode, step=step, on_card=on_card))
+            if on_card:
+                fn = _DecodeGraph(program, weights, self.device, bucket,
+                                  self.pool.max_pages_per_seq)
+            else:
+                fn = _EagerDecode(program, weights, self.device)
+            self._decode_fns[bucket] = fn
+            self._decode_keys[bucket] = key
+        self.decode_key = self._decode_keys[bucket]
+        return fn
 
-    def _states(self, pools, bt, sl) -> List[PagedDecodeState]:
-        return [PagedDecodeState(k, v, bt, sl) for k, v in pools]
+    # ----------------------------------------------------------- admission
+    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
+        return _to_device(arr, self.device)
 
     def _store(self, states) -> None:
         self.pool.install_pools([(st.k_pages, st.v_pages) for st in states])
 
-    def _chunked(self, req: Request) -> bool:
-        """Whether ``req``'s prompt prefills in chunks: it is longer than a
-        nonzero ``prefill_chunk``."""
-        return bool(self.chunk) and len(req.prompt) > self.chunk
+    def _admission_feed(self, req: Request) -> np.ndarray:
+        """What prefill teacher-forces: the prompt, or on a replay prompt +
+        every emitted token (its argmax is then the next greedy token)."""
+        if not req.tokens:
+            return req.prompt
+        return np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
 
     def _admit(self, req: Request, slot: int) -> bool:
-        """Seat ``req`` in ``slot``. A chunked prompt gets its whole page
-        span now and parks on the chunk cursor (its chunks run one per
-        step, not here); any other prompt is prefilled whole here, the
-        step's prefill-compute unit. Returns whether prefill compute ran."""
-        if self._chunked(req):
-            self.pool.allocate(slot, len(req.prompt) + req.max_new_tokens)
-            req.feed = req.prompt
+        """Seat ``req`` in ``slot``. A feed longer than a nonzero
+        ``prefill_chunk`` gets its whole page span now and parks on the
+        chunk cursor (its chunks run one per step, not here); any other is
+        prefilled whole here, the step's prefill-compute unit. Returns
+        whether prefill compute ran."""
+        feed = self._admission_feed(req)
+        if self.chunk and len(feed) > self.chunk:
+            remaining = req.max_new_tokens - len(req.tokens)
+            self.pool.allocate(slot, len(feed) + remaining)
+            req.feed = feed
             req.prefill_pos = 0
             req.slot = slot
             self._slots[slot] = req
             return False
-        self._prefill(req, slot)
+        self._prefill(req, slot, feed)
         return True
 
     @torch.inference_mode()
-    def _prefill(self, req: Request, slot: int) -> None:
-        """Whole-prompt prefill of one request into ``slot`` (b = 1)."""
-        feed = req.prompt
+    def _prefill(self, req: Request, slot: int, feed: np.ndarray) -> None:
+        """Whole-feed prefill of one request into ``slot`` (b = 1)."""
+        replay = bool(req.tokens)
         p = len(feed)
-        self.pool.allocate(slot, p + req.max_new_tokens)
+        self.pool.allocate(slot, p + req.max_new_tokens - len(req.tokens))
         bt = self._tensor(self.pool.block_tables[slot:slot + 1])
         sl = torch.zeros((1,), dtype=torch.int32, device=self.device)
         ids = self._tensor(feed[None].astype(np.int64))
         t0 = time.perf_counter()
         pools = self.pool.take_pools()
         logits, states = self.model.forward_with_cache(
-            ids, self._states(pools, bt, sl), 0)
+            ids, [PagedDecodeState(k, v, bt, sl) for k, v in pools], 0)
         self._store(states)
         row = logits[0, -1].float()
         tok = int(torch.argmax(row))
         tnow = time.perf_counter()
         self.prefill_seconds.append(tnow - t0)
-        self.ttft_seconds[req.rid] = tnow - req.t_submit
+        if not replay:
+            self.ttft_seconds[req.rid] = tnow - req.t_submit
         self.pool.seq_lens[slot] = p
         self._last_tok[slot] = tok
         req.slot = slot
         self._slots[slot] = req
-        self._append(req, tok, row)
+        self._take_token(req, tok, row, tnow)
 
     @torch.inference_mode()
     def _prefill_chunk(self, req: Request) -> None:
@@ -320,7 +760,7 @@ class ServingEngine:
         pad rows are causally invisible to the real ones and its pad
         positions past the block table are dropped), then the cursor
         advances. Only the final chunk computes logits, of the real tail's
-        row, and pulls its argmax to the host: the request's first token."""
+        row, and pulls its argmax to the host: the request's next token."""
         feed, pos, c = req.feed, req.prefill_pos, self.chunk
         end = min(pos + c, len(feed))
         last = end == len(feed)
@@ -343,91 +783,247 @@ class ServingEngine:
             return
         row = self.model.logits(hidden[0, end - pos - 1]).float()
         tok = int(torch.argmax(row))
-        self.ttft_seconds[req.rid] = time.perf_counter() - req.t_submit
+        tnow = time.perf_counter()
+        if not req.tokens:
+            self.ttft_seconds[req.rid] = tnow - req.t_submit
         self._last_tok[slot] = tok
         req.prefill_pos = None
         req.feed = None
-        self._append(req, tok, row)
+        self._take_token(req, tok, row, tnow)
 
     def _chunk_step(self) -> bool:
-        """At most one prefill chunk a step, of the earliest submitted
-        mid-prefill request. Returns whether one ran."""
+        """At most one prefill chunk a step; among mid-prefill requests the
+        scheduler order (deadline slack, then submission) picks. Returns
+        whether one ran."""
         cands = [r for r in self._slots
                  if r is not None and r.prefill_pos is not None]
         if not cands:
             return False
-        self._prefill_chunk(min(cands, key=lambda r: r.rid))
+        now = time.perf_counter()
+        self._prefill_chunk(min(cands, key=lambda r: self._slack_key(r, now)))
         return True
 
-    def _append(self, req: Request, tok: int, row: torch.Tensor) -> None:
+    # ---------------------------------------------------------- bookkeeping
+    def _to_replay_form(self, req: Request) -> None:
+        """Drop a request's per-admission state: prompt + emitted tokens
+        drive any re-admission."""
+        req.prefill_pos = None
+        req.feed = None
+        req.slot = None
+
+    def _take_token(self, req: Request, tok: int, row: torch.Tensor,
+                    now: float) -> None:
+        req.t_last = now
         req.tokens.append(tok)
         if self.record_logits:
             self.logits.setdefault(req.rid, []).append(row.cpu().numpy())
-        done = len(req.tokens) >= req.max_new_tokens or (
-            req.eos_token_id is not None and tok == req.eos_token_id)
-        if done:
+        self._emit(req, tok)
+        self._finish_if_done(req)
+
+    def _emit(self, req: Request, tok: Optional[int],
+              done: bool = False) -> None:
+        """Buffer one streaming event; :meth:`step` drains the buffer."""
+        cb = self._callbacks.get(req.rid)
+        if cb is not None:
+            self._events.append((cb, req.rid, tok, done))
+
+    def _drain_events(self) -> None:
+        while self._events:
+            cb, rid, tok, done = self._events.pop(0)
+            cb(rid, tok, done)
+
+    def _finalize(self, req: Request, status: str,
+                  error: Optional[str] = None) -> None:
+        """End a request: release its slot and pages, bank its tokens
+        (partial for a ``TIMEOUT``) and record the status."""
+        if req.slot is not None:
             self.pool.free_sequence(req.slot)
             self._slots[req.slot] = None
-            req.slot = None
-            self._results[req.rid] = req.tokens
+        self._to_replay_form(req)
+        req.status = status
+        req.error = error
+        self._results[req.rid] = req.tokens
+        self._status[req.rid] = status
+        self._emit(req, None, done=True)
+        self._callbacks.pop(req.rid, None)
 
-    def _head(self, x, spec, p):
-        """Final norm and LM head of the fused routes, f32 logits."""
-        x = _rms(x, p[spec["final_norm"]], spec["epsilon"])
-        if spec["lm_head"]:
-            logits = x @ p[spec["lm_head"]]
+    def _finish_if_done(self, req: Request) -> None:
+        done = len(req.tokens) >= req.max_new_tokens or (
+            req.eos_token_id is not None
+            and req.tokens and req.tokens[-1] == req.eos_token_id)
+        if done and req.slot is not None:
+            self._finalize(req, OK)
+
+    def _sweep_deadlines(self) -> None:
+        """End every queued or in-flight request past its deadline
+        ``TIMEOUT``, with its tokens so far."""
+        now = time.perf_counter()
+        expired = [r for r in self._slots
+                   if r is not None and r.deadline is not None
+                   and now > r.deadline]
+        expired += [r for r in self._queue
+                    if r.deadline is not None and now > r.deadline]
+        if not expired:
+            return
+        rids = {r.rid for r in expired}
+        self._queue = [r for r in self._queue if r.rid not in rids]
+        for req in expired:
+            self._finalize(req, TIMEOUT, "deadline exceeded")
+
+    def _expire_all(self, why: str) -> None:
+        """The ``run(max_wall=...)`` watchdog: end everything ``TIMEOUT``."""
+        remaining = [r for r in self._slots if r is not None]
+        remaining += list(self._queue)
+        self._queue = []
+        for req in remaining:
+            self._finalize(req, TIMEOUT, why)
+
+    # ---------------------------------------------------------- scheduling
+    @staticmethod
+    def _slack_key(req: Request, now: float):
+        """Deadline slack ascending; requests without a deadline tie at
+        +inf and keep submission order among themselves."""
+        slack = (req.deadline - now) if req.deadline is not None \
+            else float("inf")
+        return (slack, req.rid)
+
+    def _pages_needed(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_new_tokens)
+                 // self.pool.page_size)
+
+    def _admission_order(self) -> List[Request]:
+        """This step's admission order, computed once a step."""
+        now = time.perf_counter()
+        return sorted(self._queue, key=lambda r: self._slack_key(r, now))
+
+    def _needs_prefill_unit(self, req: Request) -> bool:
+        """Would admitting ``req`` run a whole prefill (the step's unit)?
+        A chunked admission only parks a cursor."""
+        return not (self.chunk
+                    and len(req.prompt) + len(req.tokens) > self.chunk)
+
+    def _next_admission(self, order: List[Request]) -> Optional[Request]:
+        """The slack head of ``order`` when the pool has its pages, else
+        None: the head waits, and nothing passes it."""
+        head = order[0]
+        if self._pages_needed(head) <= self.pool.free_page_count():
+            return head
+        return None
+
+    def _maybe_migrate(self, order: List[Request]) -> None:
+        """Pick the smallest rung covering demand: the active requests plus
+        the queued ones the pool could admit, in admission order. Growth is
+        immediate; a shrink waits ``bucket_patience`` steps of lower
+        demand."""
+        if len(self.ladder) == 1:
+            return
+        active = sum(1 for r in self._slots if r is not None)
+        free = self.pool.free_page_count()
+        admittable = 0
+        for req in order[:self.max_batch]:
+            need = self._pages_needed(req)
+            if need > free:
+                break
+            free -= need
+            admittable += 1
+        demand = max(1, min(active + admittable, self.max_batch))
+        target = next(r for r in self.ladder if r >= demand)
+        if target > self.bucket:
+            self._migrate(target)
+            self._shrink_wait = 0
+        elif target < self.bucket:
+            self._shrink_wait += 1
+            if self._shrink_wait >= self.bucket_patience:
+                self._migrate(target)
+                self._shrink_wait = 0
         else:
-            logits = x @ p[spec["embed"]].T
-        return logits.float()
+            self._shrink_wait = 0
 
-    @torch.inference_mode()
-    def _decode_fused(self, toks, pools, bt, sl):
-        """Embedding lookup, one fused block kernel per layer, final norm
-        and LM head."""
-        spec, p = self._spec, self._params
-        x = p[spec["embed"]][toks[:, 0]]
-        states = []
-        for i, lw in enumerate(spec["layers"]):
-            w = BlockDecodeWeights(**{f: p[n] for f, n in lw.items()})
-            kp, vp = pools[i]
-            x, kp, vp = fused_block_decode(
-                x, w, kp, vp, bt, sl, num_heads=spec["num_heads"],
-                num_kv_heads=spec["num_kv_heads"],
-                rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
-            states.append(PagedDecodeState(kp, vp, bt, sl))
-        return self._head(x, spec, p), states
+    def _migrate(self, target: int) -> None:
+        """Move the decode batch to rung ``target``. A shrink compacts the
+        live requests into the low slots (block-table row moves; no page is
+        copied); growth widens the next decode."""
+        if target < self.bucket:
+            dst = 0
+            for s in range(target, self.max_batch):
+                req = self._slots[s]
+                if req is None:
+                    continue
+                while self._slots[dst] is not None:
+                    dst += 1        # always < target: target covers active
+                self.pool.move_sequence(s, dst)
+                self._last_tok[dst] = self._last_tok[s]
+                self._slots[dst] = req
+                self._slots[s] = None
+                req.slot = dst
+        self.bucket = target
+        self.bucket_migrations += 1
 
-    @torch.inference_mode()
-    def _decode_fused_nlayer(self, toks, pools, bt, sl):
-        """Embedding lookup, one N-layer fused kernel per layer group over
-        the stacked weights, final norm and LM head."""
-        spec, p = self._spec, self._params
-        x = p[spec["embed"]][toks[:, 0]]
-        states = []
-        for group, weights in zip(spec["layer_groups"], self._stacked):
-            x, kps, vps = fused_multi_block_decode(
-                x, weights, [pools[i][0] for i in group],
-                [pools[i][1] for i in group], bt, sl,
-                num_heads=spec["num_heads"],
-                num_kv_heads=spec["num_kv_heads"],
-                rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
-            states.extend(PagedDecodeState(kp, vp, bt, sl)
-                          for kp, vp in zip(kps, vps))
-        return self._head(x, spec, p), states
+    def _preempt_for(self, order: List[Request]) -> None:
+        """When the slack head has a deadline with slack inside the horizon
+        and cannot admit (no free slot in the rung, or too few free pages),
+        unseat the slackest running request whose slack exceeds the head's
+        by more than the margin, until the head can admit or no request
+        qualifies. A victim replays later from prompt + tokens; each is
+        unseated at most ``preempt_budget`` times."""
+        if not self.preempt_enabled or not order:
+            return
+        head = order[0]
+        if head.deadline is None:
+            return
+        now = time.perf_counter()
+        head_slack = head.deadline - now
+        if head_slack > self.preempt_horizon:
+            return
+        while True:
+            free_slots = self._slots[:self.bucket].count(None)
+            if (free_slots and self._pages_needed(head)
+                    <= self.pool.free_page_count()):
+                return
+            victim, best = None, (-1.0, -1)
+            for r in self._slots:
+                if (r is None or r.rid == head.rid
+                        or r.preempts >= self.preempt_budget):
+                    continue
+                slack = ((r.deadline - now) if r.deadline is not None
+                         else float("inf"))
+                if slack <= head_slack + self.preempt_margin:
+                    continue
+                if (slack, r.rid) > best:
+                    best, victim = (slack, r.rid), r
+            if victim is None:
+                return
+            self._unseat(victim)
 
-    @torch.inference_mode()
-    def _decode_generic(self, toks, pools, bt, sl):
-        """The model's cached forward; per-slot positions from seq_lens."""
-        logits, states = self.model.forward_with_cache(
-            toks, self._states(pools, bt, sl), None)
-        return logits[:, -1].float(), states
+    def _unseat(self, req: Request) -> None:
+        """Return a running request to the queue as host state: its slot
+        and pages go back, its tokens and deadline stay."""
+        slot = req.slot
+        self.pool.free_sequence(slot)
+        self._slots[slot] = None
+        self._last_tok[slot] = 0
+        self._to_replay_form(req)
+        req.preempts += 1
+        self.preemptions += 1
+        self._queue.append(req)
 
+    # ---------------------------------------------------------------- step
     def step(self) -> None:
-        """One scheduler round: admit into free slots in submission order,
-        spend at most one prefill-compute unit (a whole-prompt prefill or a
-        chunk; when both wait they take turns), then decode one token for
-        every slot past its prefill."""
-        order = sorted(self._queue, key=lambda r: r.rid)
+        """One scheduler round: deadline sweep, bucket migration, SLO
+        preemption, admission, at most one prefill-compute unit, one decode
+        at the current rung. Streaming callbacks run after it, also when
+        it raised."""
+        try:
+            self._step_inner()
+        finally:
+            self._drain_events()
+
+    def _step_inner(self) -> None:
+        self._sweep_deadlines()
+        order = self._admission_order() if self._queue else []
+        self._maybe_migrate(order)
+        # before the fill: a victim's slot admits the head this step
+        self._preempt_for(order)
         chunk_pending = any(r is not None and r.prefill_pos is not None
                             for r in self._slots)
         did_prefill = chunk_ran_first = False
@@ -436,15 +1032,14 @@ class ServingEngine:
         for slot in range(self.bucket):
             if self._slots[slot] is not None or not order:
                 continue
-            head = order[0]
-            need = self._pages_needed(len(head.prompt), head.max_new_tokens)
-            if need > self.pool.free_page_count():
+            req = self._next_admission(order)
+            if req is None:
                 break           # the head waits for pages, order kept
-            if did_prefill and not self._chunked(head):
+            if did_prefill and self._needs_prefill_unit(req):
                 break           # the unit is spent: it admits next step
-            order.pop(0)
-            self._queue.remove(head)
-            did_prefill |= self._admit(head, slot)
+            order.remove(req)
+            self._queue.remove(req)
+            did_prefill |= self._admit(req, slot)
         admission_used_unit = did_prefill and not chunk_ran_first
         if not did_prefill:
             self._chunk_step()
@@ -454,20 +1049,13 @@ class ServingEngine:
                    for r in self._slots):
             return
         b = self.bucket
-        bt = self._tensor(self.pool.block_tables[:b])
-        sl = self._tensor(self.pool.seq_lens[:b])
-        toks = self._tensor(self._last_tok[:b, None])
+        fn = self._decode_program(b)
         t0 = time.perf_counter()
         pools = self.pool.take_pools()
-        if self._spec is None:
-            decode = self._decode_generic
-        elif self._stacked is None:
-            decode = self._decode_fused
-        else:
-            decode = self._decode_fused_nlayer
-        logits, states = decode(toks, pools, bt, sl)
-        self._store(states)
-        next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        toks, logits, pairs = fn(self._last_tok[:b, None],
+                                 self.pool.block_tables[:b],
+                                 self.pool.seq_lens[:b], pools)
+        self.pool.install_pools(pairs)
         now = time.perf_counter()
         self.decode_step_seconds.append(now - t0)
         for slot, req in enumerate(self._slots):
@@ -476,6 +1064,6 @@ class ServingEngine:
                 # cursor position (the next chunk overwrites it): ignored
                 continue
             self.pool.seq_lens[slot] += 1
-            tok = int(next_toks[slot])
+            tok = int(toks[slot])
             self._last_tok[slot] = tok
-            self._append(req, tok, logits[slot])
+            self._take_token(req, tok, logits[slot], now)

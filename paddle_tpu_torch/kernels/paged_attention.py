@@ -598,6 +598,22 @@ class PagedKVCache:
             self.block_tables[seq_idx, i] = self._free.pop()
             self._pages_used[seq_idx] = i + 1
 
+    def move_sequence(self, src: int, dst: int) -> None:
+        """Move slot ``src``'s block-table row, length and page count to the
+        empty slot ``dst`` (the bucket ladder's shrink): host bookkeeping
+        only, no page is copied."""
+        if self._pages_used[dst] or self.seq_lens[dst]:
+            raise RuntimeError(
+                f"move_sequence: destination slot {dst} is not empty")
+        n = int(self._pages_used[src])
+        self.block_tables[dst, :n] = self.block_tables[src, :n]
+        self.block_tables[dst, n:] = 0
+        self.seq_lens[dst] = self.seq_lens[src]
+        self._pages_used[dst] = self._pages_used[src]
+        self.block_tables[src, :n] = 0
+        self.seq_lens[src] = 0
+        self._pages_used[src] = 0
+
     def free_sequence(self, seq_idx: int) -> None:
         n = int(self._pages_used[seq_idx])
         self._free.extend(int(p) for p in self.block_tables[seq_idx, :n])

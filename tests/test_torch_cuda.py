@@ -1566,3 +1566,147 @@ def test_remat_matches_no_remat_on_the_card(dev):
     assert grads[0][0] == grads[1][0]
     for n, t in grads[0][1].items():
         assert torch.equal(t, grads[1][1][n]), n
+
+
+# ------------------------------------------------- decode programs as graphs
+GRAPH_ROUTES = {"fused": ({}, {}), "generic": ({"fused_block_decode": False},
+                                               {}),
+                "nlayer-int8-int4": ({"fused_block_layers": 2},
+                                     dict(kv_dtype="int8",
+                                          weight_dtype="int4"))}
+
+
+def _graph_engine(dev, route, model=None, **kw):
+    """A tiny GQA Llama engine in bf16 on the card (ladder (2, 4), patience
+    2) under ``route``'s flags and options."""
+    from paddle_tpu_torch import flags
+    flag_values, opts = GRAPH_ROUTES[route]
+    if model is None:
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device=dev,
+                                 dtype=torch.bfloat16,
+                                 generator=seed(3, dev))
+    flags.set_flags(dict(flag_values, serving_bucket_patience=2))
+    try:
+        return ServingEngine(model, **{
+            **dict(max_batch=4, page_size=8, max_seq_len=48,
+                   prefill_chunk=0, bucket_ladder=(2, 4)), **opts, **kw})
+    finally:
+        flags.reset_flags()
+
+
+def _graph_prompts(vocab, lens=(5, 9, 13, 7, 6, 11)):
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+def _ladder_run(eng):
+    ps = _graph_prompts(eng.model.config.vocab_size)
+    rids = [eng.submit(p, 6) for p in ps[:2]]
+    eng.step()
+    eng.step()
+    rids += [eng.submit(p, 6) for p in ps[2:]]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_decode_graph_one_capture_per_rung(dev, route):
+    """Each rung is captured once per engine, whatever the steps and
+    migrations; a second engine over the same model captures each rung
+    once more (the graph binds its pools), and serves the same streams."""
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    clear_decode_program_cache()
+    cache = decode_program_cache()
+    eng = _graph_engine(dev, route)
+    first = _ladder_run(eng)
+    keys = set(eng._decode_keys.values())
+    assert {k.batch_bucket for k in keys} == {2, 4}
+    assert eng.bucket_migrations >= 2
+    assert all(cache.trace_count(k) == 1 for k in keys)
+    assert all(fn.graph is not None for fn in eng._decode_fns.values())
+    again = _graph_engine(dev, route, model=eng.model)
+    assert _ladder_run(again) == first
+    assert set(again._decode_keys.values()) == keys
+    assert all(cache.trace_count(k) == 2 for k in keys)
+
+
+def _clone_pools(pools):
+    return [(_clone(k), _clone(v)) for k, v in pools]
+
+
+def _copy_pools(dst, src):
+    for pair_d, pair_s in zip(dst, src):
+        for d, s in zip(pair_d, pair_s):
+            if isinstance(d, pa.QuantizedPages):
+                d.q.copy_(s.q)
+                d.scale.copy_(s.scale)
+            else:
+                d.copy_(s)
+
+
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_decode_graph_equals_eager_bit_for_bit(dev, route):
+    """On the same inputs and pools, a replay gives the eager step's logits
+    and pool writes, bit for bit (rung 4, one idle row)."""
+    eng = _graph_engine(dev, route, bucket_ladder=(4,))
+    ps = _graph_prompts(eng.model.config.vocab_size)
+    for p in ps[:4]:
+        eng.submit(p, 3)
+    eng.run()
+    graph = eng._decode_fns[4]
+    assert graph.graph is not None
+    for s, n in enumerate((5, 17, 30)):
+        eng.pool.allocate(s, n + 1)
+        eng.pool.seq_lens[s] = n
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, eng.model.config.vocab_size, (4, 1))
+    bt = eng.pool.block_tables[:4].copy()
+    sl = eng.pool.seq_lens[:4].copy()
+    pools = eng.pool.take_pools()
+    saved = _clone_pools(pools)
+    next_g, logits_g, _ = graph(toks, bt, sl, pools)
+    logits_g = logits_g.clone()
+    after_g = _clone_pools(pools)
+    _copy_pools(pools, saved)
+    logits_e, _ = graph.program(
+        graph.weights, torch.from_numpy(toks).to(dev), pools,
+        torch.from_numpy(bt).to(dev), torch.from_numpy(sl).to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(logits_g, logits_e)
+    assert np.array_equal(next_g, logits_e.argmax(-1).cpu().numpy())
+    for (kg, vg), (ke, ve) in zip(after_g, pools):
+        assert _pools_equal(kg, ke) and _pools_equal(vg, ve)
+    eng.pool.install_pools(pools)
+
+
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_decode_graph_replays_count_launches(dev, route):
+    """Launch counts stay exact with replays: layers (or groups) a decode
+    step, prefills a layer each, nothing for the capture."""
+    eng = _graph_engine(dev, route)
+    kernels.reset_launches()
+    _ladder_run(eng)
+    counts = kernels.launch_counts()
+    layers = eng.model.config.num_hidden_layers
+    steps = len(eng.decode_step_seconds)
+    name, n = {"fused": ("fused_block_decode", layers),
+               "generic": ("paged_attention", layers),
+               "nlayer-int8-int4": ("fused_multi_block_decode_int8_int4",
+                                    1)}[route]
+    assert counts[name] == n * steps
+    assert counts["flash_prefill"] == layers * 6
+    assert sum(counts.values()) == n * steps + layers * 6
+
+
+def test_decode_graph_refuses_moved_pools(dev):
+    """A pool replaced after the capture (another address) is refused: the
+    graph would write the old one."""
+    eng = _graph_engine(dev, "fused", bucket_ladder=(4,))
+    p = _graph_prompts(eng.model.config.vocab_size)[0]
+    eng.submit(p, 3)
+    eng.run()
+    eng.pool.k_pages[0] = eng.pool.k_pages[0].clone()
+    eng.submit(p, 3)
+    with pytest.raises(RuntimeError, match="addresses"):
+        eng.run()

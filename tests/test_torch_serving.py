@@ -6,10 +6,12 @@ submitted while the first decode, and a batch of two slots so later
 requests wait for freed slots and recycle freed pages. The greedy token
 streams must be identical, with fused block decode and with the generic
 decode. Every option the port does not serve yet raises
-``NotImplementedError``; the quantized options (int8 KV pool, int4
+``NotImplementedError`` (sampling the JAX engine's ``ValueError``: it needs
+a speculative engine); the quantized options (int8 KV pool, int4
 weights) are taken, and a value no version serves raises ``ValueError``. (Chunked prefill and N-layer decode have their
 own files, ``test_torch_chunk_prefill.py`` and
-``test_torch_nlayer_decode.py``.)
+``test_torch_nlayer_decode.py``; the scheduler, the request surface and
+the bucket ladder ``test_torch_serving_sched.py``.)
 """
 
 import numpy as np
@@ -110,8 +112,6 @@ def test_eos_stops_a_request(models):
     (dict(draft_model=object()), "draft_model"),
     (dict(prefix_cache=True), "prefix cache"),
     (dict(tp_degree=2), "tensor-parallel"),
-    (dict(max_batch=8), "bucket ladder"),
-    (dict(bucket_ladder=(1, 2)), "bucket ladder"),
 ])
 def test_unported_engine_options_raise(models, kwargs, what):
     _, model = models
@@ -140,13 +140,18 @@ def test_unknown_quantized_engine_options_raise(models, name):
 
 @pytest.mark.parametrize("kwargs,what", [
     (dict(temperature=0.7), "sampling"),
-    (dict(deadline=1.0), "deadline"),
 ])
 def test_unported_request_options_raise(models, kwargs, what):
-    _, model = models
+    """Sampling needs a speculative engine, in the port as in the JAX
+    package: both raise the same ValueError."""
+    jmodel, model = models
     eng = ServingEngine(model, **ENGINE)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match="speculative engine") as got:
         eng.submit(_prompts()[0], 2, **kwargs)
+    jeng = JServingEngine(jmodel, **ENGINE)
+    with pytest.raises(ValueError) as want:
+        jeng.submit(_prompts()[0], 2, **kwargs)
+    assert str(got.value) == str(want.value)
 
 
 def test_prompt_longer_than_prefill_chunk_raises(models):

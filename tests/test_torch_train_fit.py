@@ -36,6 +36,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu.hapi.callbacks as jcb
 import paddle_tpu.io as jio
+from paddle_tpu.framework.io import load as jload
 from paddle_tpu.framework.io import save as jsave
 from paddle_tpu.hapi import Model as JModel
 from paddle_tpu.hapi import TrainStep as JTrainStep
@@ -446,3 +447,28 @@ def test_load_reads_a_jax_written_checkpoint(tmp_path):
          str(tmp_path / "t.pd"))
     back = load(str(tmp_path / "t.pd"))
     assert back["w"].dtype == torch.bfloat16 and back["n"] == [1, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_jax_load_reads_a_port_written_checkpoint(tmp_path, dtype):
+    """A port-written file is the JAX package's format: its ``load`` gives
+    the same values (bf16 as bf16), a parameter as a Parameter, and nested
+    containers as they were; the port reads the file back too."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.nn.Parameter(torch.randn(5, 7, generator=g).to(dtype))
+    obj = {"w": w, "m": [torch.randn(3, generator=g).to(dtype), 4],
+           "step": 2}
+    path = str(tmp_path / "port.pdparams")
+    save(obj, path)
+    got = jload(path)
+    assert isinstance(got["w"], paddle.Parameter)
+    assert got["m"][1] == 4 and got["step"] == 2
+    for j, t in ((got["w"], w), (got["m"][0], obj["m"][0])):
+        assert str(j.dtype) == str(t.dtype).replace("torch.", "")
+        np.testing.assert_array_equal(
+            np.asarray(j.astype("float32").numpy()),
+            t.detach().float().numpy())
+    back = load(path)
+    assert torch.equal(back["w"], w.detach()) and back["m"][1] == 4
+    assert back["w"].dtype == dtype
