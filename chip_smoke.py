@@ -48,6 +48,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               streams must be identical), then one per layer on an int8
               pool and one per group on an int8 pool with int4 weights
               (the first tokens must be identical); launch counts exact;
+              the chunks run as the engine's CUDA graph;
      sched    the scheduler on the same model: max_batch 8 under the
               default bucket ladder (rungs 4 and 8, shrink patience 2), 12
               prompts of 17 to 256 tokens, half submitted after 6 steps:
@@ -65,6 +66,26 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               on_token once a token and once at the end, run_step / poll /
               take_results equal to run); the victims' streams against an
               uninterrupted run are reported;
+     prefix   the prefix cache on serve_long's configuration: one seeded
+              2048-token prefix (32 pages) under 8 requests of 32 new
+              tokens, the first cold (its prompt in 10 chunks from 0),
+              three arriving once it has its first token, four 6 steps
+              later; every request OK, each hit adopting 32 pages, the
+              suffixes over two pages chunked from cursor 2048 in
+              ceil(suffix / 256) chunks and the others teacher-forced,
+              exact launches; the same traffic with prefix_cache=False
+              for the chunks and #4 launches saved, the TTFTs and the
+              streams' agreement (first differing token, top-2 margins);
+              the engine's chunk graph against the eager chunk program
+              (logits row and pool writes bit for bit, the same
+              launches) with both times, the replay's and each call's
+              host seconds; a cached page spilled to pinned host memory
+              and restored into another page, bit for bit and in place,
+              each timed against the chunk compute a page; then the host
+              tier: one slot, 34 device pages, 96 host pages, a second
+              prefix spilling the first and a repeat of the first
+              restoring its 32 pages, the streams equal to a pool that
+              never spills;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -75,7 +96,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               then the sched phase's ladder and preemption on this fp32
               model: a migrating run equal to a fixed (8,) run, and every
               stream of the preemption run equal to the same request's
-              without the arrival, token for token;
+              without the arrival, token for token; then the prefix
+              phase's traffic, the hits' streams equal to the cold
+              run's, token for token;
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -1000,6 +1023,8 @@ def run_serve(device):
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     counts = run_sched(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    counts = run_prefix(model)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
     del model
     torch.cuda.empty_cache()
     return total
@@ -1402,6 +1427,369 @@ def run_sched_parity(model):
          phase_seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------- prefix
+# the prefix cache on serve_long's configuration (max_batch 4, pages of 64,
+# a 4096-token context, 256-token chunks): one shared 2048-token prefix (32
+# pages) and 8 requests of 32 new tokens. The first is cold (its whole
+# prompt in chunks from 0); of the others, the suffixes over two pages are
+# chunked from the adopted cursor (2048) and the rest are teacher-forced
+# through the decode step. Three arrive once the cold one has its first
+# token, four PREFIX_STAGGER steps later.
+PREFIX_LEN, PREFIX_STAGGER = 2048, 6
+PREFIX_SUFFIXES = (300, 17, 511, 40, 760, 77, 1000, 120)
+# the host tier: one slot, a pool of TIER_PAGES - 1 usable pages (below two
+# prefixes and a live sequence), TIER_HOST_PAGES host pages, requests of a
+# prefix and TIER_SUFFIX tokens: prefix A, prefix B (spills A), A again
+# (restores it); against a pool that holds everything
+TIER_PAGES, TIER_ROOMY_PAGES, TIER_HOST_PAGES, TIER_SUFFIX = 35, 129, 96, 64
+SPILL_ITERS = 8
+
+
+def prefix_prompts(vocab, suffixes=None, seed=11):
+    """Prompts of one seeded PREFIX_LEN-token prefix and seeded suffixes
+    (PREFIX_SUFFIXES by default)."""
+    rng = np.random.default_rng(SEED + seed)
+    prefix = rng.integers(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+    return [np.concatenate([prefix, rng.integers(0, vocab, (n,))])
+            .astype(np.int32) for n in suffixes or PREFIX_SUFFIXES]
+
+
+def prefix_engine(model, prefix_cache, **kw):
+    """A ServingEngine on serve_long's pages, context and chunk that
+    records each shared admission's (pages, cursor) and each request's
+    chunks, by rid."""
+    from paddle_tpu_torch.generation.serving import ServingEngine
+
+    class Engine(ServingEngine):
+        def _admit_shared(self, req, slot, pages, n_cached):
+            self.adopted[req.rid] = (len(pages), n_cached)
+            super()._admit_shared(req, slot, pages, n_cached)
+
+        def _prefill_chunk(self, req):
+            self.chunks_by_rid[req.rid] = (
+                self.chunks_by_rid.get(req.rid, 0) + 1)
+            super()._prefill_chunk(req)
+
+    kw = dict(dict(max_batch=BATCH, max_seq_len=LONG_MAX_SEQ), **kw)
+    eng = Engine(model, page_size=PAGE, prefill_chunk=CHUNK,
+                 prefix_cache=prefix_cache, **kw)
+    eng.adopted, eng.chunks_by_rid = {}, {}
+    return eng
+
+
+def prefix_traffic(eng, vocab, new_tokens):
+    """The cold request, three hits once it has its first token, four
+    PREFIX_STAGGER steps later. Returns (rids, prompts, streams, statuses,
+    seconds, launch counts)."""
+    from paddle_tpu_torch import kernels
+    ps = prefix_prompts(vocab)
+    half = len(ps) // 2
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(ps[0], new_tokens)]
+    while not eng.poll(rids[0])["tokens"]:
+        eng.step()
+    rids += [eng.submit(p, new_tokens) for p in ps[1:half]]
+    for _ in range(PREFIX_STAGGER):
+        eng.step()
+    rids += [eng.submit(p, new_tokens) for p in ps[half:]]
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (rids, ps, [out[r] for r in rids], [eng.status(r) for r in rids],
+            seconds, kernels.launch_counts())
+
+
+def prefix_run(model, prefix_cache, new_tokens, record_logits=False):
+    """One engine through prefix_traffic after a warm-up (one whole and
+    one chunked prompt of another prefix: library loads, the chunk and
+    decode captures), its probes cleared. Returns (engine, rids, prompts,
+    streams, seconds, launch counts)."""
+    eng = prefix_engine(model, prefix_cache, record_logits=record_logits)
+    for p in prompts(model.config.vocab_size, (9, CHUNK + 9)):
+        eng.submit(p, 2)
+    eng.run()
+    for probe in (eng.decode_step_seconds, eng.prefill_seconds,
+                  eng.ttft_seconds, eng.logits, eng.adopted,
+                  eng.chunks_by_rid):
+        probe.clear()
+    eng.chunk_dispatches = 0
+    rids, ps, streams, statuses, seconds, counts = prefix_traffic(
+        eng, model.config.vocab_size, new_tokens)
+    require(statuses == ["OK"] * len(rids), f"prefix: statuses {statuses}")
+    return eng, rids, ps, streams, seconds, counts
+
+
+def hit_routes(eng, rids):
+    """Require each hit's adoption (32 pages at the prefix's end) and its
+    chunks (ceil(suffix / CHUNK) above two pages, none below; the cold
+    request its whole prompt's); returns the chunks the run should have."""
+    pages = PREFIX_LEN // PAGE
+    want_chunks = 0
+    for i, (rid, n) in enumerate(zip(rids, PREFIX_SUFFIXES)):
+        if i == 0:
+            require(rid not in eng.adopted, "prefix: the cold request hit")
+            want = -(-(PREFIX_LEN + n) // CHUNK)
+        else:
+            require(eng.adopted.get(rid) == (pages, PREFIX_LEN),
+                    f"prefix: request {rid} adopted {eng.adopted.get(rid)}")
+            want = -(-n // CHUNK) if n > 2 * PAGE else 0
+        got = eng.chunks_by_rid.get(rid, 0)
+        require(got == want, f"prefix: request {rid} (suffix {n}) ran "
+                f"{got} chunks, want {want}")
+        want_chunks += want
+    require(eng.chunk_dispatches == want_chunks,
+            f"prefix: {eng.chunk_dispatches} chunks, want {want_chunks}")
+    return want_chunks
+
+
+def page_rows(pool, pid):
+    return [t[:, pid].clone() for half in (pool.k_pages, pool.v_pages)
+            for layer in half for t in
+            ((layer,) if isinstance(layer, torch.Tensor)
+             else (layer.q, layer.scale))]
+
+
+def spill_restore(eng, chunk_ms):
+    """Spill a cached page of the engine's pool and restore it into a free
+    one: equal bit for bit, the pools at their addresses; then the median
+    ms of a spill and of a restore (SPILL_ITERS each, synchronised)."""
+    from paddle_tpu_torch.generation.serving import _pool_ptrs
+    pool = eng.pool
+    ptrs = _pool_ptrs(zip(pool.k_pages, pool.v_pages))
+    pid = next(n["page"] for n in eng._prefix._nodes.values()
+               if n["host"] is None)
+    want = page_rows(pool, pid)
+    new = pool.take_free_page()
+    spill_s, restore_s = [], []
+    for _ in range(SPILL_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = pool.spill_page(pid)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pool.restore_page(host, new)
+        torch.cuda.synchronize()
+        spill_s.append(t1 - t0)
+        restore_s.append(time.perf_counter() - t1)
+        got = page_rows(pool, new)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                "prefix: a restored page differs from the spilled one")
+    pool.unref_page(new)
+    require(_pool_ptrs(zip(pool.k_pages, pool.v_pages)) == ptrs
+            and pool.ledger()["pages_spilled"] == 0,
+            "prefix: spill / restore moved the pools or the count")
+    spill_ms = 1e3 * float(np.median(spill_s))
+    restore_ms = 1e3 * float(np.median(restore_s))
+    return dict(bytes_per_page=pool.bytes_per_page,
+                spill_ms_per_page=spill_ms, restore_ms_per_page=restore_ms,
+                spill_gb_per_s=pool.bytes_per_page / spill_ms / 1e6,
+                restore_gb_per_s=pool.bytes_per_page / restore_ms / 1e6,
+                chunk_ms_per_page=chunk_ms * PAGE / CHUNK,
+                pages_bit_equal=True)
+
+
+def chunk_graph_vs_eager(eng):
+    """The engine's chunk graph against the eager program it captured: a
+    256-token chunk at cursor PREFIX_LEN of a fresh slot, logits row and
+    pool writes bit for bit, the same launches counted; then the chunk's
+    time graphed and eager (CUDA events around 20 calls), the replays
+    alone, and each call's host seconds."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.generation.serving import _EagerChunk
+    graph = eng._chunk_fn
+    require(graph.graph is not None, "prefix: the chunk was not captured")
+    vocab = eng.model.config.vocab_size
+    eng.pool.allocate(0, PREFIX_LEN + CHUNK)
+    ids = np.random.default_rng(SEED).integers(0, vocab, (1, CHUNK))
+    bt = eng.pool.block_tables[:1].copy()
+    sl = np.array([PREFIX_LEN], np.int32)
+    last = np.array([CHUNK - 1], np.int64)
+    pools = eng.pool.take_pools()
+    saved = [(clone_pool(k), clone_pool(v)) for k, v in pools]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    row_g, tok_g, _ = graph(ids, bt, sl, last, pools)
+    row_g, tok_g = row_g.clone(), int(tok_g)
+    replay_counts = kernels.launch_counts()
+    after_g = [(clone_pool(k), clone_pool(v)) for k, v in pools]
+    for pair, pair_saved in zip(pools, saved):
+        for dst, src in zip(pair, pair_saved):
+            copy_pool(dst, src)
+    kernels.reset_launches()
+    row_e, _ = graph.run((ids, bt, sl, last), pools)
+    torch.cuda.synchronize()
+    require(replay_counts == kernels.launch_counts(),
+            f"prefix chunk graph: a replay counted {replay_counts}")
+    require(torch.equal(row_g, row_e) and tok_g == int(row_e.argmax()),
+            f"prefix chunk graph: logits differ by {max_err(row_g, row_e)}")
+    require(all(pool_equal(a, b) for pg, pe in zip(after_g, pools)
+                for a, b in zip(pg, pe)),
+            "prefix chunk graph: pool writes differ")
+
+    def graphed():
+        graph(ids, bt, sl, last, pools)
+
+    def eager():
+        _EagerChunk.__call__(graph, ids, bt, sl, last, pools)
+
+    def host_s(fn):
+        out = []
+        for _ in range(GRAPH_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return float(np.median(out))
+
+    row = dict(graphed_chunk_ms=time_ms(graphed, iters=GRAPH_ITERS),
+               eager_chunk_ms=time_ms(eager, iters=GRAPH_ITERS),
+               replay_ms=time_ms(graph.graph.replay, iters=GRAPH_ITERS),
+               graphed_chunk_host_s=host_s(graphed),
+               eager_chunk_host_s=host_s(eager),
+               chunk_logits_bit_equal=True, chunk_pools_bit_equal=True,
+               launches_per_chunk=replay_counts)
+    eng.pool.install_pools(pools)
+    eng.pool.free_sequence(0)
+    del saved, after_g
+    return row
+
+
+def tier_run(model, num_pages, host_pages):
+    """Prefix A, prefix B, A again (TIER_SUFFIX-token suffixes, NEW_TOKENS
+    each) through one slot. Returns (engine, streams, A's spilled pages
+    once B is seated, restores, A again's adoption)."""
+    vocab = model.config.vocab_size
+    a_first, a_again = prefix_prompts(vocab, (TIER_SUFFIX,) * 2, seed=21)
+    (b_first,) = prefix_prompts(vocab, (TIER_SUFFIX,), seed=22)
+    eng = prefix_engine(model, True, max_batch=1, num_pages=num_pages,
+                        host_tier_pages=host_pages)
+    restores, restore = [0], eng.pool.restore_page
+
+    def counted(*args):
+        restores[0] += 1
+        return restore(*args)
+    eng.pool.restore_page = counted
+    streams, spilled = [], None
+    for p in (a_first, b_first, a_again):
+        rid = eng.submit(p, NEW_TOKENS)
+        eng.step()
+        if p is b_first:
+            spilled = eng._prefix.spilled_page_count()
+        streams.append(eng.run()[rid])
+    return eng, streams, spilled, restores[0], eng.adopted.get(rid)
+
+
+def run_prefix(model) -> dict:
+    """The prefix phase (serve_long's configuration, the shared prefix):
+    exact launches, every request OK, each hit's adoption and chunks; the
+    cold run (prefix_cache=False) for the chunks and launches saved and
+    the bf16 agreement; the chunk graph against eager; spill / restore bit
+    for bit and timed; the host tier spilling prefix A for B and restoring
+    it, its streams equal to a pool that holds everything. Returns the
+    cached run's launch counts."""
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    eng, rids, ps, streams, seconds, counts = prefix_run(
+        model, True, NEW_TOKENS, record_logits=True)
+    check_tokens(list(zip(rids, ps, streams)), cfg.vocab_size, NEW_TOKENS)
+    chunks = hit_routes(eng, rids)
+    steps = len(eng.decode_step_seconds)
+    require_launches(counts, expected_launches(
+        counts, layers, steps, 0, chunks, True, 1, "native", "native"),
+        "prefix")
+    ledger = eng.pool.ledger()
+    require(ledger["pages_in_use"] == len(eng._prefix._nodes)
+            and ledger["pages_shared"] == 0
+            and eng._prefix.pinned_page_count() == 0,
+            f"prefix: the pool after drain {ledger}")
+    ttft = [1e3 * eng.ttft_seconds[r] for r in rids]
+    cold, c_rids, _, c_streams, c_seconds, c_counts = prefix_run(
+        model, False, NEW_TOKENS, record_logits=True)
+    c_chunks = sum(-(-(PREFIX_LEN + n) // CHUNK) for n in PREFIX_SUFFIXES)
+    require(cold.chunk_dispatches == c_chunks,
+            f"prefix cold: {cold.chunk_dispatches} chunks, want {c_chunks}")
+    c_ttft = [1e3 * cold.ttft_seconds[r] for r in c_rids]
+    diffs = []
+    for r, cr, a, b in zip(rids, c_rids, streams, c_streams):
+        j = first_difference(a, b)
+        if j is not None:
+            diffs.append(dict(request=r, token=j, hit=a[j], cold=b[j],
+                              hit_top2_margin=top2_margin(eng.logits[r][j]),
+                              cold_top2_margin=top2_margin(
+                                  cold.logits[cr][j])))
+    del cold
+    torch.cuda.empty_cache()
+    graph_row = chunk_graph_vs_eager(eng)
+    spill_row = spill_restore(eng, graph_row["graphed_chunk_ms"])
+    gen = sum(len(t) for t in streams)
+    emit("prefix", model="llama2_7b", layers=layers, dtype="bf16",
+         batch=BATCH, page_size=PAGE, max_seq_len=LONG_MAX_SEQ,
+         prefill_chunk=CHUNK, prefix_tokens=PREFIX_LEN,
+         suffixes=list(PREFIX_SUFFIXES), new_tokens=NEW_TOKENS,
+         requests=len(rids), generated=gen, seconds=seconds,
+         tokens_per_s=gen / seconds, cold_run_seconds=c_seconds,
+         ttft_ms_cold_request=ttft[0],
+         ttft_ms_hits_median=float(np.median(ttft[1:])),
+         cold_run_ttft_ms_same_requests_median=float(np.median(c_ttft[1:])),
+         pages_adopted=sum(n for n, _ in eng.adopted.values()),
+         chunks=eng.chunk_dispatches, cold_run_chunks=c_chunks,
+         chunks_saved=c_chunks - eng.chunk_dispatches,
+         prefill_launches_saved=(c_counts["paged_chunk_attention"]
+                                 - counts["paged_chunk_attention"]),
+         decode_steps=steps,
+         decode_step_ms_median=1e3 * float(
+             np.median(eng.decode_step_seconds)),
+         ledger_after_drain=ledger, cached_nodes=len(eng._prefix._nodes),
+         hit_vs_cold_streams_equal=len(rids) - len(diffs),
+         hit_vs_cold_first_differences=diffs, launches=counts,
+         **graph_row, **spill_row)
+    del eng
+    torch.cuda.empty_cache()
+    # the host tier: B spills A, A again restores it
+    tier, t_streams, spilled, restores, adopted = tier_run(
+        model, TIER_PAGES, TIER_HOST_PAGES)
+    pages = PREFIX_LEN // PAGE
+    require(spilled >= pages, f"prefix tier: B spilled {spilled} pages")
+    require(restores == pages and adopted == (pages, PREFIX_LEN),
+            f"prefix tier: {restores} restores, adopted {adopted}")
+    t_ledger = tier.pool.ledger()
+    del tier
+    roomy, r_streams, r_spilled, r_restores, _ = tier_run(
+        model, TIER_ROOMY_PAGES, 0)
+    require(r_spilled == 0 and r_restores == 0, "prefix tier: roomy spilled")
+    require(t_streams == r_streams, "prefix tier: streams from restored "
+            "pages differ from resident pages'")
+    del roomy
+    torch.cuda.empty_cache()
+    emit("prefix", part="host tier", dtype="bf16", device_pages=TIER_PAGES - 1,
+         host_tier_pages=TIER_HOST_PAGES, prefixes=2, suffix=TIER_SUFFIX,
+         spilled_when_b_seated=spilled, restored_for_a_again=restores,
+         streams_equal_to_resident=True, ledger_after_drain=t_ledger,
+         phase_seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def run_prefix_parity(model):
+    """The fp32 parity model: the prefix traffic's hit streams equal the
+    cold engine's (prefix_cache=False), token for token."""
+    t_phase = time.perf_counter()
+    eng, rids, _, streams, _, _ = prefix_run(model, True, PARITY_NEW_TOKENS)
+    hit_routes(eng, rids)
+    del eng
+    _, _, _, cold, _, _ = prefix_run(model, False, PARITY_NEW_TOKENS)
+    require(streams == cold, "prefix parity: hit streams differ from cold "
+            f"ones: {streams} / {cold}")
+    emit("prefix", part="parity", model="llama2_7b width, 2 layers",
+         dtype="fp32", hit_streams_equal_cold=True, requests=len(rids),
+         new_tokens=PARITY_NEW_TOKENS,
+         phase_seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- parity
 def run_parity(device):
     from paddle_tpu_torch.device import seed
@@ -1452,6 +1840,7 @@ def run_parity(device):
              launches=counts)
         del eng
     run_sched_parity(model)
+    run_prefix_parity(model)
     del model
     torch.cuda.empty_cache()
 

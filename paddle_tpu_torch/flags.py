@@ -74,6 +74,11 @@ _FLAGS: Dict[str, tuple] = {
     "serving_preempt_budget": (2, _any),
     "serving_preempt_horizon": (1.0, _any),
     "serving_preempt_margin": (0.0, _any),
+    # host-memory KV tier of the prefix cache, in pages (0: off): eviction
+    # pressure spills cold cache-only pages to host memory instead of
+    # dropping them, and a prefix hit restores them; past the budget the
+    # coldest spilled pages drop
+    "serving_kv_host_tier_pages": (0, _any),
     # dispatched-but-unread train steps TrainStep keeps before it waits
     "train_max_in_flight": (32, _at_least_one("train_max_in_flight")),
 }

@@ -1,21 +1,21 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``paddle_tpu/generation/serving.py`` (``ServingEngine``'s
-scheduler and request surface). Requests admit into free batch slots as
-they open, in deadline-slack order (tightest first; requests without a
-deadline keep submission order among themselves). A prompt of at most
-``prefill_chunk`` tokens (or any prompt with chunking off,
-``prefill_chunk=0``) is prefilled whole into the paged pool at admission; a
-longer one parks on a cursor and is prefilled one fixed-size chunk per step
-(``PagedChunkState``: the chunk attends to the written prefix plus itself).
-Each step spends at most one prefill-compute unit (one whole prefill or one
-chunk), alternating between new admissions and in-flight chunks when both
-wait. Every step then decodes one greedy token for every slot past its
-prefill, at the current rung of the batch-bucket ladder, with per-slot
-ragged lengths; idle slots write into the reserved null page and
-mid-prefill slots write at their cursor (the next chunk overwrites it), and
-both outputs are ignored. Finished sequences return their pages to the
-pool.
+scheduler, request surface and prefix cache). Requests admit into free
+batch slots as they open, in deadline-slack order (tightest first;
+requests without a deadline keep submission order among themselves). A
+prompt of at most ``prefill_chunk`` tokens (or any prompt with chunking
+off, ``prefill_chunk=0``) is prefilled whole into the paged pool at
+admission; a longer one parks on a cursor and is prefilled one fixed-size
+chunk per step (``PagedChunkState``: the chunk attends to the written
+prefix plus itself). Each step spends at most one prefill-compute unit
+(one whole prefill or one chunk), alternating between new admissions and
+in-flight chunks when both wait. Every step then decodes one greedy token
+for every slot past its prefill, at the current rung of the batch-bucket
+ladder, with per-slot ragged lengths; idle slots write into the reserved
+null page and mid-prefill slots write at their cursor (the next chunk
+overwrites it), and both outputs are ignored. Finished sequences return
+their pages to the pool.
 
 Around that core, as in the JAX package:
 
@@ -36,17 +36,31 @@ Around that core, as in the JAX package:
   live block-table rows into the low slots (``bucket_migrations`` counts);
 - SLO preemption (``FLAGS_serving_preempt``): a waiting request whose
   deadline is in danger unseats the slackest running one, which replays
-  later (``preemptions`` counts).
+  later (``preemptions`` counts);
+- the prefix cache (``prefix_cache=True``, :class:`PrefixCache`): the full
+  prompt pages of every prefilled request stay cached, and a later request
+  with the same page-aligned prefix adopts them read-only instead of
+  prefilling them. A short remaining suffix is teacher-forced through the
+  decode step, a long one (more than two pages, chunking on) is prefilled
+  in chunks from the adopted cursor. A page-blocked head first evicts
+  cached pages, then may be passed (boundedly) by a request whose prefix is
+  cached; preemption counts evictable pages. With ``host_tier_pages``
+  (``FLAGS_serving_kv_host_tier_pages``) eviction spills cold pages to
+  host memory, and a hit restores them, in place.
 
 Decode runs the fused block kernel once per layer (``FLAGS_fused_block_decode``,
 the default), the N-layer kernel once per group of N layers
 (``FLAGS_fused_block_layers=N > 1``, over weights stacked once per engine),
 or the model's own cached forward, whose attention is the paged decode
-kernel. Each bucket rung's decode program comes from the process-wide
-:mod:`.program_cache`. On the CPU the program is the eager step; on a CUDA
-device the engine captures it as a CUDA graph (one per engine and rung:
-the graph binds this engine's pools and weights) after one eager step, and
-replays it from static input buffers. Prefill and chunks run eagerly.
+kernel. Each bucket rung's decode program and the chunk program (one per
+chunk length; its cursor, ``last_idx`` and block table are device inputs,
+so nothing on the chunk path reads a device value on the host) come from
+the process-wide :mod:`.program_cache`. On the CPU a program is the eager
+step; on a CUDA device the engine captures each as a CUDA graph (one per
+engine and rung, and one per engine for the chunk: a graph binds this
+engine's pools and weights) after one eager call, and replays it from
+static input buffers. Whole-prompt prefill stays eager (one program per
+prompt length in the JAX package).
 
 ``kv_dtype="int8"`` (``FLAGS_serving_kv_dtype``) stores the pool as int8
 rows with per-row f32 scales, written by every route and read by every
@@ -58,9 +72,10 @@ nothing, as in the JAX package.
 Left for later slices, and refused with ``NotImplementedError``:
 speculative decoding (``draft_model``; it is also where sampling,
 ``temperature > 0``, comes in: without it ``submit`` raises the JAX
-engine's ``ValueError``), the prefix cache and tensor-parallel decode.
-Replay recovery, telemetry and fault injection are not part of this port
-yet: a failed step raises.
+engine's ``ValueError``) and tensor-parallel decode. Replay recovery,
+telemetry and fault injection are not part of this port yet: a failed
+step raises (a page-pool shortfall at admission backs the request off to
+the queue, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -85,7 +100,8 @@ from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
 from .program_cache import (TAG_KV, TAG_NLAYER, TAG_WT, DecodeKey,
                             decode_program_cache, model_signature)
 
-__all__ = ["Request", "ServingEngine", "OK", "FAILED", "TIMEOUT"]
+__all__ = ["Request", "ServingEngine", "PrefixCache", "OK", "FAILED",
+           "TIMEOUT"]
 
 # terminal request statuses (Request.status / ServingEngine.status)
 OK, FAILED, TIMEOUT = "OK", "FAILED", "TIMEOUT"
@@ -99,6 +115,11 @@ class Request:
     eos_token_id: Optional[int] = None
     tokens: List[int] = field(default_factory=list)
     slot: Optional[int] = None
+    # prompt-suffix tokens still to be teacher-forced through the decode
+    # step (a prefix-cache admission skipped their prefill)
+    pending: List[int] = field(default_factory=list)
+    # prefix-cache pages this request adopted (pinned until it detaches)
+    pinned: List[int] = field(default_factory=list)
     # host clock at submission and at the last generated token
     t_submit: float = 0.0
     t_last: float = 0.0
@@ -113,6 +134,9 @@ class Request:
     # decodes)
     feed: Optional[np.ndarray] = None
     prefill_pos: Optional[int] = None
+    # times a cached-prefix request passed this one while it was the
+    # page-blocked head (bounded by ServingEngine._BYPASS_BUDGET)
+    bypassed: int = 0
     # times this request was unseated for a tighter deadline (bounded by
     # FLAGS_serving_preempt_budget)
     preempts: int = 0
@@ -188,6 +212,23 @@ def _generic_step(model, toks, pools, bt, sl):
                                    for st in states]
 
 
+@torch.inference_mode()
+def _chunk_step(model, ids, pools, bt, sl, last_idx):
+    """One fixed-size chunk of one prompt through the model against the
+    paged pool: ``ids`` (1, C) land at positions ``sl .. sl+C-1`` (``sl``
+    (1,) int32, the cursor, which is also the rotary offset) and attend to
+    the written prefix plus themselves (``PagedChunkState``). Only row
+    ``last_idx`` ((1,) int64: the real tail of a final chunk) goes through
+    the final norm's output into the LM head. Every input is a device
+    tensor, so a CUDA graph replays the step for any cursor. Returns that
+    row's f32 logits (vocab,) and the pool pairs."""
+    hidden, states = model.llama(
+        ids, caches=[PagedChunkState(k, v, bt, sl) for k, v in pools],
+        offset=sl)
+    row = model.logits(hidden[0].index_select(0, last_idx))[0].float()
+    return row, [(st.k_pages, st.v_pages) for st in states]
+
+
 class _DecodeProgram:
     """What the program cache holds for one key: the eager step and the
     key's trace probe (the card's graphs note their captures on it)."""
@@ -223,30 +264,50 @@ def _pool_ptrs(pools) -> Tuple[int, ...]:
     return tuple(out)
 
 
-class _EagerDecode:
-    """One rung's decode program run eagerly over an engine's weights: the
-    host arrays go to the device each step."""
+class _EagerStep:
+    """A cached program run eagerly over an engine's weights: the host
+    arrays go to the device each call. A program takes ``(weights, first
+    input, pools, *other inputs)`` and returns ``(logits, pool pairs)``."""
 
     def __init__(self, program: _DecodeProgram, weights, device):
         self.program = program
         self.weights = weights
         self.device = device
 
+    def run(self, arrays, pools):
+        first, *rest = (_to_device(a, self.device) for a in arrays)
+        return self.program(self.weights, first, pools, *rest)
+
+
+class _EagerDecode(_EagerStep):
+    """One rung's decode program, eagerly."""
+
     def __call__(self, toks, bt, sl, pools):
         """``toks`` (b, 1), ``bt`` (b, pages), ``sl`` (b,) host arrays.
         Returns (next tokens (b,) on the host, logits (b, vocab) f32, the
         pool pairs)."""
-        logits, pairs = self.program(
-            self.weights, _to_device(toks.astype(np.int64), self.device),
-            pools, _to_device(bt, self.device), _to_device(sl, self.device))
+        logits, pairs = self.run((toks.astype(np.int64), bt, sl), pools)
         return torch.argmax(logits, dim=-1).cpu().numpy(), logits, pairs
 
 
-class _DecodeGraph(_EagerDecode):
-    """One rung's decode program as a CUDA graph over one engine's pools and
-    weights. The first call runs the eager step (the warm-up: library
-    loads, lazy caches) and then captures it; later calls copy the host
-    arrays into the static buffers, replay, and read the argmax back.
+class _EagerChunk(_EagerStep):
+    """The chunk program, eagerly."""
+
+    def __call__(self, ids, bt, sl, last_idx, pools):
+        """``ids`` (1, C) int64, ``bt`` (1, pages) int32, ``sl`` (1,)
+        int32, ``last_idx`` (1,) int64 host arrays. Returns (the tail row's
+        logits (vocab,) f32, its argmax as a device scalar, the pool
+        pairs): nothing is read back to the host."""
+        row, pairs = self.run((ids, bt, sl, last_idx), pools)
+        return row, torch.argmax(row), pairs
+
+
+class _StepGraph:
+    """A program as a CUDA graph over one engine's pools and weights
+    (mixed into an eager runner). The first call runs the eager step (the
+    warm-up: library loads, lazy caches) and then captures it; later calls
+    copy the host arrays through pinned buffers into the static inputs and
+    replay. The argmax of the logits is part of the graph.
 
     The kernel wrappers count launches in Python, which a replay never
     runs: the counters' increase during the capture is taken back (the
@@ -254,34 +315,34 @@ class _DecodeGraph(_EagerDecode):
     writes the pools at the addresses it was captured with, so a call with
     other pools raises."""
 
-    def __init__(self, program: _DecodeProgram, weights, device, b: int,
-                 pages: int):
-        super().__init__(program, weights, device)
+    kind = "step"
+
+    def _init_graph(self, inputs) -> None:
+        """``inputs``: ``(shape, dtype)`` of each static input, in the
+        program's order."""
         self.graph = None
         with torch.inference_mode():
-            self.s_toks = torch.zeros((b, 1), dtype=torch.int64,
-                                      device=device)
-            self.s_bt = torch.zeros((b, pages), dtype=torch.int32,
-                                    device=device)
-            self.s_sl = torch.zeros((b,), dtype=torch.int32, device=device)
-            self.h_toks = torch.zeros((b, 1), dtype=torch.int64,
-                                      pin_memory=True)
-            self.h_bt = torch.zeros((b, pages), dtype=torch.int32,
-                                    pin_memory=True)
-            self.h_sl = torch.zeros((b,), dtype=torch.int32, pin_memory=True)
-            self.h_out = torch.zeros((b,), dtype=torch.int64,
-                                     pin_memory=True)
+            self.s_in = [torch.zeros(shape, dtype=dt, device=self.device)
+                         for shape, dt in inputs]
+            self.h_in = [torch.zeros(shape, dtype=dt, pin_memory=True)
+                         for shape, dt in inputs]
         self.s_logits = self.s_argmax = None
         self.ptrs: Tuple[int, ...] = ()
         self.launches: List[tuple] = []     # (wrapper, variant, count)
+        # recorded after each call's input copies (before its first record
+        # a wait on it returns at once)
+        self._staged = torch.cuda.Event()
 
     @torch.inference_mode()
-    def _stage(self, toks, bt, sl) -> None:
-        for host, dev, arr in ((self.h_toks, self.s_toks, toks),
-                               (self.h_bt, self.s_bt, bt),
-                               (self.h_sl, self.s_sl, sl)):
+    def _stage(self, arrays) -> None:
+        # a call that returns without waiting for the device (a chunk) may
+        # leave its copies queued: the pinned buffers are rewritten only
+        # after the last call's copies have read them
+        self._staged.synchronize()
+        for host, dev, arr in zip(self.h_in, self.s_in, arrays):
             host.numpy()[...] = arr
             dev.copy_(host, non_blocking=True)
+        self._staged.record(torch.cuda.current_stream(self.device))
 
     @torch.inference_mode()
     def _capture(self, pools) -> None:
@@ -289,8 +350,8 @@ class _DecodeGraph(_EagerDecode):
         before = _kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            logits, pairs = self.program(self.weights, self.s_toks, pools,
-                                         self.s_bt, self.s_sl)
+            logits, pairs = self.program(self.weights, self.s_in[0], pools,
+                                         *self.s_in[1:])
             argmax = torch.argmax(logits, dim=-1)
         after = _kernels.launch_counts()
         self.launches = []
@@ -302,29 +363,342 @@ class _DecodeGraph(_EagerDecode):
                     self.launches.append((fn, name, n))
         ptrs = _pool_ptrs(pools)
         if _pool_ptrs(pairs) != ptrs:
-            raise RuntimeError("decode graph: the captured step returned "
-                               "other pools than it was given")
+            raise RuntimeError(f"{self.kind} graph: the captured step "
+                               "returned other pools than it was given")
         self.graph, self.ptrs = graph, ptrs
         self.s_logits, self.s_argmax = logits, argmax
         self.program.note_trace()
 
     @torch.inference_mode()
-    def __call__(self, toks, bt, sl, pools):
-        if self.graph is None:
-            out = super().__call__(toks, bt, sl, pools)
-            self._capture(pools)
-            return out
+    def _replay(self, arrays, pools) -> None:
         if _pool_ptrs(pools) != self.ptrs:
             raise RuntimeError(
-                "decode graph: the pools are not at the addresses the graph "
-                "was captured with (they were replaced after the capture)")
-        self._stage(toks, bt, sl)
+                f"{self.kind} graph: the pools are not at the addresses the "
+                "graph was captured with (they were replaced after the "
+                "capture)")
+        self._stage(arrays)
         self.graph.replay()
         for fn, name, n in self.launches:
             fn.launches[name] += n
+
+
+class _DecodeGraph(_StepGraph, _EagerDecode):
+    """One rung's decode program as a CUDA graph; each call reads the next
+    tokens back to the host."""
+
+    kind = "decode"
+
+    def __init__(self, program: _DecodeProgram, weights, device, b: int,
+                 pages: int):
+        _EagerDecode.__init__(self, program, weights, device)
+        self._init_graph((((b, 1), torch.int64), ((b, pages), torch.int32),
+                          ((b,), torch.int32)))
+        self.h_out = torch.zeros((b,), dtype=torch.int64, pin_memory=True)
+
+    @torch.inference_mode()
+    def __call__(self, toks, bt, sl, pools):
+        if self.graph is None:
+            out = _EagerDecode.__call__(self, toks, bt, sl, pools)
+            self._capture(pools)
+            return out
+        self._replay((toks, bt, sl), pools)
         self.h_out.copy_(self.s_argmax, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return self.h_out.numpy().copy(), self.s_logits, pools
+
+
+class _ChunkGraph(_StepGraph, _EagerChunk):
+    """The chunk program of one chunk length as a CUDA graph over one
+    engine; a call returns without waiting for the device (the engine
+    reads the argmax of a final chunk only)."""
+
+    kind = "chunk"
+
+    def __init__(self, program: _DecodeProgram, model, device, chunk: int,
+                 pages: int):
+        _EagerChunk.__init__(self, program, model, device)
+        self._init_graph((((1, chunk), torch.int64),
+                          ((1, pages), torch.int32), ((1,), torch.int32),
+                          ((1,), torch.int64)))
+
+    @torch.inference_mode()
+    def __call__(self, ids, bt, sl, last_idx, pools):
+        if self.graph is None:
+            out = _EagerChunk.__call__(self, ids, bt, sl, last_idx, pools)
+            self._capture(pools)
+            return out
+        self._replay((ids, bt, sl, last_idx), pools)
+        return self.s_logits, self.s_argmax, pools
+
+
+class PrefixCache:
+    """Page-aligned prompt-prefix trie over a :class:`PagedKVCache`.
+
+    Each node maps one full page of prompt tokens, keyed by its parent
+    chain (equal chunks under different prefixes never collide), to the
+    page holding that chunk's KV. A registered page carries a cache
+    reference, so it outlives its request, and later requests with the
+    same prefix adopt it read-only instead of prefilling it: the KV at
+    position i depends only on tokens 0..i. Eviction drops least-recently
+    used leaf nodes only (an interior node must outlive its children).
+
+    With ``host_tier_pages > 0`` eviction pressure first spills cold nodes
+    (:meth:`PagedKVCache.spill_page`: the device page returns to the free
+    list, the node keeps the host copy), and ``lookup`` restores spilled
+    chain nodes on adoption. Only pages the cache alone references (rc ==
+    1) and no in-flight request pins spill; under a fragmented free list
+    the pick prefers pages next to a free run. Past the host budget the
+    coldest spilled leaves drop.
+
+    The JAX package's cache also publishes hit, registration, eviction and
+    spill counters and has a ``kv_spill`` fault site; telemetry and fault
+    injection are not part of this port yet, so neither is here."""
+
+    _ROOT = ("root",)
+
+    def __init__(self, pool: PagedKVCache, host_tier_pages: int = 0):
+        self.pool = pool
+        self.page_size = pool.page_size
+        self.host_tier_pages = int(host_tier_pages)
+        # key -> {"page": int | None, "parent": key | None, "children": int,
+        #         "tick": int, "pins": int, "host": HostPage | None}
+        # (page is None exactly while the node is spilled)
+        self._nodes: Dict[tuple, dict] = {}
+        self._by_page: Dict[int, tuple] = {}    # page id -> node key
+        self._tick = 0
+        self._pinned_nodes = 0      # nodes with pins > 0
+        self._spilled_nodes = 0     # nodes in the host tier
+
+    def _chunks(self, prompt: np.ndarray):
+        key = self._ROOT
+        for i in range(0, (len(prompt) // self.page_size) * self.page_size,
+                       self.page_size):
+            key = (key, prompt[i:i + self.page_size].tobytes())
+            yield key
+
+    def lookup(self, prompt: np.ndarray, max_cover: Optional[int] = None):
+        """Longest cached page-aligned prefix: ``(page_ids, n_tokens)``.
+        Spilled chain nodes are restored when a free device page exists;
+        the hit ends at the first one that cannot be. ``max_cover`` caps
+        the coverage in tokens (the engine passes ``len(prompt) - 1``: the
+        first generated token's logits are not cached, and a restore for a
+        page the caller would discard spends a free page for nothing)."""
+        self._tick += 1
+        pages: List[int] = []
+        for key in self._chunks(prompt):
+            if max_cover is not None and \
+                    (len(pages) + 1) * self.page_size > max_cover:
+                break
+            node = self._nodes.get(key)
+            if node is None:
+                break
+            if node["host"] is not None:
+                if self.pool.free_page_count() == 0:
+                    break
+                self._restore_node(key, node)
+            node["tick"] = self._tick
+            pages.append(node["page"])
+        return pages, len(pages) * self.page_size
+
+    def _restore_node(self, key: tuple, node: dict) -> None:
+        """Page one spilled node back in: a fresh page off the free list,
+        the host copy written into it, the cache reference restored."""
+        pid = self.pool.take_free_page()
+        self.pool.restore_page(node["host"], pid)
+        node["host"] = None
+        node["page"] = pid
+        self._by_page[pid] = key
+        self._spilled_nodes -= 1
+
+    def register(self, prompt: np.ndarray, block_row) -> None:
+        """Cache the full prompt pages of a sequence whose prompt KV is
+        complete (``block_row``: its block-table row)."""
+        self._tick += 1
+        for i, key in enumerate(self._chunks(prompt)):
+            pid = int(block_row[i])
+            node = self._nodes.get(key)
+            if node is not None:        # already cached: keep that page
+                node["tick"] = self._tick
+                if node["host"] is not None:
+                    # the sequence wrote this chunk's KV on the device
+                    # again: the node turns resident on its page
+                    self.pool.forget_spilled(node["host"])
+                    node["host"] = None
+                    node["page"] = pid
+                    self._by_page[pid] = key
+                    self._spilled_nodes -= 1
+                    self.pool.ref_page(pid)
+                continue
+            parent = key[0] if key[0] in self._nodes else None
+            self._nodes[key] = {"page": pid, "parent": parent,
+                                "children": 0, "tick": self._tick,
+                                "pins": 0, "host": None}
+            self._by_page[pid] = key
+            if parent is not None:
+                self._nodes[parent]["children"] += 1
+            self.pool.ref_page(pid)
+
+    def pin(self, pages) -> None:
+        """Mark cached pages adopted by an in-flight request: ``evict``
+        leaves a pinned node alone until ``unpin``."""
+        for pid in pages:
+            key = self._by_page.get(int(pid))
+            if key is not None:
+                node = self._nodes[key]
+                node["pins"] += 1
+                if node["pins"] == 1:
+                    self._pinned_nodes += 1
+
+    def unpin(self, pages) -> None:
+        for pid in pages:
+            key = self._by_page.get(int(pid))
+            if key is not None and self._nodes[key]["pins"] > 0:
+                node = self._nodes[key]
+                node["pins"] -= 1
+                if node["pins"] == 0:
+                    self._pinned_nodes -= 1
+
+    def evict(self, n_pages: int) -> int:
+        """Free up to ``n_pages`` device pages, never a pinned node's or
+        one another holder still references (rc > 1): with a host tier,
+        cold nodes spill first, then LRU leaves drop. Returns the pages
+        that really went back to the free list."""
+        freed = self.spill(n_pages) if self.host_tier_pages > 0 else 0
+        dropped = 0
+        while freed + dropped < n_pages:
+            leaves = [(node["tick"], key) for key, node in
+                      self._nodes.items()
+                      if node["children"] == 0 and node["pins"] == 0
+                      and node["host"] is None
+                      and self.pool._page_rc[node["page"]] == 1]
+            if not leaves:
+                break
+            _, key = min(leaves, key=lambda t: t[0])
+            if self._drop_node(key):
+                dropped += 1
+        return freed + dropped
+
+    def _drop_node(self, key: tuple) -> bool:
+        """Remove one node; returns whether a device page went back to the
+        free list (a spilled node's drop frees host memory only)."""
+        node = self._nodes.pop(key)
+        if node["parent"] is not None:
+            self._nodes[node["parent"]]["children"] -= 1
+        if node["host"] is not None:
+            self.pool.forget_spilled(node["host"])
+            self._spilled_nodes -= 1
+            return False
+        self._by_page.pop(node["page"], None)
+        return self.pool.unref_page(node["page"])
+
+    def spill(self, n_pages: int) -> int:
+        """Move up to ``n_pages`` cold resident nodes (unpinned, rc == 1)
+        to the host tier, in LRU order; with the free list fragmented
+        (> 0.5), the colder half's first page next to a free page goes
+        first. The tier is a hard budget: the coldest spilled leaves drop
+        to make room, and spilling stops when none can. Returns the device
+        pages freed."""
+        freed = 0
+        cands = sorted(
+            ((node["tick"], key) for key, node in self._nodes.items()
+             if node["host"] is None and node["pins"] == 0
+             and self.pool._page_rc[node["page"]] == 1),
+            key=lambda t: t[0])
+        frag = (len(cands) > 1
+                and self.pool.free_list_fragmentation() > 0.5)
+        free = set(self.pool._free) if frag else None
+        while freed < n_pages and cands:
+            if self._spilled_nodes >= self.host_tier_pages:
+                self._drop_spilled_until(self.host_tier_pages - 1)
+                if self._spilled_nodes >= self.host_tier_pages:
+                    break
+            idx = 0
+            if frag:
+                for j in range(max(1, len(cands) // 2)):
+                    pid = self._nodes[cands[j][1]]["page"]
+                    if pid + 1 in free or pid - 1 in free:
+                        idx = j
+                        break
+            _, key = cands.pop(idx)
+            node = self._nodes[key]
+            pid = node["page"]
+            node["host"] = self.pool.spill_page(pid)
+            node["page"] = None
+            self._by_page.pop(pid, None)
+            self._spilled_nodes += 1
+            if self.pool.unref_page(pid):
+                freed += 1
+                if free is not None:
+                    free.add(pid)
+        return freed
+
+    def _drop_spilled_until(self, limit: int) -> None:
+        """Drop the coldest spilled leaves until the tier holds at most
+        ``limit`` pages (a spilled interior node waits for its
+        children)."""
+        while self._spilled_nodes > max(0, limit):
+            spilled_leaves = [(node["tick"], key) for key, node in
+                              self._nodes.items()
+                              if node["host"] is not None
+                              and node["children"] == 0
+                              and node["pins"] == 0]
+            if not spilled_leaves:
+                break
+            _, key = min(spilled_leaves, key=lambda t: t[0])
+            self._drop_node(key)
+
+    def spilled_page_count(self) -> int:
+        """Pages held only in the host tier."""
+        return self._spilled_nodes
+
+    def evictable_page_count(self) -> int:
+        """Device pages ``evict`` could free now: resident, unpinned,
+        cache-only. Without a host tier only leaves drop, so an ancestor of
+        a node that cannot go does not count; with one, any such node
+        spills, as far as the tier has room (its free places plus its
+        droppable spilled leaves)."""
+        free_ok = (lambda node: node["host"] is None
+                   and node["pins"] == 0
+                   and self.pool._page_rc[node["page"]] == 1)
+        blocked: set = set()
+        for node in self._nodes.values():
+            if free_ok(node):
+                continue
+            k = node["parent"]
+            while k is not None and k not in blocked:
+                blocked.add(k)
+                parent = self._nodes.get(k)
+                k = parent["parent"] if parent is not None else None
+        droppable = sum(1 for key, node in self._nodes.items()
+                        if key not in blocked and free_ok(node))
+        if self.host_tier_pages <= 0:
+            return droppable
+        flat = sum(1 for node in self._nodes.values() if free_ok(node))
+        room = max(0, self.host_tier_pages - self._spilled_nodes)
+        room += sum(1 for node in self._nodes.values()
+                    if node["host"] is not None
+                    and node["children"] == 0 and node["pins"] == 0)
+        return droppable + min(room, max(0, flat - droppable))
+
+    def pinned_page_count(self) -> int:
+        """Pages an in-flight request's block table points at."""
+        return self._pinned_nodes
+
+    def peek(self, prompt: np.ndarray,
+             include_spilled: bool = False) -> int:
+        """Tokens of the cached page-aligned prefix, without touching the
+        LRU ticks: the scheduler's admission probe. Device-resident pages
+        only unless ``include_spilled`` (a restore takes a free page, as a
+        fresh allocation does)."""
+        n = 0
+        for key in self._chunks(prompt):
+            node = self._nodes.get(key)
+            if node is None:
+                break
+            if node["host"] is not None and not include_spilled:
+                break
+            n += self.page_size
+        return n
 
 
 class ServingEngine:
@@ -335,7 +709,10 @@ class ServingEngine:
     prefill-compute unit (a whole-prompt prefill or one chunk of a long
     prompt) and decodes one token for every slot past its prefill. ``run``
     steps until drained and returns ``{rid: tokens}``; ``run_step`` and
-    ``poll`` are the non-blocking surface.
+    ``poll`` are the non-blocking surface. ``prefix_cache=True`` caches
+    prompt pages for later requests with the same prefix
+    (:class:`PrefixCache`), with a host-memory tier of ``host_tier_pages``
+    pages (``FLAGS_serving_kv_host_tier_pages``; 0: none).
 
     ``record_logits=True`` keeps, in ``logits[rid]``, the f32 logits row
     each generated token was taken from (host memory: vocabulary floats
@@ -346,6 +723,7 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  bucket_ladder: Optional[Tuple[int, ...]] = None,
                  prefill_chunk: Optional[int] = None,
+                 host_tier_pages: Optional[int] = None,
                  draft_model=None,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
@@ -353,8 +731,6 @@ class ServingEngine:
                  record_logits: bool = False):
         if draft_model is not None:
             raise _later("speculative decoding (draft_model=)")
-        if prefix_cache:
-            raise _later("the prefix cache (prefix_cache=True)")
         # the pool's storage and the N-layer route's stacked weights
         self.kv_dtype = str(_flags.get_flag("serving_kv_dtype")
                             if kv_dtype is None else kv_dtype)
@@ -421,6 +797,16 @@ class ServingEngine:
             max_batch=max_batch, max_seq_len=max_seq_len, dtype=model.dtype,
             reserve_null_page=True, kv_dtype=self.kv_dtype,
             device=self.device)
+        # the prefix cache and its host-memory tier (pages; 0: off)
+        self.host_tier_pages = int(
+            _flags.get_flag("serving_kv_host_tier_pages")
+            if host_tier_pages is None else host_tier_pages)
+        self._prefix = (PrefixCache(self.pool,
+                                    host_tier_pages=self.host_tier_pages)
+                        if prefix_cache else None)
+        # _shared_adopt_pages by rid, cleared each step and whenever pages
+        # move: the scheduler probes a request several times a step
+        self._probe_memo: Dict[int, int] = {}
         # the flags a decode program reads, resolved once: part of its key
         self._flags = _flags.snapshot(_flags.PROGRAM_FLAGS)
         self._model_sig = model_signature(model)
@@ -440,6 +826,9 @@ class ServingEngine:
         self._decode_fns: Dict[int, _EagerDecode] = {}
         self._decode_keys: Dict[int, DecodeKey] = {}
         self.decode_key: Optional[DecodeKey] = None    # the current rung's
+        # the chunk program (bound to this engine) and its key
+        self._chunk_fn: Optional[_EagerChunk] = None
+        self.chunk_key: Optional[DecodeKey] = None
         # streaming: (callback, rid, token | None, done) events buffered in
         # a step and drained after it, so a raising callback surfaces to the
         # caller; callbacks stay engine-local (rid -> on_token)
@@ -694,12 +1083,75 @@ class ServingEngine:
         self.decode_key = self._decode_keys[bucket]
         return fn
 
+    def _chunk_program(self) -> _EagerChunk:
+        """The chunk program: the cached program of the ``prefill_chunk``
+        key (one per chunk length; every chunk of every prompt runs the
+        same ``(1, chunk)`` shape, the final partial chunk padded), bound
+        to this engine (a CUDA graph on the card), made once."""
+        if self._chunk_fn is None:
+            key = self._key("prefill_chunk", bucket=1, extra=(self.chunk,))
+            on_card = self.device.type == "cuda"
+            program = decode_program_cache().get(key, functools.partial(
+                _build_decode, step=_chunk_step, on_card=on_card))
+            if on_card:
+                self._chunk_fn = _ChunkGraph(program, self.model,
+                                             self.device, self.chunk,
+                                             self.pool.max_pages_per_seq)
+            else:
+                self._chunk_fn = _EagerChunk(program, self.model,
+                                             self.device)
+            self.chunk_key = key
+        return self._chunk_fn
+
     # ----------------------------------------------------------- admission
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return _to_device(arr, self.device)
 
     def _store(self, states) -> None:
         self.pool.install_pools([(st.k_pages, st.v_pages) for st in states])
+
+    def _admit_shared(self, req: Request, slot: int, pages: List[int],
+                      n_cached: int) -> None:
+        """Prefix-cache admission: adopt the cached prompt pages read-only
+        and pin them; their prefill is skipped. A suffix of at most two
+        pages (or any, with chunking off) is teacher-forced through the
+        decode step, one token a step (its outputs are prompt positions and
+        are dropped; the step that feeds the last suffix token gives the
+        first generated token). A longer one, with chunking on, is
+        prefilled in chunks from the adopted cursor."""
+        self.pool.adopt_shared(slot, pages)
+        self._prefix.pin(pages)
+        req.pinned = [int(p) for p in pages]
+        self.pool.seq_lens[slot] = n_cached
+        suffix = req.prompt[n_cached:]
+        self.pool.allocate(slot, len(suffix) + req.max_new_tokens)
+        if self.chunk and len(suffix) > 2 * self.pool.page_size:
+            req.feed = req.prompt
+            req.prefill_pos = n_cached
+        else:
+            self._last_tok[slot] = int(suffix[0])
+            req.pending = [int(t) for t in suffix[1:]]
+        req.slot = slot
+        self._slots[slot] = req
+
+    def _covers_enough(self, req: Request, n_cached: int) -> bool:
+        """With chunking off a suffix replays one token a decode step: a
+        hit is taken only when the suffix is at most ``max(2 pages,
+        n_cached)`` tokens."""
+        return (len(req.prompt) - n_cached
+                <= max(2 * self.pool.page_size, n_cached))
+
+    def _hit_worth_taking(self, req: Request) -> bool:
+        """Would ``_admit`` take this request's hit? Judged on the coverage
+        it could have (spilled pages included) before ``lookup`` restores
+        any: a hit the coverage rule refuses must not spend free pages on
+        restores that admission never priced."""
+        if self.chunk:
+            return True
+        n = self._prefix.peek(req.prompt, include_spilled=True)
+        while n >= len(req.prompt):
+            n -= self.pool.page_size
+        return n > 0 and self._covers_enough(req, n)
 
     def _admission_feed(self, req: Request) -> np.ndarray:
         """What prefill teacher-forces: the prompt, or on a replay prompt +
@@ -709,11 +1161,20 @@ class ServingEngine:
         return np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
 
     def _admit(self, req: Request, slot: int) -> bool:
-        """Seat ``req`` in ``slot``. A feed longer than a nonzero
-        ``prefill_chunk`` gets its whole page span now and parks on the
-        chunk cursor (its chunks run one per step, not here); any other is
-        prefilled whole here, the step's prefill-compute unit. Returns
-        whether prefill compute ran."""
+        """Seat ``req`` in ``slot``. A first admission whose prompt prefix
+        is cached adopts it (``_admit_shared``; the coverage never takes
+        the whole prompt, so the first token is computed). Otherwise a
+        feed longer than a nonzero ``prefill_chunk`` gets its whole page
+        span now and parks on the chunk cursor (its chunks run one per
+        step, not here); any other is prefilled whole here, the step's
+        prefill-compute unit. Returns whether prefill compute ran."""
+        if (self._prefix is not None and not req.tokens
+                and self._hit_worth_taking(req)):
+            pages, n_cached = self._prefix.lookup(
+                req.prompt, max_cover=len(req.prompt) - 1)
+            if pages and (self.chunk or self._covers_enough(req, n_cached)):
+                self._admit_shared(req, slot, pages, n_cached)
+                return False
         feed = self._admission_feed(req)
         if self.chunk and len(feed) > self.chunk:
             remaining = req.max_new_tokens - len(req.tokens)
@@ -725,6 +1186,12 @@ class ServingEngine:
             return False
         self._prefill(req, slot, feed)
         return True
+
+    def _register(self, req: Request, slot: int) -> None:
+        """The prompt's KV is complete in ``slot``: cache its full pages
+        (a first admission's only; a replay's feed is not a prompt)."""
+        if self._prefix is not None and not req.tokens:
+            self._prefix.register(req.prompt, self.pool.block_tables[slot])
 
     @torch.inference_mode()
     def _prefill(self, req: Request, slot: int, feed: np.ndarray) -> None:
@@ -750,45 +1217,43 @@ class ServingEngine:
         self._last_tok[slot] = tok
         req.slot = slot
         self._slots[slot] = req
+        self._register(req, slot)
         self._take_token(req, tok, row, tnow)
 
     @torch.inference_mode()
     def _prefill_chunk(self, req: Request) -> None:
         """One chunk of one mid-prefill request: ``prefill_chunk`` tokens of
-        its feed through the model at the cursor (one fixed ``(1, chunk)``
-        forward under ``PagedChunkState``; the final partial chunk pads, its
-        pad rows are causally invisible to the real ones and its pad
-        positions past the block table are dropped), then the cursor
-        advances. Only the final chunk computes logits, of the real tail's
-        row, and pulls its argmax to the host: the request's next token."""
+        its feed through the chunk program at the cursor (the final partial
+        chunk pads; its pad rows are causally invisible to the real ones
+        and its pad positions past the block table are dropped), then the
+        cursor advances. The cursor, the block table and the tail row's
+        index go in as device inputs; only the final chunk's argmax (the
+        request's next token) is read back to the host."""
         feed, pos, c = req.feed, req.prefill_pos, self.chunk
         end = min(pos + c, len(feed))
         last = end == len(feed)
         ids = np.zeros((1, c), np.int64)
         ids[0, :end - pos] = feed[pos:end]
         slot = req.slot
-        bt = self._tensor(self.pool.block_tables[slot:slot + 1])
-        sl = self._tensor(np.full((1,), pos, np.int32))
+        fn = self._chunk_program()
         pools = self.pool.take_pools()
-        # the cursor reaches the rotary positions as a host int
-        hidden, states = self.model.llama(
-            self._tensor(ids),
-            caches=[PagedChunkState(k, v, bt, sl) for k, v in pools],
-            offset=pos)
-        self._store(states)
+        row, tok, pairs = fn(ids, self.pool.block_tables[slot:slot + 1],
+                             np.full((1,), pos, np.int32),
+                             np.full((1,), end - pos - 1, np.int64), pools)
+        self.pool.install_pools(pairs)
         self.pool.seq_lens[slot] = end
         req.prefill_pos = end
         self.chunk_dispatches += 1
         if not last:
             return
-        row = self.model.logits(hidden[0, end - pos - 1]).float()
-        tok = int(torch.argmax(row))
+        tok = int(tok)
         tnow = time.perf_counter()
         if not req.tokens:
             self.ttft_seconds[req.rid] = tnow - req.t_submit
         self._last_tok[slot] = tok
         req.prefill_pos = None
         req.feed = None
+        self._register(req, slot)
         self._take_token(req, tok, row, tnow)
 
     def _chunk_step(self) -> bool:
@@ -806,10 +1271,27 @@ class ServingEngine:
     # ---------------------------------------------------------- bookkeeping
     def _to_replay_form(self, req: Request) -> None:
         """Drop a request's per-admission state: prompt + emitted tokens
-        drive any re-admission."""
+        drive any re-admission. Every path that detaches a live request
+        (finish, preemption, export) comes here, and its adopted
+        prefix-cache pages are unpinned here."""
+        if req.pinned and self._prefix is not None:
+            self._prefix.unpin(req.pinned)
+        req.pinned = []
+        req.pending = []
         req.prefill_pos = None
         req.feed = None
         req.slot = None
+        req.bypassed = 0
+
+    def _rollback_admission(self, req: Request, slot: int) -> None:
+        """Undo an admission that ran out of pages mid-``allocate``: the
+        slot's pages and pins go back, and the request is whole again for
+        the queue (its bypass count kept: it may still be the head)."""
+        self.pool.free_sequence(slot)
+        self._slots[slot] = None
+        bypassed = req.bypassed
+        self._to_replay_form(req)
+        req.bypassed = bypassed
 
     def _take_token(self, req: Request, tok: int, row: torch.Tensor,
                     now: float) -> None:
@@ -879,6 +1361,9 @@ class ServingEngine:
             self._finalize(req, TIMEOUT, why)
 
     # ---------------------------------------------------------- scheduling
+    _BYPASS_BUDGET = 4   # cached-prefix bypasses one blocked head allows
+    _BYPASS_SCAN = 8     # queue depth scanned for a bypass candidate
+
     @staticmethod
     def _slack_key(req: Request, now: float):
         """Deadline slack ascending; requests without a deadline tie at
@@ -896,18 +1381,62 @@ class ServingEngine:
         now = time.perf_counter()
         return sorted(self._queue, key=lambda r: self._slack_key(r, now))
 
+    def _shared_adopt_pages(self, req: Request) -> int:
+        """Pages admitting ``req`` would adopt from the prefix cache (0: it
+        would not take the shared route), as ``_admit`` routes it: a
+        replay never shares, a whole-prompt hit loses its last page, and
+        with chunking off the coverage rule applies. Device-resident pages
+        only; memoised for the step."""
+        if self._prefix is None or req.tokens:
+            return 0
+        memo = self._probe_memo.get(req.rid)
+        if memo is not None:
+            return memo
+        n = self._prefix.peek(req.prompt)
+        while n >= len(req.prompt):
+            n -= self.pool.page_size
+        if n <= 0 or (not self.chunk and not self._covers_enough(req, n)):
+            n = 0
+        pages = n // self.pool.page_size
+        self._probe_memo[req.rid] = pages
+        return pages
+
+    def _fresh_pages_needed(self, req: Request) -> int:
+        """Free-list pages admitting ``req`` costs now: its whole span less
+        what its cached prefix supplies."""
+        return self._pages_needed(req) - self._shared_adopt_pages(req)
+
     def _needs_prefill_unit(self, req: Request) -> bool:
         """Would admitting ``req`` run a whole prefill (the step's unit)?
-        A chunked admission only parks a cursor."""
+        A shared adoption and a chunked admission only park a cursor."""
+        if self._shared_adopt_pages(req):
+            return False
         return not (self.chunk
                     and len(req.prompt) + len(req.tokens) > self.chunk)
 
     def _next_admission(self, order: List[Request]) -> Optional[Request]:
-        """The slack head of ``order`` when the pool has its pages, else
-        None: the head waits, and nothing passes it."""
+        """The next request to admit from ``order``, or None. The slack
+        head goes first when its fresh pages are free; a page-blocked head
+        first evicts cached pages (and is repriced: eviction may drop part
+        of its own cached prefix), then may be passed, at most
+        ``_BYPASS_BUDGET`` times, by one of the next ``_BYPASS_SCAN``
+        requests whose cached prefix makes its fresh pages fit. Else the
+        head waits, and nothing passes it."""
         head = order[0]
-        if self._pages_needed(head) <= self.pool.free_page_count():
+        need = self._fresh_pages_needed(head)
+        if need > self.pool.free_page_count() and self._prefix is not None:
+            self._prefix.evict(need - self.pool.free_page_count())
+            self._probe_memo.clear()
+            need = self._fresh_pages_needed(head)
+        if need <= self.pool.free_page_count():
             return head
+        if self._prefix is not None and head.bypassed < self._BYPASS_BUDGET:
+            for req in order[1:1 + self._BYPASS_SCAN]:
+                adopt = self._shared_adopt_pages(req)
+                if adopt and (self._pages_needed(req) - adopt
+                              <= self.pool.free_page_count()):
+                    head.bypassed += 1
+                    return req
         return None
 
     def _maybe_migrate(self, order: List[Request]) -> None:
@@ -921,7 +1450,7 @@ class ServingEngine:
         free = self.pool.free_page_count()
         admittable = 0
         for req in order[:self.max_batch]:
-            need = self._pages_needed(req)
+            need = self._fresh_pages_needed(req)
             if need > free:
                 break
             free -= need
@@ -964,8 +1493,9 @@ class ServingEngine:
         and cannot admit (no free slot in the rung, or too few free pages),
         unseat the slackest running request whose slack exceeds the head's
         by more than the margin, until the head can admit or no request
-        qualifies. A victim replays later from prompt + tokens; each is
-        unseated at most ``preempt_budget`` times."""
+        qualifies. Pages the prefix cache could evict count as free. A
+        victim replays later from prompt + tokens; each is unseated at most
+        ``preempt_budget`` times."""
         if not self.preempt_enabled or not order:
             return
         head = order[0]
@@ -977,8 +1507,10 @@ class ServingEngine:
             return
         while True:
             free_slots = self._slots[:self.bucket].count(None)
-            if (free_slots and self._pages_needed(head)
-                    <= self.pool.free_page_count()):
+            reclaimable = (self.pool.free_page_count()
+                           + (self._prefix.evictable_page_count()
+                              if self._prefix is not None else 0))
+            if free_slots and self._fresh_pages_needed(head) <= reclaimable:
                 return
             victim, best = None, (-1.0, -1)
             for r in self._slots:
@@ -994,6 +1526,7 @@ class ServingEngine:
             if victim is None:
                 return
             self._unseat(victim)
+            self._probe_memo.clear()        # pages moved: reprice the head
 
     def _unseat(self, req: Request) -> None:
         """Return a running request to the queue as host state: its slot
@@ -1020,6 +1553,7 @@ class ServingEngine:
 
     def _step_inner(self) -> None:
         self._sweep_deadlines()
+        self._probe_memo.clear()        # prefix probes are per step
         order = self._admission_order() if self._queue else []
         self._maybe_migrate(order)
         # before the fill: a victim's slot admits the head this step
@@ -1039,7 +1573,16 @@ class ServingEngine:
                 break           # the unit is spent: it admits next step
             order.remove(req)
             self._queue.remove(req)
-            did_prefill |= self._admit(req, slot)
+            try:
+                did_prefill |= self._admit(req, slot)
+            except RuntimeError as e:
+                if "page pool exhausted" not in str(e):
+                    raise
+                # allocate came up short (pinned pages counted as
+                # evictable): back off to the queue head and wait
+                self._rollback_admission(req, slot)
+                self._queue.insert(0, req)
+                break
         admission_used_unit = did_prefill and not chunk_ran_first
         if not did_prefill:
             self._chunk_step()
@@ -1064,6 +1607,16 @@ class ServingEngine:
                 # cursor position (the next chunk overwrites it): ignored
                 continue
             self.pool.seq_lens[slot] += 1
+            if req.pending:
+                # teacher-forcing a cached prefix's suffix: the output is a
+                # prompt position's, not a token; feed the next one
+                self._last_tok[slot] = req.pending.pop(0)
+                continue
             tok = int(toks[slot])
+            if not req.tokens:
+                # the first token of a shared admission: the prompt's KV
+                # is complete, so its suffix pages are cached too
+                self.ttft_seconds[req.rid] = now - req.t_submit
+                self._register(req, slot)
             self._last_tok[slot] = tok
             self._take_token(req, tok, logits[slot], now)

@@ -13,10 +13,16 @@ table by the CUDA kernel in ``csrc/paged_chunk_attention.cu``.
 A pool half is either a native tensor in the activation dtype or, for
 ``kv_dtype="int8"``, a :class:`QuantizedPages` (int8 payload plus one f32
 scale per token row); every reader takes both, and the kernels dequantize
-each element as they read it. Host-RAM spill (``HostPage``)
-belongs to a later slice. Unlike the JAX package, whose arrays are
+each element as they read it. Unlike the JAX package, whose arrays are
 immutable, the page writes here update the pool tensors in place (no
 pool-sized copy per token) and return the same pool objects.
+
+:class:`PagedKVCache` keeps per-page reference counts (a prompt prefix may
+be shared read-only by several sequences and a prefix cache), the pool
+ledger, and a host-memory tier: :meth:`PagedKVCache.spill_page` copies one
+page of every layer to a :class:`HostPage` and
+:meth:`PagedKVCache.restore_page` writes it back into any free page, in
+place, so CUDA graphs captured over the pools stay valid.
 """
 
 from __future__ import annotations
@@ -132,15 +138,19 @@ def is_paged_state(entry) -> bool:
 
 def paged_position_ids(s: int, offset, state: PagedDecodeState
                        ) -> torch.Tensor:
-    """Decode position ids for a paged cache entry: a scalar ``offset``
-    broadcasts (a host int: the chunked-prefill cursor comes from the
-    engine's host-side lengths, so no device value is read back);
-    ``offset=None`` gives each row its own written length."""
+    """Decode position ids for a paged cache entry. ``offset`` is a host
+    int that broadcasts (whole-prompt prefill: 0), or a device tensor of
+    one start per row or a single start (the chunk program's cursor: it
+    broadcasts on the device, with no read back to the host, so a CUDA
+    graph replays it with the value of each call); ``offset=None`` gives
+    each row its own written length."""
     base = torch.arange(s, dtype=torch.int64,
                         device=state.block_tables.device).unsqueeze(0)
-    if offset is not None:
-        return base + int(offset)
-    return base + state.seq_lens.to(torch.int64).unsqueeze(1)
+    if offset is None:
+        return base + state.seq_lens.to(torch.int64).unsqueeze(1)
+    if isinstance(offset, torch.Tensor):
+        return base + offset.to(torch.int64).reshape(-1, 1)
+    return base + int(offset)
 
 
 # ------------------------------------------------------------ attention
@@ -524,10 +534,31 @@ def write_paged_prompt_at(k_pages, v_pages, k_new, v_new, block_tables,
 
 
 # ------------------------------------------------------- pool management
+class HostPage:
+    """One KV page spilled to host memory: for K and V, one host tensor
+    per stored part (the pool, or an int8 pool's payload and scale,
+    verbatim), every layer's rows of the page stacked layer-major,
+    ``(layers, Hkv, page, D | 1)``. Pinned when the pool is on the card, so
+    the copy back runs on the stream in order with the steps. Owned by
+    whoever orchestrates tiering (the serving ``PrefixCache``); the pool
+    only counts it, so the ledger's ``pages_spilled`` stays true."""
+
+    __slots__ = ("k", "v", "nbytes")
+
+    def __init__(self, k: Tuple[torch.Tensor, ...],
+                 v: Tuple[torch.Tensor, ...], nbytes: int):
+        self.k = k
+        self.v = v
+        self.nbytes = nbytes
+
+
 class PagedKVCache:
     """Host-side page-pool manager: one pool pair per layer on the device,
     a block table per batch slot (host numpy), and a free list that
-    recycles pages across requests.
+    recycles pages across requests. Each page carries a reference count:
+    a sequence's own page has 1, a prompt-prefix page shared read-only by
+    several sequences and a prefix cache one per holder; a page returns to
+    the free list when its last reference drops.
 
     ``kv_dtype``: the pool's storage. ``"native"`` keeps ``dtype`` tensors;
     ``"int8"`` keeps :class:`QuantizedPages` (int8 payload and one f32
@@ -549,10 +580,21 @@ class PagedKVCache:
         if page_size % 8:
             raise ValueError("page_size must be a multiple of 8")
         device = resolve_device(device)
+        self.device = device
         self.kv_dtype = kv_dtype
         self.page_size = page_size
         self.num_pages = num_pages
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
         self.max_pages_per_seq = -(-max_seq_len // page_size)
+        self.reserved_null_page = bool(reserve_null_page)
+        # the ledger's counters, kept on every transition (never a scan):
+        # pages with more than one reference, a free-list mutation epoch
+        # (fragmentation is recomputed only when it moved) and pages held
+        # in the host tier
+        self._shared_pages = 0
+        self._free_epoch = 0
+        self._spilled_pages = 0
         shape = (num_kv_heads, num_pages, page_size, head_dim)
         rows = num_layers * 2 * num_kv_heads * page_size
         if kv_dtype == "int8":
@@ -578,15 +620,93 @@ class PagedKVCache:
                                      np.int32)
         self.seq_lens = np.zeros((max_batch,), np.int32)
         self._pages_used = np.zeros((max_batch,), np.int32)
+        self._page_rc = np.zeros((num_pages,), np.int32)
         first = 1 if reserve_null_page else 0
+        if reserve_null_page:
+            self._page_rc[0] = np.int32(1 << 30)     # never freed
         self._free = list(range(num_pages - 1, first - 1, -1))
 
+    # -------------------------------------------------------------- admin
     def free_page_count(self) -> int:
         return len(self._free)
 
+    def ledger(self, fragmentation: bool = True) -> dict:
+        """Pages and bytes in use, free, shared (more than one reference)
+        and spilled to the host tier, the free-list epoch and, unless
+        ``fragmentation=False``, :meth:`free_list_fragmentation`."""
+        usable = self.num_pages - (1 if self.reserved_null_page else 0)
+        free = len(self._free)
+        out = {
+            "usable_pages": usable,
+            "pages_in_use": usable - free,
+            "pages_free": free,
+            "pages_shared": self._shared_pages,
+            "pages_spilled": self._spilled_pages,
+            "bytes_per_page": self.bytes_per_page,
+            "bytes_in_use": (usable - free) * self.bytes_per_page,
+            "bytes_free": free * self.bytes_per_page,
+            "bytes_spilled": self._spilled_pages * self.bytes_per_page,
+            "epoch": self._free_epoch,
+        }
+        if fragmentation:
+            out["fragmentation"] = self.free_list_fragmentation()
+        return out
+
+    def free_list_fragmentation(self) -> float:
+        """1 - (largest run of consecutive free page ids / free pages):
+        0.0 for an empty free list or one run."""
+        n = len(self._free)
+        if n <= 1:
+            return 0.0
+        ids = np.sort(np.asarray(self._free, np.int64))
+        breaks = np.flatnonzero(np.diff(ids) != 1)
+        runs = np.diff(np.concatenate(([-1], breaks, [n - 1])))
+        return float(1.0 - int(runs.max()) / n)
+
+    def ref_page(self, page_id: int) -> None:
+        self._page_rc[page_id] += 1
+        if self._page_rc[page_id] == 2:         # became shared
+            self._shared_pages += 1
+
+    def unref_page(self, page_id: int) -> bool:
+        """Drop one reference; returns whether the page went back to the
+        free list (its last reference)."""
+        self._page_rc[page_id] -= 1
+        if self._page_rc[page_id] == 1:         # stopped being shared
+            self._shared_pages -= 1
+        if self._page_rc[page_id] == 0:
+            self._free.append(int(page_id))
+            self._free_epoch += 1
+            return True
+        return False
+
+    def adopt_shared(self, seq_idx: int, page_ids) -> None:
+        """Put written pages (a cached prompt prefix) at the front of the
+        empty slot ``seq_idx``'s block table, read-only (one more
+        reference each). The caller sets ``seq_lens``, then allocates the
+        rest; the sequence writes only past these pages."""
+        if self._pages_used[seq_idx]:
+            raise RuntimeError(f"adopt_shared: slot {seq_idx} is not empty")
+        for i, pid in enumerate(page_ids):
+            self.block_tables[seq_idx, i] = pid
+            self.ref_page(pid)
+        self._pages_used[seq_idx] = len(page_ids)
+
+    def take_free_page(self) -> int:
+        """Pop one free page with one reference (a restore's page); raises
+        ``RuntimeError`` when the pool is exhausted."""
+        if not self._free:
+            raise RuntimeError("page pool exhausted")
+        pid = self._free.pop()
+        self._free_epoch += 1
+        self._page_rc[pid] = 1
+        return pid
+
     def allocate(self, seq_idx: int, n_tokens: int) -> None:
-        """Ensure slot ``seq_idx`` has pages for ``n_tokens`` more tokens;
-        raises RuntimeError when the pool is exhausted."""
+        """Ensure slot ``seq_idx`` has pages for ``n_tokens`` more tokens
+        (each new page with one reference); raises RuntimeError when the
+        pool is exhausted. Pages taken before that stay recorded in the
+        slot, so freeing the slot returns them."""
         need = -(-(int(self.seq_lens[seq_idx]) + n_tokens) // self.page_size)
         if need > self.block_tables.shape[1]:
             raise RuntimeError(
@@ -595,13 +715,16 @@ class PagedKVCache:
         for i in range(int(self._pages_used[seq_idx]), need):
             if not self._free:
                 raise RuntimeError("page pool exhausted")
-            self.block_tables[seq_idx, i] = self._free.pop()
+            pid = self._free.pop()
+            self._free_epoch += 1
+            self.block_tables[seq_idx, i] = pid
+            self._page_rc[pid] = 1
             self._pages_used[seq_idx] = i + 1
 
     def move_sequence(self, src: int, dst: int) -> None:
         """Move slot ``src``'s block-table row, length and page count to the
         empty slot ``dst`` (the bucket ladder's shrink): host bookkeeping
-        only, no page is copied."""
+        only, no page is copied and no reference count changes."""
         if self._pages_used[dst] or self.seq_lens[dst]:
             raise RuntimeError(
                 f"move_sequence: destination slot {dst} is not empty")
@@ -615,12 +738,81 @@ class PagedKVCache:
         self._pages_used[src] = 0
 
     def free_sequence(self, seq_idx: int) -> None:
+        """Drop the slot's reference to each of its pages (a page shared
+        with another holder stays) and clear the slot."""
         n = int(self._pages_used[seq_idx])
-        self._free.extend(int(p) for p in self.block_tables[seq_idx, :n])
+        for i in range(n):
+            self.unref_page(int(self.block_tables[seq_idx, i]))
         self.block_tables[seq_idx, :n] = 0
         self._pages_used[seq_idx] = 0
         self.seq_lens[seq_idx] = 0
 
+    # ---------------------------------------------------- host-memory tier
+    # At scheduler time only, between steps, with the pools installed. On
+    # the card every copy is queued on the current stream, the one the
+    # steps run on: a spill reads the page after the last step's writes,
+    # and a restore lands before the next step reads it.
+    def _attached(self) -> None:
+        if self.k_pages[0] is None:
+            raise RuntimeError("the pools are detached (a step is in "
+                               "flight): spill and restore run between "
+                               "steps")
+
+    def _page_to_host(self, pools, pid: int) -> Tuple[torch.Tensor, ...]:
+        """Each stored part's rows of page ``pid``, every layer: one
+        gather into a contiguous device tensor (a page is strided across
+        the kv heads), then one copy to pinned host memory."""
+        out = []
+        for layers in zip(*(_parts(p) for p in pools)):
+            stage = torch.stack([t[:, pid] for t in layers])
+            if stage.is_cuda:
+                host = torch.empty(stage.shape, dtype=stage.dtype,
+                                   pin_memory=True)
+                host.copy_(stage, non_blocking=True)
+            else:
+                host = stage
+            out.append(host)
+        return tuple(out)
+
+    def spill_page(self, page_id: int) -> HostPage:
+        """Copy page ``page_id`` of every layer, K and V, to a
+        :class:`HostPage` and count it spilled. The caller still holds the
+        page's reference: ``unref_page`` frees it (a failed spill then
+        loses nothing)."""
+        self._attached()
+        pid = int(page_id)
+        host = HostPage(self._page_to_host(self.k_pages, pid),
+                        self._page_to_host(self.v_pages, pid),
+                        self.bytes_per_page)
+        self._spilled_pages += 1
+        return host
+
+    def restore_page(self, host: HostPage, page_id: int) -> None:
+        """Write a page spilled from this pool back into page ``page_id``
+        (one the caller just took from the free list) and retire it from
+        the spilled count."""
+        self.adopt_page(host, page_id)
+        self._spilled_pages -= 1
+
+    def adopt_page(self, host: HostPage, page_id: int) -> None:
+        """Write a :class:`HostPage` (of this pool or one of the same
+        geometry) into page ``page_id``, in place: the pool tensors keep
+        their addresses. One copy to the device a part, then one copy a
+        layer into the page's strided rows."""
+        self._attached()
+        pid = int(page_id)
+        for pools, parts in ((self.k_pages, host.k), (self.v_pages, host.v)):
+            for j, part in enumerate(parts):
+                stage = part.to(self.device, non_blocking=True)
+                for i, pool in enumerate(pools):
+                    _parts(pool)[j][:, pid].copy_(stage[i])
+
+    def forget_spilled(self, host: HostPage) -> None:
+        """A spilled page is dropped for good (host-tier budget): retire
+        it from the spilled count; nothing is written."""
+        self._spilled_pages -= 1
+
+    # ------------------------------------------------------ pool handoff
     def take_pools(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Detach and return the per-layer ``(k, v)`` pool pairs for one
         step; the step hands them back through :meth:`install_pools`. Until

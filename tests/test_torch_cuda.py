@@ -35,7 +35,13 @@ f32 in another order, and bf16 rounds once more at the output; the
 RMSNorm outputs within 1e-3 + one bf16 ulp); the wrappers' input checks
 and launch counters are checked too, a tiny GQA engine on the card is held to the same
 engine on the CPU, and so is the bf16 ``fused_linear_cross_entropy``
-(whose card path makes its f32 logits with one GEMM).
+(whose card path makes its f32 logits with one GEMM). The serving
+engine's CUDA graphs: each decode rung and the chunk program captured once
+per engine, a replay equal to the eager step bit for bit, exact launch
+counts, pools at other addresses refused; a page spilled to pinned host
+memory and restored bit for bit and in place, and decode and chunk graphs
+that keep replaying across spills and restores with the streams of a pool
+that never spills.
 
 Every test needs the card and skips without one. On the GPU machine, which
 has no JAX (so the repository's conftest, which imports it, is skipped):
@@ -51,6 +57,7 @@ import torch
 
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.device import seed
+from paddle_tpu_torch.generation import serving as tserving
 from paddle_tpu_torch.generation.serving import ServingEngine
 from paddle_tpu_torch.kernels import decode_attention as da
 from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1710,3 +1717,167 @@ def test_decode_graph_refuses_moved_pools(dev):
     eng.submit(p, 3)
     with pytest.raises(RuntimeError, match="addresses"):
         eng.run()
+
+
+# ------------------------------------- the chunk program and the prefix cache
+def _chunk_prompts(vocab, lens=(20, 30, 13)):
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+@pytest.mark.parametrize("route", ["fused", "nlayer-int8-int4"])
+def test_chunk_graph_one_capture_per_engine(dev, route):
+    """Chunked prompts (chunk 8): the chunk program is captured once per
+    engine, whatever the prompts; a second engine captures it again and
+    serves the same streams; launches stay exact (a chunk layer each)."""
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    clear_decode_program_cache()
+    cache = decode_program_cache()
+    streams = []
+    for again in (False, True):
+        eng = _graph_engine(dev, route, bucket_ladder=(4,), prefill_chunk=8)
+        kernels.reset_launches()
+        rids = [eng.submit(p, 5) for p in
+                _chunk_prompts(eng.model.config.vocab_size)]
+        out = eng.run()
+        streams.append([out[r] for r in rids])
+        assert eng._chunk_fn.graph is not None
+        assert cache.trace_count(eng.chunk_key) == 1 + again
+        chunks = 3 + 4 + 2
+        assert eng.chunk_dispatches == chunks
+        name = "paged_chunk_attention" + (
+            "_int8" if route == "nlayer-int8-int4" else "")
+        layers = eng.model.config.num_hidden_layers
+        assert kernels.launch_counts()[name] == layers * chunks
+    assert streams[0] == streams[1]
+
+
+def test_chunk_graph_equals_eager_bit_for_bit(dev):
+    """A replay of the chunk graph, from a nonzero cursor with a padded
+    tail, gives the eager program's logits row and pool writes bit for
+    bit."""
+    eng = _graph_engine(dev, "fused", bucket_ladder=(4,), prefill_chunk=8)
+    vocab = eng.model.config.vocab_size
+    eng.submit(_chunk_prompts(vocab)[0], 3)
+    eng.run()
+    graph = eng._chunk_fn
+    assert graph.graph is not None
+    eng.pool.allocate(1, 40)
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, vocab, (1, 8))
+    bt = eng.pool.block_tables[1:2].copy()
+    sl = np.array([13], np.int32)
+    last = np.array([5], np.int64)
+    pools = eng.pool.take_pools()
+    saved = _clone_pools(pools)
+    row_g, tok_g, _ = graph(ids, bt, sl, last, pools)
+    row_g = row_g.clone()
+    tok_g = int(tok_g)
+    after_g = _clone_pools(pools)
+    _copy_pools(pools, saved)
+    row_e, _ = graph.run((ids, bt, sl, last), pools)
+    torch.cuda.synchronize()
+    assert torch.equal(row_g, row_e)
+    assert tok_g == int(torch.argmax(row_e))
+    for (kg, vg), (ke, ve) in zip(after_g, pools):
+        assert _pools_equal(kg, ke) and _pools_equal(vg, ve)
+    eng.pool.install_pools(pools)
+
+
+def test_chunk_graph_refuses_moved_pools(dev):
+    eng = _graph_engine(dev, "fused", bucket_ladder=(4,), prefill_chunk=8)
+    p = _chunk_prompts(eng.model.config.vocab_size)[0]
+    eng.submit(p, 3)
+    eng.run()
+    eng.pool.v_pages[1] = eng.pool.v_pages[1].clone()
+    eng.submit(p, 3)
+    with pytest.raises(RuntimeError, match="chunk graph: the pools"):
+        eng.run()
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_spill_restore_on_the_card_is_bit_exact_in_place(dev, kv_dtype):
+    pool = pa.PagedKVCache(num_layers=3, num_pages=6, page_size=8,
+                           num_kv_heads=2, head_dim=64, max_batch=2,
+                           max_seq_len=32, dtype=torch.bfloat16,
+                           reserve_null_page=True, kv_dtype=kv_dtype,
+                           device=dev)
+    gen = seed(5, dev)
+    for half in (pool.k_pages, pool.v_pages):
+        for layer in half:
+            for t in pa._parts(layer):
+                if t.dtype == torch.int8:
+                    t.copy_(torch.randint(-127, 128, t.shape, device=dev,
+                                          generator=gen))
+                else:
+                    t.copy_(torch.randn(t.shape, device=dev, generator=gen))
+    ptrs = [t.data_ptr() for h in (pool.k_pages, pool.v_pages)
+            for layer in h for t in pa._parts(layer)]
+    pid = pool.take_free_page()
+    want = [t[:, pid].clone() for h in (pool.k_pages, pool.v_pages)
+            for layer in h for t in pa._parts(layer)]
+    host = pool.spill_page(pid)
+    assert all(t.is_pinned() for t in host.k + host.v)
+    pool.unref_page(pid)
+    assert pool.take_free_page() == pid
+    for h in (pool.k_pages, pool.v_pages):
+        for layer in h:
+            for t in pa._parts(layer):
+                t[:, pid] = 3
+    new = pool.take_free_page()
+    pool.restore_page(host, new)
+    got = [t[:, new] for h in (pool.k_pages, pool.v_pages)
+           for layer in h for t in pa._parts(layer)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ptrs == [t.data_ptr() for h in (pool.k_pages, pool.v_pages)
+                    for layer in h for t in pa._parts(layer)]
+
+
+def _tier_run(dev, model, num_pages, tier, prompts):
+    from paddle_tpu_torch import flags
+    flags.set_flags({"serving_bucket_patience": 2})
+    try:
+        eng = ServingEngine(model, max_batch=1, page_size=8, max_seq_len=64,
+                            prefill_chunk=8, prefix_cache=True,
+                            num_pages=num_pages, host_tier_pages=tier)
+    finally:
+        flags.reset_flags()
+    out, restores = [], [0]
+    restore = eng.pool.restore_page
+
+    def counted(*a):
+        restores[0] += 1
+        return restore(*a)
+    eng.pool.restore_page = counted
+    for p in prompts:
+        rid = eng.submit(p, 4)
+        out.append(eng.run()[rid])
+    return eng, out, restores[0]
+
+
+def test_decode_graphs_replay_after_spill_and_restore(dev):
+    """Two orgs' 24-token prefixes through a 9-page pool with a host tier:
+    the second org's prompt spills the first's prefix, a repeat restores
+    it. The decode and chunk graphs, captured before, keep replaying (one
+    capture each), and the streams equal a roomy engine's."""
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    clear_decode_program_cache()
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device=dev,
+                             dtype=torch.bfloat16, generator=seed(3, dev))
+    rng = np.random.default_rng(21)
+    orgs = [rng.integers(0, 256, (24,)).astype(np.int32) for _ in range(2)]
+    prompts = [np.concatenate([orgs[i], rng.integers(0, 256, (5,))])
+               .astype(np.int32) for i in (0, 1, 0)]
+    eng, tiered, restores = _tier_run(dev, model, 7, 16, prompts)
+    assert restores == 3 and eng._prefix.spilled_page_count() >= 1
+    cache = decode_program_cache()
+    graphs = [eng._decode_fns[1], eng._chunk_fn]
+    assert all(g.graph is not None for g in graphs)
+    assert cache.trace_count(eng._decode_keys[1]) == 1
+    assert cache.trace_count(eng.chunk_key) == 1
+    assert [g.ptrs for g in graphs] == [
+        tserving._pool_ptrs(zip(eng.pool.k_pages, eng.pool.v_pages))] * 2
+    _, roomy, _ = _tier_run(dev, model, 40, 0, prompts)
+    assert tiered == roomy

@@ -110,7 +110,6 @@ def test_eos_stops_a_request(models):
 
 @pytest.mark.parametrize("kwargs,what", [
     (dict(draft_model=object()), "draft_model"),
-    (dict(prefix_cache=True), "prefix cache"),
     (dict(tp_degree=2), "tensor-parallel"),
 ])
 def test_unported_engine_options_raise(models, kwargs, what):

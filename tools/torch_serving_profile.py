@@ -2,6 +2,7 @@
 """Where a serving step's time goes on the CUDA card (the PyTorch port).
 
     python3 tools/torch_serving_profile.py [--layers 32] [--steps 8]
+        [--package-root DIR]
 
 Builds Llama-2-7B (bf16, random weights from ``--seed``) and a
 ``ServingEngine(max_batch=4, page_size=64, max_seq_len=1024)``, fills its
@@ -32,8 +33,12 @@ Per window it prints one JSON line (``torch_trace.window``): the
 host-clock wall time (ending in a synchronise), the summed device time of
 every kernel, copy and memset the trace saw (one stream, so they do not
 overlap), the device's idle share (1 - device / wall), and the kernels
-that took the most device time, with their launch counts. Then the card's name
-and power limit. Exits non-zero without a CUDA card.
+that took the most device time, with their launch counts. The decode
+windows also give ``untraced_wall_ms``: the next ``--steps`` steps on the
+host clock without the profiler. Then the card's name and power limit.
+The package comes from ``--package-root`` when given (default: this
+checkout), so one call can run a parent commit unpacked elsewhere with
+this tool. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -42,12 +47,13 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                ".."))
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
 from torch_trace import card, window  # noqa: E402  (this script's folder)
 
 PROMPT_LENS = (17, 100, 200, 256)
@@ -74,16 +80,27 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+def untraced_ms(fn) -> float:
+    """Host-clock ms of ``fn`` between two synchronises, no profiler."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--package-root", default=ROOT)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serving_profile: no CUDA card", file=sys.stderr)
         return 1
+    sys.path.insert(0, os.path.abspath(args.package_root))
 
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.device import seed
@@ -97,7 +114,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in PROMPT_LENS + (LONG_PROMPT,)]
-    new_tokens = len(PROMPT_LENS) + 4 + args.steps
+    new_tokens = len(PROMPT_LENS) + 4 + 2 * args.steps
     info = dict(layers=args.layers, batch=4, dtype="bf16")
     for fused, group in ((True, 1), (False, 1), (True, 4)):
         flags.set_flags({"fused_block_decode": fused,
@@ -116,6 +133,8 @@ def main() -> int:
                                         for _ in range(args.steps)],
                      args.top, group=kernel_group)
         dec["steps"] = args.steps
+        dec["untraced_wall_ms"] = untraced_ms(
+            lambda: [eng.step() for _ in range(args.steps)])
         for w in (pre, dec):
             w.update(decode="fused" if fused else "generic",
                      fused_block_layers=group, **info)
@@ -145,12 +164,14 @@ def main() -> int:
         eng.submit(prompts[-1][:CHUNK + 9], 2)
         eng.run()
         for n in LONG_DECODE_LENS:
-            eng.submit(prompts[-1][:n], chunks + args.steps + 4)
+            eng.submit(prompts[-1][:n], chunks + 2 * args.steps + 4)
         for _ in range(chunks):               # one chunk a step, untraced
             eng.step()
         dec = window("long_decode", lambda: [eng.step()
                                              for _ in range(args.steps)],
                      args.top, group=kernel_group)
+        dec["untraced_wall_ms"] = untraced_ms(
+            lambda: [eng.step() for _ in range(args.steps)])
         dec.update(steps=args.steps, prompt_lens=list(LONG_DECODE_LENS),
                    decode="fused", fused_block_layers=group,
                    kv_dtype=kv_dtype, weight_dtype=weight_dtype, **info)
