@@ -86,6 +86,29 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               prefix spilling the first and a repeat of the first
               restoring its 32 pages, the streams equal to a pool that
               never spills;
+     recovery replay recovery on the same model, serve's pages and context
+              with the prefix cache and 256-token chunks: 8 requests of 32
+              new tokens (prompts of 17 to 700, the 300 and 700 chunked),
+              half after 6 steps, fault-free and under
+              FLAGS_fault_inject="prefill:every=5;chunk_prefill:every=4;
+              decode_dispatch:every=9" (no-progress budget 20): every
+              request OK, recoveries equal to the faults fired, one capture
+              per rung and one for the chunk as in the fault-free run, the
+              pools at their addresses, the ledger balanced after the
+              drain, exact launches (the graphs replayed), and
+              serving_decode_steps equal to the decode steps dispatched
+              (counter bookkeeping: it counts on the host before the
+              fault check and the graph call); the bf16 agreement with
+              the fault-free run (first differing token, top-2 margins),
+              recovery ms (the median, max and mean of the recoveries'
+              own wall clocks) and retries reported, and the statuses at
+              the default budget (3); retry exhaustion (every dispatch fails,
+              budget 2: every request FAILED, run returns, the disarmed
+              engine serves a request as a fault-free engine does); a
+              KernelError, injected (a neutral message, no real fault) and
+              from a graph given a moved pool, raises out of step; the
+              graphed fused step at B = 4 with FLAGS_telemetry on and off;
+              a Chrome trace of the phase under build/;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -98,7 +121,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               stream of the preemption run equal to the same request's
               without the arrival, token for token; then the prefix
               phase's traffic, the hits' streams equal to the cold
-              run's, token for token;
+              run's, token for token; then the recovery phase's traffic
+              and spec, the streams equal to the fault-free run's, token
+              for token;
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -1025,6 +1050,8 @@ def run_serve(device):
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     counts = run_prefix(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    counts = run_recovery(model)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
     del model
     torch.cuda.empty_cache()
     return total
@@ -1790,6 +1817,376 @@ def run_prefix_parity(model):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- recovery
+# replay recovery on serve's model and pages: max_batch 4, a 1024-token
+# context, the prefix cache on, 256-token chunks; 8 requests of 32 new
+# tokens (the 300- and 700-token prompts chunked), half submitted after
+# RECOVERY_STAGGER steps, under RECOVERY_SPEC. Every fault replays every
+# request in flight, and at the default no-progress budget (3) the two
+# chunked prompts end FAILED under this spec, in the JAX engine as well:
+# the schedule depends on the spec and the traffic only, and
+# test_recovery_drill_schedule_matches_the_jax_engine (in
+# tests/test_torch_recovery.py) runs this traffic and spec through both
+# engines on the CPU at both budgets. The drill runs at RECOVERY_RETRIES,
+# and reports the statuses at the default budget too.
+RECOVERY_LENS = (17, 77, 130, 256, 300, 700, 33, 200)
+RECOVERY_STAGGER = 6
+RECOVERY_SPEC = "prefill:every=5;chunk_prefill:every=4;decode_dispatch:every=9"
+RECOVERY_RETRIES, RECOVERY_BACKOFF = 20, 0.001
+# retry exhaustion: every dispatch fails (a decode fault alone does not
+# exhaust the budget: each replay's prefill emits a token, which is
+# progress), at a budget of 2
+EXHAUST_SPEC = ("prefill:every=1;chunk_prefill:every=1;"
+                "decode_dispatch:every=1")
+EXHAUST_RETRIES = 2
+# telemetry's cost: steady decode steps at B = 4, alternating on and off
+TELEMETRY_BLOCKS, TELEMETRY_STEPS, TELEMETRY_NEW = 4, 10, 60
+RECOVERY_TRACE = "build/recovery_trace.json"
+
+
+def recovery_engine(model, replica, spec="", retries=None, telemetry=True,
+                    record_logits=False):
+    """A ServingEngine on serve's pages and context with the prefix cache,
+    built under ``spec`` (FLAGS_fault_inject), the no-progress budget and
+    FLAGS_telemetry. Its ``recovery_samples`` list holds the wall clock of
+    each recovery, the values serving_recovery_seconds observes."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    from paddle_tpu_torch.testing import faults
+    extra = dict(serving_retry_backoff=RECOVERY_BACKOFF, telemetry=telemetry)
+    if retries is not None:
+        extra["serving_max_retries"] = retries
+    with faults.armed(spec, **extra):
+        eng = ServingEngine(model, max_batch=BATCH, page_size=PAGE,
+                            max_seq_len=MAX_SEQ, prefix_cache=True,
+                            replica=replica, record_logits=record_logits)
+    flags.reset_flags()
+    eng.recovery_samples = []
+    observe = eng._observe_recovery
+
+    def observe_recovery(n_replayed, n_failed, dt):
+        eng.recovery_samples.append(dt)
+        observe(n_replayed, n_failed, dt)
+    eng._observe_recovery = observe_recovery
+    return eng
+
+
+def recovery_traffic(eng, vocab, new_tokens):
+    """RECOVERY_LENS, half submitted after RECOVERY_STAGGER steps. Returns
+    (rids, streams, statuses, seconds, launch counts)."""
+    from paddle_tpu_torch import kernels
+    ps = prompts(vocab, RECOVERY_LENS)
+    half = len(ps) // 2
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, new_tokens) for p in ps[:half]]
+    for _ in range(RECOVERY_STAGGER):
+        eng.step()
+    rids += [eng.submit(p, new_tokens) for p in ps[half:]]
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (rids, [out[r] for r in rids], [eng.status(r) for r in rids],
+            seconds, kernels.launch_counts())
+
+
+def replica_series(name, replica):
+    """The series of metric ``name`` whose replica label is ``replica``."""
+    from paddle_tpu_torch import observability as obs
+    fam = obs.snapshot()["metrics"][name]
+    for s in fam["series"]:
+        if s["labels"].get("replica") == replica:
+            return s
+    raise KeyError(f"{name}{{replica={replica}}}")
+
+
+def injected():
+    """faults_injected by site, as the registry holds it now."""
+    from paddle_tpu_torch import observability as obs
+    fam = obs.snapshot()["metrics"].get("faults_injected")
+    return {s["labels"]["site"]: s["value"]
+            for s in (fam or {}).get("series", [])}
+
+
+def captures(cache, eng):
+    keys = list(eng._decode_keys.values()) + [eng.chunk_key]
+    return {k: cache.trace_count(k) for k in keys}
+
+
+def recovery_run(model, replica, spec, new_tokens, record_logits=False,
+                 retries=RECOVERY_RETRIES):
+    """One engine through recovery_traffic; requires the pools at their
+    addresses and the ledger balanced after the drain. Returns (engine,
+    rids, streams, statuses, seconds, launch counts, faults fired)."""
+    from paddle_tpu_torch.generation.serving import _pool_ptrs
+    eng = recovery_engine(model, replica, spec, retries=retries,
+                          record_logits=record_logits)
+    ptrs = _pool_ptrs(zip(eng.pool.k_pages, eng.pool.v_pages))
+    before = injected()
+    rids, streams, statuses, seconds, counts = recovery_traffic(
+        eng, model.config.vocab_size, new_tokens)
+    fired = {k: v - before.get(k, 0.0) for k, v in injected().items()
+             if v != before.get(k, 0.0)}
+    require(_pool_ptrs(zip(eng.pool.k_pages, eng.pool.v_pages)) == ptrs,
+            f"recovery {replica}: the pools moved")
+    graphs = list(eng._decode_fns.values()) + (
+        [eng._chunk_fn] if eng._chunk_fn is not None else [])
+    require(all(g.graph is not None and g.ptrs == ptrs for g in graphs),
+            f"recovery {replica}: a graph is missing or names other pools")
+    ledger = eng.pool.ledger()
+    require(ledger["pages_in_use"] == len(eng._prefix._nodes)
+            and ledger["pages_shared"] == 0
+            and eng._prefix.pinned_page_count() == 0,
+            f"recovery {replica}: the pool after drain {ledger}")
+    return eng, rids, streams, statuses, seconds, counts, fired
+
+
+def telemetry_cost(model):
+    """The graphed fused step at B = 4 with FLAGS_telemetry on and off:
+    TELEMETRY_BLOCKS alternating blocks of TELEMETRY_STEPS steady decode
+    steps on two engines. Returns the medians of step() wall ms, the
+    decode call's ms (dispatch to tokens on the host) and their difference
+    (the step's host ms outside the decode call)."""
+    engines = {}
+    for on in (True, False):
+        eng = recovery_engine(model, f"telemetry-{on}", telemetry=on)
+        for p in prompts(model.config.vocab_size, PROMPT_LENS[:BATCH]):
+            eng.submit(p, TELEMETRY_NEW)
+        while any(r is None or r.tokens == [] for r in eng._slots):
+            eng.step()                       # all four seated and decoding
+        eng.step()                           # the rung's capture
+        engines[on] = eng
+    walls = {True: [], False: []}
+    calls = {True: [], False: []}
+    for block in range(TELEMETRY_BLOCKS):
+        for on in ((True, False) if block % 2 == 0 else (False, True)):
+            eng = engines[on]
+            for _ in range(TELEMETRY_STEPS):
+                n = len(eng.decode_step_seconds)
+                t0 = time.perf_counter()
+                eng.step()
+                walls[on].append(time.perf_counter() - t0)
+                calls[on].extend(eng.decode_step_seconds[n:])
+    out = {}
+    for on in (True, False):
+        require(engines[on]._m.enabled == on, "telemetry binding")
+        step = 1e3 * float(np.median(walls[on]))
+        call = 1e3 * float(np.median(calls[on]))
+        out["on" if on else "off"] = dict(step_ms=step, decode_call_ms=call,
+                                         host_ms_outside_call=step - call,
+                                         steps=len(walls[on]))
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_recovery(model) -> dict:
+    """The recovery phase on serve's model: a fault-free run, the same
+    traffic under RECOVERY_SPEC (every request OK, recoveries equal to the
+    faults fired, one capture per rung and one for the chunk as in the
+    fault-free run, the pools at their addresses, the ledger balanced,
+    exact launches, serving_decode_steps equal to the decode steps
+    dispatched (bookkeeping); the bf16 agreement, recovery seconds and
+    retries reported),
+    the statuses at the default budget, retry exhaustion (every request
+    FAILED, run returns, the disarmed engine serves OK as a fault-free
+    engine does), a kernel error that raises out of step, telemetry's cost,
+    and a Chrome trace of the phase. Returns the drill's launch counts."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    from paddle_tpu_torch.kernels._build import KernelError
+    from paddle_tpu_torch.testing import faults
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    clear_decode_program_cache()
+    cache = decode_program_cache()
+    obs.tracer().clear()
+    clean, rids, want, statuses, c_seconds, _, _ = recovery_run(
+        model, "recovery-clean", "", NEW_TOKENS, record_logits=True)
+    require(statuses == ["OK"] * len(rids), f"recovery clean: {statuses}")
+    check_tokens(list(zip(rids, prompts(cfg.vocab_size, RECOVERY_LENS),
+                          want)), cfg.vocab_size, NEW_TOKENS)
+    clean_caps = captures(cache, clean)
+    require(set(clean_caps.values()) == {1},
+            f"recovery clean: captures {clean_caps}")
+    step_ms = 1e3 * float(np.median(clean.decode_step_seconds))
+    eng, rids, got, statuses, seconds, counts, fired = recovery_run(
+        model, "recovery", RECOVERY_SPEC, NEW_TOKENS, record_logits=True)
+    require(statuses == ["OK"] * len(rids), f"recovery: {statuses}")
+    check_tokens(list(zip(rids, prompts(cfg.vocab_size, RECOVERY_LENS),
+                          got)), cfg.vocab_size, NEW_TOKENS)
+    caps = captures(cache, eng)
+    require(set(caps) == set(clean_caps)
+            and all(caps[k] == clean_caps[k] + 1 for k in caps),
+            f"recovery: captures {caps}, fault-free {clean_caps}")
+    recoveries = replica_series("serving_recoveries", "recovery")["value"]
+    require(fired and recoveries == sum(fired.values()),
+            f"recovery: {recoveries} recoveries, faults fired {fired}")
+    steps = len(eng.decode_step_seconds)
+    # bookkeeping: the counter is written on the host before the fault
+    # check and the graph call; the exact launches below show the replays
+    dispatched = steps + eng._f_decode.fires
+    decode_steps = replica_series("serving_decode_steps",
+                                  "recovery")["value"]
+    require(decode_steps == dispatched,
+            f"recovery: serving_decode_steps {decode_steps}, dispatched "
+            f"{dispatched}")
+    require_launches(counts, expected_launches(
+        counts, layers, steps, len(eng.prefill_seconds),
+        eng.chunk_dispatches, True, 1, "native", "native"), "recovery")
+    diffs = []
+    for r, a, b in zip(rids, got, want):
+        j = first_difference(a, b)
+        if j is not None:
+            diffs.append(dict(request=r, token=j, faulted=a[j], clean=b[j],
+                              faulted_top2_margin=top2_margin(
+                                  eng.logits[r][j]),
+                              clean_top2_margin=top2_margin(
+                                  clean.logits[r][j])))
+    rec = replica_series("serving_recovery_seconds", "recovery")
+    samples = eng.recovery_samples
+    require(len(samples) == rec["count"] == recoveries,
+            f"recovery: {len(samples)} timed recoveries, histogram "
+            f"{rec['count']}, counter {recoveries}")
+    retries = replica_series("serving_retries_total", "recovery")["value"]
+    gen = sum(len(t) for t in got)
+    row = dict(
+        model="llama2_7b", layers=layers, dtype="bf16", batch=BATCH,
+        page_size=PAGE, max_seq_len=MAX_SEQ, prefill_chunk=CHUNK,
+        prefix_cache=True, prompt_lens=list(RECOVERY_LENS),
+        new_tokens=NEW_TOKENS, spec=RECOVERY_SPEC,
+        max_retries=RECOVERY_RETRIES, retry_backoff_s=RECOVERY_BACKOFF,
+        statuses_ok=len(rids), faults_fired=fired, recoveries=recoveries,
+        retries=retries,
+        requests_failed=replica_series("serving_requests_failed",
+                                       "recovery")["value"],
+        captures_fault_free=len(clean_caps), captures_faulted=len(caps),
+        pool_addresses_unchanged=True, ledger_balanced=True,
+        decode_steps_counter=decode_steps, decode_steps_dispatched=dispatched,
+        decode_steps_completed=steps, whole_prefills=len(eng.prefill_seconds),
+        chunks=eng.chunk_dispatches, launches=counts, seconds=seconds,
+        fault_free_seconds=c_seconds, tokens_per_s=gen / seconds,
+        fault_free_tokens_per_s=gen / c_seconds,
+        recovery_ms_median=1e3 * float(np.median(samples)),
+        recovery_ms_max=1e3 * max(samples),
+        recovery_ms_mean=1e3 * float(np.mean(samples)),
+        fault_free_decode_step_ms_median=step_ms,
+        streams_equal_to_fault_free=len(rids) - len(diffs),
+        first_differences=diffs)
+    del clean, eng
+    torch.cuda.empty_cache()
+
+    # the default budget: the same traffic and spec, statuses reported
+    eng, rids, _, d_statuses, _, _, d_fired = recovery_run(
+        model, "recovery-default", RECOVERY_SPEC, NEW_TOKENS, retries=None)
+    row.update(default_budget=eng.max_retries,
+               default_budget_statuses=d_statuses,
+               default_budget_faults_fired=d_fired)
+    del eng
+    torch.cuda.empty_cache()
+
+    # retry exhaustion, then the disarmed engine serves
+    eng = recovery_engine(model, "recovery-exhaust", EXHAUST_SPEC,
+                          retries=EXHAUST_RETRIES)
+    ps = prompts(cfg.vocab_size, RECOVERY_LENS)
+    rids = [eng.submit(p, NEW_TOKENS) for p in ps]
+    out = eng.run()
+    require(sorted(out) == sorted(rids) and not eng.has_work()
+            and all(eng.status(r) == "FAILED" for r in rids),
+            f"recovery exhaustion: {eng.statuses()}")
+    eng._f_prefill = eng._f_chunk = eng._f_decode = faults.NULL_SITE
+    rid = eng.submit(ps[0], NEW_TOKENS)
+    served = eng.run()[rid]
+    require(eng.status(rid) == "OK", "recovery exhaustion: not served")
+    ref = recovery_engine(model, "recovery-exhaust-ref")
+    rrid = ref.submit(ps[0], NEW_TOKENS)
+    require(ref.run()[rrid] == served, "recovery exhaustion: the disarmed "
+            "engine's stream differs from a fault-free engine's")
+    del ref
+    failed = replica_series("serving_requests_failed",
+                            "recovery-exhaust")["value"]
+    # a kernel error is not replayed: injected into the decode call, and a
+    # graph given a pool at another address
+    graph = eng._decode_fns[BATCH]
+
+    def broken(*args):
+        raise KernelError("injected KernelError")
+
+    eng._decode_fns[BATCH] = broken
+    eng.submit(ps[0], 4)
+    raised = []
+    for _ in range(3):
+        try:
+            eng.step()
+        except KernelError as e:
+            raised.append(str(e))
+            break
+    require(raised and eng._consec_failures == 0,
+            "recovery: a KernelError did not raise out of step")
+    eng._decode_fns[BATCH] = graph
+    eng.pool.install_pools(eng.pool._detached)
+    eng.pool.k_pages[0] = eng.pool.k_pages[0].clone()
+    moved = []
+    for _ in range(3):
+        try:
+            eng.step()
+        except KernelError as e:
+            moved.append(str(e))
+            break
+    require(moved and "addresses" in moved[0],
+            f"recovery: a moved pool did not raise a KernelError: {moved}")
+    row.update(exhaustion_spec=EXHAUST_SPEC,
+               exhaustion_max_retries=EXHAUST_RETRIES,
+               exhaustion_failed=failed, exhaustion_requests=len(rids),
+               disarmed_serves_ok_equal_to_fault_free=True,
+               kernel_error_injected=True, moved_pool_raised=moved[0])
+    del eng, graph
+    torch.cuda.empty_cache()
+
+    os.makedirs(os.path.dirname(RECOVERY_TRACE), exist_ok=True)
+    events = obs.tracer().events()
+    obs.save_chrome_trace(RECOVERY_TRACE, events)
+    row.update(trace=RECOVERY_TRACE, trace_events=len(events),
+               trace_spans=sum(1 for e in events if e["ph"] == "X"),
+               trace_by_name={n: sum(1 for e in events if e["name"] == n)
+                              for n in sorted({e["name"] for e in events})})
+    watermarks = obs.memory.sample_device_memory()
+    require(set(watermarks["devices"].get("0", {})) == set(
+        obs.memory.DEVICE_STATS), f"recovery: watermarks {watermarks}")
+    row.update(telemetry_cost=telemetry_cost(model),
+               memory_watermarks=watermarks,
+               phase_seconds=time.perf_counter() - t_phase)
+    emit("recovery", **row)
+    return counts
+
+
+def run_recovery_parity(model):
+    """The fp32 parity model under the same spec and traffic: every
+    request OK, the streams equal to the fault-free run token for
+    token."""
+    t_phase = time.perf_counter()
+    clean, _, want, statuses, _, _, _ = recovery_run(
+        model, "recovery-parity-clean", "", NEW_TOKENS)
+    require(statuses == ["OK"] * len(want), f"recovery parity: {statuses}")
+    del clean
+    eng, _, got, statuses, _, _, fired = recovery_run(
+        model, "recovery-parity", RECOVERY_SPEC, NEW_TOKENS)
+    require(statuses == ["OK"] * len(got), f"recovery parity: {statuses}")
+    require(got == want, "recovery parity: the replayed streams differ "
+            f"from the fault-free run: {got} / {want}")
+    emit("recovery", part="parity", model="llama2_7b width, 2 layers",
+         dtype="fp32", spec=RECOVERY_SPEC, faults_fired=fired,
+         recoveries=replica_series("serving_recoveries",
+                                   "recovery-parity")["value"],
+         streams_equal_to_fault_free=True, requests=len(got),
+         new_tokens=NEW_TOKENS, phase_seconds=time.perf_counter() - t_phase)
+    del eng
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- parity
 def run_parity(device):
     from paddle_tpu_torch.device import seed
@@ -1841,6 +2238,7 @@ def run_parity(device):
         del eng
     run_sched_parity(model)
     run_prefix_parity(model)
+    run_recovery_parity(model)
     del model
     torch.cuda.empty_cache()
 

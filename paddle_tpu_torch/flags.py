@@ -81,6 +81,21 @@ _FLAGS: Dict[str, tuple] = {
     "serving_kv_host_tier_pages": (0, _any),
     # dispatched-but-unread train steps TrainStep keeps before it waits
     "train_max_in_flight": (32, _at_least_one("train_max_in_flight")),
+    # host-side telemetry (observability): the metrics registry and the
+    # span tracer; off, instrumented objects bind no-op stubs when built
+    "telemetry": (True, _any),
+    # span-tracer ring capacity in events (the oldest drop first)
+    "telemetry_ring": (16384, _any),
+    # deterministic fault-injection spec (testing.faults): ';'-separated
+    # '<site>:every=N' / '<site>:p=F[:seed=N][:times=N][:after=N]' entries;
+    # empty: disabled, components bind no-op stubs when built
+    "fault_inject": ("", _any),
+    # replay recovery: consecutive no-progress replays a request survives
+    # before it ends FAILED (a replay after progress resets the count)
+    "serving_max_retries": (3, _any),
+    # base seconds of the recovery backoff; doubles per consecutive
+    # no-progress recovery (capped at 2 s)
+    "serving_retry_backoff": (0.05, _any),
 }
 
 _values: Dict[str, Any] = {}
@@ -157,7 +172,9 @@ def snapshot(names=None) -> FlagSnapshot:
 
 # The flags a decode program reads: the flag part of a decode program's
 # cache key (``generation/program_cache.py``), so engines built under other
-# values of these never share a program.
+# values of these never share a program. Telemetry, fault injection and the
+# recovery budget are not among them: toggling them never rebuilds a
+# program or a graph.
 PROGRAM_FLAGS = ("fused_block_decode", "fused_block_layers")
 
 

@@ -23,13 +23,22 @@ Around that core, as in the JAX package:
   ``poll``, ``run(max_wall=)``, ``results``/``take_results``,
   ``status``/``statuses``, ``load``, and the router's
   ``export_requests``/``take_callbacks``/``inject_request``;
-- terminal statuses ``OK``/``TIMEOUT`` (deadlines are enforced at step
-  boundaries, with the tokens produced so far); ``FAILED`` is the JAX
-  engine's replay-recovery status, which this port does not reach: a failed
-  step raises;
+- terminal statuses ``OK``/``FAILED``/``TIMEOUT`` (deadlines are enforced
+  at step boundaries, with the tokens produced so far);
+- replay recovery: a step that raises does not propagate. The pools are
+  reset in place (:meth:`PagedKVCache.reset`: the tensors keep their
+  addresses, so the CUDA graphs captured over them keep replaying), the
+  prefix cache starts empty, every in-flight request goes back to the
+  queue in replay form, and one whose no-progress budget
+  (``FLAGS_serving_max_retries``) is spent ends ``FAILED``; the engine
+  backs off exponentially (``FLAGS_serving_retry_backoff``) while nothing
+  progresses. A :class:`~paddle_tpu_torch.kernels._build.KernelError` (a
+  kernel that does not build or launch) and a CUDA error
+  (``torch.AcceleratorError``) are not replayed: ``step`` raises them, so
+  no recovery hides a kernel or the device;
 - replay-form admission: a request that carries tokens (a preemption
-  victim, an injected request) re-prefills prompt + tokens, and greedy
-  decoding continues where it stopped;
+  victim, a recovered or an injected request) re-prefills prompt + tokens,
+  and greedy decoding continues where it stopped;
 - the bucket ladder (``FLAGS_serving_bucket_ladder``): decode runs at the
   smallest rung covering demand, grows at once and shrinks after
   ``FLAGS_serving_bucket_patience`` steps of lower demand, compacting the
@@ -46,7 +55,19 @@ Around that core, as in the JAX package:
   cached pages, then may be passed (boundedly) by a request whose prefix is
   cached; preemption counts evictable pages. With ``host_tier_pages``
   (``FLAGS_serving_kv_host_tier_pages``) eviction spills cold pages to
-  host memory, and a hit restores them, in place.
+  host memory, and a hit restores them, in place;
+- telemetry (``FLAGS_telemetry``, :mod:`..observability`): the JAX engine's
+  metric families under the same names, help strings and labels
+  (``replica``, ``tp``), its request spans and events, and the pool ledger
+  gauges, all written at the host boundary of a step, outside any captured
+  CUDA graph (a write inside a capture would fire once and never on
+  replay);
+- fault sites (``FLAGS_fault_inject``, :mod:`..testing.faults`):
+  ``prefill``, ``chunk_prefill`` and ``decode_dispatch`` checked after the
+  pools are detached, ``bucket_migrate`` at a migration's begin, per
+  compacted sequence and at its commit, ``preempt`` before a victim is
+  unseated, and the prefix cache's ``kv_spill`` before each spill and
+  restore.
 
 Decode runs the fused block kernel once per layer (``FLAGS_fused_block_decode``,
 the default), the N-layer kernel once per group of N layers
@@ -72,10 +93,8 @@ nothing, as in the JAX package.
 Left for later slices, and refused with ``NotImplementedError``:
 speculative decoding (``draft_model``; it is also where sampling,
 ``temperature > 0``, comes in: without it ``submit`` raises the JAX
-engine's ``ValueError``) and tensor-parallel decode. Replay recovery,
-telemetry and fault injection are not part of this port yet: a failed
-step raises (a page-pool shortfall at admission backs the request off to
-the queue, as in the JAX package).
+engine's ``ValueError``) and tensor-parallel decode. A page-pool shortfall
+at admission backs the request off to the queue, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,6 +109,8 @@ import torch
 
 from .. import flags as _flags
 from .. import kernels as _kernels
+from .. import observability as obs
+from ..kernels._build import KernelError
 from ..kernels.fused_block_decode import (BlockDecodeWeights,
                                           MultiBlockDecodeWeights, _rms,
                                           fused_block_decode,
@@ -97,6 +118,7 @@ from ..kernels.fused_block_decode import (BlockDecodeWeights,
                                           stack_block_weights)
 from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
                                        PagedKVCache, QuantizedPages)
+from ..testing import faults
 from .program_cache import (TAG_KV, TAG_NLAYER, TAG_WT, DecodeKey,
                             decode_program_cache, model_signature)
 
@@ -105,6 +127,10 @@ __all__ = ["Request", "ServingEngine", "PrefixCache", "OK", "FAILED",
 
 # terminal request statuses (Request.status / ServingEngine.status)
 OK, FAILED, TIMEOUT = "OK", "FAILED", "TIMEOUT"
+
+# what replay recovery never absorbs: a kernel that did not build or launch,
+# and a CUDA error (it leaves the context unusable)
+_UNRECOVERABLE = (KernelError, torch.AcceleratorError)
 
 
 @dataclass
@@ -129,6 +155,12 @@ class Request:
     # terminal status ("PENDING" while queued or in flight)
     status: str = "PENDING"
     error: Optional[str] = None
+    # replay recovery: consecutive no-progress replays, and the (tokens,
+    # prefill cursor) high-water mark at the last failure (progress on
+    # either resets the budget: a long prompt's chunks are progress before
+    # it has a token)
+    retries: int = 0
+    progress_mark: Tuple[int, int] = (-1, -1)
     # chunked prefill: what the chunks teacher-force (the prompt, plus the
     # emitted tokens on a replay), and the cursor (None once the request
     # decodes)
@@ -146,6 +178,266 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     seed: Optional[int] = None
+
+
+_POOL_STATES = ("used", "free", "shared", "pinned", "spilled")
+
+
+class _EngineTelemetry:
+    """Instrument handles for the serving hot path, resolved once per
+    engine: a write inside ``step()`` is one attribute read, with no
+    registry lookup and no flag read per token. The JAX engine's families
+    under the same names, help strings and labels: every family carries
+    ``replica`` (the engine's id: two engines in one process keep apart)
+    and ``tp`` (the tensor-parallel degree, "1" here). The speculative and
+    tensor-parallel families are registered, and nothing of this port
+    writes them yet."""
+
+    enabled = True
+
+    def __init__(self, replica: str = "0", tp: str = "1"):
+        r = obs.registry()
+        t = obs.tracer()
+        rl = ("replica", "tp")
+
+        def c(name, help):
+            return r.counter(name, help,
+                             labels=rl).labels(replica=replica, tp=tp)
+
+        def g(name, help):
+            return r.gauge(name, help,
+                           labels=rl).labels(replica=replica, tp=tp)
+
+        def h(name, help):
+            return r.histogram(name, help,
+                               labels=rl).labels(replica=replica, tp=tp)
+
+        self.span = t.span
+        self.event = t.event
+        self.submitted = c(
+            "serving_requests_submitted", "requests accepted by submit()")
+        self.finished = c(
+            "serving_requests_finished", "requests that completed")
+        self.prefills = c(
+            "serving_prefills", "b=1 prefill programs dispatched")
+        self.shared_admits = c(
+            "serving_shared_admissions",
+            "admissions that adopted cached prefix pages (prefill skipped)")
+        self.decode_steps = c(
+            "serving_decode_steps", "full-batch decode steps dispatched")
+        self.ttft = h(
+            "serving_ttft_seconds",
+            "time to first generated token, submit() to host-visible")
+        self.itl = h(
+            "serving_inter_token_seconds",
+            "per-request latency between consecutive generated tokens")
+        self.queue_depth = g(
+            "serving_queue_depth", "requests waiting for a batch slot")
+        self.occupancy = g(
+            "serving_batch_occupancy",
+            "active slots in the fixed-shape decode batch")
+        self.kv_pages_in_use = g(
+            "serving_kv_pages_in_use",
+            "KV pool pages held by sequences or the prefix cache "
+            "(excludes the reserved null page)")
+        self.prefix_pinned = g(
+            "serving_prefix_pinned_pages",
+            "prefix-cache pages pinned by in-flight requests — the "
+            "pressure that caps evict() reclaim")
+        self.evict_short = c(
+            "serving_prefix_evict_shortfall_pages",
+            "pages evict() was asked for but could not free "
+            "(pinned/shared)")
+        # ---- fault-tolerance instruments (replay recovery)
+        self.retries = c(
+            "serving_retries_total",
+            "in-flight request replays re-queued by recovery after a "
+            "failed dispatch")
+        self.recoveries = c(
+            "serving_recoveries",
+            "replay-recovery events: failed dispatch -> fresh pools + "
+            "re-queue of all in-flight requests")
+        self.requests_failed = c(
+            "serving_requests_failed",
+            "requests terminated FAILED (no-progress retry budget "
+            "exhausted)")
+        self.requests_timeout = c(
+            "serving_requests_timeout",
+            "requests terminated TIMEOUT (per-request deadline or the "
+            "run(max_wall=...) watchdog)")
+        self.recovery_seconds = h(
+            "serving_recovery_seconds",
+            "wall clock of one replay recovery (fresh pools + requeue, "
+            "excluding backoff sleep)")
+        self.page_pressure = g(
+            "serving_page_pressure",
+            "KV pages short at the last page-blocked admission (0 = "
+            "admission is not page-blocked)")
+        # ---- continuous-batching instruments (chunked prefill +
+        # bucket ladder)
+        self.prefill_chunk_s = h(
+            "serving_prefill_chunk_seconds",
+            "wall clock of one chunked-prefill chunk dispatch — the "
+            "bound on how long a long-prompt arrival can stall decode")
+        self.decode_stall_s = h(
+            "serving_decode_stall_seconds",
+            "per-step wall clock decoding slots spent waiting on "
+            "scheduler + prefill work before the decode dispatch "
+            "(observed only on steps that ran prefill work while "
+            "decode-ready requests were waiting)")
+        self.bucket = g(
+            "serving_bucket",
+            "current decode batch-bucket rung of the bucket ladder")
+        self.migrations = c(
+            "serving_bucket_migrations",
+            "bucket-ladder migrations (grow or shrink) — each rung's "
+            "program compiles once, so steady state stops migrating "
+            "or cycles between already-compiled rungs")
+        # ---- SLO-aware preemption
+        self.preemptions = c(
+            "serving_preemptions",
+            "running requests unseated for a tighter-deadline arrival "
+            "and re-queued for bit-identical replay from host state")
+        self.preempted_tokens = c(
+            "serving_preempted_tokens_replayed",
+            "decode tokens preemption victims will regenerate on "
+            "replay — the compute a preemption trades for deadline "
+            "slack")
+        # ---- speculative decoding (not ported yet)
+        self.spec_rounds_c = c(
+            "serving_spec_rounds",
+            "speculation rounds retired (one draft-propose scan + one "
+            "target-verify chunk per round)")
+        self.spec_accept = h(
+            "serving_spec_accept_rate",
+            "per-round fraction of draft proposals the target verify "
+            "accepted — the signal per-request adaptive γ follows")
+        self.spec_accepted = c(
+            "serving_spec_tokens_accepted",
+            "draft-proposed tokens the target verify accepted")
+        self.spec_rejected = c(
+            "serving_spec_tokens_rejected",
+            "draft-proposed tokens the target verify rejected — their "
+            "KV positions rolled back to the accepted length and the "
+            "next dispatch overwrites them")
+        self.spec_gamma = g(
+            "serving_spec_gamma",
+            "γ (draft tokens per round) of the most recent speculation "
+            "round: per-request adaptive within the "
+            "FLAGS_serving_spec_rungs set, capped down as batch "
+            "occupancy prices speculation out")
+        # ---- tensor-parallel decode (not ported yet)
+        self.collective_s = h(
+            "serving_collective_seconds",
+            "wall clock of one tensor-parallel sharded decode dispatch "
+            "(per-layer psum pair + compute), observed host-side at the "
+            "dispatch boundary — only tp > 1 engines write it")
+        # ---- the pool ledger: step-end gauges over the PagedKVCache
+        # ledger, resolved per state label; "spilled" is the host-RAM
+        # tier
+        pages = r.gauge(
+            "kv_pool_pages",
+            "KV page-pool ledger by state: used (held by sequences or "
+            "the prefix cache), free, shared (refcount > 1), pinned "
+            "(prefix pages an in-flight request's block table holds), "
+            "spilled (prefix pages resident only in the host-RAM tier)",
+            labels=("replica", "tp", "state"))
+        pbytes = r.gauge(
+            "kv_pool_bytes",
+            "KV page-pool ledger in bytes (all layers, k+v)",
+            labels=("replica", "tp", "state"))
+        self.pool_pages = {s: pages.labels(replica=replica, tp=tp, state=s)
+                           for s in _POOL_STATES}
+        self.pool_bytes = {s: pbytes.labels(replica=replica, tp=tp,
+                                            state=s)
+                           for s in _POOL_STATES}
+        self.pool_frag = g(
+            "kv_pool_fragmentation",
+            "free-list fragmentation: 1 - largest contiguous free run "
+            "/ free pages (0 = clean; recomputed only when the free "
+            "list changed)")
+        self.host_tier_peak = g(
+            "kv_host_tier_peak_pages",
+            "high-water mark of pages resident in the host-RAM KV "
+            "tier — the tier watermark memwatch prices against host "
+            "memory")
+        self.counter_track = t.counter
+
+
+class _NullEngineTelemetry:
+    """FLAGS_telemetry=0 binding: every write is a no-op method call."""
+
+    enabled = False
+
+    def __init__(self, replica: str = "0", tp: str = "1"):
+        self.span = obs.null_span
+        self.event = obs.null_event
+        self.submitted = self.finished = self.prefills = obs.NULL
+        self.shared_admits = self.decode_steps = obs.NULL
+        self.ttft = self.itl = obs.NULL
+        self.queue_depth = self.occupancy = obs.NULL
+        self.kv_pages_in_use = self.prefix_pinned = obs.NULL
+        self.evict_short = obs.NULL
+        self.retries = self.recoveries = obs.NULL
+        self.requests_failed = self.requests_timeout = obs.NULL
+        self.recovery_seconds = self.page_pressure = obs.NULL
+        self.prefill_chunk_s = self.decode_stall_s = obs.NULL
+        self.bucket = self.migrations = obs.NULL
+        self.preemptions = self.preempted_tokens = obs.NULL
+        self.spec_rounds_c = self.spec_accept = obs.NULL
+        self.spec_accepted = self.spec_rejected = obs.NULL
+        self.spec_gamma = self.collective_s = obs.NULL
+        self.pool_pages = {s: obs.NULL for s in _POOL_STATES}
+        self.pool_bytes = {s: obs.NULL for s in _POOL_STATES}
+        self.pool_frag = self.host_tier_peak = obs.NULL
+        self.counter_track = obs.null_counter
+
+
+class _PrefixTelemetry:
+    enabled = True
+
+    def __init__(self, replica: str = "0"):
+        r = obs.registry()
+        rl = ("replica",)
+
+        def c(name, help):
+            return r.counter(name, help, labels=rl).labels(replica=replica)
+
+        self.hits = c(
+            "prefix_cache_hits", "lookups that matched >= 1 cached page")
+        self.misses = c(
+            "prefix_cache_misses", "lookups that matched nothing")
+        self.hit_pages = c(
+            "prefix_cache_hit_pages", "cached pages returned by lookups")
+        self.registered_pages = c(
+            "prefix_cache_registered_pages",
+            "new prompt pages registered into the trie")
+        self.evicted_pages = c(
+            "prefix_cache_evicted_pages",
+            "pages actually returned to the free list by evict()")
+        # ---- host-RAM tiering
+        self.spilled_pages = c(
+            "prefix_cache_spilled_pages",
+            "cold prefix pages spilled to the host-RAM tier (device "
+            "page freed, KV bytes retained host-side)")
+        self.restored_pages = c(
+            "prefix_cache_restored_pages",
+            "spilled prefix pages paged back onto the device on "
+            "prefix adoption")
+        self.dropped_spilled = c(
+            "prefix_cache_dropped_spilled_pages",
+            "spilled pages evicted from the host tier entirely "
+            "(host-tier budget pressure)")
+
+
+class _NullPrefixTelemetry:
+    enabled = False
+
+    def __init__(self, replica: str = "0"):
+        self.hits = self.misses = self.hit_pages = obs.NULL
+        self.registered_pages = self.evicted_pages = obs.NULL
+        self.spilled_pages = self.restored_pages = obs.NULL
+        self.dropped_spilled = obs.NULL
 
 
 def _later(what: str) -> NotImplementedError:
@@ -231,21 +523,26 @@ def _chunk_step(model, ids, pools, bt, sl, last_idx):
 
 class _DecodeProgram:
     """What the program cache holds for one key: the eager step and the
-    key's trace probe (the card's graphs note their captures on it)."""
+    key's trace probe. On the CPU the program's first call is its trace
+    (timed onto the probe); on the card the graphs note their captures."""
 
-    def __init__(self, step, note_trace):
+    def __init__(self, step, note_trace, traced: bool):
         self.step = step
         self.note_trace = note_trace
+        self._traced = traced
 
     def __call__(self, *args):
-        return self.step(*args)
+        if self._traced:
+            return self.step(*args)
+        t0 = time.perf_counter()
+        out = self.step(*args)
+        self._traced = True
+        self.note_trace(time.perf_counter() - t0)
+        return out
 
 
 def _build_decode(note_trace, step, on_card):
-    # the CPU's program is the eager step: its build is the trace
-    if not on_card:
-        note_trace()
-    return _DecodeProgram(step, note_trace)
+    return _DecodeProgram(step, note_trace, traced=on_card)
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -313,7 +610,10 @@ class _StepGraph:
     runs: the counters' increase during the capture is taken back (the
     capture launches nothing) and added again on every replay. The graph
     writes the pools at the addresses it was captured with, so a call with
-    other pools raises."""
+    other pools raises :class:`KernelError`, which recovery does not replay
+    (recovery itself resets the pools in place). The
+    capture runs the step's device work only: the engine's telemetry and
+    fault checks happen around a call, never inside it."""
 
     kind = "step"
 
@@ -363,16 +663,15 @@ class _StepGraph:
                     self.launches.append((fn, name, n))
         ptrs = _pool_ptrs(pools)
         if _pool_ptrs(pairs) != ptrs:
-            raise RuntimeError(f"{self.kind} graph: the captured step "
-                               "returned other pools than it was given")
+            raise KernelError(f"{self.kind} graph: the captured step "
+                              "returned other pools than it was given")
         self.graph, self.ptrs = graph, ptrs
         self.s_logits, self.s_argmax = logits, argmax
-        self.program.note_trace()
 
     @torch.inference_mode()
     def _replay(self, arrays, pools) -> None:
         if _pool_ptrs(pools) != self.ptrs:
-            raise RuntimeError(
+            raise KernelError(
                 f"{self.kind} graph: the pools are not at the addresses the "
                 "graph was captured with (they were replaced after the "
                 "capture)")
@@ -398,8 +697,10 @@ class _DecodeGraph(_StepGraph, _EagerDecode):
     @torch.inference_mode()
     def __call__(self, toks, bt, sl, pools):
         if self.graph is None:
+            t0 = time.perf_counter()
             out = _EagerDecode.__call__(self, toks, bt, sl, pools)
             self._capture(pools)
+            self.program.note_trace(time.perf_counter() - t0)
             return out
         self._replay((toks, bt, sl), pools)
         self.h_out.copy_(self.s_argmax, non_blocking=True)
@@ -424,8 +725,10 @@ class _ChunkGraph(_StepGraph, _EagerChunk):
     @torch.inference_mode()
     def __call__(self, ids, bt, sl, last_idx, pools):
         if self.graph is None:
+            t0 = time.perf_counter()
             out = _EagerChunk.__call__(self, ids, bt, sl, last_idx, pools)
             self._capture(pools)
+            self.program.note_trace(time.perf_counter() - t0)
             return out
         self._replay((ids, bt, sl, last_idx), pools)
         return self.s_logits, self.s_argmax, pools
@@ -450,13 +753,16 @@ class PrefixCache:
     the pick prefers pages next to a free run. Past the host budget the
     coldest spilled leaves drop.
 
-    The JAX package's cache also publishes hit, registration, eviction and
-    spill counters and has a ``kv_spill`` fault site; telemetry and fault
-    injection are not part of this port yet, so neither is here."""
+    It publishes the JAX cache's counters (``prefix_cache_hits``, misses,
+    hit, registered, evicted, spilled, restored and dropped pages, labelled
+    ``replica``), and checks the ``kv_spill`` fault site before each spill
+    (``op="spill"``) and each restore (``op="restore"``), before anything
+    changes: a fault leaves the tier consistent."""
 
     _ROOT = ("root",)
 
-    def __init__(self, pool: PagedKVCache, host_tier_pages: int = 0):
+    def __init__(self, pool: PagedKVCache, replica: str = "0",
+                 host_tier_pages: int = 0):
         self.pool = pool
         self.page_size = pool.page_size
         self.host_tier_pages = int(host_tier_pages)
@@ -468,6 +774,9 @@ class PrefixCache:
         self._tick = 0
         self._pinned_nodes = 0      # nodes with pins > 0
         self._spilled_nodes = 0     # nodes in the host tier
+        self._f_spill = faults.site("kv_spill")
+        self._m = (_PrefixTelemetry(replica) if obs.enabled()
+                   else _NullPrefixTelemetry(replica))
 
     def _chunks(self, prompt: np.ndarray):
         key = self._ROOT
@@ -498,17 +807,24 @@ class PrefixCache:
                 self._restore_node(key, node)
             node["tick"] = self._tick
             pages.append(node["page"])
+        if pages:
+            self._m.hits.inc()
+            self._m.hit_pages.inc(len(pages))
+        else:
+            self._m.misses.inc()
         return pages, len(pages) * self.page_size
 
     def _restore_node(self, key: tuple, node: dict) -> None:
         """Page one spilled node back in: a fresh page off the free list,
         the host copy written into it, the cache reference restored."""
+        self._f_spill.check(op="restore")
         pid = self.pool.take_free_page()
         self.pool.restore_page(node["host"], pid)
         node["host"] = None
         node["page"] = pid
         self._by_page[pid] = key
         self._spilled_nodes -= 1
+        self._m.restored_pages.inc()
 
     def register(self, prompt: np.ndarray, block_row) -> None:
         """Cache the full prompt pages of a sequence whose prompt KV is
@@ -537,6 +853,7 @@ class PrefixCache:
             if parent is not None:
                 self._nodes[parent]["children"] += 1
             self.pool.ref_page(pid)
+            self._m.registered_pages.inc()
 
     def pin(self, pages) -> None:
         """Mark cached pages adopted by an in-flight request: ``evict``
@@ -576,6 +893,8 @@ class PrefixCache:
             _, key = min(leaves, key=lambda t: t[0])
             if self._drop_node(key):
                 dropped += 1
+        if dropped:
+            self._m.evicted_pages.inc(dropped)
         return freed + dropped
 
     def _drop_node(self, key: tuple) -> bool:
@@ -622,6 +941,7 @@ class PrefixCache:
             _, key = cands.pop(idx)
             node = self._nodes[key]
             pid = node["page"]
+            self._f_spill.check(op="spill", page=pid)
             node["host"] = self.pool.spill_page(pid)
             node["page"] = None
             self._by_page.pop(pid, None)
@@ -630,6 +950,7 @@ class PrefixCache:
                 freed += 1
                 if free is not None:
                     free.add(pid)
+            self._m.spilled_pages.inc()
         return freed
 
     def _drop_spilled_until(self, limit: int) -> None:
@@ -646,6 +967,7 @@ class PrefixCache:
                 break
             _, key = min(spilled_leaves, key=lambda t: t[0])
             self._drop_node(key)
+            self._m.dropped_spilled.inc()
 
     def spilled_page_count(self) -> int:
         """Pages held only in the host tier."""
@@ -712,7 +1034,9 @@ class ServingEngine:
     ``poll`` are the non-blocking surface. ``prefix_cache=True`` caches
     prompt pages for later requests with the same prefix
     (:class:`PrefixCache`), with a host-memory tier of ``host_tier_pages``
-    pages (``FLAGS_serving_kv_host_tier_pages``; 0: none).
+    pages (``FLAGS_serving_kv_host_tier_pages``; 0: none). A step that
+    raises is recovered by replay (the module docstring); ``replica``
+    labels every metric series of this engine.
 
     ``record_logits=True`` keeps, in ``logits[rid]``, the f32 logits row
     each generated token was taken from (host memory: vocabulary floats
@@ -723,6 +1047,7 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  bucket_ladder: Optional[Tuple[int, ...]] = None,
                  prefill_chunk: Optional[int] = None,
+                 replica: str = "0",
                  host_tier_pages: Optional[int] = None,
                  draft_model=None,
                  kv_dtype: Optional[str] = None,
@@ -775,6 +1100,9 @@ class ServingEngine:
             _flags.get_flag("serving_preempt_horizon"))
 
         self.model = model
+        # this engine's id in a process that runs several: the replica
+        # label of every metric series
+        self.replica = str(replica)
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
         self.record_logits = bool(record_logits)
@@ -801,9 +1129,23 @@ class ServingEngine:
         self.host_tier_pages = int(
             _flags.get_flag("serving_kv_host_tier_pages")
             if host_tier_pages is None else host_tier_pages)
-        self._prefix = (PrefixCache(self.pool,
-                                    host_tier_pages=self.host_tier_pages)
-                        if prefix_cache else None)
+        self._prefix_enabled = bool(prefix_cache)
+        self._prefix = self._new_prefix_cache()
+        # fault sites, bound here (NULL_SITE unless FLAGS_fault_inject names
+        # them), and the replay-recovery budget
+        self._f_prefill = faults.site("prefill")
+        self._f_chunk = faults.site("chunk_prefill")
+        self._f_decode = faults.site("decode_dispatch")
+        self._f_migrate = faults.site("bucket_migrate")
+        self._f_preempt = faults.site("preempt")
+        self.max_retries = int(_flags.get_flag("serving_max_retries"))
+        self.retry_backoff = float(_flags.get_flag("serving_retry_backoff"))
+        self._consec_failures = 0   # engine-wide no-progress failures
+        # an admission whose dispatch raised (rolled back, so in no slot)
+        self._failed_admission: Optional[Request] = None
+        # the last _next_admission left the slack head page-blocked (a
+        # bypass admission must not clear the pressure gauge)
+        self._head_blocked = False
         # _shared_adopt_pages by rid, cleared each step and whenever pages
         # move: the scheduler probes a request several times a step
         self._probe_memo: Dict[int, int] = {}
@@ -841,6 +1183,8 @@ class ServingEngine:
         self.bucket_migrations = 0
         self.preemptions = 0
         self.chunk_dispatches = 0
+        self.max_decode_stall = 0.0
+        self._host_tier_peak = 0
         self.logits: Dict[int, List[np.ndarray]] = {}
         # seconds of each decode step (dispatch to tokens on the host), of
         # each whole-prompt prefill (dispatch to first token), and from
@@ -849,6 +1193,20 @@ class ServingEngine:
         self.decode_step_seconds: List[float] = []
         self.prefill_seconds: List[float] = []
         self.ttft_seconds: Dict[int, float] = {}
+        # telemetry, bound once (no-op stubs with FLAGS_telemetry off)
+        self._m = (_EngineTelemetry(self.replica, "1") if obs.enabled()
+                   else _NullEngineTelemetry(self.replica, "1"))
+        # the pool ledger's fragmentation, recomputed only when the free
+        # list's epoch moved
+        self._pool_frag_epoch = -1
+        self._pool_frag = 0.0
+        self._observe_bucket()
+
+    def _new_prefix_cache(self) -> Optional[PrefixCache]:
+        if not self._prefix_enabled:
+            return None
+        return PrefixCache(self.pool, replica=self.replica,
+                           host_tier_pages=self.host_tier_pages)
 
     # ------------------------------------------------------------ frontend
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -900,6 +1258,7 @@ class ServingEngine:
         if deadline is not None:
             req.deadline = req.t_submit + float(deadline)
         self._queue.append(req)
+        self._m.submitted.inc()
         return rid
 
     def has_work(self) -> bool:
@@ -1133,6 +1492,7 @@ class ServingEngine:
             req.pending = [int(t) for t in suffix[1:]]
         req.slot = slot
         self._slots[slot] = req
+        self._m.shared_admits.inc()
 
     def _covers_enough(self, req: Request, n_cached: int) -> bool:
         """With chunking off a suffix replays one token a decode step: a
@@ -1168,6 +1528,9 @@ class ServingEngine:
         span now and parks on the chunk cursor (its chunks run one per
         step, not here); any other is prefilled whole here, the step's
         prefill-compute unit. Returns whether prefill compute ran."""
+        # the queued phase closes at admission
+        self._m.event("request.queued", req.t_submit, time.perf_counter(),
+                      rid=req.rid)
         if (self._prefix is not None and not req.tokens
                 and self._hit_worth_taking(req)):
             pages, n_cached = self._prefix.lookup(
@@ -1203,15 +1566,22 @@ class ServingEngine:
         sl = torch.zeros((1,), dtype=torch.int32, device=self.device)
         ids = self._tensor(feed[None].astype(np.int64))
         t0 = time.perf_counter()
-        pools = self.pool.take_pools()
-        logits, states = self.model.forward_with_cache(
-            ids, [PagedDecodeState(k, v, bt, sl) for k, v in pools], 0)
-        self._store(states)
-        row = logits[0, -1].float()
-        tok = int(torch.argmax(row))
+        with self._m.span("request.prefill", rid=req.rid, prompt_len=p):
+            pools = self.pool.take_pools()
+            self._f_prefill.check()
+            logits, states = self.model.forward_with_cache(
+                ids, [PagedDecodeState(k, v, bt, sl) for k, v in pools], 0)
+            self._store(states)
+            row = logits[0, -1].float()
+            tok = int(torch.argmax(row))    # the span holds the token read
+        self._m.prefills.inc()
         tnow = time.perf_counter()
         self.prefill_seconds.append(tnow - t0)
-        if not replay:
+        if replay:
+            # a replay's token continues the sequence: inter-token latency
+            self._m.itl.observe(tnow - req.t_last)
+        else:
+            self._m.ttft.observe(tnow - req.t_submit)
             self.ttft_seconds[req.rid] = tnow - req.t_submit
         self.pool.seq_lens[slot] = p
         self._last_tok[slot] = tok
@@ -1236,7 +1606,9 @@ class ServingEngine:
         ids[0, :end - pos] = feed[pos:end]
         slot = req.slot
         fn = self._chunk_program()
+        t0 = time.perf_counter() if self._m.enabled else 0.0
         pools = self.pool.take_pools()
+        self._f_chunk.check()
         row, tok, pairs = fn(ids, self.pool.block_tables[slot:slot + 1],
                              np.full((1,), pos, np.int32),
                              np.full((1,), end - pos - 1, np.int64), pools)
@@ -1245,10 +1617,15 @@ class ServingEngine:
         req.prefill_pos = end
         self.chunk_dispatches += 1
         if not last:
+            self._observe_chunk(time.perf_counter() - t0)
             return
         tok = int(tok)
         tnow = time.perf_counter()
-        if not req.tokens:
+        self._observe_chunk(tnow - t0, final=True)
+        if req.tokens:
+            self._m.itl.observe(tnow - req.t_last)
+        else:
+            self._m.ttft.observe(tnow - req.t_submit)
             self.ttft_seconds[req.rid] = tnow - req.t_submit
         self._last_tok[slot] = tok
         req.prefill_pos = None
@@ -1269,12 +1646,13 @@ class ServingEngine:
         return True
 
     # ---------------------------------------------------------- bookkeeping
-    def _to_replay_form(self, req: Request) -> None:
+    def _to_replay_form(self, req: Request, unpin: bool = True) -> None:
         """Drop a request's per-admission state: prompt + emitted tokens
         drive any re-admission. Every path that detaches a live request
-        (finish, preemption, export) comes here, and its adopted
-        prefix-cache pages are unpinned here."""
-        if req.pinned and self._prefix is not None:
+        (finish, recovery, preemption, export) comes here, and its adopted
+        prefix-cache pages are unpinned here (``unpin=False`` after a
+        recovery, whose fresh prefix cache never saw them)."""
+        if unpin and req.pinned and self._prefix is not None:
             self._prefix.unpin(req.pinned)
         req.pinned = []
         req.pending = []
@@ -1335,6 +1713,11 @@ class ServingEngine:
             and req.tokens and req.tokens[-1] == req.eos_token_id)
         if done and req.slot is not None:
             self._finalize(req, OK)
+            self._m.finished.inc()
+            if self._m.enabled:
+                self._m.event("request.complete", req.t_submit,
+                              time.perf_counter(), rid=req.rid,
+                              tokens=len(req.tokens))
 
     def _sweep_deadlines(self) -> None:
         """End every queued or in-flight request past its deadline
@@ -1351,6 +1734,7 @@ class ServingEngine:
         self._queue = [r for r in self._queue if r.rid not in rids]
         for req in expired:
             self._finalize(req, TIMEOUT, "deadline exceeded")
+        self._observe_timeouts(len(expired))
 
     def _expire_all(self, why: str) -> None:
         """The ``run(max_wall=...)`` watchdog: end everything ``TIMEOUT``."""
@@ -1359,6 +1743,9 @@ class ServingEngine:
         self._queue = []
         for req in remaining:
             self._finalize(req, TIMEOUT, why)
+        if remaining:
+            self._observe_timeouts(len(remaining))
+        self._observe_step_end()
 
     # ---------------------------------------------------------- scheduling
     _BYPASS_BUDGET = 4   # cached-prefix bypasses one blocked head allows
@@ -1423,13 +1810,21 @@ class ServingEngine:
         requests whose cached prefix makes its fresh pages fit. Else the
         head waits, and nothing passes it."""
         head = order[0]
+        self._head_blocked = False
         need = self._fresh_pages_needed(head)
         if need > self.pool.free_page_count() and self._prefix is not None:
-            self._prefix.evict(need - self.pool.free_page_count())
+            want = need - self.pool.free_page_count()
+            freed = self._prefix.evict(want)
+            if freed < want:
+                # pinned or shared pages refused: banked as pressure
+                self._observe_evict_shortfall(want - freed)
             self._probe_memo.clear()
             need = self._fresh_pages_needed(head)
         if need <= self.pool.free_page_count():
             return head
+        # the head waits in the queue; its shortfall is published
+        self._head_blocked = True
+        self._observe_page_pressure(need - self.pool.free_page_count())
         if self._prefix is not None and head.bypassed < self._BYPASS_BUDGET:
             for req in order[1:1 + self._BYPASS_SCAN]:
                 adopt = self._shared_adopt_pages(req)
@@ -1471,7 +1866,11 @@ class ServingEngine:
     def _migrate(self, target: int) -> None:
         """Move the decode batch to rung ``target``. A shrink compacts the
         live requests into the low slots (block-table row moves; no page is
-        copied); growth widens the next decode."""
+        copied); growth widens the next decode. The ``bucket_migrate`` site
+        is checked at the begin, after each row move and at the commit
+        (recovery replays the whole batch from host state, so no
+        half-compacted table survives)."""
+        self._f_migrate.check(phase="begin", frm=self.bucket, to=target)
         if target < self.bucket:
             dst = 0
             for s in range(target, self.max_batch):
@@ -1485,8 +1884,11 @@ class ServingEngine:
                 self._slots[dst] = req
                 self._slots[s] = None
                 req.slot = dst
+                self._f_migrate.check(phase="move", rid=req.rid)
         self.bucket = target
         self.bucket_migrations += 1
+        self._f_migrate.check(phase="commit")
+        self._observe_bucket(migrated=True)
 
     def _preempt_for(self, order: List[Request]) -> None:
         """When the slack head has a deadline with slack inside the horizon
@@ -1525,6 +1927,8 @@ class ServingEngine:
                     best, victim = (slack, r.rid), r
             if victim is None:
                 return
+            # checked before anything changes
+            self._f_preempt.check(rid=victim.rid)
             self._unseat(victim)
             self._probe_memo.clear()        # pages moved: reprice the head
 
@@ -1539,21 +1943,112 @@ class ServingEngine:
         req.preempts += 1
         self.preemptions += 1
         self._queue.append(req)
+        self._observe_preemption(req)
 
     # ---------------------------------------------------------------- step
     def step(self) -> None:
         """One scheduler round: deadline sweep, bucket migration, SLO
         preemption, admission, at most one prefill-compute unit, one decode
-        at the current rung. Streaming callbacks run after it, also when
-        it raised."""
+        at the current rung. A step that raises is recovered by replay
+        (:meth:`_recover_dispatch`), unless it raised a kernel or CUDA
+        error. Streaming callbacks run after it, outside the recovery
+        boundary, so a raising callback surfaces to the caller."""
         try:
             self._step_inner()
+            self._consec_failures = 0
+        except Exception as exc:
+            self._recover_dispatch(exc)
         finally:
             self._drain_events()
+
+    def _recover_dispatch(self, exc: Exception) -> None:
+        """Replay recovery. Every request's prompt and emitted tokens are
+        host state: reset the pools (in place, :meth:`_rebuild_pool`), end
+        ``FAILED`` the requests whose no-progress budget is spent, put the
+        rest back in the queue in replay form (greedy decoding makes the
+        replayed continuation the uninterrupted one) and back off
+        exponentially while nothing progresses. A kernel error and a CUDA
+        error (the context is unusable) raise instead."""
+        if isinstance(exc, _UNRECOVERABLE):
+            raise exc
+        t0 = time.perf_counter()
+        live = [r for r in self._slots if r is not None]
+        failed_adm = self._failed_admission
+        self._failed_admission = None
+        # a failed admission was rolled back before the raise, so it is in
+        # no slot
+        victims = live + ([failed_adm] if failed_adm is not None else [])
+        if not victims:
+            if self._queue and self._consec_failures < self.max_retries:
+                # nothing in flight died but work is queued (a migration
+                # fault before admission): back off and press on, within
+                # the engine-wide no-progress budget
+                if self.pool.k_pages[0] is None:
+                    self._rebuild_pool()    # a step left the pools out
+                self._consec_failures += 1
+                self._observe_recovery(0, 0, time.perf_counter() - t0)
+                time.sleep(min(
+                    self.retry_backoff * (2 ** (self._consec_failures - 1)),
+                    2.0))
+                return
+            # nothing in flight and nothing queued, or the budget is spent:
+            # not a failure replay can absorb
+            raise exc
+        self._rebuild_pool()
+        survivors: List[Request] = []
+        failed: List[Request] = []
+        any_progress = False
+        for req in victims:
+            # progress is (tokens, prefill cursor), a high-water mark: the
+            # cursor restarts at 0 on every replay, so a failure point
+            # oscillating below the best attempt is not progress
+            progress = (len(req.tokens), req.prefill_pos or 0)
+            self._to_replay_form(req, unpin=False)
+            if progress > req.progress_mark:
+                any_progress = True
+                req.retries = 1
+                req.progress_mark = progress
+            else:
+                req.retries += 1
+            if req.retries > self.max_retries:
+                failed.append(req)
+            else:
+                survivors.append(req)
+        self._slots = [None] * self.max_batch
+        self._last_tok[:] = 0
+        for req in failed:
+            self._finalize(req, FAILED, repr(exc))
+        # replays keep their submission order relative to the queue
+        self._queue = sorted(survivors + self._queue, key=lambda r: r.rid)
+        self._consec_failures = (1 if any_progress
+                                 else self._consec_failures + 1)
+        self._observe_recovery(len(survivors), len(failed),
+                               time.perf_counter() - t0)
+        if self._queue:
+            time.sleep(min(
+                self.retry_backoff * (2 ** (self._consec_failures - 1)),
+                2.0))
+
+    def _rebuild_pool(self) -> None:
+        """Fresh pools of the same geometry, in place: the pairs a failed
+        step detached go back, every tensor is zeroed at its address and
+        the allocator starts over (:meth:`PagedKVCache.reset`), so the
+        CUDA graphs captured over them keep replaying and no program is
+        rebuilt. The prefix cache indexed the old contents (and its host
+        tier) and starts empty."""
+        self.pool.reset()
+        self._prefix = self._new_prefix_cache()
+        self._probe_memo.clear()
+        self._pool_frag_epoch = -1      # re-publish the ledger
 
     def _step_inner(self) -> None:
         self._sweep_deadlines()
         self._probe_memo.clear()        # prefix probes are per step
+        # decode-ready requests before this step's scheduler and prefill
+        # work: the ones that work stalls
+        waiting = any(r is not None and r.prefill_pos is None
+                      for r in self._slots)
+        t_sched = time.perf_counter()
         order = self._admission_order() if self._queue else []
         self._maybe_migrate(order)
         # before the fill: a victim's slot admits the head this step
@@ -1575,32 +2070,50 @@ class ServingEngine:
             self._queue.remove(req)
             try:
                 did_prefill |= self._admit(req, slot)
-            except RuntimeError as e:
-                if "page pool exhausted" not in str(e):
-                    raise
-                # allocate came up short (pinned pages counted as
-                # evictable): back off to the queue head and wait
+            except Exception as e:
+                if isinstance(e, RuntimeError) and \
+                        "page pool exhausted" in str(e):
+                    # allocate came up short (pinned pages counted as
+                    # evictable): back off to the queue head and wait
+                    self._rollback_admission(req, slot)
+                    self._queue.insert(0, req)
+                    self._observe_page_pressure(max(
+                        1, self._pages_needed(req)
+                        - self.pool.free_page_count()))
+                    break
+                # a failed dispatch: the request goes to recovery (it
+                # holds no slot after the rollback)
                 self._rollback_admission(req, slot)
-                self._queue.insert(0, req)
-                break
+                self._failed_admission = req
+                raise
+            if not self._head_blocked:
+                # a bypass admission leaves the blocked head's pressure
+                self._observe_page_pressure(0)
         admission_used_unit = did_prefill and not chunk_ran_first
         if not did_prefill:
-            self._chunk_step()
+            did_prefill = self._chunk_step()
         self._chunk_turn = chunk_pending and admission_used_unit
+        if waiting and did_prefill:
+            self._observe_stall(time.perf_counter() - t_sched)
 
-        if not any(r is not None and r.prefill_pos is None
-                   for r in self._slots):
+        decode_rows = [r for r in self._slots
+                       if r is not None and r.prefill_pos is None]
+        self._observe_step_begin(len(decode_rows))
+        if not decode_rows:
             return
         b = self.bucket
         fn = self._decode_program(b)
         t0 = time.perf_counter()
         pools = self.pool.take_pools()
+        self._f_decode.check()
         toks, logits, pairs = fn(self._last_tok[:b, None],
                                  self.pool.block_tables[:b],
                                  self.pool.seq_lens[:b], pools)
         self.pool.install_pools(pairs)
         now = time.perf_counter()
         self.decode_step_seconds.append(now - t0)
+        self._m.event("engine.decode_step", t0, now,
+                      active=len(decode_rows))
         for slot, req in enumerate(self._slots):
             if req is None or req.prefill_pos is not None:
                 # an idle row wrote the null page, a mid-prefill row its
@@ -1613,10 +2126,143 @@ class ServingEngine:
                 self._last_tok[slot] = req.pending.pop(0)
                 continue
             tok = int(toks[slot])
-            if not req.tokens:
+            if req.tokens:
+                self._m.itl.observe(now - req.t_last)
+            else:
                 # the first token of a shared admission: the prompt's KV
                 # is complete, so its suffix pages are cached too
+                self._m.ttft.observe(now - req.t_submit)
                 self.ttft_seconds[req.rid] = now - req.t_submit
                 self._register(req, slot)
             self._last_tok[slot] = tok
             self._take_token(req, tok, logits[slot], now)
+        self._observe_step_end()
+
+    # ------------------------------------------------------------ telemetry
+    # Host bookkeeping once a step, outside any captured graph.
+    def _observe_step_begin(self, n_active: int) -> None:
+        m = self._m
+        if not m.enabled:
+            return
+        if n_active:
+            m.decode_steps.inc()
+        else:
+            # an idle step decodes nothing; the gauges stay current
+            self._observe_step_end()
+
+    def _observe_step_end(self) -> None:
+        """One gauge refresh a step, after finished requests freed their
+        slots and pages, so a drained engine reads 0."""
+        m = self._m
+        if not m.enabled:
+            return
+        m.queue_depth.set(len(self._queue))
+        m.occupancy.set(self.max_batch - self._slots.count(None))
+        if not self._queue:
+            m.page_pressure.set(0)      # an empty queue has no pressure
+        self._observe_pool_ledger()
+
+    def _observe_pool_ledger(self) -> None:
+        """The pool ledger as step-end gauges plus one counter-track sample
+        (pages and bytes in line with the serving timeline). Fragmentation
+        is recomputed only when the free list's epoch moved."""
+        m = self._m
+        led = self.pool.ledger(fragmentation=False)
+        pinned = (self._prefix.pinned_page_count()
+                  if self._prefix is not None else 0)
+        m.kv_pages_in_use.set(led["pages_in_use"])
+        if self._prefix is not None:
+            m.prefix_pinned.set(pinned)
+        m.pool_pages["used"].set(led["pages_in_use"])
+        m.pool_pages["free"].set(led["pages_free"])
+        m.pool_pages["shared"].set(led["pages_shared"])
+        m.pool_pages["pinned"].set(pinned)
+        m.pool_pages["spilled"].set(led["pages_spilled"])
+        m.pool_bytes["used"].set(led["bytes_in_use"])
+        m.pool_bytes["free"].set(led["bytes_free"])
+        m.pool_bytes["shared"].set(
+            led["pages_shared"] * led["bytes_per_page"])
+        m.pool_bytes["pinned"].set(pinned * led["bytes_per_page"])
+        m.pool_bytes["spilled"].set(led["bytes_spilled"])
+        if led["pages_spilled"] > self._host_tier_peak:
+            self._host_tier_peak = led["pages_spilled"]
+            m.host_tier_peak.set(self._host_tier_peak)
+        if led["epoch"] != self._pool_frag_epoch:
+            self._pool_frag_epoch = led["epoch"]
+            self._pool_frag = self.pool.free_list_fragmentation()
+            m.pool_frag.set(self._pool_frag)
+        m.counter_track(
+            "kv_pool", time.perf_counter(),
+            pages_in_use=led["pages_in_use"],
+            bytes_in_use=led["bytes_in_use"],
+            pages_shared=led["pages_shared"], pages_pinned=pinned,
+            pages_spilled=led["pages_spilled"])
+
+    def _observe_page_pressure(self, short: int) -> None:
+        """Pages the queue head is short at admission (0: not blocked)."""
+        if self._m.enabled:
+            self._m.page_pressure.set(short)
+
+    def _observe_timeouts(self, n: int) -> None:
+        if self._m.enabled:
+            self._m.requests_timeout.inc(n)
+
+    def _observe_recovery(self, n_replayed: int, n_failed: int,
+                          dt: float) -> None:
+        """One recovery: requests re-queued, requests ended ``FAILED``, its
+        wall clock, and the reset pool's ledger at once (the failed step
+        never reached its step-end refresh)."""
+        m = self._m
+        if not m.enabled:
+            return
+        m.recoveries.inc()
+        if n_replayed:
+            m.retries.inc(n_replayed)
+        if n_failed:
+            m.requests_failed.inc(n_failed)
+        m.recovery_seconds.observe(dt)
+        self._observe_pool_ledger()
+
+    def _observe_evict_shortfall(self, short: int) -> None:
+        """``evict`` freed fewer pages than asked: how many, and the
+        pinned pages that explain it."""
+        m = self._m
+        if not m.enabled or self._prefix is None:
+            return
+        m.evict_short.inc(short)
+        m.prefix_pinned.set(self._prefix.pinned_page_count())
+
+    def _observe_preemption(self, req: Request) -> None:
+        """One victim unseated, and the decode tokens its replay
+        regenerates."""
+        m = self._m
+        if not m.enabled:
+            return
+        m.preemptions.inc()
+        if req.tokens:
+            m.preempted_tokens.inc(len(req.tokens))
+
+    def _observe_chunk(self, dt: float, final: bool = False) -> None:
+        """One chunk dispatched (its host wall clock); the final chunk
+        counts the request's prefill."""
+        if self._m.enabled:
+            self._m.prefill_chunk_s.observe(dt)
+            if final:
+                self._m.prefills.inc()
+
+    def _observe_stall(self, dt: float) -> None:
+        """Scheduler and prefill work ran while decode-ready requests
+        waited: that wall clock is the decode stall (the host probe
+        ``max_decode_stall`` keeps its maximum whatever the flag)."""
+        if dt > self.max_decode_stall:
+            self.max_decode_stall = dt
+        if self._m.enabled:
+            self._m.decode_stall_s.observe(dt)
+
+    def _observe_bucket(self, migrated: bool = False) -> None:
+        """The rung gauge moves only on a migration (and once when the
+        engine is made)."""
+        if self._m.enabled:
+            self._m.bucket.set(self.bucket)
+            if migrated:
+                self._m.migrations.inc()

@@ -8,6 +8,9 @@ each) and is reused while the sources are unchanged. The libraries expose
 plain C entry points and are loaded with ``ctypes``: every pointer and the
 stream travel as ``c_void_p``, and each entry returns ``cudaGetLastError()``
 after its launches, which :func:`check` turns into an exception.
+Every failure here (no ``nvcc``, a failed compile, a refused launch) raises
+:class:`KernelError`, which the serving engine's replay recovery does not
+absorb: no fallback hides a kernel.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -38,6 +41,11 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[str, object] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, or its launch was refused: a CUDA error
+    at launch, or a CUDA graph given pools it was not captured with."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -46,7 +54,7 @@ def _nvcc() -> str:
         or "/usr/local/cuda"
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH, CUDA_HOME): the port's kernels build "
             "with the CUDA toolkit on the machine that has the card")
     return str(path)
@@ -76,7 +84,7 @@ def _compile(nvcc: str, src: Path, out: Path) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {src.name} "
+        raise KernelError(f"nvcc failed for {src.name} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
 
@@ -130,7 +138,7 @@ def bind(name: str, symbol: str, argtypes, restype=ctypes.c_int):
 def check(rc: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error (a refused launch)."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise KernelError(f"{what}: CUDA error {rc} at launch")
 
 
 def stream_handle(device) -> int:

@@ -592,9 +592,7 @@ class PagedKVCache:
         # pages with more than one reference, a free-list mutation epoch
         # (fragmentation is recomputed only when it moved) and pages held
         # in the host tier
-        self._shared_pages = 0
         self._free_epoch = 0
-        self._spilled_pages = 0
         shape = (num_kv_heads, num_pages, page_size, head_dim)
         rows = num_layers * 2 * num_kv_heads * page_size
         if kv_dtype == "int8":
@@ -621,10 +619,23 @@ class PagedKVCache:
         self.seq_lens = np.zeros((max_batch,), np.int32)
         self._pages_used = np.zeros((max_batch,), np.int32)
         self._page_rc = np.zeros((num_pages,), np.int32)
-        first = 1 if reserve_null_page else 0
-        if reserve_null_page:
+        # the pairs a step took (take_pools), until it installs its own: a
+        # step that raised leaves them here for reset()
+        self._detached: Optional[List[tuple]] = None
+        self._fresh_allocator()
+
+    def _fresh_allocator(self) -> None:
+        """Every page free (but the null page), every slot empty."""
+        self.block_tables[...] = 0
+        self.seq_lens[...] = 0
+        self._pages_used[...] = 0
+        self._page_rc[...] = 0
+        first = 1 if self.reserved_null_page else 0
+        if self.reserved_null_page:
             self._page_rc[0] = np.int32(1 << 30)     # never freed
-        self._free = list(range(num_pages - 1, first - 1, -1))
+        self._free = list(range(self.num_pages - 1, first - 1, -1))
+        self._shared_pages = 0
+        self._spilled_pages = 0
 
     # -------------------------------------------------------------- admin
     def free_page_count(self) -> int:
@@ -823,8 +834,27 @@ class PagedKVCache:
         n = len(pairs)
         self.k_pages = [None] * n
         self.v_pages = [None] * n
+        self._detached = pairs
         return pairs
 
     def install_pools(self, pairs) -> None:
         self.k_pages = [k for k, _ in pairs]
         self.v_pages = [v for _, v in pairs]
+        self._detached = None
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Return the cache to its state when made, in place: pools a failed
+        step left detached are installed again, every pool tensor (an int8
+        pool's payloads and scales) is zeroed at its address, and the
+        allocator, reference counts, block tables, lengths and the host-tier
+        count start fresh. Replay recovery's rebuild: a CUDA graph captured
+        over these pools names their addresses, so it keeps replaying."""
+        if self.k_pages[0] is None:
+            self.install_pools(self._detached)
+        for pools in (self.k_pages, self.v_pages):
+            for pool in pools:
+                for t in _parts(pool):
+                    t.zero_()
+        self._fresh_allocator()
+        self._free_epoch += 1

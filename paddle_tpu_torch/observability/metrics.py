@@ -1,0 +1,325 @@
+"""Process-wide metrics registry: counters, gauges, histograms.
+
+Counterpart of ``paddle_tpu/observability/metrics.py``, with the same family
+names, bucket bounds and snapshot schema, so a snapshot of the port reads
+like one of the JAX package.
+
+  - **Host-side only.** Telemetry never runs inside a captured CUDA graph:
+    a write there would fire once at capture and never on replay. The
+    serving engine writes at the host boundary of each step, outside
+    ``_StepGraph``'s capture.
+  - **Near-zero overhead.** Instrument handles are resolved once at
+    construction time (``registry().counter(...)``) and kept on the
+    instrumented object; a hot-path write is one attribute read plus a
+    float add or a list-index bump: no registry lookup, no lock, no flag
+    read per call. With ``FLAGS_telemetry=0`` the construction site binds
+    the shared :data:`NULL` stub instead, so the hot path pays one no-op
+    method call.
+  - **Exportable.** :meth:`MetricsRegistry.snapshot` returns a JSON-able
+    dict; :func:`~paddle_tpu_torch.observability.export.to_prometheus`
+    renders the same snapshot as Prometheus text exposition format.
+
+Counter and gauge writes are plain ``+=`` under the GIL: a race could in
+principle drop an increment under heavy threading, the usual statsd trade
+(telemetry adds no lock to the path it observes). Snapshots take the
+registry lock only to list the families, never to read values.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL",
+    "exponential_buckets", "LATENCY_BUCKETS", "registry",
+    "series_quantile",
+]
+
+
+def exponential_buckets(start: float, factor: float, count: int
+                        ) -> Tuple[float, ...]:
+    """``count`` fixed exponential bucket upper bounds: start, start *
+    factor, ... — the histogram layout (one +Inf overflow bucket rides
+    implicitly at the end)."""
+    if start <= 0 or factor <= 1.0 or count < 1:
+        raise ValueError("need start > 0, factor > 1, count >= 1")
+    out: List[float] = []
+    v = float(start)
+    for _ in range(count):
+        out.append(v)
+        v *= factor
+    return tuple(out)
+
+
+# 100 µs .. ~105 s in x2 steps: one ladder covers inter-token latency
+# (~ms), TTFT (~10ms-1s), compile walls (~s) and epoch syncs.
+LATENCY_BUCKETS = exponential_buckets(1e-4, 2.0, 21)
+
+
+class Counter:
+    """Monotonic counter. ``inc`` is one float add — no lock."""
+
+    __slots__ = ("_value",)
+    kind = "counter"
+
+    def __init__(self):
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins instantaneous value (queue depth, occupancy)."""
+
+    __slots__ = ("_value",)
+    kind = "gauge"
+
+    def __init__(self):
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        self._value = v
+
+    def inc(self, n: float = 1.0) -> None:
+        self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self._value -= n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Fixed-exponential-bucket histogram; ``observe`` is one bisect +
+    two adds. Tracks sum/count/min/max so snapshot quantile estimates
+    can clamp to the observed range."""
+
+    __slots__ = ("_uppers", "_counts", "_sum", "_count", "_min", "_max")
+    kind = "histogram"
+
+    def __init__(self, buckets: Sequence[float] = LATENCY_BUCKETS):
+        self._uppers = tuple(sorted(float(b) for b in buckets))
+        if not self._uppers:
+            raise ValueError("histogram needs at least one bucket")
+        self._counts = [0] * (len(self._uppers) + 1)   # +1: overflow
+        self._sum = 0.0
+        self._count = 0
+        self._min = float("inf")
+        self._max = float("-inf")
+
+    def observe(self, v: float) -> None:
+        self._counts[bisect.bisect_left(self._uppers, v)] += 1
+        self._sum += v
+        self._count += 1
+        if v < self._min:
+            self._min = v
+        if v > self._max:
+            self._max = v
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def quantile(self, q: float) -> Optional[float]:
+        return series_quantile(self._series_entry({}), q)
+
+    def _series_entry(self, labels: Dict[str, str]) -> Dict[str, Any]:
+        return {
+            "labels": labels, "count": self._count, "sum": self._sum,
+            "min": (self._min if self._count else None),
+            "max": (self._max if self._count else None),
+            "buckets": list(self._uppers), "counts": list(self._counts),
+        }
+
+
+def series_quantile(entry: Dict[str, Any], q: float) -> Optional[float]:
+    """q-quantile estimate from a snapshot histogram series entry:
+    linear interpolation within the hit bucket, clamped to the observed
+    min/max (so a p50 of four sub-bucket samples never reports below
+    the smallest one seen). Works on round-tripped JSON."""
+    count = entry.get("count", 0)
+    if not count:
+        return None
+    target = q * count
+    cum = 0.0
+    lower = 0.0
+    for upper, c in zip(entry["buckets"], entry["counts"]):
+        if c and cum + c >= target:
+            v = lower + (target - cum) / c * (upper - lower)
+            break
+        cum += c
+        lower = upper
+    else:
+        v = entry["max"] if entry.get("max") is not None else lower
+    mn, mx = entry.get("min"), entry.get("max")
+    if mn is not None:
+        v = max(v, mn)
+    if mx is not None:
+        v = min(v, mx)
+    return v
+
+
+class _NullInstrument:
+    """Shared no-op stub every instrument kind collapses to when
+    ``FLAGS_telemetry`` is off: construction sites bind this once and
+    the hot path pays a single no-op method call."""
+
+    __slots__ = ()
+
+    def inc(self, n: float = 1.0) -> None:
+        pass
+
+    def dec(self, n: float = 1.0) -> None:
+        pass
+
+    def set(self, v: float) -> None:
+        pass
+
+    def observe(self, v: float) -> None:
+        pass
+
+    def labels(self, **kv) -> "_NullInstrument":
+        return self
+
+    def quantile(self, q: float) -> None:
+        return None
+
+    @property
+    def value(self) -> float:
+        return 0.0
+
+    @property
+    def count(self) -> int:
+        return 0
+
+
+NULL = _NullInstrument()
+
+
+class _Family:
+    """One registered metric name: kind + help + label schema + the
+    children (one instrument per label-value tuple)."""
+
+    __slots__ = ("name", "help", "kind", "labelnames", "buckets",
+                 "_make", "_children", "_lock")
+
+    def __init__(self, name, help, kind, labelnames, make, buckets=None):
+        self.name = name
+        self.help = help
+        self.kind = kind
+        self.labelnames = tuple(labelnames)
+        self.buckets = buckets          # histogram layout (None otherwise)
+        self._make = make
+        self._children: Dict[Tuple[str, ...], Any] = {}
+        self._lock = threading.Lock()
+
+    def labels(self, **kv):
+        """The child instrument for one label-value combination —
+        resolve ONCE and keep the handle; this path takes a lock."""
+        if set(kv) != set(self.labelnames):
+            raise ValueError(
+                f"metric {self.name!r} has labels {self.labelnames}, "
+                f"got {tuple(sorted(kv))}")
+        key = tuple(str(kv[n]) for n in self.labelnames)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._make()
+            return child
+
+    def series(self) -> Iterable[Tuple[Dict[str, str], Any]]:
+        with self._lock:
+            items = list(self._children.items())
+        for key, child in items:
+            yield dict(zip(self.labelnames, key)), child
+
+
+class MetricsRegistry:
+    """Named, labeled instrument registry. ``counter``/``gauge``/
+    ``histogram`` are idempotent: the same name returns the same family
+    (kind and label schema must match), so every engine/step instance
+    in the process shares one series set."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._families: Dict[str, _Family] = {}
+
+    def _get(self, name, help, kind, labelnames, make, buckets=None):
+        labelnames = tuple(labelnames)
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = _Family(name, help, kind, labelnames, make, buckets)
+                self._families[name] = fam
+            elif fam.kind != kind or fam.labelnames != labelnames \
+                    or fam.buckets != buckets:
+                raise ValueError(
+                    f"metric {name!r} already registered as {fam.kind} "
+                    f"with labels {fam.labelnames}"
+                    + (f" and buckets {fam.buckets}" if fam.buckets else "")
+                    + f"; requested {kind} with {labelnames}"
+                    + (f" and buckets {buckets}" if buckets else ""))
+        if not labelnames:
+            return fam.labels()        # unlabeled: hand out the child
+        return fam
+
+    def counter(self, name: str, help: str = "", labels: Sequence[str] = ()):
+        return self._get(name, help, "counter", labels, Counter)
+
+    def gauge(self, name: str, help: str = "", labels: Sequence[str] = ()):
+        return self._get(name, help, "gauge", labels, Gauge)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: Sequence[str] = (),
+                  buckets: Optional[Sequence[float]] = None):
+        b = tuple(buckets) if buckets is not None else LATENCY_BUCKETS
+        return self._get(name, help, "histogram", labels,
+                         lambda: Histogram(b), buckets=b)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-able point-in-time view of every series. Counters and
+        gauges carry ``value``; histograms carry count/sum/min/max plus
+        the bucket bounds and per-bucket counts (p50/p99 derivable via
+        :func:`series_quantile`)."""
+        with self._lock:
+            fams = list(self._families.values())
+        metrics: Dict[str, Any] = {}
+        for fam in fams:
+            series = []
+            for lbl, child in fam.series():
+                if fam.kind == "histogram":
+                    series.append(child._series_entry(lbl))
+                else:
+                    series.append({"labels": lbl, "value": child.value})
+            metrics[fam.name] = {"type": fam.kind, "help": fam.help,
+                                 "series": series}
+        return {"ts": time.time(), "metrics": metrics}
+
+    def clear(self) -> None:
+        """Drop every family (tests; a fresh process view). Handles
+        bound before the clear keep writing to orphaned instruments —
+        re-resolve after clearing."""
+        with self._lock:
+            self._families.clear()
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-wide registry."""
+    return _REGISTRY

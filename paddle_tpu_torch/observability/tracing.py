@@ -1,0 +1,183 @@
+"""Span tracer: nested host-side timing events -> Chrome-trace JSON.
+
+Counterpart of ``paddle_tpu/observability/tracing.py``.
+``tracer().span("prefill", rid=3)`` is a context manager (and decorator)
+that records one complete event (name, wall-clock begin, duration, thread)
+into a bounded ring buffer. The export is the Chrome ``traceEvents`` format
+(``chrome://tracing`` and Perfetto open it directly).
+
+While a ``torch.profiler`` session records (``torch.autograd.
+_profiler_enabled()``), every span also enters
+``torch.profiler.record_function``, so the spans land in the profiler's
+trace beside the card's kernels; outside a session spans skip it (entering
+it costs microseconds a span on the decode path).
+
+Host-side only, like the metrics registry: a span entered inside a CUDA
+graph capture would time the capture, not the replays.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import torch
+
+__all__ = ["SpanTracer", "Span", "NULL_SPAN", "tracer", "null_span",
+           "null_event", "null_counter"]
+
+
+def _capture_active() -> bool:
+    """Whether a ``torch.profiler`` session is recording."""
+    return torch.autograd._profiler_enabled()
+
+
+class Span:
+    """One timed scope. Context manager; also usable as a decorator
+    (``@tracer().span("load")`` — note the enabled/disabled decision is
+    then frozen at decoration time; prefer the ``with`` form for code
+    whose telemetry flag may toggle)."""
+
+    __slots__ = ("_tracer", "name", "args", "_t0", "_ann")
+
+    def __init__(self, tr: "SpanTracer", name: str,
+                 args: Optional[Dict[str, Any]] = None):
+        self._tracer = tr
+        self.name = name
+        self.args = args or {}
+        self._t0 = 0.0
+        self._ann = None
+
+    def __enter__(self) -> "Span":
+        if _capture_active():
+            self._ann = torch.profiler.record_function(self.name)
+            self._ann.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter()
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
+            self._ann = None
+        self._tracer._append(self.name, self._t0, t1, self.args)
+        return False
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            with Span(self._tracer, self.name, self.args):
+                return fn(*a, **kw)
+        return wrapper
+
+
+class _NullSpan:
+    """No-op stand-in bound when telemetry is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return fn
+
+
+NULL_SPAN = _NullSpan()
+
+
+def null_span(name: str, **args) -> _NullSpan:
+    return NULL_SPAN
+
+
+def null_event(name: str, t0: float, t1: float, **args) -> None:
+    return None
+
+
+def null_counter(name: str, t: float, **values) -> None:
+    return None
+
+
+class SpanTracer:
+    """Bounded ring buffer of complete events (Chrome-trace ``"X"``
+    phase). Appends are deque ops under the GIL — no lock on the record
+    path; ``events()``/exports copy."""
+
+    def __init__(self, capacity: Optional[int] = None):
+        if capacity is None:
+            from .. import flags
+            capacity = int(flags.get_flag("telemetry_ring"))
+        self._events: deque = deque(maxlen=max(1, capacity))
+        self._pid = os.getpid()
+
+    # ------------------------------------------------------------ record
+    def span(self, name: str, **args) -> Span:
+        return Span(self, name, args)
+
+    def event(self, name: str, t0: float, t1: float, **args) -> None:
+        """Retroactive complete event from explicit ``perf_counter``
+        begin/end stamps (request lifecycle phases whose boundaries were
+        observed before the phase name was known)."""
+        self._append(name, t0, t1, args)
+
+    def counter(self, name: str, t: float, **values) -> None:
+        """Perfetto counter sample (Chrome-trace ``"C"`` phase): each
+        key of ``values`` renders as its own counter track aligned with
+        the span timeline — how pool bytes/pages-in-use line up against
+        the serving steps in one view. One deque append, like spans."""
+        self._events.append({
+            "name": name, "ph": "C",
+            "ts": t * 1e6,
+            "pid": self._pid, "tid": threading.get_ident(),
+            "args": {k: float(v) for k, v in values.items()},
+        })
+
+    def _append(self, name, t0, t1, args) -> None:
+        self._events.append({
+            "name": name, "ph": "X",
+            "ts": t0 * 1e6,                       # Chrome wants µs
+            "dur": max(0.0, (t1 - t0)) * 1e6,
+            "pid": self._pid, "tid": threading.get_ident(),
+            "args": dict(args),
+        })
+
+    # ------------------------------------------------------------ export
+    def events(self) -> List[Dict[str, Any]]:
+        return list(self._events)
+
+    def chrome_trace(self) -> Dict[str, Any]:
+        """The ring as a Chrome-trace/Perfetto JSON object."""
+        return {"traceEvents": self.events(), "displayTimeUnit": "ms"}
+
+    def save(self, path: str) -> None:
+        import json
+        with open(path, "w") as fh:
+            json.dump(self.chrome_trace(), fh)
+
+    def clear(self) -> None:
+        self._events.clear()
+
+    def __len__(self) -> int:
+        return len(self._events)
+
+
+_TRACER: Optional[SpanTracer] = None
+_TRACER_LOCK = threading.Lock()
+
+
+def tracer() -> SpanTracer:
+    """The process-wide span tracer (ring size from
+    ``FLAGS_telemetry_ring`` at first use)."""
+    global _TRACER
+    if _TRACER is None:
+        with _TRACER_LOCK:
+            if _TRACER is None:
+                _TRACER = SpanTracer()
+    return _TRACER

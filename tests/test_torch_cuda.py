@@ -41,7 +41,12 @@ per engine, a replay equal to the eager step bit for bit, exact launch
 counts, pools at other addresses refused; a page spilled to pinned host
 memory and restored bit for bit and in place, and decode and chunk graphs
 that keep replaying across spills and restores with the streams of a pool
-that never spills.
+that never spills. Replay recovery: faults in prefill, chunks and decode
+keep every capture and the pools' addresses, with fp32 streams equal to a
+fault-free run's; ``serving_decode_steps`` counts graph replays; no
+telemetry write and no fault check runs inside a capture; a kernel error
+is not replayed; the allocator watermarks under the JAX package's stat
+names.
 
 Every test needs the card and skips without one. On the GPU machine, which
 has no JAX (so the repository's conftest, which imports it, is skipped):
@@ -1881,3 +1886,144 @@ def test_decode_graphs_replay_after_spill_and_restore(dev):
         tserving._pool_ptrs(zip(eng.pool.k_pages, eng.pool.v_pages))] * 2
     _, roomy, _ = _tier_run(dev, model, 40, 0, prompts)
     assert tiered == roomy
+
+
+# ------------------------------------------ replay recovery and telemetry
+# each site fires a few times (every fault replays every request in
+# flight: without times= the chunked prompts could spend their budget)
+RECOVERY_SPEC = ("prefill:every=3:times=1;chunk_prefill:every=3:times=2;"
+                 "decode_dispatch:every=7:times=2")
+
+
+def _recovery_run(dev, model, spec, route="fused", **kw):
+    """Chunked and whole prompts, half submitted after 2 steps, through an
+    fp32 engine on the card (ladder (2, 4)) armed with ``spec``. Returns
+    (engine, streams, pool addresses before the run)."""
+    from paddle_tpu_torch.testing import faults
+    with faults.armed(spec, serving_retry_backoff=0.001):
+        eng = _graph_engine(dev, route, model=model, prefill_chunk=16,
+                            prefix_cache=True, **kw)
+    ptrs = tserving._pool_ptrs(zip(eng.pool.k_pages, eng.pool.v_pages))
+    ps = _graph_prompts(eng.model.config.vocab_size,
+                        lens=(20, 5, 30, 9, 13, 6))
+    rids = [eng.submit(p, 6) for p in ps[:3]]
+    eng.step()
+    eng.step()
+    rids += [eng.submit(p, 6) for p in ps[3:]]
+    out = eng.run()
+    assert all(eng.status(r) == "OK" for r in rids), eng.statuses()
+    return eng, [out[r] for r in rids], ptrs
+
+
+@pytest.mark.parametrize("route", ["fused", "generic"])
+def test_recovery_keeps_the_graphs_and_the_pools(dev, route):
+    """Faults in prefill, chunks and decode: recovery resets the pools in
+    place, so the graphs captured before keep replaying (one capture per
+    rung and one for the chunk, as in a fault-free engine), the pools keep
+    their addresses, and the replayed fp32 streams equal the fault-free
+    run's."""
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device=dev,
+                             dtype=torch.float32, generator=seed(5, dev))
+    clear_decode_program_cache()
+    cache = decode_program_cache()
+    clean, want, _ = _recovery_run(dev, model, "", route)
+    before = dict(cache.stats()["traces"])
+    eng, got, ptrs = _recovery_run(dev, model, RECOVERY_SPEC, route)
+    assert got == want
+    fired = eng._f_prefill.fires + eng._f_chunk.fires + eng._f_decode.fires
+    assert fired == 5 and eng._consec_failures == 0
+    keys = set(eng._decode_keys.values()) | {eng.chunk_key}
+    assert keys == set(clean._decode_keys.values()) | {clean.chunk_key}
+    assert {k: cache.stats()["traces"][k] - before[k] for k in keys} == \
+        dict.fromkeys(keys, 1)
+    graphs = list(eng._decode_fns.values()) + [eng._chunk_fn]
+    assert all(g.graph is not None and g.ptrs == ptrs for g in graphs)
+    assert tserving._pool_ptrs(
+        zip(eng.pool.k_pages, eng.pool.v_pages)) == ptrs
+    led = eng.pool.ledger()
+    assert led["pages_in_use"] == len(eng._prefix._nodes)
+    assert led["pages_shared"] == 0 == eng._prefix.pinned_page_count()
+
+
+def _replica_value(name, replica):
+    from paddle_tpu_torch import observability as obs
+    for s in obs.snapshot()["metrics"][name]["series"]:
+        if s["labels"].get("replica") == replica:
+            return s["count"] if "count" in s else s["value"]
+    raise KeyError(name)
+
+
+def test_decode_steps_count_graph_replays(dev):
+    """serving_decode_steps counts every dispatched step, replays of the
+    captured graph included, and the launch counters agree."""
+    eng = _graph_engine(dev, "fused", replica="card-steps")
+    kernels.reset_launches()
+    _ladder_run(eng)
+    steps = len(eng.decode_step_seconds)
+    assert all(fn.graph is not None for fn in eng._decode_fns.values())
+    assert _replica_value("serving_decode_steps", "card-steps") == steps
+    layers = eng.model.config.num_hidden_layers
+    assert kernels.launch_counts()["fused_block_decode"] == layers * steps
+
+
+def test_no_telemetry_write_or_fault_check_inside_a_capture(dev):
+    """Armed sites that never fire count one check a dispatch, and the
+    per-step telemetry one write a dispatch: none of them runs inside the
+    captured steps (which would count once at capture, never on
+    replay)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.testing import faults
+    obs.tracer().clear()
+    with faults.armed("decode_dispatch:every=100000;"
+                      "chunk_prefill:every=100000"):
+        eng = _graph_engine(dev, "fused", replica="card-capture",
+                            prefill_chunk=8)
+    rids = [eng.submit(p, 6) for p in _chunk_prompts(
+        eng.model.config.vocab_size)]
+    out = eng.run()
+    steps = len(eng.decode_step_seconds)
+    assert eng._decode_fns[eng.bucket].graph is not None
+    assert eng._chunk_fn.graph is not None
+    assert eng._f_decode.calls == steps
+    assert eng._f_chunk.calls == eng.chunk_dispatches == 3 + 4 + 2
+    assert _replica_value("serving_decode_steps", "card-capture") == steps
+    assert _replica_value("serving_prefill_chunk_seconds",
+                          "card-capture") == eng.chunk_dispatches
+    decoded = sum(len(out[r]) - 1 for r in rids)
+    assert _replica_value("serving_inter_token_seconds",
+                          "card-capture") == decoded
+    events = [e["name"] for e in obs.tracer().events()]
+    assert events.count("engine.decode_step") == steps
+
+
+def test_kernel_error_in_a_step_is_not_replayed(dev):
+    """A graph given pools at other addresses raises KernelError: recovery
+    does not replay it."""
+    eng = _graph_engine(dev, "fused", bucket_ladder=(4,))
+    p = _graph_prompts(eng.model.config.vocab_size)[0]
+    eng.submit(p, 3)
+    eng.run()
+    eng.pool.k_pages[0] = eng.pool.k_pages[0].clone()
+    eng.submit(p, 3)
+    with pytest.raises(tserving.KernelError, match="addresses"):
+        eng.run()
+    assert eng._consec_failures == 0
+
+
+def test_device_memory_watermarks_on_the_card(dev):
+    """sample_device_memory reports the card's allocator watermarks under
+    the JAX package's stat names and publishes them as gauges."""
+    from paddle_tpu_torch import observability as obs
+    x = torch.ones((1 << 20,), device=dev)
+    out = obs.memory.sample_device_memory()
+    stats = out["devices"][str(dev.index or 0)]
+    assert set(stats) == set(obs.memory.DEVICE_STATS)
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.nbytes
+    assert stats["bytes_reserved"] >= stats["bytes_in_use"]
+    series = {(s["labels"]["device"], s["labels"]["stat"]): s["value"]
+              for s in obs.snapshot()["metrics"]["device_memory_bytes"]
+              ["series"]}
+    assert series[(str(dev.index or 0), "bytes_in_use")] == \
+        stats["bytes_in_use"]
