@@ -31,7 +31,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               within one payload step and SCALE_RTOL of the plain rows, the
               N-layer one bit for bit to 4 int8 one-layer launches), and the
               N-layer decode also runs int4 weights on native and int8
-              pools;
+              pools; then the spec phase's new shapes: #4 as the verify
+              (S = 3, 5, 9 at 7B heads from 700 in a 1024-token table) and
+              as the draft's sync chunk (S = 64 at TinyLlama-1.1B's heads,
+              32 over 4 of dim 64), #2 and #3 as the draft's step (B = 1,
+              700 tokens, TinyLlama's layer), each also on its pools
+              quantized (its int8 variant, as above);
   3. serve    Llama-2-7B (32 layers, bf16, random weights from a seed)
               through ServingEngine: 8 requests of at most 256 tokens, 32
               new tokens each, some submitted mid-run, with fused block
@@ -109,6 +114,35 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               from a graph given a moved pool, raises out of step; the
               graphed fused step at B = 4 with FLAGS_telemetry on and off;
               a Chrome trace of the phase under build/;
+     spec     speculative decoding on the same model with a TinyLlama-1.1B-
+              shaped seeded draft (hidden 2048, 22 layers, 32 heads over 4
+              kv heads, inter 5632): batch 1 at a 9-slot budget (rungs 2,
+              4, 8, adaptive), 4 prompts of 17 to 256 tokens, 64 new tokens
+              each, with the draft on the fused route and on the generic
+              one, with the target as its own draft (γ reaches 8) and with
+              an all-zero draft (γ falls to 2), beside the plain engine:
+              every request OK, exact launches (#3 or #2 a draft layer per
+              scan step, #4 a layer per verify and a draft layer per sync
+              chunk, #1 a layer per admission), the draft synced once a
+              request (gap-free rounds), at most one capture a key and
+              engine; acceptance, tokens a round, the γ trajectory, each
+              round's wall ms and each graph's device ms by γ, the bf16
+              agreement with the plain engine (first differing token, top-2
+              margins; each logits row up to the first difference within
+              an RMS of 2^-3 of the plain row's standard deviation, and
+              each first difference at a plain top-2 margin below twice
+              that: a near tie; the plain engine's generic route against
+              its fused one held the same way as the yardstick) and the
+              break-even acceptance rate per γ against the plain step; a
+              request whose prompt and new tokens fill the table (960 +
+              64); serve's traffic at max_batch 4 under the default
+              pricing (steps mix), and an int8 pool at batch 1, each held
+              to the plain engine's logits the same way; sampled
+              requests (temperature 0.8, top-k 50, top-p 0.95, four seeds)
+              equal over two runs, and compared with a run under
+              FLAGS_fault_inject="spec_draft:every=3:times=4;spec_verify:
+              every=4:times=4" (bf16: agreement reported; the replays
+              re-prefill the KV the rounds read, which rounds otherwise);
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -123,7 +157,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               phase's traffic, the hits' streams equal to the cold
               run's, token for token; then the recovery phase's traffic
               and spec, the streams equal to the fault-free run's, token
-              for token;
+              for token; then the spec phase's batch-1 and serve traffic
+              with a 1-layer TinyLlama-shaped draft, the streams equal to
+              the plain engine's token for token, and its sampled
+              requests equal over two runs and under its fault spec;
+              then the model as its own draft (acceptance >= 0.95, γ
+              reaches 8);
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -255,6 +294,13 @@ QUANT_OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7),
 # from bf16 k/v, where such a difference can become one bf16 step of the
 # row's amax (2^-8 relative)
 SCALE_RTOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-6}
+# #4's int8 variant at the spec phase's chunk shapes: QUANT_OUT_TOL, but
+# in fp32 the native variant's OUT_TOL. From 700 tokens a chunk of S <= 9
+# walks its prefix in more parts than S = 100 or 256 (prefill_splits), so
+# the kernel's partial sums combine in another order than the plain
+# version's: the native rows at these shapes read up to 2e-5 in fp32 too
+SPEC_QUANT_OUT_TOL = {torch.bfloat16: QUANT_OUT_TOL[torch.bfloat16],
+                      torch.float32: OUT_TOL[torch.float32]}
 LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # max|a-b|/max|b|
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 8, 4096, 2, 2
@@ -890,6 +936,234 @@ def _check_group(fb, case, dtype, x, layers, mw, wdt, quant, group, bt, sl,
 
 
 # ----------------------------------------------------------------- serve
+# ------------------------------------------------ spec: kernels at new shapes
+# the TinyLlama-1.1B geometry of the spec phase's draft
+# (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T)
+DRAFT_GEOM = dict(vocab=32000, hidden=2048, layers=22, heads=32, kv_heads=4,
+                  head_dim=64, inter=5632, max_pos=2048)
+# the verify chunk's widths (γ + 1 for the rungs 2, 4, 8) and its start in
+# serve's 1024-token table; the draft's sync chunk and its decode context
+SPEC_VERIFY_S, SPEC_START = (3, 5, 9), 700
+SPEC_SYNC_S, SPEC_SYNC_START, SPEC_DRAFT_LEN = 64, 192, 700
+
+
+def layer_weights(gen, dtype, device, hidden, heads, kv_heads, head_dim,
+                  inter):
+    """One decoder layer's weights at any geometry, scaled as
+    block_weights."""
+    from paddle_tpu_torch.kernels.fused_block_decode import BlockDecodeWeights
+    qd, kd = heads * head_dim, kv_heads * head_dim
+
+    def mat(k, n):
+        return _rand(gen, (k, n), dtype, device, 0.5 / math.sqrt(k))
+
+    def norm():
+        return (1.0 + 0.1 * torch.randn(hidden, generator=gen, device=device)
+                ).to(dtype)
+
+    return BlockDecodeWeights(
+        ln1=norm(), wq=mat(hidden, qd), wk=mat(hidden, kd),
+        wv=mat(hidden, kd), wo=mat(qd, hidden), ln2=norm(),
+        wg=mat(hidden, inter), wu=mat(hidden, inter), wd=mat(inter, hidden))
+
+
+def one_table(lens, pages, device):
+    """Block tables of ``pages`` pages a row, each row's pages distinct and
+    every one in use (a full table), over a pool whose page 0 is null."""
+    bt = 1 + np.arange(len(lens) * pages, dtype=np.int32).reshape(
+        len(lens), pages)
+    return torch.from_numpy(bt).to(device), 1 + len(lens) * pages
+
+
+def kv_row_bytes(quant: bool, elem: int, d: int) -> int:
+    """Bytes of one stored k or v row of head dim ``d``."""
+    return d + 4 if quant else d * elem
+
+
+def chunk_rows(pa, gen, dtype, device, case, s, start, heads, kv_heads, d):
+    """#4 at one speculative shape: write-then-attend against a
+    1024-token table, spread and peaked, on the native pool (OUT_TOL, with
+    SDPA on the gathered prefix) and on the same pool quantized (the
+    int8 variant against its plain version, SPEC_QUANT_OUT_TOL); times
+    and a bound for each. Returns the two rows."""
+    bt, num_pages = one_table([MAX_SEQ], MAX_SEQ // PAGE, device)
+    shape = (kv_heads, num_pages, PAGE, d)
+    kp, vp = (_rand(gen, shape, dtype, device) for _ in range(2))
+    st = torch.tensor([start], dtype=torch.int32, device=device)
+    k_new, v_new = (_rand(gen, (1, s, kv_heads, d), dtype, device)
+                    for _ in range(2))
+    pa.write_paged_prompt_at(kp, vp, k_new, v_new, bt, st)
+    q = _rand(gen, (1, s, heads, d), dtype, device)
+    t = start + s
+    kg, vg = (p[:, bt[0].long()].reshape(kv_heads, -1, d)[None, :, :t]
+              for p in (kp, vp))
+    mask = (torch.arange(t, device=device)[None, :]
+            <= start + torch.arange(s, device=device)[:, None])
+    qt = q.transpose(1, 2)
+    elem = q.element_size()
+    pairs = s * start + s * (s + 1) // 2
+    rows = []
+    for quant in (False, True):
+        kk, vv = (quantized(kp), quantized(vp)) if quant else (kp, vp)
+        name = "paged_chunk_attention" + ("_int8" if quant else "")
+        atol, rtol = (SPEC_QUANT_OUT_TOL if quant else OUT_TOL)[dtype]
+        errs, over = {}, {}
+        for kind, qc in (("spread", q), ("peaked", q * PEAKED_Q)):
+            got = pa.paged_chunk_attention(qc, kk, vv, bt, st)
+            want = pa.paged_chunk_attention_ref(qc, kk, vv, bt, st)
+            torch.cuda.synchronize()
+            errs[kind], over[kind] = (max_err(got, want),
+                                      excess(got, want, rtol))
+            require(over[kind] <= atol, f"{name} {case} S={s} {dtype} "
+                    f"{kind}: {over[kind]} over {rtol} |ref|, max err "
+                    f"{errs[kind]}")
+        nbytes = (elem * 2 * q.numel()
+                  + 2 * t * kv_heads * kv_row_bytes(quant, elem, d)
+                  + 4 * (bt.numel() + 1))
+        bms, by = bound_ms(nbytes, 4.0 * pairs * heads * d, dtype)
+
+        def call():
+            pa.paged_chunk_attention(q, kk, vv, bt, st)
+
+        kms = time_ms(call)
+        rows.append(dict(
+            kernel=name, dtype=DTYPE_NAME[dtype], spec=case, start=start,
+            S=s, heads=heads, kv_heads=kv_heads, head_dim=d,
+            max_err=max(errs.values()), excess=max(over.values()),
+            atol=atol, rtol=rtol, kernel_ms=kms,
+            plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
+                q, kk, vv, bt, st), iters=5, warmup=1),
+            library_ms=(None if quant else
+                        time_ms(lambda: sdpa(qt, kg, vg, attn_mask=mask))),
+            bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+            device_ms=dict(kernel=graph_ms(call))))
+    return rows
+
+
+def check_spec_kernels(dtype, device, results):
+    """The kernels at the spec phase's new shapes, each against its plain
+    version within this phase's tolerances, on a native pool and on the
+    same pool quantized (the int8 variant, as the spec phase's int8 run
+    launches it), with times and a bound: #4 as the verify (S = 3, 5, 9
+    at Llama-2-7B heads from 700 in a 1024-token table) and as the
+    draft's sync chunk (S = 64 at TinyLlama's heads, 32 over 4 of dim
+    64); #2 and #3 as the draft scan's step (B = 1, 700 tokens), #3's
+    appended rows held as the plain version's (an int8 row within one
+    payload step and SCALE_RTOL)."""
+    from paddle_tpu_torch.kernels import fused_block_decode as fb
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    g = DRAFT_GEOM
+    dh, dkv, dd = g["heads"], g["kv_heads"], g["head_dim"]
+    for s in SPEC_VERIFY_S:
+        results.extend(chunk_rows(pa, gen, dtype, device, "verify", s,
+                                  SPEC_START, HEADS, KV_HEADS, HEAD_DIM))
+    results.extend(chunk_rows(pa, gen, dtype, device, "draft sync",
+                              SPEC_SYNC_S, SPEC_SYNC_START, dh, dkv, dd))
+    torch.cuda.empty_cache()
+    # the draft scan's step: #2 (generic route) and #3 (fused) at B = 1
+    bt, num_pages = one_table([MAX_SEQ], MAX_SEQ // PAGE, device)
+    sl = torch.tensor([SPEC_DRAFT_LEN], dtype=torch.int32, device=device)
+    kp, vp = (_rand(gen, (dkv, num_pages, PAGE, dd), dtype, device)
+              for _ in range(2))
+    q = _rand(gen, (1, dh, dd), dtype, device)
+    t = bt.shape[1] * PAGE
+    kg, vg = (x[:, bt.long()].movedim(1, 0).reshape(1, dkv, t, dd)
+              for x in (kp, vp))
+    mask = (torch.arange(t, device=device)[None, :] < sl[:, None])
+    mask = mask[:, None, None, :]
+    qs = q[:, :, None, :]
+    elem = q.element_size()
+    w = layer_weights(gen, dtype, device, g["hidden"], dh, dkv, dd,
+                      g["inter"])
+    kw = dict(num_heads=dh, num_kv_heads=dkv, rope_theta=10000.0,
+              epsilon=1e-5)
+    x = _rand(gen, (1, g["hidden"]), dtype, device, 0.3)
+    mats = sum(t.numel() for t in w if t.dim() == 2)
+    for quant in (False, True):
+        kk0, vv0 = (quantized(kp), quantized(vp)) if quant else (kp, vp)
+        tag = "_int8" if quant else ""
+        row_b = kv_row_bytes(quant, elem, dd)
+        # #2
+        got = pa.paged_attention(q, kk0, vv0, bt, sl)
+        want = pa.paged_attention_ref(q, kk0, vv0, bt, sl)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        if quant:
+            atol, rtol = QUANT_OUT_TOL[dtype]
+            over = excess(got, want, rtol)
+            require(over <= atol, f"paged_attention_int8 draft {dtype}: "
+                    f"{over} over {rtol} |ref|, max err {err}")
+            tols = dict(excess=over, atol=atol, rtol=rtol)
+        else:
+            require(err <= TOL[dtype], f"paged_attention draft {dtype}: "
+                    f"{err}")
+            tols = dict(tol=TOL[dtype])
+        nbytes = (elem * 2 * q.numel() + 2 * SPEC_DRAFT_LEN * dkv * row_b
+                  + 4 * (bt.numel() + 1))
+        bms, by = bound_ms(nbytes, 4.0 * SPEC_DRAFT_LEN * dh * dd, dtype)
+
+        def attn():
+            pa.paged_attention(q, kk0, vv0, bt, sl)
+
+        kms = time_ms(attn)
+        dev = dict(kernel=graph_ms(attn))
+        lib = None
+        if not quant:
+            lib = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+            dev["library"] = graph_ms(lambda: sdpa(qs, kg, vg,
+                                                   attn_mask=mask))
+        results.append(dict(
+            kernel="paged_attention" + tag, dtype=DTYPE_NAME[dtype],
+            spec="draft", seq_lens=[SPEC_DRAFT_LEN], heads=dh, kv_heads=dkv,
+            head_dim=dd, max_err=err, **tols, kernel_ms=kms,
+            plain_ms=time_ms(lambda: pa.paged_attention_ref(
+                q, kk0, vv0, bt, sl)),
+            library_ms=lib, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+            device_ms=dev))
+        # #3
+        name = "fused_block_decode" + tag
+        kk, vk = clone_pool(kk0), clone_pool(vv0)
+        got, kk, vk = fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
+        kr, vr = clone_pool(kk0), clone_pool(vv0)
+        want, kr, vr = fb.fused_block_decode_ref(x, w, kr, vr, bt, sl, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        extra = {}
+        if quant:
+            for half, a, b in (("k", kk, kr), ("v", vk, vr)):
+                nq, ns = rows_differ(a, b, dtype,
+                                     f"{name} draft {dtype} {half}")
+                extra[f"{half}_payload_diffs"] = nq
+                extra[f"{half}_scale_diffs"] = ns
+            extra["scale_rtol"] = SCALE_RTOL[dtype]
+        else:
+            err = max(err, max_err(kk, kr), max_err(vk, vr))
+        require(err <= TOL[dtype], f"{name} draft {dtype}: {err}")
+        nbytes = (weight_bytes(w) + elem * 2 * x.numel()
+                  + 2 * (SPEC_DRAFT_LEN + 1) * dkv * row_b
+                  + 4 * (bt.numel() + 1))
+        bms, by = bound_ms(nbytes, 2.0 * mats + 4.0 * (SPEC_DRAFT_LEN + 1)
+                           * dh * dd, dtype)
+
+        def call():
+            fb.fused_block_decode(x, w, kk, vk, bt, sl, **kw)
+
+        kms = time_ms(call)
+        results.append(dict(
+            kernel=name, dtype=DTYPE_NAME[dtype], spec="draft",
+            seq_lens=[SPEC_DRAFT_LEN], hidden=g["hidden"], heads=dh,
+            kv_heads=dkv, head_dim=dd, inter=g["inter"], max_err=err,
+            tol=TOL[dtype], **extra, kernel_ms=kms,
+            plain_ms=time_ms(lambda: fb.fused_block_decode_ref(
+                x, w, kr, vr, bt, sl, **kw), iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+            device_ms=dict(kernel=graph_ms(call, calls=5, reps=4))))
+        del kk0, vv0, kk, vk, kr, vr
+    del kp, vp, kg, vg, w
+    torch.cuda.empty_cache()
+
+
 def prompts(vocab: int, lens) -> list:
     rng = np.random.default_rng(SEED)
     return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
@@ -1051,6 +1325,8 @@ def run_serve(device):
     counts = run_prefix(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     counts = run_recovery(model)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    counts = run_spec(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     del model
     torch.cuda.empty_cache()
@@ -2187,6 +2463,577 @@ def run_recovery_parity(model):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ spec
+# the spec phase: Llama-2-7B (serve's model) drafted by a TinyLlama-1.1B-
+# shaped seeded model; batch 1 at a 9-slot budget (rungs 2, 4, 8, adaptive)
+SPEC_LENS, SPEC_NEW, SPEC_SLOTS = (17, 100, 200, 256), 64, 9
+SPEC_RUNGS = (2, 4, 8)            # FLAGS_serving_spec_rungs' default
+# bf16: the RMS difference of a speculative engine's logits row and the
+# plain engine's at the same position, over the plain row's standard
+# deviation. The two paths round differently (the verify's chunk and
+# torch.matmul over γ + 1 rows against #3's GEMV, the KV written by
+# either), and the seeded 7B carries that through 32 layers: the plain
+# engine's own generic and fused routes part by 4-7 % of the spread, which
+# the phase measures beside (the yardstick); a wrong position, mask or
+# page would move a row by its whole spread
+SPEC_LOGIT_TOL = 2.0 ** -3
+SPEC_SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.95)
+SPEC_SEEDS = (1, 2, 3, 4)
+# bounded (times=4): a sampled replay emits nothing at its prefill, and
+# once its draft needs two sync chunks every=3 fires within every replay,
+# so without a bound it never progresses and ends FAILED (as in the JAX
+# engine)
+SPEC_FAULTS = "spec_draft:every=3:times=4;spec_verify:every=4:times=4"
+SPEC_RETRIES = 20
+SPEC_WARM = (9, 16)               # warm-up request: prompt, new tokens
+# the request that fills its table: prompt + new tokens == max_seq_len
+SPEC_TABLE_END = MAX_SEQ - SPEC_NEW
+
+
+def draft_model(device, dtype, layers=None, seed_offset=21, zero=False):
+    """The TinyLlama-1.1B-shaped draft (22 layers unless ``layers``),
+    seeded, or all zeros (it proposes token 0 forever)."""
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    g = DRAFT_GEOM
+    cfg = LlamaConfig(
+        vocab_size=g["vocab"], hidden_size=g["hidden"],
+        num_hidden_layers=layers or g["layers"],
+        num_attention_heads=g["heads"], num_key_value_heads=g["kv_heads"],
+        intermediate_size=g["inter"], max_position_embeddings=g["max_pos"])
+    model = LlamaForCausalLM(cfg, device=device, dtype=dtype,
+                             generator=seed(SEED + seed_offset, device))
+    if zero:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
+    return model
+
+
+def spec_engine(model, draft, max_batch=1, slots=SPEC_SLOTS,
+                kv_dtype="native", fused=True, spec="", record_logits=False):
+    """A ServingEngine on serve's pages and context with ``draft``
+    (None: the plain engine) at a slot budget (None: the default pricing),
+    under FLAGS_fault_inject=``spec``. Its ``round_log`` holds (γ,
+    accepted, tokens emitted, wall s) of every completed round."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    from paddle_tpu_torch.testing import faults
+    extra = dict(serving_retry_backoff=RECOVERY_BACKOFF,
+                 serving_max_retries=SPEC_RETRIES, fused_block_decode=fused)
+    if slots is not None:
+        extra["serving_spec_max_slots"] = slots
+    with faults.armed(spec, **extra):
+        eng = ServingEngine(model, max_batch=max_batch, page_size=PAGE,
+                            max_seq_len=MAX_SEQ, draft_model=draft,
+                            kv_dtype=kv_dtype, record_logits=record_logits)
+    flags.reset_flags()
+    eng.round_log = []
+    if draft is None:
+        return eng
+    inner = eng._spec_round
+
+    def spec_round(req, gamma):
+        a0, n0 = eng.spec_tokens_accepted, len(req.tokens)
+        t0 = time.perf_counter()
+        inner(req, gamma)
+        eng.round_log.append((gamma, eng.spec_tokens_accepted - a0,
+                              len(req.tokens) - n0,
+                              time.perf_counter() - t0))
+    eng._spec_round = spec_round
+    return eng
+
+
+def spec_warm(eng, vocab):
+    """One short request (the first calls and captures), then the probes
+    cleared."""
+    p = prompts(vocab, (SPEC_WARM[0],))[0]
+    eng.submit(p, SPEC_WARM[1])
+    eng.run()
+    for probe in (eng.decode_step_seconds, eng.prefill_seconds,
+                  eng.ttft_seconds, eng.logits, eng.round_log):
+        probe.clear()
+    eng.chunk_dispatches = 0
+    if eng.draft_model is not None:
+        eng.spec_rounds = eng.spec_tokens_accepted = 0
+        eng.spec_tokens_rejected = eng.spec_sync_chunks = 0
+
+
+def spec_traffic(eng, vocab, lens, new, stagger=0, law=None):
+    """``lens`` prompts of ``new`` tokens each (half after ``stagger``
+    steps when given), run to the end. Returns (streams, statuses,
+    seconds, launch counts)."""
+    from paddle_tpu_torch import kernels
+    ps = prompts(vocab, lens)
+    head = len(ps) // 2 if stagger else len(ps)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, new, **(law or {})) for p in ps[:head]]
+    for _ in range(stagger):
+        eng.step()
+    rids += [eng.submit(p, new, **(law or {})) for p in ps[head:]]
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ([out[r] for r in rids], [eng.status(r) for r in rids],
+            seconds, kernels.launch_counts(), rids)
+
+
+def spec_launches(counts, eng, layers, dlayers, fused=True,
+                  kv_dtype="native"):
+    """Every kernel's launches in a fault-free run of a speculative engine:
+    #1 a layer per whole prefill; #4 a layer per verify and per target
+    chunk and a draft layer per sync chunk; the draft scan's γ + 1 steps
+    a draft layer each and the plain steps a layer each, on #3 (fused)
+    or #2 (generic)."""
+    int8 = "_int8" if kv_dtype == "int8" else ""
+    want = dict.fromkeys(counts, 0)
+    rounds = eng.round_log
+    want["flash_prefill"] = layers * len(eng.prefill_seconds)
+    want["paged_chunk_attention" + int8] = (
+        layers * (len(rounds) + eng.chunk_dispatches)
+        + dlayers * eng.spec_sync_chunks)
+    step = ("fused_block_decode" if fused else "paged_attention") + int8
+    want[step] = (layers * len(eng.decode_step_seconds)
+                  + dlayers * sum(r[0] + 1 for r in rounds))
+    return want
+
+
+def spec_keys(eng):
+    """Every program key this engine bound: its rungs', the chunk's and
+    the speculative ones."""
+    keys = list(eng._decode_keys.values()) + list(eng._spec_keys.values())
+    return keys + ([eng.chunk_key] if eng.chunk_key is not None else [])
+
+
+def spec_captures(cache, eng, before):
+    """Captures of each of the engine's keys during its life (trace counts
+    against ``before``); at most one a key."""
+    caps = {k: cache.trace_count(k) - before.get(k, 0)
+            for k in spec_keys(eng)}
+    require(all(0 <= n <= 1 for n in caps.values()),
+            f"spec: captures per key {sorted(caps.values())}")
+    return sum(caps.values())
+
+
+def replay_ms(fn) -> float:
+    """Device ms of one replay of an engine program's CUDA graph."""
+    return time_ms(fn.graph.replay, iters=10, warmup=2)
+
+
+def spec_graph_ms(eng):
+    """Device ms of one replay of each captured draft scan and verify,
+    by kind and γ (CUDA events over replays of the engine's graphs)."""
+    out = {}
+    for memo, fn in eng._spec_fns.items():
+        if memo[0] in ("spec_draft", "spec_verify") and \
+                getattr(fn, "graph", None) is not None:
+            gamma = memo[1] - (memo[0] == "spec_verify")
+            mode = "sample" if "sample" in memo else "greedy"
+            out.setdefault(f"{memo[0][5:]}_{mode}", {})[gamma] = \
+                replay_ms(fn)
+    return out
+
+
+def break_even(round_ms, step_ms, gamma):
+    """The acceptance rate α at which a round of cost ``round_ms``, which
+    yields (1 - α^(γ+1)) / (1 - α) tokens in expectation (each proposal
+    accepted with probability α), matches plain steps of ``step_ms`` a
+    token; None if even full acceptance does not."""
+    want = round_ms / step_ms
+    if want > gamma + 1:
+        return None
+    if want <= 1.0:
+        return 0.0
+    lo, hi = 0.0, 1.0
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        if (1 - mid ** (gamma + 1)) / (1 - mid) < want:
+            lo = mid
+        else:
+            hi = mid
+    return (lo + hi) / 2
+
+
+def agreement(got, want, eng_got, eng_want, rids_got, rids_want, what):
+    """Streams equal, each first difference with both sides' top-2 margins
+    (from the engines' recorded logits), and the logits themselves: at
+    every position both engines decided from the same tokens (up to and
+    including the first difference) the ``got`` engine's row (a verify's,
+    or the prefill's for the first token) is held to the ``want``
+    engine's: the RMS of their difference within SPEC_LOGIT_TOL of the
+    ``want`` row's standard deviation; and each first difference must
+    fall where the ``want`` row's top-2 margin is below twice that (the
+    tolerated difference of two entries: a near tie). Returns (equal
+    streams, first differences, the largest relative RMS gap)."""
+    diffs, worst = [], 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        j = first_difference(a, b)
+        rows_got = eng_got.logits[rids_got[i]]
+        rows_want = eng_want.logits[rids_want[i]]
+        upto = len(a) if j is None else j + 1
+        require(len(rows_got) >= upto and len(rows_want) >= upto,
+                f"{what}: logits rows not recorded")
+        for k in range(upto):
+            spread = float(rows_want[k].std())
+            gap = float(np.sqrt(np.mean(
+                (rows_got[k] - rows_want[k]) ** 2))) / spread
+            require(gap <= SPEC_LOGIT_TOL, f"{what}: request {i} token "
+                    f"{k}: logits {gap} of the row's spread apart")
+            worst = max(worst, gap)
+        if j is not None:
+            margin = top2_margin(rows_want[j])
+            spread = float(rows_want[j].std())
+            require(margin < 2 * SPEC_LOGIT_TOL * spread, f"{what}: request "
+                    f"{i} parts at token {j} where the plain top-2 margin "
+                    f"is {margin}, {margin / spread} of the row's spread "
+                    "(not a near tie)")
+            diffs.append(dict(
+                request=i, token=j, got=a[j], want=b[j],
+                got_top2_margin=top2_margin(rows_got[j]),
+                want_top2_margin=margin, want_row_std=spread))
+    return len(got) - len(diffs), diffs, worst
+
+
+def runs_of(seq) -> list:
+    """``seq`` as [value, run length] pairs."""
+    out: list = []
+    for v in seq:
+        if out and out[-1][0] == v:
+            out[-1][1] += 1
+        else:
+            out.append([v, 1])
+    return out
+
+
+def spec_summary(eng):
+    rounds = eng.round_log
+    acc = eng.spec_tokens_accepted
+    prop = acc + eng.spec_tokens_rejected
+    return dict(
+        rounds=len(rounds), accepted=acc, rejected=eng.spec_tokens_rejected,
+        acceptance=acc / prop if prop else None,
+        tokens_per_round=(sum(r[2] for r in rounds) / len(rounds)
+                          if rounds else None),
+        gamma_trajectory=runs_of([r[0] for r in rounds]),
+        round_ms_median_by_gamma={
+            g: 1e3 * float(np.median([r[3] for r in rounds if r[0] == g]))
+            for g in sorted({r[0] for r in rounds})},
+        sync_chunks=eng.spec_sync_chunks)
+
+
+def run_spec(model) -> dict:
+    """The spec phase on serve's model (see the module docstring). Returns
+    the launch counts of its fault-free runs, summed."""
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, decode_program_cache)
+    t_phase = time.perf_counter()
+    cfg = model.config
+    vocab, layers = cfg.vocab_size, cfg.num_hidden_layers
+    dlayers = DRAFT_GEOM["layers"]
+    clear_decode_program_cache()
+    cache = decode_program_cache()
+    device = model.device
+    t0 = time.perf_counter()
+    draft = draft_model(device, torch.bfloat16)
+    torch.cuda.synchronize()
+    row = dict(model="llama2_7b", layers=layers, dtype="bf16",
+               draft="tinyllama_1.1b shape, seeded", draft_layers=dlayers,
+               draft_build_s=time.perf_counter() - t0, page_size=PAGE,
+               max_seq_len=MAX_SEQ, prompt_lens=list(SPEC_LENS),
+               new_tokens=SPEC_NEW, spec_max_slots=SPEC_SLOTS)
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # 1. batch 1: the draft, the plain engine, the target as its own draft
+    # and the all-zero draft
+    plain = spec_engine(model, None, record_logits=True)
+    spec_warm(plain, vocab)
+    p_streams, _, p_seconds, _, p_rids = spec_traffic(plain, vocab,
+                                                      SPEC_LENS, SPEC_NEW)
+    step_ms = 1e3 * float(np.median(plain.decode_step_seconds))
+    step_dev = replay_ms(plain._decode_fns[1])
+    row["plain"] = dict(tokens_per_s=sum(map(len, p_streams)) / p_seconds,
+                        step_ms_median=step_ms, step_device_ms=step_dev)
+    # the yardstick: the plain engine's generic route against its fused
+    # one, two correct bf16 paths, held to the same tolerance
+    yard = spec_engine(model, None, fused=False, record_logits=True)
+    spec_warm(yard, vocab)
+    y_streams, _, _, _, y_rids = spec_traffic(yard, vocab, SPEC_LENS,
+                                              SPEC_NEW)
+    same, diffs, gap = agreement(y_streams, p_streams, yard, plain, y_rids,
+                                 p_rids, "spec yardstick")
+    row["yardstick"] = dict(route="plain generic vs plain fused",
+                            streams_equal=same, first_differences=diffs,
+                            max_logit_gap=gap, logit_tol=SPEC_LOGIT_TOL)
+    del yard
+    runs = {}
+    for name, d, fused in (("draft", draft, True),
+                           ("draft generic", draft, False),
+                           ("self", model, True)):
+        before = {k: cache.trace_count(k) for k in cache.keys()}
+        eng = spec_engine(model, d, fused=fused, record_logits=True)
+        require((eng._draft_fspec is not None) == fused,
+                f"spec {name}: draft route not as asked")
+        spec_warm(eng, vocab)
+        streams, statuses, seconds, counts, rids = spec_traffic(
+            eng, vocab, SPEC_LENS, SPEC_NEW)
+        require(statuses == ["OK"] * len(SPEC_LENS),
+                f"spec {name}: {statuses}")
+        check_tokens(list(zip(rids, prompts(vocab, SPEC_LENS), streams)),
+                     vocab, SPEC_NEW)
+        dl = layers if d is model else dlayers
+        require_launches(counts, spec_launches(counts, eng, layers, dl,
+                                               fused), f"spec {name}")
+        # gap-free rounds: at batch 1 the draft syncs only at admission
+        syncs = sum(-(-n // eng.spec_sync_chunk) for n in SPEC_LENS)
+        require(eng.spec_sync_chunks == syncs,
+                f"spec {name}: {eng.spec_sync_chunks} sync chunks, want "
+                f"{syncs} (one catch-up a request)")
+        add(counts)
+        same, diffs, gap = agreement(streams, p_streams, eng, plain, rids,
+                                     p_rids, f"spec {name}")
+        gen = sum(map(len, streams))
+        out = dict(spec_summary(eng), tokens_per_s=gen / seconds,
+                   streams_equal_to_plain=same, first_differences=diffs,
+                   max_logit_gap=gap, logit_tol=SPEC_LOGIT_TOL,
+                   graph_ms=spec_graph_ms(eng), launches=counts)
+        # the request that fills its table, on the same engine
+        tp = prompts(vocab, (SPEC_TABLE_END,))[0]
+        rid = eng.submit(tp, SPEC_NEW)
+        toks = eng.run()[rid]
+        require(eng.status(rid) == "OK" and len(toks) == SPEC_NEW
+                and all(0 <= t < vocab for t in toks),
+                f"spec {name}: the table's-end request {eng.status(rid)}")
+        out["table_end"] = dict(prompt=SPEC_TABLE_END, new=SPEC_NEW,
+                                status="OK")
+        out["captures"] = spec_captures(cache, eng, before)
+        runs[name] = out
+        if name == "self":
+            require(max(r[0] for r in eng.round_log) == max(SPEC_RUNGS),
+                    f"spec self: γ never reached 8: "
+                    f"{out['gamma_trajectory']}")
+        del eng
+        torch.cuda.empty_cache()
+    zero = draft_model(device, torch.bfloat16, zero=True)
+    eng = spec_engine(model, zero)
+    spec_warm(eng, vocab)
+    streams, statuses, seconds, counts, rids = spec_traffic(
+        eng, vocab, SPEC_LENS, SPEC_NEW)
+    require(statuses == ["OK"] * len(SPEC_LENS), f"spec zero: {statuses}")
+    require_launches(counts, spec_launches(counts, eng, layers, dlayers),
+                     "spec zero")
+    add(counts)
+    out = dict(spec_summary(eng), tokens_per_s=sum(map(len, streams))
+               / seconds)
+    require(eng.round_log[-1][0] == min(SPEC_RUNGS),
+            f"spec zero: γ did not fall to 2: {out['gamma_trajectory']}")
+    runs["zero"] = out
+    del eng, zero
+    torch.cuda.empty_cache()
+    # the break-even acceptance per γ against the plain step, from the
+    # draft's rounds (device: the graphs' replays; wall: the rounds')
+    d = runs["draft"]
+    be = {}
+    for g in sorted(d["graph_ms"].get("draft_greedy", {})):
+        dev = (d["graph_ms"]["draft_greedy"][g]
+               + d["graph_ms"]["verify_greedy"][g])
+        wall = d["round_ms_median_by_gamma"].get(g)
+        be[g] = dict(round_device_ms=dev,
+                     alpha_device=break_even(dev, step_dev, g),
+                     round_wall_ms=wall,
+                     alpha_wall=(break_even(wall, step_ms, g)
+                                 if wall is not None else None))
+    row.update(runs=runs, break_even=be,
+               plain_step_device_ms=step_dev, plain_step_wall_ms=step_ms)
+    del plain
+    torch.cuda.empty_cache()
+
+    # 2. serve's traffic at max_batch 4 under the default pricing
+    eng = spec_engine(model, draft, max_batch=BATCH, slots=None,
+                      record_logits=True)
+    ref = spec_engine(model, None, max_batch=BATCH, record_logits=True)
+    for e in (eng, ref):
+        spec_warm(e, vocab)
+    streams, statuses, seconds, counts, rids = spec_traffic(
+        eng, vocab, PROMPT_LENS, NEW_TOKENS, stagger=6)
+    require(statuses == ["OK"] * len(PROMPT_LENS), f"spec serve: {statuses}")
+    require_launches(counts, spec_launches(counts, eng, layers, dlayers),
+                     "spec serve")
+    require(eng.round_log and eng.decode_step_seconds,
+            "spec serve: the steps did not mix")
+    add(counts)
+    r_streams, _, r_seconds, _, r_rids = spec_traffic(
+        ref, vocab, PROMPT_LENS, NEW_TOKENS, stagger=6)
+    same, diffs, gap = agreement(streams, r_streams, eng, ref, rids, r_rids,
+                                 "spec serve")
+    gen = sum(map(len, streams))
+    row["serve"] = dict(
+        spec_summary(eng), batch=BATCH, prompt_lens=list(PROMPT_LENS),
+        new_tokens=NEW_TOKENS, spec_slots=eng.spec_slots,
+        plain_steps=len(eng.decode_step_seconds), tokens_per_s=gen / seconds,
+        plain_engine_tokens_per_s=gen / r_seconds,
+        streams_equal_to_plain=same, first_differences=diffs,
+        max_logit_gap=gap, logit_tol=SPEC_LOGIT_TOL, launches=counts)
+    del eng, ref
+    torch.cuda.empty_cache()
+
+    # 3. an int8 pool, batch 1, beside the plain engine on an int8 pool
+    eng = spec_engine(model, draft, kv_dtype="int8", record_logits=True)
+    ref = spec_engine(model, None, kv_dtype="int8", record_logits=True)
+    for e in (eng, ref):
+        spec_warm(e, vocab)
+    streams, statuses, seconds, counts, rids = spec_traffic(
+        eng, vocab, SPEC_LENS, SPEC_NEW)
+    require(statuses == ["OK"] * len(SPEC_LENS), f"spec int8: {statuses}")
+    require_launches(counts, spec_launches(counts, eng, layers, dlayers,
+                                           kv_dtype="int8"), "spec int8")
+    add(counts)
+    r_streams, _, _, _, r_rids = spec_traffic(ref, vocab, SPEC_LENS,
+                                              SPEC_NEW)
+    same, diffs, gap = agreement(streams, r_streams, eng, ref, rids, r_rids,
+                                 "spec int8")
+    row["int8"] = dict(spec_summary(eng), tokens_per_s=sum(map(len, streams))
+                       / seconds, streams_equal_to_plain=same,
+                       first_differences=diffs, max_logit_gap=gap,
+                       logit_tol=SPEC_LOGIT_TOL, launches=counts)
+    del eng, ref
+    torch.cuda.empty_cache()
+
+    # 4. sampled: two fault-free runs a seed, then a faulted one
+    row["sampled"] = spec_sampled(model, draft, vocab, layers, dlayers,
+                                  require_faulted_equal=False)
+    add(row["sampled"].pop("counts"))
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit("spec", **row)
+    del draft
+    torch.cuda.empty_cache()
+    return total
+
+
+def spec_sampled(model, draft, vocab, layers, dlayers,
+                 require_faulted_equal: bool) -> dict:
+    """SPEC_SEEDS sampled requests (SPEC_SAMPLE's law), one prompt of
+    SPEC_LENS each: two fault-free runs a seed on one engine must be
+    equal; a run under SPEC_FAULTS is compared with them, and held equal
+    when ``require_faulted_equal`` (fp32). A replayed round draws the same
+    uniforms, but its replay re-prefills the KV the round reads: in bf16
+    that rounds otherwise, the drafts' and targets' laws move by a rounding
+    step, and a draw near a boundary may change. Returns the observation,
+    with the first fault-free run's launch counts under ``counts``."""
+    from paddle_tpu_torch import kernels
+    eng = spec_engine(model, draft)
+    spec_warm(eng, vocab)
+    ps = prompts(vocab, SPEC_LENS)
+    runs = []
+    counts = None
+    for rep in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        eng.round_log.clear()
+        eng.prefill_seconds.clear()
+        eng.decode_step_seconds.clear()
+        eng.chunk_dispatches = eng.spec_sync_chunks = 0
+        rids = [eng.submit(p, SPEC_NEW, seed=s, **SPEC_SAMPLE)
+                for p, s in zip(ps, SPEC_SEEDS)]
+        out = eng.run()
+        torch.cuda.synchronize()
+        require([eng.status(r) for r in rids] == ["OK"] * len(rids),
+                "spec sampled: a request did not end OK")
+        runs.append([out[r] for r in rids])
+        if rep == 0:
+            counts = kernels.launch_counts()
+            require_launches(counts, spec_launches(counts, eng, layers,
+                                                   dlayers), "spec sampled")
+            summary = spec_summary(eng)
+    require(runs[0] == runs[1], "spec sampled: two runs of one seed differ")
+    for toks in runs[0]:
+        require(len(toks) == SPEC_NEW and all(0 <= t < vocab for t in toks),
+                "spec sampled: tokens")
+    graphs = spec_graph_ms(eng)
+    del eng
+    faulted = spec_engine(model, draft, spec=SPEC_FAULTS)
+    rids = [faulted.submit(p, SPEC_NEW, seed=s, **SPEC_SAMPLE)
+            for p, s in zip(ps, SPEC_SEEDS)]
+    out = faulted.run()
+    require([faulted.status(r) for r in rids] == ["OK"] * len(rids),
+            "spec sampled faulted: a request did not end OK")
+    got = [out[r] for r in rids]
+    fires = sum(s.fires for s in (faulted._f_spec_draft,
+                                  faulted._f_spec_verify))
+    require(fires > 0, "spec sampled faulted: no fault fired")
+    diffs = [dict(seed=s, token=first_difference(a, b))
+             for s, a, b in zip(SPEC_SEEDS, got, runs[0]) if a != b]
+    if require_faulted_equal:
+        require(not diffs, f"spec sampled: faulted streams differ {diffs}")
+    del faulted
+    torch.cuda.empty_cache()
+    return dict(summary, law=SPEC_SAMPLE, seeds=list(SPEC_SEEDS),
+                runs_equal=True, faults=SPEC_FAULTS, faults_fired=fires,
+                faulted_equal=len(SPEC_SEEDS) - len(diffs),
+                faulted_first_differences=diffs, graph_ms=graphs,
+                counts=counts)
+
+
+def run_spec_parity(model):
+    """The fp32 parity model with a divergent 1-layer TinyLlama-shaped
+    draft: the batch-1 traffic and serve's traffic equal to the plain
+    engine's token for token, the sampled runs deterministic and equal
+    under SPEC_FAULTS; then the model as its own draft, accepting nearly
+    every proposal."""
+    t_phase = time.perf_counter()
+    vocab = model.config.vocab_size
+    layers = model.config.num_hidden_layers
+    draft = draft_model(model.device, torch.float32, layers=1)
+    got = {}
+    for name, batch, slots, lens, new, stagger in (
+            ("batch 1", 1, SPEC_SLOTS, SPEC_LENS, SPEC_NEW, 0),
+            ("serve", BATCH, None, PROMPT_LENS, NEW_TOKENS, 6)):
+        eng = spec_engine(model, draft, max_batch=batch, slots=slots)
+        ref = spec_engine(model, None, max_batch=batch)
+        streams, statuses, _, _, _ = spec_traffic(eng, vocab, lens, new,
+                                                  stagger)
+        want, _, _, _, _ = spec_traffic(ref, vocab, lens, new, stagger)
+        require(statuses == ["OK"] * len(lens), f"spec parity {name}")
+        require(streams == want, f"spec parity {name}: the speculative "
+                f"streams differ from the plain engine's")
+        require(eng.spec_tokens_rejected > 0 and eng.spec_rounds > 0,
+                f"spec parity {name}: no rejection")
+        got[name] = dict(requests=len(lens), streams_equal=len(lens),
+                         rounds=eng.spec_rounds,
+                         accepted=eng.spec_tokens_accepted,
+                         rejected=eng.spec_tokens_rejected)
+        del eng, ref
+    sampled = spec_sampled(model, draft, vocab, layers, 1,
+                           require_faulted_equal=True)
+    sampled.pop("counts")
+    # the target as its own draft: in fp32 the scan's and the verify's
+    # argmaxes part only at ties, so nearly every proposal is accepted
+    # (a draft KV written at a wrong position would show here)
+    eng = spec_engine(model, model)
+    streams, statuses, _, _, _ = spec_traffic(eng, vocab, SPEC_LENS,
+                                              SPEC_NEW)
+    acc = eng.spec_tokens_accepted / (eng.spec_tokens_accepted
+                                      + eng.spec_tokens_rejected)
+    require(statuses == ["OK"] * len(SPEC_LENS) and acc >= 0.95
+            and max(r[0] for r in eng.round_log) == max(SPEC_RUNGS),
+            f"spec parity self: acceptance {acc}, statuses {statuses}")
+    got["self"] = dict(spec_summary(eng))
+    del eng
+    emit("spec", part="parity", model="llama2_7b width, 2 layers",
+         draft="tinyllama_1.1b shape, 1 layer", dtype="fp32", runs=got,
+         sampled=dict(runs_equal=True, faults=SPEC_FAULTS,
+                      faults_fired=sampled["faults_fired"],
+                      faulted_equal=sampled["faulted_equal"]),
+         phase_seconds=time.perf_counter() - t_phase)
+    del draft
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- parity
 def run_parity(device):
     from paddle_tpu_torch.device import seed
@@ -2239,6 +3086,7 @@ def run_parity(device):
     run_sched_parity(model)
     run_prefix_parity(model)
     run_recovery_parity(model)
+    run_spec_parity(model)
     del model
     torch.cuda.empty_cache()
 
@@ -3299,7 +4147,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         for check in (check_flash_prefill, check_paged_attention,
                       check_paged_chunk_attention, check_fused_block_decode,
-                      check_fused_multi_block_decode):
+                      check_fused_multi_block_decode, check_spec_kernels):
             done = len(results)
             check(dtype, device, results)
             for r in results[done:]:
@@ -3349,7 +4197,9 @@ def main() -> int:
         else:
             rows = [r for r in results if r["kernel"] == name
                     and r["dtype"] == "bf16" and "kernel_ms" in r]
-            main_row = rows[-1]      # the largest serving shape in bf16
+            # the largest serving shape in bf16 (the spec rows are new
+            # shapes beside it)
+            main_row = [r for r in rows if "spec" not in r][-1]
             launches = counts[name]  # serve and serve_long, every run
         require(launches > 0, f"{name}: no launch on the main paths")
         if name not in TRAIN_KERNELS:

@@ -79,6 +79,18 @@ _FLAGS: Dict[str, tuple] = {
     # dropping them, and a prefix hit restores them; past the budget the
     # coldest spilled pages drop
     "serving_kv_host_tier_pages": (0, _any),
+    # speculative decoding (an engine built with draft_model=): the initial
+    # draft length γ, snapped down to a rung of ``serving_spec_rungs``
+    # (','-separated; each rung is one draft and one verify program);
+    # per-request adaptive γ from the accept-rate EMA; the decode-slot
+    # budget a step's rows may bill at γ + 1 slots each (0: max(max_batch,
+    # smallest rung + 1)); the chunk width of the draft's catch-up sync.
+    # Scheduling flags, read eagerly: γ reaches a program through its key
+    "serving_spec_gamma": (4, _any),
+    "serving_spec_rungs": ("2,4,8", _any),
+    "serving_spec_adaptive": (True, _any),
+    "serving_spec_max_slots": (0, _any),
+    "serving_spec_sync_chunk": (64, _any),
     # dispatched-but-unread train steps TrainStep keeps before it waits
     "train_max_in_flight": (32, _at_least_one("train_max_in_flight")),
     # host-side telemetry (observability): the metrics registry and the

@@ -40,13 +40,20 @@ from ..testing import faults
 
 __all__ = ["DecodeKey", "DecodeProgramCache", "decode_program_cache",
            "clear_decode_program_cache", "model_signature",
-           "TAG_KV", "TAG_WT", "TAG_NLAYER"]
+           "TAG_KV", "TAG_WT", "TAG_NLAYER", "ATOM_FUSED", "ATOM_GENERIC",
+           "ATOM_SAMPLE", "ATOM_GREEDY"]
 
 # heads of (tag, value) pairs inside DecodeKey.extra (the JAX package's
 # analysis/key_vocab.py)
 TAG_KV = "kv"            # ("kv", dtype): the paged-KV storage dtype
 TAG_WT = "wt"            # ("wt", dtype): the fused decode's weight dtype
 TAG_NLAYER = "nlayer"    # ("nlayer", (sizes...)): the fused layer groups
+# bare atoms inside DecodeKey.extra: a speculative draft program's route
+# and the draft and verify programs' mode
+ATOM_FUSED = "fused"      # the draft scan runs the fused one-layer kernel
+ATOM_GENERIC = "generic"  # the draft scan runs the model's cached forward
+ATOM_SAMPLE = "sample"    # sampled (paired with top-k in the tuple)
+ATOM_GREEDY = "greedy"    # greedy
 
 
 class DecodeKey(NamedTuple):

@@ -66,22 +66,42 @@ Around that core, as in the JAX package:
   ``prefill``, ``chunk_prefill`` and ``decode_dispatch`` checked after the
   pools are detached, ``bucket_migrate`` at a migration's begin, per
   compacted sequence and at its commit, ``preempt`` before a victim is
-  unseated, and the prefix cache's ``kv_spill`` before each spill and
-  restore.
+  unseated, the prefix cache's ``kv_spill`` before each spill and
+  restore, and ``spec_draft`` / ``spec_verify`` before a speculation
+  round's draft sync, draft scan and verify (before its cursor roll);
+- speculative decoding (``draft_model=``): a step whose decode rows the
+  slot budget affords (``FLAGS_serving_spec_max_slots``, a row billed
+  γ + 1 slots) serves each row by one round: the draft's KV catches up to
+  the target's through the draft's chunk program
+  (``FLAGS_serving_spec_sync_chunk`` tokens a chunk), the draft scan runs
+  γ + 1 decode steps of the draft at B = 1 (its token fed back on the
+  device; the extra step writes the last proposal's KV), the proposals
+  are read once, and the target verifies them in one (1, γ + 1) chunk
+  (``PagedChunkState``). Greedy rows take the longest agreeing prefix and
+  the target's token after it, so the tokens are the plain engine's;
+  sampled rows (``submit(temperature > 0, top_k, top_p, seed)``) take
+  rejection sampling against the target's filtered law
+  (:mod:`.sampling`), with the draft's draws from uniforms of a
+  ``torch.Generator`` seeded by (seed, position) and the acceptance's
+  from numpy's ``default_rng((seed, position))``, so a replayed round
+  draws the same. γ adapts per request within ``FLAGS_serving_spec_rungs``
+  (``FLAGS_serving_spec_adaptive``). The draft keeps its own worst-case
+  pool in slot lockstep with the target's.
 
 Decode runs the fused block kernel once per layer (``FLAGS_fused_block_decode``,
 the default), the N-layer kernel once per group of N layers
 (``FLAGS_fused_block_layers=N > 1``, over weights stacked once per engine),
 or the model's own cached forward, whose attention is the paged decode
-kernel. Each bucket rung's decode program and the chunk program (one per
+kernel. Each bucket rung's decode program, the chunk program (one per
 chunk length; its cursor, ``last_idx`` and block table are device inputs,
-so nothing on the chunk path reads a device value on the host) come from
-the process-wide :mod:`.program_cache`. On the CPU a program is the eager
-step; on a CUDA device the engine captures each as a CUDA graph (one per
-engine and rung, and one per engine for the chunk: a graph binds this
-engine's pools and weights) after one eager call, and replays it from
-static input buffers. Whole-prompt prefill stays eager (one program per
-prompt length in the JAX package).
+so nothing on the chunk path reads a device value on the host) and the
+speculative programs (the draft's sync chunk, and a draft scan and a
+verify per γ rung and mode) come from the process-wide
+:mod:`.program_cache`. On the CPU a program is the eager step; on a CUDA
+device the engine captures each as a CUDA graph (one per engine and key: a
+graph binds this engine's pools and weights) after one eager call, and
+replays it from static input buffers. Whole-prompt prefill stays eager
+(one program per prompt length in the JAX package).
 
 ``kv_dtype="int8"`` (``FLAGS_serving_kv_dtype``) stores the pool as int8
 rows with per-row f32 scales, written by every route and read by every
@@ -90,11 +110,11 @@ packs the N-layer route's stacked matrices as int4 tiles. Prefill and
 chunks keep the native per-layer weights, and with N = 1 int4 changes
 nothing, as in the JAX package.
 
-Left for later slices, and refused with ``NotImplementedError``:
-speculative decoding (``draft_model``; it is also where sampling,
-``temperature > 0``, comes in: without it ``submit`` raises the JAX
-engine's ``ValueError``) and tensor-parallel decode. A page-pool shortfall
-at admission backs the request off to the queue, as in the JAX package.
+Left for a later slice, and refused with ``NotImplementedError``:
+tensor-parallel decode. Sampling needs a speculative engine, as in the JAX
+package: without a draft model ``submit(temperature > 0)`` raises its
+``ValueError``. A page-pool shortfall at admission backs the request off
+to the queue, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -119,8 +139,10 @@ from ..kernels.fused_block_decode import (BlockDecodeWeights,
 from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
                                        PagedKVCache, QuantizedPages)
 from ..testing import faults
-from .program_cache import (TAG_KV, TAG_NLAYER, TAG_WT, DecodeKey,
-                            decode_program_cache, model_signature)
+from .program_cache import (ATOM_FUSED, ATOM_GENERIC, ATOM_GREEDY,
+                            ATOM_SAMPLE, TAG_KV, TAG_NLAYER, TAG_WT,
+                            DecodeKey, decode_program_cache, model_signature)
+from .sampling import _spec_filtered_probs, race_sample
 
 __all__ = ["Request", "ServingEngine", "PrefixCache", "OK", "FAILED",
            "TIMEOUT"]
@@ -178,6 +200,14 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     seed: Optional[int] = None
+    # per-request adaptive draft length: the current γ rung (0: none yet)
+    # and the accept-rate EMA that moves it; both survive replay (the
+    # draft's agreement is a property of the request's text)
+    gamma: int = 0
+    spec_ema: float = 0.5
+    # the draft pool holds this slot's span (its cursor is the draft
+    # pool's seq_lens row)
+    spec_ready: bool = False
 
 
 _POOL_STATES = ("used", "free", "shared", "pinned", "spilled")
@@ -189,9 +219,8 @@ class _EngineTelemetry:
     registry lookup and no flag read per token. The JAX engine's families
     under the same names, help strings and labels: every family carries
     ``replica`` (the engine's id: two engines in one process keep apart)
-    and ``tp`` (the tensor-parallel degree, "1" here). The speculative and
-    tensor-parallel families are registered, and nothing of this port
-    writes them yet."""
+    and ``tp`` (the tensor-parallel degree, "1" here). The tensor-parallel
+    family is registered, and nothing of this port writes it yet."""
 
     enabled = True
 
@@ -303,7 +332,7 @@ class _EngineTelemetry:
             "decode tokens preemption victims will regenerate on "
             "replay — the compute a preemption trades for deadline "
             "slack")
-        # ---- speculative decoding (not ported yet)
+        # ---- speculative decoding
         self.spec_rounds_c = c(
             "serving_spec_rounds",
             "speculation rounds retired (one draft-propose scan + one "
@@ -461,10 +490,9 @@ def _head(x, spec, p):
     return logits.float()
 
 
-@torch.inference_mode()
-def _fused_step(spec, p, toks, pools, bt, sl):
-    """Embedding lookup, one fused block kernel per layer, final norm and
-    LM head."""
+def _fused_layers(spec, p, toks, pools, bt, sl):
+    """Embedding lookup and one fused block kernel per layer: the hidden
+    states (b, hidden) and the pool pairs."""
     x = p[spec["embed"]][toks[:, 0]]
     pairs = []
     for i, lw in enumerate(spec["layers"]):
@@ -475,6 +503,14 @@ def _fused_step(spec, p, toks, pools, bt, sl):
             num_kv_heads=spec["num_kv_heads"],
             rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
         pairs.append((kp, vp))
+    return x, pairs
+
+
+@torch.inference_mode()
+def _fused_step(spec, p, toks, pools, bt, sl):
+    """Embedding lookup, one fused block kernel per layer, final norm and
+    LM head."""
+    x, pairs = _fused_layers(spec, p, toks, pools, bt, sl)
     return _head(x, spec, p), pairs
 
 
@@ -521,6 +557,76 @@ def _chunk_step(model, ids, pools, bt, sl, last_idx):
     return row, [(st.k_pages, st.v_pages) for st in states]
 
 
+# ------------------------------------------------ speculative programs
+# One speculation round: the draft scan proposes γ tokens, the verify
+# chunk checks them. Both return ``(outputs, pool pairs)``, with every
+# input a device tensor and nothing read back to the host inside, so a
+# CUDA graph replays them.
+@torch.inference_mode()
+def _spec_draft_step(fspec, gamma, sample, top_k, weights, tok, pools, bt,
+                     sl, *law):
+    """The draft scan: γ + 1 decode steps of the draft at B = 1, each at
+    cursor ``sl + i`` and fed the previous step's token on the device. The
+    extra step only writes the last proposal's KV (its head is skipped),
+    so a fully accepted round leaves the draft's cache without a gap.
+    ``fspec`` (the draft's fused layout) runs the fused one-layer kernel
+    per layer, else the draft model's cached forward (``weights`` is then
+    the model) over ``PagedDecodeState``s. A round near the end of the
+    token budget writes past the slot's span: the draft pool's table has
+    room for that, so those writes land on its null page. Greedy proposals
+    are the argmax; sampled ones (``law`` = uniforms (γ, V), temperature
+    (1,), top_p (1,)) race over the filtered draft distribution q.
+    Returns ``((proposals (γ,) int64, q (γ, V) f32 or None), pool
+    pairs)``."""
+    if sample:
+        u, temperature, top_p = law
+    t, pairs = tok, list(pools)
+    props, qs = [], []
+    for i in range(gamma + 1):
+        csl = sl + i
+        if fspec is not None:
+            x, pairs = _fused_layers(fspec, weights, t, pairs, bt, csl)
+            if i == gamma:
+                break
+            row = _head(x, fspec, weights)[0]
+        else:
+            hidden, states = weights.llama(
+                t, caches=[PagedDecodeState(k, v, bt, csl)
+                           for k, v in pairs],
+                offset=None)
+            pairs = [(st.k_pages, st.v_pages) for st in states]
+            if i == gamma:
+                break
+            row = weights.logits(hidden[:, -1])[0].float()
+        if sample:
+            q = _spec_filtered_probs(row, temperature, top_k, top_p)
+            nxt = race_sample(q, u[i])
+            qs.append(q)
+        else:
+            nxt = torch.argmax(row)
+        props.append(nxt)
+        t = nxt.reshape(1, 1)
+    return (torch.stack(props), torch.stack(qs) if sample else None), pairs
+
+
+@torch.inference_mode()
+def _spec_verify_step(sample, top_k, model, ids, pools, bt, sl, *law):
+    """The verify: one (1, γ + 1) chunk of the target (``ids``: the last
+    token and the γ proposals) at the cursor ``sl`` through
+    ``PagedChunkState`` (it writes their KV and attends to the prefix plus
+    itself), every row through the LM head. Returns ``((argmax (γ+1,)
+    int64, f32 logits (γ+1, V), the filtered law (γ+1, V) when sampled,
+    else None), pool pairs)``; ``law`` = temperature (1,), top_p (1,)."""
+    hidden, states = model.llama(
+        ids, caches=[PagedChunkState(k, v, bt, sl) for k, v in pools],
+        offset=sl)
+    rows = model.logits(hidden[0]).float()
+    probs = (_spec_filtered_probs(rows, law[0], top_k, law[1]) if sample
+             else None)
+    return ((torch.argmax(rows, dim=-1), rows, probs),
+            [(st.k_pages, st.v_pages) for st in states])
+
+
 class _DecodeProgram:
     """What the program cache holds for one key: the eager step and the
     key's trace probe. On the CPU the program's first call is its trace
@@ -564,7 +670,9 @@ def _pool_ptrs(pools) -> Tuple[int, ...]:
 class _EagerStep:
     """A cached program run eagerly over an engine's weights: the host
     arrays go to the device each call. A program takes ``(weights, first
-    input, pools, *other inputs)`` and returns ``(logits, pool pairs)``."""
+    input, pools, *other inputs)`` and returns ``(outputs, pool pairs)``:
+    a step's logits, or a speculative program's tuple of device tensors
+    (what a call of this class returns)."""
 
     def __init__(self, program: _DecodeProgram, weights, device):
         self.program = program
@@ -574,6 +682,11 @@ class _EagerStep:
     def run(self, arrays, pools):
         first, *rest = (_to_device(a, self.device) for a in arrays)
         return self.program(self.weights, first, pools, *rest)
+
+    def __call__(self, *args):
+        """``args``: the host arrays, then the pool pairs."""
+        *arrays, pools = args
+        return self.run(arrays, pools)
 
 
 class _EagerDecode(_EagerStep):
@@ -601,10 +714,12 @@ class _EagerChunk(_EagerStep):
 
 class _StepGraph:
     """A program as a CUDA graph over one engine's pools and weights
-    (mixed into an eager runner). The first call runs the eager step (the
+    (mixed in before an eager runner, whose call it takes: the host
+    arrays, then the pool pairs). The first call runs the eager step (the
     warm-up: library loads, lazy caches) and then captures it; later calls
     copy the host arrays through pinned buffers into the static inputs and
-    replay. The argmax of the logits is part of the graph.
+    replay, and return what :meth:`_result` makes of the static outputs.
+    A step's argmax of the logits is part of the graph.
 
     The kernel wrappers count launches in Python, which a replay never
     runs: the counters' increase during the capture is taken back (the
@@ -626,7 +741,7 @@ class _StepGraph:
                          for shape, dt in inputs]
             self.h_in = [torch.zeros(shape, dtype=dt, pin_memory=True)
                          for shape, dt in inputs]
-        self.s_logits = self.s_argmax = None
+        self.s_out: tuple = ()
         self.ptrs: Tuple[int, ...] = ()
         self.launches: List[tuple] = []     # (wrapper, variant, count)
         # recorded after each call's input copies (before its first record
@@ -644,15 +759,20 @@ class _StepGraph:
             dev.copy_(host, non_blocking=True)
         self._staged.record(torch.cuda.current_stream(self.device))
 
+    def _body(self, pools):
+        """The captured work on the static inputs: ``(static outputs, pool
+        pairs)``; here the logits and their argmax."""
+        logits, pairs = self.program(self.weights, self.s_in[0], pools,
+                                     *self.s_in[1:])
+        return (logits, torch.argmax(logits, dim=-1)), pairs
+
     @torch.inference_mode()
     def _capture(self, pools) -> None:
         torch.cuda.synchronize(self.device)
         before = _kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            logits, pairs = self.program(self.weights, self.s_in[0], pools,
-                                         *self.s_in[1:])
-            argmax = torch.argmax(logits, dim=-1)
+            outs, pairs = self._body(pools)
         after = _kernels.launch_counts()
         self.launches = []
         for fn in _kernels.wrappers():
@@ -665,8 +785,23 @@ class _StepGraph:
         if _pool_ptrs(pairs) != ptrs:
             raise KernelError(f"{self.kind} graph: the captured step "
                               "returned other pools than it was given")
-        self.graph, self.ptrs = graph, ptrs
-        self.s_logits, self.s_argmax = logits, argmax
+        self.graph, self.ptrs, self.s_out = graph, ptrs, outs
+
+    @torch.inference_mode()
+    def __call__(self, *args):
+        *arrays, pools = args
+        if self.graph is None:
+            t0 = time.perf_counter()
+            out = super().__call__(*args)
+            self._capture(pools)
+            self.program.note_trace(time.perf_counter() - t0)
+            return out
+        self._replay(arrays, pools)
+        return self._result(pools)
+
+    def _result(self, pools):
+        """A replay's return, as the eager call's."""
+        raise NotImplementedError
 
     @torch.inference_mode()
     def _replay(self, arrays, pools) -> None:
@@ -694,18 +829,11 @@ class _DecodeGraph(_StepGraph, _EagerDecode):
                           ((b,), torch.int32)))
         self.h_out = torch.zeros((b,), dtype=torch.int64, pin_memory=True)
 
-    @torch.inference_mode()
-    def __call__(self, toks, bt, sl, pools):
-        if self.graph is None:
-            t0 = time.perf_counter()
-            out = _EagerDecode.__call__(self, toks, bt, sl, pools)
-            self._capture(pools)
-            self.program.note_trace(time.perf_counter() - t0)
-            return out
-        self._replay((toks, bt, sl), pools)
-        self.h_out.copy_(self.s_argmax, non_blocking=True)
+    def _result(self, pools):
+        logits, argmax = self.s_out
+        self.h_out.copy_(argmax, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
-        return self.h_out.numpy().copy(), self.s_logits, pools
+        return self.h_out.numpy().copy(), logits, pools
 
 
 class _ChunkGraph(_StepGraph, _EagerChunk):
@@ -722,16 +850,31 @@ class _ChunkGraph(_StepGraph, _EagerChunk):
                           ((1, pages), torch.int32), ((1,), torch.int32),
                           ((1,), torch.int64)))
 
-    @torch.inference_mode()
-    def __call__(self, ids, bt, sl, last_idx, pools):
-        if self.graph is None:
-            t0 = time.perf_counter()
-            out = _EagerChunk.__call__(self, ids, bt, sl, last_idx, pools)
-            self._capture(pools)
-            self.program.note_trace(time.perf_counter() - t0)
-            return out
-        self._replay((ids, bt, sl, last_idx), pools)
-        return self.s_logits, self.s_argmax, pools
+    def _result(self, pools):
+        return self.s_out + (pools,)
+
+
+# a sampled program's temperature and top-p inputs
+_LAW_SCALARS = [((1,), torch.float32), ((1,), torch.float32)]
+
+
+class _SpecGraph(_StepGraph, _EagerStep):
+    """A speculative program as a CUDA graph over one engine; a call
+    returns without waiting for the device (the engine reads what it
+    needs: the proposals, the verify's rows)."""
+
+    kind = "spec"
+
+    def __init__(self, program: _DecodeProgram, weights, device, inputs):
+        _EagerStep.__init__(self, program, weights, device)
+        self._init_graph(inputs)
+
+    def _body(self, pools):
+        return self.program(self.weights, self.s_in[0], pools,
+                            *self.s_in[1:])
+
+    def _result(self, pools):
+        return self.s_out, pools
 
 
 class PrefixCache:
@@ -1054,8 +1197,6 @@ class ServingEngine:
                  weight_dtype: Optional[str] = None,
                  tp_degree: Optional[int] = None,
                  record_logits: bool = False):
-        if draft_model is not None:
-            raise _later("speculative decoding (draft_model=)")
         # the pool's storage and the N-layer route's stacked weights
         self.kv_dtype = str(_flags.get_flag("serving_kv_dtype")
                             if kv_dtype is None else kv_dtype)
@@ -1158,6 +1299,12 @@ class ServingEngine:
         self._stacked = (self._stacked_weights(self._spec)
                          if self._spec and "layer_groups" in self._spec
                          else None)
+        # speculative decoding: the draft's own pool, in slot lockstep
+        # with the target's (its seq_lens row is the draft's cursor)
+        self.draft_model = draft_model
+        self._draft_pool: Optional[PagedKVCache] = None
+        if draft_model is not None:
+            self._init_spec(draft_model, page_size)
         self._slots: List[Optional[Request]] = [None] * max_batch
         self._queue: List[Request] = []
         self._results: Dict[int, List[int]] = {}
@@ -1208,6 +1355,75 @@ class ServingEngine:
         return PrefixCache(self.pool, replica=self.replica,
                            host_tier_pages=self.host_tier_pages)
 
+    def _init_spec(self, draft_model, page_size: int) -> None:
+        """The speculative engine's state: the draft's weights and pool,
+        the γ rungs and budget, the fault sites and the host probes."""
+        if not all(hasattr(draft_model, a) for a in (
+                "cache_spec", "block_decode_spec", "llama", "logits")):
+            # the JAX package also drafts with its GPT, which the port
+            # does not have
+            raise _later(f"a draft_model of type "
+                         f"{type(draft_model).__name__} (the port drafts "
+                         "with its paged-cache causal LMs: Llama)")
+        if draft_model.device != self.device:
+            raise ValueError(f"the draft model is on {draft_model.device}, "
+                             f"the target on {self.device}")
+        dmax = draft_model.config.max_position_embeddings
+        if self.max_seq_len > dmax:
+            raise ValueError(
+                f"engine max_seq_len ({self.max_seq_len}) exceeds the "
+                f"draft model's max_position_embeddings ({dmax})")
+        raw = str(_flags.get_flag("serving_spec_rungs"))
+        rungs = sorted({int(r) for r in raw.replace(";", ",").split(",")
+                        if r.strip()})
+        if not rungs or rungs[0] < 1:
+            raise ValueError(
+                f"serving_spec_rungs must name rungs >= 1: {raw!r}")
+        self.spec_rungs: Tuple[int, ...] = tuple(rungs)
+        dspec = draft_model.cache_spec()
+        # always worst-case pages: the target admits against its budget,
+        # and the draft's sync must never fail to allocate the same span.
+        # The table has room for a round past the longest span (a draft
+        # scan writes up to γ + 1 positions from the cursor): those
+        # columns name the null page, where such writes land
+        self._draft_pool = PagedKVCache(
+            num_layers=len(dspec),
+            num_pages=1 + self.max_batch * (-(-self.max_seq_len
+                                              // page_size)),
+            page_size=page_size, num_kv_heads=dspec[0][0],
+            head_dim=dspec[0][1], max_batch=self.max_batch,
+            max_seq_len=self.max_seq_len + rungs[-1] + 1,
+            dtype=draft_model.dtype, reserve_null_page=True,
+            kv_dtype=self.kv_dtype, device=self.device)
+        self._draft_params = dict(draft_model.named_parameters())
+        self._draft_sig = model_signature(draft_model)
+        # the draft scan's route: the fused one-layer kernel when the draft
+        # qualifies (always per layer), else its cached forward
+        self._draft_fspec = self._fused_spec(draft=True)
+        g0 = int(_flags.get_flag("serving_spec_gamma"))
+        self.spec_gamma_default = max(
+            r for r in self.spec_rungs if r <= max(g0, rungs[0]))
+        self.spec_adaptive = bool(_flags.get_flag("serving_spec_adaptive"))
+        # the decode-slot budget γ + 1 pricing bills; the floor keeps a
+        # lone row affordable at the smallest rung
+        self.spec_slots = (int(_flags.get_flag("serving_spec_max_slots"))
+                           or max(self.max_batch, rungs[0] + 1))
+        self.spec_sync_chunk = max(
+            1, int(_flags.get_flag("serving_spec_sync_chunk")))
+        self._f_spec_draft = faults.site("spec_draft")
+        self._f_spec_verify = faults.site("spec_verify")
+        # (kind, extra) -> the program bound to this engine, and its key
+        self._spec_fns: Dict[tuple, object] = {}
+        self._spec_keys: Dict[tuple, DecodeKey] = {}
+        self.spec_draft_key: Optional[DecodeKey] = None  # the last used
+        self.spec_verify_key: Optional[DecodeKey] = None
+        # host probes
+        self.spec_rounds = 0
+        self.spec_tokens_accepted = 0
+        self.spec_tokens_rejected = 0
+        self.spec_last_gamma = 0
+        self.spec_sync_chunks = 0
+
     # ------------------------------------------------------------ frontend
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None,
@@ -1225,8 +1441,7 @@ class ServingEngine:
         whose verify program is the engine's sampler."""
         if temperature is not None and float(temperature) < 0.0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
-        if float(temperature or 0.0) > 0.0:
-            # no engine here has a draft model
+        if float(temperature or 0.0) > 0.0 and self.draft_model is None:
             raise ValueError(
                 "temperature > 0 requires a speculative engine "
                 "(ServingEngine(..., draft_model=...)): the spec verify "
@@ -1377,20 +1592,27 @@ class ServingEngine:
             dtype=str(self.pool.k_pages[0].dtype),
             flags=self._flags.as_tuple(), extra=extra)
 
-    def _fused_spec(self):
+    def _fused_spec(self, draft: bool = False):
         """The model's fused-block layout when the fused path applies:
         ``FLAGS_fused_block_decode`` on and every named weight present.
         Under ``FLAGS_fused_block_layers=N > 1`` it carries the model's
-        ``layer_groups``."""
+        ``layer_groups``. ``draft=True`` probes the draft model, whose scan
+        always runs one layer a launch."""
         if not self._flags.fused_block_decode:
             return None
-        spec = self.model.block_decode_spec(self._flags.fused_block_layers)
+        if draft:
+            spec = self.draft_model.block_decode_spec()
+            params = self._draft_params
+        else:
+            spec = self.model.block_decode_spec(
+                self._flags.fused_block_layers)
+            params = self._params
         names = [spec["embed"], spec["final_norm"]]
         if spec["lm_head"]:
             names.append(spec["lm_head"])
         for lw in spec["layers"]:
             names.extend(lw.values())
-        if not all(n in self._params for n in names):
+        if not all(n in params for n in names):
             return None
         return spec
 
@@ -1577,6 +1799,9 @@ class ServingEngine:
         self._m.prefills.inc()
         tnow = time.perf_counter()
         self.prefill_seconds.append(tnow - t0)
+        if req.temperature > 0.0:
+            self._park_sampled(req, slot, feed)
+            return
         if replay:
             # a replay's token continues the sequence: inter-token latency
             self._m.itl.observe(tnow - req.t_last)
@@ -1619,6 +1844,13 @@ class ServingEngine:
         if not last:
             self._observe_chunk(time.perf_counter() - t0)
             return
+        req.prefill_pos = None
+        req.feed = None
+        if req.temperature > 0.0:
+            # the tail's argmax is not read: the verify samples it
+            self._observe_chunk(time.perf_counter() - t0, final=True)
+            self._park_sampled(req, slot, feed)
+            return
         tok = int(tok)
         tnow = time.perf_counter()
         self._observe_chunk(tnow - t0, final=True)
@@ -1628,10 +1860,22 @@ class ServingEngine:
             self._m.ttft.observe(tnow - req.t_submit)
             self.ttft_seconds[req.rid] = tnow - req.t_submit
         self._last_tok[slot] = tok
-        req.prefill_pos = None
-        req.feed = None
         self._register(req, slot)
         self._take_token(req, tok, row, tnow)
+
+    def _park_sampled(self, req: Request, slot: int,
+                      feed: np.ndarray) -> None:
+        """A sampled request never takes a prefill's greedy token: its feed
+        is written but for the last token, which stays the pending input
+        (the cursor parks one short), so the first speculation round's
+        verify samples the position the prefill would have decided, and a
+        replayed admission resumes at the same position (the same
+        draws)."""
+        self.pool.seq_lens[slot] = len(feed) - 1
+        self._last_tok[slot] = int(feed[-1])
+        req.slot = slot
+        self._slots[slot] = req
+        self._register(req, slot)
 
     def _chunk_step(self) -> bool:
         """At most one prefill chunk a step; among mid-prefill requests the
@@ -1654,6 +1898,13 @@ class ServingEngine:
         recovery, whose fresh prefix cache never saw them)."""
         if unpin and req.pinned and self._prefix is not None:
             self._prefix.unpin(req.pinned)
+        if req.spec_ready:
+            # the draft pool's span goes back while that pool is attached
+            # (a reset pool holds nothing of it); gamma and spec_ema stay
+            if (req.slot is not None
+                    and self._draft_pool.k_pages[0] is not None):
+                self._draft_pool.free_sequence(req.slot)
+            req.spec_ready = False
         req.pinned = []
         req.pending = []
         req.prefill_pos = None
@@ -1880,6 +2131,9 @@ class ServingEngine:
                 while self._slots[dst] is not None:
                     dst += 1        # always < target: target covers active
                 self.pool.move_sequence(s, dst)
+                if req.spec_ready:
+                    # the draft pool mirrors the target's slots
+                    self._draft_pool.move_sequence(s, dst)
                 self._last_tok[dst] = self._last_tok[s]
                 self._slots[dst] = req
                 self._slots[s] = None
@@ -1945,6 +2199,306 @@ class ServingEngine:
         self._queue.append(req)
         self._observe_preemption(req)
 
+    # ------------------------------------------------ speculative decoding
+    # One round for one request: the draft scan and the verify chunk, the
+    # proposals read once between them. Only the verify decides tokens:
+    # the writes past the accepted length (past the draft's span: its
+    # pool's null page; past the target's table: dropped by the chunk
+    # writer) are overwritten before any real row attends to them, so γ
+    # needs no fitting to the budget's tail.
+    # accept-rate EMA thresholds of the adaptive rung walk: grow on a high
+    # EMA and a clean round, shrink on a low one (the gap stops flapping)
+    _SPEC_GROW = 0.75
+    _SPEC_SHRINK = 0.35
+
+    def _spec_occupancy_cap(self, n_rows: int) -> int:
+        """The largest γ rung the slot budget affords ``n_rows`` rows at
+        γ + 1 slots each; 0: priced out (the plain batched step is the
+        cheaper schedule)."""
+        for g in reversed(self.spec_rungs):
+            if n_rows * (g + 1) <= self.spec_slots:
+                return g
+        return 0
+
+    def _spec_gamma(self, req: Request, cap: int) -> int:
+        """This round's γ: the request's rung, capped by occupancy, snapped
+        down to a rung, and trimmed toward the end of its token budget
+        (truncation keeps the tokens right either way; this keeps the draft
+        cheap)."""
+        g = req.gamma or self.spec_gamma_default
+        if cap:
+            g = min(g, cap)
+        remaining = req.max_new_tokens - len(req.tokens)
+        fit = [r for r in self.spec_rungs
+               if r <= min(g, max(1, remaining - 1))]
+        return fit[-1] if fit else self.spec_rungs[0]
+
+    def _spec_step(self, rows: List[Request]) -> bool:
+        """Serve this step's decode rows by speculation rounds, or decline
+        (False) and let the plain batched step run. All or nothing: a row
+        still teacher-forcing a prompt suffix keeps the step plain, and so
+        does an occupancy that prices speculation out, unless a sampled
+        row is present (the verify is the only sampler: it forces rounds,
+        at the smallest rung over the budget)."""
+        if any(r.pending for r in rows):
+            return False
+        sampled = any(r.temperature > 0.0 for r in rows)
+        cap = self._spec_occupancy_cap(len(rows))
+        if cap == 0 and not sampled:
+            return False
+        for req in list(rows):
+            self._spec_round(req, self._spec_gamma(req, cap))
+        return True
+
+    def _spec_sync(self, req: Request) -> None:
+        """Bring the draft's KV of this slot up to the target's length L.
+        The first entry allocates the slot's whole span (the worst-case
+        draft pool cannot run short); a gap (admission prefilled the target
+        only, or plain steps ran while speculation was priced out) is
+        teacher-forced through the draft's chunk program in fixed (1, C)
+        chunks, whose outputs are not read."""
+        slot = req.slot
+        L = int(self.pool.seq_lens[slot])
+        dpool = self._draft_pool
+        if not req.spec_ready:
+            dpool.allocate(slot, L + 1 + req.max_new_tokens - len(req.tokens))
+            req.spec_ready = True
+        cur = int(dpool.seq_lens[slot])
+        if cur >= L:
+            return
+        feed = self._admission_feed(req)
+        width = self.spec_sync_chunk
+        fn = self._spec_sync_program()
+        while cur < L:
+            end = min(cur + width, L)
+            ids = np.zeros((1, width), np.int64)
+            ids[0, :end - cur] = feed[cur:end]
+            dpools = dpool.take_pools()
+            self._f_spec_draft.check(rid=req.rid, op="sync")
+            _row, _tok, pairs = fn(ids, dpool.block_tables[slot:slot + 1],
+                                   np.full((1,), cur, np.int32),
+                                   np.full((1,), end - cur - 1, np.int64),
+                                   dpools)
+            dpool.install_pools(pairs)
+            self.spec_sync_chunks += 1
+            cur = end
+        dpool.seq_lens[slot] = L
+
+    def _spec_law(self, req: Request, rows: int, L: int) -> List[np.ndarray]:
+        """A sampled round's draw inputs: ``rows`` rows of uniforms over the
+        vocabulary from a ``torch.Generator`` seeded by (seed, position),
+        the temperature and top-p."""
+        gen = torch.Generator().manual_seed(
+            (req.seed * 1000003 + L) & 0x7FFFFFFF)
+        vocab = self.model.config.vocab_size
+        u = torch.rand((rows, vocab), generator=gen).numpy()
+        return [u, np.full((1,), req.temperature, np.float32),
+                np.full((1,), req.top_p, np.float32)]
+
+    def _spec_round(self, req: Request, gamma: int) -> None:
+        """One draft / verify round for one decode row. On entry and exit
+        both pools hold the KV of ids[:L] and ``_last_tok`` is ids[L], the
+        newest token not yet written. Both fault sites fire before the
+        cursor roll, so a fault replays the round from host state, drawing
+        the same."""
+        slot = req.slot
+        sample = req.temperature > 0.0
+        self._spec_sync(req)
+        L = int(self.pool.seq_lens[slot])
+        t0 = time.perf_counter() if self._m.enabled else 0.0
+        law = self._spec_law(req, gamma, L) if sample else []
+        # the draft: γ proposals in one program
+        dfn = self._spec_draft_program(gamma, sample, req.top_k)
+        dpools = self._draft_pool.take_pools()
+        self._f_spec_draft.check(rid=req.rid, op="draft")
+        (props, qrows), dpairs = dfn(
+            self._last_tok[slot:slot + 1, None],
+            self._draft_pool.block_tables[slot:slot + 1],
+            self._draft_pool.seq_lens[slot:slot + 1], *law, dpools)
+        self._draft_pool.install_pools(dpairs)
+        # the verify's ids need the proposals: the round's one read of
+        # the draft
+        props_np = props.cpu().numpy()
+        ids = np.empty((1, gamma + 1), np.int64)
+        ids[0, 0] = self._last_tok[slot]
+        ids[0, 1:] = props_np
+        # the verify: one (1, γ + 1) chunk of the target
+        vfn = self._spec_verify_program(gamma, sample, req.top_k)
+        pools = self.pool.take_pools()
+        self._f_spec_verify.check(rid=req.rid)
+        (greedy, rows, prows), pairs = vfn(
+            ids, self.pool.block_tables[slot:slot + 1],
+            self.pool.seq_lens[slot:slot + 1], *law[1:], pools)
+        self.pool.install_pools(pairs)
+        # acceptance on the host: the longest agreeing prefix and the
+        # target's next token, or rejection sampling
+        if sample:
+            new_toks, accepted = self._spec_accept_sample(
+                req, L, gamma, props_np, qrows.cpu().numpy(),
+                prows.cpu().numpy())
+        else:
+            greedy_np = greedy.cpu().numpy()
+            accepted = 0
+            while (accepted < gamma
+                   and int(props_np[accepted]) == int(greedy_np[accepted])):
+                accepted += 1
+            new_toks = [int(t) for t in props_np[:accepted]]
+            new_toks.append(int(greedy_np[accepted]))
+        # clip to the token budget and to the first EOS: the plain engine
+        # stops there
+        new_toks = new_toks[:req.max_new_tokens - len(req.tokens)]
+        if req.eos_token_id is not None and req.eos_token_id in new_toks:
+            new_toks = new_toks[:new_toks.index(req.eos_token_id) + 1]
+        # the cursor roll: both pools advance to exactly the accepted
+        # length; the rejected tail's KV is overwritten before it is read
+        self.pool.seq_lens[slot] = L + len(new_toks)
+        self._draft_pool.seq_lens[slot] = L + len(new_toks)
+        now = time.perf_counter()
+        first = not req.tokens
+        if first:
+            # the verify wrote the prompt's last position: its pages are
+            # complete
+            self._register(req, slot)
+        if self.record_logits:
+            self.logits.setdefault(req.rid, []).extend(
+                rows[:len(new_toks)].cpu().numpy())
+        for t in new_toks:
+            req.tokens.append(int(t))
+            self._emit(req, int(t))
+        if first:
+            self._m.ttft.observe(now - req.t_submit)
+            self.ttft_seconds[req.rid] = now - req.t_submit
+        else:
+            # one inter-token sample a round: its tokens arrive together
+            self._m.itl.observe(now - req.t_last)
+        req.t_last = now
+        self._last_tok[slot] = int(new_toks[-1])
+        # adaptive γ: the accept-rate EMA moves the rung
+        rate = accepted / gamma
+        req.spec_ema = 0.7 * req.spec_ema + 0.3 * rate
+        if self.spec_adaptive:
+            idx = max(i for i, r in enumerate(self.spec_rungs)
+                      if r <= max(gamma, self.spec_rungs[0]))
+            if accepted == gamma and req.spec_ema >= self._SPEC_GROW:
+                idx = min(idx + 1, len(self.spec_rungs) - 1)
+            elif req.spec_ema < self._SPEC_SHRINK:
+                idx = max(idx - 1, 0)
+            req.gamma = self.spec_rungs[idx]
+        else:
+            req.gamma = gamma
+        self.spec_rounds += 1
+        self.spec_tokens_accepted += accepted
+        self.spec_tokens_rejected += gamma - accepted
+        self.spec_last_gamma = gamma
+        self._observe_spec(gamma, accepted, rate, t0, now)
+        self._finish_if_done(req)
+
+    def _spec_accept_sample(self, req: Request, L: int, gamma: int,
+                            props: np.ndarray, qrows: np.ndarray,
+                            prows: np.ndarray):
+        """Rejection sampling (the speculative-sampling identity): accept
+        draft token d_i with probability min(1, p_i(d_i) / q_i(d_i)); on
+        the first rejection draw the correction from the residual
+        normalize(max(p_i - q_i, 0)); after a full accept draw the bonus
+        token from the target's last row. p and q are the filtered
+        distributions the programs return, so the emitted law is exactly
+        the target's sampling law. Uniforms come from default_rng((seed,
+        L)): a replayed round at the same accepted length redraws
+        identically. Returns (new_tokens, accepted_count)."""
+        rng = np.random.default_rng((req.seed, L))
+        out: List[int] = []
+        for i in range(gamma):
+            d = int(props[i])
+            q = float(qrows[i, d])
+            p = float(prows[i, d])
+            if q <= 0.0 or rng.random() * q <= p:
+                out.append(d)
+                continue
+            resid = np.maximum(
+                prows[i].astype(np.float64) - qrows[i], 0.0)
+            s = float(resid.sum())
+            if s <= 0.0:        # q >= p everywhere (numerically): the
+                resid = prows[i].astype(np.float64)     # target row
+                s = float(resid.sum())                  # itself
+            out.append(int(rng.choice(resid.shape[0], p=resid / s)))
+            return out, i
+        last = prows[gamma].astype(np.float64)
+        out.append(int(rng.choice(last.shape[0], p=last / last.sum())))
+        return out, gamma
+
+    # one program per (kind, γ rung, mode, top_k): DecodeKey.extra
+    def _spec_program(self, kind: str, extra: Tuple, step, weights,
+                      draft: bool, graph, eager, *shape):
+        """The cached program of a speculative key, bound to this engine:
+        ``eager(program, weights, device)``, or on the card the CUDA graph
+        ``graph(program, weights, device, *shape)``; made once per key."""
+        memo = (kind,) + tuple(extra)
+        fn = self._spec_fns.get(memo)
+        if fn is None:
+            pool = self._draft_pool if draft else self.pool
+            key = DecodeKey(
+                kind=kind,
+                model_sig=self._draft_sig if draft else self._model_sig,
+                batch_bucket=1,
+                page_budget=(pool.num_pages, pool.page_size,
+                             pool.max_pages_per_seq),
+                dtype=str(pool.k_pages[0].dtype),
+                flags=self._flags.as_tuple(),
+                extra=tuple(extra) + ((TAG_KV, self.kv_dtype),
+                                      (TAG_WT, self.weight_dtype)))
+            on_card = self.device.type == "cuda"
+            program = decode_program_cache().get(key, functools.partial(
+                _build_decode, step=step, on_card=on_card))
+            fn = (graph(program, weights, self.device, *shape) if on_card
+                  else eager(program, weights, self.device))
+            self._spec_fns[memo] = fn
+            self._spec_keys[memo] = key
+        if kind == "spec_draft":
+            self.spec_draft_key = self._spec_keys[memo]
+        elif kind == "spec_verify":
+            self.spec_verify_key = self._spec_keys[memo]
+        return fn
+
+    def _spec_sync_program(self) -> _EagerChunk:
+        """The draft model's chunk program at the sync width."""
+        return self._spec_program(
+            "prefill_chunk", (self.spec_sync_chunk,), _chunk_step,
+            self.draft_model, True, _ChunkGraph, _EagerChunk,
+            self.spec_sync_chunk, self._draft_pool.max_pages_per_seq)
+
+    @staticmethod
+    def _spec_mode(sample: bool, top_k: int) -> tuple:
+        return (ATOM_SAMPLE, int(top_k)) if sample else (ATOM_GREEDY,)
+
+    def _spec_draft_program(self, gamma: int, sample: bool,
+                            top_k: int) -> _EagerStep:
+        fspec = self._draft_fspec
+        path = (ATOM_FUSED,) if fspec else (ATOM_GENERIC,)
+        pages = self._draft_pool.max_pages_per_seq
+        inputs = [((1, 1), torch.int64), ((1, pages), torch.int32),
+                  ((1,), torch.int32)]
+        if sample:
+            inputs += [((gamma, self.model.config.vocab_size),
+                        torch.float32)] + _LAW_SCALARS
+        return self._spec_program(
+            "spec_draft", (gamma,) + path + self._spec_mode(sample, top_k),
+            functools.partial(_spec_draft_step, fspec, gamma, sample,
+                              int(top_k)),
+            self._draft_params if fspec else self.draft_model, True,
+            _SpecGraph, _EagerStep, inputs)
+
+    def _spec_verify_program(self, gamma: int, sample: bool,
+                             top_k: int) -> _EagerStep:
+        pages = self.pool.max_pages_per_seq
+        inputs = [((1, gamma + 1), torch.int64), ((1, pages), torch.int32),
+                  ((1,), torch.int32)]
+        if sample:
+            inputs += _LAW_SCALARS
+        return self._spec_program(
+            "spec_verify", (gamma + 1,) + self._spec_mode(sample, top_k),
+            functools.partial(_spec_verify_step, sample, int(top_k)),
+            self.model, False, _SpecGraph, _EagerStep, inputs)
+
     # ---------------------------------------------------------------- step
     def step(self) -> None:
         """One scheduler round: deadline sweep, bucket migration, SLO
@@ -1983,7 +2537,9 @@ class ServingEngine:
                 # nothing in flight died but work is queued (a migration
                 # fault before admission): back off and press on, within
                 # the engine-wide no-progress budget
-                if self.pool.k_pages[0] is None:
+                if self.pool.k_pages[0] is None or (
+                        self._draft_pool is not None
+                        and self._draft_pool.k_pages[0] is None):
                     self._rebuild_pool()    # a step left the pools out
                 self._consec_failures += 1
                 self._observe_recovery(0, 0, time.perf_counter() - t0)
@@ -2034,9 +2590,13 @@ class ServingEngine:
         step detached go back, every tensor is zeroed at its address and
         the allocator starts over (:meth:`PagedKVCache.reset`), so the
         CUDA graphs captured over them keep replaying and no program is
-        rebuilt. The prefix cache indexed the old contents (and its host
+        rebuilt. The draft pool is reset with it, in place too (the JAX
+        engine allocates a fresh one): replay re-syncs the draft from host
+        state. The prefix cache indexed the old contents (and its host
         tier) and starts empty."""
         self.pool.reset()
+        if self._draft_pool is not None:
+            self._draft_pool.reset()
         self._prefix = self._new_prefix_cache()
         self._probe_memo.clear()
         self._pool_frag_epoch = -1      # re-publish the ledger
@@ -2101,6 +2661,10 @@ class ServingEngine:
         self._observe_step_begin(len(decode_rows))
         if not decode_rows:
             return
+        if self._draft_pool is not None and self._spec_step(decode_rows):
+            # the rows were served by speculation rounds
+            self._observe_step_end()
+            return
         b = self.bucket
         fn = self._decode_program(b)
         t0 = time.perf_counter()
@@ -2118,6 +2682,11 @@ class ServingEngine:
             if req is None or req.prefill_pos is not None:
                 # an idle row wrote the null page, a mid-prefill row its
                 # cursor position (the next chunk overwrites it): ignored
+                continue
+            if req.temperature > 0.0 and not req.pending:
+                # a sampled row takes no greedy token: its write at the
+                # cursor is a correct prefix write, and the cursor stays
+                # for the next round's verify to sample that position
                 continue
             self.pool.seq_lens[slot] += 1
             if req.pending:
@@ -2241,6 +2810,24 @@ class ServingEngine:
         m.preemptions.inc()
         if req.tokens:
             m.preempted_tokens.inc(len(req.tokens))
+
+    def _observe_spec(self, gamma: int, accepted: int, rate: float,
+                      t0: float, t1: float) -> None:
+        """One speculation round retired: the accept-rate histogram (the
+        adaptive-γ signal), the accepted and rejected token counters, the
+        γ gauge and a timeline event."""
+        m = self._m
+        if not m.enabled:
+            return
+        m.spec_rounds_c.inc()
+        m.spec_accept.observe(rate)
+        if accepted:
+            m.spec_accepted.inc(accepted)
+        if gamma - accepted:
+            m.spec_rejected.inc(gamma - accepted)
+        m.spec_gamma.set(gamma)
+        m.event("engine.spec_round", t0, t1, gamma=gamma,
+                accepted=accepted)
 
     def _observe_chunk(self, dt: float, final: bool = False) -> None:
         """One chunk dispatched (its host wall clock); the final chunk

@@ -29,6 +29,19 @@ Then, on an engine with a 4096-token context:
            int8 pool with int4 weights four layers a launch; its kernels
            are also summed by group (GEMVs, attention, the rest).
 
+Then speculative decoding at batch 1, with a TinyLlama-1.1B-shaped draft
+(hidden 2048, 22 layers, 32 heads over 4 kv heads, inter 5632; random
+weights from ``--seed``) and ``FLAGS_serving_spec_max_slots=9``, a
+256-token prompt:
+
+  spec_round
+           ``--steps`` engine steps, each one speculation round (the
+           draft scan and the verify, graphed), its kernels summed by
+           group (the draft's fused decode kernels, the chunk attention,
+           cuBLAS's GEMMs, the rest), beside
+  decode_b1
+           ``--steps`` plain decode steps of the same prompt at batch 1.
+
 Per window it prints one JSON line (``torch_trace.window``): the
 host-clock wall time (ending in a synchronise), the summed device time of
 every kernel, copy and memset the trace saw (one stream, so they do not
@@ -77,6 +90,27 @@ def kernel_group(name: str) -> str:
         return "gemv"
     if any(k in name for k in ATTENTION_KERNELS):
         return "attention"
+    return "other"
+
+
+# a speculation round's kernels: the draft scan's fused decode (#3: GEMV
+# partials, epilogues, the append and the split-KV walk), the verify's
+# chunk attention (#4 and its split merge), cuBLAS's GEMMs (the verify's
+# linears, both LM heads) and the rest
+FUSED_DECODE_KERNELS = ("gemv", "epilogue", "append_kv", "decode_split",
+                        "rms_kernel")
+SPEC_DRAFT = dict(hidden_size=2048, num_hidden_layers=22,
+                  num_attention_heads=32, num_key_value_heads=4,
+                  intermediate_size=5632, max_position_embeddings=2048)
+
+
+def spec_group(name: str) -> str:
+    if any(k in name for k in FUSED_DECODE_KERNELS):
+        return "draft_fused_decode"
+    if "paged_chunk" in name or "prefill_combine" in name:
+        return "chunk_attention"
+    if any(k in name for k in ("nvjet", "gemm", "xmma", "cutlass")):
+        return "gemm"
     return "other"
 
 
@@ -177,6 +211,33 @@ def main() -> int:
                    kv_dtype=kv_dtype, weight_dtype=weight_dtype, **info)
         print(json.dumps(dec), flush=True)
         flags.reset_flags()
+        del eng
+    draft = LlamaForCausalLM(LlamaConfig(**SPEC_DRAFT), device="cuda",
+                             dtype=torch.bfloat16,
+                             generator=seed(args.seed + 21, "cuda"))
+    prompt = prompts[len(PROMPT_LENS) - 1]
+    for name, d in (("spec_round", draft), ("decode_b1", None)):
+        flags.set_flags({"serving_spec_max_slots": 9})
+        eng = ServingEngine(model, max_batch=1, page_size=64,
+                            max_seq_len=1024, draft_model=d)
+        flags.reset_flags()
+        eng.submit(prompts[0][:9], 8)         # warm-up: first calls,
+        eng.run()                             # captures at γ 4 and 2
+        eng.submit(prompt, 4 * args.steps + 8)
+        for _ in range(4):                    # the prefill, and γ settles
+            eng.step()
+        w = window(name, lambda: [eng.step() for _ in range(args.steps)],
+                   args.top, group=spec_group if d is not None else
+                   kernel_group)
+        w["untraced_wall_ms"] = untraced_ms(
+            lambda: [eng.step() for _ in range(args.steps)])
+        w.update(steps=args.steps, prompt=len(prompt), batch=1,
+                 layers=args.layers, dtype="bf16")
+        if d is not None:
+            w.update(draft="tinyllama_1.1b shape",
+                     gamma=eng.spec_last_gamma, rounds=eng.spec_rounds,
+                     accepted=eng.spec_tokens_accepted)
+        print(json.dumps(w), flush=True)
         del eng
     print(card(), flush=True)
     return 0
