@@ -36,7 +36,17 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               as the draft's sync chunk (S = 64 at TinyLlama-1.1B's heads,
               32 over 4 of dim 64), #2 and #3 as the draft's step (B = 1,
               700 tokens, TinyLlama's layer), each also on its pools
-              quantized (its int8 variant, as above);
+              quantized (its int8 variant, as above); then generation's
+              new shapes: #1 as the draft's prefill (S = 256, 32 over 4
+              heads of dim 64), as generate's prefill into its ring buffer
+              (B = 4, S = 128, T = 160) and as generate_speculative's
+              verify (S = 3, 5, 9 from 700 of an 800-position ring buffer
+              at 7B heads), the caches holding +-1e4 past cur_len, each
+              held to flash_prefill_ref and timed against SDPA with an
+              explicit mask; #2 at generate_paged's last step (4 rows of
+              160 tokens, a pool with no null page), native and int8; #3
+              through incubate.nn.functional.fused_block_decode at serve's
+              lengths;
   3. serve    Llama-2-7B (32 layers, bf16, random weights from a seed)
               through ServingEngine: 8 requests of at most 256 tokens, 32
               new tokens each, some submitted mid-run, with fused block
@@ -143,6 +153,33 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               FLAGS_fault_inject="spec_draft:every=3:times=4;spec_verify:
               every=4:times=4" (bf16: agreement reported; the replays
               re-prefill the KV the rounds read, which rounds otherwise);
+     generate the same model through GenerationMixin, its loops eager on
+              ring buffers: greedy generate (B = 4, P = 128, N = 32: #1 32
+              launches, exactly), its agreement with the ServingEngine's
+              streams of the same prompts reported (first differing token,
+              top-2 margins, each row's first bf16 tie at the top); sampled
+              (temperature 0.8, top-k 50, top-p 0.95) equal over two runs
+              of one generator seed, and top-k = 1 equal to greedy up to
+              each row's first tie; beam search (4 beams, P = 64, N = 16),
+              its length-normalised log-probability rescored by one
+              no-cache forward no lower than greedy's minus BEAM_TOL;
+              generate_paged (#1 32, #2 992 launches); generate_speculative
+              with the TinyLlama-1.1B-shaped draft (gamma 4, N = 64: #1 32
+              a round, acceptance and ms a token against generate); then
+              Paddle's fused serving entry points at 7B width against the
+              same entry points on the plain versions: fused_multi_transformer
+              (4 layers, a 128-token prefill with caches, then 16 decode
+              steps: #1 4 launches), masked_multihead_attention (16 steps),
+              block_multihead_attention (prefill and 16 decode steps over a
+              pool with no null page: #1 1, #2 16) and fused_block_decode
+              (16 steps: #3 16); the phase's seconds;
+     handoff  serve's configuration, native and int8 pools: a 200-token
+              request harvested after its first token from engine A and
+              adopted by engine B, which served it alone first: B's stream
+              equal to the solo one bit for bit, B's CUDA graphs and pool
+              addresses kept, no new capture, #3 a layer per decode step
+              only; the bundle round-trips a spawned process byte for byte
+              (no CUDA tensor rides); harvest and adoption ms;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -162,7 +199,14 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the plain engine's token for token, and its sampled
               requests equal over two runs and under its fault spec;
               then the model as its own draft (acceptance >= 0.95, γ
-              reaches 8);
+              reaches 8); then generate, generate_paged, sampled top-k = 1
+              and generate_speculative (a 1-layer draft) equal to a
+              no-cache argmax loop token for token, and beam search's
+              rescored log-probability no lower than greedy's; then a
+              harvested request decoded to the end in a spawned process on
+              the card, which rebuilds the model from its seed
+              (testing.transport.adopt_and_decode_in_child): its stream
+              equal to the solo one;
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -238,6 +282,7 @@ Without a CUDA card the script exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -534,11 +579,87 @@ def check_flash_prefill(dtype, device, results):
                         max_err=err, tol=TOL[dtype]))
 
 
-# paged_attention's shapes: (case, seq_lens, the table's max_seq); at
-# serve_long's decode contexts the split-KV walk has the most parts to fill
-PAGED_SHAPES = (("serve", (MAX_SEQ, MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1, 0),
-                 MAX_SEQ),
-                ("serve_long decode", LONG_DECODE_LENS, LONG_MAX_SEQ))
+# #1 at generation's shapes: (case, B, S, T, cur_len, H, Hkv, D). The
+# draft's prefill (TinyLlama-1.1B heads, 32 over 4 of dim 64), generate's
+# prefill into its P + N ring buffer, and generate_speculative's verify of
+# γ + 1 = 3, 5, 9 queries from 700 written tokens of an 800-position ring
+# buffer at 7B heads. Past cur_len the caches hold junk (+-1e4), so a row
+# that reads a masked position shows a large error
+GEN_PREFILL_CASES = (
+    ("draft prefill, D=64, 32 over 4 heads", 1, 256, 256, 256, 32, 4, 64),
+    ("ring buffer T=P+N", 4, 128, 160, 128, HEADS, KV_HEADS, HEAD_DIM),
+) + tuple((f"speculative verify S={s}", 1, s, 800, 700 + s, HEADS, KV_HEADS,
+           HEAD_DIM) for s in (3, 5, 9))
+RING_JUNK = 1e4
+
+
+def check_generation_prefill(dtype, device, results):
+    """#1 at GEN_PREFILL_CASES against flash_prefill_ref, with SDPA over the
+    valid prefix (the queries' causal order as a mask: they sit at the
+    prefix's end) and the bound of the work the valid prefix needs; the
+    back-to-back times and device_ms from calls replayed from a CUDA
+    graph (the verify's calls are tens of microseconds)."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    for case, b, s, t, cur, h, hkv, d in GEN_PREFILL_CASES:
+        q = _rand(gen, (b, s, h, d), dtype, device)
+        k = _rand(gen, (b, t, hkv, d), dtype, device)
+        v = _rand(gen, (b, t, hkv, d), dtype, device)
+        k[:, cur:] = RING_JUNK
+        v[:, cur:] = -RING_JUNK
+        got = da.flash_prefill(q, k, v, cur)
+        want = da.flash_prefill_ref(q, k, v, cur)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        require(err <= TOL[dtype], f"flash_prefill {case} {dtype}: max err "
+                f"{err} > {TOL[dtype]}")
+        qt = q.transpose(1, 2)
+        kt, vt = (x[:, :cur].transpose(1, 2) for x in (k, v))
+        mask = (torch.arange(cur, device=device)[None, :]
+                <= (cur - s + torch.arange(s, device=device))[:, None])
+        elem = q.element_size()
+        nbytes = elem * (2 * q.numel() + 2 * b * cur * hkv * d)
+        pairs = s * (cur - s) + s * (s + 1) // 2  # visible (query, key)
+        flops = 4.0 * b * pairs * h * d
+        bms, by = bound_ms(nbytes, flops, dtype)
+
+        def call():
+            da.flash_prefill(q, k, v, cur)
+
+        def lib():
+            sdpa(qt, kt, vt, attn_mask=mask)
+
+        kms = time_ms(call)
+        results.append(dict(
+            kernel="flash_prefill", dtype=DTYPE_NAME[dtype], case=case,
+            generation=True, B=b, S=s, T=t, cur_len=cur, heads=h,
+            kv_heads=hkv, head_dim=d, max_err=err, tol=TOL[dtype],
+            kernel_ms=kms,
+            plain_ms=time_ms(lambda: da.flash_prefill_ref(q, k, v, cur)),
+            library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+            bound_frac=bms / kms,
+            device_ms=dict(kernel=graph_ms(call), library=graph_ms(lib))))
+        del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+
+
+# paged_attention's shapes: (case, seq_lens, the table's max_seq, whether
+# page 0 is the null page); at serve_long's decode contexts the split-KV
+# walk has the most parts to fill. generate_paged's last step: 4 equal rows
+# (P = 128, N = 32) over a pool with no null page, each row's pages
+# consecutive from page 0, as its allocator hands them out
+PAGED_SHAPES = (("generate_paged", (160,) * BATCH, 160, False),
+                ("serve", (MAX_SEQ, MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1, 0),
+                 MAX_SEQ, True),
+                ("serve_long decode", LONG_DECODE_LENS, LONG_MAX_SEQ, True))
+
+
+def _rect_tables(rows, max_seq, device):
+    """Block tables of a pool with no null page: row i owns pages
+    i * maxp .. (i + 1) * maxp - 1."""
+    maxp = -(-max_seq // PAGE)
+    bt = torch.arange(rows * maxp, dtype=torch.int32, device=device)
+    return bt.reshape(rows, maxp), rows * maxp
 
 
 def check_paged_attention(dtype, device, results):
@@ -550,9 +671,12 @@ def check_paged_attention(dtype, device, results):
     replays the kernel's and SDPA's calls from a CUDA graph."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    for case, seq_lens, max_seq in PAGED_SHAPES:
+    for case, seq_lens, max_seq, null_page in PAGED_SHAPES:
         seq_lens = list(seq_lens)
-        bt, num_pages = _block_tables(seq_lens, 0, device, max_seq)
+        bt, num_pages = (_block_tables(seq_lens, 0, device, max_seq)
+                         if null_page else
+                         _rect_tables(len(seq_lens), max_seq, device))
+        mark = {} if null_page else {"generation": True}
         sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
         idle = sl == 0
         shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
@@ -592,7 +716,7 @@ def check_paged_attention(dtype, device, results):
             plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt,
                                                             sl)),
             library_ms=lib, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
-            device_ms=dev_ms))
+            device_ms=dev_ms, **mark))
         # the int8 pool: the same rows quantized, kernel vs plain on its bits
         kq, vq = quantized(kp), quantized(vp)
         got = pa.paged_attention(q, kq, vq, bt, sl)
@@ -616,7 +740,7 @@ def check_paged_attention(dtype, device, results):
                                                             sl)),
             library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
             device_ms=dict(kernel=graph_ms(
-                lambda: pa.paged_attention(q, kq, vq, bt, sl)))))
+                lambda: pa.paged_attention(q, kq, vq, bt, sl))), **mark))
         del kp, vp, kq, vq
         torch.cuda.empty_cache()
 
@@ -827,6 +951,56 @@ def check_fused_block_decode(dtype, device, results):
             del kk, vk, kr, vr, pools
         del kp, vp
         torch.cuda.empty_cache()
+
+
+def check_public_fused_block_decode(dtype, device, results):
+    """#3 through Paddle's entry point
+    (``incubate.nn.functional.fused_block_decode``, the weights as nine
+    tensors) at serve's ragged lengths: the output and the appended rows
+    within TOL of the plain version, timed beside it."""
+    from paddle_tpu_torch.incubate.nn import functional as FF
+    from paddle_tpu_torch.kernels import fused_block_decode as fb
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
+              epsilon=1e-5)
+    case, seq_lens, max_seq = FUSED_SHAPES[0]
+    seq_lens = list(seq_lens)
+    bt, num_pages = _block_tables(seq_lens, 1, device, max_seq)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+    shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+    kp, vp = (_rand(gen, shape, dtype, device) for _ in range(2))
+    w = block_weights(gen, dtype, device)
+    x = _rand(gen, (BATCH, HIDDEN), dtype, device, 0.3)
+    kk, vk = kp.clone(), vp.clone()
+    got, kk2, vk2 = FF.fused_block_decode(x, *w, kk, vk, bt, sl, **kw)
+    require(kk2 is kk and vk2 is vk, "fused_block_decode: pools in place")
+    kr, vr = kp.clone(), vp.clone()
+    want, kr, vr = fb.fused_block_decode_ref(x, w, kr, vr, bt, sl, **kw)
+    torch.cuda.synchronize()
+    err = max(max_err(got, want), max_err(kk, kr), max_err(vk, vr))
+    require(err <= TOL[dtype], f"public fused_block_decode {dtype}: max "
+            f"err {err}")
+    live = sum(seq_lens)
+    mats = sum(t.numel() for t in w if t.dim() == 2)
+    flops = 2.0 * BATCH * mats + 4.0 * (live + BATCH) * HEADS * HEAD_DIM
+    bms, by = bound_ms(block_bytes(w, 1, x, live, False)
+                       + 4 * (bt.numel() + sl.numel()), flops, dtype)
+
+    def call():
+        FF.fused_block_decode(x, *w, kk, vk, bt, sl, **kw)
+
+    kms = time_ms(call)
+    results.append(dict(
+        kernel="fused_block_decode", dtype=DTYPE_NAME[dtype],
+        case=f"{case}, incubate.nn.functional.fused_block_decode",
+        generation=True, seq_lens=seq_lens, max_err=err, tol=TOL[dtype],
+        kernel_ms=kms,
+        plain_ms=time_ms(lambda: fb.fused_block_decode_ref(
+            x, w, kr, vr, bt, sl, **kw), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
+        device_ms=dict(kernel=graph_ms(call, calls=5, reps=4))))
+    del kp, vp, kk, vk, kr, vr, w
+    torch.cuda.empty_cache()
 
 
 def check_fused_multi_block_decode(dtype, device, results):
@@ -1275,8 +1449,9 @@ LONG_RUNS = ((1, "native", "native"), (GROUP_LAYERS, "native", "native"),
 
 
 def run_serve(device):
-    """The serve and serve_long phases on one Llama-2-7B. Returns the
-    kernel launch counts of every run, summed."""
+    """The serving phases, then generate and handoff, on one Llama-2-7B.
+    Returns the kernel launch counts of every run, summed, and by path:
+    the serving phases, generate, handoff."""
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b()
@@ -1328,9 +1503,14 @@ def run_serve(device):
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     counts = run_spec(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    by_path = {"serve": dict(total)}
+    for path, run in (("generate", run_generate), ("handoff", run_handoff)):
+        counts = run(model)
+        by_path[path] = counts
+        total = {k: total.get(k, 0) + counts.get(k, 0) for k in total}
     del model
     torch.cuda.empty_cache()
-    return total
+    return total, by_path
 
 
 def run_serve_long(model) -> dict:
@@ -3087,8 +3267,659 @@ def run_parity(device):
     run_prefix_parity(model)
     run_recovery_parity(model)
     run_spec_parity(model)
+    run_generate_parity(model)
+    run_handoff_parity(model, SEED + 7)
     del model
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- generate
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
+GEN_SAMPLE_SEED = 5
+BEAM_PROMPT, BEAM_NEW, BEAMS = 64, 16, 4
+# bf16: how far the beam's length-normalised log-probability (nats a token,
+# both sequences rescored by one no-cache forward) may fall below greedy's.
+# The search scores the cached forward's logits and the rescoring the
+# no-cache forward's, which round differently in bf16: a logit near 4
+# moves by a bf16 step (2^-6) between the two, and a token's log-softmax
+# by a few of them
+BEAM_TOL = 2.0 ** -4
+GEN_GAMMA, GEN_SPEC_NEW = 4, 64
+# the fused entry points at 7B width: fused_multi_transformer's layers, the
+# prefill (B x S) and the decode steps after it
+FMT_LAYERS, FE_BATCH, FE_PROMPT, FE_STEPS = 4, 4, 128, 16
+# fp32 parity model: prompts, new tokens; the beam's tolerance (nats a
+# token: the cached and the no-cache forward sum in another order)
+GEN_PARITY_BATCH, GEN_PARITY_PROMPT, GEN_PARITY_NEW = 2, 64, 16
+BEAM_PARITY_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def recorded(model):
+    """For the ``with`` block, keep the last position's f32 logits of every
+    cached forward a generation loop makes (the yielded list, on the host),
+    by wrapping the model's ``forward_with_cache``."""
+    rows = []
+    inner = model.forward_with_cache
+
+    def forward_with_cache(ids, caches, offset):
+        logits, caches = inner(ids, caches, offset)
+        rows.append(logits[:, -1].float().cpu().numpy())
+        return logits, caches
+    model.forward_with_cache = forward_with_cache
+    try:
+        yield rows
+    finally:
+        del model.forward_with_cache
+
+
+def first_top_tie(rows, row):
+    """The first step at which batch row ``row``'s logits tie at the top
+    (two or more equal maxima; a top-k filter keeps them all), else
+    None."""
+    for j, r in enumerate(rows):
+        top = np.sort(r[row])[-2:]
+        if top[0] == top[1]:
+            return j
+    return None
+
+
+def counted(fn, total=None):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after; returns (result, counts, seconds). ``total`` sums the counts."""
+    from paddle_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if total is not None:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return out, counts, seconds
+
+
+def only(counts, **want) -> dict:
+    """``counts``' keys, 0 for each but those named."""
+    out = dict.fromkeys(counts, 0)
+    out.update(want)
+    return out
+
+
+def seq_logprob(model, full, p) -> np.ndarray:
+    """Each row's length-normalised log-probability of its tokens after
+    position ``p``, from one no-cache forward (f32 log-softmax)."""
+    with torch.inference_mode():
+        lp = torch.log_softmax(model(full[:, :-1].long()).float(), dim=-1)
+    tok = full[:, p:].long()
+    got = lp[:, p - 1:].gather(-1, tok[..., None])[..., 0]
+    return (got.sum(-1) / tok.shape[1]).cpu().numpy()
+
+
+def run_generate(model) -> dict:
+    """The generate phase on serve's Llama-2-7B: greedy ``generate`` (its
+    agreement with the ServingEngine's streams reported), sampled, beam,
+    ``generate_paged`` and ``generate_speculative`` with the
+    TinyLlama-shaped draft, then Paddle's four fused serving entry points
+    at 7B width. Returns the launch counts of every counted run."""
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    device = model.device
+    cfg = model.config
+    layers, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    t_phase = time.perf_counter()
+    total: dict = {}
+    ids = torch.from_numpy(np.stack(prompts(vocab, (GEN_PROMPT,)
+                                            * GEN_BATCH))).to(device)
+    # first calls (library loads, cuBLAS handles), not counted
+    model.generate(ids[:1, :9], max_new_tokens=2)
+
+    greedy, c, sec = counted(lambda: model.generate(
+        ids, max_new_tokens=GEN_NEW, return_full_sequence=False), total)
+    require_launches(c, only(c, flash_prefill=layers), "generate greedy")
+    # again with each step's logits copied to the host (ties, margins): the
+    # copy waits for the card every step, so the timed run above has none
+    with recorded(model) as rows:
+        again = model.generate(ids, max_new_tokens=GEN_NEW,
+                               return_full_sequence=False)
+    require(torch.equal(again, greedy), "generate greedy: two runs differ")
+    g_np = greedy.cpu().numpy()
+    require(g_np.shape == (GEN_BATCH, GEN_NEW)
+            and bool(((g_np >= 0) & (g_np < vocab)).all()),
+            "generate: tokens")
+    ties = [first_top_tie(rows, r) for r in range(GEN_BATCH)]
+    eng = ServingEngine(model, max_batch=GEN_BATCH, page_size=PAGE,
+                        max_seq_len=MAX_SEQ, record_logits=True)
+    rids = [eng.submit(ids[r].cpu().numpy().astype(np.int32), GEN_NEW)
+            for r in range(GEN_BATCH)]
+    streams = eng.run()
+    vs_engine = []
+    for r, rid in enumerate(rids):
+        j = first_difference(g_np[r].tolist(), streams[rid])
+        vs_engine.append(dict(
+            first_difference=j,
+            engine_top2_margin=None if j is None else top2_margin(
+                eng.logits[rid][j]),
+            generate_top2_margin=None if j is None else top2_margin(
+                rows[j][r])))
+    del eng
+    emit("generate", run="greedy", model="llama2_7b", layers=layers,
+         dtype="bf16", batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+         new_tokens=GEN_NEW, seconds=sec,
+         ms_per_step=1e3 * sec / GEN_NEW, launches=c,
+         first_top_tie=ties, vs_serving_engine=vs_engine)
+
+    def sampled(**law):
+        g = torch.Generator(device=device).manual_seed(GEN_SAMPLE_SEED)
+        return model.generate(ids, max_new_tokens=GEN_NEW, do_sample=True,
+                              generator=g, return_full_sequence=False,
+                              **law)
+
+    s1, c, sec = counted(lambda: sampled(**SPEC_SAMPLE), total)
+    s2, _, _ = counted(lambda: sampled(**SPEC_SAMPLE), total)
+    require(torch.equal(s1, s2), "generate sampled: one seed, two streams")
+    require_launches(c, only(c, flash_prefill=layers), "generate sampled")
+    with recorded(model) as k1_rows:
+        top1, _, _ = counted(lambda: sampled(temperature=0.8, top_k=1),
+                             total)
+    t_np = top1.cpu().numpy()
+    # top-k = 1 is greedy up to a row's first bf16 tie at the top (there
+    # the filter keeps every tied token, as the JAX package's does) ...
+    for r in range(GEN_BATCH):
+        upto = GEN_NEW if ties[r] is None else ties[r]
+        require(np.array_equal(t_np[r, :upto], g_np[r, :upto]),
+                f"generate top_k=1: row {r} differs from greedy before its "
+                f"first tie ({upto})")
+    # ... and every token of the whole stream is one of the maxima of its
+    # own step's logits
+    require(len(k1_rows) == GEN_NEW, f"generate top_k=1: {len(k1_rows)} "
+            f"logits rows for {GEN_NEW} tokens")
+    off_top = [(j, r) for j, lg in enumerate(k1_rows)
+               for r in range(GEN_BATCH) if lg[r, t_np[r, j]] != lg[r].max()]
+    require(not off_top, f"generate top_k=1: (step, row) {off_top[:4]} "
+            f"not at their step's maximum")
+    emit("generate", run="sampled", law=SPEC_SAMPLE, seed=GEN_SAMPLE_SEED,
+         seconds=sec, two_runs_equal=True,
+         top_k1_first_difference=[first_difference(
+             t_np[r].tolist(), g_np[r].tolist()) for r in range(GEN_BATCH)],
+         launches=c)
+
+    bids = ids[:1, :BEAM_PROMPT]
+    beam, c, sec = counted(lambda: model.generate(
+        bids, max_new_tokens=BEAM_NEW, num_beams=BEAMS), total)
+    require_launches(c, only(c, flash_prefill=layers), "generate beam")
+    bgreedy = model.generate(bids, max_new_tokens=BEAM_NEW)
+    lp_beam = float(seq_logprob(model, beam, BEAM_PROMPT)[0])
+    lp_greedy = float(seq_logprob(model, bgreedy, BEAM_PROMPT)[0])
+    require(lp_beam >= lp_greedy - BEAM_TOL,
+            f"beam: log-probability {lp_beam} below greedy's {lp_greedy}")
+    emit("generate", run="beam", batch=1, num_beams=BEAMS,
+         prompt_len=BEAM_PROMPT, new_tokens=BEAM_NEW, seconds=sec,
+         logprob_per_token=lp_beam, greedy_logprob_per_token=lp_greedy,
+         tol=BEAM_TOL, same_as_greedy=bool(torch.equal(beam, bgreedy)),
+         launches=c)
+
+    paged, c, sec = counted(lambda: model.generate_paged(
+        ids, max_new_tokens=GEN_NEW, page_size=PAGE,
+        return_full_sequence=False), total)
+    require_launches(c, only(c, flash_prefill=layers,
+                             paged_attention=layers * (GEN_NEW - 1)),
+                     "generate_paged")
+    p_np = paged.cpu().numpy()
+    emit("generate", run="generate_paged", batch=GEN_BATCH,
+         prompt_len=GEN_PROMPT, new_tokens=GEN_NEW, page_size=PAGE,
+         seconds=sec, ms_per_step=1e3 * sec / GEN_NEW,
+         vs_generate_first_difference=[first_difference(
+             p_np[r].tolist(), g_np[r].tolist()) for r in range(GEN_BATCH)],
+         launches=c)
+
+    draft = draft_model(device, torch.bfloat16)
+    dlayers = draft.config.num_hidden_layers
+    sids = ids[:1]
+    model.generate_speculative(sids[:, :9], draft, max_new_tokens=4,
+                               num_speculative_tokens=GEN_GAMMA)
+    ref, _, ref_s = counted(lambda: model.generate(
+        sids, max_new_tokens=GEN_SPEC_NEW, return_full_sequence=False),
+        total)
+    spec, c, sec = counted(lambda: model.generate_speculative(
+        sids, draft, max_new_tokens=GEN_SPEC_NEW,
+        num_speculative_tokens=GEN_GAMMA, return_full_sequence=False),
+        total)
+    st = dict(model.speculative_stats)
+    require_launches(c, only(c, flash_prefill=layers * (1 + st["rounds"])
+                             + dlayers), "generate_speculative")
+    emit("generate", run="generate_speculative", draft="tinyllama_1.1b "
+         "shape", draft_layers=dlayers, gamma=GEN_GAMMA, prompt_len=GEN_PROMPT,
+         new_tokens=GEN_SPEC_NEW, rounds=st["rounds"],
+         acceptance=st["accepted"] / st["proposed"],
+         tokens_per_round=GEN_SPEC_NEW / st["rounds"], seconds=sec,
+         ms_per_token=1e3 * sec / GEN_SPEC_NEW,
+         generate_ms_per_token=1e3 * ref_s / GEN_SPEC_NEW,
+         vs_generate_first_difference=first_difference(
+             spec[0].tolist(), ref[0].tolist()), launches=c)
+    del draft
+    torch.cuda.empty_cache()
+
+    run_fused_entry_points(device, total)
+    emit("generate", run="phase", seconds=time.perf_counter() - t_phase,
+         launches=total)
+    return total
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """For the ``with`` block, the serving entry points' kernels swapped for
+    their plain versions (the names the entry modules call): the same
+    entry point, no launch."""
+    from paddle_tpu_torch.incubate.nn import functional as FF
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import fused_block_decode as fb
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.nn import functional as F
+    swaps = ((F, "cached_attention", da.cached_attention_dense),
+             (F, "paged_attention", pa.paged_attention_ref),
+             (FF, "cached_attention", da.cached_attention_dense),
+             (FF, "_fbd", fb.fused_block_decode_ref))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+@contextlib.contextmanager
+def attention_taps(module, check=None):
+    """For the ``with`` block, wrap ``module.cached_attention`` (whatever it
+    is then: the kernel route, or its plain swap under ``plain_attention``)
+    to keep a copy of each call's output, in call order, and with
+    ``check`` the max error of that output against ``check`` on the same
+    inputs. Yields the two lists."""
+    outs, errs = [], []
+    inner = module.cached_attention
+
+    def tap(q, k, v, cur_len, *args, **kw):
+        out = inner(q, k, v, cur_len, *args, **kw)
+        outs.append(out.clone())
+        if check is not None:
+            errs.append(max_err(out, check(q, k, v, cur_len, *args, **kw)))
+        return out
+    module.cached_attention = tap
+    try:
+        yield outs, errs
+    finally:
+        module.cached_attention = inner
+
+
+def fmt_weights(gen, dtype, device, layers):
+    """fused_multi_transformer's weight lists at 7B width (Paddle's
+    ``(3, H, D, E)`` qkv layout), scaled so the residual stream stays near
+    1 (one bf16 step of it within TOL)."""
+    h, inter = HIDDEN, INTER
+
+    def mat(*shape):
+        return _rand(gen, shape, dtype, device, 0.25 / math.sqrt(shape[-1]
+                     if len(shape) == 4 else shape[0]))
+
+    def vec(n, base=0.0):
+        return (base + 0.05 * torch.randn(n, generator=gen, device=device)
+                ).to(dtype)
+
+    return dict(
+        ln_scales=[vec(h, 1.0) for _ in range(layers)],
+        ln_biases=[vec(h) for _ in range(layers)],
+        qkv_weights=[mat(3, HEADS, HEAD_DIM, h) for _ in range(layers)],
+        qkv_biases=[_rand(gen, (3, HEADS, HEAD_DIM), dtype, device, 0.05)
+                    for _ in range(layers)],
+        linear_weights=[mat(h, h) for _ in range(layers)],
+        linear_biases=[vec(h) for _ in range(layers)],
+        ffn_ln_scales=[vec(h, 1.0) for _ in range(layers)],
+        ffn_ln_biases=[vec(h) for _ in range(layers)],
+        ffn1_weights=[mat(h, inter) for _ in range(layers)],
+        ffn1_biases=[vec(inter) for _ in range(layers)],
+        ffn2_weights=[mat(inter, h) for _ in range(layers)],
+        ffn2_biases=[vec(h) for _ in range(layers)])
+
+
+def run_fused_entry_points(device, total):
+    """Paddle's four fused serving entry points at Llama-2-7B width, bf16,
+    each a prefill (B = 4, S = 128) or its cache written, then FE_STEPS
+    decode steps, against the same entry point on the plain versions
+    (``plain_attention``) under the kernels' tolerance: exact launches in
+    the kernel run, none in the plain one."""
+    from paddle_tpu_torch.incubate.nn import functional as FF
+    from paddle_tpu_torch.kernels import decode_attention as da
+    dtype = torch.bfloat16
+    tol = TOL[dtype]
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    b, s, n = FE_BATCH, FE_PROMPT, FE_STEPS
+    t = s + n
+
+    # fused_multi_transformer: FMT_LAYERS layers over (2, B, H, T, D)
+    w = fmt_weights(gen, dtype, device, FMT_LAYERS)
+    x = _rand(gen, (b, t, HIDDEN), dtype, device, 0.2)
+
+    def fmt():
+        caches = [torch.zeros((2, b, HEADS, t, HEAD_DIM), dtype=dtype,
+                              device=device) for _ in range(FMT_LAYERS)]
+        outs = [FF.fused_multi_transformer(x[:, :s], **w, cache_kvs=caches,
+                                           time_step=0)[0]]
+        for i in range(n):
+            outs.append(FF.fused_multi_transformer(
+                x[:, s + i:s + i + 1], **w, cache_kvs=caches,
+                time_step=s + i)[0])
+        return outs, caches
+
+    (got, gc), c, sec = counted(fmt, total)
+    require_launches(c, only(c, flash_prefill=FMT_LAYERS),
+                     "fused_multi_transformer")
+    # the residual stream carries each layer's attention only in part (the
+    # out-projection is scaled by 0.25 / sqrt(E)), so every call's
+    # attention output is held too: once against the dense composition on
+    # the very inputs the entry point gave the kernel, once against the
+    # plain run's
+    with attention_taps(FF, da.cached_attention_dense) as (k_attn, same):
+        counted(fmt)
+    with plain_attention():
+        with attention_taps(FF) as (p_attn, _):
+            (want, wc), pc, _ = counted(fmt)
+    require(not any(pc.values()), f"plain fused_multi_transformer "
+            f"launched {pc}")
+    calls = FMT_LAYERS * (n + 1)
+    require(len(k_attn) == len(p_attn) == len(same) == calls,
+            f"fused_multi_transformer: {len(k_attn)}/{len(p_attn)} "
+            f"attention calls, {calls} expected")
+    err = max(max_err(a, r) for a, r in zip(got, want))
+    cerr = max(max_err(a, r) for a, r in zip(gc, wc))
+    aerr = max(max_err(a, r) for a, r in zip(k_attn, p_attn))
+    serr = max(same)
+    require(max(err, cerr, aerr, serr) <= tol, f"fused_multi_transformer: "
+            f"max err {err}, caches {cerr}, attention {aerr}, attention on "
+            f"the same inputs {serr}")
+    emit("generate", run="fused_multi_transformer", layers=FMT_LAYERS,
+         hidden=HIDDEN, heads=HEADS, batch=b, prompt_len=s, decode_steps=n,
+         dtype="bf16", max_err=err, cache_max_err=cerr,
+         attention_max_err=aerr, attention_same_input_max_err=serr,
+         prefill_attention_max_abs=max(
+             float(a.float().abs().max()) for a in k_attn[:FMT_LAYERS]),
+         tol=tol, seconds=sec, launches=c)
+    del w, x, got, gc, want, wc, k_attn, p_attn
+
+    # masked_multihead_attention: one token a step over (2, B, T, H, D)
+    cache0 = _rand(gen, (2, b, t, HEADS, HEAD_DIM), dtype, device)
+    cache0[:, :, s:] = RING_JUNK
+    xs = _rand(gen, (n, b, 3 * HEADS * HEAD_DIM), dtype, device)
+
+    def mmha():
+        cache = cache0.clone()
+        return [FF.masked_multihead_attention(xs[i], cache,
+                                              sequence_lengths=s + i)[0]
+                for i in range(n)], cache
+
+    (got, gc), c, sec = counted(mmha, total)
+    require_launches(c, only(c), "masked_multihead_attention")
+    cache = cache0.clone()
+    err = 0.0
+    for i in range(n):
+        qkv = xs[i].reshape(b, 1, 3, HEADS, HEAD_DIM)
+        cache[0][:, s + i] = qkv[:, 0, 1]
+        cache[1][:, s + i] = qkv[:, 0, 2]
+        ref = da.cached_attention_dense(qkv[:, :, 0], cache[0], cache[1],
+                                        s + i + 1)
+        err = max(err, max_err(got[i], ref.reshape(b, -1)))
+    require(err <= tol and torch.equal(gc, cache),
+            f"masked_multihead_attention: max err {err}")
+    emit("generate", run="masked_multihead_attention", batch=b,
+         cache_len=t, start=s, decode_steps=n, dtype="bf16", max_err=err,
+         tol=tol, seconds=sec, launches=c)
+    del cache0, cache, gc, got
+
+    # block_multihead_attention: prefill, then n decode steps through
+    # block tables over a pool with no null page
+    bt, num_pages = _rect_tables(b, t, device)
+    qkv_pre = _rand(gen, (b, s, 3, HEADS, HEAD_DIM), dtype, device)
+    qkv_dec = _rand(gen, (n, b, 1, 3, HEADS, HEAD_DIM), dtype, device)
+    zeros = np.zeros(b, np.int32)
+
+    def bmha():
+        shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
+        kp = torch.zeros(shape, dtype=dtype, device=device)
+        vp = torch.zeros_like(kp)
+        outs = [FF.block_multihead_attention(
+            qkv_pre, kp, vp, np.full(b, s, np.int32), zeros,
+            np.full(b, s, np.int32), bt)[0]]
+        for i in range(n):
+            outs.append(FF.block_multihead_attention(
+                qkv_dec[i], kp, vp, zeros, np.full(b, s + i, np.int32),
+                np.ones(b, np.int32), bt)[0])
+        return outs, kp, vp
+
+    (got, gk, gv), c, sec = counted(bmha, total)
+    require_launches(c, only(c, flash_prefill=1, paged_attention=n),
+                     "block_multihead_attention")
+    with plain_attention():
+        (want, wk, wv), pc, _ = counted(bmha)
+    require(not any(pc.values()), f"plain block_multihead_attention "
+            f"launched {pc}")
+    err = max(max_err(a, r) for a, r in zip(got, want))
+    require(err <= tol and torch.equal(gk, wk) and torch.equal(gv, wv),
+            f"block_multihead_attention: max err {err}")
+    emit("generate", run="block_multihead_attention", batch=b, prompt_len=s,
+         decode_steps=n, page_size=PAGE, null_page=False, dtype="bf16",
+         max_err=err, tol=tol, seconds=sec, launches=c)
+    del gk, gv, wk, wv, got, want
+
+    # fused_block_decode: n steps of one 7B layer at serve's ragged lengths,
+    # each its own input (a chain would compound the bf16 rounding of every
+    # step's output into the next's input)
+    seq_lens = list(FUSED_SHAPES[0][1])
+    fbt, fpages = _block_tables(seq_lens, n, device, MAX_SEQ + n)
+    sl0 = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+    lw = block_weights(gen, dtype, device)
+    xs = _rand(gen, (n, BATCH, HIDDEN), dtype, device, 0.3)
+    pools0 = [_rand(gen, (KV_HEADS, fpages, PAGE, HEAD_DIM), dtype, device)
+              for _ in range(2)]
+    kw = dict(num_heads=HEADS, num_kv_heads=KV_HEADS, rope_theta=10000.0,
+              epsilon=1e-5)
+
+    def fbd():
+        kp, vp = (p.clone() for p in pools0)
+        outs = []
+        for i in range(n):
+            out, kp, vp = FF.fused_block_decode(xs[i], *lw, kp, vp, fbt,
+                                                sl0 + i, **kw)
+            outs.append(out)
+        return outs, kp, vp
+
+    (got, gk, gv), c, sec = counted(fbd, total)
+    require_launches(c, only(c, fused_block_decode=n), "fused_block_decode")
+    with plain_attention():
+        (want, wk, wv), pc, _ = counted(fbd)
+    require(not any(pc.values()), f"plain fused_block_decode launched {pc}")
+    err = max(max_err(a, r) for a, r in zip(got, want))
+    perr = max(max_err(gk, wk), max_err(gv, wv))
+    require(max(err, perr) <= tol, f"fused_block_decode: max err {err}, "
+            f"pools {perr}")
+    emit("generate", run="fused_block_decode", batch=BATCH,
+         seq_lens=seq_lens, decode_steps=n, dtype="bf16", max_err=err,
+         pool_max_err=perr, tol=tol, seconds=sec, launches=c)
+    del gk, gv, wk, wv, pools0, lw
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- handoff
+HANDOFF_LEN, HANDOFF_NEW = 200, 32
+
+
+def pool_addresses(eng):
+    from paddle_tpu_torch.generation.serving import _pool_ptrs
+    return _pool_ptrs(zip(eng.pool.k_pages, eng.pool.v_pages))
+
+
+def harvest_after_first_token(eng, prompt, new_tokens):
+    """Submit ``prompt`` to ``eng``, step until it has its first token, and
+    harvest it; returns (bundle, harvest seconds)."""
+    rid = eng.submit(prompt, new_tokens)
+    while not eng.poll(rid)["tokens"]:
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = eng.harvest_request(rid)
+    return bundle, time.perf_counter() - t0
+
+
+def run_handoff(model) -> dict:
+    """The handoff phase on serve's configuration, native and int8 pools: a
+    request harvested after its first token from engine A and adopted by
+    engine B, which served the same request alone first: B's stream equal
+    to its solo stream bit for bit, no new capture, the pools at their
+    addresses, exact launches; the bundle through a spawned process (no
+    CUDA tensor rides). Returns the launch counts of the adopted runs."""
+    from paddle_tpu_torch.generation.program_cache import \
+        decode_program_cache
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    from paddle_tpu_torch.testing import transport
+    layers = model.config.num_hidden_layers
+    prompt = prompts(model.config.vocab_size, (HANDOFF_LEN,))[0]
+    total: dict = {}
+    t_phase = time.perf_counter()
+    cache = decode_program_cache()
+    for kv_dtype in ("native", "int8"):
+        def engine():
+            return ServingEngine(model, max_batch=BATCH, page_size=PAGE,
+                                 max_seq_len=MAX_SEQ, kv_dtype=kv_dtype)
+        b = engine()
+        rid = b.submit(prompt, HANDOFF_NEW)
+        solo = b.run()[rid]
+        # B's graphs, one a rung, captured by its solo run
+        graphs = {r: getattr(fn, "graph", None)
+                  for r, fn in b._decode_fns.items()}
+        ptrs = pool_addresses(b)
+        a = engine()
+        bundle, harvest_s = harvest_after_first_token(a, prompt,
+                                                      HANDOFF_NEW)
+        require(a.pool.ledger()["pages_in_use"] == 0,
+                "handoff: A kept pages")
+        t0 = time.perf_counter()
+        report = transport.assert_bundle_transportable(bundle)
+        spawn_s = time.perf_counter() - t0
+        steps0 = len(b.decode_step_seconds)
+        # the program cache counts captures per key, over every engine
+        caps = {k: cache.trace_count(k) for k in b._decode_keys.values()}
+
+        def adopt():
+            t0 = time.perf_counter()
+            new = b.adopt_request(bundle)
+            torch.cuda.synchronize()
+            adopt_s = time.perf_counter() - t0
+            return new, b.run()[new], adopt_s
+
+        (new, out, adopt_s), c, sec = counted(adopt, total)
+        steps = len(b.decode_step_seconds) - steps0
+        require(out == solo, f"handoff {kv_dtype}: adopted stream differs "
+                f"from solo at {first_difference(out, solo)}")
+        require({k: cache.trace_count(k)
+                 for k in b._decode_keys.values()} == caps,
+                f"handoff {kv_dtype}: a new capture")
+        require(all(g is not None for g in graphs.values())
+                and {r: getattr(fn, "graph", None)
+                     for r, fn in b._decode_fns.items()} == graphs,
+                f"handoff {kv_dtype}: B's graphs were not kept")
+        require(pool_addresses(b) == ptrs, f"handoff {kv_dtype}: the pools "
+                "moved")
+        suffix = "_int8" if kv_dtype == "int8" else ""
+        require_launches(c, only(c, **{"fused_block_decode" + suffix:
+                                       layers * steps}),
+                         f"handoff {kv_dtype}")
+        emit("handoff", model="llama2_7b", layers=layers, dtype="bf16",
+             kv_dtype=kv_dtype, prompt_len=HANDOFF_LEN,
+             new_tokens=HANDOFF_NEW, pages=len(bundle["pages"]),
+             bundle_bytes=report.total_bytes, harvest_ms=1e3 * harvest_s,
+             adopt_ms=1e3 * adopt_s, spawn_roundtrip_s=spawn_s,
+             decode_steps=steps, seconds=sec, bit_identical=True,
+             graphs=len(graphs), launches=c)
+        del a, b, bundle
+        torch.cuda.empty_cache()
+    emit("handoff", run="phase", seconds=time.perf_counter() - t_phase,
+         launches=total)
+    return total
+
+
+def run_generate_parity(model):
+    """generate, generate_paged, generate_speculative (a 1-layer
+    TinyLlama-shaped draft) and sampled top-k = 1 on the fp32 parity model,
+    token for token equal to a no-cache argmax loop; the beam's rescored
+    log-probability no lower than greedy's (BEAM_PARITY_TOL)."""
+    device = model.device
+    vocab = model.config.vocab_size
+    n = GEN_PARITY_NEW
+    ids = torch.from_numpy(np.stack(prompts(
+        vocab, (GEN_PARITY_PROMPT,) * GEN_PARITY_BATCH))).to(device)
+    loop = ids.long()
+    with torch.inference_mode():
+        for _ in range(n):
+            loop = torch.cat([loop, model(loop)[:, -1].argmax(-1)[:, None]],
+                             dim=1)
+    loop = loop.to(ids.dtype)
+    greedy = model.generate(ids, max_new_tokens=n)
+    paged = model.generate_paged(ids, max_new_tokens=n, page_size=PAGE)
+    g = torch.Generator(device=device).manual_seed(GEN_SAMPLE_SEED)
+    top1 = model.generate(ids, max_new_tokens=n, do_sample=True, top_k=1,
+                          temperature=0.8, generator=g)
+    draft = draft_model(device, torch.float32, layers=1)
+    spec = model.generate_speculative(ids[:1], draft, max_new_tokens=n,
+                                      num_speculative_tokens=GEN_GAMMA)
+    st = dict(model.speculative_stats)
+    del draft
+    for name, got in (("generate", greedy), ("generate_paged", paged),
+                      ("sampled top_k=1", top1),
+                      ("generate_speculative", spec)):
+        require(torch.equal(got, loop[:got.shape[0]]),
+                f"generate parity: {name} differs from the argmax loop at "
+                f"{first_difference(got[0].tolist(), loop[0].tolist())}")
+    beam = model.generate(ids[:1], max_new_tokens=n, num_beams=BEAMS)
+    lp_beam = float(seq_logprob(model, beam, GEN_PARITY_PROMPT)[0])
+    lp_greedy = float(seq_logprob(model, greedy[:1], GEN_PARITY_PROMPT)[0])
+    require(lp_beam >= lp_greedy - BEAM_PARITY_TOL,
+            f"generate parity: beam {lp_beam} below greedy {lp_greedy}")
+    emit("parity", run="generate", model="llama2_7b width, 2 layers",
+         dtype="fp32", batch=GEN_PARITY_BATCH, prompt_len=GEN_PARITY_PROMPT,
+         new_tokens=n, equal_to_argmax_loop=["generate", "generate_paged",
+                                             "sampled top_k=1",
+                                             "generate_speculative"],
+         spec_rounds=st["rounds"],
+         spec_acceptance=st["accepted"] / st["proposed"],
+         beam_logprob_per_token=lp_beam,
+         greedy_logprob_per_token=lp_greedy, beam_tol=BEAM_PARITY_TOL)
+
+
+def run_handoff_parity(model, seed_value):
+    """A request of the fp32 parity model harvested after its first token
+    and decoded to the end in a spawned process on the card, which rebuilds
+    the model from its seed: the stream equal to the solo one."""
+    import dataclasses
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    from paddle_tpu_torch.testing import transport
+    kw = dict(max_batch=BATCH, page_size=PAGE, max_seq_len=MAX_SEQ)
+    prompt = prompts(model.config.vocab_size, (HANDOFF_LEN,))[0]
+    eng = ServingEngine(model, **kw)
+    rid = eng.submit(prompt, HANDOFF_NEW)
+    solo = eng.run()[rid]
+    bundle, _ = harvest_after_first_token(ServingEngine(model, **kw),
+                                          prompt, HANDOFF_NEW)
+    t0 = time.perf_counter()
+    got = transport.adopt_and_decode_in_child(
+        bundle, model_seed=seed_value, engine_kw=kw, device="cuda",
+        config=dataclasses.asdict(model.config), dtype="float32")
+    child_s = time.perf_counter() - t0
+    require(got == solo, f"handoff parity: the child's stream differs at "
+            f"{first_difference(got, solo)}")
+    emit("parity", run="handoff", model="llama2_7b width, 2 layers",
+         dtype="fp32", prompt_len=HANDOFF_LEN, new_tokens=HANDOFF_NEW,
+         child_equal_to_solo=True, child_seconds=child_s)
 
 
 # --------------------------------------------------------- train_kernels
@@ -4145,15 +4976,17 @@ def main() -> int:
 
     results = []
     for dtype in (torch.bfloat16, torch.float32):
-        for check in (check_flash_prefill, check_paged_attention,
-                      check_paged_chunk_attention, check_fused_block_decode,
+        for check in (check_flash_prefill, check_generation_prefill,
+                      check_paged_attention, check_paged_chunk_attention,
+                      check_fused_block_decode,
+                      check_public_fused_block_decode,
                       check_fused_multi_block_decode, check_spec_kernels):
             done = len(results)
             check(dtype, device, results)
             for r in results[done:]:
                 emit("kernels", **r)
 
-    counts = run_serve(device)
+    counts, serve_paths = run_serve(device)
     run_parity(device)
 
     train_rows = []
@@ -4197,12 +5030,16 @@ def main() -> int:
         else:
             rows = [r for r in results if r["kernel"] == name
                     and r["dtype"] == "bf16" and "kernel_ms" in r]
-            # the largest serving shape in bf16 (the spec rows are new
-            # shapes beside it)
-            main_row = [r for r in rows if "spec" not in r][-1]
-            launches = counts[name]  # serve and serve_long, every run
+            # the largest serving shape in bf16 (the spec and generation
+            # rows are new shapes beside it)
+            main_row = [r for r in rows if "spec" not in r
+                        and "generation" not in r][-1]
+            # every serving phase, then generation and the handoff
+            launches = counts[name]
+            by_path = {path: c.get(name, 0)
+                       for path, c in serve_paths.items()}
         require(launches > 0, f"{name}: no launch on the main paths")
-        if name not in TRAIN_KERNELS:
+        if name in VARLEN_KERNELS:
             by_path = None
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

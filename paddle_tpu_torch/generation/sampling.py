@@ -1,11 +1,13 @@
 """The sampling law as plain PyTorch functions.
 
-Counterparts of ``paddle_tpu/generation/__init__.py``'s ``_top_k_filter``
-and ``_top_p_filter`` and of ``paddle_tpu/generation/serving.py``'s
-``_spec_filtered_probs``: temperature, a static top-k, a nucleus top-p and
-a softmax over f32 logits rows. The speculative engine's draft and verify
-programs return these distributions, and its rejection sampler divides
-them; a later ``GenerationMixin`` port shares them.
+Counterparts of ``paddle_tpu/generation/__init__.py``'s
+``_apply_logit_adjust``, ``_top_k_filter`` and ``_top_p_filter`` and of
+``paddle_tpu/generation/serving.py``'s ``_spec_filtered_probs``: the
+repetition penalty and the min-length eos mask, temperature, a static
+top-k, a nucleus top-p and a softmax over f32 logits rows. The speculative
+engine's draft and verify programs return these distributions, and its
+rejection sampler divides them; ``GenerationMixin.generate`` samples from
+them.
 
 Draws differ from the JAX package by design (its ``jax.random`` bits
 cannot be reproduced): :func:`race_sample` takes its uniforms as an input,
@@ -18,8 +20,8 @@ from typing import Union
 
 import torch
 
-__all__ = ["_top_k_filter", "_top_p_filter", "_spec_filtered_probs",
-           "race_sample"]
+__all__ = ["_apply_logit_adjust", "_top_k_filter", "_top_p_filter",
+           "_spec_filtered_probs", "race_sample"]
 
 _NEG_INF = -1e30
 # the least uniform a race draws with: -log(u) stays finite
@@ -30,6 +32,23 @@ Scalar = Union[float, torch.Tensor]
 
 def _f32(x: Scalar, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _apply_logit_adjust(lg: torch.Tensor, seen: torch.Tensor, step: int,
+                        repetition_penalty: float, min_new_tokens: int,
+                        eos_token_id) -> torch.Tensor:
+    """The repetition penalty over the tokens already seen (``seen``:
+    (rows, V) bool; positive logits divide by the penalty, negative ones
+    multiply), then, while ``step < min_new_tokens``, ``eos_token_id``
+    masked to -1e30. Shared by the sampling and beam loops."""
+    if repetition_penalty != 1.0:
+        pen = torch.where(lg > 0, lg / repetition_penalty,
+                          lg * repetition_penalty)
+        lg = torch.where(seen, pen, lg)
+    if eos_token_id is not None and step < min_new_tokens:
+        lg = lg.clone()
+        lg[..., int(eos_token_id)] = _NEG_INF
+    return lg
 
 
 def _top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -23,6 +23,14 @@ Around that core, as in the JAX package:
   ``poll``, ``run(max_wall=)``, ``results``/``take_results``,
   ``status``/``statuses``, ``load``, and the router's
   ``export_requests``/``take_callbacks``/``inject_request``;
+- the disaggregated handoff: ``harvest_request`` detaches a live greedy
+  request with its written KV pages (host copies, verbatim), and
+  ``adopt_request`` seats such a bundle in another engine of the same pool
+  geometry, mid-stream, writing the pages in place (its CUDA graphs keep
+  their addresses): the continuation is the solo stream, bit for bit,
+  with no prefill re-run. The bundle is host state only
+  (``HANDOFF_SCHEMA_VERSION``-tagged; :mod:`..testing.transport` checks
+  that it crosses a process boundary);
 - terminal statuses ``OK``/``FAILED``/``TIMEOUT`` (deadlines are enforced
   at step boundaries, with the tokens produced so far);
 - replay recovery: a step that raises does not propagate. The pools are
@@ -145,7 +153,7 @@ from .program_cache import (ATOM_FUSED, ATOM_GENERIC, ATOM_GREEDY,
 from .sampling import _spec_filtered_probs, race_sample
 
 __all__ = ["Request", "ServingEngine", "PrefixCache", "OK", "FAILED",
-           "TIMEOUT"]
+           "TIMEOUT", "HANDOFF_SCHEMA_VERSION"]
 
 # terminal request statuses (Request.status / ServingEngine.status)
 OK, FAILED, TIMEOUT = "OK", "FAILED", "TIMEOUT"
@@ -211,6 +219,11 @@ class Request:
 
 
 _POOL_STATES = ("used", "free", "shared", "pinned", "spilled")
+
+# the harvest_request / adopt_request bundle's schema, checked at adoption:
+# a pair of engines of different revisions refuses instead of mis-seating
+# pages
+HANDOFF_SCHEMA_VERSION = 1
 
 
 class _EngineTelemetry:
@@ -1577,6 +1590,128 @@ class ServingEngine:
         if on_token is not None:
             self._callbacks[req.rid] = on_token
         self._queue.append(req)
+        return req.rid
+
+    # ------------------------------------------- disaggregated handoff
+    def harvest_request(self, rid: int) -> dict:
+        """Detach one seated greedy request with its written KV pages: the
+        prefill half of prefill/decode disaggregation. Every page of its
+        span is copied to host memory verbatim (an int8 pool's payload and
+        scales) and leaves with the request, in replay form; the slot's
+        pages go back to the pool. On the card the call waits for the
+        copies, so the bundle is whole when it returns. Returns the bundle
+        :meth:`adopt_request` seats: ``{"v": HANDOFF_SCHEMA_VERSION,
+        "request", "pages" (HostPage list), "seq_len", "last_token"}``,
+        host state only; the streaming callback stays behind (re-bind it
+        through ``adopt_request(on_token=)``).
+
+        Refused: a request not seated in a slot (queued or finished ones
+        move through export_requests / inject_request), one mid-prefill or
+        with a teacher-forced suffix pending, a sampled one, and a
+        detached pool."""
+        req = next((r for r in self._slots
+                    if r is not None and r.rid == rid), None)
+        if req is None or req.slot is None:
+            raise ValueError(
+                f"harvest_request: rid {rid} is not seated in a slot "
+                "(queued/completed requests re-route through "
+                "export_requests/inject_request instead)")
+        if req.prefill_pos is not None or req.pending:
+            raise ValueError(
+                "harvest_request: request is mid-prefill (chunk cursor "
+                "or teacher-forced suffix pending) — hand off after its "
+                "first generated token")
+        if req.temperature > 0.0:
+            raise ValueError(
+                "harvest_request: sampled requests park their KV cursor "
+                "in the spec verify program; only greedy requests hand "
+                "off with pages")
+        if not self.pool.k_pages or self.pool.k_pages[0] is None:
+            raise RuntimeError("harvest_request: pool is detached")
+        slot = req.slot
+        seq_len = int(self.pool.seq_lens[slot])
+        last_tok = int(self._last_tok[slot])
+        pages = []
+        for i in range(int(self.pool._pages_used[slot])):
+            hp = self.pool.spill_page(int(self.pool.block_tables[slot, i]))
+            # the copy leaves with the request: it never joins this
+            # pool's host tier
+            self.pool.forget_spilled(hp)
+            pages.append(hp)
+        if self.device.type == "cuda":
+            # the copies to pinned memory were queued without waiting;
+            # the bundle is read on the host (pickled), so wait for them
+            torch.cuda.current_stream(self.device).synchronize()
+        self.pool.free_sequence(slot)
+        self._to_replay_form(req)
+        self._slots[slot] = None
+        self._last_tok[slot] = 0
+        self._callbacks.pop(rid, None)
+        return {"v": HANDOFF_SCHEMA_VERSION, "request": req,
+                "pages": pages, "seq_len": seq_len,
+                "last_token": last_tok}
+
+    def adopt_request(self, bundle: dict,
+                      on_token: Optional[Callable] = None) -> int:
+        """Seat a harvested request mid-stream: the decode half of
+        :meth:`harvest_request`. Allocates the request's span in the first
+        free slot, writes the bundle's pages into it in place
+        (:meth:`PagedKVCache.adopt_page`), restores the KV cursor and the
+        last emitted token (staged by the next decode step, as an
+        admission's), and resumes decoding under a fresh rid, with
+        ``on_token`` bound to it. The bundle's pages must be this pool's
+        geometry (``HostPage.nbytes == bytes_per_page``: layers, kv heads,
+        page size and kv dtype). Refused: another schema version, another
+        page size in bytes, no free slot, a span shorter than the pages."""
+        v = bundle.get("v")
+        if v != HANDOFF_SCHEMA_VERSION:
+            raise ValueError(
+                f"adopt_request: bundle schema version {v!r} != this "
+                f"engine's {HANDOFF_SCHEMA_VERSION} — the disaggregated "
+                "pair must run the same handoff revision (re-harvest on "
+                "a matching build instead of mis-seating pages)")
+        req: Request = bundle["request"]
+        pages = bundle["pages"]
+        if not self.pool.k_pages or self.pool.k_pages[0] is None:
+            raise RuntimeError("adopt_request: pool is detached")
+        if pages and pages[0].nbytes != self.pool.bytes_per_page:
+            raise ValueError(
+                f"adopt_request: page layout mismatch — bundle pages "
+                f"are {pages[0].nbytes} bytes, this pool's are "
+                f"{self.pool.bytes_per_page} (layers/kv-heads/page_size/"
+                "kv_dtype must agree across the disaggregated pair)")
+        try:
+            slot = self._slots.index(None)
+        except ValueError:
+            raise RuntimeError(
+                "adopt_request: no free slot (drain or grow max_batch)")
+        try:
+            self.pool.allocate(slot,
+                               len(req.prompt) + int(req.max_new_tokens))
+        except RuntimeError:
+            # a partial allocation is recorded in the slot: return it
+            self.pool.free_sequence(slot)
+            raise
+        if int(self.pool._pages_used[slot]) < len(pages):
+            self.pool.free_sequence(slot)
+            raise ValueError(
+                f"adopt_request: bundle carries {len(pages)} pages but "
+                f"the span only needs {int(self.pool._pages_used[slot])}")
+        for i, hp in enumerate(pages):
+            self.pool.adopt_page(hp, int(self.pool.block_tables[slot, i]))
+        self.pool.seq_lens[slot] = int(bundle["seq_len"])
+        req.rid = self._next_rid
+        self._next_rid += 1
+        req.slot = slot
+        req.status = "PENDING"
+        req.error = None
+        now = time.perf_counter()
+        req.t_submit = req.t_submit or now
+        req.t_last = now
+        if on_token is not None:
+            self._callbacks[req.rid] = on_token
+        self._slots[slot] = req
+        self._last_tok[slot] = int(bundle["last_token"])
         return req.rid
 
     # ---------------------------------------------------- decode programs

@@ -1,11 +1,13 @@
 """Attention of a block of queries against a contiguous KV cache.
 
 Counterpart of ``paddle_tpu/kernels/decode_attention.py``: the serving
-prefill attends a whole prompt causally to itself through
-:func:`cached_attention`, which for S > 1 runs :func:`flash_prefill`, the
-hand-written CUDA kernel in ``csrc/flash_prefill.cu``. Layouts follow the
-JAX package: q ``(B, S, H, D)``, caches ``(B, T, Hkv, D)``, query head h
-reads kv head ``h // (H // Hkv)``.
+prefill attends a whole prompt causally to itself, and generation's
+ring-buffer cache (:func:`update_kv_cache` writes it in place) attends a
+block of queries to its written prefix, through :func:`cached_attention`,
+which for S > 1 runs :func:`flash_prefill`, the hand-written CUDA kernel in
+``csrc/flash_prefill.cu``. Layouts follow the JAX package: q
+``(B, S, H, D)``, caches ``(B, T, Hkv, D)``, query head h reads kv head
+``h // (H // Hkv)``.
 
 Unlike the TPU kernel, which refused a cache length that is not a multiple
 of its kv block (and ``cached_attention`` then dropped to the dense path),
@@ -24,6 +26,21 @@ from . import _build
 
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor,
+                    offset: int):
+    """Write ``k_new``/``v_new`` (B, S, Hkv, D) into the caches
+    (B, T, Hkv, D) at sequence position ``offset`` (a host int), cast to
+    the caches' dtype, in place; returns the caches. As the JAX package's
+    ``dynamic_update_slice``, a start that would run the block past T is
+    clamped to ``T - S``."""
+    s, t = k_new.shape[1], k_cache.shape[1]
+    off = min(max(int(offset), 0), t - s)
+    k_cache[:, off:off + s] = k_new.to(k_cache.dtype)
+    v_cache[:, off:off + s] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -534,14 +534,37 @@ def write_paged_prompt_at(k_pages, v_pages, k_new, v_new, block_tables,
 
 
 # ------------------------------------------------------- pool management
+def _torch_from_numpy(a) -> torch.Tensor:
+    """A host array as a tensor; a bfloat16 array (numpy's extension
+    dtype) through its 16-bit pattern."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _numpy_from_torch(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as a numpy copy; bfloat16 as ``ml_dtypes``'
+    bfloat16 (the dtype JAX arrays convert to)."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
 class HostPage:
     """One KV page spilled to host memory: for K and V, one host tensor
     per stored part (the pool, or an int8 pool's payload and scale,
     verbatim), every layer's rows of the page stacked layer-major,
     ``(layers, Hkv, page, D | 1)``. Pinned when the pool is on the card, so
     the copy back runs on the stream in order with the steps. Owned by
-    whoever orchestrates tiering (the serving ``PrefixCache``); the pool
-    only counts it, so the ledger's ``pages_spilled`` stays true."""
+    whoever orchestrates tiering (the serving ``PrefixCache``) or carried
+    in a handoff bundle; the pool only counts a spilled one, so the
+    ledger's ``pages_spilled`` stays true.
+
+    The JAX package keeps one numpy array a layer instead (a
+    ``(payload, scale)`` pair a layer for int8): :meth:`from_layers` and
+    :meth:`to_layers` convert at that boundary, bit for bit."""
 
     __slots__ = ("k", "v", "nbytes")
 
@@ -550,6 +573,32 @@ class HostPage:
         self.k = k
         self.v = v
         self.nbytes = nbytes
+
+    @classmethod
+    def from_layers(cls, k, v, nbytes: int) -> "HostPage":
+        """A page from the JAX package's layout: ``k`` and ``v`` each a
+        list of per-layer arrays ``(Hkv, page, D)``, or of
+        ``(payload, scale)`` pairs for an int8 pool, stacked into this
+        layout (host tensors, not pinned)."""
+        def stack(layers):
+            if isinstance(layers[0], (tuple, list)):
+                return tuple(_torch_from_numpy(np.stack(
+                    [np.asarray(layer[j]) for layer in layers]))
+                    for j in range(len(layers[0])))
+            return (_torch_from_numpy(np.stack(
+                [np.asarray(layer) for layer in layers])),)
+        return cls(stack(k), stack(v), int(nbytes))
+
+    def to_layers(self):
+        """``(k, v)`` in the JAX package's layout: per-layer numpy arrays,
+        or per-layer ``(payload, scale)`` tuples for an int8 pool."""
+        def split(parts):
+            arrays = [_numpy_from_torch(p.cpu()) for p in parts]
+            if len(arrays) == 1:
+                return list(arrays[0])
+            return [tuple(a[i] for a in arrays)
+                    for i in range(arrays[0].shape[0])]
+        return split(self.k), split(self.v)
 
 
 class PagedKVCache:

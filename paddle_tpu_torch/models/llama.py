@@ -5,9 +5,11 @@ GQA + SwiGLU, and ``LlamaPretrainingCriterion``.
 Parameter names and shapes are the JAX model's (``Linear`` keeps the
 ``(in, out)`` layout), so ``raw_state()`` carries across through
 :meth:`LlamaForCausalLM.load_numpy_state`. The cached forward runs over the
-paged KV pool; the no-cache forward (training, and the serving parity
-reference) runs causal ``scaled_dot_product_attention`` on the flash
-kernels, and with ``labels`` returns the chunked fused LM loss.
+paged KV pool (serving) or over ``(k_cache, v_cache)`` ring buffers
+(:class:`~paddle_tpu_torch.generation.GenerationMixin`'s ``generate``); the
+no-cache forward (training, and the serving parity reference) runs causal
+``scaled_dot_product_attention`` on the flash kernels, and with ``labels``
+returns the chunked fused LM loss.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..convert import state_from_numpy
 from ..device import DeviceLike, resolve_device, seed
+from ..generation import GenerationMixin
 from ..incubate.nn import functional as FF
 from ..kernels.paged_attention import is_paged_state, paged_position_ids
 from ..nn import functional as F
@@ -67,6 +70,16 @@ class LlamaConfig:
         return l * per_layer + emb + head + h
 
 
+def is_ring_cache(entry) -> bool:
+    """Whether a cache entry is a ``(k_cache, v_cache)`` ring buffer: two
+    ``(B, T, Hkv, D)`` tensors (a paged state is a tuple too, so it is
+    ruled out first)."""
+    return (not is_paged_state(entry) and isinstance(entry, tuple)
+            and len(entry) == 2
+            and all(isinstance(t, torch.Tensor) and t.dim() == 4
+                    for t in entry))
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
@@ -90,19 +103,28 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        ring = False
         if cache is not None:
             state, offset = cache
-            if not is_paged_state(state):
-                raise NotImplementedError(
-                    "only the paged KV cache is ported; the ring-buffer "
-                    "cache comes with the generation slice")
-            if position_ids is None:
+            ring = is_ring_cache(state)
+            if not ring and not is_paged_state(state):
+                # neither kind of cache: paged attention refuses it
+                return F.paged_scaled_dot_product_attention(q, k, v, state)
+            if position_ids is None and ring:
+                # the ring buffer's offset is a host int: no device read
+                position_ids = (torch.arange(s, device=x.device)
+                                + int(offset)).unsqueeze(0)
+            elif position_ids is None:
                 position_ids = paged_position_ids(s, offset, state)
         elif position_ids is None:
             position_ids = torch.arange(s, device=x.device).expand(b, s)
         q, k, _ = FF.fused_rotary_position_embedding(
             q, k, None, position_ids=position_ids,
             rotary_emb_base=self.rope_theta)
+        if ring:
+            out, k_cache, v_cache = F.cached_scaled_dot_product_attention(
+                q, k, v, state[0], state[1], offset)
+            return self.o_proj(out.reshape(b, s, -1)), (k_cache, v_cache)
         if cache is not None:
             out, state = F.paged_scaled_dot_product_attention(q, k, v, state)
             return self.o_proj(out.reshape(b, s, -1)), state
@@ -186,10 +208,12 @@ class LlamaModel(nn.Module):
         return self.norm(x), new_caches
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Llama with its LM head. Built on the card unless ``device`` says
     otherwise; weights are drawn from ``generator`` (default: seed 0 on the
-    model's device)."""
+    model's device). ``generate``, ``generate_paged`` and
+    ``generate_speculative`` come from :class:`GenerationMixin`; the
+    cached forward takes, per layer, a paged state or a ring buffer."""
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None,
@@ -243,6 +267,11 @@ class LlamaForCausalLM(nn.Module):
                 for _ in range(c.num_hidden_layers)]
 
     def forward_with_cache(self, input_ids, caches, offset):
+        """Logits and the updated caches: ``caches`` holds one entry per
+        layer, a paged state (``offset``: a host int, a device tensor of
+        starts, or None for each row's written length) or a
+        ``(k_cache, v_cache)`` ring buffer (``offset``: the host int
+        position of ``input_ids``' first token)."""
         hidden, new_caches = self.llama(input_ids, caches=caches,
                                         offset=offset)
         return self.logits(hidden), new_caches

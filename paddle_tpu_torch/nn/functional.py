@@ -3,9 +3,10 @@
 attention (``scaled_dot_product_attention`` on the flash kernels, or its
 dense path with a mask or dropout; ``flash_attention``;
 ``flash_attn_unpadded`` on the kernels' segment-id variant for packed
-sequences) and the paged attention that routes a whole-prompt prefill
+sequences), the paged attention that routes a whole-prompt prefill
 (S > 1), a prefill chunk (S > 1 under a ``PagedChunkState``) or a decode
-step (S == 1)."""
+step (S == 1), and generation's attention over a ring-buffer cache
+(``cached_scaled_dot_product_attention``)."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..amp.auto_cast import amp_cast
-from ..kernels.decode_attention import cached_attention
+from ..kernels.decode_attention import cached_attention, update_kv_cache
 from ..kernels.flash_attention import flash_attention_bshd
 from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
                                        is_paged_state, paged_attention,
@@ -222,6 +223,23 @@ def _unpadded_dense(q, k, v, cu_q, cu_k, seg_q, seg_k, sc):
     return torch.einsum("hqk,khd->qhd", p, vx.float()).to(q.dtype)
 
 
+def cached_scaled_dot_product_attention(query, key, value, k_cache, v_cache,
+                                        offset: int):
+    """Attention over a ring-buffer KV cache (the masked-MHA cache branch
+    of Paddle's ``fused_multi_transformer``): the new key/value block
+    ``(B, S, Hkv, D)`` is written into the caches ``(B, T, Hkv, D)`` at
+    sequence position ``offset`` (a host int; :func:`update_kv_cache`, in
+    place), then ``query`` ``(B, S, H, D)`` (GQA allowed) attends causally
+    to the written prefix ``[0, offset + S)``: S > 1 runs the prefill
+    kernel, S == 1 the dense composition, as the JAX package does outside
+    Pallas (:func:`cached_attention`). Returns ``(out, k_cache, v_cache)``,
+    the caches the same tensors."""
+    off = int(offset)
+    update_kv_cache(k_cache, v_cache, key, value, off)
+    out = cached_attention(query, k_cache, v_cache, off + query.shape[1])
+    return out, k_cache, v_cache
+
+
 def paged_scaled_dot_product_attention(query, key, value, state
                                        ) -> Tuple[torch.Tensor,
                                                   PagedDecodeState]:
@@ -247,8 +265,9 @@ def paged_scaled_dot_product_attention(query, key, value, state
     updated in place."""
     if not is_paged_state(state):
         raise NotImplementedError(
-            f"{type(state).__name__}: only the paged states "
-            "(PagedDecodeState, PagedChunkState) are ported")
+            f"{type(state).__name__}: paged attention takes a paged state "
+            "(PagedDecodeState, PagedChunkState); a (k_cache, v_cache) "
+            "ring buffer goes through cached_scaled_dot_product_attention")
     kp, vp, bt, sl = state
     s = query.shape[1]
     if s > 1 and isinstance(state, PagedChunkState):

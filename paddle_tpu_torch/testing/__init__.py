@@ -2,13 +2,13 @@
 
 :mod:`paddle_tpu_torch.testing.faults` is the deterministic fault-injection
 registry (``FLAGS_fault_inject``) the serving engine's replay recovery is
-exercised against. The JAX package's cross-process handoff harness
-(``transport``) comes with the engine's ``harvest_request`` and
-``adopt_request``, which are not ported yet.
+exercised against; :mod:`paddle_tpu_torch.testing.transport` checks that a
+``harvest_request`` bundle crosses a process boundary intact, and resumes
+its decode in a spawned child.
 """
 
 from __future__ import annotations
 
-from . import faults
+from . import faults, transport
 
-__all__ = ["faults"]
+__all__ = ["faults", "transport"]

@@ -36,6 +36,7 @@ from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels.paged_attention import PagedKVCache
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
+from paddle_tpu_torch.testing.transport import adopt_and_decode_in_child
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = Path(paddle_tpu_torch.__file__).resolve().parent
@@ -93,8 +94,10 @@ def no_cuda(monkeypatch):
     lambda: seed(0, None),
     lambda: resolve_device(),
     lambda: DevicePrefetcher([]),
+    lambda: adopt_and_decode_in_child({}),
 ], ids=["llama", "llama-cuda", "linear", "embedding", "rmsnorm",
-        "paged-kv-cache", "seed", "resolve_device", "device-prefetcher"])
+        "paged-kv-cache", "seed", "resolve_device", "device-prefetcher",
+        "child-decode"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):
     with pytest.raises(RuntimeError, match="cuda"):
         build()

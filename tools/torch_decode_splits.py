@@ -4,8 +4,9 @@ against the size of the parts its walk is cut into, on the CUDA card.
 
     python3 tools/torch_decode_splits.py [--part-keys 64 128 256 512 1024 0]
 
-At ``chip_smoke.py``'s decode shapes (``PAGED_SHAPES``: serve's ragged
-lengths with an idle row, serve_long's decode contexts; Llama-2-7B heads,
+At ``chip_smoke.py``'s decode shapes (``PAGED_SHAPES``: generate_paged's
+last step, serve's ragged lengths with an idle row, serve_long's decode
+contexts; Llama-2-7B heads,
 pages of 64, bf16, random pools from ``--seed``), native and int8 pools:
 for each part size (in keys; 0: the whole table in one part, no merge) it
 forces that size in place of the wrapper's rule
@@ -45,8 +46,10 @@ def main() -> int:
     dev, dtype = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rule = pa.decode_splits
-    for case, seq_lens, max_seq in cs.PAGED_SHAPES:
-        bt, num_pages = cs._block_tables(list(seq_lens), 0, dev, max_seq)
+    for case, seq_lens, max_seq, null_page in cs.PAGED_SHAPES:
+        bt, num_pages = (cs._block_tables(list(seq_lens), 0, dev, max_seq)
+                         if null_page else
+                         cs._rect_tables(len(seq_lens), max_seq, dev))
         sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
         shape = (cs.KV_HEADS, num_pages, cs.PAGE, cs.HEAD_DIM)
         kp, vp = (cs._rand(gen, shape, dtype, dev) for _ in range(2))
