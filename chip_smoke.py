@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Llama serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -46,7 +46,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               explicit mask; #2 at generate_paged's last step (4 rows of
               160 tokens, a pool with no null page), native and int8; #3
               through incubate.nn.functional.fused_block_decode at serve's
-              lengths;
+              lengths; then GPT-3 345M's heads (16 MHA heads of dim 64):
+              #1 as a 256-token prefill, #2 at B = 4 over 1023/517/78/0
+              of a 1024-token table, #4 as a 256-token chunk from 512
+              (native and on the pool quantized), each held to its plain
+              version and timed against SDPA and the bound;
   3. serve    Llama-2-7B (32 layers, bf16, random weights from a seed)
               through ServingEngine: 8 requests of at most 256 tokens, 32
               new tokens each, some submitted mid-run, with fused block
@@ -180,6 +184,42 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               addresses kept, no new capture, #3 a layer per decode step
               only; the bundle round-trips a spawned process byte for byte
               (no CUDA tensor rides); harvest and adoption ms;
+     fleet    FleetRouter(replicas=2) over serve's engine (fused N = 1, a
+              16-page host tier a replica): two 512-token shared prefixes
+              under 5 requests each (suffixes 17 to 256; each prefix's
+              first request in wave 1 with 2 cold prompts, the rest in wave
+              2), 32 new tokens: every request OK, wave 2 placed by
+              affinity on its prefix's replica, the routing counters'
+              increase equal to the placements, one capture a rung and one
+              chunk capture a replica (none during the traffic), exact
+              launches (#3, #1, #4 summed over every engine built); the
+              round-robin arm's pages adopted no more than affinity's; a
+              loss drill (router_dispatch:every=25:times=3, armed after
+              the warm-up): every request OK, losses = faults fired (at
+              least 2), rerouted = requests exported, the rebuilt
+              replicas' captures counted, the peak within one replica's
+              pool bytes of the fault-free run, the agreement with it
+              (first difference, top-2 margin), each loss's ms (harvest,
+              rebuild, the rebuilt replica's first step) and the device
+              bytes around it; a crash loop (every=1) raising after
+              max_losses;
+     quant    serve's model through nn.quant.quantize_linears (int8, then
+              int4), served by ServingEngine with the fused flag on:
+              serve's traffic with one 300-token prompt, the generic route
+              taken (#1, #4, #2 exact, no #3/#5), every request OK, the
+              weight_quantize -> weight_dequantize round trip of layer 0
+              and the LM head within half a scale step, the weight bytes
+              against bf16's, the graphed decode step against the bf16
+              generic step, and two streams against the same quantized
+              model's generate (first difference, top-2 margin);
+     gpt      GPT-3 345M (vocab 50304, hidden 1024, 24 layers, 16 heads of
+              64, inter 4096, 1024 positions, tied head), bf16, seeded:
+              ServingEngine at max_batch 4, pages of 64, a 1024-token
+              context, 256-token chunks, 8 prompts of 17 to 900 tokens
+              (half mid-run), 32 new tokens (every request OK; #1, #2, #4
+              exact, no fused kernel; a capture a key), generate (B = 4,
+              P = 128, N = 32: #1 24 launches), the model as its own draft
+              at γ = 2, batch 1 (acceptance, round ms, exact launches);
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -206,7 +246,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               harvested request decoded to the end in a spawned process on
               the card, which rebuilds the model from its seed
               (testing.transport.adopt_and_decode_in_child): its stream
-              equal to the solo one;
+              equal to the solo one; then a 2-replica fleet through two
+              replica losses equal to one engine, token for token; the
+              model int8-quantized: the engine's streams equal to its
+              generate's; then GPT-3 345M's width at 2 layers: the
+              engine's streams (two prompts chunked) equal to a no-cache
+              argmax loop, and with a 1-layer GPT draft equal to the plain
+              engine;
   5. train_kernels
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
@@ -284,6 +330,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -594,53 +641,61 @@ RING_JUNK = 1e4
 
 
 def check_generation_prefill(dtype, device, results):
-    """#1 at GEN_PREFILL_CASES against flash_prefill_ref, with SDPA over the
-    valid prefix (the queries' causal order as a mask: they sit at the
-    prefix's end) and the bound of the work the valid prefix needs; the
-    back-to-back times and device_ms from calls replayed from a CUDA
-    graph (the verify's calls are tens of microseconds)."""
+    """#1 at GEN_PREFILL_CASES (prefill_row)."""
     from paddle_tpu_torch.kernels import decode_attention as da
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    for case, b, s, t, cur, h, hkv, d in GEN_PREFILL_CASES:
-        q = _rand(gen, (b, s, h, d), dtype, device)
-        k = _rand(gen, (b, t, hkv, d), dtype, device)
-        v = _rand(gen, (b, t, hkv, d), dtype, device)
-        k[:, cur:] = RING_JUNK
-        v[:, cur:] = -RING_JUNK
-        got = da.flash_prefill(q, k, v, cur)
-        want = da.flash_prefill_ref(q, k, v, cur)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        require(err <= TOL[dtype], f"flash_prefill {case} {dtype}: max err "
-                f"{err} > {TOL[dtype]}")
-        qt = q.transpose(1, 2)
-        kt, vt = (x[:, :cur].transpose(1, 2) for x in (k, v))
-        mask = (torch.arange(cur, device=device)[None, :]
-                <= (cur - s + torch.arange(s, device=device))[:, None])
-        elem = q.element_size()
-        nbytes = elem * (2 * q.numel() + 2 * b * cur * hkv * d)
-        pairs = s * (cur - s) + s * (s + 1) // 2  # visible (query, key)
-        flops = 4.0 * b * pairs * h * d
-        bms, by = bound_ms(nbytes, flops, dtype)
-
-        def call():
-            da.flash_prefill(q, k, v, cur)
-
-        def lib():
-            sdpa(qt, kt, vt, attn_mask=mask)
-
-        kms = time_ms(call)
-        results.append(dict(
-            kernel="flash_prefill", dtype=DTYPE_NAME[dtype], case=case,
-            generation=True, B=b, S=s, T=t, cur_len=cur, heads=h,
-            kv_heads=hkv, head_dim=d, max_err=err, tol=TOL[dtype],
-            kernel_ms=kms,
-            plain_ms=time_ms(lambda: da.flash_prefill_ref(q, k, v, cur)),
-            library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
-            bound_frac=bms / kms,
-            device_ms=dict(kernel=graph_ms(call), library=graph_ms(lib))))
-        del q, k, v, kt, vt
+    for case in GEN_PREFILL_CASES:
+        results.append(prefill_row(da, gen, dtype, device, *case,
+                                   mark="generation"))
     torch.cuda.empty_cache()
+
+
+def prefill_row(da, gen, dtype, device, case, b, s, t, cur, h, hkv, d,
+                mark):
+    """#1 at one shape against flash_prefill_ref (caches +-RING_JUNK past
+    cur_len), with SDPA over the valid prefix (the queries' causal order
+    as a mask: they sit at the prefix's end) and the bound of the work the
+    valid prefix needs; the back-to-back times and device_ms from calls
+    replayed from a CUDA graph (a verify's calls are tens of
+    microseconds). The row carries ``mark`` (True), which keeps it out of
+    the summary's main row."""
+    q = _rand(gen, (b, s, h, d), dtype, device)
+    k = _rand(gen, (b, t, hkv, d), dtype, device)
+    v = _rand(gen, (b, t, hkv, d), dtype, device)
+    k[:, cur:] = RING_JUNK
+    v[:, cur:] = -RING_JUNK
+    got = da.flash_prefill(q, k, v, cur)
+    want = da.flash_prefill_ref(q, k, v, cur)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(err <= TOL[dtype], f"flash_prefill {case} {dtype}: max err "
+            f"{err} > {TOL[dtype]}")
+    qt = q.transpose(1, 2)
+    kt, vt = (x[:, :cur].transpose(1, 2) for x in (k, v))
+    mask = (torch.arange(cur, device=device)[None, :]
+            <= (cur - s + torch.arange(s, device=device))[:, None])
+    elem = q.element_size()
+    nbytes = elem * (2 * q.numel() + 2 * b * cur * hkv * d)
+    pairs = s * (cur - s) + s * (s + 1) // 2      # visible (query, key)
+    flops = 4.0 * b * pairs * h * d
+    bms, by = bound_ms(nbytes, flops, dtype)
+
+    def call():
+        da.flash_prefill(q, k, v, cur)
+
+    def lib():
+        sdpa(qt, kt, vt, attn_mask=mask)
+
+    kms = time_ms(call)
+    return dict(
+        kernel="flash_prefill", dtype=DTYPE_NAME[dtype], case=case,
+        B=b, S=s, T=t, cur_len=cur, heads=h, kv_heads=hkv, head_dim=d,
+        max_err=err, tol=TOL[dtype], kernel_ms=kms,
+        plain_ms=time_ms(lambda: da.flash_prefill_ref(q, k, v, cur)),
+        library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+        bound_frac=bms / kms,
+        device_ms=dict(kernel=graph_ms(call), library=graph_ms(lib)),
+        **{mark: True})
 
 
 # paged_attention's shapes: (case, seq_lens, the table's max_seq, whether
@@ -1154,8 +1209,9 @@ def kv_row_bytes(quant: bool, elem: int, d: int) -> int:
     return d + 4 if quant else d * elem
 
 
-def chunk_rows(pa, gen, dtype, device, case, s, start, heads, kv_heads, d):
-    """#4 at one speculative shape: write-then-attend against a
+def chunk_rows(pa, gen, dtype, device, case, s, start, heads, kv_heads, d,
+               mark="spec"):
+    """#4 at one speculative (or, ``mark="gpt"``, GPT) shape: write-then-attend against a
     1024-token table, spread and peaked, on the native pool (OUT_TOL, with
     SDPA on the gathered prefix) and on the same pool quantized (the
     int8 variant against its plain version, SPEC_QUANT_OUT_TOL); times
@@ -1201,8 +1257,8 @@ def chunk_rows(pa, gen, dtype, device, case, s, start, heads, kv_heads, d):
 
         kms = time_ms(call)
         rows.append(dict(
-            kernel=name, dtype=DTYPE_NAME[dtype], spec=case, start=start,
-            S=s, heads=heads, kv_heads=kv_heads, head_dim=d,
+            kernel=name, dtype=DTYPE_NAME[dtype], **{mark: case},
+            start=start, S=s, heads=heads, kv_heads=kv_heads, head_dim=d,
             max_err=max(errs.values()), excess=max(over.values()),
             atol=atol, rtol=rtol, kernel_ms=kms,
             plain_ms=time_ms(lambda: pa.paged_chunk_attention_ref(
@@ -1344,10 +1400,14 @@ def prompts(vocab: int, lens) -> list:
 
 
 def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
-          max_seq=MAX_SEQ, group=1, kv_dtype="native", weight_dtype="native"):
+          max_seq=MAX_SEQ, group=1, kv_dtype="native", weight_dtype="native",
+          want_fused=None):
     """One engine run over ``lens`` prompts, half submitted up front and
-    the rest mid-run, with ``FLAGS_fused_block_layers=group`` and the
-    engine's ``kv_dtype`` and ``weight_dtype``. Returns (engine, [(rid,
+    the rest mid-run, with ``FLAGS_fused_block_decode=fused``,
+    ``FLAGS_fused_block_layers=group`` and the engine's ``kv_dtype`` and
+    ``weight_dtype``; the fused route must be taken as ``want_fused``
+    says (default: ``fused``; a GPT or a weight-quantized model takes the
+    generic route under the flag). Returns (engine, [(rid,
     prompt, tokens)], seconds, launch counts, peak device bytes of the run,
     engine included)."""
     from paddle_tpu_torch import flags, kernels
@@ -1371,7 +1431,9 @@ def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
                  record_logits=record_logits, kv_dtype=kv_dtype,
                  weight_dtype=weight_dtype)
     eng.chunk_seconds = []
-    require((eng._spec is not None) == fused, "decode route not as asked")
+    require((eng._spec is not None) == (fused if want_fused is None
+                                        else want_fused),
+            "decode route not as asked")
     require((eng._stacked is not None) == (fused and group > 1),
             "N-layer route not as asked")
     # warm-up requests, one whole and one chunked (first-call costs:
@@ -1449,9 +1511,9 @@ LONG_RUNS = ((1, "native", "native"), (GROUP_LAYERS, "native", "native"),
 
 
 def run_serve(device):
-    """The serving phases, then generate and handoff, on one Llama-2-7B.
-    Returns the kernel launch counts of every run, summed, and by path:
-    the serving phases, generate, handoff."""
+    """The serving phases, then generate, handoff, fleet and quant, on one
+    Llama-2-7B. Returns the kernel launch counts of every run, summed, and
+    by path: the serving phases, generate, handoff, fleet, quant."""
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b()
@@ -1474,6 +1536,8 @@ def run_serve(device):
             f"serve {'fused' if fused else 'generic'} N={group} "
             f"{kv_dtype}/{weight_dtype}")
         gen = sum(len(t) for _, _, t in res)
+        if (fused, kv_dtype) == (False, "native"):
+            generic_step_ms = 1e3 * float(np.median(eng.decode_step_seconds))
         emit("serve", model="llama2_7b", layers=layers, dtype="bf16",
              decode="fused" if fused else "generic",
              fused_block_layers=group, kv_dtype=kv_dtype,
@@ -1504,7 +1568,9 @@ def run_serve(device):
     counts = run_spec(model)
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     by_path = {"serve": dict(total)}
-    for path, run in (("generate", run_generate), ("handoff", run_handoff)):
+    for path, run in (("generate", run_generate), ("handoff", run_handoff),
+                      ("fleet", run_fleet),
+                      ("quant", lambda m: run_quant(m, generic_step_ms))):
         counts = run(model)
         by_path[path] = counts
         total = {k: total.get(k, 0) + counts.get(k, 0) for k in total}
@@ -2691,11 +2757,13 @@ def draft_model(device, dtype, layers=None, seed_offset=21, zero=False):
 
 
 def spec_engine(model, draft, max_batch=1, slots=SPEC_SLOTS,
-                kv_dtype="native", fused=True, spec="", record_logits=False):
+                kv_dtype="native", fused=True, spec="", record_logits=False,
+                extra_flags=None):
     """A ServingEngine on serve's pages and context with ``draft``
     (None: the plain engine) at a slot budget (None: the default pricing),
-    under FLAGS_fault_inject=``spec``. Its ``round_log`` holds (γ,
-    accepted, tokens emitted, wall s) of every completed round."""
+    under FLAGS_fault_inject=``spec`` and ``extra_flags``. Its
+    ``round_log`` holds (γ, accepted, tokens emitted, wall s) of every
+    completed round."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.generation.serving import ServingEngine
     from paddle_tpu_torch.testing import faults
@@ -2703,6 +2771,7 @@ def spec_engine(model, draft, max_batch=1, slots=SPEC_SLOTS,
                  serving_max_retries=SPEC_RETRIES, fused_block_decode=fused)
     if slots is not None:
         extra["serving_spec_max_slots"] = slots
+    extra.update(extra_flags or {})
     with faults.armed(spec, **extra):
         eng = ServingEngine(model, max_batch=max_batch, page_size=PAGE,
                             max_seq_len=MAX_SEQ, draft_model=draft,
@@ -3269,8 +3338,11 @@ def run_parity(device):
     run_spec_parity(model)
     run_generate_parity(model)
     run_handoff_parity(model, SEED + 7)
+    run_fleet_parity(model)
+    run_quant_parity(model)
     del model
     torch.cuda.empty_cache()
+    run_gpt_parity(device)
 
 
 # ------------------------------------------------------------- generate
@@ -3920,6 +3992,770 @@ def run_handoff_parity(model, seed_value):
     emit("parity", run="handoff", model="llama2_7b width, 2 layers",
          dtype="fp32", prompt_len=HANDOFF_LEN, new_tokens=HANDOFF_NEW,
          child_equal_to_solo=True, child_seconds=child_s)
+
+
+# ------------------------------------------------------------------- gpt
+# GPT-3 345M (GPTConfig.gpt3_345m: vocab 50304, hidden 1024, 24 layers, 16
+# MHA heads of 64, inter 4096, 1024 positions, the head tied to wte)
+GPT_HEADS, GPT_HEAD_DIM = 16, 64
+# the kernels phase's rows at its heads: #2 over serve's ragged lengths
+# (one idle row) of a 1024-token table, #4 a 256-token chunk from 512
+GPT_PAGED_LENS = (MAX_SEQ - 1, MAX_SEQ // 2 + 5, MAX_SEQ // 13, 0)
+GPT_CHUNK_START, GPT_CHUNK_S = 512, 256
+# the gpt phase: 8 prompts (three chunked), half submitted mid-run
+GPT_LENS = (17, 900, 64, 300, 200, 33, 700, 128)
+GPT_GEN_BATCH, GPT_GEN_PROMPT, GPT_GEN_NEW = 4, 128, 32
+GPT_GAMMA = 2
+GPT_PARITY_LENS = (17, 77, 300, 700)
+
+
+def check_gpt_kernels(dtype, device, results):
+    """#1, #2 and #4 at GPT-3 345M's heads (16 MHA heads of dim 64, a
+    head layout no serving phase on Llama runs), each held to its plain
+    version and timed against SDPA (with the mask it masks) and the bound:
+    #1 as a 256-token prefill (prefill_row), #2 at B = 4 over lens
+    1023/517/78/0 of a 1024-token table (device_ms replayed from a CUDA
+    graph), #4 as a 256-token chunk from 512 (chunk_rows: spread and
+    peaked, native and on the pool quantized)."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    h, d = GPT_HEADS, GPT_HEAD_DIM
+    results.append(prefill_row(da, gen, dtype, device, "gpt prefill", 1,
+                               256, 256, 256, h, h, d, mark="gpt"))
+    seq_lens = list(GPT_PAGED_LENS)
+    bt, num_pages = _block_tables(seq_lens, 0, device)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
+    kp, vp = (_rand(gen, (h, num_pages, PAGE, d), dtype, device)
+              for _ in range(2))
+    q = _rand(gen, (BATCH, h, d), dtype, device)
+    got = pa.paged_attention(q, kp, vp, bt, sl)
+    want = pa.paged_attention_ref(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(err <= TOL[dtype], f"paged_attention gpt {dtype}: {err}")
+    require(not got[sl == 0].any(), "paged_attention gpt: idle row must "
+            "read zeros")
+    t = bt.shape[1] * PAGE
+    kg, vg = (x[:, bt.long()].movedim(1, 0).reshape(BATCH, h, t, d)
+              for x in (kp, vp))
+    mask = (torch.arange(t, device=device)[None, :]
+            < sl[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    live = sum(seq_lens)
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * live * h * d)
+              + 4 * (bt.numel() + sl.numel()))
+    bms, by = bound_ms(nbytes, 4.0 * live * h * d, dtype)
+
+    def call():
+        pa.paged_attention(q, kp, vp, bt, sl)
+
+    def lib():
+        sdpa(qs, kg, vg, attn_mask=mask)
+
+    kms = time_ms(call)
+    results.append(dict(
+        kernel="paged_attention", dtype=DTYPE_NAME[dtype], gpt="decode",
+        seq_lens=seq_lens, heads=h, kv_heads=h, head_dim=d, max_err=err,
+        tol=TOL[dtype], kernel_ms=kms,
+        plain_ms=time_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt, sl)),
+        library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+        bound_frac=bms / kms,
+        device_ms=dict(kernel=graph_ms(call), library=graph_ms(lib))))
+    del kp, vp, kg, vg
+    results.extend(chunk_rows(pa, gen, dtype, device, "gpt chunk",
+                              GPT_CHUNK_S, GPT_CHUNK_START, h, h, d,
+                              mark="gpt"))
+    torch.cuda.empty_cache()
+
+
+def graphs_of(eng):
+    """The engine's decode graphs (one a rung used) and chunk graph."""
+    out = list(eng._decode_fns.values())
+    return out + ([eng._chunk_fn] if eng._chunk_fn is not None else [])
+
+
+def gpt_model(device, dtype, layers=None, seed_offset=16):
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.gpt3_345m()
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return GPTForCausalLM(cfg, device=device, dtype=dtype,
+                          generator=seed(SEED + seed_offset, device))
+
+
+def run_gpt(device):
+    """GPT-3 345M, bf16, seeded, through ServingEngine (the generic route:
+    #1 whole prefills, #4 chunks, #2 decode, no fused kernel), through
+    generate, and as its own draft. Returns the launch counts."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.generation.program_cache import \
+        decode_program_cache
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt_model(device, torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    chunks = sum(-(-n // CHUNK) for n in GPT_LENS if n > CHUNK)
+    whole = sum(1 for n in GPT_LENS if n <= CHUNK)
+    cache = decode_program_cache()
+    eng, res, seconds, counts, peak = serve(
+        model, True, NEW_TOKENS, GPT_LENS, want_fused=False)
+    check_tokens(res, cfg.vocab_size, NEW_TOKENS)
+    steps = len(eng.decode_step_seconds)
+    require_launches(counts, expected_launches(
+        counts, layers, steps, whole, chunks, False, 1, "native", "native"),
+        "gpt serve")
+    require(eng.chunk_dispatches == chunks,
+            f"gpt: {eng.chunk_dispatches} chunks, want {chunks}")
+    require(all(eng.status(r) == "OK" for r, _, _ in res),
+            "gpt: a request did not end OK")
+    graphs = graphs_of(eng)
+    require(eng._decode_fns and eng._chunk_fn is not None
+            and all(g.graph is not None for g in graphs),
+            "gpt: a rung or the chunk program was not captured")
+    caps = captures(cache, eng)
+    require(all(n == 1 for n in caps.values()),
+            f"gpt: captures by key {sorted(caps.values())}")
+    gen_tokens = sum(len(t) for _, _, t in res)
+    total = dict(counts)
+    emit("gpt", model="gpt3_345m", layers=layers, dtype="bf16",
+         run="serve", route="generic", requests=len(res),
+         prompt_lens=list(GPT_LENS), new_tokens=NEW_TOKENS,
+         prefill_chunk=CHUNK, generated=gen_tokens, seconds=seconds,
+         tokens_per_s=gen_tokens / seconds, chunks=eng.chunk_dispatches,
+         chunk_ms_median=1e3 * float(np.median(eng.chunk_seconds)),
+         prefill_ms_median=1e3 * float(np.median(eng.prefill_seconds)),
+         ttft_ms_median=1e3 * float(np.median(
+             list(eng.ttft_seconds.values()))),
+         decode_steps=steps, decode_step_ms_median=1e3 * float(
+             np.median(eng.decode_step_seconds)),
+         graphs=len(graphs), captures_by_key=sorted(caps.values()),
+         launches=counts, model_build_s=build_s, peak_mem_gb=peak / 1e9)
+    del eng
+    # generate (#1 a layer at the prefill; the one-token steps are the
+    # dense composition)
+    ids = torch.from_numpy(np.stack(prompts(
+        cfg.vocab_size, (GPT_GEN_PROMPT,) * GPT_GEN_BATCH))).to(device)
+    model.generate(ids, max_new_tokens=2)                    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=GPT_GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    require(out.shape == (GPT_GEN_BATCH, GPT_GEN_PROMPT + GPT_GEN_NEW),
+            f"gpt generate: shape {tuple(out.shape)}")
+    require(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+            "gpt generate: token out of the vocabulary")
+    require_launches(counts, dict(dict.fromkeys(counts, 0),
+                                  flash_prefill=layers), "gpt generate")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    emit("gpt", run="generate", batch=GPT_GEN_BATCH,
+         prompt_len=GPT_GEN_PROMPT, new_tokens=GPT_GEN_NEW, seconds=gen_s,
+         ms_per_step=1e3 * gen_s / GPT_GEN_NEW,
+         tokens_per_s=GPT_GEN_BATCH * GPT_GEN_NEW / gen_s, launches=counts)
+    # the model as its own draft, γ = 2, batch 1 (generic draft scan, #2)
+    eng = spec_engine(model, model, fused=True, extra_flags=dict(
+        serving_spec_rungs=str(GPT_GAMMA), serving_spec_gamma=GPT_GAMMA,
+        serving_spec_adaptive=False))
+    require(eng._draft_fspec is None and eng._spec is None,
+            "gpt spec: a fused route was taken")
+    spec_warm(eng, cfg.vocab_size)
+    streams, statuses, seconds, counts, _ = spec_traffic(
+        eng, cfg.vocab_size, SPEC_LENS, SPEC_NEW)
+    require(all(s == "OK" for s in statuses), f"gpt spec: {statuses}")
+    require(all(len(t) == SPEC_NEW for t in streams), "gpt spec: lengths")
+    require_launches(counts, spec_launches(counts, eng, layers, layers,
+                                           fused=False), "gpt spec")
+    rounds = eng.round_log
+    require(rounds and all(r[0] == GPT_GAMMA for r in rounds),
+            f"gpt spec: gammas {sorted({r[0] for r in rounds})}")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    emit("gpt", run="spec, self-draft", gamma=GPT_GAMMA, batch=1,
+         prompt_lens=list(SPEC_LENS), new_tokens=SPEC_NEW,
+         rounds=len(rounds),
+         acceptance=eng.spec_tokens_accepted / max(1, sum(
+             r[0] for r in rounds)),
+         tokens_per_round=float(np.mean([r[2] for r in rounds])),
+         round_ms_median=1e3 * float(np.median([r[3] for r in rounds])),
+         seconds=seconds, tokens_per_s=sum(map(len, streams)) / seconds,
+         launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated()
+         / 1e9)
+    del eng, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def argmax_loop(model, prompt, n):
+    """``n`` greedy tokens after ``prompt`` by the no-cache forward."""
+    ids = torch.from_numpy(prompt.astype(np.int64))[None].to(model.device)
+    with torch.inference_mode():
+        for _ in range(n):
+            nxt = model(ids)[:, -1].float().argmax(-1)
+            ids = torch.cat([ids, nxt[:, None]], dim=1)
+    return ids[0, len(prompt):].tolist()
+
+
+def run_gpt_parity(device):
+    """fp32, 2 layers at GPT-3 345M's width: the engine's streams (two
+    prompts chunked) equal to a no-cache argmax loop; a speculative engine
+    with a 1-layer GPT draft equal to the plain engine, token for token."""
+    model = gpt_model(device, torch.float32, layers=2, seed_offset=17)
+    vocab = model.config.vocab_size
+    eng, res, _, counts, _ = serve(model, True, PARITY_NEW_TOKENS,
+                                   GPT_PARITY_LENS, want_fused=False)
+    for rid, prompt, toks in res:
+        ref = argmax_loop(model, prompt, PARITY_NEW_TOKENS)
+        require(toks == ref, f"gpt parity: request {rid} differs from the "
+                f"argmax loop at {first_difference(toks, ref)}")
+    chunks = eng.chunk_dispatches
+    del eng
+    draft = gpt_model(device, torch.float32, layers=1, seed_offset=18)
+    plain = spec_engine(model, None)
+    p_streams = spec_traffic(plain, vocab, SPEC_LENS, PARITY_NEW_TOKENS)[0]
+    eng = spec_engine(model, draft)
+    streams, statuses, _, _, _ = spec_traffic(eng, vocab, SPEC_LENS,
+                                              PARITY_NEW_TOKENS)
+    require(all(s == "OK" for s in statuses), f"gpt parity spec: "
+            f"{statuses}")
+    require(streams == p_streams, "gpt parity: the GPT-drafted streams "
+            "differ from the plain engine's")
+    emit("parity", run="gpt", model="gpt3_345m width, 2 layers",
+         dtype="fp32", prompt_lens=list(GPT_PARITY_LENS),
+         new_tokens=PARITY_NEW_TOKENS, chunks=chunks,
+         engine_equal_to_argmax_loop=True, spec_draft="gpt, 1 layer",
+         spec_rounds=eng.spec_rounds,
+         spec_acceptance=eng.spec_tokens_accepted / max(
+             1, eng.spec_tokens_accepted + eng.spec_tokens_rejected),
+         spec_equal_to_plain=True, launches=counts)
+    del eng, plain, draft, model
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- quant
+# serve's traffic with one prompt over a chunk, so that chunks run too
+QUANT_LENS = PROMPT_LENS[:-1] + (300,)
+QUANT_ALGOS = ("weight_only_int8", "weight_only_int4")
+QUANT_GEN_PROMPTS = 2     # the engine's streams against generate (B = 1)
+QUANT_ROUND_RTOL = 1e-5   # on half a scale step: f32 roundings of w / s
+
+
+def quantized_copy(model, algo):
+    """A copy of ``model`` with every Linear weight-only quantized."""
+    from paddle_tpu_torch.nn.quant import quantize_linears
+    qmodel = quantize_linears(copy.deepcopy(model), algo)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return qmodel
+
+
+def quant_roundtrip(model, algo) -> float:
+    """weight_quantize then weight_dequantize of layer 0's matrices and the
+    LM head: the largest distance to the bf16 weight in scale steps (at
+    most one half)."""
+    from paddle_tpu_torch.incubate.nn.functional import weight_quantize
+    from paddle_tpu_torch.nn.quant import weight_dequantize
+    worst = 0.0
+    for name, w in model.named_parameters():
+        if w.dim() != 2 or not (name.startswith("llama.layers.0.")
+                                or name == "lm_head.weight"):
+            continue
+        w = w.detach()
+        qw, sc = weight_quantize(w, algo)
+        deq = weight_dequantize(qw, sc, algo)
+        worst = max(worst, float(((deq - w.float()).abs()
+                                  / sc[None, :]).max()))
+        del qw, sc, deq
+    require(worst <= 0.5 * (1 + QUANT_ROUND_RTOL),
+            f"quant {algo}: dequantized weight {worst} scale steps off")
+    return worst
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def run_quant(model, bf16_generic_step_ms):
+    """Serve's Llama-2-7B through quantize_linears (int8, then int4)
+    served by ServingEngine with the fused flag on: the generic route is
+    taken (no #3/#5 launch; #1, #4 and #2 exact), every request OK; the
+    weight round trip, the weight bytes, the graphed decode step against
+    the bf16 generic step, and the streams against the same quantized
+    model's generate (first difference, the engine's top-2 margin there).
+    Returns the launch counts."""
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    chunks = sum(-(-n // CHUNK) for n in QUANT_LENS if n > CHUNK)
+    whole = sum(1 for n in QUANT_LENS if n <= CHUNK)
+    bf16_bytes = tensor_bytes(model.parameters())
+    total = {}
+    for algo in QUANT_ALGOS:
+        steps_off = quant_roundtrip(model, algo)
+        t0 = time.perf_counter()
+        qmodel = quantized_copy(model, algo)
+        quant_s = time.perf_counter() - t0
+        qbytes = tensor_bytes(list(qmodel.parameters())
+                              + list(qmodel.buffers()))
+        eng, res, seconds, counts, peak = serve(
+            qmodel, True, NEW_TOKENS, QUANT_LENS, record_logits=True,
+            want_fused=False)
+        check_tokens(res, cfg.vocab_size, NEW_TOKENS)
+        steps = len(eng.decode_step_seconds)
+        require_launches(counts, expected_launches(
+            counts, layers, steps, whole, chunks, False, 1, "native",
+            "native"), f"quant {algo}")
+        require(eng.chunk_dispatches == chunks,
+                f"quant {algo}: {eng.chunk_dispatches} chunks")
+        require(all(g.graph is not None for g in graphs_of(eng)),
+                f"quant {algo}: a program was not captured")
+        agree, gen_s = [], 0.0
+        for rid, prompt, toks in res[:QUANT_GEN_PROMPTS]:
+            ids = torch.from_numpy(prompt.astype(np.int64))[None].to(
+                model.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = qmodel.generate(ids, max_new_tokens=NEW_TOKENS,
+                                  return_full_sequence=False)[0].tolist()
+            torch.cuda.synchronize()
+            gen_s += time.perf_counter() - t0
+            j = first_difference(toks, got)
+            agree.append(dict(
+                prompt_len=len(prompt), first_difference=j,
+                top2_margin=(None if j is None else
+                             top2_margin(eng.logits[rid][j]))))
+        gen = sum(len(t) for _, _, t in res)
+        emit("quant", model="llama2_7b", algo=algo, layers=layers,
+             dtype="bf16", route="generic", requests=len(res),
+             prompt_lens=list(QUANT_LENS), new_tokens=NEW_TOKENS,
+             roundtrip_scale_steps=steps_off, quantize_s=quant_s,
+             weight_bytes=qbytes, bf16_weight_bytes=bf16_bytes,
+             weight_ratio=qbytes / bf16_bytes, generated=gen,
+             seconds=seconds, tokens_per_s=gen / seconds,
+             chunks=eng.chunk_dispatches,
+             chunk_ms_median=1e3 * float(np.median(eng.chunk_seconds)),
+             prefill_ms_median=1e3 * float(np.median(eng.prefill_seconds)),
+             decode_steps=steps, decode_step_ms_median=1e3 * float(
+                 np.median(eng.decode_step_seconds)),
+             bf16_generic_step_ms_median=bf16_generic_step_ms,
+             generate_ms_per_token=1e3 * gen_s / (
+                 QUANT_GEN_PROMPTS * NEW_TOKENS),
+             engine_vs_generate=agree, launches=counts,
+             peak_mem_gb=peak / 1e9)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del eng, qmodel
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_quant_parity(model):
+    """The fp32 parity Llama quantized (int8): the engine's streams equal
+    to its generate's, token for token (four prompts, one batch)."""
+    qmodel = quantized_copy(model, "weight_only_int8")
+    vocab = model.config.vocab_size
+    ps = prompts(vocab, (GEN_PARITY_PROMPT,) * GEN_PARITY_BATCH)
+    eng, res, _, counts, _ = serve(qmodel, True, PARITY_NEW_TOKENS,
+                                   (GEN_PARITY_PROMPT,) * GEN_PARITY_BATCH,
+                                   want_fused=False)
+    ids = torch.from_numpy(np.stack(ps).astype(np.int64)).to(model.device)
+    want = qmodel.generate(ids, max_new_tokens=PARITY_NEW_TOKENS,
+                           return_full_sequence=False).tolist()
+    got = [toks for _, _, toks in res]
+    require(got == want, "quant parity: the engine's streams differ from "
+            "generate's")
+    emit("parity", run="quant", model="llama2_7b width, 2 layers",
+         algo="weight_only_int8", dtype="fp32", batch=GEN_PARITY_BATCH,
+         prompt_len=GEN_PARITY_PROMPT, new_tokens=PARITY_NEW_TOKENS,
+         engine_equal_to_generate=True, launches=counts)
+    del eng, qmodel
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- fleet
+# two replicas of serve's engine (fused, N = 1) with a 16-page host tier
+# each; two 512-token shared prefixes under 5 requests each (suffixes 17 to
+# 256; the first in wave 1, the rest in wave 2, once wave 1 is done) and
+# two cold prompts in wave 1
+FLEET_REPLICAS, FLEET_HOST_PAGES = 2, 16
+FLEET_PREFIX, FLEET_SUFFIXES, FLEET_COLD = 512, (17, 256, 100, 40, 200), \
+    (77, 300)
+FLEET_SPEC = "router_dispatch:every=25:times=3"
+FLEET_MIN_LOSSES = 2
+
+
+def fleet_router(model, policy="prefix_affinity", rows=None):
+    """A FleetRouter whose engines record their shared admissions' pages,
+    the requests they export, their build and first-step seconds (a
+    rebuilt replica's first step captures its graphs) and, into ``rows``
+    by prompt, each token's logits row; ``made`` keeps every engine it
+    built, lost ones included."""
+    from paddle_tpu_torch.generation.fleet import FleetRouter
+    from paddle_tpu_torch.generation.serving import ServingEngine
+
+    class Engine(ServingEngine):
+        def _admit_shared(self, req, slot, pages, n_cached):
+            self.adopted_pages += len(pages)
+            super()._admit_shared(req, slot, pages, n_cached)
+
+        def export_requests(self):
+            t0 = time.perf_counter()
+            out = super().export_requests()
+            self.exported += len(out)
+            self.export_s = time.perf_counter() - t0
+            return out
+
+        def _take_token(self, req, tok, row, now):
+            if rows is not None:
+                rows.setdefault(req.prompt.tobytes(), []).append(
+                    row.float().cpu().numpy())
+            super()._take_token(req, tok, row, now)
+
+        def close(self):
+            self.closed_graphs = self.graphs_made()
+            super().close()
+
+        def graphs_made(self):
+            if self.closed_graphs is not None:
+                return self.closed_graphs
+            return sum(1 for g in graphs_of(self) if g.graph is not None)
+
+        def step(self):
+            if self.first_step_s is not None:
+                return super().step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().step()
+            torch.cuda.synchronize()
+            self.first_step_s = time.perf_counter() - t0
+
+    class Router(FleetRouter):
+        def __init__(self, *a, **kw):
+            self.made, self.loss_s, self.loss_mem = [], [], []
+            self.engines = []
+            super().__init__(*a, **kw)
+
+        def _make_engine(self, idx):
+            mem = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng = Engine(self.model, replica=f"fleet{idx}",
+                         **self._engine_kw)
+            if self.engines:
+                # a rebuild: the device bytes before it (the lost
+                # replica closed) and after it
+                self.loss_mem[-1] += [mem, torch.cuda.memory_allocated()]
+            eng.build_s = time.perf_counter() - t0
+            eng.adopted_pages = eng.exported = 0
+            eng.first_step_s = eng.export_s = eng.closed_graphs = None
+            self.made.append(eng)
+            return eng
+
+        def _lose_replica(self, ri, exc):
+            self.loss_mem.append([torch.cuda.memory_allocated()])
+            t0 = time.perf_counter()
+            super()._lose_replica(ri, exc)
+            self.loss_s.append(time.perf_counter() - t0)
+
+    return Router(model, replicas=FLEET_REPLICAS, policy=policy,
+                  max_batch=BATCH, page_size=PAGE, max_seq_len=MAX_SEQ,
+                  prefill_chunk=CHUNK, host_tier_pages=FLEET_HOST_PAGES)
+
+
+def replica_ready(eng) -> bool:
+    """On the fused N = 1 route, one graph for its rung and one for its
+    chunk program, both captured."""
+    graphs = graphs_of(eng)
+    return (eng._spec is not None and eng._stacked is None
+            and len(eng._decode_fns) == 1 and eng._chunk_fn is not None
+            and all(g.graph is not None for g in graphs))
+
+
+def fleet_prompts(vocab):
+    rng = np.random.default_rng(SEED + 17)
+    groups = []
+    for _ in range(2):
+        prefix = rng.integers(0, vocab, (FLEET_PREFIX,)).astype(np.int32)
+        groups.append([np.concatenate([prefix, rng.integers(
+            0, vocab, (n,)).astype(np.int32)]) for n in FLEET_SUFFIXES])
+    cold = [rng.integers(0, vocab, (n,)).astype(np.int32)
+            for n in FLEET_COLD]
+    return groups, cold
+
+
+def fleet_warm(fleet, vocab):
+    """One whole and one chunked request pinned on each replica (first
+    calls and captures), then every probe cleared."""
+    for ri in range(FLEET_REPLICAS):
+        for p in prompts(vocab, (9, CHUNK + 9)):
+            fleet.submit(p, 2, replica=ri)
+    fleet.run()
+    for eng in fleet.engines:
+        for probe in (eng.decode_step_seconds, eng.prefill_seconds,
+                      eng.ttft_seconds):
+            probe.clear()
+        eng.chunk_dispatches = eng.adopted_pages = 0
+    fleet.placements.clear()
+
+
+def fleet_traffic(fleet, vocab):
+    """Wave 1 (each prefix's first request, the cold prompts), run to the
+    end, then wave 2 (the other requests of each prefix). Returns (rids
+    by prefix group, cold rids, streams, statuses, seconds, launch
+    counts)."""
+    from paddle_tpu_torch import kernels
+    groups, cold = fleet_prompts(vocab)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    first = [fleet.submit(g[0], NEW_TOKENS) for g in groups]
+    cold_rids = [fleet.submit(p, NEW_TOKENS) for p in cold]
+    out = fleet.run()
+    statuses = {r: fleet.status(r) for r in out}
+    rest = [[fleet.submit(p, NEW_TOKENS) for p in g[1:]] for g in groups]
+    more = fleet.run()
+    statuses.update({r: fleet.status(r) for r in more})
+    out.update(more)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rids = [[f] + r for f, r in zip(first, rest)]
+    return rids, cold_rids, out, statuses, seconds, kernels.launch_counts()
+
+
+def fleet_launches(counts, fleet, layers):
+    """#3 a layer per decode step, #1 a layer per whole prefill, #4 a
+    layer per chunk, summed over every engine the fleet built."""
+    want = dict.fromkeys(counts, 0)
+    engs = fleet.made
+    want["fused_block_decode"] = layers * sum(
+        len(e.decode_step_seconds) for e in engs)
+    want["flash_prefill"] = layers * sum(len(e.prefill_seconds)
+                                         for e in engs)
+    want["paged_chunk_attention"] = layers * sum(e.chunk_dispatches
+                                                 for e in engs)
+    return want
+
+
+def routed_counts():
+    """fleet_requests_routed by (replica, reason), as the registry holds
+    it now."""
+    from paddle_tpu_torch import observability as obs
+    fam = obs.snapshot()["metrics"].get("fleet_requests_routed")
+    return {(s["labels"]["replica"], s["labels"]["reason"]): s["value"]
+            for s in (fam or {}).get("series", [])}
+
+
+def fleet_run(model, policy="prefix_affinity", spec="", rows=None):
+    """One fleet, warmed, through fleet_traffic under FLAGS_fault_inject
+    ``spec``; every request OK and exact launches. Returns (fleet, rids,
+    cold rids, streams, seconds, launch counts, peak bytes, faults fired,
+    program-cache captures during the traffic, the routing counters'
+    increase by (replica, reason))."""
+    from paddle_tpu_torch.generation.program_cache import \
+        decode_program_cache
+    from paddle_tpu_torch.testing import faults
+    cache = decode_program_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = fleet_router(model, policy, rows)
+    fleet_warm(fleet, model.config.vocab_size)
+    keys = set()
+    for eng in fleet.engines:
+        keys.update(captures(cache, eng))
+    before_caps = {k: cache.trace_count(k) for k in keys}
+    before = injected()
+    routed0 = routed_counts()
+    with faults.armed(spec):
+        # the router's site, armed for the traffic only (the warm-up ran
+        # unarmed): a router binds its site when it is built
+        fleet._f_router = faults.site("router_dispatch")
+        rids, cold, out, statuses, seconds, counts = fleet_traffic(
+            fleet, model.config.vocab_size)
+    fired = injected().get("router_dispatch", 0.0) - before.get(
+        "router_dispatch", 0.0)
+    routed = routed_counts()
+    routed = {k: v - routed0.get(k, 0.0) for k, v in routed.items()
+              if v != routed0.get(k, 0.0)}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    everyone = [r for g in rids for r in g] + cold
+    require(all(statuses.get(r) == "OK" for r in everyone),
+            f"fleet {policy} {spec!r}: statuses {statuses}")
+    groups, cold_ps = fleet_prompts(model.config.vocab_size)
+    check_tokens(list(zip(everyone, [p for g in groups for p in g]
+                          + cold_ps, [out[r] for r in everyone])),
+                 model.config.vocab_size, NEW_TOKENS)
+    require_launches(counts, fleet_launches(
+        counts, fleet, model.config.num_hidden_layers),
+        f"fleet {policy} {spec!r}")
+    caps = {k: cache.trace_count(k) - n for k, n in before_caps.items()}
+    return (fleet, rids, cold, out, seconds, counts, peak, fired, caps,
+            routed)
+
+
+def run_fleet(model):
+    """FleetRouter(replicas=2) on serve's Llama-2-7B (module docstring).
+    Returns the launch counts of its runs."""
+    from paddle_tpu_torch.testing import faults
+    vocab = model.config.vocab_size
+    layers = model.config.num_hidden_layers
+    total = {}
+    # prefix affinity, fault-free
+    rows_free: dict = {}
+    fleet, rids, cold, out, seconds, counts, peak_free, _, caps, delta = \
+        fleet_run(model, rows=rows_free)
+    placed = {rid: (ri, why) for rid, ri, why in fleet.placements}
+    for g in rids:
+        home = placed[g[0]][0]
+        for rid in g[1:]:
+            require(placed[rid] == (home, "affinity"),
+                    f"fleet: wave-2 request {rid} placed {placed[rid]}, "
+                    f"its prefix is on replica {home}")
+    want = {}
+    for _, ri, why in fleet.placements:
+        want[str(ri), why] = want.get((str(ri), why), 0) + 1
+    require(delta == want,
+            f"fleet: routing counters {delta} != placements {want}")
+    require(all(replica_ready(e) for e in fleet.engines),
+            "fleet: a replica off the fused route or without its graphs")
+    require(all(n == 0 for n in caps.values()),
+            f"fleet: captures during the traffic {caps}")
+    pool_bytes = (fleet.engines[0].pool.num_pages
+                  * fleet.engines[0].pool.bytes_per_page)
+    affinity_pages = sum(e.adopted_pages for e in fleet.made)
+    gen = sum(len(t) for t in out.values())
+    emit("fleet", model="llama2_7b", layers=layers, dtype="bf16",
+         replicas=FLEET_REPLICAS, policy="prefix_affinity",
+         fused_block_layers=1, host_tier_pages=FLEET_HOST_PAGES,
+         prefix_len=FLEET_PREFIX, suffixes=list(FLEET_SUFFIXES),
+         cold=list(FLEET_COLD), new_tokens=NEW_TOKENS,
+         requests=len(out), generated=gen, seconds=seconds,
+         tokens_per_s=gen / seconds, placements=fleet.placements,
+         pages_adopted=affinity_pages,
+         graphs_per_replica=[len(graphs_of(e)) for e in fleet.engines],
+         launches=counts, peak_mem_gb=peak_free / 1e9,
+         pool_gb_per_replica=pool_bytes / 1e9)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    free_streams = {r: out[r] for g in rids for r in g}
+    free_streams.update({r: out[r] for r in cold})
+    order = [r for g in rids for r in g] + cold
+    del fleet
+    torch.cuda.empty_cache()
+    # round robin: the baseline arm's pages adopted
+    fleet, _, _, _, seconds, counts, _, _, _, _ = fleet_run(
+        model, policy="round_robin")
+    rr_pages = sum(e.adopted_pages for e in fleet.made)
+    require(affinity_pages >= rr_pages, f"fleet: affinity adopted "
+            f"{affinity_pages} pages, round robin {rr_pages}")
+    emit("fleet", policy="round_robin", pages_adopted=rr_pages,
+         affinity_pages_adopted=affinity_pages, seconds=seconds,
+         placements=fleet.placements, launches=counts)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    del fleet
+    torch.cuda.empty_cache()
+    # the loss drill
+    rows_drill: dict = {}
+    fleet, rids, cold, out, seconds, counts, peak, fired, caps, _ = \
+        fleet_run(model, spec=FLEET_SPEC, rows=rows_drill)
+    require(fleet.losses >= FLEET_MIN_LOSSES,
+            f"fleet drill: {fleet.losses} losses")
+    require(fleet.losses == fired, f"fleet drill: {fleet.losses} losses, "
+            f"{fired} faults fired")
+    exported = sum(e.exported for e in fleet.made)
+    require(fleet.rerouted == exported, f"fleet drill: rerouted "
+            f"{fleet.rerouted}, exported {exported}")
+    rebuilt = fleet.made[FLEET_REPLICAS:]
+    captured = sum(e.graphs_made() for e in rebuilt)
+    require(sum(caps.values()) == captured,
+            f"fleet drill: {sum(caps.values())} captures, the rebuilt "
+            f"replicas hold {captured} graphs")
+    require(peak <= peak_free + pool_bytes,
+            f"fleet drill: peak {peak} over the fault-free {peak_free} + "
+            f"one pool {pool_bytes} (device bytes before a loss, after "
+            f"the lost replica closed, after its rebuild: "
+            f"{fleet.loss_mem})")
+    drill_streams = {r: out[r] for r in [r for g in rids for r in g] + cold}
+    drill_order = [r for g in rids for r in g] + cold
+    groups, cold_ps = fleet_prompts(vocab)
+    all_prompts = [p for g in groups for p in g] + cold_ps
+    agree = []
+    for p, a, b in zip(all_prompts, order, drill_order):
+        j = first_difference(free_streams[a], drill_streams[b])
+        row = rows_free.get(p.tobytes(), [])
+        agree.append(dict(prompt_len=len(p), first_difference=j,
+                          top2_margin=(None if j is None or j >= len(row)
+                                       else top2_margin(row[j]))))
+    emit("fleet", run="loss drill", spec=FLEET_SPEC, losses=fleet.losses,
+         faults_fired=fired, rerouted=fleet.rerouted,
+         rebuilt_captures=captured, peak_mem_gb=peak / 1e9,
+         fault_free_peak_mem_gb=peak_free / 1e9,
+         pool_gb_per_replica=pool_bytes / 1e9,
+         loss_ms=[1e3 * s for s in fleet.loss_s],
+         mem_gb_at_losses=[[b / 1e9 for b in m] for m in fleet.loss_mem],
+         harvest_ms=[1e3 * e.export_s for e in fleet.made
+                     if e.export_s is not None],
+         rebuild_ms=[1e3 * e.build_s for e in rebuilt],
+         first_step_ms=[1e3 * e.first_step_s for e in rebuilt
+                        if e.first_step_s is not None],
+         streams_equal=sum(1 for a in agree
+                           if a["first_difference"] is None),
+         requests=len(agree), agreement=agree, seconds=seconds,
+         launches=counts)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    del fleet, rebuilt
+    torch.cuda.empty_cache()
+    # a crash loop: every dispatch fails; run raises after max_losses
+    with faults.armed("router_dispatch:every=1"):
+        fleet = fleet_router(model)
+        for p in cold_ps:
+            fleet.submit(p, 2)
+        raised = False
+        try:
+            fleet.run()
+        except faults.InjectedFault:
+            raised = True
+    require(raised and fleet.losses == fleet.max_losses,
+            f"fleet crash loop: raised {raised}, {fleet.losses} losses of "
+            f"{fleet.max_losses}")
+    emit("fleet", run="crash loop", spec="router_dispatch:every=1",
+         losses=fleet.losses, max_losses=fleet.max_losses, raised=raised)
+    del fleet
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_fleet_parity(model):
+    """The fp32 parity Llama behind a 2-replica fleet through replica
+    losses: every stream equal to one engine's, token for token."""
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    from paddle_tpu_torch.testing import faults
+    vocab = model.config.vocab_size
+    groups, cold = fleet_prompts(vocab)
+    ps = [p for g in groups for p in g] + cold
+    eng = ServingEngine(model, max_batch=BATCH, page_size=PAGE,
+                        max_seq_len=MAX_SEQ)
+    rids = [eng.submit(p, PARITY_NEW_TOKENS) for p in ps]
+    out = eng.run()
+    want = [out[r] for r in rids]
+    del eng
+    with faults.armed("router_dispatch:every=6:times=2"):
+        fleet = fleet_router(model)
+        frids = [fleet.submit(p, PARITY_NEW_TOKENS) for p in ps]
+        fout = fleet.run()
+    require(fleet.losses == 2, f"fleet parity: {fleet.losses} losses")
+    require(all(fleet.status(r) == "OK" for r in frids),
+            "fleet parity: a request did not end OK")
+    require([fout[r] for r in frids] == want,
+            "fleet parity: the fleet's streams differ from one engine's")
+    emit("parity", run="fleet", model="llama2_7b width, 2 layers",
+         dtype="fp32", replicas=FLEET_REPLICAS, requests=len(ps),
+         new_tokens=PARITY_NEW_TOKENS, losses=fleet.losses,
+         rerouted=fleet.rerouted, equal_to_one_engine=True)
+    del fleet
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------- train_kernels
@@ -4980,13 +5816,17 @@ def main() -> int:
                       check_paged_attention, check_paged_chunk_attention,
                       check_fused_block_decode,
                       check_public_fused_block_decode,
-                      check_fused_multi_block_decode, check_spec_kernels):
+                      check_fused_multi_block_decode, check_spec_kernels,
+                      check_gpt_kernels):
             done = len(results)
             check(dtype, device, results)
             for r in results[done:]:
                 emit("kernels", **r)
 
     counts, serve_paths = run_serve(device)
+    gpt_counts = run_gpt(device)
+    serve_paths["gpt"] = gpt_counts
+    counts = {k: n + gpt_counts.get(k, 0) for k, n in counts.items()}
     run_parity(device)
 
     train_rows = []
@@ -5030,10 +5870,10 @@ def main() -> int:
         else:
             rows = [r for r in results if r["kernel"] == name
                     and r["dtype"] == "bf16" and "kernel_ms" in r]
-            # the largest serving shape in bf16 (the spec and generation
-            # rows are new shapes beside it)
+            # the largest serving shape in bf16 (the spec, generation and
+            # GPT rows are new shapes beside it)
             main_row = [r for r in rows if "spec" not in r
-                        and "generation" not in r][-1]
+                        and "generation" not in r and "gpt" not in r][-1]
             # every serving phase, then generation and the handoff
             launches = counts[name]
             by_path = {path: c.get(name, 0)

@@ -20,7 +20,10 @@ optimizer of ``optimizer`` and schedule of ``optimizer.lr``, ``amp`` and
 ``flash_attention_with_lse``), SDPA's dense path with a mask or dropout,
 packed sequences through the flash kernels' segment ids
 (``nn.functional.flash_attn_unpadded``), and the fused RMSNorm
-(``incubate.nn.functional.fused_rms_norm``).
+(``incubate.nn.functional.fused_rms_norm``). Serving also runs a fleet of
+engine replicas (``generation.fleet.FleetRouter``), a weight-only quantized
+model (``nn.quant``) and GPT (``models.GPTForCausalLM``) through the
+engine's generic route.
 """
 
 from .device import resolve_device, seed

@@ -3,7 +3,11 @@
 The JAX model's ``raw_state()`` gives name -> array dicts; through
 ``np.asarray`` they become numpy arrays, and bf16 ones arrive as
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses. Those go
-through float32 and are cast on the way in.
+through float32 and are cast on the way in. :func:`load_state` copies such
+a dict into a module's parameters and, for a weight-quantized model, its
+buffers (``QuantizedLinear``'s int8 ``quant_weight`` and f32
+``weight_scale``: ``raw_state()`` returns ``(params, buffers)``), each cast
+to the dtype of the tensor it lands in.
 
 :func:`optimizer_state_from_jax` turns the JAX optimizer's state into what
 the port's ``Optimizer.set_state_dict`` (and ``TrainStep.set_state_dict``
@@ -41,6 +45,35 @@ def state_from_numpy(named: Mapping[str, np.ndarray],
         t = _to_torch(arr)
         out[name] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
+
+
+@torch.no_grad()
+def load_state(module: torch.nn.Module, params: Mapping[str, np.ndarray],
+               buffers: Optional[Mapping[str, np.ndarray]] = None) -> None:
+    """Copy ``params`` (and ``buffers``; None entries skipped) into
+    ``module``'s parameters and buffers of the same names, each cast to
+    the dtype of the tensor it lands in. With ``buffers`` the two dicts
+    together must name exactly the module's parameters and buffers (the
+    JAX package files frozen parameters under buffers), else exactly its
+    parameters."""
+    named = {k: v for k, v in {**dict(params), **dict(buffers or {})}.items()
+             if v is not None}
+    targets = dict(module.named_parameters())
+    if buffers is not None:
+        targets.update((k, b) for k, b in module.named_buffers()
+                       if b is not None)
+    missing = sorted(set(targets) - set(named))
+    extra = sorted(set(named) - set(targets))
+    if missing or extra:
+        raise KeyError(f"state mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    for name, arr in named.items():
+        dst = targets[name]
+        t = _to_torch(arr)
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t.to(device=dst.device, dtype=dst.dtype))
 
 
 def _plain(value: Any) -> Any:

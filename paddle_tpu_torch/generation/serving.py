@@ -22,7 +22,8 @@ Around that core, as in the JAX package:
 - the request surface: ``submit(deadline=, on_token=)``, ``run_step``,
   ``poll``, ``run(max_wall=)``, ``results``/``take_results``,
   ``status``/``statuses``, ``load``, and the router's
-  ``export_requests``/``take_callbacks``/``inject_request``;
+  ``export_requests``/``take_callbacks``/``inject_request``/``close``
+  (:mod:`.fleet`);
 - the disaggregated handoff: ``harvest_request`` detaches a live greedy
   request with its written KV pages (host copies, verbatim), and
   ``adopt_request`` seats such a bundle in another engine of the same pool
@@ -95,6 +96,14 @@ Around that core, as in the JAX package:
   draws the same. γ adapts per request within ``FLAGS_serving_spec_rungs``
   (``FLAGS_serving_spec_adaptive``). The draft keeps its own worst-case
   pool in slot lockstep with the target's.
+
+The engine reaches the model through ``cache_spec()``,
+``forward_with_cache`` (the generic decode and whole-prompt prefill),
+``forward_hidden`` (the chunk, the draft scan's generic branch and the
+verify: the hidden states, whose LM head the program applies to the rows it
+reads; the chunk's to its tail row only) and ``logits``; the fused routes
+also need ``block_decode_spec()`` (Llama's). A draft and its target share a
+vocabulary.
 
 Decode runs the fused block kernel once per layer (``FLAGS_fused_block_decode``,
 the default), the N-layer kernel once per group of N layers
@@ -563,9 +572,8 @@ def _chunk_step(model, ids, pools, bt, sl, last_idx):
     the final norm's output into the LM head. Every input is a device
     tensor, so a CUDA graph replays the step for any cursor. Returns that
     row's f32 logits (vocab,) and the pool pairs."""
-    hidden, states = model.llama(
-        ids, caches=[PagedChunkState(k, v, bt, sl) for k, v in pools],
-        offset=sl)
+    hidden, states = model.forward_hidden(
+        ids, [PagedChunkState(k, v, bt, sl) for k, v in pools], sl)
     row = model.logits(hidden[0].index_select(0, last_idx))[0].float()
     return row, [(st.k_pages, st.v_pages) for st in states]
 
@@ -603,10 +611,9 @@ def _spec_draft_step(fspec, gamma, sample, top_k, weights, tok, pools, bt,
                 break
             row = _head(x, fspec, weights)[0]
         else:
-            hidden, states = weights.llama(
-                t, caches=[PagedDecodeState(k, v, bt, csl)
-                           for k, v in pairs],
-                offset=None)
+            hidden, states = weights.forward_hidden(
+                t, [PagedDecodeState(k, v, bt, csl) for k, v in pairs],
+                None)
             pairs = [(st.k_pages, st.v_pages) for st in states]
             if i == gamma:
                 break
@@ -630,9 +637,8 @@ def _spec_verify_step(sample, top_k, model, ids, pools, bt, sl, *law):
     itself), every row through the LM head. Returns ``((argmax (γ+1,)
     int64, f32 logits (γ+1, V), the filtered law (γ+1, V) when sampled,
     else None), pool pairs)``; ``law`` = temperature (1,), top_p (1,)."""
-    hidden, states = model.llama(
-        ids, caches=[PagedChunkState(k, v, bt, sl) for k, v in pools],
-        offset=sl)
+    hidden, states = model.forward_hidden(
+        ids, [PagedChunkState(k, v, bt, sl) for k, v in pools], sl)
     rows = model.logits(hidden[0]).float()
     probs = (_spec_filtered_probs(rows, law[0], top_k, law[1]) if sample
              else None)
@@ -1180,14 +1186,16 @@ class PrefixCache:
 
 
 class ServingEngine:
-    """Drive ``model`` (a port ``LlamaForCausalLM``) as a continuous-batching
-    server: ``submit`` enqueues, each ``step`` sweeps deadlines, migrates
-    the decode batch between bucket rungs, preempts for an endangered
-    deadline, admits waiting requests into free slots, runs at most one
-    prefill-compute unit (a whole-prompt prefill or one chunk of a long
-    prompt) and decodes one token for every slot past its prefill. ``run``
-    steps until drained and returns ``{rid: tokens}``; ``run_step`` and
-    ``poll`` are the non-blocking surface. ``prefix_cache=True`` caches
+    """Drive ``model`` (a port causal LM: ``LlamaForCausalLM``,
+    ``GPTForCausalLM``, or either after ``nn.quant.quantize_linears``) as
+    a continuous-batching server: ``submit`` enqueues, each ``step``
+    sweeps deadlines, migrates the decode batch between bucket rungs,
+    preempts for an endangered deadline, admits waiting requests into
+    free slots, runs at most one prefill-compute unit (a whole-prompt
+    prefill or one chunk of a long prompt) and decodes one token for every
+    slot past its prefill. ``run`` steps until drained and returns ``{rid:
+    tokens}``; ``run_step`` and ``poll`` are the non-blocking surface.
+    ``prefix_cache=True`` caches
     prompt pages for later requests with the same prefix
     (:class:`PrefixCache`), with a host-memory tier of ``host_tier_pages``
     pages (``FLAGS_serving_kv_host_tier_pages``; 0: none). A step that
@@ -1372,12 +1380,17 @@ class ServingEngine:
         """The speculative engine's state: the draft's weights and pool,
         the γ rungs and budget, the fault sites and the host probes."""
         if not all(hasattr(draft_model, a) for a in (
-                "cache_spec", "block_decode_spec", "llama", "logits")):
-            # the JAX package also drafts with its GPT, which the port
-            # does not have
+                "cache_spec", "forward_hidden", "logits", "config")):
             raise _later(f"a draft_model of type "
                          f"{type(draft_model).__name__} (the port drafts "
-                         "with its paged-cache causal LMs: Llama)")
+                         "with its paged-cache causal LMs, which provide "
+                         "cache_spec, forward_hidden and logits: Llama, "
+                         "GPT)")
+        dvocab = draft_model.config.vocab_size
+        if dvocab != self.model.config.vocab_size:
+            raise ValueError(
+                f"the draft model's vocabulary ({dvocab}) is not the "
+                f"target's ({self.model.config.vocab_size})")
         if draft_model.device != self.device:
             raise ValueError(f"the draft model is on {draft_model.device}, "
                              f"the target on {self.device}")
@@ -1592,6 +1605,25 @@ class ServingEngine:
         self._queue.append(req)
         return req.rid
 
+    def close(self) -> None:
+        """Release this engine's device state: the pools (the draft's too),
+        the host tier, the N-layer route's stacked weights and every CUDA
+        graph it captured (with their private memory pools). The model's
+        weights stay. A closed engine takes no more work: a
+        :class:`~paddle_tpu_torch.generation.fleet.FleetRouter` exports a
+        lost replica's requests, closes it and builds its replacement."""
+        self._decode_fns.clear()
+        self._chunk_fn = None
+        if self.draft_model is not None:
+            self._spec_fns.clear()
+        self._stacked = None
+        self._prefix = None
+        for pool in (self.pool, self._draft_pool):
+            if pool is not None:
+                n = len(pool.k_pages)
+                pool.k_pages, pool.v_pages = [None] * n, [None] * n
+                pool._detached = None
+
     # ------------------------------------------- disaggregated handoff
     def harvest_request(self, rid: int) -> dict:
         """Detach one seated greedy request with its written KV pages: the
@@ -1729,18 +1761,25 @@ class ServingEngine:
 
     def _fused_spec(self, draft: bool = False):
         """The model's fused-block layout when the fused path applies:
-        ``FLAGS_fused_block_decode`` on and every named weight present.
+        ``FLAGS_fused_block_decode`` on, the model publishes
+        ``block_decode_spec`` (Llama; GPT does not) and every named weight
+        is a parameter (a ``quantize_linears`` model keeps its weights as
+        int8 buffers, so it takes the generic route, as in the JAX
+        package).
         Under ``FLAGS_fused_block_layers=N > 1`` it carries the model's
         ``layer_groups``. ``draft=True`` probes the draft model, whose scan
         always runs one layer a launch."""
         if not self._flags.fused_block_decode:
             return None
+        model = self.draft_model if draft else self.model
+        get_spec = getattr(model, "block_decode_spec", None)
+        if get_spec is None:
+            return None
         if draft:
-            spec = self.draft_model.block_decode_spec()
+            spec = get_spec()
             params = self._draft_params
         else:
-            spec = self.model.block_decode_spec(
-                self._flags.fused_block_layers)
+            spec = get_spec(self._flags.fused_block_layers)
             params = self._params
         names = [spec["embed"], spec["final_norm"]]
         if spec["lm_head"]:

@@ -1,12 +1,13 @@
 """Training callbacks (counterpart of ``paddle_tpu/hapi/callbacks.py``).
 
-A copy of the reference's callbacks, host-side Python. Not ported:
-``VisualDL`` (the logger it stands for is not on the card's machine), which
-raises ``NotImplementedError``.
+A copy of the reference's callbacks, host-side Python. ``VisualDL``
+writes its scalars as JSON lines (``log_dir/scalars.jsonl``), as the
+reference does: no logger package is needed.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import List, Optional
@@ -199,12 +200,29 @@ class LRScheduler(Callback):
 
 
 class VisualDL(Callback):
-    """Not ported: raises ``NotImplementedError``."""
+    """Scalar logging: every train batch's numeric logs (a row only when
+    it carries a value besides ``step``, ``loss_step`` and ``staleness``:
+    between metric pulls the loss is None), written at the end of training
+    to ``log_dir/scalars.jsonl``, one JSON object a row."""
 
     def __init__(self, log_dir: str = "./log"):
-        raise NotImplementedError(
-            "VisualDL is not ported: the logger it writes for is not on "
-            "the card's machine")
+        super().__init__()
+        self.log_dir = log_dir
+        self._rows = []
+
+    def on_train_batch_end(self, step, logs=None):
+        if not logs:
+            return
+        row = {k: v for k, v in logs.items()
+               if isinstance(v, (int, float)) and v is not None}
+        if any(k not in ("step", "loss_step", "staleness") for k in row):
+            self._rows.append({"step": step, **row})
+
+    def on_train_end(self, logs=None):
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "scalars.jsonl"), "w") as f:
+            for r in self._rows:
+                f.write(json.dumps(r) + "\n")
 
 
 def config_callbacks(callbacks=None, model=None, batch_size=None, epochs=None,

@@ -20,8 +20,8 @@ Not ported: the reference's fault recovery (retrying a failed step after an
 emergency checkpoint, and falling back to the eager loop when the first
 jitted step fails). A step that raises inside ``fit`` raises
 ``NotImplementedError("fit recovery is not ported")`` chained to the
-original error; it neither retries nor swallows it. ``summary`` and
-``prepare(amp_configs=...)`` (use ``amp.decorate``) raise too.
+original error; it neither retries nor swallows it.
+``prepare(amp_configs=...)`` (use ``amp.decorate``) raises too.
 """
 
 from __future__ import annotations
@@ -308,5 +308,11 @@ class Model:
         return self.network.parameters()
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError("Model.summary is not ported: a later "
-                                  "slice")
+        """Print and return the network's parameter counts:
+        ``{"total_params", "trainable_params"}`` (trainable: parameters
+        that require gradients)."""
+        params = list(self.network.parameters())
+        total = sum(p.numel() for p in params)
+        trainable = sum(p.numel() for p in params if p.requires_grad)
+        print(f"Total params: {total:,}\nTrainable params: {trainable:,}")
+        return {"total_params": total, "trainable_params": trainable}

@@ -2,7 +2,8 @@
 
 Ported: the ``position_ids`` branch of the rotary embedding (the one the
 Llama paths run), ``fused_linear_cross_entropy`` (the Llama training
-loss), ``fused_rms_norm`` (the RMSNorm kernels),
+loss), the weight-only quantization pair ``weight_quantize`` /
+``weight_only_linear`` (shared with :mod:`paddle_tpu_torch.nn.quant`), ``fused_rms_norm`` (the RMSNorm kernels),
 ``variable_length_memory_efficient_attention`` (the flash kernels'
 segment-id variant), and Paddle's fused serving entry points:
 ``fused_multi_transformer`` (the whole stack over ``(2, B, H, T, D)``
@@ -496,3 +497,96 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
     out, state = paged_scaled_dot_product_attention(q, k, v, state)
     h, d = out.shape[2], out.shape[3]
     return out.reshape(b, s, h * d), state.k_pages, state.v_pages
+
+
+# ------------------------------------------------- weight-only quantization
+# The JAX package dequantizes and multiplies outside any Pallas kernel
+# (``jnp.matmul`` on the dequantized weight), so these are PyTorch ops.
+_INT4 = ("int4", "weight_only_int4")
+_INT8 = ("int8", "weight_only_int8")
+
+
+def weight_quantize(x, algo: str = "weight_only_int8", group_size: int = -1):
+    """Per-channel (or, with ``group_size > 0``, per (group, out) block)
+    abs-max quantization of a weight ``x`` ``(in_features, out_features)``:
+    returns ``(int8 payload, f32 scales)``, the scales ``(out,)`` or
+    ``(in // group_size, out)``. ``scale = max(amax, 1e-8) / qmax`` (127
+    for int8, 7 for int4) and ``q = clip(round(w / scale))`` (round half to
+    even). int4 packs rows ``2i`` and ``2i + 1`` into one byte, the even
+    row in the low nibble (the reference's packing, not the fused decode's
+    ``Int4Tiles``)."""
+    if algo not in ("weight_only_int8", "weight_only_int4"):
+        raise ValueError(f"unsupported weight_quantize algo {algo!r}")
+    w = x.detach().float()
+    k, n = w.shape
+    if group_size > 0:
+        if k % group_size:
+            raise ValueError(f"in_features {k} not divisible by "
+                             f"group_size {group_size}")
+        wg = w.reshape(k // group_size, group_size, n)
+        amax = wg.abs().amax(dim=1)                      # (G, N)
+    else:
+        amax = w.abs().amax(dim=0, keepdim=True)         # (1, N)
+    qmax = 127.0 if algo == "weight_only_int8" else 7.0
+    scale = amax.clamp_min(1e-8) / qmax
+    if group_size > 0:
+        q = torch.clamp(torch.round(wg / scale[:, None, :]), -qmax, qmax)
+        q = q.reshape(k, n)
+    else:
+        q = torch.clamp(torch.round(w / scale), -qmax, qmax)
+    q = q.to(torch.int8)
+    if algo == "weight_only_int4":
+        if k % 2:
+            raise ValueError("int4 packing needs an even in_features")
+        byte = (q[0::2].int() & 0x0F) | ((q[1::2].int() & 0x0F) << 4)
+        q = torch.where(byte > 127, byte - 256, byte).to(torch.int8)
+    return q, (scale if group_size > 0 else scale.reshape(n))
+
+
+def _dequantize_weight(q: torch.Tensor, scale: torch.Tensor,
+                       weight_dtype: str, group_size: int,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """Unpack and scale a :func:`weight_quantize` payload (one packing for
+    ``weight_only_linear`` and ``nn.quant.weight_dequantize``): an int4
+    byte's low nibble is the even row, sign-extended, its high nibble (an
+    arithmetic shift) the odd row. The scaling runs in f32, then one cast
+    to ``out_dtype``."""
+    if weight_dtype in _INT4:
+        b = q.int()
+        lo = b & 0x0F
+        lo = torch.where(lo > 7, lo - 16, lo)
+        w = torch.stack((lo, b >> 4), dim=1).reshape(q.shape[0] * 2,
+                                                     q.shape[1])
+    elif weight_dtype in _INT8:
+        w = q
+    else:
+        raise ValueError(f"unsupported weight dtype {weight_dtype!r}")
+    wf = w.float()
+    if group_size > 0:
+        g = wf.shape[0] // group_size
+        wf = (wf.reshape(g, group_size, -1)
+              * scale.float()[:, None, :]).reshape(wf.shape)
+    else:
+        wf = wf * scale.float().reshape(1, -1)
+    return wf.to(out_dtype)
+
+
+def weight_only_linear(x, weight, bias=None, weight_scale=None,
+                       weight_dtype: str = "int8", group_size: int = -1):
+    """``x @ dequantize(weight) (+ bias)``: the weight dequantized to the
+    activation dtype, the GEMM in that dtype with f32 accumulation and an
+    f32 output (as the reference's ``preferred_element_type``), the bias
+    added in f32, one cast back to x's dtype. ``x`` and ``bias`` stay
+    differentiable (the int8 weight has no gradient)."""
+    wf = _dequantize_weight(weight, weight_scale, weight_dtype, group_size,
+                            x.dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if (x.dtype != torch.float32 and x.is_cuda
+            and not (torch.is_grad_enabled() and x.requires_grad)):
+        out = torch.mm(x2, wf, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ wf.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype).reshape(*lead, wf.shape[1])

@@ -1,3 +1,7 @@
+from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
+                  GPTPretrainingCriterion)
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
+           "GPTPretrainingCriterion", "LlamaConfig", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion"]

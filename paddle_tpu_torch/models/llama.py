@@ -22,7 +22,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..convert import state_from_numpy
+from ..convert import load_state
 from ..device import DeviceLike, resolve_device, seed
 from ..generation import GenerationMixin
 from ..incubate.nn import functional as FF
@@ -266,14 +266,19 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                  c.hidden_size // c.num_attention_heads)
                 for _ in range(c.num_hidden_layers)]
 
+    def forward_hidden(self, input_ids, caches, offset):
+        """The final hidden states (after the final norm) and the updated
+        caches: the cached forward without the LM head, the hook the
+        serving engine's chunk, draft and verify programs call."""
+        return self.llama(input_ids, caches=caches, offset=offset)
+
     def forward_with_cache(self, input_ids, caches, offset):
         """Logits and the updated caches: ``caches`` holds one entry per
         layer, a paged state (``offset``: a host int, a device tensor of
         starts, or None for each row's written length) or a
         ``(k_cache, v_cache)`` ring buffer (``offset``: the host int
         position of ``input_ids``' first token)."""
-        hidden, new_caches = self.llama(input_ids, caches=caches,
-                                        offset=offset)
+        hidden, new_caches = self.forward_hidden(input_ids, caches, offset)
         return self.logits(hidden), new_caches
 
     def block_decode_spec(self, fused_layers: int = 1):
@@ -314,23 +319,15 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                                     for i in range(0, n, g)]
         return spec
 
-    @torch.no_grad()
-    def load_numpy_state(self, named: Mapping[str, np.ndarray]) -> None:
+    def load_numpy_state(self, named: Mapping[str, np.ndarray],
+                         buffers: Optional[Mapping[str, np.ndarray]] = None
+                         ) -> None:
         """Copy every parameter from ``named`` (name -> array, e.g. the JAX
-        model's ``raw_state()``), cast to this model's dtype. Names must
-        match exactly."""
-        params = dict(self.named_parameters())
-        missing = sorted(set(params) - set(named))
-        extra = sorted(set(named) - set(params))
-        if missing or extra:
-            raise KeyError(f"state mismatch: missing {missing}, "
-                           f"unexpected {extra}")
-        for name, t in state_from_numpy(named, self.device,
-                                        self.dtype).items():
-            if t.shape != params[name].shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                 f"{tuple(params[name].shape)}")
-            params[name].copy_(t)
+        model's ``raw_state()``), cast to this model's dtype, and with
+        ``buffers`` every buffer (a weight-quantized model's int8 weights
+        and f32 scales, in their own dtypes). Names must match exactly
+        (:func:`~paddle_tpu_torch.convert.load_state`)."""
+        load_state(self, named, buffers)
 
 
 class LlamaPretrainingCriterion(nn.Module):

@@ -1,5 +1,6 @@
 """Functional surface of the ported slices (counterpart of
-``paddle_tpu/nn/functional.py``): RMSNorm, SwiGLU, dropout, the training
+``paddle_tpu/nn/functional.py``): RMSNorm, layer norm, SwiGLU, GELU,
+dropout, cross entropy, the training
 attention (``scaled_dot_product_attention`` on the flash kernels, or its
 dense path with a mask or dropout; ``flash_attention``;
 ``flash_attn_unpadded`` on the kernels' segment-id variant for packed
@@ -35,6 +36,30 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if weight is not None:
         out = out * weight.to(x.dtype)
     return out
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5, name=None) -> torch.Tensor:
+    """Layer norm over the trailing ``normalized_shape`` axes: f32 mean and
+    (biased) variance, the normalized value cast back to x's dtype, then
+    the weight and the bias in x's dtype (the JAX package's order)."""
+    n = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
+    axes = tuple(range(x.dim() - n, x.dim()))
+    h = x.float()
+    mean = h.mean(dim=axes, keepdim=True)
+    var = (h - mean).square().mean(dim=axes, keepdim=True)
+    out = ((h - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
+
+
+def gelu(x: torch.Tensor, approximate: bool = False, name=None
+         ) -> torch.Tensor:
+    """GELU, exact (erf) or with ``approximate=True`` the tanh form."""
+    return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None
@@ -75,6 +100,51 @@ def _keep_mask(shape, p: float, device, generator) -> torch.Tensor:
                          "explicit torch.Generator: pass generator=")
     draw = torch.rand(shape, generator=generator, device=generator.device)
     return draw.to(device) < (1.0 - p)
+
+
+def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
+                  ignore_index: int = -100, reduction: str = "mean",
+                  soft_label: bool = False, axis: int = -1,
+                  use_softmax: bool = True, label_smoothing: float = 0.0,
+                  name=None) -> torch.Tensor:
+    """Paddle's ``cross_entropy`` at the JAX package's defaults: f32 log
+    softmax over ``axis`` (or the log of clipped probabilities with
+    ``use_softmax=False``). Hard labels (an index; a trailing axis of 1 is
+    squeezed) skip ``ignore_index`` and may take per-class ``weight`` and
+    ``label_smoothing``; ``mean`` divides by the kept labels (their weights
+    with ``weight``). Soft labels (``soft_label=True``) take the mean over
+    every row."""
+    lg = (torch.log_softmax(input.float(), dim=axis) if use_softmax
+          else torch.log(input.float().clamp_min(1e-30)))
+    if soft_label:
+        loss = -(label.float() * lg).sum(dim=axis)
+        return (loss.mean() if reduction == "mean" else
+                loss.sum() if reduction == "sum" else loss)
+    lbl = label
+    if lbl.dim() == lg.dim():
+        lbl = lbl.squeeze(axis)
+    lbl = lbl.long()
+    nclass = lg.shape[axis]
+    safe = lbl.clamp(0, nclass - 1)
+    if label_smoothing > 0.0:
+        onehot = TF.one_hot(safe, nclass).float().movedim(-1, axis)
+        tgt = onehot * (1 - label_smoothing) + label_smoothing / nclass
+        loss = -(tgt * lg).sum(dim=axis)
+    else:
+        loss = -lg.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    mask = lbl != ignore_index
+    loss = torch.where(mask, loss, 0.0)
+    if weight is not None:
+        w = weight.float()[safe]
+        loss = loss * w
+    if reduction == "mean":
+        if weight is not None:
+            return loss.sum() / torch.where(mask, w, 0.0).sum().clamp_min(
+                1e-12)
+        return loss.sum() / mask.float().sum().clamp_min(1.0)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -1,3 +1,3 @@
-from .common import Embedding, Linear, RMSNorm
+from .common import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm"]

@@ -1,4 +1,5 @@
-"""Core layers (counterpart of ``paddle_tpu/nn/layers/common.py``).
+"""Core layers (counterpart of ``paddle_tpu/nn/layers/common.py``):
+``Linear``, ``Embedding``, ``RMSNorm``, ``LayerNorm`` and ``Dropout``.
 
 ``Linear`` keeps Paddle's ``(in, out)`` weight layout and computes
 ``x @ W``, unlike ``torch.nn.Linear``: parameter names and shapes stay
@@ -16,12 +17,12 @@ from torch import nn
 from ...amp.auto_cast import amp_cast
 from ...device import DeviceLike, resolve_device
 from .. import functional as F
+from ..initializer import Normal
 
 
 def _normal(shape, std: float, device, dtype,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    t = torch.empty(shape, device=device, dtype=dtype)
-    return t.normal_(0.0, std, generator=generator)
+    return Normal(0.0, std)(shape, device, dtype, generator)
 
 
 class Linear(nn.Module):
@@ -81,3 +82,52 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.rms_norm(x, self.weight, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the trailing ``normalized_shape`` axes, with a
+    learned scale (ones) and shift (zeros); ``weight_attr=False`` /
+    ``bias_attr=False`` drop them, as in Paddle."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, *,
+                 device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        kw = dict(device=resolve_device(device), dtype=dtype or torch.float32)
+        self.weight = (None if weight_attr is False else
+                       nn.Parameter(torch.ones(self.normalized_shape, **kw)))
+        self.bias = (None if bias_attr is False else
+                     nn.Parameter(torch.zeros(self.normalized_shape, **kw)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            self.epsilon)
+
+    def extra_repr(self) -> str:
+        return (f"normalized_shape={self.normalized_shape}, "
+                f"epsilon={self.epsilon}")
+
+
+class Dropout(nn.Module):
+    """Paddle's ``Dropout`` layer: :func:`F.dropout` in training (its mask
+    from ``generator``, required when ``p > 0``), the identity (or the
+    ``downscale_in_infer`` scale) outside it."""
+
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train", *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

@@ -34,8 +34,10 @@ from paddle_tpu_torch.kernels import fused_block_decode as fb
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels.paged_attention import PagedKVCache
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM)
+from paddle_tpu_torch.nn import Embedding, LayerNorm, Linear, RMSNorm
+from paddle_tpu_torch.nn.quant import QuantizedLinear
 from paddle_tpu_torch.testing.transport import adopt_and_decode_in_child
 
 REPO = Path(__file__).resolve().parents[1]
@@ -95,9 +97,12 @@ def no_cuda(monkeypatch):
     lambda: resolve_device(),
     lambda: DevicePrefetcher([]),
     lambda: adopt_and_decode_in_child({}),
+    lambda: GPTForCausalLM(GPTConfig.tiny()),
+    lambda: LayerNorm(8),
+    lambda: QuantizedLinear(8, 4),
 ], ids=["llama", "llama-cuda", "linear", "embedding", "rmsnorm",
         "paged-kv-cache", "seed", "resolve_device", "device-prefetcher",
-        "child-decode"])
+        "child-decode", "gpt", "layernorm", "quantized-linear"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):
     with pytest.raises(RuntimeError, match="cuda"):
         build()

@@ -25,9 +25,12 @@ gradient differences). Checked:
     ``paddle.seed`` said;
   - ``Model.fit`` with ``accumulate_grad_batches``, ``metrics_every``,
     prefetch and callbacks: the losses JAX's ``fit`` logs, then
-    ``evaluate``; ``nan_policy``; fit recovery refused;
+    ``evaluate``; ``nan_policy``; fit recovery refused; ``VisualDL``'s
+    ``scalars.jsonl`` rows and ``Model.summary``'s counts;
     ``ModelCheckpoint`` files loading back, also a JAX-written file.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -310,7 +313,7 @@ class _TRecord(tcb.Callback):
         self.logs.append(dict(logs))
 
 
-def _fit_pair(seed, tmp_path, **fit_kw):
+def _fit_pair(seed, tmp_path, jcallbacks=(), tcallbacks=(), **fit_kw):
     jmodel, model = _pair(seed)
     x, y = _dataset(12)
     paddle.seed(5)
@@ -320,7 +323,7 @@ def _fit_pair(seed, tmp_path, **fit_kw):
     jm = JModel(jmodel)
     jm.prepare(_jopt(jmodel), loss=JCriterion(JLlamaConfig.tiny()))
     jrec = _JRecord()
-    jm.fit(jloader, verbose=0, callbacks=[jrec], **fit_kw)
+    jm.fit(jloader, verbose=0, callbacks=[jrec, *jcallbacks], **fit_kw)
     tm = Model(model)
     tm.prepare(_topt(model), loss=LlamaPretrainingCriterion(
         LlamaConfig.tiny()))
@@ -328,7 +331,7 @@ def _fit_pair(seed, tmp_path, **fit_kw):
     tm.fit(tio.TensorDataset([torch.from_numpy(x), torch.from_numpy(y)]),
            batch_size=4, seed=5, verbose=0, save_dir=str(tmp_path),
            callbacks=[trec, tcb.LRScheduler(by_step=False),
-                      tcb.EarlyStopping(patience=5)], **fit_kw)
+                      tcb.EarlyStopping(patience=5), *tcallbacks], **fit_kw)
     return jm, jmodel, jrec, tm, model, trec
 
 
@@ -431,10 +434,35 @@ def test_fit_recovery_is_refused_with_the_cause_chained():
                        match="fit recovery is not ported") as info:
         m.fit([(torch.from_numpy(x), torch.from_numpy(y))], verbose=0)
     assert isinstance(info.value.__cause__, RuntimeError)
-    with pytest.raises(NotImplementedError):
-        m.summary()
-    with pytest.raises(NotImplementedError):
-        tcb.VisualDL()
+
+
+def test_visualdl_scalars_match_jax(tmp_path):
+    jlog, tlog = tmp_path / "jax", tmp_path / "port"
+    _fit_pair(39, tmp_path / "ckpt", epochs=1, metrics_every=2,
+              num_iters=3, jcallbacks=[jcb.VisualDL(str(jlog))],
+              tcallbacks=[tcb.VisualDL(str(tlog))])
+    jrows = [json.loads(r) for r in
+             (jlog / "scalars.jsonl").read_text().splitlines()]
+    trows = [json.loads(r) for r in
+             (tlog / "scalars.jsonl").read_text().splitlines()]
+    assert len(trows) == len(jrows) > 0
+    for t, j in zip(trows, jrows):
+        assert sorted(t) == sorted(j)
+        for k in j:
+            if k == "loss":
+                assert abs(t[k] - j[k]) <= TOL
+            else:
+                assert t[k] == j[k], k
+
+
+def test_summary_matches_jax(tmp_path):
+    jm, _, _, tm, model, _ = _fit_pair(40, tmp_path, epochs=1, num_iters=1)
+    assert tm.summary() == jm.summary()
+    model.llama.norm.weight.requires_grad_(False)
+    got = tm.summary()
+    assert got["total_params"] == jm.summary()["total_params"]
+    assert got["trainable_params"] == (got["total_params"]
+                                       - model.llama.norm.weight.numel())
 
 
 def test_load_reads_a_jax_written_checkpoint(tmp_path):

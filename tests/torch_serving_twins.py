@@ -1,6 +1,6 @@
 """What the port's serving tests share when they hold the port's engine to
-the JAX package's: one tiny GQA Llama in both packages from the same numpy
-weights (carried into the port through ``convert``), a fake host clock
+the JAX package's: one tiny GQA Llama (or GPT) in both packages from the
+same numpy weights (carried into the port through ``convert``), a fake host clock
 patched into both serving modules (it stands still inside a step and
 advances ``DT`` before each one, and ``sleep`` returns at once), flags set
 in both packages, and the JAX model's solo greedy decode.
@@ -15,11 +15,14 @@ import numpy as np
 import paddle_tpu as paddle
 from paddle_tpu import flags as jflags
 from paddle_tpu.generation import serving as jserving
+from paddle_tpu.models import GPTConfig as JGPTConfig
+from paddle_tpu.models import GPTForCausalLM as JGPTForCausalLM
 from paddle_tpu.models import LlamaConfig as JLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JLlamaForCausalLM
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.generation import serving as tserving
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM)
 
 DT = 0.01          # fake seconds a step
 
@@ -33,6 +36,19 @@ def tiny_llamas(seed: int, **overrides):
     params, _ = jmodel.raw_state()
     model = LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(),
                                                  **overrides), device="cpu")
+    model.load_numpy_state({k: np.asarray(v) for k, v in params.items()})
+    return jmodel, model
+
+
+def tiny_gpts(seed: int, **overrides):
+    """(the JAX GPT, the port's on the CPU) with the same weights; the tiny
+    config with ``overrides``."""
+    paddle.seed(seed)
+    jmodel = JGPTForCausalLM(dataclasses.replace(JGPTConfig.tiny(),
+                                                 **overrides))
+    params, _ = jmodel.raw_state()
+    model = GPTForCausalLM(dataclasses.replace(GPTConfig.tiny(),
+                                               **overrides), device="cpu")
     model.load_numpy_state({k: np.asarray(v) for k, v in params.items()})
     return jmodel, model
 
