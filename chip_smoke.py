@@ -220,6 +220,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               exact, no fused kernel; a capture a key), generate (B = 4,
               P = 128, N = 32: #1 24 launches), the model as its own draft
               at γ = 2, batch 1 (acceptance, round ms, exact launches);
+     memwatch serve's engine and traffic on the fused (N = 1) and generic
+              routes, each on a native and an int8 pool, telemetry and
+              memwatch on: the program table (a row per captured decode
+              rung and chunk program, each graph's temp, its private
+              memory pool, > 0) printed; estimate_engine_memory's weight
+              and KV-pool terms equal to the bytes of the engine's weight
+              and pool tensors, its total beside the run's allocator peak
+              and each row's estimated temp beside the captured one
+              (reported); plan_fused_layers' scratch equal to the kernel's
+              own size query (ptt_fused_multi_block_decode_scratch) at
+              serve's and serve_long's shapes, native and int4, each plan
+              fitting the card; the fused native run again with memwatch
+              off: streams token for token and launches equal, no row
+              added, both graphed step times;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -274,16 +288,19 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               TrainStep(grad_accum_steps=2) + AdamW + global-norm clip +
               warmup/cosine LR, 5 steps on one fixed batch of 2 x 4096
               tokens: finite, falling losses, each flash kernel launched
-              8 layers x 2 micro-batches x 5 steps = 80 times;
+              8 layers x 2 micro-batches x 5 steps = 80 times; the step's
+              memwatch row (its first step's rise of the allocator peak
+              as temp) printed;
      train_remat
               the same model, batch and trainer with remat=True: the first
               step's gradients equal (bit for bit) to the same step
               without remat, then 5 steps timed as train, with a lower
               peak memory than train's and the forward kernel launched
               twice a layer and micro-batch (160), dq and dk/dv 80;
-     fit      the slice's main path: Model.fit on the same width and
-              depth, amp.decorate(O2, bf16) without f32 masters (its two
-              checkpoints must stay within what a call may write), AdamW over
+     fit      the slice's main path: Model.fit on the same width at 4
+              layers, amp.decorate(O2, bf16) without f32 masters (its two
+              checkpoints and fit_faults' two must stay within what a call
+              may write), AdamW over
               two parameter groups with no decay on the norms,
               warmup/cosine LR, global-norm clip and
               LlamaPretrainingCriterion, over a DataLoader of 16 seeded
@@ -298,6 +315,22 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               clock beside a bare TrainStep loop's on the same batches,
               tokens/s, MFU, peak memory and the host's share of time
               blocked on loss reads;
+     fit_faults
+              fit's recipe at 2 layers under FLAGS_fault_inject=
+              "train_dispatch:every=4:times=1;train_sync:every=2:times=1;
+              checkpoint_save:every=1:times=1" with its save_dir under
+              build/fit_faults (a ModelCheckpoint without a directory, so
+              only emergency checkpoints are written): every fault
+              recovered, the recovery counters and faults_injected{site}
+              equal to the schedule, the emergency checkpoint loading
+              back, the final parameters bit for bit those of a
+              fault-free fit over the same batches, each flash kernel
+              launched 2 x 2 x 6 times (the failed dispatch launched
+              nothing); train_max_retries=1 under train_dispatch:every=1
+              raising InjectedFault; nan_policy="stop" on a NaN loss at
+              the end of epoch 0 (of 2) writing the checkpoint and
+              stopping after that epoch; the recovery ms and the
+              emergency save's seconds and bytes;
   7. train_parity
               one fp32 TrainStep at full width, 2 layers, S=512 on the card
               (kernels) and on a CPU copy (plain versions): losses and every
@@ -320,6 +353,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               with kernel, plain, library (torch.nn.functional.rms_norm;
               SDPA per document, summed) and bound times (the flash
               kernels also bound_frac).
+  9. nan_check
+              FLAGS_check_nan_inf on a 2-layer bf16 Llama at 7B width, a
+              forward and backward of one 1024-token row: off, no dispatch
+              mode installed; on, a clean step's loss equal to the
+              unchecked one; a NaN planted in layer 1's down projection
+              raises FloatingPointError naming the first ATen op whose
+              output is not finite (a matmul), the op the level-1 run
+              warns about first, and level 1 completes with a NaN loss;
+              the checked step's ms against the unchecked one.
 Then the card's name and power limit (nvidia-smi), the per-kernel summary
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -406,10 +448,23 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # log-space merge of two half-key calls against the whole call, abs
 WITH_LSE_SHAPES = TRAIN_SHAPES[:2]
 MERGE_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
-# fit: Model.fit at the train phase's width and depth over a DataLoader of
-# seeded 4096-token rows, batch 2 split in 2 micro-batches, 6 steps
+# fit: Model.fit at the train phase's width, 4 layers, over a DataLoader of
+# seeded 4096-token rows, batch 2 split in 2 micro-batches, 6 steps. The
+# depth is what a chip call may write: fit's two checkpoints (12 bytes a
+# parameter: bf16 saved as f32 and AdamW's two f32 slots) and fit_faults'
+# two emergency checkpoints stay under 45 GiB together
+FIT_LAYERS = 4
 FIT_ROWS, FIT_BATCH, FIT_ACCUM, FIT_STEPS, FIT_METRICS_EVERY = 16, 2, 2, 6, 2
 FIT_CKPT_DIR = "build/fit_ckpt"
+# fit_faults: fit's recipe at 2 layers under a fault schedule (the dispatch
+# fault's recovery meets the sync fault in its drain and the save fault in
+# its emergency checkpoint); its checkpoints under build/fit_faults
+FAULTS_LAYERS = 2
+FIT_FAULT_SPEC = ("train_dispatch:every=4:times=1;train_sync:every=2:times=1;"
+                  "checkpoint_save:every=1:times=1")
+FIT_FAULTS_DIR = "build/fit_faults"
+# nan_check: a 2-layer bf16 forward and backward of one 1024-token row
+NAN_LAYERS, NAN_SEQ = 2, 1024
 # train_varlen: fused RMSNorm (case, rows, width), eps of Llama-2
 RMS_SHAPES = (("llama2_7b width", 8192, 4096),
               ("llama2_70b width", 4096, 8192))
@@ -1511,9 +1566,10 @@ LONG_RUNS = ((1, "native", "native"), (GROUP_LAYERS, "native", "native"),
 
 
 def run_serve(device):
-    """The serving phases, then generate, handoff, fleet and quant, on one
-    Llama-2-7B. Returns the kernel launch counts of every run, summed, and
-    by path: the serving phases, generate, handoff, fleet, quant."""
+    """The serving phases, then generate, handoff, fleet, quant and
+    memwatch, on one Llama-2-7B. Returns the kernel launch counts of every
+    run, summed, and by path: the serving phases, generate, handoff, fleet,
+    quant, memwatch."""
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b()
@@ -1570,7 +1626,8 @@ def run_serve(device):
     by_path = {"serve": dict(total)}
     for path, run in (("generate", run_generate), ("handoff", run_handoff),
                       ("fleet", run_fleet),
-                      ("quant", lambda m: run_quant(m, generic_step_ms))):
+                      ("quant", lambda m: run_quant(m, generic_step_ms)),
+                      ("memwatch", run_memwatch)):
         counts = run(model)
         by_path[path] = counts
         total = {k: total.get(k, 0) + counts.get(k, 0) for k in total}
@@ -4352,6 +4409,155 @@ def run_quant(model, bf16_generic_step_ms):
     return total
 
 
+# (fused decode, kv_dtype) of the memwatch phase's engines
+MEMWATCH_RUNS = ((True, "native"), (True, "int8"), (False, "native"),
+                 (False, "int8"))
+
+
+def memwatch_planner(dims) -> list:
+    """plan_fused_layers' scratch price against the kernel's own size query
+    (ptt_fused_multi_block_decode_scratch) at serve's and serve_long's
+    shapes, native and int4, for a group of GROUP_LAYERS layers; the plans
+    must fit the card's shared memory a block and its memory."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels.fused_block_decode import _SCRATCH_ARGTYPES
+    from paddle_tpu_torch.kernels.paged_attention import decode_split_plan
+    from paddle_tpu_torch.observability import memory as mem
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    size = _build.bind("fused_multi_block_decode",
+                       "ptt_fused_multi_block_decode_scratch",
+                       _SCRATCH_ARGTYPES, ctypes.c_longlong)
+    rows = []
+    for max_seq in (MAX_SEQ, LONG_MAX_SEQ):
+        for int4 in (False, True):
+            plan = mem.plan_fused_layers(
+                dims, fused_layers=GROUP_LAYERS, batch=BATCH, page_size=PAGE,
+                io_dtype_bytes=2, max_seq_len=max_seq, int4_weights=int4,
+                sm_count=sms, vmem_limit=props.shared_memory_per_block,
+                hbm_bytes=props.total_memory)
+            _, nsplit = decode_split_plan(BATCH, dims.heads, dims.kv_heads,
+                                          -(-max_seq // PAGE), PAGE, sms)
+            floats = size(_build.dtype_code(torch.bfloat16), int(int4),
+                          BATCH, dims.hidden, dims.heads, dims.kv_heads,
+                          dims.head_dim, dims.intermediate, nsplit)
+            require(plan["breakdown"]["scratch"] == 4 * floats,
+                    f"memwatch: plan_fused_layers prices "
+                    f"{plan['breakdown']['scratch']} scratch bytes, the "
+                    f"kernel asks {4 * floats} (max_seq {max_seq}, int4 "
+                    f"{int4})")
+            require(plan["fits"], f"memwatch: the N-layer decode does not "
+                    f"fit the card: {plan}")
+            rows.append(dict(max_seq_len=max_seq, int4=int4,
+                             nsplit=plan["nsplit"],
+                             scratch_bytes=plan["breakdown"]["scratch"],
+                             kernel_scratch_floats=int(floats),
+                             shared_per_block=plan["shared_per_block"],
+                             shared_limit=plan["vmem_limit"]))
+    return rows
+
+
+def run_memwatch(model) -> dict:
+    """memwatch on serve's Llama-2-7B engine: serve's traffic through the
+    fused (N = 1) and generic routes, each on a native and an int8 pool,
+    with telemetry and memwatch on. The program table has a row for each
+    captured decode rung and chunk program, each graphed row's temp (the
+    graph's private pool) > 0; estimate_engine_memory's weight and KV-pool
+    terms equal the engine's weight and pool tensors' bytes exactly; its
+    total beside the run's allocator peak, and each row's estimated temp
+    beside the captured one (reported, not gated); the planner's scratch
+    against the kernel's; then the fused native run again with memwatch
+    off: streams token for token and launches equal, no new row, the
+    graphed step ms of both. Returns the summed launch counts."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.generation.program_cache import (
+        clear_decode_program_cache, model_signature)
+    from paddle_tpu_torch.observability import memory as mem
+    cfg = model.config
+    dims = mem.ModelDims.of_config(cfg)
+    sig = model_signature(model)[:8]
+    require(mem.enabled(), "memwatch: FLAGS_telemetry and FLAGS_memwatch "
+            "must be on")
+    mem.clear_program_table()
+    clear_decode_program_cache()          # binds memwatch under the flags
+    weights = mem.tensor_bytes(model)
+    runs, total, geoms = [], {}, {}
+    for fused, kv in MEMWATCH_RUNS:
+        eng, res, seconds, counts, peak = serve(model, fused, NEW_TOKENS,
+                                                PROMPT_LENS, kv_dtype=kv)
+        check_tokens(res, cfg.vocab_size, NEW_TOKENS)
+        est = mem.estimate_engine_memory(
+            dims, page_size=PAGE, max_batch=BATCH, max_seq_len=MAX_SEQ,
+            chunk=CHUNK, weight_dtype="bfloat16",
+            kv_dtype="int8" if kv == "int8" else "bfloat16")
+        pool = mem.tensor_bytes(eng.pool.k_pages, eng.pool.v_pages)
+        require(est["breakdown"]["weights"] == weights,
+                f"memwatch: estimated weights {est['breakdown']['weights']}"
+                f" != the model's {weights} bytes")
+        require(est["breakdown"]["kv_pool"] == pool,
+                f"memwatch {kv}: estimated pool {est['breakdown']['kv_pool']}"
+                f" != the engine's {pool} bytes")
+        geoms[kv] = mem.PoolGeometry.of_pool(eng.pool)
+        runs.append(dict(
+            decode="fused" if fused else "generic", kv_dtype=kv,
+            estimate_total_gb=est["total"] / 1e9, peak_gb=peak / 1e9,
+            estimate_minus_peak_gb=(est["total"] - peak) / 1e9,
+            weights_bytes=weights, kv_pool_bytes=pool,
+            decode_step_ms_median=1e3 * float(np.median(
+                eng.decode_step_seconds))))
+        if (fused, kv) == (True, "native"):
+            on_streams = [t for _, _, t in res]
+            on_counts = counts
+            on_step_ms = runs[-1]["decode_step_ms_median"]
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del eng
+        torch.cuda.empty_cache()
+    table = [r for r in mem.program_table() if r["model"] == sig]
+    want = {("decode_fused", BATCH), ("decode_generic", BATCH),
+            ("prefill_chunk", 1)}
+    require({(r["kind"], r["bucket"]) for r in table} == want
+            and len(table) == 6, f"memwatch: rows {table}")
+    rows = []
+    for r in table:
+        require(r["temp"] > 0, f"memwatch: graphed row without temp: {r}")
+        geom = geoms["int8" if "'int8'" in r["extra"] else "native"]
+        if r["kind"] == "prefill_chunk":
+            est = mem.estimate_prefill_program(dims, geom, CHUNK, weights,
+                                               chunked=True)
+        else:
+            est = mem.estimate_decode_program(dims, geom, r["bucket"],
+                                              weights)
+        rows.append(dict(r, estimated_temp=est["temp"],
+                         estimated_over_captured_temp=est["temp"]
+                         / r["temp"]))
+    print(mem.format_program_table(table), flush=True)
+    planner = memwatch_planner(dims)
+
+    # the fused native run with memwatch off
+    flags.set_flags({"memwatch": False})
+    clear_decode_program_cache()
+    eng, res, seconds, counts, peak = serve(model, True, NEW_TOKENS,
+                                            PROMPT_LENS)
+    off_step_ms = 1e3 * float(np.median(eng.decode_step_seconds))
+    del eng
+    torch.cuda.empty_cache()
+    clear_decode_program_cache()          # later phases: memwatch on again
+    require(mem.enabled(), "memwatch: the flag stayed off")
+    require([t for _, _, t in res] == on_streams,
+            "memwatch: streams differ with memwatch off")
+    require(counts == on_counts, f"memwatch: launches differ with memwatch "
+            f"off: {counts} vs {on_counts}")
+    require([r for r in mem.program_table() if r["model"] == sig] == table,
+            "memwatch: a run with memwatch off recorded a row")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    emit("memwatch", model="llama2_7b", dtype="bf16", rows=rows, runs=runs,
+         planner=planner, memwatch_on_step_ms=on_step_ms,
+         memwatch_off_step_ms=off_step_ms, streams_equal=True,
+         launches_equal=True, launches=total)
+    return total
+
+
 def run_quant_parity(model):
     """The fp32 parity Llama quantized (int8): the engine's streams equal
     to its generate's, token for token (four prompts, one batch)."""
@@ -5049,7 +5255,9 @@ def token_batch(vocab, batch, seq, seed_offset):
 def run_train(device):
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.generation.program_cache import model_signature
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import memory
     cfg = LlamaConfig.llama2_7b()
     cfg.num_hidden_layers = TRAIN_LAYERS
     t0 = time.perf_counter()
@@ -5085,6 +5293,14 @@ def run_train(device):
     flops = 6.0 * n_matmul * tokens + attn
     step_ms = 1e3 * float(np.median(step_s))
     peak = torch.cuda.max_memory_allocated()
+    # memwatch: the step's row (its first step measured)
+    sig = model_signature(model)[:8]
+    rows = [r for r in memory.program_table()
+            if r["kind"] == "train_step" and r["model"] == sig]
+    require(len(rows) == 1 and rows[0]["captures"] == 1
+            and rows[0]["temp"] > 0 and rows[0]["bucket"] == TRAIN_BATCH,
+            f"train: memwatch rows {rows}")
+    print(memory.format_program_table(rows), flush=True)
     emit("train", model="llama2_7b width", layers=TRAIN_LAYERS,
          params=cfg.num_params(), dtype="bf16, f32 masters",
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, grad_accum_steps=TRAIN_ACCUM,
@@ -5095,7 +5311,8 @@ def run_train(device):
          model_flops_per_step=flops, attention_flops_per_step=attn,
          mfu_vs_989_tflops=flops / (step_ms / 1e3) / PEAK_FLOPS[
              torch.bfloat16],
-         launches=counts, model_build_s=build_s)
+         launches=counts, model_build_s=build_s,
+         memwatch_train_step=rows[0])
     del model, trainer, x, y
     torch.cuda.empty_cache()
     return counts, dict(peak=peak, step_ms=step_ms, losses=losses,
@@ -5103,20 +5320,22 @@ def run_train(device):
 
 
 def train_flops(cfg, batch) -> float:
-    """The train phase's model FLOPs of one step of ``batch`` rows of
-    TRAIN_SEQ tokens: 6 x the matmul parameters x tokens, plus causal
-    attention (forward 1x, backward 2.5x)."""
+    """The model FLOPs of one step of ``batch`` rows of TRAIN_SEQ tokens
+    through ``cfg``'s layers: 6 x the matmul parameters x tokens, plus
+    causal attention (forward 1x, backward 2.5x)."""
     n_matmul = cfg.num_params() - cfg.vocab_size * cfg.hidden_size
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn = 3.5 * 4.0 * pairs * cfg.hidden_size * TRAIN_LAYERS * batch
+    attn = (3.5 * 4.0 * pairs * cfg.hidden_size * cfg.num_hidden_layers
+            * batch)
     return 6.0 * n_matmul * batch * TRAIN_SEQ + attn
 
 
-def train_model(device, generator_seed, dtype=torch.bfloat16):
+def train_model(device, generator_seed, dtype=torch.bfloat16,
+                layers=TRAIN_LAYERS):
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b()
-    cfg.num_hidden_layers = TRAIN_LAYERS
+    cfg.num_hidden_layers = layers
     return cfg, LlamaForCausalLM(cfg, device=device, dtype=dtype,
                                  generator=seed(generator_seed, device))
 
@@ -5210,26 +5429,22 @@ def run_train_remat(device, train):
     return counts
 
 
-def run_fit(device, train):
-    """The slice's main path: Model.fit over a DataLoader, with the model
-    decorated by amp (O2, bf16, f32 masters), AdamW over two parameter
-    groups (embedding and head at half the rate), no decay on the norms,
-    LinearWarmup(CosineAnnealingDecay), global-norm clip and
-    LlamaPretrainingCriterion; batches prefetched to the card; the
-    LRScheduler, EarlyStopping and ModelCheckpoint callbacks."""
-    import shutil
-    from paddle_tpu_torch import amp, kernels
-    from paddle_tpu_torch.hapi import Model, TrainStep
-    from paddle_tpu_torch.hapi.callbacks import (Callback, EarlyStopping,
-                                                 LRScheduler,
-                                                 ModelCheckpoint)
+def fit_recipe(device, layers, model_seed):
+    """fit's recipe: the model (7B width, ``layers`` layers) decorated by
+    amp (O2, bf16, no f32 masters), AdamW over two parameter groups
+    (embedding and head at half the rate), no decay on the norms,
+    LinearWarmup(CosineAnnealingDecay), global-norm clip,
+    LlamaPretrainingCriterion and a DataLoader factory over FIT_ROWS seeded
+    rows. Returns (cfg, model, optimizer, criterion, loader factory)."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.io import DataLoader, TensorDataset
     from paddle_tpu_torch.models import LlamaPretrainingCriterion
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                                LinearWarmup)
-    cfg, model = train_model(device, SEED + 21, dtype=torch.float32)
+    cfg, model = train_model(device, model_seed, dtype=torch.float32,
+                             layers=layers)
     outer = ("llama.embed_tokens.weight", "lm_head.weight")
     named = list(model.named_parameters())
     opt = AdamW(LinearWarmup(CosineAnnealingDecay(3e-4, T_max=FIT_STEPS),
@@ -5255,6 +5470,22 @@ def run_fit(device, train):
     def loader():
         return DataLoader(data, batch_size=FIT_BATCH, shuffle=True,
                           seed=SEED + 31)
+    return cfg, model, opt, crit, loader
+
+
+def run_fit(device):
+    """The slice's main path: Model.fit over a DataLoader on fit_recipe's
+    model, optimizer and criterion; batches prefetched to the card; the
+    LRScheduler, EarlyStopping and ModelCheckpoint callbacks."""
+    import shutil
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.hapi import Model, TrainStep
+    from paddle_tpu_torch.hapi.callbacks import (Callback, EarlyStopping,
+                                                 LRScheduler,
+                                                 ModelCheckpoint)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg, model, opt, crit, loader = fit_recipe(device, FIT_LAYERS,
+                                               SEED + 21)
 
     # the reference: a bare TrainStep's loss on the loader's first batch,
     # on a copy of the same weights
@@ -5319,12 +5550,12 @@ def run_fit(device, train):
             and math.isfinite(rec.epoch_loss), f"fit losses {losses}")
     require(losses.get(0) == ref_loss, f"fit: first loss {losses.get(0)} "
             f"!= a bare TrainStep's {ref_loss}")
-    micro = TRAIN_LAYERS * FIT_ACCUM * FIT_STEPS
+    micro = FIT_LAYERS * FIT_ACCUM * FIT_STEPS
     for name in TRAIN_KERNELS:
         require(counts[name] == micro, f"fit: {name} ran {counts[name]} "
                 f"times, want {micro}")
     # the checkpoint loads back into a fresh model with equal parameters
-    _, fresh = train_model(device, SEED + 22)
+    _, fresh = train_model(device, SEED + 22, layers=FIT_LAYERS)
     Model(fresh).load(os.path.join(FIT_CKPT_DIR, "final"),
                       reset_optimizer=True)
     torch.cuda.synchronize()
@@ -5361,7 +5592,7 @@ def run_fit(device, train):
     bare_ms = start.elapsed_time(end) / (FIT_STEPS - 1)
     tokens = FIT_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, FIT_BATCH)
-    emit("fit", model="llama2_7b width", layers=TRAIN_LAYERS,
+    emit("fit", model="llama2_7b width", layers=FIT_LAYERS,
          dtype="bf16 (amp O2), no masters", rows=FIT_ROWS,
          batch=FIT_BATCH, seq=TRAIN_SEQ, accumulate_grad_batches=FIT_ACCUM,
          metrics_every=FIT_METRICS_EVERY, steps=FIT_STEPS,
@@ -5370,7 +5601,6 @@ def run_fit(device, train):
          bare_trainstep_first_loss=ref_loss,
          step_ms=fit_ms, host_gap_ms=[float(g) for g in gaps],
          bare_trainstep_step_ms=bare_ms, fit_overhead_ms=fit_ms - bare_ms,
-         train_step_ms_median=train["step_ms"],
          tokens_per_s=tokens / (fit_ms / 1e3),
          mfu_vs_989_tflops=flops / (fit_ms / 1e3) / PEAK_FLOPS[
              torch.bfloat16],
@@ -5380,6 +5610,286 @@ def run_fit(device, train):
          checkpoint_bytes=ckpt_bytes,
          disk_free_gb=disk_free_gb, launches=counts)
     del model, opt, fitted, loop, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def counter_values(*names) -> dict:
+    """The registry's current value of each series of ``names``."""
+    from paddle_tpu_torch import observability as obs
+    snap = obs.snapshot()["metrics"]
+    out = {}
+    for name in names:
+        for s in snap.get(name, {}).get("series", []):
+            key = name + "".join(f"{{{k}={v}}}"
+                                 for k, v in sorted(s["labels"].items()))
+            out[key] = s.get("value", s.get("count"))
+    return out
+
+
+def counter_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+FAULT_COUNTERS = ("train_retries_total", "train_recoveries",
+                  "train_emergency_checkpoints", "train_nan_losses",
+                  "faults_injected")
+
+
+def faults_fit(device, spec="", save_dir=None, loss=None, **fit_kw):
+    """fit's recipe at FAULTS_LAYERS layers, FIT_STEPS steps, under the
+    fault ``spec`` (backoff 0). A ModelCheckpoint without a directory
+    stands in for the one ``save_dir`` would add, so only emergency
+    checkpoints are written. Each recovery's and each emergency save's
+    seconds are timed. Returns (the Model, its network)."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import ModelCheckpoint
+    from paddle_tpu_torch.testing import faults
+
+    class Timed(Model):
+        def _recover_batch(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return super()._recover_batch(*a, **kw)
+            finally:
+                self.recover_s.append(time.perf_counter() - t0)
+
+        def _emergency_checkpoint(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = super()._emergency_checkpoint(*a, **kw)
+            torch.cuda.synchronize()
+            self.save_s.append(time.perf_counter() - t0)
+            return out
+
+    cfg, model, opt, crit, loader = fit_recipe(device, FAULTS_LAYERS,
+                                               SEED + 41)
+    fitted = Timed(model)
+    fitted.recover_s, fitted.save_s = [], []
+    fitted.prepare(opt, loss=loss or crit)
+    kw = dict(epochs=1, accumulate_grad_batches=FIT_ACCUM,
+              metrics_every=FIT_METRICS_EVERY, num_iters=FIT_STEPS,
+              prefetch_to_device=True, verbose=0, save_dir=save_dir,
+              callbacks=[ModelCheckpoint(save_dir=None)])
+    kw.update(fit_kw)
+    arm = (faults.armed(spec, train_retry_backoff=0.0) if spec
+           else contextlib.nullcontext())
+    with arm:
+        fitted.fit(loader(), **kw)
+    torch.cuda.synchronize()
+    return fitted, model
+
+
+def checkpoint_bytes(path) -> int:
+    return sum(os.path.getsize(path + ext) for ext in (".pdparams", ".pdopt")
+               if os.path.exists(path + ext))
+
+
+def run_fit_faults(device) -> dict:
+    """fit's recipe at 2 layers under FLAGS_fault_inject=FIT_FAULT_SPEC:
+    every fault recovered (the dispatch fault re-dispatched, the sync fault
+    retried in that recovery's drain, the save fault retried inside its
+    emergency checkpoint), the recovery counters and faults_injected{site}
+    equal to the schedule, the emergency checkpoint under build/ loading
+    back, and the final parameters bit for bit those of a fault-free fit
+    over the same batches (the step's kernels and AdamW are deterministic:
+    fit's first loss equals a bare TrainStep's exactly); then a budget of
+    train_max_retries=1 under train_dispatch:every=1 raising InjectedFault,
+    and nan_policy="stop" on a NaN loss writing the checkpoint and
+    stopping. Reports the recovery ms and the emergency save's seconds and
+    bytes. Returns the launch counts of the faulted fit."""
+    import shutil
+    import warnings
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.framework import load
+    from paddle_tpu_torch.testing import faults
+    shutil.rmtree(FIT_FAULTS_DIR, ignore_errors=True)
+    clean, clean_model = faults_fit(device)
+    want = {k: p.detach().clone() for k, p in clean_model.named_parameters()}
+    del clean, clean_model
+    torch.cuda.empty_cache()
+
+    before = counter_values(*FAULT_COUNTERS)
+    kernels.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fitted, model = faults_fit(device, FIT_FAULT_SPEC,
+                                   save_dir=FIT_FAULTS_DIR)
+    counts = kernels.launch_counts()
+    delta = counter_delta(before, counter_values(*FAULT_COUNTERS))
+    schedule = {"train_retries_total": 2, "train_recoveries": 1,
+                "train_emergency_checkpoints": 1,
+                "faults_injected{site=train_dispatch}": 1,
+                "faults_injected{site=train_sync}": 1,
+                "faults_injected{site=checkpoint_save}": 1}
+    require(delta == schedule, f"fit_faults: counters {delta}, want "
+            f"{schedule}")
+    require(fitted._optimizer.state_dict()["@step"] == FIT_STEPS,
+            "fit_faults: an update was lost or repeated")
+    differ = [k for k, p in model.named_parameters()
+              if not torch.equal(p, want[k])]
+    require(not differ, f"fit_faults: parameters differ from the fault-free "
+            f"fit: {differ[:3]}")
+    micro = FAULTS_LAYERS * FIT_ACCUM * FIT_STEPS
+    for name in TRAIN_KERNELS:     # the failed dispatch launched nothing
+        require(counts[name] == micro, f"fit_faults: {name} ran "
+                f"{counts[name]} times, want {micro}")
+    path = os.path.join(FIT_FAULTS_DIR, "emergency")
+    ckpt_bytes = checkpoint_bytes(path)
+    state = load(path + ".pdparams")
+    names = dict(model.named_parameters())
+    require(sorted(state) == sorted(model.state_dict())
+            and all(state[k].shape == names[k].shape
+                    and bool(torch.isfinite(state[k]).all())
+                    for k in names), "fit_faults: the emergency checkpoint")
+    recover_ms = [1e3 * s for s in fitted.recover_s]
+    save_s = list(fitted.save_s)
+    del fitted, model, want, state
+    torch.cuda.empty_cache()
+
+    # an exhausted budget: every dispatch fails, one retry
+    before = counter_values(*FAULT_COUNTERS)
+    raised = None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            with faults.armed("train_dispatch:every=1", train_max_retries=1,
+                              train_retry_backoff=0.0):
+                faults_fit(device)
+        except faults.InjectedFault as e:
+            raised = e
+    require(raised is not None, "fit_faults: an exhausted budget did not "
+            "raise InjectedFault")
+    exhausted = counter_delta(before, counter_values(*FAULT_COUNTERS))
+    require(exhausted.get("train_retries_total") == 1
+            and "train_recoveries" not in exhausted,
+            f"fit_faults: exhausted budget counters {exhausted}")
+    torch.cuda.empty_cache()
+
+    # nan_policy="stop": two epochs, a NaN loss at epoch 0's last step,
+    # read at the epoch's sync (a NaN read mid-epoch is read again at the
+    # sync: two checkpoints, as in the reference)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaPretrainingCriterion
+    crit = LlamaPretrainingCriterion(LlamaConfig.llama2_7b())
+    epoch_steps = FIT_ROWS // FIT_BATCH
+    calls = [0]
+
+    def nan_at_the_epoch_end(logits, labels):
+        calls[0] += 1
+        loss = crit(logits, labels)
+        last = FIT_ACCUM * (epoch_steps - 1) + 1
+        return loss * float("nan") if calls[0] == last else loss
+
+    nan_dir = os.path.join(FIT_FAULTS_DIR, "nan")
+    before = counter_values(*FAULT_COUNTERS)
+    with warnings.catch_warnings(record=True) as nan_warned:
+        warnings.simplefilter("always")
+        stopped, _ = faults_fit(device, save_dir=nan_dir,
+                                loss=nan_at_the_epoch_end, nan_policy="stop",
+                                epochs=2, num_iters=None)
+    nan_delta = counter_delta(before, counter_values(*FAULT_COUNTERS))
+    nan_path = os.path.join(nan_dir, "emergency")
+    require(stopped.stop_training and os.path.exists(nan_path + ".pdparams")
+            and nan_delta.get("train_nan_losses") == 1
+            and nan_delta.get("train_emergency_checkpoints") == 1,
+            f"fit_faults: nan_policy='stop' {nan_delta}")
+    stop_step = stopped._optimizer.state_dict()["@step"]
+    require(stop_step == epoch_steps, f"fit_faults: the NaN stop came after "
+            f"{stop_step} updates, want {epoch_steps}")
+    nan_bytes = checkpoint_bytes(nan_path)
+    del stopped
+    shutil.rmtree(FIT_FAULTS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit("fit_faults", model="llama2_7b width", layers=FAULTS_LAYERS,
+         dtype="bf16 (amp O2), no masters", steps=FIT_STEPS,
+         spec=FIT_FAULT_SPEC, counters=delta,
+         recovery_warnings=sum("attempting recovery" in str(w.message)
+                               for w in caught),
+         params_equal_fault_free=True, recover_ms=recover_ms,
+         emergency_save_s=save_s, emergency_checkpoint_bytes=ckpt_bytes,
+         exhausted_raised=repr(raised), exhausted_counters=exhausted,
+         nan_stop_updates=stop_step, nan_counters=nan_delta,
+         nan_checkpoint_bytes=nan_bytes,
+         nan_warnings=len(nan_warned), launches=counts)
+    return counts
+
+
+def run_nan_check(device) -> dict:
+    """FLAGS_check_nan_inf on the card: a 2-layer bf16 Llama (7B width),
+    forward and backward of one NAN_SEQ-token row. Off, no dispatch mode is
+    installed; on (level 0) a clean step runs; with a NaN planted in layer
+    1's down projection the step raises FloatingPointError naming the first
+    ATen op whose output is not finite (a matmul), the same op the level-1
+    run warns about first, and level 1 completes with a NaN loss. Reports
+    the checked step's ms against the unchecked one. Returns the launch
+    counts of the checked steps."""
+    import warnings
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    cfg, model = train_model(device, SEED + 51, layers=NAN_LAYERS)
+    crit = LlamaPretrainingCriterion(cfg)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, 1, NAN_SEQ,
+                                              9))
+
+    def step():
+        loss = crit(model(x), y)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach())
+
+    def timed(n=3):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss = step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n, loss
+
+    require(not dbg.checker_installed() and _get_current_dispatch_mode()
+            is None, "nan_check: a dispatch mode is installed with the flag "
+            "off")
+    plain_ms, plain_loss = timed()
+    kernels.reset_launches()
+    dbg.enable_tensor_checker()
+    require(dbg.checker_installed(), "nan_check: no checker installed")
+    checked_ms, checked_loss = timed()
+    counts = kernels.launch_counts()
+    dbg.disable_tensor_checker()
+    require(math.isfinite(checked_loss) and checked_loss == plain_loss,
+            f"nan_check: checked loss {checked_loss}, plain {plain_loss}")
+    with torch.no_grad():
+        model.llama.layers[1].mlp.down_proj.weight[3, 5] = float("nan")
+    dbg.enable_tensor_checker()
+    try:
+        step()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    dbg.disable_tensor_checker()
+    model.zero_grad(set_to_none=True)
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+        debug_mode=dbg.DebugMode.CHECK_NAN_INF))
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        warn_loss = step()
+    dbg.disable_tensor_checker()
+    first = str(warned[0].message) if warned else None
+    require(raised is not None and raised == first
+            and any(f"'aten::{op}" in raised
+                    for op in ("mm", "addmm", "matmul", "bmm")),
+            f"nan_check: raised {raised!r}, level 1 warned first {first!r}")
+    require(math.isnan(warn_loss), f"nan_check: level 1 loss {warn_loss}")
+    require(not dbg.checker_installed() and _get_current_dispatch_mode()
+            is None, "nan_check: the checker stayed installed")
+    emit("nan_check", model="llama2_7b width", layers=NAN_LAYERS,
+         dtype="bf16", seq=NAN_SEQ, raised=raised,
+         level1_warnings=len(warned), level1_loss=warn_loss,
+         plain_step_ms=plain_ms, checked_step_ms=checked_ms,
+         checked_over_plain=checked_ms / plain_ms, launches=counts)
+    del model
     torch.cuda.empty_cache()
     return counts
 
@@ -5837,7 +6347,8 @@ def main() -> int:
             lse_counts[n] = lse_counts.get(n, 0) + c
     train_counts, train = run_train(device)
     remat_counts = run_train_remat(device, train)
-    fit_counts = run_fit(device, train)
+    fit_counts = run_fit(device)
+    fit_fault_counts = run_fit_faults(device)
     run_train_parity(device)
 
     varlen_counts = run_train_varlen(device)
@@ -5845,6 +6356,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_rms_norm(dtype, device, varlen_rows)
         check_varlen_attention(dtype, device, varlen_rows)
+    nan_counts = run_nan_check(device)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5861,7 +6373,9 @@ def main() -> int:
             launches = fit_counts[name]          # this slice's main path
             by_path = dict(train=train_counts[name],
                            train_remat=remat_counts[name],
-                           fit=launches, with_lse=lse_counts[name])
+                           fit=launches, with_lse=lse_counts[name],
+                           fit_faults=fit_fault_counts[name],
+                           nan_check=nan_counts[name])
         elif name in VARLEN_KERNELS:
             rows = [r for r in varlen_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]

@@ -7,9 +7,12 @@ reference's dispatch does: O1 casts white-listed ops' f32 inputs to the AMP
 dtype, O2 every op's outside the black list, and a black-listed op gets
 its bf16/fp16 inputs in f32. ``decorate`` casts a model's float parameters
 for O2 and turns on the optimizer's f32 masters. ``GradScaler`` is the
-reference's dynamic loss scaling. Not ported: ``amp/debugging.py``.
+reference's dynamic loss scaling. :mod:`.debugging` is the NaN/Inf checker
+(``FLAGS_check_nan_inf``), ``checked_jit``, ``check_numerics`` and the
+offline ``compare_accuracy``.
 """
 
+from . import debugging
 from .auto_cast import (amp_cast, amp_guard, amp_state, auto_cast,
                         black_list, decorate, white_list)
 from .grad_scaler import AmpScaler, GradScaler
@@ -33,5 +36,5 @@ def is_bfloat16_supported(device=None) -> bool:
 
 
 __all__ = ["AmpScaler", "GradScaler", "amp_cast", "amp_guard", "amp_state",
-           "auto_cast", "black_list", "decorate", "is_bfloat16_supported",
-           "is_float16_supported", "white_list"]
+           "auto_cast", "black_list", "debugging", "decorate",
+           "is_bfloat16_supported", "is_float16_supported", "white_list"]

@@ -11,7 +11,7 @@ when read or set; values no version serves raise ``ValueError``.
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 
 def _parse_bool(s: str) -> bool:
@@ -108,7 +108,31 @@ _FLAGS: Dict[str, tuple] = {
     # base seconds of the recovery backoff; doubles per consecutive
     # no-progress recovery (capped at 2 s)
     "serving_retry_backoff": (0.05, _any),
+    # compiled-program memory capture (observability.memory): each decode,
+    # chunk and speculative program's first build on the CPU or CUDA-graph
+    # capture on the card, and each TrainStep batch signature's first step,
+    # banks its memory sections as program_memory_bytes gauges and a row of
+    # the memwatch program table. Rides FLAGS_telemetry (telemetry off =
+    # memwatch off); not in PROGRAM_FLAGS: toggling it never rebuilds a
+    # program or a graph
+    "memwatch": (True, _any),
+    # Model.fit step recovery: retries of a failed step (sync to the last
+    # good state, emergency checkpoint, backoff, re-dispatch) before the
+    # original exception propagates
+    "train_max_retries": (2, _any),
+    # base seconds of the fit recovery backoff; doubles per attempt (capped
+    # at 2 s)
+    "train_retry_backoff": (0.05, _any),
+    # check every op output for NaN/Inf (amp.debugging: a dispatch mode is
+    # installed while the flag is on); level 0 aborts with
+    # FloatingPointError, >= 1 warns. Neither flag keys a program or a graph
+    "check_nan_inf": (False, _any),
+    "check_nan_inf_level": (0, _any),
 }
+
+# name -> callbacks run with the flag's new value after set_flags or
+# reset_flags changes it (amp.debugging installs its checker this way)
+_HOOKS: Dict[str, List[Callable[[Any], None]]] = {}
 
 _values: Dict[str, Any] = {}
 
@@ -184,10 +208,24 @@ def snapshot(names=None) -> FlagSnapshot:
 
 # The flags a decode program reads: the flag part of a decode program's
 # cache key (``generation/program_cache.py``), so engines built under other
-# values of these never share a program. Telemetry, fault injection and the
-# recovery budget are not among them: toggling them never rebuilds a
-# program or a graph.
+# values of these never share a program. Telemetry, memwatch, fault
+# injection, the recovery budgets and the NaN/Inf checker are not among
+# them: toggling them never rebuilds a program or a graph.
 PROGRAM_FLAGS = ("fused_block_decode", "fused_block_layers")
+
+
+def on_change(name: str, fn: Callable[[Any], None]) -> None:
+    """Call ``fn(value)`` whenever :func:`set_flags` or :func:`reset_flags`
+    gives flag ``name`` a new value."""
+    _HOOKS.setdefault(_norm(name), []).append(fn)
+
+
+def _notify(before: Dict[str, Any]) -> None:
+    for key, old in before.items():
+        new = get_flag(key)
+        if new != old:
+            for fn in _HOOKS[key]:
+                fn(new)
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
@@ -197,9 +235,13 @@ def set_flags(flags: Dict[str, Any]) -> None:
         key = _norm(name)
         parsed[key] = _parse(key, value)
         _FLAGS[key][1](parsed[key])
+    before = {k: get_flag(k) for k in parsed if k in _HOOKS}
     _values.update(parsed)
+    _notify(before)
 
 
 def reset_flags() -> None:
     """Forget every :func:`set_flags` value (the environment still counts)."""
+    before = {k: get_flag(k) for k in _HOOKS}
     _values.clear()
+    _notify(before)

@@ -107,7 +107,11 @@ def _unpack(obj: Any, return_numpy=False) -> Any:
 
 def save(obj: Any, path: str, protocol: int = 4, **configs) -> None:
     """``paddle.save``: pickle a nested structure of tensors to ``path``
-    (its directory is made)."""
+    (its directory is made). ``checkpoint_save`` is a fault site
+    (``FLAGS_fault_inject``): it fires before anything touches the disk,
+    so an injected failure leaves no partial file."""
+    from ..testing import faults
+    faults.check("checkpoint_save", path=path)
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)

@@ -21,7 +21,13 @@ is always "1" here), and ``program_cache_compile_seconds`` times each: the
 first call on the CPU, the eager warm-up plus the graph capture on the
 card. The ``program_build`` fault site is checked before every build (bound
 when the cache is made: :func:`clear_decode_program_cache` re-arms it).
-The JAX package's compiled-memory capture is not part of this module yet.
+
+Memwatch (``FLAGS_memwatch``, riding the telemetry gate, bound when the
+cache is made): each trace also banks the program's memory sections into
+``program_memory_bytes`` and the program table
+(:mod:`..observability.memory`), one row per (model signature prefix,
+kind, bucket, extra): the first call on the CPU, each capture on the card
+(so ``captures`` counts an engine's graphs of the key there).
 
 The cache never evicts: a generic program holds no model, but a graph held
 by an engine keeps that engine's pools alive with the engine.
@@ -104,6 +110,7 @@ class DecodeProgramCache:
         self.hits = 0
         self.misses = 0
         self._telemetry = obs.enabled()
+        self._memwatch = self._telemetry and obs.memory.enabled()
         if self._telemetry:
             r = obs.registry()
             self._m_hits = r.counter(
@@ -128,13 +135,15 @@ class DecodeProgramCache:
             self._m_hits = self._m_misses = obs.NULL
             self._m_traces = self._m_compile = obs.NULL
 
-    def get(self, key: DecodeKey,
-            builder: Callable[[Callable[[float], None]], Any]):
+    def get(self, key: DecodeKey, builder: Callable[[Callable], Any]):
         """The program for ``key``, built on first use (after the
         ``program_build`` fault check). ``builder(note_trace)`` returns the
-        program; ``note_trace(seconds)`` adds one to ``trace_count(key)``
-        and the seconds to the key's build time each time it runs (at the
-        first call on the CPU, at each capture on the card)."""
+        program; ``note_trace(seconds, measure=None)`` adds one to
+        ``trace_count(key)`` and the seconds to the key's build time each
+        time it runs (at the first call on the CPU, at each capture on the
+        card), and under memwatch records ``measure()``'s memory sections
+        (``note_trace.memwatch`` says whether it will: a caller measures
+        nothing otherwise)."""
         with self._lock:
             fn = self._programs.get(key)
             if fn is not None:
@@ -153,12 +162,13 @@ class DecodeProgramCache:
                 self._m_hits.inc()
             return cur
 
-    def _tracer(self, key: DecodeKey) -> Callable[[float], None]:
+    def _tracer(self, key: DecodeKey) -> Callable:
         labels = dict(kind=key.kind, model=key.model_sig[:8], tp="1")
         traces = self._m_traces.labels(**labels)
         compile_s = self._m_compile.labels(**labels)
+        memwatch = self._memwatch
 
-        def note_trace(seconds: float):
+        def note_trace(seconds: float, measure=None):
             with self._lock:
                 self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
                 if self._telemetry:
@@ -166,6 +176,11 @@ class DecodeProgramCache:
                         self._compile_seconds.get(key, 0.0) + seconds)
             traces.inc()
             compile_s.observe(seconds)
+            if memwatch and measure is not None:
+                obs.memory.capture_program(
+                    key.kind, key.batch_bucket, key.extra, measure,
+                    model=key.model_sig[:8])
+        note_trace.memwatch = memwatch
         return note_trace
 
     def trace_count(self, key: DecodeKey) -> int:

@@ -649,7 +649,8 @@ def _spec_verify_step(sample, top_k, model, ids, pools, bt, sl, *law):
 class _DecodeProgram:
     """What the program cache holds for one key: the eager step and the
     key's trace probe. On the CPU the program's first call is its trace
-    (timed onto the probe); on the card the graphs note their captures."""
+    (timed onto the probe, its memory sections counted from the tensors
+    under memwatch); on the card the graphs note their captures."""
 
     def __init__(self, step, note_trace, traced: bool):
         self.step = step
@@ -662,7 +663,11 @@ class _DecodeProgram:
         t0 = time.perf_counter()
         out = self.step(*args)
         self._traced = True
-        self.note_trace(time.perf_counter() - t0)
+        # args: (weights, first input, pools, *other inputs); out:
+        # (outputs, pool pairs)
+        self.note_trace(time.perf_counter() - t0,
+                        lambda: obs.memory.stats_from_tensors(
+                            args, out, args[2]))
         return out
 
 
@@ -672,6 +677,16 @@ def _build_decode(note_trace, step, on_card):
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _graph_pool_bytes(graph, device) -> int:
+    """Bytes of the segments the caching allocator holds for ``graph``'s
+    private memory pool (``torch.cuda.memory_snapshot``)."""
+    pool = tuple(graph.pool())
+    index = torch.device(device).index or 0
+    return int(sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == index
+                   and tuple(seg["segment_pool_id"]) == pool))
 
 
 def _pool_ptrs(pools) -> Tuple[int, ...]:
@@ -747,7 +762,9 @@ class _StepGraph:
     other pools raises :class:`KernelError`, which recovery does not replay
     (recovery itself resets the pools in place). The
     capture runs the step's device work only: the engine's telemetry and
-    fault checks happen around a call, never inside it."""
+    fault checks happen around a call, never inside it. Under memwatch,
+    after the capture the segments of the graph's private memory pool are
+    summed (``pool_bytes``, memwatch's ``temp`` of the program)."""
 
     kind = "step"
 
@@ -792,6 +809,8 @@ class _StepGraph:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outs, pairs = self._body(pools)
+        if self.program.note_trace.memwatch:
+            self.pool_bytes = _graph_pool_bytes(graph, self.device)
         after = _kernels.launch_counts()
         self.launches = []
         for fn in _kernels.wrappers():
@@ -813,7 +832,11 @@ class _StepGraph:
             t0 = time.perf_counter()
             out = super().__call__(*args)
             self._capture(pools)
-            self.program.note_trace(time.perf_counter() - t0)
+            self.program.note_trace(
+                time.perf_counter() - t0,
+                lambda: obs.memory.stats_from_tensors(
+                    (self.weights, self.s_in, pools), (self.s_out, pools),
+                    pools, temp=self.pool_bytes))
             return out
         self._replay(arrays, pools)
         return self._result(pools)

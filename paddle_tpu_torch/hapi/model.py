@@ -13,30 +13,83 @@ the card while step N runs. ``jit=False`` runs the eager per-step loop
 ``accumulate_grad_batches`` splits each batch into that many micro-batches
 (the TrainStep's ``grad_accum_steps``), as the reference does.
 ``nan_policy`` decides what a non-finite loss does: ``raise``
-(``FloatingPointError``), ``skip`` (a warning) or ``stop`` (a checkpoint
-under ``save_dir/emergency`` and a clean stop).
+(``FloatingPointError``), ``skip`` (a warning) or ``stop`` (an emergency
+checkpoint under ``save_dir/emergency`` and a clean stop); each is counted
+in ``train_nan_losses``.
 
-Not ported: the reference's fault recovery (retrying a failed step after an
-emergency checkpoint, and falling back to the eager loop when the first
-jitted step fails). A step that raises inside ``fit`` raises
-``NotImplementedError("fit recovery is not ported")`` chained to the
-original error; it neither retries nor swallows it.
-``prepare(amp_configs=...)`` (use ``amp.decorate``) raises too.
+Fit recovery, as the reference's: a step that raises is recovered. The
+in-flight window is synced to the last good state, an emergency checkpoint
+is written under ``save_dir`` (its save retried: ``checkpoint_save`` is a
+fault site), and after a backoff (``FLAGS_train_retry_backoff``, doubling)
+the same staged batch is dispatched again, up to
+``FLAGS_train_max_retries`` times before the last failure propagates
+(counted in ``train_retries_total``, ``train_recoveries`` and
+``train_emergency_checkpoints``). The epoch's sync retries an injected
+``train_sync`` fault the same way. The step is eager, so its update is not
+atomic: a failure before the update (the injected ``train_dispatch``, a
+loss function that raises) is dispatched again, with any gradients its
+micro-batches accumulated cleared first; a failure after the update (the
+metrics pull) resumes from the sync without training the batch twice, and
+the LR scheduler steps once an applied update. A ``KernelError`` or
+``torch.AcceleratorError`` (a CUDA error leaves the context unusable)
+propagates untouched. The reference falls back to its eager loop when the
+first jitted step fails; here every step is eager, so a first step's
+failure is recovered like any other.
+``prepare(amp_configs=...)`` (use ``amp.decorate``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .. import flags
+from .. import observability as obs
 from ..io import DataLoader, Dataset, DevicePrefetcher
+from ..kernels._build import KernelError
 from ..metric import Metric
+from ..testing.faults import InjectedFault
 from . import callbacks as cb_mod
 from .train_step import StagedBatch, TrainStep
+
+# what fit recovery never absorbs: a kernel that did not build or launch,
+# and a CUDA error
+_UNRECOVERABLE = (KernelError, torch.AcceleratorError)
+
+
+def _fit_recovery_metrics():
+    """The fit-recovery counters on the registry (None with telemetry
+    off), resolved per recovery event: a cold path."""
+    if not obs.enabled():
+        return None
+    r = obs.registry()
+    return {
+        "retries": r.counter(
+            "train_retries_total",
+            "fit step-recovery attempts (sync to last-good state, "
+            "emergency checkpoint, backoff, re-dispatch)"),
+        "recoveries": r.counter(
+            "train_recoveries",
+            "fit step recoveries that resumed training"),
+        "ckpts": r.counter(
+            "train_emergency_checkpoints",
+            "emergency checkpoints written by fit recovery / nan_policy"),
+        "nans": r.counter(
+            "train_nan_losses",
+            "non-finite losses seen by the fit NaN/inf policy"),
+    }
+
+
+def _backoff(attempt: int) -> None:
+    """Sleep the recovery backoff of the 0-based ``attempt``."""
+    base = float(flags.get_flag("train_retry_backoff"))
+    time.sleep(min(base * (2 ** attempt), 2.0))
 
 
 def _split(batch):
@@ -169,15 +222,19 @@ class Model:
             epoch_base = step_obj._step_count if step_obj is not None else 0
             for step, batch in enumerate(iterator):
                 cbks.on_batch_begin("train", step, {})
-                try:
-                    logs = (self._async_batch(step_obj, batch, step,
-                                              epoch_base)
-                            if step_obj is not None
-                            else self._eager_batch(batch, step))
-                except Exception as exc:
-                    raise NotImplementedError(
-                        "fit recovery is not ported: the step failed "
-                        "(cause chained)") from exc
+                if step_obj is not None:
+                    n0 = step_obj._step_count
+                    try:
+                        logs = self._async_batch(step_obj, batch, step,
+                                                 epoch_base)
+                    except _UNRECOVERABLE:
+                        raise
+                    except Exception as exc:
+                        logs = self._recover_batch(
+                            step_obj, batch, step, epoch_base, save_dir,
+                            exc, dispatched=step_obj._step_count > n0)
+                else:
+                    logs = self._eager_batch(batch, step)
                 loss_val = logs.get("loss")
                 if loss_val is not None and not np.isfinite(loss_val):
                     self._handle_nan(nan_policy, save_dir, float(loss_val),
@@ -194,7 +251,8 @@ class Model:
                 # the epoch's one hard barrier: the exact loss for
                 # early stopping and checkpoints
                 logs = dict(logs)
-                logs["loss"] = step_obj.sync()
+                with obs.span("fit.epoch_sync", epoch=epoch):
+                    logs["loss"] = self._sync_with_retry(step_obj)
                 if logs["loss"] is not None and not np.isfinite(
                         logs["loss"]):
                     self._handle_nan(nan_policy, save_dir,
@@ -211,7 +269,97 @@ class Model:
                 break
         cbks.on_end("train")
 
+    # ------------------------------------------------------ fault tolerance
+    def _sync_with_retry(self, step_obj):
+        """The epoch's sync, an injected ``train_sync`` fault retried (the
+        window is intact when it fires); anything else propagates."""
+        max_retries = int(flags.get_flag("train_max_retries"))
+        for attempt in range(max_retries + 1):
+            try:
+                return step_obj.sync()
+            except InjectedFault:
+                if attempt == max_retries:
+                    raise
+                _backoff(attempt)
+
+    def _recover_batch(self, step_obj, batch, step, epoch_base, save_dir,
+                       exc, dispatched):
+        """Step recovery: the step (or its metrics pull) raised. Sync the
+        window to the last good state, write an emergency checkpoint, back
+        off and dispatch the same batch again, gradients cleared.
+        ``dispatched``: the failed call got past its update (the raise came
+        from the metrics pull), so it resumes from the sync instead of
+        training the batch twice. Raises the last failure once
+        ``FLAGS_train_max_retries`` attempts are spent."""
+        max_retries = int(flags.get_flag("train_max_retries"))
+        m = _fit_recovery_metrics()
+        warnings.warn(
+            f"Model.fit: step {step} failed ({exc!r}); attempting "
+            f"recovery (sync to last-good state + emergency checkpoint, "
+            f"<= {max_retries} retries)")
+        last = exc
+        for attempt in range(1, max_retries + 1):
+            if m:
+                m["retries"].inc()
+            try:
+                step_obj.sync()
+            except InjectedFault as e:
+                last = e
+                _backoff(attempt - 1)
+                continue
+            except Exception as e:
+                raise RuntimeError(
+                    "Model.fit recovery: draining the in-flight window "
+                    "failed — a dispatched step died on device and its "
+                    "donated state is unrecoverable; restart from the "
+                    "last checkpoint") from e
+            self._emergency_checkpoint(save_dir, m)
+            if dispatched:
+                if m:
+                    m["recoveries"].inc()
+                return {"step": step, "loss": step_obj._last_loss}
+            _backoff(attempt - 1)
+            # the failed call's micro-batches may have left gradients
+            step_obj.optimizer.clear_grad()
+            try:
+                logs = self._async_batch(step_obj, batch, step, epoch_base)
+                if m:
+                    m["recoveries"].inc()
+                return logs
+            except _UNRECOVERABLE:
+                raise
+            except Exception as e:
+                last = e
+        raise last
+
+    def _emergency_checkpoint(self, save_dir, m=None):
+        """``<save_dir>/emergency``: the state of every applied step, saved
+        before anything is dispatched again. Its save is tried 3 times
+        (``checkpoint_save`` is a fault site); if all fail it warns and
+        recovery goes on without it."""
+        if save_dir is None:
+            return None
+        path = os.path.join(save_dir, "emergency")
+        os.makedirs(save_dir, exist_ok=True)
+        err = None
+        for attempt in range(3):
+            try:
+                self.save(path)
+                if m:
+                    m["ckpts"].inc()
+                return path
+            except Exception as e:
+                err = e
+                time.sleep(0.02 * (2 ** attempt))
+        warnings.warn(
+            f"Model.fit: emergency checkpoint failed 3 times ({err!r}); "
+            f"continuing recovery without it")
+        return None
+
     def _handle_nan(self, policy, save_dir, loss, where):
+        m = _fit_recovery_metrics()
+        if m:
+            m["nans"].inc()
         if policy == "raise":
             raise FloatingPointError(
                 f"Model.fit: non-finite loss {loss} at {where} "
@@ -219,8 +367,7 @@ class Model:
         if policy == "stop":
             warnings.warn(f"Model.fit: non-finite loss {loss} at {where}; "
                           f"nan_policy='stop': checkpoint and stop")
-            if save_dir is not None:
-                self.save(os.path.join(save_dir, "emergency"))
+            self._emergency_checkpoint(save_dir, m)
             self.stop_training = True
         else:
             warnings.warn(f"Model.fit: non-finite loss {loss} at {where}; "

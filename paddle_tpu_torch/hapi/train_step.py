@@ -26,10 +26,26 @@ Options of the reference that run here:
     updates;
   - ``stage()``: a batch placed on the model's device ahead of its step.
 
+Telemetry (``FLAGS_telemetry``, bound when the step is built), as in the
+JAX package: ``train_syncs``, ``train_throttles``, ``train_step_traces``,
+``train_in_flight``, ``train_metrics_staleness`` and ``train_pull_seconds``,
+and the spans ``train.pull_metrics`` and ``train.sync``. The step is eager,
+so a trace is the first step of each new batch signature (the shapes and
+dtypes of the batch's tensors), which is when the jitted reference
+retraces. Under memwatch that step is measured: ``program_memory_bytes``
+and a program-table row of kind ``train_step`` (bucket: the batch's
+leading dimension; extra ``gradient_merge`` under gradient merge), its
+``temp`` the rise of ``torch.cuda.max_memory_allocated`` over the step on
+the card (0 on the CPU).
+
+Fault sites (``FLAGS_fault_inject``, bound when the step is built):
+``train_dispatch`` at the top of ``__call__``, before any parameter,
+gradient or scheduler state moves, and ``train_sync`` at the top of
+:meth:`sync` and :meth:`pull_metrics`, before the window changes.
+
 The parameters live in the model, so ``sync_to_model()`` has nothing to
 do. Not ported (``NotImplementedError``): meshes and parameter specs, ZeRO
-sharding levels and LocalSGD (the distributed runtime); telemetry and
-fault sites wait for the observability slice.
+sharding levels and LocalSGD (the distributed runtime).
 """
 
 from __future__ import annotations
@@ -42,8 +58,49 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import flags
+from .. import observability as obs
 from ..optimizer.lr import LRScheduler
 from ..optimizer.optimizer import Optimizer
+from ..testing import faults
+
+
+class _TrainTelemetry:
+    """The train loop's registry handles, resolved once a TrainStep (the
+    probes ``sync_count`` / ``trace_count`` stay the test surface; these
+    mirror them onto the registry)."""
+
+    enabled = True
+
+    def __init__(self):
+        r = obs.registry()
+        self.span = obs.tracer().span
+        self.syncs = r.counter(
+            "train_syncs", "host-blocking loss pulls (pull_metrics/sync)")
+        self.throttles = r.counter(
+            "train_throttles",
+            "hard in-flight-window blocks (0 in a healthy loop)")
+        self.traces = r.counter(
+            "train_step_traces",
+            "first steps of a new batch signature (steady state: 1)")
+        self.in_flight = r.gauge(
+            "train_in_flight",
+            "dispatched-but-unsynced steps in the async window")
+        self.staleness = r.gauge(
+            "train_metrics_staleness",
+            "steps between the displayed loss and the newest dispatch")
+        self.pull_seconds = r.histogram(
+            "train_pull_seconds",
+            "wall clock of host metric pulls (near-zero when the pulled "
+            "loss was dispatched >= k steps ago)")
+
+
+class _NullTrainTelemetry:
+    enabled = False
+
+    def __init__(self):
+        self.span = obs.null_span
+        self.syncs = self.throttles = self.traces = obs.NULL
+        self.in_flight = self.staleness = self.pull_seconds = obs.NULL
 
 
 def _refuse(what: str) -> None:
@@ -127,6 +184,20 @@ class TrainStep:
         self.last_metrics: Optional[Dict[str, Any]] = None
         self._last_loss: Optional[float] = None
         self._step_count = 0
+        self._m = (_TrainTelemetry() if obs.enabled()
+                   else _NullTrainTelemetry())
+        self._memwatch = obs.enabled() and obs.memory.enabled()
+        self._memwatch_model_sig: Optional[str] = None
+        # batch signatures stepped so far (a new one is a trace)
+        self._signatures: set = set()
+        self._f_dispatch = faults.site("train_dispatch")
+        self._f_sync = faults.site("train_sync")
+
+    @property
+    def trace_count(self) -> int:
+        """Batch signatures stepped so far: the retrace probe (a
+        steady-state loop holds it at 1)."""
+        return len(self._signatures)
 
     @property
     def device(self) -> torch.device:
@@ -215,12 +286,24 @@ class TrainStep:
     def __call__(self, *batch) -> torch.Tensor:
         """One training step; returns the detached loss without a host
         sync. Takes a batch's tensors or one :class:`StagedBatch`."""
+        # the injected failure fires before anything moves: a caller can
+        # re-dispatch the same batch
+        self._f_dispatch.check()
         if len(batch) == 1 and isinstance(batch[0], StagedBatch):
             vals = batch[0].vals
         else:
             vals = self.stage(*batch).vals
-        loss, _ = self.compute_loss_grads(*vals)
-        self.apply_update()
+        sig = tuple((tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+                    else type(v) for v in vals)
+        traced = sig not in self._signatures
+        if traced and self._memwatch:
+            loss = self._measured_step(vals)
+        else:
+            loss, _ = self.compute_loss_grads(*vals)
+            self.apply_update()
+        if traced:
+            self._signatures.add(sig)
+            self._m.traces.inc()
         self._step_count += 1
         done = None
         if loss.device.type == "cuda":
@@ -234,6 +317,38 @@ class TrainStep:
             if ev is not None and not ev.query():
                 self._read(ev.synchronize)
                 self.throttle_count += 1
+                self._m.throttles.inc()
+        # after the pull and the throttles: what is still outstanding
+        self._m.in_flight.set(len(self._inflight))
+        return loss
+
+    def _measured_step(self, vals) -> torch.Tensor:
+        """One step (the first of its batch signature) with memwatch's
+        row: the parameters, the optimizer state and the batch read, the
+        loss written, the parameters and the optimizer state updated in
+        place; on the card ``temp`` is the rise of the allocator's peak
+        over the step."""
+        cuda = vals and isinstance(vals[0], torch.Tensor) \
+            and vals[0].device.type == "cuda"
+        base = 0
+        if cuda:
+            base = torch.cuda.memory_allocated(vals[0].device)
+            torch.cuda.reset_peak_memory_stats(vals[0].device)
+        loss, _ = self.compute_loss_grads(*vals)
+        self.apply_update()
+        temp = (torch.cuda.max_memory_allocated(vals[0].device) - base
+                if cuda else 0)
+        if self._memwatch_model_sig is None:
+            from ..generation.program_cache import model_signature
+            self._memwatch_model_sig = model_signature(self.model)[:8]
+        state = (self.model, self.optimizer.state, self._merge_buf)
+        first = next((v for v in vals if isinstance(v, torch.Tensor)), None)
+        obs.memory.capture_program(
+            "train_step", int(first.shape[0]) if first is not None else 0,
+            ("gradient_merge",) if self.gradient_merge_k > 1 else (),
+            lambda: obs.memory.stats_from_tensors(
+                (state, vals), (loss, state), state, temp=temp),
+            model=self._memwatch_model_sig)
         return loss
 
     def _read(self, fn):
@@ -252,6 +367,9 @@ class TrainStep:
         is ``lag`` steps stale. Returns ``{"loss", "loss_step",
         "staleness"}``, or the previous metrics when no loss is that old
         yet."""
+        # the injected failure fires before the window changes: a caller
+        # can retry the pull as it was
+        self._f_sync.check()
         lag = (self.metrics_every or 1) if lag is None else max(0, int(lag))
         target = self._step_count - lag
         picked = None
@@ -260,23 +378,36 @@ class TrainStep:
         if picked is None:
             return self.last_metrics
         idx, dev, _ = picked
-        val = self._read(lambda: float(dev))
+        t0 = time.perf_counter()
+        with self._m.span("train.pull_metrics", step=idx):
+            val = self._read(lambda: float(dev))
         self.sync_count += 1
         self._last_loss = val
         self.last_metrics = {"loss": val, "loss_step": idx,
                              "staleness": self._step_count - 1 - idx}
+        if self._m.enabled:
+            self._m.syncs.inc()
+            self._m.pull_seconds.observe(time.perf_counter() - t0)
+            self._m.staleness.set(self.last_metrics["staleness"])
+            self._m.in_flight.set(len(self._inflight))
         return self.last_metrics
 
     def sync(self) -> Optional[float]:
         """Hard barrier: wait for every dispatched step and return the
         latest loss."""
+        self._f_sync.check()
         if self._inflight:
             idx, dev, _ = self._inflight[-1]
             self._inflight.clear()
-            self._last_loss = self._read(lambda: float(dev))
+            with self._m.span("train.sync", step=idx):
+                self._last_loss = self._read(lambda: float(dev))
             self.sync_count += 1
             self.last_metrics = {"loss": self._last_loss, "loss_step": idx,
                                  "staleness": 0}
+            if self._m.enabled:
+                self._m.syncs.inc()
+                self._m.staleness.set(0)
+                self._m.in_flight.set(0)
         return self._last_loss
 
     # ------------------------------------------------------------- utilities

@@ -11,8 +11,13 @@ Instrumented: ``generation.serving.ServingEngine`` (request lifecycle spans
 and events, TTFT and inter-token histograms, queue, occupancy and KV-pool
 gauges, recovery counters, prefix-cache counters) and
 ``generation.program_cache`` (hit, miss and trace counters, build-time
-histograms). :mod:`memory <paddle_tpu_torch.observability.memory>` samples
-the card's allocator watermarks.
+histograms), ``hapi.TrainStep`` (``train_*`` counters, gauges and spans),
+``hapi.Model.fit`` (recovery and NaN counters, the ``fit.epoch_sync``
+span) and ``io.DevicePrefetcher`` (``io_batches_staged``,
+``io_stage_seconds``). :mod:`memory <paddle_tpu_torch.observability.memory>`
+is memwatch: the captured programs' memory sections
+(``FLAGS_memwatch``), the card's allocator watermarks, and the estimator
+and planner.
 
 Everything is gated behind ``FLAGS_telemetry`` (default on), resolved when
 an instrumented object is built. Writes are host-side only: none runs
@@ -43,6 +48,9 @@ from .tracing import (NULL_SPAN, Span, SpanTracer, null_counter, null_event,
 from .export import (chrome_trace, save_chrome_trace, save_snapshot,
                      to_prometheus)
 from . import memory
+from .memory import (capture_program, clear_program_table,
+                     estimate_engine_memory, format_program_table,
+                     program_table, record_program)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL",
@@ -50,7 +58,9 @@ __all__ = [
     "series_quantile", "Span", "SpanTracer", "NULL_SPAN", "tracer",
     "null_span", "null_event", "null_counter", "chrome_trace",
     "save_chrome_trace", "save_snapshot", "to_prometheus", "enabled",
-    "span", "snapshot", "memory",
+    "span", "snapshot", "memory", "capture_program", "record_program",
+    "program_table", "clear_program_table", "format_program_table",
+    "estimate_engine_memory",
 ]
 
 

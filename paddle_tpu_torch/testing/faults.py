@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/testing/faults.py``: the same grammar, sites,
 schedules and seeds, so one spec fires at the same checks in both
 packages. A one-line ``FLAGS_fault_inject`` spec arms named *sites*, and an
 armed site raises :class:`InjectedFault` on a deterministic schedule; the
-serving engine's replay recovery runs against it.
+serving engine's replay recovery, the fleet's replica-loss handling and
+``Model.fit``'s step recovery run against it.
 
 Spec grammar (``;``-separated site specs, ``:``-separated params)::
 
@@ -33,11 +34,21 @@ Sites (KNOWN_SITES; an unknown site in the spec is a construction-time
     kv_spill            PrefixCache host tier, before each page spill and
                         each page restore (ctx carries op="spill"/"restore")
     program_build       decode program cache, before a build
+    router_dispatch     FleetRouter, before a replica steps (a fire loses
+                        the replica)
+    spec_draft          ServingEngine speculative round, before the draft
+                        scan and each draft sync chunk (ctx op="draft" /
+                        "sync")
+    spec_verify         ServingEngine speculative round, before the verify
+    train_dispatch      TrainStep.__call__, before any parameter, gradient
+                        or scheduler state moves
+    train_sync          TrainStep.sync / pull_metrics, before the in-flight
+                        window changes
+    checkpoint_save     framework.save, before anything touches the disk
+                        (process-shared: checked through :func:`check`)
 
-The others name sites of the JAX package's slices not ported yet
-(``router_dispatch``, ``spec_draft``, ``spec_verify``, ``train_dispatch``,
-``train_sync``, ``dataloader_worker``, ``checkpoint_save``); a spec may name
-them, and nothing here checks them.
+``dataloader_worker`` names the JAX package's worker-process loader, not
+ported yet: a spec may name it, and nothing here checks it.
 
 Binding: call :func:`site` at construction time and keep the handle. With
 ``FLAGS_fault_inject`` unset (the default) :func:`site` returns the shared

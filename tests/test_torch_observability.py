@@ -15,7 +15,9 @@
 - The port's program cache counters agree with its own stats, and spans
   reach ``torch.profiler`` only while it records.
 - Telemetry off leaves nothing in the registry or the ring.
-- The memory section reads like the JAX package's on the CPU.
+- The memory section reads like the JAX package's on the CPU; the flags
+  (``memwatch``, the fit recovery budget, the NaN/Inf checker among them)
+  have the JAX package's defaults and key no program.
 """
 
 import collections
@@ -54,6 +56,7 @@ def _fresh_telemetry():
     for obs in PACKAGES.values():
         obs.registry().clear()
         obs.tracer().clear()
+        obs.memory.clear_program_table()
     jclear_cache()
     clear_decode_program_cache()
     yield
@@ -62,6 +65,7 @@ def _fresh_telemetry():
     for obs in PACKAGES.values():
         obs.registry().clear()
         obs.tracer().clear()
+        obs.memory.clear_program_table()
     jclear_cache()
     clear_decode_program_cache()
 
@@ -438,10 +442,13 @@ def test_memory_section_reads_like_jax():
 
 def test_flags_match_jax_and_stay_out_of_program_keys():
     for name in ("telemetry", "telemetry_ring", "fault_inject",
-                 "serving_max_retries", "serving_retry_backoff"):
+                 "serving_max_retries", "serving_retry_backoff", "memwatch",
+                 "train_max_retries", "train_retry_backoff", "check_nan_inf",
+                 "check_nan_inf_level"):
         assert tflags.get_flag(name) == jflags.get_flag(name), name
         assert name not in tflags.PROGRAM_FLAGS
-    # the compiled-program capture it gates is not ported: setting the
-    # flag raises like any other unported option
-    with pytest.raises(KeyError, match="memwatch"):
-        tflags.set_flags({"FLAGS_memwatch": False})
+    # memwatch is the capture's gate, riding telemetry's
+    tflags.set_flags({"FLAGS_memwatch": False})
+    assert not tobs.memory.enabled() and tobs.enabled()
+    tflags.set_flags({"FLAGS_memwatch": True})
+    assert tobs.memory.enabled()

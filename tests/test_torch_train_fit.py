@@ -25,7 +25,8 @@ gradient differences). Checked:
     ``paddle.seed`` said;
   - ``Model.fit`` with ``accumulate_grad_batches``, ``metrics_every``,
     prefetch and callbacks: the losses JAX's ``fit`` logs, then
-    ``evaluate``; ``nan_policy``; fit recovery refused; ``VisualDL``'s
+    ``evaluate``; ``nan_policy`` (fit recovery is
+    ``tests/test_torch_fit_recovery.py``'s); ``VisualDL``'s
     ``scalars.jsonl`` rows and ``Model.summary``'s counts;
     ``ModelCheckpoint`` files loading back, also a JAX-written file.
 """
@@ -419,21 +420,6 @@ def test_fit_nan_policy(policy, tmp_path):
     else:
         assert len(rec.logs) == 2 and m.stop_training
         assert (tmp_path / "emergency.pdparams").exists()
-
-
-def test_fit_recovery_is_refused_with_the_cause_chained():
-    _, model = _pair(40)
-    m = Model(model)
-
-    def broken(logits, labels):
-        raise RuntimeError("boom")
-
-    m.prepare(_topt(model), loss=broken)
-    x, y = _dataset(4)
-    with pytest.raises(NotImplementedError,
-                       match="fit recovery is not ported") as info:
-        m.fit([(torch.from_numpy(x), torch.from_numpy(y))], verbose=0)
-    assert isinstance(info.value.__cause__, RuntimeError)
 
 
 def test_visualdl_scalars_match_jax(tmp_path):
