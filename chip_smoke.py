@@ -233,7 +233,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               serve's and serve_long's shapes, native and int4, each plan
               fitting the card; the fused native run again with memwatch
               off: streams token for token and launches equal, no row
-              added, both graphed step times;
+              added, both graphed step times; then tools/torch_memwatch.py's
+              capture suite (tiny Llama fused and chunked, on an int8 pool,
+              N = 2 and N = 2 int8 + int4; tiny GPT generic and a train
+              step; a tiny MoE-GPT train step) banked and checked against
+              itself: 8 rows, each temp > 0, no program grown;
   4. parity   the same engine in fp32 at full width with 2 layers, prompts
               of 17 to 700 tokens (two of them chunked), its per-token
               logits held against a teacher-forced no-cache forward of the
@@ -271,7 +275,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
               at Llama-2-7B heads (S=4096), Llama-2-70B heads (GQA, S=2048)
-              and a ragged length (S=1000), bf16 (out within 1e-3 + one
+              and a ragged length (S=1000), and at GPT-3 345M's heads (B=4,
+              S=1024, 16 heads of 64) causal and not, bf16 (out within 1e-3
+              + one
               bf16 ulp of the reference, lse 1e-3, grads 2e-2 of their
               largest element) and fp32 (1e-4 each), with kernel, plain,
               library (SDPA forward, forward + backward, and its backward
@@ -284,6 +290,32 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               space against the whole call (out 2e-3 bf16 / 1e-4 fp32
               abs, lse as above); with_lse forward and forward + backward
               timed beside flash_attention's on the same shape;
+     moe      this slice's main path: MoEGPTConfig() (GPT-3 345M widths:
+              vocab 50304, hidden 1024, 24 layers, 16 heads of 64, inter
+              4096, tied head; 8 experts, top-2, an MoE FFN every 2nd
+              block, capacity factor 1.2, aux weight 0.01; 1.06 B
+              parameters), bf16 with f32 masters, seeded, TrainStep +
+              AdamW + global-norm clip + warmup/cosine LR, 5 steps on one
+              fixed batch of 4 x 1024 tokens: finite, falling losses, #7,
+              #8 and #9 launched 24 times a step each and no other kernel,
+              every gate's loss collected by the step, memwatch's
+              train_step row for the model; step ms, tokens/s, MFU on the
+              model's work (and the work the capacity padding and the
+              dispatch/combine products add), peak memory, and before and
+              after the steps each MoE block's aux loss and the choices
+              dropped at capacity (its gate's logits tapped in a forward);
+     moe_parity
+              one fp32 step of the same width at 2 layers (a dense and an
+              MoE block), S=512, on the card and on a CPU copy: the loss
+              within 1e-4 and every gradient within 1e-3 (rel L2);
+     fused_layers
+              FusedTransformerEncoderLayer (hidden 1024, 16 heads, FFN
+              4096, GELU) in eval mode on B=4 x S=1024 bf16 against the
+              same layer on the dense attention, and
+              fused_multi_head_attention (pre-LN, biases) forward and
+              backward against the dense reference: within 2e-2 of the
+              largest element; #7 non-causal once a call, #8 and #9 once a
+              backward; both timed beside the dense route;
   6. train    Llama-2-7B width cut to 8 layers, bf16 with f32 masters,
               TrainStep(grad_accum_steps=2) + AdamW + global-norm clip +
               warmup/cosine LR, 5 steps on one fixed batch of 2 x 4096
@@ -415,6 +447,12 @@ PARITY_TOL = 1e-3      # fp32 logits: kernel sums vs torch.matmul order
 TRAIN_SHAPES = (("llama2_7b heads", 1, 4096, 32, 32),
                 ("llama2_70b heads, GQA", 1, 2048, 64, 8),
                 ("ragged, GQA", 2, 1000, 32, 8))
+# GPT-3 345M's heads (16 MHA heads of dim 64, the moe phase's batch of 4 x
+# 1024 tokens): (case, batch, S, heads, kv heads, head_dim, causal); the
+# moe phase runs them causal, the fused attention layers not causal
+GPT_TRAIN_SHAPES = (("gpt3_345m heads", 4, 1024, 16, 16, 64, True),
+                    ("gpt3_345m heads, non-causal", 4, 1024, 16, 16, 64,
+                     False))
 # flash forward: out within atol + rtol |ref| elementwise (rtol: one bf16
 # ulp, as both sides round the same f32 value), the f32 lse within abs
 OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
@@ -448,6 +486,12 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # log-space merge of two half-key calls against the whole call, abs
 WITH_LSE_SHAPES = TRAIN_SHAPES[:2]
 MERGE_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# moe: MoEGPTConfig() at full depth, MOE_STEPS steps of MOE_BATCH x MOE_SEQ
+# tokens; moe_parity at its width, 2 layers (one dense, one MoE block), fp32
+MOE_STEPS, MOE_BATCH, MOE_SEQ = 5, 4, 1024
+MOE_PARITY_LAYERS, MOE_PARITY_SEQ = 2, 512
+# fused_layers: the fused attention layers at GPT-3 345M's width
+FUSED_BATCH, FUSED_SEQ = 4, 1024
 # fit: Model.fit at the train phase's width, 4 layers, over a DataLoader of
 # seeded 4096-token rows, batch 2 split in 2 micro-batches, 6 steps. The
 # depth is what a chip call may write: fit's two checkpoints (12 bytes a
@@ -4551,11 +4595,47 @@ def run_memwatch(model) -> dict:
     require([r for r in mem.program_table() if r["model"] == sig] == table,
             "memwatch: a run with memwatch off recorded a row")
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    suite = memwatch_suite()
     emit("memwatch", model="llama2_7b", dtype="bf16", rows=rows, runs=runs,
          planner=planner, memwatch_on_step_ms=on_step_ms,
          memwatch_off_step_ms=off_step_ms, streams_equal=True,
-         launches_equal=True, launches=total)
+         launches_equal=True, launches=total, suite=suite)
     return total
+
+
+def memwatch_suite() -> dict:
+    """tools/torch_memwatch.py's capture suite on the card, banked and then
+    checked against itself (the CLI's bank / check): a row for each of its
+    8 programs, every one with temp > 0 (a graph's private pool, a train
+    step's rise of the peak), and no program growing past the gate's 10 %
+    on the second capture."""
+    from paddle_tpu_torch.observability import memory as mem
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_memwatch
+    t0 = time.perf_counter()
+    banked = torch_memwatch.capture_suite()
+    again = torch_memwatch.capture_suite()
+    seconds = time.perf_counter() - t0
+    kinds = sorted((r["kind"], r["bucket"]) for r in banked["rows"])
+    require(kinds == sorted([("decode_fused", 2)] * 2
+                            + [("decode_fused_nlayer", 2)] * 2
+                            + [("prefill_chunk", 1), ("decode_generic", 2)]
+                            + [("train_step", 2)] * 2),
+            f"memwatch suite: rows {kinds}")
+    require(all(r["temp"] > 0 for r in banked["rows"]),
+            f"memwatch suite: a row without temp: {banked['rows']}")
+    gate = torch_memwatch.check_rows(banked["rows"], again["rows"], 0.10,
+                                     "the first capture")
+    require(gate == 0, "memwatch suite: the check against its own bank "
+            "failed")
+    print(mem.format_program_table(banked["rows"]), flush=True)
+    return dict(rows=len(banked["rows"]), seconds_two_captures=seconds,
+                temp_bytes={f"{r['kind']}/{r['model']}/{r['extra']}":
+                            r["temp"] for r in banked["rows"]},
+                estimates=[dict(kind=e["kind"], extra=e["extra"],
+                                rel_err=e["rel_err"])
+                           for e in banked["estimates"]])
 
 
 def run_quant_parity(model):
@@ -4989,12 +5069,14 @@ def check_flash_attention(dtype, device, rows):
     Appends one row per kernel and shape."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    for case, b, s, h, hkv in TRAIN_SHAPES:
-        q = _rand(gen, (b * h, s, HEAD_DIM), dtype, device)
-        k = _rand(gen, (b * hkv, s, HEAD_DIM), dtype, device)
-        v = _rand(gen, (b * hkv, s, HEAD_DIM), dtype, device)
-        do = _rand(gen, (b * h, s, HEAD_DIM), dtype, device)
-        kw = dict(causal=True, n_heads=h, n_kv_heads=hkv)
+    shapes = [t + (HEAD_DIM, True) for t in TRAIN_SHAPES] + list(
+        GPT_TRAIN_SHAPES)
+    for case, b, s, h, hkv, d, causal in shapes:
+        q = _rand(gen, (b * h, s, d), dtype, device)
+        k = _rand(gen, (b * hkv, s, d), dtype, device)
+        v = _rand(gen, (b * hkv, s, d), dtype, device)
+        do = _rand(gen, (b * h, s, d), dtype, device)
+        kw = dict(causal=causal, n_heads=h, n_kv_heads=hkv)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         ref = fa.flash_attention_ref(*leaves, **kw)
         ref_grads = torch.autograd.grad(ref, leaves, do)
@@ -5034,27 +5116,27 @@ def check_flash_attention(dtype, device, rows):
                 *bwd, **kw), iters=5, warmup=1),
             dkv_plain=time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
                 *bwd, **kw), iters=5, warmup=1))
-        qs, ks, vs, dos = (x.reshape(b, -1, s, HEAD_DIM)
-                           for x in (q, k, v, do))
-        t["sdpa_fwd"] = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True),
+        qs, ks, vs, dos = (x.reshape(b, -1, s, d) for x in (q, k, v, do))
+        t["sdpa_fwd"] = time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal),
                                 iters=10, warmup=2)
         lq, lk, lv = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
 
         def sdpa_fwd_bwd():
-            o = sdpa(lq, lk, lv, is_causal=True)
+            o = sdpa(lq, lk, lv, is_causal=causal)
             torch.autograd.grad(o, (lq, lk, lv), dos)
 
         t["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters=10, warmup=2)
         # SDPA's backward alone: one saved forward, then its backward op
         # (of the backend SDPA picked on this card) again and again
-        o = sdpa(lq, lk, lv, is_causal=True)
+        o = sdpa(lq, lk, lv, is_causal=causal)
         t["sdpa_bwd"] = time_ms(lambda: torch.autograd.grad(
             o, (lq, lk, lv), dos, retain_graph=True), iters=10, warmup=2)
         del o
 
         elem = q.element_size()
-        pairs = b * h * s * (s + 1) // 2          # causal (query, key) pairs
-        fwd_ops = 4.0 * pairs * HEAD_DIM          # QK^T and PV
+        # the (query, key) pairs the mask keeps
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        fwd_ops = 4.0 * pairs * d                 # QK^T and PV
         stats = 4 * 2 * q.shape[0] * s            # lse and delta, f32
         bounds = dict(
             fwd=bound_ms(elem * (2 * q.numel() + k.numel() + v.numel())
@@ -5071,7 +5153,7 @@ def check_flash_attention(dtype, device, rows):
                                  + 2 * v.numel()) + stats,
                          2.5 * fwd_ops, dtype))
         emit("train_kernels", case=case, dtype=DTYPE_NAME[dtype], B=b, S=s,
-             H=h, Hkv=hkv, D=HEAD_DIM, out_max_err=out_err,
+             H=h, Hkv=hkv, D=d, causal=causal, out_max_err=out_err,
              out_excess=out_excess, out_atol=atol, out_rtol=rtol,
              lse_max_err=lse_err, lse_tol=LSE_TOL[dtype],
              dq_rel_err=dq_rel, dkv_rel_err=dkv_rel,
@@ -5096,8 +5178,9 @@ def check_flash_attention(dtype, device, rows):
                 ("flash_attention_bwd_dq", "dq", dq_abs, t["sdpa_bwd"]),
                 ("flash_attention_bwd_dkv", "dkv", dkv_abs, t["sdpa_bwd"])):
             rows.append(dict(
-                kernel=name, dtype=DTYPE_NAME[dtype], S=s, case=case,
-                max_err=err, kernel_ms=t[key], plain_ms=t[key + "_plain"],
+                kernel=name, dtype=DTYPE_NAME[dtype], S=s, case=case, D=d,
+                causal=causal, max_err=err, kernel_ms=t[key],
+                plain_ms=t[key + "_plain"],
                 library_ms=lib, bound_ms=bounds[key][0],
                 bound_by=bounds[key][1], **frac(bounds, t, key)))
         del q, k, v, do, lse, delta, out, lq, lk, lv
@@ -5943,6 +6026,316 @@ def run_train_parity(device):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- moe
+def moe_flops(cfg, batch, seq, capacity) -> dict:
+    """One training step's operations at ``batch`` rows of ``seq`` tokens:
+    ``model`` counts each token's own work (6 x the matmul parameters it
+    meets, its k experts only, the tied LM head, plus causal attention at
+    forward 1x and backward 2.5x); ``executed`` adds what the
+    static-capacity routing computes besides: every expert over all its
+    ``capacity`` slots, and the dispatch and combine products (forward 2,
+    backward 3, each 2 T E C d)."""
+    h, i, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    n_moe = cfg.num_hidden_layers // cfg.moe_every
+    n_dense = cfg.num_hidden_layers - n_moe
+    t = batch * seq
+    dense = 4 * h * h + 2 * h * i
+    moe = 4 * h * h + cfg.top_k * 2 * h * i + h * e
+    head = cfg.vocab_size * h
+    pairs = seq * (seq + 1) // 2
+    attn = 3.5 * 4.0 * pairs * h * cfg.num_hidden_layers * batch
+    model = 6.0 * (n_dense * dense + n_moe * moe + head) * t + attn
+    padded = n_moe * 6.0 * 2 * h * i * (e * capacity - cfg.top_k * t)
+    routing = n_moe * 5 * 2.0 * t * e * capacity * h
+    return dict(model=model, attention=attn, expert_capacity_padding=padded,
+                dispatch_combine=routing, executed=model + padded + routing)
+
+
+def moe_model(device, dtype=torch.bfloat16, layers=None, seed_offset=21):
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import MoEGPTConfig, MoEGPTForCausalLM
+    cfg = MoEGPTConfig()
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return cfg, MoEGPTForCausalLM(cfg, device=device, dtype=dtype,
+                                  generator=seed(SEED + seed_offset, device))
+
+
+def moe_routing(model, x) -> list:
+    """Each MoE block's routing of one forward of ``x`` (no grad): its
+    gate's aux loss and the choices dropped at capacity (T k - the kept
+    dispatch slots), from the gates' logits tapped by forward hooks."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        top_k_dispatch
+    blocks = [b for b in model.h if hasattr(b, "moe")]
+    taps = []
+    hooks = [b.moe.gate.register_forward_hook(
+        lambda m, args, out: taps.append(out.detach())) for b in blocks]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    aux_total = model.total_aux_loss()           # collects and clears
+    out = []
+    for b, logits in zip(blocks, taps):
+        t = logits.shape[0]
+        cap = b.moe.capacity(t)
+        _, dispatch, aux = top_k_dispatch(logits, b.moe.top_k, cap,
+                                          b.moe.gate.aux_loss_mode)
+        kept = int(dispatch.sum())
+        out.append(dict(capacity=cap, aux_loss=float(aux),
+                        dropped=t * b.moe.top_k - kept,
+                        choices=t * b.moe.top_k))
+    require(abs(sum(r["aux_loss"] for r in out) - float(aux_total))
+            <= 1e-3 * max(1.0, abs(float(aux_total))),
+            "moe: the gates' stored losses disagree with their routing")
+    return out
+
+
+def run_moe(device):
+    """MoEGPTConfig() (GPT-3 345M widths, 24 layers, 8 experts top-2 on
+    every 2nd block), bf16 with f32 masters, seeded, trained by TrainStep
+    with AdamW + global-norm clip + warmup/cosine LR for MOE_STEPS steps on
+    one fixed batch of MOE_BATCH x MOE_SEQ tokens: finite, falling losses,
+    #7, #8 and #9 launched exactly once a layer a step and no other kernel,
+    every gate's loss collected by the step, memwatch's train_step row for
+    this model; step ms, tokens/s, MFU, peak memory, and before and after
+    the steps each MoE block's aux loss and dropped choices."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.generation.program_cache import model_signature
+    from paddle_tpu_torch.observability import memory
+    t0 = time.perf_counter()
+    cfg, model = moe_model(device)
+    params = sum(p.numel() for p in model.parameters())
+    trainer = make_trainer(model, 3e-4, steps=MOE_STEPS)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, MOE_BATCH,
+                                              MOE_SEQ, 21))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    routing_init = moe_routing(model, x)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, step_s = [], []
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer(x, y))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    require(all(math.isfinite(v) for v in losses), f"moe losses {losses}")
+    require(losses[-1] < losses[0], f"moe loss did not fall: {losses}")
+    want = cfg.num_hidden_layers * MOE_STEPS
+    for name, n in counts.items():
+        require(n == (want if name in TRAIN_KERNELS else 0),
+                f"moe: {name} ran {n} times, want "
+                f"{want if name in TRAIN_KERNELS else 0}")
+    require(model.total_aux_loss() is None,
+            "moe: a gate kept its loss past the step")
+    sig = model_signature(model)[:8]
+    rows = [r for r in memory.program_table()
+            if r["kind"] == "train_step" and r["model"] == sig]
+    require(len(rows) == 1 and rows[0]["captures"] == 1
+            and rows[0]["temp"] > 0 and rows[0]["bucket"] == MOE_BATCH,
+            f"moe: memwatch rows {rows}")
+    print(memory.format_program_table(rows), flush=True)
+    routing = moe_routing(model, x)
+    tokens = MOE_BATCH * MOE_SEQ
+    step_ms = 1e3 * float(np.median(step_s))
+    flops = moe_flops(cfg, MOE_BATCH, MOE_SEQ, routing[0]["capacity"])
+    emit("moe", model="MoEGPTConfig() (GPT-3 345M widths, 8 experts, "
+         "top-2, MoE every 2nd block)", layers=cfg.num_hidden_layers,
+         params=params, dtype="bf16, f32 masters", batch=MOE_BATCH,
+         seq=MOE_SEQ, steps=MOE_STEPS, losses=losses,
+         step_ms=[1e3 * v for v in step_s], step_ms_median=step_ms,
+         tokens_per_s=tokens / (step_ms / 1e3), peak_mem_gb=peak / 1e9,
+         flops_per_step=flops,
+         mfu_vs_989_tflops=flops["model"] / (step_ms / 1e3) / PEAK_FLOPS[
+             torch.bfloat16],
+         routing=routing, routing_before_training=routing_init,
+         aux_loss_total=sum(r["aux_loss"] for r in routing),
+         dropped_choices=sum(r["dropped"] for r in routing),
+         aux_loss_total_before=sum(r["aux_loss"] for r in routing_init),
+         dropped_choices_before=sum(r["dropped"] for r in routing_init),
+         choices=sum(r["choices"] for r in routing),
+         launches=counts, model_build_s=build_s,
+         memwatch_train_step=rows[0])
+    del model, trainer, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_moe_parity(device):
+    """One fp32 step of MoE-GPT at full width and MOE_PARITY_LAYERS layers
+    (a dense block and an MoE block) on the card (the flash kernels) and
+    on a CPU copy (their plain versions): the loss and every gradient
+    before the update agree, as train_parity holds Llama."""
+    from paddle_tpu_torch import kernels
+    cfg, cpu = moe_model("cpu", torch.float32, MOE_PARITY_LAYERS, 22)
+    card = copy.deepcopy(cpu).to(device)
+    x, y = token_batch(cfg.vocab_size, 1, MOE_PARITY_SEQ, 22)
+    results = {}
+    for name, model, dev in (("card", card, device), ("cpu", cpu, "cpu")):
+        trainer = make_trainer(model, 3e-4)
+        kernels.reset_launches()
+        loss, grads = trainer.compute_loss_grads(x.to(dev), y.to(dev))
+        counts = kernels.launch_counts()
+        results[name] = (float(loss), {k: g.detach().float().cpu()
+                                       for k, g in grads.items()}, counts)
+        del trainer
+    (l_card, g_card, counts), (l_cpu, g_cpu, cpu_counts) = (
+        results["card"], results["cpu"])
+    for k in TRAIN_KERNELS:
+        require(counts[k] == MOE_PARITY_LAYERS,
+                f"moe_parity: {k} ran {counts[k]} times on the card")
+        require(cpu_counts[k] == 0, f"moe_parity: {k} launched on the CPU")
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    require(loss_rel <= TRAIN_PARITY_LOSS_TOL,
+            f"moe_parity: loss {l_card} vs {l_cpu}")
+    require(sorted(g_card) == sorted(g_cpu), "moe_parity: grad names")
+    worst, worst_name = 0.0, None
+    for k, g in g_cpu.items():
+        err = float((g_card[k] - g).norm() / g.norm().clamp_min(1e-30))
+        if err > worst:
+            worst, worst_name = err, k
+    require(worst <= TRAIN_PARITY_GRAD_TOL,
+            f"moe_parity: grad of {worst_name} off by {worst} (rel L2)")
+    emit("moe_parity", model="MoEGPTConfig() width",
+         layers=MOE_PARITY_LAYERS, dtype="fp32", batch=1,
+         seq=MOE_PARITY_SEQ, loss_card=l_card, loss_cpu=l_cpu,
+         loss_rel_err=loss_rel, loss_tol=TRAIN_PARITY_LOSS_TOL,
+         grads=len(g_cpu), grad_rel_l2_max=worst, grad_worst=worst_name,
+         grad_tol=TRAIN_PARITY_GRAD_TOL, launches=counts)
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def dense_bshd(q, k, v, segment_ids=None, kv_segment_ids=None,
+               causal: bool = True, sm_scale=None):
+    """``flash_attention_bshd``'s dense twin: ``flash_attention_ref`` (f32
+    scores, autograd) in the same ``(B, S, H, D)`` layout; no launch."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+
+    def to_bhsd(t, sl, nh):
+        return t.transpose(1, 2).reshape(b * nh, sl, d)
+
+    out = fa.flash_attention_ref(to_bhsd(q, s, h), to_bhsd(k, skv, hkv),
+                                 to_bhsd(v, skv, hkv), causal=causal,
+                                 sm_scale=sm_scale, n_heads=h, n_kv_heads=hkv)
+    return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+@contextlib.contextmanager
+def dense_sdpa():
+    """For the ``with`` block, SDPA's flash route swapped for its dense
+    twin (the name ``nn.functional`` calls): the same entry points, no
+    launch."""
+    from paddle_tpu_torch.nn import functional as F
+    real = F.flash_attention_bshd
+    F.flash_attention_bshd = dense_bshd
+    try:
+        yield
+    finally:
+        F.flash_attention_bshd = real
+
+
+def run_fused_layers(device):
+    """The fused attention layers at GPT-3 345M's width (hidden 1024, 16
+    heads of 64, FFN 4096), bf16, B x S = FUSED_BATCH x FUSED_SEQ:
+    FusedTransformerEncoderLayer (post-LN, GELU) in eval mode against the
+    same layer on the dense attention (its plain composition), and
+    fused_multi_head_attention (pre-LN, biases) forward and backward at
+    dropout 0 against the dense reference: outputs and gradients within
+    GRAD_TOL of their largest element (the bf16 attention outputs differ
+    by about one ulp, which the layers after it carry). Launch counts exact: the flash forward #7
+    non-causal once a call, #8 and #9 once a backward. Returns them."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.incubate import nn as fused
+    from paddle_tpu_torch.incubate.nn import functional as FF
+    dtype, h, nh, ffn = torch.bfloat16, 1024, 16, 4096
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    layer = fused.FusedTransformerEncoderLayer(
+        h, nh, ffn, activation="gelu", device=device, dtype=dtype,
+        generator=seed(SEED + 23, device)).eval()
+    x = _rand(gen, (FUSED_BATCH, FUSED_SEQ, h), dtype, device)
+    total: dict = {}
+
+    def counted_call(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+        return out, c
+
+    with torch.no_grad():
+        out, c_layer = counted_call(lambda: layer(x))
+        with dense_sdpa():
+            ref, c_ref = counted_call(lambda: layer(x))
+    tol = GRAD_TOL[dtype]
+    layer_rel = rel_err(out, ref)
+    require(c_layer["flash_attention_fwd"] == 1
+            and sum(c_layer.values()) == 1 and sum(c_ref.values()) == 0,
+            f"fused_layers: encoder launches {c_layer} / {c_ref}")
+    require(layer_rel <= tol, f"fused_layers: encoder layer off by "
+            f"{layer_rel} of its largest element")
+    layer_ms = time_ms(lambda: layer(x), iters=10, warmup=2)
+    with dense_sdpa():
+        layer_plain_ms = time_ms(lambda: layer(x), iters=3, warmup=1)
+
+    s = 0.02
+    args = dict(qkv_weight=_rand(gen, (3, nh, h // nh, h), dtype, device, s),
+                linear_weight=_rand(gen, (h, h), dtype, device, s),
+                qkv_bias=_rand(gen, (3, nh, h // nh), dtype, device, s),
+                linear_bias=_rand(gen, (h,), dtype, device, s),
+                pre_ln_scale=1.0 + _rand(gen, (h,), dtype, device, s),
+                pre_ln_bias=_rand(gen, (h,), dtype, device, s))
+    dout = _rand(gen, x.shape, dtype, device)
+
+    def mha():
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, args["qkv_weight"], args["linear_weight"])]
+        o = FF.fused_multi_head_attention(
+            leaves[0], leaves[1], leaves[2], pre_layer_norm=True,
+            dropout_rate=0.0, attn_dropout_rate=0.0, training=True,
+            **{k: v for k, v in args.items()
+               if k not in ("qkv_weight", "linear_weight")})
+        return (o.detach(),) + torch.autograd.grad(o, leaves, dout)
+
+    got, c_mha = counted_call(mha)
+    with dense_sdpa():
+        want, _ = counted_call(mha)
+    require(all(c_mha[k] == 1 for k in TRAIN_KERNELS)
+            and sum(c_mha.values()) == 3,
+            f"fused_layers: fused_multi_head_attention launches {c_mha}")
+    mha_rel = rel_err(got[0], want[0])
+    grad_rel = [rel_err(g, w) for g, w in zip(got[1:], want[1:])]
+    require(max([mha_rel] + grad_rel) <= tol,
+            f"fused_layers: fused_multi_head_attention out {mha_rel}, "
+            f"grads {grad_rel}")
+    mha_ms = time_ms(mha, iters=10, warmup=2)
+    with dense_sdpa():
+        mha_plain_ms = time_ms(mha, iters=3, warmup=1)
+    emit("fused_layers", width="GPT-3 345M (1024, 16 heads of 64, FFN "
+         "4096)", dtype="bf16", batch=FUSED_BATCH, seq=FUSED_SEQ,
+         tol=tol, encoder_layer=dict(
+             rel_err=layer_rel, max_err=max_err(out, ref), ms=layer_ms,
+             plain_ms=layer_plain_ms, launches=c_layer),
+         fused_multi_head_attention=dict(
+             rel_err=mha_rel, grad_rel_err=grad_rel, fwd_bwd_ms=mha_ms,
+             plain_fwd_bwd_ms=mha_plain_ms, launches=c_mha))
+    del layer, x
+    torch.cuda.empty_cache()
+    return total
+
+
 # ---------------------------------------------------------- train_varlen
 def pack_ids(lens, device) -> torch.Tensor:
     """A pack's token segment ids: document j's tokens carry j + 1."""
@@ -6345,6 +6738,9 @@ def main() -> int:
         check_flash_attention(dtype, device, train_rows)
         for n, c in check_flash_with_lse(dtype, device).items():
             lse_counts[n] = lse_counts.get(n, 0) + c
+    moe_counts = run_moe(device)                 # this slice's main path
+    run_moe_parity(device)
+    fused_counts = run_fused_layers(device)
     train_counts, train = run_train(device)
     remat_counts = run_train_remat(device, train)
     fit_counts = run_fit(device)
@@ -6370,12 +6766,13 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = fit_counts[name]          # this slice's main path
-            by_path = dict(train=train_counts[name],
+            launches = moe_counts[name]          # this slice's main path
+            by_path = dict(moe=launches, train=train_counts[name],
                            train_remat=remat_counts[name],
-                           fit=launches, with_lse=lse_counts[name],
+                           fit=fit_counts[name], with_lse=lse_counts[name],
                            fit_faults=fit_fault_counts[name],
-                           nan_check=nan_counts[name])
+                           nan_check=nan_counts[name],
+                           fused_layers=fused_counts[name])
         elif name in VARLEN_KERNELS:
             rows = [r for r in varlen_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]

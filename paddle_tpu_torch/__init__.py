@@ -23,7 +23,10 @@ packed sequences through the flash kernels' segment ids
 (``incubate.nn.functional.fused_rms_norm``). Serving also runs a fleet of
 engine replicas (``generation.fleet.FleetRouter``), a weight-only quantized
 model (``nn.quant``) and GPT (``models.GPTForCausalLM``) through the
-engine's generic route.
+engine's generic route. Training also runs mixtures of experts on one card
+(``incubate.distributed.models.moe``: the gates, ``top_k_dispatch``,
+``Experts``, ``MoELayer``) and MoE-GPT (``models.MoEGPTForCausalLM``), and
+the fused ops and layers of ``incubate.nn``.
 """
 
 from .device import resolve_device, seed

@@ -1,11 +1,21 @@
 """Fused-op surface (counterpart of ``paddle_tpu/incubate/nn/functional.py``).
 
-Ported: the ``position_ids`` branch of the rotary embedding (the one the
-Llama paths run), ``fused_linear_cross_entropy`` (the Llama training
-loss), the weight-only quantization pair ``weight_quantize`` /
-``weight_only_linear`` (shared with :mod:`paddle_tpu_torch.nn.quant`), ``fused_rms_norm`` (the RMSNorm kernels),
-``variable_length_memory_efficient_attention`` (the flash kernels'
-segment-id variant), and Paddle's fused serving entry points:
+Ported: every branch of the rotary embedding (angles from
+``position_ids`` or from ``sin``/``cos`` tables, neox or interleaved,
+batch- or time-major), ``fused_linear_cross_entropy`` (the training loss
+of the Llama and GPT paths), the weight-only quantization pair
+``weight_quantize`` / ``weight_only_linear`` (shared with
+:mod:`paddle_tpu_torch.nn.quant`), ``fused_rms_norm`` (the RMSNorm
+kernels), ``variable_length_memory_efficient_attention`` (the flash
+kernels' segment-id variant); the training-side fused ops
+``fused_layer_norm``, ``fused_dropout_add``,
+``fused_bias_dropout_residual_layer_norm``, ``fused_linear``,
+``fused_linear_activation``, ``fused_matmul_bias``, ``swiglu``,
+``fused_multi_head_attention`` (its attention through SDPA: the flash
+kernels, not causal, when unmasked and without training dropout),
+``fused_feedforward`` and ``fused_ec_moe``, compositions in PyTorch as
+the JAX package's are in XLA, their dropout drawn from an explicit
+``generator``; and Paddle's fused serving entry points:
 ``fused_multi_transformer`` (the whole stack over ``(2, B, H, T, D)``
 caches), ``masked_multihead_attention`` (one-token attention over a
 ``(2, B, T, H, D)`` cache), ``fused_block_decode`` (the one-layer fused
@@ -33,6 +43,7 @@ from ...kernels.fused_block_decode import BlockDecodeWeights
 from ...kernels.fused_block_decode import fused_block_decode as _fbd
 from ...kernels.paged_attention import PagedDecodeState
 from ...kernels.rms_norm import rms_norm
+from ...nn import functional as F
 from ...nn.functional import paged_scaled_dot_product_attention
 
 
@@ -104,32 +115,252 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     use_neox_rotary_style=True,
                                     time_major=False,
                                     rotary_emb_base=10000.0):
-    """Rotary embedding of q/k/v ``(B, S, H, D)`` at ``position_ids``
-    ``(B, S)``: angles computed directly from the positions in f32, the
-    neox rotate-half applied in each tensor's own dtype. Returns
-    ``(q, k, v)`` with ``None`` passed through."""
-    if (position_ids is None or sin is not None or cos is not None
-            or not use_neox_rotary_style or time_major):
-        raise NotImplementedError(
-            "only the position_ids branch (neox style, batch-major, no "
-            "sin/cos tables) of fused_rotary_position_embedding is ported")
+    """Rotary embedding of q/k/v ``(B, S, H, D)`` (``(S, B, H, D)`` with
+    ``time_major``), the JAX package's branches: without ``sin``/``cos``
+    the angles come from ``position_ids`` ``(B, S)`` (batch-major) or from
+    the positions ``0..S-1``, in f32, with each frequency twice
+    (``cat([f, f])``); with tables ``(S, D)`` (more dimensions reshape to
+    ``(S, D)``) their rows are taken at ``position_ids`` when given. The
+    neox style rotates halves; the other style pairs even and odd lanes,
+    reading the tables' even lanes. Applied in each tensor's own dtype.
+    Returns ``(q, k, v)`` with ``None`` passed through."""
+    s = q.shape[0 if time_major else 1]
     d = q.shape[-1]
-    pid = position_ids.to(torch.float32)
-    exps = torch.arange(0, d, 2, dtype=torch.float32, device=q.device) / d
-    inv = 1.0 / (rotary_emb_base ** exps)
-    freqs = pid[..., None] * inv                           # (B, S, D/2)
-    emb = torch.cat([freqs, freqs], dim=-1)
-    sin_b = torch.sin(emb)[:, :, None, :]
-    cos_b = torch.cos(emb)[:, :, None, :]
+    f32 = torch.float32
+    if sin is None or cos is None:
+        exps = torch.arange(0, d, 2, dtype=f32, device=q.device) / d
+        inv = 1.0 / (rotary_emb_base ** exps)
+    if (sin is None or cos is None) and position_ids is not None:
+        # straight from the positions: decode positions pass the chunk
+        freqs = position_ids.to(f32)[..., None] * inv       # (B, S, D/2)
+        emb = torch.cat([freqs, freqs], dim=-1)
+        sin_b, cos_b = torch.sin(emb)[:, :, None], torch.cos(emb)[:, :, None]
+    else:
+        if sin is None or cos is None:
+            freqs = torch.outer(torch.arange(s, dtype=f32, device=q.device),
+                                inv)
+            emb = torch.cat([freqs, freqs], dim=-1)
+            sin_v, cos_v = torch.sin(emb), torch.cos(emb)
+        else:
+            sin_v = sin.reshape(s, d) if sin.dim() > 2 else sin
+            cos_v = cos.reshape(s, d) if cos.dim() > 2 else cos
+        if sin is not None and cos is not None and position_ids is not None:
+            pid = position_ids.long()
+            sin_b, cos_b = sin_v[pid][:, :, None], cos_v[pid][:, :, None]
+        elif time_major:
+            sin_b, cos_b = sin_v[:, None, None], cos_v[:, None, None]
+        else:
+            sin_b, cos_b = sin_v[None, :, None], cos_v[None, :, None]
 
     def rope(t):
         if t is None:
             return None
-        t1, t2 = t.chunk(2, dim=-1)
-        rot = torch.cat([-t2, t1], dim=-1)
-        return t * cos_b.to(t.dtype) + rot * sin_b.to(t.dtype)
+        sn, cs = sin_b.to(t.dtype), cos_b.to(t.dtype)
+        if use_neox_rotary_style:
+            t1, t2 = t.chunk(2, dim=-1)
+            return t * cs + torch.cat([-t2, t1], dim=-1) * sn
+        even, odd = t[..., 0::2], t[..., 1::2]
+        cs, sn = cs[..., 0::2], sn[..., 0::2]
+        return torch.stack([even * cs - odd * sn, odd * cs + even * sn],
+                           dim=-1).reshape(t.shape)
 
     return rope(q), rope(k), rope(v)
+
+
+# --------------------------------------------------- training-side fused ops
+_QUANT_OUT_ARGS = ("quant_round_type", "quant_max_bound", "quant_min_bound")
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
+                     begin_norm_axis=-1, bias=None, residual=None,
+                     quant_scale=-1, residual_alpha=1.0, **kwargs):
+    """Paddle's fused residual-add + LayerNorm: ``h = x (+ bias)
+    (+ residual)``, then layer norm over the axes from
+    ``begin_norm_axis`` (-1: the last axis). Returns ``(out, h)`` when a
+    residual is given, else ``out``. Another negative axis (the JAX
+    package normalizes the last axis for every negative value),
+    ``quant_scale > 0``, ``residual_alpha`` != 1 and any other keyword
+    but the quantized output's rounding and bounds (which only
+    ``quant_scale`` uses) raise ``NotImplementedError``: the JAX package
+    ignores them."""
+    if begin_norm_axis < 0 and begin_norm_axis != -1:
+        raise NotImplementedError(
+            f"fused_layer_norm: begin_norm_axis={begin_norm_axis}; give a "
+            "non-negative axis or -1 (the last)")
+    unknown = sorted(set(kwargs) - set(_QUANT_OUT_ARGS))
+    if ((quant_scale is not None and quant_scale > 0)
+            or residual_alpha != 1.0 or unknown):
+        raise NotImplementedError(
+            "fused_layer_norm: quant_scale > 0 (quantized output), "
+            f"residual_alpha != 1 and {unknown or 'other keywords'} are "
+            "not ported")
+    h = x
+    if bias is not None:
+        h = h + bias
+    if residual is not None:
+        h = h + residual
+    shape = (tuple(h.shape[begin_norm_axis:]) if begin_norm_axis >= 0
+             else h.shape[-1])
+    out = F.layer_norm(h, shape, norm_weight, norm_bias, epsilon)
+    return (out, h) if residual is not None else out
+
+
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+                      *, generator: Optional[torch.Generator] = None):
+    """``dropout(x) + y``; training dropout draws from ``generator``."""
+    return F.dropout(x, p=p, training=training, mode=mode,
+                     generator=generator) + y
+
+
+def fused_bias_dropout_residual_layer_norm(
+        x, residual, bias=None, ln_scale=None, ln_bias=None,
+        dropout_rate=0.5, ln_epsilon=1e-5, training=True, *,
+        generator: Optional[torch.Generator] = None):
+    """``layer_norm(dropout(x + bias) + residual)`` over the last axis;
+    training dropout draws from ``generator``."""
+    h = x if bias is None else x + bias
+    h = F.dropout(h, p=dropout_rate, training=training, generator=generator)
+    h = h + residual
+    return F.layer_norm(h, h.shape[-1], ln_scale, ln_bias, ln_epsilon)
+
+
+def _t(w, on: bool):
+    return w.transpose(-1, -2) if on else w
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False):
+    """``x @ W (+ b)``; ``transpose_weight``: W is ``(out, in)``."""
+    return F.linear(x, _t(weight, transpose_weight), bias)
+
+
+def fused_linear_activation(x, y, bias=None, trans_x=False, trans_y=False,
+                            activation="gelu"):
+    """``act(x @ y + bias)``: exact GELU for ``"gelu"``, ReLU for
+    ``"relu"``, no activation for any other name (as in the JAX
+    package)."""
+    out = _t(x, trans_x) @ _t(y, trans_y)
+    if bias is not None:
+        out = out + bias
+    if activation == "gelu":
+        return F.gelu(out)
+    if activation == "relu":
+        return F.relu(out)
+    return out
+
+
+def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False):
+    """``x @ y (+ bias)``, either side transposed on its last two axes."""
+    out = _t(x, transpose_x) @ _t(y, transpose_y)
+    return out if bias is None else out + bias
+
+
+def swiglu(x, y=None):
+    """``silu(x) * y`` (``y=None``: x split in two on its last axis)."""
+    return F.swiglu(x, y)
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
+                               pre_ln_epsilon=1e-5, qkv_bias=None,
+                               linear_bias=None, cache_kv=None,
+                               attn_mask=None, dropout_rate=0.5,
+                               attn_dropout_rate=0.5, ln_epsilon=1e-5,
+                               training=True, mode="upscale_in_train",
+                               ring_id=-1, add_residual=True, num_heads=None,
+                               transpose_qkv_wb=False, *,
+                               generator: Optional[torch.Generator] = None):
+    """Paddle's fused attention block on ``x`` ``(B, S, D)``: (pre-LN) ->
+    qkv through ``qkv_weight`` ``(3, H, Dh, D)`` (+ ``qkv_bias`` ``(3, H,
+    Dh)``) -> with ``cache_kv`` ``(2, B, Sc, H, Dh)`` the cached k/v
+    prepended -> :func:`~paddle_tpu_torch.nn.functional.scaled_dot_product_attention`
+    (not causal; unmasked and without training dropout it is the flash
+    kernels) -> ``linear_weight`` ``(H * Dh, D)`` (+ bias) -> dropout ->
+    (+ residual) -> (post-LN). Dropout in training draws from
+    ``generator``. ``ring_id`` != -1 (tensor parallel),
+    ``transpose_qkv_wb`` and a ``num_heads`` other than ``qkv_weight``'s
+    raise ``NotImplementedError`` (the JAX package ignores them)."""
+    if ring_id != -1 or transpose_qkv_wb:
+        raise NotImplementedError(
+            "fused_multi_head_attention: ring_id (tensor parallel) and "
+            "transpose_qkv_wb are not ported; qkv_weight is (3, H, Dh, D)")
+    if num_heads is not None and num_heads != qkv_weight.shape[1]:
+        raise NotImplementedError(
+            f"fused_multi_head_attention: num_heads={num_heads} but "
+            f"qkv_weight {tuple(qkv_weight.shape)} has {qkv_weight.shape[1]}"
+            " heads (the heads come from the weight)")
+    residual = x
+    h = x
+    if pre_layer_norm:
+        h = F.layer_norm(h, h.shape[-1], pre_ln_scale, pre_ln_bias,
+                         pre_ln_epsilon)
+    b, s, _ = h.shape
+    nh, hd = qkv_weight.shape[1], qkv_weight.shape[2]
+    qkv = torch.einsum("bsd,thed->bsthe", h, qkv_weight)
+    if qkv_bias is not None:
+        qkv = qkv + qkv_bias.reshape(1, 1, 3, nh, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if cache_kv is not None:
+        k = torch.cat([cache_kv[0], k], dim=1)
+        v = torch.cat([cache_kv[1], v], dim=1)
+    out = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask,
+        dropout_p=attn_dropout_rate if training else 0.0, training=training,
+        generator=generator)
+    out = F.linear(out.reshape(b, s, nh * hd), linear_weight, linear_bias)
+    out = F.dropout(out, p=dropout_rate, training=training, mode=mode,
+                    generator=generator)
+    if add_residual:
+        out = residual + out
+    if not pre_layer_norm:
+        out = F.layer_norm(out, out.shape[-1], ln_scale, ln_bias, ln_epsilon)
+    return out
+
+
+def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
+                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
+                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+                      dropout2_rate=0.5, activation="relu", ln1_epsilon=1e-5,
+                      ln2_epsilon=1e-5, pre_layer_norm=False, training=True,
+                      mode="upscale_in_train", ring_id=-1, *,
+                      generator: Optional[torch.Generator] = None):
+    """Paddle's fused FFN block: (pre-LN) -> linear1 -> the activation of
+    :mod:`~paddle_tpu_torch.nn.functional` named ``activation`` -> dropout
+    -> linear2 -> dropout -> + residual -> (post-LN). Dropout in training
+    draws from ``generator``; ``ring_id`` != -1 (tensor parallel) raises
+    ``NotImplementedError``."""
+    if ring_id != -1:
+        raise NotImplementedError(
+            "fused_feedforward: ring_id (tensor parallel) is not ported")
+    residual = x
+    h = x
+    if pre_layer_norm:
+        h = F.layer_norm(h, h.shape[-1], ln1_scale, ln1_bias, ln1_epsilon)
+    h = F.linear(h, linear1_weight, linear1_bias)
+    h = getattr(F, activation)(h)
+    h = F.dropout(h, p=dropout1_rate, training=training, mode=mode,
+                  generator=generator)
+    h = F.linear(h, linear2_weight, linear2_bias)
+    h = F.dropout(h, p=dropout2_rate, training=training, mode=mode,
+                  generator=generator)
+    out = residual + h
+    if not pre_layer_norm:
+        out = F.layer_norm(out, out.shape[-1], ln2_scale, ln2_bias,
+                           ln2_epsilon)
+    return out
+
+
+def fused_ec_moe(x, gate, bmm0_weight, bmm0_bias, bmm1_weight, bmm1_bias,
+                 act_type="gelu"):
+    """Paddle's expert-choice soft-combined MoE FFN: every token through
+    every expert, ``act(x @ W0[e] + b0[e]) @ W1[e] + b1[e]`` (batched
+    products; ``act`` GELU in its tanh form, as ``jax.nn.gelu``'s default,
+    or ReLU), weighted by ``softmax(gate)`` ``(B, S, E)`` and summed."""
+    act = {"gelu": lambda t: torch.nn.functional.gelu(t, approximate="tanh"),
+           "relu": torch.relu}[act_type]
+    h = act(torch.einsum("bsd,edh->bseh", x, bmm0_weight) + bmm0_bias)
+    out = torch.einsum("bseh,ehd->bsed", h, bmm1_weight) + bmm1_bias
+    return torch.einsum("bsed,bse->bsd", out, torch.softmax(gate, dim=-1))
 
 
 def _logits_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

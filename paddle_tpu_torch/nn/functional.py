@@ -1,6 +1,6 @@
 """Functional surface of the ported slices (counterpart of
-``paddle_tpu/nn/functional.py``): RMSNorm, layer norm, SwiGLU, GELU,
-dropout, cross entropy, the training
+``paddle_tpu/nn/functional.py``): RMSNorm, layer norm, SwiGLU, GELU, ReLU,
+softmax, ``linear``, dropout, cross entropy, the training
 attention (``scaled_dot_product_attention`` on the flash kernels, or its
 dense path with a mask or dropout; ``flash_attention``;
 ``flash_attn_unpadded`` on the kernels' segment-id variant for packed
@@ -60,6 +60,30 @@ def gelu(x: torch.Tensor, approximate: bool = False, name=None
          ) -> torch.Tensor:
     """GELU, exact (erf) or with ``approximate=True`` the tanh form."""
     return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x: torch.Tensor, name=None) -> torch.Tensor:
+    """max(x, 0)."""
+    return torch.relu(x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1, dtype=None, name=None
+            ) -> torch.Tensor:
+    """Softmax over ``axis`` in x's dtype, or in ``dtype`` (a
+    ``torch.dtype`` or its name) after a cast to it."""
+    if dtype is not None:
+        x = x.to(getattr(torch, dtype) if isinstance(dtype, str) else dtype)
+    return torch.softmax(x, dim=axis)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
+    """``x @ weight (+ bias)``, the weight in Paddle's ``(in, out)``
+    layout; under ``amp.auto_cast`` the inputs are cast as the op
+    ``linear``."""
+    x, weight, bias = amp_cast("linear", x, weight, bias)
+    y = x @ weight
+    return y if bias is None else y + bias
 
 
 def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None

@@ -1,14 +1,35 @@
-"""Initializers (counterpart of ``paddle_tpu/nn/initializer.py``): the one
-the ported models call, ``Normal``. The port has no global random key, so an
-initializer draws from the ``torch.Generator`` it is given."""
+"""Initializers (counterpart of ``paddle_tpu/nn/initializer.py``): the ones
+the ported layers call, ``Constant``, ``Normal``, ``Uniform``,
+``XavierNormal`` and ``XavierUniform``. The port has no global random key,
+so an initializer draws from the ``torch.Generator`` it is given.
+
+The Xavier fans are the JAX package's ``_fans`` rule, copied: a shape of
+three or more dimensions counts as a convolution weight ``[out_c, in_c,
+*k]``, so ``Experts``' ``(E, d, h)`` has fan-in ``d * h`` and fan-out
+``E * h``."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["Normal"]
+__all__ = ["Constant", "Normal", "Uniform", "XavierNormal", "XavierUniform"]
+
+
+class Constant:
+    """A new tensor of ``dtype`` on ``device`` filled with ``value``."""
+
+    def __init__(self, value: float = 0.0):
+        self.value = value
+
+    def __call__(self, shape, device, dtype,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        return torch.full(tuple(shape), self.value, device=device,
+                          dtype=dtype)
 
 
 class Normal:
@@ -23,3 +44,61 @@ class Normal:
                  ) -> torch.Tensor:
         t = torch.empty(tuple(shape), device=device, dtype=dtype)
         return t.normal_(self.mean, self.std, generator=generator)
+
+
+class Uniform:
+    """Draws from ``U(low, high)`` with ``generator`` (``Tensor.uniform_``
+    in ``dtype``)."""
+
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, device, dtype,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        t = torch.empty(tuple(shape), device=device, dtype=dtype)
+        return t.uniform_(self.low, self.high, generator=generator)
+
+
+def _fans(shape) -> tuple:
+    """``(fan_in, fan_out)``: a 1-D shape is its own fan both ways, a 2-D
+    ``(in, out)``, and three or more dimensions ``[out_c, in_c, *k]``."""
+    shape = tuple(shape)
+    if len(shape) < 2:
+        f = shape[0] if shape else 1
+        return f, f
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = int(np.prod(shape[2:]))
+    return shape[1] * receptive, shape[0] * receptive
+
+
+class XavierNormal:
+    """``N(0, gain * sqrt(2 / (fan_in + fan_out)))``."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, device, dtype,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        fi, fo = _fans(shape)
+        std = self.gain * math.sqrt(2.0 / ((self.fan_in or fi)
+                                           + (self.fan_out or fo)))
+        return Normal(0.0, std)(shape, device, dtype, generator)
+
+
+class XavierUniform:
+    """``U(-limit, limit)``, ``limit = gain * sqrt(6 / (fan_in +
+    fan_out))``."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, device, dtype,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        fi, fo = _fans(shape)
+        limit = self.gain * math.sqrt(6.0 / ((self.fan_in or fi)
+                                             + (self.fan_out or fo)))
+        return Uniform(-limit, limit)(shape, device, dtype, generator)

@@ -26,6 +26,8 @@ import paddle_tpu_torch
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.device import resolve_device, seed
 from paddle_tpu_torch.generation.serving import ServingEngine
+from paddle_tpu_torch.incubate import nn as fused
+from paddle_tpu_torch.incubate.distributed.models import moe
 from paddle_tpu_torch.io import DevicePrefetcher
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import decode_attention as da
@@ -35,7 +37,8 @@ from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels.paged_attention import PagedKVCache
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
-                                     LlamaForCausalLM)
+                                     LlamaForCausalLM, MoEGPTConfig,
+                                     MoEGPTForCausalLM)
 from paddle_tpu_torch.nn import Embedding, LayerNorm, Linear, RMSNorm
 from paddle_tpu_torch.nn.quant import QuantizedLinear
 from paddle_tpu_torch.testing.transport import adopt_and_decode_in_child
@@ -66,6 +69,11 @@ def _imported_roots(tree):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    scanned = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"paddle_tpu_torch/incubate/distributed/models/moe/moe_layer.py",
+            "paddle_tpu_torch/incubate/distributed/models/moe/gate.py",
+            "paddle_tpu_torch/models/moe_gpt.py",
+            "tools/torch_memwatch.py"} <= scanned
     bad = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -100,9 +108,22 @@ def no_cuda(monkeypatch):
     lambda: GPTForCausalLM(GPTConfig.tiny()),
     lambda: LayerNorm(8),
     lambda: QuantizedLinear(8, 4),
+    lambda: MoEGPTForCausalLM(MoEGPTConfig.tiny(num_hidden_layers=2)),
+    lambda: moe.MoELayer(8, num_expert=2, d_hidden=8),
+    lambda: moe.Experts(2, 8, 8),
+    lambda: moe.GShardGate(8, 2),
+    lambda: fused.FusedLinear(4, 8),
+    lambda: fused.FusedBiasDropoutResidualLayerNorm(8),
+    lambda: fused.FusedMultiHeadAttention(8, 2),
+    lambda: fused.FusedFeedForward(8, 16),
+    lambda: fused.FusedTransformerEncoderLayer(8, 2, 16),
+    lambda: fused.FusedMultiTransformer(8, 2, 16),
 ], ids=["llama", "llama-cuda", "linear", "embedding", "rmsnorm",
         "paged-kv-cache", "seed", "resolve_device", "device-prefetcher",
-        "child-decode", "gpt", "layernorm", "quantized-linear"])
+        "child-decode", "gpt", "layernorm", "quantized-linear", "moe-gpt",
+        "moe-layer", "experts", "gshard-gate", "fused-linear",
+        "fused-bias-dropout-residual-ln", "fused-mha", "fused-ffn",
+        "fused-encoder-layer", "fused-multi-transformer"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):
     with pytest.raises(RuntimeError, match="cuda"):
         build()

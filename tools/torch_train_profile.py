@@ -2,6 +2,8 @@
 """Where a training step's device time goes on the CUDA card (the port).
 
     python3 tools/torch_train_profile.py [--layers 8] [--seq 4096]
+    python3 tools/torch_train_profile.py --model moe_gpt [--layers 24]
+                                         [--seq 1024]
 
 Builds Llama-2-7B width at ``--layers`` layers (bf16, f32 masters, random
 weights from ``--seed``) and the training path of ``chip_smoke.py``:
@@ -26,6 +28,17 @@ its device ms by group and its largest kernels; a last ``step`` line gives
 the traced wall time, the device time, the idle share against the
 untraced step, and the card's name and power limit follow. Exits non-zero
 without a CUDA card.
+
+With ``--model moe_gpt`` the model is ``MoEGPTConfig()`` (GPT-3 345M
+widths, 8 experts top-2 on every 2nd block) at ``--layers``, trained as
+``chip_smoke.py``'s moe phase does (one batch of 4 x ``--seq`` tokens, no
+gradient accumulation), and the ``loss`` window gives way to three windows
+over one MoE block's pieces alone, forward and backward, at the step's
+shapes and times the MoE blocks of the model: ``moe_routing`` (the gate's
+product, ``top_k_dispatch``), ``moe_dispatch_combine`` (the token ->
+expert and expert -> token products over the one-hot tensors) and
+``moe_experts`` (the two batched expert products and the GELU), each
+also timed on the card's clock (``event_ms``, CUDA events over 5 calls).
 """
 
 from __future__ import annotations
@@ -58,10 +71,93 @@ def _group(name: str) -> str:
     return "other"
 
 
+def moe_windows(model, tokens, top) -> list:
+    """One MoE block's routing, dispatch/combine products and experts,
+    each forward and backward alone on seeded bf16 activations of
+    ``tokens`` tokens, with each window's device ms also times the
+    model's MoE blocks (``per_step_device_ms``)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        top_k_dispatch
+    blocks = [b.moe for b in model.h if hasattr(b, "moe")]
+    layer = blocks[0]
+    d, k = layer.d_model, layer.top_k
+    cap = layer.capacity(tokens)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape, grad=True):
+        t = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return t.requires_grad_(grad)
+
+    xt = rand(tokens, d)
+
+    def routing():
+        combine, _, aux = top_k_dispatch(layer.gate(xt), k, cap,
+                                         layer.gate.aux_loss_mode)
+        torch.autograd.backward([combine, aux],
+                                [torch.ones_like(combine), torch.ones_like(
+                                    aux)])
+
+    with torch.no_grad():
+        combine, dispatch, _ = top_k_dispatch(layer.gate(xt), k, cap,
+                                              layer.gate.aux_loss_mode)
+    e = combine.shape[1]
+    combine = combine.requires_grad_(True)
+    expert_out = rand(e * cap, d)
+    g_disp, g_out = rand(e * cap, d, grad=False), rand(tokens, d,
+                                                        grad=False)
+
+    def dispatch_combine():
+        mask = dispatch.reshape(tokens, e * cap).to(xt.dtype)
+        disp = mask.transpose(0, 1) @ xt
+        out = combine.reshape(tokens, e * cap).to(expert_out.dtype) \
+            @ expert_out
+        torch.autograd.backward([disp, out], [g_disp, g_out])
+
+    disp = rand(e, cap, d)
+    g_exp = rand(e, cap, d, grad=False)
+
+    def experts():
+        layer.experts(disp).backward(g_exp)
+
+    out = []
+    for name, fn in (("moe_routing", routing),
+                     ("moe_dispatch_combine", dispatch_combine),
+                     ("moe_experts", experts)):
+        fn()
+        w = window(name, fn, top, _group)
+        ms = event_ms(fn)
+        w.update(moe_blocks=len(blocks), tokens=tokens, capacity=cap,
+                 event_ms=ms, per_step_event_ms=ms * len(blocks),
+                 per_step_device_ms=(None if w["device_ms"] is None
+                                     else w["device_ms"] * len(blocks)))
+        out.append(w)
+    return out
+
+
+def event_ms(fn, iters: int = 5) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back calls on the card's
+    clock (CUDA events), beside the traced window's device sum."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=4096)
+    ap.add_argument("--model", default="llama", choices=("llama",
+                                                         "moe_gpt"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="default 8 (llama), 24 (moe_gpt)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="default 4096 (llama), 1024 (moe_gpt)")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--top", type=int, default=10)
     args = ap.parse_args()
@@ -78,11 +174,24 @@ def main() -> int:
     from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                                LinearWarmup)
 
-    batch, accum = 2, 2
-    cfg = LlamaConfig.llama2_7b()
-    cfg.num_hidden_layers = args.layers
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             generator=seed(args.seed, "cuda"))
+    moe = args.model == "moe_gpt"
+    if moe:
+        from paddle_tpu_torch.models import MoEGPTConfig, MoEGPTForCausalLM
+        batch, accum = 4, 1
+        args.layers = args.layers or 24
+        args.seq = args.seq or 1024
+        cfg = MoEGPTConfig()
+        cfg.num_hidden_layers = args.layers
+        model = MoEGPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                  generator=seed(args.seed, "cuda"))
+    else:
+        batch, accum = 2, 2
+        args.layers = args.layers or 8
+        args.seq = args.seq or 4096
+        cfg = LlamaConfig.llama2_7b()
+        cfg.num_hidden_layers = args.layers
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 generator=seed(args.seed, "cuda"))
     sched = LinearWarmup(CosineAnnealingDecay(3e-4, T_max=10),
                          warmup_steps=2, start_lr=3e-5, end_lr=3e-4)
     opt = AdamW(sched, parameters=model.named_parameters(),
@@ -105,22 +214,27 @@ def main() -> int:
         untraced.append(time.perf_counter() - t0)
     step_ms = 1e3 * float(np.median(untraced))
 
-    common = dict(layers=args.layers, batch=batch, seq=args.seq,
-                  grad_accum_steps=accum, dtype="bf16, f32 masters")
+    common = dict(model=args.model, layers=args.layers, batch=batch,
+                  seq=args.seq, grad_accum_steps=accum,
+                  dtype="bf16, f32 masters")
     fb = window("fwd_bwd", lambda: trainer.compute_loss_grads(x, y),
                 args.top, _group)
     up = window("update", trainer.apply_update, args.top, _group)
-    hidden = torch.randn((1, args.seq, cfg.hidden_size), device="cuda",
-                         dtype=torch.bfloat16, requires_grad=True)
+    if moe:
+        extra = moe_windows(model, batch * args.seq, args.top)
+    else:
+        hidden = torch.randn((1, args.seq, cfg.hidden_size), device="cuda",
+                             dtype=torch.bfloat16, requires_grad=True)
 
-    def loss_fwd_bwd():
-        FF.fused_linear_cross_entropy(hidden, model.lm_head.weight,
-                                      y[:1]).backward()
+        def loss_fwd_bwd():
+            FF.fused_linear_cross_entropy(hidden, model.lm_head.weight,
+                                          y[:1]).backward()
 
-    loss_fwd_bwd()
-    lo = window("loss", loss_fwd_bwd, args.top, _group)
-    lo["micro_batches_per_step"] = accum
-    for w in (fb, up, lo):
+        loss_fwd_bwd()
+        lo = window("loss", loss_fwd_bwd, args.top, _group)
+        lo["micro_batches_per_step"] = accum
+        extra = [lo]
+    for w in [fb, up] + extra:
         w.update(common)
         print(json.dumps(w), flush=True)
     traced_wall = fb["wall_ms"] + up["wall_ms"]
