@@ -275,9 +275,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
               at Llama-2-7B heads (S=4096), Llama-2-70B heads (GQA, S=2048)
-              and a ragged length (S=1000), and at GPT-3 345M's heads (B=4,
-              S=1024, 16 heads of 64) causal and not, bf16 (out within 1e-3
-              + one
+              and a ragged length (S=1000), at GPT-3 345M's heads (B=4,
+              S=1024, 16 heads of 64) causal and not, and at SD-1.5's UNet
+              attention (B=2, 8 heads, not causal): self-attention at
+              (S, D) = (4096, 40), (1024, 80), (256, 160), (64, 160) and
+              cross-attention of the same queries against 77 keys; bf16
+              (out within 1e-3 + one
               bf16 ulp of the reference, lse 1e-3, grads 2e-2 of their
               largest element) and fp32 (1e-4 each), with kernel, plain,
               library (SDPA forward, forward + backward, and its backward
@@ -290,7 +293,37 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               space against the whole call (out 2e-3 bf16 / 1e-4 fp32
               abs, lse as above); with_lse forward and forward + backward
               timed beside flash_attention's on the same shape;
-     moe      this slice's main path: MoEGPTConfig() (GPT-3 345M widths:
+     unet     this slice's main path: UNetConfig.sd15() at full width and
+              depth (859,520,964 parameters; heads of 40, 80 and 160),
+              bf16 with f32 masters, seeded, TrainStep(UNetDenoiseLoss) +
+              AdamW 1e-4 (the JAX bench's recipe), without remat: 2
+              warm-up steps, then 5 measured, on one fixed batch of 2 x 4 x
+              64 x 64 latents, timesteps in [0, 1000), a 77 x 768 context
+              and unit noise: finite losses, #7, #8 and #9 launched 32
+              times a step each (16 transformers x self and cross) and no
+              other kernel; step ms, images/s, peak memory;
+     unet_parity
+              one fp32 step of SD-1.5's widths cut to 3 blocks (320, 640,
+              1280) of 1 layer at 32 x 32 latents (heads of 40 and 80 in
+              the blocks, 160 in the mid block), batch 2, 77 context
+              tokens, on the card and on a CPU copy: the loss within 1e-4
+              and every gradient within 1e-3 (rel L2);
+     bert     BertConfig.bert_base() (bert-base-uncased: 12 layers, hidden
+              768, 12 heads, vocab 30522), BertForPretraining +
+              BertPretrainingCriterion through TrainStep + AdamW 1e-4,
+              bf16 with f32 masters, dropout 0.1 from the model's
+              generator: 2 warm-up steps then 5 measured on one fixed
+              batch of 8 x 512 tokens (ragged real lengths padded with
+              pad_token_id, two segments, 15 % of the real tokens
+              labelled for the MLM, NSP labels): finite losses, no kernel
+              launched (the padding mask takes SDPA's dense path); step
+              ms, tokens/s, peak memory; then a
+              BertForSequenceClassification eval forward on the batch;
+     bert_parity
+              one fp32 step of bert-base at 2 layers without dropout on
+              the card and on a CPU copy: the loss within 1e-4 and every
+              gradient within 1e-3 (rel L2);
+     moe      MoEGPTConfig() (GPT-3 345M widths:
               vocab 50304, hidden 1024, 24 layers, 16 heads of 64, inter
               4096, tied head; 8 experts, top-2, an MoE FFN every 2nd
               block, capacity factor 1.2, aux weight 0.01; 1.06 B
@@ -404,6 +437,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -453,6 +487,19 @@ TRAIN_SHAPES = (("llama2_7b heads", 1, 4096, 32, 32),
 GPT_TRAIN_SHAPES = (("gpt3_345m heads", 4, 1024, 16, 16, 64, True),
                     ("gpt3_345m heads, non-causal", 4, 1024, 16, 16, 64,
                      False))
+# SD-1.5's UNet attention (the unet phase's batch of 2, 8 heads, not
+# causal): self-attention over the latent tokens at each resolution, and
+# cross-attention of the same queries against the 77 text tokens. Case,
+# batch, Sq, heads, kv heads, head_dim, causal, Skv
+UNET_CONTEXT = 77
+UNET_ATTN_SHAPES = tuple(
+    (f"sd15 {kind} attention, D={d}", 2, s, 8, 8, d, False, skv)
+    for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
+    for kind, skv in (("self", s), ("cross", UNET_CONTEXT)))
+# every shape check_flash_attention holds, in UNET_ATTN_SHAPES' layout
+FLASH_ATTN_SHAPES = (tuple(t + (HEAD_DIM, True, t[2]) for t in TRAIN_SHAPES)
+                     + tuple(t + (t[2],) for t in GPT_TRAIN_SHAPES)
+                     + UNET_ATTN_SHAPES)
 # flash forward: out within atol + rtol |ref| elementwise (rtol: one bf16
 # ulp, as both sides round the same f32 value), the f32 lse within abs
 OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
@@ -492,6 +539,18 @@ MOE_STEPS, MOE_BATCH, MOE_SEQ = 5, 4, 1024
 MOE_PARITY_LAYERS, MOE_PARITY_SEQ = 2, 512
 # fused_layers: the fused attention layers at GPT-3 345M's width
 FUSED_BATCH, FUSED_SEQ = 4, 1024
+# unet: UNetConfig.sd15() at full depth, UNET_WARMUP then UNET_STEPS steps
+# of UNET_BATCH latents (the JAX bench's batch, AdamW and learning rate);
+# unet_parity at SD-1.5's widths cut to 3 blocks of 1 layer at 32 x 32
+UNET_BATCH, UNET_WARMUP, UNET_STEPS, UNET_LR = 2, 2, 5, 1e-4
+UNET_SD15_ATTENTION_CALLS = 32          # 16 transformers x self and cross
+UNET_PARITY_BLOCKS, UNET_PARITY_SIZE = (320, 640, 1280), 32
+# bert: bert-base pretraining on BERT_BATCH x BERT_SEQ tokens, ragged real
+# lengths of at least BERT_MIN_LEN; bert_parity at 2 layers, no dropout
+BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 8, 512, 128
+BERT_WARMUP, BERT_STEPS, BERT_LR = 2, 5, 1e-4
+BERT_MLM_SHARE, BERT_MASK_ID = 0.15, 103  # [MASK] in bert-base-uncased
+BERT_PARITY_LAYERS, BERT_PARITY_BATCH, BERT_PARITY_SEQ = 2, 2, 256
 # fit: Model.fit at the train phase's width, 4 layers, over a DataLoader of
 # seeded 4096-token rows, batch 2 split in 2 micro-batches, 6 steps. The
 # depth is what a chip call may write: fit's two checkpoints (12 bytes a
@@ -5066,15 +5125,13 @@ def check_flash_attention(dtype, device, rows):
     """Forward, dq and dk/dv against autograd of the dense reference on
     the card; then each kernel's time beside its plain version's, SDPA's
     (forward; forward + backward; backward alone), and the card's bound.
-    Appends one row per kernel and shape."""
+    Appends one row per kernel and FLASH_ATTN_SHAPES entry."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    shapes = [t + (HEAD_DIM, True) for t in TRAIN_SHAPES] + list(
-        GPT_TRAIN_SHAPES)
-    for case, b, s, h, hkv, d, causal in shapes:
+    for case, b, s, h, hkv, d, causal, skv in FLASH_ATTN_SHAPES:
         q = _rand(gen, (b * h, s, d), dtype, device)
-        k = _rand(gen, (b * hkv, s, d), dtype, device)
-        v = _rand(gen, (b * hkv, s, d), dtype, device)
+        k = _rand(gen, (b * hkv, skv, d), dtype, device)
+        v = _rand(gen, (b * hkv, skv, d), dtype, device)
         do = _rand(gen, (b * h, s, d), dtype, device)
         kw = dict(causal=causal, n_heads=h, n_kv_heads=hkv)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -5093,7 +5150,8 @@ def check_flash_attention(dtype, device, rows):
         dkv_rel = max(rel_err(dk, ref_grads[1]), rel_err(dv, ref_grads[2]))
         dq_abs = max_err(dq, ref_grads[0])
         dkv_abs = max(max_err(dk, ref_grads[1]), max_err(dv, ref_grads[2]))
-        tag = f"{case} B={b} S={s} H={h} Hkv={hkv} {DTYPE_NAME[dtype]}"
+        tag = (f"{case} B={b} S={s} Skv={skv} H={h} Hkv={hkv} "
+               f"{DTYPE_NAME[dtype]}")
         require(out_excess <= atol, f"flash fwd out {tag}: {out_excess} "
                 f"over {rtol} |ref|")
         require(lse_err <= LSE_TOL[dtype], f"flash fwd lse {tag}: {lse_err}")
@@ -5116,7 +5174,8 @@ def check_flash_attention(dtype, device, rows):
                 *bwd, **kw), iters=5, warmup=1),
             dkv_plain=time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
                 *bwd, **kw), iters=5, warmup=1))
-        qs, ks, vs, dos = (x.reshape(b, -1, s, d) for x in (q, k, v, do))
+        qs, ks, vs, dos = (x.reshape(b, -1, x.shape[1], d)
+                           for x in (q, k, v, do))
         t["sdpa_fwd"] = time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal),
                                 iters=10, warmup=2)
         lq, lk, lv = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
@@ -5135,7 +5194,7 @@ def check_flash_attention(dtype, device, rows):
 
         elem = q.element_size()
         # the (query, key) pairs the mask keeps
-        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * skv)
         fwd_ops = 4.0 * pairs * d                 # QK^T and PV
         stats = 4 * 2 * q.shape[0] * s            # lse and delta, f32
         bounds = dict(
@@ -5153,7 +5212,8 @@ def check_flash_attention(dtype, device, rows):
                                  + 2 * v.numel()) + stats,
                          2.5 * fwd_ops, dtype))
         emit("train_kernels", case=case, dtype=DTYPE_NAME[dtype], B=b, S=s,
-             H=h, Hkv=hkv, D=d, causal=causal, out_max_err=out_err,
+             Skv=skv, H=h, Hkv=hkv, D=d, causal=causal,
+             out_max_err=out_err,
              out_excess=out_excess, out_atol=atol, out_rtol=rtol,
              lse_max_err=lse_err, lse_tol=LSE_TOL[dtype],
              dq_rel_err=dq_rel, dkv_rel_err=dkv_rel,
@@ -5178,8 +5238,9 @@ def check_flash_attention(dtype, device, rows):
                 ("flash_attention_bwd_dq", "dq", dq_abs, t["sdpa_bwd"]),
                 ("flash_attention_bwd_dkv", "dkv", dkv_abs, t["sdpa_bwd"])):
             rows.append(dict(
-                kernel=name, dtype=DTYPE_NAME[dtype], S=s, case=case, D=d,
-                causal=causal, max_err=err, kernel_ms=t[key],
+                kernel=name, dtype=DTYPE_NAME[dtype], S=s, Skv=skv,
+                case=case, D=d, causal=causal, max_err=err,
+                kernel_ms=t[key],
                 plain_ms=t[key + "_plain"],
                 library_ms=lib, bound_ms=bounds[key][0],
                 bound_by=bounds[key][1], **frac(bounds, t, key)))
@@ -5335,8 +5396,29 @@ def token_batch(vocab, batch, seq, seed_offset):
     return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
 
 
-def run_train(device):
+def timed_steps(trainer, batch, warmup, steps):
+    """``warmup`` steps, then ``steps`` more with the launch counters and
+    the peak memory reset before them: (losses of all, seconds of each
+    measured step, counts, peak bytes)."""
     from paddle_tpu_torch import kernels
+    losses = []
+    for _ in range(warmup):
+        losses.append(trainer(*batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer(*batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    return [float(v) for v in losses], step_s, counts, peak
+
+
+def run_train(device):
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.generation.program_cache import model_signature
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -5352,16 +5434,8 @@ def run_train(device):
                                               TRAIN_SEQ, 5))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    losses, step_s = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(trainer(x, y))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    counts = kernels.launch_counts()
-    losses = [float(v) for v in losses]
+    losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0,
+                                               TRAIN_STEPS)
     require(all(math.isfinite(v) for v in losses), f"train losses {losses}")
     require(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     want = TRAIN_LAYERS * TRAIN_ACCUM * TRAIN_STEPS
@@ -5375,7 +5449,6 @@ def run_train(device):
             * TRAIN_BATCH)                       # forward 1x + backward 2.5x
     flops = 6.0 * n_matmul * tokens + attn
     step_ms = 1e3 * float(np.median(step_s))
-    peak = torch.cuda.max_memory_allocated()
     # memwatch: the step's row (its first step measured)
     sig = model_signature(model)[:8]
     rows = [r for r in memory.program_table()
@@ -5470,17 +5543,8 @@ def run_train_remat(device, train):
     trainer.optimizer.clear_grad()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    losses, step_s = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(trainer(x, y))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
+    losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0,
+                                               TRAIN_STEPS)
     require(all(math.isfinite(v) for v in losses), f"remat losses {losses}")
     want = dict(flash_attention_fwd=2 * micro * TRAIN_STEPS,
                 flash_attention_bwd_dq=micro * TRAIN_STEPS,
@@ -5977,53 +6041,76 @@ def run_nan_check(device) -> dict:
     return counts
 
 
-def run_train_parity(device):
+def grad_parity(phase, device, cpu, build_trainer, batch_of,
+                want_launches):
+    """One fp32 step of ``cpu`` and of its copy on the card, each through
+    ``build_trainer(model)`` on ``batch_of(device)``: the loss and the
+    gradients before the update agree (the loss within
+    TRAIN_PARITY_LOSS_TOL relative, every gradient within
+    TRAIN_PARITY_GRAD_TOL rel L2), the flash kernels launched
+    ``want_launches`` times each on the card and never on the CPU, and
+    the updated parameters finite. Returns the fields to emit."""
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.device import seed
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig.llama2_7b()
-    cfg.num_hidden_layers = TRAIN_PARITY_LAYERS
-    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
-                           generator=seed(SEED + 11))
     card = copy.deepcopy(cpu).to(device)
-    x, y = token_batch(cfg.vocab_size, 1, TRAIN_PARITY_SEQ, 6)
     results = {}
-    for name, model, dev in (("card", card, device), ("cpu", cpu, "cpu")):
-        trainer = make_trainer(model, 3e-4)
+    for name, model in (("card", card), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        trainer = build_trainer(model)
         kernels.reset_launches()
-        loss, grads = trainer.compute_loss_grads(x.to(dev), y.to(dev))
+        loss, grads = trainer.compute_loss_grads(*batch_of(dev))
         counts = kernels.launch_counts()
         grads = {k: g.detach().float().cpu() for k, g in grads.items()}
         trainer.apply_update()
         require(all(bool(torch.isfinite(p).all())
                     for p in model.parameters()),
-                f"train_parity: non-finite parameters on the {name}")
+                f"{phase}: non-finite parameters on the {name}")
         results[name] = (float(loss), grads, counts)
         del trainer
     (l_card, g_card, counts), (l_cpu, g_cpu, cpu_counts) = (
         results["card"], results["cpu"])
     for k in TRAIN_KERNELS:
-        require(counts[k] == TRAIN_PARITY_LAYERS,
-                f"train_parity: {k} ran {counts[k]} times on the card")
-        require(cpu_counts[k] == 0, f"train_parity: {k} launched on the CPU")
+        require(counts[k] == want_launches,
+                f"{phase}: {k} ran {counts[k]} times on the card, want "
+                f"{want_launches}")
+        require(cpu_counts[k] == 0, f"{phase}: {k} launched on the CPU")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     require(loss_rel <= TRAIN_PARITY_LOSS_TOL,
-            f"train_parity: loss {l_card} vs {l_cpu}")
-    require(sorted(g_card) == sorted(g_cpu), "train_parity: grad names")
+            f"{phase}: loss {l_card} vs {l_cpu}")
+    require(sorted(g_card) == sorted(g_cpu), f"{phase}: grad names")
     worst, worst_name = 0.0, None
     for k, g in g_cpu.items():
         err = float((g_card[k] - g).norm() / g.norm().clamp_min(1e-30))
         if err > worst:
             worst, worst_name = err, k
     require(worst <= TRAIN_PARITY_GRAD_TOL,
-            f"train_parity: grad of {worst_name} off by {worst} (rel L2)")
-    emit("train_parity", model="llama2_7b width", layers=TRAIN_PARITY_LAYERS,
-         dtype="fp32", batch=1, seq=TRAIN_PARITY_SEQ, loss_card=l_card,
-         loss_cpu=l_cpu, loss_rel_err=loss_rel, loss_tol=TRAIN_PARITY_LOSS_TOL,
-         grads=len(g_cpu), grad_rel_l2_max=worst, grad_worst=worst_name,
-         grad_tol=TRAIN_PARITY_GRAD_TOL, launches=counts)
-    del card, cpu
+            f"{phase}: grad of {worst_name} off by {worst} (rel L2)")
+    del card
     torch.cuda.empty_cache()
+    return dict(dtype="fp32", loss_card=l_card, loss_cpu=l_cpu,
+                loss_rel_err=loss_rel, loss_tol=TRAIN_PARITY_LOSS_TOL,
+                grads=len(g_cpu), grad_rel_l2_max=worst,
+                grad_worst=worst_name, grad_tol=TRAIN_PARITY_GRAD_TOL,
+                launches=counts)
+
+
+def run_train_parity(device):
+    """One fp32 TrainStep at Llama-2-7B width and TRAIN_PARITY_LAYERS
+    layers on the card (the flash kernels) and on a CPU copy (their
+    plain versions): grad_parity."""
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = TRAIN_PARITY_LAYERS
+    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                           generator=seed(SEED + 11))
+    x, y = token_batch(cfg.vocab_size, 1, TRAIN_PARITY_SEQ, 6)
+    fields = grad_parity("train_parity", device, cpu,
+                         lambda m: make_trainer(m, 3e-4),
+                         lambda dev: (x.to(dev), y.to(dev)),
+                         TRAIN_PARITY_LAYERS)
+    emit("train_parity", model="llama2_7b width", layers=TRAIN_PARITY_LAYERS,
+         batch=1, seq=TRAIN_PARITY_SEQ, **fields)
+    del cpu
 
 
 # ------------------------------------------------------------------- moe
@@ -6103,7 +6190,6 @@ def run_moe(device):
     every gate's loss collected by the step, memwatch's train_step row for
     this model; step ms, tokens/s, MFU, peak memory, and before and after
     the steps each MoE block's aux loss and dropped choices."""
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.generation.program_cache import model_signature
     from paddle_tpu_torch.observability import memory
     t0 = time.perf_counter()
@@ -6115,17 +6201,7 @@ def run_moe(device):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     routing_init = moe_routing(model, x)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    losses, step_s = [], []
-    for _ in range(MOE_STEPS):
-        t0 = time.perf_counter()
-        losses.append(trainer(x, y))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
+    losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0, MOE_STEPS)
     require(all(math.isfinite(v) for v in losses), f"moe losses {losses}")
     require(losses[-1] < losses[0], f"moe loss did not fall: {losses}")
     want = cfg.num_hidden_layers * MOE_STEPS
@@ -6171,46 +6247,265 @@ def run_moe(device):
 def run_moe_parity(device):
     """One fp32 step of MoE-GPT at full width and MOE_PARITY_LAYERS layers
     (a dense block and an MoE block) on the card (the flash kernels) and
-    on a CPU copy (their plain versions): the loss and every gradient
-    before the update agree, as train_parity holds Llama."""
-    from paddle_tpu_torch import kernels
+    on a CPU copy (their plain versions): grad_parity, as train_parity
+    holds Llama."""
     cfg, cpu = moe_model("cpu", torch.float32, MOE_PARITY_LAYERS, 22)
-    card = copy.deepcopy(cpu).to(device)
     x, y = token_batch(cfg.vocab_size, 1, MOE_PARITY_SEQ, 22)
-    results = {}
-    for name, model, dev in (("card", card, device), ("cpu", cpu, "cpu")):
-        trainer = make_trainer(model, 3e-4)
-        kernels.reset_launches()
-        loss, grads = trainer.compute_loss_grads(x.to(dev), y.to(dev))
-        counts = kernels.launch_counts()
-        results[name] = (float(loss), {k: g.detach().float().cpu()
-                                       for k, g in grads.items()}, counts)
-        del trainer
-    (l_card, g_card, counts), (l_cpu, g_cpu, cpu_counts) = (
-        results["card"], results["cpu"])
-    for k in TRAIN_KERNELS:
-        require(counts[k] == MOE_PARITY_LAYERS,
-                f"moe_parity: {k} ran {counts[k]} times on the card")
-        require(cpu_counts[k] == 0, f"moe_parity: {k} launched on the CPU")
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    require(loss_rel <= TRAIN_PARITY_LOSS_TOL,
-            f"moe_parity: loss {l_card} vs {l_cpu}")
-    require(sorted(g_card) == sorted(g_cpu), "moe_parity: grad names")
-    worst, worst_name = 0.0, None
-    for k, g in g_cpu.items():
-        err = float((g_card[k] - g).norm() / g.norm().clamp_min(1e-30))
-        if err > worst:
-            worst, worst_name = err, k
-    require(worst <= TRAIN_PARITY_GRAD_TOL,
-            f"moe_parity: grad of {worst_name} off by {worst} (rel L2)")
+    fields = grad_parity("moe_parity", device, cpu,
+                         lambda m: make_trainer(m, 3e-4),
+                         lambda dev: (x.to(dev), y.to(dev)),
+                         MOE_PARITY_LAYERS)
     emit("moe_parity", model="MoEGPTConfig() width",
-         layers=MOE_PARITY_LAYERS, dtype="fp32", batch=1,
-         seq=MOE_PARITY_SEQ, loss_card=l_card, loss_cpu=l_cpu,
-         loss_rel_err=loss_rel, loss_tol=TRAIN_PARITY_LOSS_TOL,
-         grads=len(g_cpu), grad_rel_l2_max=worst, grad_worst=worst_name,
-         grad_tol=TRAIN_PARITY_GRAD_TOL, launches=counts)
-    del card, cpu
+         layers=MOE_PARITY_LAYERS, batch=1, seq=MOE_PARITY_SEQ, **fields)
+    del cpu
+
+
+# ------------------------------------------------------------ unet, bert
+def unet_model(device, dtype=torch.bfloat16, cfg=None, seed_offset=31):
+    from paddle_tpu_torch.device import seed
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    cfg = cfg or UNetConfig.sd15()
+    return cfg, UNet2DConditionModel(
+        cfg, device=device, dtype=dtype,
+        generator=seed(SEED + seed_offset, device))
+
+
+def unet_batch(cfg, batch, device, dtype, seed_offset=31):
+    """Seeded (latents, timesteps, context, noise) as the JAX bench draws
+    them: unit-normal latents of the config's channels and size,
+    timesteps in [0, 1000), UNET_CONTEXT context tokens of the
+    cross-attention width, unit-normal noise."""
+    rng = np.random.default_rng(SEED + seed_offset)
+    n = cfg.sample_size
+    lat = rng.standard_normal((batch, cfg.in_channels, n, n))
+    t = torch.from_numpy(rng.integers(0, 1000, (batch,))).to(device)
+    ctx = rng.standard_normal((batch, UNET_CONTEXT,
+                               cfg.cross_attention_dim))
+    noise = rng.standard_normal(lat.shape)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                          dtype=dtype)
+
+    return put(lat), t, put(ctx), put(noise)
+
+
+def unet_trainer(model, lr=UNET_LR):
+    """TrainStep over UNetDenoiseLoss with AdamW (f32 masters for a bf16
+    model): the JAX bench's recipe."""
+    from paddle_tpu_torch.hapi import TrainStep
+    from paddle_tpu_torch.models import UNetDenoiseLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    return TrainStep(UNetDenoiseLoss(model), AdamW(
+        lr, parameters=model.named_parameters(), multi_precision=True))
+
+
+def unet_attention(model) -> list:
+    """The UNet's attention modules: one call each a forward (self- or
+    cross-attention), each at its head dim."""
+    from paddle_tpu_torch.models.unet import Attention
+    return [m for m in model.modules() if isinstance(m, Attention)]
+
+
+def run_unet(device):
+    """UNetConfig.sd15() at full width and depth, bf16 with f32 masters,
+    seeded, trained by TrainStep(UNetDenoiseLoss) + AdamW on one fixed
+    batch: finite losses that fall from the first step, #7, #8 and #9
+    launched once an attention call a step and no other kernel; step ms,
+    images/s, peak memory."""
+    t0 = time.perf_counter()
+    cfg, model = unet_model(device)
+    params = sum(p.numel() for p in model.parameters())
+    attention = unet_attention(model)
+    calls = len(attention)
+    require(calls == UNET_SD15_ATTENTION_CALLS,
+            f"unet: {calls} attention calls a forward")
+    trainer = unet_trainer(model)
+    batch = unet_batch(cfg, UNET_BATCH, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    losses, step_s, counts, peak = timed_steps(trainer, batch, UNET_WARMUP,
+                                               UNET_STEPS)
+    require(all(math.isfinite(v) for v in losses), f"unet losses {losses}")
+    require(losses[-1] < losses[0], f"unet loss did not fall: {losses}")
+    want = calls * UNET_STEPS
+    for name, n in counts.items():
+        require(n == (want if name in TRAIN_KERNELS else 0),
+                f"unet: {name} ran {n} times, want "
+                f"{want if name in TRAIN_KERNELS else 0}")
+    step_ms = 1e3 * float(np.median(step_s))
+    heads = sorted({m.head_dim for m in attention})
+    emit("unet", model="UNetConfig.sd15() (SD-1.5: 320/640/1280/1280, "
+         "8 heads, 77 x 768 context)", params=params,
+         dtype="bf16, f32 masters", batch=UNET_BATCH,
+         latent=[cfg.in_channels, cfg.sample_size, cfg.sample_size],
+         context=[UNET_CONTEXT, cfg.cross_attention_dim], head_dims=heads,
+         attention_calls_per_forward=calls, remat=False, lr=UNET_LR,
+         warmup_steps=UNET_WARMUP, steps=UNET_STEPS, losses=losses,
+         step_ms=[1e3 * v for v in step_s], step_ms_median=step_ms,
+         images_per_s=UNET_BATCH / (step_ms / 1e3), peak_mem_gb=peak / 1e9,
+         launches=counts, model_build_s=build_s)
+    del model, trainer, batch
     torch.cuda.empty_cache()
+    return counts
+
+
+def run_unet_parity(device):
+    """One fp32 step of SD-1.5's widths cut to 3 blocks of 1 layer at
+    UNET_PARITY_SIZE latents (heads of 40 and 80 in the blocks, 160 in
+    the mid block; cross-attention against 77 tokens) on the card (the
+    flash kernels, cuDNN) and on a CPU copy (their plain versions)."""
+    from paddle_tpu_torch.models import UNetConfig
+    cfg = UNetConfig(sample_size=UNET_PARITY_SIZE,
+                     block_out_channels=UNET_PARITY_BLOCKS,
+                     layers_per_block=1)
+    cfg, cpu = unet_model("cpu", torch.float32, cfg, seed_offset=32)
+    attention = unet_attention(cpu)
+    heads = sorted({m.head_dim for m in attention})
+    require(heads == [40, 80, 160], f"unet_parity: head dims {heads}")
+    fields = grad_parity(
+        "unet_parity", device, cpu, lambda m: unet_trainer(m),
+        lambda dev: unet_batch(cfg, UNET_BATCH, dev, torch.float32, 32),
+        len(attention))
+    emit("unet_parity", model="SD-1.5 widths, blocks "
+         f"{list(UNET_PARITY_BLOCKS)}, 1 layer a block", head_dims=heads,
+         batch=UNET_BATCH, latent=[cfg.in_channels, UNET_PARITY_SIZE,
+                                   UNET_PARITY_SIZE], **fields)
+    del cpu
+
+
+class BertPretrainingLoss(torch.nn.Module):
+    """BertForPretraining and its criterion as one module: ``forward(ids,
+    token types, MLM labels, NSP labels)`` -> the loss TrainStep steps."""
+
+    def __init__(self, model, criterion):
+        super().__init__()
+        self.model, self.criterion = model, criterion
+
+    def forward(self, ids, token_types, mlm_labels, nsp_labels):
+        pred, nsp = self.model(ids, token_types)
+        return self.criterion(pred, nsp, mlm_labels, nsp_labels)
+
+
+def bert_batch(cfg, batch, seq, device, seed_offset=41):
+    """Seeded pretraining rows: real lengths in [BERT_MIN_LEN, seq] (one
+    row full) padded with pad_token_id, the first half of a row's tokens
+    segment 0 and the rest segment 1, BERT_MLM_SHARE of the real tokens
+    labelled for the MLM (their inputs BERT_MASK_ID, the other labels
+    -100), random NSP labels. Returns (ids, token types, MLM labels, NSP
+    labels, real tokens)."""
+    rng = np.random.default_rng(SEED + seed_offset)
+    lens = rng.integers(min(BERT_MIN_LEN, seq), seq + 1, batch)
+    lens[0] = seq
+    # past bert-base-uncased's special and unused ids (below 1000)
+    ids = rng.integers(min(1000, cfg.vocab_size // 2), cfg.vocab_size,
+                       (batch, seq))
+    tt = np.zeros((batch, seq), np.int64)
+    mlm = np.full((batch, seq), -100, np.int64)
+    for i, n in enumerate(lens):
+        ids[i, n:] = cfg.pad_token_id
+        tt[i, n // 2:n] = 1
+        pick = rng.choice(n, max(1, int(round(BERT_MLM_SHARE * n))),
+                          replace=False)
+        mlm[i, pick] = ids[i, pick]
+        ids[i, pick] = BERT_MASK_ID
+    nsp = rng.integers(0, 2, (batch,))
+    out = tuple(torch.from_numpy(np.asarray(a, np.int64)).to(device)
+                for a in (ids, tt, mlm, nsp))
+    return out + (int(lens.sum()),)
+
+
+def bert_model(cls, cfg, device, dtype=torch.bfloat16, seed_offset=41,
+               **kw):
+    from paddle_tpu_torch.device import seed
+    return cls(cfg, device=device, dtype=dtype,
+               generator=seed(SEED + seed_offset, device), **kw)
+
+
+def bert_trainer(model, cfg, lr=BERT_LR):
+    from paddle_tpu_torch.hapi import TrainStep
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    return TrainStep(BertPretrainingLoss(model,
+                                         BertPretrainingCriterion(cfg)),
+                     AdamW(lr, parameters=model.named_parameters(),
+                           multi_precision=True))
+
+
+def run_bert(device):
+    """BertConfig.bert_base() pretraining (MLM + NSP), bf16 with f32
+    masters, dropout 0.1 from the model's generator, through TrainStep +
+    AdamW on one fixed batch: finite losses that fall, no kernel launched
+    (SDPA's dense path under the padding mask); step ms, tokens/s, peak
+    memory; then a BertForSequenceClassification eval forward on the
+    same rows, again launching nothing."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertForSequenceClassification)
+    cfg = BertConfig.bert_base()
+    t0 = time.perf_counter()
+    model = bert_model(BertForPretraining, cfg, device)
+    params = sum(p.numel() for p in model.parameters())
+    trainer = bert_trainer(model, cfg)
+    *batch, real = bert_batch(cfg, BERT_BATCH, BERT_SEQ, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    losses, step_s, counts, peak = timed_steps(trainer, batch, BERT_WARMUP,
+                                               BERT_STEPS)
+    require(all(math.isfinite(v) for v in losses), f"bert losses {losses}")
+    require(losses[-1] < losses[0], f"bert loss did not fall: {losses}")
+    require(not any(counts.values()),
+            f"bert: kernels launched {counts} (the dense path launches "
+            f"none)")
+    step_ms = 1e3 * float(np.median(step_s))
+    del trainer, model
+    torch.cuda.empty_cache()
+    clf = bert_model(BertForSequenceClassification, cfg, device,
+                     seed_offset=42).eval()
+    kernels.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = clf(batch[0], batch[1])
+        torch.cuda.synchronize()
+        eval_ms = 1e3 * (time.perf_counter() - t0)
+    eval_counts = kernels.launch_counts()
+    require(tuple(logits.shape) == (BERT_BATCH, 2)
+            and bool(torch.isfinite(logits).all()),
+            f"bert: classifier logits {tuple(logits.shape)}")
+    require(not any(eval_counts.values()),
+            f"bert: the classifier launched {eval_counts}")
+    tokens = BERT_BATCH * BERT_SEQ
+    emit("bert", model="BertConfig.bert_base() (bert-base-uncased)",
+         params=params, dtype="bf16, f32 masters", batch=BERT_BATCH,
+         seq=BERT_SEQ, real_tokens=real, mlm_labels=int(
+             (batch[2] != -100).sum()), dropout=cfg.hidden_dropout_prob,
+         lr=BERT_LR, warmup_steps=BERT_WARMUP, steps=BERT_STEPS,
+         losses=losses, step_ms=[1e3 * v for v in step_s],
+         step_ms_median=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+         real_tokens_per_s=real / (step_ms / 1e3), peak_mem_gb=peak / 1e9,
+         launches=counts, model_build_s=build_s,
+         classifier_eval_ms=eval_ms, classifier_launches=eval_counts)
+    del clf, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_bert_parity(device):
+    """One fp32 step of bert-base at BERT_PARITY_LAYERS layers without
+    dropout on the card and on a CPU copy (SDPA's dense path on both)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    cfg = dataclasses.replace(
+        BertConfig.bert_base(), num_hidden_layers=BERT_PARITY_LAYERS,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cpu = bert_model(BertForPretraining, cfg, "cpu", torch.float32, 43)
+    fields = grad_parity(
+        "bert_parity", device, cpu, lambda m: bert_trainer(m, cfg),
+        lambda dev: bert_batch(cfg, BERT_PARITY_BATCH, BERT_PARITY_SEQ, dev,
+                               43)[:4], 0)
+    emit("bert_parity", model="BertConfig.bert_base() width",
+         layers=BERT_PARITY_LAYERS, batch=BERT_PARITY_BATCH,
+         seq=BERT_PARITY_SEQ, **fields)
+    del cpu
 
 
 def dense_bshd(q, k, v, segment_ids=None, kv_segment_ids=None,
@@ -6738,7 +7033,11 @@ def main() -> int:
         check_flash_attention(dtype, device, train_rows)
         for n, c in check_flash_with_lse(dtype, device).items():
             lse_counts[n] = lse_counts.get(n, 0) + c
-    moe_counts = run_moe(device)                 # this slice's main path
+    unet_counts = run_unet(device)               # this slice's main path
+    run_unet_parity(device)
+    bert_counts = run_bert(device)
+    run_bert_parity(device)
+    moe_counts = run_moe(device)
     run_moe_parity(device)
     fused_counts = run_fused_layers(device)
     train_counts, train = run_train(device)
@@ -6766,8 +7065,9 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = moe_counts[name]          # this slice's main path
-            by_path = dict(moe=launches, train=train_counts[name],
+            launches = unet_counts[name]         # this slice's main path
+            by_path = dict(unet=launches, bert=bert_counts[name],
+                           moe=moe_counts[name], train=train_counts[name],
                            train_remat=remat_counts[name],
                            fit=fit_counts[name], with_lse=lse_counts[name],
                            fit_faults=fit_fault_counts[name],

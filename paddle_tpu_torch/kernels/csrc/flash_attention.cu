@@ -29,7 +29,8 @@
 // (64, D) accumulator, so a row's 16 owners sit in one half-warp and the
 // row max and sum are half-warp shuffles. Tiles that are contracted over
 // the head dim are stored with a row stride of DP + 1 floats (bank-conflict
-// free); the head dim is zero-padded to DP (64 or 128) in shared memory.
+// free); the head dim is zero-padded to DP (64, 128 or 160) in shared
+// memory.
 // Rows past the sequence end and keys past the kv end are masked in the
 // kernel, so any S is taken (the TPU path required a multiple-of-128 block
 // and otherwise fell back to dense attention). The causal mask is top-left
@@ -1092,7 +1093,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
 // ----------------------------------------------- forward on the tensor cores
 // bf16 only (fp32 keeps fa_fwd_kernel above). A block of FB_WARPS warps
 // owns FB_ROWS query rows of one head, 16 a warp, and walks the kv tiles
-// (FF_TILE keys, double-buffered by cp.async) its rows can see; each
+// (ff_tile keys, double-buffered by cp.async) its rows can see; each
 // warp keeps its rows' online softmax (m, l), the f32 output accumulator
 // and Q's A fragments in registers (FlashAttention-2's shape, as
 // prefill_mma.cuh's routine for #1 and #4, here on the (BH, S, D) layout
@@ -1126,14 +1127,26 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
 // i + 1's Q K^T issued before tile i's softmax, gained 0-3 % and were not
 // kept. With 8 warps an SM the K/V fragment reads and the mmas run
 // largely in series; FA3's warp-specialized wgmma shape is the next step.
-constexpr int FF_TILE = 128;   // keys a tile of the walk (two stages)
-static_assert(FF_TILE % FB_SEG_TILE == 0 && 2 * FF_TILE >= FB_ROWS,
+//
+// Keys a tile of the walk (two stages): 128, and 64 at DP = 160, where a
+// warp's output accumulator (80 f32 a thread) and Q fragments (40) leave
+// no room for a 128-key score tile (64 more) in 255 registers.
+// nvcc -Xptxas -v (sm_90a) at DP = 160: fb_fwd_kernel 234 registers (SEG
+// 238) and fb_dq_kernel 240 (234), no spills; fb_dkv_kernel 255, spilling
+// 20 bytes stored / 36 loaded (SEG 120 / 132): its dk and dv accumulators
+// alone take 160 f32 a thread. The fp32 fa_* kernels 122-172, no spills.
+__host__ __device__ constexpr int ff_tile(int dp) {
+  return dp > 128 ? 64 : 128;
+}
+static_assert(ff_tile(128) % FB_SEG_TILE == 0 &&
+                  ff_tile(160) % FB_SEG_TILE == 0 &&
+                  2 * ff_tile(160) >= FB_ROWS,
               "a tile is whole ranges; the q tile fits the K stages");
 
 template <int DP>
 __host__ __device__ constexpr size_t ff_smem_bytes(int walk_steps) {
-  return sizeof(bf16) * tile_stride(DP) * 4 * FF_TILE +
-         sizeof(int) * 2 * FF_TILE +
+  return sizeof(bf16) * tile_stride(DP) * 4 * ff_tile(DP) +
+         sizeof(int) * 2 * ff_tile(DP) +
          sizeof(unsigned) * 2 * fb_words(walk_steps);
 }
 
@@ -1146,13 +1159,14 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
                   const int2* __restrict__ rng_kv, bf16* __restrict__ out,
                   float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
                   int D, int causal, float scale, int unit) {
-  constexpr int SR = tile_stride(DP), NK = FF_TILE / 8, KD = DP / 16;
-  constexpr int ND = DP / 8, PIECES = FF_TILE / FB_SEG_TILE;
+  constexpr int FT = ff_tile(DP);
+  constexpr int SR = tile_stride(DP), NK = FT / 8, KD = DP / 16;
+  constexpr int ND = DP / 8, PIECES = FT / FB_SEG_TILE;
   extern __shared__ __align__(16) unsigned char fb_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(fb_smem);     // [2][TILE][SR]
-  bf16* Vs = Ks + 2 * FF_TILE * SR;                // [2][TILE][SR]
-  int* kv_ids = reinterpret_cast<int*>(Vs + 2 * FF_TILE * SR);  // [2][TILE]
-  unsigned* bits = reinterpret_cast<unsigned*>(kv_ids + 2 * FF_TILE);
+  bf16* Vs = Ks + 2 * FT * SR;                     // [2][TILE][SR]
+  int* kv_ids = reinterpret_cast<int*>(Vs + 2 * FT * SR);  // [2][TILE]
+  unsigned* bits = reinterpret_cast<unsigned*>(kv_ids + 2 * FT);
   bf16* Qs = Ks;  // [ROWS][SR]: the q tile before the walk, out after it
 
   const int bh = blockIdx.x;
@@ -1167,10 +1181,10 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
 
   const int q_last = min(q0 + FB_ROWS, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int n_tiles = (kv_end + FF_TILE - 1) / FF_TILE;
+  const int n_tiles = (kv_end + FT - 1) / FT;
   unsigned* mixed = bits + fb_words(n_tiles);
 
-  fb_zero_pad<DP>(Ks, 4 * FF_TILE, D);
+  fb_zero_pad<DP>(Ks, 4 * FT, D);
   fb_copy_tile<DP>(Qs, q, qbase, q0, Sq, FB_ROWS, D, unit);
   cp_async_commit();
   if constexpr (SEG) {
@@ -1212,14 +1226,11 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     else return from;
   };
   auto load = [&](int tile, int stage) {
-    const int j0 = tile * FF_TILE;
-    fb_copy_tile<DP>(Ks + stage * FF_TILE * SR, k, kbase, j0, Skv, FF_TILE,
-                     D, unit);
-    fb_copy_tile<DP>(Vs + stage * FF_TILE * SR, v, kbase, j0, Skv, FF_TILE,
-                     D, unit);
+    const int j0 = tile * FT;
+    fb_copy_tile<DP>(Ks + stage * FT * SR, k, kbase, j0, Skv, FT, D, unit);
+    fb_copy_tile<DP>(Vs + stage * FT * SR, v, kbase, j0, Skv, FT, D, unit);
     if constexpr (SEG)
-      fb_copy_vec(kv_ids + stage * FF_TILE, seg_kv, kbase, j0, Skv,
-                  FF_TILE);
+      fb_copy_vec(kv_ids + stage * FT, seg_kv, kbase, j0, Skv, FT);
   };
   float o[ND][4];
 #pragma unroll
@@ -1229,7 +1240,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   // S = Q K^T of the tile in `st`: c[n] holds rows g, g + 8 x keys
   // n * 8 + 2t4, + 1
   auto qk = [&](int st, float (&c)[NK][4]) {
-    const bf16* Kt = Ks + st * FF_TILE * SR;
+    const bf16* Kt = Ks + st * FT * SR;
 #pragma unroll
     for (int n = 0; n < NK; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 #pragma unroll
@@ -1247,12 +1258,11 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   // where it straddles their diagonal or the kv end, or holds more than one
   // segment id
   auto mask = [&](int tile, int st, float (&c)[NK][4]) {
-    const int j0 = tile * FF_TILE;
-    const bool masked = (SEG && fb_bit(mixed, tile)) ||
-                        j0 + FF_TILE > Skv ||
-                        (causal && j0 + FF_TILE - 1 > wr0);
+    const int j0 = tile * FT;
+    const bool masked = (SEG && fb_bit(mixed, tile)) || j0 + FT > Skv ||
+                        (causal && j0 + FT - 1 > wr0);
     if (!masked) return;
-    const int* ids = kv_ids + st * FF_TILE;
+    const int* ids = kv_ids + st * FT;
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
 #pragma unroll
@@ -1307,9 +1317,9 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
       }
     }
     // 16 keys a k-step; P's C fragments are its A fragments
-    const bf16* Vt = Vs + st * FF_TILE * SR;
+    const bf16* Vt = Vs + st * FT * SR;
 #pragma unroll
-    for (int kk = 0; kk < FF_TILE / 16; ++kk) {
+    for (int kk = 0; kk < FT / 16; ++kk) {
       uint32_t ah[4], al[4];
       split_bf16(c[2 * kk][0], c[2 * kk][1], ah[0], al[0]);
       split_bf16(c[2 * kk][2], c[2 * kk][3], ah[1], al[1]);
@@ -1336,7 +1346,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     __syncthreads();  // tile landed; the other stage's readers are done
     if (tn < n_tiles) load(tn, stage ^ 1);
     cp_async_commit();
-    if (wr0 < Sq && (!causal || tile * FF_TILE <= wr_last)) {
+    if (wr0 < Sq && (!causal || tile * FT <= wr_last)) {
       float sc[NK][4];
       qk(stage, sc);
       mask(tile, stage, sc);
@@ -1458,8 +1468,8 @@ int fb_fwd(const void* q, const void* k, const void* v, const void* seg_q,
            const void* seg_kv, const void* rng_q, const void* rng_kv,
            void* out, void* lse, int BH, int Sq, int Skv, int H, int Hkv,
            int D, int causal, float scale, cudaStream_t st) {
-  const size_t smem =
-      ff_smem_bytes<DP>(SEG ? (Skv + FF_TILE - 1) / FF_TILE : 0);
+  constexpr int FT = ff_tile(DP);
+  const size_t smem = ff_smem_bytes<DP>(SEG ? (Skv + FT - 1) / FT : 0);
   int rc = fa_prepare(fb_fwd_kernel<DP, SEG>, smem);
   if (rc) return rc;
   dim3 grid(BH, (Sq + FB_ROWS - 1) / FB_ROWS);
@@ -1517,45 +1527,67 @@ int fb_dkv(const void* q, const void* k, const void* v, const void* seg_q,
   return (int)cudaGetLastError();
 }
 
+// The widest head dim the training kernels take: SD-1.5's UNet runs 8
+// heads of 160 at 1280 channels. The serving kernels (#1-#5) stop at 128.
+constexpr int FA_MAX_HEAD_DIM = 160;
+
 inline bool fa_shape_ok(int rows, int Sq, int Skv, int H, int Hkv, int D) {
   return rows > 0 && rows <= 65535 && Sq > 0 && Skv > 0 && H > 0 &&
-         Hkv > 0 && H % Hkv == 0 && D > 0 && D <= 128;
+         Hkv > 0 && H % Hkv == 0 && D > 0 && D <= FA_MAX_HEAD_DIM;
+}
+
+// The head dim a training tile is padded to: the bf16 routes' 32, 64, 96
+// or 128 (mma.cuh's padded_head_dim), then 160; fp32's 64, 128 or 160.
+// D = 40 pads to 64 and D = 80 to 96 (1.6x and 1.2x the products).
+inline int fa_padded_head_dim(int dtype, int D) {
+  if (D > 128) return 160;
+  if (dtype == DT_F32) return D <= 64 ? 64 : 128;
+  return padded_head_dim(D);
 }
 
 }  // namespace ptt
 
-// The forward's route: fp32 on the CUDA cores (fa_fwd, padded head dim 64
-// or 128), bf16 on the tensor cores (fb_fwd, padded head dim 32, 64, 96 or
-// 128).
+// The forward's route: fp32 on the CUDA cores (fa_fwd, padded head dim 64,
+// 128 or 160), bf16 on the tensor cores (fb_fwd, padded head dim 32, 64,
+// 96, 128 or 160).
 #define PTT_FA_FWD_SEG(SEG, ...)                                         \
   do {                                                                   \
-    if (dtype == ptt::DT_F32 && D <= 64)                                 \
-      return ptt::fa_fwd<float, 64, SEG>(__VA_ARGS__);                   \
-    if (dtype == ptt::DT_F32)                                            \
-      return ptt::fa_fwd<float, 128, SEG>(__VA_ARGS__);                  \
+    if (dtype == ptt::DT_F32) {                                          \
+      switch (ptt::fa_padded_head_dim(dtype, D)) {                       \
+        case 64: return ptt::fa_fwd<float, 64, SEG>(__VA_ARGS__);        \
+        case 128: return ptt::fa_fwd<float, 128, SEG>(__VA_ARGS__);      \
+        default: return ptt::fa_fwd<float, 160, SEG>(__VA_ARGS__);       \
+      }                                                                  \
+    }                                                                    \
     if (dtype != ptt::DT_BF16) return (int)cudaErrorInvalidValue;        \
-    switch (ptt::padded_head_dim(D)) {                                   \
+    switch (ptt::fa_padded_head_dim(dtype, D)) {                         \
       case 32: return ptt::fb_fwd<32, SEG>(__VA_ARGS__);                 \
       case 64: return ptt::fb_fwd<64, SEG>(__VA_ARGS__);                 \
       case 96: return ptt::fb_fwd<96, SEG>(__VA_ARGS__);                 \
-      default: return ptt::fb_fwd<128, SEG>(__VA_ARGS__);                \
+      case 128: return ptt::fb_fwd<128, SEG>(__VA_ARGS__);               \
+      default: return ptt::fb_fwd<160, SEG>(__VA_ARGS__);                \
     }                                                                    \
   } while (0)
 
-// The backward's: fp32 on the CUDA cores (FA, padded head dim 64 or 128),
-// bf16 on the tensor cores (FB, padded head dim 32, 64, 96 or 128).
+// The backward's: fp32 on the CUDA cores (FA, padded head dim 64, 128 or
+// 160), bf16 on the tensor cores (FB, padded head dim 32, 64, 96, 128 or
+// 160).
 #define PTT_FA_BWD_SEG(SEG, FA, FB, ...)                                 \
   do {                                                                   \
-    if (dtype == ptt::DT_F32 && D <= 64)                                 \
-      return ptt::FA<float, 64, SEG>(__VA_ARGS__);                       \
-    if (dtype == ptt::DT_F32)                                            \
-      return ptt::FA<float, 128, SEG>(__VA_ARGS__);                      \
+    if (dtype == ptt::DT_F32) {                                          \
+      switch (ptt::fa_padded_head_dim(dtype, D)) {                       \
+        case 64: return ptt::FA<float, 64, SEG>(__VA_ARGS__);            \
+        case 128: return ptt::FA<float, 128, SEG>(__VA_ARGS__);          \
+        default: return ptt::FA<float, 160, SEG>(__VA_ARGS__);           \
+      }                                                                  \
+    }                                                                    \
     if (dtype != ptt::DT_BF16) return (int)cudaErrorInvalidValue;        \
-    switch (ptt::padded_head_dim(D)) {                                   \
+    switch (ptt::fa_padded_head_dim(dtype, D)) {                         \
       case 32: return ptt::FB<32, SEG>(__VA_ARGS__);                     \
       case 64: return ptt::FB<64, SEG>(__VA_ARGS__);                     \
       case 96: return ptt::FB<96, SEG>(__VA_ARGS__);                     \
-      default: return ptt::FB<128, SEG>(__VA_ARGS__);                    \
+      case 128: return ptt::FB<128, SEG>(__VA_ARGS__);                   \
+      default: return ptt::FB<160, SEG>(__VA_ARGS__);                    \
     }                                                                    \
   } while (0)
 

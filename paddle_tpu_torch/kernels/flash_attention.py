@@ -54,7 +54,7 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 160       # FA_MAX_HEAD_DIM in the source (SD-1.5: 8 x 160)
 _MAX_ROWS = 65535          # grid.y of the kernels: B*H (B*Hkv for dk/dv)
 SEG_TILE = 64              # rows per id range (FB_SEG_TILE in the source)
 _DKV_KEYS = 128            # keys a bf16 dk/dv block owns (FB_ROWS)
@@ -272,7 +272,7 @@ def dkv_splits(dtype, kv_rows: int, skv: int, walk_tiles: int,
 
 def _check_cuda(name, q, k, v, extra=()):
     """The kernels' contract: one CUDA device, float32 or bfloat16,
-    contiguous, D <= 128, at most 65535 (batch * head) rows."""
+    contiguous, D <= 160, at most 65535 (batch * head) rows."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -319,7 +319,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     both or neither.
 
     CPU tensors take :func:`flash_attention_fwd_ref`. CUDA tensors launch
-    the kernel (float32 or bfloat16, contiguous, D <= 128, any S; bf16 on
+    the kernel (float32 or bfloat16, contiguous, D <= 160, any S; bf16 on
     the tensor cores); a tensor it does not take raises."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal, sm_scale, n_heads,

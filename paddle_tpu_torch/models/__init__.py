@@ -1,9 +1,16 @@
+from .bert import (BertConfig, BertForMaskedLM, BertForPretraining,
+                   BertForSequenceClassification, BertModel,
+                   BertPretrainingCriterion, ErnieModel)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
                   GPTPretrainingCriterion)
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
 from .moe_gpt import MoEGPTBlock, MoEGPTConfig, MoEGPTForCausalLM
+from .unet import UNet2DConditionModel, UNetConfig, UNetDenoiseLoss
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
-           "GPTPretrainingCriterion", "LlamaConfig", "LlamaForCausalLM",
-           "LlamaPretrainingCriterion", "MoEGPTBlock", "MoEGPTConfig",
-           "MoEGPTForCausalLM"]
+__all__ = ["BertConfig", "BertForMaskedLM", "BertForPretraining",
+           "BertForSequenceClassification", "BertModel",
+           "BertPretrainingCriterion", "ErnieModel", "GPTConfig",
+           "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
+           "LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "MoEGPTBlock", "MoEGPTConfig", "MoEGPTForCausalLM",
+           "UNet2DConditionModel", "UNetConfig", "UNetDenoiseLoss"]

@@ -2,7 +2,9 @@
 
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm
-from .layers.common import Dropout, Embedding, LayerNorm, Linear, RMSNorm
+from .layers.common import (Conv2D, Dropout, Embedding, GroupNorm,
+                            LayerNorm, Linear, RMSNorm)
 
-__all__ = ["ClipGradByGlobalNorm", "Dropout", "Embedding", "LayerNorm",
-           "Linear", "RMSNorm", "functional", "initializer"]
+__all__ = ["ClipGradByGlobalNorm", "Conv2D", "Dropout", "Embedding",
+           "GroupNorm", "LayerNorm", "Linear", "RMSNorm", "functional",
+           "initializer"]

@@ -1,6 +1,7 @@
 """Functional surface of the ported slices (counterpart of
-``paddle_tpu/nn/functional.py``): RMSNorm, layer norm, SwiGLU, GELU, ReLU,
-softmax, ``linear``, dropout, cross entropy, the training
+``paddle_tpu/nn/functional.py``): RMSNorm, layer norm, group norm, SwiGLU,
+GELU, ReLU, SiLU, tanh, softmax, ``linear``, ``conv2d``, nearest
+``interpolate``, dropout, cross entropy, MSE, the training
 attention (``scaled_dot_product_attention`` on the flash kernels, or its
 dense path with a mask or dropout; ``flash_attention``;
 ``flash_attn_unpadded`` on the kernels' segment-id variant for packed
@@ -56,6 +57,30 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
     return out
 
 
+def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
+               epsilon: float = 1e-5, data_format: str = "NCHW",
+               name=None) -> torch.Tensor:
+    """Group norm over channel groups (channels at axis 1, or last unless
+    ``data_format`` starts with ``NC``): f32 mean and (biased) variance of
+    each group, the normalized value cast back to x's dtype, then the
+    per-channel weight and bias in x's dtype (the JAX package's order;
+    ``torch.nn.functional.group_norm`` applies them before it rounds)."""
+    nc = data_format.startswith("NC")
+    a = x if nc else x.movedim(-1, 1)
+    n, c = a.shape[:2]
+    g = a.reshape(n, num_groups, -1).float()
+    mean = g.mean(dim=-1, keepdim=True)
+    var = (g - mean).square().mean(dim=-1, keepdim=True)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(a.shape)
+    out = out.to(x.dtype)
+    shape = (1, c) + (1,) * (a.dim() - 2)
+    if weight is not None:
+        out = out * weight.to(x.dtype).reshape(shape)
+    if bias is not None:
+        out = out + bias.to(x.dtype).reshape(shape)
+    return out if nc else out.movedim(1, -1)
+
+
 def gelu(x: torch.Tensor, approximate: bool = False, name=None
          ) -> torch.Tensor:
     """GELU, exact (erf) or with ``approximate=True`` the tanh form."""
@@ -65,6 +90,16 @@ def gelu(x: torch.Tensor, approximate: bool = False, name=None
 def relu(x: torch.Tensor, name=None) -> torch.Tensor:
     """max(x, 0)."""
     return torch.relu(x)
+
+
+def silu(x: torch.Tensor, name=None) -> torch.Tensor:
+    """x * sigmoid(x)."""
+    return TF.silu(x)
+
+
+def tanh(x: torch.Tensor, name=None) -> torch.Tensor:
+    """The hyperbolic tangent."""
+    return torch.tanh(x)
 
 
 def softmax(x: torch.Tensor, axis: int = -1, dtype=None, name=None
@@ -84,6 +119,85 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     x, weight, bias = amp_cast("linear", x, weight, bias)
     y = x @ weight
     return y if bias is None else y + bias
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _conv_padding(padding, spatial, kernel, stride, dilation):
+    """Paddle's padding forms as ``((top, bottom), (left, right))``: an
+    int, ``[ph, pw]``, ``[(t, b), (l, r)]``, ``[t, b, l, r]``, or
+    ``"SAME"`` / ``"VALID"`` (XLA's rule: SAME pads to ``ceil(in /
+    stride)`` outputs, the odd pixel at the end)."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return ((0, 0), (0, 0))
+        pads = []
+        for n, k, st, dl in zip(spatial, kernel, stride, dilation):
+            out = -(-n // st)
+            total = max((out - 1) * st + (k - 1) * dl + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    p = list(padding)
+    if len(p) == 2 and all(isinstance(pi, (tuple, list)) for pi in p):
+        return (tuple(p[0]), tuple(p[1]))
+    if len(p) == 2:
+        return ((p[0], p[0]), (p[1], p[1]))
+    return ((p[0], p[1]), (p[2], p[3]))
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride=1, padding=0,
+           dilation=1, groups: int = 1, data_format: str = "NCHW",
+           name=None) -> torch.Tensor:
+    """2-D convolution, weight ``(out_c, in_c / groups, kh, kw)``, in NCHW
+    or NHWC, with Paddle's padding forms (:func:`_conv_padding`). The
+    convolution is PyTorch's (cuDNN on the card; the JAX package lowers it
+    to XLA, not to a Pallas kernel); the bias is added after it, in the
+    output's dtype, as the JAX package adds it. Under ``amp.auto_cast``
+    the inputs are cast as the op ``conv2d``."""
+    x, weight, bias = amp_cast("conv2d", x, weight, bias)
+    stride, dilation = _pair(stride), _pair(dilation)
+    a = x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
+    pads = _conv_padding(padding, a.shape[2:], weight.shape[2:], stride,
+                         dilation)
+    if all(lo == hi for lo, hi in pads):
+        conv_pad = (pads[0][0], pads[1][0])
+    else:
+        a = TF.pad(a, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+        conv_pad = (0, 0)
+    out = TF.conv2d(a, weight, None, stride, conv_pad, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out if data_format == "NCHW" else out.permute(0, 2, 3, 1)
+
+
+def interpolate(x: torch.Tensor, size=None, scale_factor=None,
+                mode: str = "nearest", align_corners: bool = False,
+                data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """Nearest-neighbour resize of the spatial axes to ``size``, or to
+    ``int(n * scale_factor)``. The JAX package resizes with
+    ``jax.image.resize``, whose nearest samples at half-pixel centres:
+    PyTorch's ``"nearest-exact"``, not its ``"nearest"`` (3 -> 5 gives
+    0 0 1 2 2, where ``"nearest"`` gives 0 0 1 1 2; at x2 the two agree).
+    The other modes raise: ``jax.image.resize``'s linear and cubic
+    antialias when they shrink, PyTorch's do not."""
+    if mode != "nearest":
+        raise NotImplementedError(
+            f"interpolate(mode={mode!r}): only 'nearest' is ported")
+    channels_first = data_format.startswith("NC")
+    spatial = x.shape[2:] if channels_first else x.shape[1:-1]
+    if size is None:
+        sf = (scale_factor if isinstance(scale_factor, (list, tuple))
+              else [scale_factor] * len(spatial))
+        size = [int(n * f) for n, f in zip(spatial, sf)]
+    size = [int(n) for n in size]
+    a = x if channels_first else x.movedim(-1, 1)
+    out = TF.interpolate(a, size=size, mode="nearest-exact")
+    return out if channels_first else out.movedim(1, -1)
 
 
 def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None
@@ -166,6 +280,18 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
             return loss.sum() / torch.where(mask, w, 0.0).sum().clamp_min(
                 1e-12)
         return loss.sum() / mask.float().sum().clamp_min(1.0)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def mse_loss(input: torch.Tensor, label: torch.Tensor,
+             reduction: str = "mean", name=None) -> torch.Tensor:
+    """``(input - label)^2``, its mean (default), sum, or each element
+    (``"none"``), in the inputs' dtype."""
+    loss = (input - label) ** 2
+    if reduction == "mean":
+        return loss.mean()
     if reduction == "sum":
         return loss.sum()
     return loss

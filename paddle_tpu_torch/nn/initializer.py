@@ -1,7 +1,8 @@
 """Initializers (counterpart of ``paddle_tpu/nn/initializer.py``): the ones
 the ported layers call, ``Constant``, ``Normal``, ``Uniform``,
-``XavierNormal`` and ``XavierUniform``. The port has no global random key,
-so an initializer draws from the ``torch.Generator`` it is given.
+``XavierNormal``, ``XavierUniform`` and ``KaimingUniform``. The port has no
+global random key, so an initializer draws from the ``torch.Generator`` it
+is given.
 
 The Xavier fans are the JAX package's ``_fans`` rule, copied: a shape of
 three or more dimensions counts as a convolution weight ``[out_c, in_c,
@@ -16,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["Constant", "Normal", "Uniform", "XavierNormal", "XavierUniform"]
+__all__ = ["Constant", "KaimingUniform", "Normal", "Uniform", "XavierNormal",
+           "XavierUniform"]
 
 
 class Constant:
@@ -101,4 +103,25 @@ class XavierUniform:
         fi, fo = _fans(shape)
         limit = self.gain * math.sqrt(6.0 / ((self.fan_in or fi)
                                              + (self.fan_out or fo)))
+        return Uniform(-limit, limit)(shape, device, dtype, generator)
+
+
+class KaimingUniform:
+    """``U(-limit, limit)``, ``limit = gain * sqrt(3 / fan_in)`` with
+    ``gain = sqrt(2 / (1 + negative_slope^2))`` for ``relu`` and
+    ``leaky_relu`` (else 1); ``fan_in`` from the shape unless given
+    (``Conv2D`` gives ``in_c / groups * kh * kw``)."""
+
+    def __init__(self, fan_in=None, negative_slope: float = 0.0,
+                 nonlinearity: str = "relu"):
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, device, dtype,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        fi = self.fan_in or _fans(shape)[0]
+        gain = (math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+                if self.nonlinearity in ("relu", "leaky_relu") else 1.0)
+        limit = gain * math.sqrt(3.0 / fi)
         return Uniform(-limit, limit)(shape, device, dtype, generator)

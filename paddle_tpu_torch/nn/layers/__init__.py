@@ -1,3 +1,5 @@
-from .common import Dropout, Embedding, LayerNorm, Linear, RMSNorm
+from .common import (Conv2D, Dropout, Embedding, GroupNorm, LayerNorm,
+                     Linear, RMSNorm)
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm"]
+__all__ = ["Conv2D", "Dropout", "Embedding", "GroupNorm", "LayerNorm",
+           "Linear", "RMSNorm"]

@@ -1,5 +1,6 @@
 """Core layers (counterpart of ``paddle_tpu/nn/layers/common.py``):
-``Linear``, ``Embedding``, ``RMSNorm``, ``LayerNorm`` and ``Dropout``.
+``Linear``, ``Embedding``, ``RMSNorm``, ``LayerNorm``, ``GroupNorm``,
+``Conv2D`` and ``Dropout``.
 
 ``Linear`` keeps Paddle's ``(in, out)`` weight layout and computes
 ``x @ W``, unlike ``torch.nn.Linear``: parameter names and shapes stay
@@ -11,13 +12,15 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 from torch import nn
 
 from ...amp.auto_cast import amp_cast
 from ...device import DeviceLike, resolve_device
 from .. import functional as F
-from ..initializer import Normal
+from ..initializer import KaimingUniform, Normal, Uniform
 
 
 def _normal(shape, std: float, device, dtype,
@@ -111,6 +114,74 @@ class LayerNorm(nn.Module):
     def extra_repr(self) -> str:
         return (f"normalized_shape={self.normalized_shape}, "
                 f"epsilon={self.epsilon}")
+
+
+class GroupNorm(nn.Module):
+    """Group norm over ``num_groups`` groups of ``num_channels`` channels,
+    with a learned per-channel scale (ones) and shift (zeros);
+    ``weight_attr=False`` / ``bias_attr=False`` drop them."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCHW", *, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.data_format = data_format
+        kw = dict(device=resolve_device(device), dtype=dtype or torch.float32)
+        self.weight = (None if weight_attr is False else
+                       nn.Parameter(torch.ones(num_channels, **kw)))
+        self.bias = (None if bias_attr is False else
+                     nn.Parameter(torch.zeros(num_channels, **kw)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.epsilon, self.data_format)
+
+    def extra_repr(self) -> str:
+        return f"num_groups={self.num_groups}, epsilon={self.epsilon}"
+
+
+class Conv2D(nn.Module):
+    """2-D convolution, weight ``(out_channels, in_channels / groups, kh,
+    kw)`` drawn from Kaiming-uniform at ``fan_in = in_channels / groups *
+    kh * kw``, bias from ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` (the JAX
+    package's defaults); ``bias_attr=False`` drops the bias. Padding takes
+    Paddle's forms (:func:`~paddle_tpu_torch.nn.functional.conv2d`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 padding_mode: str = "zeros", weight_attr=None,
+                 bias_attr=None, data_format: str = "NCHW", *,
+                 device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if padding_mode != "zeros":
+            raise NotImplementedError(
+                f"Conv2D(padding_mode={padding_mode!r}): only 'zeros'")
+        ks = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+              else tuple(kernel_size))
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups, self.data_format = groups, data_format
+        dev, dtype = resolve_device(device), dtype or torch.float32
+        fan_in = in_channels // groups * ks[0] * ks[1]
+        self.weight = nn.Parameter(KaimingUniform(fan_in=fan_in)(
+            (out_channels, in_channels // groups, *ks), dev, dtype,
+            generator))
+        bound = 1 / math.sqrt(fan_in)
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            Uniform(-bound, bound)((out_channels,), dev, dtype, generator)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight, self.bias, self.stride,
+                        self.padding, self.dilation, self.groups,
+                        self.data_format)
+
+    def extra_repr(self) -> str:
+        o, i, kh, kw = self.weight.shape
+        return (f"{i * self.groups}, {o}, kernel_size=({kh}, {kw}), "
+                f"stride={self.stride}, padding={self.padding}")
 
 
 class Dropout(nn.Module):

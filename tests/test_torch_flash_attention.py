@@ -11,8 +11,15 @@ and off (``_fwd_kernel``): out within 2e-5, dq/dk/dv (``jax.vjp``) within
 
 The bf16 backward's precision is decided here too: its kernels' operand
 roundings, emulated in f32 (``torch_numerics.flash_bwd_emulated``), stay
-within the card's bf16 gradient tolerance at a peaked q; and the segment
-id ranges by which they skip tiles never skip a pair with equal ids.
+within the card's bf16 gradient tolerance at a peaked q (at D = 32 and at
+the UNet's D = 160); and the segment id ranges by which they skip tiles
+never skip a pair with equal ids.
+
+SD-1.5's UNet runs heads of 40, 80 and 160 and cross-attention against 77
+text tokens: at D = 40, 80, 160 (non-causal, S = 128) the reference is the
+Pallas kernel (same tolerances); against 77 keys it is
+``flash_attention_ref``, as the JAX kernel refuses that length. The
+wrappers' head-dim limit is 160.
 """
 
 import numpy as np
@@ -146,6 +153,83 @@ def test_unported_options_raise(call):
     assert out.shape == (4, 8, 16) and lse.shape == (4, 8)
 
 
+# ------------------------------- SD-1.5's head dims (40, 80, 160), 77 keys
+def _unet_inputs(seed, sq, skv, d, h=2, dtype_round=False):
+    rng = np.random.default_rng(seed)
+
+    def rnd(rows, s, scale=0.5):
+        a = (rng.standard_normal((rows, s, d)) * scale).astype(np.float32)
+        if dtype_round:
+            a = torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+        return a
+
+    return rnd(B * h, sq), rnd(B * h, skv), rnd(B * h, skv), rnd(B * h, sq,
+                                                                1.0)
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_unet_head_dims_match_jax_pallas_flash(d):
+    """Non-causal self-attention at the UNet's head dims (the kernels pad
+    40 to 64 and 80 to 96; 160 is its own instantiation) against the JAX
+    package's Pallas flash kernel, which takes them: out within 2e-5,
+    dq/dk/dv within 5e-5."""
+    h = 2
+    q, k, v, do = _unet_inputs(d, 128, 128, d, h)
+    want, want_g = _jax(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=False, n_heads=h, n_kv_heads=h), q, k, v, do)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=False, n_heads=h, n_kv_heads=h)
+    got_g = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert_close(out.detach().numpy(), want, OUT_TOL,
+                 ref=attention_f64(q, k, v, False, h, h))
+    for name, g, w in zip("qkv", got_g, want_g):
+        assert_close(g.numpy(), w, GRAD_TOL, f"d{name}")
+
+
+@pytest.mark.parametrize("sq,d", [(256, 40), (128, 80), (64, 160)])
+def test_cross_attention_77_keys_matches_jax_reference(sq, d):
+    """The UNet's cross-attention: latent queries against the 77 text
+    tokens, not causal. The JAX kernel refuses 77 keys (no 128-multiple
+    divisor) and JAX's SDPA then goes dense; its flash_attention_ref is
+    that arithmetic. The port's kernels take any length."""
+    h = 2
+    q, k, v, do = _unet_inputs(sq + d, sq, 77, d, h)
+    want, want_g = _jax(lambda a, b, c: jfa.flash_attention_ref(
+        a, b, c, causal=False, n_heads=h, n_kv_heads=h), q, k, v, do)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=False, n_heads=h, n_kv_heads=h)
+    got_g = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert out.shape == (B * h, sq, d)
+    assert _err(out.detach().numpy(), want) <= OUT_TOL
+    for name, g, w in zip("qkv", got_g, want_g):
+        assert g.shape == w.shape
+        assert _err(g.numpy(), w) <= GRAD_TOL, f"d{name}"
+
+
+class _CudaStandIn(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what the wrappers' checks
+    see before a launch, without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_head_dim_limit_is_160():
+    """The wrappers' checks before a launch take D up to 160 (SD-1.5's
+    1280 channels over 8 heads) in both dtypes and refuse D = 192."""
+    def check(d, dtype):
+        q, k, v = (torch.zeros(4, 8, d, dtype=dtype).as_subclass(_CudaStandIn)
+                   for _ in range(3))
+        fa._check_cuda("flash_attention_fwd", q, k, v)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (40, 80, 128, 160):
+            check(d, dtype)
+        with pytest.raises(ValueError, match="head_dim 192 > 160"):
+            check(192, dtype)
+
+
 # ----------------------------------- the bf16 backward's numerics, emulated
 BF16_GRAD_TOL = 2e-2     # chip_smoke.py's GRAD_TOL[bf16]: max|a-b| / max|b|
 
@@ -195,6 +279,34 @@ def test_bf16_backward_roundings_hold_the_card_tolerance(hkv, qscale):
                                do)
     got = flash_bwd_emulated(q, k, v, do, lse, delta, True, H, hkv,
                              1.0 / np.sqrt(D), "bf16")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert rel_to_max(g, w) <= BF16_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("sq,skv", [(256, 256), (256, 77)],
+                         ids=["self", "cross-77"])
+@pytest.mark.parametrize("qscale", [1.0, 8.0], ids=["spread", "peaked"])
+def test_bf16_backward_roundings_hold_at_head_dim_160(sq, skv, qscale):
+    """The same emulated roundings at D = 160 (the new DP = 160
+    instantiation: the UNet's 1280-channel attention), not causal, self
+    and against 77 keys: within chip_smoke's bf16 gradient tolerance."""
+    d, h = 160, 2
+    rng = np.random.default_rng(int(qscale) + skv)
+
+    def rnd(rows, s, scale=1.0):
+        a = (rng.standard_normal((rows, s, d)) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(torch.bfloat16).float()
+
+    q, k, v = rnd(B * h, sq, qscale), rnd(B * h, skv), rnd(B * h, skv)
+    do = rnd(B * h, sq)
+    kw = dict(causal=False, n_heads=h, n_kv_heads=h)
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    delta = (out.to(torch.bfloat16).float() * do).sum(-1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*leaves, **kw), leaves,
+                               do)
+    got = flash_bwd_emulated(q, k, v, do, lse, delta, False, h, h,
+                             1.0 / np.sqrt(d), "bf16")
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert rel_to_max(g, w) <= BF16_GRAD_TOL, name
 

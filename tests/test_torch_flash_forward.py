@@ -9,7 +9,10 @@ and a float64 attention: the output rounded to bf16 within
 ``chip_smoke.py``'s ``OUT_TOL[bf16]`` (1e-3 + one bf16 ulp, elementwise,
 as both sides round an f32 value), the lse within ``LSE_TOL[bf16]``
 (1e-3). Cases: causal and full, GQA, Sq != Skv both ways, segment ids
-with a padding id no key carries (zeros, lse 0), a peaked q.
+with a padding id no key carries (zeros, lse 0), a peaked q; and at the
+UNet's D = 160 (the DP = 160 instantiation, 64-key tiles), not causal,
+self-attention against the Pallas forward and cross-attention against 77
+keys (a length the JAX kernel refuses) against the float64 attention.
 """
 
 import numpy as np
@@ -111,3 +114,31 @@ def test_forward_emulation_in_f32_is_the_plain_forward(hkv, seg):
                                       seg_q, seg_kv)
         assert float((got - want).abs().max()) <= tol, scheme
         assert float((lse - want_lse).abs().max()) <= 1e-5, scheme
+
+
+@pytest.mark.parametrize("sq,skv,qscale", [
+    (256, 256, 1.0), (256, 256, 8.0), (256, 77, 1.0), (64, 77, 8.0),
+], ids=["self", "self-peaked", "cross-77", "cross-77-peaked"])
+def test_forward_emulation_at_head_dim_160(sq, skv, qscale):
+    d, h = 160, 2
+    rng = np.random.default_rng(sq + skv + int(qscale))
+
+    def rnd(rows, s, scale=1.0):
+        return _bf16((rng.standard_normal((rows, s, d)) * scale)
+                     .astype(np.float32))
+
+    q, k, v = rnd(B * h, sq, qscale), rnd(B * h, skv), rnd(B * h, skv)
+    scale = 1.0 / np.sqrt(d)
+    got, lse = flash_fwd_emulated(q, k, v, False, h, h, scale, "hilo")
+    got = got.to(torch.bfloat16).float()
+    ref = attention_f64(q.numpy(), k.numpy(), v.numpy(), False, h, h)
+    assert out_excess(got, _bf16(ref.astype(np.float32)), OUT_RTOL) \
+        <= OUT_ATOL
+    if skv % 128 == 0:
+        with pinned():
+            want, want_lse = jfa._fwd(
+                *(jnp.asarray(x.numpy()) for x in (q, k, v)), None, None,
+                False, scale, 128, 128, h, h, True)
+        assert out_excess(got, _bf16(want), OUT_RTOL) <= OUT_ATOL
+        assert float((lse - torch.from_numpy(np.array(want_lse))).abs()
+                     .max()) <= LSE_TOL

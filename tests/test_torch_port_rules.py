@@ -36,10 +36,14 @@ from paddle_tpu_torch.kernels import fused_block_decode as fb
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels.paged_attention import PagedKVCache
-from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
-                                     LlamaForCausalLM, MoEGPTConfig,
-                                     MoEGPTForCausalLM)
-from paddle_tpu_torch.nn import Embedding, LayerNorm, Linear, RMSNorm
+from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                     BertForSequenceClassification,
+                                     BertModel, GPTConfig, GPTForCausalLM,
+                                     LlamaConfig, LlamaForCausalLM,
+                                     MoEGPTConfig, MoEGPTForCausalLM,
+                                     UNet2DConditionModel, UNetConfig)
+from paddle_tpu_torch.nn import (Conv2D, Embedding, GroupNorm, LayerNorm,
+                                 Linear, RMSNorm)
 from paddle_tpu_torch.nn.quant import QuantizedLinear
 from paddle_tpu_torch.testing.transport import adopt_and_decode_in_child
 
@@ -73,6 +77,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"paddle_tpu_torch/incubate/distributed/models/moe/moe_layer.py",
             "paddle_tpu_torch/incubate/distributed/models/moe/gate.py",
             "paddle_tpu_torch/models/moe_gpt.py",
+            "paddle_tpu_torch/models/unet.py",
+            "paddle_tpu_torch/models/bert.py",
             "tools/torch_memwatch.py"} <= scanned
     bad = []
     for path in _port_files():
@@ -118,12 +124,19 @@ def no_cuda(monkeypatch):
     lambda: fused.FusedFeedForward(8, 16),
     lambda: fused.FusedTransformerEncoderLayer(8, 2, 16),
     lambda: fused.FusedMultiTransformer(8, 2, 16),
+    lambda: UNet2DConditionModel(UNetConfig.tiny()),
+    lambda: BertModel(BertConfig.tiny()),
+    lambda: BertForPretraining(BertConfig.tiny()),
+    lambda: BertForSequenceClassification(BertConfig.tiny()),
+    lambda: Conv2D(4, 8, 3),
+    lambda: GroupNorm(2, 8),
 ], ids=["llama", "llama-cuda", "linear", "embedding", "rmsnorm",
         "paged-kv-cache", "seed", "resolve_device", "device-prefetcher",
         "child-decode", "gpt", "layernorm", "quantized-linear", "moe-gpt",
         "moe-layer", "experts", "gshard-gate", "fused-linear",
         "fused-bias-dropout-residual-ln", "fused-mha", "fused-ffn",
-        "fused-encoder-layer", "fused-multi-transformer"])
+        "fused-encoder-layer", "fused-multi-transformer", "unet", "bert",
+        "bert-pretraining", "bert-classification", "conv2d", "group-norm"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):
     with pytest.raises(RuntimeError, match="cuda"):
         build()

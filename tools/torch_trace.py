@@ -29,10 +29,11 @@ def _device_us(evt) -> float:
 
 def window(name: str, fn, top: int, group=None) -> dict:
     """Trace ``fn`` once: host-clock wall ms (ending in a synchronise), the
-    summed device ms, the idle share ``1 - device / wall``, the ``top``
-    kernels by device time with their launch counts, and with ``group``
-    (kernel name -> group name) the device ms of each group. Device
-    fields are None when the trace saw no device activity."""
+    summed device ms, the idle share ``1 - device / wall``, the number of
+    device events (``device_events``: kernels, copies, memsets), the
+    ``top`` kernels by device time with their launch counts, and with
+    ``group`` (kernel name -> group name) the device ms of each group.
+    Device fields are None when the trace saw no device activity."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -52,8 +53,9 @@ def window(name: str, fn, top: int, group=None) -> dict:
     device_ms = sum(us for _, us, _ in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
     out.update(device_ms=device_ms, idle_share=1.0 - device_ms / out[
-        "wall_ms"], kernels=[dict(name=k[:80], device_ms=us / 1e3, count=n)
-                             for k, us, n in rows[:top]])
+        "wall_ms"], device_events=sum(n for _, _, n in rows),
+        kernels=[dict(name=k[:80], device_ms=us / 1e3, count=n)
+                 for k, us, n in rows[:top]])
     if group is not None:
         groups: dict = {}
         for key, us, _ in rows:

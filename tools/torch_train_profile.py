@@ -4,6 +4,9 @@
     python3 tools/torch_train_profile.py [--layers 8] [--seq 4096]
     python3 tools/torch_train_profile.py --model moe_gpt [--layers 24]
                                          [--seq 1024]
+    python3 tools/torch_train_profile.py --model unet
+    python3 tools/torch_train_profile.py --model bert [--layers 12]
+                                         [--seq 512]
 
 Builds Llama-2-7B width at ``--layers`` layers (bf16, f32 masters, random
 weights from ``--seed``) and the training path of ``chip_smoke.py``:
@@ -39,6 +42,19 @@ product, ``top_k_dispatch``), ``moe_dispatch_combine`` (the token ->
 expert and expert -> token products over the one-hot tensors) and
 ``moe_experts`` (the two batched expert products and the GELU), each
 also timed on the card's clock (``event_ms``, CUDA events over 5 calls).
+
+With ``--model unet`` the model is ``UNetConfig.sd15()`` at full width
+and depth, trained as ``chip_smoke.py``'s unet phase does (batch 2 of 4 x
+64 x 64 latents, a 77 x 768 context, AdamW 1e-4 with f32 masters, no
+clip, no schedule); ``fwd_bwd`` groups the device time into convolutions
+(cuDNN), GEMMs, the flash kernels by padded head dim (``flash D=40`` pads
+to 64, ``D=80`` to 96, ``D=160``) and everything else, and the ``loss``
+window gives way to ``group_norm_silu``: every GroupNorm of the model (and
+the SiLU after it where the model applies one), forward and backward,
+replayed alone at the shapes one forward gave them. With ``--model
+bert`` it is ``BertConfig.bert_base()`` pretraining as the bert phase
+runs it (8 x ``--seq`` tokens, dropout 0.1, no kernel: attention is
+SDPA's dense path), with no extra window.
 """
 
 from __future__ import annotations
@@ -62,6 +78,11 @@ FLASH = ("fa_fwd_kernel", "fa_dq_kernel", "fa_dkv_kernel",   # CUDA cores
 GEMM = ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_", "sm80_")
 
 
+CONV = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")
+# the bf16 kernels' padded head dim -> the UNet's head dim it serves
+UNET_HEAD = {"64": "40", "96": "80", "160": "160"}
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if any(k in name for k in FLASH):
@@ -69,6 +90,53 @@ def _group(name: str) -> str:
     if any(k in low for k in GEMM):
         return "gemm"
     return "other"
+
+
+def _unet_group(name: str) -> str:
+    """Convolutions apart from GEMMs, the flash kernels by head dim."""
+    low = name.lower()
+    if any(k in name for k in FLASH):
+        if "<" not in name:                    # fb_dkv_combine_kernel
+            return "flash dkv combine"
+        dp = name.split("<")[1].split(",")[0].strip()
+        return f"flash D={UNET_HEAD.get(dp, dp)}"
+    if any(k in low for k in CONV):
+        return "conv"
+    return _group(name)
+
+
+def group_norm_window(model, batch, top) -> dict:
+    """Every GroupNorm of ``model`` (with the SiLU the model puts after the
+    ResNet blocks' and the output's norms), forward and backward, alone
+    at the input shapes one forward of ``batch`` gave them."""
+    from paddle_tpu_torch.nn import GroupNorm
+    from paddle_tpu_torch.nn import functional as F
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: shapes.append(
+            (mod, tuple(args[0].shape), not name.endswith(".norm"))))
+        for name, m in model.named_modules() if isinstance(m, GroupNorm)]
+    try:
+        with torch.no_grad():
+            model(*batch[:3])
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(shape, device="cuda", generator=gen,
+                      dtype=torch.bfloat16).requires_grad_(True)
+          for _, shape, _ in shapes]
+
+    def run():
+        for (mod, _, silu), x in zip(shapes, xs):
+            y = mod(x)
+            (F.silu(y) if silu else y).sum().backward()
+
+    run()
+    w = window("group_norm_silu", run, top, _group)
+    w["calls"] = len(shapes)
+    w["event_ms"] = event_ms(run)
+    return w
 
 
 def moe_windows(model, tokens, top) -> list:
@@ -152,12 +220,12 @@ def event_ms(fn, iters: int = 5) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="llama", choices=("llama",
-                                                         "moe_gpt"))
+    ap.add_argument("--model", default="llama",
+                    choices=("llama", "moe_gpt", "unet", "bert"))
     ap.add_argument("--layers", type=int, default=None,
-                    help="default 8 (llama), 24 (moe_gpt)")
+                    help="default 8 (llama), 24 (moe_gpt), 12 (bert)")
     ap.add_argument("--seq", type=int, default=None,
-                    help="default 4096 (llama), 1024 (moe_gpt)")
+                    help="default 4096 (llama), 1024 (moe_gpt), 512 (bert)")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--top", type=int, default=10)
     args = ap.parse_args()
@@ -174,6 +242,8 @@ def main() -> int:
     from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                                LinearWarmup)
 
+    if args.model in ("unet", "bert"):
+        return image_or_encoder(args)
     moe = args.model == "moe_gpt"
     if moe:
         from paddle_tpu_torch.models import MoEGPTConfig, MoEGPTForCausalLM
@@ -203,26 +273,9 @@ def main() -> int:
                                         (batch, args.seq + 1))).cuda()
     x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
 
-    for _ in range(2):                                  # warm-up
-        trainer(x, y)
-    untraced = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer(x, y)
-        torch.cuda.synchronize()
-        untraced.append(time.perf_counter() - t0)
-    step_ms = 1e3 * float(np.median(untraced))
-
-    common = dict(model=args.model, layers=args.layers, batch=batch,
-                  seq=args.seq, grad_accum_steps=accum,
-                  dtype="bf16, f32 masters")
-    fb = window("fwd_bwd", lambda: trainer.compute_loss_grads(x, y),
-                args.top, _group)
-    up = window("update", trainer.apply_update, args.top, _group)
-    if moe:
-        extra = moe_windows(model, batch * args.seq, args.top)
-    else:
+    def extra():
+        if moe:
+            return moe_windows(model, batch * args.seq, args.top)
         hidden = torch.randn((1, args.seq, cfg.hidden_size), device="cuda",
                              dtype=torch.bfloat16, requires_grad=True)
 
@@ -233,8 +286,32 @@ def main() -> int:
         loss_fwd_bwd()
         lo = window("loss", loss_fwd_bwd, args.top, _group)
         lo["micro_batches_per_step"] = accum
-        extra = [lo]
-    for w in [fb, up] + extra:
+        return [lo]
+
+    return profile(trainer, (x, y), _group, extra, args.top, dict(
+        model=args.model, layers=args.layers, batch=batch, seq=args.seq,
+        grad_accum_steps=accum, dtype="bf16, f32 masters"))
+
+
+def profile(trainer, batch, group, extra, top, common) -> int:
+    """Two warm-up and two untraced steps (their median is the untraced
+    step), then the fwd_bwd and update windows and ``extra()``'s, each
+    printed as one JSON line with ``common``, the step line and the
+    card."""
+    for _ in range(2):                                  # warm-up
+        trainer(*batch)
+    untraced = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer(*batch)
+        torch.cuda.synchronize()
+        untraced.append(time.perf_counter() - t0)
+    step_ms = 1e3 * float(np.median(untraced))
+    fb = window("fwd_bwd", lambda: trainer.compute_loss_grads(*batch), top,
+                group)
+    up = window("update", trainer.apply_update, top, group)
+    for w in [fb, up] + extra():
         w.update(common)
         print(json.dumps(w), flush=True)
     traced_wall = fb["wall_ms"] + up["wall_ms"]
@@ -250,6 +327,35 @@ def main() -> int:
           flush=True)
     print(card(), flush=True)
     return 0
+
+
+def image_or_encoder(args) -> int:
+    """The unet and bert routes: chip_smoke.py's model, batch and trainer
+    (its unet and bert phases), profiled as the others (for the UNet also
+    the group_norm_silu window)."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    if args.model == "unet":
+        cfg, model = cs.unet_model("cuda")
+        batch = cs.unet_batch(cfg, cs.UNET_BATCH, "cuda", torch.bfloat16)
+        return profile(
+            cs.unet_trainer(model), batch, _unet_group,
+            lambda: [group_norm_window(model, batch, args.top)], args.top,
+            dict(model="unet", config="UNetConfig.sd15()",
+                 batch=cs.UNET_BATCH, latent=cfg.sample_size,
+                 context=cs.UNET_CONTEXT, dtype="bf16, f32 masters"))
+    cfg = BertConfig.bert_base()
+    cfg.num_hidden_layers = args.layers or cfg.num_hidden_layers
+    args.seq = args.seq or cs.BERT_SEQ
+    model = cs.bert_model(BertForPretraining, cfg, "cuda")
+    *batch, _ = cs.bert_batch(cfg, cs.BERT_BATCH, args.seq, "cuda")
+    return profile(cs.bert_trainer(model, cfg), batch, _group, lambda: [],
+                   args.top, dict(model="bert",
+                                  config="BertConfig.bert_base()",
+                                  layers=cfg.num_hidden_layers,
+                                  batch=cs.BERT_BATCH, seq=args.seq,
+                                  dtype="bf16, f32 masters"))
 
 
 if __name__ == "__main__":
