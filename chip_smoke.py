@@ -50,7 +50,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               #1 as a 256-token prefill, #2 at B = 4 over 1023/517/78/0
               of a 1024-token table, #4 as a 256-token chunk from 512
               (native and on the pool quantized), each held to its plain
-              version and timed against SDPA and the bound;
+              version and timed against SDPA and the bound; then #2 at the
+              tensor-parallel shard's shape (B = 4, 16 heads over 16 kv
+              heads of 128, serve's lengths), on the last shard's kv-head
+              partition of a 7B pool (a view, as the TP chain passes it),
+              native and int8;
   3. serve    Llama-2-7B (32 layers, bf16, random weights from a seed)
               through ServingEngine: 8 requests of at most 256 tokens, 32
               new tokens each, some submitted mid-run, with fused block
@@ -184,6 +188,25 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               addresses kept, no new capture, #3 a layer per decode step
               only; the bundle round-trips a spawned process byte for byte
               (no CUDA tensor rides); harvest and adoption ms;
+     tp       ServingEngine(tp_degree=2) on serve's model and traffic,
+              both shards on the card: fused N = 1, N = 4 and an int8
+              pool, each beside the tp = 1 engine (the streams compared,
+              a difference reported with its first differing token and
+              both engines' top-2 margins there; decode step ms, TTFT,
+              tokens/s and peak memory of both); exact launches (#2 32
+              layers x 2 shards a decode step, #1 a layer a prefill, no
+              #3/#5), the key carrying ("tp", 2); the graphed TP step
+              against its eager step bit for bit with both times; a
+              200-token int8 request harvested from one TP engine and
+              adopted by another that served it alone, bit for bit;
+              FleetRouter(replicas=2, tp_degree=2) on serve's traffic,
+              loss-free and through one replica loss
+              (router_dispatch:every=20:times=1): every request OK, the
+              agreement with the loss-free fleet reported (a re-routed
+              request re-prefills prompt + tokens: bf16 rounds it
+              otherwise); the phase's seconds (GPT-3 345M's generic
+              route at tp = 2 runs in the gpt phase: streams equal to
+              tp = 1 bit for bit, launches as at tp = 1);
      fleet    FleetRouter(replicas=2) over serve's engine (fused N = 1, a
               16-page host tier a replica): two 512-token shared prefixes
               under 5 requests each (suffixes 17 to 256; each prefix's
@@ -220,6 +243,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               exact, no fused kernel; a capture a key), generate (B = 4,
               P = 128, N = 32: #1 24 launches), the model as its own draft
               at γ = 2, batch 1 (acceptance, round ms, exact launches);
+              the engine at tp_degree=2 (the generic route as at tp = 1:
+              streams equal, the same launches);
      memwatch serve's engine and traffic on the fused (N = 1) and generic
               routes, each on a native and an int8 pool, telemetry and
               memwatch on: the program table (a row per captured decode
@@ -264,7 +289,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               harvested request decoded to the end in a spawned process on
               the card, which rebuilds the model from its seed
               (testing.transport.adopt_and_decode_in_child): its stream
-              equal to the solo one; then a 2-replica fleet through two
+              equal to the solo one; then tp_parity: the engine at
+              tp_degree=2 on the card, at tp = 2 on a CPU copy (the plain
+              versions) and at tp = 1 on the card, three prompts of 17 to
+              130 tokens, the three streams equal token for token, and a
+              TP fleet through one replica loss equal to them; then a
+              2-replica fleet through two
               replica losses equal to one engine, token for token; the
               model int8-quantized: the engine's streams equal to its
               generate's; then GPT-3 345M's width at 2 layers: the
@@ -380,6 +410,25 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               clock beside a bare TrainStep loop's on the same batches,
               tokens/s, MFU, peak memory and the host's share of time
               blocked on loss reads;
+     io       the rest of training input at fit's model (4 layers, amp
+              O2, AdamW over two groups, batch 2 of 4096 tokens, one
+              epoch of 8 steps, the loss read every step): Model.fit over
+              fit's shuffled TensorDataset served by the native C++
+              prefetcher (io_core.cpp built with g++ into build/native/),
+              its batches in native.shuffled_indices' order at seed + 1;
+              a map-style dataset whose __getitem__ runs a GIL-bound
+              pure-Python transform (48 passes over a 4097-token row)
+              under 4 thread workers, then 4 process workers
+              (use_process_workers=True), then 4 process workers under
+              FLAGS_fault_inject="dataloader_worker:every=2" (8 restarts a
+              worker allowed): the same batches in sampler order and the
+              same per-step losses as the thread run, bit for bit;
+              io_worker_restarts equal to the workers replaced, each dead
+              with the fault's exit code 3; the transform alone under 4
+              threads and 4 processes over 64 rows (rows/s, seconds to the
+              first batch, rows/s after it); fit step ms on the card's
+              clock beside a bare TrainStep over the same batches (idle
+              share 1 - bare / fit); #7-#9 4 layers x 8 steps a run;
      fit_faults
               fit's recipe at 2 layers under FLAGS_fault_inject=
               "train_dispatch:every=4:times=1;train_sync:every=2:times=1;
@@ -861,10 +910,16 @@ def prefill_row(da, gen, dtype, device, case, b, s, t, cur, h, hkv, d,
 # walk has the most parts to fill. generate_paged's last step: 4 equal rows
 # (P = 128, N = 32) over a pool with no null page, each row's pages
 # consecutive from page 0, as its allocator hands them out
-PAGED_SHAPES = (("generate_paged", (160,) * BATCH, 160, False),
+# (case, lengths, table span, null page, tp): at tp > 1 the kernel runs
+# on one shard's kv-head partition of a 7B pool (a view, as the TP decode
+# chain passes it), 32 / tp heads over 32 / tp kv heads
+PAGED_SHAPES = (("generate_paged", (160,) * BATCH, 160, False, 1),
                 ("serve", (MAX_SEQ, MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1, 0),
-                 MAX_SEQ, True),
-                ("serve_long decode", LONG_DECODE_LENS, LONG_MAX_SEQ, True))
+                 MAX_SEQ, True, 1),
+                ("serve_long decode", LONG_DECODE_LENS, LONG_MAX_SEQ, True,
+                 1),
+                ("tp shard", (MAX_SEQ, MAX_SEQ // 2 + 5, MAX_SEQ // 13 + 1,
+                              0), MAX_SEQ, True, 2))
 
 
 def _rect_tables(rows, max_seq, device):
@@ -884,17 +939,22 @@ def check_paged_attention(dtype, device, results):
     replays the kernel's and SDPA's calls from a CUDA graph."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    for case, seq_lens, max_seq, null_page in PAGED_SHAPES:
+    for case, seq_lens, max_seq, null_page, tp in PAGED_SHAPES:
         seq_lens = list(seq_lens)
         bt, num_pages = (_block_tables(seq_lens, 0, device, max_seq)
                          if null_page else
                          _rect_tables(len(seq_lens), max_seq, device))
         mark = {} if null_page else {"generation": True}
+        if tp > 1:
+            mark = {"tp": tp}
         sl = torch.tensor(seq_lens, dtype=torch.int32, device=device)
         idle = sl == 0
+        heads, kv_heads = HEADS // tp, KV_HEADS // tp
         shape = (KV_HEADS, num_pages, PAGE, HEAD_DIM)
-        kp, vp = (_rand(gen, shape, dtype, device) for _ in range(2))
-        q = _rand(gen, (BATCH, HEADS, HEAD_DIM), dtype, device)
+        kf, vf = (_rand(gen, shape, dtype, device) for _ in range(2))
+        # the last shard's partition (a view at an offset into the pool)
+        kp, vp = (pa.shard_pool(x, tp - 1, tp) for x in (kf, vf))
+        q = _rand(gen, (BATCH, heads, HEAD_DIM), dtype, device)
         got = pa.paged_attention(q, kp, vp, bt, sl)
         want = pa.paged_attention_ref(q, kp, vp, bt, sl)
         torch.cuda.synchronize()
@@ -906,7 +966,7 @@ def check_paged_attention(dtype, device, results):
         # library yardstick: SDPA over the gathered contiguous view
         t = bt.shape[1] * PAGE
         kg, vg = (x[:, bt.long()].movedim(1, 0).reshape(
-            BATCH, KV_HEADS, t, HEAD_DIM) for x in (kp, vp))
+            BATCH, kv_heads, t, HEAD_DIM) for x in (kp, vp))
         mask = (torch.arange(t, device=device)[None, :] < sl[:, None])
         mask = mask[:, None, None, :]
         qs = q[:, :, None, :]
@@ -914,9 +974,9 @@ def check_paged_attention(dtype, device, results):
         elem = q.element_size()
         live = sum(seq_lens)
         index_bytes = 4 * (bt.numel() + sl.numel())
-        nbytes = (elem * (2 * q.numel() + 2 * live * KV_HEADS * HEAD_DIM)
+        nbytes = (elem * (2 * q.numel() + 2 * live * kv_heads * HEAD_DIM)
                   + index_bytes)
-        flops = 4.0 * live * HEADS * HEAD_DIM
+        flops = 4.0 * live * heads * HEAD_DIM
         bms, by = bound_ms(nbytes, flops, dtype)
         kms = time_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl))
         dev_ms = dict(
@@ -931,7 +991,7 @@ def check_paged_attention(dtype, device, results):
             library_ms=lib, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
             device_ms=dev_ms, **mark))
         # the int8 pool: the same rows quantized, kernel vs plain on its bits
-        kq, vq = quantized(kp), quantized(vp)
+        kq, vq = (pa.shard_pool(quantized(x), tp - 1, tp) for x in (kf, vf))
         got = pa.paged_attention(q, kq, vq, bt, sl)
         want = pa.paged_attention_ref(q, kq, vq, bt, sl)
         torch.cuda.synchronize()
@@ -942,7 +1002,7 @@ def check_paged_attention(dtype, device, results):
         require(not got[idle].any(), "paged_attention int8: idle row must "
                 "read 0")
         nbytes = (elem * 2 * q.numel()
-                  + 2 * live * KV_HEADS * row_bytes(True, 0) + index_bytes)
+                  + 2 * live * kv_heads * row_bytes(True, 0) + index_bytes)
         bms, by = bound_ms(nbytes, flops, dtype)
         kms = time_ms(lambda: pa.paged_attention(q, kq, vq, bt, sl))
         results.append(dict(
@@ -954,7 +1014,7 @@ def check_paged_attention(dtype, device, results):
             library_ms=None, bound_ms=bms, bound_by=by, bound_frac=bms / kms,
             device_ms=dict(kernel=graph_ms(
                 lambda: pa.paged_attention(q, kq, vq, bt, sl))), **mark))
-        del kp, vp, kq, vq
+        del kf, vf, kp, vp, kq, vq
         torch.cuda.empty_cache()
 
 
@@ -1559,11 +1619,12 @@ def prompts(vocab: int, lens) -> list:
 
 def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
           max_seq=MAX_SEQ, group=1, kv_dtype="native", weight_dtype="native",
-          want_fused=None):
+          want_fused=None, tp_degree=1):
     """One engine run over ``lens`` prompts, half submitted up front and
     the rest mid-run, with ``FLAGS_fused_block_decode=fused``,
-    ``FLAGS_fused_block_layers=group`` and the engine's ``kv_dtype`` and
-    ``weight_dtype``; the fused route must be taken as ``want_fused``
+    ``FLAGS_fused_block_layers=group`` and the engine's ``kv_dtype``,
+    ``weight_dtype`` and ``tp_degree``; the fused route must be taken as
+    ``want_fused``
     says (default: ``fused``; a GPT or a weight-quantized model takes the
     generic route under the flag). Returns (engine, [(rid,
     prompt, tokens)], seconds, launch counts, peak device bytes of the run,
@@ -1587,13 +1648,16 @@ def serve(model, fused: bool, new_tokens: int, lens, record_logits=False,
                      "fused_block_layers": group})
     eng = Engine(model, max_batch=BATCH, page_size=PAGE, max_seq_len=max_seq,
                  record_logits=record_logits, kv_dtype=kv_dtype,
-                 weight_dtype=weight_dtype)
+                 weight_dtype=weight_dtype, tp_degree=tp_degree)
     eng.chunk_seconds = []
-    require((eng._spec is not None) == (fused if want_fused is None
-                                        else want_fused),
+    fused_route = fused if want_fused is None else want_fused
+    require((eng._spec is not None) == fused_route,
             "decode route not as asked")
-    require((eng._stacked is not None) == (fused and group > 1),
+    require((eng._stacked is not None) == (fused and group > 1
+                                           and tp_degree == 1),
             "N-layer route not as asked")
+    require((eng._tp_shards is not None) == (fused_route and tp_degree > 1),
+            "tensor-parallel route not as asked")
     # warm-up requests, one whole and one chunked (first-call costs:
     # library loads, cuBLAS handles)
     for p in prompts(model.config.vocab_size, (9, CHUNK + 9)):
@@ -1630,13 +1694,17 @@ def check_tokens(res, vocab, new_tokens):
 
 
 def expected_launches(counts, layers, steps, whole, chunks, fused, group,
-                      kv_dtype, weight_dtype) -> dict:
+                      kv_dtype, weight_dtype, tp=1) -> dict:
     """Every kernel variant's launches in one serving run: ``whole``
     whole-prompt prefills and ``chunks`` chunks over ``layers`` layers,
-    ``steps`` decode steps through the route asked for; 0 for the rest."""
+    ``steps`` decode steps through the route asked for; 0 for the rest.
+    A fused route at ``tp`` > 1 is the tensor-parallel chain: the decode
+    attention once a layer and shard."""
     int8 = kv_dtype == "int8"
     if not fused:
         decode = "paged_attention", layers * steps, [int8]
+    elif tp > 1:
+        decode = "paged_attention", layers * tp * steps, [int8]
     elif group == 1:
         decode = "fused_block_decode", layers * steps, [int8]
     else:
@@ -1728,7 +1796,7 @@ def run_serve(device):
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     by_path = {"serve": dict(total)}
     for path, run in (("generate", run_generate), ("handoff", run_handoff),
-                      ("fleet", run_fleet),
+                      ("tp", run_tp), ("fleet", run_fleet),
                       ("quant", lambda m: run_quant(m, generic_step_ms)),
                       ("memwatch", run_memwatch)):
         counts = run(model)
@@ -1907,18 +1975,19 @@ def sched_preempt(model, tight: bool, pump: bool):
     return eng, rids, [out[r] for r in rids], statuses, events, polls
 
 
-def graph_vs_eager(model, route, fused, group, kv_dtype, weight_dtype):
+def graph_vs_eager(model, route, fused, group, kv_dtype, weight_dtype,
+                   tp_degree=1, phase="sched"):
     """One rung's decode graph against the eager step it captured, on the
     same inputs and pools: logits and pool writes bit for bit, the same
     launches counted; then the step's time, graphed and eager (CUDA events
     around GRAPH_ITERS calls that each return the tokens to the host), the
     replays alone back to back (the step's device time) and each call's
-    host seconds."""
+    host seconds. Returns the launches of one step."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.generation.serving import _EagerDecode
     eng = sched_engine(model, fused, group, max_batch=BATCH,
                        bucket_ladder=(BATCH,), kv_dtype=kv_dtype,
-                       weight_dtype=weight_dtype)
+                       weight_dtype=weight_dtype, tp_degree=tp_degree)
     vocab = model.config.vocab_size
     for p in prompts(vocab, PROMPT_LENS[:BATCH]):
         eng.submit(p, 4)
@@ -1982,8 +2051,8 @@ def graph_vs_eager(model, route, fused, group, kv_dtype, weight_dtype):
     replay_ms = time_ms(graph.graph.replay, iters=GRAPH_ITERS)
     graphed_host, eager_host = host_s(graphed), host_s(eager)
     eng.pool.install_pools(pools)
-    emit("sched", part="graphs", route=route, kv_dtype=kv_dtype,
-         weight_dtype=weight_dtype, batch=BATCH,
+    emit(phase, part="graphs", route=route, kv_dtype=kv_dtype,
+         weight_dtype=weight_dtype, tp_degree=tp_degree, batch=BATCH,
          seq_lens=list(GRAPH_LENS), logits_bit_equal=True,
          pools_bit_equal=True, launches_per_step=replay_counts,
          graphed_step_ms=graphed_ms, eager_step_ms=eager_ms,
@@ -1993,6 +2062,7 @@ def graph_vs_eager(model, route, fused, group, kv_dtype, weight_dtype):
              np.median(eng.decode_step_seconds)))
     del eng, saved, after_g
     torch.cuda.empty_cache()
+    return replay_counts
 
 
 def run_sched(model) -> dict:
@@ -3498,6 +3568,7 @@ def run_parity(device):
     run_spec_parity(model)
     run_generate_parity(model)
     run_handoff_parity(model, SEED + 7)
+    run_tp_parity(model)
     run_fleet_parity(model)
     run_quant_parity(model)
     del model
@@ -4080,6 +4151,215 @@ def run_handoff(model) -> dict:
     return total
 
 
+# -------------------------------------------------------------------- tp
+TP = 2
+# (FLAGS_fused_block_layers, kv_dtype) of the tensor-parallel serve runs
+TP_RUNS = ((1, "native"), (GROUP_LAYERS, "native"), (1, "int8"))
+TP_FLEET_SPEC = "router_dispatch:every=20:times=1"
+
+
+def stream_differences(res_a, res_b, eng_a, eng_b):
+    """For each request whose streams differ: its first differing token and
+    the top-2 logit margin of both engines' rows there."""
+    out = []
+    for (ra, _, ta), (rb, _, tb) in zip(res_a, res_b):
+        j = first_difference(ta, tb)
+        if j is not None:
+            out.append(dict(request=ra, first_difference=j,
+                            margin_a=top2_margin(eng_a.logits[ra][j]),
+                            margin_b=top2_margin(eng_b.logits[rb][j])))
+    return out
+
+
+def tp_fleet(model, spec):
+    """FleetRouter(replicas=2, tp_degree=TP) on serve's configuration, one
+    warm-up request a replica, then serve's traffic under FLAGS_fault_inject
+    ``spec`` (the router's site armed for the traffic only). Returns
+    (fleet, streams, seconds, peak device bytes)."""
+    from paddle_tpu_torch.generation.fleet import FleetRouter
+    from paddle_tpu_torch.testing import faults
+    vocab = model.config.vocab_size
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = FleetRouter(model, replicas=2, tp_degree=TP, max_batch=BATCH,
+                        page_size=PAGE, max_seq_len=MAX_SEQ)
+    for i, p in enumerate(prompts(vocab, (9, 17))):
+        fleet.submit(p, 2, replica=i)
+    fleet.run()
+    t0 = time.perf_counter()
+    with faults.armed(spec):
+        fleet._f_router = faults.site("router_dispatch")
+        rids = [fleet.submit(p, NEW_TOKENS)
+                for p in prompts(vocab, PROMPT_LENS)]
+        out = fleet.run()
+    torch.cuda.synchronize()
+    require(all(fleet.status(r) == "OK" for r in rids),
+            f"tp fleet {spec!r}: statuses {fleet.statuses()}")
+    return (fleet, [out[r] for r in rids], time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def run_tp(model) -> dict:
+    """The tp phase on serve's Llama-2-7B (full width and depth, bf16):
+    ServingEngine(tp_degree=TP) on serve's traffic, fused N = 1, N =
+    GROUP_LAYERS and an int8 pool, each beside the tp = 1 engine (streams
+    compared; a difference reported with its first token and both top-2
+    margins; step ms, TTFT, peak); exact launches (#2 layers x TP a step,
+    #1 a layer a prefill, no #3/#5); the graphed TP step against its
+    eager step bit for bit; a harvest / adopt between two TP engines on
+    an int8 pool, bit for bit; FleetRouter(replicas=2, tp_degree=TP)
+    through one replica loss (its agreement with the loss-free fleet
+    reported). Returns the launch counts of the TP runs."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    total: dict = {}
+    t_phase = time.perf_counter()
+    for group, kv_dtype in TP_RUNS:
+        runs = {}
+        for tp in (1, TP):
+            eng, res, seconds, counts, peak = serve(
+                model, True, NEW_TOKENS, PROMPT_LENS, record_logits=True,
+                group=group, kv_dtype=kv_dtype, tp_degree=tp)
+            check_tokens(res, cfg.vocab_size, NEW_TOKENS)
+            steps = len(eng.decode_step_seconds)
+            require_launches(counts, expected_launches(
+                counts, layers, steps, len(PROMPT_LENS), 0, True, group,
+                kv_dtype, "native", tp), f"tp={tp} N={group} {kv_dtype}")
+            runs[tp] = (eng, res, seconds, counts, peak)
+            if tp > 1:
+                total = {k: total.get(k, 0) + v for k, v in counts.items()}
+                require(("tp", TP) in eng.decode_key.extra,
+                        "tp: the decode key carries no degree")
+        (e1, r1, s1, _, p1), (e2, r2, s2, c2, p2) = runs[1], runs[TP]
+        diffs = stream_differences(r1, r2, e1, e2)
+        gen = sum(len(t) for _, _, t in r2)
+        emit("tp", model="llama2_7b", layers=layers, dtype="bf16",
+             tp_degree=TP, fused_block_layers=group, kv_dtype=kv_dtype,
+             requests=len(r2), prompt_lens=list(PROMPT_LENS),
+             new_tokens=NEW_TOKENS, streams_equal=not diffs,
+             differences=diffs, decode_steps=len(e2.decode_step_seconds),
+             tokens_per_s=gen / s2, tokens_per_s_tp1=gen / s1,
+             decode_step_ms_median=1e3 * float(np.median(
+                 e2.decode_step_seconds)),
+             decode_step_ms_median_tp1=1e3 * float(np.median(
+                 e1.decode_step_seconds)),
+             ttft_ms_median=1e3 * float(np.median(
+                 list(e2.ttft_seconds.values()))),
+             ttft_ms_median_tp1=1e3 * float(np.median(
+                 list(e1.ttft_seconds.values()))),
+             peak_mem_gb=p2 / 1e9, peak_mem_gb_tp1=p1 / 1e9, launches=c2)
+        del runs, e1, e2
+        torch.cuda.empty_cache()
+    step = graph_vs_eager(model, f"tp={TP} fused N=1", True, 1, "native",
+                          "native", tp_degree=TP, phase="tp")
+    require_launches(step, only(step, paged_attention=layers * TP),
+                     "tp graph step")
+    # harvest / adopt between two TP engines on an int8 pool
+    prompt = prompts(cfg.vocab_size, (HANDOFF_LEN,))[0]
+
+    def engine():
+        return ServingEngine(model, max_batch=BATCH, page_size=PAGE,
+                             max_seq_len=MAX_SEQ, kv_dtype="int8",
+                             tp_degree=TP)
+    b = engine()
+    rid = b.submit(prompt, HANDOFF_NEW)
+    solo = b.run()[rid]
+    a = engine()
+    bundle, harvest_s = harvest_after_first_token(a, prompt, HANDOFF_NEW)
+    steps0 = len(b.decode_step_seconds)
+    (new, out), c, sec = counted(
+        lambda: (lambda n: (n, b.run()[n]))(b.adopt_request(bundle)), total)
+    steps = len(b.decode_step_seconds) - steps0
+    require(out == solo, f"tp handoff: adopted stream differs from solo at "
+            f"{first_difference(out, solo)}")
+    require_launches(c, only(c, paged_attention_int8=layers * TP * steps),
+                     "tp handoff")
+    emit("tp", part="handoff", kv_dtype="int8", tp_degree=TP,
+         prompt_len=HANDOFF_LEN, pages=len(bundle["pages"]),
+         harvest_ms=1e3 * harvest_s, decode_steps=steps, seconds=sec,
+         bit_identical=True, launches=c)
+    del a, b, bundle
+    torch.cuda.empty_cache()
+    # the fleet: two TP replicas, one loss
+    kernels.reset_launches()
+    clean, clean_out, clean_s, clean_peak = tp_fleet(model, "")
+    total = {k: total.get(k, 0) + v
+             for k, v in kernels.launch_counts().items()}
+    del clean
+    kernels.reset_launches()
+    lossy, lossy_out, lossy_s, lossy_peak = tp_fleet(model, TP_FLEET_SPEC)
+    total = {k: total.get(k, 0) + v
+             for k, v in kernels.launch_counts().items()}
+    require(lossy.losses == 1, f"tp fleet: {lossy.losses} losses, want 1")
+    require(all(len(t) == NEW_TOKENS for t in lossy_out),
+            "tp fleet: a stream is short")
+    require(all(e.tp_degree == TP for e in lossy.engines),
+            "tp fleet: a replica is not tensor-parallel")
+    # bf16: a re-routed request re-prefills prompt + tokens, whose rounding
+    # is not the decode steps' (tp_parity holds the fp32 fleet to equality)
+    emit("tp", part="fleet", replicas=2, tp_degree=TP, spec=TP_FLEET_SPEC,
+         losses=lossy.losses, rerouted=lossy.rerouted,
+         streams_equal_loss_free=lossy_out == clean_out,
+         first_differences=[first_difference(a, b) for a, b in
+                            zip(lossy_out, clean_out)], seconds=lossy_s,
+         seconds_loss_free=clean_s, peak_mem_gb=lossy_peak / 1e9,
+         peak_mem_gb_loss_free=clean_peak / 1e9)
+    del lossy
+    torch.cuda.empty_cache()
+    emit("tp", run="phase", seconds=time.perf_counter() - t_phase,
+         launches=total)
+    return total
+
+
+def run_tp_parity(model):
+    """tp_parity: the parity phase's 2-layer fp32 model through
+    ServingEngine(tp_degree=TP) on the card and on a CPU copy (the plain
+    versions), and at tp = 1 on the card: three streams equal token for
+    token; a TP fleet through one replica loss equal to them."""
+    from paddle_tpu_torch.generation.serving import ServingEngine
+    lens = PARITY_LENS[:3]
+    ps = prompts(model.config.vocab_size, lens)
+    cpu = copy.deepcopy(model).to("cpu")
+
+    def streams(m, tp):
+        eng = ServingEngine(m, max_batch=BATCH, page_size=PAGE,
+                            max_seq_len=MAX_SEQ, tp_degree=tp,
+                            record_logits=True)
+        rids = [eng.submit(p, PARITY_NEW_TOKENS) for p in ps]
+        out = eng.run()
+        return eng, [(r, p, out[r]) for r, p in zip(rids, ps)]
+
+    card, rc = streams(model, TP)
+    host, rh = streams(cpu, TP)
+    one, r1 = streams(model, 1)
+    for what, (eng, res) in (("cpu", (host, rh)), ("tp=1", (one, r1))):
+        diffs = stream_differences(rc, res, card, eng)
+        require(not diffs, f"tp_parity: the card at tp={TP} vs {what}: "
+                f"{diffs}")
+    # a TP fleet through one replica loss: the engine's streams
+    from paddle_tpu_torch.generation.fleet import FleetRouter
+    from paddle_tpu_torch.testing import faults
+    fleet = FleetRouter(model, replicas=2, tp_degree=TP, max_batch=BATCH,
+                        page_size=PAGE, max_seq_len=MAX_SEQ)
+    with faults.armed("router_dispatch:every=6:times=1"):
+        fleet._f_router = faults.site("router_dispatch")
+        rids = [fleet.submit(p, PARITY_NEW_TOKENS) for p in ps]
+        out = fleet.run()
+    require(fleet.losses == 1, f"tp_parity: {fleet.losses} fleet losses")
+    require([out[r] for r in rids] == [t for _, _, t in rc],
+            "tp_parity: the TP fleet through a loss differs from the "
+            "engine")
+    emit("tp_parity", model="llama2_7b width, 2 layers", dtype="fp32",
+         tp_degree=TP, prompt_lens=list(lens),
+         new_tokens=PARITY_NEW_TOKENS, streams_equal_cpu=True,
+         streams_equal_tp1=True, fleet_losses=fleet.losses,
+         fleet_streams_equal=True)
+    del cpu, card, host, one, fleet
+
+
 def run_generate_parity(model):
     """generate, generate_paged, generate_speculative (a 1-layer
     TinyLlama-shaped draft) and sampled top-k = 1 on the fp32 parity model,
@@ -4295,6 +4575,28 @@ def run_gpt(device):
              np.median(eng.decode_step_seconds)),
          graphs=len(graphs), captures_by_key=sorted(caps.values()),
          launches=counts, model_build_s=build_s, peak_mem_gb=peak / 1e9)
+    del eng
+    # the generic route at tp = TP: prefill, chunks and decode as at
+    # tp = 1 on the same pools, so the same streams bit for bit
+    eng, res_tp, seconds_tp, counts, peak_tp = serve(
+        model, True, NEW_TOKENS, GPT_LENS, want_fused=False, tp_degree=TP)
+    require([t for _, _, t in res_tp] == [t for _, _, t in res],
+            "gpt tp: the streams differ from tp = 1")
+    require(("tp", TP) in eng.decode_key.extra,
+            "gpt tp: the decode key carries no degree")
+    require_launches(counts, expected_launches(
+        counts, layers, len(eng.decode_step_seconds), whole, chunks, False,
+        1, "native", "native"), "gpt tp serve")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    emit("tp", model="gpt3_345m", layers=layers, dtype="bf16",
+         route="generic", tp_degree=TP, requests=len(res_tp),
+         streams_equal=True, seconds=seconds_tp,
+         tokens_per_s=gen_tokens / seconds_tp,
+         decode_step_ms_median=1e3 * float(
+             np.median(eng.decode_step_seconds)),
+         ttft_ms_median=1e3 * float(np.median(
+             list(eng.ttft_seconds.values()))),
+         peak_mem_gb=peak_tp / 1e9, launches=counts)
     del eng
     # generate (#1 a layer at the prefill; the one-token steps are the
     # dense composition)
@@ -5761,6 +6063,212 @@ def run_fit(device):
     return counts
 
 
+# -------------------------------------------------------------------- io
+IO_WORKERS, IO_ROUNDS, IO_RATE_ROWS = 4, 48, 64
+# each worker's site counts its own batches: with 8 batches over 4
+# workers, every=2 kills each worker at its second
+IO_FAULT_SPEC, IO_MAX_RESTARTS = "dataloader_worker:every=2", 8
+
+
+class TokenRows:
+    """A map-style dataset of ``n`` token rows whose __getitem__ runs a
+    GIL-bound pure-Python transform: IO_ROUNDS passes of a position-mixed
+    LCG over the row's TRAIN_SEQ + 1 seeded tokens (tens of ms a row);
+    returns (inputs, labels) int64 numpy rows."""
+
+    def __init__(self, vocab, n=FIT_ROWS):
+        rng = np.random.default_rng(SEED + 51)
+        self.vocab = vocab
+        self.base = rng.integers(0, vocab, (n, TRAIN_SEQ + 1)).tolist()
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        toks = self.base[i]
+        for r in range(IO_ROUNDS):
+            toks = [(t * 1103515245 + 12345 + j * r) % self.vocab
+                    for j, t in enumerate(toks)]
+        a = np.asarray(toks, np.int64)
+        return a[:-1], a[1:]
+
+
+class Tap:
+    """An iterable over ``loader`` that keeps a host copy of each batch."""
+
+    def __init__(self, loader):
+        self.loader, self.batches = loader, []
+
+    def __iter__(self):
+        for b in self.loader:
+            self.batches.append(tuple(t.clone() for t in b))
+            yield b
+
+
+def io_fit(device, choose):
+    """Model.fit over the loader ``choose(fit_recipe's loader factory)``
+    returns (tapped), on fit_recipe's model, one epoch, the loss read every
+    step. Returns (the loader, losses, the batches' inputs, fit step ms on
+    the card's clock from step 1, a bare TrainStep's step ms over the same
+    batches staged on the card, launch counts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.hapi import Model, TrainStep
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    _, model, opt, crit, factory = fit_recipe(device, FIT_LAYERS, SEED + 41)
+    loader = choose(factory)
+
+    class Record(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.events = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs.get("loss"))
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.on_train_batch_begin(None)
+
+    rec, tap = Record(), Tap(loader)
+    fitted = Model(model)
+    fitted.prepare(opt, loss=crit)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    fitted.fit(tap, epochs=1, metrics_every=1, verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = len(rec.losses)
+    fit_ms = rec.events[1].elapsed_time(rec.events[-1]) / (steps - 1)
+    batches = [tuple(t.to(device) for t in b) for b in tap.batches]
+    loop = TrainStep(model, opt, loss_fn=crit)
+    loop(*batches[0])
+    loop.sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for b in batches[1:]:
+        loop(*b)
+    loop.sync()
+    end.record()
+    end.synchronize()
+    bare_ms = start.elapsed_time(end) / (steps - 1)
+    del model, opt, fitted, loop, batches
+    torch.cuda.empty_cache()
+    return (loader, rec.losses, [b[0] for b in tap.batches], fit_ms, bare_ms,
+            counts)
+
+
+def loader_rate(loader) -> dict:
+    """One epoch of ``loader`` alone: rows a second over the epoch, the
+    seconds to its first batch (worker start-up included), and rows a
+    second after the first batch."""
+    t0 = time.perf_counter()
+    n = first = 0
+    for b in loader:
+        n += len(b[0])
+        if not first:
+            first, t1 = n, time.perf_counter()
+    t2 = time.perf_counter()
+    return dict(samples_per_s=n / (t2 - t0), first_batch_s=t1 - t0,
+                steady_samples_per_s=(n - first) / (t2 - t1))
+
+
+def run_io(device) -> dict:
+    """The io phase at fit's model (7B width, FIT_LAYERS layers, amp O2):
+    Model.fit over fit_recipe's shuffled TensorDataset of token ids on the
+    native transport, its batches in native.shuffled_indices' order at
+    seed + 1; then TokenRows (a GIL-bound transform) under IO_WORKERS
+    thread workers and IO_WORKERS process workers (the same batches and
+    per-step losses), and the process run again under IO_FAULT_SPEC (every
+    batch once, in order; io_worker_restarts = the replaced workers, each
+    dead with the fault's exit code 3; the fault-free losses); the
+    transform alone under threads and processes (loader_rate); fit step ms
+    beside a bare TrainStep's over the same batches (the card's idle
+    share: 1 - bare / fit); exact flash launches. Returns the launch
+    counts of the fits."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.models import LlamaConfig
+    t_phase = time.perf_counter()
+    total: dict = {}
+    # the native transport: fit over fit_recipe's shuffled TensorDataset
+    dl, losses, inputs, fit_ms, bare_ms, counts = io_fit(
+        device, lambda factory: factory())
+    require(dl.transports == ["native"], f"io: transports {dl.transports}")
+    x = dl.dataset.tensors[0]
+    order = native.shuffled_indices(FIT_ROWS, dl.seed + 1)
+    require(torch.equal(torch.cat(inputs), x[order]),
+            "io: the batches are not in the native shuffle's order")
+    steps = FIT_ROWS // FIT_BATCH
+    for name in TRAIN_KERNELS:
+        require(counts[name] == FIT_LAYERS * steps,
+                f"io native: {name} ran {counts[name]} times")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    emit("io", transport="native", model="llama2_7b width",
+         layers=FIT_LAYERS, rows=FIT_ROWS, batch=FIT_BATCH, seq=TRAIN_SEQ,
+         steps=len(losses), losses=losses, order_is_native_shuffle=True,
+         step_ms=fit_ms, bare_trainstep_step_ms=bare_ms,
+         idle_share=1 - bare_ms / fit_ms, launches=counts)
+    vocab = LlamaConfig.llama2_7b().vocab_size
+    rows = TokenRows(vocab)
+
+    def workers_loader(processes, data=rows):
+        return DataLoader(data, batch_size=FIT_BATCH, shuffle=True,
+                          seed=SEED + 52, num_workers=IO_WORKERS,
+                          use_process_workers=processes)
+
+    rates = {name: loader_rate(workers_loader(proc, TokenRows(
+        vocab, IO_RATE_ROWS))) for name, proc in (("thread", False),
+                                                  ("process", True))}
+    runs = {}
+    for name, proc, spec in (("thread", False, ""), ("process", True, ""),
+                             ("process, faults", True, IO_FAULT_SPEC)):
+        before = counter_values("io_worker_restarts")
+        with faults.armed(spec,
+                          dataloader_max_worker_restarts=IO_MAX_RESTARTS):
+            runs[name] = io_fit(device,
+                                lambda _f, proc=proc: workers_loader(proc))
+        restarts = counter_delta(before, counter_values(
+            "io_worker_restarts")).get("io_worker_restarts", 0)
+        dl, losses, inputs, fit_ms, bare_ms, counts = runs[name]
+        require(dl.transports == [name.split(",")[0]],
+                f"io {name}: transports {dl.transports}")
+        for kname in TRAIN_KERNELS:
+            require(counts[kname] == FIT_LAYERS * steps,
+                    f"io {name}: {kname} ran {counts[kname]} times")
+        replaced = [e for e in dl.worker_exits if e[2]]
+        if spec:
+            require(replaced and all(e[1] == 3 for e in replaced),
+                    f"io {name}: replaced workers {dl.worker_exits}")
+            require(restarts == len(replaced), f"io {name}: "
+                    f"io_worker_restarts {restarts}, replaced "
+                    f"{len(replaced)}")
+        ref_losses, ref_inputs = runs["thread"][1:3]
+        require(len(inputs) == len(ref_inputs) and all(
+            torch.equal(a, b) for a, b in zip(inputs, ref_inputs)),
+            f"io {name}: the batches differ from the thread path's")
+        require(losses == ref_losses, f"io {name}: losses {losses}, the "
+                f"thread path's {ref_losses}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        emit("io", transport=name, workers=IO_WORKERS, dataset="TokenRows "
+             f"({IO_ROUNDS} pure-Python passes a row)", spec=spec,
+             steps=len(losses), losses=losses, batches_equal_thread=True,
+             losses_equal_thread=True, worker_deaths=sum(
+                 1 for e in dl.worker_exits if e[1] == 3),
+             io_worker_restarts=restarts, worker_exits=dl.worker_exits,
+             **rates[name.split(",")[0]], step_ms=fit_ms,
+             bare_trainstep_step_ms=bare_ms,
+             idle_share=1 - bare_ms / fit_ms, launches=counts)
+    emit("io", run="phase", seconds=time.perf_counter() - t_phase,
+         rate_rows=IO_RATE_ROWS, threads=rates["thread"],
+         processes=rates["process"], launches=total)
+    return total
+
+
 def counter_values(*names) -> dict:
     """The registry's current value of each series of ``names``."""
     from paddle_tpu_torch import observability as obs
@@ -7043,6 +7551,7 @@ def main() -> int:
     train_counts, train = run_train(device)
     remat_counts = run_train_remat(device, train)
     fit_counts = run_fit(device)
+    io_counts = run_io(device)
     fit_fault_counts = run_fit_faults(device)
     run_train_parity(device)
 
@@ -7069,7 +7578,8 @@ def main() -> int:
             by_path = dict(unet=launches, bert=bert_counts[name],
                            moe=moe_counts[name], train=train_counts[name],
                            train_remat=remat_counts[name],
-                           fit=fit_counts[name], with_lse=lse_counts[name],
+                           fit=fit_counts[name], io=io_counts[name],
+                           with_lse=lse_counts[name],
                            fit_faults=fit_fault_counts[name],
                            nan_check=nan_counts[name],
                            fused_layers=fused_counts[name])
@@ -7084,7 +7594,8 @@ def main() -> int:
             # the largest serving shape in bf16 (the spec, generation and
             # GPT rows are new shapes beside it)
             main_row = [r for r in rows if "spec" not in r
-                        and "generation" not in r and "gpt" not in r][-1]
+                        and "generation" not in r and "gpt" not in r
+                        and "tp" not in r][-1]
             # every serving phase, then generation and the handoff
             launches = counts[name]
             by_path = {path: c.get(name, 0)

@@ -4,8 +4,7 @@ and training slices read.
 
 There is no ``use_pallas`` counterpart: a kernel wrapper launches its CUDA
 kernel for a CUDA tensor and uses its plain PyTorch version only for a CPU
-tensor. Values the port cannot serve yet raise ``NotImplementedError``
-when read or set; values no version serves raise ``ValueError``.
+tensor. Values no version serves raise ``ValueError`` when read or set.
 """
 
 from __future__ import annotations
@@ -16,15 +15,6 @@ from typing import Any, Callable, Dict, List
 
 def _parse_bool(s: str) -> bool:
     return s.strip().lower() in ("1", "true", "yes", "on")
-
-
-def _only(flag: str, allowed, later: str) -> Callable[[Any], None]:
-    def check(value):
-        if value != allowed:
-            raise NotImplementedError(
-                f"FLAGS_{flag}={value!r} is not ported yet ({later}); this "
-                f"slice serves only {allowed!r}")
-    return check
 
 
 def _one_of(flag: str, *choices) -> Callable[[Any], None]:
@@ -55,8 +45,9 @@ _FLAGS: Dict[str, tuple] = {
     "serving_prefill_chunk": (256, _any),
     "serving_kv_dtype": ("native", _one_of("serving_kv_dtype", "native",
                                            "int8")),
-    "serving_tp_degree": (1, _only("serving_tp_degree", 1,
-                                   "tensor-parallel decode")),
+    # tensor-parallel decode: the shard count of an engine's fused decode
+    # chain (its kv heads must divide by it)
+    "serving_tp_degree": (1, _at_least_one("serving_tp_degree")),
     # the decode batch-bucket ladder: ','-separated rungs (rungs above an
     # engine's max_batch drop, max_batch is always the top rung); shrink
     # waits ``serving_bucket_patience`` steps of lower demand, growth is
@@ -128,6 +119,10 @@ _FLAGS: Dict[str, tuple] = {
     # FloatingPointError, >= 1 warns. Neither flag keys a program or a graph
     "check_nan_inf": (False, _any),
     "check_nan_inf_level": (0, _any),
+    # process DataLoader workers: restarts a worker may take after dying
+    # mid-epoch (the epoch's budget is this times num_workers); past it the
+    # epoch raises
+    "dataloader_max_worker_restarts": (2, _any),
 }
 
 # name -> callbacks run with the flag's new value after set_flags or

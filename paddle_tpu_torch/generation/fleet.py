@@ -48,8 +48,10 @@ Telemetry: ``fleet_requests_routed{replica,reason}``,
 ``fleet_replica_losses{replica}``, ``fleet_rerouted_requests`` and the
 ``fleet_replicas`` gauge, as in the JAX package.
 
-Not ported yet: tensor-parallel replicas (``tp_degree > 1`` raises through
-the engine).
+``tp_degree > 1`` (an engine keyword, like the others) makes every replica
+a tensor-parallel engine (each on the one device); replica loss, rebuild
+and re-route are untouched by it, and each replica's ``tp`` label keeps a
+mixed fleet's series apart.
 """
 
 from __future__ import annotations

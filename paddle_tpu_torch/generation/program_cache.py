@@ -17,7 +17,8 @@ on the key through the same probe: ``trace_count`` counts captures there.
 Telemetry, as in the JAX package: ``program_cache_hits`` and
 ``program_cache_misses`` count lookups, ``program_cache_traces{kind, model,
 tp}`` counts traces (``model`` is the signature's first 8 characters, ``tp``
-is always "1" here), and ``program_cache_compile_seconds`` times each: the
+the key's tensor-parallel degree: "1" unless the engine shards its decode),
+and ``program_cache_compile_seconds`` times each: the
 first call on the CPU, the eager warm-up plus the graph capture on the
 card. The ``program_build`` fault site is checked before every build (bound
 when the cache is made: :func:`clear_decode_program_cache` re-arms it).
@@ -46,7 +47,8 @@ from ..testing import faults
 
 __all__ = ["DecodeKey", "DecodeProgramCache", "decode_program_cache",
            "clear_decode_program_cache", "model_signature",
-           "TAG_KV", "TAG_WT", "TAG_NLAYER", "ATOM_FUSED", "ATOM_GENERIC",
+           "TAG_KV", "TAG_WT", "TAG_NLAYER", "TAG_TP", "ATOM_FUSED",
+           "ATOM_GENERIC",
            "ATOM_SAMPLE", "ATOM_GREEDY"]
 
 # heads of (tag, value) pairs inside DecodeKey.extra (the JAX package's
@@ -54,12 +56,23 @@ __all__ = ["DecodeKey", "DecodeProgramCache", "decode_program_cache",
 TAG_KV = "kv"            # ("kv", dtype): the paged-KV storage dtype
 TAG_WT = "wt"            # ("wt", dtype): the fused decode's weight dtype
 TAG_NLAYER = "nlayer"    # ("nlayer", (sizes...)): the fused layer groups
+TAG_TP = "tp"            # ("tp", n): the tensor-parallel degree, n > 1 only
 # bare atoms inside DecodeKey.extra: a speculative draft program's route
 # and the draft and verify programs' mode
 ATOM_FUSED = "fused"      # the draft scan runs the fused one-layer kernel
 ATOM_GENERIC = "generic"  # the draft scan runs the model's cached forward
 ATOM_SAMPLE = "sample"    # sampled (paired with top-k in the tuple)
 ATOM_GREEDY = "greedy"    # greedy
+
+
+def _key_tp(key) -> str:
+    """The ``tp`` label of a key's series: the degree its ``extra`` carries
+    as a ``("tp", n)`` pair (only when n > 1, so every tp = 1 key stays as
+    it was), else "1"."""
+    for item in key.extra:
+        if isinstance(item, tuple) and len(item) == 2 and item[0] == TAG_TP:
+            return str(item[1])
+    return "1"
 
 
 class DecodeKey(NamedTuple):
@@ -124,7 +137,7 @@ class DecodeProgramCache:
                 "traces of cached programs: the first call on the CPU, "
                 "each CUDA-graph capture on the card (steady state: one "
                 "per key and engine); model = signature prefix; tp = "
-                "tensor-parallel degree (\"1\": not ported)",
+                "tensor-parallel degree from the key",
                 labels=("kind", "model", "tp"))
             self._m_compile = r.histogram(
                 "program_cache_compile_seconds",
@@ -163,7 +176,8 @@ class DecodeProgramCache:
             return cur
 
     def _tracer(self, key: DecodeKey) -> Callable:
-        labels = dict(kind=key.kind, model=key.model_sig[:8], tp="1")
+        labels = dict(kind=key.kind, model=key.model_sig[:8],
+                      tp=_key_tp(key))
         traces = self._m_traces.labels(**labels)
         compile_s = self._m_compile.labels(**labels)
         memwatch = self._memwatch

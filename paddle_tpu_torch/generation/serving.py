@@ -127,11 +127,29 @@ packs the N-layer route's stacked matrices as int4 tiles. Prefill and
 chunks keep the native per-layer weights, and with N = 1 int4 changes
 nothing, as in the JAX package.
 
-Left for a later slice, and refused with ``NotImplementedError``:
-tensor-parallel decode. Sampling needs a speculative engine, as in the JAX
-package: without a draft model ``submit(temperature > 0)`` raises its
-``ValueError``. A page-pool shortfall at admission backs the request off
-to the queue, as in the JAX package.
+``tp_degree > 1`` (``FLAGS_serving_tp_degree``) is tensor-parallel decode:
+every fused arm (N = 1 as one-layer groups) runs one step over the layer
+groups' weights stacked, permuted into the Megatron shard layout and cut
+into the shards' stacks once per engine, each shard at its local head
+counts on its kv-head partition of the same pools (contiguous views:
+:func:`~..kernels.paged_attention.shard_pool`), with two reductions a layer
+(:func:`~..kernels.fused_block_decode.fused_multi_block_decode_tp`; the
+decode attention kernel runs layers x tp times a step, no fused block
+kernel). The step is a CUDA graph per rung on the card, as at tp = 1.
+Every shard lives on the engine's one device, where the JAX engine places
+them on ``tp`` devices (and refuses fewer); multi-card placement comes
+with the distributed runtime. Prefill, chunks, the generic route and
+speculation run as at tp = 1 on the same pools (the reference leaves them
+to GSPMD, with the same math); every key carries ``("tp", n)``, every
+series the ``tp`` label, and each sharded decode dispatch is observed in
+``serving_collective_seconds``. The degree must divide the kv-head count,
+and int4 weights are refused (their tiles do not commute with the shard
+permutation), as in the JAX package.
+
+Sampling needs a speculative engine, as in the JAX package: without a
+draft model ``submit(temperature > 0)`` raises its ``ValueError``. A
+page-pool shortfall at admission backs the request off to the queue, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -152,12 +170,16 @@ from ..kernels.fused_block_decode import (BlockDecodeWeights,
                                           MultiBlockDecodeWeights, _rms,
                                           fused_block_decode,
                                           fused_multi_block_decode,
+                                          fused_multi_block_decode_tp,
+                                          shard_block_weights,
+                                          split_block_shards,
                                           stack_block_weights)
 from ..kernels.paged_attention import (PagedChunkState, PagedDecodeState,
-                                       PagedKVCache, QuantizedPages)
+                                       PagedKVCache, QuantizedPages,
+                                       shard_pool)
 from ..testing import faults
 from .program_cache import (ATOM_FUSED, ATOM_GENERIC, ATOM_GREEDY,
-                            ATOM_SAMPLE, TAG_KV, TAG_NLAYER, TAG_WT,
+                            ATOM_SAMPLE, TAG_KV, TAG_NLAYER, TAG_TP, TAG_WT,
                             DecodeKey, decode_program_cache, model_signature)
 from .sampling import _spec_filtered_probs, race_sample
 
@@ -241,8 +263,8 @@ class _EngineTelemetry:
     registry lookup and no flag read per token. The JAX engine's families
     under the same names, help strings and labels: every family carries
     ``replica`` (the engine's id: two engines in one process keep apart)
-    and ``tp`` (the tensor-parallel degree, "1" here). The tensor-parallel
-    family is registered, and nothing of this port writes it yet."""
+    and ``tp`` (the engine's tensor-parallel degree); only a tp > 1
+    engine writes ``serving_collective_seconds``."""
 
     enabled = True
 
@@ -377,7 +399,7 @@ class _EngineTelemetry:
             "round: per-request adaptive within the "
             "FLAGS_serving_spec_rungs set, capped down as batch "
             "occupancy prices speculation out")
-        # ---- tensor-parallel decode (not ported yet)
+        # ---- tensor-parallel decode
         self.collective_s = h(
             "serving_collective_seconds",
             "wall clock of one tensor-parallel sharded decode dispatch "
@@ -551,6 +573,30 @@ def _fused_nlayer_step(spec, weights, toks, pools, bt, sl):
             rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
         pairs.extend(zip(kps, vps))
     return _head(x, spec, p), pairs
+
+
+@torch.inference_mode()
+def _fused_tp_step(spec, tp, weights, toks, pools, bt, sl):
+    """The tensor-parallel fused step: embedding lookup, then each layer
+    group through :func:`fused_multi_block_decode_tp` over its shards'
+    stacks (``weights`` = (parameters, each group's shards)), each shard
+    on its kv-head partition of the pools (views: the pools are updated in
+    place and returned as given), then the final norm and LM head on the
+    replicated residual. Every fused arm runs here at tp > 1, N = 1
+    included (one-layer groups)."""
+    p, shards = weights
+    x = p[spec["embed"]][toks[:, 0]]
+    for group, gshards in zip(spec["layer_groups"], shards):
+        x, _, _ = fused_multi_block_decode_tp(
+            x, gshards,
+            [[shard_pool(pools[i][0], s, tp) for i in group]
+             for s in range(tp)],
+            [[shard_pool(pools[i][1], s, tp) for i in group]
+             for s in range(tp)], bt, sl,
+            num_heads=spec["num_heads"] // tp,
+            num_kv_heads=spec["num_kv_heads"] // tp,
+            rope_theta=spec["rope_theta"], epsilon=spec["epsilon"])
+    return _head(x, spec, p), list(pools)
 
 
 @torch.inference_mode()
@@ -1252,12 +1298,18 @@ class ServingEngine:
         if self.weight_dtype not in ("native", "int4"):
             raise ValueError(f"weight_dtype must be 'native' or 'int4', "
                              f"got {self.weight_dtype!r}")
-        tp = (_flags.get_flag("serving_tp_degree") if tp_degree is None
-              else int(tp_degree))
-        if tp > 1:
-            raise _later("tensor-parallel decode (tp_degree > 1)")
-        if tp < 1:
-            raise ValueError(f"tp_degree must be >= 1, got {tp}")
+        # tensor-parallel decode: the fused chain's shard count (engine
+        # identity like the dtypes: it reaches programs through the key)
+        self.tp_degree = int(_flags.get_flag("serving_tp_degree")
+                             if tp_degree is None else tp_degree)
+        if self.tp_degree < 1:
+            raise ValueError(
+                f"tp_degree must be >= 1, got {self.tp_degree}")
+        if self.tp_degree > 1 and self.weight_dtype == "int4":
+            raise ValueError(
+                "tp_degree > 1 with weight_dtype='int4' is not supported: "
+                "Int4Tiles nibble packing does not commute with the "
+                "head-shard permutation")
         self.chunk = int(_flags.get_flag("serving_prefill_chunk")
                          if prefill_chunk is None else prefill_chunk)
         if self.chunk < 0:
@@ -1293,6 +1345,11 @@ class ServingEngine:
         self.record_logits = bool(record_logits)
         self.device = model.device
         spec = model.cache_spec()
+        if spec[0][0] % self.tp_degree:
+            raise ValueError(
+                f"tp_degree={self.tp_degree} must divide the model's "
+                f"kv-head count ({spec[0][0]}) so the paged pool "
+                "partitions evenly over kv-heads")
         if num_pages is None:
             # FLAGS_serving_page_budget usable pages (+1: the null page),
             # or the worst case
@@ -1339,10 +1396,20 @@ class ServingEngine:
         self._model_sig = model_signature(model)
         self._params = dict(model.named_parameters())
         self._spec = self._fused_spec()
-        # the N-layer route's stacked weights, one group each, built once
-        self._stacked = (self._stacked_weights(self._spec)
-                         if self._spec and "layer_groups" in self._spec
-                         else None)
+        if self._spec and self.tp_degree > 1 \
+                and "layer_groups" not in self._spec:
+            # at tp > 1 every fused arm runs the stacked tensor-parallel
+            # chain: N = 1 is one-layer groups
+            self._spec = dict(self._spec, layer_groups=[
+                [i] for i in range(len(self._spec["layers"]))])
+        # the N-layer route's stacked weights, one group each, built once;
+        # at tp > 1 each group's shards' stacks instead
+        self._stacked = self._tp_shards = None
+        if self._spec and "layer_groups" in self._spec:
+            if self.tp_degree > 1:
+                self._tp_shards = self._shard_weights(self._spec)
+            else:
+                self._stacked = self._stacked_weights(self._spec)
         # speculative decoding: the draft's own pool, in slot lockstep
         # with the target's (its seq_lens row is the draft's cursor)
         self.draft_model = draft_model
@@ -1385,8 +1452,9 @@ class ServingEngine:
         self.prefill_seconds: List[float] = []
         self.ttft_seconds: Dict[int, float] = {}
         # telemetry, bound once (no-op stubs with FLAGS_telemetry off)
-        self._m = (_EngineTelemetry(self.replica, "1") if obs.enabled()
-                   else _NullEngineTelemetry(self.replica, "1"))
+        tp = str(self.tp_degree)
+        self._m = (_EngineTelemetry(self.replica, tp) if obs.enabled()
+                   else _NullEngineTelemetry(self.replica, tp))
         # the pool ledger's fragmentation, recomputed only when the free
         # list's epoch moved
         self._pool_frag_epoch = -1
@@ -1639,7 +1707,7 @@ class ServingEngine:
         self._chunk_fn = None
         if self.draft_model is not None:
             self._spec_fns.clear()
-        self._stacked = None
+        self._stacked = self._tp_shards = None
         self._prefix = None
         for pool in (self.pool, self._draft_pool):
             if pool is not None:
@@ -1774,6 +1842,10 @@ class ServingEngine:
              extra: Tuple = ()) -> DecodeKey:
         extra = tuple(extra) + ((TAG_KV, self.kv_dtype),
                                 (TAG_WT, self.weight_dtype))
+        # the degree rides the key only when armed: every tp = 1 key stays
+        # as it was
+        if self.tp_degree > 1:
+            extra = extra + ((TAG_TP, self.tp_degree),)
         return DecodeKey(
             kind=kind, model_sig=self._model_sig,
             batch_bucket=self.max_batch if bucket is None else bucket,
@@ -1813,20 +1885,38 @@ class ServingEngine:
             return None
         return spec
 
+    def _group_stack(self, spec, group, weight_dtype: str = "native"
+                     ) -> MultiBlockDecodeWeights:
+        """One layer group's weights stacked (q|k|v and gate|up merged;
+        int4 tiles under ``weight_dtype="int4"``): a device copy of those
+        decoder layers' weights; the per-layer originals keep serving
+        prefill."""
+        p = self._params
+        return stack_block_weights([
+            BlockDecodeWeights(**{f: p[n] for f, n in
+                                  spec["layers"][i].items()})
+            for i in group], weight_dtype=weight_dtype)
+
     @torch.no_grad()
     def _stacked_weights(self, spec) -> Tuple[MultiBlockDecodeWeights, ...]:
-        """Each layer group's weights stacked into one
-        ``MultiBlockDecodeWeights`` (q|k|v and gate|up merged; int4 tiles
-        under ``weight_dtype="int4"``): a device copy of the decoder
-        layers' weights, made once per engine; the per-layer originals
-        keep serving prefill."""
-        p = self._params
+        """Each layer group's stack, made once per engine."""
+        return tuple(self._group_stack(spec, g, self.weight_dtype)
+                     for g in spec["layer_groups"])
+
+    @torch.no_grad()
+    def _shard_weights(self, spec) -> Tuple[Tuple[
+            MultiBlockDecodeWeights, ...], ...]:
+        """Each layer group's stack permuted into the Megatron shard layout
+        (:func:`shard_block_weights`) and cut into the shards' own stacks
+        (:func:`split_block_shards`), made once per engine, one group at a
+        time (the group's stacked and permuted copies are dropped before
+        the next)."""
         return tuple(
-            stack_block_weights([
-                BlockDecodeWeights(**{f: p[n] for f, n in
-                                      spec["layers"][i].items()})
-                for i in group], weight_dtype=self.weight_dtype)
-            for group in spec["layer_groups"])
+            split_block_shards(shard_block_weights(
+                self._group_stack(spec, g), self.tp_degree,
+                num_heads=spec["num_heads"],
+                num_kv_heads=spec["num_kv_heads"]), self.tp_degree)
+            for g in spec["layer_groups"])
 
     def _decode_program(self, bucket: int) -> _EagerDecode:
         """The decode step of one bucket rung: the cached program of its
@@ -1835,7 +1925,19 @@ class ServingEngine:
         fn = self._decode_fns.get(bucket)
         if fn is None:
             spec = self._spec
-            if self._stacked is not None:
+            groups = spec.get("layer_groups") if spec else None
+            if self._tp_shards is not None:
+                # every fused arm at tp > 1: all-singleton groups key as
+                # decode_fused (the ("tp", n) pair sets it apart)
+                if any(len(g) > 1 for g in groups):
+                    key = self._key("decode_fused_nlayer", bucket, extra=(
+                        TAG_NLAYER, tuple(len(g) for g in groups)))
+                else:
+                    key = self._key("decode_fused", bucket)
+                step = functools.partial(_fused_tp_step, spec,
+                                         self.tp_degree)
+                weights = (self._params, self._tp_shards)
+            elif self._stacked is not None:
                 key = self._key("decode_fused_nlayer", bucket, extra=(
                     TAG_NLAYER,
                     tuple(len(g) for g in spec["layer_groups"])))
@@ -2875,6 +2977,10 @@ class ServingEngine:
         self.decode_step_seconds.append(now - t0)
         self._m.event("engine.decode_step", t0, now,
                       active=len(decode_rows))
+        if self.tp_degree > 1:
+            # the sharded step's envelope (compute and the reductions),
+            # observed at the dispatch boundary, outside any graph
+            self._observe_collective(now - t0)
         for slot, req in enumerate(self._slots):
             if req is None or req.prefill_pos is not None:
                 # an idle row wrote the null page, a mid-prefill row its
@@ -3033,6 +3139,11 @@ class ServingEngine:
             self._m.prefill_chunk_s.observe(dt)
             if final:
                 self._m.prefills.inc()
+
+    def _observe_collective(self, dt: float) -> None:
+        """One tensor-parallel decode dispatch retired (tp > 1 only)."""
+        if self._m.enabled:
+            self._m.collective_s.observe(dt)
 
     def _observe_stall(self, dt: float) -> None:
         """Scheduler and prefill work ran while decode-ready requests

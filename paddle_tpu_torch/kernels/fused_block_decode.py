@@ -2,8 +2,9 @@
 stacked layers, decoded per call.
 
 Counterpart of ``paddle_tpu/kernels/fused_block_decode.py`` (native or
-int8 pools, native or int4 stacked weights; the tensor-parallel entries
-are a later slice).
+int8 pools, native or int4 stacked weights, and the tensor-parallel
+entries :func:`shard_block_weights` and
+:func:`fused_multi_block_decode_tp`).
 :func:`fused_block_decode` runs rms -> q/k/v -> RoPE at each slot's
 position -> the append of the new token's k/v to the pool -> paged
 attention over ``seq_lens + 1`` -> o-proj + residual -> rms -> SwiGLU ->
@@ -22,6 +23,16 @@ kernel's GEMVs. On an int8 pool (:class:`QuantizedPages`) both kernels
 quantize the new token's k/v row in the kernel, append payload and scale
 to the pool and attend to its dequantized value.
 
+Tensor parallelism: :func:`shard_block_weights` permutes a stacked group
+into the Megatron shard layout and :func:`split_block_shards` cuts it into
+the shards' own stacks; :func:`fused_multi_block_decode_tp` runs the
+shards' chains in lockstep, each at its local head counts with its
+kv-head partition of the pools, through
+:func:`~.paged_attention.paged_attention` (the decode attention kernel)
+and ``torch.matmul``, and two reductions a layer (the row-parallel exits
+of ``wo`` and ``wd``). As in the reference, whose chain is XLA ops, no
+fused kernel runs there.
+
 Weights keep the JAX package's ``(in, out)`` Linear layout, so a layer's
 :class:`BlockDecodeWeights` carry across unchanged.
 """
@@ -37,13 +48,15 @@ import torch.nn.functional as F
 
 from . import _build
 from .paged_attention import (_MAX_HEAD_DIM, _check_index, _check_pools,
-                              _pool_ptrs, decode_split_plan,
+                              _pool_ptrs, decode_split_plan, paged_attention,
                               paged_attention_ref, write_paged_kv)
 
 __all__ = ["BlockDecodeWeights", "Int4Tiles", "MultiBlockDecodeWeights",
            "fused_block_decode", "fused_block_decode_ref",
            "fused_multi_block_decode", "fused_multi_block_decode_ref",
-           "pack_int4_tiles", "stack_block_weights", "unpack_int4_tiles"]
+           "fused_multi_block_decode_tp", "pack_int4_tiles",
+           "shard_block_weights", "split_block_shards",
+           "stack_block_weights", "unpack_int4_tiles"]
 
 
 class BlockDecodeWeights(NamedTuple):
@@ -579,3 +592,136 @@ def fused_multi_block_decode(x, weights: MultiBlockDecodeWeights, k_pages,
 
 
 _build.counters(fused_multi_block_decode, "", "int8", "int4", "int8_int4")
+
+
+# ------------------------------------------------------ tensor parallel
+def shard_block_weights(weights: MultiBlockDecodeWeights, tp: int, *,
+                        num_heads: int, num_kv_heads: int
+                        ) -> MultiBlockDecodeWeights:
+    """Permute a stacked group into the tensor-parallel (Megatron) shard
+    layout: each of the ``tp`` shards owns a contiguous slice of heads and
+    of the FFN intermediate, so an even split of the last axis of
+    wqkv/wgu (and of the middle axis of wo/wd) hands every shard its own
+    merged q|k|v and gate|up blocks. The merged matrices concatenate
+    q|k|v (and gate|up) on columns, so the columns are reordered shard
+    by shard, once, on the host side:
+
+      wqkv  [q | k | v]        ->  [q_0|k_0|v_0 | q_1|k_1|v_1 | ...]
+      wgu   [gate | up]        ->  [g_0|u_0 | g_1|u_1 | ...]
+
+    wo (rows nh*d, head-major) and wd (rows I) are already shard-contiguous
+    on their contraction axis, and the norms replicate. :class:`Int4Tiles`
+    stacks are refused: the nibble row pairing and per-tile scales do not
+    commute with the column permutation. A copy of the reference's
+    function, bit for bit on the same stack."""
+    if tp <= 1:
+        return weights
+    for name in ("wqkv", "wo", "wgu", "wd"):
+        if isinstance(getattr(weights, name), Int4Tiles):
+            raise ValueError(
+                "shard_block_weights: int4-packed stacks cannot be "
+                "resharded (pack after sharding instead); got Int4Tiles "
+                f"for {name}")
+    d = weights.wqkv.shape[2] // (num_heads + 2 * num_kv_heads)
+    inter = weights.wd.shape[1]
+    if num_heads % tp or num_kv_heads % tp or inter % tp:
+        raise ValueError(
+            f"shard_block_weights: heads/kv-heads/intermediate "
+            f"({num_heads}/{num_kv_heads}/{inter}) must all divide "
+            f"tp={tp}")
+    qw = num_heads * d
+    kvw = num_kv_heads * d
+    cols = torch.arange(qw + 2 * kvw)
+    q_cols = cols[:qw].reshape(tp, -1)
+    k_cols = cols[qw:qw + kvw].reshape(tp, -1)
+    v_cols = cols[qw + kvw:].reshape(tp, -1)
+    qkv_perm = torch.cat([torch.cat([q_cols[s], k_cols[s], v_cols[s]])
+                          for s in range(tp)])
+    gu_cols = torch.arange(2 * inter)
+    g_cols = gu_cols[:inter].reshape(tp, -1)
+    u_cols = gu_cols[inter:].reshape(tp, -1)
+    gu_perm = torch.cat([torch.cat([g_cols[s], u_cols[s]])
+                         for s in range(tp)])
+    dev = weights.wqkv.device
+    return MultiBlockDecodeWeights(
+        ln1=weights.ln1,
+        wqkv=weights.wqkv[:, :, qkv_perm.to(dev)],
+        wo=weights.wo,
+        ln2=weights.ln2,
+        wgu=weights.wgu[:, :, gu_perm.to(dev)],
+        wd=weights.wd)
+
+
+def split_block_shards(weights: MultiBlockDecodeWeights, tp: int
+                       ) -> Tuple[MultiBlockDecodeWeights, ...]:
+    """The ``tp`` shards' own stacks of a :func:`shard_block_weights`
+    group: an even split of the last axis of wqkv/wgu and of the middle
+    axis of wo/wd (contiguous copies), the norms shared."""
+    def cut(t, dim):
+        return [c.contiguous() for c in t.chunk(tp, dim=dim)]
+    qkv, gu = cut(weights.wqkv, 2), cut(weights.wgu, 2)
+    wo, wd = cut(weights.wo, 1), cut(weights.wd, 1)
+    return tuple(MultiBlockDecodeWeights(
+        ln1=weights.ln1, wqkv=qkv[s], wo=wo[s], ln2=weights.ln2,
+        wgu=gu[s], wd=wd[s]) for s in range(tp))
+
+
+def fused_multi_block_decode_tp(x, shards: Sequence[MultiBlockDecodeWeights],
+                                k_pages, v_pages, block_tables, seq_lens, *,
+                                num_heads: int, num_kv_heads: int,
+                                rope_theta: float = 10000.0,
+                                epsilon: float = 1e-6,
+                                sm_scale: Optional[float] = None):
+    """One decode step of a layer group, tensor-parallel over
+    ``len(shards)`` shards on x's device.
+
+    ``shards``: each shard's stack (:func:`split_block_shards`);
+    ``num_heads`` / ``num_kv_heads``: the LOCAL (per-shard) head counts;
+    ``k_pages[s]`` / ``v_pages[s]``: shard ``s``'s per-layer pools, its
+    kv-head partition (:func:`~.paged_attention.shard_pool`), updated in
+    place. Per layer and shard it is the chain of
+    :func:`fused_multi_block_decode_ref` in x's dtype: rms, the local
+    q|k|v product, RoPE, the append (:func:`write_paged_kv`), the decode
+    attention kernel (:func:`paged_attention`) over ``seq_lens + 1``;
+    the two row-parallel exits (``wo``, ``wd``) each end in one
+    ``_mp_allreduce`` over the shards, so the residual ``x`` stays
+    replicated. The reference's ``fused_multi_block_decode_tp`` with its
+    ``psum`` pair. Returns ``(out, k_pages, v_pages)``."""
+    from ..distributed.fleet.layers.mpu.mp_ops import _mp_allreduce
+
+    tp = len(shards)
+    n = shards[0].n_layers
+    if len(k_pages) != tp or len(v_pages) != tp:
+        raise ValueError(f"expected {tp} shards' pools, got "
+                         f"{len(k_pages)}/{len(v_pages)}")
+    if any(len(kp) != n or len(vp) != n for kp, vp in zip(k_pages, v_pages)):
+        raise ValueError(f"expected {n} per-layer pools a shard")
+    b, _ = x.shape
+    nh, nkv = num_heads, num_kv_heads
+    d = shards[0].wqkv.shape[2] // (nh + 2 * nkv)
+    qw, kvw = nh * d, nkv * d
+    inter = shards[0].wd.shape[1]
+    sin, cos = _rope_tables(seq_lens, d, rope_theta)
+    lens = seq_lens + 1
+    for i in range(n):
+        h = _rms(x, shards[0].ln1[i], epsilon)
+        parts = []
+        for s, w in enumerate(shards):
+            qkv = h @ w.wqkv[i]
+            q = _rope_heads(qkv[:, :qw].reshape(b, nh, d), sin, cos)
+            k = _rope_heads(qkv[:, qw:qw + kvw].reshape(b, nkv, d), sin, cos)
+            v = qkv[:, qw + kvw:].reshape(b, nkv, d)
+            write_paged_kv(k_pages[s][i], v_pages[s][i], k, v, block_tables,
+                           seq_lens)
+            attn = paged_attention(q.contiguous(), k_pages[s][i],
+                                   v_pages[s][i], block_tables, lens,
+                                   sm_scale)
+            parts.append(attn.reshape(b, qw) @ w.wo[i])
+        x2 = x + _mp_allreduce(parts)[0]
+        h2 = _rms(x2, shards[0].ln2[i], epsilon)
+        parts = []
+        for w in shards:
+            gu = h2 @ w.wgu[i]
+            parts.append((F.silu(gu[:, :inter]) * gu[:, inter:]) @ w.wd[i])
+        x = x2 + _mp_allreduce(parts)[0]
+    return x, k_pages, v_pages

@@ -66,6 +66,21 @@ class QuantizedPages(NamedTuple):
         return self.q.device
 
 
+def shard_pool(pages, shard: int, tp: int):
+    """Shard ``shard`` of ``tp``'s partition of a pool half over its kv
+    heads: the contiguous view ``pages[shard*Hkv/tp:(shard+1)*Hkv/tp]``
+    (payload and scale band together for :class:`QuantizedPages`). A view:
+    writes through it land in the pool, and a kernel takes its pointer as
+    is (a leading-axis slice of a contiguous tensor is contiguous)."""
+    hkv = pages.shape[0]
+    if hkv % tp:
+        raise ValueError(f"{hkv} kv heads do not split over tp={tp}")
+    lo, hi = shard * hkv // tp, (shard + 1) * hkv // tp
+    if isinstance(pages, QuantizedPages):
+        return QuantizedPages(pages.q[lo:hi], pages.scale[lo:hi])
+    return pages[lo:hi]
+
+
 def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization over the trailing (head_dim)
     axis: returns ``(q, scale)`` with ``q.float() * scale`` the dequantized

@@ -568,8 +568,9 @@ def estimate_engine_memory(dims: ModelDims, *,
     (``host_tier``, never summed into the device total). ``draft_dims``
     prices speculative decoding: the draft's weights, its worst-case pool
     and the verify's workspace. ``tp`` prices one shard of a
-    tensor-parallel engine (the port serves ``tp = 1`` only: the terms are
-    the JAX package's arithmetic) and refuses, as that engine does, a
+    tensor-parallel engine (the JAX package's arithmetic, a shard a
+    device; the port's tp > 1 engine keeps every shard on its one device)
+    and refuses, as that engine does, a
     degree that does not divide heads, kv heads and the MLP width, or int4
     weights under ``tp > 1``."""
     n_params = param_count or dims.param_count

@@ -46,9 +46,12 @@ Sites (KNOWN_SITES; an unknown site in the spec is a construction-time
                         window changes
     checkpoint_save     framework.save, before anything touches the disk
                         (process-shared: checked through :func:`check`)
-
-``dataloader_worker`` names the JAX package's worker-process loader, not
-ported yet: a spec may name it, and nothing here checks it.
+    dataloader_worker   DataLoader process worker, before each batch (ctx
+                        batch=index): a fire flushes the result queue and
+                        exits the worker (``os._exit(3)``), the death the
+                        loader's restarts recover from; each worker binds
+                        its own site, so ``every=N`` counts a worker's
+                        batches
 
 Binding: call :func:`site` at construction time and keep the handle. With
 ``FLAGS_fault_inject`` unset (the default) :func:`site` returns the shared

@@ -113,8 +113,7 @@ def _jfit(save_dir, loss=None, **kw):
     x, y = _data()
     paddle.seed(5)
     loader = jio.DataLoader(jio.TensorDataset([x, y]), batch_size=4,
-                            shuffle=True, use_shared_memory=False,
-                            use_buffer_reader=False)
+                            shuffle=True, use_buffer_reader=False)
     m.fit(loader, save_dir=save_dir, **{**FIT, **kw})
     return jmodel
 

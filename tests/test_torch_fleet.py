@@ -164,8 +164,26 @@ def test_refusals(models):
         FleetRouter(model, replicas=2, policy="hash")
     with pytest.raises(ValueError, match="replica"):
         FleetRouter(model, replicas=0)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        FleetRouter(model, replicas=2, tp_degree=2, **KW)
+    with pytest.raises(ValueError, match="tp_degree"):
+        FleetRouter(model, replicas=2, tp_degree=0, **KW)
+
+
+def test_tensor_parallel_replicas_match_jax(models):
+    """``tp_degree=2`` makes every replica a tensor-parallel engine (the
+    port's on one device, JAX's over two host devices): placements,
+    streams and counters as the JAX fleet's, and each replica's series
+    under tp "2"."""
+    def drive(fleet):
+        rids = [fleet.submit(p, 3) for p in org_prompts(2, 2, 16, 2, seed=8)]
+        out = fleet.run()
+        return [out[r] for r in rids]
+
+    res, fleets, incs = twins(models, drive, replicas=2, tp_degree=2)
+    assert res[1] == res[0]
+    assert fleets[1].placements == fleets[0].placements
+    assert incs[1] == incs[0]
+    assert [(e.replica, e.tp_degree) for e in fleets[1].engines] == [
+        ("0", 2), ("1", 2)]
 
 
 def test_streaming_callback_carries_the_fleet_rid(models):

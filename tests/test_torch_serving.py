@@ -5,8 +5,8 @@ port) with the same staggered admission: two requests up front, more
 submitted while the first decode, and a batch of two slots so later
 requests wait for freed slots and recycle freed pages. The greedy token
 streams must be identical, with fused block decode and with the generic
-decode. Every option the port does not serve yet raises
-``NotImplementedError`` (sampling the JAX engine's ``ValueError``: it needs
+decode, at tp = 1 and tensor-parallel at tp = 2. Every option the port
+does not serve yet raises ``NotImplementedError`` (sampling the JAX engine's ``ValueError``: it needs
 a speculative engine); the quantized options (int8 KV pool, int4
 weights) are taken, and a value no version serves raises ``ValueError``. (Chunked prefill and N-layer decode have their
 own files, ``test_torch_chunk_prefill.py`` and
@@ -110,7 +110,6 @@ def test_eos_stops_a_request(models):
 
 @pytest.mark.parametrize("kwargs,what", [
     (dict(draft_model=object()), "draft_model"),
-    (dict(tp_degree=2), "tensor-parallel"),
 ])
 def test_unported_engine_options_raise(models, kwargs, what):
     _, model = models
@@ -170,11 +169,36 @@ def test_prompt_longer_than_prefill_chunk_raises(models):
     assert len(eng.run()[rid]) == 2 and eng.chunk_dispatches == 0
 
 
-@pytest.mark.parametrize("flag,value", [("serving_tp_degree", 2)])
-def test_unported_flag_values_raise(flag, value):
-    with pytest.raises(NotImplementedError):
-        tflags.set_flags({flag: value})
-    assert tflags.get_flag(flag) != value
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "generic"])
+def test_tensor_parallel_engine_matches_jax(models, fused):
+    """``tp_degree=2`` (the port's shards on one device, JAX's on two host
+    devices): the staggered streams equal the JAX engine's at tp = 2 and
+    the port's at tp = 1."""
+    jmodel, model = models
+    jflags.set_flags({"fused_block_decode": fused})
+    tflags.set_flags({"fused_block_decode": fused})
+    try:
+        want = _drive(JServingEngine(jmodel, tp_degree=2, **ENGINE))
+        eng = ServingEngine(model, tp_degree=2, **ENGINE)
+        got = _drive(eng)
+        solo = _drive(ServingEngine(model, **ENGINE))
+    finally:
+        jflags.set_flags({"fused_block_decode": True})
+        tflags.reset_flags()
+    assert got == want == solo
+    assert ("tp", 2) in eng.decode_key.extra
+
+
+def test_tp_degree_flag_value_is_taken(models):
+    _, model = models
+    tflags.set_flags({"serving_tp_degree": 2})
+    try:
+        assert tflags.get_flag("serving_tp_degree") == 2
+        assert ServingEngine(model, **ENGINE).tp_degree == 2
+    finally:
+        tflags.reset_flags()
+    with pytest.raises(ValueError, match="serving_tp_degree"):
+        tflags.set_flags({"serving_tp_degree": 0})
 
 
 @pytest.mark.parametrize("flag,value", [("fused_weight_dtype", "int4"),

@@ -363,10 +363,16 @@ def test_engine_refusals(models):
     with pytest.raises(ValueError, match="max_position_embeddings"):
         tserving.ServingEngine(target, max_batch=2, page_size=PAGE,
                                max_seq_len=256, draft_model=draft)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # a tensor-parallel speculative engine is taken (its streams:
+    # tests/test_torch_tp_decode.py); its kv heads must divide the degree
+    tp = tserving.ServingEngine(target, max_batch=2, page_size=PAGE,
+                                max_seq_len=64, draft_model=draft,
+                                tp_degree=2)
+    assert tp.tp_degree == 2 and tp._draft_pool is not None
+    with pytest.raises(ValueError, match="kv-head"):
         tserving.ServingEngine(target, max_batch=2, page_size=PAGE,
                                max_seq_len=64, draft_model=draft,
-                               tp_degree=2)
+                               tp_degree=3)
     eng = tserving.ServingEngine(target, max_batch=2, page_size=PAGE,
                                  max_seq_len=64, draft_model=draft)
     pool = eng._draft_pool

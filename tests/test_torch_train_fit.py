@@ -19,10 +19,13 @@ gradient differences). Checked:
     scheduler) resumed in the port through
     ``convert.optimizer_state_from_jax``: the next steps match;
   - ``RandomSampler`` / ``DataLoader`` batch order equal to JAX's for the
-    same seed (exactly). The JAX loaders here run without their
-    buffer-reader thread: the reference's global seed is thread-local, so
-    a sampler iterated on that thread draws with seed 0 whatever
-    ``paddle.seed`` said;
+    same seed (exactly), on the thread path (``use_shared_memory=False``
+    on both sides; the native path's order is
+    ``tests/test_torch_io_workers.py``'s). The JAX loaders here run
+    without their buffer-reader thread: the reference's global seed is
+    thread-local, so a sampler iterated on that thread draws with seed 0
+    whatever ``paddle.seed`` said. ``fit`` over a shuffled
+    ``TensorDataset`` takes the native path in both packages;
   - ``Model.fit`` with ``accumulate_grad_batches``, ``metrics_every``,
     prefetch and callbacks: the losses JAX's ``fit`` logs, then
     ``evaluate``; ``nan_policy`` (fit recovery is
@@ -266,7 +269,7 @@ def test_random_order_matches_jax(drop_last):
     tdl = tio.DataLoader(tio.TensorDataset([torch.from_numpy(x),
                                             torch.from_numpy(y)]),
                          batch_size=3, shuffle=True, drop_last=drop_last,
-                         seed=77, num_workers=2)
+                         seed=77, num_workers=2, use_shared_memory=False)
     for _ in range(2):                                   # two epochs
         jb = [b[0].numpy() for b in jdl]
         tb = [b[0].numpy() for b in tdl]
@@ -278,9 +281,6 @@ def test_random_order_matches_jax(drop_last):
     assert list(js) == list(ts) and list(js) == list(ts)
     with pytest.raises(ValueError, match="seed"):
         tio.DataLoader(tio.TensorDataset([x]), shuffle=True)
-    with pytest.raises(NotImplementedError):
-        tio.DataLoader(tio.TensorDataset([x]), use_process_workers=True,
-                       num_workers=2)
 
 
 def test_collate_and_device_prefetcher_on_the_cpu():
@@ -319,8 +319,7 @@ def _fit_pair(seed, tmp_path, jcallbacks=(), tcallbacks=(), **fit_kw):
     x, y = _dataset(12)
     paddle.seed(5)
     jloader = jio.DataLoader(jio.TensorDataset([x, y]), batch_size=4,
-                             shuffle=True, use_shared_memory=False,
-                             use_buffer_reader=False)
+                             shuffle=True, use_buffer_reader=False)
     jm = JModel(jmodel)
     jm.prepare(_jopt(jmodel), loss=JCriterion(JLlamaConfig.tiny()))
     jrec = _JRecord()
