@@ -305,7 +305,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               the training attention kernels (forward, dq, dk/dv) against
               autograd of the dense flash_attention_ref on the card, causal,
               at Llama-2-7B heads (S=4096), Llama-2-70B heads (GQA, S=2048)
-              and a ragged length (S=1000), at GPT-3 345M's heads (B=4,
+              and a ragged length (S=1000), at the hybrid phases' mp = 2
+              shard (S=4096, 16 of Llama-2-7B's 32 heads), at GPT-3 345M's
+              heads (B=4,
               S=1024, 16 heads of 64) causal and not, and at SD-1.5's UNet
               attention (B=2, 8 heads, not causal): self-attention at
               (S, D) = (4096, 40), (1024, 80), (256, 160), (64, 160) and
@@ -392,6 +394,32 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               without remat, then 5 steps timed as train, with a lower
               peak memory than train's and the forward kernel launched
               twice a layer and micro-batch (160), dq and dk/dv 80;
+     hybrid   this slice's main path: the same model, batch and recipe
+              through the reference's hybrid recipe on one NCCL rank
+              (init_parallel_env over a one-rank world on a free
+              localhost port, fleet.init with dp = mp = 1,
+              annotate_llama_tp, fleet.distributed_model /
+              distributed_optimizer, TrainStep(mesh=hcg.get_mesh())): the
+              5 losses bit for bit train's (at mp = 1 the Megatron layers
+              are their serial selves; a one-rank all-reduce is exact),
+              each flash kernel launched 80 times; step ms beside train's,
+              the collectives a step by name, peak memory;
+     hybrid_ranks
+              several ranks on the one card, started by the port's spawn,
+              over gloo with CUDA tensors (NCCL refuses two ranks on one
+              device; a gloo all-reduce crosses the host, so the step
+              times are no performance figure): fp32 at 7B width and 2
+              layers, batch 2 x 1024, 3 warmup/cosine AdamW steps with the
+              clip, at dp = 2 and mp = 2 (a world of 2) and dp = 2 x mp =
+              2 (a world of 4): every rank's losses equal, within 1e-5
+              relative of the same steps in one process, the parameters
+              gathered on the card (each shard all-reduced into its slice
+              of zeros over mp; the dp replicas equal bit for bit) within
+              1e-5 of the one-process run except at most 1e-3 of the
+              elements, each within 3 lr (how many is reported); then bf16
+              at train's depth, mp = 2, 1 x 4096 tokens: finite, falling
+              losses, each rank's #7-#9 launched 8 x 3 times at 16 heads,
+              and the loss gap to one process reported;
      fit      the slice's main path: Model.fit on the same width at 4
               layers, amp.decorate(O2, bf16) without f32 masters (its two
               checkpoints and fit_faults' two must stay within what a call
@@ -545,8 +573,12 @@ UNET_ATTN_SHAPES = tuple(
     (f"sd15 {kind} attention, D={d}", 2, s, 8, 8, d, False, skv)
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
     for kind, skv in (("self", s), ("cross", UNET_CONTEXT)))
+# the hybrid phases' attention at mp = 2: Llama-2-7B's 32 heads cut to a
+# rank's 16 (case, batch, S, heads, kv heads), head_dim 128, causal
+HYBRID_SHARD_SHAPES = (("llama2_7b heads, mp=2 shard", 1, 4096, 16, 16),)
 # every shape check_flash_attention holds, in UNET_ATTN_SHAPES' layout
-FLASH_ATTN_SHAPES = (tuple(t + (HEAD_DIM, True, t[2]) for t in TRAIN_SHAPES)
+FLASH_ATTN_SHAPES = (tuple(t + (HEAD_DIM, True, t[2])
+                           for t in TRAIN_SHAPES + HYBRID_SHARD_SHAPES)
                      + tuple(t + (t[2],) for t in GPT_TRAIN_SHAPES)
                      + UNET_ATTN_SHAPES)
 # flash forward: out within atol + rtol |ref| elementwise (rtol: one bf16
@@ -5673,9 +5705,12 @@ def check_flash_with_lse(dtype, device):
 
 
 # ----------------------------------------------------------------- train
-def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False):
+def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False,
+                 mesh=None, fleet=None):
     """AdamW(multi_precision) + global-norm clip, through TrainStep; with
-    ``steps`` a 2-step linear warmup into a cosine decay."""
+    ``steps`` a 2-step linear warmup into a cosine decay. With ``fleet``
+    the model and the optimizer go through its ``distributed_model`` /
+    ``distributed_optimizer``; ``mesh`` is TrainStep's."""
     from paddle_tpu_torch.hapi import TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
@@ -5687,8 +5722,11 @@ def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False):
     opt = AdamW(sched, parameters=model.named_parameters(),
                 weight_decay=0.01, multi_precision=True,
                 grad_clip=ClipGradByGlobalNorm(1.0))
+    if fleet is not None:
+        model, opt = fleet.distributed_model(model), \
+            fleet.distributed_optimizer(opt)
     return TrainStep(model, opt, grad_accum_steps=grad_accum_steps,
-                     remat=remat)
+                     remat=remat, mesh=mesh)
 
 
 def token_batch(vocab, batch, seq, seed_offset):
@@ -5875,6 +5913,270 @@ def run_train_remat(device, train):
          launches=counts)
     del model, trainer, x, y
     torch.cuda.empty_cache()
+    return counts
+
+
+# hybrid_ranks: (dp, mp) of the fp32 rows at HYBRID_RANK_LAYERS, and the
+# bf16 row at train's depth (mp = 2, 1 x TRAIN_SEQ)
+HYBRID_RANK_LAYERS, HYBRID_RANK_BATCH, HYBRID_RANK_SEQ = 2, 2, 1024
+HYBRID_RANK_STEPS = 3
+HYBRID_RANK_LR = 3e-4
+HYBRID_FP32_ROWS = ((2, 1), (1, 2), (2, 2))
+HYBRID_LOSS_RTOL = 1e-5     # fp32: mp splits the row-parallel sums
+HYBRID_PARAM_TOL = 1e-5     # fp32, elementwise, against the one-rank run
+HYBRID_PARAM_OFF_FRAC = 1e-3  # elements allowed beyond it (near AdamW's
+                              # eps), each within 3 lr
+HYBRID_TIMEOUT_S = 600      # join; each gloo group fails after 300 s
+
+
+def run_hybrid(device, train):
+    """One NCCL rank at train's width, depth, batch and recipe, through the
+    reference's hybrid recipe: init_parallel_env (a one-rank NCCL world on
+    a free localhost port), fleet.init (dp = mp = 1), annotate_llama_tp,
+    fleet.distributed_model / distributed_optimizer, TrainStep(mesh=
+    hcg.get_mesh()). At mp = 1 the Megatron layers are their serial selves
+    and a one-rank NCCL all-reduce is exact, so the 5 losses equal train's
+    bit for bit."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel import free_port
+    from paddle_tpu_torch.models.llama import annotate_llama_tp
+    os.environ.update(PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1",
+                      PADDLE_LOCAL_RANK="0",
+                      PADDLE_MASTER=f"127.0.0.1:{free_port()}")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    pdist.init_parallel_env()
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        cfg, model = train_model(device, SEED)
+        annotate_llama_tp(model)
+        trainer = make_trainer(model, 3e-4, steps=TRAIN_STEPS,
+                               grad_accum_steps=TRAIN_ACCUM,
+                               mesh=hcg.get_mesh(), fleet=fleet)
+        x, y = (t.to(device) for t in token_batch(
+            cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 5))
+        pdist.reset_collective_counts()
+        losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0,
+                                                   TRAIN_STEPS)
+        coll = pdist.collective_counts()
+        backend = pdist.get_backend()
+    finally:
+        pdist.destroy_process_group()
+    require(losses == train["losses"], f"hybrid: losses {losses} differ "
+            f"from train's {train['losses']}")
+    want = TRAIN_LAYERS * TRAIN_ACCUM * TRAIN_STEPS
+    for name in TRAIN_KERNELS:
+        require(counts[name] == want,
+                f"hybrid: {name} ran {counts[name]} times, want {want}")
+    step_ms = 1e3 * float(np.median(step_s))
+    emit("hybrid", model="llama2_7b width", layers=TRAIN_LAYERS,
+         dtype="bf16, f32 masters", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         grad_accum_steps=TRAIN_ACCUM, steps=TRAIN_STEPS, ranks=1,
+         backend=backend, degrees=dict(dp=1, mp=1), losses=losses,
+         losses_bitwise_equal_train=True,
+         step_ms=[1e3 * v for v in step_s], step_ms_median=step_ms,
+         train_step_ms_median=train["step_ms"],
+         collectives_per_step={k: v / TRAIN_STEPS for k, v in coll.items()},
+         peak_mem_gb=peak / 1e9, train_peak_mem_gb=train["peak"] / 1e9,
+         launches=counts)
+    del model, trainer, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _gathered(model, hcg):
+    """Each parameter whole on this rank, on the card: a shard written
+    into zeros at its slice and all-reduced over mp (exact: one nonzero
+    term an element); and how many tensors differ from the first dp
+    rank's copy (broadcast over dp)."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.convert import shard_slices
+    mp, dp = hcg.get_model_parallel_group(), hcg.get_data_parallel_group()
+    coords = {"mp": hcg.get_model_parallel_rank()}
+    sizes = {"mp": mp.nranks}
+    out, unequal = {}, 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            spec = getattr(p, "dist_attr", None) or ()
+            if "mp" in spec and mp.nranks > 1:
+                shape = [n * (mp.nranks if a == "mp" else 1)
+                         for n, a in zip(p.shape, tuple(spec) + (None,) * 2)]
+                whole = torch.zeros(shape, dtype=p.dtype, device=p.device)
+                whole[shard_slices(shape, spec, coords, sizes)] = p
+                pdist.all_reduce(whole, group=mp)
+            else:
+                whole = p.detach().clone()
+            if dp.nranks > 1:
+                first = whole.clone()
+                pdist.broadcast(first, dp.ranks[0], group=dp)
+                unequal += int(not torch.equal(first, whole))
+                del first
+            out[name] = whole
+    return out, unequal
+
+
+def _one_rank(device, dtype, layers, batch, seq):
+    """The same steps in one process, no runtime: (losses, parameters)."""
+    cfg, model = train_model(device, SEED, dtype=dtype, layers=layers)
+    trainer = make_trainer(model, HYBRID_RANK_LR, steps=HYBRID_RANK_STEPS)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, batch, seq,
+                                              7))
+    losses = [float(trainer(x, y)) for _ in range(HYBRID_RANK_STEPS)]
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    del trainer
+    return losses, params
+
+
+def hybrid_rank_body(rank, rows):
+    """One rank of hybrid_ranks: gloo on cuda:0 (NCCL refuses two ranks on
+    one device); each row (dp, mp, layers, dtype, batch, seq) builds the
+    seeded model, annotate_llama_tp, TrainStep(mesh=...) at warmup/cosine
+    AdamW with the clip, HYBRID_RANK_STEPS steps with this rank's #7-#9
+    launches and collectives counted. Rank 0 gathers each fp32 row's
+    parameters and, once the world is done, runs the rows alone
+    (_one_rank) and holds them to it."""
+    import datetime
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed.fleet import base_topology as topo
+    from paddle_tpu_torch.models.llama import annotate_llama_tp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda:0")
+    pdist.init_parallel_env(backend="gloo", device=device,
+                            timeout=datetime.timedelta(seconds=300))
+    out, kept = [], []
+    try:
+        for dp, mp, layers, dtype, batch, seq in rows:
+            hcg = topo.create_hybrid_communicate_group(dp_degree=dp,
+                                                       mp_degree=mp)
+            cfg, model = train_model(device, SEED, dtype=dtype,
+                                     layers=layers)
+            annotate_llama_tp(model)
+            trainer = make_trainer(model, HYBRID_RANK_LR,
+                                   steps=HYBRID_RANK_STEPS,
+                                   mesh=hcg.get_mesh())
+            x, y = (t.to(device) for t in token_batch(cfg.vocab_size, batch,
+                                                      seq, 7))
+            pdist.reset_collective_counts()
+            losses, step_s, counts, peak = timed_steps(
+                trainer, (x, y), 0, HYBRID_RANK_STEPS)
+            row = dict(dp=dp, mp=mp, layers=layers,
+                       dtype=DTYPE_NAME[dtype], batch=batch, seq=seq,
+                       losses=losses, step_ms=[1e3 * v for v in step_s],
+                       launches={k: counts[k] for k in TRAIN_KERNELS},
+                       collectives=pdist.collective_counts(),
+                       heads=model.llama.layers[0].self_attn.num_heads,
+                       peak_mem_gb=peak / 1e9)
+            del trainer, x, y
+            if dtype == torch.float32:
+                params, row["dp_replicas_unequal"] = _gathered(model, hcg)
+                if rank == 0:
+                    kept.append(params)
+                del params
+            out.append(row)
+            topo._reset_hcg()
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        pdist.destroy_process_group()
+    if rank == 0:
+        # the world is done: the same rows in one process
+        refs = {}
+        for (dp, mp, layers, dtype, batch, seq), row in zip(rows, out):
+            key = (layers, dtype, batch, seq)
+            if key not in refs:
+                refs[key] = _one_rank(device, dtype, layers, batch, seq)
+            ref_losses, ref_params = refs[key]
+            row["one_rank_losses"] = ref_losses
+            row["loss_rel_err"] = max(
+                abs(a - b) / abs(b) for a, b in zip(row["losses"],
+                                                    ref_losses))
+            if dtype == torch.float32:
+                got = kept.pop(0)
+                off = total = 0
+                worst = 0.0
+                for name, want in ref_params.items():
+                    diff = (got[name].double() - want.double()).abs()
+                    worst = max(worst, float(diff.max()))
+                    off += int((diff > HYBRID_PARAM_TOL).sum())
+                    total += diff.numel()
+                row.update(param_max_abs_err=worst, params_off=off,
+                           params_total=total,
+                           param_names_equal=sorted(got) == sorted(
+                               ref_params))
+                del got
+            torch.cuda.empty_cache()
+        del refs
+    return out
+
+
+def run_hybrid_ranks():
+    """Several ranks on the one card, started by the port's spawn, over
+    gloo with CUDA tensors: fp32 rows at HYBRID_RANK_LAYERS (dp = 2, mp =
+    2 in a world of 2, then dp = 2 x mp = 2 in a world of 4) held to the
+    one-rank run, and the bf16 row (mp = 2, train's depth, 1 x TRAIN_SEQ)
+    with exact #7-#9 launches on each rank and its loss gap to one rank
+    reported. A gloo all-reduce crosses the host, so the step times say
+    nothing of the card's speed."""
+    from paddle_tpu_torch.distributed import spawn
+
+    def fp32(dp, mp):
+        return (dp, mp, HYBRID_RANK_LAYERS, torch.float32,
+                HYBRID_RANK_BATCH, HYBRID_RANK_SEQ)
+
+    worlds = ((2, [fp32(2, 1), fp32(1, 2),
+                   (1, 2, TRAIN_LAYERS, torch.bfloat16, 1, TRAIN_SEQ)]),
+              (4, [fp32(2, 2)]))
+    rows, counts = [], {k: 0 for k in TRAIN_KERNELS}
+    t0 = time.perf_counter()
+    for n, world_rows in worlds:
+        ctx = spawn(hybrid_rank_body, args=(world_rows,), nprocs=n,
+                    timeout=HYBRID_TIMEOUT_S)
+        for i, spec in enumerate(world_rows):
+            per_rank = [r[i] for r in ctx.results]
+            row = dict(per_rank[0])
+            row["ranks"] = n
+            dp, mp, layers, dtype, batch, seq = spec
+            want = layers * HYBRID_RANK_STEPS
+            for r, got in enumerate(per_rank):
+                for name in TRAIN_KERNELS:
+                    require(got["launches"][name] == want,
+                            f"hybrid_ranks {row['dtype']} dp={dp} mp={mp} "
+                            f"rank {r}: {name} ran {got['launches'][name]}"
+                            f" times, want {want}")
+                    counts[name] += got["launches"][name]
+                require(got["losses"] == row["losses"],
+                        f"hybrid_ranks: rank {r}'s losses differ")
+                require(got["heads"] == 32 // mp, f"hybrid_ranks: rank {r} "
+                        f"runs {got['heads']} heads")
+            require(all(math.isfinite(v) for v in row["losses"])
+                    and row["losses"][-1] < row["losses"][0],
+                    f"hybrid_ranks: losses {row['losses']}")
+            if dtype == torch.float32:
+                require(row["param_names_equal"]
+                        and all(g["dp_replicas_unequal"] == 0
+                                for g in per_rank),
+                        "hybrid_ranks: gathered parameters")
+                require(row["loss_rel_err"] <= HYBRID_LOSS_RTOL,
+                        f"hybrid_ranks dp={dp} mp={mp}: loss rel err "
+                        f"{row['loss_rel_err']}")
+                require(row["param_max_abs_err"] <= 3 * HYBRID_RANK_LR
+                        and row["params_off"]
+                        <= HYBRID_PARAM_OFF_FRAC * row["params_total"],
+                        f"hybrid_ranks dp={dp} mp={mp}: {row['params_off']}"
+                        f" elements beyond {HYBRID_PARAM_TOL}, worst "
+                        f"{row['param_max_abs_err']}")
+            row["per_rank_step_ms"] = [g["step_ms"] for g in per_rank]
+            rows.append(row)
+    emit("hybrid_ranks", ranks_on_one_card=[n for n, _ in worlds],
+         backend="gloo (CUDA tensors, through the host)",
+         note="gloo all-reduces cross the host: step times are not a "
+              "performance figure", rows=rows,
+         seconds=time.perf_counter() - t0)
     return counts
 
 
@@ -7550,6 +7852,8 @@ def main() -> int:
     fused_counts = run_fused_layers(device)
     train_counts, train = run_train(device)
     remat_counts = run_train_remat(device, train)
+    hybrid_counts = run_hybrid(device, train)    # this slice's main path
+    hybrid_rank_counts = run_hybrid_ranks()
     fit_counts = run_fit(device)
     io_counts = run_io(device)
     fit_fault_counts = run_fit_faults(device)
@@ -7574,8 +7878,10 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = unet_counts[name]         # this slice's main path
-            by_path = dict(unet=launches, bert=bert_counts[name],
+            launches = hybrid_counts[name]       # this slice's main path
+            by_path = dict(hybrid=launches,
+                           hybrid_ranks=hybrid_rank_counts[name],
+                           unet=unet_counts[name], bert=bert_counts[name],
                            moe=moe_counts[name], train=train_counts[name],
                            train_remat=remat_counts[name],
                            fit=fit_counts[name], io=io_counts[name],

@@ -26,7 +26,11 @@ model (``nn.quant``) and GPT (``models.GPTForCausalLM``) through the
 engine's generic route. Training also runs mixtures of experts on one card
 (``incubate.distributed.models.moe``: the gates, ``top_k_dispatch``,
 ``Experts``, ``MoELayer``) and MoE-GPT (``models.MoEGPTForCausalLM``), and
-the fused ops and layers of ``incubate.nn``.
+the fused ops and layers of ``incubate.nn``. Across ranks, the
+``distributed`` runtime on ``torch.distributed`` (NCCL on the card, gloo
+on the CPU when asked: groups, collectives, p2p, ``spawn``, ``fleet`` with
+the hybrid topology and the Megatron layers) trains Llama data x tensor
+parallel through ``TrainStep(mesh=...)``.
 """
 
 from .device import resolve_device, seed

@@ -12,11 +12,17 @@ to the dtype of the tensor it lands in.
 :func:`optimizer_state_from_jax` turns the JAX optimizer's state into what
 the port's ``Optimizer.set_state_dict`` (and ``TrainStep.set_state_dict``
 under ``"@opt_state"``) takes, so a run resumes where the JAX one stopped.
+
+:func:`shard_state` cuts whole parameters (the JAX model's, say) into one
+rank's shards by their specs (a tuple of mesh-axis names or None a
+dimension, as a ``PartitionSpec``, e.g. ``annotate_llama_tp``'s
+``dist_attr``) and the rank's mesh coordinates; :func:`gather_state`
+puts every rank's shards back together.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,4 +119,68 @@ def optimizer_state_from_jax(state: Mapping[str, Any],
     out["@step"] = int(np.asarray(state.get("t", 0)))
     if lr_state is not None:
         out["LR_Scheduler"] = {k: _plain(v) for k, v in lr_state.items()}
+    return out
+
+
+def shard_slices(shape: Sequence[int], spec: Optional[Sequence],
+                 coords: Mapping[str, int], sizes: Mapping[str, int]
+                 ) -> Tuple[slice, ...]:
+    """The index of one rank's shard of a ``shape`` parameter: along each
+    dimension whose ``spec`` entry names a mesh axis, the ``coords[axis]``-th
+    of ``sizes[axis]`` equal parts; other dimensions whole."""
+    spec = tuple(spec or ())
+    out = []
+    for d, n in enumerate(shape):
+        axis = spec[d] if d < len(spec) else None
+        parts = sizes.get(axis, 1) if axis is not None else 1
+        if n % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)} not divisible by "
+                             f"{axis}={parts}")
+        step = n // parts
+        i = coords.get(axis, 0) if axis is not None else 0
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def shard_state(named: Mapping[str, np.ndarray],
+                specs: Mapping[str, Optional[Sequence]],
+                coords: Mapping[str, int], sizes: Mapping[str, int]
+                ) -> Dict[str, np.ndarray]:
+    """Each array of ``named`` cut to the shard of the rank at ``coords``
+    (axis -> coordinate) on a mesh of ``sizes`` (axis -> size); a name
+    without a spec stays whole. bf16 arrays arrive as float32."""
+    out = {}
+    for name, arr in named.items():
+        a = np.asarray(arr)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        idx = shard_slices(a.shape, specs.get(name), coords, sizes)
+        out[name] = np.ascontiguousarray(a[idx])
+    return out
+
+
+def gather_state(shards: Sequence[Mapping[str, np.ndarray]],
+                 specs: Mapping[str, Optional[Sequence]],
+                 coords: Sequence[Mapping[str, int]],
+                 sizes: Mapping[str, int]) -> Dict[str, np.ndarray]:
+    """Whole arrays from every rank's shards (``shards[i]`` held by the
+    rank at ``coords[i]``): each shard written into its slice. Ranks that
+    hold the same slice (replicas over another axis) must agree bit for
+    bit, else ``ValueError``."""
+    out: Dict[str, np.ndarray] = {}
+    for name in shards[0]:
+        whole_shape = list(np.shape(shards[0][name]))
+        for d, axis in enumerate(tuple(specs.get(name) or ())):
+            if axis is not None:
+                whole_shape[d] *= sizes.get(axis, 1)
+        whole = np.zeros(whole_shape, np.asarray(shards[0][name]).dtype)
+        seen = {}
+        for shard, c in zip(shards, coords):
+            idx = shard_slices(whole_shape, specs.get(name), c, sizes)
+            key = tuple((s.start, s.stop) for s in idx)
+            if key in seen and not np.array_equal(seen[key], shard[name]):
+                raise ValueError(f"{name}: replicas of slice {key} differ")
+            seen[key] = shard[name]
+            whole[idx] = shard[name]
+        out[name] = whole
     return out

@@ -44,8 +44,24 @@ gradient or scheduler state moves, and ``train_sync`` at the top of
 :meth:`sync` and :meth:`pull_metrics`, before the window changes.
 
 The parameters live in the model, so ``sync_to_model()`` has nothing to
-do. Not ported (``NotImplementedError``): meshes and parameter specs, ZeRO
-sharding levels and LocalSGD (the distributed runtime).
+do.
+
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` whose dimensions
+bear the reference's axis names, e.g. ``HybridCommunicateGroup.get_mesh()``)
+the step is this rank's part of a hybrid data x tensor-parallel step
+(:class:`_MeshPlan`): each parameter's spec (its ``dist_attr``, or
+``param_spec_fn(name, param)``; a tuple of axis names or None, as a
+``PartitionSpec``) says how it is cut; the model's annotated ``Linear`` and
+``Embedding`` layers become Megatron's layers holding this rank's shards
+(``mp_layers.shard_layers``, which also sets the attention modules' local
+head counts); the step takes this rank's rows of the global batch
+(``data_axes``), averages the gradients over them, clips by the norm of
+the logical parameters (``HybridParallelClipGrad``) and returns the loss of
+the global batch. A Llama's vocab-parallel head computes the mean over the
+global batch's tokens (the unmasked ones counted over the data-parallel
+ranks), so it is the reference's mean whatever the ranks' counts of
+ignored labels. Not ported (``NotImplementedError``): ZeRO sharding levels
+and LocalSGD (ROADMAP Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import flags
+from ..device import resolve_device
 from .. import observability as obs
 from ..optimizer.lr import LRScheduler
 from ..optimizer.optimizer import Optimizer
@@ -104,8 +121,93 @@ class _NullTrainTelemetry:
 
 
 def _refuse(what: str) -> None:
-    raise NotImplementedError(f"TrainStep({what}) is not ported: the "
-                              f"distributed runtime, a later slice")
+    raise NotImplementedError(f"TrainStep({what}) is not ported yet "
+                              f"(ROADMAP Queue 1, item 3)")
+
+
+class _MeshPlan:
+    """What a mesh makes of the step on this rank: the data-parallel
+    group and this rank's rows of a global batch, the model-parallel
+    group, and the model's layers swapped for their shards."""
+
+    MP_AXIS = "mp"
+
+    def __init__(self, model, optimizer, mesh, param_spec_fn, data_axes):
+        from ..distributed.communication.group import from_process_group
+        from ..distributed.fleet.meta_optimizers.hybrid_parallel_optimizer \
+            import hybrid_clip
+        from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers \
+            import shard_layers
+        if not (hasattr(mesh, "device_type")
+                and hasattr(mesh, "mesh_dim_names")):
+            raise TypeError("TrainStep(mesh=...) takes a torch.distributed "
+                            "DeviceMesh (HybridCommunicateGroup.get_mesh())")
+        dev = resolve_device(mesh.device_type)
+        if next(model.parameters()).device.type != dev.type:
+            raise ValueError(f"TrainStep: the model is not on the mesh's "
+                             f"{dev.type} device")
+        names = tuple(mesh.mesh_dim_names or ())
+        sizes = dict(zip(names, mesh.shape))
+
+        def group(axis):
+            return from_process_group(mesh.get_group(axis))
+
+        data = [a for a in data_axes if a in names]
+        if sum(sizes[a] > 1 for a in data) > 1:
+            raise NotImplementedError(
+                f"TrainStep(data_axes={tuple(data_axes)}): one data axis "
+                f"of more than one rank is ported")
+        dp_axis = next((a for a in data if sizes[a] > 1),
+                       data[0] if data else None)
+        self.dp_group = None if dp_axis is None else group(dp_axis)
+        self.dp_size = 1 if dp_axis is None else sizes[dp_axis]
+        self.dp_rank = 0 if dp_axis is None else mesh.get_local_rank(dp_axis)
+        self.mp_group = (group(self.MP_AXIS) if self.MP_AXIS in names
+                         else None)
+        if optimizer.state:
+            raise ValueError("TrainStep(mesh=...) cuts the parameters: "
+                             "build it before the optimizer's first step")
+        specs = {}
+        for name, p in model.named_parameters():
+            spec = (param_spec_fn(name, p) if param_spec_fn is not None
+                    else getattr(p, "dist_attr", None))
+            # axes absent from the mesh drop out, as in the reference
+            spec = tuple(e if e in names else None for e in (spec or ()))
+            for e in spec:
+                if e is not None and e != self.MP_AXIS and sizes[e] > 1:
+                    raise NotImplementedError(
+                        f"{name}: spec {spec} shards over {e!r}; only "
+                        f"{self.MP_AXIS!r} is ported (ROADMAP Queue 1, "
+                        f"item 3)")
+            specs[id(p)] = spec
+        shard_layers(model, lambda n, p: specs[id(p)], self.MP_AXIS,
+                     self.mp_group)
+        for m in model.modules():
+            if hasattr(type(m), "parallel_loss_groups"):
+                m.parallel_loss_groups = (self.mp_group, self.dp_group)
+        hybrid_clip(optimizer, self.mp_group)
+
+    def rows(self, b):
+        """This rank's rows of a global batch tensor."""
+        if not isinstance(b, torch.Tensor) or self.dp_size == 1:
+            return b
+        if b.shape[0] % self.dp_size:
+            raise ValueError(f"batch dim {b.shape[0]} not divisible by the "
+                             f"{self.dp_size} data-parallel ranks")
+        return b.chunk(self.dp_size, dim=0)[self.dp_rank]
+
+    def reduce(self, params, loss: torch.Tensor) -> torch.Tensor:
+        """The gradients averaged over the data-parallel ranks; returns
+        the loss averaged over them too."""
+        from ..distributed.communication import collectives as C
+        from ..distributed.fleet.meta_parallel.meta_parallel_base import \
+            average_gradients
+        if self.dp_group is None:
+            return loss
+        average_gradients(params, self.dp_group)
+        loss = loss.clone()
+        C.all_reduce(loss, group=self.dp_group)
+        return loss / self.dp_size if self.dp_size > 1 else loss
 
 
 class StagedBatch:
@@ -154,8 +256,8 @@ class TrainStep:
                  gradient_merge_avg: bool = True,
                  localsgd_k: Optional[int] = None, metrics_every: int = 0,
                  max_in_flight: Optional[int] = None):
-        if mesh is not None or param_spec_fn is not None:
-            _refuse("mesh / param_spec_fn")
+        if param_spec_fn is not None and mesh is None:
+            raise ValueError("TrainStep(param_spec_fn=...) needs a mesh")
         if sharding_level or sharding_axis is not None:
             _refuse("sharding_level / sharding_axis")
         if localsgd_k is not None and localsgd_k > 1:
@@ -164,6 +266,19 @@ class TrainStep:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{grad_accum_steps}")
         self.model = model
+        self._plan = None
+        if mesh is not None:
+            from ..distributed.fleet.meta_parallel.meta_parallel_base import \
+                MetaParallelBase
+            # the step itself averages the gradients over the data axes and
+            # clips over the logical parameters: the wrappers' own
+            # reductions stay off (DataParallel's hooks run under no_sync,
+            # a HybridParallelOptimizer's step is its inner optimizer's)
+            optimizer = getattr(optimizer, "_inner_opt", optimizer)
+            inner = (model._layers if isinstance(model, MetaParallelBase)
+                     else model)
+            self._plan = _MeshPlan(inner, optimizer, mesh, param_spec_fn,
+                                   data_axes)
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.grad_accum_steps = int(grad_accum_steps)
@@ -231,13 +346,18 @@ class TrainStep:
         self.optimizer.clear_grad()
         n = self.grad_accum_steps
         total = None
-        with _switched_on(self._remat_units):
+        no_sync = getattr(self.model, "no_sync", None)
+        with _switched_on(self._remat_units), \
+                (no_sync() if self._plan is not None and no_sync
+                 else contextlib.nullcontext()):
             for mb in self._micro_batches(batch):
                 loss = self._loss_of(mb)
                 (loss / n if n > 1 else loss).backward()
                 total = (loss.detach() if total is None
                          else total + loss.detach())
         loss = total / n if n > 1 else total
+        if self._plan is not None:
+            loss = self._plan.reduce(self.optimizer._params(), loss)
         grads = {k: p.grad for k, p in self.model.named_parameters()
                  if p.grad is not None}
         return loss, grads
@@ -276,9 +396,12 @@ class TrainStep:
 
     def stage(self, *batch) -> StagedBatch:
         """The batch's tensors on the model's device (copies from the host
-        are ``non_blocking``): ``__call__`` takes the result, so a
-        prefetcher can stage batch N+1 while the card runs step N."""
+        are ``non_blocking``; under a mesh, this rank's rows of them):
+        ``__call__`` takes the result, so a prefetcher can stage batch N+1
+        while the card runs step N."""
         dev = self.device
+        if self._plan is not None:
+            batch = tuple(self._plan.rows(b) for b in batch)
         return StagedBatch(tuple(
             b.to(dev, non_blocking=True) if isinstance(b, torch.Tensor)
             else b for b in batch))

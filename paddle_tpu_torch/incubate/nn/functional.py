@@ -382,25 +382,40 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
     chunk's logits at a time, so at most one (chunk, vocab) f32 block is
     live. The logits are f32 products (``_logits_f32``); the backward's
     dlogits are cast to the inputs' dtype for the two gradient products.
-    Rows with a negative label add nothing."""
+    Rows with a negative label add nothing. With a tensor-parallel
+    ``group`` the weight is this rank's vocabulary shard and each row's
+    lse and label logit are reduced over the group
+    (``parallel_fused_linear_cross_entropy``); ``count`` replaces the
+    local count of unmasked rows (the data-parallel global count)."""
 
     @staticmethod
-    def forward(ctx, hidden, weight, labels, transpose_y, chunk):
+    def forward(ctx, hidden, weight, labels, transpose_y, chunk, group=None,
+                count=None):
         w = weight.t() if transpose_y else weight              # (H, V)
         vocab = w.shape[1]
+        # a tensor-parallel group: w is this rank's vocabulary shard
+        start = 0 if group is None else group.rank * vocab
         total = torch.zeros((), device=hidden.device, dtype=torch.float32)
         lses = []
         for c0 in range(0, hidden.shape[0], chunk):
             logits = _logits_f32(hidden[c0:c0 + chunk], w)
-            lse = torch.logsumexp(logits, dim=-1)
             lab = labels[c0:c0 + chunk]
-            gold = logits.gather(1, lab.clamp(0, vocab - 1)[:, None])[:, 0]
+            if group is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(1, lab.clamp(0, vocab - 1)[:, None])[:, 0]
+            else:
+                from ...distributed.fleet.meta_parallel.parallel_layers \
+                    .mp_layers import _vocab_parallel_stats
+                lse, gold, _ = _vocab_parallel_stats(logits, lab - start,
+                                                     group)
             total = total + torch.where(lab >= 0, lse - gold,
                                         torch.zeros_like(lse)).sum()
             lses.append(lse)
-        count = (labels >= 0).sum().clamp_min(1).to(torch.float32)
+        if count is None:
+            count = (labels >= 0).sum().clamp_min(1).to(torch.float32)
         ctx.save_for_backward(hidden, weight, labels, torch.cat(lses), count)
-        ctx.transpose_y, ctx.chunk = transpose_y, chunk
+        ctx.transpose_y, ctx.chunk, ctx.start = transpose_y, chunk, start
+        ctx.sharded = group is not None
         return total / count
 
     @staticmethod
@@ -415,14 +430,21 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             h_c = hidden[c0:c0 + ctx.chunk]
             lab = labels[c0:c0 + ctx.chunk]
             p = torch.exp(_logits_f32(h_c, w) - lse[c0:c0 + ctx.chunk, None])
-            p.scatter_add_(1, lab.clamp(0, vocab - 1)[:, None],
-                           -torch.ones_like(p[:, :1]))
+            if ctx.sharded:
+                local = lab - ctx.start
+                hit = (local >= 0) & (local < vocab)
+                p.scatter_add_(1, local.clamp(0, vocab - 1)[:, None],
+                               -hit.float()[:, None])
+            else:
+                p.scatter_add_(1, lab.clamp(0, vocab - 1)[:, None],
+                               -torch.ones_like(p[:, :1]))
             p = p * ((lab >= 0).float() * scale)[:, None]
             dlogits = p.to(hidden.dtype)
             dh[c0:c0 + ctx.chunk] = dlogits @ w.t()
             dw += (h_c.t() @ dlogits).float()
         dw = dw.to(weight.dtype)
-        return dh, (dw.t() if ctx.transpose_y else dw), None, None, None
+        return (dh, (dw.t() if ctx.transpose_y else dw), None, None, None,
+                None, None)
 
 
 def fused_linear_cross_entropy(hidden, weight, labels, transpose_y=False,

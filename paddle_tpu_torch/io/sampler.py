@@ -137,18 +137,20 @@ class BatchSampler(Sampler):
 
 
 class DistributedBatchSampler(BatchSampler):
-    """Rank ``rank``'s batches of ``num_replicas`` (both explicit; the
-    distributed runtime is not ported): the padded index list dealt out
-    round robin, shuffled per ``set_epoch`` with
-    ``RandomState(seed + epoch)``."""
+    """Rank ``rank``'s batches of ``num_replicas`` (by default the
+    distributed runtime's rank and world size,
+    ``paddle_tpu_torch.distributed.get_rank`` / ``get_world_size``): the
+    padded index list dealt out round robin, shuffled per ``set_epoch``
+    with ``RandomState(seed + epoch)``."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False, *,
                  seed: Optional[int] = None):
-        if num_replicas is None or rank is None:
-            raise NotImplementedError(
-                "DistributedBatchSampler needs num_replicas and rank: the "
-                "distributed runtime that would supply them is not ported")
+        from ..distributed.parallel import get_rank, get_world_size
+        if num_replicas is None:
+            num_replicas = get_world_size()
+        if rank is None:
+            rank = get_rank()
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

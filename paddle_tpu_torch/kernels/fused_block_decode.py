@@ -684,10 +684,10 @@ def fused_multi_block_decode_tp(x, shards: Sequence[MultiBlockDecodeWeights],
     q|k|v product, RoPE, the append (:func:`write_paged_kv`), the decode
     attention kernel (:func:`paged_attention`) over ``seq_lens + 1``;
     the two row-parallel exits (``wo``, ``wd``) each end in one
-    ``_mp_allreduce`` over the shards, so the residual ``x`` stays
+    ``_mp_allreduce_shards`` over the shards, so the residual ``x`` stays
     replicated. The reference's ``fused_multi_block_decode_tp`` with its
     ``psum`` pair. Returns ``(out, k_pages, v_pages)``."""
-    from ..distributed.fleet.layers.mpu.mp_ops import _mp_allreduce
+    from ..distributed.fleet.layers.mpu.mp_ops import _mp_allreduce_shards
 
     tp = len(shards)
     n = shards[0].n_layers
@@ -717,11 +717,11 @@ def fused_multi_block_decode_tp(x, shards: Sequence[MultiBlockDecodeWeights],
                                    v_pages[s][i], block_tables, lens,
                                    sm_scale)
             parts.append(attn.reshape(b, qw) @ w.wo[i])
-        x2 = x + _mp_allreduce(parts)[0]
+        x2 = x + _mp_allreduce_shards(parts)[0]
         h2 = _rms(x2, shards[0].ln2[i], epsilon)
         parts = []
         for w in shards:
             gu = h2 @ w.wgu[i]
             parts.append((F.silu(gu[:, :inter]) * gu[:, inter:]) @ w.wd[i])
-        x = x2 + _mp_allreduce(parts)[0]
+        x = x2 + _mp_allreduce_shards(parts)[0]
     return x, k_pages, v_pages

@@ -1,6 +1,7 @@
 """Llama (counterpart of ``paddle_tpu/models/llama.py``, without the
-pipeline classes and the tensor-parallel annotations): RMSNorm + rotary +
-GQA + SwiGLU, and ``LlamaPretrainingCriterion``.
+pipeline classes): RMSNorm + rotary + GQA + SwiGLU,
+``LlamaPretrainingCriterion`` and the tensor-parallel annotations
+(``annotate_llama_tp``).
 
 Parameter names and shapes are the JAX model's (``Linear`` keeps the
 ``(in, out)`` layout), so ``raw_state()`` carries across through
@@ -238,7 +239,23 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
     def dtype(self) -> torch.dtype:
         return self.llama.embed_tokens.weight.dtype
 
+    # (mp group, dp group) of the vocab-parallel loss: set by
+    # TrainStep(mesh=...) when it shards the model
+    parallel_loss_groups = None
+
     def logits(self, hidden):
+        if self.parallel_loss_groups is not None:
+            # sharded over the vocabulary: each rank's columns, gathered
+            from ..distributed.fleet.layers.mpu.mp_ops import _c_concat
+            mp = self.parallel_loss_groups[0]
+            if self.lm_head is None:
+                from ..distributed.fleet.meta_parallel.parallel_layers \
+                    .mp_layers import parallel_matmul
+                part = parallel_matmul(hidden, self.llama.embed_tokens.weight,
+                                       True, mp)
+            else:
+                part = self.lm_head(hidden)
+            return _c_concat(part, mp)
         if self.lm_head is None:
             return hidden @ self.llama.embed_tokens.weight.T
         return self.lm_head(hidden)
@@ -253,6 +270,15 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         hidden = self.llama(input_ids, attn_mask, position_ids)
         if labels is None:
             return self.logits(hidden)
+        if self.parallel_loss_groups is not None:
+            from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers \
+                import parallel_fused_linear_cross_entropy
+            tied = self.lm_head is None
+            w = (self.llama.embed_tokens.weight if tied
+                 else self.lm_head.weight)
+            return parallel_fused_linear_cross_entropy(
+                hidden, w, labels, *self.parallel_loss_groups,
+                transpose_y=tied)
         if self.lm_head is None:
             return FF.fused_linear_cross_entropy(
                 hidden, self.llama.embed_tokens.weight, labels,
@@ -328,6 +354,32 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         and f32 scales, in their own dtypes). Names must match exactly
         (:func:`~paddle_tpu_torch.convert.load_state`)."""
         load_state(self, named, buffers)
+
+
+# Megatron's layout of the Llama weights (``Linear`` weights are (in,
+# out)): column-parallel cuts the output dim, row-parallel the input dim
+_LLAMA_TP_COLUMN = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                    "gate_proj.weight", "up_proj.weight")
+_LLAMA_TP_ROW = ("o_proj.weight", "down_proj.weight")
+
+
+def annotate_llama_tp(layer: nn.Module, axis: str = "mp") -> None:
+    """Give each parameter of a Llama its Megatron tensor-parallel
+    ``dist_attr`` by role (a tuple of mesh-axis names or None, as the
+    reference's ``PartitionSpec``): column-parallel projections
+    ``(None, axis)``, row-parallel ones ``(axis, None)``, the embedding
+    ``(axis, None)`` and the head ``(None, axis)`` (both over the
+    vocabulary). ``TrainStep(mesh=...)`` reads them to cut each rank's
+    shards."""
+    for name, p in layer.named_parameters():
+        if any(name.endswith(s) for s in _LLAMA_TP_COLUMN):
+            p.dist_attr = (None, axis)
+        elif any(name.endswith(s) for s in _LLAMA_TP_ROW):
+            p.dist_attr = (axis, None)
+        elif name.endswith("embed_tokens.weight"):
+            p.dist_attr = (axis, None)
+        elif name.endswith("lm_head.weight"):
+            p.dist_attr = (None, axis)
 
 
 class LlamaPretrainingCriterion(nn.Module):

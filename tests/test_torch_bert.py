@@ -22,6 +22,7 @@ Also the tied decoder (one parameter and one JAX state entry, two
 launch (the mask takes SDPA's dense path), and ``ErnieModel``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

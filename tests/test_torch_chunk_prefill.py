@@ -21,6 +21,7 @@ On the same seeded numpy inputs:
     JAX's.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

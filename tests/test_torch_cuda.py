@@ -54,6 +54,7 @@ has no JAX (so the repository's conftest, which imports it, is skipped):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import hashlib
 
 import numpy as np

@@ -15,6 +15,7 @@ CPU tensors.
   finite function through.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 
 import numpy as np

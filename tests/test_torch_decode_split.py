@@ -9,6 +9,7 @@ a length of exactly one part, parts past a row's end, pages of 8, 16 and
 64, GQA.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ restores the flags it set, a disarmed site is the shared no-op stub, and
 every fire lands on the ``faults_injected{site}`` counter.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 
 import pytest

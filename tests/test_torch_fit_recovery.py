@@ -29,6 +29,7 @@ into a cosine decay and a global-norm clip, batches prefetched, a
   to its eager loop); a ``KernelError`` propagates untouched.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,7 @@ Pallas kernel (same tolerances); against 77 keys it is
 wrappers' head-dim limit is 160.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ self-attention against the Pallas forward and cross-attention against 77
 keys (a length the JAX kernel refuses) against the float64 attention.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

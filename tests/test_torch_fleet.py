@@ -13,6 +13,7 @@ losses, the crash-loop budget, a raising callback and ``results()`` across
 a loss.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 
 import numpy as np

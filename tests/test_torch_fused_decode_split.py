@@ -20,6 +20,7 @@ scratch row) as far as the CPU can hold it:
     from registers) computes it.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import math
 
 import numpy as np

@@ -16,6 +16,7 @@ bit for bit where both sides store the same values):
   fold refused.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ fused attention's unmasked eval call reaches the flash route non-causal,
 and the refusals raise ``NotImplementedError``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ the first token's empirical law over 4000 rows is within total variation
 0.05 of the filtered softmax.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ scan and verify) equal to plain decoding and to the JAX spec engine; a
 draft scan at the end of a budget whose positions pass the position table.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

@@ -25,6 +25,7 @@ packages (``torch_serving_twins``), held equal token for token:
   leaf are refused. Three spawns in all.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import copy
 import dataclasses
 
@@ -43,6 +44,9 @@ PROMPT = np.array([1, 5, 9, 2, 7, 3, 3, 8, 4, 6, 2, 11], np.int32)
 NEW = 8
 ENGINE = dict(max_batch=4, max_seq_len=128, page_size=8)
 SEED = 91                 # transport's child rebuilds this model
+# a wedged child fails its test after this long instead of stalling the
+# run
+CHILD_TIMEOUT_S = 120
 
 
 @pytest.fixture(scope="module")
@@ -265,7 +269,8 @@ def test_spawn_roundtrip_and_child_decode(models):
     # k and v of each page, and the prompt
     assert report.n_arrays == 2 * len(bundle["pages"]) + 1
     assert transport.adopt_and_decode_in_child(
-        bundle, model_seed=SEED, engine_kw=ENGINE, device="cpu") == solo
+        bundle, model_seed=SEED, engine_kw=ENGINE, device="cpu",
+        timeout=CHILD_TIMEOUT_S) == solo
 
 
 def test_spawn_child_decode_int8(models):
@@ -274,7 +279,8 @@ def test_spawn_child_decode_int8(models):
     _, _, bundle = _harvest(tserving.ServingEngine, model, kv_dtype="int8")
     assert transport.adopt_and_decode_in_child(
         bundle, model_seed=SEED,
-        engine_kw=dict(ENGINE, kv_dtype="int8"), device="cpu") == solo
+        engine_kw=dict(ENGINE, kv_dtype="int8"), device="cpu",
+        timeout=CHILD_TIMEOUT_S) == solo
 
 
 @pytest.mark.parametrize("leaf,what", [

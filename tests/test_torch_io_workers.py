@@ -15,6 +15,7 @@ native (C++) prefetcher's batch order and the worker-process transport.
   ``PADDLE_TPU_DISABLE_NATIVE=1`` takes the thread path.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -131,9 +132,15 @@ class WorkerIds:
                          -1 if info is None else info.num_workers])
 
 
+# a wedged worker fails its test after this many silent seconds instead of
+# stalling the run
+LOADER_TIMEOUT_S = 60
+
+
 def _port_loader(ds, workers=2, **kw):
     return tio.DataLoader(ds, batch_size=3, shuffle=True, seed=77,
-                          num_workers=workers, use_process_workers=True, **kw)
+                          num_workers=workers, use_process_workers=True,
+                          timeout=LOADER_TIMEOUT_S, **kw)
 
 
 def _batches(loader):
@@ -160,7 +167,7 @@ def test_process_workers_match_jax():
 def test_worker_info_inside_workers():
     assert tio.get_worker_info() is None
     dl = tio.DataLoader(WorkerIds(), batch_size=2, num_workers=3,
-                        use_process_workers=True)
+                        use_process_workers=True, timeout=LOADER_TIMEOUT_S)
     rows = torch.cat(list(dl)).numpy()
     assert rows[:, 0].tolist() == list(range(12))
     assert set(rows[:, 1].tolist()) <= {0, 1, 2}

@@ -11,6 +11,7 @@ the JAX reference, on the same seeded numpy inputs, in float32:
   - the pool writes, exactly.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

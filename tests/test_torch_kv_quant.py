@@ -34,6 +34,7 @@ On the same seeded numpy inputs:
     first tokens equal the native run's; int4 at N = 1 changes nothing.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ port through ``load_numpy_state``. In float32 (the JAX side at
     ``forward_with_cache`` agree to 1e-4, logits and pools.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

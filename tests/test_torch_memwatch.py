@@ -19,6 +19,7 @@
   scratch the same for every N, a verdict against the shared-memory limit.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

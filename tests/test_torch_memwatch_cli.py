@@ -6,6 +6,7 @@ passes an unchanged table and fails when nothing matched; ``bank`` on the
 CPU then ``check`` against it pass, with a row for every program of the
 suite (the MoE-GPT train step among them)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib.util
 import json
 from pathlib import Path

@@ -20,6 +20,7 @@ Also the gate's loss cleared by every step, memwatch's ``train_step`` row,
 the initializers' fans, and the refusals.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -18,6 +18,7 @@ On the same seeded numpy inputs:
     chunked prefill.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,7 @@
   have the JAX package's defaults and key no program.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import collections
 import itertools
 import json

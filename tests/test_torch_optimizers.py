@@ -19,6 +19,7 @@ are cast, the masters switched on) and ``auto_cast``'s casting decisions
 against the reference's dispatch.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

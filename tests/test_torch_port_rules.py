@@ -11,11 +11,13 @@
     it stands alone in a directory.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +25,12 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch import distributed as tdist
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.distributed.fleet import random as trandom
+from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers import \
+    mp_layers as mpl
+from paddle_tpu_torch.hapi import TrainStep
 from paddle_tpu_torch.device import resolve_device, seed
 from paddle_tpu_torch.generation.serving import ServingEngine
 from paddle_tpu_torch.incubate import nn as fused
@@ -54,7 +61,9 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 def _port_files():
     files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + sorted((REPO / "tools").glob("torch_*.py")))
+             + sorted((REPO / "tools").glob("torch_*.py"))
+             # the rank bodies spawned children import
+             + [REPO / "tests" / "torch_dist_ranks.py"])
     assert len(files) > 10
     return files
 
@@ -79,7 +88,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch/models/moe_gpt.py",
             "paddle_tpu_torch/models/unet.py",
             "paddle_tpu_torch/models/bert.py",
-            "tools/torch_memwatch.py"} <= scanned
+            "tools/torch_memwatch.py",
+            "paddle_tpu_torch/distributed/parallel.py",
+            "paddle_tpu_torch/distributed/spawn.py",
+            "paddle_tpu_torch/distributed/communication/group.py",
+            "paddle_tpu_torch/distributed/communication/collectives.py",
+            "paddle_tpu_torch/distributed/communication/p2p.py",
+            "paddle_tpu_torch/distributed/communication/stream/__init__.py",
+            "paddle_tpu_torch/distributed/fleet/fleet.py",
+            "paddle_tpu_torch/distributed/fleet/base_topology.py",
+            "paddle_tpu_torch/distributed/fleet/distributed_strategy.py",
+            "paddle_tpu_torch/distributed/fleet/role_maker.py",
+            "paddle_tpu_torch/distributed/fleet/random.py",
+            "paddle_tpu_torch/distributed/fleet/layers/mpu/mp_ops.py",
+            "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+            "meta_parallel_base.py",
+            "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+            "parallel_layers/mp_layers.py",
+            "paddle_tpu_torch/distributed/fleet/meta_optimizers/"
+            "hybrid_parallel_optimizer.py",
+            "tests/torch_dist_ranks.py"} <= scanned
     bad = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -130,13 +158,25 @@ def no_cuda(monkeypatch):
     lambda: BertForSequenceClassification(BertConfig.tiny()),
     lambda: Conv2D(4, 8, 3),
     lambda: GroupNorm(2, 8),
+    lambda: tdist.init_parallel_env(),
+    lambda: TrainStep(LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
+                      None, mesh=types.SimpleNamespace(
+                          device_type="cuda", mesh_dim_names=("dp", "mp"))),
+    lambda: mpl.ColumnParallelLinear(4, 8),
+    lambda: mpl.RowParallelLinear(4, 8),
+    lambda: mpl.VocabParallelEmbedding(4, 8),
+    lambda: trandom.RNGStatesTracker().add("a", 1),
+    lambda: trandom.model_parallel_random_seed(1),
 ], ids=["llama", "llama-cuda", "linear", "embedding", "rmsnorm",
         "paged-kv-cache", "seed", "resolve_device", "device-prefetcher",
         "child-decode", "gpt", "layernorm", "quantized-linear", "moe-gpt",
         "moe-layer", "experts", "gshard-gate", "fused-linear",
         "fused-bias-dropout-residual-ln", "fused-mha", "fused-ffn",
         "fused-encoder-layer", "fused-multi-transformer", "unet", "bert",
-        "bert-pretraining", "bert-classification", "conv2d", "group-norm"])
+        "bert-pretraining", "bert-classification", "conv2d", "group-norm",
+        "init-parallel-env", "train-step-mesh", "column-parallel-linear",
+        "row-parallel-linear", "vocab-parallel-embedding", "rng-tracker",
+        "model-parallel-seed"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):
     with pytest.raises(RuntimeError, match="cuda"):
         build()

@@ -34,6 +34,7 @@ second engine, and a device-tensor rotary offset gives the host-int
 path's logits bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 import types
 

@@ -13,6 +13,7 @@ the same quantized model through both serving engines (the generic route:
 its weights are buffers) and ``generate``, token for token.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

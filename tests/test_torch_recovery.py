@@ -16,115 +16,29 @@ tier, a ``preempt`` fault, the engine-wide no-progress budget when nothing
 is in flight, and, in the port only: a ``KernelError`` or a CUDA error is
 not replayed, recovery resets the pools in place (the same tensors, so CUDA
 graphs captured over them stay valid) without a new program trace, and
-``PagedKVCache.reset`` equals a fresh cache.
+``PagedKVCache.reset`` equals a fresh cache. The engine pair is
+``torch_recovery_twins``'; the card's drill at its geometry is
+``test_torch_recovery_drill.py``.
 """
 
-import itertools
-
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu import observability as jobs
 from paddle_tpu.generation import serving as jserving
 from paddle_tpu.generation.program_cache import \
     clear_decode_program_cache as jclear_cache
 from paddle_tpu.testing import faults as jfaults
-from paddle_tpu_torch import observability as tobs
 from paddle_tpu_torch.generation import serving as tserving
 from paddle_tpu_torch.generation.program_cache import (
     clear_decode_program_cache, decode_program_cache)
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels._build import KernelError
 from paddle_tpu_torch.testing import faults as tfaults
-from torch_serving_twins import (both_flags, clocked, patch_clock, solo,
-                                 tiny_llamas, tokens)
-
-SITES = ("_f_prefill", "_f_chunk", "_f_decode", "_f_migrate", "_f_preempt")
-COUNTERS = ("serving_retries_total", "serving_recoveries",
-            "serving_requests_failed")
-_TAGS = itertools.count()          # a replica label per engine pair
-
-
-@pytest.fixture(scope="module")
-def models():
-    return tiny_llamas(97)
-
-
-@pytest.fixture
-def clock(monkeypatch):
-    return patch_clock(monkeypatch)
-
-
-def _series(obs, name, labels):
-    fam = obs.snapshot()["metrics"].get(name)
-    for s in (fam or {}).get("series", []):
-        if s["labels"] == labels:
-            return s["value"]
-    return 0.0
-
-
-def _injected(obs):
-    return {site: _series(obs, "faults_injected", {"site": site})
-            for site in sorted(tfaults.KNOWN_SITES)}
-
-
-def _fire_points(eng):
-    sites = [getattr(eng, n) for n in SITES]
-    if eng._prefix is not None:
-        sites.append(eng._prefix._f_spill)
-    return [(s.calls, s.fires) if s.armed else None for s in sites]
-
-
-def _both(models, clock, script, spec="", flags=None, **kw):
-    """``script(engine)`` on an engine of each package built under ``spec``
-    and ``flags`` (replica labels of their own); returns (JAX's
-    observation, the port's), each with the recovery counters, the fires
-    and the fire points added."""
-    jmodel, model = models
-    seen = []
-    tag = f"recovery-{next(_TAGS)}"
-    for cls, mdl, faults, obs in (
-            (jserving.ServingEngine, jmodel, jfaults, jobs),
-            (tserving.ServingEngine, model, tfaults, tobs)):
-        before = _injected(obs)
-        with both_flags(**(flags or {})), \
-                faults.armed(spec, serving_retry_backoff=0.001):
-            eng = clocked(cls, mdl, clock, replica=tag, **kw)
-        got = script(eng)
-        labels = {"replica": tag, "tp": "1"}
-        got.update(
-            counters={c: _series(obs, c, labels) for c in COUNTERS},
-            fires={k: v - before[k] for k, v in _injected(obs).items()
-                   if v != before[k]},
-            fire_points=_fire_points(eng))
-        seen.append(got)
-    return seen
-
-
-def _submit_run(prompts, new, step_first=0, max_wall=None, head=2):
-    """Submit ``prompts`` (the first ``step_first`` steps with only the
-    first ``head`` queued) and run; the streams and statuses in submit
-    order."""
-    def script(eng):
-        rids = [eng.submit(p, new) for p in prompts[:head]]
-        for _ in range(step_first):
-            eng.step()
-        rids += [eng.submit(p, new) for p in prompts[head:]]
-        out = eng.run(max_wall=max_wall)
-        return dict(streams=[out[r] for r in rids],
-                    statuses=[eng.status(r) for r in rids],
-                    drained=not eng.has_work(),
-                    free=eng.pool.free_page_count())
-    return script
-
-
-def _check(models, want, got, prompts, new):
-    assert got == want
-    jmodel, _ = models
-    assert got["streams"] == [solo(jmodel, p, new) for p in prompts]
-    assert got["statuses"] == ["OK"] * len(prompts)
-
+from torch_recovery_twins import (  # noqa: F401  (fixtures)
+    _both, _check, _submit_run, clock, models)
+from torch_serving_twins import clocked, solo, tokens
 
 # ------------------------------------------- the JAX package's recovery cases
 def test_transient_dispatch_failure_recovers_with_parity(models, clock):
@@ -387,54 +301,6 @@ def test_nothing_in_flight_spends_the_engine_budget(models, clock):
     assert got == want
     assert got["steps"] == 4 and got["queued"] == 3 and got["consec"] == 3
     assert got["counters"]["serving_recoveries"] == 3
-
-
-# ------------------------------------------------ chip_smoke.py's drill
-DRILL_LENS = (17, 77, 130, 256, 300, 700, 33, 200)
-DRILL_SPEC = "prefill:every=5;chunk_prefill:every=4;decode_dispatch:every=9"
-
-
-@pytest.fixture(scope="module")
-def long_models():
-    return tiny_llamas(97, max_position_embeddings=1024)
-
-
-@pytest.mark.parametrize("retries", [None, 20],
-                         ids=["default_budget", "drill_budget"])
-def test_recovery_drill_schedule_matches_the_jax_engine(long_models, clock,
-                                                        retries):
-    """The card's recovery drill (chip_smoke.py) at its geometry on the
-    tiny model: max_batch 4, 64-token pages, a 1024-token context, the
-    prefix cache, 256-token chunks; prompts of 17 to 700 tokens with 32 new
-    tokens each, half submitted after 6 steps, under the drill's spec. The
-    fault schedule depends on the traffic and the spec only, so both
-    engines fire at the same checks and agree on statuses, streams and
-    counters. At the default budget (3) the two chunked prompts (300 and
-    700 tokens) end FAILED in both engines, since every fault replays
-    every request in flight; at the drill's budget (20) every request ends
-    OK with its fault-free stream."""
-    rng = np.random.default_rng(13)
-    prompts = [tokens(rng, n) for n in DRILL_LENS]
-    kw = dict(max_batch=4, page_size=64, max_seq_len=1024, prefix_cache=True,
-              prefill_chunk=256)
-    flags = {} if retries is None else dict(serving_max_retries=retries)
-    script = _submit_run(prompts, 32, step_first=6, head=4)
-    want, got = _both(long_models, clock, script, spec=DRILL_SPEC,
-                      flags=flags, **kw)
-    assert got == want
-    assert got["drained"]
-    assert got["counters"]["serving_recoveries"] == sum(
-        got["fires"].values())
-    assert set(got["fires"]) == {"prefill", "chunk_prefill",
-                                 "decode_dispatch"}
-    if retries is None:
-        assert got["statuses"] == ["FAILED" if n in (300, 700) else "OK"
-                                   for n in DRILL_LENS]
-        assert got["counters"]["serving_requests_failed"] == 2
-        return
-    assert got["statuses"] == ["OK"] * len(prompts)
-    _, clean = _both(long_models, clock, script, **kw)
-    assert clean["streams"] == got["streams"] and not clean["fires"]
 
 
 # ------------------------------------------------------------- port only

@@ -14,6 +14,7 @@ and its ``nn.functional.rms_norm`` route (two) agree; a bf16 test pins the
 designed difference: the port computes the kernel's value.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

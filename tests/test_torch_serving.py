@@ -14,6 +14,7 @@ own files, ``test_torch_chunk_prefill.py`` and
 the bucket ladder ``test_torch_serving_sched.py``.)
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

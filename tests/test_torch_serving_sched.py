@@ -12,6 +12,7 @@ equal. The decode program cache's build counts, the page pool's row move,
 the page budget and the new flags' defaults are held here too.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 import types
 

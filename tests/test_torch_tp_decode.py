@@ -6,7 +6,7 @@ the JAX engine shards over host devices (the suite's conftest gives it 8):
 
 - ``shard_block_weights`` equals the reference's bit for bit on the same
   numpy stack, and refuses int4 tiles and indivisible counts alike;
-- ``fused_multi_block_decode_tp``'s shards, summed by ``_mp_allreduce``,
+- ``fused_multi_block_decode_tp``'s shards, summed by ``_mp_allreduce_shards``,
   equal the reference's ``shard_map`` chain over two host devices (fp32,
   1e-5) in output and written pools;
 - greedy streams at tp = 2 equal the port's tp = 1 and the JAX engine's
@@ -18,6 +18,7 @@ the JAX engine shards over host devices (the suite's conftest gives it 8):
   child, and ``FleetRouter(tp_degree=2)``'s replicas.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -47,6 +48,9 @@ from torch_serving_twins import both_flags, tiny_gpts, tiny_llamas
 PROMPTS = [[1, 5, 9, 2], [3, 7, 4], [2, 2, 8, 6, 1]]
 KW = dict(max_batch=4, max_seq_len=128)
 SEED = 91                 # transport's child rebuilds this model
+# a wedged child fails its test after this long instead of stalling the
+# run
+CHILD_TIMEOUT_S = 120
 
 
 @pytest.fixture(scope="module")
@@ -346,7 +350,7 @@ def test_spawn_roundtrip_tp2():
     transport.assert_bundle_transportable(bundle)
     assert transport.adopt_and_decode_in_child(
         bundle, model_seed=SEED, engine_kw=dict(KW, **kw),
-        device="cpu") == solo
+        device="cpu", timeout=CHILD_TIMEOUT_S) == solo
 
 
 # ---------------------------------------------------------------- fleet

@@ -18,6 +18,7 @@ global-norm clipping and ``LinearWarmup(CosineAnnealingDecay)``:
     update, and the ``TrainStep`` options the port refuses.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -312,20 +313,26 @@ def test_optimizer_updates_match_jax(cls, kw):
 
 
 @pytest.mark.parametrize("kw,refused", [
-    (dict(mesh=object()), True), (dict(param_spec_fn=lambda n, v: None), True),
-    (dict(sharding_level=2), True), (dict(sharding_axis="dp"), True),
-    (dict(gradient_merge_k=2), False), (dict(localsgd_k=2), True),
-    (dict(remat=True), False), (dict(metrics_every=5), False),
+    (dict(mesh=object()), TypeError),
+    (dict(param_spec_fn=lambda n, v: None), ValueError),
+    (dict(sharding_level=2), NotImplementedError),
+    (dict(sharding_axis="dp"), NotImplementedError),
+    (dict(gradient_merge_k=2), None),
+    (dict(localsgd_k=2), NotImplementedError),
+    (dict(remat=True), None), (dict(metrics_every=5), None),
 ], ids=["mesh", "param_spec_fn", "sharding_level", "sharding_axis",
         "gradient_merge", "localsgd", "remat", "metrics_every"])
 def test_refused_train_step_options(kw, refused):
-    """The distributed options stay refused; gradient merge, remat and
-    the metrics cadence are ported (tests/test_torch_train_fit.py holds
-    them to JAX's) and take effect."""
+    """ZeRO sharding and LocalSGD stay refused (``NotImplementedError``);
+    a mesh must be a ``DeviceMesh`` and a parameter spec needs one (the
+    hybrid step itself: tests/test_torch_hybrid_train.py); gradient merge,
+    remat and the metrics cadence are ported
+    (tests/test_torch_train_fit.py holds them to JAX's) and take
+    effect."""
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     opt = AdamW(1e-3, parameters=model.parameters())
     if refused:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(refused):
             TrainStep(model, opt, **kw)
         return
     step = TrainStep(model, opt, **kw)

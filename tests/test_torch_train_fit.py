@@ -34,6 +34,7 @@ gradient differences). Checked:
     ``ModelCheckpoint`` files loading back, also a JAX-written file.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 
 import numpy as np

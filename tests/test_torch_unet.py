@@ -24,6 +24,7 @@ through the flash wrappers (not causal, the cross-attention against 77
 keys), and the refusals.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ package's (its dense route off the TPU for the first, its Pallas kernel
 in interpret mode for the second), gradients through its autograd.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

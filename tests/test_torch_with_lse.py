@@ -19,6 +19,7 @@ the unmasked call still launches the flash kernels' route (its plain
 versions here) and the masked one never does.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
