@@ -394,7 +394,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               without remat, then 5 steps timed as train, with a lower
               peak memory than train's and the forward kernel launched
               twice a layer and micro-batch (160), dq and dk/dv 80;
-     hybrid   this slice's main path: the same model, batch and recipe
+     hybrid   the same model, batch and recipe
               through the reference's hybrid recipe on one NCCL rank
               (init_parallel_env over a one-rank world on a free
               localhost port, fleet.init with dp = mp = 1,
@@ -408,18 +408,46 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               several ranks on the one card, started by the port's spawn,
               over gloo with CUDA tensors (NCCL refuses two ranks on one
               device; a gloo all-reduce crosses the host, so the step
-              times are no performance figure): fp32 at 7B width and 2
-              layers, batch 2 x 1024, 3 warmup/cosine AdamW steps with the
-              clip, at dp = 2 and mp = 2 (a world of 2) and dp = 2 x mp =
-              2 (a world of 4): every rank's losses equal, within 1e-5
-              relative of the same steps in one process, the parameters
-              gathered on the card (each shard all-reduced into its slice
-              of zeros over mp; the dp replicas equal bit for bit) within
-              1e-5 of the one-process run except at most 1e-3 of the
-              elements, each within 3 lr (how many is reported); then bf16
-              at train's depth, mp = 2, 1 x 4096 tokens: finite, falling
-              losses, each rank's #7-#9 launched 8 x 3 times at 16 heads,
-              and the loss gap to one process reported;
+              times are no performance figure), one world after another:
+              fp32 at 7B width and 2 layers, batch 2 x 1024, 3
+              warmup/cosine AdamW steps with the clip, at dp = 2 and mp =
+              2 (a world of 2) and dp = 2 x mp = 2 (a world of 4): every
+              rank's losses equal, within 1e-5 relative of the same steps
+              in one process, the parameters gathered whole on the card
+              (the replicas' fingerprints equal) within 1e-5 of the
+              one-process run except at most 1e-3 of the elements, each
+              within 3 lr (how many is reported); then bf16 at train's
+              depth, batch and recipe at mp = 2 (two micro-batches of 1 x
+              4096 a rank): finite, falling losses within 1e-2 relative
+              of train's first 3, each rank's #7-#9 launched 8 x 2 x 3
+              times at 16 heads;
+     zero     this slice's main path: train's model, batch and recipe on
+              one NCCL rank through fleet.init (sharding_degree = 1),
+              annotate_llama_tp, group_sharded_parallel at "os", "os_g"
+              and "p_g_os" in turn and TrainStep(mesh=hcg.get_mesh(),
+              data_axes=("dp", "sharding")): at one sharding rank the ZeRO
+              plan is empty, so each level's 3 losses equal train's first
+              3 bit for bit, with hybrid's collectives a step and no
+              other; #7-#9 launched 8 x 2 x 3 times a level; step ms and
+              peak memory; then strategy.dgc (a Momentum turned into
+              DGCMomentum by fleet.distributed_optimizer, rampup from step
+              0, sparsity 0.999) 3 steps with finite losses, its step ms
+              beside the plain Momentum's;
+     zero_ranks
+              ZeRO across ranks on the one card, through hybrid_ranks'
+              rank body, checks and schedule: fp32 at 7B width and 2
+              layers, 3 warmup/cosine AdamW steps with the clip, at
+              sharding = 2 and stages 1, 2, 3 and LocalSGD at dp = 2 with
+              k = 2 (a world of 2), dp = 2 x sharding = 2 at stage 2 (4 x
+              512 tokens: 2 rows do not split over 4 data ranks) and
+              sharding = 2 x mp = 2 at stage 3 (a world of 4), held as
+              hybrid_ranks' fp32 rows (LocalSGD: two replicas in one
+              process, averaged every second step); then, in the world of
+              2, bf16 at train's depth, sharding = 2, each rank 1 x 4096
+              of train's batch, at stage 3 (held as hybrid_ranks' bf16
+              row, each rank's #7-#9 launched 8 x 3 times) and one step at
+              stage 1 (its loss train's first within 1e-2): stage 3's
+              resting memory (between steps) below stage 1's;
      fit      the slice's main path: Model.fit on the same width at 4
               layers, amp.decorate(O2, bf16) without f32 masters (its two
               checkpoints and fit_faults' two must stay within what a call
@@ -707,8 +735,14 @@ SOURCES = {name: entry for base, src in SOURCES.items()
                (f"{base}_{v}", src) for v in VARIANTS.get(base, ())]}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``'s fields and the script's seconds so
+    far (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -5706,11 +5740,13 @@ def check_flash_with_lse(dtype, device):
 
 # ----------------------------------------------------------------- train
 def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False,
-                 mesh=None, fleet=None):
+                 mesh=None, fleet=None, level=None, **step_kw):
     """AdamW(multi_precision) + global-norm clip, through TrainStep; with
     ``steps`` a 2-step linear warmup into a cosine decay. With ``fleet``
     the model and the optimizer go through its ``distributed_model`` /
-    ``distributed_optimizer``; ``mesh`` is TrainStep's."""
+    ``distributed_optimizer``, with ``level`` through
+    ``group_sharded_parallel``; ``mesh`` and ``step_kw`` are
+    TrainStep's."""
     from paddle_tpu_torch.hapi import TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
@@ -5725,8 +5761,11 @@ def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False,
     if fleet is not None:
         model, opt = fleet.distributed_model(model), \
             fleet.distributed_optimizer(opt)
+    if level is not None:
+        from paddle_tpu_torch.distributed import group_sharded_parallel
+        model, opt, _ = group_sharded_parallel(model, opt, level)
     return TrainStep(model, opt, grad_accum_steps=grad_accum_steps,
-                     remat=remat, mesh=mesh)
+                     remat=remat, mesh=mesh, **step_kw)
 
 
 def token_batch(vocab, batch, seq, seed_offset):
@@ -5916,17 +5955,31 @@ def run_train_remat(device, train):
     return counts
 
 
-# hybrid_ranks: (dp, mp) of the fp32 rows at HYBRID_RANK_LAYERS, and the
-# bf16 row at train's depth (mp = 2, 1 x TRAIN_SEQ)
+# hybrid_ranks and zero_ranks: rows across gloo ranks on the one card. fp32
+# rows run 7B width at HYBRID_RANK_LAYERS on HYBRID_RANK_BATCH x
+# HYBRID_RANK_SEQ tokens and are held to one process; bf16 rows run train's
+# depth, batch and recipe and are held to train's losses
 HYBRID_RANK_LAYERS, HYBRID_RANK_BATCH, HYBRID_RANK_SEQ = 2, 2, 1024
 HYBRID_RANK_STEPS = 3
 HYBRID_RANK_LR = 3e-4
-HYBRID_FP32_ROWS = ((2, 1), (1, 2), (2, 2))
 HYBRID_LOSS_RTOL = 1e-5     # fp32: mp splits the row-parallel sums
 HYBRID_PARAM_TOL = 1e-5     # fp32, elementwise, against the one-rank run
 HYBRID_PARAM_OFF_FRAC = 1e-3  # elements allowed beyond it (near AdamW's
                               # eps), each within 3 lr
+BF16_RANK_LOSS_RTOL = 1e-2  # bf16 sums in another order than train's
 HYBRID_TIMEOUT_S = 600      # join; each gloo group fails after 300 s
+
+
+def one_nccl_rank():
+    """init_parallel_env over a one-rank NCCL world on a free localhost
+    port (the machine has no other interface than lo)."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.parallel import free_port
+    os.environ.update(PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1",
+                      PADDLE_LOCAL_RANK="0",
+                      PADDLE_MASTER=f"127.0.0.1:{free_port()}")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    pdist.init_parallel_env()
 
 
 def run_hybrid(device, train):
@@ -5939,13 +5992,8 @@ def run_hybrid(device, train):
     bit for bit."""
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.distributed.parallel import free_port
     from paddle_tpu_torch.models.llama import annotate_llama_tp
-    os.environ.update(PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1",
-                      PADDLE_LOCAL_RANK="0",
-                      PADDLE_MASTER=f"127.0.0.1:{free_port()}")
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    pdist.init_parallel_env()
+    one_nccl_rank()
     try:
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
@@ -5984,43 +6032,35 @@ def run_hybrid(device, train):
          launches=counts)
     del model, trainer, x, y
     torch.cuda.empty_cache()
-    return counts
+    return counts, {k: v / TRAIN_STEPS for k, v in coll.items()}
 
 
-def _gathered(model, hcg):
-    """Each parameter whole on this rank, on the card: a shard written
-    into zeros at its slice and all-reduced over mp (exact: one nonzero
-    term an element); and how many tensors differ from the first dp
-    rank's copy (broadcast over dp)."""
-    from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch.convert import shard_slices
-    mp, dp = hcg.get_model_parallel_group(), hcg.get_data_parallel_group()
-    coords = {"mp": hcg.get_model_parallel_rank()}
-    sizes = {"mp": mp.nranks}
-    out, unequal = {}, 0
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            spec = getattr(p, "dist_attr", None) or ()
-            if "mp" in spec and mp.nranks > 1:
-                shape = [n * (mp.nranks if a == "mp" else 1)
-                         for n, a in zip(p.shape, tuple(spec) + (None,) * 2)]
-                whole = torch.zeros(shape, dtype=p.dtype, device=p.device)
-                whole[shard_slices(shape, spec, coords, sizes)] = p
-                pdist.all_reduce(whole, group=mp)
-            else:
-                whole = p.detach().clone()
-            if dp.nranks > 1:
-                first = whole.clone()
-                pdist.broadcast(first, dp.ranks[0], group=dp)
-                unequal += int(not torch.equal(first, whole))
-                del first
-            out[name] = whole
-    return out, unequal
+def rank_row(level=None, dp=1, sharding=1, mp=1, dtype=torch.float32,
+             batch=HYBRID_RANK_BATCH, seq=HYBRID_RANK_SEQ, localsgd_k=None,
+             steps=HYBRID_RANK_STEPS):
+    """One row of hybrid_ranks or zero_ranks: the degrees, the ZeRO level
+    (None: no group_sharded_parallel) and LocalSGD's k. An fp32 row runs
+    HYBRID_RANK_LAYERS on ``batch`` x ``seq`` tokens (seed 7) in one
+    micro-batch; a bf16 row train's depth, global batch (seed 5), schedule
+    and micro-batch of one row, so a rank with more rows accumulates. A
+    row of one step only reads its resting memory (the optimizer state is
+    made in the first step)."""
+    fp32 = dtype == torch.float32
+    if not fp32:
+        batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    return dict(level=level, dp=dp, sharding=sharding, mp=mp, dtype=dtype,
+                layers=HYBRID_RANK_LAYERS if fp32 else TRAIN_LAYERS,
+                batch=batch, seq=seq, seed=7 if fp32 else 5,
+                lr=HYBRID_RANK_LR if fp32 else 3e-4,
+                sched_steps=HYBRID_RANK_STEPS if fp32 else TRAIN_STEPS,
+                accum=1 if fp32 else batch // (dp * sharding),
+                localsgd_k=localsgd_k, steps=steps)
 
 
-def _one_rank(device, dtype, layers, batch, seq):
-    """The same steps in one process, no runtime: (losses, parameters)."""
-    cfg, model = train_model(device, SEED, dtype=dtype, layers=layers)
+def _one_rank(device, layers, batch, seq):
+    """The fp32 steps in one process, no runtime: (losses, parameters)."""
+    cfg, model = train_model(device, SEED, dtype=torch.float32,
+                             layers=layers)
     trainer = make_trainer(model, HYBRID_RANK_LR, steps=HYBRID_RANK_STEPS)
     x, y = (t.to(device) for t in token_batch(cfg.vocab_size, batch, seq,
                                               7))
@@ -6030,17 +6070,78 @@ def _one_rank(device, dtype, layers, batch, seq):
     return losses, params
 
 
-def hybrid_rank_body(rank, rows):
-    """One rank of hybrid_ranks: gloo on cuda:0 (NCCL refuses two ranks on
-    one device); each row (dp, mp, layers, dtype, batch, seq) builds the
-    seeded model, annotate_llama_tp, TrainStep(mesh=...) at warmup/cosine
-    AdamW with the clip, HYBRID_RANK_STEPS steps with this rank's #7-#9
-    launches and collectives counted. Rank 0 gathers each fp32 row's
-    parameters and, once the world is done, runs the rows alone
-    (_one_rank) and holds them to it."""
+def _localsgd_reference(device, row):
+    """LocalSGD's emulation in one process: two replicas, each stepping on
+    its row of the batch, their parameters averaged every k-th step:
+    (the replicas' mean loss a step, replica 0's parameters)."""
+    models, trainers = [], []
+    for _ in range(2):
+        cfg, m = train_model(device, SEED, dtype=torch.float32,
+                             layers=row["layers"])
+        models.append(m)
+        trainers.append(make_trainer(m, HYBRID_RANK_LR,
+                                     steps=row["sched_steps"]))
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, row["batch"],
+                                              row["seq"], row["seed"]))
+    losses = []
+    for step in range(1, row["steps"] + 1):
+        losses.append(sum(float(t(x[i:i + 1], y[i:i + 1]))
+                          for i, t in enumerate(trainers)) / 2)
+        if step % row["localsgd_k"] == 0:
+            with torch.no_grad():
+                for a, b in zip(models[0].parameters(),
+                                models[1].parameters()):
+                    mean = (a + b) / 2
+                    a.copy_(mean)
+                    b.copy_(mean)
+    params = {k: p.detach() for k, p in models[0].named_parameters()}
+    del trainers, models
+    return losses, params
+
+
+def _fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """A position-weighted sum of an fp32 tensor's bits in int64 (which
+    wraps), on the card: replicas equal bit for bit give equal sums."""
+    bits = t.detach().reshape(-1).view(torch.int32).long()
+    weight = torch.arange(bits.numel(), device=bits.device,
+                          dtype=torch.int64) * -7046029254386353131 + 1
+    return (bits * weight).sum()
+
+
+def _whole_on_card(model, hcg, check_replicas=True):
+    """Each parameter whole on this rank, on the card (ZeRO slices gathered
+    over sharding, tensor-parallel shards over mp), and how many differ
+    from the first rank's copy over dp and over sharding (each tensor's
+    _fingerprint broadcast, not the tensor: gloo crosses the host)."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.sharding.group_sharded import \
+        whole_parameters
+    whole = whole_parameters(model)
+    unequal = 0
+    groups = [g for g in (hcg.get_data_parallel_group(),
+                          hcg.get_sharding_parallel_group())
+              if check_replicas and g.nranks > 1]
+    if groups:
+        with torch.no_grad():
+            mine = torch.stack([_fingerprint(t) for t in whole.values()])
+            for g in groups:
+                first = mine.clone()
+                pdist.broadcast(first, g.ranks[0], group=g)
+                unequal += int((first != mine).sum())
+    return whole, unequal
+
+
+def rank_body(rank, rows):
+    """One rank of hybrid_ranks or zero_ranks: gloo on cuda:0 (NCCL
+    refuses two ranks on one device); each rank_row builds the seeded
+    model (annotate_llama_tp but under LocalSGD), make_trainer through
+    group_sharded_parallel at the row's level (if any) on
+    TrainStep(mesh=..., data_axes=("dp", "sharding")), the row's steps
+    with this rank's #7-#9 launches, collectives, peak and resting memory.
+    The fp32 rows' parameters are gathered whole; rank 0 holds them, once
+    the world is done, to the same steps in one process."""
     import datetime
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.distributed.fleet import base_topology as topo
     from paddle_tpu_torch.models.llama import annotate_llama_tp
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6050,133 +6151,341 @@ def hybrid_rank_body(rank, rows):
                             timeout=datetime.timedelta(seconds=300))
     out, kept = [], []
     try:
-        for dp, mp, layers, dtype, batch, seq in rows:
-            hcg = topo.create_hybrid_communicate_group(dp_degree=dp,
-                                                       mp_degree=mp)
-            cfg, model = train_model(device, SEED, dtype=dtype,
-                                     layers=layers)
-            annotate_llama_tp(model)
-            trainer = make_trainer(model, HYBRID_RANK_LR,
-                                   steps=HYBRID_RANK_STEPS,
-                                   mesh=hcg.get_mesh())
-            x, y = (t.to(device) for t in token_batch(cfg.vocab_size, batch,
-                                                      seq, 7))
+        for row in rows:
+            hcg = topo.create_hybrid_communicate_group(
+                dp_degree=row["dp"], sharding_degree=row["sharding"],
+                mp_degree=row["mp"])
+            cfg, model = train_model(device, SEED, dtype=row["dtype"],
+                                     layers=row["layers"])
+            if not row["localsgd_k"]:
+                annotate_llama_tp(model)
+            trainer = make_trainer(model, row["lr"],
+                                   steps=row["sched_steps"],
+                                   grad_accum_steps=row["accum"],
+                                   mesh=hcg.get_mesh(), level=row["level"],
+                                   data_axes=("dp", "sharding"),
+                                   localsgd_k=row["localsgd_k"])
+            x, y = (t.to(device) for t in token_batch(
+                cfg.vocab_size, row["batch"], row["seq"], row["seed"]))
             pdist.reset_collective_counts()
-            losses, step_s, counts, peak = timed_steps(
-                trainer, (x, y), 0, HYBRID_RANK_STEPS)
-            row = dict(dp=dp, mp=mp, layers=layers,
-                       dtype=DTYPE_NAME[dtype], batch=batch, seq=seq,
-                       losses=losses, step_ms=[1e3 * v for v in step_s],
+            losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0,
+                                                       row["steps"])
+            got = dict(losses=losses, step_ms=[1e3 * v for v in step_s],
                        launches={k: counts[k] for k in TRAIN_KERNELS},
                        collectives=pdist.collective_counts(),
+                       resolved_level=trainer.sharding_level,
                        heads=model.llama.layers[0].self_attn.num_heads,
-                       peak_mem_gb=peak / 1e9)
+                       peak_mem_gb=peak / 1e9,
+                       resting_mem_gb=torch.cuda.memory_allocated() / 1e9)
             del trainer, x, y
-            if dtype == torch.float32:
-                params, row["dp_replicas_unequal"] = _gathered(model, hcg)
+            if row["dtype"] == torch.float32:
+                params, got["replicas_unequal"] = _whole_on_card(
+                    model, hcg, not row["localsgd_k"])
                 if rank == 0:
-                    kept.append(params)
+                    kept.append({k: v.cpu() for k, v in params.items()})
                 del params
-            out.append(row)
+            out.append(got)
             topo._reset_hcg()
             del model
             torch.cuda.empty_cache()
     finally:
         pdist.destroy_process_group()
     if rank == 0:
-        # the world is done: the same rows in one process
+        # the world is done: the fp32 rows in one process
         refs = {}
-        for (dp, mp, layers, dtype, batch, seq), row in zip(rows, out):
-            key = (layers, dtype, batch, seq)
-            if key not in refs:
-                refs[key] = _one_rank(device, dtype, layers, batch, seq)
-            ref_losses, ref_params = refs[key]
-            row["one_rank_losses"] = ref_losses
-            row["loss_rel_err"] = max(
-                abs(a - b) / abs(b) for a, b in zip(row["losses"],
-                                                    ref_losses))
-            if dtype == torch.float32:
-                got = kept.pop(0)
-                off = total = 0
-                worst = 0.0
-                for name, want in ref_params.items():
-                    diff = (got[name].double() - want.double()).abs()
-                    worst = max(worst, float(diff.max()))
-                    off += int((diff > HYBRID_PARAM_TOL).sum())
-                    total += diff.numel()
-                row.update(param_max_abs_err=worst, params_off=off,
-                           params_total=total,
-                           param_names_equal=sorted(got) == sorted(
-                               ref_params))
-                del got
+        for row, got in zip(rows, out):
+            if row["dtype"] != torch.float32:
+                continue
+            if row["localsgd_k"]:
+                ref_losses, ref_params = _localsgd_reference(device, row)
+            else:
+                key = (row["batch"], row["seq"])
+                if key not in refs:
+                    refs[key] = _one_rank(device, row["layers"], *key)
+                ref_losses, ref_params = refs[key]
+            got["one_rank_losses"] = ref_losses
+            got["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                      zip(got["losses"], ref_losses))
+            params = kept.pop(0)
+            off = total = 0
+            worst = 0.0
+            for name, want in ref_params.items():
+                diff = (params[name].to(device).double()
+                        - want.double()).abs()
+                worst = max(worst, float(diff.max()))
+                off += int((diff > HYBRID_PARAM_TOL).sum())
+                total += diff.numel()
+                del diff
+            got.update(param_max_abs_err=worst, params_off=off,
+                       params_total=total,
+                       param_names_equal=sorted(params) == sorted(
+                           ref_params))
+            del params, ref_params, ref_losses
             torch.cuda.empty_cache()
         del refs
     return out
 
 
-def run_hybrid_ranks():
-    """Several ranks on the one card, started by the port's spawn, over
-    gloo with CUDA tensors: fp32 rows at HYBRID_RANK_LAYERS (dp = 2, mp =
-    2 in a world of 2, then dp = 2 x mp = 2 in a world of 4) held to the
-    one-rank run, and the bf16 row (mp = 2, train's depth, 1 x TRAIN_SEQ)
-    with exact #7-#9 launches on each rank and its loss gap to one rank
-    reported. A gloo all-reduce crosses the host, so the step times say
-    nothing of the card's speed."""
+def spawn_worlds(worlds):
+    """Each world (ranks, rows) of rank_body started on the one card
+    through the port's spawn and joined before the next starts (two
+    side by side ran out of card memory): [(ranks, rows, context,
+    seconds)] with each rank's results."""
     from paddle_tpu_torch.distributed import spawn
+    done = []
+    for n, rows in worlds:
+        t0 = time.perf_counter()
+        ctx = spawn(rank_body, args=(rows,), nprocs=n, join=False)
+        try:
+            ctx.join(HYBRID_TIMEOUT_S)
+        finally:
+            ctx.terminate()
+        done.append((n, rows, ctx, time.perf_counter() - t0))
+    return done
 
-    def fp32(dp, mp):
-        return (dp, mp, HYBRID_RANK_LAYERS, torch.float32,
-                HYBRID_RANK_BATCH, HYBRID_RANK_SEQ)
 
-    worlds = ((2, [fp32(2, 1), fp32(1, 2),
-                   (1, 2, TRAIN_LAYERS, torch.bfloat16, 1, TRAIN_SEQ)]),
-              (4, [fp32(2, 2)]))
+def check_rank_worlds(phase, worlds, train):
+    """The rows of ``worlds`` (spawn_worlds') held to their checks: each
+    rank's #7-#9 launched layers x micro-batches x steps times, every
+    rank's losses equal, 32 / mp heads a rank, finite losses that fall;
+    an fp32 row's losses within HYBRID_LOSS_RTOL of one process, its
+    gathered parameters equal across replicas and within HYBRID_PARAM_TOL
+    of one process but at most HYBRID_PARAM_OFF_FRAC of the elements (each
+    within 3 lr); a bf16 row's losses within BF16_RANK_LOSS_RTOL of
+    train's. (rows, the launches summed)."""
     rows, counts = [], {k: 0 for k in TRAIN_KERNELS}
-    t0 = time.perf_counter()
-    for n, world_rows in worlds:
-        ctx = spawn(hybrid_rank_body, args=(world_rows,), nprocs=n,
-                    timeout=HYBRID_TIMEOUT_S)
+    for n, world_rows, ctx, _ in worlds:
         for i, spec in enumerate(world_rows):
             per_rank = [r[i] for r in ctx.results]
             row = dict(per_rank[0])
-            row["ranks"] = n
-            dp, mp, layers, dtype, batch, seq = spec
-            want = layers * HYBRID_RANK_STEPS
+            row.update(ranks=n, dtype=DTYPE_NAME[spec["dtype"]],
+                       **{k: spec[k] for k in ("level", "dp", "sharding",
+                                               "mp", "layers", "batch",
+                                               "seq", "accum",
+                                               "localsgd_k")})
+            what = (f"{phase} {row['dtype']} {spec['level']} "
+                    f"dp={spec['dp']} sharding={spec['sharding']} "
+                    f"mp={spec['mp']} localsgd={spec['localsgd_k']}")
+            want = spec["layers"] * spec["accum"] * spec["steps"]
             for r, got in enumerate(per_rank):
                 for name in TRAIN_KERNELS:
                     require(got["launches"][name] == want,
-                            f"hybrid_ranks {row['dtype']} dp={dp} mp={mp} "
-                            f"rank {r}: {name} ran {got['launches'][name]}"
-                            f" times, want {want}")
+                            f"{what} rank {r}: {name} ran "
+                            f"{got['launches'][name]} times, want {want}")
                     counts[name] += got["launches"][name]
                 require(got["losses"] == row["losses"],
-                        f"hybrid_ranks: rank {r}'s losses differ")
-                require(got["heads"] == 32 // mp, f"hybrid_ranks: rank {r} "
-                        f"runs {got['heads']} heads")
+                        f"{what}: rank {r}'s losses differ")
+                require(got["heads"] == 32 // spec["mp"],
+                        f"{what}: rank {r} runs {got['heads']} heads")
             require(all(math.isfinite(v) for v in row["losses"])
-                    and row["losses"][-1] < row["losses"][0],
-                    f"hybrid_ranks: losses {row['losses']}")
-            if dtype == torch.float32:
+                    and (spec["steps"] == 1
+                         or row["losses"][-1] < row["losses"][0]),
+                    f"{what}: losses {row['losses']}")
+            if spec["dtype"] == torch.float32:
                 require(row["param_names_equal"]
-                        and all(g["dp_replicas_unequal"] == 0
+                        and all(g["replicas_unequal"] == 0
                                 for g in per_rank),
-                        "hybrid_ranks: gathered parameters")
+                        f"{what}: gathered parameters")
                 require(row["loss_rel_err"] <= HYBRID_LOSS_RTOL,
-                        f"hybrid_ranks dp={dp} mp={mp}: loss rel err "
-                        f"{row['loss_rel_err']}")
+                        f"{what}: loss rel err {row['loss_rel_err']}")
                 require(row["param_max_abs_err"] <= 3 * HYBRID_RANK_LR
                         and row["params_off"]
                         <= HYBRID_PARAM_OFF_FRAC * row["params_total"],
-                        f"hybrid_ranks dp={dp} mp={mp}: {row['params_off']}"
-                        f" elements beyond {HYBRID_PARAM_TOL}, worst "
+                        f"{what}: {row['params_off']} elements beyond "
+                        f"{HYBRID_PARAM_TOL}, worst "
                         f"{row['param_max_abs_err']}")
-            row["per_rank_step_ms"] = [g["step_ms"] for g in per_rank]
+            else:
+                want_losses = train["losses"][:spec["steps"]]
+                row["train_losses"] = want_losses
+                row["loss_rel_err_vs_train"] = max(
+                    abs(a - b) / abs(b)
+                    for a, b in zip(row["losses"], want_losses))
+                require(row["loss_rel_err_vs_train"] <= BF16_RANK_LOSS_RTOL,
+                        f"{what}: losses {row['losses']} vs train's "
+                        f"{want_losses}")
+            for key in ("step_ms", "resting_mem_gb", "peak_mem_gb"):
+                row[f"per_rank_{key}"] = [g[key] for g in per_rank]
             rows.append(row)
-    emit("hybrid_ranks", ranks_on_one_card=[n for n, _ in worlds],
+    return rows, counts
+
+
+def run_ranks(phase, worlds, train, **fields):
+    """``worlds`` spawned one after another on the one card over gloo with
+    CUDA tensors, checked, and the phase's line emitted: its summed #7-#9
+    launches. A gloo collective crosses the host, so the step times say
+    nothing of the card's speed."""
+    t0 = time.perf_counter()
+    # this process's garbage (a DataParallel's gradient hooks hold its
+    # model in a cycle) and cache off the card before the ranks start
+    gc.collect()
+    torch.cuda.empty_cache()
+    done = spawn_worlds(worlds)
+    rows, counts = check_rank_worlds(phase, done, train)
+    emit(phase, ranks_on_one_card=[n for n, _, _, _ in done],
+         world_seconds=[t for _, _, _, t in done],
          backend="gloo (CUDA tensors, through the host)",
-         note="gloo all-reduces cross the host: step times are not a "
+         note="gloo collectives cross the host: step times are not a "
               "performance figure", rows=rows,
+         seconds=time.perf_counter() - t0, **fields)
+    return counts, rows
+
+
+def run_hybrid_ranks(train):
+    """fp32 at dp = 2 and mp = 2 (a world of 2, beside bf16 at mp = 2) and
+    dp = 2 x mp = 2 (a world of 4)."""
+    counts, _ = run_ranks("hybrid_ranks", (
+        (2, [rank_row(dp=2), rank_row(mp=2),
+             rank_row(mp=2, dtype=torch.bfloat16)]),
+        (4, [rank_row(dp=2, mp=2)])), train)
+    return counts
+
+
+# zero: train's cell through each ZeRO level on one NCCL rank, then DGC
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+ZERO_STEPS = 3
+ZERO_DGC_SPARSITY = 0.999
+
+
+def run_zero(device, train, hybrid_coll):
+    """train's model, batch and recipe on one NCCL rank through fleet.init
+    (sharding_degree = 1), annotate_llama_tp, group_sharded_parallel at
+    each level and TrainStep(mesh=hcg.get_mesh(), data_axes=("dp",
+    "sharding")). At one sharding rank the ZeRO plan is empty (no hook, no
+    collective, no copy), so each level's losses equal train's first
+    ZERO_STEPS bit for bit and a step issues hybrid's collectives. Then
+    fleet.distributed_optimizer under strategy.dgc (a Momentum turned into
+    DGCMomentum) beside the plain Momentum, timed."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.hapi import TrainStep
+    from paddle_tpu_torch.models.llama import annotate_llama_tp
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Momentum
+    # the phases before leave reference cycles (a DataParallel and its
+    # gradient hooks) that hold a model until the collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = TRAIN_LAYERS * TRAIN_ACCUM * ZERO_STEPS
+    counts = {k: 0 for k in TRAIN_KERNELS}
+    rows, dgc_rows = [], {}
+
+    def measured(trainer, x, y, what):
+        pdist.reset_collective_counts()
+        losses, step_s, got, peak = timed_steps(trainer, (x, y), 0,
+                                                ZERO_STEPS)
+        require(all(math.isfinite(v) for v in losses),
+                f"zero {what}: losses {losses}")
+        for name in TRAIN_KERNELS:
+            require(got[name] == want, f"zero {what}: {name} ran "
+                    f"{got[name]} times, want {want}")
+            counts[name] += got[name]
+        return dict(losses=losses, step_ms=[1e3 * v for v in step_s],
+                    step_ms_median=1e3 * float(np.median(step_s)),
+                    peak_mem_gb=peak / 1e9,
+                    collectives_per_step={
+                        k: v / ZERO_STEPS
+                        for k, v in pdist.collective_counts().items()},
+                    launches={k: got[k] for k in TRAIN_KERNELS})
+
+    one_nccl_rank()
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                                   "sharding_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        mesh = fleet.get_hybrid_communicate_group().get_mesh()
+        x = y = None
+        for level in ZERO_LEVELS:
+            cfg, model = train_model(device, SEED)
+            annotate_llama_tp(model)
+            trainer = make_trainer(model, 3e-4, steps=TRAIN_STEPS,
+                                   grad_accum_steps=TRAIN_ACCUM, mesh=mesh,
+                                   level=level, data_axes=("dp", "sharding"))
+            if x is None:
+                x, y = (t.to(device) for t in token_batch(
+                    cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 5))
+            row = measured(trainer, x, y, level)
+            require(row["losses"] == train["losses"][:ZERO_STEPS],
+                    f"zero {level}: losses {row['losses']} differ from "
+                    f"train's {train['losses'][:ZERO_STEPS]}")
+            require(row["collectives_per_step"] == hybrid_coll,
+                    f"zero {level}: collectives a step "
+                    f"{row['collectives_per_step']}, hybrid's "
+                    f"{hybrid_coll}")
+            rows.append(dict(level=level,
+                             resolved_level=trainer.sharding_level,
+                             losses_bitwise_equal_train=True, **row))
+            del model, trainer
+            torch.cuda.empty_cache()
+        for name, dgc in (("momentum", False), ("dgc", True)):
+            cfg, model = train_model(device, SEED)
+            opt = Momentum(3e-4, momentum=0.9,
+                           parameters=model.named_parameters(),
+                           multi_precision=True,
+                           grad_clip=ClipGradByGlobalNorm(1.0))
+            st = fleet.DistributedStrategy()
+            st.dgc = dgc
+            st.dgc_configs = {"rampup_begin_step": 0,
+                              "sparsity": [ZERO_DGC_SPARSITY]}
+            trainer = TrainStep(model, fleet.distributed_optimizer(
+                opt, strategy=st), grad_accum_steps=TRAIN_ACCUM, mesh=mesh,
+                data_axes=("dp", "sharding"))
+            kind = type(trainer.optimizer).__name__
+            require(kind == ("DGCMomentum" if dgc else "Momentum"),
+                    f"zero {name}: the optimizer is a {kind}")
+            dgc_rows[name] = dict(optimizer=kind,
+                                  **measured(trainer, x, y, name))
+            del model, trainer, opt
+            torch.cuda.empty_cache()
+        backend = pdist.get_backend()
+    finally:
+        pdist.destroy_process_group()
+    emit("zero", model="llama2_7b width", layers=TRAIN_LAYERS,
+         dtype="bf16, f32 masters", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         grad_accum_steps=TRAIN_ACCUM, steps=ZERO_STEPS, ranks=1,
+         backend=backend, degrees=dict(dp=1, sharding=1, mp=1),
+         train_losses=train["losses"][:ZERO_STEPS],
+         train_step_ms_median=train["step_ms"],
+         hybrid_collectives_per_step=hybrid_coll, levels=rows,
+         dgc=dict(rampup_begin_step=0, sparsity=ZERO_DGC_SPARSITY,
+                  **dgc_rows),
+         dgc_over_momentum_step_ms=dgc_rows["dgc"]["step_ms_median"]
+         / dgc_rows["momentum"]["step_ms_median"],
          seconds=time.perf_counter() - t0)
+    return counts
+
+
+# zero_ranks: LocalSGD's k
+ZERO_LOCALSGD_K = 2
+
+
+def run_zero_ranks(train):
+    """ZeRO across ranks: fp32 at sharding = 2 and stages 1-3, LocalSGD at
+    dp = 2, then bf16 at stage 1 (one step, for its resting memory) and
+    stage 3 (a world of 2); fp32 dp = 2 x sharding = 2 at stage 2 (4 x
+    512 tokens: 2 rows do not split over 4 data ranks) and sharding = 2 x
+    mp = 2 at stage 3 (a world of 4). Stage 3's resting memory a rank is
+    below stage 1's. gloo takes a CUDA reduce_scatter and all_gather as
+    they are."""
+    bf16 = torch.bfloat16
+    counts, rows = run_ranks("zero_ranks", (
+        (2, [rank_row("os", sharding=2), rank_row("os_g", sharding=2),
+             rank_row("p_g_os", sharding=2),
+             rank_row(dp=2, localsgd_k=ZERO_LOCALSGD_K),
+             rank_row("os", sharding=2, dtype=bf16, steps=1),
+             rank_row("p_g_os", sharding=2, dtype=bf16)]),
+        (4, [rank_row("os_g", dp=2, sharding=2, batch=4, seq=512),
+             rank_row("p_g_os", sharding=2, mp=2)])), train,
+        gloo_cuda_collectives="reduce_scatter and all_gather taken as they "
+                              "are (no all-reduce stand-in)")
+    stage = {r["level"]: r for r in rows if r["dtype"] == "bf16"}
+    for r in range(2):
+        require(stage["p_g_os"]["per_rank_resting_mem_gb"][r]
+                < stage["os"]["per_rank_resting_mem_gb"][r],
+                f"zero_ranks: rank {r}'s resting memory at stage 3 "
+                f"{stage['p_g_os']['per_rank_resting_mem_gb'][r]} GB not "
+                f"below stage 1's {stage['os']['per_rank_resting_mem_gb'][r]}")
     return counts
 
 
@@ -7852,8 +8161,10 @@ def main() -> int:
     fused_counts = run_fused_layers(device)
     train_counts, train = run_train(device)
     remat_counts = run_train_remat(device, train)
-    hybrid_counts = run_hybrid(device, train)    # this slice's main path
-    hybrid_rank_counts = run_hybrid_ranks()
+    hybrid_counts, hybrid_coll = run_hybrid(device, train)
+    hybrid_rank_counts = run_hybrid_ranks(train)
+    zero_counts = run_zero(device, train, hybrid_coll)  # this slice's path
+    zero_rank_counts = run_zero_ranks(train)
     fit_counts = run_fit(device)
     io_counts = run_io(device)
     fit_fault_counts = run_fit_faults(device)
@@ -7878,8 +8189,10 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = hybrid_counts[name]       # this slice's main path
-            by_path = dict(hybrid=launches,
+            launches = zero_counts[name]         # this slice's main path
+            by_path = dict(zero=launches,
+                           zero_ranks=zero_rank_counts[name],
+                           hybrid=hybrid_counts[name],
                            hybrid_ranks=hybrid_rank_counts[name],
                            unet=unet_counts[name], bert=bert_counts[name],
                            moe=moe_counts[name], train=train_counts[name],

@@ -47,11 +47,12 @@ class GradScaler:
             return
         inv = 1.0 / self._scale
         finite = []
-        for p in optimizer._params():
-            if p.grad is not None:
-                g = p.grad.float() * inv
-                finite.append(torch.isfinite(g).all())
-                p.grad = g.to(p.grad.dtype)
+        # in place, where the optimizer holds each gradient (a ZeRO plan's
+        # slices at stage 2)
+        for _, g in optimizer._params_grads():
+            u = g.float() * inv
+            finite.append(torch.isfinite(u).all())
+            g.copy_(u)
         self._found_inf = bool(finite) and not bool(
             torch.stack(finite).all())
 

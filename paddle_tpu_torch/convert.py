@@ -15,9 +15,10 @@ under ``"@opt_state"``) takes, so a run resumes where the JAX one stopped.
 
 :func:`shard_state` cuts whole parameters (the JAX model's, say) into one
 rank's shards by their specs (a tuple of mesh-axis names or None a
-dimension, as a ``PartitionSpec``, e.g. ``annotate_llama_tp``'s
-``dist_attr``) and the rank's mesh coordinates; :func:`gather_state`
-puts every rank's shards back together.
+dimension, or a tuple of names for a dimension they cut together, as a
+``PartitionSpec``, e.g. ``annotate_llama_tp``'s ``dist_attr`` or a ZeRO
+spec from ``extend_spec_with_sharding``) and the rank's mesh coordinates;
+:func:`gather_state` puts every rank's shards back together.
 """
 
 from __future__ import annotations
@@ -122,22 +123,34 @@ def optimizer_state_from_jax(state: Mapping[str, Any],
     return out
 
 
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry: none, one, or a tuple of them
+    (the dimension cut by their product, the first major)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
 def shard_slices(shape: Sequence[int], spec: Optional[Sequence],
                  coords: Mapping[str, int], sizes: Mapping[str, int]
                  ) -> Tuple[slice, ...]:
     """The index of one rank's shard of a ``shape`` parameter: along each
-    dimension whose ``spec`` entry names a mesh axis, the ``coords[axis]``-th
-    of ``sizes[axis]`` equal parts; other dimensions whole."""
+    dimension whose ``spec`` entry names mesh axes, one of the product of
+    their ``sizes`` equal parts, numbered by the rank's ``coords`` with the
+    first axis major (``("mp", "sharding")``: mp's part, then sharding's
+    part of it, the order of a ``PartitionSpec`` tuple entry); other
+    dimensions whole."""
     spec = tuple(spec or ())
     out = []
     for d, n in enumerate(shape):
-        axis = spec[d] if d < len(spec) else None
-        parts = sizes.get(axis, 1) if axis is not None else 1
+        parts, i = 1, 0
+        for axis in entry_axes(spec[d] if d < len(spec) else None):
+            parts *= sizes.get(axis, 1)
+            i = i * sizes.get(axis, 1) + coords.get(axis, 0)
         if n % parts:
             raise ValueError(f"dim {d} of {tuple(shape)} not divisible by "
-                             f"{axis}={parts}")
+                             f"{spec[d]}={parts}")
         step = n // parts
-        i = coords.get(axis, 0) if axis is not None else 0
         out.append(slice(i * step, (i + 1) * step))
     return tuple(out)
 
@@ -170,8 +183,8 @@ def gather_state(shards: Sequence[Mapping[str, np.ndarray]],
     out: Dict[str, np.ndarray] = {}
     for name in shards[0]:
         whole_shape = list(np.shape(shards[0][name]))
-        for d, axis in enumerate(tuple(specs.get(name) or ())):
-            if axis is not None:
+        for d, entry in enumerate(tuple(specs.get(name) or ())):
+            for axis in entry_axes(entry):
                 whole_shape[d] *= sizes.get(axis, 1)
         whole = np.zeros(whole_shape, np.asarray(shards[0][name]).dtype)
         seen = {}

@@ -5,14 +5,16 @@ parallel environment, groups, eager collectives and p2p, ``spawn``, and
 NCCL runs on the card, gloo on the CPU when asked.
 
 ``get_backend()`` names the torch backend (``"nccl"`` / ``"gloo"``) where
-the reference names XLA. Sharding, the pipeline, sequence and expert
-parallelism, ``auto_parallel``, the distributed checkpoint, ``launch``,
-``ps`` and ``rpc`` are later slices (ROADMAP Queue 1, items 3-6).
+the reference names XLA. ``group_sharded_parallel`` /
+``save_group_sharded_model`` wrap a model and an optimizer for ZeRO. The
+pipeline, sequence and expert parallelism, ``auto_parallel``, the
+distributed checkpoint, ``launch``, ``ps`` and ``rpc`` are later slices
+(ROADMAP Queue 1, items 4-6).
 """
 
 import torch.distributed as _dist
 
-from . import communication, fleet  # noqa: F401
+from . import communication, fleet, sharding  # noqa: F401
 from .communication import (  # noqa: F401
     Group, P2POp, ReduceOp, Task, all_gather, all_gather_object, all_reduce,
     alltoall, alltoall_single, barrier, batch_isend_irecv, broadcast,
@@ -27,6 +29,9 @@ from .fleet.meta_parallel.meta_parallel_base import DataParallel  # noqa: F401
 from .parallel import (  # noqa: F401
     ParallelEnv, device_count, get_rank, get_world_size, init_parallel_env,
     is_initialized,
+)
+from .sharding import (  # noqa: F401
+    group_sharded_parallel, save_group_sharded_model,
 )
 from .spawn import spawn  # noqa: F401
 

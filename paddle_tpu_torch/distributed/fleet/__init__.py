@@ -1,6 +1,7 @@
 """Fleet (counterpart of ``paddle_tpu/distributed/fleet``): ``fleet.init``,
 the hybrid topology, the tensor-parallel layers and ops, the model and
-optimizer wrappers, and the RNG tracker, on ``torch.distributed``."""
+optimizer wrappers, ZeRO sharding, DGC, and the RNG tracker, on
+``torch.distributed``."""
 
 from . import (  # noqa: F401
     base_topology, layers, meta_optimizers, meta_parallel, random,
@@ -13,9 +14,13 @@ from .distributed_strategy import DistributedStrategy  # noqa: F401
 from .fleet import (  # noqa: F401
     Fleet, distributed_model, distributed_optimizer, init, is_initialized,
 )
-from .meta_optimizers import HybridParallelOptimizer  # noqa: F401
+from .meta_optimizers import (  # noqa: F401
+    DygraphShardingOptimizer, HybridParallelGradScaler,
+    HybridParallelOptimizer,
+)
 from .meta_parallel import (  # noqa: F401
-    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    ColumnParallelLinear, GroupShardedOptimizerStage2, GroupShardedStage2,
+    GroupShardedStage3, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding, parallel_matmul,
 )
 from .random import (  # noqa: F401

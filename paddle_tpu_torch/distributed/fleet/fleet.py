@@ -3,12 +3,16 @@
 hybrid topology from ``strategy.hybrid_configs`` (starting the runtime
 with :func:`~..parallel.init_parallel_env` when no one has),
 ``distributed_model`` wraps the model by the topology's mode and
-``distributed_optimizer`` wraps the optimizer in
-:class:`~.meta_optimizers.HybridParallelOptimizer`.
+``distributed_optimizer`` wraps the optimizer as the reference does:
+``strategy.dgc`` turns a ``Momentum`` into
+:class:`~.meta_optimizers.DGCMomentum`, a sharding degree above one with
+``sharding_configs["stage"] == 1`` gives a
+:class:`~.meta_optimizers.DygraphShardingOptimizer`, and the result goes
+into :class:`~.meta_optimizers.HybridParallelOptimizer`.
 
 Refused with ``NotImplementedError``, by the ROADMAP item that ports them:
-the parameter-server mode (item 6), pipeline models (item 4), sharding and
-DGC optimizers (item 3); static-graph ``minimize`` as in the reference.
+the parameter-server mode (item 6) and pipeline models (item 4);
+static-graph ``minimize`` as in the reference.
 """
 
 from __future__ import annotations
@@ -19,10 +23,32 @@ import torch.distributed as dist
 
 from .base_topology import CommunicateTopology, HybridCommunicateGroup
 from .distributed_strategy import DistributedStrategy
-from .meta_optimizers import HybridParallelOptimizer
+from .meta_optimizers import (DGCMomentum, DygraphShardingOptimizer,
+                              HybridParallelOptimizer)
 from .meta_parallel.meta_parallel_base import (DataParallel,
                                                ShardingParallel,
                                                TensorParallel)
+
+
+def _dgc_of(optimizer, cfg):
+    """``strategy.dgc``: a ``Momentum`` (exactly) as a
+    :class:`DGCMomentum` over the same parameters and settings."""
+    from ...optimizer.optimizer import Momentum
+    from ...regularizer import L1Decay
+    if type(optimizer) is not Momentum:
+        raise TypeError("strategy.dgc requires a Momentum optimizer "
+                        f"(got {type(optimizer).__name__})")
+    kind, coeff = optimizer._decay
+    return DGCMomentum(
+        learning_rate=optimizer._lr, momentum=optimizer._momentum,
+        rampup_begin_step=cfg.get("rampup_begin_step", 0),
+        rampup_step=cfg.get("rampup_step", 1),
+        sparsity=cfg.get("sparsity", [0.999]),
+        parameters=[(optimizer._names[p], p) for p in optimizer._params()],
+        use_nesterov=optimizer._nesterov,
+        weight_decay=L1Decay(coeff) if kind == "l1" else coeff,
+        grad_clip=optimizer._grad_clip,
+        multi_precision=optimizer._multi_precision)
 
 
 def _not_ported(what: str, item: int):
@@ -136,11 +162,12 @@ class Fleet:
         if strategy is not None:
             self._user_defined_strategy = strategy
         st = self._user_defined_strategy or DistributedStrategy()
-        if getattr(st, "dgc", False):
-            _not_ported("strategy.dgc (DGCMomentum)", 3)
         hcg = self._hcg
-        if hcg is not None and hcg.get_sharding_parallel_world_size() > 1:
-            _not_ported("the sharding optimizer (sharding_degree > 1)", 3)
+        if getattr(st, "dgc", False):
+            optimizer = _dgc_of(optimizer, st.dgc_configs)
+        if hcg is not None and hcg.get_sharding_parallel_world_size() > 1 \
+                and int(st.sharding_configs.get("stage", 1)) == 1:
+            optimizer = DygraphShardingOptimizer(optimizer, hcg)
         return HybridParallelOptimizer(optimizer, hcg, st)
 
     def minimize(self, optimizer, loss, startup_program=None,

@@ -1,17 +1,25 @@
-"""HybridParallelOptimizer (counterpart of
+"""HybridParallelOptimizer and HybridParallelGradScaler (counterpart of
 ``paddle_tpu/distributed/fleet/meta_optimizers/hybrid_parallel_optimizer.py``).
 
 Under the reference's single controller every gradient is the logical
-whole, so its global-norm clip is global by construction. Here a rank
-holds the gradients of its shards, so, as in Paddle:
+whole, so its global-norm clip and its loss scaler's found-inf are global
+by construction. Here a rank holds the gradients of its shards, so, as in
+Paddle:
 
-- the squared norm of the sharded parameters (``is_distributed``) is
-  summed over the ``mp`` group once, and the replicated ones' is added
-  once (each ``mp`` rank holds the same copy), which gives the clip over
-  the logical parameters (:class:`HybridParallelClipGrad`);
+- the clip (:class:`HybridParallelClipGrad`) sums each gradient's squares
+  once over the logical parameters: a tensor-parallel shard
+  (``is_distributed``) over the ``mp`` group, a ZeRO slice (stages 2-3:
+  the gradient is this rank's slice) over the sharding group, a slice of
+  an mp shard over both, and a replicated gradient once, where every rank
+  holds the same copy;
 - in hybrid parallelism (any mode but pure data parallelism, where
   ``DataParallel`` reduces in the backward) ``step`` first averages every
-  gradient over the ``dp`` group.
+  gradient over the ``dp`` group;
+- with a sharding degree above one the optimizer wraps a
+  :class:`~.dygraph_sharding_optimizer.DygraphShardingOptimizer`;
+- :class:`HybridParallelGradScaler` takes the maximum of found-inf over
+  the ``dp``, ``sharding`` and ``mp`` groups, so every rank skips the same
+  step.
 """
 
 from __future__ import annotations
@@ -20,35 +28,60 @@ import torch
 
 from ....nn.clip import ClipGradByGlobalNorm
 from ...communication import collectives as C
+from ....amp.grad_scaler import GradScaler
+from ...communication.group import ReduceOp
 from ..base_topology import try_get_hybrid_communicate_group
 from ..meta_parallel.meta_parallel_base import average_gradients
 from ..meta_parallel.parallel_layers.mp_layers import is_sharded
+from ..meta_parallel.sharding.group_sharded_stage import (
+    OptimizerWrapper, unwrap_optimizer)
+from .dygraph_sharding_optimizer import DygraphShardingOptimizer
+
+
+def _live(group) -> bool:
+    return group is not None and group.nranks > 1
 
 
 class HybridParallelClipGrad:
-    """A global-norm clip over sharded and replicated gradients: with one
-    ``mp`` rank it is ``clip`` itself."""
+    """A global-norm clip over sharded and replicated gradients.
+    ``sliced(p)`` says whether ``p``'s gradient is this rank's ZeRO slice
+    over ``sharding_group``. With one rank in each group it is ``clip``
+    itself."""
 
-    def __init__(self, clip: ClipGradByGlobalNorm, mp_group):
+    def __init__(self, clip: ClipGradByGlobalNorm, mp_group,
+                 sharding_group=None, sliced=None):
         self._clip = clip
         self.clip_norm = clip.clip_norm
-        self._mp = mp_group
+        self._mp = mp_group if _live(mp_group) else None
+        self._sharding = (sharding_group if _live(sharding_group)
+                          and sliced is not None else None)
+        self._sliced = sliced
 
     def global_norm_sq(self, params_grads) -> torch.Tensor:
         """The squared norm of the logical parameters' gradients (f32)."""
-        if self._mp is None or self._mp.nranks == 1:
+        params_grads = list(params_grads)
+        if self._mp is None and self._sharding is None:
             return self._clip.global_norm_sq(g for _, g in params_grads)
-        sharded = self._clip.global_norm_sq(
-            g for p, g in params_grads if is_sharded(p))
-        replicated = self._clip.global_norm_sq(
-            g for p, g in params_grads if not is_sharded(p))
         dev = next(g.device for _, g in params_grads if g is not None)
-        sharded = sharded.to(dev)
-        C.all_reduce(sharded, group=self._mp)
-        return sharded + replicated.to(dev)
+
+        def part(over_mp, over_sharding):
+            return self._clip.global_norm_sq(
+                g for p, g in params_grads
+                if (self._mp is not None and is_sharded(p)) == over_mp
+                and (self._sharding is not None
+                     and self._sliced(p)) == over_sharding).to(dev)
+
+        total, over_mp = part(False, False), part(True, False)
+        if self._sharding is not None:
+            sliced = torch.stack([part(True, True), part(False, True)])
+            C.all_reduce(sliced, group=self._sharding)
+            total, over_mp = total + sliced[1], over_mp + sliced[0]
+        if self._mp is not None:
+            C.all_reduce(over_mp, group=self._mp)
+        return total + over_mp
 
     def __call__(self, params_grads):
-        if self._mp is None or self._mp.nranks == 1:
+        if self._mp is None and self._sharding is None:
             return self._clip(params_grads)
         total = self.global_norm_sq(params_grads)
         scale = self.clip_norm / torch.clamp(torch.sqrt(total),
@@ -57,42 +90,70 @@ class HybridParallelClipGrad:
                 for p, g in params_grads]
 
 
-def hybrid_clip(optimizer, mp_group) -> None:
+def hybrid_clip(optimizer, mp_group, sharding_group=None,
+                sliced=None) -> None:
     """Give ``optimizer`` the hybrid global-norm clip over ``mp_group``
-    (once; another clip stays as it is)."""
+    (and ZeRO's ``sharding_group``); a hybrid clip already there is
+    rebuilt over these groups, another clip stays as it is."""
     clip = optimizer._grad_clip
+    if isinstance(clip, HybridParallelClipGrad):
+        clip = clip._clip
     if isinstance(clip, ClipGradByGlobalNorm):
-        optimizer._grad_clip = HybridParallelClipGrad(clip, mp_group)
+        optimizer._grad_clip = HybridParallelClipGrad(
+            clip, mp_group, sharding_group, sliced)
 
 
-class HybridParallelOptimizer:
+class HybridParallelOptimizer(OptimizerWrapper):
     def __init__(self, optimizer, hcg=None, strategy=None):
         self._hcg = hcg or try_get_hybrid_communicate_group()
         self._strategy = strategy
-        self._inner_opt = optimizer
+        if self._hcg is not None \
+                and self._hcg.get_sharding_parallel_world_size() > 1 \
+                and not isinstance(optimizer, DygraphShardingOptimizer):
+            optimizer = DygraphShardingOptimizer(optimizer, self._hcg)
+        super().__init__(optimizer)
         self._dp_group = None
         if self._hcg is not None:
-            hybrid_clip(optimizer, self._hcg.get_model_parallel_group())
+            hybrid_clip(unwrap_optimizer(optimizer),
+                        self._hcg.get_model_parallel_group())
             if self._hcg.get_parallel_mode() != "DATA_PARALLEL" \
                     and self._hcg.get_data_parallel_world_size() > 1:
                 self._dp_group = self._hcg.get_data_parallel_group()
-
-    def __getattr__(self, item):
-        try:
-            return getattr(self.__dict__["_inner_opt"], item)
-        except KeyError:
-            raise AttributeError(item) from None
 
     def step(self):
         if self._dp_group is not None:
             average_gradients(self._inner_opt._params(), self._dp_group)
         return self._inner_opt.step()
 
-    def clear_grad(self, *a, **k):
-        return self._inner_opt.clear_grad(*a, **k)
 
-    def state_dict(self):
-        return self._inner_opt.state_dict()
+class HybridParallelGradScaler(GradScaler):
+    """A :class:`~....amp.GradScaler` (``scaler``'s state, or one built
+    from ``**kw``) whose found-inf is the maximum over the topology's
+    ``dp``, ``sharding`` and ``mp`` groups: a rank that holds only slices
+    or shards of the gradients sees only their infs, and the ranks must
+    skip the same steps."""
 
-    def set_state_dict(self, sd):
-        return self._inner_opt.set_state_dict(sd)
+    def __init__(self, scaler=None, hcg=None, **kw):
+        if isinstance(scaler, GradScaler):
+            self.__dict__.update(scaler.__dict__)
+        else:
+            super().__init__(**kw)
+        self._hcg = hcg or try_get_hybrid_communicate_group()
+
+    @torch.no_grad()
+    def unscale_(self, optimizer) -> None:
+        super().unscale_(optimizer)
+        if not self._enable or self._hcg is None:
+            return
+        hcg = self._hcg
+        groups = [g for g in (hcg.get_data_parallel_group(),
+                              hcg.get_sharding_parallel_group(),
+                              hcg.get_model_parallel_group()) if _live(g)]
+        if not groups:
+            return
+        dev = next((g.device for _, g in optimizer._params_grads()),
+                   torch.device("cpu"))
+        found = torch.tensor([float(self._found_inf)], device=dev)
+        for g in groups:
+            C.all_reduce(found, op=ReduceOp.MAX, group=g)
+        self._found_inf = bool(found.item())

@@ -1,7 +1,7 @@
 """``fleet.meta_parallel`` (counterpart of
-``paddle_tpu/distributed/fleet/meta_parallel``): the tensor-parallel layers
-and the model wrappers. The pipeline and ZeRO sharding classes are later
-slices (ROADMAP Queue 1, items 3 and 4)."""
+``paddle_tpu/distributed/fleet/meta_parallel``): the tensor-parallel layers,
+the model wrappers and ZeRO sharding. The pipeline classes are a later
+slice (ROADMAP Queue 1, item 4)."""
 
 from .meta_parallel_base import (  # noqa: F401
     DataParallel, MetaParallelBase, ShardingParallel, TensorParallel,
@@ -9,5 +9,8 @@ from .meta_parallel_base import (  # noqa: F401
 from .parallel_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding, parallel_matmul,
+)
+from .sharding import (  # noqa: F401
+    GroupShardedOptimizerStage2, GroupShardedStage2, GroupShardedStage3,
 )
 from ..random import RNGStatesTracker, get_rng_state_tracker  # noqa: F401

@@ -357,11 +357,14 @@ def shard_layers(model: nn.Module, spec_of: Callable[[str, nn.Parameter],
     :class:`RowParallelLinear` taking a parallel input, or a
     :class:`VocabParallelEmbedding`. A module with ``num_heads`` (and
     ``num_kv_heads``) whose projections were swapped then counts this
-    rank's heads. Returns ``{parameter name: kind}`` of what was
-    swapped; a parameter sharded any other way raises."""
+    rank's heads. A column layer's bias is cut with its weight (its spec
+    may say so, ``(mp,)``, as the reference's must). Returns ``{parameter
+    name: kind}`` of what was swapped; a parameter sharded any other way
+    raises."""
     n, _ = _degree(group)
     names = {id(p): k for k, p in model.named_parameters()}
     swapped: Dict[str, str] = {}
+    column_biases = set()
     for owner in list(model.modules()):
         cut = False
         for child_name, child in list(owner.named_children()):
@@ -393,6 +396,8 @@ def shard_layers(model: nn.Module, spec_of: Callable[[str, nn.Parameter],
                     f"{pname}: spec {spec} on a {type(child).__name__}")
             setattr(owner, child_name, new)
             swapped[pname] = kind
+            if kind == "column" and child.bias is not None:
+                column_biases.add(names[id(child.bias)])
             cut = cut or kind == "column"
         if cut and n > 1 and hasattr(owner, "num_heads"):
             for attr in ("num_heads", "num_kv_heads"):
@@ -401,7 +406,8 @@ def shard_layers(model: nn.Module, spec_of: Callable[[str, nn.Parameter],
                     setattr(owner, attr, getattr(owner, attr) // n)
     for pname, p in model.named_parameters():
         spec = tuple(spec_of(pname, p) or ())
-        if mp_axis in spec and pname not in swapped:
+        if mp_axis in spec and pname not in swapped and not (
+                pname in column_biases and spec == (mp_axis,)):
             raise NotImplementedError(
                 f"{pname}: only Linear and Embedding weights shard over "
                 f"{mp_axis!r} in the port")

@@ -60,14 +60,22 @@ class MultiprocessContext:
         self._done: Dict[int, bool] = {}
 
     def _drain(self, block_s: float) -> None:
+        """Take every result waiting (the first within ``block_s``): a
+        context joined after its ranks have exited holds several."""
         try:
-            rank, ok, value = self._out.get(timeout=block_s)
+            item = self._out.get(timeout=block_s)
         except queue.Empty:
             return
-        if not ok:
-            self._fail(f"rank {rank} raised:\n{value}")
-        self.results[rank] = value
-        self._done[rank] = True
+        while True:
+            rank, ok, value = item
+            if not ok:
+                self._fail(f"rank {rank} raised:\n{value}")
+            self.results[rank] = value
+            self._done[rank] = True
+            try:
+                item = self._out.get_nowait()
+            except queue.Empty:
+                return
 
     def _fail(self, msg: str) -> None:
         self.terminate()

@@ -48,25 +48,54 @@ do.
 
 With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` whose dimensions
 bear the reference's axis names, e.g. ``HybridCommunicateGroup.get_mesh()``)
-the step is this rank's part of a hybrid data x tensor-parallel step
-(:class:`_MeshPlan`): each parameter's spec (its ``dist_attr``, or
-``param_spec_fn(name, param)``; a tuple of axis names or None, as a
-``PartitionSpec``) says how it is cut; the model's annotated ``Linear`` and
-``Embedding`` layers become Megatron's layers holding this rank's shards
+the step is this rank's part of a hybrid step (:class:`_MeshPlan`): each
+parameter's spec (its ``dist_attr``, or ``param_spec_fn(name, param)``; a
+tuple of axis names, tuples of them or None, as a ``PartitionSpec``) says
+how it is cut; the model's annotated ``Linear`` and ``Embedding`` layers
+become Megatron's layers holding this rank's shards
 (``mp_layers.shard_layers``, which also sets the attention modules' local
-head counts); the step takes this rank's rows of the global batch
-(``data_axes``), averages the gradients over them, clips by the norm of
-the logical parameters (``HybridParallelClipGrad``) and returns the loss of
-the global batch. A Llama's vocab-parallel head computes the mean over the
-global batch's tokens (the unmasked ones counted over the data-parallel
+head counts); the step takes this rank's rows of the global batch, split
+over the product of ``data_axes`` (the first major, as
+``P(("dp", "sharding"))``), averages the gradients over them, clips by the
+norm of the logical parameters (``HybridParallelClipGrad``) and returns the
+loss of the global batch. A Llama's vocab-parallel head computes the mean
+over the global batch's tokens (the unmasked ones counted over the data
 ranks), so it is the reference's mean whatever the ranks' counts of
-ignored labels. Not ported (``NotImplementedError``): ZeRO sharding levels
-and LocalSGD (ROADMAP Queue 1, item 3).
+ignored labels.
+
+ZeRO: the level and the axis are the kwargs, else the stamps of the
+``group_sharded_parallel`` / ``DygraphShardingOptimizer`` wrappers; an
+axis of one rank falls back to ``sharding``, then ``dp``, and no axis means
+level 0, as in the reference (and without a mesh the level is 0). At a
+level above 0 each parameter's spec is extended as the reference extends
+it (``extend_spec_with_sharding``) and the ZeRO plan
+(``distributed/fleet/meta_parallel/sharding/zero.py``) cuts the optimizer
+state (stage 1), the gradients (stage 2) and the parameters (stage 3)
+there; ``param_specs`` / ``opt_specs`` name each parameter's and its
+slots' specs. At one rank of the sharding axis the plan is empty and the
+step is the plain one. An optimizer whose update is not elementwise
+(``Lamb``, ``LarsMomentum``, ``DGCMomentum``) raises
+``NotImplementedError`` at a level above 0. A parameter spec may name
+``mp`` and, at level 3, the sharding axis; another axis of more than one
+rank raises ``NotImplementedError`` (pipeline and sep: ROADMAP Queue 1,
+items 4 and 5).
+
+LocalSGD (``localsgd_k > 1``, or ``strategy.localsgd`` with ``k_steps`` and
+``begin_step`` on a fleet-wrapped optimizer): the reference's scope. It
+needs a mesh whose ``dp`` has more than one rank (``ValueError``), refuses
+gradient accumulation, a sharding level and a sharded parameter
+(``NotImplementedError``) and gradient merge (``ValueError``). Each dp rank
+updates its own replica from its own rows with no gradient all-reduce; the
+parameters alone are averaged over dp when the step count (from 1) is
+below ``begin_step`` or a multiple of k; the returned loss is the mean of
+the ranks' losses. ``strategy.gradient_merge`` turns gradient merge on the
+same way.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -74,6 +103,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import flags
+from ..convert import entry_axes
 from ..device import resolve_device
 from .. import observability as obs
 from ..optimizer.lr import LRScheduler
@@ -120,94 +150,222 @@ class _NullTrainTelemetry:
         self.in_flight = self.staleness = self.pull_seconds = obs.NULL
 
 
-def _refuse(what: str) -> None:
-    raise NotImplementedError(f"TrainStep({what}) is not ported yet "
-                              f"(ROADMAP Queue 1, item 3)")
+def _on_mesh(spec, names) -> Tuple:
+    """``spec`` with the axes not in ``names`` dropped, as the reference
+    drops those the mesh lacks (a tuple entry left with one axis becomes
+    that axis)."""
+    out = []
+    for e in spec or ():
+        kept = tuple(a for a in entry_axes(e) if a in names)
+        out.append(kept[0] if len(kept) == 1 else (kept or None))
+    return tuple(out)
+
+
+def _without(spec, axis) -> Tuple:
+    """``spec`` with ``axis`` taken out of every entry."""
+    return _on_mesh(spec, {a for e in spec for a in entry_axes(e)} - {axis})
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device of a ``DeviceMesh`` (raising without it, never falling
+    back to the CPU)."""
+    if not (hasattr(mesh, "device_type")
+            and hasattr(mesh, "mesh_dim_names")):
+        raise TypeError("TrainStep(mesh=...) takes a torch.distributed "
+                        "DeviceMesh (HybridCommunicateGroup.get_mesh())")
+    return resolve_device(mesh.device_type)
+
+
+def _group_over(mesh, axes):
+    """The group over the product of ``axes`` (those with more than one
+    rank): None without one, the mesh's own group for one, else a group
+    made on every rank, in the same order, for each coordinate of the
+    other axes (``new_group`` is collective)."""
+    from ..distributed.communication.group import (from_process_group,
+                                                   new_group)
+    from ..distributed.fleet.meta_parallel.sharding import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    live = [a for a in axes if sizes[a] > 1]
+    if not live:
+        return None
+    if len(live) == 1:
+        return from_process_group(mesh.get_group(live[0]))
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in live]
+    other = [i for i in range(len(names)) if i not in dims]
+    grid = mesh.mesh.permute(*other, *dims).reshape(
+        -1, math.prod(sizes[a] for a in live))
+    mine = None
+    for ranks in grid.tolist():
+        g = new_group(ranks)
+        if g.is_member():
+            mine = g
+    return mine
 
 
 class _MeshPlan:
-    """What a mesh makes of the step on this rank: the data-parallel
-    group and this rank's rows of a global batch, the model-parallel
-    group, and the model's layers swapped for their shards."""
+    """What a mesh makes of the step on this rank: the data group (over
+    the product of the data axes) and this rank's rows of a global batch,
+    the model-parallel group, the model's layers swapped for their shards,
+    and at a sharding level the ZeRO plan, each parameter cut where the
+    reference's extended spec cuts it. Under LocalSGD the data ranks are
+    replicas that average only their parameters, now and then."""
 
     MP_AXIS = "mp"
 
-    def __init__(self, model, optimizer, mesh, param_spec_fn, data_axes):
+    def __init__(self, model, optimizer, mesh, param_spec_fn, data_axes,
+                 level=0, axis=None, exclude_ids=(), localsgd=False):
         from ..distributed.communication.group import from_process_group
         from ..distributed.fleet.meta_optimizers.hybrid_parallel_optimizer \
             import hybrid_clip
         from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers \
             import shard_layers
-        if not (hasattr(mesh, "device_type")
-                and hasattr(mesh, "mesh_dim_names")):
-            raise TypeError("TrainStep(mesh=...) takes a torch.distributed "
-                            "DeviceMesh (HybridCommunicateGroup.get_mesh())")
-        dev = resolve_device(mesh.device_type)
+        from ..distributed.fleet.meta_parallel.sharding import (
+            ZeroPlan, extend_spec_with_sharding, mesh_sizes)
+        dev = _mesh_device(mesh)
         if next(model.parameters()).device.type != dev.type:
             raise ValueError(f"TrainStep: the model is not on the mesh's "
                              f"{dev.type} device")
-        names = tuple(mesh.mesh_dim_names or ())
-        sizes = dict(zip(names, mesh.shape))
-
-        def group(axis):
-            return from_process_group(mesh.get_group(axis))
+        sizes = mesh_sizes(mesh)
+        names = tuple(sizes)
+        mp = self.MP_AXIS
 
         data = [a for a in data_axes if a in names]
-        if sum(sizes[a] > 1 for a in data) > 1:
-            raise NotImplementedError(
-                f"TrainStep(data_axes={tuple(data_axes)}): one data axis "
-                f"of more than one rank is ported")
-        dp_axis = next((a for a in data if sizes[a] > 1),
-                       data[0] if data else None)
-        self.dp_group = None if dp_axis is None else group(dp_axis)
-        self.dp_size = 1 if dp_axis is None else sizes[dp_axis]
-        self.dp_rank = 0 if dp_axis is None else mesh.get_local_rank(dp_axis)
-        self.mp_group = (group(self.MP_AXIS) if self.MP_AXIS in names
-                         else None)
+        self.data_group = _group_over(mesh, data)
+        if self.data_group is None and data:
+            self.data_group = from_process_group(mesh.get_group(data[0]))
+        self.data_size = math.prod(sizes[a] for a in data)
+        self.data_rank = 0
+        for a in data:   # the first data axis major, as P(("dp", ...))
+            self.data_rank = (self.data_rank * sizes[a]
+                              + mesh.get_local_rank(a))
+        self.mp_group = (from_process_group(mesh.get_group(mp))
+                         if mp in names else None)
+        self.localsgd = localsgd
         if optimizer.state:
             raise ValueError("TrainStep(mesh=...) cuts the parameters: "
                              "build it before the optimizer's first step")
+        allowed = {mp} | ({axis} if level >= 3 else set())
         specs = {}
         for name, p in model.named_parameters():
             spec = (param_spec_fn(name, p) if param_spec_fn is not None
                     else getattr(p, "dist_attr", None))
-            # axes absent from the mesh drop out, as in the reference
-            spec = tuple(e if e in names else None for e in (spec or ()))
-            for e in spec:
-                if e is not None and e != self.MP_AXIS and sizes[e] > 1:
+            spec = _on_mesh(spec, names)
+            for a in (a for e in spec for a in entry_axes(e)):
+                if sizes[a] > 1 and a not in allowed:
                     raise NotImplementedError(
-                        f"{name}: spec {spec} shards over {e!r}; only "
-                        f"{self.MP_AXIS!r} is ported (ROADMAP Queue 1, "
-                        f"item 3)")
+                        f"{name}: spec {spec} shards over {a!r}; the port "
+                        f"shards parameters over {mp!r} and, at sharding "
+                        f"level 3, the sharding axis (pipeline and sep: "
+                        f"ROADMAP Queue 1, items 4 and 5)")
+            if localsgd and any(e is not None for e in spec):
+                raise NotImplementedError(
+                    f"localsgd needs replicated parameters; {name!r} "
+                    f"declares {spec}")
             specs[id(p)] = spec
-        shard_layers(model, lambda n, p: specs[id(p)], self.MP_AXIS,
+        shard_layers(model, lambda n, p: _without(specs[id(p)], axis), mp,
                      self.mp_group)
+        for p in model.parameters():
+            # a column layer's bias, cut with its weight, unannotated
+            if not specs[id(p)] and getattr(p, "dist_attr", None):
+                specs[id(p)] = _on_mesh(p.dist_attr, names)
         for m in model.modules():
             if hasattr(type(m), "parallel_loss_groups"):
-                m.parallel_loss_groups = (self.mp_group, self.dp_group)
-        hybrid_clip(optimizer, self.mp_group)
+                m.parallel_loss_groups = (
+                    self.mp_group, None if localsgd else self.data_group)
+
+        self.param_specs, self.opt_specs = {}, {}
+        cuts, stored = {}, []
+        for name, p in model.named_parameters():
+            spec = specs[id(p)]
+            self.param_specs[name] = self.opt_specs[name] = spec
+            if not level:
+                continue
+            pad = spec + (None,) * (p.dim() - len(spec))
+            shape = [n * (sizes[mp] if mp in entry_axes(e) else 1)
+                     for n, e in zip(p.shape, pad)]
+            ext = extend_spec_with_sharding(spec, shape, sizes, axis)
+            self.opt_specs[name] = ext
+            dim = next((d for d, e in enumerate(ext)
+                        if axis in entry_axes(e)), None)
+            if dim is None:
+                continue
+            if entry_axes(ext[dim])[-1] != axis:
+                raise NotImplementedError(
+                    f"{name}: spec {ext} cuts a dimension with {axis!r} "
+                    f"major; the port cuts the sharding axis minor")
+            cuts[p] = dim
+            if level >= 3 and (id(p) not in exclude_ids or dim < len(spec)
+                               and axis in entry_axes(spec[dim])):
+                stored.append(p)
+                self.param_specs[name] = ext
+        self.zero = None
+        sharding = None
+        if level and sizes.get(axis, 1) > 1:
+            sharding = from_process_group(mesh.get_group(axis))
+            rest = (_group_over(mesh, [a for a in data if a != axis])
+                    if axis in data else self.data_group)
+            self.zero = ZeroPlan(model, level, cuts, stored, sharding, rest,
+                                 self.data_group, self.mp_group)
+            optimizer._zero = self.zero
+        # at stage 1 the gradients are whole on every sharding rank
+        hybrid_clip(optimizer, self.mp_group,
+                    sharding if level >= 2 else None,
+                    None if self.zero is None else self.zero.sliced_grad)
 
     def rows(self, b):
         """This rank's rows of a global batch tensor."""
-        if not isinstance(b, torch.Tensor) or self.dp_size == 1:
+        if not isinstance(b, torch.Tensor) or self.data_size == 1:
             return b
-        if b.shape[0] % self.dp_size:
+        if b.shape[0] % self.data_size:
             raise ValueError(f"batch dim {b.shape[0]} not divisible by the "
-                             f"{self.dp_size} data-parallel ranks")
-        return b.chunk(self.dp_size, dim=0)[self.dp_rank]
+                             f"{self.data_size} data-parallel ranks")
+        return b.chunk(self.data_size, dim=0)[self.data_rank]
 
     def reduce(self, params, loss: torch.Tensor) -> torch.Tensor:
-        """The gradients averaged over the data-parallel ranks; returns
-        the loss averaged over them too."""
+        """The gradients averaged over the data ranks (the ZeRO plan's
+        reduction at a sharding level; none under LocalSGD); returns the
+        loss averaged over them too."""
         from ..distributed.communication import collectives as C
         from ..distributed.fleet.meta_parallel.meta_parallel_base import \
             average_gradients
-        if self.dp_group is None:
+        if self.data_group is None:
             return loss
-        average_gradients(params, self.dp_group)
+        if self.zero is not None:
+            self.zero.reduce_grads(params)
+        elif not self.localsgd:
+            average_gradients(params, self.data_group)
         loss = loss.clone()
-        C.all_reduce(loss, group=self.dp_group)
-        return loss / self.dp_size if self.dp_size > 1 else loss
+        C.all_reduce(loss, group=self.data_group)
+        return loss / self.data_size if self.data_size > 1 else loss
+
+    @torch.no_grad()
+    def average(self, tensors) -> None:
+        """Each tensor averaged over the data ranks, in place (LocalSGD's
+        sync)."""
+        from ..distributed.communication import collectives as C
+        for t in tensors:
+            C.all_reduce(t, group=self.data_group)
+            t.div_(self.data_group.nranks)
+
+
+def _resolve_sharding(level, axis, optimizer, model, mesh):
+    """The ZeRO level and axis, as the reference resolves them: the
+    kwargs, else the wrappers' stamps; an axis absent from the mesh or of
+    one rank falls back to ``resolve_sharding_axis``; no axis, level 0."""
+    from ..distributed.fleet.meta_parallel.sharding import (
+        mesh_sizes, resolve_sharding_axis)
+    sizes = mesh_sizes(mesh)
+    if level is None:
+        level = max(getattr(optimizer, "_group_sharded_level", 0),
+                    getattr(model, "_group_sharded_level", 0))
+    axis = (axis or getattr(optimizer, "_sharding_axis", None)
+            or getattr(model, "_sharding_axis", None))
+    if level and sizes.get(axis, 1) <= 1:
+        axis = resolve_sharding_axis(sizes)
+    if axis is None:
+        level = 0
+    return int(level), axis
 
 
 class StagedBatch:
@@ -258,27 +416,64 @@ class TrainStep:
                  max_in_flight: Optional[int] = None):
         if param_spec_fn is not None and mesh is None:
             raise ValueError("TrainStep(param_spec_fn=...) needs a mesh")
-        if sharding_level or sharding_axis is not None:
-            _refuse("sharding_level / sharding_axis")
-        if localsgd_k is not None and localsgd_k > 1:
-            _refuse("localsgd_k > 1")
         if int(grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{grad_accum_steps}")
+        # the strategy riding on a fleet-wrapped optimizer turns gradient
+        # merge and LocalSGD on where the kwargs do not
+        st = getattr(optimizer, "_strategy", None)
+        if gradient_merge_k is None and getattr(st, "gradient_merge", False):
+            gradient_merge_k = int(st.gradient_merge_configs.get("k_steps",
+                                                                 1))
+            gradient_merge_avg = bool(st.gradient_merge_configs.get("avg",
+                                                                    True))
+        self._lsgd_begin = 1
+        if localsgd_k is None and getattr(st, "localsgd", False):
+            localsgd_k = int(st.localsgd_configs.get("k_steps", 1))
+            self._lsgd_begin = int(st.localsgd_configs.get("begin_step", 1))
+        self.localsgd_k = max(1, int(localsgd_k or 1))
+        self._lsgd_count = 0
+        if self.localsgd_k > 1 and max(1, int(gradient_merge_k or 1)) > 1:
+            raise ValueError("localsgd and gradient_merge are mutually "
+                             "exclusive (as in the reference meta_optimizer "
+                             "ordering)")
         self.model = model
         self._plan = None
+        self.sharding_level, self.sharding_axis = 0, None
         if mesh is not None:
-            from ..distributed.fleet.meta_parallel.meta_parallel_base import \
-                MetaParallelBase
+            from ..distributed.fleet.meta_parallel.sharding import (
+                mesh_sizes, unwrap_optimizer)
+            from ..distributed.sharding.group_sharded import unwrap_model
+            _mesh_device(mesh)
+            level, axis = _resolve_sharding(sharding_level, sharding_axis,
+                                            optimizer, model, mesh)
+            self.sharding_level, self.sharding_axis = level, axis
+            if self.localsgd_k > 1:
+                if mesh_sizes(mesh).get("dp", 1) <= 1:
+                    raise ValueError("localsgd needs a mesh with a dp axis "
+                                     "> 1")
+                if int(grad_accum_steps) > 1 or level:
+                    raise NotImplementedError(
+                        "localsgd composes with plain DP only (reference "
+                        "LocalSGDOptimizer has the same scope)")
             # the step itself averages the gradients over the data axes and
             # clips over the logical parameters: the wrappers' own
             # reductions stay off (DataParallel's hooks run under no_sync,
-            # a HybridParallelOptimizer's step is its inner optimizer's)
-            optimizer = getattr(optimizer, "_inner_opt", optimizer)
-            inner = (model._layers if isinstance(model, MetaParallelBase)
-                     else model)
-            self._plan = _MeshPlan(inner, optimizer, mesh, param_spec_fn,
-                                   data_axes)
+            # the optimizer wrappers' steps are their inner optimizer's)
+            optimizer = unwrap_optimizer(optimizer)
+            if level and not optimizer.elementwise:
+                raise NotImplementedError(
+                    f"{type(optimizer).__name__} under sharding level "
+                    f"{level}: its update reads whole parameters, which a "
+                    f"ZeRO rank does not hold (ROADMAP Queue 3, designed "
+                    f"differences)")
+            self._plan = _MeshPlan(
+                unwrap_model(model), optimizer, mesh, param_spec_fn,
+                data_axes, level, axis,
+                getattr(model, "_sharding_exclude_ids", ()),
+                self.localsgd_k > 1)
+        elif self.localsgd_k > 1:
+            raise ValueError("localsgd needs a mesh with a dp axis > 1")
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.grad_accum_steps = int(grad_accum_steps)
@@ -358,8 +553,12 @@ class TrainStep:
         loss = total / n if n > 1 else total
         if self._plan is not None:
             loss = self._plan.reduce(self.optimizer._params(), loss)
-        grads = {k: p.grad for k, p in self.model.named_parameters()
-                 if p.grad is not None}
+        # under ZeRO stage 2 the plan holds the gradient slices
+        held = (dict(self.optimizer._params_grads())
+                if self.optimizer._zero is not None else {})
+        grads = {k: held.get(p, p.grad)
+                 for k, p in self.model.named_parameters()
+                 if held.get(p, p.grad) is not None}
         return loss, grads
 
     def apply_update(self) -> None:
@@ -371,6 +570,13 @@ class TrainStep:
             self._merge()
         else:
             self.optimizer.step()
+        if self.localsgd_k > 1:
+            # the replicas' parameters averaged before begin_step and
+            # every k-th step (the reference's count starts at 1)
+            self._lsgd_count += 1
+            if self._lsgd_count < self._lsgd_begin \
+                    or self._lsgd_count % self.localsgd_k == 0:
+                self._plan.average(p.data for p in self.model.parameters())
         if isinstance(self.optimizer._lr, LRScheduler):
             self.optimizer._lr.step()
         self.optimizer.clear_grad()
@@ -378,18 +584,25 @@ class TrainStep:
     @torch.no_grad()
     def _merge(self) -> None:
         params = [p for p in self.optimizer._params()]
+        # under ZeRO stage 2 the buffer holds this rank's gradient slices
+        zero = self.optimizer._zero
         if self._merge_buf is None:
-            self._merge_buf = {p: torch.zeros_like(p) for p in params}
-        for p in params:
-            if p.grad is not None:
-                self._merge_buf[p] += p.grad.to(p.dtype)
+            self._merge_buf = {
+                p: torch.zeros_like(p if zero is None else zero.grad_like(p))
+                for p in params}
+        for p, g in self.optimizer._params_grads():
+            self._merge_buf[p] += g.to(p.dtype)
         self._merge_count += 1
         if self._merge_count % self.gradient_merge_k:
             return
         k = self.gradient_merge_k
         for p in params:
             buf = self._merge_buf[p]
-            p.grad = buf / k if self.gradient_merge_avg else buf.clone()
+            g = buf / k if self.gradient_merge_avg else buf.clone()
+            if zero is None:
+                p.grad = g
+            else:
+                zero.set_grad(p, g)
         self.optimizer.step()
         for buf in self._merge_buf.values():
             buf.zero_()
@@ -539,8 +752,18 @@ class TrainStep:
 
     def state_dict(self) -> Dict[str, Any]:
         """The model's state and, under ``"@opt_state"``, the optimizer's
-        (its reference-named slots, masters, step count and scheduler)."""
+        (its reference-named slots, masters, step count and scheduler).
+        Under ZeRO a rank's entries are its slices
+        (``save_group_sharded_model`` gathers them). Under LocalSGD the
+        parameters are the replicas' mean (collective), the value the next
+        sync installs, as the reference's; the slots are this rank's."""
         sd: Dict[str, Any] = dict(self.model.state_dict())
+        if self.localsgd_k > 1:
+            names = {k for k, _ in self.model.named_parameters()}
+            mean = {k: v.detach().clone() for k, v in sd.items()
+                    if k in names}
+            self._plan.average(mean.values())
+            sd.update(mean)
         sd["@opt_state"] = self.optimizer.state_dict()
         return sd
 

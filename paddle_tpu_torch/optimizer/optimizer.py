@@ -56,6 +56,11 @@ def _as_decay(wd):
 
 
 class Optimizer(torch.optim.Optimizer):
+    #: whether the update of an element reads only that element's
+    #: parameter, gradient and slots, so that a ZeRO rank can update its
+    #: slice alone (Lamb's and LARS's trust ratios read whole norms)
+    elementwise = True
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip: Optional[ClipGradBase] = None,
                  name=None, multi_precision: bool = False):
@@ -89,6 +94,11 @@ class Optimizer(torch.optim.Optimizer):
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._steps = 0
+        # the ZeRO plan of a sharded TrainStep
+        # (distributed/fleet/meta_parallel/sharding/zero.py): this rank
+        # keeps the slots and the master of its slice of each parameter
+        # and updates that slice
+        self._zero = None
 
     # ------------------------------------------------------- functional core
     def init_slot(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -129,13 +139,18 @@ class Optimizer(torch.optim.Optimizer):
         return group["decay"] or self._decay
 
     def _update(self, p, g, group, lr, t):
+        # under ZeRO, w is this rank's slice of p (a view) and g its
+        # gradient; else p itself
+        w = p if self._zero is None else self._zero.owned(p)
+        if self._zero is not None:
+            g = self._zero.owned_grad(p, g)
         st = self.state[p]
         if not st:
-            st.update(self.init_slot(p))
+            st.update(self.init_slot(w))
         use_master = self._multi_precision and p.dtype in _HALF
         if use_master and "master" not in st:
-            st["master"] = p.detach().float()
-        pc = st["master"] if use_master else p
+            st["master"] = w.detach().float()
+        pc = st["master"] if use_master else w
         g = g.to(pc.dtype)
         kind, coeff = self._decay_for(p, group)
         if kind == "l1":
@@ -145,7 +160,15 @@ class Optimizer(torch.optim.Optimizer):
                                coeff)
         if use_master:
             st["master"] = new_p
-        p.copy_(new_p)
+        w.copy_(new_p)
+
+    def _params_grads(self):
+        """``(parameter, gradient)`` of every parameter with one: under
+        ZeRO the gradients the plan holds (at stage 2, this rank's
+        slices)."""
+        if self._zero is not None:
+            return self._zero.params_grads(self._params())
+        return [(p, p.grad) for p in self._params() if p.grad is not None]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -157,8 +180,7 @@ class Optimizer(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        params_grads = [(p, p.grad) for p in self._params()
-                        if p.grad is not None]
+        params_grads = self._params_grads()
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._steps += 1
@@ -167,11 +189,15 @@ class Optimizer(torch.optim.Optimizer):
         for p, g in params_grads:
             if g is not None:
                 self._update(p, g, group_of[p], lr, t)
+        if self._zero is not None:   # every rank's updated slices
+            self._zero.gather_params()
         return loss
 
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._params():
             p.grad = None
+        if self._zero is not None:
+            self._zero.clear_grads()
 
     clear_gradients = clear_grad
 
@@ -197,30 +223,49 @@ class Optimizer(torch.optim.Optimizer):
         """Restore what :meth:`state_dict` wrote (tensors or numpy arrays,
         e.g. from ``framework.io.load`` or ``convert.optimizer_state_from_
         jax``): the step count, the scheduler, and each parameter's slots
-        and master, on the parameter's device."""
+        and master, on the parameter's device. Under ZeRO a slot or master
+        may come as this rank's slice or whole (as
+        ``save_group_sharded_model`` writes it), and is cut to the slice;
+        another shape raises ``ValueError``."""
         self._steps = int(state.get("@step", 0))
         if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
             self._lr.set_state_dict(state["LR_Scheduler"])
         for p in self._params():
             name = self._names[p]
+            w = p if self._zero is None else self._zero.owned(p)
             slots = {}
-            for key, tmpl in self.init_slot(p).items():
+            for key, tmpl in self.init_slot(w).items():
                 v = state.get(f"{name}_{key}_0")
                 if v is not None:
-                    slots[key] = _tensor_like(v, tmpl)
+                    slots[key] = self._owned_state(
+                        p, f"{name}_{key}_0", _tensor_like(v, tmpl))
             master = state.get(f"{name}_fp32_master_0")
             if master is not None:
-                slots["master"] = _tensor_like(
-                    master, torch.empty(0, dtype=torch.float32,
-                                        device=p.device))
+                slots["master"] = self._owned_state(
+                    p, f"{name}_fp32_master_0", _tensor_like(
+                        master, torch.empty(0, dtype=torch.float32,
+                                            device=p.device)))
             if slots:
                 st = self.state[p]
                 st.clear()
-                st.update(self.init_slot(p))
+                st.update(self.init_slot(w))
                 st.update(slots)
 
     def load_state_dict(self, state_dict):
         self.set_state_dict(state_dict)
+
+    def _owned_state(self, p, key: str, t: torch.Tensor) -> torch.Tensor:
+        """A loaded slot or master ``t`` of ``p`` as the update keeps it:
+        under ZeRO this rank's slice of it."""
+        if self._zero is None:
+            return t
+        own = self._zero.owned_state(p, t)
+        if own is None:
+            raise ValueError(
+                f"{key}: shape {tuple(t.shape)} is neither this rank's "
+                f"slice {tuple(self._zero.owned(p).shape)} nor the whole "
+                f"parameter's")
+        return own if own is t else own.clone()
 
 
 def _tensor_like(v, tmpl: torch.Tensor) -> torch.Tensor:
@@ -455,6 +500,8 @@ class Lamb(Optimizer):
     returning True exempts a parameter (the reference passes the parameter,
     whose name is what such a function reads)."""
 
+    elementwise = False
+
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
                  grad_clip=None, exclude_from_weight_decay_fn=None,
@@ -490,6 +537,8 @@ class LarsMomentum(Optimizer):
     ``lars_coeff * ||w|| / (||g|| + wd * ||w|| + epsilon)``; parameters
     whose name contains a string of ``exclude_from_weight_decay`` get no
     decay."""
+
+    elementwise = False
 
     def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, parameters=None, grad_clip=None,
@@ -656,6 +705,8 @@ class LBFGS(Optimizer):
     ``"backtracking"``, as in the reference). For full-batch deterministic
     use; the closure clears nothing, it computes the loss and calls
     ``backward()``."""
+
+    elementwise = False
 
     def __init__(self, learning_rate=1.0, max_iter=20, tolerance_grad=1e-7,
                  tolerance_change=1e-9, history_size=100,

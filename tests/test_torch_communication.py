@@ -206,6 +206,20 @@ def test_spawn_raises_a_failing_rank_with_its_traceback():
     assert "Traceback" in str(e.value)
 
 
+def test_spawn_joined_after_its_ranks_exited():
+    """``join=False``, then ``join`` once every rank has exited, rank 0's
+    result last in the queue: each rank's result is taken, however many
+    wait before it."""
+    import time
+    ctx = spawn(ranks.rank_zero_last, args=(3,), nprocs=4, join=False)
+    deadline = time.monotonic() + 60
+    while any(p.is_alive() for p in ctx.processes) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    ctx.join(30)
+    assert ctx.results == [0, 1, 2, 3]
+
+
 def test_spawn_join_times_out_and_stops_the_ranks():
     with pytest.raises(RuntimeError, match=r"still running after 2 s"):
         spawn(ranks.sleeping_rank, args=(600,), nprocs=2, timeout=2)

@@ -63,7 +63,8 @@ def _port_files():
     files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
              + sorted((REPO / "tools").glob("torch_*.py"))
              # the rank bodies spawned children import
-             + [REPO / "tests" / "torch_dist_ranks.py"])
+             + [REPO / "tests" / "torch_dist_ranks.py",
+                REPO / "tests" / "torch_zero_ranks.py"])
     assert len(files) > 10
     return files
 
@@ -107,7 +108,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "parallel_layers/mp_layers.py",
             "paddle_tpu_torch/distributed/fleet/meta_optimizers/"
             "hybrid_parallel_optimizer.py",
-            "tests/torch_dist_ranks.py"} <= scanned
+            "paddle_tpu_torch/distributed/fleet/meta_optimizers/"
+            "dygraph_sharding_optimizer.py",
+            "paddle_tpu_torch/distributed/fleet/meta_optimizers/"
+            "dgc_optimizer.py",
+            "paddle_tpu_torch/distributed/fleet/meta_parallel/sharding/"
+            "group_sharded_utils.py",
+            "paddle_tpu_torch/distributed/fleet/meta_parallel/sharding/"
+            "group_sharded_stage.py",
+            "paddle_tpu_torch/distributed/fleet/meta_parallel/sharding/"
+            "zero.py",
+            "paddle_tpu_torch/distributed/sharding/group_sharded.py",
+            "tests/torch_dist_ranks.py",
+            "tests/torch_zero_ranks.py"} <= scanned
     bad = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -121,6 +134,16 @@ def test_import_scan_catches_a_jax_import():
     tree = ast.parse("import os\nfrom jax import numpy\n"
                      "import paddle_tpu.nn as nn\n")
     assert {"jax", "paddle_tpu"} <= set(_imported_roots(tree))
+
+
+def _zero3():
+    """A CPU model and optimizer through ``group_sharded_parallel`` at
+    stage 3: the step on a CUDA mesh then raises, no fallback."""
+    from paddle_tpu_torch.distributed import group_sharded_parallel
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    opt = AdamW(1e-3, parameters=model.named_parameters())
+    return group_sharded_parallel(model, opt, "p_g_os")[:2]
 
 
 @pytest.fixture
@@ -162,6 +185,9 @@ def no_cuda(monkeypatch):
     lambda: TrainStep(LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
                       None, mesh=types.SimpleNamespace(
                           device_type="cuda", mesh_dim_names=("dp", "mp"))),
+    lambda: TrainStep(*_zero3(), mesh=types.SimpleNamespace(
+        device_type="cuda", mesh_dim_names=("dp", "sharding"),
+        shape=(1, 2))),
     lambda: mpl.ColumnParallelLinear(4, 8),
     lambda: mpl.RowParallelLinear(4, 8),
     lambda: mpl.VocabParallelEmbedding(4, 8),
@@ -174,7 +200,8 @@ def no_cuda(monkeypatch):
         "fused-bias-dropout-residual-ln", "fused-mha", "fused-ffn",
         "fused-encoder-layer", "fused-multi-transformer", "unet", "bert",
         "bert-pretraining", "bert-classification", "conv2d", "group-norm",
-        "init-parallel-env", "train-step-mesh", "column-parallel-linear",
+        "init-parallel-env", "train-step-mesh", "group-sharded-mesh",
+        "column-parallel-linear",
         "row-parallel-linear", "vocab-parallel-embedding", "rng-tracker",
         "model-parallel-seed"])
 def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, build):

@@ -315,20 +315,22 @@ def test_optimizer_updates_match_jax(cls, kw):
 @pytest.mark.parametrize("kw,refused", [
     (dict(mesh=object()), TypeError),
     (dict(param_spec_fn=lambda n, v: None), ValueError),
-    (dict(sharding_level=2), NotImplementedError),
-    (dict(sharding_axis="dp"), NotImplementedError),
+    (dict(sharding_level=2), None),
+    (dict(sharding_axis="dp"), None),
     (dict(gradient_merge_k=2), None),
-    (dict(localsgd_k=2), NotImplementedError),
+    (dict(localsgd_k=2), ValueError),
     (dict(remat=True), None), (dict(metrics_every=5), None),
 ], ids=["mesh", "param_spec_fn", "sharding_level", "sharding_axis",
         "gradient_merge", "localsgd", "remat", "metrics_every"])
 def test_refused_train_step_options(kw, refused):
-    """ZeRO sharding and LocalSGD stay refused (``NotImplementedError``);
-    a mesh must be a ``DeviceMesh`` and a parameter spec needs one (the
-    hybrid step itself: tests/test_torch_hybrid_train.py); gradient merge,
-    remat and the metrics cadence are ported
-    (tests/test_torch_train_fit.py holds them to JAX's) and take
-    effect."""
+    """A mesh must be a ``DeviceMesh`` and a parameter spec needs one (the
+    hybrid step itself: tests/test_torch_hybrid_train.py); without a mesh
+    a ZeRO level or axis is taken at level 0, as in the reference (ZeRO
+    itself: tests/test_torch_sharding.py, tests/test_torch_zero_train.py),
+    and LocalSGD, which needs a mesh with dp > 1, raises ``ValueError``
+    (tests/test_torch_localsgd_dgc.py); gradient merge, remat and the
+    metrics cadence are ported (tests/test_torch_train_fit.py holds them
+    to JAX's) and take effect."""
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     opt = AdamW(1e-3, parameters=model.parameters())
     if refused:
@@ -336,9 +338,10 @@ def test_refused_train_step_options(kw, refused):
             TrainStep(model, opt, **kw)
         return
     step = TrainStep(model, opt, **kw)
-    assert (step.gradient_merge_k, step.remat, step.metrics_every) == (
+    assert (step.gradient_merge_k, step.remat, step.metrics_every,
+            step.sharding_level) == (
         kw.get("gradient_merge_k", 1), kw.get("remat", False),
-        kw.get("metrics_every", 0))
+        kw.get("metrics_every", 0), 0)
 
 
 def test_loss_fn_and_state_dict():

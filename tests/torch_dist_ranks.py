@@ -334,3 +334,11 @@ def sleeping_rank(rank, seconds):
     import time
     time.sleep(seconds)
     return rank
+
+
+def rank_zero_last(rank, seconds):
+    """Rank 0 returns ``seconds`` after the others."""
+    import time
+    if rank == 0:
+        time.sleep(seconds)
+    return rank
