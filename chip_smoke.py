@@ -325,7 +325,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               space against the whole call (out 2e-3 bf16 / 1e-4 fp32
               abs, lse as above); with_lse forward and forward + backward
               timed beside flash_attention's on the same shape;
-     unet     this slice's main path: UNetConfig.sd15() at full width and
+     unet     UNetConfig.sd15() at full width and
               depth (859,520,964 parameters; heads of 40, 80 and 160),
               bf16 with f32 masters, seeded, TrainStep(UNetDenoiseLoss) +
               AdamW 1e-4 (the JAX bench's recipe), without remat: 2
@@ -408,8 +408,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               several ranks on the one card, started by the port's spawn,
               over gloo with CUDA tensors (NCCL refuses two ranks on one
               device; a gloo all-reduce crosses the host, so the step
-              times are no performance figure), one world after another:
-              fp32 at 7B width and 2 layers, batch 2 x 1024, 3
+              times are no performance figure; run after zero, one world
+              of each size running hybrid_ranks', zero_ranks' and
+              pipeline_ranks' rows, one world after another):
+              fp32 at 7B width and 1 layer, batch 2 x 1024, 3
               warmup/cosine AdamW steps with the clip, at dp = 2 and mp =
               2 (a world of 2) and dp = 2 x mp = 2 (a world of 4): every
               rank's losses equal, within 1e-5 relative of the same steps
@@ -421,7 +423,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               4096 a rank): finite, falling losses within 1e-2 relative
               of train's first 3, each rank's #7-#9 launched 8 x 2 x 3
               times at 16 heads;
-     zero     this slice's main path: train's model, batch and recipe on
+     zero     train's model, batch and recipe on
               one NCCL rank through fleet.init (sharding_degree = 1),
               annotate_llama_tp, group_sharded_parallel at "os", "os_g"
               and "p_g_os" in turn and TrainStep(mesh=hcg.get_mesh(),
@@ -435,8 +437,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               beside the plain Momentum's;
      zero_ranks
               ZeRO across ranks on the one card, through hybrid_ranks'
-              rank body, checks and schedule: fp32 at 7B width and 2
-              layers, 3 warmup/cosine AdamW steps with the clip, at
+              rank body, checks and schedule: fp32 at 7B width and 1
+              layer, 3 warmup/cosine AdamW steps with the clip, at
               sharding = 2 and stages 1, 2, 3 and LocalSGD at dp = 2 with
               k = 2 (a world of 2), dp = 2 x sharding = 2 at stage 2 (4 x
               512 tokens: 2 rows do not split over 4 data ranks) and
@@ -448,6 +450,28 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               row, each rank's #7-#9 launched 8 x 3 times) and one step at
               stage 1 (its loss train's first within 1e-2): stage 3's
               resting memory (between steps) below stage 1's;
+     pipeline_ranks
+              this slice's main path: pipeline parallelism across ranks
+              on the one card through hybrid_ranks' rank body, checks and
+              schedule, train's model carried into LlamaForCausalLMPipe
+              (convert.pipe_name_map), each rank building only its stage,
+              and PipelineTrainStep: fp32 at 7B width, 3 warmup/cosine
+              AdamW steps with the clip, held as hybrid_ranks' fp32 rows
+              to one process running the pipe built whole on the same
+              microbatches (the stages gathered onto rank 0 under the
+              whole model's names): pp = 2 at 2 layers on 2 x 1024 tokens in 2
+              microbatches under 1F1B (remat), FThenB and zbh1 (no
+              remat), pp = 2 at V = 2 (4 layers, 4 x 512), then bf16 at
+              train's depth, batch and recipe at pp = 2 under 1F1B (2
+              microbatches of 1 x 4096, 4 layers a rank), its 3 losses
+              within 1e-2 of train's (a world of 2); pp = 2 x mp = 2
+              (tensor_parallel=True) and pp = 2 x dp = 2 with ZeRO-1 over
+              dp on 4 x 512 (a world of 4). Each rank's #8-#9 launched
+              layers-on-the-rank x microbatches x steps times (and #7
+              twice that under remat), its stage, peak and resting
+              memory; activations and gradients cross between ranks
+              through pinned host memory (gloo), so the step times are no
+              performance figure;
      fit      the slice's main path: Model.fit on the same width at 4
               layers, amp.decorate(O2, bf16) without f32 masters (its two
               checkpoints and fit_faults' two must stay within what a call
@@ -461,12 +485,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               and ModelCheckpoint callbacks (under build/fit_ckpt, removed
               after): finite losses, the first equal to a bare
               TrainStep's on the same first batch, each flash kernel
-              launched 96 times, the final checkpoint loading back into a
+              launched 48 times, the final checkpoint loading back into a
               fresh model with equal parameters; step time on the card's
               clock beside a bare TrainStep loop's on the same batches,
               tokens/s, MFU, peak memory and the host's share of time
               blocked on loss reads;
-     io       the rest of training input at fit's model (4 layers, amp
+     io       the rest of training input at fit's model (2 layers, amp
               O2, AdamW over two groups, batch 2 of 4096 tokens, one
               epoch of 8 steps, the loss read every step): Model.fit over
               fit's shuffled TensorDataset served by the native C++
@@ -484,7 +508,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               threads and 4 processes over 64 rows (rows/s, seconds to the
               first batch, rows/s after it); fit step ms on the card's
               clock beside a bare TrainStep over the same batches (idle
-              share 1 - bare / fit); #7-#9 4 layers x 8 steps a run;
+              share 1 - bare / fit); #7-#9 2 layers x 8 steps a run;
      fit_faults
               fit's recipe at 2 layers under FLAGS_fault_inject=
               "train_dispatch:every=4:times=1;train_sync:every=2:times=1;
@@ -660,12 +684,13 @@ BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 8, 512, 128
 BERT_WARMUP, BERT_STEPS, BERT_LR = 2, 5, 1e-4
 BERT_MLM_SHARE, BERT_MASK_ID = 0.15, 103  # [MASK] in bert-base-uncased
 BERT_PARITY_LAYERS, BERT_PARITY_BATCH, BERT_PARITY_SEQ = 2, 2, 256
-# fit: Model.fit at the train phase's width, 4 layers, over a DataLoader of
+# fit: Model.fit at the train phase's width, 2 layers, over a DataLoader of
 # seeded 4096-token rows, batch 2 split in 2 micro-batches, 6 steps. The
-# depth is what a chip call may write: fit's two checkpoints (12 bytes a
-# parameter: bf16 saved as f32 and AdamW's two f32 slots) and fit_faults'
-# two emergency checkpoints stay under 45 GiB together
-FIT_LAYERS = 4
+# depth keeps what a chip call may write (fit's two checkpoints, 12 bytes a
+# parameter: bf16 saved as f32 and AdamW's two f32 slots, and fit_faults'
+# two emergency checkpoints) under 45 GiB together, and the script's time
+# under its limit (4 layers until the pipeline's rows joined)
+FIT_LAYERS = 2
 FIT_ROWS, FIT_BATCH, FIT_ACCUM, FIT_STEPS, FIT_METRICS_EVERY = 16, 2, 2, 6, 2
 FIT_CKPT_DIR = "build/fit_ckpt"
 # fit_faults: fit's recipe at 2 layers under a fault schedule (the dispatch
@@ -5740,13 +5765,15 @@ def check_flash_with_lse(dtype, device):
 
 # ----------------------------------------------------------------- train
 def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False,
-                 mesh=None, fleet=None, level=None, **step_kw):
+                 mesh=None, fleet=None, level=None, pipeline=None,
+                 **step_kw):
     """AdamW(multi_precision) + global-norm clip, through TrainStep; with
     ``steps`` a 2-step linear warmup into a cosine decay. With ``fleet``
     the model and the optimizer go through its ``distributed_model`` /
     ``distributed_optimizer``, with ``level`` through
     ``group_sharded_parallel``; ``mesh`` and ``step_kw`` are
-    TrainStep's."""
+    TrainStep's. With ``pipeline`` (a pipeline_ranks row) the model is a
+    PipelineLayer and the step PipelineTrainStep."""
     from paddle_tpu_torch.hapi import TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
@@ -5758,6 +5785,14 @@ def make_trainer(model, lr, steps=None, grad_accum_steps=1, remat=False,
     opt = AdamW(sched, parameters=model.named_parameters(),
                 weight_decay=0.01, multi_precision=True,
                 grad_clip=ClipGradByGlobalNorm(1.0))
+    if pipeline is not None:
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+            PipelineTrainStep
+        return PipelineTrainStep(
+            model, opt, mesh, pipeline["accum"], remat=pipeline["remat"],
+            virtual_pp_degree=pipeline["V"], schedule=pipeline["schedule"],
+            sharding_level=pipeline["zero"],
+            sharding_axis="dp" if pipeline["zero"] else None)
     if fleet is not None:
         model, opt = fleet.distributed_model(model), \
             fleet.distributed_optimizer(opt)
@@ -5955,11 +5990,16 @@ def run_train_remat(device, train):
     return counts
 
 
-# hybrid_ranks and zero_ranks: rows across gloo ranks on the one card. fp32
-# rows run 7B width at HYBRID_RANK_LAYERS on HYBRID_RANK_BATCH x
+# hybrid_ranks, zero_ranks and pipeline_ranks: rows across gloo ranks on the
+# one card. fp32 rows run 7B width at HYBRID_RANK_LAYERS (the pipeline's
+# PIPE_RANK_LAYERS: a stage of pp = 2 holds one) on HYBRID_RANK_BATCH x
 # HYBRID_RANK_SEQ tokens and are held to one process; bf16 rows run train's
-# depth, batch and recipe and are held to train's losses
-HYBRID_RANK_LAYERS, HYBRID_RANK_BATCH, HYBRID_RANK_SEQ = 2, 2, 1024
+# depth, batch and recipe and are held to train's losses. The fp32 rows'
+# gloo collectives cross the host at under 1 GB/s, so their depth is what
+# keeps the script under its time limit (2 layers until the pipeline's rows
+# joined)
+HYBRID_RANK_LAYERS, HYBRID_RANK_BATCH, HYBRID_RANK_SEQ = 1, 2, 1024
+PIPE_RANK_LAYERS = 2
 HYBRID_RANK_STEPS = 3
 HYBRID_RANK_LR = 3e-4
 HYBRID_LOSS_RTOL = 1e-5     # fp32: mp splits the row-parallel sums
@@ -6037,35 +6077,56 @@ def run_hybrid(device, train):
 
 def rank_row(level=None, dp=1, sharding=1, mp=1, dtype=torch.float32,
              batch=HYBRID_RANK_BATCH, seq=HYBRID_RANK_SEQ, localsgd_k=None,
-             steps=HYBRID_RANK_STEPS):
-    """One row of hybrid_ranks or zero_ranks: the degrees, the ZeRO level
-    (None: no group_sharded_parallel) and LocalSGD's k. An fp32 row runs
-    HYBRID_RANK_LAYERS on ``batch`` x ``seq`` tokens (seed 7) in one
-    micro-batch; a bf16 row train's depth, global batch (seed 5), schedule
-    and micro-batch of one row, so a rank with more rows accumulates. A
-    row of one step only reads its resting memory (the optimizer state is
-    made in the first step)."""
+             steps=HYBRID_RANK_STEPS, pp=1, schedule="1F1B", micro=1, V=1,
+             remat=True, zero=None, layers=None):
+    """One row of hybrid_ranks, zero_ranks or pipeline_ranks: the degrees,
+    the ZeRO level (None: no group_sharded_parallel) and LocalSGD's k. An
+    fp32 row runs HYBRID_RANK_LAYERS (or ``layers``) on ``batch`` x ``seq``
+    tokens (seed 7) in one micro-batch; a bf16 row train's depth, global
+    batch (seed 5), schedule and micro-batch of one row, so a rank with
+    more rows accumulates. A row of one step only reads its resting
+    memory (the optimizer state is made in the first step). At ``pp`` > 1
+    the row trains train's model carried into LlamaForCausalLMPipe
+    (convert.pipe_name_map) through PipelineTrainStep: ``micro``
+    microbatches under ``schedule`` at ``V`` virtual stages a rank, with
+    ``remat`` and ZeRO level ``zero`` over dp."""
     fp32 = dtype == torch.float32
     if not fp32:
         batch, seq = TRAIN_BATCH, TRAIN_SEQ
     return dict(level=level, dp=dp, sharding=sharding, mp=mp, dtype=dtype,
-                layers=HYBRID_RANK_LAYERS if fp32 else TRAIN_LAYERS,
+                layers=layers or (HYBRID_RANK_LAYERS if fp32
+                                  else TRAIN_LAYERS),
                 batch=batch, seq=seq, seed=7 if fp32 else 5,
                 lr=HYBRID_RANK_LR if fp32 else 3e-4,
                 sched_steps=HYBRID_RANK_STEPS if fp32 else TRAIN_STEPS,
-                accum=1 if fp32 else batch // (dp * sharding),
-                localsgd_k=localsgd_k, steps=steps)
+                accum=(micro if pp > 1 else 1 if fp32
+                       else batch // (dp * sharding)),
+                localsgd_k=localsgd_k, steps=steps, pp=pp,
+                schedule=schedule, V=V, remat=remat, zero=zero)
 
 
-def _one_rank(device, layers, batch, seq):
-    """The fp32 steps in one process, no runtime: (losses, parameters)."""
+def _one_rank(device, layers, batch, seq, micro=None):
+    """The fp32 steps in one process, no runtime: (losses, parameters).
+    With ``micro`` the model is first carried into its pipe, built whole
+    (``LlamaForCausalLMPipe`` of one stage: the pipeline rows' model and
+    loss), and each step accumulates ``micro`` microbatches; the
+    parameters come back under the whole model's names."""
+    from paddle_tpu_torch.convert import pipe_name_map
     cfg, model = train_model(device, SEED, dtype=torch.float32,
                              layers=layers)
-    trainer = make_trainer(model, HYBRID_RANK_LR, steps=HYBRID_RANK_STEPS)
+    names = None
+    if micro:
+        names = {v: k for k, v in pipe_name_map(model).items()}
+        model = pipe_from(cfg, model, None, dict(
+            mp=1, V=1, dtype=torch.float32), device)
+    trainer = make_trainer(model, HYBRID_RANK_LR, steps=HYBRID_RANK_STEPS,
+                           grad_accum_steps=micro or 1,
+                           loss_fn=model._loss_fn if micro else None)
     x, y = (t.to(device) for t in token_batch(cfg.vocab_size, batch, seq,
                                               7))
     losses = [float(trainer(x, y)) for _ in range(HYBRID_RANK_STEPS)]
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    params = {(names[k] if names else k): p.detach()
+              for k, p in model.named_parameters()}
     del trainer
     return losses, params
 
@@ -6131,17 +6192,69 @@ def _whole_on_card(model, hcg, check_replicas=True):
     return whole, unequal
 
 
+def pipe_from(cfg, model, hcg, row, device):
+    """``model`` (train_model's) carried into LlamaForCausalLMPipe on this
+    rank's stage of ``hcg`` (every entry without one) by
+    convert.pipe_name_map, its entries copied on the card (``model`` is
+    dropped by the caller)."""
+    from paddle_tpu_torch.convert import pipe_name_map
+    from paddle_tpu_torch.models import LlamaForCausalLMPipe
+    pipe = LlamaForCausalLMPipe(
+        cfg, num_stages=hcg.get_pipe_parallel_world_size() if hcg else 1,
+        topology=hcg, tensor_parallel=row["mp"] > 1,
+        num_virtual_pipeline_stages=row["V"], device=device,
+        dtype=row["dtype"])
+    names = pipe_name_map(model)
+    mine = dict(pipe.named_parameters())
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if names[k] in mine:
+                mine[names[k]].copy_(p)
+    return pipe
+
+
+def _stages_to_first(params, hcg, device):
+    """Each stage's whole parameters sent to the first stage of this rank's
+    pipeline group (the one of global rank 0 only) through the pipeline's
+    transport (gloo takes CUDA tensors through pinned host memory)."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.pp_utils \
+        .p2p_communication import Wire
+    pp = hcg.get_pipe_parallel_group()
+    metas = []
+    pdist.all_gather_object(metas, sorted((k, tuple(v.shape), v.dtype)
+                                          for k, v in params.items()),
+                            group=pp)
+    if 0 not in pp.ranks:
+        return params
+    wire = Wire(pp, device)
+    for s in range(1, pp.nranks):
+        for k, shape, dtype in metas[s]:
+            if pp.rank == 0:
+                buf = torch.empty(shape, dtype=dtype, device=device)
+                wire.exchange(recvs=[(buf, pp.ranks[s])])
+                params[k] = buf
+            elif pp.rank == s:
+                wire.exchange([(params[k], pp.ranks[0])])
+    return params
+
+
 def rank_body(rank, rows):
-    """One rank of hybrid_ranks or zero_ranks: gloo on cuda:0 (NCCL
-    refuses two ranks on one device); each rank_row builds the seeded
-    model (annotate_llama_tp but under LocalSGD), make_trainer through
-    group_sharded_parallel at the row's level (if any) on
-    TrainStep(mesh=..., data_axes=("dp", "sharding")), the row's steps
-    with this rank's #7-#9 launches, collectives, peak and resting memory.
-    The fp32 rows' parameters are gathered whole; rank 0 holds them, once
-    the world is done, to the same steps in one process."""
+    """One rank of hybrid_ranks, zero_ranks or pipeline_ranks: gloo on
+    cuda:0 (NCCL refuses two ranks on one device); each rank_row builds
+    the seeded model (annotate_llama_tp but under LocalSGD), make_trainer
+    through group_sharded_parallel at the row's level (if any) on
+    TrainStep(mesh=..., data_axes=("dp", "sharding")), or at pp > 1 the
+    model's stage of LlamaForCausalLMPipe through PipelineTrainStep; the
+    row's steps with this rank's #7-#9 launches (and how many its layers
+    make), collectives, peak and resting memory. The fp32 rows' parameters
+    are gathered whole (a pipeline's stages onto rank 0, under the whole
+    model's names); rank 0 holds them, once the world is done, to the same
+    steps in one process (a pipeline row: its pipe built whole, on the
+    same microbatches)."""
     import datetime
     from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.convert import pipe_name_map
     from paddle_tpu_torch.distributed.fleet import base_topology as topo
     from paddle_tpu_torch.models.llama import annotate_llama_tp
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6152,38 +6265,62 @@ def rank_body(rank, rows):
     out, kept = [], []
     try:
         for row in rows:
+            t_row = time.perf_counter()
             hcg = topo.create_hybrid_communicate_group(
-                dp_degree=row["dp"], sharding_degree=row["sharding"],
-                mp_degree=row["mp"])
+                dp_degree=row["dp"], pp_degree=row["pp"],
+                sharding_degree=row["sharding"], mp_degree=row["mp"])
+            hcg_s = time.perf_counter() - t_row
             cfg, model = train_model(device, SEED, dtype=row["dtype"],
                                      layers=row["layers"])
-            if not row["localsgd_k"]:
+            names = None
+            if row["pp"] > 1:
+                names = {v: k for k, v in pipe_name_map(model).items()}
+                model = pipe_from(cfg, model, hcg, row, device)
+                torch.cuda.empty_cache()
+            elif not row["localsgd_k"]:
                 annotate_llama_tp(model)
             trainer = make_trainer(model, row["lr"],
                                    steps=row["sched_steps"],
                                    grad_accum_steps=row["accum"],
                                    mesh=hcg.get_mesh(), level=row["level"],
                                    data_axes=("dp", "sharding"),
-                                   localsgd_k=row["localsgd_k"])
+                                   localsgd_k=row["localsgd_k"],
+                                   **({"pipeline": row} if names else {}))
             x, y = (t.to(device) for t in token_batch(
                 cfg.vocab_size, row["batch"], row["seq"], row["seed"]))
             pdist.reset_collective_counts()
             losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0,
                                                        row["steps"])
+            layers = sum(type(m).__name__ == "LlamaDecoderLayer"
+                         for m in model.modules())
+            micro = layers * row["accum"] * row["steps"]
             got = dict(losses=losses, step_ms=[1e3 * v for v in step_s],
                        launches={k: counts[k] for k in TRAIN_KERNELS},
+                       want_launches=dict(
+                           flash_attention_fwd=micro * (
+                               2 if names and row["remat"] else 1),
+                           flash_attention_bwd_dq=micro,
+                           flash_attention_bwd_dkv=micro),
                        collectives=pdist.collective_counts(),
                        resolved_level=trainer.sharding_level,
-                       heads=model.llama.layers[0].self_attn.num_heads,
+                       heads=next(m for m in model.modules()
+                                  if hasattr(m, "num_kv_heads")).num_heads,
+                       stage=hcg.get_stage_id(), layers_on_rank=layers,
                        peak_mem_gb=peak / 1e9,
                        resting_mem_gb=torch.cuda.memory_allocated() / 1e9)
+            if names:
+                got["ticks"] = len(trainer._ticks)
             del trainer, x, y
             if row["dtype"] == torch.float32:
                 params, got["replicas_unequal"] = _whole_on_card(
                     model, hcg, not row["localsgd_k"])
+                if names:
+                    params = {names[k]: v for k, v in _stages_to_first(
+                        params, hcg, device).items()}
                 if rank == 0:
                     kept.append({k: v.cpu() for k, v in params.items()})
                 del params
+            got.update(row_s=time.perf_counter() - t_row, hcg_s=hcg_s)
             out.append(got)
             topo._reset_hcg()
             del model
@@ -6196,12 +6333,14 @@ def rank_body(rank, rows):
         for row, got in zip(rows, out):
             if row["dtype"] != torch.float32:
                 continue
+            t_ref = time.perf_counter()
             if row["localsgd_k"]:
                 ref_losses, ref_params = _localsgd_reference(device, row)
             else:
-                key = (row["batch"], row["seq"])
+                key = (row["layers"], row["batch"], row["seq"],
+                       row["accum"] if row["pp"] > 1 else None)
                 if key not in refs:
-                    refs[key] = _one_rank(device, row["layers"], *key)
+                    refs[key] = _one_rank(device, *key)
                 ref_losses, ref_params = refs[key]
             got["one_rank_losses"] = ref_losses
             got["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
@@ -6219,7 +6358,8 @@ def rank_body(rank, rows):
             got.update(param_max_abs_err=worst, params_off=off,
                        params_total=total,
                        param_names_equal=sorted(params) == sorted(
-                           ref_params))
+                           ref_params),
+                       ref_s=time.perf_counter() - t_ref)
             del params, ref_params, ref_losses
             torch.cuda.empty_cache()
         del refs
@@ -6245,7 +6385,8 @@ def spawn_worlds(worlds):
 
 
 def check_rank_worlds(phase, worlds, train):
-    """The rows of ``worlds`` (spawn_worlds') held to their checks: each
+    """The rows of ``worlds`` ([(ranks, rows, each rank's results of the
+    rows)]) held to their checks: each
     rank's #7-#9 launched layers x micro-batches x steps times, every
     rank's losses equal, 32 / mp heads a rank, finite losses that fall;
     an fp32 row's losses within HYBRID_LOSS_RTOL of one process, its
@@ -6254,21 +6395,26 @@ def check_rank_worlds(phase, worlds, train):
     within 3 lr); a bf16 row's losses within BF16_RANK_LOSS_RTOL of
     train's. (rows, the launches summed)."""
     rows, counts = [], {k: 0 for k in TRAIN_KERNELS}
-    for n, world_rows, ctx, _ in worlds:
+    for n, world_rows, results in worlds:
         for i, spec in enumerate(world_rows):
-            per_rank = [r[i] for r in ctx.results]
+            per_rank = [r[i] for r in results]
             row = dict(per_rank[0])
             row.update(ranks=n, dtype=DTYPE_NAME[spec["dtype"]],
                        **{k: spec[k] for k in ("level", "dp", "sharding",
                                                "mp", "layers", "batch",
                                                "seq", "accum",
                                                "localsgd_k")})
+            if spec["pp"] > 1:
+                row.update({k: spec[k] for k in ("pp", "schedule", "V",
+                                                 "remat", "zero")})
             what = (f"{phase} {row['dtype']} {spec['level']} "
                     f"dp={spec['dp']} sharding={spec['sharding']} "
-                    f"mp={spec['mp']} localsgd={spec['localsgd_k']}")
-            want = spec["layers"] * spec["accum"] * spec["steps"]
+                    f"mp={spec['mp']} localsgd={spec['localsgd_k']}"
+                    + (f" pp={spec['pp']} {spec['schedule']} V={spec['V']}"
+                       if spec["pp"] > 1 else ""))
             for r, got in enumerate(per_rank):
                 for name in TRAIN_KERNELS:
+                    want = got["want_launches"][name]
                     require(got["launches"][name] == want,
                             f"{what} rank {r}: {name} ran "
                             f"{got['launches'][name]} times, want {want}")
@@ -6303,41 +6449,62 @@ def check_rank_worlds(phase, worlds, train):
                 require(row["loss_rel_err_vs_train"] <= BF16_RANK_LOSS_RTOL,
                         f"{what}: losses {row['losses']} vs train's "
                         f"{want_losses}")
-            for key in ("step_ms", "resting_mem_gb", "peak_mem_gb"):
+            for key in ("step_ms", "resting_mem_gb", "peak_mem_gb",
+                        "launches", "stage", "layers_on_rank", "row_s",
+                        "hcg_s"):
                 row[f"per_rank_{key}"] = [g[key] for g in per_rank]
             rows.append(row)
     return rows, counts
 
 
-def run_ranks(phase, worlds, train, **fields):
-    """``worlds`` spawned one after another on the one card over gloo with
-    CUDA tensors, checked, and the phase's line emitted: its summed #7-#9
-    launches. A gloo collective crosses the host, so the step times say
-    nothing of the card's speed."""
-    t0 = time.perf_counter()
+def run_ranks(phases, train):
+    """The rank phases ``phases`` ([(phase, worlds, fields)], each world
+    (ranks, rows)) on the one card over gloo with CUDA tensors: every
+    phase's rows of one world size run in one spawned world (one world
+    after another), then each phase's rows are checked and its line
+    emitted: its summed #7-#9 launches, the seconds of its rows on rank 0
+    (its rows' own time, one-process references included; the spawns are
+    shared). A gloo collective crosses the host, so the step times say
+    nothing of the card's speed. Returns {phase: (counts, rows)}."""
     # this process's garbage (a DataParallel's gradient hooks hold its
     # model in a cycle) and cache off the card before the ranks start
     gc.collect()
     torch.cuda.empty_cache()
-    done = spawn_worlds(worlds)
-    rows, counts = check_rank_worlds(phase, done, train)
-    emit(phase, ranks_on_one_card=[n for n, _, _, _ in done],
-         world_seconds=[t for _, _, _, t in done],
-         backend="gloo (CUDA tensors, through the host)",
-         note="gloo collectives cross the host: step times are not a "
-              "performance figure", rows=rows,
-         seconds=time.perf_counter() - t0, **fields)
-    return counts, rows
+    sizes = sorted({n for _, worlds, _ in phases for n, _ in worlds})
+    merged = [(n, [row for _, worlds, _ in phases for m, rows in worlds
+                   if m == n for row in rows]) for n in sizes]
+    done = spawn_worlds(merged)
+    index = {id(row): (ctx, i) for _, rows, ctx, _ in done
+             for i, row in enumerate(rows)}
+    out = {}
+    for phase, worlds, fields in phases:
+        per_world = []
+        for n, rows in worlds:
+            ctx = index[id(rows[0])][0]
+            idx = [index[id(row)][1] for row in rows]
+            per_world.append((n, rows, [[res[i] for i in idx]
+                                        for res in ctx.results]))
+        rows, counts = check_rank_worlds(phase, per_world, train)
+        emit(phase, ranks_on_one_card=[n for n, _ in worlds],
+             world_seconds={n: t for n, _, _, t in done},
+             backend="gloo (CUDA tensors, through the host)",
+             note="gloo collectives cross the host: step times are not a "
+                  "performance figure; one world of each size runs every "
+                  "rank phase's rows",
+             rows=rows,
+             seconds=sum(r["per_rank_row_s"][0] + r.get("ref_s", 0.0)
+                         for r in rows), **fields)
+        out[phase] = (counts, rows)
+    return out
 
 
-def run_hybrid_ranks(train):
-    """fp32 at dp = 2 and mp = 2 (a world of 2, beside bf16 at mp = 2) and
-    dp = 2 x mp = 2 (a world of 4)."""
-    counts, _ = run_ranks("hybrid_ranks", (
+def hybrid_rank_rows():
+    """hybrid_ranks: fp32 at dp = 2 and mp = 2 (a world of 2, beside bf16
+    at mp = 2) and dp = 2 x mp = 2 (a world of 4)."""
+    return ("hybrid_ranks", (
         (2, [rank_row(dp=2), rank_row(mp=2),
              rank_row(mp=2, dtype=torch.bfloat16)]),
-        (4, [rank_row(dp=2, mp=2)])), train)
-    return counts
+        (4, [rank_row(dp=2, mp=2)])), {})
 
 
 # zero: train's cell through each ZeRO level on one NCCL rank, then DGC
@@ -6460,25 +6627,28 @@ def run_zero(device, train, hybrid_coll):
 ZERO_LOCALSGD_K = 2
 
 
-def run_zero_ranks(train):
-    """ZeRO across ranks: fp32 at sharding = 2 and stages 1-3, LocalSGD at
-    dp = 2, then bf16 at stage 1 (one step, for its resting memory) and
-    stage 3 (a world of 2); fp32 dp = 2 x sharding = 2 at stage 2 (4 x
-    512 tokens: 2 rows do not split over 4 data ranks) and sharding = 2 x
-    mp = 2 at stage 3 (a world of 4). Stage 3's resting memory a rank is
-    below stage 1's. gloo takes a CUDA reduce_scatter and all_gather as
-    they are."""
+def zero_rank_rows():
+    """zero_ranks, ZeRO across ranks: fp32 at sharding = 2 and stages 1-3,
+    LocalSGD at dp = 2, then bf16 at stage 1 (one step, for its resting
+    memory) and stage 3 (a world of 2); fp32 dp = 2 x sharding = 2 at
+    stage 2 (4 x 512 tokens: 2 rows do not split over 4 data ranks) and
+    sharding = 2 x mp = 2 at stage 3 (a world of 4). gloo takes a CUDA
+    reduce_scatter and all_gather as they are."""
     bf16 = torch.bfloat16
-    counts, rows = run_ranks("zero_ranks", (
+    return ("zero_ranks", (
         (2, [rank_row("os", sharding=2), rank_row("os_g", sharding=2),
              rank_row("p_g_os", sharding=2),
              rank_row(dp=2, localsgd_k=ZERO_LOCALSGD_K),
              rank_row("os", sharding=2, dtype=bf16, steps=1),
              rank_row("p_g_os", sharding=2, dtype=bf16)]),
         (4, [rank_row("os_g", dp=2, sharding=2, batch=4, seq=512),
-             rank_row("p_g_os", sharding=2, mp=2)])), train,
-        gloo_cuda_collectives="reduce_scatter and all_gather taken as they "
-                              "are (no all-reduce stand-in)")
+             rank_row("p_g_os", sharding=2, mp=2)])),
+        dict(gloo_cuda_collectives="reduce_scatter and all_gather taken as "
+                                   "they are (no all-reduce stand-in)"))
+
+
+def check_zero_memory(rows):
+    """Stage 3's resting memory a rank is below stage 1's."""
     stage = {r["level"]: r for r in rows if r["dtype"] == "bf16"}
     for r in range(2):
         require(stage["p_g_os"]["per_rank_resting_mem_gb"][r]
@@ -6486,7 +6656,38 @@ def run_zero_ranks(train):
                 f"zero_ranks: rank {r}'s resting memory at stage 3 "
                 f"{stage['p_g_os']['per_rank_resting_mem_gb'][r]} GB not "
                 f"below stage 1's {stage['os']['per_rank_resting_mem_gb'][r]}")
-    return counts
+
+
+def pipeline_rank_rows():
+    """pipeline_ranks, pipeline parallelism across ranks on the one card:
+    fp32 at 7B width, held to the pipe built whole in one process, at pp
+    = 2 (2 layers, 2 x 1024 tokens, M = 2) under 1F1B, FThenB and zbh1
+    (without remat: W takes the weight gradients from what B kept, so #8
+    and #9 run once a layer and microbatch), at V = 2 (4 layers, 4 x 512)
+    and bf16 at train's depth, batch and recipe (pp = 2, 1F1B, M = 2, 4
+    layers a rank) held to train's losses (a world of 2); pp = 2 x mp = 2
+    (tensor_parallel=True) and pp = 2 x dp = 2 with ZeRO-1 over dp at 4 x
+    512 (a world of 4)."""
+    pipe = dict(pp=2, micro=2)
+    fp32 = dict(layers=PIPE_RANK_LAYERS, **pipe)
+    return ("pipeline_ranks", (
+        (2, [rank_row(**fp32), rank_row(schedule="FThenB", **fp32),
+             rank_row(schedule="zbh1", remat=False, **fp32),
+             rank_row(V=2, layers=4, batch=4, seq=512, **pipe),
+             rank_row(dtype=torch.bfloat16, **pipe)]),
+        (4, [rank_row(mp=2, **fp32),
+             rank_row(dp=2, zero=1, batch=4, seq=512, **fp32)])),
+        dict(p2p="gloo with CUDA tensors staged through pinned host memory "
+                 "(p2p_host_staged in each row's collectives)"))
+
+
+def run_rank_phases(train):
+    """hybrid_ranks, zero_ranks and pipeline_ranks through run_ranks:
+    {phase: the launches summed}."""
+    done = run_ranks([hybrid_rank_rows(), zero_rank_rows(),
+                      pipeline_rank_rows()], train)
+    check_zero_memory(done["zero_ranks"][1])
+    return {phase: counts for phase, (counts, _) in done.items()}
 
 
 def fit_recipe(device, layers, model_seed):
@@ -8152,7 +8353,7 @@ def main() -> int:
         check_flash_attention(dtype, device, train_rows)
         for n, c in check_flash_with_lse(dtype, device).items():
             lse_counts[n] = lse_counts.get(n, 0) + c
-    unet_counts = run_unet(device)               # this slice's main path
+    unet_counts = run_unet(device)
     run_unet_parity(device)
     bert_counts = run_bert(device)
     run_bert_parity(device)
@@ -8162,9 +8363,8 @@ def main() -> int:
     train_counts, train = run_train(device)
     remat_counts = run_train_remat(device, train)
     hybrid_counts, hybrid_coll = run_hybrid(device, train)
-    hybrid_rank_counts = run_hybrid_ranks(train)
-    zero_counts = run_zero(device, train, hybrid_coll)  # this slice's path
-    zero_rank_counts = run_zero_ranks(train)
+    zero_counts = run_zero(device, train, hybrid_coll)
+    rank_counts = run_rank_phases(train)   # pipeline_ranks: this slice's
     fit_counts = run_fit(device)
     io_counts = run_io(device)
     fit_fault_counts = run_fit_faults(device)
@@ -8189,11 +8389,11 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = zero_counts[name]         # this slice's main path
-            by_path = dict(zero=launches,
-                           zero_ranks=zero_rank_counts[name],
+            launches = rank_counts["pipeline_ranks"][name]  # this slice
+            by_path = dict(pipeline_ranks=launches, zero=zero_counts[name],
+                           zero_ranks=rank_counts["zero_ranks"][name],
                            hybrid=hybrid_counts[name],
-                           hybrid_ranks=hybrid_rank_counts[name],
+                           hybrid_ranks=rank_counts["hybrid_ranks"][name],
                            unet=unet_counts[name], bert=bert_counts[name],
                            moe=moe_counts[name], train=train_counts[name],
                            train_remat=remat_counts[name],

@@ -19,10 +19,19 @@ dimension, or a tuple of names for a dimension they cut together, as a
 ``PartitionSpec``, e.g. ``annotate_llama_tp``'s ``dist_attr`` or a ZeRO
 spec from ``extend_spec_with_sharding``) and the rank's mesh coordinates;
 :func:`gather_state` puts every rank's shards back together.
+
+Pipelines: :func:`pipe_state` takes the JAX ``PipelineLayer``'s named
+parameters (``"{idx}.{rel}"``, a tied weight at its first use) into one
+rank's stage entries, a tied copy from the owner's weight, each cut by mp
+where the stage holds a shard; :func:`gather_pipe_state` puts the stages
+back into that flat dict, holding the data-parallel replicas and the tied
+copies equal bit for bit. :func:`pipe_name_map` maps ``LlamaForCausalLM``
+/ ``GPTForCausalLM`` parameter names onto their pipe's.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -196,4 +205,106 @@ def gather_state(shards: Sequence[Mapping[str, np.ndarray]],
             seen[key] = shard[name]
             whole[idx] = shard[name]
         out[name] = whole
+    return out
+
+
+# -------------------------------------------------------------- pipelines
+def pipe_name_map(model) -> Dict[str, str]:
+    """``LlamaForCausalLM`` / ``GPTForCausalLM`` parameter name -> the name
+    in its pipe (``LlamaForCausalLMPipe`` / ``GPTForCausalLMPipe`` of the
+    same config): the embedding entry 0 (``llama.embed_tokens.weight`` ->
+    ``0.embed_tokens.weight``; GPT's ``wte`` / ``wpe``), layer i entry
+    i + 1, the final norm entry n + 1 and the head entry n + 2."""
+    n = model.config.num_hidden_layers
+    out = {}
+    for name, _ in model.named_parameters():
+        m = re.fullmatch(r"(?:llama\.layers|gpt\.h)\.(\d+)\.(.+)", name)
+        if m:
+            out[name] = f"{int(m.group(1)) + 1}.{m.group(2)}"
+        elif name.startswith(("llama.embed_tokens.", "gpt.wte.",
+                               "gpt.wpe.")):
+            out[name] = "0." + name.split(".", 1)[1]
+        elif name.startswith(("llama.norm.", "gpt.ln_f.")):
+            out[name] = f"{n + 1}." + name.rsplit(".", 1)[1]
+        elif name.startswith("lm_head."):
+            out[name] = f"{n + 2}." + name.split(".", 1)[1]
+        else:
+            raise KeyError(f"{name}: no pipe entry")
+    return out
+
+
+def _pipe_coords(pipe) -> Tuple[Dict[str, int], Dict[str, int]]:
+    hcg = pipe._hcg
+    if hcg is None:
+        from .distributed.fleet.base_topology import \
+            try_get_hybrid_communicate_group
+        hcg = try_get_hybrid_communicate_group()
+    if hcg is None:
+        return {}, {}
+    return ({"dp": hcg.get_data_parallel_rank(),
+             "sharding": hcg.get_sharding_parallel_rank(),
+             "mp": hcg.get_model_parallel_rank()},
+            {"dp": hcg.get_data_parallel_world_size(),
+             "sharding": hcg.get_sharding_parallel_world_size(),
+             "mp": hcg.get_model_parallel_world_size()})
+
+
+def pipe_state(named: Mapping[str, np.ndarray], pipe,
+               coords: Optional[Mapping[str, int]] = None,
+               sizes: Optional[Mapping[str, int]] = None
+               ) -> Dict[str, np.ndarray]:
+    """This rank's stage entries of ``pipe`` from ``named`` (the reference
+    ``PipelineLayer``'s parameters by ``"{idx}.{rel}"``): a tied copy
+    from its owner's entry; a parameter the stage holds as a shard (its
+    ``dist_attr`` spec) cut at ``coords`` on a mesh of ``sizes`` (default:
+    the topology's mp, dp and sharding coordinates). bf16 arrives as
+    float32; :func:`load_state` takes the result."""
+    if coords is None or sizes is None:
+        coords, sizes = _pipe_coords(pipe)
+    out = {}
+    for name, p in pipe.named_parameters():
+        a = np.asarray(named[pipe._copy_sources.get(name, name)])
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        if tuple(a.shape) != tuple(p.shape):
+            a = a[shard_slices(a.shape, getattr(p, "dist_attr", None),
+                               coords, sizes)]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: {a.shape} does not cut to "
+                             f"{tuple(p.shape)}")
+        out[name] = np.ascontiguousarray(a)
+    return out
+
+
+def gather_pipe_state(shards: Sequence[Mapping[str, np.ndarray]],
+                      specs: Mapping[str, Optional[Sequence]],
+                      coords: Sequence[Mapping[str, int]],
+                      sizes: Mapping[str, int],
+                      aliases: Optional[Mapping[str, Optional[str]]] = None
+                      ) -> Dict[str, np.ndarray]:
+    """The reference's flat ``"{idx}.{rel}"`` dict from every rank's stage
+    entries (``shards[i]`` held by the rank at ``coords[i]``, with its
+    ``"pp"`` coordinate): each stage's shards gathered over the other axes
+    (:func:`gather_state`: replicas equal bit for bit), then the stages
+    merged. ``aliases`` (the ranks' ``PipelineLayer.shared_aliases``)
+    names each tied copy's owner entry, which the copy must equal bit for
+    bit; a copy's parameters that alias None are dropped."""
+    aliases = dict(aliases or {})
+    others = {k: v for k, v in sizes.items() if k != "pp"}
+    out: Dict[str, np.ndarray] = {}
+    copies: Dict[str, np.ndarray] = {}
+    for stage in range(sizes.get("pp", 1)):
+        held = [i for i, c in enumerate(coords) if c.get("pp", 0) == stage]
+        whole = gather_state([shards[i] for i in held], specs,
+                             [coords[i] for i in held], others)
+        for name, arr in whole.items():
+            if name in aliases:
+                if aliases[name] is not None:
+                    copies[name] = arr
+            else:
+                out[name] = arr
+    for name, arr in copies.items():
+        owner = aliases[name]
+        if not np.array_equal(out[owner], arr):
+            raise ValueError(f"tied copy {name} differs from {owner}")
     return out

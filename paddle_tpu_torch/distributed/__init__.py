@@ -6,10 +6,10 @@ NCCL runs on the card, gloo on the CPU when asked.
 
 ``get_backend()`` names the torch backend (``"nccl"`` / ``"gloo"``) where
 the reference names XLA. ``group_sharded_parallel`` /
-``save_group_sharded_model`` wrap a model and an optimizer for ZeRO. The
-pipeline, sequence and expert parallelism, ``auto_parallel``, the
-distributed checkpoint, ``launch``, ``ps`` and ``rpc`` are later slices
-(ROADMAP Queue 1, items 4-6).
+``save_group_sharded_model`` wrap a model and an optimizer for ZeRO; the
+pipeline lives in ``fleet.meta_parallel``. Sequence and expert
+parallelism, ``auto_parallel``, the distributed checkpoint, ``launch``,
+``ps`` and ``rpc`` are later slices (ROADMAP Queue 1, items 5-6).
 """
 
 import torch.distributed as _dist

@@ -216,7 +216,9 @@ class HybridCommunicateGroup:
         return self._pp_rank == self._pp_degree - 1
 
     def get_p2p_groups(self):
-        return None  # the pipeline's transfers come with its port
+        """None: the pipeline's transfers run over the ``pp`` group
+        (``meta_parallel/pp_utils/p2p_communication.py``)."""
+        return None
 
     # -------------------------------------------------------------- sharding
     def get_sharding_parallel_rank(self) -> int:

@@ -10,9 +10,11 @@ with :func:`~..parallel.init_parallel_env` when no one has),
 :class:`~.meta_optimizers.DygraphShardingOptimizer`, and the result goes
 into :class:`~.meta_optimizers.HybridParallelOptimizer`.
 
-Refused with ``NotImplementedError``, by the ROADMAP item that ports them:
-the parameter-server mode (item 6) and pipeline models (item 4);
-static-graph ``minimize`` as in the reference.
+At ``pp_degree > 1`` ``distributed_model`` returns a
+:class:`~.meta_parallel.PipelineParallel` over the model (a
+``PipelineLayer``). Refused with ``NotImplementedError``: the
+parameter-server mode (ROADMAP Queue 1, item 6); static-graph
+``minimize`` as in the reference.
 """
 
 from __future__ import annotations
@@ -145,13 +147,15 @@ class Fleet:
         """Collective mode: nothing to stop."""
 
     def distributed_model(self, model):
-        """The wrapper of the topology's mode: pp > 1 is the pipeline
-        (refused), else mp > 1 :class:`TensorParallel`, else sharding > 1
-        :class:`ShardingParallel`, else :class:`DataParallel`."""
+        """The wrapper of the topology's mode: pp > 1
+        :class:`PipelineParallel`, else mp > 1 :class:`TensorParallel`,
+        else sharding > 1 :class:`ShardingParallel`, else
+        :class:`DataParallel`."""
         hcg = self.get_hybrid_communicate_group()
         strategy = self._user_defined_strategy
         if hcg.get_pipe_parallel_world_size() > 1:
-            _not_ported("pipeline parallelism (pp_degree > 1)", 4)
+            from .meta_parallel.pipeline_parallel import PipelineParallel
+            return PipelineParallel(model, hcg, strategy)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, strategy)
         if hcg.get_sharding_parallel_world_size() > 1:

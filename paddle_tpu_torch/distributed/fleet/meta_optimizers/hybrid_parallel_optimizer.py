@@ -11,7 +11,8 @@ Paddle:
   (``is_distributed``) over the ``mp`` group, a ZeRO slice (stages 2-3:
   the gradient is this rank's slice) over the sharding group, a slice of
   an mp shard over both, and a replicated gradient once, where every rank
-  holds the same copy;
+  holds the same copy; in a pipeline each stage's sum is then summed over
+  the ``pp`` group, a tied weight's copies counted once (``counted``);
 - in hybrid parallelism (any mode but pure data parallelism, where
   ``DataParallel`` reduces in the backward) ``step`` first averages every
   gradient over the ``dp`` group;
@@ -45,24 +46,35 @@ def _live(group) -> bool:
 class HybridParallelClipGrad:
     """A global-norm clip over sharded and replicated gradients.
     ``sliced(p)`` says whether ``p``'s gradient is this rank's ZeRO slice
-    over ``sharding_group``. With one rank in each group it is ``clip``
-    itself."""
+    over ``sharding_group``. A pipeline stage's sum is summed over
+    ``pp_group``, of the parameters ``counted(p)`` (default: all). With
+    one rank in each group it is ``clip`` itself."""
 
     def __init__(self, clip: ClipGradByGlobalNorm, mp_group,
-                 sharding_group=None, sliced=None):
+                 sharding_group=None, sliced=None, pp_group=None,
+                 counted=None):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self._mp = mp_group if _live(mp_group) else None
         self._sharding = (sharding_group if _live(sharding_group)
                           and sliced is not None else None)
         self._sliced = sliced
+        self._pp = pp_group if _live(pp_group) else None
+        self._counted = counted
+
+    def _plain(self) -> bool:
+        return (self._mp is None and self._sharding is None
+                and self._pp is None and self._counted is None)
 
     def global_norm_sq(self, params_grads) -> torch.Tensor:
         """The squared norm of the logical parameters' gradients (f32)."""
         params_grads = list(params_grads)
-        if self._mp is None and self._sharding is None:
+        if self._plain():
             return self._clip.global_norm_sq(g for _, g in params_grads)
         dev = next(g.device for _, g in params_grads if g is not None)
+        if self._counted is not None:
+            params_grads = [(p, g) for p, g in params_grads
+                            if self._counted(p)]
 
         def part(over_mp, over_sharding):
             return self._clip.global_norm_sq(
@@ -78,10 +90,13 @@ class HybridParallelClipGrad:
             total, over_mp = total + sliced[1], over_mp + sliced[0]
         if self._mp is not None:
             C.all_reduce(over_mp, group=self._mp)
-        return total + over_mp
+        total = total + over_mp
+        if self._pp is not None:
+            C.all_reduce(total, group=self._pp)
+        return total
 
     def __call__(self, params_grads):
-        if self._mp is None and self._sharding is None:
+        if self._plain():
             return self._clip(params_grads)
         total = self.global_norm_sq(params_grads)
         scale = self.clip_norm / torch.clamp(torch.sqrt(total),
@@ -91,16 +106,17 @@ class HybridParallelClipGrad:
 
 
 def hybrid_clip(optimizer, mp_group, sharding_group=None,
-                sliced=None) -> None:
+                sliced=None, pp_group=None, counted=None) -> None:
     """Give ``optimizer`` the hybrid global-norm clip over ``mp_group``
-    (and ZeRO's ``sharding_group``); a hybrid clip already there is
-    rebuilt over these groups, another clip stays as it is."""
+    (and ZeRO's ``sharding_group``, and a pipeline's ``pp_group``); a
+    hybrid clip already there is rebuilt over these groups, another clip
+    stays as it is."""
     clip = optimizer._grad_clip
     if isinstance(clip, HybridParallelClipGrad):
         clip = clip._clip
     if isinstance(clip, ClipGradByGlobalNorm):
         optimizer._grad_clip = HybridParallelClipGrad(
-            clip, mp_group, sharding_group, sliced)
+            clip, mp_group, sharding_group, sliced, pp_group, counted)
 
 
 class HybridParallelOptimizer(OptimizerWrapper):

@@ -1,7 +1,7 @@
 """``fleet.meta_parallel`` (counterpart of
 ``paddle_tpu/distributed/fleet/meta_parallel``): the tensor-parallel layers,
-the model wrappers and ZeRO sharding. The pipeline classes are a later
-slice (ROADMAP Queue 1, item 4)."""
+the model wrappers, the pipeline (``PipelineLayer``, ``PipelineTrainStep``,
+``PipelineParallel``, ``pp_utils``) and ZeRO sharding."""
 
 from .meta_parallel_base import (  # noqa: F401
     DataParallel, MetaParallelBase, ShardingParallel, TensorParallel,
@@ -9,6 +9,13 @@ from .meta_parallel_base import (  # noqa: F401
 from .parallel_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding, parallel_matmul,
+)
+from . import pp_utils  # noqa: F401
+from .pipeline_parallel import (  # noqa: F401
+    PipelineParallel, PipelineTrainStep,
+)
+from .pp_layers import (  # noqa: F401
+    LayerDesc, PipelineLayer, SegmentLayers, SharedLayerDesc,
 )
 from .sharding import (  # noqa: F401
     GroupShardedOptimizerStage2, GroupShardedStage2, GroupShardedStage3,

@@ -358,9 +358,10 @@ def shard_layers(model: nn.Module, spec_of: Callable[[str, nn.Parameter],
     :class:`VocabParallelEmbedding`. A module with ``num_heads`` (and
     ``num_kv_heads``) whose projections were swapped then counts this
     rank's heads. A column layer's bias is cut with its weight (its spec
-    may say so, ``(mp,)``, as the reference's must). Returns ``{parameter
-    name: kind}`` of what was swapped; a parameter sharded any other way
-    raises."""
+    may say so, ``(mp,)``, as the reference's must); the parameters of a
+    Megatron layer built as one are left as they are. Returns
+    ``{parameter name: kind}`` of what was swapped; a parameter sharded
+    any other way raises."""
     n, _ = _degree(group)
     names = {id(p): k for k, p in model.named_parameters()}
     swapped: Dict[str, str] = {}
@@ -406,8 +407,11 @@ def shard_layers(model: nn.Module, spec_of: Callable[[str, nn.Parameter],
                     setattr(owner, attr, getattr(owner, attr) // n)
     for pname, p in model.named_parameters():
         spec = tuple(spec_of(pname, p) or ())
+        # a Megatron layer's own parameter (split_axis set) is a shard
+        # already
         if mp_axis in spec and pname not in swapped and not (
-                pname in column_biases and spec == (mp_axis,)):
+                pname in column_biases and spec == (mp_axis,)) \
+                and getattr(p, "split_axis", None) is None:
             raise NotImplementedError(
                 f"{pname}: only Linear and Embedding weights shard over "
                 f"{mp_axis!r} in the port")

@@ -77,8 +77,10 @@ step is the plain one. An optimizer whose update is not elementwise
 (``Lamb``, ``LarsMomentum``, ``DGCMomentum``) raises
 ``NotImplementedError`` at a level above 0. A parameter spec may name
 ``mp`` and, at level 3, the sharding axis; another axis of more than one
-rank raises ``NotImplementedError`` (pipeline and sep: ROADMAP Queue 1,
-items 4 and 5).
+rank raises ``NotImplementedError``: a model split over ``pp`` trains
+through ``PipelineTrainStep`` / ``PipelineParallel``
+(``distributed/fleet/meta_parallel/pipeline_parallel.py``), and ``sep`` is
+ROADMAP Queue 1, item 5.
 
 LocalSGD (``localsgd_k > 1``, or ``strategy.localsgd`` with ``k_steps`` and
 ``begin_step`` on a fleet-wrapped optimizer): the reference's scope. It
@@ -254,10 +256,11 @@ class _MeshPlan:
             for a in (a for e in spec for a in entry_axes(e)):
                 if sizes[a] > 1 and a not in allowed:
                     raise NotImplementedError(
-                        f"{name}: spec {spec} shards over {a!r}; the port "
+                        f"{name}: spec {spec} shards over {a!r}; the step "
                         f"shards parameters over {mp!r} and, at sharding "
-                        f"level 3, the sharding axis (pipeline and sep: "
-                        f"ROADMAP Queue 1, items 4 and 5)")
+                        f"level 3, the sharding axis (a pipeline over 'pp' "
+                        f"trains through PipelineTrainStep / "
+                        f"PipelineParallel; sep is ROADMAP Queue 1, item 5)")
             if localsgd and any(e is not None for e in spec):
                 raise NotImplementedError(
                     f"localsgd needs replicated parameters; {name!r} "

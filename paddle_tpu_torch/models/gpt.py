@@ -1,8 +1,8 @@
 """GPT (counterpart of ``paddle_tpu/models/gpt.py``, the GPT-3 345M
-exemplar, without the pipeline classes): learned token and position
-embeddings, pre-LN blocks of multi-head attention and a GELU (tanh) MLP,
-the LM head tied to the token embedding by default, and
-``GPTPretrainingCriterion``.
+exemplar): learned token and position embeddings, pre-LN blocks of
+multi-head attention and a GELU (tanh) MLP, the LM head tied to the token
+embedding by default, ``GPTPretrainingCriterion`` and the pipeline model
+(``GPTEmbeddingPipe``, ``GPTForCausalLMPipe``).
 
 Parameter names and shapes are the JAX model's (``Linear`` keeps the
 ``(in, out)`` layout), so ``raw_state()`` carries across through
@@ -284,3 +284,64 @@ class GPTPretrainingCriterion(nn.Module):
     def forward(self, logits, labels):
         return F.cross_entropy(logits.reshape(-1, self.vocab_size),
                                labels.reshape(-1), reduction="mean")
+
+
+# ====================================================== pipeline-parallel pipe
+class GPTEmbeddingPipe(nn.Module):
+    """The pipeline's first entry: token + position embedding (+ dropout).
+    Shared (tied) with the head through ``SharedLayerDesc("embed")``."""
+
+    def __init__(self, config: GPTConfig, **kw):
+        super().__init__()
+        std = config.initializer_range
+        self.wte = Embedding(config.vocab_size, config.hidden_size, std=std,
+                             **kw)
+        self.wpe = Embedding(config.max_position_embeddings,
+                             config.hidden_size, std=std, **kw)
+        self.drop = Dropout(config.hidden_dropout_prob,
+                            generator=kw["generator"])
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device).unsqueeze(0)
+        return self.drop(self.wte(input_ids) + self.wpe(pos))
+
+
+def _embedding_as_head(layer: GPTEmbeddingPipe, hidden):
+    """The tied head's forward: logits through ``wte`` transposed."""
+    return hidden @ layer.wte.weight.T
+
+
+def GPTForCausalLMPipe(config: GPTConfig, num_stages: Optional[int] = None,
+                       topology=None, seg_method: str = "layer:GPTBlock",
+                       recompute_interval: int = 0,
+                       num_virtual_pipeline_stages: Optional[int] = None,
+                       device: DeviceLike = None,
+                       dtype: Optional[torch.dtype] = None,
+                       generator: Optional[torch.Generator] = None):
+    """The pipeline-parallel GPT: the shared embedding (entry 0), the
+    blocks (1 .. n), ``ln_f`` (n + 1) and the head (n + 2): the embedding
+    again through ``_embedding_as_head`` when tied, else a ``Linear``.
+    Under a live pipeline topology the embedding is built on stage 0 and
+    on the last stage, whose ``wte`` copies the step keeps equal."""
+    from ..distributed.fleet.meta_parallel.pp_layers import (
+        LayerDesc, PipelineLayer, SharedLayerDesc)
+    descs = [SharedLayerDesc("embed", GPTEmbeddingPipe, None, "wte.weight",
+                             config)]
+    descs += [LayerDesc(GPTBlock, config)
+              for _ in range(config.num_hidden_layers)]
+    descs.append(LayerDesc(LayerNorm, config.hidden_size,
+                           config.layer_norm_epsilon))
+    if config.tie_word_embeddings:
+        descs.append(SharedLayerDesc("embed", GPTEmbeddingPipe,
+                                     _embedding_as_head, "wte.weight",
+                                     config))
+    else:
+        descs.append(LayerDesc(Linear, config.hidden_size, config.vocab_size,
+                               False, std=config.initializer_range))
+    return PipelineLayer(
+        descs, num_stages=num_stages, topology=topology,
+        loss_fn=GPTPretrainingCriterion(config), seg_method=seg_method,
+        recompute_interval=recompute_interval,
+        num_virtual_pipeline_stages=num_virtual_pipeline_stages,
+        device=device, dtype=dtype, generator=generator)

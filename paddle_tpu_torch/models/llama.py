@@ -1,7 +1,7 @@
-"""Llama (counterpart of ``paddle_tpu/models/llama.py``, without the
-pipeline classes): RMSNorm + rotary + GQA + SwiGLU,
-``LlamaPretrainingCriterion`` and the tensor-parallel annotations
-(``annotate_llama_tp``).
+"""Llama (counterpart of ``paddle_tpu/models/llama.py``): RMSNorm + rotary
++ GQA + SwiGLU, ``LlamaPretrainingCriterion``, the tensor-parallel
+annotations (``annotate_llama_tp``) and the pipeline model
+(``LlamaEmbeddingPipe``, ``LlamaForCausalLMPipe``).
 
 Parameter names and shapes are the JAX model's (``Linear`` keeps the
 ``(in, out)`` layout), so ``raw_state()`` carries across through
@@ -395,3 +395,57 @@ class LlamaPretrainingCriterion(nn.Module):
         return nn.functional.cross_entropy(
             logits.reshape(-1, self.vocab_size).float(),
             labels.reshape(-1).long(), ignore_index=-100)
+
+
+# ====================================================== pipeline-parallel pipe
+class LlamaEmbeddingPipe(nn.Module):
+    """The pipeline's first entry: the token embedding (rotary needs no
+    position table)."""
+
+    def __init__(self, config: LlamaConfig, **kw):
+        super().__init__()
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      std=config.initializer_range, **kw)
+
+    def forward(self, input_ids):
+        return self.embed_tokens(input_ids)
+
+
+def LlamaForCausalLMPipe(config: LlamaConfig,
+                         num_stages: Optional[int] = None, topology=None,
+                         seg_method: str = "layer:LlamaDecoderLayer",
+                         recompute_interval: int = 0,
+                         tensor_parallel: bool = False,
+                         tensor_parallel_axis: str = "mp",
+                         num_virtual_pipeline_stages: Optional[int] = None,
+                         device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = None,
+                         generator: Optional[torch.Generator] = None):
+    """The pipeline-parallel Llama: a ``PipelineLayer`` of the embedding
+    (entry 0), the decoder layers (1 .. n), the final norm (n + 1) and the
+    head (n + 2), with ``LlamaPretrainingCriterion`` as its loss.
+    ``convert.pipe_name_map`` maps ``LlamaForCausalLM``'s parameter names
+    onto these. ``tensor_parallel=True`` annotates the Megatron layout
+    (``annotate_llama_tp``; the head column-parallel over the
+    vocabulary), which ``PipelineTrainStep`` cuts. Built on this rank's
+    stage only under a live pipeline topology."""
+    from ..distributed.fleet.meta_parallel.pp_layers import (LayerDesc,
+                                                             PipelineLayer)
+    n = config.num_hidden_layers
+    descs = [LayerDesc(LlamaEmbeddingPipe, config)]
+    descs += [LayerDesc(LlamaDecoderLayer, config) for _ in range(n)]
+    descs.append(LayerDesc(RMSNorm, config.hidden_size, config.rms_norm_eps))
+    descs.append(LayerDesc(Linear, config.hidden_size, config.vocab_size,
+                           False, std=config.initializer_range))
+    pipe = PipelineLayer(
+        descs, num_stages=num_stages, topology=topology,
+        loss_fn=LlamaPretrainingCriterion(config), seg_method=seg_method,
+        recompute_interval=recompute_interval,
+        num_virtual_pipeline_stages=num_virtual_pipeline_stages,
+        device=device, dtype=dtype, generator=generator)
+    if tensor_parallel:
+        annotate_llama_tp(pipe, tensor_parallel_axis)
+        if pipe.holds(n + 2):       # the head: column-parallel vocab
+            getattr(pipe, str(n + 2)).weight.dist_attr = (
+                None, tensor_parallel_axis)
+    return pipe
