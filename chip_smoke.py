@@ -411,8 +411,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               times are no performance figure; run after zero, one world
               of each size running hybrid_ranks', zero_ranks' and
               pipeline_ranks' rows, one world after another):
-              fp32 at 7B width and 1 layer, batch 2 x 1024, 3
-              warmup/cosine AdamW steps with the clip, at dp = 2 and mp =
+              fp32 at 7B width and 1 layer, batch 2 x 1024, 2
+              warmup/cosine AdamW steps with the clip, at dp = 2 and mp
+              =
               2 (a world of 2) and dp = 2 x mp = 2 (a world of 4): every
               rank's losses equal, within 1e-5 relative of the same steps
               in one process, the parameters gathered whole on the card
@@ -421,7 +422,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               within 3 lr (how many is reported); then bf16 at train's
               depth, batch and recipe at mp = 2 (two micro-batches of 1 x
               4096 a rank): finite, falling losses within 1e-2 relative
-              of train's first 3, each rank's #7-#9 launched 8 x 2 x 3
+              of train's first 2, each rank's #7-#9 launched 8 x 2 x 2
               times at 16 heads;
      zero     train's model, batch and recipe on
               one NCCL rank through fleet.init (sharding_degree = 1),
@@ -438,7 +439,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
      zero_ranks
               ZeRO across ranks on the one card, through hybrid_ranks'
               rank body, checks and schedule: fp32 at 7B width and 1
-              layer, 3 warmup/cosine AdamW steps with the clip, at
+              layer, 2 warmup/cosine AdamW steps with the clip, at
               sharding = 2 and stages 1, 2, 3 and LocalSGD at dp = 2 with
               k = 2 (a world of 2), dp = 2 x sharding = 2 at stage 2 (4 x
               512 tokens: 2 rows do not split over 4 data ranks) and
@@ -447,15 +448,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               process, averaged every second step); then, in the world of
               2, bf16 at train's depth, sharding = 2, each rank 1 x 4096
               of train's batch, at stage 3 (held as hybrid_ranks' bf16
-              row, each rank's #7-#9 launched 8 x 3 times) and one step at
+              row, each rank's #7-#9 launched 8 x 2 times) and one step at
               stage 1 (its loss train's first within 1e-2): stage 3's
               resting memory (between steps) below stage 1's;
      pipeline_ranks
-              this slice's main path: pipeline parallelism across ranks
+              pipeline parallelism across ranks
               on the one card through hybrid_ranks' rank body, checks and
               schedule, train's model carried into LlamaForCausalLMPipe
               (convert.pipe_name_map), each rank building only its stage,
-              and PipelineTrainStep: fp32 at 7B width, 3 warmup/cosine
+              and PipelineTrainStep: fp32 at 7B width, 2 warmup/cosine
               AdamW steps with the clip, held as hybrid_ranks' fp32 rows
               to one process running the pipe built whole on the same
               microbatches (the stages gathered onto rank 0 under the
@@ -472,6 +473,39 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
               memory; activations and gradients cross between ranks
               through pinned host memory (gloo), so the step times are no
               performance figure;
+     ep, sp_recompute (before the rank phases), ring_ranks, ep_ranks
+              this slice's main paths: long context and experts across
+              ranks. ep: MoEGPTConfig() widths at 4 layers, bf16, with
+              expert_axis="dp" through fleet.init and TrainStep(mesh=
+              hcg.get_mesh()) on one NCCL rank, 3 steps of 4 x 1024
+              tokens bit for bit the same model's plain TrainStep, #7-#9
+              12 each; sp_recompute: fleet.utils.recompute around each
+              decoder layer of the 7B-width Llama at 2 layers (1 x 4096,
+              bf16): gradients bit for bit without it, #7 4 and #8 / #9
+              2, less memory added at the peak; and (a rank row in the
+              world of 2) ColumnSequenceParallelLinear ->
+              RowSequenceParallelLinear at 4096 -> 11008 -> 4096 over
+              4096 tokens at mp = 2, fp32, with the hooks, every rank's
+              out and gradients within 1e-4 of the pair on the whole
+              sequence; ring_ranks (the worlds of 2 and 4): Llama-2-7B's
+              attention (32 heads of 128, B = 1) over 16384 tokens, fp32
+              and bf16, forward and backward, each rank on its contiguous
+              chunk: the ring contiguous causal (ring_flash_attention) and
+              not causal at sep = 2, zigzag causal at sep = 4
+              (sep_scaled_dot_product_attention), Ulysses at sep = 4 with
+              the flash kernel as attn_fn, the zigzag ring at 70B's heads
+              (64 over 8) at sep = 4: each rank's out, dq, dk, dv within
+              RING_TOL (fp32 1e-4, bf16 3e-2 of the largest element) of
+              the whole sequence's flash_attention_bshd in its process,
+              #7-#9 launched once a ring unit (the schedule's count);
+              ep_ranks: MoEGPTConfig() widths at 2 layers, 4 x 1024
+              tokens, 3 steps, fp32 at dp = 2 without expert parallelism
+              (the routing of the global batch), with expert_axis="dp" at
+              dp = 2 (4 experts a rank) and dp = 4 (2), bf16 EP at dp = 2:
+              every rank's losses equal; fp32 within 1e-5 relative of one
+              process on the same rows, the parameters gathered whole
+              (expert slices all-gathered over dp) held as hybrid_ranks';
+              bf16 within 1e-2; #7-#9 2 x 3 a rank;
      fit      the slice's main path: Model.fit on the same width at 4
               layers, amp.decorate(O2, bf16) without f32 masters (its two
               checkpoints and fit_faults' two must stay within what a call
@@ -628,11 +662,20 @@ UNET_ATTN_SHAPES = tuple(
 # the hybrid phases' attention at mp = 2: Llama-2-7B's 32 heads cut to a
 # rank's 16 (case, batch, S, heads, kv heads), head_dim 128, causal
 HYBRID_SHARD_SHAPES = (("llama2_7b heads, mp=2 shard", 1, 4096, 16, 16),)
+# ring_ranks' chunk attention at Llama-2-7B's heads over S = 16384: a ring
+# unit is one chunk against one chunk, causal on the diagonal and full off
+# it, at C = 8192 (sep = 2) and C = 4096 (sep = 4, and the zigzag ring's
+# half-chunks at sep = 2); TRAIN_SHAPES' first row is the C = 4096
+# diagonal (case, batch, S, heads, kv heads, head_dim, causal, Skv)
+RING_CHUNK_SHAPES = tuple(
+    (f"ring chunk C={c}, {'causal diagonal' if causal else 'full'}", 1, c,
+     32, 32, HEAD_DIM, causal, c)
+    for c, causal in ((8192, True), (8192, False), (4096, False)))
 # every shape check_flash_attention holds, in UNET_ATTN_SHAPES' layout
 FLASH_ATTN_SHAPES = (tuple(t + (HEAD_DIM, True, t[2])
                            for t in TRAIN_SHAPES + HYBRID_SHARD_SHAPES)
                      + tuple(t + (t[2],) for t in GPT_TRAIN_SHAPES)
-                     + UNET_ATTN_SHAPES)
+                     + UNET_ATTN_SHAPES + RING_CHUNK_SHAPES)
 # flash forward: out within atol + rtol |ref| elementwise (rtol: one bf16
 # ulp, as both sides round the same f32 value), the f32 lse within abs
 OUT_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
@@ -6000,7 +6043,9 @@ def run_train_remat(device, train):
 # joined)
 HYBRID_RANK_LAYERS, HYBRID_RANK_BATCH, HYBRID_RANK_SEQ = 1, 2, 1024
 PIPE_RANK_LAYERS = 2
-HYBRID_RANK_STEPS = 3
+# 2 steps: an fp32 row's step all-reduces its whole-vocabulary gradients
+# through the host, and ring_ranks' and ep_ranks' rows share the worlds
+HYBRID_RANK_STEPS = 2
 HYBRID_RANK_LR = 3e-4
 HYBRID_LOSS_RTOL = 1e-5     # fp32: mp splits the row-parallel sums
 HYBRID_PARAM_TOL = 1e-5     # fp32, elementwise, against the one-rank run
@@ -6262,10 +6307,21 @@ def rank_body(rank, rows):
     device = torch.device("cuda:0")
     pdist.init_parallel_env(backend="gloo", device=device,
                             timeout=datetime.timedelta(seconds=300))
-    out, kept = [], []
+    out, kept, ctx_kept = [], [], {}
     try:
-        for row in rows:
+        for i, row in enumerate(rows):
             t_row = time.perf_counter()
+            if "kind" in row:
+                # this slice's rows: ring / Ulysses attention, expert
+                # parallelism, the sequence-parallel linears
+                got, params = CTX_ROWS[row["kind"]](rank, row, device)
+                got["row_s"] = time.perf_counter() - t_row
+                out.append(got)
+                if rank == 0 and params is not None:
+                    ctx_kept[i] = {k: v.cpu() for k, v in params.items()}
+                del params
+                torch.cuda.empty_cache()
+                continue
             hcg = topo.create_hybrid_communicate_group(
                 dp_degree=row["dp"], pp_degree=row["pp"],
                 sharding_degree=row["sharding"], mp_degree=row["mp"])
@@ -6330,8 +6386,14 @@ def rank_body(rank, rows):
     if rank == 0:
         # the world is done: the fp32 rows in one process
         refs = {}
-        for row, got in zip(rows, out):
-            if row["dtype"] != torch.float32:
+        for i, (row, got) in enumerate(zip(rows, out)):
+            if row.get("kind") in CTX_REFERENCES:
+                t_ref = time.perf_counter()
+                CTX_REFERENCES[row["kind"]](row, got, ctx_kept.pop(i, None),
+                                            device)
+                got["ref_s"] = time.perf_counter() - t_ref
+                continue
+            if "kind" in row or row["dtype"] != torch.float32:
                 continue
             t_ref = time.perf_counter()
             if row["localsgd_k"]:
@@ -6478,13 +6540,16 @@ def run_ranks(phases, train):
              for i, row in enumerate(rows)}
     out = {}
     for phase, worlds, fields in phases:
+        fields = dict(fields)
+        check = fields.pop("check", None)
         per_world = []
         for n, rows in worlds:
             ctx = index[id(rows[0])][0]
             idx = [index[id(row)][1] for row in rows]
             per_world.append((n, rows, [[res[i] for i in idx]
                                         for res in ctx.results]))
-        rows, counts = check_rank_worlds(phase, per_world, train)
+        rows, counts = (check(phase, per_world) if check is not None
+                        else check_rank_worlds(phase, per_world, train))
         emit(phase, ranks_on_one_card=[n for n, _ in worlds],
              world_seconds={n: t for n, _, _, t in done},
              backend="gloo (CUDA tensors, through the host)",
@@ -6681,11 +6746,536 @@ def pipeline_rank_rows():
                  "(p2p_host_staged in each row's collectives)"))
 
 
+# ring_ranks, ep_ranks and the sp_recompute pair: this slice's rows in the
+# same gloo worlds (rank_body dispatches a row with a "kind" to
+# CTX_ROWS[kind]). The ring rows run Llama-2-7B's attention (and one row
+# at Llama-2-70B's GQA heads) over RING_S tokens, each rank on its
+# contiguous chunk, and each rank holds its chunk of out and of the
+# gradients to the whole sequence's flash_attention_bshd in its own
+# process on the card; the ep rows train MoEGPTConfig() at 2 layers and
+# are held to one process on the same rows.
+RING_B, RING_S = 1, 16384
+# max|ring - whole| / max|whole| for out, dq, dk, dv: the ring merges
+# partial softmaxes in f32 (in bf16 each unit's output is rounded before
+# the merge, and q's gradient sums P units' bf16 gradients)
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+EP_LAYERS, EP_BATCH, EP_SEQ, EP_STEPS = 2, 4, 1024, 3
+EP_MAIN_LAYERS = 4
+SP_SEQ = 4096
+SP_TOL = 1e-4             # fp32, max|a-b| / max|b|: mp splits the sums
+
+
+def ring_units(p, r, causal, zigzag):
+    """The chunk attentions (one #7, #8 and #9 launch each) rank r of p
+    runs in a ring, from its schedule: r + 1 contiguous and causal, p not
+    causal, 2p + 1 half-chunk units in zigzag order on every rank."""
+    n = 0
+    for i in range(p):
+        src = (r - i) % p
+        if zigzag:
+            n += int(src <= r) + 1 + int(src >= r)
+        else:
+            n += int(not causal or src <= r)
+    return n
+
+
+def ring_row(sep, method, causal, dtype, heads=32, kv_heads=32,
+             layout="zigzag"):
+    """A ring_ranks row; ``layout`` of a causal ring: "zigzag" (through
+    sep_scaled_dot_product_attention) or "contiguous"."""
+    if method == "ulysses":
+        layout = "ulysses"
+    elif not causal:
+        layout = "full"
+    return dict(kind="ring", sep=sep, causal=causal, dtype=dtype,
+                heads=heads, kv_heads=kv_heads, layout=layout)
+
+
+def ring_rank_rows():
+    """ring_ranks: Llama-2-7B's attention (32 heads of 128) over 16384
+    tokens, B = 1: the ring contiguous causal at sep = 2 (the entry's
+    zigzag order bypassed: ring_flash_attention on the contiguous chunks),
+    not causal at sep = 2, zigzag causal at sep = 4 (through
+    sep_scaled_dot_product_attention), Ulysses at sep = 4 with the flash
+    kernel as attn_fn, and the zigzag ring at 70B's heads (64 over 8) at
+    sep = 4; each fp32 and bf16, forward and backward."""
+    two, four = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        two += [ring_row(2, "ring", True, dtype, layout="contiguous"),
+                ring_row(2, "ring", False, dtype)]
+        four += [ring_row(4, "ring", True, dtype),
+                 ring_row(4, "ulysses", True, dtype),
+                 ring_row(4, "ring", True, dtype, 64, 8)]
+    return ("ring_ranks", ((2, two), (4, four)),
+            dict(check=check_ring_worlds,
+                 transfers="ring rotations and the zigzag exchange through "
+                           "pp_utils' Wire (gloo: pinned host staging); "
+                           "Ulysses through all_to_all_single"))
+
+
+def ring_body(rank, row, device):
+    """This rank's ring (or Ulysses) attention on its contiguous chunk of
+    the seeded global q / k / v and the backward of sum(out * do), timed,
+    its #7-#9 launches and transfers counted; then the whole sequence's
+    flash_attention_bshd and its gradients in this process, and the error
+    of this rank's chunks against them."""
+    import functools
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed.fleet import base_topology as topo
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        ring_flash_attention as ring)
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_bshd
+    hcg = topo.create_hybrid_communicate_group(sep_degree=row["sep"])
+    p, r = row["sep"], hcg.get_sep_parallel_rank()
+    dtype, causal = row["dtype"], row["causal"]
+    h, hkv = row["heads"], row["kv_heads"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 51)
+    q = _rand(gen, (RING_B, RING_S, h, HEAD_DIM), dtype, device)
+    k = _rand(gen, (RING_B, RING_S, hkv, HEAD_DIM), dtype, device)
+    v = _rand(gen, (RING_B, RING_S, hkv, HEAD_DIM), dtype, device)
+    do = _rand(gen, (RING_B, RING_S, h, HEAD_DIM), dtype, device)
+    c = RING_S // p
+    mine = [t[:, r * c:(r + 1) * c].clone().requires_grad_(True)
+            for t in (q, k, v)]
+    torch.cuda.synchronize()
+    pdist.barrier(hcg.get_sep_parallel_group())
+    kernels.reset_launches()
+    pdist.reset_collective_counts()
+    t0 = time.perf_counter()
+    if row["layout"] == "ulysses":
+        out = ring.ulysses_attention(
+            *mine, hcg, causal, attn_fn=functools.partial(
+                flash_attention_bshd, causal=causal), attn_fn_gqa=True)
+    elif row["layout"] == "contiguous":
+        out = ring.ring_flash_attention(*mine, hcg, causal)
+    else:
+        out = ring.sep_scaled_dot_product_attention(*mine, hcg, "ring",
+                                                    causal)
+    torch.autograd.backward(out, do[:, r * c:(r + 1) * c])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: kernels.launch_counts()[n] for n in TRAIN_KERNELS}
+    coll = pdist.collective_counts()
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_bshd(*whole, causal=causal)
+    torch.autograd.backward(ref, do)
+    errs = {}
+    for name, got, want in (("out", out, ref), ("dq", mine[0].grad,
+                                                 whole[0].grad),
+                            ("dk", mine[1].grad, whole[1].grad),
+                            ("dv", mine[2].grad, whole[2].grad)):
+        want = want.detach()[:, r * c:(r + 1) * c].float()
+        errs[name] = max_err(got, want) / float(want.abs().max())
+    units = (1 if row["layout"] == "ulysses" else
+             ring_units(p, r, causal, row["layout"] == "zigzag"))
+    topo._reset_hcg()
+    del q, k, v, do, mine, whole, out, ref
+    torch.cuda.empty_cache()
+    return dict(errs=errs, max_rel_err=max(errs.values()),
+                launches=counts, want_launches={n: units
+                                                for n in TRAIN_KERNELS},
+                collectives=coll, seconds=seconds), None
+
+
+def check_ring_worlds(phase, worlds):
+    """Every ring row on every rank within RING_TOL of the whole sequence
+    and #7-#9 launched once a unit: (rows, the launches summed)."""
+    rows, counts = [], {k: 0 for k in TRAIN_KERNELS}
+    for n, world_rows, results in worlds:
+        for i, spec in enumerate(world_rows):
+            per_rank = [res[i] for res in results]
+            what = (f"{phase} {DTYPE_NAME[spec['dtype']]} {spec['layout']} "
+                    f"sep={spec['sep']} causal={spec['causal']} "
+                    f"H={spec['heads']}/{spec['kv_heads']}")
+            for r, got in enumerate(per_rank):
+                require(got["max_rel_err"] <= RING_TOL[spec["dtype"]],
+                        f"{what} rank {r}: {got['errs']} over "
+                        f"{RING_TOL[spec['dtype']]}")
+                require(got["launches"] == got["want_launches"],
+                        f"{what} rank {r}: launches {got['launches']}, "
+                        f"want {got['want_launches']}")
+                for name in TRAIN_KERNELS:
+                    counts[name] += got["launches"][name]
+            rows.append(dict(
+                ranks=n, dtype=DTYPE_NAME[spec["dtype"]],
+                **{k: spec[k] for k in ("sep", "layout", "causal", "heads",
+                                        "kv_heads")},
+                B=RING_B, S=RING_S, D=HEAD_DIM, tol=RING_TOL[spec["dtype"]],
+                max_rel_err=max(g["max_rel_err"] for g in per_rank),
+                per_rank_errs=[g["errs"] for g in per_rank],
+                per_rank_launches=[g["launches"]["flash_attention_fwd"]
+                                   for g in per_rank],
+                per_rank_seconds=[g["seconds"] for g in per_rank],
+                per_rank_row_s=[g["row_s"] for g in per_rank],
+                collectives=per_rank[0]["collectives"]))
+    return rows, counts
+
+
+def ep_row(dp, dtype=torch.float32, expert_axis="dp"):
+    return dict(kind="ep", dp=dp, dtype=dtype, expert_axis=expert_axis)
+
+
+def ep_rank_rows():
+    """ep_ranks: MoEGPTConfig() widths at EP_LAYERS layers (a dense block
+    and an MoE block), EP_BATCH x EP_SEQ tokens a step, EP_STEPS steps of
+    make_trainer's recipe through TrainStep(mesh=...): fp32 at dp = 2
+    without expert parallelism (the global routing), with expert_axis="dp"
+    at dp = 2 (4 experts a rank) and dp = 4 (2), and bf16 EP at dp = 2."""
+    return ("ep_ranks", (
+        (2, [ep_row(2, expert_axis=None), ep_row(2),
+             ep_row(2, torch.bfloat16)]),
+        (4, [ep_row(4)])), dict(check=check_ep_worlds))
+
+
+def _expert_whole(model, hcg, specs):
+    """Every parameter whole on this rank (the expert slices all-gathered
+    over dp), and how many replicated ones differ from dp rank 0's."""
+    from paddle_tpu_torch import distributed as pdist
+    dp = hcg.get_data_parallel_group()
+    whole, unequal = {}, 0
+    fingerprints = []
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if dp.nranks > 1 and "dp" in tuple(specs.get(k) or ()):
+                parts = []
+                pdist.all_gather(parts, p.detach().contiguous(), group=dp)
+                whole[k] = torch.cat(parts, dim=0)
+            else:
+                whole[k] = p.detach()
+                fingerprints.append(_fingerprint(p.float()))
+        if dp.nranks > 1 and fingerprints:
+            mine = torch.stack(fingerprints)
+            first = mine.clone()
+            pdist.broadcast(first, dp.ranks[0], group=dp)
+            unequal = int((first != mine).sum())
+    return whole, unequal
+
+
+def ep_body(rank, row, device):
+    """One ep_ranks row on this rank: the seeded MoE-GPT (the whole expert
+    stack drawn, then cut by the step), its steps, launches, collectives
+    and memory; the parameters gathered whole."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.fleet import base_topology as topo
+    hcg = topo.create_hybrid_communicate_group(dp_degree=row["dp"])
+    cfg, model = moe_model(device, dtype=row["dtype"], layers=EP_LAYERS,
+                           seed_offset=61, expert_axis=row["expert_axis"])
+    trainer = make_trainer(model, HYBRID_RANK_LR, steps=EP_STEPS,
+                           mesh=hcg.get_mesh())
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, EP_BATCH,
+                                              EP_SEQ, 61))
+    pdist.reset_collective_counts()
+    losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0, EP_STEPS)
+    specs = dict(trainer._plan.param_specs)
+    got = dict(losses=losses, step_ms=[1e3 * v for v in step_s],
+               launches={k: counts[k] for k in TRAIN_KERNELS},
+               want_launches={k: EP_LAYERS * EP_STEPS
+                              for k in TRAIN_KERNELS},
+               collectives=pdist.collective_counts(),
+               experts_here=[b.moe.experts.w1.shape[0] for b in model.h
+                             if hasattr(b, "moe")],
+               peak_mem_gb=peak / 1e9)
+    del trainer, x, y
+    params = None
+    if row["dtype"] == torch.float32:
+        params, got["replicas_unequal"] = _expert_whole(model, hcg, specs)
+    topo._reset_hcg()
+    del model
+    torch.cuda.empty_cache()
+    return got, params
+
+
+def ep_reference(row, got, params, device):
+    """The ep row's steps in one process (no mesh, every expert here) on
+    the same seed and rows: the losses' relative error, and an fp32 row's
+    gathered parameters against its parameters."""
+    cfg, model = moe_model(device, dtype=row["dtype"], layers=EP_LAYERS,
+                           seed_offset=61)
+    trainer = make_trainer(model, HYBRID_RANK_LR, steps=EP_STEPS)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, EP_BATCH,
+                                              EP_SEQ, 61))
+    ref = [float(trainer(x, y)) for _ in range(EP_STEPS)]
+    got["one_rank_losses"] = ref
+    got["loss_rel_err"] = max(abs(a - b) / abs(b)
+                              for a, b in zip(got["losses"], ref))
+    if params is not None:
+        off = total = 0
+        worst = 0.0
+        for name, p in model.named_parameters():
+            diff = (params[name].to(device).double()
+                    - p.detach().double()).abs()
+            worst = max(worst, float(diff.max()))
+            off += int((diff > HYBRID_PARAM_TOL).sum())
+            total += diff.numel()
+        got.update(param_max_abs_err=worst, params_off=off,
+                   params_total=total,
+                   param_names_equal=sorted(params) == sorted(
+                       dict(model.named_parameters())))
+    del trainer, model, x, y
+    torch.cuda.empty_cache()
+
+
+def check_ep_worlds(phase, worlds):
+    """Every rank's losses equal, #7-#9 launched a layer a step, E / P
+    experts a rank under EP; fp32 rows within HYBRID_LOSS_RTOL of one
+    process and their parameters as the hybrid rows' (replicas equal bit
+    for bit); the bf16 row within BF16_RANK_LOSS_RTOL of one process."""
+    rows, counts = [], {k: 0 for k in TRAIN_KERNELS}
+    for n, world_rows, results in worlds:
+        for i, spec in enumerate(world_rows):
+            per_rank = [res[i] for res in results]
+            row = dict(per_rank[0])
+            what = (f"{phase} {DTYPE_NAME[spec['dtype']]} dp={spec['dp']} "
+                    f"expert_axis={spec['expert_axis']}")
+            want_here = 8 // spec["dp"] if spec["expert_axis"] else 8
+            for r, got in enumerate(per_rank):
+                require(got["losses"] == row["losses"],
+                        f"{what}: rank {r}'s losses differ")
+                require(got["launches"] == got["want_launches"],
+                        f"{what} rank {r}: launches {got['launches']}")
+                require(got["experts_here"] == [want_here],
+                        f"{what} rank {r}: experts {got['experts_here']}")
+                for name in TRAIN_KERNELS:
+                    counts[name] += got["launches"][name]
+            require(all(math.isfinite(v) for v in row["losses"])
+                    and row["losses"][-1] < row["losses"][0],
+                    f"{what}: losses {row['losses']}")
+            if spec["dtype"] == torch.float32:
+                require(row["loss_rel_err"] <= HYBRID_LOSS_RTOL,
+                        f"{what}: loss rel err {row['loss_rel_err']}")
+                require(row["param_names_equal"]
+                        and all(g["replicas_unequal"] == 0
+                                for g in per_rank),
+                        f"{what}: gathered parameters")
+                require(row["param_max_abs_err"] <= 3 * HYBRID_RANK_LR
+                        and row["params_off"]
+                        <= HYBRID_PARAM_OFF_FRAC * row["params_total"],
+                        f"{what}: {row['params_off']} elements beyond "
+                        f"{HYBRID_PARAM_TOL}, worst "
+                        f"{row['param_max_abs_err']}")
+            else:
+                require(row["loss_rel_err"] <= BF16_RANK_LOSS_RTOL,
+                        f"{what}: losses {row['losses']} vs one process's "
+                        f"{row['one_rank_losses']}")
+            row.update(ranks=n, dtype=DTYPE_NAME[spec["dtype"]],
+                       dp=spec["dp"], expert_axis=spec["expert_axis"],
+                       layers=EP_LAYERS, batch=EP_BATCH, seq=EP_SEQ,
+                       per_rank_step_ms=[g["step_ms"] for g in per_rank],
+                       per_rank_row_s=[g["row_s"] for g in per_rank],
+                       per_rank_peak_mem_gb=[g["peak_mem_gb"]
+                                             for g in per_rank])
+            rows.append(row)
+    return rows, counts
+
+
+def sp_rank_rows():
+    """sp_recompute's rank row: a Column -> RowSequenceParallelLinear pair
+    at Llama-2-7B's MLP widths (4096 -> 11008 -> 4096) over SP_SEQ tokens
+    at mp = 2, fp32."""
+    return ("sp_recompute", ((2, [dict(kind="sp", dtype=torch.float32)]),),
+            dict(check=check_sp_worlds, part="sequence-parallel linears"))
+
+
+def sp_body(rank, row, device):
+    """The pair on this rank's sequence slice (the seeded whole weights
+    cut to its shards, the row bias all-reduced by the hooks), the
+    backward of sum(out * g); held to the same layers on the whole
+    sequence in this process."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.fleet import base_topology as topo
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        sequence_parallel_utils as sp
+    hcg = topo.create_hybrid_communicate_group(mp_degree=2)
+    n, r = 2, hcg.get_model_parallel_rank()
+    gen = torch.Generator(device=device).manual_seed(SEED + 71)
+    w1 = _rand(gen, (HIDDEN, INTER), torch.float32, device, 0.02)
+    b1 = _rand(gen, (INTER,), torch.float32, device, 0.02)
+    w2 = _rand(gen, (INTER, HIDDEN), torch.float32, device, 0.02)
+    b2 = _rand(gen, (HIDDEN,), torch.float32, device, 0.02)
+    x = _rand(gen, (SP_SEQ, 1, HIDDEN), torch.float32, device)
+    g = _rand(gen, (SP_SEQ, 1, HIDDEN), torch.float32, device)
+    col = sp.ColumnSequenceParallelLinear(HIDDEN, INTER, device=device)
+    rowl = sp.RowSequenceParallelLinear(INTER, HIDDEN, device=device)
+    with torch.no_grad():
+        col.weight.copy_(w1.chunk(n, 1)[r])
+        col.bias.copy_(b1.chunk(n)[r])
+        rowl.weight.copy_(w2.chunk(n, 0)[r])
+        rowl.bias.copy_(b2)
+    hooks = sp.register_sequence_parallel_allreduce_hooks(
+        torch.nn.ModuleList([col, rowl]))
+    s = SP_SEQ // n
+    xl = x[r * s:(r + 1) * s].clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    pdist.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = rowl(col(xl))
+    torch.autograd.backward(out, g[r * s:(r + 1) * s])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    coll = pdist.collective_counts()
+    whole = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    ref = (whole[0] @ whole[1] + whole[2]) @ whole[3] + whole[4]
+    torch.autograd.backward(ref, g)
+    errs = {}
+    for name, got, want in (
+            ("out", out, ref[r * s:(r + 1) * s]),
+            ("dx", xl.grad, whole[0].grad[r * s:(r + 1) * s]),
+            ("col.weight", col.weight.grad, whole[1].grad.chunk(n, 1)[r]),
+            ("col.bias", col.bias.grad, whole[2].grad.chunk(n)[r]),
+            ("row.weight", rowl.weight.grad, whole[3].grad.chunk(n, 0)[r]),
+            ("row.bias", rowl.bias.grad, whole[4].grad)):
+        want = want.detach()
+        errs[name] = max_err(got, want) / float(want.abs().max())
+    for hk in hooks:
+        hk.remove()
+    topo._reset_hcg()
+    del x, g, w1, w2, whole, ref, out, col, rowl, xl
+    torch.cuda.empty_cache()
+    return dict(errs=errs, max_rel_err=max(errs.values()), hooks=len(hooks),
+                collectives=coll, seconds=seconds), None
+
+
+def check_sp_worlds(phase, worlds):
+    rows = []
+    for n, world_rows, results in worlds:
+        for i, _ in enumerate(world_rows):
+            per_rank = [res[i] for res in results]
+            for r, got in enumerate(per_rank):
+                require(got["max_rel_err"] <= SP_TOL and got["hooks"] == 1,
+                        f"{phase} rank {r}: {got['errs']} over {SP_TOL}")
+            rows.append(dict(ranks=n, mp=n, dtype="fp32", seq=SP_SEQ,
+                             widths=[HIDDEN, INTER, HIDDEN], tol=SP_TOL,
+                             max_rel_err=max(g["max_rel_err"]
+                                             for g in per_rank),
+                             per_rank_errs=[g["errs"] for g in per_rank],
+                             per_rank_seconds=[g["seconds"]
+                                               for g in per_rank],
+                             per_rank_row_s=[g["row_s"] for g in per_rank],
+                             collectives=per_rank[0]["collectives"]))
+    return rows, {}
+
+
+CTX_ROWS = {"ring": ring_body, "ep": ep_body, "sp": sp_body}
+CTX_REFERENCES = {"ep": ep_reference}
+
+
+def run_ep(device):
+    """ep: MoEGPTConfig() widths at EP_MAIN_LAYERS layers, bf16, with
+    expert_axis="dp", through fleet.init (dp = 1) and TrainStep(mesh=
+    hcg.get_mesh()) on one NCCL rank, EP_STEPS steps of MOE_BATCH x MOE_SEQ
+    tokens: the losses equal the same model's plain TrainStep bit for bit
+    (at one rank the routing is local and no all-to-all runs), #7-#9
+    launched a layer a step."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import fleet
+    one_nccl_rank()
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        cfg, model = moe_model(device, layers=EP_MAIN_LAYERS,
+                               expert_axis="dp")
+        trainer = make_trainer(model, 3e-4, steps=EP_STEPS,
+                               mesh=hcg.get_mesh())
+        x, y = (t.to(device) for t in token_batch(
+            cfg.vocab_size, MOE_BATCH, MOE_SEQ, 21))
+        pdist.reset_collective_counts()
+        losses, step_s, counts, peak = timed_steps(trainer, (x, y), 0,
+                                                   EP_STEPS)
+        coll = pdist.collective_counts()
+        specs = trainer._plan.param_specs
+    finally:
+        pdist.destroy_process_group()
+    del trainer, model
+    torch.cuda.empty_cache()
+    _, plain_model = moe_model(device, layers=EP_MAIN_LAYERS)
+    plain = make_trainer(plain_model, 3e-4, steps=EP_STEPS)
+    plain_losses, plain_s, _, _ = timed_steps(plain, (x, y), 0, EP_STEPS)
+    require(losses == plain_losses, f"ep: losses {losses} differ from the "
+            f"plain step's {plain_losses}")
+    want = EP_MAIN_LAYERS * EP_STEPS
+    for name in TRAIN_KERNELS:
+        require(counts[name] == want,
+                f"ep: {name} ran {counts[name]} times, want {want}")
+    emit("ep", model="MoEGPTConfig() (GPT-3 345M widths, 8 experts, top-2, "
+         "MoE every 2nd block), expert_axis='dp'", layers=EP_MAIN_LAYERS,
+         dtype="bf16, f32 masters", batch=MOE_BATCH, seq=MOE_SEQ,
+         steps=EP_STEPS, ranks=1, losses=losses,
+         losses_bitwise_equal_plain=True,
+         expert_specs={k: v for k, v in specs.items() if ".experts." in k},
+         step_ms=[1e3 * v for v in step_s],
+         plain_step_ms=[1e3 * v for v in plain_s],
+         collectives_per_step={k: v / EP_STEPS for k, v in coll.items()},
+         peak_mem_gb=peak / 1e9, launches=counts)
+    del plain, plain_model, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_sp_recompute(device):
+    """sp_recompute's one-rank part: fleet.utils.recompute around each
+    decoder layer of the 7B-width Llama at 2 layers (bf16), one forward
+    and backward of 1 x TRAIN_SEQ tokens: the gradients equal the same
+    model's without it bit for bit, #7 launched twice a layer (#8, #9
+    once), and less memory added at the peak."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+    cfg, model = train_model(device, SEED, layers=2)
+    x, y = (t.to(device) for t in token_batch(cfg.vocab_size, 1, TRAIN_SEQ,
+                                              5))
+    layers = list(model.llama.layers)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        loss = model(x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss), {k: p.grad.clone()
+                              for k, p in model.named_parameters()},
+                kernels.launch_counts(),
+                torch.cuda.max_memory_allocated() - base)
+
+    loss_plain, ref, _, plain_added = run()
+    for layer in layers:
+        layer.forward = (lambda *a, _f=layer.forward: recompute(_f, *a))
+    try:
+        loss_rc, grads, counts, rc_added = run()
+    finally:
+        for layer in layers:
+            del layer.forward
+    unequal = [k for k, g in grads.items() if not torch.equal(g, ref[k])]
+    require(not unequal and loss_rc == loss_plain,
+            f"sp_recompute: gradients differ without recompute: {unequal}")
+    n = len(layers)
+    require(counts["flash_attention_fwd"] == 2 * n
+            and counts["flash_attention_bwd_dq"] == n
+            and counts["flash_attention_bwd_dkv"] == n,
+            f"sp_recompute: launches {counts}")
+    require(rc_added < plain_added, f"sp_recompute: {rc_added / 1e9} GB "
+            f"added, without recompute {plain_added / 1e9}")
+    emit("sp_recompute", part="fleet.utils.recompute",
+         model="llama2_7b width", layers=n, dtype="bf16", batch=1,
+         seq=TRAIN_SEQ, grads_bitwise_equal=True, loss=loss_rc,
+         fwd_bwd_added_gb=rc_added / 1e9,
+         fwd_bwd_added_gb_without=plain_added / 1e9, launches=counts)
+    del model, ref, grads, x, y
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in TRAIN_KERNELS}
+
+
 def run_rank_phases(train):
-    """hybrid_ranks, zero_ranks and pipeline_ranks through run_ranks:
-    {phase: the launches summed}."""
+    """hybrid_ranks, zero_ranks, pipeline_ranks, ring_ranks, ep_ranks and
+    sp_recompute's rank row through run_ranks: {phase: the launches
+    summed}."""
     done = run_ranks([hybrid_rank_rows(), zero_rank_rows(),
-                      pipeline_rank_rows()], train)
+                      pipeline_rank_rows(), ring_rank_rows(),
+                      ep_rank_rows(), sp_rank_rows()], train)
     check_zero_memory(done["zero_ranks"][1])
     return {phase: counts for phase, (counts, _) in done.items()}
 
@@ -7458,10 +8048,11 @@ def moe_flops(cfg, batch, seq, capacity) -> dict:
                 dispatch_combine=routing, executed=model + padded + routing)
 
 
-def moe_model(device, dtype=torch.bfloat16, layers=None, seed_offset=21):
+def moe_model(device, dtype=torch.bfloat16, layers=None, seed_offset=21,
+              expert_axis=None):
     from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import MoEGPTConfig, MoEGPTForCausalLM
-    cfg = MoEGPTConfig()
+    cfg = MoEGPTConfig(expert_axis=expert_axis)
     if layers is not None:
         cfg.num_hidden_layers = layers
     return cfg, MoEGPTForCausalLM(cfg, device=device, dtype=dtype,
@@ -8364,7 +8955,9 @@ def main() -> int:
     remat_counts = run_train_remat(device, train)
     hybrid_counts, hybrid_coll = run_hybrid(device, train)
     zero_counts = run_zero(device, train, hybrid_coll)
-    rank_counts = run_rank_phases(train)   # pipeline_ranks: this slice's
+    ep_counts = run_ep(device)             # this slice: ep, sp_recompute,
+    sp_counts = run_sp_recompute(device)   # ring_ranks and ep_ranks
+    rank_counts = run_rank_phases(train)
     fit_counts = run_fit(device)
     io_counts = run_io(device)
     fit_fault_counts = run_fit_faults(device)
@@ -8389,19 +8982,24 @@ def main() -> int:
             rows = [r for r in train_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]
             main_row = rows[0]       # Llama-2-7B heads, S = 4096, bf16
-            launches = rank_counts["pipeline_ranks"][name]  # this slice
-            by_path = dict(pipeline_ranks=launches, zero=zero_counts[name],
-                           zero_ranks=rank_counts["zero_ranks"][name],
-                           hybrid=hybrid_counts[name],
-                           hybrid_ranks=rank_counts["hybrid_ranks"][name],
-                           unet=unet_counts[name], bert=bert_counts[name],
-                           moe=moe_counts[name], train=train_counts[name],
-                           train_remat=remat_counts[name],
-                           fit=fit_counts[name], io=io_counts[name],
-                           with_lse=lse_counts[name],
-                           fit_faults=fit_fault_counts[name],
-                           nan_check=nan_counts[name],
-                           fused_layers=fused_counts[name])
+            # this slice's paths: the ring, Ulysses and expert parallelism
+            by_path = dict(ring_ranks=rank_counts["ring_ranks"][name],
+                           ep=ep_counts[name],
+                           ep_ranks=rank_counts["ep_ranks"][name],
+                           sp_recompute=sp_counts[name])
+            launches = sum(by_path.values())
+            by_path.update(
+                pipeline_ranks=rank_counts["pipeline_ranks"][name],
+                zero=zero_counts[name],
+                zero_ranks=rank_counts["zero_ranks"][name],
+                hybrid=hybrid_counts[name],
+                hybrid_ranks=rank_counts["hybrid_ranks"][name],
+                unet=unet_counts[name], bert=bert_counts[name],
+                moe=moe_counts[name], train=train_counts[name],
+                train_remat=remat_counts[name], fit=fit_counts[name],
+                io=io_counts[name], with_lse=lse_counts[name],
+                fit_faults=fit_fault_counts[name],
+                nan_check=nan_counts[name], fused_layers=fused_counts[name])
         elif name in VARLEN_KERNELS:
             rows = [r for r in varlen_rows if r["kernel"] == name
                     and r["dtype"] == "bf16"]

@@ -170,7 +170,10 @@ def shard_state(named: Mapping[str, np.ndarray],
                 ) -> Dict[str, np.ndarray]:
     """Each array of ``named`` cut to the shard of the rank at ``coords``
     (axis -> coordinate) on a mesh of ``sizes`` (axis -> size); a name
-    without a spec stays whole. bf16 arrays arrive as float32."""
+    without a spec stays whole. Any axis cuts alike: an MoE's expert
+    stacks under expert parallelism (``("dp", None, None)``) are cut over
+    the data axis to the rank's experts. bf16 arrays arrive as
+    float32."""
     out = {}
     for name, arr in named.items():
         a = np.asarray(arr)

@@ -7,14 +7,16 @@ NCCL runs on the card, gloo on the CPU when asked.
 ``get_backend()`` names the torch backend (``"nccl"`` / ``"gloo"``) where
 the reference names XLA. ``group_sharded_parallel`` /
 ``save_group_sharded_model`` wrap a model and an optimizer for ZeRO; the
-pipeline lives in ``fleet.meta_parallel``. Sequence and expert
-parallelism, ``auto_parallel``, the distributed checkpoint, ``launch``,
-``ps`` and ``rpc`` are later slices (ROADMAP Queue 1, items 5-6).
+pipeline lives in ``fleet.meta_parallel``, long context and sequence
+parallelism in ``fleet.utils``, expert parallelism in the MoE layer and
+``utils`` (``global_scatter`` / ``global_gather``). ``auto_parallel``, the
+distributed checkpoint, ``launch``, ``ps`` and ``rpc`` are not ported
+yet.
 """
 
 import torch.distributed as _dist
 
-from . import communication, fleet, sharding  # noqa: F401
+from . import communication, fleet, sharding, utils  # noqa: F401
 from .communication import (  # noqa: F401
     Group, P2POp, ReduceOp, Task, all_gather, all_gather_object, all_reduce,
     alltoall, alltoall_single, barrier, batch_isend_irecv, broadcast,

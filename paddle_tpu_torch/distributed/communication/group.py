@@ -80,6 +80,17 @@ _BY_PG_NAME: Dict[str, Group] = {}
 _next_gid = [1]
 
 
+def resolve_group_axis(group, default: Optional[str] = None
+                       ) -> Optional[str]:
+    """The mesh axis a group addresses: its ``global_axis``, else its
+    ``axis_name`` (the hybrid topology's groups carry one), else
+    ``default``."""
+    if group is None:
+        return default
+    return (getattr(group, "global_axis", None)
+            or getattr(group, "axis_name", None) or default)
+
+
 def _register(g: Group) -> Group:
     _GROUP_MAP[g.id] = g
     if g.process_group is not None:

@@ -1,10 +1,11 @@
 """Fleet (counterpart of ``paddle_tpu/distributed/fleet``): ``fleet.init``,
 the hybrid topology, the tensor-parallel layers and ops, the model and
-optimizer wrappers, ZeRO sharding, DGC, and the RNG tracker, on
+optimizer wrappers, ZeRO sharding, DGC, the RNG tracker, and ``utils``
+(recompute, ring / Ulysses attention, sequence parallelism), on
 ``torch.distributed``."""
 
 from . import (  # noqa: F401
-    base_topology, layers, meta_optimizers, meta_parallel, random,
+    base_topology, layers, meta_optimizers, meta_parallel, random, utils,
 )
 from .base_topology import (  # noqa: F401
     CommGroup, CommunicateTopology, HybridCommunicateGroup,

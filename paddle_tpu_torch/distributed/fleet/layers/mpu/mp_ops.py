@@ -11,6 +11,7 @@ them:
   _c_concat        fwd: all-gather      bwd: keep my slice
   _reduce_scatter  fwd: reduce-scatter  bwd: all-gather (sequence-parallel)
   _all_gather      fwd: all-gather      bwd: reduce-scatter
+  _all_to_all      fwd: all-to-all      bwd: the inverse all-to-all
 
 The reference writes them as ``lax`` collectives inside ``shard_map``,
 where JAX transposes each collective itself; each rank here runs its own
@@ -71,6 +72,30 @@ def _scatter_sum(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     out = torch.empty_like(parts[0])
     C.reduce_scatter(out, parts, group=group)
     return out
+
+
+def _exchange(x: torch.Tensor, group: Group, split: int,
+              concat: int) -> torch.Tensor:
+    n = group.nranks
+    if x.shape[split] % n:
+        raise ValueError(f"all_to_all: dim {split} size {x.shape[split]} "
+                         f"not divisible by the group's {n} ranks")
+    send = torch.stack(x.chunk(n, dim=split), dim=0).contiguous()
+    recv = torch.empty_like(send)
+    C.alltoall_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _exchange(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g.contiguous(), ctx.group, ctx.concat, ctx.split),
+                None, None, None)
 
 
 class _Identity(torch.autograd.Function):
@@ -178,6 +203,19 @@ def _all_gather(x: torch.Tensor, group: Optional[Group] = None, dim: int = 0):
     """Concatenate the ranks' shards along ``dim``."""
     group = mp_group(group)
     return x if _n(group) == 1 else _AllGather.apply(x, group, _dim(x, dim))
+
+
+def _all_to_all(x: torch.Tensor, group: Optional[Group] = None,
+                split_axis: int = 0, concat_axis: int = 0):
+    """``split_axis`` cut into one chunk a rank, chunk j sent to rank j,
+    the chunks received concatenated along ``concat_axis`` in rank order
+    (the reference's tiled ``all_to_all``); the backward is the inverse
+    exchange."""
+    group = mp_group(group)
+    if _n(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, _dim(x, split_axis),
+                           _dim(x, concat_axis))
 
 
 def _parallel_matmul(x: torch.Tensor, w_shard: torch.Tensor,

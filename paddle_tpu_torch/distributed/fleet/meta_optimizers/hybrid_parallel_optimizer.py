@@ -13,6 +13,8 @@ Paddle:
   an mp shard over both, and a replicated gradient once, where every rank
   holds the same copy; in a pipeline each stage's sum is then summed over
   the ``pp`` group, a tied weight's copies counted once (``counted``);
+  an expert-parallel slice of an MoE's stacked experts (``expert(p)``)
+  over its expert group, once;
 - in hybrid parallelism (any mode but pure data parallelism, where
   ``DataParallel`` reduces in the backward) ``step`` first averages every
   gradient over the ``dp`` group;
@@ -47,12 +49,14 @@ class HybridParallelClipGrad:
     """A global-norm clip over sharded and replicated gradients.
     ``sliced(p)`` says whether ``p``'s gradient is this rank's ZeRO slice
     over ``sharding_group``. A pipeline stage's sum is summed over
-    ``pp_group``, of the parameters ``counted(p)`` (default: all). With
-    one rank in each group it is ``clip`` itself."""
+    ``pp_group``, of the parameters ``counted(p)`` (default: all). The
+    gradients of ``expert(p)`` parameters, slices of stacked experts, are
+    summed over ``expert_group``. With one rank in each group it is
+    ``clip`` itself."""
 
     def __init__(self, clip: ClipGradByGlobalNorm, mp_group,
                  sharding_group=None, sliced=None, pp_group=None,
-                 counted=None):
+                 counted=None, expert_group=None, expert=None):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self._mp = mp_group if _live(mp_group) else None
@@ -61,10 +65,13 @@ class HybridParallelClipGrad:
         self._sliced = sliced
         self._pp = pp_group if _live(pp_group) else None
         self._counted = counted
+        self._experts = expert_group if _live(expert_group) else None
+        self._expert = expert
 
     def _plain(self) -> bool:
         return (self._mp is None and self._sharding is None
-                and self._pp is None and self._counted is None)
+                and self._pp is None and self._counted is None
+                and self._experts is None)
 
     def global_norm_sq(self, params_grads) -> torch.Tensor:
         """The squared norm of the logical parameters' gradients (f32)."""
@@ -75,6 +82,13 @@ class HybridParallelClipGrad:
         if self._counted is not None:
             params_grads = [(p, g) for p, g in params_grads
                             if self._counted(p)]
+        experts = None
+        if self._experts is not None:
+            experts = self._clip.global_norm_sq(
+                g for p, g in params_grads if self._expert(p)).to(dev)
+            C.all_reduce(experts, group=self._experts)
+            params_grads = [(p, g) for p, g in params_grads
+                            if not self._expert(p)]
 
         def part(over_mp, over_sharding):
             return self._clip.global_norm_sq(
@@ -91,6 +105,8 @@ class HybridParallelClipGrad:
         if self._mp is not None:
             C.all_reduce(over_mp, group=self._mp)
         total = total + over_mp
+        if experts is not None:
+            total = total + experts
         if self._pp is not None:
             C.all_reduce(total, group=self._pp)
         return total
@@ -106,17 +122,19 @@ class HybridParallelClipGrad:
 
 
 def hybrid_clip(optimizer, mp_group, sharding_group=None,
-                sliced=None, pp_group=None, counted=None) -> None:
+                sliced=None, pp_group=None, counted=None,
+                expert_group=None, expert=None) -> None:
     """Give ``optimizer`` the hybrid global-norm clip over ``mp_group``
-    (and ZeRO's ``sharding_group``, and a pipeline's ``pp_group``); a
-    hybrid clip already there is rebuilt over these groups, another clip
-    stays as it is."""
+    (and ZeRO's ``sharding_group``, a pipeline's ``pp_group`` and the
+    expert slices' ``expert_group``); a hybrid clip already there is
+    rebuilt over these groups, another clip stays as it is."""
     clip = optimizer._grad_clip
     if isinstance(clip, HybridParallelClipGrad):
         clip = clip._clip
     if isinstance(clip, ClipGradByGlobalNorm):
         optimizer._grad_clip = HybridParallelClipGrad(
-            clip, mp_group, sharding_group, sliced, pp_group, counted)
+            clip, mp_group, sharding_group, sliced, pp_group, counted,
+            expert_group, expert)
 
 
 class HybridParallelOptimizer(OptimizerWrapper):

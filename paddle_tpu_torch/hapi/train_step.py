@@ -76,11 +76,23 @@ slots' specs. At one rank of the sharding axis the plan is empty and the
 step is the plain one. An optimizer whose update is not elementwise
 (``Lamb``, ``LarsMomentum``, ``DGCMomentum``) raises
 ``NotImplementedError`` at a level above 0. A parameter spec may name
-``mp`` and, at level 3, the sharding axis; another axis of more than one
-rank raises ``NotImplementedError``: a model split over ``pp`` trains
-through ``PipelineTrainStep`` / ``PipelineParallel``
-(``distributed/fleet/meta_parallel/pipeline_parallel.py``), and ``sep`` is
-ROADMAP Queue 1, item 5.
+``mp``, at level 3 the sharding axis, and a data axis for the stacks of an
+MoE's ``Experts`` that declares it (``expert_axis``); another axis of more
+than one rank raises ``NotImplementedError``: a model split over ``pp``
+trains through ``PipelineTrainStep`` / ``PipelineParallel``
+(``distributed/fleet/meta_parallel/pipeline_parallel.py``), and ``sep``
+cuts activations, not parameters (``fleet.utils``'
+``sep_scaled_dot_product_attention``).
+
+Expert parallelism: the expert axis must be the data group (the only data
+axis of more than one rank). Each rank keeps its ``E / P`` experts
+(``Experts.take_slice``), and every MoE layer routes the global batch over
+the data group. An expert slice's gradient already holds every rank's
+tokens (the all-to-all's backward brought them), the gradient of the sum
+of the ranks' losses, so it is divided by the data ranks instead of
+averaged over them; the clip sums its squares over the expert group once.
+A sharding level above 0 with expert slices raises
+``NotImplementedError``.
 
 LocalSGD (``localsgd_k > 1``, or ``strategy.localsgd`` with ``k_steps`` and
 ``begin_step`` on a fleet-wrapped optimizer): the reference's scope. It
@@ -248,19 +260,28 @@ class _MeshPlan:
             raise ValueError("TrainStep(mesh=...) cuts the parameters: "
                              "build it before the optimizer's first step")
         allowed = {mp} | ({axis} if level >= 3 else set())
+        # an MoE's Experts declaring a data axis (expert parallelism)
+        stacks = [m for m in model.modules() if hasattr(m, "take_slice")
+                  and getattr(m, "expert_axis", None) in data]
+        expert_of = {id(p): m.expert_axis for m in stacks
+                     for p in m.parameters()}
         specs = {}
         for name, p in model.named_parameters():
             spec = (param_spec_fn(name, p) if param_spec_fn is not None
                     else getattr(p, "dist_attr", None))
             spec = _on_mesh(spec, names)
             for a in (a for e in spec for a in entry_axes(e)):
-                if sizes[a] > 1 and a not in allowed:
+                if sizes[a] > 1 and a not in allowed \
+                        and expert_of.get(id(p)) != a:
                     raise NotImplementedError(
                         f"{name}: spec {spec} shards over {a!r}; the step "
-                        f"shards parameters over {mp!r} and, at sharding "
-                        f"level 3, the sharding axis (a pipeline over 'pp' "
-                        f"trains through PipelineTrainStep / "
-                        f"PipelineParallel; sep is ROADMAP Queue 1, item 5)")
+                        f"shards parameters over {mp!r}, at sharding "
+                        f"level 3 the sharding axis, and an MoE's expert "
+                        f"stacks over the data axis their Experts declare "
+                        f"(a pipeline over 'pp' trains through "
+                        f"PipelineTrainStep / PipelineParallel; 'sep' cuts "
+                        f"activations through fleet.utils' "
+                        f"sep_scaled_dot_product_attention)")
             if localsgd and any(e is not None for e in spec):
                 raise NotImplementedError(
                     f"localsgd needs replicated parameters; {name!r} "
@@ -276,6 +297,7 @@ class _MeshPlan:
             if hasattr(type(m), "parallel_loss_groups"):
                 m.parallel_loss_groups = (
                     self.mp_group, None if localsgd else self.data_group)
+        self.expert_params = self._cut_experts(stacks, mesh, sizes, level)
 
         self.param_specs, self.opt_specs = {}, {}
         cuts, stored = {}, []
@@ -312,9 +334,35 @@ class _MeshPlan:
                                  self.data_group, self.mp_group)
             optimizer._zero = self.zero
         # at stage 1 the gradients are whole on every sharding rank
+        experts = {id(p) for p in self.expert_params}
         hybrid_clip(optimizer, self.mp_group,
                     sharding if level >= 2 else None,
-                    None if self.zero is None else self.zero.sliced_grad)
+                    None if self.zero is None else self.zero.sliced_grad,
+                    expert_group=self.data_group if experts else None,
+                    expert=lambda p: id(p) in experts)
+
+    def _cut_experts(self, stacks, mesh, sizes, level) -> list:
+        """Each of ``stacks`` whose axis has more than one rank cut to this
+        rank's experts; their parameters."""
+        from ..distributed.communication.group import from_process_group
+        out = []
+        for m in stacks:
+            ax = m.expert_axis
+            if sizes[ax] <= 1:
+                continue
+            group = from_process_group(mesh.get_group(ax))
+            if self.data_group is None \
+                    or group.ranks != self.data_group.ranks:
+                raise NotImplementedError(
+                    f"expert parallelism over {ax!r} needs it to be the "
+                    f"only data axis of more than one rank")
+            if level:
+                raise NotImplementedError(
+                    "expert parallelism under a sharding level: ZeRO does "
+                    "not cut expert slices")
+            m.take_slice(group)
+            out.extend(m.parameters())
+        return out
 
     def rows(self, b):
         """This rank's rows of a global batch tensor."""
@@ -337,7 +385,12 @@ class _MeshPlan:
         if self.zero is not None:
             self.zero.reduce_grads(params)
         elif not self.localsgd:
-            average_gradients(params, self.data_group)
+            experts = {id(p) for p in self.expert_params}
+            average_gradients([p for p in params if id(p) not in experts],
+                              self.data_group)
+            for p in self.expert_params:
+                if p.grad is not None:
+                    p.grad.div_(self.data_size)
         loss = loss.clone()
         C.all_reduce(loss, group=self.data_group)
         return loss / self.data_size if self.data_size > 1 else loss

@@ -11,8 +11,9 @@ As in the JAX package, ``GShardGate``'s ``random_routing`` and
 ``SwitchGate``'s ``switch_eps`` are stored and never applied (no second
 expert is dropped at random, no jitter is added), and the ``capacity``
 pairs are stored for the reference's signature: the layer's
-``capacity_factor`` sets the capacity. A ``group`` (expert parallelism)
-raises ``NotImplementedError``.
+``capacity_factor`` sets the capacity. A ``group`` is stored, as in the
+JAX package: the layer routes over the data group ``TrainStep`` stamps on
+it.
 """
 
 from __future__ import annotations
@@ -25,13 +26,6 @@ from torch import nn
 from .....device import DeviceLike, resolve_device
 from .....nn import functional as F
 from .....nn.initializer import XavierUniform
-
-
-def _refuse_group(group) -> None:
-    if group is not None:
-        raise NotImplementedError(
-            "MoE gate: a communication group (expert parallelism) is not "
-            "ported; the port's MoE runs on one card")
 
 
 class BaseGate(nn.Module):
@@ -89,11 +83,11 @@ class GShardGate(NaiveGate):
                  device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
-        _refuse_group(group)
         super().__init__(d_model, num_expert, world_size, top_k=top_k,
                          device=device, dtype=dtype, generator=generator)
         self.capacity_factor = capacity
         self.random_routing = random_routing
+        self.group = group
 
 
 class SwitchGate(NaiveGate):
@@ -107,8 +101,8 @@ class SwitchGate(NaiveGate):
                  device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
-        _refuse_group(group)
         super().__init__(d_model, num_expert, world_size, top_k=top_k,
                          device=device, dtype=dtype, generator=generator)
         self.switch_eps = switch_eps
         self.capacity_factor = capacity
+        self.group = group

@@ -13,8 +13,27 @@ Everything is plain PyTorch: the JAX package has no kernel here.
 
 ``jax.lax.top_k`` returns the lower expert index on a tie, and
 ``torch.topk`` promises no order, so the choices come from a stable
-descending sort. Expert parallelism (``moe_group``, ``mp_group``,
-``expert_axis``) and ``recompute_interval`` (stored and ignored by the JAX
+descending sort.
+
+Across data-parallel ranks (``TrainStep(mesh=...)`` stamps the data group
+on every MoE layer through ``parallel_loss_groups``) the routing is the
+reference's over the GLOBAL batch, whose rows the ranks hold in rank
+order: one all-gather of each rank's ``(k, E)`` table of per-expert choice
+counts gives the global token count (the capacity's T) and each choice's
+exclusive prefix (the ranks before this one, plus every rank's earlier
+choices), and the aux loss's ``me`` / ``ce`` are sums all-reduced over the
+group (``mp_ops``' identity-then-all-reduce pair, whose backward
+all-reduces the cotangents: the gate's gradient is the reference's)
+divided by the global T.
+
+Expert parallelism (``Experts(expert_axis=...)``, ``moe_group``): the
+whole ``(E, ...)`` stack is drawn from the seed and ``TrainStep`` cuts it
+to this rank's ``E / P`` experts (``expert_group``, the data group). Each
+rank builds its ``(E, C, d)`` dispatch of its own tokens (the positions of
+different ranks never overlap), one all-to-all sends each expert's rows to
+its owner, which sums the ranks' parts and runs its experts, and a second
+all-to-all hands every rank all the experts' outputs for its combine.
+``mp_group`` and ``recompute_interval`` (stored and ignored by the JAX
 package) raise ``NotImplementedError``.
 """
 
@@ -27,20 +46,23 @@ import torch
 from torch import nn
 
 from .....device import DeviceLike, resolve_device
+from .....distributed.communication import collectives as C
+from .....distributed.communication.group import resolve_group_axis
+from .....distributed.fleet.layers.mpu.mp_ops import (
+    _all_to_all, _c_identity, _mp_allreduce)
 from .....nn import functional as F
 from .....nn.initializer import Constant, XavierUniform
 from .gate import BaseGate, GShardGate, NaiveGate, SwitchGate
 
 
-def _refuse_parallel(what: str) -> None:
-    raise NotImplementedError(
-        f"MoE: {what} (expert parallelism) is not ported; the port's MoE "
-        "runs on one card")
+def _live(group) -> bool:
+    return group is not None and group.nranks > 1
 
 
 # ------------------------------------------------------------------ dispatch
-def top_k_dispatch(logits: torch.Tensor, k: int, capacity: int,
-                   aux_mode: Optional[str] = None):
+def top_k_dispatch(logits: torch.Tensor, k: int,
+                   capacity: Union[int, Callable[[int], int]],
+                   aux_mode: Optional[str] = None, group=None):
     """``(combine, dispatch, aux_loss)`` from gate logits ``(T, E)``:
     combine ``(T, E, C)`` f32, dispatch ``(T, E, C)`` bool, aux_loss an f32
     scalar (0 when ``aux_mode`` is None). Differentiable with respect to
@@ -49,35 +71,64 @@ def top_k_dispatch(logits: torch.Tensor, k: int, capacity: int,
     Probabilities are the f32 softmax of the logits. Choice i of a token
     takes position ``cumsum - m + prev_count`` in its expert (every
     earlier choice of every token counted first) and is dropped at or past
-    ``capacity``; the kept choices' probabilities are renormalised to sum
-    to one (a token with none kept divides by 1). The aux loss ("gshard"
-    or "switch") is ``E * sum(mean prob * first-choice fraction)``."""
+    ``capacity`` (an int, or a function of the global token count); the
+    kept choices' probabilities are renormalised to sum to one (a token
+    with none kept divides by 1). The aux loss ("gshard" or "switch") is
+    ``E * sum(mean prob * first-choice fraction)``.
+
+    With a ``group`` of more than one rank the logits are this rank's rows
+    of a global batch held in rank order, and the routing is the global
+    batch's: every position, the capacity and the means count all ranks'
+    tokens (one all-gather of the ``(k, E)`` count tables, one all-reduce
+    of the probabilities' sums)."""
     t, e = logits.shape
+    dev = logits.device
     probs = torch.softmax(logits.float(), dim=-1)
     # stable: on a tie the lower expert index first, as jax.lax.top_k
     top = torch.sort(probs.detach(), dim=-1, descending=True,
                      stable=True).indices[:, :k]
     masks = [nn.functional.one_hot(top[:, i], e).float() for i in range(k)]
+    counts = torch.stack([m.sum(dim=0) for m in masks])      # (k, E)
+
+    if _live(group):
+        table = []
+        C.all_gather(table, counts.contiguous(), group=group)
+        table = torch.stack(table)                           # (R, k, E)
+        glob = table.sum(dim=0)
+        # ranks before this one, then every rank's earlier choices
+        starts = table[:group.rank].sum(dim=0) + torch.cumsum(
+            glob, dim=0) - glob
+        total = int(glob[0].sum())
+        # the sum over the ranks, whose backward sums the ranks'
+        # cotangents too: each rank's loss reads every rank's part
+        prob_sum = _mp_allreduce(_c_identity(probs.sum(dim=0), group),
+                                 group)
+    else:
+        starts = torch.cumsum(counts, dim=0) - counts
+        glob, total, prob_sum = counts, t, None
+    if callable(capacity):
+        capacity = capacity(total)
 
     if aux_mode in ("gshard", "switch"):
-        aux = (probs.mean(dim=0) * masks[0].mean(dim=0)).sum() * e
+        if prob_sum is None:
+            aux = (probs.mean(dim=0) * masks[0].mean(dim=0)).sum() * e
+        else:
+            aux = ((prob_sum / total) * (glob[0] / total)).sum() * e
     else:
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
 
-    prev = torch.zeros(e, dtype=torch.float32, device=logits.device)
     gates, places = [], []
-    for m in masks:
-        pos = torch.cumsum(m, dim=0) - m + prev             # (T, E)
-        prev = prev + m.sum(dim=0)
+    for i, m in enumerate(masks):
+        pos = torch.cumsum(m, dim=0) - m + starts[i]         # (T, E)
         keep = m * (pos < capacity)                          # drop overflow
         gates.append((probs * m).sum(dim=-1))               # (T,)
         places.append((keep, pos))
 
     denom = sum(g * kp.sum(dim=-1) for g, (kp, _) in zip(gates, places))
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    slots = torch.arange(capacity, device=logits.device)
+    slots = torch.arange(capacity, device=dev)
     combine = torch.zeros((t, e, capacity), dtype=torch.float32,
-                          device=logits.device)
+                          device=dev)
     for g, (keep, pos) in zip(gates, places):
         w = (g / denom)[:, None] * keep                      # (T, E)
         # the kept one-hot slot; a position past the capacity has none
@@ -92,7 +143,12 @@ class Experts(nn.Module):
     """Stacked expert FFNs ``act(x @ w1 + b1) @ w2 + b2`` over the expert
     axis: ``w1`` ``(E, d, h)``, ``w2`` ``(E, h, d)`` (Xavier-uniform with
     the JAX package's 3-D fans), biases ``(E, 1, h)`` and ``(E, 1, d)``
-    (zeros); the activation defaults to exact GELU."""
+    (zeros); the activation defaults to exact GELU.
+
+    ``expert_axis`` (a mesh axis, e.g. "dp") declares expert parallelism:
+    the four stacks carry the spec ``(axis, None, None)`` and
+    ``TrainStep(mesh=...)`` keeps this rank's ``E / P`` experts
+    (:meth:`take_slice`), the whole stack having been drawn first."""
 
     def __init__(self, num_expert: int, d_model: int, d_hidden: int,
                  activation: Callable = None,
@@ -101,8 +157,6 @@ class Experts(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if expert_axis is not None:
-            _refuse_parallel(f"expert_axis={expert_axis!r}")
         dev = resolve_device(device)
         dtype = dtype or torch.float32
         self.num_expert, self.d_model, self.d_hidden = (num_expert, d_model,
@@ -115,9 +169,27 @@ class Experts(nn.Module):
         self.w2 = nn.Parameter(xavier((num_expert, d_hidden, d_model), dev,
                                       dtype, generator))
         self.b2 = nn.Parameter(zero((num_expert, 1, d_model), dev, dtype))
+        self.expert_axis = expert_axis
+        self.expert_group = None
+        if expert_axis is not None:
+            for p in self.parameters():
+                p.dist_attr = (expert_axis, None, None)
+
+    @torch.no_grad()
+    def take_slice(self, group) -> None:
+        """Keep this rank's ``E / P`` experts of ``group`` (the same
+        ``Parameter`` objects, their data narrowed)."""
+        n = group.nranks
+        if self.num_expert % n:
+            raise ValueError(f"{self.num_expert} experts do not split over "
+                             f"{n} ranks")
+        for p in self.parameters():
+            p.data = p.data.chunk(n, dim=0)[group.rank].clone()
+        self.expert_group = group
 
     def forward(self, dispatched: torch.Tensor) -> torch.Tensor:
-        """``(E, C, d) -> (E, C, d)``."""
+        """``(E, C, d) -> (E, C, d)`` (this rank's experts only under expert
+        parallelism)."""
         h = self.act(torch.bmm(dispatched, self.w1) + self.b1)
         return torch.bmm(h, self.w2) + self.b2
 
@@ -138,19 +210,25 @@ class _ListExperts(nn.Module):
 # ------------------------------------------------------------------ MoELayer
 class MoELayer(nn.Module):
     """Paddle's ``MoELayer(d_model, experts, gate, moe_group, mp_group,
-    recompute_interval, ...)`` on one card. ``experts`` is an
-    :class:`Experts`, a list of per-expert modules, or None (an
-    :class:`Experts` FFN of ``num_expert`` x ``d_hidden`` is built, exact
-    GELU); ``gate`` a :class:`BaseGate`, a name ("naive", "gshard",
-    "switch"), a ``{"type": name}`` dict, or None (GShard), built with
-    ``top_k``. Built on the card unless ``device`` says otherwise; new
-    weights are drawn from ``generator``.
+    recompute_interval, ...)``. ``experts`` is an :class:`Experts`, a list
+    of per-expert modules, or None (an :class:`Experts` FFN of
+    ``num_expert`` x ``d_hidden`` is built, exact GELU); ``gate`` a
+    :class:`BaseGate`, a name ("naive", "gshard", "switch"), a ``{"type":
+    name}`` dict, or None (GShard), built with ``top_k``. Built on the card
+    unless ``device`` says otherwise; new weights are drawn from
+    ``generator``. ``moe_group`` names the expert axis when
+    ``expert_axis`` does not (the group's topology axis, as the reference
+    resolves it).
 
-    The capacity of T tokens is ``max(ceil(capacity_factor * k * T / E),
-    4)``. The forward routes ``x`` ``(..., d)`` flattened to T tokens,
-    casts the dispatch mask and then the combine weights to the
+    The capacity of T tokens (the global batch's, across the data group
+    stamped in ``parallel_loss_groups``) is ``max(ceil(capacity_factor * k
+    * T / E), 4)``. The forward routes ``x`` ``(..., d)`` flattened to T
+    tokens, casts the dispatch mask and then the combine weights to the
     activations' dtype before each product (as the JAX package does: in
     bf16 the weights round first), and stores the aux loss on the gate."""
+
+    # (mp group, data group), stamped by TrainStep(mesh=...)
+    parallel_loss_groups = (None, None)
 
     def __init__(self, d_model: int, experts=None,
                  gate: Union[BaseGate, dict, str, None] = None,
@@ -163,14 +241,17 @@ class MoELayer(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        for name, value in (("moe_group", moe_group), ("mp_group", mp_group),
-                            ("expert_axis", expert_axis)):
-            if value is not None:
-                _refuse_parallel(name)
+        if mp_group is not None:
+            raise NotImplementedError(
+                "MoELayer: mp_group is not ported (the JAX package stores "
+                "it and shards nothing over it)")
         if recompute_interval:
             raise NotImplementedError(
                 "MoELayer: recompute_interval is not ported (the JAX "
                 "package stores it and recomputes nothing)")
+        if expert_axis is None and moe_group is not None:
+            expert_axis = resolve_group_axis(moe_group)
+        self.expert_axis = expert_axis
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype, generator=generator)
         self.d_model = d_model
@@ -183,7 +264,8 @@ class MoELayer(nn.Module):
         elif experts is None:
             if num_expert is None or d_hidden is None:
                 raise ValueError("need experts=... or num_expert + d_hidden")
-            self.experts = Experts(num_expert, d_model, d_hidden, **kw)
+            self.experts = Experts(num_expert, d_model, d_hidden,
+                                   expert_axis=expert_axis, **kw)
         else:
             raise TypeError(f"unsupported experts {experts!r}")
         self.num_expert = num_expert
@@ -212,15 +294,26 @@ class MoELayer(nn.Module):
         xt = x.reshape(-1, d)
         t = xt.shape[0]
         logits = self.gate(xt)
-        cap = self.capacity(t)
         combine, dispatch, aux = top_k_dispatch(
-            logits, self.top_k, cap, getattr(self.gate, "aux_loss_mode",
-                                             None))
-        e = combine.shape[1]
+            logits, self.top_k, self.capacity,
+            getattr(self.gate, "aux_loss_mode", None),
+            self.parallel_loss_groups[1])
+        e, cap = combine.shape[1], combine.shape[2]
         # token -> expert: td,tec->ecd over the constant mask
         mask = dispatch.reshape(t, e * cap).to(xt.dtype)
         dispatched = (mask.transpose(0, 1) @ xt).reshape(e, cap, d)
-        expert_out = self.experts(dispatched)               # (E, C, d)
+        group = getattr(self.experts, "expert_group", None)
+        if _live(group):
+            # each owner sums the ranks' parts of its experts' rows (their
+            # positions never overlap), runs them, and every rank gets
+            # all the experts' outputs back
+            n = group.nranks
+            mine = _all_to_all(dispatched, group, 0, 0).reshape(
+                n, e // n, cap, d).sum(dim=0)
+            expert_out = _all_to_all(self.experts(mine).repeat(n, 1, 1),
+                                     group, 0, 0)
+        else:
+            expert_out = self.experts(dispatched)           # (E, C, d)
         # expert -> token: ecd,tec->td, the weights in the outputs' dtype
         out = (combine.reshape(t, e * cap).to(expert_out.dtype)
                @ expert_out.reshape(e * cap, d))

@@ -16,6 +16,10 @@ holds another's graph). The LM loss is
 over the tied head, as the port's GPT computes it (f32 logits from the
 hidden states; the JAX model forms the logits in the weights' dtype, the
 same value in f32).
+
+``expert_axis`` (e.g. "dp") puts every MoE block's experts under expert
+parallelism: ``TrainStep(mesh=...)`` keeps each data rank's ``E / P`` of
+them, and the blocks route the global batch (``MoELayer``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ class MoEGPTConfig(GPTConfig):
     moe_every: int = 2           # every Nth block uses an MoE FFN
     capacity_factor: float = 1.2
     aux_loss_weight: float = 0.01
-    expert_axis: Optional[str] = None   # expert parallelism: not ported
+    expert_axis: Optional[str] = None   # mesh axis for EP (e.g. "dp")
 
     @staticmethod
     def tiny(**kw) -> "MoEGPTConfig":
